@@ -1,0 +1,59 @@
+"""Cell binning: particle -> cell keys, (key, pid) sort, segment geometry.
+
+The reference rebuilds pointer buckets every step in ascending particle-index
+order (reference serial/parsim.cpp:261-290). Here binning is a sort by
+(cell key, particle id): within a cell, particles appear in ascending original
+index — the same in-bucket order.
+
+Out-of-range cells (the reference's ``[PANIC2]`` skip-and-continue,
+serial/parsim.cpp:276-280) map to a sentinel key ``ncells`` that sorts last.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cell_keys(x, y, side: float, ncside: int):
+    """Cell key per particle (int32); sentinel ``ncside**2`` for out-of-range.
+
+    Matches ``int(coord / (side/ncside))`` with C truncation-toward-zero
+    (reference serial/parsim.cpp:268-272).
+    """
+    w = torch.full((), side / ncside, dtype=x.dtype, device=x.device)
+    cx = (x / w).to(torch.int32)
+    cy = (y / w).to(torch.int32)
+    valid = (cx >= 0) & (cx < ncside) & (cy >= 0) & (cy < ncside)
+    key = torch.where(valid, cy * ncside + cx,
+                      torch.full_like(cx, ncside * ncside))
+    return key, valid
+
+
+def sort_by_cell(key, pid, *arrays):
+    """Sort by (key, pid); returns (key, pid, *arrays) sorted.
+
+    Torch has no multi-key sort: the pair becomes one int64 composite key
+    (key in the high 32 bits; pid >= 0 fits the low 31), unique per particle.
+    """
+    composite = key.to(torch.int64) * (1 << 32) + pid.to(torch.int64)
+    order = torch.argsort(composite)
+    return (key[order], pid[order]) + tuple(a[order] for a in arrays)
+
+
+def segment_positions(key_sorted):
+    """Per-element position within its run of equal keys, for sorted keys.
+
+    Returns (pos_in_cell, is_segment_start). pos_in_cell matches the
+    reference's in-bucket index j (serial/parsim.cpp:265-289).
+    """
+    idx = torch.arange(key_sorted.shape[0], device=key_sorted.device)
+    # First index of each element's key. (The JAX package takes a running
+    # max of segment starts; torch's CUDA cummax took 4.3 ms per call on
+    # 1.6M slots on an H100, far more than a binary search per element.)
+    seg_start = torch.searchsorted(key_sorted, key_sorted)
+    return idx - seg_start, seg_start == idx
+
+
+def max_occupancy(pos_in_cell, valid):
+    """Max particles in any real (non-sentinel) cell; 0-d tensor."""
+    return torch.max(torch.where(valid, pos_in_cell, -1)) + 1

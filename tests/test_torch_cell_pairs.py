@@ -1,0 +1,160 @@
+"""The port's fused pair pass (plain torch version) vs the JAX package's
+Pallas kernel (interpret mode on the CPU) and its XLA twin.
+
+Inputs are made with NumPy from a seed and given to both sides as float32 /
+int32. Collision outputs (ft, count) must be exact. Forces hold to
+rtol 1e-5 with atol 1e-6·max|f| (the tolerance of test_pallas_fused.py):
+the partner sums run in another order and torch.rsqrt may differ from XLA's
+by an ulp. The v4 form computes fx_i = G·m_i·(Σ w_ij·xl_j − xl_i·Σ w_ij),
+whose two terms cancel on near pairs, so its rounding error is bounded by the
+terms' size, not the result's: v4 forces hold to that tolerance plus 8 ulps
+of G·m_i·Σ_j w_ij·(|xl_i| + |xl_j|) per element (w = m_j/d³ on the
+recentred coordinates xl).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from particlesimulation_tpu.config import EPSILON, G
+from particlesimulation_tpu.ops import dense_xla
+from particlesimulation_tpu.ops.pallas import cell_pairs as pallas_pairs
+from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+torch.set_num_threads(2)
+
+
+def _tiles(seed, ncells, kcap, used, permute_pid):
+    """Tiles with empty slots past ``used`` and planted colliding chains."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (ncells, kcap)).astype(np.float32)
+    y = rng.uniform(0, 1, (ncells, kcap)).astype(np.float32)
+    m = rng.uniform(0.5, 2.0, (ncells, kcap)).astype(np.float32)
+    m[:, used:] = 0.0
+    for c in (1, 5):
+        # A chain: slot 0 - slot 1 - slot 2, each EPSILON/3 apart.
+        x[c, 1] = x[c, 0] + EPSILON / 3
+        y[c, 1] = y[c, 0]
+        x[c, 2] = x[c, 1] + EPSILON / 3
+        y[c, 2] = y[c, 1]
+    alive = (m > 0).astype(np.int32)
+    if permute_pid:
+        pid = np.argsort(rng.uniform(size=(ncells, kcap)), axis=1)
+    else:
+        pid = np.broadcast_to(np.arange(kcap), (ncells, kcap))
+    return x, y, m, alive, np.ascontiguousarray(pid, dtype=np.int32)
+
+
+def _recentred(c, m_post):
+    """Coordinate c recentred on the mean of used slots, in float64."""
+    c = c.astype(np.float64)
+    m = m_post.astype(np.float64)
+    used = m > 0
+    return c - (c * used).sum(1, keepdims=True) / np.maximum(
+        used.sum(1, keepdims=True), 1)
+
+
+def _v4_bound(x, y, m_post):
+    """Per element, 8 ulps of G·m_i·Σ_j w_ij·(|cl_i| + |cl_j|) for each
+    recentred coordinate cl (the size of the two v4 terms that cancel)."""
+    xl, yl = _recentred(x, m_post), _recentred(y, m_post)
+    d2 = ((xl[:, None, :] - xl[:, :, None]) ** 2
+          + (yl[:, None, :] - yl[:, :, None]) ** 2)
+    w = np.divide(np.broadcast_to(m_post[:, None, :], d2.shape), d2 ** 1.5,
+                  out=np.zeros_like(d2), where=d2 > 0)
+    gm = G * m_post.astype(np.float64)
+    return tuple(2.0 ** -20 * gm * np.sum(
+        w * (np.abs(cl)[:, :, None] + np.abs(cl)[:, None, :]), axis=2)
+        for cl in (xl, yl))
+
+
+def _compare(got, ref, form, x, y, m):
+    fx, fy, cnt, ft = (t.numpy() for t in got)
+    np.testing.assert_array_equal(ft, np.asarray(ref[3]))
+    assert int(cnt) == int(ref[2])
+    m_post = np.where(ft != cell_pairs.INF, 0.0, m)
+    bounds = _v4_bound(x, y, m_post) if form == "v4" else (0.0, 0.0)
+    for a, b, bound in ((fx, ref[0], bounds[0]), (fy, ref[1], bounds[1])):
+        b = np.asarray(b)
+        scale = float(np.abs(b).max()) + 1e-30
+        err = np.abs(a.astype(np.float64) - b)
+        assert (err <= 1e-5 * np.abs(b) + 1e-6 * scale + bound).all(), (
+            float(err.max()))
+
+
+CASES = [
+    # (kcap, used, force_form, collide, permute_pid)
+    (32, 24, "v2", True, False),
+    (32, 24, "v2", True, True),
+    (32, 24, "v4", True, False),
+    (32, 24, "v4", True, True),
+    (32, 24, "v2", False, True),
+    (32, 24, "v4", False, True),
+    (160, 100, "v4", True, True),
+]
+
+
+@pytest.mark.parametrize("kcap,used,form,collide,permute", CASES)
+def test_ref_matches_pallas(kcap, used, form, collide, permute):
+    ncells = 12
+    x, y, m, alive, pid = _tiles(kcap + used, ncells, kcap, used, permute)
+    pallas_fn = {"v2": pallas_pairs.fused_pairs_v2,
+                 "v4": pallas_pairs.fused_pairs_v4}[form]
+    ref = pallas_fn(jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),
+                    jnp.asarray(alive), ncells, kcap, EPSILON,
+                    collide=collide, pid=jnp.asarray(pid))
+    got = cell_pairs.fused_pairs_ref(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(m),
+        torch.from_numpy(alive), torch.from_numpy(pid), kcap, EPSILON,
+        collide=collide, force_form=form)
+    _compare(got, ref, form, x, y, m)
+    if collide:
+        assert int(ref[2]) > 0  # the planted chains collide
+
+
+@pytest.mark.parametrize("form", ["v2", "v4"])
+def test_ref_matches_xla_at_max_kcap(form):
+    """K = 1024 (the kernel's largest tile) against the XLA twin, which
+    computes the same function as the Pallas kernel."""
+    ncells, kcap = 6, 1024
+    x, y, m, alive, pid = _tiles(7, ncells, kcap, 900, True)
+    xla_fn = {"v2": dense_xla.fused_pairs_v2,
+              "v4": dense_xla.fused_pairs_v4}[form]
+    ref = xla_fn(jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),
+                 jnp.asarray(alive), ncells, kcap, EPSILON,
+                 pid=jnp.asarray(pid))
+    got = cell_pairs.fused_pairs_ref(
+        torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(m),
+        torch.from_numpy(alive), torch.from_numpy(pid), kcap, EPSILON,
+        force_form=form)
+    _compare(got, ref, form, x, y, m)
+
+
+def test_wrapper_takes_plain_path_on_cpu():
+    x, y, m, alive, pid = (torch.from_numpy(a) for a in
+                           _tiles(3, 8, 32, 20, True))
+    before = cell_pairs.LAUNCHES
+    got = cell_pairs.fused_pairs(x, y, m, alive, pid, 32, EPSILON)
+    ref = cell_pairs.fused_pairs_ref(x, y, m, alive, pid, 32, EPSILON)
+    assert cell_pairs.LAUNCHES == before  # no kernel launch on the CPU
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "kcap", "form"])
+def test_wrapper_rejects_bad_input(bad):
+    x, y, m, alive, pid = (torch.from_numpy(a) for a in
+                           _tiles(3, 8, 32, 20, True))
+    kcap, form = 32, "v4"
+    if bad == "dtype":
+        alive = alive.to(torch.int64)
+    elif bad == "shape":
+        y = y[:, :16].contiguous()
+    elif bad == "kcap":
+        kcap = 16
+    else:
+        form = "v3"
+    with pytest.raises((TypeError, ValueError)):
+        cell_pairs.fused_pairs(x, y, m, alive, pid, kcap, EPSILON,
+                               force_form=form)

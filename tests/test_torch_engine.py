@@ -1,0 +1,180 @@
+"""The port's resident engine on the CPU vs the JAX package's, end to end.
+
+Both start from the same host initializer. Collision counts and dead sets
+must be exact; positions hold to atol 1e-6·side and velocities to
+atol 1e-5·max|v|, because the fused pair sums run in another order (in
+practice the trajectories of these short runs agree bit for bit).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from particlesimulation_tpu.config import Precision as JPrecision
+from particlesimulation_tpu.config import SimConfig as JSimConfig
+from particlesimulation_tpu.engine import Engine as JEngine
+from particlesimulation_tpu.engine import make_resident_run as jmake_resident_run
+from particlesimulation_tpu.ops.tiered import plan_tiers
+from particlesimulation_tpu_torch.config import Precision, SimConfig
+from particlesimulation_tpu_torch.engine import (MAX_DENSE_KCAP, Engine,
+                                                 _clustered, make_resident_run)
+from particlesimulation_tpu_torch.models import Simulation
+from particlesimulation_tpu_torch.state import state_from_numpy
+from tests.test_golden import FAST_VECTORS
+
+torch.set_num_threads(2)
+
+FIELDS = ("x", "y", "vx", "vy", "m", "alive")
+
+
+def _by_pid(state):
+    pid = np.asarray(state.pid)
+    order = np.argsort(pid)
+    return {f: np.asarray(getattr(state, f))[order] for f in FIELDS}
+
+
+def _port_by_pid(state):
+    order = torch.argsort(state.pid)
+    return {f: getattr(state, f)[order].numpy() for f in FIELDS}
+
+
+def _assert_same_run(got, ref, side):
+    assert int(got.collisions) == int(ref.collisions)
+    a, b = _port_by_pid(got), _by_pid(ref)
+    np.testing.assert_array_equal(a["alive"], b["alive"])
+    for f in ("x", "y"):
+        np.testing.assert_allclose(a[f], b[f], rtol=0, atol=1e-6 * side)
+    vmax = float(np.abs(b["vx"]).max())
+    np.testing.assert_allclose(a["vx"], b["vx"], rtol=0, atol=1e-5 * vmax)
+    assert int(got.overflow) == 0
+
+
+@pytest.mark.parametrize("seed,side,nc,n,steps", [
+    (5893, 0.08, 4, 120, 5),     # v2 force form (side < 100), collisions
+    (2, 100.0, 16, 12000, 5),    # v4 force form (side >= 100), collisions
+], ids=["v2", "v4"])
+def test_engine_matches_jax_resident(seed, side, nc, n, steps):
+    jeng = JEngine(JSimConfig(seed, side, nc, n, precision=JPrecision.FAST),
+                   impl="resident", dense_backend="pallas")
+    ref = jeng.run(jeng.init_state(), steps)
+    eng = Engine(SimConfig(seed, side, nc, n), impl="resident", device="cpu")
+    got = eng.run(eng.init_state(), steps)
+    assert eng.kcap == jeng.kcap
+    assert int(ref.collisions) > 0
+    _assert_same_run(got, ref, side)
+
+
+def test_prologue_matches_jax_with_limbo():
+    """The prologue lays out the tiles exactly as the JAX package's does,
+    parking an out-of-range particle in its clamped row (19, 19)."""
+    cfg = JSimConfig(seed=1, side=100.0, ncside=20, n_particles=64,
+                     precision=JPrecision.FAST)
+    state = JEngine(cfg, impl="resident", dense_backend="xla").init_state()
+    i0 = int(np.argmin(np.asarray(state.pid)))
+    state = state._replace(x=state.x.at[i0].set(100.0),
+                           y=state.y.at[i0].set(97.0))
+    _, jprologue, _ = jmake_resident_run(cfg, 32)
+    ref = jprologue(state)
+    prologue, _ = make_resident_run(SimConfig(1, 100.0, 20, 64), 32)
+    got = prologue(state_from_numpy(
+        {f: np.asarray(getattr(state, f)) for f in state._fields}, "cpu"))
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    occ, pid = got.occ.numpy(), got.pid.numpy()
+    assert (occ[399] & (pid[399] == 0)).any()
+
+
+@pytest.mark.parametrize("vec", FAST_VECTORS,
+                         ids=[f"v{i}" for i in range(len(FAST_VECTORS))])
+def test_fast_golden(vec):
+    """The reference harness tolerance: coordinates ±0.001, exact count."""
+    seed, side, nc, n, steps, ex, ey, ec = vec
+    eng = Engine(SimConfig(seed, side, nc, n), impl="resident", device="cpu")
+    out = eng.run(eng.init_state(), steps)
+    x, y, c = eng.result(out)
+    assert abs(x - ex) <= 0.001, f"x: {x:.4f} vs {ex:.3f}"
+    assert abs(y - ey) <= 0.001, f"y: {y:.4f} vs {ey:.3f}"
+    assert c == ec
+    assert int(out.overflow) == 0
+
+
+@pytest.mark.parametrize("start", ["small", "full"])
+def test_capacity_retry_is_lossless(start):
+    """Tiles too small at the start (prologue overflow) or filling up during
+    the run (undelivered movers) are replayed at a larger kcap; the result
+    equals a run started at the census kcap."""
+    cfg = SimConfig(seed=1, side=10.0, ncside=2, n_particles=400)
+    base = Engine(cfg, impl="resident", device="cpu")
+    state = base.init_state()
+    ref = base.run(state, 20)
+    if start == "small":
+        kcap = 8
+    else:
+        # Exactly the fullest cell's occupancy: its row has no free slot.
+        kcap = int(np.bincount(
+            (state.y.numpy() // 5).astype(int) * 2
+            + (state.x.numpy() // 5).astype(int)).max())
+    eng = Engine(cfg, kcap=kcap, impl="resident", device="cpu")
+    out = eng.run(state, 20)
+    assert eng.kcap > kcap
+    _assert_same_run(out, _numpy_state(ref), cfg.side)
+
+
+def _numpy_state(state):
+    return type(state)(*(t.numpy() for t in state))
+
+
+def test_simulation_facade():
+    seed, side, nc, n, steps, ex, ey, ec = FAST_VECTORS[2]
+    out = Simulation(seed, side, nc, n, device="cpu").run(steps)
+    assert abs(out.particle0[0] - ex) <= 0.001
+    assert abs(out.particle0[1] - ey) <= 0.001
+    assert out.collisions == ec
+    g = out.gather()
+    assert (g["pid"] == np.arange(n)).all()
+
+
+@pytest.mark.parametrize("case", [
+    "dense", "sweep", "parity", "shards", "sparse", "clustered", "stream"])
+def test_unported_engines_raise(case):
+    cfg = dict(seed=1, side=100.0, ncside=10, n_particles=2000)
+    kw = {}
+    if case in ("dense", "sweep"):
+        kw["impl"] = case
+    elif case == "parity":
+        cfg["precision"] = Precision.PARITY
+    elif case == "shards":
+        cfg["n_shards"] = 2
+    elif case == "sparse":        # average occupancy < 1.5: supercell
+        cfg.update(ncside=40, n_particles=1000)
+    elif case == "clustered":     # normal-mode blob: banded / tiered
+        cfg.update(seed=-23, ncside=20, n_particles=20000)
+    else:                         # > 256 MB of tiles: banded streaming
+        cfg.update(side=600.0, ncside=600, n_particles=540_000)
+    with pytest.raises(NotImplementedError):
+        eng = Engine(SimConfig(**cfg), device="cpu", **kw)
+        eng.init_state()
+
+
+@pytest.mark.parametrize("kind", ["uniform", "blob", "hot_cell"])
+def test_clustered_census_matches_jax_planner(kind):
+    rng = np.random.default_rng(5)
+    ncells = 400
+    if kind == "uniform":
+        hist = rng.poisson(60, ncells)
+    elif kind == "blob":
+        hist = rng.poisson(np.exp(-np.linspace(-3, 3, ncells) ** 2) * 900)
+    else:
+        hist = rng.poisson(40, ncells)
+        hist[17] = 700
+    plan = plan_tiers(hist, ncells, MAX_DENSE_KCAP)
+    want = plan is not None and plan[-1][0] >= 2 * plan[0][0]
+    assert _clustered(hist, ncells, MAX_DENSE_KCAP) == want
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal on a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(SimConfig(1, 100.0, 10, 2000))
