@@ -5,28 +5,55 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the fused pair kernel from ``particlesimulation_tpu_torch/csrc``,
-holds it against its plain torch version at the main path's tile shapes,
-drives the main path (the f32 resident engine at golden vector s1's config,
-seed 1, side 5000, ncside 100, N=1e6) and checks the result against the
-reference's golden values, compares the port on the GPU with the port on the
-CPU, and times the flagship step. Any failure raises (non-zero exit). The
-last two lines of standard output are one JSON object per kernel run and one
-JSON object naming the device.
+It builds the kernel library from ``particlesimulation_tpu_torch/csrc`` and
+holds each kernel against its plain torch version at the tile shapes the
+engines give it; then it drives the three engines through ``Engine``:
+
+* resident (the main path): golden vector s1 (seed 1, side 5000, ncside
+  100, N=1e6) against the reference's golden values, once with the default
+  pair kernel and once with the v1 kernel;
+* dense: golden s1 again;
+* tiered: UNEVEN (seed -23, side 5000, ncside 100, N=1e6, the reference
+  report's clustered workload) against the JAX package's result, then 10
+  steps against the dense engine on the card.
+
+Each path runs with the kernel launch counts set to 0 just before and read
+just after, and fails if a kernel of the path did not launch. Two steps of
+each run loop run under ``torch.cuda.set_sync_debug_mode("error")``; each
+engine on the GPU is compared with the same engine on the CPU; the flagship
+and UNEVEN steps are timed and their device time broken down by kernel
+(torch.profiler). Any failure raises (non-zero exit). The last two
+lines of standard output are one JSON object with a record per kernel and
+one JSON object naming the device.
 
 Tolerances:
   * collision outputs (ft, count, collisions, dead set) are exact;
   * kernel forces hold to the plain version within 1e-5·|f| + 1e-6·max|f|
     plus (K + 8)·2^-24 of the summed magnitudes of the terms of each force:
-    the worst-case rounding of a K-term sequential f32 sum (the kernel sums
-    partners one by one, the plain version pairwise), with a few ulps for
-    each term (rsqrtf differs from torch.rsqrt by an ulp or so). The terms
-    matter where they cancel: on near pairs, and in the v4 form always;
+    the worst-case rounding of a (K + 8)-term sequential f32 sum (the
+    kernels sum partners one by one, the plain versions pairwise), with a
+    few ulps for each term (rsqrtf differs from torch.rsqrt by an ulp or
+    so). The terms matter where they cancel: on near pairs, and in the v4
+    form always;
+  * the v1 kernel equals the gated kernel in the v2 form bit for bit: the
+    same arithmetic in the same order;
   * golden s1: particle 0 within ±0.002 of (3936.506, 131.472) (the JAX f32
     engine on a CPU lands 0.0008 from the golden y; the GPU sums in another
-    order);
+    order); UNEVEN after 2 steps: within ±0.002 of the JAX f32 engine's
+    (2748.5098, 2624.1592) on a CPU;
+  * tiered vs dense on the card: positions within 2e-5·side (f32 reduction
+    trees of another shape, tests/test_tiered.py's tolerance);
   * GPU vs CPU runs: positions within 1e-6·side, velocities within
     1e-5·max|v|.
+
+Bounds: a kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its f32 operations over
+67 TFLOP/s (H100 SXM data sheet), counted from the tiles' occupied slots:
+6 ops per unordered alive pair for the hit test (d², compare), 14 per
+ordered pair of used slots for the v2 force, 15 for v4, 14 per monopole
+term (an FMA counts 2, an rsqrt 1). The rsqrt count is shown against the
+SFU rate, 16 per SM and clock: 1/16 of the f32 rate. The dense and tiered
+paths also print the two kernels' bounds per step on their own tiles.
 """
 
 import json
@@ -39,7 +66,26 @@ import torch
 
 GOLDEN_S1 = (1, 5000.0, 100, 1_000_000, 4, 3936.506, 131.472, 4)
 GOLDEN_TOL = 0.002
-PAIR_KERNEL_TPU = "particlesimulation_tpu/ops/pallas/cell_pairs.py:248"
+# UNEVEN: the reference report's clustered workload; the JAX f32 engine's
+# tiered result after 2 steps on a CPU, and its plan_tiers plan.
+UNEVEN = (-23, 5000.0, 100, 1_000_000)
+UNEVEN_2 = (2748.5098, 2624.1592, 14)
+UNEVEN_PLAN = ((32, 10000), (64, 1280), (128, 1280), (192, 800), (256, 512),
+               (320, 416), (384, 352), (448, 288), (480, 128), (576, 352),
+               (672, 288), (864, 96))
+# The TPU kernel body each kernel replaces (file:line).
+REPLACES = {
+    "fused_pairs": "particlesimulation_tpu/ops/pallas/cell_pairs.py:248",
+    "fused_pairs_v1": "particlesimulation_tpu/ops/pallas/cell_pairs.py:166",
+    "dense_pairwise_forces":
+        "particlesimulation_tpu/ops/pallas/cell_pairs.py:45",
+    "dense_collisions": "particlesimulation_tpu/ops/pallas/cell_pairs.py:112",
+}
+SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
+
+PEAK_BYTES = 3.35e12   # B/s, HBM3
+PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
+PEAK_SFU = PEAK_F32 / 16
 
 
 def _timed(fn, reps):
@@ -59,9 +105,10 @@ def _timed(fn, reps):
 
 
 def _tiles(ncells, kcap, fill, seed, device):
-    """Slot tiles shaped like the flagship's: cells 50 wide, Poisson(fill)
-    occupied slots with the flagship's mass scale, empty slots zeroed,
-    colliding chains planted in every 50th cell, pids permuted per row."""
+    """Slot tiles shaped like the flagship's: cells 50 wide on a 100-column
+    grid, Poisson(fill) occupied slots with the flagship's mass scale, empty
+    slots zeroed, colliding chains planted in every 50th cell, pids permuted
+    per row."""
     from particlesimulation_tpu_torch.config import EPSILON, EPSILON2, G
 
     rng = np.random.default_rng(seed)
@@ -84,8 +131,23 @@ def _tiles(ncells, kcap, fill, seed, device):
             for a in arrays]
 
 
-def _term_sums(x, y, m_post, form):
-    """Per slot and axis, the summed magnitudes of the force's terms."""
+def _stencil(x, y, m):
+    """(ncells, 8) stencil rows from the tiles' COM, on the 100 x 100 grid
+    of 50-wide cells that ``_tiles`` lays rows out on."""
+    from particlesimulation_tpu_torch.ops import stencil
+
+    n = x.shape[0]
+    sums = torch.zeros(3, 10_000, dtype=torch.float32, device=x.device)
+    sums[0, :n] = m.sum(1)
+    sums[1, :n] = (m * x).sum(1)
+    sums[2, :n] = (m * y).sum(1)
+    return [t[:n].contiguous()
+            for t in stencil.tables_from_sums(*sums, 5000.0, 100)]
+
+
+def _term_sums(x, y, m_post, form, tables=None):
+    """Per slot and axis, the summed magnitudes of the force's terms (the
+    monopole terms too, given the stencil tables)."""
     from particlesimulation_tpu_torch.config import G
 
     out = []
@@ -107,42 +169,193 @@ def _term_sums(x, y, m_post, form):
         else:
             bx = (w * dx.abs()).sum(2)
             by = (w * dy.abs()).sum(2)
+        if tables is not None:
+            ml, mxl, myl = (t[c0:c0 + 64].double() for t in tables)
+            dlx = mxl[:, None, :] - xs[:, :, None]
+            dly = myl[:, None, :] - ys[:, :, None]
+            d2l = dlx * dlx + dly * dly
+            wl = (ml[:, None, :] * torch.where(
+                d2l > 0, d2l.clamp(min=1e-300) ** -1.5, 0.0)
+                * (G * ms)[:, :, None])
+            bx = bx + (wl * dlx.abs()).sum(2)
+            by = by + (wl * dly.abs()).sum(2)
         out.append((bx, by))
     return [torch.cat(b) for b in zip(*out)]
 
 
-def check_kernel(ncells, kcap, fill, form, collide):
-    """Kernel vs plain version on the card; returns the measured numbers."""
+def _force_err(got, ref, terms, kcap, tag):
+    """Max |kernel - plain| over both axes; raises beyond the tolerance."""
+    max_err = 0.0
+    for a, b, t in zip(got, ref, terms):
+        err = (a.double() - b.double()).abs()
+        tol = (1e-5 * b.double().abs() + 1e-6 * float(b.abs().max())
+               + (kcap + 8) * 2.0 ** -24 * t)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{tag}: force off by {float(err.max())}")
+        max_err = max(max_err, float(err.max()))
+    return max_err
+
+
+def _bound(slots, cells, bytes_per_slot, bytes_per_cell, ops, rsqrt):
+    """(bound_ms, bound_by, sfu_ms) of a kernel's work."""
+    mem_ms = (slots * bytes_per_slot + cells * bytes_per_cell) / PEAK_BYTES * 1e3
+    ops_ms = ops / PEAK_F32 * 1e3
+    return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else "operations",
+            rsqrt / PEAK_SFU * 1e3)
+
+
+def _pairs(mask):
+    """(ordered pairs, unordered pairs) of set slots, summed over rows."""
+    n = mask.sum(1).double()
+    return float((n * (n - 1)).sum()), float((n * (n - 1) / 2).sum())
+
+
+def _report(tag, rec):
+    print(f"{tag}: max|df|={rec['max_abs_err']:.3e}; kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), rsqrt at the SFU "
+          f"rate {rec['sfu_ms']:.4f} ms", flush=True)
+
+
+def _check_collisions(got, ref, tag):
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"{tag}: ft differs in "
+                             f"{int((got[1] != ref[1]).sum())} slots")
+    if int(got[0]) != int(ref[0]):
+        raise AssertionError(f"{tag}: count {int(got[0])} != {int(ref[0])}")
+    if int(ref[0]) == 0:
+        raise AssertionError(f"{tag}: the planted chains did not collide")
+
+
+def check_fused(ncells, kcap, fill, form, collide, gated=True):
+    """Fused pair kernel vs plain version on the card; the measured numbers.
+    The ungated (v1) kernel must also equal the gated one bit for bit."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
     x, y, m, alive, pid = _tiles(ncells, kcap, fill, kcap + ncells, "cuda")
     args = (x, y, m, alive, pid, kcap, EPSILON, collide, form)
-    got = cell_pairs.fused_pairs(*args)
+    got = cell_pairs.fused_pairs(*args, gated=gated)
     ref = cell_pairs.fused_pairs_ref(*args)
     torch.cuda.synchronize()
-    tag = f"fused_pairs {form} collide={collide} ({ncells}, {kcap})"
-    if not torch.equal(got[3], ref[3]):
-        raise AssertionError(f"{tag}: ft differs in "
-                             f"{int((got[3] != ref[3]).sum())} slots")
-    if int(got[2]) != int(ref[2]):
-        raise AssertionError(f"{tag}: count {int(got[2])} != {int(ref[2])}")
-    if collide and int(ref[2]) == 0:
-        raise AssertionError(f"{tag}: the planted chains did not collide")
+    tag = (f"fused_pairs{'' if gated else '_v1'} {form} collide={collide} "
+           f"({ncells}, {kcap})")
+    if collide:
+        _check_collisions((got[2], got[3]), (ref[2], ref[3]), tag)
+    elif not torch.equal(got[3], ref[3]) or int(got[2]) != 0:
+        raise AssertionError(f"{tag}: collisions reported with collide off")
+    if not gated:
+        gated_out = cell_pairs.fused_pairs(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, gated_out)):
+            raise AssertionError(f"{tag}: not bitwise equal to the gated "
+                                 f"kernel")
     m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
-    max_err = 0.0
-    for a, b, terms in zip(got[:2], ref[:2], _term_sums(x, y, m_post, form)):
-        err = (a.double() - b.double()).abs()
-        tol = (1e-5 * b.double().abs() + 1e-6 * float(b.abs().max())
-               + (kcap + 8) * 2.0 ** -24 * terms)
-        if not bool((err <= tol).all()):
-            raise AssertionError(f"{tag}: force off by {float(err.max())}")
-        max_err = max(max_err, float(err.max()))
-    ms = _timed(lambda: cell_pairs.fused_pairs(*args), 20)
-    plain_ms = _timed(lambda: cell_pairs.fused_pairs_ref(*args), 3)
-    print(f"{tag}: ft, count={int(got[2])} exact; max|df|={max_err:.3e}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    max_err = _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form),
+                         kcap, tag)
+    p_force, _ = _pairs(m_post > 0)
+    _, p_hit = _pairs(alive > 0)
+    ops = (15 if form == "v4" else 14) * p_force + (6 * p_hit if collide else 0)
+    bound_ms, bound_by, sfu_ms = _bound(x.numel(), ncells, 32, 4, ops, p_force)
+    rec = {"max_abs_err": max_err,
+           "ms": _timed(lambda: cell_pairs.fused_pairs(*args, gated=gated), 20),
+           "plain_ms": _timed(lambda: cell_pairs.fused_pairs_ref(*args), 3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
+    _report(f"{tag}: ft, count={int(got[2])} exact", rec)
+    return rec
+
+
+def check_dense_forces(ncells, kcap, fill):
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    x, y, m, _, _ = _tiles(ncells, kcap, fill, kcap + ncells + 1, "cuda")
+    tables = _stencil(x, y, m)
+    args = (x, y, m, *tables, kcap)
+    got = cell_pairs.dense_pairwise_forces(*args)
+    ref = cell_pairs.dense_pairwise_forces_ref(*args)
+    torch.cuda.synchronize()
+    tag = f"dense_pairwise_forces ({ncells}, {kcap})"
+    max_err = _force_err(got, ref, _term_sums(x, y, m, "v2", tables), kcap,
+                         tag)
+    p_force, _ = _pairs(m > 0)
+    used = float((m > 0).sum())
+    bound_ms, bound_by, sfu_ms = _bound(
+        x.numel(), ncells, 20, 96, 14 * p_force + 8 * 14 * used,
+        p_force + 8 * used)
+    rec = {"max_abs_err": max_err,
+           "ms": _timed(lambda: cell_pairs.dense_pairwise_forces(*args), 20),
+           "plain_ms": _timed(
+               lambda: cell_pairs.dense_pairwise_forces_ref(*args), 3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
+    _report(tag, rec)
+    return rec
+
+
+def check_dense_collisions(ncells, kcap, fill, with_pid):
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    x, y, _, alive, pid = _tiles(ncells, kcap, fill, kcap + ncells + 2,
+                                 "cuda")
+    args = (x, y, alive, kcap, EPSILON, pid if with_pid else None)
+    got = cell_pairs.dense_collisions(*args)
+    ref = cell_pairs.dense_collisions_ref(*args)
+    torch.cuda.synchronize()
+    tag = (f"dense_collisions {'pid' if with_pid else 'no pid'} "
+           f"({ncells}, {kcap})")
+    _check_collisions(got, ref, tag)
+    _, p_hit = _pairs(alive > 0)
+    bound_ms, bound_by, sfu_ms = _bound(
+        x.numel(), ncells, 20 if with_pid else 16, 4, 6 * p_hit, 0)
+    rec = {"max_abs_err": 0.0,
+           "ms": _timed(lambda: cell_pairs.dense_collisions(*args), 20),
+           "plain_ms": _timed(lambda: cell_pairs.dense_collisions_ref(*args),
+                              3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
+    _report(f"{tag}: ft, count={int(got[0])} exact", rec)
+    return rec
+
+
+def drive(label, eng, state, steps, kernels):
+    """One run of a path with the launch counts set to 0 just before it and
+    read just after; fails if a kernel of the path did not launch."""
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    torch.cuda.synchronize()
+    cell_pairs.reset_launches()
+    out = eng.run(state, steps)
+    torch.cuda.synchronize()
+    launches = dict(cell_pairs.LAUNCHES)
+    x, y, c = eng.result(out)
+    finite = bool(torch.isfinite(out.x).all() and torch.isfinite(out.y).all())
+    print(f"{label} on cuda: {eng.impl}, kcap {eng.kcap}, particle 0 "
+          f"({x:.4f}, {y:.4f}), collisions {c}, overflow "
+          f"{int(out.overflow)}, launches {launches}", flush=True)
+    if not (finite and out.x.shape == state.x.shape
+            and int(out.overflow) == 0):
+        raise AssertionError(f"{label}: non-finite, misshapen or overflowed")
+    if not all(launches[k] > 0 for k in kernels):
+        raise AssertionError(f"{label}: a kernel of the path did not launch")
+    return out, (x, y, c), launches
+
+
+def check_golden(label, eng, state, steps, golden, kernels):
+    """A path's run against known values of particle 0 and the count."""
+    ex, ey, ec = golden
+    out, (x, y, c), launches = drive(label, eng, state, steps, kernels)
+    if not (c == ec and abs(x - ex) <= GOLDEN_TOL and abs(y - ey) <= GOLDEN_TOL):
+        raise AssertionError(f"{label}: ({x}, {y}, {c}) vs ({ex}, {ey}, {ec})")
+    return out, launches
+
+
+def check_no_sync(label, run, state):
+    """The run loop must not synchronise with the host: any synchronising
+    CUDA call inside it raises here."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(state, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{label} run loop: no host synchronisation in 2 steps", flush=True)
 
 
 def _by_pid(state):
@@ -151,28 +364,96 @@ def _by_pid(state):
             for f in ("x", "y", "vx", "alive")}
 
 
-def check_gpu_vs_cpu(seed, side, nc, n, steps):
+def compare_runs(label, a, b, pos_tol, v_tol):
+    """Collisions and dead sets exact; positions and velocities within the
+    given fractions of side and max|v|."""
+    (ca, sa, side), (cb, sb, _) = a, b
+    ga, gb = _by_pid(sa), _by_pid(sb)
+    if ca != cb or not torch.equal(ga["alive"], gb["alive"]):
+        raise AssertionError(f"{label}: collisions {ca} vs {cb}, dead sets "
+                             f"equal: {torch.equal(ga['alive'], gb['alive'])}")
+    dpos = max(float((ga[f] - gb[f]).abs().max()) for f in ("x", "y"))
+    dvx = float((ga["vx"] - gb["vx"]).abs().max())
+    vmax = float(gb["vx"].abs().max())
+    if dpos > pos_tol * side or (v_tol is not None and dvx > v_tol * vmax):
+        raise AssertionError(f"{label}: |dx|={dpos}, |dvx|={dvx}")
+    print(f"{label}: collisions {ca} = {cb}, dead sets equal, "
+          f"max|dpos|={dpos:.3e}, max|dvx|={dvx:.3e}", flush=True)
+
+
+def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None):
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
     outs = []
     for device in ("cuda", "cpu"):
-        eng = Engine(SimConfig(seed, side, nc, n), device=device)
+        eng = Engine(SimConfig(seed, side, nc, n), impl=impl, device=device)
         out = eng.run(eng.init_state(), steps)
         if int(out.overflow) != 0:
             raise AssertionError(f"overflow on {device}")
-        outs.append((int(out.collisions), _by_pid(out)))
-    (cg, g), (cc, c) = outs
-    if cg != cc or not torch.equal(g["alive"], c["alive"]):
-        raise AssertionError(f"cuda vs cpu: collisions {cg} vs {cc}, dead "
-                             f"sets equal: {torch.equal(g['alive'], c['alive'])}")
-    dpos = max(float((g[f] - c[f]).abs().max()) for f in ("x", "y"))
-    dvx = float((g["vx"] - c["vx"]).abs().max())
-    if dpos > 1e-6 * side or dvx > 1e-5 * float(c["vx"].abs().max()):
-        raise AssertionError(f"cuda vs cpu: |dx|={dpos}, |dvx|={dvx}")
-    print(f"cuda vs cpu ({seed} {side} {nc} {n}, {steps} steps): "
-          f"collisions {cg} = {cc}, dead sets equal, max|dpos|={dpos:.3e}, "
-          f"max|dvx|={dvx:.3e}", flush=True)
+        if impl is not None and eng.impl != impl:
+            raise AssertionError(f"{impl} escalated to {eng.impl}")
+        outs.append((int(out.collisions), out, side))
+    compare_runs(f"cuda vs cpu, {eng.impl} ({seed} {side} {nc} {n}, {steps} "
+                 f"steps)", *outs, 1e-6, 1e-5)
+
+
+def step_ms(eng, state, k, reps=2):
+    """Per-step ms as (t(run k+1) - t(run 1)) / k, best of ``reps``."""
+    def run_seconds(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        o = eng.run(state, steps)
+        torch.cuda.synchronize()
+        if int(o.overflow) != 0:
+            raise AssertionError("overflow in the timed run")
+        return time.perf_counter() - t
+
+    t1 = min(run_seconds(1) for _ in range(reps))
+    tk = min(run_seconds(k + 1) for _ in range(reps))
+    return (tk - t1) / k * 1e3, t1, tk
+
+
+def step_bounds(label, tiles):
+    """Per-step bounds of the dense force and collision kernels on a path's
+    own tiles: ``tiles`` holds one (x, m) pair per launch of each kernel
+    (one for dense, one per class for tiered)."""
+    forces_ms = collisions_ms = 0.0
+    for x, m in tiles:
+        used = m > 0
+        p_force, p_hit = _pairs(used)
+        n_used = float(used.sum())
+        forces_ms += _bound(x.numel(), x.shape[0], 20, 96,
+                            14 * p_force + 8 * 14 * n_used, 0)[0]
+        collisions_ms += _bound(x.numel(), x.shape[0], 16, 4, 6 * p_hit, 0)[0]
+    print(f"{label}: bounds per step on its tiles ({len(tiles)} launches of "
+          f"each kernel): dense_pairwise_forces {forces_ms:.4f} ms, "
+          f"dense_collisions {collisions_ms:.4f} ms", flush=True)
+
+
+def device_breakdown(label, eng, state, step_ms_host, steps=10):
+    """Device time per step by kernel name (torch.profiler over a run of
+    ``steps``, its prologue and epilogue included), and the share of the
+    unprofiled step the device is idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run(state, steps)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3 / steps, evt.key))
+    rows.sort(reverse=True)
+    total = sum(ms for ms, _ in rows)
+    top = "; ".join(f"{key[:48]} {ms:.4f}" for ms, key in rows[:8])
+    print(f"{label}: device {total:.4f} ms/step of {step_ms_host:.4f} "
+          f"ms/step, idle {1 - total / step_ms_host:.1%}; by kernel "
+          f"(ms/step): {top}", flush=True)
 
 
 def main():
@@ -191,8 +472,10 @@ def main():
 
     # 2. Build the kernel library from the checkout's sources.
     from particlesimulation_tpu_torch.config import SimConfig
-    from particlesimulation_tpu_torch.engine import Engine, make_resident_run
+    from particlesimulation_tpu_torch.engine import (
+        Engine, make_dense_step, make_resident_run)
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
 
     t0 = time.perf_counter()
     lib = cell_pairs.build()
@@ -200,73 +483,123 @@ def main():
     with open(f"{lib}.log") as f:
         print(f.read().strip(), flush=True)
 
-    # 3. Kernel vs plain version at the flagship tile shape and at kcap 1024.
-    results = {}
-    # kcap 288 is not a multiple of the kernel's 256 threads.
-    for ncells, kcap, fill in ((10_000, 160, 100), (300, 1024, 900),
-                               (500, 288, 200)):
+    # 3. Each kernel vs its plain version: the flagship tile shape, kcap
+    # 1024, kcap 288 (not a multiple of the kernels' 256 threads) and a
+    # tiered UNEVEN class shape.
+    shapes = ((10_000, 160, 100), (300, 1024, 900), (500, 288, 200))
+    fused = {}
+    for ncells, kcap, fill in shapes:
         for form in ("v4", "v2"):
             for collide in (True, False):
-                results[(ncells, kcap, form, collide)] = check_kernel(
+                fused[(ncells, kcap, form, collide)] = check_fused(
                     ncells, kcap, fill, form, collide)
+    v1, forces, colls = {}, {}, {}
+    for ncells, kcap, fill in shapes + ((96, 864, 600),):
+        v1[ncells] = check_fused(ncells, kcap, fill, "v2", True, gated=False)
+        forces[ncells] = check_dense_forces(ncells, kcap, fill)
+        for with_pid in (False, True):
+            colls[(ncells, with_pid)] = check_dense_collisions(
+                ncells, kcap, fill, with_pid)
 
-    # 4. The main path: golden vector s1 on the card, from the host init.
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
-    eng = Engine(SimConfig(seed, side, nc, n), device="cuda")
+    s1 = SimConfig(seed, side, nc, n)
+
+    # 4. The resident path (the main path): golden s1, default pair kernel.
+    eng = Engine(s1, device="cuda")
     state = eng.init_state()
-    cell_pairs.LAUNCHES = 0
-    out = eng.run(state, steps)
-    torch.cuda.synchronize()
-    launches = cell_pairs.LAUNCHES
-    x, y, c = eng.result(out)
-    finite = bool(torch.isfinite(out.x).all() and torch.isfinite(out.y).all())
-    print(f"golden s1 on cuda: kcap {eng.kcap}, particle 0 ({x:.4f}, {y:.4f}) "
-          f"dx={x - ex:+.4f} dy={y - ey:+.4f}, collisions {c}, overflow "
-          f"{int(out.overflow)}, pair-kernel launches {launches}", flush=True)
-    if not (out.x.shape == (n,) and finite and c == ec
-            and abs(x - ex) <= GOLDEN_TOL and abs(y - ey) <= GOLDEN_TOL
-            and int(out.overflow) == 0 and launches > 0):
-        raise AssertionError("golden s1 failed on cuda")
-
-    # The run loop must not synchronise with the host: any synchronising
-    # CUDA call inside it raises here.
-    _, run = make_resident_run(eng.config, eng.kcap)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        run(state, 2)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print("run loop: no host synchronisation in 2 steps", flush=True)
-
-    # 5. The port on the GPU against the port on the CPU.
+    _, res_launches = check_golden("golden s1 resident", eng, state, steps,
+                                   (ex, ey, ec), ["fused_pairs"])
+    check_no_sync("resident", make_resident_run(s1, eng.kcap)[1], state)
     check_gpu_vs_cpu(1, 5000.0, 32, 20_000, 10)
     check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5)
+    res_ms, t1, t101 = step_ms(eng, state, 100)
+    print(f"resident flagship {n} particles, kcap {eng.kcap}: {res_ms:.4f} "
+          f"ms/step, {n / res_ms / 1e3:.2f} M particle-steps/s (run(1) "
+          f"{t1:.4f} s, run(101) {t101:.4f} s) on {card}", flush=True)
+    device_breakdown("resident flagship", eng, state, res_ms)
 
-    # 6. Flagship timing: per step = (t(run 101) - t(run 1)) / 100.
-    def run_seconds(k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        o = eng.run(state, k)
-        torch.cuda.synchronize()
-        if int(o.overflow) != 0:
-            raise AssertionError("overflow in the timed run")
-        return time.perf_counter() - t
+    # 5. The resident path with the v1 pair kernel.
+    eng_v1 = Engine(s1, device="cuda", impl="resident", pair_impl="v1")
+    _, v1_launches = check_golden("golden s1 resident v1", eng_v1,
+                                  eng_v1.init_state(), steps, (ex, ey, ec),
+                                  ["fused_pairs_v1"])
 
-    t1 = min(run_seconds(1) for _ in range(2))
-    t101 = min(run_seconds(101) for _ in range(2))
-    per_step = (t101 - t1) / 100
-    print(f"flagship {n} particles, kcap {eng.kcap}: {per_step * 1e3:.4f} "
-          f"ms/step, {n / per_step / 1e6:.2f} M particle-steps/s "
-          f"(run(1) {t1:.4f} s, run(101) {t101:.4f} s) on {card}",
+    # 6. The dense path: golden s1.
+    eng_d = Engine(s1, device="cuda", impl="dense")
+    state_d = eng_d.init_state()
+    _, dense_launches = check_golden(
+        "golden s1 dense", eng_d, state_d, steps, (ex, ey, ec),
+        ["dense_forces", "dense_collisions"])
+    check_no_sync("dense", make_dense_step(s1, eng_d.kcap)[2], state_d)
+    check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5, impl="dense")
+    dense_ms, t1, t101 = step_ms(eng_d, state_d, 100)
+    print(f"dense flagship {n} particles, kcap {eng_d.kcap}: {dense_ms:.4f} "
+          f"ms/step, {n / dense_ms / 1e3:.2f} M particle-steps/s (run(1) "
+          f"{t1:.4f} s, run(101) {t101:.4f} s) on {card}", flush=True)
+    device_breakdown("dense flagship", eng_d, state_d, dense_ms)
+    tiles = make_dense_step(s1, eng_d.kcap)[1](state_d)
+    step_bounds("dense flagship", [(tiles["xd"], tiles["md"])])
+
+    # 7. The tiered path: UNEVEN, against the JAX result, then against the
+    # dense engine on the card.
+    un = SimConfig(*UNEVEN)
+    eng_t = Engine(un, device="cuda", impl="tiered")
+    state_t = eng_t.init_state()
+    if tuple(map(tuple, eng_t._tier_plan)) != UNEVEN_PLAN:
+        raise AssertionError(f"UNEVEN plan {eng_t._tier_plan}")
+    _, tiered_launches = check_golden(
+        "UNEVEN tiered", eng_t, state_t, 2, UNEVEN_2,
+        ["dense_forces", "dense_collisions"])
+    _, build_tiles, run = make_tiered_step(un, UNEVEN_PLAN, "cuda")
+    check_no_sync("tiered", run, state_t)
+    tiles, offs, classes = build_tiles(state_t), 0, []
+    for k, r in UNEVEN_PLAN:
+        classes.append([tiles[f][offs:offs + r * k].view(r, k)
+                        for f in ("xf", "mf")])
+        offs += r * k
+    step_bounds("UNEVEN tiered", classes)
+    runs = []
+    for impl in ("tiered", "dense"):
+        e = Engine(un, device="cuda", impl=impl)
+        out = e.run(e.init_state(), 10)
+        if e.impl != impl or int(out.overflow) != 0:
+            raise AssertionError(f"UNEVEN {impl}: ran {e.impl}, overflow "
+                                 f"{int(out.overflow)}")
+        runs.append((int(out.collisions), out, un.side))
+    compare_runs("UNEVEN 10 steps, tiered vs dense on cuda", *runs, 2e-5,
+                 None)
+    check_gpu_vs_cpu(-7, 24.0, 12, 2000, 12, impl="tiered")
+    eng_dun = Engine(un, device="cuda", impl="dense")
+    state_dun = eng_dun.init_state()
+    tiles = make_dense_step(un, eng_dun.kcap)[1](state_dun)
+    step_bounds("UNEVEN dense", [(tiles["xd"], tiles["md"])])
+    for label, e, st in (("tiered", eng_t, state_t),
+                         ("dense", eng_dun, state_dun)):
+        ms, t1, t11 = step_ms(e, st, 10)
+        print(f"UNEVEN {label}, kcap {e.kcap}: {ms:.4f} ms/step, "
+              f"{n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} s, "
+              f"run(11) {t11:.4f} s) on {card}", flush=True)
+        device_breakdown(f"UNEVEN {label}", e, st, ms)
+
+    def entry(name, launches, rec):
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None}
+
+    print(f"launches per path: resident {res_launches}, resident v1 "
+          f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}",
           flush=True)
-
-    flag = results[(10_000, 160, "v4", True)]
-    print(json.dumps({"kernels": [{
-        "name": "fused_pairs", "route": "cuda",
-        "source": "particlesimulation_tpu_torch/csrc/cell_pairs.cu",
-        "replaces": PAIR_KERNEL_TPU, "launches": launches,
-        "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
-        "plain_ms": flag["plain_ms"]}]}))
+    print(json.dumps({"kernels": [
+        entry("fused_pairs", res_launches["fused_pairs"],
+              fused[(10_000, 160, "v4", True)]),
+        entry("fused_pairs_v1", v1_launches["fused_pairs_v1"], v1[10_000]),
+        entry("dense_pairwise_forces", dense_launches["dense_forces"],
+              forces[10_000]),
+        entry("dense_collisions", dense_launches["dense_collisions"],
+              colls[(10_000, False)]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

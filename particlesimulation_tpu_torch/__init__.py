@@ -8,8 +8,10 @@ the JAX package's, so each module's counterpart is easy to find; the JAX
 package is the reference the port is tested against, and the port never
 imports it (nor jax).
 
-So far the port has the f32 fast engine on one device, slot-resident
-(``engine.Engine``), behind ``models.Simulation``.
+So far the port has the f32 fast engines on one device (``engine.Engine``,
+behind ``models.Simulation``): slot-resident, dense, and occupancy-classed
+tiered tiles for clustered loads, with every Pallas kernel of the JAX
+package rewritten in CUDA (``csrc/cell_pairs.cu``).
 """
 
 __version__ = "0.1.0"

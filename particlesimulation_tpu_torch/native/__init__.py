@@ -1,11 +1,12 @@
 """ctypes loader for the native initial-condition generator.
 
-The C++ source is the JAX package's ``particlesimulation_tpu/native/initgen.cpp``,
-compiled here by file path (the JAX package itself is never imported). The
-library builds on first use with ``g++ -O2``, matching the reference
-Makefile's optimization level (reference serial/Makefile:1-10), into the
-port's build directory under a name keyed on the source's content. Without a
-compiler the callers fall back to the NumPy streams in :mod:`..rng`.
+The C++ source ``initgen.cpp`` beside this file is a byte-for-byte copy of
+the JAX package's (a test holds the two identical), so the port depends on
+no file of the JAX package. The library builds on first use with
+``g++ -O2``, matching the reference Makefile's optimization level (reference
+serial/Makefile:1-10), into the port's build directory under a name keyed on
+the source's content. Without a compiler the callers fall back to the NumPy
+streams in :mod:`..rng`.
 """
 
 from __future__ import annotations
@@ -19,8 +20,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "particlesimulation_tpu", "native",
-                    "initgen.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "initgen.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 _lock = threading.Lock()

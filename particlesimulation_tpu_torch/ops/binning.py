@@ -57,3 +57,9 @@ def segment_positions(key_sorted):
 def max_occupancy(pos_in_cell, valid):
     """Max particles in any real (non-sentinel) cell; 0-d tensor."""
     return torch.max(torch.where(valid, pos_in_cell, -1)) + 1
+
+
+def round_cap(x: float) -> int:
+    """Tile capacity for an occupancy of ``x``: the next multiple of 32, at
+    least 32 (pair-pass cost scales with kcap², so tiles are sized snugly)."""
+    return max(32, (int(x) + 31) // 32 * 32)

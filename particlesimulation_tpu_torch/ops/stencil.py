@@ -69,3 +69,15 @@ def stencil_tables(M, MX, MY, side: float, ncside: int):
     return (torch.cat([torch.stack(ml), pad], dim=1),
             torch.cat([torch.stack(mxl), pad], dim=1),
             torch.cat([torch.stack(myl), pad], dim=1))
+
+
+def tables_from_sums(M, SX, SY, side: float, ncside: int):
+    """Per-cell COM from the mass sums M, Σm·x, Σm·y (flat, (ncells,)), then
+    the stencil tables row-aligned for the tile kernels: each (ncells, 8)."""
+    has = M > 0
+    safe = torch.where(has, M, 1.0)
+    MX = torch.where(has, SX / safe, 0.0)
+    MY = torch.where(has, SY / safe, 0.0)
+    ncells = M.shape[0]
+    return tuple(t[:, :ncells].T.contiguous()
+                 for t in stencil_tables(M, MX, MY, side, ncside))

@@ -134,7 +134,7 @@ def test_ref_matches_xla_at_max_kcap(form):
 def test_wrapper_takes_plain_path_on_cpu():
     x, y, m, alive, pid = (torch.from_numpy(a) for a in
                            _tiles(3, 8, 32, 20, True))
-    before = cell_pairs.LAUNCHES
+    before = dict(cell_pairs.LAUNCHES)
     got = cell_pairs.fused_pairs(x, y, m, alive, pid, 32, EPSILON)
     ref = cell_pairs.fused_pairs_ref(x, y, m, alive, pid, 32, EPSILON)
     assert cell_pairs.LAUNCHES == before  # no kernel launch on the CPU

@@ -14,11 +14,12 @@ from particlesimulation_tpu.config import Precision as JPrecision
 from particlesimulation_tpu.config import SimConfig as JSimConfig
 from particlesimulation_tpu.engine import Engine as JEngine
 from particlesimulation_tpu.engine import make_resident_run as jmake_resident_run
-from particlesimulation_tpu.ops.tiered import plan_tiers
+from particlesimulation_tpu.ops.tiered import plan_tiers as jplan_tiers
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.engine import (MAX_DENSE_KCAP, Engine,
                                                  _clustered, make_resident_run)
 from particlesimulation_tpu_torch.models import Simulation
+from particlesimulation_tpu_torch.ops.tiered import plan_tiers
 from particlesimulation_tpu_torch.state import state_from_numpy
 from tests.test_golden import FAST_VECTORS
 
@@ -49,15 +50,20 @@ def _assert_same_run(got, ref, side):
     assert int(got.overflow) == 0
 
 
-@pytest.mark.parametrize("seed,side,nc,n,steps", [
-    (5893, 0.08, 4, 120, 5),     # v2 force form (side < 100), collisions
-    (2, 100.0, 16, 12000, 5),    # v4 force form (side >= 100), collisions
-], ids=["v2", "v4"])
-def test_engine_matches_jax_resident(seed, side, nc, n, steps):
+@pytest.mark.parametrize("seed,side,nc,n,steps,pair_impl", [
+    (5893, 0.08, 4, 120, 5, None),    # v2 force form (side < 100), collisions
+    (2, 100.0, 16, 12000, 5, None),   # v4 force form (side >= 100), collisions
+    (5893, 0.08, 4, 120, 5, "v1"),    # the ungated v1 kernel
+], ids=["v2", "v4", "v1"])
+def test_engine_matches_jax_resident(seed, side, nc, n, steps, pair_impl,
+                                     monkeypatch):
+    if pair_impl is not None:
+        monkeypatch.setenv("PSIM_PALLAS_PAIR", pair_impl)
     jeng = JEngine(JSimConfig(seed, side, nc, n, precision=JPrecision.FAST),
                    impl="resident", dense_backend="pallas")
     ref = jeng.run(jeng.init_state(), steps)
-    eng = Engine(SimConfig(seed, side, nc, n), impl="resident", device="cpu")
+    eng = Engine(SimConfig(seed, side, nc, n), impl="resident", device="cpu",
+                 pair_impl=pair_impl)
     got = eng.run(eng.init_state(), steps)
     assert eng.kcap == jeng.kcap
     assert int(ref.collisions) > 0
@@ -136,11 +142,12 @@ def test_simulation_facade():
 
 
 @pytest.mark.parametrize("case", [
-    "dense", "sweep", "parity", "shards", "sparse", "clustered", "stream"])
+    "banded", "supercell", "sweep", "parity", "shards", "sparse",
+    "clustered", "stream"])
 def test_unported_engines_raise(case):
     cfg = dict(seed=1, side=100.0, ncside=10, n_particles=2000)
     kw = {}
-    if case in ("dense", "sweep"):
+    if case in ("banded", "supercell", "sweep"):
         kw["impl"] = case
     elif case == "parity":
         cfg["precision"] = Precision.PARITY
@@ -148,8 +155,8 @@ def test_unported_engines_raise(case):
         cfg["n_shards"] = 2
     elif case == "sparse":        # average occupancy < 1.5: supercell
         cfg.update(ncside=40, n_particles=1000)
-    elif case == "clustered":     # normal-mode blob: banded / tiered
-        cfg.update(seed=-23, ncside=20, n_particles=20000)
+    elif case == "clustered":     # normal-mode blob with a band plan: banded
+        cfg.update(seed=-7, side=5000.0, ncside=100, n_particles=200_000)
     else:                         # > 256 MB of tiles: banded streaming
         cfg.update(side=600.0, ncside=600, n_particles=540_000)
     with pytest.raises(NotImplementedError):
@@ -168,9 +175,9 @@ def test_clustered_census_matches_jax_planner(kind):
     else:
         hist = rng.poisson(40, ncells)
         hist[17] = 700
-    plan = plan_tiers(hist, ncells, MAX_DENSE_KCAP)
+    plan = jplan_tiers(hist, ncells, MAX_DENSE_KCAP)
     want = plan is not None and plan[-1][0] >= 2 * plan[0][0]
-    assert _clustered(hist, ncells, MAX_DENSE_KCAP) == want
+    assert _clustered(plan_tiers(hist, ncells, MAX_DENSE_KCAP)) == want
 
 
 def test_default_device_is_cuda():
