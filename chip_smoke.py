@@ -7,15 +7,20 @@ Run from the repository root, with no arguments:
 
 It builds the kernel library from ``particlesimulation_tpu_torch/csrc`` and
 holds each kernel against its plain torch version at the tile shapes the
-engines give it; then it drives the three engines through ``Engine``:
+engines give it and on the adversarial tiles of
+``ops/cuda/adversarial.py`` (the cases the kernels' compaction, x buckets
+and O(n) count risk); then it drives the three engines through ``Engine``:
 
 * resident (the main path): golden vector s1 (seed 1, side 5000, ncside
   100, N=1e6) against the reference's golden values, once with the default
   pair kernel and once with the v1 kernel;
-* dense: golden s1 again;
+* dense: golden s1 again, and both dense kernels on the engine's own tiles
+  (checked, timed, with the bound);
 * tiered: UNEVEN (seed -23, side 5000, ncside 100, N=1e6, the reference
-  report's clustered workload) against the JAX package's result, then 10
-  steps against the dense engine on the card.
+  report's clustered workload) against the JAX package's result, each of
+  its 12 classes through both dense kernels (checked, timed, with the
+  bound), then 10 steps against the dense engine on the card, whose own
+  UNEVEN tiles go through both kernels too.
 
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
@@ -25,6 +30,12 @@ and UNEVEN steps are timed and their device time broken down by kernel
 (torch.profiler). Any failure raises (non-zero exit). The last two
 lines of standard output are one JSON object with a record per kernel and
 one JSON object naming the device.
+
+Kernel times: CUDA events around each call, median of 20. ``ms`` (the
+record's time) times each call alone on an idle card, the wrapper's host
+work before the launch included; ``device_ms`` queues the calls behind a
+spin kernel, so that the events bracket the kernels alone. The launch
+shapes the wrappers' rules pick come from ``ops/cuda/launch_sweep.py``.
 
 Tolerances:
   * collision outputs (ft, count, collisions, dead set) are exact;
@@ -46,14 +57,17 @@ Tolerances:
   * GPU vs CPU runs: positions within 1e-6·side, velocities within
     1e-5·max|v|.
 
-Bounds: a kernel's bound is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its f32 operations over
-67 TFLOP/s (H100 SXM data sheet), counted from the tiles' occupied slots:
-6 ops per unordered alive pair for the hit test (d², compare), 14 per
-ordered pair of used slots for the v2 force, 15 for v4, 14 per monopole
-term (an FMA counts 2, an rsqrt 1). The rsqrt count is shown against the
-SFU rate, 16 per SM and clock: 1/16 of the f32 rate. The dense and tiered
-paths also print the two kernels' bounds per step on their own tiles.
+Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
+its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
+this run's tiles. Bytes: each output written once, each input read once
+where the function needs it: masses, alive flags and pids of every slot,
+x and y only of the slots that take part (used ones, m > 0, for a force,
+alive ones for a collision). Operations: 14 per ordered pair of used slots
+for the v2 force, 15 for v4, 14 per monopole term (an FMA counts 2, an
+rsqrt 1). The collision test's operations are not counted: it need test
+only the pairs near in x (a few per alive slot, 6 ops each), which cost
+little beside the row's bytes. The rsqrt count is shown against the SFU
+rate, 16 per SM and clock: 1/16 of the f32 rate.
 """
 
 import json
@@ -67,12 +81,10 @@ import torch
 GOLDEN_S1 = (1, 5000.0, 100, 1_000_000, 4, 3936.506, 131.472, 4)
 GOLDEN_TOL = 0.002
 # UNEVEN: the reference report's clustered workload; the JAX f32 engine's
-# tiered result after 2 steps on a CPU, and its plan_tiers plan.
+# tiered result after 2 steps on a CPU (its plan_tiers plan is
+# launch_sweep.UNEVEN_PLAN).
 UNEVEN = (-23, 5000.0, 100, 1_000_000)
 UNEVEN_2 = (2748.5098, 2624.1592, 14)
-UNEVEN_PLAN = ((32, 10000), (64, 1280), (128, 1280), (192, 800), (256, 512),
-               (320, 416), (384, 352), (448, 288), (480, 128), (576, 352),
-               (672, 288), (864, 96))
 # The TPU kernel body each kernel replaces (file:line).
 REPLACES = {
     "fused_pairs": "particlesimulation_tpu/ops/pallas/cell_pairs.py:248",
@@ -82,6 +94,9 @@ REPLACES = {
     "dense_collisions": "particlesimulation_tpu/ops/pallas/cell_pairs.py:112",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
+# The kernels' names in csrc/cell_pairs.cu, as the profiler reports them.
+PORT_KERNELS = ("fused_pairs_kernel", "dense_forces_kernel",
+                "dense_collisions_kernel")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -89,7 +104,9 @@ PEAK_SFU = PEAK_F32 / 16
 
 
 def _timed(fn, reps):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA-event timed."""
+    """Median milliseconds of ``fn`` over ``reps`` calls, each on an idle
+    card between CUDA events: the host's work up to the launch included, as
+    a caller that waits for each call sees it."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -102,6 +119,15 @@ def _timed(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_times(kernel, plain):
+    """The record's times: the kernel's per-call and device ms (median of
+    20), the plain version's per-call ms (median of 3)."""
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+
+    return {"ms": _timed(kernel, 20), "device_ms": device_ms(kernel, 20),
+            "plain_ms": _timed(plain, 3)}
 
 
 def _tiles(ncells, kcap, fill, seed, device):
@@ -196,9 +222,9 @@ def _force_err(got, ref, terms, kcap, tag):
     return max_err
 
 
-def _bound(slots, cells, bytes_per_slot, bytes_per_cell, ops, rsqrt):
+def _bound(nbytes, ops, rsqrt):
     """(bound_ms, bound_by, sfu_ms) of a kernel's work."""
-    mem_ms = (slots * bytes_per_slot + cells * bytes_per_cell) / PEAK_BYTES * 1e3
+    mem_ms = nbytes / PEAK_BYTES * 1e3
     ops_ms = ops / PEAK_F32 * 1e3
     return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms else "operations",
             rsqrt / PEAK_SFU * 1e3)
@@ -210,20 +236,40 @@ def _pairs(mask):
     return float((n * (n - 1)).sum()), float((n * (n - 1) / 2).sum())
 
 
+def _force_bound(x, m):
+    """(bound_ms, bound_by, sfu_ms) of the dense force kernel on tiles: m
+    read and fx, fy written for every slot, x and y read for the used
+    ones, 96 bytes of stencil rows a cell."""
+    p_force, _ = _pairs(m > 0)
+    used = float((m > 0).sum())
+    return _bound(12 * x.numel() + 8 * used + 96 * x.shape[0],
+                  14 * p_force + 8 * 14 * used, p_force + 8 * used)
+
+
+def _collision_bound(x, alive, with_pid=False):
+    """(bound_ms, bound_by, sfu_ms) of the collision kernel on tiles, bytes
+    only: alive (and pid) read and ft written for every slot, x and y read
+    for the alive ones, the count written."""
+    n_alive = float((alive > 0).sum())
+    return _bound((12 if with_pid else 8) * x.numel() + 8 * n_alive + 4,
+                  0, 0)
+
+
 def _report(tag, rec):
     print(f"{tag}: max|df|={rec['max_abs_err']:.3e}; kernel "
-          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['ms']:.4f} ms a call ({rec['device_ms']:.4f} ms of device "
+          f"time), plain {rec['plain_ms']:.4f} ms, bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), rsqrt at the SFU "
           f"rate {rec['sfu_ms']:.4f} ms", flush=True)
 
 
-def _check_collisions(got, ref, tag):
+def _check_collisions(got, ref, tag, planted=True):
     if not torch.equal(got[1], ref[1]):
         raise AssertionError(f"{tag}: ft differs in "
                              f"{int((got[1] != ref[1]).sum())} slots")
     if int(got[0]) != int(ref[0]):
         raise AssertionError(f"{tag}: count {int(got[0])} != {int(ref[0])}")
-    if int(ref[0]) == 0:
+    if planted and int(ref[0]) == 0:
         raise AssertionError(f"{tag}: the planted chains did not collide")
 
 
@@ -252,13 +298,16 @@ def check_fused(ncells, kcap, fill, form, collide, gated=True):
     m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
     max_err = _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form),
                          kcap, tag)
+    # alive, mf, pid read and fx, fy, ft written for every slot; x and y
+    # read for the alive or used ones.
     p_force, _ = _pairs(m_post > 0)
-    _, p_hit = _pairs(alive > 0)
-    ops = (15 if form == "v4" else 14) * p_force + (6 * p_hit if collide else 0)
-    bound_ms, bound_by, sfu_ms = _bound(x.numel(), ncells, 32, 4, ops, p_force)
+    n_xy = float(((alive > 0) | (m > 0)).sum())
+    bound_ms, bound_by, sfu_ms = _bound(
+        24 * x.numel() + 8 * n_xy + 4,
+        (15 if form == "v4" else 14) * p_force, p_force)
     rec = {"max_abs_err": max_err,
-           "ms": _timed(lambda: cell_pairs.fused_pairs(*args, gated=gated), 20),
-           "plain_ms": _timed(lambda: cell_pairs.fused_pairs_ref(*args), 3),
+           **_kernel_times(lambda: cell_pairs.fused_pairs(*args, gated=gated),
+                           lambda: cell_pairs.fused_pairs_ref(*args)),
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
     _report(f"{tag}: ft, count={int(got[2])} exact", rec)
     return rec
@@ -276,15 +325,11 @@ def check_dense_forces(ncells, kcap, fill):
     tag = f"dense_pairwise_forces ({ncells}, {kcap})"
     max_err = _force_err(got, ref, _term_sums(x, y, m, "v2", tables), kcap,
                          tag)
-    p_force, _ = _pairs(m > 0)
-    used = float((m > 0).sum())
-    bound_ms, bound_by, sfu_ms = _bound(
-        x.numel(), ncells, 20, 96, 14 * p_force + 8 * 14 * used,
-        p_force + 8 * used)
+    bound_ms, bound_by, sfu_ms = _force_bound(x, m)
     rec = {"max_abs_err": max_err,
-           "ms": _timed(lambda: cell_pairs.dense_pairwise_forces(*args), 20),
-           "plain_ms": _timed(
-               lambda: cell_pairs.dense_pairwise_forces_ref(*args), 3),
+           **_kernel_times(
+               lambda: cell_pairs.dense_pairwise_forces(*args),
+               lambda: cell_pairs.dense_pairwise_forces_ref(*args)),
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
     _report(tag, rec)
     return rec
@@ -303,16 +348,107 @@ def check_dense_collisions(ncells, kcap, fill, with_pid):
     tag = (f"dense_collisions {'pid' if with_pid else 'no pid'} "
            f"({ncells}, {kcap})")
     _check_collisions(got, ref, tag)
-    _, p_hit = _pairs(alive > 0)
-    bound_ms, bound_by, sfu_ms = _bound(
-        x.numel(), ncells, 20 if with_pid else 16, 4, 6 * p_hit, 0)
+    bound_ms, bound_by, sfu_ms = _collision_bound(x, alive, with_pid)
     rec = {"max_abs_err": 0.0,
-           "ms": _timed(lambda: cell_pairs.dense_collisions(*args), 20),
-           "plain_ms": _timed(lambda: cell_pairs.dense_collisions_ref(*args),
-                              3),
+           **_kernel_times(lambda: cell_pairs.dense_collisions(*args),
+                           lambda: cell_pairs.dense_collisions_ref(*args)),
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
     _report(f"{tag}: ft, count={int(got[0])} exact", rec)
     return rec
+
+
+def check_adversarial(kcap):
+    """The adversarial tiles (ops/cuda/adversarial.py: a row whose only
+    alive slots are the last two, holes, an empty row, a 48-particle
+    cluster, a full row, a vertical line of near pairs) through the dense
+    kernels and the fused kernels,
+    against the plain versions: ft and count exact, forces within the
+    tolerance, v1 bitwise equal to the gated kernel."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        adversarial_tiles)
+
+    x, y, m, alive, pid = (torch.from_numpy(a).cuda()
+                           for a in adversarial_tiles(kcap, kcap))
+    rng = np.random.default_rng(kcap)
+    tables = [torch.from_numpy(rng.uniform(lo, hi, (x.shape[0], 8)).astype(
+        np.float32)).cuda() for lo, hi in ((5.0, 50.0), (-1.0, 2.0),
+                                           (-1.0, 2.0))]
+    tag = f"adversarial K={kcap}"
+    counts = []
+    for p in (None, pid):
+        args = (x, y, alive, kcap, EPSILON, p)
+        got = cell_pairs.dense_collisions(*args)
+        _check_collisions(got, cell_pairs.dense_collisions_ref(*args),
+                          f"{tag} dense_collisions pid={p is not None}")
+        counts.append(int(got[0]))
+    args = (x, y, m, *tables, kcap)
+    err = _force_err(cell_pairs.dense_pairwise_forces(*args),
+                     cell_pairs.dense_pairwise_forces_ref(*args),
+                     _term_sums(x, y, m, "v2", tables), kcap,
+                     f"{tag} dense_pairwise_forces")
+    for form in ("v4", "v2"):
+        args = (x, y, m, alive, pid, kcap, EPSILON, True, form)
+        got = cell_pairs.fused_pairs(*args)
+        ref = cell_pairs.fused_pairs_ref(*args)
+        _check_collisions((got[2], got[3]), (ref[2], ref[3]),
+                          f"{tag} fused_pairs {form}")
+        m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
+        _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form), kcap,
+                   f"{tag} fused_pairs {form}")
+        if form == "v2":
+            v1 = cell_pairs.fused_pairs(*args, gated=False)
+            if not all(torch.equal(a, b) for a, b in zip(v1, got)):
+                raise AssertionError(f"{tag}: v1 not bitwise equal to the "
+                                     f"gated kernel")
+    torch.cuda.synchronize()
+    print(f"{tag}: dense_collisions ft, count={counts[0]} (no pid), "
+          f"{counts[1]} (pid) exact; dense_pairwise_forces max|df|="
+          f"{err:.3e}; fused v4, v2, v1 exact on ft and count, v1 = gated",
+          flush=True)
+
+
+def check_tiles(label, tile_sets):
+    """Both dense kernels on a path's own tiles, one (x, y, m, ml, mxl,
+    myl) set per launch of each kernel in a step (one for dense, one per
+    class for tiered): each held against the plain versions (forces within
+    the tolerance, ft and count exact), timed, with its bound; then the
+    sums over the sets, a step's worth."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+
+    names = ("dense_pairwise_forces", "dense_collisions")
+    sums = {k: [0.0, 0.0, 0.0] for k in names}  # ms a call, device, bound
+    for x, y, m, ml, mxl, myl in tile_sets:
+        rows, kcap = x.shape
+        alive = (m > 0).to(torch.int32)
+        fargs = (x, y, m, ml, mxl, myl, kcap)
+        cargs = (x, y, alive, kcap, EPSILON)
+        tag = f"{label} tiles ({rows}, {kcap})"
+        err = _force_err(cell_pairs.dense_pairwise_forces(*fargs),
+                         cell_pairs.dense_pairwise_forces_ref(*fargs),
+                         _term_sums(x, y, m, "v2", (ml, mxl, myl)), kcap, tag)
+        _check_collisions(cell_pairs.dense_collisions(*cargs),
+                          cell_pairs.dense_collisions_ref(*cargs), tag,
+                          planted=False)
+        out = []
+        for name, fn, bound in (
+                (names[0], lambda: cell_pairs.dense_pairwise_forces(*fargs),
+                 _force_bound(x, m)[0]),
+                (names[1], lambda: cell_pairs.dense_collisions(*cargs),
+                 _collision_bound(x, alive)[0])):
+            times = (_timed(fn, 20), device_ms(fn, 20), bound)
+            sums[name] = [a + b for a, b in zip(sums[name], times)]
+            out.append("{} {:.4f} ms a call, {:.4f} device (bound {:.4f})"
+                       .format(name, *times))
+        print(f"{tag}, {int(alive.sum(1).max())} alive at most, "
+              f"max|df|={err:.2e}, ft and count exact: " + "; ".join(out),
+              flush=True)
+    print(f"{label}, summed over its {len(tile_sets)} tile set(s): "
+          + "; ".join("{} {:.4f} ms a call, {:.4f} device (bound {:.4f})"
+                      .format(k, *v) for k, v in sums.items()), flush=True)
 
 
 def drive(label, eng, state, steps, kernels):
@@ -414,23 +550,6 @@ def step_ms(eng, state, k, reps=2):
     return (tk - t1) / k * 1e3, t1, tk
 
 
-def step_bounds(label, tiles):
-    """Per-step bounds of the dense force and collision kernels on a path's
-    own tiles: ``tiles`` holds one (x, m) pair per launch of each kernel
-    (one for dense, one per class for tiered)."""
-    forces_ms = collisions_ms = 0.0
-    for x, m in tiles:
-        used = m > 0
-        p_force, p_hit = _pairs(used)
-        n_used = float(used.sum())
-        forces_ms += _bound(x.numel(), x.shape[0], 20, 96,
-                            14 * p_force + 8 * 14 * n_used, 0)[0]
-        collisions_ms += _bound(x.numel(), x.shape[0], 16, 4, 6 * p_hit, 0)[0]
-    print(f"{label}: bounds per step on its tiles ({len(tiles)} launches of "
-          f"each kernel): dense_pairwise_forces {forces_ms:.4f} ms, "
-          f"dense_collisions {collisions_ms:.4f} ms", flush=True)
-
-
 def device_breakdown(label, eng, state, step_ms_host, steps=10):
     """Device time per step by kernel name (torch.profiler over a run of
     ``steps``, its prologue and epilogue included), and the share of the
@@ -451,9 +570,13 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
     rows.sort(reverse=True)
     total = sum(ms for ms, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.4f}" for ms, key in rows[:8])
+    ours = {name: sum(ms for ms, key in rows if name in key)
+            for name in PORT_KERNELS}
     print(f"{label}: device {total:.4f} ms/step of {step_ms_host:.4f} "
           f"ms/step, idle {1 - total / step_ms_host:.1%}; by kernel "
-          f"(ms/step): {top}", flush=True)
+          f"(ms/step): {top}; the port's kernels (ms/step): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v > 0),
+          flush=True)
 
 
 def main():
@@ -475,6 +598,8 @@ def main():
     from particlesimulation_tpu_torch.engine import (
         Engine, make_dense_step, make_resident_run)
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        UNEVEN_PLAN, class_tiles, dense_tiles)
     from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
 
     t0 = time.perf_counter()
@@ -484,8 +609,8 @@ def main():
         print(f.read().strip(), flush=True)
 
     # 3. Each kernel vs its plain version: the flagship tile shape, kcap
-    # 1024, kcap 288 (not a multiple of the kernels' 256 threads) and a
-    # tiered UNEVEN class shape.
+    # 1024, kcap 288 (no power of two) and a tiered UNEVEN class shape; then
+    # the adversarial tiles.
     shapes = ((10_000, 160, 100), (300, 1024, 900), (500, 288, 200))
     fused = {}
     for ncells, kcap, fill in shapes:
@@ -500,6 +625,8 @@ def main():
         for with_pid in (False, True):
             colls[(ncells, with_pid)] = check_dense_collisions(
                 ncells, kcap, fill, with_pid)
+    for kcap in (32, 160, 288, 1024):
+        check_adversarial(kcap)
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     s1 = SimConfig(seed, side, nc, n)
@@ -538,7 +665,7 @@ def main():
           f"{t1:.4f} s, run(101) {t101:.4f} s) on {card}", flush=True)
     device_breakdown("dense flagship", eng_d, state_d, dense_ms)
     tiles = make_dense_step(s1, eng_d.kcap)[1](state_d)
-    step_bounds("dense flagship", [(tiles["xd"], tiles["md"])])
+    check_tiles("dense flagship", [dense_tiles(s1, tiles)])
 
     # 7. The tiered path: UNEVEN, against the JAX result, then against the
     # dense engine on the card.
@@ -550,14 +677,9 @@ def main():
     _, tiered_launches = check_golden(
         "UNEVEN tiered", eng_t, state_t, 2, UNEVEN_2,
         ["dense_forces", "dense_collisions"])
-    _, build_tiles, run = make_tiered_step(un, UNEVEN_PLAN, "cuda")
-    check_no_sync("tiered", run, state_t)
-    tiles, offs, classes = build_tiles(state_t), 0, []
-    for k, r in UNEVEN_PLAN:
-        classes.append([tiles[f][offs:offs + r * k].view(r, k)
-                        for f in ("xf", "mf")])
-        offs += r * k
-    step_bounds("UNEVEN tiered", classes)
+    check_no_sync("tiered", make_tiered_step(un, UNEVEN_PLAN, "cuda")[2],
+                  state_t)
+    check_tiles("UNEVEN tiered", class_tiles(un, UNEVEN_PLAN, state_t))
     runs = []
     for impl in ("tiered", "dense"):
         e = Engine(un, device="cuda", impl=impl)
@@ -572,7 +694,7 @@ def main():
     eng_dun = Engine(un, device="cuda", impl="dense")
     state_dun = eng_dun.init_state()
     tiles = make_dense_step(un, eng_dun.kcap)[1](state_dun)
-    step_bounds("UNEVEN dense", [(tiles["xd"], tiles["md"])])
+    check_tiles("UNEVEN dense", [dense_tiles(un, tiles)])
     for label, e, st in (("tiered", eng_t, state_t),
                          ("dense", eng_dun, state_dun)):
         ms, t1, t11 = step_ms(e, st, 10)
@@ -585,7 +707,7 @@ def main():
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None}
 
     print(f"launches per path: resident {res_launches}, resident v1 "

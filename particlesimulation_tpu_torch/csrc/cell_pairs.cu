@@ -13,28 +13,41 @@
 //   dense_collisions_kernel: _collision_kernel, the dense engine's collision
 //     pass (no force).
 //
-// What bounds them: each cell does K^2 pair arithmetic (a d^2 sweep for the
-// hit test, and the force loop with one rsqrt per pair) on data that is read
-// once from device memory (at most 5 loads and 3 stores of 4 bytes per slot
-// against some 20*K flops per slot). So the kernels are bound by pair
-// arithmetic, and by the rsqrt unit in particular, not by bytes.
+// What bounds them on an H100: each cell does pair arithmetic over its used
+// slots (the force loop: one rsqrt and ~12 f32 instructions per ordered
+// pair; the hit test: a d^2 per candidate pair) on data read once from
+// device memory. The force kernels are bound by that arithmetic (the f32
+// instruction rate and the rsqrt unit), the collision kernel by the bytes of
+// the row and by its short serial phases. Tiles are padded to the tile cap
+// K: at the flagship about 100 of K = 160 slots are used, in the dense
+// engine's clustered tiles 600 of 864 or far fewer, and the resident
+// engine's rows have holes; a loop over all K slots pays for the padding
+// squared.
 //
-// Design: one thread block per cell, in the engines' (ncells, K) row-major
-// layout. The block loads its cell into shared memory once and keeps it
-// resident for every phase; receivers are strided over the threads, and each
-// thread walks all partners j of its receivers from shared memory (every
-// thread of a warp reads the same j: a broadcast, free of bank conflicts).
+// Design: each block stages one cell row in shared memory, and compacts the
+// slots it needs (alive ones for collisions, used ones, m > 0, for the dense
+// force) in slot order with one block scan (block_compact), so that every
+// loop runs over those slots only.
 //
-// Collision phases (cell_has_hit, cell_collisions; shared by the fused and
-// the collision kernel):
-//   1. any alive pair with d^2 < eps^2 (__syncthreads_or); the gated kernels
-//      run phase 2 only in a cell with a hit, which does not change the
-//      result: with no hit every ft is INF and the count 0;
-//   2. pid ranks among alive slots; per slot the min first-pair rank ft over
-//      all partners; the count of pairs that are first for both ends.
-// The fused kernel then takes post-death masses m_post (0 where ft != INF),
-// in the v4 form recentres the coordinates on the mean of used slots
-// (m_post > 0), and runs the force loop.
+// Collision machinery (shared by the fused and the collision kernel):
+//   * the alive slots are put in x buckets at least 2 eps wide
+//     (bucket_by_x: a count, a scan and a scatter), and each slot is tested
+//     against the slots after it in its bucket and the next one
+//     (sweep_near): every pair within eps, and few others. A hit does
+//     atomicMin on both ends' first-pair rank in shared memory; the minimum
+//     is taken over integers, so the result does not depend on the order of
+//     the atomics;
+//   * ranks: with no pid (the dense engines) a slot's rank is its compacted
+//     index, the count of alive slots before it; with a pid, the count of
+//     alive slots with a smaller pid, computed only where the rank is needed
+//     (in a cell with a hit, or in every cell for the ungated v1 kernel);
+//   * the count in O(n): ranks are distinct among alive slots (pids are
+//     distinct), so a finite ft names exactly one pair; the pair is first for
+//     both ends iff the partner's ft equals it. The partner comes from the
+//     rank decoded from ft through an inverse rank table.
+// The gated kernels test for a hit first and run the rest only in a cell
+// with one; with no pid the first-pair sweep is itself the hit test. With no
+// hit every ft is INF and the count 0, so gating does not change the result.
 //
 // Collision decisions must match the plain version bit for bit, so the hit
 // test computes d^2 from raw x, y without FMA contraction.
@@ -45,7 +58,9 @@
 namespace {
 
 constexpr int kInf = 0x7FFFFFFF;
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;       // fused and force kernels
+constexpr int kMaxCollThreads = 1024;  // collision kernel
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dist2(float xi, float yi, float xj,
                                        float yj) {
@@ -54,11 +69,20 @@ __device__ __forceinline__ float dist2(float xi, float yi, float xj,
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
+// 1/sqrt(x) on the rsqrt unit alone: rsqrtf's subnormal-input fix-up
+// costs three more instructions a pair, and the two agree on normal inputs.
+// A subnormal x gives +inf, which a subnormal d^2 overflows to in d^-3 too.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // Sum over the block; blockDim.x is a multiple of 32. Every thread gets the
 // total. scratch holds 32 entries.
 template <typename T>
 __device__ T block_sum(T v, T* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   __syncthreads();  // earlier readers of scratch are done
@@ -66,74 +90,220 @@ __device__ T block_sum(T v, T* scratch) {
   __syncthreads();
   if (warp == 0) {
     v = (lane < (int)(blockDim.x >> 5)) ? scratch[lane] : T(0);
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
     if (lane == 0) scratch[0] = v;
   }
   __syncthreads();
   return scratch[0];
 }
 
-// Phase 1: whether any alive pair of the cell lies within eps (the same
-// answer in every thread of the block).
-__device__ bool cell_has_hit(const float* sx, const float* sy, const int* sa,
-                             int kcap, float eps2) {
-  int hit = 0;
-  for (int i = threadIdx.x; i < kcap && !hit; i += blockDim.x) {
-    const float xi = sx[i], yi = sy[i];
-    const int ai = sa[i];
-    for (int j = i + 1; j < kcap; ++j) {
-      if (ai * sa[j] > 0 && dist2(xi, yi, sx[j], sy[j]) < eps2) {
-        hit = 1;
-        break;
-      }
+// One slot of a row as a kernel loads it; `set` marks the slots to keep.
+struct Slot {
+  bool set;
+  float x, y, m;
+  int pid;
+};
+
+// Compaction of one row in slot order: visit(i, c, v) runs once for every
+// slot i < kcap with v = load(i), c its index among the slots whose v.set
+// holds, or -1 if it does not hold. load(i) must give set = false for
+// i >= kcap. Returns the number of kept slots to every thread; what visit
+// wrote to shared memory is visible on return. One ballot and one warp scan
+// of the per-warp counts per round of blockDim.x slots; each round starts
+// the next round's loads before its barriers, so that they overlap its scan.
+// blockDim.x is a multiple of 32; scratch holds 32 entries.
+template <typename Load, typename Visit>
+__device__ int block_compact(int kcap, Load load, Visit visit, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int total = 0;
+  Slot v = load(threadIdx.x);
+  for (int i0 = 0; i0 < kcap; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const Slot next = load(i + blockDim.x);
+    const unsigned ballot = __ballot_sync(kFull, v.set);
+    if (lane == 0) scratch[warp] = __popc(ballot);
+    __syncthreads();
+    int w = lane < nwarps ? scratch[lane] : 0;  // inclusive scan over warps
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += u;
     }
+    const int before = __shfl_sync(kFull, w, (warp + 31) & 31);
+    if (i < kcap)
+      visit(i,
+            v.set ? total + (warp > 0 ? before : 0) +
+                        __popc(ballot & ((1u << lane) - 1u))
+                  : -1,
+            v);
+    total += __shfl_sync(kFull, w, 31);
+    __syncthreads();  // readers of scratch are done; visits are visible
+    v = next;
   }
-  return __syncthreads_or(hit) != 0;
+  return total;
 }
 
-// Phase 2: pid ranks among alive slots into sr, each slot's min first-pair
-// rank into sft, and the count of pairs first for both ends (returned to
-// every thread). sp holds the pids.
-__device__ int cell_collisions(const float* sx, const float* sy, const int* sa,
-                               const int* sp, int* sr, int* sft, int kcap,
+// Exclusive prefix sum of v[0, len) in place, over the block; returns the
+// total to every thread. blockDim.x is a multiple of 32; scratch holds 32.
+__device__ int block_scan(int* v, int len, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int carry = 0;
+  for (int i0 = 0; i0 < len; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const int x = i < len ? v[i] : 0;
+    int w = x;  // inclusive scan within the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += u;
+    }
+    if (lane == 31) scratch[warp] = w;
+    __syncthreads();
+    int t = lane < nwarps ? scratch[lane] : 0;  // ... and over the warps
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, t, o);
+      if (lane >= o) t += u;
+    }
+    const int before = __shfl_sync(kFull, t, (warp + 31) & 31);
+    if (i < len) v[i] = carry + (warp > 0 ? before : 0) + w - x;
+    carry += __shfl_sync(kFull, t, 31);
+    __syncthreads();
+  }
+  return carry;
+}
+
+// A cell's alive slots in shared memory, compacted in slot order, and their
+// order by x bucket (bucket_by_x).
+struct AliveSlots {
+  float2* xy;  // (x, y)
+  int* slot;   // compacted index -> slot
+  int* ft;     // first-pair rank, INF on entry
+  int* order;  // compacted indices, bucket by bucket
+  int* bend;   // per bucket: 0 on entry, its end in order on return
+  int* rank;   // pid rank among alive slots (ranked cells only)
+  int* inv;    // pid on entry, then rank -> compacted index (ranked only)
+  int n;       // alive slots
+  int nb;      // buckets
+  float xmin, rh;  // bucket of x: (x - xmin) * rh, rounded down
+
+  __device__ int bucket(float x) const {
+    const float u = (x - xmin) * rh;
+    return u >= 1.0f ? min(nb - 1, (int)u) : 0;  // NaN and -0 go to 0
+  }
+};
+
+// Orders the alive slots by x bucket: n buckets over the row's x range, each
+// at least 2 eps wide, so two slots less than eps apart in x lie in one
+// bucket or in neighbouring ones (the bucket arithmetic rounds by < 2e-4 of
+// a bucket at n <= 1024). A count, a scan and a scatter: five barriers, where
+// a sorting network of n = 100 needs 28 and a comparison sort n^2 compares.
+// c.bend must hold zeros for the first n buckets. fscratch and iscratch hold
+// 32 entries each.
+__device__ void bucket_by_x(AliveSlots& c, float eps2, float* fscratch,
+                            int* iscratch) {
+  float lo = __int_as_float(0x7F800000), hi = -lo;  // +inf, -inf
+  for (int a = threadIdx.x; a < c.n; a += blockDim.x) {
+    lo = fminf(lo, c.xy[a].x);
+    hi = fmaxf(hi, c.xy[a].x);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o));
+  }
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    fscratch[threadIdx.x >> 5] = lo;
+    iscratch[threadIdx.x >> 5] = __float_as_int(hi);
+  }
+  __syncthreads();
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    lo = fminf(lo, fscratch[w]);
+    hi = fmaxf(hi, __int_as_float(iscratch[w]));
+  }
+  c.nb = max(c.n, 1);
+  c.xmin = lo;
+  c.rh = 1.0f / fmaxf(2.0f * sqrtf(eps2), (hi - lo) / c.nb);
+  for (int a = threadIdx.x; a < c.n; a += blockDim.x)
+    atomicAdd(&c.bend[c.bucket(c.xy[a].x)], 1);
+  __syncthreads();  // also: every thread has read the scratch
+  block_scan(c.bend, c.nb, iscratch);
+  for (int a = threadIdx.x; a < c.n; a += blockDim.x)
+    c.order[atomicAdd(&c.bend[c.bucket(c.xy[a].x)], 1)] = a;
+  __syncthreads();
+}
+
+// Calls hit(a, b) (compacted indices, a < b) for every pair of alive slots
+// within eps (d^2 < eps2, d^2 computed as the plain version computes it).
+// Each thread takes slots in bucket order and checks the slots after it in
+// its own bucket and in the next one. A pair with d^2 < eps2 is less than eps
+// apart in x (fl(dx^2) <= d^2, and rounding is monotone), so it lies in one
+// bucket or in neighbouring ones and is checked once. Buckets hold about one
+// slot each where the row is spread over its cell (50 wide, eps = 0.005, at
+// the flagship), so the sweep costs O(n), not O(n^2).
+template <typename Hit>
+__device__ __forceinline__ void sweep_near(const AliveSlots& c, float eps2,
+                                           Hit hit) {
+  for (int p = threadIdx.x; p < c.n; p += blockDim.x) {
+    const int a = c.order[p];
+    const float2 pa = c.xy[a];
+    const int end = c.bend[min(c.bucket(pa.x) + 1, c.nb - 1)];
+    for (int q = p + 1; q < end; ++q) {
+      const int b = c.order[q];
+      const float2 pb = c.xy[b];
+      if (dist2(pa.x, pa.y, pb.x, pb.y) < eps2) hit(min(a, b), max(a, b));
+    }
+  }
+}
+
+// Whether any two alive slots lie within eps (the same answer in every
+// thread of the block). The slots are in bucket order.
+__device__ bool cell_has_hit(const AliveSlots& c, float eps2) {
+  int found = 0;
+  sweep_near(c, eps2, [&](int, int) { found = 1; });
+  return __syncthreads_or(found) != 0;
+}
+
+// Collision outputs of one cell whose alive slots are in bucket order: each
+// slot's min first-pair rank into c.ft, and the count of pairs first for
+// both ends (returned to every thread). With `ranked`, the pid ranks go to
+// c.rank and c.inv becomes the inverse; without it, the rank is the
+// compacted index (slot order stands for pid order).
+__device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
                                float eps2, int* iscratch) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  for (int i = tid; i < kcap; i += nt) {
-    const int pi = sp[i];
-    int r = 0;
-    for (int j = 0; j < kcap; ++j) r += (sa[j] > 0 && sp[j] < pi) ? 1 : 0;
-    sr[i] = r;
+  if (ranked) {
+    for (int a = tid; a < c.n; a += nt) {
+      const int p = c.inv[a];
+      int r = 0;
+      for (int b = 0; b < c.n; ++b) r += c.inv[b] < p ? 1 : 0;
+      c.rank[a] = r;
+    }
+    __syncthreads();
+    for (int a = tid; a < c.n; a += nt) c.inv[c.rank[a]] = a;
   }
-  __syncthreads();
   const int kb = kcap + 1;
-  // Slot i as either end of a pair: one pass over all partners j != i.
-  for (int i = tid; i < kcap; i += nt) {
-    const float xi = sx[i], yi = sy[i];
-    const int ai = sa[i], ri = sr[i];
-    int best = kInf;
-    for (int j = 0; j < kcap; ++j) {
-      if (j != i && ai * sa[j] > 0 && dist2(xi, yi, sx[j], sy[j]) < eps2) {
-        const int rj = sr[j];
-        best = min(best, min(ri, rj) * kb + max(ri, rj));
-      }
-    }
-    sft[i] = best;
-  }
-  __syncthreads();
+  int found = 0;
+  sweep_near(c, eps2, [&](int a, int b) {
+    const int ra = ranked ? c.rank[a] : a;
+    const int rb = ranked ? c.rank[b] : b;
+    const int rank = min(ra, rb) * kb + max(ra, rb);
+    atomicMin(&c.ft[a], rank);
+    atomicMin(&c.ft[b], rank);
+    found = 1;
+  });
+  if (!__syncthreads_or(found)) return 0;  // no hit: every ft is INF
   int local = 0;
-  for (int i = tid; i < kcap; i += nt) {
-    const int fi = sft[i];
-    if (fi == kInf) continue;
-    const float xi = sx[i], yi = sy[i];
-    const int ai = sa[i], ri = sr[i];
-    for (int j = i + 1; j < kcap; ++j) {
-      if (ai * sa[j] > 0 && dist2(xi, yi, sx[j], sy[j]) < eps2) {
-        const int rj = sr[j];
-        const int rank = min(ri, rj) * kb + max(ri, rj);
-        local += (rank == fi && rank == sft[j]) ? 1 : 0;
-      }
-    }
+  for (int a = tid; a < c.n; a += nt) {
+    const int f = c.ft[a];
+    if (f == kInf) continue;
+    const int lo = f / kb;
+    const int hi = f - lo * kb;
+    const int partner = (ranked ? c.rank[a] : a) == lo ? hi : lo;
+    const int b = ranked ? c.inv[partner] : partner;
+    local += (b > a && c.ft[b] == f) ? 1 : 0;
   }
   return block_sum(local, iscratch);
 }
@@ -158,6 +328,11 @@ __device__ __forceinline__ void pair_force_v2(const float* sx, const float* sy,
   *ay = fy;
 }
 
+// The resident engine's pass: collisions(t) through the shared machinery
+// above, then the force loop over all K slots (one receiver a thread, its
+// partners from shared memory). -Xptxas -v on sm_90a: 31-40 registers,
+// 128-256 bytes of static shared memory, no spills; 44 K bytes of dynamic
+// shared memory.
 template <bool kV4, bool kCollide, bool kGate>
 __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -165,42 +340,68 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
     const int* __restrict__ pid, float* __restrict__ fx,
     float* __restrict__ fy, int* __restrict__ ft,
     int* __restrict__ cell_count, int kcap, float eps2, float g) {
-  // Nine (K,) arrays of 4 bytes: 36 KB at K = 1024, under the 48 KB a block
-  // may take without opting in.
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + kcap;
-  float* sm = sy + kcap;   // mf, then m_post
-  float* sxl = sm + kcap;  // recentred coordinates (v4)
+  // Eleven (K,) arrays of 4 bytes: 44 KB at K = 1024, under the 48 KB a
+  // block may take without opting in.
+  extern __shared__ __align__(16) float smem[];
+  float* sxl = smem;  // recentred coordinates (v4)
   float* syl = sxl + kcap;
-  int* sa = reinterpret_cast<int*>(syl + kcap);
-  int* sp = sa + kcap;     // pid
-  int* sr = sp + kcap;     // pid rank among alive slots
-  int* sft = sr + kcap;    // first-pair rank
+  float* sx = syl + kcap;
+  float* sy = sx + kcap;
+  float* sm = sy + kcap;  // mf, then m_post
+  AliveSlots c;
+  // The collision phase runs before the v4 recentring: its compacted
+  // coordinates take sxl and syl's place (at the 8-byte aligned base).
+  c.xy = reinterpret_cast<float2*>(smem);
+  c.slot = reinterpret_cast<int*>(sm + kcap);
+  c.rank = c.slot + kcap;
+  c.inv = c.rank + kcap;
+  c.ft = c.inv + kcap;
+  c.order = c.ft + kcap;
+  c.bend = c.order + kcap;
   __shared__ float fscratch[32];
   __shared__ int iscratch[32];
 
   const int64_t base = (int64_t)blockIdx.x * kcap;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  for (int i = tid; i < kcap; i += nt) {
-    sx[i] = x[base + i];
-    sy[i] = y[base + i];
-    sm[i] = mf[base + i];
-    sa[i] = alive[base + i];
-    sp[i] = pid[base + i];
-    sft[i] = kInf;
-  }
-  __syncthreads();
+  c.n = block_compact(
+      kcap,
+      [&](int i) {
+        Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
+        if (i < kcap) {
+          v = {kCollide && alive[base + i] > 0, x[base + i], y[base + i],
+               mf[base + i], kCollide ? pid[base + i] : 0};
+        }
+        return v;
+      },
+      [&](int i, int a, const Slot& v) {
+        sx[i] = v.x;
+        sy[i] = v.y;
+        sm[i] = v.m;
+        c.bend[i] = 0;
+        if (a < 0) {
+          ft[base + i] = kInf;
+          return;
+        }
+        c.xy[a] = make_float2(v.x, v.y);
+        c.slot[a] = i;
+        c.inv[a] = v.pid;
+        c.ft[a] = kInf;
+      },
+      iscratch);
 
   int count = 0;
-  if (kCollide && (!kGate || cell_has_hit(sx, sy, sa, kcap, eps2)))
-    count = cell_collisions(sx, sy, sa, sp, sr, sft, kcap, eps2, iscratch);
+  if (kCollide) {
+    bucket_by_x(c, eps2, fscratch, iscratch);
+    if (!kGate || cell_has_hit(c, eps2))
+      count = cell_collisions(c, true, kcap, eps2, iscratch);
+  }
   if (tid == 0) cell_count[blockIdx.x] = count;
 
-  for (int i = tid; i < kcap; i += nt) {
-    ft[base + i] = sft[i];
-    if (kCollide && sft[i] != kInf) sm[i] = 0.0f;
+  for (int a = tid; a < c.n; a += nt) {
+    const int i = c.slot[a];
+    ft[base + i] = c.ft[a];
+    if (c.ft[a] != kInf) sm[i] = 0.0f;
   }
   __syncthreads();
 
@@ -247,90 +448,188 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
   }
 }
 
+// Total gravity on the used slots q0 .. q0 + kRows - 1 (those below n) of a
+// row compacted into sp: the pair sum over the row's n used slots, then the
+// 8 monopole terms. Per pair: w = m_j / |d|^3 (0 where d^2 == 0) and
+// a += w d, 12 f32 instructions and one rsqrt; G m_i multiplies the sums
+// once.
+template <int kRows>
+__device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
+                                           int n, int q0,
+                                           const float (*stencil)[8], float g,
+                                           float* fx, float* fy) {
+  float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float4 p = sp[min(q0 + r, n - 1)];  // a copy past the row's end
+    xi[r] = p.x;
+    yi[r] = p.y;
+    gmi[r] = g * p.z;
+    ax[r] = 0.0f;
+    ay[r] = 0.0f;
+  }
+#pragma unroll 2
+  for (int j = 0; j < n; ++j) {
+    const float4 pj = sp[j];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float dx = pj.x - xi[r];
+      const float dy = pj.y - yi[r];
+      const float d2 = fmaf(dx, dx, dy * dy);
+      const float inv = d2 > 0.0f ? rsqrt_ftz(d2) : 0.0f;
+      const float w = pj.z * (inv * inv * inv);
+      ax[r] = fmaf(w, dx, ax[r]);
+      ay[r] = fmaf(w, dy, ay[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (q0 + r >= n) break;
+    ax[r] *= gmi[r];
+    ay[r] *= gmi[r];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      const float dxl = stencil[1][l] - xi[r];
+      const float dyl = stencil[2][l] - yi[r];
+      const float d2l = dxl * dxl + dyl * dyl;
+      const float invl = d2l > 0.0f ? rsqrtf(d2l) : 0.0f;
+      const float sl = (gmi[r] * stencil[0][l]) * (invl * invl * invl);
+      ax[r] += sl * dxl;
+      ay[r] += sl * dyl;
+    }
+    fx[sslot[q0 + r]] = ax[r];
+    fy[sslot[q0 + r]] = ay[r];
+  }
+}
+
 // Total gravity per slot: the v2 same-cell pair sum, then the 8 monopole
 // terms of the cell's stencil row (ml, mxl, myl: (ncells, 8)) in stencil
 // order, added one by one as _force_kernel adds them.
+//
+// Bound: one rsqrt and ~14 flops per ordered pair of used slots. The used
+// slots (m > 0) are compacted in slot order into float4 (x, y, m, 0), so a
+// partner is one 16-byte broadcast load from shared memory, and only used
+// partners and receivers are visited: an m = 0 partner adds a term that is
+// exactly 0, and an m = 0 receiver gets 0 (gmi = 0). Each thread holds
+// kRows consecutive receivers in registers, so one partner load feeds kRows
+// independent pairs. The grid is (cells x chunks): a class with few rows
+// splits each row's receivers over `chunks` blocks, each staging the whole
+// row (at most 20 KB of shared memory at K = 1024). One block per cell and
+// chunk, not a grid-stride loop: rows differ in work by n^2, and the
+// hardware hands a freed SM the next block (a grid-stride loop measured
+// slower on an H100). -Xptxas -v on sm_90a: 48 (kRows = 1) or 64
+// registers, 224 bytes of static shared memory, no spills; 20 K bytes of
+// dynamic shared memory.
+template <int kRows>
 __global__ void __launch_bounds__(kMaxThreads) dense_forces_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ m, const float* __restrict__ ml,
     const float* __restrict__ mxl, const float* __restrict__ myl,
-    float* __restrict__ fx, float* __restrict__ fy, int kcap, float g) {
-  extern __shared__ float smem[];  // three (K,) arrays: 12 KB at K = 1024
-  float* sx = smem;
-  float* sy = sx + kcap;
-  float* sm = sy + kcap;
+    float* __restrict__ fx, float* __restrict__ fy, int kcap, int chunks,
+    float g) {
+  extern __shared__ __align__(16) float4 sp[];  // used slots: (x, y, m, 0)
+  int* sslot = reinterpret_cast<int*>(sp + kcap);  // compacted -> slot
   __shared__ float stencil[3][8];
+  __shared__ int iscratch[32];
 
-  const int64_t base = (int64_t)blockIdx.x * kcap;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int i = tid; i < kcap; i += nt) {
-    sx[i] = x[base + i];
-    sy[i] = y[base + i];
-    sm[i] = m[base + i];
+  const int cell = blockIdx.x / chunks;
+  const int chunk = blockIdx.x - cell * chunks;
+  const int64_t base = (int64_t)cell * kcap;
+  if (threadIdx.x < 8) {
+    const int64_t s = (int64_t)cell * 8 + threadIdx.x;
+    stencil[0][threadIdx.x] = ml[s];
+    stencil[1][threadIdx.x] = mxl[s];
+    stencil[2][threadIdx.x] = myl[s];
   }
-  if (tid < 8) {
-    const int64_t s = (int64_t)blockIdx.x * 8 + tid;
-    stencil[0][tid] = ml[s];
-    stencil[1][tid] = mxl[s];
-    stencil[2][tid] = myl[s];
-  }
-  __syncthreads();
+  const int n = block_compact(
+      kcap,
+      [&](int i) {
+        Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
+        if (i < kcap) {
+          const float mi = m[base + i];
+          v = {mi > 0.0f, x[base + i], y[base + i], mi, 0};
+        }
+        return v;
+      },
+      [&](int i, int c, const Slot& v) {
+        if (c >= 0) {
+          sp[c] = make_float4(v.x, v.y, v.m, 0.0f);
+          sslot[c] = i;
+        } else if (chunk == 0) {
+          fx[base + i] = 0.0f;
+          fy[base + i] = 0.0f;
+        }
+      },
+      iscratch);
 
-  for (int i = tid; i < kcap; i += nt) {
-    const float xi = sx[i], yi = sy[i];
-    const float gmi = g * sm[i];
-    float ax, ay;
-    pair_force_v2(sx, sy, sm, kcap, xi, yi, gmi, &ax, &ay);
-#pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      const float dxl = stencil[1][l] - xi;
-      const float dyl = stencil[2][l] - yi;
-      const float d2l = dxl * dxl + dyl * dyl;
-      const float invl = d2l > 0.0f ? rsqrtf(d2l) : 0.0f;
-      const float sl = (gmi * stencil[0][l]) * (invl * invl * invl);
-      ax += sl * dxl;
-      ay += sl * dyl;
-    }
-    fx[base + i] = ax;
-    fy[base + i] = ay;
-  }
+  const int stride = chunks * blockDim.x * kRows;
+  for (int q0 = (chunk * blockDim.x + threadIdx.x) * kRows; q0 < n;
+       q0 += stride)
+    force_rows<kRows>(sp, sslot, n, q0, stencil, g, fx + base, fy + base);
 }
 
 // Per-slot first-pair ranks and the per-cell count, no force. With no pid
 // (pid == nullptr) the slot index stands for it, so a slot's rank is the
 // number of alive slots before it (_slot_iota_pid in the Pallas module).
-__global__ void __launch_bounds__(kMaxThreads) dense_collisions_kernel(
+//
+// Bound: the bytes of the row (alive and ft of every slot, x and y of the
+// alive ones); the hit test's arithmetic on near pairs is small beside
+// them. The alive slots are compacted once and put in x buckets, so the hit
+// sweep visits only pairs in one bucket or neighbouring ones; the ranks and
+// count cost O(na) beyond that, except the pid ranks (O(na^2) over the
+// block, in hit cells only). The cells' counts are added into one total,
+// zeroed before the launch (integer atomics: exact in any order). -Xptxas -v on
+// sm_90a: 32 registers, 256 bytes of static shared memory, no spills; 24 K
+// bytes of dynamic shared memory (32 K with a pid).
+__global__ void __launch_bounds__(kMaxCollThreads) dense_collisions_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const int* __restrict__ alive, const int* __restrict__ pid,
-    int* __restrict__ ft, int* __restrict__ cell_count, int kcap,
-    float eps2) {
-  extern __shared__ float smem[];  // six (K,) arrays: 24 KB at K = 1024
-  float* sx = smem;
-  float* sy = sx + kcap;
-  int* sa = reinterpret_cast<int*>(sy + kcap);
-  int* sp = sa + kcap;
-  int* sr = sp + kcap;
-  int* sft = sr + kcap;
+    int* __restrict__ ft, int* __restrict__ total, int kcap, float eps2) {
+  // (x, y) pairs, then four (K,) int arrays (six with a pid).
+  extern __shared__ __align__(16) float2 sxy[];
+  const bool ranked = pid != nullptr;
+  AliveSlots c;
+  c.xy = sxy;
+  c.slot = reinterpret_cast<int*>(sxy + kcap);
+  c.ft = c.slot + kcap;
+  c.order = c.ft + kcap;
+  c.bend = c.order + kcap;
+  c.rank = c.bend + kcap;
+  c.inv = c.rank + kcap;
+  __shared__ float fscratch[32];
   __shared__ int iscratch[32];
 
   const int64_t base = (int64_t)blockIdx.x * kcap;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int i = tid; i < kcap; i += nt) {
-    sx[i] = x[base + i];
-    sy[i] = y[base + i];
-    sa[i] = alive[base + i];
-    sp[i] = pid != nullptr ? pid[base + i] : i;
-    sft[i] = kInf;
-  }
-  __syncthreads();
+  c.n = block_compact(
+      kcap,
+      [&](int i) {
+        Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
+        if (i < kcap) {
+          v = {alive[base + i] > 0, x[base + i], y[base + i], 0.0f,
+               ranked ? pid[base + i] : 0};
+        }
+        return v;
+      },
+      [&](int i, int a, const Slot& v) {
+        c.bend[i] = 0;
+        if (a < 0) {
+          ft[base + i] = kInf;
+          return;
+        }
+        c.xy[a] = make_float2(v.x, v.y);
+        c.slot[a] = i;
+        c.ft[a] = kInf;
+        if (ranked) c.inv[a] = v.pid;
+      },
+      iscratch);
 
+  bucket_by_x(c, eps2, fscratch, iscratch);
   int count = 0;
-  if (cell_has_hit(sx, sy, sa, kcap, eps2))
-    count = cell_collisions(sx, sy, sa, sp, sr, sft, kcap, eps2, iscratch);
-  if (tid == 0) cell_count[blockIdx.x] = count;
-  for (int i = tid; i < kcap; i += nt) ft[base + i] = sft[i];
+  if (!ranked || cell_has_hit(c, eps2))
+    count = cell_collisions(c, ranked, kcap, eps2, iscratch);
+  if (threadIdx.x == 0 && count > 0) atomicAdd(total, count);
+  for (int a = threadIdx.x; a < c.n; a += blockDim.x)
+    ft[base + c.slot[a]] = c.ft[a];
 }
 
 int threads_for(int kcap) {
@@ -343,7 +642,7 @@ void launch_fused(const float* x, const float* y, const float* mf,
                   const int* alive, const int* pid, float* fx, float* fy,
                   int* ft, int* cell_count, int ncells, int kcap, float eps2,
                   float g, cudaStream_t stream) {
-  const size_t smem = (size_t)9 * kcap * sizeof(float);
+  const size_t smem = (size_t)11 * kcap * sizeof(float);
   fused_pairs_kernel<kV4, kCollide, kGate>
       <<<ncells, threads_for(kcap), smem, stream>>>(
           x, y, mf, alive, pid, fx, fy, ft, cell_count, kcap, eps2, g);
@@ -366,11 +665,16 @@ void dispatch_fused(const float* x, const float* y, const float* mf,
                                    cell_count, ncells, kcap, eps2, g, s);
 }
 
+bool whole_warps(int threads, int most) {
+  return threads >= 32 && threads <= most && threads % 32 == 0;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
-// after the launch.
+// after the launch (cudaErrorInvalidValue, without a launch, for a launch
+// shape it does not take).
 extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
                                 const int* alive, const int* pid, float* fx,
                                 float* fy, int* ft, int* cell_count, int ncells,
@@ -386,24 +690,40 @@ extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
   return (int)cudaGetLastError();
 }
 
+// rows: receivers per thread (1 or 2); threads per block; chunks: blocks per
+// cell.
 extern "C" int psim_dense_forces(const float* x, const float* y, const float* m,
                                  const float* ml, const float* mxl,
                                  const float* myl, float* fx, float* fy,
-                                 int ncells, int kcap, float g, void* stream) {
-  const size_t smem = (size_t)3 * kcap * sizeof(float);
-  dense_forces_kernel<<<ncells, threads_for(kcap), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, y, m, ml, mxl, myl, fx, fy, kcap, g);
+                                 int ncells, int kcap, float g, int rows,
+                                 int threads, int chunks, void* stream) {
+  if (!whole_warps(threads, kMaxThreads) || chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kcap * (sizeof(float4) + sizeof(int));
+  const dim3 grid((unsigned)ncells * (unsigned)chunks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 1)
+    dense_forces_kernel<1><<<grid, threads, smem, s>>>(
+        x, y, m, ml, mxl, myl, fx, fy, kcap, chunks, g);
+  else if (rows == 2)
+    dense_forces_kernel<2><<<grid, threads, smem, s>>>(
+        x, y, m, ml, mxl, myl, fx, fy, kcap, chunks, g);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
+// total: one int, the count summed over the cells.
 extern "C" int psim_dense_collisions(const float* x, const float* y,
                                      const int* alive, const int* pid, int* ft,
-                                     int* cell_count, int ncells, int kcap,
-                                     float eps2, void* stream) {
-  const size_t smem = (size_t)6 * kcap * sizeof(float);
-  dense_collisions_kernel<<<ncells, threads_for(kcap), smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, y, alive, pid, ft, cell_count, kcap, eps2);
+                                     int* total, int ncells, int kcap,
+                                     float eps2, int threads, void* stream) {
+  if (!whole_warps(threads, kMaxCollThreads))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(total, 0, sizeof(int), s);
+  const size_t smem = (size_t)kcap * (pid != nullptr ? 8 : 6) * sizeof(int);
+  dense_collisions_kernel<<<ncells, threads, smem, s>>>(x, y, alive, pid, ft,
+                                                         total, kcap, eps2);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,80 @@
+"""Slot tiles for the cases the pair kernels' structure risks.
+
+The dense force and collision kernels compact the used or alive slots of a
+row, test the pairs of neighbouring x buckets and count first pairs from
+an inverse rank table. ``adversarial_tiles`` builds one row for each
+case that structure can get wrong; the CPU tests hold the plain versions
+against the JAX package's kernels on them, and ``chip_smoke.py`` holds the
+CUDA kernels against the plain versions on them. NumPy only, so that both
+can use it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from particlesimulation_tpu_torch.config import EPSILON
+
+CLUSTER = 48
+
+
+def adversarial_tiles(kcap: int, seed: int = 0):
+    """(x, y, m, alive, pid): float32 and int32 (7, kcap) tiles, one case
+    per row, with coordinates about a unit cell:
+
+    0. only the last two slots (K-2, K-1) alive, within EPSILON;
+    1. holes: every third slot dead (m = 0, alive = 0) at the coordinates of
+       the slot before it, and a chain of hits over the holes;
+    2. no alive slot;
+    3. min(48, K) alive particles at random slots, all within EPSILON of
+       each other (1,128 hit pairs at 48), among other alive particles;
+    4. every slot alive;
+    5. the first ~60% of slots alive, with a planted chain of three;
+    6. every slot alive on one vertical line, at y = 0.1 + i·EPSILON·(1 ± 1e-6)
+       for slot i: all x tie, so every pair is within EPSILON in x, and
+       neighbours lie a hair inside or outside EPSILON.
+
+    Dead slots keep random coordinates. pids are a permutation per row.
+    """
+    if kcap < 8:
+        raise ValueError(f"kcap {kcap} < 8")
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (7, kcap))
+    y = rng.uniform(0.0, 1.0, (7, kcap))
+    alive = np.zeros((7, kcap), dtype=bool)
+
+    alive[0, -2:] = True
+    x[0, -1] = x[0, -2] + EPSILON / 2
+    y[0, -1] = y[0, -2]
+
+    x[1, 3] = x[1, 1] + EPSILON / 2  # slot 1 - slot 3 - slot 4 over hole 2
+    y[1, 3] = y[1, 1]
+    x[1, 4] = x[1, 3] + EPSILON / 2
+    y[1, 4] = y[1, 3]
+    alive[1] = np.arange(kcap) % 3 != 2
+    holes = np.flatnonzero(~alive[1])
+    x[1, holes], y[1, holes] = x[1, holes - 1], y[1, holes - 1]
+
+    alive[3] = True
+    members = rng.choice(kcap, size=min(CLUSTER, kcap), replace=False)
+    r = 0.4 * EPSILON * np.sqrt(rng.uniform(size=members.size))
+    phi = rng.uniform(0.0, 2 * np.pi, members.size)
+    x[3, members] = 0.5 + r * np.cos(phi)
+    y[3, members] = 0.5 + r * np.sin(phi)
+
+    alive[4] = True
+
+    alive[5, :max(3, int(0.6 * kcap))] = True
+    x[5, 1] = x[5, 0] + EPSILON / 3
+    x[5, 2] = x[5, 1] + EPSILON / 3
+    y[5, 1:3] = y[5, 0]
+
+    alive[6] = True
+    x[6] = 0.25
+    y[6] = 0.1 + np.arange(kcap) * EPSILON * rng.choice(
+        [1 - 1e-6, 1.0, 1 + 1e-6], kcap)
+
+    m = np.where(alive, rng.uniform(0.5, 2.0, (7, kcap)), 0.0)
+    pid = np.argsort(rng.uniform(size=(7, kcap)), axis=1)
+    return (x.astype(np.float32), y.astype(np.float32), m.astype(np.float32),
+            alive.astype(np.int32), pid.astype(np.int32))

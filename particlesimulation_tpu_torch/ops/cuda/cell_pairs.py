@@ -26,7 +26,9 @@ ends (the reference's collision set rule, serial/parsim.cpp:393-411).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,7 +46,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCE = os.path.join(_PKG, "csrc", "cell_pairs.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-# Largest per-cell capacity the kernels take: the fused kernel's nine (K,)
+# Largest per-cell capacity the kernels take: the fused kernel's eleven (K,)
 # arrays of 4 bytes must fit the 48 KB of shared memory a block may use
 # without opting in (the JAX package's MAX_DENSE_KCAP).
 MAX_KCAP = 1024
@@ -110,8 +112,10 @@ def _library():
             cf = ctypes.c_float
             lib.psim_fused_pairs.argtypes = (
                 [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, vp])
-            lib.psim_dense_forces.argtypes = [vp] * 8 + [ci, ci, cf, vp]
-            lib.psim_dense_collisions.argtypes = [vp] * 6 + [ci, ci, cf, vp]
+            lib.psim_dense_forces.argtypes = (
+                [vp] * 8 + [ci, ci, cf, ci, ci, ci, vp])
+            lib.psim_dense_collisions.argtypes = (
+                [vp] * 6 + [ci, ci, cf, ci, vp])
             for fn in (lib.psim_fused_pairs, lib.psim_dense_forces,
                        lib.psim_dense_collisions):
                 fn.restype = ci
@@ -119,6 +123,7 @@ def _library():
         return _lib
 
 
+@functools.lru_cache(maxsize=None)
 def _eps2(eps: float) -> float:
     # f32(eps)·f32(eps) == f32(eps²) for EPSILON (both 0x37D1B717).
     return float(np.float32(eps) * np.float32(eps))
@@ -154,8 +159,13 @@ def _on_card(x, what):
 
 
 def _launch(name, fn, x, *args):
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # The kernel goes to the current device, on its current stream. (The raw
+    # stream handle saves the Stream object that torch.cuda.current_stream()
+    # builds on every call.)
+    dev = x.device.index
+    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -236,13 +246,33 @@ def dense_pairwise_forces(x, y, m, ml, mxl, myl, kcap: int):
     _check_dense_forces(x, y, m, ml, mxl, myl, kcap)
     if not _on_card(x, "dense force pass"):
         return dense_pairwise_forces_ref(x, y, m, ml, mxl, myl, kcap)
+    ncells = x.shape[0]
     fx = torch.empty_like(x)
     fy = torch.empty_like(x)
     _launch("dense_forces", _library().psim_dense_forces, x,
             x.data_ptr(), y.data_ptr(), m.data_ptr(), ml.data_ptr(),
             mxl.data_ptr(), myl.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-            x.shape[0], kcap, G)
+            ncells, kcap, G,
+            *force_launch(ncells, kcap, _sm_count(x.device.index)))
     return fx, fy
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def force_launch(ncells: int, kcap: int, sms: int):
+    """(receivers per thread, threads per block, blocks per cell) of the
+    force kernel on (ncells, kcap) tiles on a card with ``sms``
+    multiprocessors, as the launch sweep (``launch_sweep.py``) on an H100
+    chose them: two receivers a thread and a full row per pass, up to 256
+    threads; where a class has fewer rows than two per SM, each row over up
+    to four blocks per SM in all, one receiver a thread."""
+    if ncells >= 2 * sms:
+        return 2, min(256, -(-kcap // 64) * 32), 1
+    chunks = max(1, min(-(-4 * sms // ncells), -(-kcap // 128)))
+    return 1, min(256, -(-kcap // (32 * chunks)) * 32), chunks
 
 
 def dense_pairwise_forces_ref(x, y, m, ml, mxl, myl, kcap: int):
@@ -273,12 +303,26 @@ def dense_collisions(x, y, alive, kcap: int, eps: float, pid=None):
         return dense_collisions_ref(x, y, alive, kcap, eps, pid)
     ncells = x.shape[0]
     ft = torch.empty_like(alive)
-    cell_count = torch.empty(ncells, dtype=torch.int32, device=x.device)
+    count = torch.empty((), dtype=torch.int32, device=x.device)
     _launch("dense_collisions", _library().psim_dense_collisions, x,
             x.data_ptr(), y.data_ptr(), alive.data_ptr(),
             None if pid is None else pid.data_ptr(), ft.data_ptr(),
-            cell_count.data_ptr(), ncells, kcap, _eps2(eps))
-    return torch.sum(cell_count, dtype=torch.int32), ft
+            count.data_ptr(), ncells, kcap, _eps2(eps),
+            collision_threads(ncells, kcap, _sm_count(x.device.index)))
+    return count, ft
+
+
+def collision_threads(ncells: int, kcap: int, sms: int) -> int:
+    """Threads per block of the collision kernel on a card with ``sms``
+    multiprocessors, as the launch sweep (``launch_sweep.py``) on an H100
+    chose them: a thread for two slots where a class has few rows (the
+    sweep's classes of up to 1280 rows, 10 per SM, ran fastest so); a
+    thread for eight where it has thousands, so that more cells are in
+    flight at once (10 000 rows, 76 per SM). The switch, at 16 rows per SM,
+    lies between the two, where no shape was measured. In whole warps, 32
+    to 512."""
+    share = 8 if ncells >= 16 * sms else 2
+    return min(512, max(32, -(-kcap // (32 * share)) * 32))
 
 
 def dense_collisions_ref(x, y, alive, kcap: int, eps: float, pid=None):

@@ -1,0 +1,174 @@
+"""The dense kernels' launch shapes on the engines' own tiles.
+
+Run on a machine with one CUDA card, from the repository root:
+
+    python3 -m particlesimulation_tpu_torch.ops.cuda.launch_sweep
+
+It builds the dense engine's tiles of golden s1's configuration (the
+flagship) and the dense and tiered engines' tiles of UNEVEN, and times the
+force kernel in every (receivers per thread, threads per block) shape and
+the collision kernel at every thread count from 32 to 1024, each against
+the shape the wrappers' rules pick (``cell_pairs.force_launch``,
+``cell_pairs.collision_threads``), whose outputs every shape must equal bit
+for bit. Times: CUDA events around each call, the calls queued behind a
+spin kernel, median of 10. The rules come from this table.
+
+``class_tiles`` and ``dense_tiles`` also serve ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+from particlesimulation_tpu_torch.config import EPSILON, G
+from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+# golden s1's configuration, and UNEVEN (the reference report's clustered
+# workload) with its tier plan.
+FLAGSHIP = (1, 5000.0, 100, 1_000_000)
+UNEVEN = (-23, 5000.0, 100, 1_000_000)
+UNEVEN_PLAN = ((32, 10000), (64, 1280), (128, 1280), (192, 800), (256, 512),
+               (320, 416), (384, 352), (448, 288), (480, 128), (576, 352),
+               (672, 288), (864, 96))
+SPIN_CYCLES = 2_000_000  # ~1.1 ms of a 1.755 GHz SM per queued call
+
+
+def device_ms(fn, reps):
+    """Median device milliseconds of ``fn`` over ``reps`` calls: CUDA events
+    around each call, all queued behind a spin kernel, so that each pair of
+    events brackets the call's kernels and not the host's work between
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SPIN_CYCLES * reps)
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def class_tiles(config, plan, state):
+    """The tiered engine's class tiles of ``state``: per class (x, y, m,
+    ml, mxl, myl), the stencil rows gathered for the class's cells."""
+    from particlesimulation_tpu_torch.ops import binning, stencil
+    from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
+
+    nc, side = config.ncside, config.side
+    key, _ = binning.cell_keys(state.x, state.y, side, nc)
+
+    def sums(v):
+        out = torch.zeros(nc * nc + 1, dtype=v.dtype, device=v.device)
+        return out.index_add_(0, key.long(), v)[:nc * nc]
+
+    tables = stencil.tables_from_sums(sums(state.m), sums(state.m * state.x),
+                                      sums(state.m * state.y), side, nc)
+    tiles = make_tiered_step(config, plan, state.x.device.type)[1](state)
+    out, offs = [], 0
+    for t, (k, r) in enumerate(plan):
+        xyz = [tiles[f][offs:offs + r * k].view(r, k)
+               for f in ("xf", "yf", "mf")]
+        rows = (tuple(tables) if t == 0 else
+                tuple(a[tiles["ids"][t - 1]] for a in tables))
+        out.append(xyz + [a.contiguous() for a in rows])
+        offs += r * k
+    return out
+
+
+def dense_tiles(config, tiles):
+    """The dense engine's (x, y, m) tiles and their stencil rows."""
+    from particlesimulation_tpu_torch.ops import stencil
+
+    x, y, m = tiles["xd"], tiles["yd"], tiles["md"]
+    return (x, y, m) + tuple(stencil.tables_from_sums(
+        m.sum(1), (m * x).sum(1), (m * y).sum(1), config.side,
+        config.ncside))
+
+
+def _forces(x, y, m, ml, mxl, myl, shape):
+    """The force kernel in launch shape (rows, threads, chunks)."""
+    fx, fy = torch.empty_like(x), torch.empty_like(x)
+    cell_pairs._launch(
+        "dense_forces", cell_pairs._library().psim_dense_forces, x,
+        x.data_ptr(), y.data_ptr(), m.data_ptr(), ml.data_ptr(),
+        mxl.data_ptr(), myl.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+        x.shape[0], x.shape[1], G, *shape)
+    return fx, fy
+
+
+def _collisions(x, y, alive, threads):
+    """The collision kernel (no pid) with ``threads`` per block."""
+    ft = torch.empty_like(alive)
+    count = torch.empty((), dtype=torch.int32, device=x.device)
+    cell_pairs._launch(
+        "dense_collisions", cell_pairs._library().psim_dense_collisions, x,
+        x.data_ptr(), y.data_ptr(), alive.data_ptr(), None, ft.data_ptr(),
+        count.data_ptr(), x.shape[0], x.shape[1],
+        cell_pairs._eps2(EPSILON), threads)
+    return count, ft
+
+
+def sweep(label, x, y, m, ml, mxl, myl):
+    """One tile set: every launch shape timed, outputs equal to the rule's
+    shape's bit for bit; prints one line."""
+    rows, kcap = x.shape
+    sms = cell_pairs._sm_count(x.device.index)
+    alive = (m > 0).to(torch.int32)
+    fargs = (x, y, m, ml, mxl, myl, kcap)
+    ref = cell_pairs.dense_pairwise_forces(*fargs)
+    rule = cell_pairs.force_launch(rows, kcap, sms)
+    chunks = rule[2]
+    shapes = sorted({(r, t, chunks) for r in (1, 2)
+                     for t in (32, 64, 128, 256)} | {rule})
+    ftimes = []
+    for shape in shapes:
+        got = _forces(*fargs[:6], shape)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{label}: forces of launch {shape} differ "
+                                 f"from the rule's launch {rule}")
+        ftimes.append((shape, device_ms(lambda: _forces(*fargs[:6], shape),
+                                        10)))
+    cref = cell_pairs.dense_collisions(x, y, alive, kcap, EPSILON)
+    crule = cell_pairs.collision_threads(rows, kcap, sms)
+    ctimes = []
+    for threads in sorted({32, 64, 96, 128, 256, 512, 1024, crule}):
+        got = _collisions(x, y, alive, threads)
+        if not all(torch.equal(a, b) for a, b in zip(got, cref)):
+            raise AssertionError(f"{label}: collisions with {threads} "
+                                 f"threads differ from the rule's {crule}")
+        ctimes.append((threads, device_ms(
+            lambda: _collisions(x, y, alive, threads), 10)))
+    print(f"{label} ({rows}, {kcap}): forces (rows, threads, chunks) ms: "
+          + ", ".join(f"{s}={t:.4f}" for s, t in ftimes)
+          + f"; rule {rule}; collisions threads ms: "
+          + ", ".join(f"{n}={t:.4f}" for n, t in ctimes)
+          + f"; rule {crule}", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("launch_sweep: CUDA is not available")
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine, make_dense_step
+
+    print(f"{torch.cuda.get_device_name(0)}, "
+          f"{cell_pairs._sm_count(0)} SMs", flush=True)
+    for label, args in (("flagship", FLAGSHIP), ("UNEVEN", UNEVEN)):
+        config = SimConfig(*args)
+        eng = Engine(config, device="cuda", impl="dense")
+        state = eng.init_state()
+        tiles = make_dense_step(config, eng.kcap)[1](state)
+        sweep(f"{label} dense tiles", *dense_tiles(config, tiles))
+    config = SimConfig(*UNEVEN)
+    state = Engine(config, device="cuda", impl="tiered").init_state()
+    for tiles in class_tiles(config, UNEVEN_PLAN, state):
+        sweep("UNEVEN class", *tiles)
+
+
+if __name__ == "__main__":
+    main()

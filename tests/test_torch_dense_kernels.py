@@ -3,8 +3,11 @@ torch versions), vs the JAX package's Pallas kernels (interpret mode on the
 CPU) and their XLA twins.
 
 Inputs are made with NumPy from a seed and given to both sides as float32 /
-int32, with empty slots and planted ε-chains (``_tiles``). Collision outputs
-(ft, count) must be exact against the Pallas kernels. The XLA twin of the
+int32, with empty slots and planted ε-chains (``_tiles``), and the cases the
+CUDA kernels' compaction, x buckets and O(n) count risk (``used=None``: the
+port's ``adversarial_tiles``, at K = 32, 160 and 288, the last no multiple of
+a power-of-two block). Collision outputs (ft, count) must be exact against
+the Pallas kernels. The XLA twin of the
 collision pass ranks pairs by slot index when no pid is given, the Pallas
 kernel by alive-slot order: both give the same order, so against the twin
 only the death set (ft != INF) and the count are compared.
@@ -16,6 +19,10 @@ kernel adds the terms one by one onto the pair sum; torch.rsqrt may differ
 from XLA's by an ulp).
 """
 
+import contextlib
+import functools
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +32,8 @@ from particlesimulation_tpu.config import EPSILON, G
 from particlesimulation_tpu.ops import dense_xla
 from particlesimulation_tpu.ops.pallas import cell_pairs as pallas_pairs
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+    adversarial_tiles)
 from tests.test_torch_cell_pairs import _compare, _tiles
 
 torch.set_num_threads(2)
@@ -69,16 +78,39 @@ def _assert_forces(got, ref, terms, kcap):
 
 
 def _force_inputs(kcap, used, ncells):
-    x, y, m, _, _ = _tiles(kcap + used, ncells, kcap, used, True)
-    return (x, y, m) + _stencil(kcap, ncells)
+    if used is None:
+        x, y, m, _, _ = adversarial_tiles(kcap, kcap)
+    else:
+        x, y, m, _, _ = _tiles(kcap + used, ncells, kcap, used, True)
+    return (x, y, m) + _stencil(kcap, x.shape[0])
 
 
-@pytest.mark.parametrize("kcap,used", [(32, 24), (160, 100)])
+ADVERSARIAL = [(32, None), (160, None), (288, None)]
+
+
+@contextlib.contextmanager
+def _pallas_tiling(used):
+    """On the adversarial tiles, the Pallas kernels take receiver chunks of
+    up to 128 (their PSIM_PALLAS_TILE_KB knob, read at each call): the same
+    function, in interpret mode some 8x faster at K = 288."""
+    old = os.environ.get("PSIM_PALLAS_TILE_KB")
+    if used is None:
+        os.environ["PSIM_PALLAS_TILE_KB"] = "2048"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PSIM_PALLAS_TILE_KB", None)
+        else:
+            os.environ["PSIM_PALLAS_TILE_KB"] = old
+
+
+@pytest.mark.parametrize("kcap,used", [(32, 24), (160, 100)] + ADVERSARIAL)
 def test_dense_forces_ref_matches_pallas(kcap, used):
-    ncells = 12
-    arrays = _force_inputs(kcap, used, ncells)
-    ref = pallas_pairs.dense_pairwise_forces(
-        *(jnp.asarray(a) for a in arrays), ncells, kcap)
+    arrays = _force_inputs(kcap, used, 12)
+    with _pallas_tiling(used):
+        ref = pallas_pairs.dense_pairwise_forces(
+            *(jnp.asarray(a) for a in arrays), arrays[0].shape[0], kcap)
     got = cell_pairs.dense_pairwise_forces_ref(
         *(torch.from_numpy(a) for a in arrays), kcap)
     _assert_forces(got, ref, _term_sums(*arrays), kcap)
@@ -97,23 +129,50 @@ def test_dense_forces_ref_matches_xla_at_max_kcap():
 
 
 def _collision_inputs(kcap, used, ncells, permute):
-    x, y, _, alive, pid = _tiles(kcap + used + 1, ncells, kcap, used, permute)
+    if used is None:
+        x, y, _, alive, pid = adversarial_tiles(kcap, kcap + 1)
+    else:
+        x, y, _, alive, pid = _tiles(kcap + used + 1, ncells, kcap, used,
+                                     permute)
     return x, y, alive, (pid if permute else None)
 
 
-@pytest.mark.parametrize("kcap,used", [(32, 24), (160, 100)])
+@functools.lru_cache(maxsize=None)
+def _pallas_collisions(kcap, used, permute):
+    """(x, y, alive, pid) and the Pallas kernel's (count, ft) on them."""
+    x, y, alive, pid = _collision_inputs(kcap, used, 12, permute)
+    with _pallas_tiling(used):
+        count, ft = pallas_pairs.dense_collisions(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(alive), x.shape[0],
+            kcap, EPSILON, pid=None if pid is None else jnp.asarray(pid))
+    return (x, y, alive, pid), (int(count), np.asarray(ft))
+
+
+@pytest.mark.parametrize("kcap,used", [(32, 24), (160, 100)] + ADVERSARIAL)
 @pytest.mark.parametrize("permute", [False, True], ids=["no_pid", "pid"])
 def test_dense_collisions_ref_matches_pallas(kcap, used, permute):
-    ncells = 12
-    x, y, alive, pid = _collision_inputs(kcap, used, ncells, permute)
-    ref_count, ref_ft = pallas_pairs.dense_collisions(
-        jnp.asarray(x), jnp.asarray(y), jnp.asarray(alive), ncells, kcap,
-        EPSILON, pid=None if pid is None else jnp.asarray(pid))
+    (x, y, alive, pid), (ref_count, ref_ft) = _pallas_collisions(
+        kcap, used, permute)
     count, ft = cell_pairs.dense_collisions_ref(
         torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(alive),
         kcap, EPSILON, None if pid is None else torch.from_numpy(pid))
     np.testing.assert_array_equal(ft.numpy(), np.asarray(ref_ft))
     assert int(count) == int(ref_count) > 0  # the planted chains collide
+
+
+@pytest.mark.parametrize("kcap", [32, 160, 288])
+@pytest.mark.parametrize("permute", [False, True], ids=["no_pid", "pid"])
+def test_first_pair_count_is_equal_ft_pairs(kcap, permute):
+    """The identity the CUDA kernels count by: a pair is first for both
+    ends iff both ends' ft are equal and finite (ranks are distinct among
+    alive slots, so a finite ft names one pair). Held on the Pallas
+    kernel's outputs over the adversarial tiles."""
+    (_, _, alive, _), (count, ft) = _pallas_collisions(kcap, None, permute)
+    upper = np.triu(np.ones((kcap, kcap), dtype=bool), 1)
+    alive_pair = (alive[:, :, None] > 0) & (alive[:, None, :] > 0)
+    equal = (ft[:, :, None] == ft[:, None, :]) & (ft[:, :, None]
+                                                 != cell_pairs.INF)
+    assert count == int(np.sum(equal & alive_pair & upper)) > 0
 
 
 def test_dense_collisions_ref_matches_xla_at_max_kcap():
@@ -146,6 +205,23 @@ def test_v1_ref_matches_pallas(kcap, used, collide):
     _compare(got, ref, "v2", x, y, m)
     if collide:
         assert int(ref[2]) > 0
+
+
+@pytest.mark.parametrize("ncells", [1, 96, 263, 264, 2047, 2048, 10_000])
+def test_launch_shapes_fit_the_kernels(ncells):
+    """The wrappers' launch rules give shapes the kernels take (whole warps,
+    at most 256 threads for the force kernel and 1024 for the collision
+    kernel, 1 or 2 receivers a thread, a block per cell at least) at every
+    K, on cards of 132 SMs (an H100 SXM) and of fewer."""
+    for sms in (132, 78, 1):
+        for kcap in range(1, cell_pairs.MAX_KCAP + 1):
+            rows, threads, chunks = cell_pairs.force_launch(ncells, kcap, sms)
+            assert rows in (1, 2) and chunks >= 1
+            assert threads % 32 == 0 and 32 <= threads <= 256
+            # every used slot of a row gets a thread
+            assert rows * threads * chunks >= kcap or threads == 256
+            threads = cell_pairs.collision_threads(ncells, kcap, sms)
+            assert threads % 32 == 0 and 32 <= threads <= 1024
 
 
 def _cpu_inputs():

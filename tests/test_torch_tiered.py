@@ -94,6 +94,34 @@ def test_tiered_matches_dense():
     assert int(b.overflow) == 0
 
 
+def test_engine_tiles_hold_every_particle():
+    """The dense and tiered engines' tiles as the launch sweep and the chip
+    check take them: every live particle's mass in exactly one slot, and a
+    stencil row of 8 per tile row."""
+    from particlesimulation_tpu_torch.engine import make_dense_step
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        class_tiles, dense_tiles)
+
+    config = SimConfig(*CLUSTERED)
+    eng = Engine(config, device="cpu", impl="tiered")
+    state = eng.init_state()
+    total = float(state.m[state.alive > 0].double().sum())
+    classes = class_tiles(config, eng._tier_plan, state)
+    deng = Engine(config, device="cpu", impl="dense")
+    dstate = deng.init_state()  # sorted by (cell, pid), as the step wants
+    dense = dense_tiles(config,
+                        make_dense_step(config, deng.kcap)[1](dstate))
+    assert len(classes) == len(eng._tier_plan) >= 2
+    for (k, r), tiles in zip(eng._tier_plan, classes):
+        assert tiles[0].shape == (r, k)
+        assert all(t.shape == (r, 8) for t in tiles[3:])
+    for sets in (classes, [dense]):
+        got = sum(float(t[2].double().sum()) for t in sets)
+        assert got == pytest.approx(total, rel=1e-6)
+        assert sum(int((t[2] > 0).sum()) for t in sets) == int(
+            (state.alive > 0).sum())
+
+
 def test_tiered_overflow_retry_lossless():
     """An undersized plan (top cap below the real max occupancy) heals
     through the retry ladder and matches the right-sized run."""
