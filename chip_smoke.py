@@ -13,7 +13,9 @@ and O(n) count risk); then it drives the three engines through ``Engine``:
 
 * resident (the main path): golden vector s1 (seed 1, side 5000, ncside
   100, N=1e6) against the reference's golden values, once with the default
-  pair kernel and once with the v1 kernel;
+  pair kernel and once with the v1 kernel; the fused kernel on the tiles
+  the engine's own run hands its pair pass (v4 with collide on and off, v1;
+  checked, timed, with the bound);
 * dense: golden s1 again, and both dense kernels on the engine's own tiles
   (checked, timed, with the bound);
 * tiered: UNEVEN (seed -23, side 5000, ncside 100, N=1e6, the reference
@@ -274,20 +276,29 @@ def _check_collisions(got, ref, tag, planted=True):
 
 
 def check_fused(ncells, kcap, fill, form, collide, gated=True):
-    """Fused pair kernel vs plain version on the card; the measured numbers.
-    The ungated (v1) kernel must also equal the gated one bit for bit."""
+    """The fused kernel on synthetic flagship-like tiles (``_tiles``)."""
+    return fused_record(f"({ncells}, {kcap})",
+                        _tiles(ncells, kcap, fill, kcap + ncells, "cuda"),
+                        form, collide, gated)
+
+
+def fused_record(where, tiles, form, collide, gated=True, planted=True):
+    """Fused pair kernel vs plain version on (x, y, mf, alive, pid) tiles on
+    the card; the measured numbers. The ungated (v1) kernel must also equal
+    the gated one bit for bit."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
-    x, y, m, alive, pid = _tiles(ncells, kcap, fill, kcap + ncells, "cuda")
+    x, y, m, alive, pid = tiles
+    kcap = x.shape[1]
     args = (x, y, m, alive, pid, kcap, EPSILON, collide, form)
     got = cell_pairs.fused_pairs(*args, gated=gated)
     ref = cell_pairs.fused_pairs_ref(*args)
     torch.cuda.synchronize()
     tag = (f"fused_pairs{'' if gated else '_v1'} {form} collide={collide} "
-           f"({ncells}, {kcap})")
+           f"{where}")
     if collide:
-        _check_collisions((got[2], got[3]), (ref[2], ref[3]), tag)
+        _check_collisions((got[2], got[3]), (ref[2], ref[3]), tag, planted)
     elif not torch.equal(got[3], ref[3]) or int(got[2]) != 0:
         raise AssertionError(f"{tag}: collisions reported with collide off")
     if not gated:
@@ -298,12 +309,12 @@ def check_fused(ncells, kcap, fill, form, collide, gated=True):
     m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
     max_err = _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form),
                          kcap, tag)
-    # alive, mf, pid read and fx, fy, ft written for every slot; x and y
-    # read for the alive or used ones.
+    # mf read and fx, fy, ft written for every slot, alive and pid too with
+    # collide on; x and y read for the alive or used ones.
     p_force, _ = _pairs(m_post > 0)
-    n_xy = float(((alive > 0) | (m > 0)).sum())
+    n_xy = float((((alive > 0) & collide) | (m > 0)).sum())
     bound_ms, bound_by, sfu_ms = _bound(
-        24 * x.numel() + 8 * n_xy + 4,
+        (24 if collide else 16) * x.numel() + 8 * n_xy + 4,
         (15 if form == "v4" else 14) * p_force, p_force)
     rec = {"max_abs_err": max_err,
            **_kernel_times(lambda: cell_pairs.fused_pairs(*args, gated=gated),
@@ -360,10 +371,10 @@ def check_dense_collisions(ncells, kcap, fill, with_pid):
 def check_adversarial(kcap):
     """The adversarial tiles (ops/cuda/adversarial.py: a row whose only
     alive slots are the last two, holes, an empty row, a 48-particle
-    cluster, a full row, a vertical line of near pairs) through the dense
-    kernels and the fused kernels,
-    against the plain versions: ft and count exact, forces within the
-    tolerance, v1 bitwise equal to the gated kernel."""
+    cluster, a full row, a vertical line of near pairs, a row whose alive
+    slots all collide, a row with one used slot) through the dense kernels
+    and the fused kernels, against the plain versions: ft and count exact,
+    forces within the tolerance, v1 bitwise equal to the gated kernel."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
     from particlesimulation_tpu_torch.ops.cuda.adversarial import (
@@ -599,7 +610,7 @@ def main():
         Engine, make_dense_step, make_resident_run)
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
     from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
-        UNEVEN_PLAN, class_tiles, dense_tiles)
+        UNEVEN_PLAN, class_tiles, dense_tiles, resident_tiles)
     from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
 
     t0 = time.perf_counter()
@@ -612,15 +623,13 @@ def main():
     # 1024, kcap 288 (no power of two) and a tiered UNEVEN class shape; then
     # the adversarial tiles.
     shapes = ((10_000, 160, 100), (300, 1024, 900), (500, 288, 200))
-    fused = {}
     for ncells, kcap, fill in shapes:
         for form in ("v4", "v2"):
             for collide in (True, False):
-                fused[(ncells, kcap, form, collide)] = check_fused(
-                    ncells, kcap, fill, form, collide)
-    v1, forces, colls = {}, {}, {}
+                check_fused(ncells, kcap, fill, form, collide)
+    forces, colls = {}, {}
     for ncells, kcap, fill in shapes + ((96, 864, 600),):
-        v1[ncells] = check_fused(ncells, kcap, fill, "v2", True, gated=False)
+        check_fused(ncells, kcap, fill, "v2", True, gated=False)
         forces[ncells] = check_dense_forces(ncells, kcap, fill)
         for with_pid in (False, True):
             colls[(ncells, with_pid)] = check_dense_collisions(
@@ -636,7 +645,13 @@ def main():
     state = eng.init_state()
     _, res_launches = check_golden("golden s1 resident", eng, state, steps,
                                    (ex, ey, ec), ["fused_pairs"])
-    check_no_sync("resident", make_resident_run(s1, eng.kcap)[1], state)
+    check_no_sync("resident", make_resident_run(s1, eng.kcap)[2], state)
+    # The fused kernel on the tiles the resident run hands its pair pass at
+    # golden s1's last step, holes and limbo slots included.
+    tiles = resident_tiles(s1, eng.kcap, state, steps)
+    on_path = {kind: fused_record("resident flagship tiles", tiles, *kind,
+                                  planted=False)
+               for kind in (("v4", True), ("v4", False), ("v2", True, False))}
     check_gpu_vs_cpu(1, 5000.0, 32, 20_000, 10)
     check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5)
     res_ms, t1, t101 = step_ms(eng, state, 100)
@@ -707,16 +722,17 @@ def main():
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": None}
+                "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}
 
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}",
           flush=True)
     print(json.dumps({"kernels": [
         entry("fused_pairs", res_launches["fused_pairs"],
-              fused[(10_000, 160, "v4", True)]),
-        entry("fused_pairs_v1", v1_launches["fused_pairs_v1"], v1[10_000]),
+              on_path[("v4", True)]),
+        entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
+              on_path[("v2", True, False)]),
         entry("dense_pairwise_forces", dense_launches["dense_forces"],
               forces[10_000]),
         entry("dense_collisions", dense_launches["dense_collisions"],

@@ -1,13 +1,13 @@
 // Per-cell pair kernels on (ncells, K) slot tiles, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of particlesimulation_tpu/ops/pallas/cell_pairs.py:
-//   fused_pairs_kernel<kV4, kCollide, kGate = true>: _fused_kernel_v2, with
-//     both of its force forms ("v2" and "v4") and collide on and off. Its
-//     _fused_kernel_v2_kt variant computes the same function in another
+//   fused_pairs_kernel<kV4, kCollide, kGate = true, kRows>: _fused_kernel_v2,
+//     with both of its force forms ("v2" and "v4") and collide on and off.
+//     Its _fused_kernel_v2_kt variant computes the same function in another
 //     block layout, so this kernel covers it too;
-//   fused_pairs_kernel<false, kCollide, kGate = false>: _fused_kernel (v1),
-//     v2's function with no hit gating: the collision machinery runs in
-//     every cell;
+//   fused_pairs_kernel<false, true, kGate = false, kRows>: _fused_kernel
+//     (v1), v2's function with no hit gating: the collision machinery runs
+//     in every cell;
 //   dense_forces_kernel: _force_kernel, the dense engine's force pass (all
 //     same-cell pairs plus 8 monopole terms from the cell's stencil row);
 //   dense_collisions_kernel: _collision_kernel, the dense engine's collision
@@ -25,9 +25,10 @@
 // squared.
 //
 // Design: each block stages one cell row in shared memory, and compacts the
-// slots it needs (alive ones for collisions, used ones, m > 0, for the dense
-// force) in slot order with one block scan (block_compact), so that every
-// loop runs over those slots only.
+// slots it needs (alive ones for collisions, used ones, m > 0, for the
+// forces) in slot order with one block scan (block_compact), so that every
+// loop runs over those slots only. Both force loops share one pair-sum
+// helper (pair_sums): float4 partners, kRows receivers a thread.
 //
 // Collision machinery (shared by the fused and the collision kernel):
 //   * the alive slots are put in x buckets at least 2 eps wide
@@ -308,157 +309,24 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
   return block_sum(local, iscratch);
 }
 
-// Same-cell pair gravity on receiver (xi, yi) with gmi = G * m_i, the v2
-// form: sum over j of (G m_i m_j) d / |d|^3, skipping d^2 == 0.
-__device__ __forceinline__ void pair_force_v2(const float* sx, const float* sy,
-                                              const float* sm, int kcap,
-                                              float xi, float yi, float gmi,
-                                              float* ax, float* ay) {
-  float fx = 0.0f, fy = 0.0f;
-  for (int j = 0; j < kcap; ++j) {
-    const float dx = sx[j] - xi;
-    const float dy = sy[j] - yi;
-    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    const float inv = d2 > 0.0f ? rsqrtf(d2) : 0.0f;
-    const float s = (gmi * sm[j]) * (inv * inv * inv);
-    fx += s * dx;
-    fy += s * dy;
-  }
-  *ax = fx;
-  *ay = fy;
-}
-
-// The resident engine's pass: collisions(t) through the shared machinery
-// above, then the force loop over all K slots (one receiver a thread, its
-// partners from shared memory). -Xptxas -v on sm_90a: 31-40 registers,
-// 128-256 bytes of static shared memory, no spills; 44 K bytes of dynamic
-// shared memory.
-template <bool kV4, bool kCollide, bool kGate>
-__global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ mf, const int* __restrict__ alive,
-    const int* __restrict__ pid, float* __restrict__ fx,
-    float* __restrict__ fy, int* __restrict__ ft,
-    int* __restrict__ cell_count, int kcap, float eps2, float g) {
-  // Eleven (K,) arrays of 4 bytes: 44 KB at K = 1024, under the 48 KB a
-  // block may take without opting in.
-  extern __shared__ __align__(16) float smem[];
-  float* sxl = smem;  // recentred coordinates (v4)
-  float* syl = sxl + kcap;
-  float* sx = syl + kcap;
-  float* sy = sx + kcap;
-  float* sm = sy + kcap;  // mf, then m_post
-  AliveSlots c;
-  // The collision phase runs before the v4 recentring: its compacted
-  // coordinates take sxl and syl's place (at the 8-byte aligned base).
-  c.xy = reinterpret_cast<float2*>(smem);
-  c.slot = reinterpret_cast<int*>(sm + kcap);
-  c.rank = c.slot + kcap;
-  c.inv = c.rank + kcap;
-  c.ft = c.inv + kcap;
-  c.order = c.ft + kcap;
-  c.bend = c.order + kcap;
-  __shared__ float fscratch[32];
-  __shared__ int iscratch[32];
-
-  const int64_t base = (int64_t)blockIdx.x * kcap;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  c.n = block_compact(
-      kcap,
-      [&](int i) {
-        Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
-        if (i < kcap) {
-          v = {kCollide && alive[base + i] > 0, x[base + i], y[base + i],
-               mf[base + i], kCollide ? pid[base + i] : 0};
-        }
-        return v;
-      },
-      [&](int i, int a, const Slot& v) {
-        sx[i] = v.x;
-        sy[i] = v.y;
-        sm[i] = v.m;
-        c.bend[i] = 0;
-        if (a < 0) {
-          ft[base + i] = kInf;
-          return;
-        }
-        c.xy[a] = make_float2(v.x, v.y);
-        c.slot[a] = i;
-        c.inv[a] = v.pid;
-        c.ft[a] = kInf;
-      },
-      iscratch);
-
-  int count = 0;
-  if (kCollide) {
-    bucket_by_x(c, eps2, fscratch, iscratch);
-    if (!kGate || cell_has_hit(c, eps2))
-      count = cell_collisions(c, true, kcap, eps2, iscratch);
-  }
-  if (tid == 0) cell_count[blockIdx.x] = count;
-
-  for (int a = tid; a < c.n; a += nt) {
-    const int i = c.slot[a];
-    ft[base + i] = c.ft[a];
-    if (c.ft[a] != kInf) sm[i] = 0.0f;
-  }
-  __syncthreads();
-
-  if (kV4) {
-    float nused = 0.0f, sumx = 0.0f, sumy = 0.0f;
-    for (int i = tid; i < kcap; i += nt) {
-      if (sm[i] > 0.0f) {
-        nused += 1.0f;
-        sumx += sx[i];
-        sumy += sy[i];
-      }
-    }
-    const float nrow = fmaxf(block_sum(nused, fscratch), 1.0f);
-    const float cx = block_sum(sumx, fscratch) / nrow;
-    const float cy = block_sum(sumy, fscratch) / nrow;
-    for (int i = tid; i < kcap; i += nt) {
-      sxl[i] = sx[i] - cx;
-      syl[i] = sy[i] - cy;
-    }
-    __syncthreads();
-    for (int i = tid; i < kcap; i += nt) {
-      const float xi = sxl[i], yi = syl[i];
-      const float gmi = g * sm[i];
-      float ax = 0.0f, ay = 0.0f, aw = 0.0f;
-      for (int j = 0; j < kcap; ++j) {
-        const float xj = sxl[j], yj = syl[j];
-        const float d2 = dist2(xi, yi, xj, yj);
-        const float inv = d2 > 0.0f ? rsqrtf(d2) : 0.0f;
-        const float w = sm[j] * (inv * inv * inv);
-        ax += w * xj;
-        ay += w * yj;
-        aw += w;
-      }
-      fx[base + i] = gmi * (ax - xi * aw);
-      fy[base + i] = gmi * (ay - yi * aw);
-    }
-  } else {
-    for (int i = tid; i < kcap; i += nt) {
-      float ax, ay;
-      pair_force_v2(sx, sy, sm, kcap, sx[i], sy[i], g * sm[i], &ax, &ay);
-      fx[base + i] = ax;
-      fy[base + i] = ay;
-    }
-  }
-}
-
-// Total gravity on the used slots q0 .. q0 + kRows - 1 (those below n) of a
-// row compacted into sp: the pair sum over the row's n used slots, then the
-// 8 monopole terms. Per pair: w = m_j / |d|^3 (0 where d^2 == 0) and
-// a += w d, 12 f32 instructions and one rsqrt; G m_i multiplies the sums
-// once.
-template <int kRows>
-__device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
-                                           int n, int q0,
-                                           const float (*stencil)[8], float g,
-                                           float* fx, float* fy) {
-  float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows];
+// The pair sums of the used slots q0 .. q0 + kRows - 1 (receivers past n
+// take a copy of the last one) of a row compacted into sp as float4
+// (x, y, m, 0), over its n used partners in compacted order; n >= 1.
+// Per pair: w = m_j / |d|^3 (0 where d^2 == 0), d^2 with one FMA and
+// 1/|d| on the rsqrt unit alone, then
+//   v2 (kV4 = false): ax += w dx, ay += w dy            (12 instructions);
+//   v4 (kV4 = true):  ax += w x_j, ay += w y_j, aw += w  (13).
+// One partner load feeds kRows receivers held in registers. The caller
+// multiplies the sums by gmi = G m_i once. A receiver's sum runs over the
+// same partners in the same order for any kRows and block size.
+template <int kRows, bool kV4>
+__device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
+                                          float g, float (&xi)[kRows],
+                                          float (&yi)[kRows],
+                                          float (&gmi)[kRows],
+                                          float (&ax)[kRows],
+                                          float (&ay)[kRows],
+                                          float (&aw)[kRows]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float4 p = sp[min(q0 + r, n - 1)];  // a copy past the row's end
@@ -467,6 +335,7 @@ __device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
     gmi[r] = g * p.z;
     ax[r] = 0.0f;
     ay[r] = 0.0f;
+    aw[r] = 0.0f;
   }
 #pragma unroll 2
   for (int j = 0; j < n; ++j) {
@@ -478,10 +347,179 @@ __device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
       const float d2 = fmaf(dx, dx, dy * dy);
       const float inv = d2 > 0.0f ? rsqrt_ftz(d2) : 0.0f;
       const float w = pj.z * (inv * inv * inv);
-      ax[r] = fmaf(w, dx, ax[r]);
-      ay[r] = fmaf(w, dy, ay[r]);
+      if (kV4) {
+        ax[r] = fmaf(w, pj.x, ax[r]);
+        ay[r] = fmaf(w, pj.y, ay[r]);
+        aw[r] += w;
+      } else {
+        ax[r] = fmaf(w, dx, ax[r]);
+        ay[r] = fmaf(w, dy, ay[r]);
+      }
     }
   }
+}
+
+// The resident engine's pass: collisions(t) through the shared machinery
+// above, then the pair forces(t+1) over the slots with m_post > 0.
+//
+// Bound: the force loop's arithmetic, as in dense_forces_kernel (one rsqrt
+// and 12-13 f32 instructions per ordered pair of used slots), plus the
+// collision phase's short serial phases. After the collision phase writes
+// ft and zeroes m_post for its deaths, the used slots (m_post > 0, alive
+// or not) are compacted in slot order into float4 (x, y, m, 0), and
+// receivers and partners loop over those n slots only (pair_sums, shared
+// with the dense force kernel); a slot with m_post = 0 is written 0. v4
+// recentres the used slots in place on their mean, summed in compacted
+// order (lane l takes slots l, l + 32, ..., then a fixed xor tree), so
+// that the forces are the same bits for every launch shape. kRows
+// receivers a thread; one block per cell.
+//
+// Shared memory, eleven (K,) words (44 KB at K = 1024, under the 48 KB a
+// block may take without opting in): the row's x, y, m (3K), and the
+// collision arrays (8K), which the used slots' float4 and slot indices
+// (5K) reuse once ft is written. -Xptxas -v on sm_90a: 31-40 registers, at
+// most 256 bytes of static shared memory, no spills.
+template <bool kV4, bool kCollide, bool kGate, int kRows>
+__global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ mf, const int* __restrict__ alive,
+    const int* __restrict__ pid, float* __restrict__ fx,
+    float* __restrict__ fy, int* __restrict__ ft, int* __restrict__ total,
+    int kcap, float eps2, float g) {
+  extern __shared__ __align__(16) float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  AliveSlots c;
+  c.xy = reinterpret_cast<float2*>(smem);
+  c.slot = reinterpret_cast<int*>(smem + 2 * kcap);
+  c.rank = c.slot + kcap;
+  c.inv = c.rank + kcap;
+  c.ft = c.inv + kcap;
+  c.order = c.ft + kcap;
+  c.bend = c.order + kcap;
+  float4* sp = smem4;                                     // used slots
+  int* sslot = reinterpret_cast<int*>(smem + 4 * kcap);  // compacted -> slot
+  float* sx = smem + 8 * kcap;
+  float* sy = sx + kcap;
+  float* sm = sy + kcap;  // mf, then m_post
+  __shared__ float fscratch[32];
+  __shared__ int iscratch[32];
+
+  const int64_t base = (int64_t)blockIdx.x * kcap;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  if (kCollide) {
+    c.n = block_compact(
+        kcap,
+        [&](int i) {
+          Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
+          if (i < kcap) {
+            v = {alive[base + i] > 0, x[base + i], y[base + i], mf[base + i],
+                 pid[base + i]};
+          }
+          return v;
+        },
+        [&](int i, int a, const Slot& v) {
+          sx[i] = v.x;
+          sy[i] = v.y;
+          sm[i] = v.m;
+          c.bend[i] = 0;
+          if (a < 0) {
+            ft[base + i] = kInf;
+            return;
+          }
+          c.xy[a] = make_float2(v.x, v.y);
+          c.slot[a] = i;
+          c.inv[a] = v.pid;
+          c.ft[a] = kInf;
+        },
+        iscratch);
+    bucket_by_x(c, eps2, fscratch, iscratch);
+    int count = 0;
+    if (!kGate || cell_has_hit(c, eps2))
+      count = cell_collisions(c, true, kcap, eps2, iscratch);
+    if (tid == 0 && count > 0) atomicAdd(total, count);
+    for (int a = tid; a < c.n; a += nt) {
+      const int i = c.slot[a];
+      ft[base + i] = c.ft[a];
+      if (c.ft[a] != kInf) sm[i] = 0.0f;
+    }
+    __syncthreads();  // m_post is in sm; the collision arrays are dead
+  } else {
+    for (int i = tid; i < kcap; i += nt) ft[base + i] = kInf;
+  }
+
+  const int n = block_compact(
+      kcap,
+      [&](int i) {
+        Slot v = {false, 0.0f, 0.0f, 0.0f, 0};
+        if (i < kcap) {
+          const float mi = kCollide ? sm[i] : mf[base + i];
+          v = {mi > 0.0f, kCollide ? sx[i] : x[base + i],
+               kCollide ? sy[i] : y[base + i], mi, 0};
+        }
+        return v;
+      },
+      [&](int i, int q, const Slot& v) {
+        if (q >= 0) {
+          sp[q] = make_float4(v.x, v.y, v.m, 0.0f);
+          sslot[q] = i;
+        } else {
+          fx[base + i] = 0.0f;
+          fy[base + i] = 0.0f;
+        }
+      },
+      iscratch);
+
+  if (kV4) {
+    // Every warp sums the same slots in the same order: one result.
+    const int lane = tid & 31;
+    float sumx = 0.0f, sumy = 0.0f;
+    for (int q = lane; q < n; q += 32) {
+      sumx += sp[q].x;
+      sumy += sp[q].y;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      sumx += __shfl_xor_sync(kFull, sumx, o);
+      sumy += __shfl_xor_sync(kFull, sumy, o);
+    }
+    const float nrow = fmaxf((float)n, 1.0f);
+    const float cx = sumx / nrow;
+    const float cy = sumy / nrow;
+    __syncthreads();  // every warp has read sp
+    for (int q = tid; q < n; q += nt) {
+      sp[q].x -= cx;
+      sp[q].y -= cy;
+    }
+    __syncthreads();
+  }
+
+  for (int q0 = tid * kRows; q0 < n; q0 += nt * kRows) {
+    float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows], aw[kRows];
+    pair_sums<kRows, kV4>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (q0 + r >= n) break;
+      const int i = sslot[q0 + r];
+      if (kV4) {  // G m_i (sum w xl_j - xl_i sum w)
+        fx[base + i] = gmi[r] * fmaf(-xi[r], aw[r], ax[r]);
+        fy[base + i] = gmi[r] * fmaf(-yi[r], aw[r], ay[r]);
+      } else {
+        fx[base + i] = ax[r] * gmi[r];
+        fy[base + i] = ay[r] * gmi[r];
+      }
+    }
+  }
+}
+
+// Total gravity on the used slots q0 .. q0 + kRows - 1 (those below n) of a
+// row compacted into sp: the v2 pair sums, then the 8 monopole terms.
+template <int kRows>
+__device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
+                                           int n, int q0,
+                                           const float (*stencil)[8], float g,
+                                           float* fx, float* fy) {
+  float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows], aw[kRows];
+  pair_sums<kRows, false>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (q0 + r >= n) break;
@@ -632,37 +670,33 @@ __global__ void __launch_bounds__(kMaxCollThreads) dense_collisions_kernel(
     ft[base + c.slot[a]] = c.ft[a];
 }
 
-int threads_for(int kcap) {
-  const int rounded = (kcap + 31) / 32 * 32;  // whole warps
-  return rounded < kMaxThreads ? rounded : kMaxThreads;
+struct FusedArgs {
+  const float *x, *y, *mf;
+  const int *alive, *pid;
+  float *fx, *fy;
+  int *ft, *total;
+  int ncells, kcap;
+  float eps2, g;
+};
+
+template <bool kV4, bool kCollide, bool kGate, int kRows>
+void launch_fused(const FusedArgs& a, int threads, cudaStream_t stream) {
+  const size_t smem = (size_t)11 * a.kcap * sizeof(float);
+  fused_pairs_kernel<kV4, kCollide, kGate, kRows>
+      <<<a.ncells, threads, smem, stream>>>(a.x, a.y, a.mf, a.alive, a.pid,
+                                             a.fx, a.fy, a.ft, a.total,
+                                             a.kcap, a.eps2, a.g);
 }
 
-template <bool kV4, bool kCollide, bool kGate>
-void launch_fused(const float* x, const float* y, const float* mf,
-                  const int* alive, const int* pid, float* fx, float* fy,
-                  int* ft, int* cell_count, int ncells, int kcap, float eps2,
-                  float g, cudaStream_t stream) {
-  const size_t smem = (size_t)11 * kcap * sizeof(float);
-  fused_pairs_kernel<kV4, kCollide, kGate>
-      <<<ncells, threads_for(kcap), smem, stream>>>(
-          x, y, mf, alive, pid, fx, fy, ft, cell_count, kcap, eps2, g);
-}
-
-template <bool kV4>
-void dispatch_fused(const float* x, const float* y, const float* mf,
-                    const int* alive, const int* pid, float* fx, float* fy,
-                    int* ft, int* cell_count, int ncells, int kcap,
-                    float eps2, float g, int collide, int gate,
+template <bool kV4, int kRows>
+void dispatch_fused(const FusedArgs& a, int collide, int gate, int threads,
                     cudaStream_t s) {
   if (!collide)
-    launch_fused<kV4, false, true>(x, y, mf, alive, pid, fx, fy, ft,
-                                   cell_count, ncells, kcap, eps2, g, s);
+    launch_fused<kV4, false, true, kRows>(a, threads, s);
   else if (gate)
-    launch_fused<kV4, true, true>(x, y, mf, alive, pid, fx, fy, ft,
-                                  cell_count, ncells, kcap, eps2, g, s);
+    launch_fused<kV4, true, true, kRows>(a, threads, s);
   else
-    launch_fused<kV4, true, false>(x, y, mf, alive, pid, fx, fy, ft,
-                                   cell_count, ncells, kcap, eps2, g, s);
+    launch_fused<kV4, true, false, kRows>(a, threads, s);
 }
 
 bool whole_warps(int threads, int most) {
@@ -675,23 +709,33 @@ bool whole_warps(int threads, int most) {
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue, without a launch, for a launch
 // shape it does not take).
+//
+// total: one int, the count summed over the cells (0 with collide off);
+// rows: receivers per thread (1 or 2); threads per block.
 extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
                                 const int* alive, const int* pid, float* fx,
-                                float* fy, int* ft, int* cell_count, int ncells,
+                                float* fy, int* ft, int* total, int ncells,
                                 int kcap, float eps2, float g, int collide,
-                                int v4, int gate, void* stream) {
+                                int v4, int gate, int rows, int threads,
+                                void* stream) {
+  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (v4)
-    dispatch_fused<true>(x, y, mf, alive, pid, fx, fy, ft, cell_count, ncells,
-                         kcap, eps2, g, collide, gate, s);
+  cudaMemsetAsync(total, 0, sizeof(int), s);
+  const FusedArgs a = {x, y, mf, alive, pid, fx, fy, ft, total,
+                       ncells, kcap, eps2, g};
+  if (v4 && rows == 1)
+    dispatch_fused<true, 1>(a, collide, gate, threads, s);
+  else if (v4)
+    dispatch_fused<true, 2>(a, collide, gate, threads, s);
+  else if (rows == 1)
+    dispatch_fused<false, 1>(a, collide, gate, threads, s);
   else
-    dispatch_fused<false>(x, y, mf, alive, pid, fx, fy, ft, cell_count,
-                          ncells, kcap, eps2, g, collide, gate, s);
+    dispatch_fused<false, 2>(a, collide, gate, threads, s);
   return (int)cudaGetLastError();
 }
 
-// rows: receivers per thread (1 or 2); threads per block; chunks: blocks per
-// cell.
+// rows, threads: as for psim_fused_pairs; chunks: blocks per cell.
 extern "C" int psim_dense_forces(const float* x, const float* y, const float* m,
                                  const float* ml, const float* mxl,
                                  const float* myl, float* fx, float* fy,

@@ -63,8 +63,11 @@ _STREAM_BAND_BYTES = 40 << 20
 
 def make_resident_run(config: SimConfig, kcap: int,
                       pair_impl: str | None = None):
-    """Build (prologue, run) of the slot-resident fast engine at tile
-    capacity ``kcap``. ``run(state, n_steps)`` returns the final SimState."""
+    """Build (prologue, pair_tiles, run) of the slot-resident fast engine at
+    tile capacity ``kcap``. ``run(state, n_steps)`` returns the final
+    SimState; ``pair_tiles(state, n_steps)`` the (x, y, mf, alive, pid)
+    tiles that step ``n_steps`` of that run hands its pair pass (0: the
+    run's first pass), holes and limbo slots as they lie."""
     side = config.side
     nc = config.ncside
     ncells = config.ncells
@@ -114,6 +117,11 @@ def make_resident_run(config: SimConfig, kcap: int,
         # and receive no force and never collide.
         return torch.where(binned, ts.m, 0.0), binned, limbo_count
 
+    def pair_args(ts):
+        mf, binned, _ = physics_mass(ts)
+        alive = (binned & (ts.m > 0)).to(torch.int32)
+        return ts.x, ts.y, mf, alive, ts.pid
+
     def pair_pass(ts, collide: bool):
         """Fused collision(t) + pair-force(t+1) pass; (fx, fy, count, died).
 
@@ -122,14 +130,13 @@ def make_resident_run(config: SimConfig, kcap: int,
         this pass's deaths applied (merged particles are massless from the
         next step on). pid tiles give the reference's pid-order tie-breaks.
         """
-        mf, binned, _ = physics_mass(ts)
-        alive = (binned & (ts.m > 0)).to(torch.int32)
         fx, fy, count, ft = cell_pairs.fused_pairs(
-            ts.x, ts.y, mf, alive, ts.pid, kcap, EPSILON, collide=collide,
-            force_form=form, gated=pair_impl != "v1")
+            *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form,
+            gated=pair_impl != "v1")
         return fx, fy, count, ft != INF
 
-    def step(ts, fxd, fyd):
+    def advance(ts, fxd, fyd):
+        """Phases 1-3 of a step: monopole, integrate, rebin."""
         mf, _, limbo_count = physics_mass(ts)
         fxm, fym = dense.monopole_tile_forces(ts.x, ts.y, mf,
                                               *mono_tables(ts, mf))
@@ -138,6 +145,10 @@ def make_resident_run(config: SimConfig, kcap: int,
                                            fxd + fxm, fyd + fym, side, DELTAT)
         ts = ts._replace(x=x, y=y, vx=vx, vy=vy)
         ts, undelivered = res.rebin(ts, side, nc, kcap)
+        return ts, undelivered, limbo_count
+
+    def step(ts, fxd, fyd):
+        ts, undelivered, limbo_count = advance(ts, fxd, fyd)
         fxd, fyd, count, died = pair_pass(ts, collide=True)
         ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
         ts = ts._replace(
@@ -167,7 +178,16 @@ def make_resident_run(config: SimConfig, kcap: int,
             ts, fxd, fyd = step(ts, fxd, fyd)
         return epilogue(ts, state.x.shape[0])
 
-    return prologue, run
+    def pair_tiles(state: SimState, n_steps: int):
+        ts = prologue(state)
+        if n_steps > 0:
+            fxd, fyd, _, _ = pair_pass(ts, collide=False)
+            for _ in range(n_steps - 1):
+                ts, fxd, fyd = step(ts, fxd, fyd)
+            ts = advance(ts, fxd, fyd)[0]
+        return pair_args(ts)
+
+    return prologue, pair_tiles, run
 
 
 def make_dense_step(config: SimConfig, kcap: int):
@@ -364,8 +384,8 @@ class Engine:
         if self._built_key == key:
             return
         if self.impl == "resident":
-            _, self._run = make_resident_run(self.config, self.kcap,
-                                             self.pair_impl)
+            _, _, self._run = make_resident_run(self.config, self.kcap,
+                                                self.pair_impl)
         elif self.impl == "dense":
             _, _, self._run = make_dense_step(self.config, self.kcap)
         else:

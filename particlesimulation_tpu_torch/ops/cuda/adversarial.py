@@ -1,8 +1,9 @@
 """Slot tiles for the cases the pair kernels' structure risks.
 
-The dense force and collision kernels compact the used or alive slots of a
-row, test the pairs of neighbouring x buckets and count first pairs from
-an inverse rank table. ``adversarial_tiles`` builds one row for each
+The pair kernels compact the used or alive slots of a row, test the pairs
+of neighbouring x buckets and count first pairs from an inverse rank table;
+the fused kernel compacts the used slots again after its collision phase.
+``adversarial_tiles`` builds one row for each
 case that structure can get wrong; the CPU tests hold the plain versions
 against the JAX package's kernels on them, and ``chip_smoke.py`` holds the
 CUDA kernels against the plain versions on them. NumPy only, so that both
@@ -19,7 +20,7 @@ CLUSTER = 48
 
 
 def adversarial_tiles(kcap: int, seed: int = 0):
-    """(x, y, m, alive, pid): float32 and int32 (7, kcap) tiles, one case
+    """(x, y, m, alive, pid): float32 and int32 (9, kcap) tiles, one case
     per row, with coordinates about a unit cell:
 
     0. only the last two slots (K-2, K-1) alive, within EPSILON;
@@ -32,16 +33,20 @@ def adversarial_tiles(kcap: int, seed: int = 0):
     5. the first ~60% of slots alive, with a planted chain of three;
     6. every slot alive on one vertical line, at y = 0.1 + i·EPSILON·(1 ± 1e-6)
        for slot i: all x tie, so every pair is within EPSILON in x, and
-       neighbours lie a hair inside or outside EPSILON.
+       neighbours lie a hair inside or outside EPSILON;
+    7. every slot alive, in pairs EPSILON/2 apart (slots paired at random;
+       with an odd K the last slot joins a pair), the pairs on a grid far
+       apart: every alive slot collides, so no slot keeps its mass;
+    8. a single used (and alive) slot.
 
     Dead slots keep random coordinates. pids are a permutation per row.
     """
     if kcap < 8:
         raise ValueError(f"kcap {kcap} < 8")
     rng = np.random.default_rng(seed)
-    x = rng.uniform(0.0, 1.0, (7, kcap))
-    y = rng.uniform(0.0, 1.0, (7, kcap))
-    alive = np.zeros((7, kcap), dtype=bool)
+    x = rng.uniform(0.0, 1.0, (9, kcap))
+    y = rng.uniform(0.0, 1.0, (9, kcap))
+    alive = np.zeros((9, kcap), dtype=bool)
 
     alive[0, -2:] = True
     x[0, -1] = x[0, -2] + EPSILON / 2
@@ -74,7 +79,18 @@ def adversarial_tiles(kcap: int, seed: int = 0):
     y[6] = 0.1 + np.arange(kcap) * EPSILON * rng.choice(
         [1 - 1e-6, 1.0, 1 + 1e-6], kcap)
 
-    m = np.where(alive, rng.uniform(0.5, 2.0, (7, kcap)), 0.0)
-    pid = np.argsort(rng.uniform(size=(7, kcap)), axis=1)
+    alive[7] = True
+    npairs = kcap // 2
+    grid = int(np.ceil(np.sqrt(npairs)))
+    pair = np.minimum(np.arange(kcap) // 2, npairs - 1)
+    member = np.arange(kcap) - 2 * pair  # 0 or 1 (2: the odd K's last)
+    slots = rng.permutation(kcap)
+    x[7, slots] = (pair % grid + 0.5) / grid + member * EPSILON / 2
+    y[7, slots] = (pair // grid + 0.5) / grid
+
+    alive[8, kcap // 2] = True
+
+    m = np.where(alive, rng.uniform(0.5, 2.0, (9, kcap)), 0.0)
+    pid = np.argsort(rng.uniform(size=(9, kcap)), axis=1)
     return (x.astype(np.float32), y.astype(np.float32), m.astype(np.float32),
             alive.astype(np.int32), pid.astype(np.int32))

@@ -111,7 +111,7 @@ def _library():
             ci = ctypes.c_int
             cf = ctypes.c_float
             lib.psim_fused_pairs.argtypes = (
-                [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, vp])
+                [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, ci, ci, vp])
             lib.psim_dense_forces.argtypes = (
                 [vp] * 8 + [ci, ci, cf, ci, ci, ci, vp])
             lib.psim_dense_collisions.argtypes = (
@@ -199,14 +199,15 @@ def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
     fx = torch.empty_like(x)
     fy = torch.empty_like(x)
     ft = torch.empty_like(pid)
-    cell_count = torch.empty(ncells, dtype=torch.int32, device=x.device)
+    count = torch.empty((), dtype=torch.int32, device=x.device)
     _launch("fused_pairs" if gated else "fused_pairs_v1",
             _library().psim_fused_pairs, x,
             x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
             pid.data_ptr(), fx.data_ptr(), fy.data_ptr(), ft.data_ptr(),
-            cell_count.data_ptr(), ncells, kcap, _eps2(eps), G,
-            int(bool(collide)), int(force_form == "v4"), int(bool(gated)))
-    return fx, fy, torch.sum(cell_count, dtype=torch.int32), ft
+            count.data_ptr(), ncells, kcap, _eps2(eps), G,
+            int(bool(collide)), int(force_form == "v4"), int(bool(gated)),
+            *fused_launch(kcap))
+    return fx, fy, count, ft
 
 
 def fused_pairs_ref(x, y, mf, alive, pid, kcap: int, eps: float,
@@ -260,6 +261,23 @@ def dense_pairwise_forces(x, y, m, ml, mxl, myl, kcap: int):
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_launch(kcap: int):
+    """(receivers per thread, threads per block) of the fused kernel on
+    (ncells, kcap) tiles, one block per cell whatever ncells and the card:
+    two receivers a thread, in the smallest power-of-two block
+    (32 to 256 threads) whose one pass covers a row up to 80% full. On the
+    resident engine's tiles (``launch_sweep.py``; device ms of v4 on an
+    H100 80GB HBM3 at 700 W) it picks the fastest shape at each K measured:
+    (2, 64) at (10 000,
+    160), 0.1168 against a thread per slot pair's (2, 96) 0.1231; (2, 128)
+    at (4900, 288), 0.1771 against (2, 160) 0.1791; (2, 256) at (2500,
+    544), 0.2864 against (2, 224) 0.2997 and (2, 192) 0.3265."""
+    threads = 32
+    while threads < 256 and 10 * threads < 4 * kcap:
+        threads *= 2
+    return 2, threads
 
 
 def force_launch(ncells: int, kcap: int, sms: int):

@@ -1,24 +1,31 @@
-"""The dense kernels' launch shapes on the engines' own tiles.
+"""The pair kernels' launch shapes on the engines' own tiles.
 
 Run on a machine with one CUDA card, from the repository root:
 
     python3 -m particlesimulation_tpu_torch.ops.cuda.launch_sweep
 
-It builds the dense engine's tiles of golden s1's configuration (the
-flagship) and the dense and tiered engines' tiles of UNEVEN, and times the
-force kernel in every (receivers per thread, threads per block) shape and
-the collision kernel at every thread count from 32 to 1024, each against
-the shape the wrappers' rules pick (``cell_pairs.force_launch``,
+It builds the resident engine's pair-pass tiles after RESIDENT_STEPS steps
+of golden s1's configuration (the flagship) and of the same particles on
+coarser grids (RESIDENT_SWEEP: rows of ~200 and ~400 used slots), the dense
+engine's tiles of the flagship and the dense and tiered engines' tiles of
+UNEVEN. It times the fused kernel (v4, v2 and v1, collide on) in every
+(receivers per thread, threads per block) shape on the resident tiles, the
+force kernel in every such shape and the collision kernel at every thread
+count from 32 to 1024 on the others, each against the shape the wrappers'
+rules pick
+(``cell_pairs.fused_launch``, ``cell_pairs.force_launch``,
 ``cell_pairs.collision_threads``), whose outputs every shape must equal bit
 for bit. Times: CUDA events around each call, the calls queued behind a
 spin kernel, median of 10. The rules come from this table.
 
-``class_tiles`` and ``dense_tiles`` also serve ``chip_smoke.py``.
+``resident_tiles``, ``class_tiles`` and ``dense_tiles`` also serve
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import torch
 
@@ -33,6 +40,12 @@ UNEVEN_PLAN = ((32, 10000), (64, 1280), (128, 1280), (192, 800), (256, 512),
                (320, 416), (384, 352), (448, 288), (480, 128), (576, 352),
                (672, 288), (864, 96))
 SPIN_CYCLES = 2_000_000  # ~1.1 ms of a 1.755 GHz SM per queued call
+RESIDENT_STEPS = 4  # golden s1's run: its last pair pass
+# The flagship's particles binned into 100², 70² and 50² cells.
+RESIDENT_SWEEP = (FLAGSHIP, (1, 5000.0, 70, 1_000_000),
+                  (1, 5000.0, 50, 1_000_000))
+# The fused kernel's variants: (name, force form, hit-gated).
+FUSED_KINDS = (("v4", "v4", True), ("v2", "v2", True), ("v1", "v2", False))
 
 
 def device_ms(fn, reps):
@@ -51,6 +64,14 @@ def device_ms(fn, reps):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def resident_tiles(config, kcap, state, steps=RESIDENT_STEPS):
+    """The (x, y, mf, alive, pid) tiles the resident engine's pair pass
+    takes at step ``steps`` of a run from ``state``, holes included."""
+    from particlesimulation_tpu_torch.engine import make_resident_run
+
+    return make_resident_run(config, kcap)[1](state, steps)
 
 
 def class_tiles(config, plan, state):
@@ -88,6 +109,50 @@ def dense_tiles(config, tiles):
     return (x, y, m) + tuple(stencil.tables_from_sums(
         m.sum(1), (m * x).sum(1), (m * y).sum(1), config.side,
         config.ncside))
+
+
+def _fused(tiles, form, gated, shape):
+    """The fused kernel, collide on, in launch shape (rows, threads); (fx,
+    fy, count, ft) as ``cell_pairs.fused_pairs`` returns them."""
+    x, y, mf, alive, pid = tiles
+    fx, fy = torch.empty_like(x), torch.empty_like(x)
+    ft = torch.empty_like(pid)
+    count = torch.empty((), dtype=torch.int32, device=x.device)
+    cell_pairs._launch(
+        "fused_pairs" if gated else "fused_pairs_v1",
+        cell_pairs._library().psim_fused_pairs, x,
+        x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
+        pid.data_ptr(), fx.data_ptr(), fy.data_ptr(), ft.data_ptr(),
+        count.data_ptr(), x.shape[0], x.shape[1], cell_pairs._eps2(EPSILON),
+        G, 1, int(form == "v4"), int(gated), *shape)
+    return fx, fy, count, ft
+
+
+def sweep_fused(label, tiles):
+    """The fused kernel's launch shapes on one tile set, each variant's
+    outputs equal to the rule's shape's bit for bit; prints one line."""
+    rows, kcap = tiles[0].shape
+    used = (tiles[2] > 0).sum(1)
+    rule = cell_pairs.fused_launch(kcap)
+    shapes = sorted({(r, t) for r in (1, 2)
+                     for t in (32, 64, 96, 128, 192, 256)} | {rule})
+    parts = []
+    for name, form, gated in FUSED_KINDS:
+        ref = _fused(tiles, form, gated, rule)
+        times = []
+        for shape in shapes:
+            got = _fused(tiles, form, gated, shape)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"{label}: fused {name} of launch "
+                                     f"{shape} differs from the rule's "
+                                     f"launch {rule}")
+            times.append((shape, device_ms(
+                lambda: _fused(tiles, form, gated, shape), 10)))
+        parts.append(f"{name} " + ", ".join(f"{s}={t:.4f}" for s, t in times))
+    print(f"{label} ({rows}, {kcap}), used slots a row: mean "
+          f"{float(used.float().mean()):.1f}, max {int(used.max())}; "
+          f"fused (rows, threads) ms: "
+          + "; ".join(parts) + f"; rule {rule}", flush=True)
 
 
 def _forces(x, y, m, ml, mxl, myl, shape):
@@ -156,8 +221,17 @@ def main():
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine, make_dense_step
 
-    print(f"{torch.cuda.get_device_name(0)}, "
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(f"{smi.stdout.strip().splitlines()[0]}, "
           f"{cell_pairs._sm_count(0)} SMs", flush=True)
+    for args in RESIDENT_SWEEP:
+        config = SimConfig(*args)
+        eng = Engine(config, device="cuda", impl="resident")
+        state = eng.init_state()  # sizes the tiles
+        sweep_fused(f"resident tiles {args}",
+                    resident_tiles(config, eng.kcap, state))
     for label, args in (("flagship", FLAGSHIP), ("UNEVEN", UNEVEN)):
         config = SimConfig(*args)
         eng = Engine(config, device="cuda", impl="dense")

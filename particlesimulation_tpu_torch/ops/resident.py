@@ -14,8 +14,8 @@ cheap, so ``rebin`` delivers every mover in one pass:
 5. count every mover beyond a row's free slots as undelivered.
 
 Slot order inside a row is free: collision tie-breaks go by pid rank, and
-the force passes do full K² masked work regardless of which slots are
-occupied, so rows are never compacted.
+the pair kernel compacts each row's used slots in shared memory itself, so
+the tiles are never compacted and keep their holes.
 """
 
 from __future__ import annotations

@@ -2,7 +2,11 @@
 Pallas kernel (interpret mode on the CPU) and its XLA twin.
 
 Inputs are made with NumPy from a seed and given to both sides as float32 /
-int32. Collision outputs (ft, count) must be exact. Forces hold to
+int32: tiles with empty slots and planted ε-chains (``_tiles``), and the
+port's ``adversarial_tiles`` (``used=None``) at K = 32 and 160, the rows
+the CUDA kernels' compactions risk (among them a row whose alive slots all
+collide and a row with one used slot). Collision outputs (ft, count) must
+be exact. Forces hold to
 rtol 1e-5 with atol 1e-6·max|f| (the tolerance of test_pallas_fused.py):
 the partner sums run in another order and torch.rsqrt may differ from XLA's
 by an ulp. The v4 form computes fx_i = G·m_i·(Σ w_ij·xl_j − xl_i·Σ w_ij),
@@ -21,6 +25,8 @@ from particlesimulation_tpu.config import EPSILON, G
 from particlesimulation_tpu.ops import dense_xla
 from particlesimulation_tpu.ops.pallas import cell_pairs as pallas_pairs
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+    adversarial_tiles)
 
 torch.set_num_threads(2)
 
@@ -92,13 +98,25 @@ CASES = [
     (32, 24, "v2", False, True),
     (32, 24, "v4", False, True),
     (160, 100, "v4", True, True),
+    (32, None, "v2", True, True),
+    (32, None, "v4", True, True),
+    (160, None, "v2", True, True),
+    (160, None, "v4", True, True),
 ]
+
+
+def _fused_inputs(kcap, used, permute, seed_offset=0):
+    """(x, y, m, alive, pid): ``_tiles`` of 12 cells, or the adversarial
+    tiles where ``used`` is None."""
+    if used is None:
+        return adversarial_tiles(kcap, kcap + 3 + seed_offset)
+    return _tiles(kcap + used + seed_offset, 12, kcap, used, permute)
 
 
 @pytest.mark.parametrize("kcap,used,form,collide,permute", CASES)
 def test_ref_matches_pallas(kcap, used, form, collide, permute):
-    ncells = 12
-    x, y, m, alive, pid = _tiles(kcap + used, ncells, kcap, used, permute)
+    x, y, m, alive, pid = _fused_inputs(kcap, used, permute)
+    ncells = x.shape[0]
     pallas_fn = {"v2": pallas_pairs.fused_pairs_v2,
                  "v4": pallas_pairs.fused_pairs_v4}[form]
     ref = pallas_fn(jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),

@@ -34,7 +34,7 @@ from particlesimulation_tpu.ops.pallas import cell_pairs as pallas_pairs
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.cuda.adversarial import (
     adversarial_tiles)
-from tests.test_torch_cell_pairs import _compare, _tiles
+from tests.test_torch_cell_pairs import _compare, _fused_inputs, _tiles
 
 torch.set_num_threads(2)
 
@@ -190,14 +190,17 @@ def test_dense_collisions_ref_matches_xla_at_max_kcap():
 
 
 @pytest.mark.parametrize("kcap,used,collide", [
-    (32, 24, True), (32, 24, False), (160, 100, True)])
+    (32, 24, True), (32, 24, False), (160, 100, True), (32, None, True),
+    (160, None, True)])
 def test_v1_ref_matches_pallas(kcap, used, collide):
     """The ungated v1 kernel computes the v2 form's function."""
-    ncells = 12
-    x, y, m, alive, pid = _tiles(kcap + used + 2, ncells, kcap, used, True)
-    ref = pallas_pairs.fused_pairs(
-        jnp.asarray(x), jnp.asarray(y), jnp.asarray(m), jnp.asarray(alive),
-        ncells, kcap, EPSILON, collide=collide, pid=jnp.asarray(pid))
+    x, y, m, alive, pid = _fused_inputs(kcap, used, True, 2)
+    ncells = x.shape[0]
+    with _pallas_tiling(used):
+        ref = pallas_pairs.fused_pairs(
+            jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),
+            jnp.asarray(alive), ncells, kcap, EPSILON, collide=collide,
+            pid=jnp.asarray(pid))
     got = cell_pairs.fused_pairs_ref(
         torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(m),
         torch.from_numpy(alive), torch.from_numpy(pid), kcap, EPSILON,
@@ -210,9 +213,9 @@ def test_v1_ref_matches_pallas(kcap, used, collide):
 @pytest.mark.parametrize("ncells", [1, 96, 263, 264, 2047, 2048, 10_000])
 def test_launch_shapes_fit_the_kernels(ncells):
     """The wrappers' launch rules give shapes the kernels take (whole warps,
-    at most 256 threads for the force kernel and 1024 for the collision
-    kernel, 1 or 2 receivers a thread, a block per cell at least) at every
-    K, on cards of 132 SMs (an H100 SXM) and of fewer."""
+    at most 256 threads for the force and fused kernels and 1024 for the
+    collision kernel, 1 or 2 receivers a thread, a block per cell at least)
+    at every K, on cards of 132 SMs (an H100 SXM) and of fewer."""
     for sms in (132, 78, 1):
         for kcap in range(1, cell_pairs.MAX_KCAP + 1):
             rows, threads, chunks = cell_pairs.force_launch(ncells, kcap, sms)
@@ -220,6 +223,11 @@ def test_launch_shapes_fit_the_kernels(ncells):
             assert threads % 32 == 0 and 32 <= threads <= 256
             # every used slot of a row gets a thread
             assert rows * threads * chunks >= kcap or threads == 256
+            rows, threads = cell_pairs.fused_launch(kcap)
+            assert rows in (1, 2)
+            assert threads % 32 == 0 and 32 <= threads <= 256
+            # one pass covers a row up to 80% full (the kernel loops on)
+            assert 5 * rows * threads >= 4 * kcap or threads == 256
             threads = cell_pairs.collision_threads(ncells, kcap, sms)
             assert threads % 32 == 0 and 32 <= threads <= 1024
 

@@ -81,7 +81,7 @@ def test_prologue_matches_jax_with_limbo():
                            y=state.y.at[i0].set(97.0))
     _, jprologue, _ = jmake_resident_run(cfg, 32)
     ref = jprologue(state)
-    prologue, _ = make_resident_run(SimConfig(1, 100.0, 20, 64), 32)
+    prologue, _, _ = make_resident_run(SimConfig(1, 100.0, 20, 64), 32)
     got = prologue(state_from_numpy(
         {f: np.asarray(getattr(state, f)) for f in state._fields}, "cpu"))
     for f in got._fields:
@@ -89,6 +89,28 @@ def test_prologue_matches_jax_with_limbo():
                                       np.asarray(getattr(ref, f)), err_msg=f)
     occ, pid = got.occ.numpy(), got.pid.numpy()
     assert (occ[399] & (pid[399] == 0)).any()
+
+
+def test_resident_pair_tiles_hold_every_particle():
+    """The tiles ``make_resident_run``'s ``pair_tiles`` gives (the chip check
+    holds and times the fused kernel on them at the flagship): step n's
+    tiles hold every particle alive after n - 1 steps in exactly one alive
+    slot, with its mass, and the rows keep the holes rebin leaves."""
+    cfg = SimConfig(5893, 0.08, 4, 120)
+    eng = Engine(cfg, impl="resident", device="cpu")
+    state = eng.init_state()
+    _, pair_tiles, run = make_resident_run(cfg, eng.kcap)
+    x, y, mf, alive, pid = pair_tiles(state, 3)
+    ref = run(state, 2)
+    live = ref.alive > 0
+    assert int(ref.collisions) > 0 and int(live.sum()) < cfg.n_particles
+    assert x.shape == y.shape == (cfg.ncells, eng.kcap)
+    assert torch.equal(torch.sort(pid[alive > 0]).values,
+                       torch.sort(ref.pid[live]).values)
+    assert float(mf.double().sum()) == pytest.approx(
+        float(ref.m[live].double().sum()), rel=1e-6)
+    used = mf > 0
+    assert bool((~used[:, :-1] & used[:, 1:]).any())  # a hole before a slot
 
 
 @pytest.mark.parametrize("vec", FAST_VECTORS,
