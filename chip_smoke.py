@@ -24,14 +24,31 @@ and O(n) count risk); then it drives the three engines through ``Engine``:
   bound), then 10 steps against the dense engine on the card, whose own
   UNEVEN tiles go through both kernels too.
 
+Then the sweep engine (plain torch, no kernel of its own) and the CLI:
+
+a. ``python -m particlesimulation_tpu_torch`` on golden s1 with the default
+   engine (f64 parity) and device (cuda), as a subprocess: the golden lines
+   exactly, and "%.1fs" on stderr;
+b. golden s0 and the five small golden vectors through the parity engine
+   on cuda at the harness's ±0.001, the counts exact;
+c. the parity engine on cuda and on cpu, bitwise equal in every field;
+d. the f32 sweep on golden s1 (±0.002, 4 collisions), and 1200 particles
+   in one cell through resident, where the ladder must end on the sweep;
+e. MEDIUM (golden s3's config, kcap ~2750) through the census: the ladder
+   ends on the sweep, overflow 0, and two runs give the same bits;
+f. the CLI's fast route in-process, which must launch the fused kernel;
+g. the step times of parity s1, the f32 sweep s1 and MEDIUM.
+
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
-each run loop run under ``torch.cuda.set_sync_debug_mode("error")``; each
-engine on the GPU is compared with the same engine on the CPU; the flagship
-and UNEVEN steps are timed and their device time broken down by kernel
-(torch.profiler). Any failure raises (non-zero exit). The last two
-lines of standard output are one JSON object with a record per kernel and
-one JSON object naming the device.
+each tile engine's run loop run under
+``torch.cuda.set_sync_debug_mode("error")``; each engine on the GPU is
+compared with the same engine on the CPU; the flagship, UNEVEN and sweep
+steps are timed and their device time broken down by kernel
+(torch.profiler), with the kernel launches and host synchronisations a
+step. Any failure raises (non-zero exit). The last two lines of standard
+output are one JSON object with a record per kernel and one JSON object
+naming the device.
 
 Kernel times: CUDA events around each call, median of 20. ``ms`` (the
 record's time) times each call alone on an idle card, the wrapper's host
@@ -57,7 +74,11 @@ Tolerances:
   * tiered vs dense on the card: positions within 2e-5·side (f32 reduction
     trees of another shape, tests/test_tiered.py's tolerance);
   * GPU vs CPU runs: positions within 1e-6·side, velocities within
-    1e-5·max|v|.
+    1e-5·max|v|; the parity engine bit for bit;
+  * parity golden vectors: the reference harness's ±0.001 (the CLI's
+    three-decimal lines exactly); the f32 sweep on golden s1: ±0.002, as
+    the tile engines; MEDIUM's particle 0 against golden s3 is printed,
+    not held.
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -72,16 +93,42 @@ little beside the row's bytes. The rsqrt count is shown against the SFU
 rate, 16 per SM and clock: 1/16 of the f32 rate.
 """
 
+import contextlib
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
+import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_S1 = (1, 5000.0, 100, 1_000_000, 4, 3936.506, 131.472, 4)
 GOLDEN_TOL = 0.002
+# The reference harness's golden vectors (reference serial/run_tests.sh and
+# openMP/new_tests.sh) that the parity phases run: s0 and the five small
+# ones; and MEDIUM (golden s3's config), whose golden values are printed
+# beside the f32 sweep's but not held (f32 over 10 steps at ~2500
+# particles a cell has no measured tolerance).
+GOLDEN_S0 = (-50, 10000.0, 200, 500_000, 10, 5025.384, 5303.928, 4)
+FAST_VECTORS = (
+    (1, 2.0, 3, 10, 1, 1.570, 0.056, 0),
+    (1, 1.0, 5, 100, 1, 0.786, 0.027, 0),
+    (-10, 3.0, 3, 100, 10, 1.733, 1.643, 2),
+    (5893, 0.05, 3, 10, 10, 0.002, 0.035, 2),
+    (8555, 0.05, 3, 10, 10, 0.016, 0.049, 1),
+)
+PARITY_TOL = 0.001
+MEDIUM = (1, 5000.0, 20, 1_000_000, 10)
+GOLDEN_S3 = (3918.912, 143.364, 19)
+# Parity on cuda against parity on cpu, bit for bit: several deaths in one
+# cell; ~156 particles a cell.
+CARD_VS_CPU = ((8555, 0.05, 3, 30, 20), (1, 100.0, 8, 10_000, 10))
 # UNEVEN: the reference report's clustered workload; the JAX f32 engine's
 # tiered result after 2 steps on a CPU (its plan_tiers plan is
 # launch_sweep.UNEVEN_PLAN).
@@ -561,10 +608,9 @@ def step_ms(eng, state, k, reps=2):
     return (tk - t1) / k * 1e3, t1, tk
 
 
-def device_breakdown(label, eng, state, step_ms_host, steps=10):
-    """Device time per step by kernel name (torch.profiler over a run of
-    ``steps``, its prologue and epilogue included), and the share of the
-    unprofiled step the device is idle."""
+def _profile(eng, state, steps):
+    """(device ms, kernel launches) of one run of ``steps``, by name:
+    [(ms, launches, name)], from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -577,17 +623,234 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0:
-            rows.append((us / 1e3 / steps, evt.key))
-    rows.sort(reverse=True)
+            copy = evt.key.startswith(("Memcpy", "Memset"))
+            rows.append((us / 1e3, 0 if copy else evt.count, evt.key))
+    return rows
+
+
+def _syncs(eng, state, steps):
+    """Host synchronisations (readbacks) in one run of ``steps``: the
+    warnings of torch's CUDA sync debug mode, one per synchronising call."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run(state, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_breakdown(label, eng, state, step_ms_host, steps=10):
+    """Device time per step by kernel name (torch.profiler over a run of
+    ``steps``, its prologue and epilogue included), the share of the
+    unprofiled step the device is idle, and per step the kernel launches
+    and host synchronisations (a run of ``steps`` less a run of 0)."""
+    rows = _profile(eng, state, steps)
+    rows0 = _profile(eng, state, 0)
+    launches = (sum(n for _, n, _ in rows) - sum(n for _, n, _ in rows0)) / steps
+    syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
+    rows = sorted(((ms / steps, key) for ms, _, key in rows), reverse=True)
     total = sum(ms for ms, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.4f}" for ms, key in rows[:8])
     ours = {name: sum(ms for ms, key in rows if name in key)
             for name in PORT_KERNELS}
     print(f"{label}: device {total:.4f} ms/step of {step_ms_host:.4f} "
-          f"ms/step, idle {1 - total / step_ms_host:.1%}; by kernel "
-          f"(ms/step): {top}; the port's kernels (ms/step): "
+          f"ms/step, idle {1 - total / step_ms_host:.1%}; {launches:.1f} "
+          f"kernel launches and {syncs:.2f} host synchronisations a step; "
+          f"by kernel (ms/step): {top}; the port's kernels (ms/step): "
           + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v > 0),
           flush=True)
+    return {"device_ms": total, "idle": 1 - total / step_ms_host,
+            "launches": launches, "syncs": syncs}
+
+
+def _parity(seed, side, nc, n, device):
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    return Engine(SimConfig(seed, side, nc, n, precision=Precision.PARITY),
+                  device=device)
+
+
+def check_cli_parity():
+    """(a) The CLI as a user runs it, with the default engine (parity) and
+    device (cuda): golden s1's exact output lines, and "%.1fs" on stderr."""
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    args = [str(seed), str(int(side)), str(nc), str(n), str(steps)]
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "particlesimulation_tpu_torch",
+                        *args], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    lines = r.stdout.splitlines()
+    timing = (r.stderr.strip().splitlines() or [""])[-1]
+    want = [f"{ex:.3f} {ey:.3f}", str(ec)]
+    if r.returncode != 0 or lines != want or not re.fullmatch(
+            r"\d+\.\ds", timing):
+        raise AssertionError(f"CLI parity {args}: rc {r.returncode}, stdout "
+                             f"{lines}, stderr {r.stderr[-2000:]}")
+    print(f"CLI parity {' '.join(args)} on cuda: {lines} (the golden "
+          f"values), {timing} on stderr, {time.perf_counter() - t:.1f} s "
+          f"with the process start", flush=True)
+
+
+def check_parity_golden():
+    """(b) Golden s0 and the five small golden vectors through the parity
+    engine on cuda: the reference harness's ±0.001, the count exact."""
+    for seed, side, nc, n, steps, ex, ey, ec in (GOLDEN_S0,) + FAST_VECTORS:
+        eng = _parity(seed, side, nc, n, "cuda")
+        out = eng.run(eng.init_state(), steps)
+        x, y, c = eng.result(out)
+        print(f"parity golden {seed} {side} {nc} {n} {steps} on cuda: "
+              f"({x:.6f}, {y:.6f}), {c} collisions; golden ({ex}, {ey}), "
+              f"{ec}", flush=True)
+        if not (eng.impl == "sweep" and out.x.dtype == torch.float64
+                and c == ec and abs(x - ex) <= PARITY_TOL
+                and abs(y - ey) <= PARITY_TOL):
+            raise AssertionError(f"parity golden {seed} {side} {nc} {n}")
+
+
+def check_parity_card_vs_cpu():
+    """(c) The parity engine on cuda and on cpu, field by field with
+    torch.equal: the card contracted nothing and took no reciprocal."""
+    for seed, side, nc, n, steps in CARD_VS_CPU:
+        outs = []
+        for device in ("cuda", "cpu"):
+            eng = _parity(seed, side, nc, n, device)
+            outs.append(eng.run(eng.init_state(), steps))
+        fields = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions")
+        bad = [f for f in fields if not torch.equal(
+            getattr(outs[0], f).cpu(), getattr(outs[1], f))]
+        if bad:
+            raise AssertionError(f"parity cuda vs cpu {seed} {side} {nc} "
+                                 f"{n}: {bad} differ")
+        print(f"parity cuda vs cpu ({seed} {side} {nc} {n}, {steps} steps): "
+              f"{', '.join(fields)} bitwise equal; {int(outs[1].collisions)} "
+              f"collisions", flush=True)
+
+
+def check_f32_sweep():
+    """(d) The f32 sweep: golden s1 within ±0.002 and 4 collisions; 1200
+    particles in one cell through resident, where the ladder must end on
+    the sweep."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    eng = Engine(SimConfig(seed, side, nc, n), impl="sweep", device="cuda")
+    out = eng.run(eng.init_state(), steps)
+    x, y, c = eng.result(out)
+    print(f"golden s1 f32 sweep on cuda: ({x:.4f}, {y:.4f}), {c} collisions, "
+          f"overflow {int(out.overflow)}", flush=True)
+    if not (eng.impl == "sweep" and c == ec and abs(x - ex) <= GOLDEN_TOL
+            and abs(y - ey) <= GOLDEN_TOL and int(out.overflow) == 0):
+        raise AssertionError("golden s1 f32 sweep")
+    eng = Engine(SimConfig(1, 10.0, 1, 1200), impl="resident", device="cuda")
+    out = eng.run(eng.init_state(), 2)
+    print(f"1200 particles in one cell, from resident: the ladder ends on "
+          f"{eng.impl}, overflow {int(out.overflow)}, collisions "
+          f"{int(out.collisions)}", flush=True)
+    if eng.impl != "sweep" or int(out.overflow) != 0:
+        raise AssertionError("the ladder did not end on the sweep")
+
+
+def check_medium():
+    """(e) MEDIUM through the census: the ladder (resident -> dense ->
+    sweep) ends on the sweep with overflow 0, and two runs give the same
+    bits. Returns the engine and its initial state."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    seed, side, nc, n, steps = MEDIUM
+    eng = Engine(SimConfig(seed, side, nc, n), device="cuda")
+    state = eng.init_state()
+
+    def timed_run(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run(state, k)  # ends in a readback
+        return out, time.perf_counter() - t
+
+    first, t_ladder = timed_run(steps)
+    second, t_k = timed_run(steps)
+    t_1 = timed_run(1)[1]
+    runs = [first, second]
+    fields = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions")
+    same = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+               for f in fields)
+    x, y, c = eng.result(runs[0])
+    print(f"MEDIUM {seed} {side} {nc} {n}, {steps} steps on cuda: the census "
+          f"and ladder end on {eng.impl} ({t_ladder:.1f} s with the ladder's "
+          f"tile attempts), overflow {int(runs[0].overflow)}, two runs "
+          f"bitwise equal: {same}; particle 0 ({x:.4f}, {y:.4f}), {c} "
+          f"collisions (golden s3, f64: {GOLDEN_S3}; f32 not held to it)",
+          flush=True)
+    if eng.impl != "sweep" or int(runs[0].overflow) != 0 or not same:
+        raise AssertionError("MEDIUM")
+    # ms a step as step_ms defines it, from the second run and a run of 1.
+    ms = (t_k - t_1) / (steps - 1) * 1e3
+    print(f"MEDIUM f32 sweep: {ms:.4f} ms/step (run(1) {t_1:.4f} s, "
+          f"run({steps}) {t_k:.4f} s)", flush=True)
+    return eng, state, ms
+
+
+def check_cli_fast():
+    """(f) The CLI's fast route in-process (golden s1 through the census:
+    resident), with the launch counts set to 0 just before it: the fused
+    kernel must have launched. Returns the launch counts."""
+    from particlesimulation_tpu_torch import cli
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    args = [str(seed), str(int(side)), str(nc), str(n), str(steps),
+            "--engine", "fast"]
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    cell_pairs.reset_launches()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = dict(cell_pairs.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    print(f"CLI {' '.join(args)} in-process on cuda: rc {rc}, {lines}, "
+          f"{err.getvalue().strip()} on stderr, launches {launches}",
+          flush=True)
+    x, y = (float(v) for v in lines[0].split())
+    if not (rc == 0 and len(lines) == 2 and int(lines[1]) == ec
+            and abs(x - ex) <= GOLDEN_TOL and abs(y - ey) <= GOLDEN_TOL
+            and launches["fused_pairs"] > 0):
+        raise AssertionError("CLI fast")
+    return launches
+
+
+def time_sweeps(card, medium):
+    """(g) ms a step of the sweep engine (step_ms over 4 steps; MEDIUM's
+    from ``check_medium``'s runs): parity s1, f32 sweep s1, MEDIUM; each
+    with its device time, idle share, launches and host syncs a step."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    seed, side, nc, n = GOLDEN_S1[:4]
+    out = {}
+    for label, eng, steps in (
+            ("parity s1", _parity(seed, side, nc, n, "cuda"), 2),
+            ("f32 sweep s1", Engine(SimConfig(seed, side, nc, n),
+                                    impl="sweep", device="cuda"), 2),
+            ("MEDIUM f32 sweep", medium[0], 1)):
+        if eng is medium[0]:
+            state, ms = medium[1:]
+        else:
+            state = eng.init_state()
+            ms, t1, tk = step_ms(eng, state, 4, reps=1)
+            print(f"{label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, run(5) "
+                  f"{tk:.4f} s)", flush=True)
+        print(f"{label}, {eng.impl}: {ms:.4f} ms/step, "
+              f"{state.x.shape[0] / ms / 1e3:.4f} M particle-steps/s on "
+              f"{card}", flush=True)
+        out[label] = {"ms": ms, **device_breakdown(label, eng, state, ms,
+                                                   steps)}
+    return out
 
 
 def main():
@@ -718,6 +981,18 @@ def main():
               f"run(11) {t11:.4f} s) on {card}", flush=True)
         device_breakdown(f"UNEVEN {label}", e, st, ms)
 
+    # 8. The sweep engine (f64 parity and f32) and the CLI.
+    t_sweep = time.perf_counter()
+    check_cli_parity()
+    check_parity_golden()
+    check_parity_card_vs_cpu()
+    check_f32_sweep()
+    medium = check_medium()
+    cli_launches = check_cli_fast()
+    sweep_times = time_sweeps(card, medium)
+    print(f"sweep and CLI phases: {time.perf_counter() - t_sweep:.1f} s; "
+          f"per step {json.dumps(sweep_times)}", flush=True)
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
@@ -726,8 +1001,8 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}
 
     print(f"launches per path: resident {res_launches}, resident v1 "
-          f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}",
-          flush=True)
+          f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
+          f"CLI fast {cli_launches}", flush=True)
     print(json.dumps({"kernels": [
         entry("fused_pairs", res_launches["fused_pairs"],
               on_path[("v4", True)]),

@@ -8,10 +8,12 @@ the JAX package's, so each module's counterpart is easy to find; the JAX
 package is the reference the port is tested against, and the port never
 imports it (nor jax).
 
-So far the port has the f32 fast engines on one device (``engine.Engine``,
-behind ``models.Simulation``): slot-resident, dense, and occupancy-classed
-tiered tiles for clustered loads, with every Pallas kernel of the JAX
-package rewritten in CUDA (``csrc/cell_pairs.cu``).
+So far the port runs on one device (``engine.Engine``, behind
+``models.Simulation`` and the CLI, ``python -m particlesimulation_tpu_torch``):
+the f32 fast engines (slot-resident, dense, occupancy-classed tiered tiles
+for clustered loads, and the sweep), with every Pallas kernel of the JAX
+package rewritten in CUDA (``csrc/cell_pairs.cu``), and the f64 parity
+engine, which reproduces the reference's arithmetic bit for bit.
 """
 
 __version__ = "0.1.0"

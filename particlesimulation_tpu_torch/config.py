@@ -23,7 +23,7 @@ class Precision(enum.Enum):
     """Compute precision policy.
 
     PARITY: float64 with the exact operation order of the serial oracle
-        (not ported yet).
+        (the sweep engine, plain torch).
     FAST: float32, order-free reductions, hand-written CUDA kernels on the
         GPU.
     """

@@ -1,7 +1,6 @@
-"""Single-device simulation engines: slot-resident, dense and tiered.
+"""Single-device simulation engines: slot-resident, dense, tiered and sweep.
 
-Counterpart of the JAX package's ``engine.py``. Three f32 fast-path
-implementations:
+Counterpart of the JAX package's ``engine.py``. Four implementations:
 
 * ``resident`` (``make_resident_run``) — the state lives in (ncells, K) slot
   tiles; one step is
@@ -16,16 +15,23 @@ implementations:
   kernels; the resident engine's escalation target.
 * ``tiered`` (``ops/tiered.make_tiered_step``) — the dense step on
   occupancy-classed tiles, for clustered loads.
+* ``sweep`` (``make_step``) — neighbor-offset sweeps over the sorted
+  particle arrays, with no tile capacity to outgrow: the f64 parity engine
+  (the reference's operation order, bit for bit) and, in f32, the last rung
+  of the ladder and the census's engine for small sparse grids. Plain torch,
+  as in the JAX package (XLA code there, not Pallas).
 
-A run is a Python loop over steps on the device with no host readback inside
-it; the engine reads the overflow counter once per run and, when the tiles
-were too small, replays the run losslessly with larger tiles or another
-engine, as the JAX engine's retry ladder does (the reference instead
-PANIC-skips particles, serial/parsim.cpp:276-280).
+A tile engine's run is a Python loop over steps on the device with no host
+readback inside it; the engine reads the overflow counter once per run and,
+when the tiles were too small, replays the run losslessly with larger tiles
+or another engine, as the JAX engine's retry ladder does (resident -> dense
+-> sweep; the reference instead PANIC-skips particles,
+serial/parsim.cpp:276-280). The sweep's loop trip counts are host integers,
+so it reads the cell occupancy back once a step.
 
-Where the JAX census or ladder would pick an engine the port does not have
-yet (supercell, sweep, banded), the port raises ``NotImplementedError``
-naming that engine and never runs another one.
+Where the JAX census would pick an engine the port does not have yet
+(supercell, banded), the port raises ``NotImplementedError`` naming that
+engine and never runs another one.
 """
 
 from __future__ import annotations
@@ -35,20 +41,24 @@ import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
-from particlesimulation_tpu_torch.ops import binning, collisions, dense, integrate, stencil
+from particlesimulation_tpu_torch.ops import (binning, collisions, com, dense,
+                                              forces, integrate, stencil)
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.banded import plan_bands
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.tiered import make_tiered_step, plan_tiers
 from particlesimulation_tpu_torch.state import SimState, result_of
 
-# Largest tile capacity the tile kernels take; beyond it the JAX engine
+# Largest tile capacity the tile kernels take; beyond it the ladder
 # escalates resident -> dense -> sweep.
 MAX_DENSE_KCAP = cell_pairs.MAX_KCAP
 INF = cell_pairs.INF
+# Telemetry value of a collision-rank domain overflow (a cell of RANK_LIMIT
+# occupants or more), far above any tile-capacity retry value.
+RANK_OVF = 1 << 30
 
-IMPLS = ("resident", "dense", "tiered")
-UNPORTED_IMPLS = ("sweep", "supercell", "banded")
+IMPLS = ("resident", "dense", "tiered", "sweep")
+UNPORTED_IMPLS = ("supercell", "banded")
 CLUSTERED_IMPLS = ("banded", "tiered")
 # Pair kernels of the resident engine (the JAX package's PSIM_PALLAS_PAIR):
 # v4 and v2 are the hit-gated kernel's two force forms, v1 the ungated
@@ -59,6 +69,71 @@ PAIR_IMPLS = ("v1", "v2", "v4")
 # row bands (engine.py PSIM_STREAM_BYTES default, 256 MB).
 _STREAM_BYTES = 256 << 20
 _STREAM_BAND_BYTES = 40 << 20
+
+
+def make_step(config: SimConfig):
+    """Build (step, run) of the sweep engine: parity (f64, the reference's
+    operation order) or fast (f32, order-free), by ``config.precision``.
+
+    ``step(state, plan)`` takes a state sorted by (cell key, pid) and
+    ``plan``, the ``binning.occupancy`` of its keys, and returns the next
+    state and the occupancy of its keys. The post-move sort of step t is the
+    binning of step t+1 (positions do not change between the collision pass
+    and the next COM pass), so a step sorts once and reads the occupancy
+    back once; ``run(state, n_steps)`` adds one read for the first step.
+    """
+    side = config.side
+    nc = config.ncside
+    ncells = config.ncells
+    parity = config.precision is Precision.PARITY
+
+    def step(state: SimState, plan):
+        x, y, vx, vy, m, alive, pid = (state.x, state.y, state.vx, state.vy,
+                                       state.m, state.alive, state.pid)
+        # Phase 1 — COM (the arrays arrive sorted by this key).
+        key, valid = binning.cell_keys(x, y, side, nc)
+        if parity:
+            M, MX, MY = com.com_parity(key, x, y, m, ncells, plan)
+            fx, fy = forces.pairwise_forces_parity_blocked(
+                x, y, m, alive, key, ncells, plan)
+        else:
+            M, MX, MY = com.com_fast(key, x, y, m, ncells, plan)
+            fx, fy = forces.pairwise_forces_fast(x, y, m, alive, key, ncells,
+                                                 plan)
+        # Phase 2 — forces: the pair sweeps above, then the 8 stencil
+        # monopole terms.
+        ml, mxl, myl = stencil.stencil_tables(M, MX, MY, side, nc)
+        fx, fy = forces.monopole_forces(x, y, m, alive, key, fx, fy, ml, mxl,
+                                        myl, ncells)
+        # Phase 3 — integrate + periodic wrap.
+        x, y, vx, vy = integrate.integrate(x, y, vx, vy, m, fx, fy, side,
+                                           DELTAT)
+        # Phase 4 — post-move rebin (the one sort per step) + collisions.
+        key2, _ = binning.cell_keys(x, y, side, nc)
+        key2, pid, x, y, vx, vy, m, alive = binning.sort_by_cell(
+            key2, pid, x, y, vx, vy, m, alive)
+        pos2, _ = binning.segment_positions(key2)
+        plan2 = binning.occupancy(key2, ncells)
+        count, died = collisions.detect_collisions_blocked(
+            x, y, alive, key2, pos2, EPSILON, ncells, plan2)
+        m, alive = collisions.apply_deaths(m, alive, died)
+        overflow = state.overflow
+        if collisions.rank_overflow(plan2.kmax):
+            overflow = torch.clamp(overflow, min=RANK_OVF)
+        return SimState(
+            x=x, y=y, vx=vx, vy=vy, m=m, alive=alive, pid=pid,
+            collisions=state.collisions + count,
+            panics=state.panics + torch.sum(~valid, dtype=torch.int32),
+            overflow=overflow), plan2
+
+    def run(state: SimState, n_steps: int) -> SimState:
+        key, _ = binning.cell_keys(state.x, state.y, side, nc)
+        plan = binning.occupancy(key, ncells)
+        for _ in range(n_steps):
+            state, plan = step(state, plan)
+        return state
+
+    return step, run
 
 
 def make_resident_run(config: SimConfig, kcap: int,
@@ -292,20 +367,19 @@ class Engine:
     ``device`` defaults to ``cuda`` and raises if CUDA is absent; the CPU is
     used only when the caller passes ``device="cpu"`` (there the tile passes
     take their plain torch versions). ``impl`` may be None (the census
-    decides), "resident", "dense" or "tiered"; "sweep", "supercell" and
-    "banded" are not ported yet. ``clustered_impl`` is the engine the census
-    gives a clustered load ("banded", the JAX default, or "tiered"); the
-    census takes tiered where no band plan exists. ``pair_impl`` picks the
-    resident engine's pair kernel (see ``PAIR_IMPLS``).
+    decides), "resident", "dense", "tiered" or "sweep"; "supercell" and
+    "banded" are not ported yet. Parity precision runs the sweep in float64
+    whatever ``impl`` says, as the JAX engine does. ``clustered_impl`` is the
+    engine the census gives a clustered load ("banded", the JAX default, or
+    "tiered"); the census takes tiered where no band plan exists.
+    ``pair_impl`` picks the resident engine's pair kernel (see
+    ``PAIR_IMPLS``).
     """
 
     def __init__(self, config: SimConfig, kcap: int | None = None,
                  impl: str | None = None, device=None,
                  clustered_impl: str = "banded",
                  pair_impl: str | None = None):
-        if config.precision is not Precision.FAST:
-            raise NotImplementedError(
-                "the f64 parity engine (sweep) is not ported yet")
         if config.n_shards > 1:
             raise NotImplementedError(
                 "the sharded engines are not ported yet (n_shards > 1)")
@@ -314,21 +388,25 @@ class Engine:
                              f"{CLUSTERED_IMPLS}")
         if pair_impl is not None and pair_impl not in PAIR_IMPLS:
             raise ValueError(f"pair_impl {pair_impl!r}; valid: {PAIR_IMPLS}")
-        if impl is None:
-            avg = config.n_particles / config.ncells
-            if avg < 1.5:
-                # JAX census: sparse grids go to super-cell tiles where the
-                # grid can be coarsened (ops/supercell.choose_supercell_factor
-                # needs ncside >= 16), else to the sweep.
-                other = "supercell" if config.ncside >= 16 else "sweep"
+        parity = config.precision is Precision.PARITY
+        auto = impl is None and not parity
+        if parity:
+            impl = "sweep"
+        elif impl is None and config.n_particles / config.ncells < 1.5:
+            # JAX census: sparse grids go to super-cell tiles where the grid
+            # can be coarsened (ops/supercell.choose_supercell_factor needs
+            # ncside >= 16), else to the sweep.
+            if config.ncside >= 16:
                 raise NotImplementedError(
-                    f"the census routes average occupancy {avg:.3g} < 1.5 to "
-                    f"the {other} engine, which is not ported yet; pass "
-                    f"impl='resident' to run the resident engine")
+                    f"the census routes average occupancy "
+                    f"{config.n_particles / config.ncells:.3g} < 1.5 on a "
+                    f"{config.ncside}² grid to the supercell engine, which is "
+                    f"not ported yet; pass impl='resident' or 'sweep'")
+            impl = "sweep"
         elif impl in UNPORTED_IMPLS:
             raise NotImplementedError(
                 f"the {impl!r} engine is not ported yet; valid: {IMPLS}")
-        elif impl not in IMPLS:
+        elif impl is not None and impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
         if device is None:
             device = "cuda"
@@ -337,7 +415,8 @@ class Engine:
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run on the CPU")
         self.config = config
-        self._impl_auto = impl is None
+        self.dtype = torch.float64 if parity else torch.float32
+        self._impl_auto = auto
         self.impl = impl or "resident"
         self.clustered_impl = clustered_impl
         self.pair_impl = pair_impl
@@ -373,17 +452,17 @@ class Engine:
                 self.impl = "dense"
                 self._tier_plan = None
                 self.kcap = None
-        if self.kcap is None:
-            self.kcap = self._heuristic_kcap()
-        if self.kcap > MAX_DENSE_KCAP:
-            raise NotImplementedError(
-                f"kcap {self.kcap} exceeds the tile kernels' "
-                f"{MAX_DENSE_KCAP}; the JAX engine escalates to the sweep "
-                f"engine, which is not ported yet")
+        if self.impl != "sweep":
+            if self.kcap is None:
+                self.kcap = self._heuristic_kcap()
+            if self.kcap > MAX_DENSE_KCAP:
+                self.impl = "sweep"
         key = (self.impl, self.kcap, self._tier_plan, self.pair_impl)
         if self._built_key == key:
             return
-        if self.impl == "resident":
+        if self.impl == "sweep":
+            _, self._run = make_step(self.config)
+        elif self.impl == "resident":
             _, _, self._run = make_resident_run(self.config, self.kcap,
                                                 self.pair_impl)
         elif self.impl == "dense":
@@ -399,7 +478,7 @@ class Engine:
         cfg = self.config
         xs, ys, vxs, vys, ms = init_particles_host(cfg)
         n = cfg.n_particles
-        if self.kcap is None:
+        if self.kcap is None and self.impl != "sweep":
             w = cfg.side / cfg.ncside
             cx = np.clip((xs / w).astype(np.int64), 0, cfg.ncside - 1)
             cy = np.clip((ys / w).astype(np.int64), 0, cfg.ncside - 1)
@@ -412,11 +491,11 @@ class Engine:
             self.kcap = kcap
         dev = self.device
 
-        def f32(a):
-            return torch.as_tensor(a, dtype=torch.float32).to(dev)
+        def cast(a):
+            return torch.as_tensor(a, dtype=self.dtype).to(dev)
 
         state = SimState(
-            x=f32(xs), y=f32(ys), vx=f32(vxs), vy=f32(vys), m=f32(ms),
+            x=cast(xs), y=cast(ys), vx=cast(vxs), vy=cast(vys), m=cast(ms),
             alive=torch.ones(n, dtype=torch.bool, device=dev),
             pid=torch.arange(n, dtype=torch.int32, device=dev),
             collisions=torch.zeros((), dtype=torch.int64, device=dev),
@@ -461,7 +540,12 @@ class Engine:
             self._build()
             out = self._run(state._replace(overflow=torch.zeros_like(
                 state.overflow)), n_steps)
-            need = int(out.overflow)  # the run's one host readback
+            need = int(out.overflow)  # a tile run's one host readback
+            if self.impl == "sweep" and need >= RANK_OVF:
+                raise RuntimeError(
+                    "collision rank overflow: a cell exceeded 65534 "
+                    "occupants; uint32 pair ranks cannot order its "
+                    "collision set")
             if need == 0:
                 return out
             if self.impl == "tiered":
@@ -479,10 +563,7 @@ class Engine:
                 self.impl = "dense"
                 self.kcap = None
             elif self.kcap > MAX_DENSE_KCAP:
-                raise NotImplementedError(
-                    f"kcap {self.kcap} exceeds the tile kernels' "
-                    f"{MAX_DENSE_KCAP}; the JAX engine escalates to the "
-                    f"sweep engine, which is not ported yet")
+                self.impl = "sweep"  # no tile capacity to outgrow
         raise RuntimeError("tile capacity retries exhausted")
 
     def _grow_tiers(self, need: int, attempt: int):
@@ -505,3 +586,11 @@ class Engine:
 
     def result(self, state: SimState) -> tuple[float, float, int]:
         return result_of(state)
+
+    def run_debug(self, state: SimState, n_steps: int) -> SimState:
+        """Step-by-step execution for step-diff debugging: one run of one
+        step at a time, with no overflow retry."""
+        self._build()
+        for _ in range(n_steps):
+            state = self._run(state, 1)
+        return state

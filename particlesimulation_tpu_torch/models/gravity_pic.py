@@ -38,10 +38,13 @@ class RunResult:
 
 
 class Simulation:
-    """High-level driver of the single-device fast engine.
+    """High-level entry point to the single-device engine.
 
-    ``device`` defaults to ``cuda`` (and raises if CUDA is absent); pass
-    ``device="cpu"`` to run the plain torch versions on the CPU.
+    ``precision="fast"`` (the default) runs the f32 engine the census picks;
+    ``precision="parity"`` runs the f64 sweep, bit for bit the reference's
+    arithmetic. ``device`` defaults to ``cuda`` (and raises if CUDA is
+    absent); pass ``device="cpu"`` to run the plain torch versions on the
+    CPU.
     """
 
     def __init__(self, seed: int, side: float, ncside: int, n_particles: int,

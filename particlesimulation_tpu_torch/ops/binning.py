@@ -7,11 +7,54 @@ index — the same in-bucket order.
 
 Out-of-range cells (the reference's ``[PANIC2]`` skip-and-continue,
 serial/parsim.cpp:276-280) map to a sentinel key ``ncells`` that sorts last.
+
+The sweep engine's ``fori_loop`` trip counts are traced scalars in the JAX
+package; in torch they are host integers, which ``occupancy`` reads back.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
+
+
+class Occupancy(NamedTuple):
+    """Cell occupancy of a (key, pid)-sorted particle array, as the sweeps
+    (``ops/com``, ``ops/forces``, ``ops/collisions``) take it: trip counts on
+    the host, a lane order on the device.
+
+    ``order`` lists the lanes cell by cell, the cells by occupancy descending
+    (ties by key), each cell's lanes in their sorted order, then the
+    out-of-range (sentinel) lanes. So the cells holding more than ``o``
+    particles are the first ``lanes[o]`` lanes of that order, and a partner
+    at ``pos ± o`` in the same cell sits at ``± o`` there too.
+    """
+
+    kmax: int            # the most particles in one real cell
+    lanes: list          # lanes[o], o < kmax: lanes of cells holding > o
+    cells: list          # cells[p], p < kmax: cells holding > p
+    order: torch.Tensor  # (N,) int64 lane permutation
+
+
+def occupancy(key_sorted, ncells: int) -> Occupancy:
+    """The occupancy of sorted cell keys; sentinel keys (``ncells``) count in
+    no cell. Reads the per-cell counts back to the host: one synchronising
+    copy of ``ncells`` integers."""
+    k = key_sorted.to(torch.int64)
+    counts = torch.zeros(ncells + 1, dtype=torch.int64, device=k.device)
+    counts.index_add_(0, k, torch.ones_like(k))
+    # Sentinel lanes sort last.
+    order = torch.sort(torch.where(k < ncells, -counts[k], 0),
+                       stable=True).indices
+    host = counts[:ncells].cpu().numpy()
+    kmax = int(host.max())
+    hist = np.bincount(host, minlength=kmax + 1)  # cells by occupancy
+    cells_ge = np.cumsum(hist[::-1])[::-1]
+    lanes_ge = np.cumsum((hist * np.arange(kmax + 1))[::-1])[::-1]
+    return Occupancy(kmax, lanes_ge[1:].tolist(), cells_ge[1:].tolist(),
+                     order)
 
 
 def cell_keys(x, y, side: float, ncside: int):

@@ -29,11 +29,11 @@ class SimState(NamedTuple):
     particle ``i``; output reports particle pid==0, serial/parsim.cpp:450-453).
     """
 
-    x: torch.Tensor    # (N,) float32 position
+    x: torch.Tensor    # (N,) position: float32, float64 in parity precision
     y: torch.Tensor
-    vx: torch.Tensor   # (N,) float32 velocity
+    vx: torch.Tensor   # (N,) velocity, as x
     vy: torch.Tensor
-    m: torch.Tensor    # (N,) float32 mass; 0 for dead particles
+    m: torch.Tensor    # (N,) mass, as x; 0 for dead particles
     alive: torch.Tensor  # (N,) bool — cleared on collision, never set again
     pid: torch.Tensor  # (N,) int32 original index
     collisions: torch.Tensor  # () int64 — cumulative merged-cluster count

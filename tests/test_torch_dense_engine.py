@@ -65,13 +65,15 @@ def test_dense_capacity_retry_is_lossless():
 
 
 @pytest.mark.parametrize("impl", ["resident", "dense"])
-def test_ladder_beyond_max_kcap_raises(impl):
-    """1200 particles in one cell: the tiles cannot hold them. The JAX
-    ladder escalates resident -> dense -> sweep; the port raises there."""
-    eng = Engine(SimConfig(seed=1, side=10.0, ncside=1, n_particles=1200),
-                 impl=impl, device="cpu")
+def test_ladder_escalates_to_sweep(impl):
+    """1200 particles in one cell: the tiles cannot hold them, and the
+    ladder escalates resident -> dense -> sweep, as the JAX engine's does.
+    The run equals the JAX sweep engine's (``_assert_same_run``)."""
+    cfg = (1, 10.0, 1, 1200)
+    eng = Engine(SimConfig(*cfg), impl=impl, device="cpu")
     state = eng.init_state()
     assert eng.kcap == 1024
-    with pytest.raises(NotImplementedError, match="sweep"):
-        eng.run(state, 1)
-    assert eng.impl == "dense"
+    out = eng.run(state, 1)
+    assert eng.impl == "sweep"
+    jeng = JEngine(JSimConfig(*cfg, precision=JPrecision.FAST), impl="sweep")
+    _assert_same_run(out, jeng.run(jeng.init_state(), 1), cfg[1])

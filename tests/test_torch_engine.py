@@ -164,15 +164,12 @@ def test_simulation_facade():
 
 
 @pytest.mark.parametrize("case", [
-    "banded", "supercell", "sweep", "parity", "shards", "sparse",
-    "clustered", "stream"])
+    "banded", "supercell", "shards", "sparse", "clustered", "stream"])
 def test_unported_engines_raise(case):
     cfg = dict(seed=1, side=100.0, ncside=10, n_particles=2000)
     kw = {}
-    if case in ("banded", "supercell", "sweep"):
+    if case in ("banded", "supercell"):
         kw["impl"] = case
-    elif case == "parity":
-        cfg["precision"] = Precision.PARITY
     elif case == "shards":
         cfg["n_shards"] = 2
     elif case == "sparse":        # average occupancy < 1.5: supercell
@@ -184,6 +181,33 @@ def test_unported_engines_raise(case):
     with pytest.raises(NotImplementedError):
         eng = Engine(SimConfig(**cfg), device="cpu", **kw)
         eng.init_state()
+
+
+@pytest.mark.parametrize("case", ["sweep", "parity"])
+def test_sweep_and_parity_routes_run(case):
+    """The config the refusal cases above use, through the f32 sweep
+    (``impl="sweep"``) and the f64 parity engine, against the JAX package's
+    sweep and parity engines: parity bit for bit, the sweep to f32 rounding
+    (other summation orders), collisions and dead sets exact."""
+    args = (1, 100.0, 10, 2000)
+    if case == "sweep":
+        jeng = JEngine(JSimConfig(*args, precision=JPrecision.FAST),
+                       impl="sweep")
+        eng = Engine(SimConfig(*args), impl="sweep", device="cpu")
+    else:
+        jeng = JEngine(JSimConfig(*args, precision=JPrecision.PARITY))
+        eng = Engine(SimConfig(*args, precision=Precision.PARITY),
+                     device="cpu")
+    ref = jeng.run(jeng.init_state(), 3)
+    got = eng.run(eng.init_state(), 3)
+    assert eng.impl == "sweep"
+    if case == "parity":
+        assert got.x.dtype == torch.float64
+        for f in FIELDS + ("pid", "collisions"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(ref, f)))
+    else:
+        _assert_same_run(got, ref, args[1])
 
 
 @pytest.mark.parametrize("kind", ["uniform", "blob", "hot_cell"])
