@@ -39,6 +39,25 @@ e. MEDIUM (golden s3's config, kcap ~2750) through the census: the ladder
 f. the CLI's fast route in-process, which must launch the fused kernel;
 g. the step times of parity s1, the f32 sweep s1 and MEDIUM.
 
+Then the supercell engine at SMALL (seed 50, side 10000, ncside 1300,
+N=5e5, 10 steps; the reference report's sparse workload, not cut):
+
+h. the labelled fused kernel on SMALL's own pair-pass tiles and on the
+   adversarial tiles with random labels (K 32 to 1024: the 1024 launch opts
+   in to more shared memory), with every label distinct (no pair may
+   collide: count 0, every ft INF) and every label 0 (the unlabelled
+   kernel's bits); the v4 and v2 forms against an f64 truth on SMALL's
+   tiles (the v4 centre is the whole row's mean);
+i. the cell sums kernel on SMALL's tiles: within rtol 1e-6 of the plain
+   version on the card (atomics in any order), bit for bit equal to the
+   plain version on the CPU (slot order) and to itself in a second run;
+j. SMALL through the census (supercell, S = 10), against the JAX package's
+   f32 result and the port's f32 sweep on the card; both new kernels must
+   launch; no host sync in the run loop; cuda == cpu on an uneven
+   partition (7 5.0 25 400, S = 3 over 25 cells);
+k. the CLI's fast route at SMALL in-process (the labelled kernel launched);
+l. SMALL's step time, device time, idle share, launches and syncs a step.
+
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
 each tile engine's run loop run under
@@ -78,7 +97,17 @@ Tolerances:
   * parity golden vectors: the reference harness's ±0.001 (the CLI's
     three-decimal lines exactly); the f32 sweep on golden s1: ±0.002, as
     the tile engines; MEDIUM's particle 0 against golden s3 is printed,
-    not held.
+    not held;
+  * the labelled kernel: as the fused kernel, its tolerance's terms summed
+    over the pairs of equal labels; all labels 0: bit for bit the
+    unlabelled kernel;
+  * cell sums: rtol 1e-6 against the plain version on the card (a cell's
+    few non-negative terms added in another order), bit for bit against it
+    on the CPU;
+  * SMALL: the JAX f32 engine's collision count exactly and particle 0
+    within ±0.002; against the port's f32 sweep on the card, the count and
+    dead set exact and positions within 1e-3 (the JAX package's
+    tests/test_supercell.py tolerance).
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -87,7 +116,9 @@ where the function needs it: masses, alive flags and pids of every slot,
 x and y only of the slots that take part (used ones, m > 0, for a force,
 alive ones for a collision). Operations: 14 per ordered pair of used slots
 for the v2 force, 15 for v4, 14 per monopole term (an FMA counts 2, an
-rsqrt 1). The collision test's operations are not counted: it need test
+rsqrt 1); the labelled kernel's pairs are only those of equal labels (the
+function's sum of c² over the cells, where the kernel tests all n² used
+pairs of a row). The cell sums move 16 bytes a slot and 12 a true cell. The collision test's operations are not counted: it need test
 only the pairs near in x (a few per alive slot, 6 ops each), which cost
 little beside the row's bytes. The rsqrt count is shown against the SFU
 rate, 16 per SM and clock: 1/16 of the f32 rate.
@@ -134,6 +165,12 @@ CARD_VS_CPU = ((8555, 0.05, 3, 30, 20), (1, 100.0, 8, 10_000, 10))
 # launch_sweep.UNEVEN_PLAN).
 UNEVEN = (-23, 5000.0, 100, 1_000_000)
 UNEVEN_2 = (2748.5098, 2624.1592, 14)
+# SMALL (BASELINE.md): the JAX f32 sweep's result after 10 steps on a CPU,
+# (7907.595703125, 7537.66015625, 1); the JAX supercell engine gives the
+# same.
+SMALL = (50, 10000.0, 1300, 500_000, 10)
+SMALL_10 = (7907.5957, 7537.6602, 1)
+SMALL_S = 10
 # The TPU kernel body each kernel replaces (file:line).
 REPLACES = {
     "fused_pairs": "particlesimulation_tpu/ops/pallas/cell_pairs.py:248",
@@ -141,11 +178,15 @@ REPLACES = {
     "dense_pairwise_forces":
         "particlesimulation_tpu/ops/pallas/cell_pairs.py:45",
     "dense_collisions": "particlesimulation_tpu/ops/pallas/cell_pairs.py:112",
+    # XLA code of the JAX package (no Pallas kernel): the `sub` argument of
+    # fused_pairs_v2 / _v4, and the supercell per-cell one-hot sums.
+    "fused_pairs_sub": "particlesimulation_tpu/ops/dense_xla.py:330",
+    "supercell_cell_sums": "particlesimulation_tpu/ops/supercell.py:209",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 # The kernels' names in csrc/cell_pairs.cu, as the profiler reports them.
 PORT_KERNELS = ("fused_pairs_kernel", "dense_forces_kernel",
-                "dense_collisions_kernel")
+                "dense_collisions_kernel", "cell_sums_kernel")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -220,14 +261,17 @@ def _stencil(x, y, m):
             for t in stencil.tables_from_sums(*sums, 5000.0, 100)]
 
 
-def _term_sums(x, y, m_post, form, tables=None):
+def _term_sums(x, y, m_post, form, tables=None, sub=None):
     """Per slot and axis, the summed magnitudes of the force's terms (the
-    monopole terms too, given the stencil tables)."""
+    monopole terms too, given the stencil tables; only the pairs of equal
+    labels, given ``sub``)."""
     from particlesimulation_tpu_torch.config import G
 
     out = []
     for c0 in range(0, x.shape[0], 64):
         xs, ys, ms = (a[c0:c0 + 64].double() for a in (x, y, m_post))
+        if sub is not None:
+            ls = sub[c0:c0 + 64]
         if form == "v4":
             used = ms > 0
             n = used.sum(1, keepdim=True).clamp(min=1)
@@ -238,6 +282,8 @@ def _term_sums(x, y, m_post, form, tables=None):
         d2 = dx * dx + dy * dy
         inv3 = torch.where(d2 > 0, d2.clamp(min=1e-300) ** -1.5, 0.0)
         w = ms[:, None, :] * inv3 * (G * ms)[:, :, None]
+        if sub is not None:
+            w = w * (ls[:, None, :] == ls[:, :, None])
         if form == "v4":
             bx = (w * (xs.abs()[:, :, None] + xs.abs()[:, None, :])).sum(2)
             by = (w * (ys.abs()[:, :, None] + ys.abs()[:, None, :])).sum(2)
@@ -279,9 +325,16 @@ def _bound(nbytes, ops, rsqrt):
             rsqrt / PEAK_SFU * 1e3)
 
 
-def _pairs(mask):
-    """(ordered pairs, unordered pairs) of set slots, summed over rows."""
-    n = mask.sum(1).double()
+def _pairs(mask, sub=None):
+    """(ordered pairs, unordered pairs) of set slots, summed over rows; only
+    the pairs of equal labels, given ``sub`` (labels >= 0 on set slots)."""
+    if sub is None:
+        n = mask.sum(1).double()
+    else:
+        nlab = int(sub.max()) + 2
+        row = torch.arange(sub.shape[0], device=sub.device)[:, None]
+        key = (row * nlab + sub + 1)[mask]
+        n = torch.bincount(key).double()
     return float((n * (n - 1)).sum()), float((n * (n - 1) / 2).sum())
 
 
@@ -329,21 +382,24 @@ def check_fused(ncells, kcap, fill, form, collide, gated=True):
                         form, collide, gated)
 
 
-def fused_record(where, tiles, form, collide, gated=True, planted=True):
+def fused_record(where, tiles, form, collide, gated=True, planted=True,
+                 sub=None):
     """Fused pair kernel vs plain version on (x, y, mf, alive, pid) tiles on
-    the card; the measured numbers. The ungated (v1) kernel must also equal
-    the gated one bit for bit."""
+    the card (labelled by ``sub``, where given); the measured numbers. The
+    ungated (v1) kernel must also equal the gated one bit for bit."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
     x, y, m, alive, pid = tiles
     kcap = x.shape[1]
     args = (x, y, m, alive, pid, kcap, EPSILON, collide, form)
-    got = cell_pairs.fused_pairs(*args, gated=gated)
-    ref = cell_pairs.fused_pairs_ref(*args)
+    kw = {} if sub is None else {"sub": sub}
+    got = cell_pairs.fused_pairs(*args, gated=gated, **kw)
+    ref = cell_pairs.fused_pairs_ref(*args, **kw)
     torch.cuda.synchronize()
-    tag = (f"fused_pairs{'' if gated else '_v1'} {form} collide={collide} "
-           f"{where}")
+    name = "fused_pairs_sub" if sub is not None else (
+        "fused_pairs" if gated else "fused_pairs_v1")
+    tag = f"{name} {form} collide={collide} {where}"
     if collide:
         _check_collisions((got[2], got[3]), (ref[2], ref[3]), tag, planted)
     elif not torch.equal(got[3], ref[3]) or int(got[2]) != 0:
@@ -354,19 +410,25 @@ def fused_record(where, tiles, form, collide, gated=True, planted=True):
             raise AssertionError(f"{tag}: not bitwise equal to the gated "
                                  f"kernel")
     m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
-    max_err = _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form),
-                         kcap, tag)
+    max_err = _force_err(got[:2], ref[:2],
+                         _term_sums(x, y, m_post, form, sub=sub), kcap, tag)
     # mf read and fx, fy, ft written for every slot, alive and pid too with
-    # collide on; x and y read for the alive or used ones.
-    p_force, _ = _pairs(m_post > 0)
+    # collide on, and the label; x and y read for the alive or used ones.
+    p_force, _ = _pairs(m_post > 0, sub)
     n_xy = float((((alive > 0) & collide) | (m > 0)).sum())
     bound_ms, bound_by, sfu_ms = _bound(
-        (24 if collide else 16) * x.numel() + 8 * n_xy + 4,
-        (15 if form == "v4" else 14) * p_force, p_force)
+        ((24 if collide else 16) + (0 if sub is None else 4)) * x.numel()
+        + 8 * n_xy + 4, (15 if form == "v4" else 14) * p_force, p_force)
     rec = {"max_abs_err": max_err,
-           **_kernel_times(lambda: cell_pairs.fused_pairs(*args, gated=gated),
-                           lambda: cell_pairs.fused_pairs_ref(*args)),
+           **_kernel_times(
+               lambda: cell_pairs.fused_pairs(*args, gated=gated, **kw),
+               lambda: cell_pairs.fused_pairs_ref(*args, **kw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
+    if sub is not None:
+        rec["pairs"] = (_pairs(m_post > 0)[0], p_force)
+        print(f"{tag}: the kernel tests {rec['pairs'][0]:.0f} ordered used "
+              f"pairs (n² a row), the function needs {p_force:.0f} (Σc² a "
+              f"cell)", flush=True)
     _report(f"{tag}: ft, count={int(got[2])} exact", rec)
     return rec
 
@@ -795,15 +857,15 @@ def check_medium():
     return eng, state, ms
 
 
-def check_cli_fast():
-    """(f) The CLI's fast route in-process (golden s1 through the census:
-    resident), with the launch counts set to 0 just before it: the fused
-    kernel must have launched. Returns the launch counts."""
+def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs"):
+    """(f, k) The CLI's fast route in-process (golden s1 through the census:
+    resident; SMALL: supercell), with the launch counts set to 0 just before
+    it: ``kernel`` must have launched. Returns the launch counts."""
     from particlesimulation_tpu_torch import cli
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
-    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
-    args = [str(seed), str(int(side)), str(nc), str(n), str(steps),
+    seed, side, nc, n, steps, ex, ey, ec = vec
+    args = [str(seed), f"{side:g}", str(nc), str(n), str(steps),
             "--engine", "fast"]
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
@@ -819,7 +881,7 @@ def check_cli_fast():
     x, y = (float(v) for v in lines[0].split())
     if not (rc == 0 and len(lines) == 2 and int(lines[1]) == ec
             and abs(x - ex) <= GOLDEN_TOL and abs(y - ey) <= GOLDEN_TOL
-            and launches["fused_pairs"] > 0):
+            and launches[kernel] > 0):
         raise AssertionError("CLI fast")
     return launches
 
@@ -851,6 +913,222 @@ def time_sweeps(card, medium):
         out[label] = {"ms": ms, **device_breakdown(label, eng, state, ms,
                                                    steps)}
     return out
+
+
+def check_adversarial_labelled(kcap):
+    """(h) The labelled fused kernel on the adversarial tiles: random labels
+    and -1s (ft and count exact, forces within the tolerance); every label
+    distinct (no pair shares a cell: count 0, every ft INF, forces 0, where
+    the unlabelled kernel counts collisions); every label 0 (the unlabelled
+    kernel's bits)."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        adversarial_tiles)
+
+    x, y, m, alive, pid = (torch.from_numpy(a).cuda()
+                           for a in adversarial_tiles(kcap, kcap))
+    rng = np.random.default_rng(kcap + 1)
+    sub = torch.from_numpy(rng.integers(-1, 4, x.shape).astype(
+        np.int32)).cuda()
+    apart = torch.arange(kcap, dtype=torch.int32,
+                         device="cuda").expand(x.shape).contiguous()
+    tag = f"labelled adversarial K={kcap}"
+    counts = []
+    for form in ("v4", "v2"):
+        args = (x, y, m, alive, pid, kcap, EPSILON, True, form)
+        got = cell_pairs.fused_pairs(*args, sub=sub)
+        ref = cell_pairs.fused_pairs_ref(*args, sub=sub)
+        _check_collisions((got[2], got[3]), (ref[2], ref[3]),
+                          f"{tag} {form}", planted=False)
+        m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
+        _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form, sub=sub),
+                   kcap, f"{tag} {form}")
+        plain = cell_pairs.fused_pairs(*args)
+        alone = cell_pairs.fused_pairs(*args, sub=apart)
+        if (int(alone[2]) != 0 or not bool((alone[3] == cell_pairs.INF).all())
+                or bool(alone[0].abs().max() > 0) or int(plain[2]) == 0):
+            raise AssertionError(f"{tag} {form}: distinct labels collided "
+                                 f"or pulled")
+        zero = cell_pairs.fused_pairs(*args, sub=torch.zeros_like(sub))
+        if not all(torch.equal(a, b) for a, b in zip(zero, plain)):
+            raise AssertionError(f"{tag} {form}: all labels 0 differ from "
+                                 f"the unlabelled kernel")
+        counts.append((int(got[2]), int(plain[2])))
+    torch.cuda.synchronize()
+    print(f"{tag}: v4, v2 ft and count exact (count {counts[0][0]} labelled, "
+          f"{counts[0][1]} unlabelled); distinct labels: count 0, every ft "
+          f"INF, no force; all labels 0 = the unlabelled kernel bit for bit",
+          flush=True)
+
+
+def v4_centre_error(tiles, sub):
+    """(h) The labelled kernel's v2 and v4 forces (collide off) on a path's
+    tiles against an f64 truth over the pairs of equal labels: the median
+    and largest relative error over slots with a force, as
+    tests/test_dense_kernels.py::test_v4_quantization_study measures it.
+    The v4 centre is the mean of the row's used slots, S cells wide."""
+    from particlesimulation_tpu_torch.config import EPSILON, G
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    x, y, m, alive, pid = tiles
+    kcap = x.shape[1]
+    got = {form: cell_pairs.fused_pairs(x, y, m, alive, pid, kcap, EPSILON,
+                                        collide=False, force_form=form,
+                                        sub=sub)[0].double()
+           for form in ("v2", "v4")}
+    truth = []
+    for c0 in range(0, x.shape[0], 256):
+        xs, ys, ms = (a[c0:c0 + 256].double() for a in (x, y, m))
+        ls = sub[c0:c0 + 256]
+        dx = xs[:, None, :] - xs[:, :, None]
+        dy = ys[:, None, :] - ys[:, :, None]
+        d2 = dx * dx + dy * dy
+        pair = (d2 > 0) & (ls[:, None, :] == ls[:, :, None])
+        inv3 = torch.where(pair, d2.clamp(min=1e-300) ** -1.5, 0.0)
+        truth.append((G * ms[:, :, None] * ms[:, None, :] * inv3 * dx).sum(2))
+    truth = torch.cat(truth)
+    has = truth != 0
+    out = {}
+    for form, f in got.items():
+        rel = ((f - truth).abs() / truth.abs())[has]
+        out[form] = (float(rel.median()), float(rel.max()))
+    d = ((got["v4"] - got["v2"]).abs() / got["v2"].abs())[has]
+    print(f"v4 row-wide centre on SMALL's tiles ({int(has.sum())} slots with "
+          f"a pair force): relative error against f64, median / max: v2 "
+          f"{out['v2'][0]:.3e} / {out['v2'][1]:.3e}, v4 {out['v4'][0]:.3e} / "
+          f"{out['v4'][1]:.3e}; |v4 - v2|/|v2| median {float(d.median()):.3e}"
+          f", max {float(d.max()):.3e}", flush=True)
+    return out
+
+
+def check_cell_sums(tiles, sub, cfg):
+    """(i) The cell sums kernel on a path's tiles (its binned slots are those
+    with a label): within rtol 1e-6 of the plain version on the card, bit
+    for bit equal to the plain version on the CPU (slot order) and to a
+    second run of itself; timed, with its bound."""
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+
+    x, y, m, _, _ = tiles
+    cx, cy, _ = res.cell_of(x, y, cfg.side, cfg.ncside)
+    cell = torch.where(sub >= 0, cy * cfg.ncside + cx, -1).to(torch.int32)
+    args = (m, m * x, m * y, cell, cfg.ncells)
+    got = cell_pairs.supercell_cell_sums(*args)
+    again = cell_pairs.supercell_cell_sums(*args)
+    ref = cell_pairs.supercell_cell_sums_ref(*args)
+    cpu = cell_pairs.supercell_cell_sums_ref(*(a.cpu() for a in args[:4]),
+                                             cfg.ncells)
+    torch.cuda.synchronize()
+    tag = f"supercell_cell_sums SMALL tiles {tuple(x.shape)}"
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two runs differ")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu)):
+        raise AssertionError(f"{tag}: differs from the plain version on "
+                             f"the CPU")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    if not all(bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+               for a, b in zip(got, ref)):
+        raise AssertionError(f"{tag}: off by {err}")
+    bound_ms, bound_by, _ = _bound(16 * x.numel() + 12 * cfg.ncells, 0, 0)
+    rec = {"max_abs_err": err,
+           **_kernel_times(lambda: cell_pairs.supercell_cell_sums(*args),
+                           lambda: cell_pairs.supercell_cell_sums_ref(*args)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": 0.0,
+           **_cell_sums_library(args, ref)}
+    _report(f"{tag}: {int((got[0] > 0).sum())} cells with mass; = itself "
+            f"and the CPU plain version bit for bit, rtol 1e-6 of the card's",
+            rec)
+    print(f"{tag}: library call (one index_add_ of the stacked sources) "
+          f"{rec['library_ms']:.4f} ms a call ({rec['library_device_ms']:.4f}"
+          f" device), deterministic {rec['library_det_ms']:.4f} ms "
+          f"({rec['library_det_device_ms']:.4f} device)", flush=True)
+    return rec
+
+
+def _cell_sums_library(args, ref):
+    """The library call that computes the cell sums: one ``index_add_`` of
+    the stacked (3, slots) sources into a (3, ncells + 1) output, unbinned
+    slots into the extra column. Held to the plain version (rtol 1e-6) and
+    timed as it runs by default (atomics, any order) and under
+    ``torch.use_deterministic_algorithms`` (the same bits in every run, as
+    the kernel gives). The port never calls it."""
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+
+    mf, mfx, mfy, cell, ncells = args
+    src = torch.stack((mf, mfx, mfy)).reshape(3, -1)
+    idx = cell.reshape(-1).to(torch.int64)
+    idx = torch.where(idx >= 0, idx, ncells)
+
+    def library():
+        out = torch.zeros((3, ncells + 1), dtype=torch.float32,
+                          device=mf.device)
+        return out.index_add_(1, idx, src)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    rec = {}
+    try:
+        for key, det in (("library", False), ("library_det", True)):
+            torch.use_deterministic_algorithms(det)
+            got = library()[:, :ncells]
+            if not all(bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+                       for a, b in zip(got, ref)):
+                raise AssertionError(f"cell sums' {key} call disagrees with "
+                                     f"the plain version")
+            rec[f"{key}_ms"] = _timed(library, 20)
+            rec[f"{key}_device_ms"] = device_ms(library, 20)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return rec
+
+
+def check_small(card):
+    """(h)-(l) SMALL through the census on the supercell engine. Returns
+    the records of the labelled kernel (v4, collide on) and the cell sums
+    kernel, and the launch counts of the path's run and of the CLI's."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.supercell import make_supercell_run
+
+    t0 = time.perf_counter()
+    seed, side, nc, n, steps = SMALL
+    cfg = SimConfig(seed, side, nc, n)
+    for kcap in (32, 160, 288, 1024):
+        check_adversarial_labelled(kcap)
+    eng = Engine(cfg, device="cuda")
+    state = eng.init_state()
+    out, launches = check_golden(
+        "SMALL supercell", eng, state, steps, SMALL_10,
+        ["fused_pairs_sub", "supercell_cell_sums"])
+    if eng.impl != "supercell" or eng._supercell_factor() != SMALL_S:
+        raise AssertionError(f"SMALL: {eng.impl}, S {eng._supercell_factor()}")
+    print(f"SMALL: the census's route {eng.impl}, S {eng._supercell_factor()} "
+          f"({eng._sc_rows()} rows), kcap {eng.kcap}", flush=True)
+    sweep = Engine(cfg, impl="sweep", device="cuda")
+    ref = sweep.run(sweep.init_state(), steps)
+    compare_runs("SMALL 10 steps, supercell vs the f32 sweep on cuda",
+                 (int(out.collisions), out, side),
+                 (int(ref.collisions), ref, side), 1e-3 / side, None)
+    _, pair_tiles, run = make_supercell_run(cfg, eng.kcap, eng._supercell_factor())
+    check_no_sync("supercell", run, state)
+    *tiles, sub = pair_tiles(state, steps)
+    recs = {kind: fused_record("SMALL tiles", tiles, *kind, planted=False,
+                               sub=sub)
+            for kind in (("v4", True), ("v4", False), ("v2", True))}
+    v4_centre_error(tiles, sub)
+    sums = check_cell_sums(tiles, sub, cfg)
+    check_gpu_vs_cpu(7, 5.0, 25, 400, 20, impl="supercell")
+    cli_launches = check_cli_fast(SMALL + SMALL_10, "fused_pairs_sub")
+    ms, t1, t21 = step_ms(eng, state, 20)
+    print(f"SMALL supercell {n} particles, kcap {eng.kcap}: {ms:.4f} "
+          f"ms/step, {n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} "
+          f"s, run(21) {t21:.4f} s) on {card}", flush=True)
+    times = device_breakdown("SMALL supercell", eng, state, ms)
+    if times["syncs"] != 0:
+        raise AssertionError(f"SMALL: {times['syncs']} syncs a step")
+    print(f"supercell phases: {time.perf_counter() - t0:.1f} s; per step "
+          f"{json.dumps({'ms': ms, **times})}", flush=True)
+    return recs[("v4", True)], sums, launches, cli_launches
 
 
 def main():
@@ -993,16 +1271,21 @@ def main():
     print(f"sweep and CLI phases: {time.perf_counter() - t_sweep:.1f} s; "
           f"per step {json.dumps(sweep_times)}", flush=True)
 
+    # 9. The supercell engine at SMALL.
+    sub_rec, sums_rec, small_launches, small_cli = check_small(card)
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec.get("library_ms")}
 
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
-          f"CLI fast {cli_launches}", flush=True)
+          f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
+          f"fast SMALL {small_cli}", flush=True)
     print(json.dumps({"kernels": [
         entry("fused_pairs", res_launches["fused_pairs"],
               on_path[("v4", True)]),
@@ -1012,6 +1295,9 @@ def main():
               forces[10_000]),
         entry("dense_collisions", dense_launches["dense_collisions"],
               colls[(10_000, False)]),
+        entry("fused_pairs_sub", small_launches["fused_pairs_sub"], sub_rec),
+        entry("supercell_cell_sums", small_launches["supercell_cell_sums"],
+              sums_rec),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,7 +4,7 @@ Usage mirrors the reference binary (reference serial/parsim.cpp:461-469):
 
     python -m particlesimulation_tpu_torch <seed> <side_length> <grid_size> \
         <n_particles> <n_timesteps> [--engine parity|fast] \
-        [--impl resident|dense|tiered|sweep] [--device cuda|cpu]
+        [--impl resident|supercell|dense|tiered|sweep] [--device cuda|cpu]
 
 stdout: two lines — particle 0's position at three decimals, then the
 cumulative collision count (serial/parsim.cpp:450-453). Wall time goes to
@@ -23,7 +23,7 @@ import time
 
 USAGE = ("Usage: python -m particlesimulation_tpu_torch <seed> <side_length> "
          "<grid_size> <n_particles> <n_timesteps> [--engine parity|fast] "
-         "[--impl resident|dense|tiered|sweep] [--device cuda|cpu] "
+         "[--impl resident|supercell|dense|tiered|sweep] [--device cuda|cpu] "
          "(default: parity on cuda; fast precision census-routes without "
          "--impl)")
 _FLAGS = ("--engine", "--impl", "--device", "--mesh")

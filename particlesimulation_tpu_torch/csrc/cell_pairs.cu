@@ -1,17 +1,25 @@
-// Per-cell pair kernels on (ncells, K) slot tiles, for Hopper (sm_90a).
+// Per-cell kernels on (ncells, K) slot tiles, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of particlesimulation_tpu/ops/pallas/cell_pairs.py:
-//   fused_pairs_kernel<kV4, kCollide, kGate = true, kRows>: _fused_kernel_v2,
-//     with both of its force forms ("v2" and "v4") and collide on and off.
-//     Its _fused_kernel_v2_kt variant computes the same function in another
-//     block layout, so this kernel covers it too;
-//   fused_pairs_kernel<false, true, kGate = false, kRows>: _fused_kernel
-//     (v1), v2's function with no hit gating: the collision machinery runs
-//     in every cell;
+//   fused_pairs_kernel<kV4, kCollide, kGate = true, kRows, false>:
+//     _fused_kernel_v2, with both of its force forms ("v2" and "v4") and
+//     collide on and off. Its _fused_kernel_v2_kt variant computes the same
+//     function in another block layout, so this kernel covers it too;
+//   fused_pairs_kernel<false, true, kGate = false, kRows, false>:
+//     _fused_kernel (v1), v2's function with no hit gating: the collision
+//     machinery runs in every cell;
 //   dense_forces_kernel: _force_kernel, the dense engine's force pass (all
 //     same-cell pairs plus 8 monopole terms from the cell's stencil row);
 //   dense_collisions_kernel: _collision_kernel, the dense engine's collision
 //     pass (no force).
+// and two XLA programs of the JAX package's supercell engine, which has no
+// Pallas kernel:
+//   fused_pairs_kernel<kV4, kCollide, true, kRows, kSub = true>: the `sub`
+//     argument of ops/dense_xla.py fused_pairs_v2 / fused_pairs_v4, a
+//     same-cell label per slot (pairs of unequal labels neither interact nor
+//     collide);
+//   cell_sums_kernel: the per-cell mass and moment sums of
+//     ops/supercell.py (one-hot contractions on the TPU's matrix unit).
 //
 // What bounds them on an H100: each cell does pair arithmetic over its used
 // slots (the force loop: one rsqrt and ~12 f32 instructions per ordered
@@ -185,6 +193,7 @@ struct AliveSlots {
   int* bend;   // per bucket: 0 on entry, its end in order on return
   int* rank;   // pid rank among alive slots (ranked cells only)
   int* inv;    // pid on entry, then rank -> compacted index (ranked only)
+  int* lab;    // same-cell label (labelled kernels only)
   int n;       // alive slots
   int nb;      // buckets
   float xmin, rh;  // bucket of x: (x - xmin) * rh, rounded down
@@ -236,33 +245,37 @@ __device__ void bucket_by_x(AliveSlots& c, float eps2, float* fscratch,
 }
 
 // Calls hit(a, b) (compacted indices, a < b) for every pair of alive slots
-// within eps (d^2 < eps2, d^2 computed as the plain version computes it).
+// within eps (d^2 < eps2, d^2 computed as the plain version computes it),
+// and with kSub of equal labels.
 // Each thread takes slots in bucket order and checks the slots after it in
 // its own bucket and in the next one. A pair with d^2 < eps2 is less than eps
 // apart in x (fl(dx^2) <= d^2, and rounding is monotone), so it lies in one
 // bucket or in neighbouring ones and is checked once. Buckets hold about one
 // slot each where the row is spread over its cell (50 wide, eps = 0.005, at
 // the flagship), so the sweep costs O(n), not O(n^2).
-template <typename Hit>
+template <bool kSub, typename Hit>
 __device__ __forceinline__ void sweep_near(const AliveSlots& c, float eps2,
                                            Hit hit) {
   for (int p = threadIdx.x; p < c.n; p += blockDim.x) {
     const int a = c.order[p];
     const float2 pa = c.xy[a];
+    const int la = kSub ? c.lab[a] : 0;
     const int end = c.bend[min(c.bucket(pa.x) + 1, c.nb - 1)];
     for (int q = p + 1; q < end; ++q) {
       const int b = c.order[q];
       const float2 pb = c.xy[b];
-      if (dist2(pa.x, pa.y, pb.x, pb.y) < eps2) hit(min(a, b), max(a, b));
+      if (dist2(pa.x, pa.y, pb.x, pb.y) < eps2 && (!kSub || c.lab[b] == la))
+        hit(min(a, b), max(a, b));
     }
   }
 }
 
-// Whether any two alive slots lie within eps (the same answer in every
-// thread of the block). The slots are in bucket order.
+// Whether any two alive slots (of one label, with kSub) lie within eps (the
+// same answer in every thread of the block). The slots are in bucket order.
+template <bool kSub>
 __device__ bool cell_has_hit(const AliveSlots& c, float eps2) {
   int found = 0;
-  sweep_near(c, eps2, [&](int, int) { found = 1; });
+  sweep_near<kSub>(c, eps2, [&](int, int) { found = 1; });
   return __syncthreads_or(found) != 0;
 }
 
@@ -270,7 +283,9 @@ __device__ bool cell_has_hit(const AliveSlots& c, float eps2) {
 // slot's min first-pair rank into c.ft, and the count of pairs first for
 // both ends (returned to every thread). With `ranked`, the pid ranks go to
 // c.rank and c.inv becomes the inverse; without it, the rank is the
-// compacted index (slot order stands for pid order).
+// compacted index (slot order stands for pid order). With kSub only pairs
+// of equal labels hit; the ranks stay the row's.
+template <bool kSub>
 __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
                                float eps2, int* iscratch) {
   const int tid = threadIdx.x;
@@ -287,7 +302,7 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
   }
   const int kb = kcap + 1;
   int found = 0;
-  sweep_near(c, eps2, [&](int a, int b) {
+  sweep_near<kSub>(c, eps2, [&](int a, int b) {
     const int ra = ranked ? c.rank[a] : a;
     const int rb = ranked ? c.rank[b] : b;
     const int rank = min(ra, rb) * kb + max(ra, rb);
@@ -311,15 +326,17 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
 
 // The pair sums of the used slots q0 .. q0 + kRows - 1 (receivers past n
 // take a copy of the last one) of a row compacted into sp as float4
-// (x, y, m, 0), over its n used partners in compacted order; n >= 1.
-// Per pair: w = m_j / |d|^3 (0 where d^2 == 0), d^2 with one FMA and
-// 1/|d| on the rsqrt unit alone, then
+// (x, y, m, 0), or with kSub (x, y, m, label bits), over its n used
+// partners in compacted order; n >= 1.
+// Per pair: w = m_j / |d|^3 (0 where d^2 == 0, and with kSub where the
+// labels differ), d^2 with one FMA and 1/|d| on the rsqrt unit alone, then
 //   v2 (kV4 = false): ax += w dx, ay += w dy            (12 instructions);
 //   v4 (kV4 = true):  ax += w x_j, ay += w y_j, aw += w  (13).
-// One partner load feeds kRows receivers held in registers. The caller
-// multiplies the sums by gmi = G m_i once. A receiver's sum runs over the
-// same partners in the same order for any kRows and block size.
-template <int kRows, bool kV4>
+// A masked pair adds fmaf(0, v, a) == a: exactly nothing. One partner load
+// feeds kRows receivers held in registers. The caller multiplies the sums
+// by gmi = G m_i once. A receiver's sum runs over the same partners in the
+// same order for any kRows and block size.
+template <int kRows, bool kV4, bool kSub = false>
 __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
                                           float g, float (&xi)[kRows],
                                           float (&yi)[kRows],
@@ -327,11 +344,13 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
                                           float (&ax)[kRows],
                                           float (&ay)[kRows],
                                           float (&aw)[kRows]) {
+  int li[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float4 p = sp[min(q0 + r, n - 1)];  // a copy past the row's end
     xi[r] = p.x;
     yi[r] = p.y;
+    li[r] = __float_as_int(p.w);
     gmi[r] = g * p.z;
     ax[r] = 0.0f;
     ay[r] = 0.0f;
@@ -346,7 +365,8 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
       const float dy = pj.y - yi[r];
       const float d2 = fmaf(dx, dx, dy * dy);
       const float inv = d2 > 0.0f ? rsqrt_ftz(d2) : 0.0f;
-      const float w = pj.z * (inv * inv * inv);
+      float w = pj.z * (inv * inv * inv);
+      if (kSub && __float_as_int(pj.w) != li[r]) w = 0.0f;
       if (kV4) {
         ax[r] = fmaf(w, pj.x, ax[r]);
         ay[r] = fmaf(w, pj.y, ay[r]);
@@ -379,13 +399,26 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
 // collision arrays (8K), which the used slots' float4 and slot indices
 // (5K) reuse once ft is written. -Xptxas -v on sm_90a: 31-40 registers, at
 // most 256 bytes of static shared memory, no spills.
-template <bool kV4, bool kCollide, bool kGate, int kRows>
+//
+// The labelled form (kSub, the supercell engine's rows of S x S cells):
+// `sub` holds each slot's cell within the row, -1 for an unbinned slot. The
+// alive slots' labels take a twelfth (K,) array (48 KB at K = 1024, which
+// with the static scratch is over 48 KB: the launch opts in), and the hit
+// test of sweep_near passes only pairs of equal labels, so the gate and the
+// count see only same-cell pairs; ranks stay the row's pid ranks. The
+// partners carry their label's bits in the float4's fourth word, and a
+// mismatched pair gets w = 0 (pair_sums). The v4 centre stays the mean of
+// the whole row's used slots, as in the XLA form. The force loop still
+// visits all n^2 used pairs of the row, where the function needs only the
+// sum of c^2 over its cells: a receiver looping over its own cell alone
+// needs the slots sorted by label first.
+template <bool kV4, bool kCollide, bool kGate, int kRows, bool kSub>
 __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ mf, const int* __restrict__ alive,
-    const int* __restrict__ pid, float* __restrict__ fx,
-    float* __restrict__ fy, int* __restrict__ ft, int* __restrict__ total,
-    int kcap, float eps2, float g) {
+    const int* __restrict__ pid, const int* __restrict__ sub,
+    float* __restrict__ fx, float* __restrict__ fy, int* __restrict__ ft,
+    int* __restrict__ total, int kcap, float eps2, float g) {
   extern __shared__ __align__(16) float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   AliveSlots c;
@@ -401,6 +434,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
   float* sx = smem + 8 * kcap;
   float* sy = sx + kcap;
   float* sm = sy + kcap;  // mf, then m_post
+  c.lab = reinterpret_cast<int*>(sm + kcap);  // labelled form only
   __shared__ float fscratch[32];
   __shared__ int iscratch[32];
 
@@ -431,12 +465,13 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
           c.slot[a] = i;
           c.inv[a] = v.pid;
           c.ft[a] = kInf;
+          if (kSub) c.lab[a] = sub[base + i];
         },
         iscratch);
     bucket_by_x(c, eps2, fscratch, iscratch);
     int count = 0;
-    if (!kGate || cell_has_hit(c, eps2))
-      count = cell_collisions(c, true, kcap, eps2, iscratch);
+    if (!kGate || cell_has_hit<kSub>(c, eps2))
+      count = cell_collisions<kSub>(c, true, kcap, eps2, iscratch);
     if (tid == 0 && count > 0) atomicAdd(total, count);
     for (int a = tid; a < c.n; a += nt) {
       const int i = c.slot[a];
@@ -455,13 +490,14 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
         if (i < kcap) {
           const float mi = kCollide ? sm[i] : mf[base + i];
           v = {mi > 0.0f, kCollide ? sx[i] : x[base + i],
-               kCollide ? sy[i] : y[base + i], mi, 0};
+               kCollide ? sy[i] : y[base + i], mi, kSub ? sub[base + i] : 0};
         }
         return v;
       },
       [&](int i, int q, const Slot& v) {
         if (q >= 0) {
-          sp[q] = make_float4(v.x, v.y, v.m, 0.0f);
+          sp[q] = make_float4(v.x, v.y, v.m,
+                              kSub ? __int_as_float(v.pid) : 0.0f);
           sslot[q] = i;
         } else {
           fx[base + i] = 0.0f;
@@ -495,7 +531,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
 
   for (int q0 = tid * kRows; q0 < n; q0 += nt * kRows) {
     float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows], aw[kRows];
-    pair_sums<kRows, kV4>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
+    pair_sums<kRows, kV4, kSub>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (q0 + r >= n) break;
@@ -663,40 +699,96 @@ __global__ void __launch_bounds__(kMaxCollThreads) dense_collisions_kernel(
 
   bucket_by_x(c, eps2, fscratch, iscratch);
   int count = 0;
-  if (!ranked || cell_has_hit(c, eps2))
-    count = cell_collisions(c, ranked, kcap, eps2, iscratch);
+  if (!ranked || cell_has_hit<false>(c, eps2))
+    count = cell_collisions<false>(c, ranked, kcap, eps2, iscratch);
   if (threadIdx.x == 0 && count > 0) atomicAdd(total, count);
   for (int a = threadIdx.x; a < c.n; a += blockDim.x)
     ft[base + c.slot[a]] = c.ft[a];
 }
 
+// The supercell engine's per-cell sums (the one-hot contractions
+// einsum("rk,rks->rs") of ops/supercell.py): M, sum m x and sum m y of every
+// true cell, from the (rows, K) tiles of mf, mf x and mf y and each slot's
+// true cell (-1 for a slot that is not binned; an index outside [0, ncells)
+// counts in no cell). Each true cell's slots lie
+// in one row, so one block per row writes its cells' sums with no atomics;
+// each cell's leader (its first slot in the row) adds the cell's slots in
+// slot order, so the result is the same bits in every run (and equals a
+// sequential index_add in slot order). The caller zeroes the outputs.
+//
+// Bound: the bytes, 16 a slot read and 12 a true cell written; the adds
+// are few. Leader test and sum scan the staged labels, O(K) a leader.
+__global__ void __launch_bounds__(kMaxThreads) cell_sums_kernel(
+    const float* __restrict__ mf, const float* __restrict__ mfx,
+    const float* __restrict__ mfy, const int* __restrict__ cell,
+    float* __restrict__ M, float* __restrict__ SX, float* __restrict__ SY,
+    int kcap, int ncells) {
+  extern __shared__ int scell[];
+  const int64_t base = (int64_t)blockIdx.x * kcap;
+  for (int i = threadIdx.x; i < kcap; i += blockDim.x)
+    scell[i] = cell[base + i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kcap; i += blockDim.x) {
+    const int c = scell[i];
+    if (c < 0 || c >= ncells) continue;
+    bool lead = true;
+    for (int j = 0; j < i && lead; ++j) lead = scell[j] != c;
+    if (!lead) continue;
+    float m = 0.0f, sx = 0.0f, sy = 0.0f;
+    for (int j = i; j < kcap; ++j) {
+      if (scell[j] != c) continue;
+      m += mf[base + j];
+      sx += mfx[base + j];
+      sy += mfy[base + j];
+    }
+    M[c] = m;
+    SX[c] = sx;
+    SY[c] = sy;
+  }
+}
+
 struct FusedArgs {
   const float *x, *y, *mf;
-  const int *alive, *pid;
+  const int *alive, *pid, *sub;
   float *fx, *fy;
   int *ft, *total;
   int ncells, kcap;
   float eps2, g;
 };
 
-template <bool kV4, bool kCollide, bool kGate, int kRows>
-void launch_fused(const FusedArgs& a, int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)11 * a.kcap * sizeof(float);
-  fused_pairs_kernel<kV4, kCollide, kGate, kRows>
-      <<<a.ncells, threads, smem, stream>>>(a.x, a.y, a.mf, a.alive, a.pid,
-                                             a.fx, a.fy, a.ft, a.total,
-                                             a.kcap, a.eps2, a.g);
+template <bool kV4, bool kCollide, bool kGate, int kRows, bool kSub>
+cudaError_t launch_fused(const FusedArgs& a, int threads, cudaStream_t stream) {
+  const size_t smem = (size_t)(kSub ? 12 : 11) * a.kcap * sizeof(float);
+  auto kernel = fused_pairs_kernel<kV4, kCollide, kGate, kRows, kSub>;
+  if constexpr (kSub) {
+    // Over 48 KB at K = 1024 with the static scratch: opt in, once for each
+    // instantiation and size larger than any before.
+    static size_t opted = 0;
+    if (smem > opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      opted = smem;
+    }
+  }
+  kernel<<<a.ncells, threads, smem, stream>>>(a.x, a.y, a.mf, a.alive, a.pid,
+                                              a.sub, a.fx, a.fy, a.ft,
+                                              a.total, a.kcap, a.eps2, a.g);
+  return cudaGetLastError();
 }
 
 template <bool kV4, int kRows>
-void dispatch_fused(const FusedArgs& a, int collide, int gate, int threads,
-                    cudaStream_t s) {
+cudaError_t dispatch_fused(const FusedArgs& a, int collide, int gate,
+                           int threads, cudaStream_t s) {
+  if (a.sub != nullptr && collide)  // labelled: hit-gated only
+    return launch_fused<kV4, true, true, kRows, true>(a, threads, s);
+  if (a.sub != nullptr)
+    return launch_fused<kV4, false, true, kRows, true>(a, threads, s);
   if (!collide)
-    launch_fused<kV4, false, true, kRows>(a, threads, s);
-  else if (gate)
-    launch_fused<kV4, true, true, kRows>(a, threads, s);
-  else
-    launch_fused<kV4, true, false, kRows>(a, threads, s);
+    return launch_fused<kV4, false, true, kRows, false>(a, threads, s);
+  if (gate)
+    return launch_fused<kV4, true, true, kRows, false>(a, threads, s);
+  return launch_fused<kV4, true, false, kRows, false>(a, threads, s);
 }
 
 bool whole_warps(int threads, int most) {
@@ -711,28 +803,28 @@ bool whole_warps(int threads, int most) {
 // shape it does not take).
 //
 // total: one int, the count summed over the cells (0 with collide off);
-// rows: receivers per thread (1 or 2); threads per block.
+// sub: the same-cell labels, or null for the unlabelled kernels (the
+// labelled form is hit-gated only); rows: receivers per thread (1 or 2);
+// threads per block.
 extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
-                                const int* alive, const int* pid, float* fx,
-                                float* fy, int* ft, int* total, int ncells,
-                                int kcap, float eps2, float g, int collide,
-                                int v4, int gate, int rows, int threads,
-                                void* stream) {
-  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2))
+                                const int* alive, const int* pid,
+                                const int* sub, float* fx, float* fy, int* ft,
+                                int* total, int ncells, int kcap, float eps2,
+                                float g, int collide, int v4, int gate,
+                                int rows, int threads, void* stream) {
+  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2) ||
+      (sub != nullptr && !gate))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(total, 0, sizeof(int), s);
-  const FusedArgs a = {x, y, mf, alive, pid, fx, fy, ft, total,
+  const FusedArgs a = {x, y, mf, alive, pid, sub, fx, fy, ft, total,
                        ncells, kcap, eps2, g};
   if (v4 && rows == 1)
-    dispatch_fused<true, 1>(a, collide, gate, threads, s);
-  else if (v4)
-    dispatch_fused<true, 2>(a, collide, gate, threads, s);
-  else if (rows == 1)
-    dispatch_fused<false, 1>(a, collide, gate, threads, s);
-  else
-    dispatch_fused<false, 2>(a, collide, gate, threads, s);
-  return (int)cudaGetLastError();
+    return (int)dispatch_fused<true, 1>(a, collide, gate, threads, s);
+  if (v4) return (int)dispatch_fused<true, 2>(a, collide, gate, threads, s);
+  if (rows == 1)
+    return (int)dispatch_fused<false, 1>(a, collide, gate, threads, s);
+  return (int)dispatch_fused<false, 2>(a, collide, gate, threads, s);
 }
 
 // rows, threads: as for psim_fused_pairs; chunks: blocks per cell.
@@ -769,5 +861,20 @@ extern "C" int psim_dense_collisions(const float* x, const float* y,
   const size_t smem = (size_t)kcap * (pid != nullptr ? 8 : 6) * sizeof(int);
   dense_collisions_kernel<<<ncells, threads, smem, s>>>(x, y, alive, pid, ft,
                                                          total, kcap, eps2);
+  return (int)cudaGetLastError();
+}
+
+// out: (3, ncells) floats, M, sum m x, sum m y; zeroed here, then each row's
+// cells written by one block of a warp per 32 slots (at most 256 threads).
+extern "C" int psim_cell_sums(const float* mf, const float* mfx,
+                              const float* mfy, const int* cell, float* out,
+                              int rows, int kcap, int ncells, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(out, 0, (size_t)3 * ncells * sizeof(float), s);
+  const int warps = (kcap + 31) / 32;
+  const int threads = warps < kMaxThreads / 32 ? warps * 32 : kMaxThreads;
+  cell_sums_kernel<<<rows, threads, (size_t)kcap * sizeof(int), s>>>(
+      mf, mfx, mfy, cell, out, out + ncells, out + 2 * (size_t)ncells, kcap,
+      ncells);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-"""Single-device simulation engines: slot-resident, dense, tiered and sweep.
+"""Single-device simulation engines: slot-resident, supercell, dense, tiered
+and sweep.
 
-Counterpart of the JAX package's ``engine.py``. Four implementations:
+Counterpart of the JAX package's ``engine.py``. Five implementations:
 
 * ``resident`` (``make_resident_run``) — the state lives in (ncells, K) slot
   tiles; one step is
@@ -10,6 +11,9 @@ Counterpart of the JAX package's ``engine.py``. Four implementations:
   2. integration with periodic wrap (``ops/integrate``);
   3. rebin: movers change rows (``ops/resident.rebin``);
   4. the fused collision(t) + pair-force(t+1) pass (``ops/cuda/cell_pairs``).
+* ``supercell`` (``ops/supercell.make_supercell_run``) — the resident step
+  on rows of S x S cells, for sparse grids, with a same-cell label in the
+  pair pass.
 * ``dense`` (``make_dense_step``) — particle arrays sorted by (cell, pid),
   scattered into (ncells, K) tiles each step for the force and collision
   kernels; the resident engine's escalation target.
@@ -30,8 +34,8 @@ serial/parsim.cpp:276-280). The sweep's loop trip counts are host integers,
 so it reads the cell occupancy back once a step.
 
 Where the JAX census would pick an engine the port does not have yet
-(supercell, banded), the port raises ``NotImplementedError`` naming that
-engine and never runs another one.
+(banded), the port raises ``NotImplementedError`` naming that engine and
+never runs another one.
 """
 
 from __future__ import annotations
@@ -46,19 +50,24 @@ from particlesimulation_tpu_torch.ops import (binning, collisions, com, dense,
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.banded import plan_bands
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.supercell import (choose_supercell_factor,
+                                                        make_supercell_run)
 from particlesimulation_tpu_torch.ops.tiered import make_tiered_step, plan_tiers
 from particlesimulation_tpu_torch.state import SimState, result_of
 
 # Largest tile capacity the tile kernels take; beyond it the ladder
-# escalates resident -> dense -> sweep.
+# escalates resident -> dense -> sweep, and supercell -> sweep. (The JAX
+# supercell engine runs on XLA kernels up to MAX_XLA_KCAP = 4096, so a
+# super-cell row of 1025-4096 particles stays on supercell there and runs
+# the sweep here.)
 MAX_DENSE_KCAP = cell_pairs.MAX_KCAP
 INF = cell_pairs.INF
 # Telemetry value of a collision-rank domain overflow (a cell of RANK_LIMIT
 # occupants or more), far above any tile-capacity retry value.
 RANK_OVF = 1 << 30
 
-IMPLS = ("resident", "dense", "tiered", "sweep")
-UNPORTED_IMPLS = ("supercell", "banded")
+IMPLS = ("resident", "supercell", "dense", "tiered", "sweep")
+UNPORTED_IMPLS = ("banded",)
 CLUSTERED_IMPLS = ("banded", "tiered")
 # Pair kernels of the resident engine (the JAX package's PSIM_PALLAS_PAIR):
 # v4 and v2 are the hit-gated kernel's two force forms, v1 the ungated
@@ -222,46 +231,8 @@ def make_resident_run(config: SimConfig, kcap: int,
         ts, undelivered = res.rebin(ts, side, nc, kcap)
         return ts, undelivered, limbo_count
 
-    def step(ts, fxd, fyd):
-        ts, undelivered, limbo_count = advance(ts, fxd, fyd)
-        fxd, fyd, count, died = pair_pass(ts, collide=True)
-        ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
-        ts = ts._replace(
-            m=torch.where(died, 0.0, ts.m),
-            collisions=ts.collisions + count,
-            panics=ts.panics + limbo_count,
-            overflow=torch.maximum(ts.overflow, ovf))
-        return ts, fxd, fyd
-
-    def epilogue(ts: res.TileState, n: int) -> SimState:
-        # Compact tiles back to N particle-major arrays (once per run).
-        occf = ts.occ.reshape(-1)
-        order = torch.argsort((~occf).to(torch.uint8), stable=True)[:n]
-        x, y, vx, vy, m, pid, occ = (a.reshape(-1)[order] for a in (
-            ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.pid, ts.occ))
-        key, _ = binning.cell_keys(x, y, side, nc)
-        key, pid, x, y, vx, vy, m, alive = binning.sort_by_cell(
-            key, pid, x, y, vx, vy, m, occ & (m > 0))
-        return SimState(x=x, y=y, vx=vx, vy=vy, m=m, alive=alive, pid=pid,
-                        collisions=ts.collisions, panics=ts.panics,
-                        overflow=ts.overflow)
-
-    def run(state: SimState, n_steps: int) -> SimState:
-        ts = prologue(state)
-        fxd, fyd, _, _ = pair_pass(ts, collide=False)
-        for _ in range(n_steps):
-            ts, fxd, fyd = step(ts, fxd, fyd)
-        return epilogue(ts, state.x.shape[0])
-
-    def pair_tiles(state: SimState, n_steps: int):
-        ts = prologue(state)
-        if n_steps > 0:
-            fxd, fyd, _, _ = pair_pass(ts, collide=False)
-            for _ in range(n_steps - 1):
-                ts, fxd, fyd = step(ts, fxd, fyd)
-            ts = advance(ts, fxd, fyd)[0]
-        return pair_args(ts)
-
+    pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,
+                                        pair_pass, kcap, side, nc)
     return prologue, pair_tiles, run
 
 
@@ -367,13 +338,13 @@ class Engine:
     ``device`` defaults to ``cuda`` and raises if CUDA is absent; the CPU is
     used only when the caller passes ``device="cpu"`` (there the tile passes
     take their plain torch versions). ``impl`` may be None (the census
-    decides), "resident", "dense", "tiered" or "sweep"; "supercell" and
-    "banded" are not ported yet. Parity precision runs the sweep in float64
+    decides), "resident", "supercell", "dense", "tiered" or "sweep";
+    "banded" is not ported yet. Parity precision runs the sweep in float64
     whatever ``impl`` says, as the JAX engine does. ``clustered_impl`` is the
     engine the census gives a clustered load ("banded", the JAX default, or
     "tiered"); the census takes tiered where no band plan exists.
     ``pair_impl`` picks the resident engine's pair kernel (see
-    ``PAIR_IMPLS``).
+    ``PAIR_IMPLS``; supercell takes "v2" or "v4").
     """
 
     def __init__(self, config: SimConfig, kcap: int | None = None,
@@ -394,15 +365,9 @@ class Engine:
             impl = "sweep"
         elif impl is None and config.n_particles / config.ncells < 1.5:
             # JAX census: sparse grids go to super-cell tiles where the grid
-            # can be coarsened (ops/supercell.choose_supercell_factor needs
-            # ncside >= 16), else to the sweep.
-            if config.ncside >= 16:
-                raise NotImplementedError(
-                    f"the census routes average occupancy "
-                    f"{config.n_particles / config.ncells:.3g} < 1.5 on a "
-                    f"{config.ncside}² grid to the supercell engine, which is "
-                    f"not ported yet; pass impl='resident' or 'sweep'")
-            impl = "sweep"
+            # can be coarsened (choose_supercell_factor), else to the sweep.
+            impl = ("sweep" if choose_supercell_factor(config) is None
+                    else "supercell")
         elif impl in UNPORTED_IMPLS:
             raise NotImplementedError(
                 f"the {impl!r} engine is not ported yet; valid: {IMPLS}")
@@ -425,10 +390,22 @@ class Engine:
         self._built_key = None
         self._run = None
 
+    def _supercell_factor(self) -> int:
+        # An explicit supercell on a grid the chooser declines: coarsen as
+        # far as the grid allows.
+        return (choose_supercell_factor(self.config)
+                or max(2, self.config.ncside // 8))
+
+    def _sc_rows(self) -> int:
+        nsc = -(-self.config.ncside // self._supercell_factor())
+        return nsc * nsc
+
     def _heuristic_kcap(self) -> int:
-        # Poisson-tail bound on max cell occupancy for near-uniform loads;
+        # Poisson-tail bound on max row occupancy for near-uniform loads;
         # the overflow check + lossless retry covers clustered ones.
-        avg = max(1.0, self.config.n_particles / self.config.ncells)
+        rows = (self._sc_rows() if self.impl == "supercell"
+                else self.config.ncells)
+        avg = max(1.0, self.config.n_particles / rows)
         bound = avg + 4.5 * avg ** 0.5 + 8
         return min(binning.round_cap(bound), MAX_DENSE_KCAP)
 
@@ -455,6 +432,10 @@ class Engine:
         if self.impl != "sweep":
             if self.kcap is None:
                 self.kcap = self._heuristic_kcap()
+            if self.impl == "supercell":
+                # The epilogue's compaction needs rows·kcap >= N slots.
+                need = -(-self.config.n_particles // self._sc_rows()) + 8
+                self.kcap = max(self.kcap, binning.round_cap(need))
             if self.kcap > MAX_DENSE_KCAP:
                 self.impl = "sweep"
         key = (self.impl, self.kcap, self._tier_plan, self.pair_impl)
@@ -465,6 +446,10 @@ class Engine:
         elif self.impl == "resident":
             _, _, self._run = make_resident_run(self.config, self.kcap,
                                                 self.pair_impl)
+        elif self.impl == "supercell":
+            _, _, self._run = make_supercell_run(
+                self.config, self.kcap, self._supercell_factor(),
+                self.pair_impl)
         elif self.impl == "dense":
             _, _, self._run = make_dense_step(self.config, self.kcap)
         else:
@@ -482,12 +467,16 @@ class Engine:
             w = cfg.side / cfg.ncside
             cx = np.clip((xs / w).astype(np.int64), 0, cfg.ncside - 1)
             cy = np.clip((ys / w).astype(np.int64), 0, cfg.ncside - 1)
-            hist = np.bincount(cy * cfg.ncside + cx, minlength=cfg.ncells)
+            # Occupancy of the rows: cells, or supercell's S x S blocks.
+            s = self._supercell_factor() if self.impl == "supercell" else 1
+            nsc = -(-cfg.ncside // s)
+            hist = np.bincount((cy // s) * nsc + cx // s, minlength=nsc * nsc)
             # Snug slack: pair-pass cost scales with kcap², and overflow
             # retries are lossless.
             kcap = min(binning.round_cap(int(hist.max()) * 1.1 + 4),
                        MAX_DENSE_KCAP)
-            self._census(hist, kcap)
+            if self.impl != "supercell":
+                self._census(hist, kcap)
             self.kcap = kcap
         dev = self.device
 
@@ -562,6 +551,10 @@ class Engine:
                 # no delivery step and re-censuses from the Poisson bound.
                 self.impl = "dense"
                 self.kcap = None
+            elif self.impl == "supercell" and attempt >= 2:
+                # Clustering at super-cell granularity: the sweep has no
+                # tile capacity to outgrow.
+                self.impl = "sweep"
             elif self.kcap > MAX_DENSE_KCAP:
                 self.impl = "sweep"  # no tile capacity to outgrow
         raise RuntimeError("tile capacity retries exhausted")

@@ -1,4 +1,4 @@
-"""Per-cell pair passes on slot tiles: collisions and pair forces.
+"""Per-cell passes on slot tiles: collisions, pair forces, cell sums.
 
 Counterpart of the JAX package's ``ops/pallas/cell_pairs.py``. Each wrapper
 below launches a hand-written CUDA kernel of ``csrc/cell_pairs.cu``; the
@@ -7,7 +7,12 @@ function:
 
 * ``fused_pairs`` / ``fused_pairs_ref``: collision(t) + pair forces(t+1),
   the resident engine's pass (``fused_pairs_v2``/``fused_pairs_v4``, and
-  with ``gated=False`` the v1 ``fused_pairs``);
+  with ``gated=False`` the v1 ``fused_pairs``); with ``sub`` labels, the
+  supercell engine's pass (the XLA ``fused_pairs_v2``/``_v4`` with
+  ``sub=``), in which only slots of one label interact;
+* ``supercell_cell_sums`` / ``supercell_cell_sums_ref``: the supercell
+  engine's per-cell mass and moment sums (the one-hot contractions of the
+  JAX ``ops/supercell.py``);
 * ``dense_pairwise_forces`` / ``dense_pairwise_forces_ref``: the dense and
   tiered engines' force pass (``dense_pairwise_forces``);
 * ``dense_collisions`` / ``dense_collisions_ref``: their collision pass
@@ -47,16 +52,18 @@ SOURCE = os.path.join(_PKG, "csrc", "cell_pairs.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # Largest per-cell capacity the kernels take: the fused kernel's eleven (K,)
-# arrays of 4 bytes must fit the 48 KB of shared memory a block may use
-# without opting in (the JAX package's MAX_DENSE_KCAP).
+# arrays of 4 bytes fit the 48 KB of shared memory a block may use without
+# opting in (the JAX package's MAX_DENSE_KCAP); its labelled form takes a
+# twelfth and opts in to more.
 MAX_KCAP = 1024
 INF = 0x7FFFFFFF
 FORCE_FORMS = ("v2", "v4")
 
 # Kernel launches per kernel since the last reset_launches() (the chip check
 # reads them to show which kernels the main path went through).
-LAUNCHES = {"fused_pairs": 0, "fused_pairs_v1": 0, "dense_forces": 0,
-            "dense_collisions": 0}
+LAUNCHES = {"fused_pairs": 0, "fused_pairs_v1": 0, "fused_pairs_sub": 0,
+            "dense_forces": 0, "dense_collisions": 0,
+            "supercell_cell_sums": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -111,13 +118,14 @@ def _library():
             ci = ctypes.c_int
             cf = ctypes.c_float
             lib.psim_fused_pairs.argtypes = (
-                [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, ci, ci, vp])
+                [vp] * 10 + [ci, ci, cf, cf, ci, ci, ci, ci, ci, vp])
             lib.psim_dense_forces.argtypes = (
                 [vp] * 8 + [ci, ci, cf, ci, ci, ci, vp])
             lib.psim_dense_collisions.argtypes = (
                 [vp] * 6 + [ci, ci, cf, ci, vp])
+            lib.psim_cell_sums.argtypes = [vp] * 5 + [ci, ci, ci, vp]
             for fn in (lib.psim_fused_pairs, lib.psim_dense_forces,
-                       lib.psim_dense_collisions):
+                       lib.psim_dense_collisions, lib.psim_cell_sums):
                 fn.restype = ci
             _lib = lib
         return _lib
@@ -171,39 +179,51 @@ def _launch(name, fn, x, *args):
     LAUNCHES[name] += 1
 
 
-def _check_fused(x, y, mf, alive, pid, kcap, force_form):
+def _check_fused(x, y, mf, alive, pid, kcap, force_form, sub=None):
     if force_form not in FORCE_FORMS:
         raise ValueError(f"force_form {force_form!r}; valid: {FORCE_FORMS}")
-    _check(kcap, x, ("y", y, torch.float32, kcap),
-           ("mf", mf, torch.float32, kcap), ("alive", alive, torch.int32, kcap),
-           ("pid", pid, torch.int32, kcap))
+    others = [("y", y, torch.float32, kcap), ("mf", mf, torch.float32, kcap),
+              ("alive", alive, torch.int32, kcap),
+              ("pid", pid, torch.int32, kcap)]
+    if sub is not None:
+        others.append(("sub", sub, torch.int32, kcap))
+    _check(kcap, x, *others)
 
 
 def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
                 collide: bool = True, force_form: str = "v4",
-                gated: bool = True):
+                gated: bool = True, sub=None):
     """Fused collision + pair-force pass over (ncells, kcap) tiles.
 
     x, y, mf: float32 positions and physics masses (limbo slots zeroed);
     alive, pid: int32 collision mask and particle ids. Forces come out with
     this pass's deaths applied. ``gated=False`` is the v1 kernel: the
     collision machinery runs in every cell, not only in cells with a hit;
-    the function is the same. Returns (fx, fy, count, ft): float32 forces,
-    the int32 0-d collision count and the int32 first-pair ranks.
+    the function is the same. ``sub`` (int32 tiles, or None): each slot's
+    cell within its row (−1 for an unbinned slot); two slots interact and
+    can collide only if their labels are equal, the reference's same-cell
+    rule (serial/parsim.cpp:356-366,393-411) inside a super-cell row. Ranks
+    stay the row's pid ranks. The labelled pass is hit-gated only. Returns
+    (fx, fy, count, ft): float32 forces, the int32 0-d collision count and
+    the int32 first-pair ranks.
     """
-    _check_fused(x, y, mf, alive, pid, kcap, force_form)
+    _check_fused(x, y, mf, alive, pid, kcap, force_form, sub)
+    if sub is not None and not gated:
+        raise ValueError("the labelled pair pass has no ungated (v1) form")
     if not _on_card(x, "fused pair pass"):
         return fused_pairs_ref(x, y, mf, alive, pid, kcap, eps, collide,
-                               force_form)
+                               force_form, sub)
     ncells = x.shape[0]
     fx = torch.empty_like(x)
     fy = torch.empty_like(x)
     ft = torch.empty_like(pid)
     count = torch.empty((), dtype=torch.int32, device=x.device)
-    _launch("fused_pairs" if gated else "fused_pairs_v1",
-            _library().psim_fused_pairs, x,
+    name = ("fused_pairs_sub" if sub is not None
+            else "fused_pairs" if gated else "fused_pairs_v1")
+    _launch(name, _library().psim_fused_pairs, x,
             x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
-            pid.data_ptr(), fx.data_ptr(), fy.data_ptr(), ft.data_ptr(),
+            pid.data_ptr(), None if sub is None else sub.data_ptr(),
+            fx.data_ptr(), fy.data_ptr(), ft.data_ptr(),
             count.data_ptr(), ncells, kcap, _eps2(eps), G,
             int(bool(collide)), int(force_form == "v4"), int(bool(gated)),
             *fused_launch(kcap))
@@ -211,27 +231,30 @@ def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
 
 
 def fused_pairs_ref(x, y, mf, alive, pid, kcap: int, eps: float,
-                    collide: bool = True, force_form: str = "v4"):
+                    collide: bool = True, force_form: str = "v4", sub=None):
     """Plain torch version of ``fused_pairs`` (same outputs, any gating).
 
     Chunked over blocks of cells so that no (ncells, K, K) tensor exists.
     """
-    _check_fused(x, y, mf, alive, pid, kcap, force_form)
+    _check_fused(x, y, mf, alive, pid, kcap, force_form, sub)
     eps2 = torch.full((), _eps2(eps), dtype=torch.float32, device=x.device)
     g = torch.full((), G, dtype=torch.float32, device=x.device)
 
     def block(sl):
+        same = (None if sub is None
+                else sub[sl][:, :, None] == sub[sl][:, None, :])
         if collide:
-            ft, count = _ref_collide(x[sl], y[sl], alive[sl], pid[sl], eps2)
+            ft, count = _ref_collide(x[sl], y[sl], alive[sl], pid[sl], eps2,
+                                     same)
             m_post = torch.where(ft != INF, 0.0, mf[sl])
         else:
             ft = torch.full_like(pid[sl], INF)
             count = torch.zeros((), dtype=torch.int32, device=x.device)
             m_post = mf[sl]
         if force_form == "v4":
-            fx, fy = _ref_force_v4(x[sl], y[sl], m_post, g)
+            fx, fy = _ref_force_v4(x[sl], y[sl], m_post, g, same)
         else:
-            fx, fy = _ref_force_v2(x[sl], y[sl], m_post, g)
+            fx, fy = _ref_force_v2(x[sl], y[sl], m_post, g, same)
         return fx, fy, ft, count
 
     fx, fy, ft, counts = zip(*(block(sl) for sl in _cell_blocks(x)))
@@ -363,6 +386,47 @@ def _check_collisions(x, y, alive, pid, kcap):
     _check(kcap, x, *others)
 
 
+def supercell_cell_sums(mf, mfx, mfy, cell, ncells: int):
+    """Per-cell sums of the supercell engine's (rows, K) tiles: M, Σm·x and
+    Σm·y of every true cell, each (ncells,) float32, 0 for a cell with no
+    slot. mf, mfx, mfy: float32 physics masses and moments (m·x, m·y);
+    cell: int32 true-cell index of each binned slot, −1 for the others (an
+    index outside [0, ncells) counts in no cell). Each cell's slots must lie
+    in one row, as a super-cell layout puts them; the kernel adds them in
+    slot order, so it gives the same bits in every run."""
+    _check_sums(mf, mfx, mfy, cell, ncells)
+    if not _on_card(mf, "cell sums"):
+        return supercell_cell_sums_ref(mf, mfx, mfy, cell, ncells)
+    rows, kcap = mf.shape
+    out = torch.empty((3, ncells), dtype=torch.float32, device=mf.device)
+    _launch("supercell_cell_sums", _library().psim_cell_sums, mf,
+            mf.data_ptr(), mfx.data_ptr(), mfy.data_ptr(), cell.data_ptr(),
+            out.data_ptr(), rows, kcap, ncells)
+    return out[0], out[1], out[2]
+
+
+def supercell_cell_sums_ref(mf, mfx, mfy, cell, ncells: int):
+    """Plain torch version of ``supercell_cell_sums``: ``index_add_`` into
+    the cells (in slot order on the CPU; in any order, by atomics, on a
+    GPU), unbinned slots into a dropped extra cell."""
+    _check_sums(mf, mfx, mfy, cell, ncells)
+    idx = cell.reshape(-1).to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < ncells), idx, ncells)
+    out = torch.zeros((3, ncells + 1), dtype=torch.float32, device=mf.device)
+    for row, src in zip(out, (mf, mfx, mfy)):
+        row.index_add_(0, idx, src.reshape(-1))
+    return out[0, :ncells], out[1, :ncells], out[2, :ncells]
+
+
+def _check_sums(mf, mfx, mfy, cell, ncells):
+    if ncells < 1:
+        raise ValueError(f"ncells {ncells} < 1")
+    kcap = mf.shape[-1]
+    _check(kcap, mf, ("mfx", mfx, torch.float32, kcap),
+           ("mfy", mfy, torch.float32, kcap),
+           ("cell", cell, torch.int32, kcap))
+
+
 def _cell_blocks(x):
     """Row slices of about 2M pair elements each."""
     k = x.shape[1]
@@ -370,8 +434,9 @@ def _cell_blocks(x):
     return [slice(c, c + cb) for c in range(0, x.shape[0], cb)]
 
 
-def _ref_collide(x, y, alive, pid, eps2):
-    """(ft, count) of one block of rows; pair tensors are (cells, i, j)."""
+def _ref_collide(x, y, alive, pid, eps2, same=None):
+    """(ft, count) of one block of rows; pair tensors are (cells, i, j).
+    ``same``: the pairs that may collide (equal labels), or None for all."""
     k = x.shape[1]
     dev = x.device
     dx = x[:, None, :] - x[:, :, None]
@@ -380,6 +445,8 @@ def _ref_collide(x, y, alive, pid, eps2):
     pair_alive = (alive[:, :, None] * alive[:, None, :]) > 0
     not_self = ~torch.eye(k, dtype=torch.bool, device=dev)
     hit = pair_alive & (d2 < eps2) & not_self
+    if same is not None:
+        hit = hit & same
     # Pid rank among alive slots: the reference's bucket order.
     pr = torch.sum((alive[:, None, :] > 0) & (pid[:, None, :] < pid[:, :, None]),
                    dim=2, dtype=torch.int32)
@@ -392,31 +459,35 @@ def _ref_collide(x, y, alive, pid, eps2):
     return ft, torch.sum(first, dtype=torch.int32)
 
 
-def _inv3(dx, dy):
+def _inv3(dx, dy, same=None):
     d2 = dx * dx + dy * dy
     nz = d2 > 0
+    if same is not None:
+        nz = nz & same
     inv = torch.where(nz, torch.rsqrt(torch.where(nz, d2, 1.0)), 0.0)
     return inv * inv * inv
 
 
-def _ref_force_v2(x, y, m, g):
-    """Same-cell pair gravity G·m_i·m_j·d/|d|³ of one block of rows."""
+def _ref_force_v2(x, y, m, g, same=None):
+    """Same-cell pair gravity G·m_i·m_j·d/|d|³ of one block of rows (only
+    the pairs in ``same``, where given)."""
     dx = x[:, None, :] - x[:, :, None]
     dy = y[:, None, :] - y[:, :, None]
-    s = (g * m)[:, :, None] * m[:, None, :] * _inv3(dx, dy)
+    s = (g * m)[:, :, None] * m[:, None, :] * _inv3(dx, dy, same)
     return torch.sum(s * dx, dim=2), torch.sum(s * dy, dim=2)
 
 
-def _ref_force_v4(x, y, m, g):
-    """The v4 form: fx_i = G·m_i·(Σ_j w_ij·xl_j − xl_i·Σ_j w_ij), w = m_j/d³,
-    on coordinates recentred by the mean of used slots."""
+def _ref_force_v4(x, y, m, g, same=None):
+    """The v4 form: fx_i = G·m_i·(Σ_j w_ij·xl_j − xl_i·Σ_j w_ij), w = m_j/d³
+    (0 for a pair not in ``same``, where given), on coordinates recentred by
+    the mean of the row's used slots, whatever their labels."""
     used = m > 0
     nrow = torch.clamp(torch.sum(used, dim=1, dtype=torch.float32),
                        min=1.0)[:, None]
     xl = x - torch.sum(torch.where(used, x, 0.0), dim=1, keepdim=True) / nrow
     yl = y - torch.sum(torch.where(used, y, 0.0), dim=1, keepdim=True) / nrow
     w = m[:, None, :] * _inv3(xl[:, None, :] - xl[:, :, None],
-                              yl[:, None, :] - yl[:, :, None])
+                              yl[:, None, :] - yl[:, :, None], same)
     sw = torch.sum(w, dim=2)
     gm = g * m
     return (gm * (torch.sum(w * xl[:, None, :], dim=2) - xl * sw),

@@ -62,8 +62,13 @@ def binned_mask(ts: TileState, side: float, ncside: int):
     return ts.occ & valid, torch.sum(ts.occ & ~valid, dtype=torch.int32)
 
 
-def rebin(ts: TileState, side: float, ncside: int, kcap: int):
+def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None):
     """Deliver all movers to their destination rows. Returns (ts', undelivered).
+
+    The tiles hold one row per cell of an ``ncside × ncside`` row grid.
+    ``dest_fn(ts) -> (moving, dest_row)`` marks the movers and gives each
+    slot's destination row on a grid of other rows (the supercell engine's
+    super-cells, ``ops/supercell``); by default a slot's row is its cell.
 
     ``undelivered`` (int32, 0-d) counts the movers beyond their destination
     rows' free slots. When it is nonzero no mover moves: the tiles come back
@@ -73,10 +78,14 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int):
     ncells = ncside * ncside
     nslots = ncells * kcap
     dev = ts.x.device
-    cx, cy, valid = cell_of(ts.x, ts.y, side, ncside)
-    dest = (cy * ncside + cx).to(torch.int64)
     row = torch.arange(ncells, device=dev)[:, None]
-    moving = ts.occ & valid & (dest != row)
+    if dest_fn is None:
+        cx, cy, valid = cell_of(ts.x, ts.y, side, ncside)
+        dest = (cy * ncside + cx).to(torch.int64)
+        moving = ts.occ & valid & (dest != row)
+    else:
+        moving, dest = dest_fn(ts)
+        dest = dest.to(torch.int64)
 
     # Free slots after departures, and each row's q-th free column.
     free = ~ts.occ | moving
@@ -115,3 +124,65 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int):
     out = ts._replace(x=move(ts.x), y=move(ts.y), vx=move(ts.vx),
                       vy=move(ts.vy), m=m, occ=occ, pid=move(ts.pid))
     return out, undelivered
+
+
+def epilogue(ts: TileState, n: int, side: float, ncside: int):
+    """The SimState of tiles holding ``n`` particles: compacted to N
+    particle-major arrays and sorted by (cell key, pid), once per run."""
+    from particlesimulation_tpu_torch.ops import binning
+    from particlesimulation_tpu_torch.state import SimState
+
+    occf = ts.occ.reshape(-1)
+    order = torch.argsort((~occf).to(torch.uint8), stable=True)[:n]
+    x, y, vx, vy, m, pid, occ = (a.reshape(-1)[order] for a in (
+        ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.pid, ts.occ))
+    key, _ = binning.cell_keys(x, y, side, ncside)
+    key, pid, x, y, vx, vy, m, alive = binning.sort_by_cell(
+        key, pid, x, y, vx, vy, m, occ & (m > 0))
+    return SimState(x=x, y=y, vx=vx, vy=vy, m=m, alive=alive, pid=pid,
+                    collisions=ts.collisions, panics=ts.panics,
+                    overflow=ts.overflow)
+
+
+def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
+                  side: float, ncside: int):
+    """(pair_tiles, run) of a slot-resident engine from its phases.
+
+    ``prologue(state)`` lays a sorted SimState out in tiles;
+    ``advance(ts, fxd, fyd)`` runs a step's monopole, integrate and rebin
+    and returns (ts, undelivered, limbo_count); ``pair_args(ts)`` gives the
+    pair pass's tile arguments and ``pair_pass(ts, collide)`` runs it, giving
+    (fx, fy, count, died). ``run(state, n_steps)`` returns the final SimState
+    (on ``ncside``'s cell grid); ``pair_tiles(state, n_steps)`` the
+    ``pair_args`` that step ``n_steps`` of that run hands its pair pass (0:
+    the run's first pass), holes and limbo slots as they lie.
+    """
+
+    def step(ts, fxd, fyd):
+        ts, undelivered, limbo_count = advance(ts, fxd, fyd)
+        fxd, fyd, count, died = pair_pass(ts, collide=True)
+        ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
+        ts = ts._replace(
+            m=torch.where(died, 0.0, ts.m),
+            collisions=ts.collisions + count,
+            panics=ts.panics + limbo_count,
+            overflow=torch.maximum(ts.overflow, ovf))
+        return ts, fxd, fyd
+
+    def run(state, n_steps: int):
+        ts = prologue(state)
+        fxd, fyd, _, _ = pair_pass(ts, collide=False)
+        for _ in range(n_steps):
+            ts, fxd, fyd = step(ts, fxd, fyd)
+        return epilogue(ts, state.x.shape[0], side, ncside)
+
+    def pair_tiles(state, n_steps: int):
+        ts = prologue(state)
+        if n_steps > 0:
+            fxd, fyd, _, _ = pair_pass(ts, collide=False)
+            for _ in range(n_steps - 1):
+                ts, fxd, fyd = step(ts, fxd, fyd)
+            ts = advance(ts, fxd, fyd)[0]
+        return pair_args(ts)
+
+    return pair_tiles, run

@@ -71,13 +71,18 @@ def stencil_tables(M, MX, MY, side: float, ncside: int):
             torch.cat([torch.stack(myl), pad], dim=1))
 
 
+def com_from_sums(M, SX, SY):
+    """Per-cell (M, MX, MY) from the mass sums M, Σm·x, Σm·y; an empty cell's
+    COM is 0."""
+    has = M > 0
+    safe = torch.where(has, M, 1.0)
+    return (M, torch.where(has, SX / safe, 0.0),
+            torch.where(has, SY / safe, 0.0))
+
+
 def tables_from_sums(M, SX, SY, side: float, ncside: int):
     """Per-cell COM from the mass sums M, Σm·x, Σm·y (flat, (ncells,)), then
     the stencil tables row-aligned for the tile kernels: each (ncells, 8)."""
-    has = M > 0
-    safe = torch.where(has, M, 1.0)
-    MX = torch.where(has, SX / safe, 0.0)
-    MY = torch.where(has, SY / safe, 0.0)
     ncells = M.shape[0]
-    return tuple(t[:, :ncells].T.contiguous()
-                 for t in stencil_tables(M, MX, MY, side, ncside))
+    return tuple(t[:, :ncells].T.contiguous() for t in stencil_tables(
+        *com_from_sums(M, SX, SY), side, ncside))

@@ -14,6 +14,11 @@ whose two terms cancel on near pairs, so its rounding error is bounded by the
 terms' size, not the result's: v4 forces hold to that tolerance plus 8 ulps
 of G·m_i·Σ_j w_ij·(|xl_i| + |xl_j|) per element (w = m_j/d³ on the
 recentred coordinates xl).
+
+The labelled pass (``sub=``, the supercell engine's) is held against the
+XLA twins ``dense_xla.fused_pairs_v2``/``_v4`` with ``sub`` (the Pallas
+kernels take no label), with the same tolerances over the pairs of equal
+labels.
 """
 
 import jax.numpy as jnp
@@ -61,26 +66,30 @@ def _recentred(c, m_post):
         used.sum(1, keepdims=True), 1)
 
 
-def _v4_bound(x, y, m_post):
+def _v4_bound(x, y, m_post, sub=None):
     """Per element, 8 ulps of G·m_i·Σ_j w_ij·(|cl_i| + |cl_j|) for each
-    recentred coordinate cl (the size of the two v4 terms that cancel)."""
+    recentred coordinate cl (the size of the two v4 terms that cancel), over
+    the pairs of equal labels where ``sub`` is given."""
     xl, yl = _recentred(x, m_post), _recentred(y, m_post)
     d2 = ((xl[:, None, :] - xl[:, :, None]) ** 2
           + (yl[:, None, :] - yl[:, :, None]) ** 2)
+    pair = d2 > 0
+    if sub is not None:
+        pair &= sub[:, :, None] == sub[:, None, :]
     w = np.divide(np.broadcast_to(m_post[:, None, :], d2.shape), d2 ** 1.5,
-                  out=np.zeros_like(d2), where=d2 > 0)
+                  out=np.zeros_like(d2), where=pair)
     gm = G * m_post.astype(np.float64)
     return tuple(2.0 ** -20 * gm * np.sum(
         w * (np.abs(cl)[:, :, None] + np.abs(cl)[:, None, :]), axis=2)
         for cl in (xl, yl))
 
 
-def _compare(got, ref, form, x, y, m):
+def _compare(got, ref, form, x, y, m, sub=None):
     fx, fy, cnt, ft = (t.numpy() for t in got)
     np.testing.assert_array_equal(ft, np.asarray(ref[3]))
     assert int(cnt) == int(ref[2])
     m_post = np.where(ft != cell_pairs.INF, 0.0, m)
-    bounds = _v4_bound(x, y, m_post) if form == "v4" else (0.0, 0.0)
+    bounds = _v4_bound(x, y, m_post, sub) if form == "v4" else (0.0, 0.0)
     for a, b, bound in ((fx, ref[0], bounds[0]), (fy, ref[1], bounds[1])):
         b = np.asarray(b)
         scale = float(np.abs(b).max()) + 1e-30
@@ -176,3 +185,75 @@ def test_wrapper_rejects_bad_input(bad):
     with pytest.raises((TypeError, ValueError)):
         cell_pairs.fused_pairs(x, y, m, alive, pid, kcap, EPSILON,
                                force_form=form)
+
+
+def _labels(x, seed, chains=((1, (2, 2, 2)), (5, (0, 1, 0)))):
+    """Labels 0-3 with a share of -1, per slot; each planted chain's three
+    slots get the given labels (row 1: one cell, all three pairs collide;
+    row 5: only the outer pair, 2ε/3 apart, shares a cell)."""
+    rng = np.random.default_rng(seed)
+    sub = rng.integers(-1, 4, x.shape).astype(np.int32)
+    for row, labs in chains:
+        sub[row, :3] = labs
+    return sub
+
+
+def _labelled(kcap, used, form, collide, sub_of):
+    x, y, m, alive, pid = _fused_inputs(kcap, used, True, seed_offset=1)
+    sub = sub_of(x)
+    xla_fn = {"v2": dense_xla.fused_pairs_v2,
+              "v4": dense_xla.fused_pairs_v4}[form]
+    ref = xla_fn(jnp.asarray(x), jnp.asarray(y), jnp.asarray(m),
+                 jnp.asarray(alive), x.shape[0], kcap, EPSILON,
+                 collide=collide, pid=jnp.asarray(pid), sub=jnp.asarray(sub))
+    got = cell_pairs.fused_pairs(
+        *map(torch.from_numpy, (x, y, m, alive, pid)), kcap, EPSILON,
+        collide=collide, force_form=form, sub=torch.from_numpy(sub))
+    _compare(got, ref, form, x, y, m, sub)
+    return got, ref
+
+
+@pytest.mark.parametrize("kcap,used,form,collide", [
+    (32, 24, "v2", True), (32, 24, "v4", True), (32, 24, "v2", False),
+    (32, 24, "v4", False), (160, 100, "v4", True),
+    (32, None, "v2", True), (32, None, "v4", True), (160, None, "v4", True),
+])
+def test_labelled_ref_matches_xla(kcap, used, form, collide):
+    """Planted-chain and adversarial tiles with random labels and -1s."""
+    got, ref = _labelled(kcap, used, form, collide,
+                         lambda x: _labels(x, kcap + 7))
+    if collide and used is not None:
+        ft = got[3].numpy()
+        assert (ft[1, :3] != cell_pairs.INF).all()     # one cell: all die
+        assert ft[5, 1] == cell_pairs.INF != ft[5, 0]  # 5's middle lives
+        assert int(ref[2]) > 0
+
+
+@pytest.mark.parametrize("form", ["v2", "v4"])
+def test_labels_across_every_near_pair(form):
+    """Rows whose near pairs all cross labels: no collision there, every
+    ft INF, the count 0 in the whole tile set."""
+    def cross(x):
+        return _labels(x, 3, chains=((1, (0, 1, 2)), (5, (3, 2, 1))))
+
+    got, ref = _labelled(32, 24, form, True, cross)
+    assert int(got[2]) == int(ref[2]) == 0
+    assert (got[3].numpy() == cell_pairs.INF).all()
+
+
+@pytest.mark.parametrize("form", ["v2", "v4"])
+def test_all_zero_labels_are_unlabelled(form):
+    """Every label 0 gives the unlabelled pass bit for bit."""
+    args = [torch.from_numpy(a) for a in _fused_inputs(32, 24, True)]
+    plain = cell_pairs.fused_pairs(*args, 32, EPSILON, force_form=form)
+    zero = cell_pairs.fused_pairs(*args, 32, EPSILON, force_form=form,
+                                  sub=torch.zeros_like(args[4]))
+    for a, b in zip(plain, zero):
+        assert torch.equal(a, b)
+
+
+def test_labelled_pass_refuses_v1():
+    args = [torch.from_numpy(a) for a in _fused_inputs(32, 24, True)]
+    with pytest.raises(ValueError, match="v1"):
+        cell_pairs.fused_pairs(*args, 32, EPSILON, gated=False,
+                               sub=torch.zeros_like(args[4]))

@@ -33,6 +33,21 @@ def test_cli_contract_in_process(engine, want, capsys):
     assert re.fullmatch(r"\d+\.\ds", err.strip())
 
 
+def test_cli_fast_sparse_matches_jax_cli(capsys, monkeypatch):
+    """A sparse grid through ``--engine fast``: the census takes supercell;
+    the two lines equal the JAX CLI's (whose census takes supercell where
+    tiles are the default, PSIM_DENSE=1 on a CPU) at three decimals."""
+    from particlesimulation_tpu import cli as jcli
+
+    args = ["5893", "0.5", "16", "200", "15", "--engine", "fast"]
+    rc, out, _ = _main(args + ["--device", "cpu"], capsys)
+    monkeypatch.setenv("PSIM_DENSE", "1")
+    jrc = jcli.main(args)
+    jout = capsys.readouterr().out.splitlines()
+    assert rc == jrc == 0 and out == jout
+    assert len(out) == 2 and int(out[1]) > 0
+
+
 def test_cli_subprocess():
     r = subprocess.run(
         [sys.executable, "-m", "particlesimulation_tpu_torch", "1", "2", "3",

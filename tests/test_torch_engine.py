@@ -163,17 +163,14 @@ def test_simulation_facade():
     assert (g["pid"] == np.arange(n)).all()
 
 
-@pytest.mark.parametrize("case", [
-    "banded", "supercell", "shards", "sparse", "clustered", "stream"])
+@pytest.mark.parametrize("case", ["banded", "shards", "clustered", "stream"])
 def test_unported_engines_raise(case):
     cfg = dict(seed=1, side=100.0, ncside=10, n_particles=2000)
     kw = {}
-    if case in ("banded", "supercell"):
+    if case == "banded":
         kw["impl"] = case
     elif case == "shards":
         cfg["n_shards"] = 2
-    elif case == "sparse":        # average occupancy < 1.5: supercell
-        cfg.update(ncside=40, n_particles=1000)
     elif case == "clustered":     # normal-mode blob with a band plan: banded
         cfg.update(seed=-7, side=5000.0, ncside=100, n_particles=200_000)
     else:                         # > 256 MB of tiles: banded streaming
@@ -183,9 +180,31 @@ def test_unported_engines_raise(case):
         eng.init_state()
 
 
+@pytest.mark.parametrize("args", [
+    (1, 100.0, 40, 1000),       # sparse, ncside >= 16: supercell
+    (50, 10000.0, 1300, 500_000),  # SMALL: supercell, S = 10
+    (1, 100.0, 64, 500),        # the JAX test's auto-selected supercell
+    (1, 100.0, 97, 2000),       # no divisor of 97: a rounded S
+    (1, 100.0, 10, 100),        # sparse, ncside < 16: the sweep
+    (1, 2.0, 3, 10),            # golden vector N1's grid: the sweep
+    (1, 100.0, 15, 200),        # just under 16: the sweep
+])
+def test_sparse_census_matches_jax(args):
+    """Average occupancy < 1.5: the census takes supercell where the JAX
+    package's ``choose_supercell_factor`` gives an S (the same S), and the
+    sweep where it gives none, as the JAX census does where tiles are the
+    default."""
+    from particlesimulation_tpu.ops.supercell import choose_supercell_factor
+    s = choose_supercell_factor(JSimConfig(*args))
+    eng = Engine(SimConfig(*args), device="cpu")
+    assert eng.impl == ("sweep" if s is None else "supercell")
+    if s is not None:
+        assert eng._supercell_factor() == s
+
+
 @pytest.mark.parametrize("case", ["sweep", "parity"])
 def test_sweep_and_parity_routes_run(case):
-    """The config the refusal cases above use, through the f32 sweep
+    """The config of ``test_unported_engines_raise``, through the f32 sweep
     (``impl="sweep"``) and the f64 parity engine, against the JAX package's
     sweep and parity engines: parity bit for bit, the sweep to f32 rounding
     (other summation orders), collisions and dead sets exact."""
