@@ -58,6 +58,25 @@ j. SMALL through the census (supercell, S = 10), against the JAX package's
 k. the CLI's fast route at SMALL in-process (the labelled kernel launched);
 l. SMALL's step time, device time, idle share, launches and syncs a step.
 
+Then the banded engine (row bands of cells, each band with its own K, in one
+slot pool):
+
+m. UNEVEN through the default census: banded on its 13-band plan
+   (``launch_sweep.UNEVEN_BANDS``); after 2 steps the JAX f32 engine's 14
+   collisions and particle 0; the fused kernel launched;
+n. 10 steps of banded against 10 of dense on the card;
+o. no host sync in a banded run; cuda == cpu on (-7 100 12 4000) with
+   four bands of K 64 to 256 (the v4 form) and on (5 8 8 600) with four
+   2-row bands (the v2 form);
+p. the fused kernel on the banded run's own tiles of the K = 896 and K = 32
+   bands (checked, timed, with the bound), and the lanes each band's pair
+   pass needs (Σc² over rows·K²) against one tier at K = 864;
+q. UNEVEN banded, tiered and dense timed one after another: step time,
+   device time, idle share, launches and syncs a step;
+r. N = 1e7 (seed 1, side 5000, ncside 316): the census's streaming route
+   (banded on 12 bands of 27 rows, K 192), 10 steps against 10 of
+   resident, and both timed.
+
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
 each tile engine's run loop run under
@@ -107,7 +126,11 @@ Tolerances:
   * SMALL: the JAX f32 engine's collision count exactly and particle 0
     within ±0.002; against the port's f32 sweep on the card, the count and
     dead set exact and positions within 1e-3 (the JAX package's
-    tests/test_supercell.py tolerance).
+    tests/test_supercell.py tolerance);
+  * banded UNEVEN: as tiered (the same function); against dense, positions
+    within 2e-5·side; at 1e7 against resident, the count and dead set exact
+    and positions within 1e-6·side (the same function on the same cell
+    rows, another split of the pool).
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -637,14 +660,17 @@ def compare_runs(label, a, b, pos_tol, v_tol):
           f"max|dpos|={dpos:.3e}, max|dvx|={dvx:.3e}", flush=True)
 
 
-def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None):
+def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None, plan=None):
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
     outs = []
     for device in ("cuda", "cpu"):
         eng = Engine(SimConfig(seed, side, nc, n), impl=impl, device=device)
-        out = eng.run(eng.init_state(), steps)
+        state = eng.init_state()
+        if plan is not None:
+            eng._band_plan = plan
+        out = eng.run(state, steps)
         if int(out.overflow) != 0:
             raise AssertionError(f"overflow on {device}")
         if impl is not None and eng.impl != impl:
@@ -1131,6 +1157,111 @@ def check_small(card):
     return recs[("v4", True)], sums, launches, cli_launches
 
 
+def band_lanes(plan, tiles):
+    """(p) Per band, from the tiles its pair pass takes: the used slots
+    (m > 0) a row c, the slot fill Σc/(rows·K) and the share of the pair
+    lanes the function needs, Σc²/(rows·K²); then that share over the plan
+    and over one tier of K = 864 (the dense engine at UNEVEN)."""
+    c2 = lanes = 0.0
+    for (r0, rw, k), (_, _, m, _, _) in zip(plan, tiles):
+        c = (m > 0).sum(1).double()
+        c2 += float((c * c).sum())
+        lanes += float(c.numel()) * k * k
+        print(f"band rows {r0}-{r0 + rw - 1}, K {k}: {int(c.sum())} "
+              f"particles, max {int(c.max())} a cell, fill "
+              f"{float(c.sum()) / (c.numel() * k):.3f}, pair lanes needed "
+              f"{float((c * c).sum()) / (c.numel() * k * k):.3f}", flush=True)
+    cells = sum(t[0].shape[0] for t in tiles)
+    print(f"pair lanes needed over the plan {c2 / lanes:.4f}; over one tier "
+          f"of K = 864 {c2 / (cells * 864.0 ** 2):.4f}", flush=True)
+    return c2 / lanes
+
+
+def check_banded(card, tiered, dense):
+    """(m)-(r) The banded engine: UNEVEN through the census, against dense
+    and the CPU, its fused kernel on its own band tiles, its step times
+    beside the tiered and dense engines' (``tiered``, ``dense``: (engine,
+    state) at UNEVEN); then N = 1e7 on the streaming route, against
+    resident. Returns the path's launch counts and the two band records."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
+                                                         uniform_band_plan)
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        UNEVEN_BANDS, band_tiles)
+
+    t0 = time.perf_counter()
+    un = SimConfig(*UNEVEN)
+    eng = Engine(un, device="cuda")
+    state = eng.init_state()
+    if eng.impl != "banded" or eng._band_plan != UNEVEN_BANDS:
+        raise AssertionError(f"UNEVEN census: {eng.impl} {eng._band_plan}")
+    _, launches = check_golden("UNEVEN banded", eng, state, 2, UNEVEN_2,
+                               ["fused_pairs"])
+    runs = []
+    for e in (eng, Engine(un, device="cuda", impl="dense")):
+        out = e.run(state, 10)
+        if e.impl not in ("banded", "dense") or int(out.overflow) != 0:
+            raise AssertionError(f"UNEVEN: ran {e.impl}, overflow "
+                                 f"{int(out.overflow)}")
+        runs.append((int(out.collisions), out, un.side))
+    compare_runs("UNEVEN 10 steps, banded vs dense on cuda", *runs, 2e-5,
+                 None)
+    check_no_sync("banded", make_banded_run(un, UNEVEN_BANDS)[2], state)
+    check_gpu_vs_cpu(-7, 100.0, 12, 4000, 10, impl="banded",
+                     plan=((0, 3, 64), (3, 3, 256), (6, 3, 256), (9, 3, 64)))
+    check_gpu_vs_cpu(5, 8.0, 8, 600, 15, impl="banded",
+                     plan=((0, 2, 64), (2, 2, 64), (4, 2, 64), (6, 2, 64)))
+
+    tiles = band_tiles(un, UNEVEN_BANDS, state, 2)
+    band_lanes(UNEVEN_BANDS, tiles)
+    recs = {}
+    for b, (_, _, k) in enumerate(UNEVEN_BANDS):
+        if k in (896, 32):
+            recs[k] = fused_record(f"UNEVEN banded tiles K={k}", tiles[b],
+                                   "v4", True, planted=False)
+
+    times = {}
+    for label, e, st in (("banded", eng, state), ("tiered", *tiered),
+                         ("dense", *dense)):
+        ms, t1, t11 = step_ms(e, st, 10)
+        print(f"UNEVEN {label}, kcap {e.kcap}: {ms:.4f} ms/step, "
+              f"{un.n_particles / ms / 1e3:.2f} M particle-steps/s (run(1) "
+              f"{t1:.4f} s, run(11) {t11:.4f} s) on {card}", flush=True)
+        times[f"UNEVEN {label}"] = {"ms": ms, **device_breakdown(
+            f"UNEVEN {label}", e, st, ms)}
+    if times["UNEVEN banded"]["syncs"] != 0:
+        raise AssertionError("UNEVEN banded: host syncs in the run")
+
+    big = SimConfig(1, 5000.0, 316, 10_000_000)
+    eng_b = Engine(big, device="cuda")
+    state_b = eng_b.init_state()
+    if eng_b.impl != "banded" or eng_b._band_plan != uniform_band_plan(
+            316, 27, 192):
+        raise AssertionError(f"1e7 census: {eng_b.impl} {eng_b._band_plan}")
+    eng_r = Engine(big, device="cuda", impl="resident")
+    state_r = eng_r.init_state()
+    outs = []
+    for label, e, st in (("1e7 banded", eng_b, state_b),
+                         ("1e7 resident", eng_r, state_r)):
+        out, _, _ = drive(label, e, st, 10, ["fused_pairs"])
+        outs.append((int(out.collisions), out, big.side))
+    same = all(torch.equal(getattr(outs[0][1], f), getattr(outs[1][1], f))
+               for f in ("x", "y", "vx", "vy", "m", "alive", "pid"))
+    compare_runs(f"1e7 10 steps, banded vs resident on cuda (bitwise equal: "
+                 f"{same})", *outs, 1e-6, 1e-5)
+    for label, e, st in (("1e7 banded", eng_b, state_b),
+                         ("1e7 resident", eng_r, state_r)):
+        ms, t1, t11 = step_ms(e, st, 10)
+        print(f"{label}, kcap {e.kcap}: {ms:.4f} ms/step, "
+              f"{big.n_particles / ms / 1e3:.2f} M particle-steps/s (run(1) "
+              f"{t1:.4f} s, run(11) {t11:.4f} s) on {card}", flush=True)
+        times[label] = {"ms": ms, **device_breakdown(label, e, st, ms)}
+    print(f"banded phases: {time.perf_counter() - t0:.1f} s; per step "
+          f"{json.dumps(times)}", flush=True)
+    return launches, recs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1274,6 +1405,10 @@ def main():
     # 9. The supercell engine at SMALL.
     sub_rec, sums_rec, small_launches, small_cli = check_small(card)
 
+    # 10. The banded engine: UNEVEN by the census, and N = 1e7 streaming.
+    banded_launches, _ = check_banded(card, (eng_t, state_t),
+                                      (eng_dun, state_dun))
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
@@ -1285,7 +1420,9 @@ def main():
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
           f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
-          f"fast SMALL {small_cli}", flush=True)
+          f"fast SMALL {small_cli}, banded UNEVEN (2 steps: 13 fused "
+          f"launches a step and 13 for the first pass) {banded_launches}",
+          flush=True)
     print(json.dumps({"kernels": [
         entry("fused_pairs", res_launches["fused_pairs"],
               on_path[("v4", True)]),

@@ -1,7 +1,7 @@
-"""Single-device simulation engines: slot-resident, supercell, dense, tiered
-and sweep.
+"""Single-device simulation engines: slot-resident, supercell, banded, dense,
+tiered and sweep.
 
-Counterpart of the JAX package's ``engine.py``. Five implementations:
+Counterpart of the JAX package's ``engine.py``. Six implementations:
 
 * ``resident`` (``make_resident_run``) — the state lives in (ncells, K) slot
   tiles; one step is
@@ -14,6 +14,9 @@ Counterpart of the JAX package's ``engine.py``. Five implementations:
 * ``supercell`` (``ops/supercell.make_supercell_run``) — the resident step
   on rows of S x S cells, for sparse grids, with a same-cell label in the
   pair pass.
+* ``banded`` (``ops/banded.make_banded_run``) — the resident step on bands
+  of grid rows, each with its own K, in one slot pool: for clustered loads,
+  and for uniform loads whose tile state is large (the streaming route).
 * ``dense`` (``make_dense_step``) — particle arrays sorted by (cell, pid),
   scattered into (ncells, K) tiles each step for the force and collision
   kernels; the resident engine's escalation target.
@@ -29,13 +32,9 @@ A tile engine's run is a Python loop over steps on the device with no host
 readback inside it; the engine reads the overflow counter once per run and,
 when the tiles were too small, replays the run losslessly with larger tiles
 or another engine, as the JAX engine's retry ladder does (resident -> dense
--> sweep; the reference instead PANIC-skips particles,
-serial/parsim.cpp:276-280). The sweep's loop trip counts are host integers,
-so it reads the cell occupancy back once a step.
-
-Where the JAX census would pick an engine the port does not have yet
-(banded), the port raises ``NotImplementedError`` naming that engine and
-never runs another one.
+-> sweep, banded -> grown bands -> dense; the reference instead PANIC-skips
+particles, serial/parsim.cpp:276-280). The sweep's loop trip counts are host
+integers, so it reads the cell occupancy back once a step.
 """
 
 from __future__ import annotations
@@ -48,7 +47,10 @@ from particlesimulation_tpu_torch.initializer import init_particles_host
 from particlesimulation_tpu_torch.ops import (binning, collisions, com, dense,
                                               forces, integrate, stencil)
 from particlesimulation_tpu_torch.ops import resident as res
-from particlesimulation_tpu_torch.ops.banded import plan_bands
+from particlesimulation_tpu_torch.ops.banded import (grow_plan,
+                                                     make_banded_run,
+                                                     plan_bands,
+                                                     uniform_band_plan)
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.supercell import (choose_supercell_factor,
                                                         make_supercell_run)
@@ -57,17 +59,16 @@ from particlesimulation_tpu_torch.state import SimState, result_of
 
 # Largest tile capacity the tile kernels take; beyond it the ladder
 # escalates resident -> dense -> sweep, and supercell -> sweep. (The JAX
-# supercell engine runs on XLA kernels up to MAX_XLA_KCAP = 4096, so a
-# super-cell row of 1025-4096 particles stays on supercell there and runs
-# the sweep here.)
+# supercell and banded engines run on XLA kernels up to MAX_XLA_KCAP = 4096,
+# so a super-cell row of 1025-4096 particles stays on supercell there and
+# runs the sweep here, and a band grows to 4096 there and to 1024 here.)
 MAX_DENSE_KCAP = cell_pairs.MAX_KCAP
 INF = cell_pairs.INF
 # Telemetry value of a collision-rank domain overflow (a cell of RANK_LIMIT
 # occupants or more), far above any tile-capacity retry value.
 RANK_OVF = 1 << 30
 
-IMPLS = ("resident", "supercell", "dense", "tiered", "sweep")
-UNPORTED_IMPLS = ("banded",)
+IMPLS = ("resident", "supercell", "banded", "dense", "tiered", "sweep")
 CLUSTERED_IMPLS = ("banded", "tiered")
 # Pair kernels of the resident engine (the JAX package's PSIM_PALLAS_PAIR):
 # v4 and v2 are the hit-gated kernel's two force forms, v1 the ungated
@@ -338,11 +339,11 @@ class Engine:
     ``device`` defaults to ``cuda`` and raises if CUDA is absent; the CPU is
     used only when the caller passes ``device="cpu"`` (there the tile passes
     take their plain torch versions). ``impl`` may be None (the census
-    decides), "resident", "supercell", "dense", "tiered" or "sweep";
-    "banded" is not ported yet. Parity precision runs the sweep in float64
-    whatever ``impl`` says, as the JAX engine does. ``clustered_impl`` is the
-    engine the census gives a clustered load ("banded", the JAX default, or
-    "tiered"); the census takes tiered where no band plan exists.
+    decides), "resident", "supercell", "banded", "dense", "tiered" or
+    "sweep". Parity precision runs the sweep in float64 whatever ``impl``
+    says, as the JAX engine does. ``clustered_impl`` is the engine the census
+    gives a clustered load ("banded", the JAX default, or "tiered"); the
+    census takes tiered where no band plan exists.
     ``pair_impl`` picks the resident engine's pair kernel (see
     ``PAIR_IMPLS``; supercell takes "v2" or "v4").
     """
@@ -368,9 +369,6 @@ class Engine:
             # can be coarsened (choose_supercell_factor), else to the sweep.
             impl = ("sweep" if choose_supercell_factor(config) is None
                     else "supercell")
-        elif impl in UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"the {impl!r} engine is not ported yet; valid: {IMPLS}")
         elif impl is not None and impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}; valid: {IMPLS}")
         if device is None:
@@ -387,6 +385,7 @@ class Engine:
         self.pair_impl = pair_impl
         self.kcap = kcap
         self._tier_plan = None  # [(cap, rows), ...] of the tiered engine
+        self._band_plan = None  # [(row0, rows, kcap), ...] of the banded one
         self._built_key = None
         self._run = None
 
@@ -420,6 +419,17 @@ class Engine:
         return ((ks, self.config.ncells), (kb, fatrows))
 
     def _build(self):
+        if self.impl == "banded":
+            if self._band_plan is None:
+                # No census plan: one whole-grid band at the Poisson bound.
+                self._band_plan = ((0, self.config.ncside,
+                                    self._heuristic_kcap()),)
+            self._band_plan = tuple(tuple(p) for p in self._band_plan)
+            self.kcap = max(k for _, _, k in self._band_plan)  # telemetry
+            if self.kcap > MAX_DENSE_KCAP:
+                self.impl = "dense"
+                self._band_plan = None
+                self.kcap = None
         if self.impl == "tiered":
             if self._tier_plan is None:
                 self._tier_plan = self._default_tier_plan()
@@ -438,7 +448,8 @@ class Engine:
                 self.kcap = max(self.kcap, binning.round_cap(need))
             if self.kcap > MAX_DENSE_KCAP:
                 self.impl = "sweep"
-        key = (self.impl, self.kcap, self._tier_plan, self.pair_impl)
+        key = (self.impl, self.kcap, self._tier_plan, self._band_plan,
+               self.pair_impl)
         if self._built_key == key:
             return
         if self.impl == "sweep":
@@ -450,6 +461,8 @@ class Engine:
             _, _, self._run = make_supercell_run(
                 self.config, self.kcap, self._supercell_factor(),
                 self.pair_impl)
+        elif self.impl == "banded":
+            _, _, self._run = make_banded_run(self.config, self._band_plan)
         elif self.impl == "dense":
             _, _, self._run = make_dense_step(self.config, self.kcap)
         else:
@@ -499,30 +512,34 @@ class Engine:
 
     def _census(self, hist, kcap: int):
         """The JAX census on the occupancy histogram (and the tile capacity
-        it gives): classed tiles for a clustered load (banded where a band
-        plan exists and banded is the clustered engine, which raises here;
-        else tiered), and the banded streaming route, which raises here, for
-        large uniform loads."""
+        it gives): for a clustered load, banded where a band plan exists and
+        banded is the clustered engine, else tiered; for a uniform load
+        whose tile state exceeds ``_STREAM_BYTES``, banded on equal bands of
+        about ``_STREAM_BAND_BYTES``. An explicit banded run takes the band
+        plan, or none (one whole-grid band)."""
         cfg = self.config
+        if self.impl == "banded" and self._band_plan is None:
+            bands = plan_bands(hist, cfg.ncside, MAX_DENSE_KCAP)
+            self._band_plan = bands and tuple(tuple(p) for p in bands)
         plan = plan_tiers(hist, cfg.ncells, MAX_DENSE_KCAP)
         if self.impl == "tiered" or (self._impl_auto and _clustered(plan)):
-            if (self.impl != "tiered" and self.clustered_impl == "banded"
-                    and plan_bands(hist, cfg.ncside, MAX_DENSE_KCAP)
-                    is not None):
-                raise NotImplementedError(
-                    "the census routes this clustered load to the banded "
-                    "engine, which is not ported yet; pass "
-                    "clustered_impl='tiered' to run the tiered engine")
-            self.impl = "tiered"
-            self._tier_plan = plan or self._default_tier_plan()
+            bands = (plan_bands(hist, cfg.ncside, MAX_DENSE_KCAP)
+                     if self.impl != "tiered"
+                     and self.clustered_impl == "banded" else None)
+            if bands is not None:
+                self.impl = "banded"
+                self._band_plan = tuple(tuple(p) for p in bands)
+            else:
+                self.impl = "tiered"
+                self._tier_plan = plan or self._default_tier_plan()
         if self._impl_auto and self.impl == "resident":
             row_bytes = cfg.ncside * kcap * 25
             band_rows = max(1, _STREAM_BAND_BYTES // max(1, row_bytes))
             if (cfg.ncells * kcap * 25 > _STREAM_BYTES
                     and -(-cfg.ncside // band_rows) >= 2):
-                raise NotImplementedError(
-                    "the census streams tile state above 256 MB through the "
-                    "banded engine, which is not ported yet")
+                self.impl = "banded"
+                self._band_plan = uniform_band_plan(cfg.ncside, band_rows,
+                                                    kcap)
 
     def run(self, state: SimState, n_steps: int) -> SimState:
         for attempt in range(6):
@@ -539,6 +556,17 @@ class Engine:
                 return out
             if self.impl == "tiered":
                 self._grow_tiers(need, attempt)
+                continue
+            if self.impl == "banded":
+                # Grow every band; if growth does not converge, the dense
+                # engine has no bands to outgrow.
+                self._band_plan = tuple(tuple(p) for p in grow_plan(
+                    self._band_plan, 1.5, MAX_DENSE_KCAP))
+                self.kcap = max(k for _, _, k in self._band_plan)
+                if attempt >= 2:
+                    self.impl = "dense"
+                    self._band_plan = None
+                    self.kcap = None
                 continue
             # Occupancy outgrew the tiles: replay from the input state with
             # tiles sized to the observed occupancy. Beyond the tile cap the

@@ -18,8 +18,8 @@ rules pick
 for bit. Times: CUDA events around each call, the calls queued behind a
 spin kernel, median of 10. The rules come from this table.
 
-``resident_tiles``, ``class_tiles`` and ``dense_tiles`` also serve
-``chip_smoke.py``.
+``resident_tiles``, ``band_tiles``, ``class_tiles`` and ``dense_tiles`` also
+serve ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -33,12 +33,16 @@ from particlesimulation_tpu_torch.config import EPSILON, G
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
 # golden s1's configuration, and UNEVEN (the reference report's clustered
-# workload) with its tier plan.
+# workload) with its tier plan and its band plan (the census's).
 FLAGSHIP = (1, 5000.0, 100, 1_000_000)
 UNEVEN = (-23, 5000.0, 100, 1_000_000)
 UNEVEN_PLAN = ((32, 10000), (64, 1280), (128, 1280), (192, 800), (256, 512),
                (320, 416), (384, 352), (448, 288), (480, 128), (576, 352),
                (672, 288), (864, 96))
+UNEVEN_BANDS = ((0, 15, 64), (15, 6, 128), (21, 4, 224), (25, 5, 352),
+                (30, 6, 544), (36, 5, 704), (41, 21, 896), (62, 6, 608),
+                (68, 4, 416), (72, 4, 288), (76, 6, 192), (82, 9, 96),
+                (91, 9, 32))
 SPIN_CYCLES = 2_000_000  # ~1.1 ms of a 1.755 GHz SM per queued call
 RESIDENT_STEPS = 4  # golden s1's run: its last pair pass
 # The flagship's particles binned into 100², 70² and 50² cells.
@@ -72,6 +76,14 @@ def resident_tiles(config, kcap, state, steps=RESIDENT_STEPS):
     from particlesimulation_tpu_torch.engine import make_resident_run
 
     return make_resident_run(config, kcap)[1](state, steps)
+
+
+def band_tiles(config, plan, state, steps):
+    """The per-band (x, y, mf, alive, pid) tiles the banded engine's pair
+    passes take at step ``steps`` of a run from ``state`` on ``plan``."""
+    from particlesimulation_tpu_torch.ops.banded import make_banded_run
+
+    return make_banded_run(config, plan)[1](state, steps)
 
 
 def class_tiles(config, plan, state):

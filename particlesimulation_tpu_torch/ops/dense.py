@@ -1,6 +1,6 @@
 """Plain-torch tile passes shared by the tile engines (the needed part of the
 JAX package's ``ops/dense_xla.py``): the pair force-form selector and the
-8-term monopole pass.
+8-term monopole pass, on row-aligned tables or on tables gathered per slot.
 """
 
 from __future__ import annotations
@@ -42,4 +42,32 @@ def monopole_tile_forces(xd, yd, mfd, ml_t, mxl_t, myl_t):
         sl = gm * cm * (invl * invl * invl)
         fx = fx + sl * dxl
         fy = fy + sl * dyl
+    return fx, fy
+
+
+def monopole_gathered(x, y, mf, ml, mxl, myl, at):
+    """8 stencil monopole terms per slot, each slot's cell's terms gathered
+    from the (8, ncells + 1) tables of ``stencil.stencil_tables`` by ``at``
+    (int32 or int64, the shape of x: the slot's cell, or ncells, the zero
+    sentinel). The 8 directions' terms are computed together, in (8, slots)
+    tensors, and added in stencil order, so the slots of a cell row get
+    ``monopole_tile_forces``' bits."""
+    g = torch.full((), G, dtype=x.dtype, device=x.device)
+    gm = g * mf
+    flat = at.reshape(-1)
+    cm, mx, my = (torch.index_select(t, 1, flat).view(8, *x.shape)
+                  for t in (ml, mxl, myl))
+    dxl = mx - x
+    dyl = my - y
+    d2l = dxl * dxl + dyl * dyl
+    nzl = (d2l > 0.0) & (cm != 0.0)
+    invl = torch.where(nzl, torch.rsqrt(torch.where(nzl, d2l, 1.0)), 0.0)
+    sl = gm * cm * (invl * invl * invl)
+    sx = sl * dxl
+    sy = sl * dyl
+    fx = torch.zeros_like(x)
+    fy = torch.zeros_like(x)
+    for l in range(8):
+        fx = fx + sx[l]
+        fy = fy + sy[l]
     return fx, fy

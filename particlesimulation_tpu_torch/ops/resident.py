@@ -4,7 +4,8 @@ The resident representation keeps the *state itself* in (ncells, K) slot
 tiles and re-bins by moving the few particles that changed cell ("movers")
 directly between rows. The JAX package delivers movers in rounds of rolls
 and one-hot reductions because a TPU punishes scatters; on a GPU a scatter is
-cheap, so ``rebin`` delivers every mover in one pass:
+cheap, so ``rebin`` delivers every mover in one pass (``deliver``, which
+also takes rows of different widths in one slot pool, the banded engine's):
 
 1. mark the movers (occupied, in range, destination row != current row);
 2. sort them stably by (destination row, source slot);
@@ -69,57 +70,76 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None):
     ``dest_fn(ts) -> (moving, dest_row)`` marks the movers and gives each
     slot's destination row on a grid of other rows (the supercell engine's
     super-cells, ``ops/supercell``); by default a slot's row is its cell.
-
-    ``undelivered`` (int32, 0-d) counts the movers beyond their destination
-    rows' free slots. When it is nonzero no mover moves: the tiles come back
-    unchanged, nothing is lost, and the engine flags overflow and replays the
-    run with larger tiles.
+    ``undelivered`` is ``deliver``'s.
     """
     ncells = ncside * ncside
-    nslots = ncells * kcap
     dev = ts.x.device
-    row = torch.arange(ncells, device=dev)[:, None]
     if dest_fn is None:
+        row = torch.arange(ncells, device=dev)[:, None]
         cx, cy, valid = cell_of(ts.x, ts.y, side, ncside)
-        dest = (cy * ncside + cx).to(torch.int64)
+        dest = cy * ncside + cx
         moving = ts.occ & valid & (dest != row)
     else:
         moving, dest = dest_fn(ts)
-        dest = dest.to(torch.int64)
+    return deliver(ts, moving, dest,
+                   torch.arange(ncells + 1, device=dev) * kcap)
 
-    # Free slots after departures, and each row's q-th free column.
-    free = ~ts.occ | moving
-    fr = torch.cumsum(free, dim=1)                       # 1-based free rank
-    n_free = fr[:, -1]
-    col = torch.arange(kcap, device=dev).expand(ncells, kcap)
-    slot_of_rank = torch.full((nslots + 1,), kcap, dtype=torch.int64,
+
+def deliver(ts: TileState, moving, dest, row_start):
+    """Move the ``moving`` slots to rows ``dest``, in one pass.
+
+    The tiles are a pool of slots in which row r holds the contiguous slots
+    ``row_start[r]`` to ``row_start[r + 1]`` (flat indices; rows may differ
+    in width, as the banded engine's do). A mover lands in its destination
+    row's rank-th free slot, free slots counted after this step's departures
+    in slot order, its rank being its place among the row's movers sorted by
+    source slot. Returns (ts', undelivered): ``undelivered`` (int32, 0-d)
+    counts the movers beyond their destination rows' free slots. When it is
+    nonzero no mover moves: the tiles come back unchanged, nothing is lost,
+    and the engine flags overflow and replays the run with larger tiles.
+    """
+    shape = ts.x.shape
+    nslots = ts.x.numel()
+    nrows = row_start.shape[0] - 1
+    dev = ts.x.device
+    occf = ts.occ.reshape(-1)
+    moving = moving.reshape(-1)
+
+    # Free slots after departures: the q-th free slot of the pool, and the
+    # free slots before each row (a row's k-th free slot is the pool's
+    # (before[r] + k)-th).
+    free = ~occf | moving
+    cum = torch.cumsum(free, dim=0)                      # 1-based free rank
+    before = torch.cat([cum.new_zeros(1), cum])[row_start]
+    n_free = before[1:] - before[:-1]
+    slot_of_free = torch.full((nslots + 1,), nslots, dtype=torch.int64,
                               device=dev)
-    slot_of_rank[torch.where(free, row * kcap + fr - 1, nslots).reshape(-1)] = (
-        col.reshape(-1))
+    slot_of_free[torch.where(free, cum - 1, nslots)] = torch.arange(
+        nslots, device=dev)
 
     # Movers sorted by (destination row, source slot); rank within the row.
-    mkey = torch.where(moving, dest, ncells).reshape(-1)
+    mkey = torch.where(moving, dest.reshape(-1).to(torch.int64), nrows)
     mkey, src = torch.sort(mkey, stable=True)
     rank, _ = segment_positions(mkey)
-    is_mover = mkey < ncells
-    drow = torch.clamp(mkey, max=ncells - 1)
+    is_mover = mkey < nrows
+    drow = torch.clamp(mkey, max=nrows - 1)
     fits = is_mover & (rank < n_free[drow])
     undelivered = torch.sum(is_mover & ~fits, dtype=torch.int32)
     act = fits & (undelivered == 0)
-    tgt = drow * kcap + slot_of_rank[drow * kcap + torch.clamp(rank, max=kcap - 1)]
     # Inactive entries write to a dump slot past the end.
-    tgt = torch.where(act, tgt, nslots)
+    tgt = torch.where(act, slot_of_free[torch.clamp(before[drow] + rank,
+                                                    max=nslots)], nslots)
     src_act = torch.where(act, src, nslots)
 
     def move(a):
         flat = torch.cat([a.reshape(-1), a.new_zeros(1)])
         vals = flat[src]
         flat[tgt] = vals
-        return flat[:nslots].reshape(ncells, kcap)
+        return flat[:nslots].reshape(shape)
 
-    occ = torch.cat([ts.occ.reshape(-1), ts.occ.new_zeros(1)])
+    occ = torch.cat([occf, occf.new_zeros(1)])
     occ = occ.index_fill_(0, src_act, False).index_fill_(0, tgt, True)
-    occ = occ[:nslots].reshape(ncells, kcap)
+    occ = occ[:nslots].reshape(shape)
     m = torch.where(occ, move(ts.m), 0.0)
     out = ts._replace(x=move(ts.x), y=move(ts.y), vx=move(ts.vx),
                       vy=move(ts.vy), m=m, occ=occ, pid=move(ts.pid))

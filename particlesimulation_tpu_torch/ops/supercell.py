@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from particlesimulation_tpu_torch.config import DELTAT, EPSILON, G, SimConfig
+from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
 from particlesimulation_tpu_torch.ops import binning, dense, integrate, stencil
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
@@ -131,27 +131,13 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
     def monopole(ts, mf, binned, cell):
         """The 8 stencil terms of each slot's own cell: per-cell sums on the
         true grid, the stencil tables there (a zero sentinel cell last), and
-        one gather a direction."""
+        each slot's 8 terms gathered by its cell."""
         sums = cell_pairs.supercell_cell_sums(
             mf, mf * ts.x, mf * ts.y, torch.where(binned, cell, -1), ncells)
-        ml, mxl, myl = stencil.stencil_tables(*stencil.com_from_sums(*sums),
-                                              side, nc)
-        at = torch.where(binned, cell, ncells).to(torch.int64)
-        gm = torch.full((), G, dtype=ts.x.dtype, device=ts.x.device) * mf
-        fx = torch.zeros_like(ts.x)
-        fy = torch.zeros_like(ts.x)
-        for l in range(8):
-            cm = ml[l][at]
-            dxl = mxl[l][at] - ts.x
-            dyl = myl[l][at] - ts.y
-            d2l = dxl * dxl + dyl * dyl
-            nzl = (d2l > 0.0) & (cm != 0.0)
-            invl = torch.where(nzl, torch.rsqrt(torch.where(nzl, d2l, 1.0)),
-                               0.0)
-            sl = gm * cm * (invl * invl * invl)
-            fx = fx + sl * dxl
-            fy = fy + sl * dyl
-        return fx, fy
+        return dense.monopole_gathered(
+            ts.x, ts.y, mf, *stencil.stencil_tables(
+                *stencil.com_from_sums(*sums), side, nc),
+            torch.where(binned, cell, ncells))
 
     def dest_fn(ts):
         rowk, _, _, valid = geometry(ts.x, ts.y)

@@ -25,6 +25,7 @@ def _main(args, capsys):
     ([], ["0.002 0.035", "2"]),                       # parity by default
     (["--engine", "fast"], ["0.002 0.035", "2"]),     # census: the sweep
     (["--engine", "fast", "--impl", "dense"], ["0.002 0.035", "2"]),
+    (["--engine", "fast", "--impl", "banded"], ["0.002 0.035", "2"]),
 ])
 def test_cli_contract_in_process(engine, want, capsys):
     rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu"]

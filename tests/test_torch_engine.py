@@ -165,19 +165,31 @@ def test_simulation_facade():
 
 @pytest.mark.parametrize("case", ["banded", "shards", "clustered", "stream"])
 def test_unported_engines_raise(case):
+    """The sharded engines raise; the banded routes, which raised until the
+    banded engine was ported, now build and route: ``impl="banded"`` runs,
+    a clustered load with a band plan and a uniform load above 256 MB of
+    tiles (init only) go to banded, the latter on a uniform plan."""
     cfg = dict(seed=1, side=100.0, ncside=10, n_particles=2000)
-    kw = {}
+    if case == "shards":
+        with pytest.raises(NotImplementedError):
+            Engine(SimConfig(**cfg, n_shards=2), device="cpu")
+        return
     if case == "banded":
-        kw["impl"] = case
-    elif case == "shards":
-        cfg["n_shards"] = 2
-    elif case == "clustered":     # normal-mode blob with a band plan: banded
-        cfg.update(seed=-7, side=5000.0, ncside=100, n_particles=200_000)
-    else:                         # > 256 MB of tiles: banded streaming
-        cfg.update(side=600.0, ncside=600, n_particles=540_000)
-    with pytest.raises(NotImplementedError):
-        eng = Engine(SimConfig(**cfg), device="cpu", **kw)
+        eng = Engine(SimConfig(**cfg), device="cpu", impl=case)
+        out = eng.run(eng.init_state(), 2)
+        assert int(out.overflow) == 0 and out.x.shape == (2000,)
+    else:
+        if case == "clustered":   # normal-mode blob with a band plan
+            cfg.update(seed=-7, side=5000.0, ncside=100, n_particles=200_000)
+        else:                     # > 256 MB of tiles: banded streaming
+            cfg.update(side=600.0, ncside=600, n_particles=540_000)
+        eng = Engine(SimConfig(**cfg), device="cpu")
         eng.init_state()
+    assert eng.impl == "banded"
+    plan = eng._band_plan
+    assert sum(rw for _, rw, _ in plan) == cfg["ncside"]
+    assert (len({k for _, _, k in plan}) == 1) == (case != "clustered")
+    assert len(plan) >= (1 if case == "banded" else 2)
 
 
 @pytest.mark.parametrize("args", [

@@ -165,8 +165,8 @@ def test_fast_golden_tiered(vec):
 
 
 # A clustered load with a band plan: the JAX census routes it to banded
-# (tests/test_tiered.py), and the port's raises there
-# (tests/test_torch_engine.py::test_unported_engines_raise[clustered]).
+# (tests/test_tiered.py), and so does the port's
+# (tests/test_torch_banded.py::test_census_routes_clustered_load_like_jax).
 BANDED_LOAD = SimConfig(-7, 5000.0, 100, 200_000)
 
 
