@@ -77,6 +77,27 @@ r. N = 1e7 (seed 1, side 5000, ncside 316): the census's streaming route
    (banded on 12 bands of 27 rows, K 192), 10 steps against 10 of
    resident, and both timed.
 
+Then the 1D row mesh (``parallel/sharded.ShardedEngine``) on a local mesh
+of the card (D shards in one process), at the flagship (golden s1's config):
+
+s. the CLI with ``--mesh 4`` and ``--mesh 3`` (an uneven split of the 100
+   rows), as a subprocess: golden s1's lines exactly;
+t. parity (the f64 slab sweep) at D = 4 against the one-device parity
+   engine on the card, bit for bit by pid after 4 steps; parity mesh on
+   cuda against parity mesh on cpu, bit for bit, on two small configs;
+u. fast (resident tiles with halo rows, by the census) at D = 4: golden
+   s1's count and particle 0 within ±0.002, the one-device resident run's
+   count and dead set, positions within 1e-6·side; the fused kernel
+   launched, and held to its plain version on the mesh run's own tiles;
+   no host sync in the run loop;
+v. the ladder: a slab capacity below the fullest shard's count takes the
+   CAP_OVF retry and ends on the bits of the default capacity's run;
+w. checkpoints: 2 steps, save, restore as saved (D = 4) and re-packed onto
+   D = 2, 2 more steps: parity bit for bit with 4 uninterrupted steps,
+   fast with their count and dead set;
+x. ms/step, device ms/step, idle share, launches and syncs a step at
+   D = 1, 2 and 4 in both precisions.
+
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
 each tile engine's run loop run under
@@ -762,11 +783,12 @@ def _parity(seed, side, nc, n, device):
                   device=device)
 
 
-def check_cli_parity():
-    """(a) The CLI as a user runs it, with the default engine (parity) and
-    device (cuda): golden s1's exact output lines, and "%.1fs" on stderr."""
+def check_cli_parity(extra=()):
+    """(a, s) The CLI as a user runs it, with the default engine (parity)
+    and device (cuda), and ``extra`` arguments (``--mesh N``): golden s1's
+    exact output lines, and "%.1fs" on stderr."""
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
-    args = [str(seed), str(int(side)), str(nc), str(n), str(steps)]
+    args = [str(seed), str(int(side)), str(nc), str(n), str(steps), *extra]
     t = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "particlesimulation_tpu_torch",
                         *args], cwd=ROOT, capture_output=True, text=True,
@@ -1261,6 +1283,163 @@ def check_banded(card, tiered, dense):
           f"{json.dumps(times)}", flush=True)
     return launches, recs
 
+# Parity on the mesh, cuda against cpu bit for bit: (config, steps, D); the
+# second is phase (c)'s ~156 particles a cell on an uneven split of 8 rows.
+MESH_CARD_VS_CPU = (((8555, 0.05, 3, 30), 20, 3),
+                    ((1, 100.0, 8, 10_000), 10, 3))
+MESH_FIELDS = ("pid", "x", "y", "vx", "vy", "m", "alive")
+
+
+class _Valid:
+    """The valid slots of a mesh state under a single-device state's field
+    names (for ``compare_runs``)."""
+
+    def __init__(self, state):
+        for f in MESH_FIELDS:
+            setattr(self, f, getattr(state, f)[state.valid])
+
+
+def _same_bits(label, a, b):
+    """Two {field: array} views in pid order, bit for bit."""
+    bad = [f for f in MESH_FIELDS if not np.array_equal(a[f], b[f])]
+    if bad:
+        raise AssertionError(f"{label}: {bad} differ")
+    print(f"{label}: {', '.join(MESH_FIELDS)} bitwise equal", flush=True)
+
+
+def check_mesh(card):
+    """(s)-(x) The 1D row mesh (``parallel/sharded``) on a local mesh of the
+    card at the flagship: the CLI, parity against the single device and the
+    CPU, the fast mesh (resident tiles) with its fused kernel, the ladder,
+    checkpoints, and the step times at D = 1, 2 and 4. Returns the fast
+    mesh path's launch counts and the fused kernel's record on its tiles."""
+    import tempfile
+
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded_resident import (
+        make_sharded_resident_run)
+    from particlesimulation_tpu_torch.utils import checkpointing
+
+    t0 = time.perf_counter()
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    parity, fast = Precision.PARITY, Precision.FAST
+
+    def mesh(d, precision=fast, device="cuda", args=GOLDEN_S1[:4]):
+        return ShardedEngine(SimConfig(*args, precision=precision,
+                                       n_shards=d), device=device)
+
+    # s. The CLI through the mesh: an even and an uneven split of 100 rows.
+    for d in (4, 3):
+        check_cli_parity(("--mesh", str(d)))
+
+    # t. Parity: the mesh against the single device on the card, and the
+    # mesh on cuda against the mesh on cpu, bit for bit.
+    single = _parity(seed, side, nc, n, "cuda")
+    ss = single.run(single.init_state(), steps)
+    order = torch.argsort(ss.pid)
+    want = {f: getattr(ss, f)[order].cpu().numpy() for f in MESH_FIELDS}
+    pm = mesh(4, parity)
+    pstate = pm.init_state()
+    pout = pm.run(pstate, steps)
+    _same_bits(f"golden s1 parity on cuda, mesh D=4 vs one device "
+               f"({int(pout.collisions)} collisions)", pm.gather(pout), want)
+    if not int(pout.collisions) == int(ss.collisions) == ec:
+        raise AssertionError("golden s1 parity mesh: collisions")
+    for args, k, d in MESH_CARD_VS_CPU:
+        outs = []
+        for device in ("cuda", "cpu"):
+            e = mesh(d, parity, device, args)
+            o = e.run(e.init_state(), k)
+            outs.append((e.gather(o), int(o.collisions)))
+        _same_bits(f"parity mesh D={d} {args}, {k} steps, cuda vs cpu "
+                   f"({outs[0][1]} = {outs[1][1]} collisions)",
+                   outs[0][0], outs[1][0])
+        if outs[0][1] != outs[1][1]:
+            raise AssertionError("parity mesh cuda vs cpu: collisions")
+
+    # u. Fast: D = 4 at the flagship through the census (resident tiles).
+    fm = mesh(4)
+    fstate = fm.init_state()
+    if fm.impl != "resident":
+        raise AssertionError(f"flagship mesh census: {fm.impl}")
+    fout, launches = check_golden("golden s1 mesh resident D=4", fm, fstate,
+                                  steps, (ex, ey, ec), ["fused_pairs"])
+    rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
+    rout = rs.run(rs.init_state(), steps)
+    compare_runs("golden s1, mesh resident D=4 vs one-device resident on "
+                  "cuda", (int(fout.collisions), _Valid(fout), side),
+                  (int(rout.collisions), rout, side), 1e-6, 1e-5)
+    _, pair_tiles, run = make_sharded_resident_run(
+        fm.config, fm.mesh, fm.kcap, fm.capacity, fm.ship_rounds)
+    rec = fused_record("mesh resident D=4 tiles", pair_tiles(fstate, steps),
+                       "v4", True, planted=False)
+    check_no_sync("mesh resident D=4", run, fstate)
+
+    # v. The ladder: a slab capacity below the fullest shard's count, so
+    # the first attempt's epilogue overflows (CAP_OVF) for certain.
+    lad = mesh(4)
+    lstate = lad.init_state()
+    tight = int(lstate.valid.view(4, -1).sum(1).max()) - 1000
+    lad.capacity = tight
+    lout = lad.run(lstate, steps)
+    if lad.capacity <= tight or lad.impl != "resident":
+        raise AssertionError(f"ladder: capacity {lad.capacity}, {lad.impl}")
+    _same_bits(f"ladder, slab capacity {tight} -> {lad.capacity} after "
+               f"CAP_OVF, vs {fm.capacity}", lad.gather(lout),
+               fm.gather(fout))
+
+    # w. Checkpoints: 2 steps, save, restore as saved (D = 4) and re-packed
+    # onto D = 2, 2 more steps; against the 4 uninterrupted steps.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mid.npz")
+        for prec, eng0, st0, full in ((parity, pm, pstate, pout),
+                                      (fast, fm, fstate, fout)):
+            mid = eng0.run(st0, 2)
+            checkpointing.save_sharded_state(
+                path, mid, n_shards=4, row_starts=eng0.config.row_starts)
+            ref = eng0.gather(full)
+            for d in (4, 2):
+                e = eng0 if d == 4 else mesh(2, prec)
+                out = e.run(checkpointing.restore_sharded(path, e),
+                            steps - 2)
+                label = (f"checkpoint {prec.value} D=4 -> D={d}, 2 + 2 "
+                         f"steps vs 4")
+                got = e.gather(out)
+                if int(out.collisions) != int(full.collisions):
+                    raise AssertionError(f"{label}: collisions")
+                if prec is parity:
+                    _same_bits(label, got, ref)
+                elif not np.array_equal(got["alive"], ref["alive"]):
+                    raise AssertionError(f"{label}: dead sets differ")
+                else:
+                    print(f"{label}: {int(out.collisions)} collisions, dead "
+                          f"sets equal, max|dpos| "
+                          f"{np.abs(got['x'] - ref['x']).max():.3e}",
+                          flush=True)
+
+    # x. Step times at D = 1, 2 and 4 in both precisions.
+    times = {}
+    for prec, k, dsteps in ((parity, 4, 2), (fast, 20, 10)):
+        for d in (1, 2, 4):
+            e, st = ((pm, pstate) if prec is parity else (fm, fstate)) \
+                if d == 4 else (mesh(d, prec), None)
+            st = st or e.init_state()
+            ms, t1, tk = step_ms(e, st, k, reps=1 if prec is parity else 2)
+            label = f"mesh {prec.value} D={d}"
+            print(f"{label}, {e.impl}, kcap {e.kcap}, slab {e.capacity}: "
+                  f"{ms:.4f} ms/step, {n / ms / 1e3:.2f} M particle-steps/s "
+                  f"(run(1) {t1:.4f} s, run({k + 1}) {tk:.4f} s) on {card}",
+                  flush=True)
+            times[label] = {"ms": ms, **device_breakdown(label, e, st, ms,
+                                                         dsteps)}
+    if any(times[f"mesh fast D={d}"]["syncs"] != 0 for d in (1, 2, 4)):
+        raise AssertionError("mesh resident: host syncs in the run")
+    print(f"mesh phases: {time.perf_counter() - t0:.1f} s; per step "
+          f"{json.dumps(times)}", flush=True)
+    return launches, rec
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1409,6 +1588,9 @@ def main():
     banded_launches, _ = check_banded(card, (eng_t, state_t),
                                       (eng_dun, state_dun))
 
+    # 11. The 1D row mesh at the flagship on a local mesh of the card.
+    mesh_launches, _ = check_mesh(card)
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
@@ -1421,8 +1603,8 @@ def main():
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
           f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
           f"fast SMALL {small_cli}, banded UNEVEN (2 steps: 13 fused "
-          f"launches a step and 13 for the first pass) {banded_launches}",
-          flush=True)
+          f"launches a step and 13 for the first pass) {banded_launches}, "
+          f"mesh resident D=4 (golden s1) {mesh_launches}", flush=True)
     print(json.dumps({"kernels": [
         entry("fused_pairs", res_launches["fused_pairs"],
               on_path[("v4", True)]),

@@ -8,12 +8,14 @@ the JAX package's, so each module's counterpart is easy to find; the JAX
 package is the reference the port is tested against, and the port never
 imports it (nor jax).
 
-So far the port runs on one device (``engine.Engine``, behind
-``models.Simulation`` and the CLI, ``python -m particlesimulation_tpu_torch``):
-the f32 fast engines (slot-resident, dense, occupancy-classed tiered tiles
-for clustered loads, and the sweep), with every Pallas kernel of the JAX
-package rewritten in CUDA (``csrc/cell_pairs.cu``), and the f64 parity
-engine, which reproduces the reference's arithmetic bit for bit.
+The port runs on one device (``engine.Engine``, behind ``models.Simulation``
+and the CLI, ``python -m particlesimulation_tpu_torch``): the f32 fast
+engines (slot-resident, supercell, banded, dense, occupancy-classed tiered
+tiles, and the sweep), with every Pallas kernel of the JAX package rewritten
+in CUDA (``csrc/cell_pairs.cu``), and the f64 parity engine, which
+reproduces the reference's arithmetic bit for bit; and on the 1D row mesh
+(``parallel.sharded.ShardedEngine``, ``--mesh N``), whose shards a local
+mesh holds on one device.
 """
 
 __version__ = "0.1.0"

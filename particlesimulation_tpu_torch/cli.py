@@ -5,7 +5,7 @@ Usage mirrors the reference binary (reference serial/parsim.cpp:461-469):
     python -m particlesimulation_tpu_torch <seed> <side_length> <grid_size> \
         <n_particles> <n_timesteps> [--engine parity|fast] \
         [--impl resident|supercell|banded|dense|tiered|sweep] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--mesh N]
 
 stdout: two lines — particle 0's position at three decimals, then the
 cumulative collision count (serial/parsim.cpp:450-453). Wall time goes to
@@ -13,8 +13,11 @@ stderr as "%.1fs" (serial/parsim.cpp:475-479), timing only the step loop, as
 the reference does; a ``run(state, 0)`` warm-up (the kernel build) runs
 before the timer. The engine is parity (float64, the reference's operation
 order) unless ``--engine fast`` is given; the device is ``cuda`` unless
-``--device cpu`` is given. ``--mesh`` with more than one device is refused:
-the sharded engines are not ported.
+``--device cpu`` is given. ``--mesh N`` runs the 1D row mesh of N shards
+(``parallel/sharded.ShardedEngine``) on a local mesh: N shards in this
+process on the one device, the analog of the JAX CLI's virtual CPU mesh.
+Parity runs its f64 sweep; fast precision takes ``--impl resident|sweep``
+or the census. ``--mesh RxC`` (the 2D mesh) is refused: not ported.
 """
 
 from __future__ import annotations
@@ -25,18 +28,10 @@ import time
 USAGE = ("Usage: python -m particlesimulation_tpu_torch <seed> <side_length> "
          "<grid_size> <n_particles> <n_timesteps> [--engine parity|fast] "
          "[--impl resident|supercell|banded|dense|tiered|sweep] "
-         "[--device cuda|cpu] "
+         "[--device cuda|cpu] [--mesh N] "
          "(default: parity on cuda; fast precision census-routes without "
-         "--impl)")
+         "--impl; mesh impls: resident|sweep)")
 _FLAGS = ("--engine", "--impl", "--device", "--mesh")
-
-
-def _devices(mesh: str) -> int:
-    """Devices a ``--mesh`` value asks for: "N" or "RxC"."""
-    n = 1
-    for v in mesh.split("x"):
-        n *= int(v)
-    return n
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -56,26 +51,34 @@ def main(argv: list[str] | None = None) -> int:
         seed, side, ncside, n_particles, n_steps = (
             int(pos_args[0]), float(pos_args[1]), int(pos_args[2]),
             int(pos_args[3]), int(pos_args[4]))
-        mesh = _devices(opts["--mesh"])
+        mesh = [int(v) for v in opts["--mesh"].split("x")]
     except (IndexError, ValueError):
         print(USAGE, file=sys.stderr)
         return 1
-    if len(pos_args) != 5 or opts["--engine"] not in ("parity", "fast"):
+    if (len(pos_args) != 5 or opts["--engine"] not in ("parity", "fast")
+            or len(mesh) > 2):
         print(USAGE, file=sys.stderr)
         return 1
-    if mesh > 1:
-        print(f"--mesh {opts['--mesh']}: the sharded engines are not ported "
-              f"yet; this port runs on one device", file=sys.stderr)
+    n_shards = mesh[0] * (mesh[1] if len(mesh) > 1 else 1)
+    if len(mesh) > 1 and n_shards > 1:
+        print(f"--mesh {opts['--mesh']}: the 2D sharded engines are not "
+              f"ported yet (sharded2d); --mesh N runs the 1D row mesh",
+              file=sys.stderr)
         return 2
 
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
 
     precision = (Precision.PARITY if opts["--engine"] == "parity"
                  else Precision.FAST)
     config = SimConfig(seed=seed, side=side, ncside=ncside,
-                       n_particles=n_particles, precision=precision)
-    eng = Engine(config, impl=opts["--impl"], device=opts["--device"])
+                       n_particles=n_particles, precision=precision,
+                       n_shards=n_shards)
+    # Parity always runs the sweep (ShardedEngine forces it, as the
+    # single-device engine does); fast precision takes --impl or the census.
+    cls = ShardedEngine if n_shards > 1 else Engine
+    eng = cls(config, impl=opts["--impl"], device=opts["--device"])
     state = eng.init_state()
     # Warm-up outside the timed region (the reference's timer brackets only
     # simulate(); building the kernels is the analog of g++'s compile).

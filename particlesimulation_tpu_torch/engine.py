@@ -354,7 +354,9 @@ class Engine:
                  pair_impl: str | None = None):
         if config.n_shards > 1:
             raise NotImplementedError(
-                "the sharded engines are not ported yet (n_shards > 1)")
+                "Engine runs one shard; for n_shards > 1 use "
+                "parallel.sharded.ShardedEngine (models.Simulation and the "
+                "CLI's --mesh choose it)")
         if clustered_impl not in CLUSTERED_IMPLS:
             raise ValueError(f"clustered_impl {clustered_impl!r}; valid: "
                              f"{CLUSTERED_IMPLS}")

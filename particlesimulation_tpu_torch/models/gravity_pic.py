@@ -20,6 +20,7 @@ import torch
 
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.engine import Engine
+from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
 
 
 @dataclasses.dataclass
@@ -32,13 +33,16 @@ class RunResult:
     def gather(self):
         """Full particle arrays in original-id order, as NumPy arrays."""
         st = self.state
+        if hasattr(st, "valid"):
+            return self.engine.gather(st)
         order = torch.argsort(st.pid)
         return {f: getattr(st, f)[order].cpu().numpy()
                 for f in ("x", "y", "vx", "vy", "m", "alive", "pid")}
 
 
 class Simulation:
-    """High-level entry point to the single-device engine.
+    """High-level entry point: the single-device engine, or the mesh engine
+    (``parallel.sharded.ShardedEngine``) when ``n_shards > 1``.
 
     ``precision="fast"`` (the default) runs the f32 engine the census picks;
     ``precision="parity"`` runs the f64 sweep, bit for bit the reference's
@@ -53,7 +57,10 @@ class Simulation:
         self.config = SimConfig(
             seed=seed, side=side, ncside=ncside, n_particles=n_particles,
             precision=Precision(precision), n_shards=n_shards, **kw)
-        self.engine = Engine(self.config, device=device)
+        if n_shards > 1:
+            self.engine = ShardedEngine(self.config, device=device)
+        else:
+            self.engine = Engine(self.config, device=device)
         self._state = None
 
     @property

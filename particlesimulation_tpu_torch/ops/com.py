@@ -27,11 +27,13 @@ import torch
 from particlesimulation_tpu_torch.ops.binning import occupancy, segment_positions
 
 
-def com_parity(key_sorted, x, y, m, ncells: int, plan=None):
+def com_parity(key_sorted, x, y, m, ncells: int, plan=None, pos=None):
     """Exact-order COM. Returns (M, MX, MY) each (ncells,) in x's dtype.
 
     ``plan`` is ``binning.occupancy(key_sorted, ncells)``, made here if not
-    given."""
+    given; ``pos`` each lane's position in its cell, from
+    ``binning.segment_positions(key_sorted)`` if not given (the mesh engine
+    passes it for keys whose cells are contiguous but not sorted)."""
     plan = plan or occupancy(key_sorted, ncells)
     M, MX, MY = (torch.zeros(ncells, dtype=x.dtype, device=x.device)
                  for _ in range(3))
@@ -42,7 +44,8 @@ def com_parity(key_sorted, x, y, m, ncells: int, plan=None):
     # Position-major lanes: position p's lanes, one per cell holding more
     # than p particles, in the plan's cell order, are one contiguous block.
     lanes = plan.order[:plan.lanes[0]]
-    pos, _ = segment_positions(key_sorted)
+    if pos is None:
+        pos, _ = segment_positions(key_sorted)
     pm = lanes[torch.sort(pos[lanes], stable=True).indices]
     kp, xp, yp, mp = (a[pm] for a in (key_sorted, x, y, m))
     ncell = plan.cells[0]
@@ -66,12 +69,14 @@ def com_parity(key_sorted, x, y, m, ncells: int, plan=None):
     return M, MX, MY
 
 
-def com_fast(key_sorted, x, y, m, ncells: int, plan=None):
+def com_fast(key_sorted, x, y, m, ncells: int, plan=None, pos=None):
     """Order-free COM (the f32 sweep engine's), summed over (ncells, kmax)
-    rows so that its bits do not depend on the run."""
+    rows so that its bits do not depend on the run. ``plan`` and ``pos`` as
+    in :func:`com_parity`."""
     plan = plan or occupancy(key_sorted, ncells)
     kmax = max(plan.kmax, 1)
-    pos, _ = segment_positions(key_sorted)
+    if pos is None:
+        pos, _ = segment_positions(key_sorted)
     slot = torch.where(key_sorted < ncells,
                        key_sorted.to(torch.int64) * kmax + pos, ncells * kmax)
 

@@ -63,16 +63,19 @@ def binned_mask(ts: TileState, side: float, ncside: int):
     return ts.occ & valid, torch.sum(ts.occ & ~valid, dtype=torch.int32)
 
 
-def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None):
+def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None,
+          nrows: int | None = None):
     """Deliver all movers to their destination rows. Returns (ts', undelivered).
 
-    The tiles hold one row per cell of an ``ncside × ncside`` row grid.
-    ``dest_fn(ts) -> (moving, dest_row)`` marks the movers and gives each
-    slot's destination row on a grid of other rows (the supercell engine's
-    super-cells, ``ops/supercell``); by default a slot's row is its cell.
-    ``undelivered`` is ``deliver``'s.
+    The tiles hold one row per cell of an ``nrows × ncside`` row grid
+    (``nrows`` defaults to ``ncside``; the mesh engine's stacked local
+    grids have each shard's owned rows and two halo rows). ``dest_fn(ts) ->
+    (moving, dest_row)`` marks the movers and gives each slot's destination
+    row on that grid or on a grid of other rows (the supercell engine's
+    super-cells, ``ops/supercell``; the mesh engine's local rows); by
+    default a slot's row is its cell. ``undelivered`` is ``deliver``'s.
     """
-    ncells = ncside * ncside
+    ncells = (nrows or ncside) * ncside
     dev = ts.x.device
     if dest_fn is None:
         row = torch.arange(ncells, device=dev)[:, None]
@@ -165,18 +168,23 @@ def epilogue(ts: TileState, n: int, side: float, ncside: int):
 
 
 def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
-                  side: float, ncside: int):
+                  side: float, ncside: int, finish=None):
     """(pair_tiles, run) of a slot-resident engine from its phases.
 
-    ``prologue(state)`` lays a sorted SimState out in tiles;
-    ``advance(ts, fxd, fyd)`` runs a step's monopole, integrate and rebin
-    and returns (ts, undelivered, limbo_count); ``pair_args(ts)`` gives the
-    pair pass's tile arguments and ``pair_pass(ts, collide)`` runs it, giving
-    (fx, fy, count, died). ``run(state, n_steps)`` returns the final SimState
-    (on ``ncside``'s cell grid); ``pair_tiles(state, n_steps)`` the
-    ``pair_args`` that step ``n_steps`` of that run hands its pair pass (0:
-    the run's first pass), holes and limbo slots as they lie.
+    ``prologue(state)`` lays a state out in tiles; ``advance(ts, fxd,
+    fyd)`` runs a step's monopole, integrate and rebin and returns (ts,
+    undelivered, limbo_count); ``pair_args(ts)`` gives the pair pass's tile
+    arguments and ``pair_pass(ts, collide)`` runs it, giving (fx, fy,
+    count, died); ``finish(ts, state)`` gives the run's final state from
+    its tiles and its input state (by default ``epilogue``'s SimState on
+    ``ncside``'s cell grid). ``run(state, n_steps)`` returns the final
+    state; ``pair_tiles(state, n_steps)`` the ``pair_args`` that step
+    ``n_steps`` of that run hands its pair pass (0: the run's first pass),
+    holes and limbo slots as they lie.
     """
+    if finish is None:
+        def finish(ts, state):
+            return epilogue(ts, state.x.shape[0], side, ncside)
 
     def step(ts, fxd, fyd):
         ts, undelivered, limbo_count = advance(ts, fxd, fyd)
@@ -194,7 +202,7 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
         fxd, fyd, _, _ = pair_pass(ts, collide=False)
         for _ in range(n_steps):
             ts, fxd, fyd = step(ts, fxd, fyd)
-        return epilogue(ts, state.x.shape[0], side, ncside)
+        return finish(ts, state)
 
     def pair_tiles(state, n_steps: int):
         ts = prologue(state)

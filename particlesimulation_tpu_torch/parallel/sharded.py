@@ -1,0 +1,624 @@
+"""Row-sharded engine over a 1D mesh (counterpart of the JAX package's
+``parallel/sharded.py``).
+
+Spatial decomposition as in the reference MPI variant (reference
+mpi/parsim-mpi.cpp:330-465): the ``ncside`` grid rows are split into
+contiguous blocks, one per shard; each shard owns the particles whose cell
+row falls in its block, in a slab of C slots sorted by (cell key, pid). A
+sweep step, written against the mesh interface of ``parallel/mesh``:
+
+* local binning and COM over the shard's row block;
+* a one-row COM halo to each ring neighbour (``mesh.ppermute``; the
+  reference's Isend/Irecv ghost exchange, mpi/parsim-mpi.cpp:670-815): only
+  monopole data crosses shards, never particle bodies;
+* forces and integration against the halo-padded stencil;
+* emigrants ride a fixed-capacity ring buffer for D-1 hops (the reference's
+  Alltoall + point-to-point migration, mpi/parsim-mpi.cpp:512-600), landing
+  in free slab slots;
+* the post-move sort and collisions; the collision count, panics and
+  overflow are summed over the mesh (``mesh.psum``; MPI_Reduce,
+  mpi/parsim-mpi.cpp:1098-1099).
+
+Each cell lives wholly on one shard and its particles keep pid order, so
+per-cell arithmetic is the single-device sweep's: the f64 run is bitwise
+equal to the single-device parity engine (and to the JAX sharded engine).
+The sweeps run once over all the local shards' lanes: shard l's local cell
+c gets the key ``l * ncells_local + c``, so ``ops/com``, ``ops/forces`` and
+``ops/collisions`` run unchanged, cell by cell, with one occupancy readback
+a step as on one device; the halo tables are built per shard from global
+coordinates.
+
+Migration runs D-1 ring hops every step. The JAX engine gates its hops on
+a ``psum`` of the pending emigrants, a value the host would read each hop;
+its own comment notes that skipped hops forward an all-invalid buffer and
+accept nothing, so the unconditional D-1 hops give the same bits with no
+readback.
+
+Row decomposition is balanced-uneven (``SimConfig.rows_of_shard``) or
+census-planned (``parallel/balance``). Every shard's local COM grid is
+``rows_max`` tall; a shard with fewer rows leaves its tail rows empty and
+takes its bottom halo at row ``rows_mine + 1``.
+
+The f32 fast precision runs the sharded resident tiles
+(``parallel/sharded_resident``) by default, and this sweep in f32 on
+request or as the ladder's last rung. JAX's other mesh routes (sharded
+supercell for sparse loads, column-sharded banded for clustered ones and
+streaming bands for large uniform ones, the 2D mesh) are not ported: the
+census raises ``NotImplementedError`` naming the route where it reaches
+one, rather than run another engine than JAX would.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from particlesimulation_tpu_torch import engine as single
+from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimConfig
+from particlesimulation_tpu_torch.initializer import init_particles_host
+from particlesimulation_tpu_torch.ops import (binning, collisions, com, forces,
+                                              integrate)
+from particlesimulation_tpu_torch.ops.banded import plan_bands
+from particlesimulation_tpu_torch.ops.stencil import STENCIL
+from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
+from particlesimulation_tpu_torch.ops.tiered import plan_tiers
+from particlesimulation_tpu_torch.parallel.balance import plan_shard_rows
+from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
+from particlesimulation_tpu_torch.state import ShardedState
+
+# Overflow-cause sentinels. ``ShardedState.overflow`` combines causes by
+# maximum (counts of one cause add up below the sentinels; the sweep's
+# ``engine.RANK_OVF`` lies above them all), so the largest present wins and
+# the retry ladder dispatches on ranges: below SHIP_OVF, tile-occupancy /
+# migration counts (grow kcap or the sweep's buffers); SHIP_OVF, resident
+# emigrants still in transit after the last ship round (more rounds);
+# CAP_OVF + deficit, a slab out of slots (grow the slab); STRAY_OVF, a
+# particle outside its owner's rows (an invariant violation, not
+# capacity-fixable).
+SHIP_OVF = 1 << 27
+CAP_OVF = 1 << 28
+STRAY_OVF = 1 << 29
+INT32_MAX = np.iinfo(np.int32).max
+# Ship rounds beyond the D-hop worst case: the resident ladder's round cap
+# (the JAX resident engine's).
+SHIP_SLACK = 4
+# The JAX census's tile-capacity limit (its XLA kernels' MAX_XLA_KCAP): the
+# clustered-route test uses it, so that the port routes as JAX does.
+JAX_MAX_KCAP = 4096
+IMPLS = ("resident", "sweep")
+# JAX's mesh routes that the port does not run yet, by ``impl`` name.
+UNPORTED = {"supercell": "sharded_supercell",
+            "banded": "sharded_banded_cols",
+            "banded-cols": "sharded_banded_cols",
+            "banded-cyclic": "sharded_banded (block-cyclic)"}
+
+
+def shard_rows(config: SimConfig, mesh):
+    """(row0, rows_mine) of the mesh's local shards: (L,) int64 tensors."""
+    return (torch.tensor([config.row0_of_shard(s) for s in mesh.local_shards],
+                         device=mesh.device),
+            torch.tensor([config.rows_of_shard(s) for s in mesh.local_shards],
+                         device=mesh.device))
+
+
+def halo_pad(mesh, grids, rows_mine):
+    """Halo-padded COM grids: each (L, rows_max, nc) grid becomes
+    (L, rows_max + 2, nc) with row 0 the previous shard's last owned row and
+    row ``rows_mine + 1`` the next shard's first row (an empty tail row of a
+    shard with fewer than rows_max rows takes it). ``grids`` is a tuple."""
+    L, rows_max, nc = grids[0].shape
+    last = (rows_mine - 1).view(L, 1, 1).expand(L, 1, nc)
+    top = mesh.ppermute(tuple(torch.gather(g, 1, last)[:, 0] for g in grids),
+                        1)
+    bot = mesh.ppermute(tuple(g[:, 0] for g in grids), -1)
+    rows = torch.arange(rows_max + 2, device=rows_mine.device)
+    at_bot = rows[None, :, None] == (rows_mine + 1)[:, None, None]
+    out = []
+    for g, t, b in zip(grids, top, bot):
+        gp = torch.cat([t[:, None], g, g.new_zeros(L, 1, nc)], dim=1)
+        out.append(torch.where(at_bot, b[:, None], gp))
+    return tuple(out)
+
+
+def stencil_tables_halo(Mp, MXp, MYp, side: float, ncside: int, row0):
+    """Monopole stencil tables of halo-padded local COM grids.
+
+    Mp/MXp/MYp: (L, rows_local + 2, ncside) from ``halo_pad``; row0: (L,)
+    first global row of each shard. Mirror offsets are applied here, by the
+    consumer, from global coordinates, so halo payloads are raw COM data (as
+    in the reference, where ghosts carry plain COM and the mirror is
+    resolved at force time, mpi/parsim-mpi.cpp:874-935); the values and
+    their rounding are ``ops/stencil.stencil_tables``'. Returns (ml, mxl,
+    myl): each (8, L * rows_local * ncside + 1), shard-major, with a zero
+    sentinel column.
+    """
+    dt, dev = MXp.dtype, MXp.device
+    nc = ncside
+    rows_local = Mp.shape[1] - 2
+    side_a = torch.full((), side, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    cx = torch.arange(nc, device=dev)[None, None, :]
+    gy = row0[:, None, None] + torch.arange(rows_local, device=dev)[:, None]
+
+    ml, mxl, myl = [], [], []
+    for dx, dy in STENCIL:
+        sl = slice(1 + dy, 1 + dy + rows_local)
+        rm, rmx, rmy = (torch.roll(a[:, sl], -dx, dims=2)
+                        for a in (Mp, MXp, MYp))
+        if dx == 1:
+            offx = torch.where(cx == nc - 1, side_a, zero)
+        elif dx == -1:
+            offx = torch.where(cx == 0, -side_a, zero)
+        else:
+            offx = zero
+        # Mirror in y only where the *global* neighbour row wraps.
+        if dy == 1:
+            offy = torch.where(gy + 1 >= nc, side_a, zero)
+        elif dy == -1:
+            offy = torch.where(gy - 1 < 0, -side_a, zero)
+        else:
+            offy = zero
+        ml.append(rm.reshape(-1))
+        mxl.append((offx + rmx).reshape(-1))
+        myl.append((offy + rmy).reshape(-1))
+
+    pad = torch.zeros((8, 1), dtype=dt, device=dev)
+    return (torch.cat([torch.stack(ml), pad], dim=1),
+            torch.cat([torch.stack(mxl), pad], dim=1),
+            torch.cat([torch.stack(myl), pad], dim=1))
+
+
+def sort_slabs(key, pid, *arrays):
+    """Sort each shard's slab (rows of (L, C) tensors) by (key, pid), ties
+    (empty slots of one pid) in slot order. Returns (key, pid, *arrays)."""
+    composite = key.to(torch.int64) * (1 << 32) + pid.to(torch.int64)
+    order = torch.argsort(composite, dim=1, stable=True)
+    return tuple(torch.gather(a, 1, order) for a in (key, pid) + arrays)
+
+
+def _slab_key(x, y, valid, side, nc):
+    key, in_range = binning.cell_keys(x, y, side, nc)
+    return torch.where(valid, key, nc * nc + 1), in_range
+
+
+def make_sharded_step(config: SimConfig, mesh, cap: int, bcap: int):
+    """Build (step, run) of the sweep over the mesh's slabs of ``cap`` slots,
+    with emigrant buffers of ``bcap`` entries: parity (f64, the reference's
+    operation order) or fast (f32), by ``config.precision``.
+
+    ``step(state, plan)`` takes a ShardedState and ``plan``, the occupancy
+    of its batched cell keys, and returns the next state and the plan of
+    its keys, as ``engine.make_step``'s step does; ``run(state, n_steps)``
+    returns the final ShardedState.
+    """
+    side = config.side
+    nc = config.ncside
+    ncells = config.ncells
+    d = config.n_shards
+    ncl = config.rows_max * nc              # local cells of one shard
+    parity = config.precision is Precision.PARITY
+    dev = mesh.device
+    L = len(mesh.local_shards)
+    nb = L * ncl                            # cells of the batched grid
+    row0, rows_mine = shard_rows(config, mesh)
+    me = mesh.shard_ids[:, None]
+    lpos = torch.arange(L, device=dev)[:, None]
+    owner = torch.as_tensor(config.shard_of_row(np.arange(nc)),
+                            dtype=torch.int64, device=dev)
+
+    def lanes(key):
+        """Batched keys of (L, C) global keys, flat: real lanes get their
+        shard's local cell plus l * ncl, sentinel lanes nb. And each lane's
+        position in its cell (from a sorted surrogate key that keeps the
+        out-of-range and empty lanes of each shard apart)."""
+        real = key < ncells
+        lk = key - row0[:, None] * nc
+        bkey = torch.where(real, lpos * ncl + lk, nb).reshape(-1)
+        skey = lpos * (ncl + 2) + torch.where(real, lk, key - ncells + ncl)
+        pos, _ = binning.segment_positions(skey.reshape(-1))
+        return bkey, pos
+
+    def step(state: ShardedState, plan):
+        x, y, vx, vy, m, alive, valid, pid = (a.view(L, -1)
+                                              for a in state[:8])
+        # ---- binning, local COM, pair forces (the slab arrives sorted) ----
+        key, _ = _slab_key(x, y, valid, side, nc)
+        bkey, pos = lanes(key)
+        X, Y, Mf, Af = (a.reshape(-1) for a in (x, y, m, alive))
+        if parity:
+            M, MX, MY = com.com_parity(bkey, X, Y, Mf, nb, plan, pos)
+            fx, fy = forces.pairwise_forces_parity_blocked(X, Y, Mf, Af,
+                                                           bkey, nb, plan)
+        else:
+            M, MX, MY = com.com_fast(bkey, X, Y, Mf, nb, plan, pos)
+            fx, fy = forces.pairwise_forces_fast(X, Y, Mf, Af, bkey, nb,
+                                                 plan)
+        # ---- COM halo ring, then the monopole terms ----
+        grids = tuple(a.view(L, config.rows_max, nc) for a in (M, MX, MY))
+        ml, mxl, myl = stencil_tables_halo(*halo_pad(mesh, grids, rows_mine),
+                                           side, nc, row0)
+        fx, fy = forces.monopole_forces(X, Y, Mf, Af, bkey, fx, fy, ml, mxl,
+                                        myl, nb)
+        # ---- integrate + wrap ----
+        x, y, vx, vy = (a.view(L, -1) for a in integrate.integrate(
+            X, Y, vx.reshape(-1), vy.reshape(-1), Mf, fx, fy, side, DELTAT))
+
+        # ---- migration (reference P4) ----
+        key2, _ = _slab_key(x, y, valid, side, nc)
+        real2 = valid & (key2 < ncells)
+        dest = torch.where(real2, owner[torch.where(real2, key2 // nc, 0)],
+                           me)
+        emig = valid & (dest != me)
+        overflow = torch.clamp(torch.sum(emig, dim=1, dtype=torch.int32)
+                               - bcap, min=0)
+        # Emigrants in slab order into the ring buffer.
+        take = torch.argsort((~emig).to(torch.uint8), dim=1,
+                             stable=True)[:, :bcap]
+        blen = take.shape[1]
+        buf = {k: torch.gather(a, 1, take) for k, a in (
+            ("x", x), ("y", y), ("vx", vx), ("vy", vy), ("m", m),
+            ("alive", alive), ("pid", pid), ("dest", dest), ("valid", emig))}
+        valid = valid & ~emig
+        for _ in range(d - 1):
+            buf = mesh.ppermute(buf, 1)
+            arr = buf["valid"] & (buf["dest"] == me)
+            n_arr = torch.sum(arr, dim=1, dtype=torch.int32)
+            # Arrivals, in buffer order, fill the free slots in slot order.
+            aorder = torch.argsort((~arr).to(torch.uint8), dim=1,
+                                   stable=True)
+            free = ~valid
+            slot_rank = torch.cumsum(free.to(torch.int32), dim=1) - 1
+            src = torch.gather(aorder, 1, torch.clamp(slot_rank, 0,
+                                                      blen - 1))
+            fill = free & (slot_rank < n_arr[:, None])
+            overflow = overflow + torch.clamp(
+                n_arr - torch.sum(free, dim=1, dtype=torch.int32), min=0)
+
+            def put(slab, k):
+                return torch.where(fill, torch.gather(buf[k], 1, src), slab)
+
+            x, y, vx, vy, m, alive, pid = (
+                put(a, k) for a, k in ((x, "x"), (y, "y"), (vx, "vx"),
+                                       (vy, "vy"), (m, "m"),
+                                       (alive, "alive"), (pid, "pid")))
+            valid = valid | fill
+            buf["valid"] = buf["valid"] & ~arr
+
+        # Cleared slots hold inert values (m = 0 freezes them everywhere).
+        x, y, m = (torch.where(valid, a, 0.0) for a in (x, y, m))
+        alive = alive & valid
+
+        # ---- post-move sort + collisions (the one sort a step) ----
+        key3, in_range3 = _slab_key(x, y, valid, side, nc)
+        panics = torch.sum(valid & ~in_range3, dim=1, dtype=torch.int32)
+        key3, pid, x, y, vx, vy, m, alive, valid = sort_slabs(
+            key3, pid, x, y, vx, vy, m, alive, valid)
+        bkey3, pos3 = lanes(key3)
+        plan2 = binning.occupancy(bkey3, nb)
+        count, died = collisions.detect_collisions_blocked(
+            x.reshape(-1), y.reshape(-1), alive.reshape(-1), bkey3, pos3,
+            EPSILON, nb, plan2)
+        m, alive = collisions.apply_deaths(m.reshape(-1), alive.reshape(-1),
+                                           died)
+        # Counts add up; the rank sentinel is combined by maximum, as on
+        # one device, so that it holds however many steps raise it.
+        overflow = state.overflow + mesh.psum(overflow)
+        if collisions.rank_overflow(plan2.kmax):
+            overflow = torch.clamp(overflow, min=single.RANK_OVF)
+        return ShardedState(
+            x=x.reshape(-1), y=y.reshape(-1), vx=vx.reshape(-1),
+            vy=vy.reshape(-1), m=m, alive=alive, valid=valid.reshape(-1),
+            pid=pid.reshape(-1),
+            collisions=state.collisions + mesh.psum(count[None]),
+            panics=state.panics + mesh.psum(panics),
+            overflow=overflow), plan2
+
+    def run(state: ShardedState, n_steps: int) -> ShardedState:
+        key, _ = _slab_key(state.x.view(L, -1), state.y.view(L, -1),
+                           state.valid.view(L, -1), side, nc)
+        plan = binning.occupancy(lanes(key)[0], nb)
+        for _ in range(n_steps):
+            state, plan = step(state, plan)
+        return state
+
+    return step, run
+
+
+class ShardedEngine:
+    """Mesh engine with the single-device engine's interface.
+
+    Two implementations on the row-block decomposition:
+
+    * ``sweep`` — sorted per-shard slabs, the neighbour-offset sweep. The
+      f64 parity path (bitwise equal to the single-device parity engine);
+    * ``resident`` — per-shard slot tiles with halo rows and the fused pair
+      kernel (``parallel/sharded_resident``); the fast-precision default.
+
+    ``device`` defaults to ``cuda`` and raises without CUDA; the CPU only
+    when the caller passes ``device="cpu"``. The mesh is a ``LocalMesh`` of
+    ``config.n_shards`` shards on that device. ``impl`` None lets the census
+    route (fast precision); JAX's routes that are not ported raise
+    ``NotImplementedError`` naming the route. ``init_state`` plans
+    census-weighted row boundaries for clustered loads unless
+    ``config.row_starts`` fixes them.
+
+    Overflow replays the run losslessly: a slab out of slots grows the
+    slab, the sweep's migration buffers grow, resident tiles grow (then
+    escalate to the sweep), resident emigrants left in transit get more
+    ship rounds.
+    """
+
+    def __init__(self, config: SimConfig, impl: str | None = None,
+                 kcap: int | None = None, device=None):
+        if config.mesh_shape:
+            raise NotImplementedError(
+                f"mesh_shape {config.mesh_shape}: the 2D mesh engines "
+                f"(sharded2d, sharded2d_resident) are not ported yet")
+        parity = config.precision is Precision.PARITY
+        if parity:
+            impl = None  # parity always runs the sweep, as in JAX
+        if impl in UNPORTED:
+            raise NotImplementedError(
+                f"sharded impl {impl!r}: the {UNPORTED[impl]} route is not "
+                f"ported yet")
+        if impl is not None and impl not in IMPLS:
+            raise ValueError(f"unknown sharded impl {impl!r}; valid: {IMPLS}")
+        device = torch.device(device or "cuda")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run on the CPU")
+        self.config = config
+        self.mesh = LocalMesh(config.n_shards, device)
+        self.device = device
+        self.dtype = torch.float64 if parity else torch.float32
+        self._impl_auto = impl is None and not parity
+        self.impl = "sweep" if parity else (impl or "resident")
+        if self._impl_auto and config.n_particles / config.ncells < 1.5:
+            s = choose_supercell_factor(config)
+            if (s is not None and config.ncside % s == 0
+                    and config.ncside // s >= max(2, config.n_shards)):
+                raise NotImplementedError(
+                    f"the census routes this sparse load to super-cell "
+                    f"tiles (S={s}): the sharded_supercell route is not "
+                    f"ported yet")
+        self.kcap = kcap
+        self.capacity = config.shard_capacity or None  # set at pack time
+        self.bcap = config.migration_capacity or None
+        self.ship_rounds = 1
+        self._built_key = None
+        self._run = None
+
+    def _build(self):
+        cfg = self.config
+        cap = self.capacity or cfg.resolved_shard_capacity()
+        self.capacity = cap
+        if self.impl == "resident" and self.kcap is None:
+            # Snug Poisson-tail bound; overflow retries are lossless.
+            avg = max(1.0, cfg.n_particles / cfg.ncells)
+            self.kcap = binning.round_cap(avg + 4.5 * avg ** 0.5 + 8)
+        if self.bcap is None:
+            self.bcap = max(64, cap // 2)
+        key = (self.impl, cap, self.bcap, self.kcap, self.ship_rounds,
+               cfg.row_starts)
+        if self._built_key == key:
+            return
+        if self.impl == "resident":
+            # (Imported here: sharded_resident imports this module.)
+            from particlesimulation_tpu_torch.parallel import (
+                sharded_resident)
+            _, _, self._run = sharded_resident.make_sharded_resident_run(
+                cfg, self.mesh, self.kcap, cap, self.ship_rounds)
+        else:
+            _, self._run = make_sharded_step(cfg, self.mesh, cap, self.bcap)
+        self._built_key = key
+
+    def _census_route(self, hist) -> None:
+        """The JAX mesh census on the occupancy histogram (auto impl only,
+        once): a clustered load with a band plan, or a uniform one whose
+        per-shard tile state exceeds ``engine._STREAM_BYTES``, goes to the
+        column-sharded banded engine there, which is not ported: raise."""
+        if not self._impl_auto:
+            return
+        self._impl_auto = False
+        cfg = self.config
+        hist = np.asarray(hist)
+        tplan = plan_tiers(hist, cfg.ncells, JAX_MAX_KCAP)
+        if (single._clustered(tplan)
+                and plan_bands(hist, cfg.ncside, JAX_MAX_KCAP) is not None):
+            raise NotImplementedError(
+                "the census routes this clustered load to column-sharded "
+                "bands: the sharded_banded_cols route is not ported yet")
+        occ = int(hist.max()) if hist.size else 1
+        kcap_est = binning.round_cap(occ * 1.1 + 4)
+        d = cfg.n_shards
+        row_bytes = max(1, (cfg.ncside // d) * kcap_est * 25)
+        band_rows = max(1, single._STREAM_BAND_BYTES // row_bytes)
+        if (cfg.ncells * kcap_est * 25 // d > single._STREAM_BYTES
+                and -(-cfg.ncside // band_rows) >= 2):
+            raise NotImplementedError(
+                "the census routes this load's tiles (over "
+                f"{single._STREAM_BYTES >> 20} MB a shard) to streaming "
+                "bands: the sharded_banded_cols streaming route is not "
+                "ported yet")
+
+    def init_state(self) -> ShardedState:
+        """Host init, then scatter by owner row block into per-shard slabs
+        (the reference initializes on rank 0 and distributes by ownership,
+        mpi/parsim-mpi.cpp:344-349,406-465)."""
+        cfg = self.config
+        xs, ys, vxs, vys, ms = init_particles_host(cfg)
+        w = cfg.side / cfg.ncside
+        cx = np.clip((xs / w).astype(np.int64), 0, cfg.ncside - 1)
+        cy = np.clip((ys / w).astype(np.int64), 0, cfg.ncside - 1)
+        # Route before balance planning, as JAX does.
+        self._census_route(np.bincount(cy * cfg.ncside + cx,
+                                       minlength=cfg.ncells))
+        if not cfg.row_starts and cfg.n_shards > 1:
+            starts = plan_shard_rows(np.bincount(cy, minlength=cfg.ncside),
+                                     cfg.n_shards)
+            if starts is not None:
+                self.config = dataclasses.replace(cfg, row_starts=starts)
+        n = cfg.n_particles
+        return self.pack_particles({
+            "x": xs, "y": ys, "vx": vxs, "vy": vys, "m": ms,
+            "alive": np.ones(n, dtype=bool),
+            "pid": np.arange(n, dtype=np.int32)})
+
+    def pack_particles(self, particles, collisions=0, panics=0,
+                       dtype=None) -> ShardedState:
+        """Scatter host particle arrays by owner row block into slabs, each
+        sorted by (cell key, pid). ``particles`` maps x/y/vx/vy/m/alive/pid
+        to equal-length arrays. Also the checkpoint path when the geometry
+        changed (``utils/checkpointing.restore_sharded``)."""
+        cfg = self.config
+        d = cfg.n_shards
+        xs, ys = np.asarray(particles["x"]), np.asarray(particles["y"])
+        w = cfg.side / cfg.ncside
+        cx = (xs / w).astype(np.int32)
+        cy = (ys / w).astype(np.int32)
+        in_range = ((cx >= 0) & (cx < cfg.ncside) &
+                    (cy >= 0) & (cy < cfg.ncside))
+        row = np.clip(cy, 0, cfg.ncside - 1)
+        col = np.clip(cx, 0, cfg.ncside - 1)
+        self._census_route(np.bincount((row * cfg.ncside + col)[in_range],
+                                       minlength=cfg.ncells))
+        shard = np.where(in_range, cfg.shard_of_row(row), 0)
+        counts = np.bincount(shard, minlength=d)
+        if self.impl == "resident" and self.kcap is None:
+            # Occupancy-informed tile capacity; pair-pass cost scales with
+            # kcap², and overflow retries are lossless.
+            occ = np.bincount(row * cfg.ncside + col,
+                              minlength=cfg.ncells).max()
+            self.kcap = binning.round_cap(occ * 1.1 + 4)
+        if self.capacity is None:
+            # Slabs sized from the occupancy with migration slack.
+            self.capacity = max(int(counts.max() * 1.5) + 16,
+                                cfg.resolved_shard_capacity())
+        if int(counts.max()) > self.capacity:
+            self.capacity = binning.round_cap(counts.max() * 1.5 + 16)
+        cap = self.capacity
+        slabs = {k: np.zeros((d, cap)) for k in ("x", "y", "vx", "vy", "m")}
+        alive = np.zeros((d, cap), dtype=bool)
+        valid = np.zeros((d, cap), dtype=bool)
+        pids = np.full((d, cap), INT32_MAX, dtype=np.int32)
+        for s in range(d):
+            idx = np.nonzero(shard == s)[0]
+            k = len(idx)
+            for name in slabs:
+                slabs[name][s, :k] = np.asarray(particles[name])[idx]
+            alive[s, :k] = np.asarray(particles["alive"])[idx]
+            valid[s, :k] = True
+            pids[s, :k] = np.asarray(particles["pid"])[idx]
+        dev = self.device
+
+        def put(a, dt):
+            return torch.as_tensor(a.reshape(-1), dtype=dt).to(dev)
+
+        dt = dtype or self.dtype
+        state = ShardedState(
+            **{k: put(v, dt) for k, v in slabs.items()},
+            alive=put(alive, torch.bool), valid=put(valid, torch.bool),
+            pid=put(pids, torch.int32),
+            collisions=torch.tensor(int(collisions), dtype=torch.int64,
+                                    device=dev),
+            panics=torch.tensor(int(panics), dtype=torch.int32, device=dev),
+            overflow=torch.zeros((), dtype=torch.int32, device=dev))
+        return self._presort(state)
+
+    def _presort(self, state: ShardedState) -> ShardedState:
+        """Each slab sorted by (cell key, pid), its empty slots last."""
+        d = self.config.n_shards
+        x, y, vx, vy, m, alive, valid, pid = (a.view(d, -1)
+                                              for a in state[:8])
+        key, _ = _slab_key(x, y, valid, self.config.side, self.config.ncside)
+        _, pid, x, y, vx, vy, m, alive, valid = sort_slabs(
+            key, pid, x, y, vx, vy, m, alive, valid)
+        return state._replace(**{k: a.reshape(-1) for k, a in (
+            ("x", x), ("y", y), ("vx", vx), ("vy", vy), ("m", m),
+            ("alive", alive), ("valid", valid), ("pid", pid))})
+
+    def _grow_state(self, state: ShardedState, new_cap: int) -> ShardedState:
+        """The slabs at a larger capacity: empty slots appended at each
+        shard's tail (sentinel key, pid INT32_MAX), so each stays sorted."""
+        d = self.config.n_shards
+        old_cap = state.x.shape[0] // d
+        if old_cap >= new_cap:
+            return state
+
+        def grow(a, fill):
+            tail = torch.full((d, new_cap - old_cap), fill, dtype=a.dtype,
+                              device=a.device)
+            return torch.cat([a.view(d, old_cap), tail], dim=1).reshape(-1)
+
+        return state._replace(
+            **{k: grow(getattr(state, k), 0)
+               for k in ("x", "y", "vx", "vy", "m")},
+            alive=grow(state.alive, False), valid=grow(state.valid, False),
+            pid=grow(state.pid, INT32_MAX))
+
+    def run(self, state: ShardedState, n_steps: int) -> ShardedState:
+        """Run ``n_steps``; overflow replays the run from the input state
+        with more capacity (nothing is dropped; the reference instead
+        PANIC-skips or dies). The adapted impl and capacities stick for
+        later runs of this engine."""
+        d = self.config.n_shards
+        for attempt in range(8):
+            if self.capacity is not None:
+                state = self._grow_state(state, self.capacity)
+            self._build()
+            out = self._run(state._replace(
+                overflow=torch.zeros_like(state.overflow)), n_steps)
+            need = int(out.overflow)  # the run's one readback
+            if need == 0:
+                return out
+            if need >= single.RANK_OVF:
+                raise RuntimeError(
+                    "collision rank overflow: a cell exceeded 65534 "
+                    "occupants; uint32 pair ranks cannot order its "
+                    "collision set")
+            if need >= STRAY_OVF:
+                raise RuntimeError(
+                    "sharded slab invariant violation: a particle sits "
+                    "outside its owner shard's rows (not capacity-fixable)")
+            cap = self.capacity or self.config.resolved_shard_capacity()
+            if need >= CAP_OVF:
+                self.capacity = binning.round_cap(cap * 1.5 + need - CAP_OVF)
+            elif need >= SHIP_OVF:
+                # Emigrants still in transit: the JAX engine's round cap.
+                if self.ship_rounds < d + SHIP_SLACK:
+                    self.ship_rounds = d + SHIP_SLACK
+                else:
+                    self.impl = "sweep"
+            elif self.impl == "sweep":
+                # Emigrant buffer or landing-slot exhaustion.
+                self.capacity = binning.round_cap(cap * 1.5 + need)
+                self.bcap = binning.round_cap(self.bcap * 2 + need)
+            else:
+                # Tile occupancy outgrew the tiles: larger tiles, then the
+                # sweep (same row-block slabs, no repack).
+                self.kcap = max(binning.round_cap(need * 1.25 + 1),
+                                binning.round_cap(self.kcap * 1.5))
+                if attempt >= 2 or self.kcap > single.MAX_DENSE_KCAP:
+                    self.impl = "sweep"
+        raise RuntimeError("sharded capacity retries exhausted")
+
+    def result(self, state: ShardedState) -> tuple[float, float, int]:
+        valid = state.valid
+        pid = state.pid[valid]
+        i = int(torch.argmin(pid))
+        return (float(state.x[valid][i]), float(state.y[valid][i]),
+                int(state.collisions))
+
+    def gather(self, state: ShardedState) -> dict:
+        """The valid particles in pid order, as NumPy arrays (the
+        reference's Gatherv)."""
+        valid = state.valid.cpu().numpy()
+        pid = state.pid.cpu().numpy()[valid]
+        order = np.argsort(pid)
+        out = {name: getattr(state, name).cpu().numpy()[valid][order]
+               for name in ("x", "y", "vx", "vy", "m", "alive")}
+        out["pid"] = pid[order]
+        return out
+

@@ -8,8 +8,8 @@ run. Particle arrays are kept sorted by (current cell key, particle id), the
 reference's in-bucket order (serial/parsim.cpp:265-289).
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across packages: a
-JAX ``SimState`` or ``TileState`` converted field by field with
-``np.asarray`` becomes the port's state on any device, and back.
+JAX ``SimState``, ``TileState`` or ``ShardedState`` converted field by field
+with ``np.asarray`` becomes the port's state on any device, and back.
 """
 
 from __future__ import annotations
@@ -42,27 +42,57 @@ class SimState(NamedTuple):
                               # invalidates the run (the engine retries)
 
 
-# Field dtypes shared by SimState and TileState (TileState has occ, not alive).
+class ShardedState(NamedTuple):
+    """Per-shard particle slabs of the mesh engine (``parallel/sharded``).
+
+    Each field is the flat ``(D*C,)`` concatenation of the D shards' slabs
+    of C slots, shard 0 first, as the JAX package's mesh-sharded arrays
+    read on the host; ``valid`` marks the occupied slots (dead particles
+    keep theirs). Each shard's slab is sorted by (cell key, pid), its empty
+    slots last. The counters are the mesh's totals.
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    vx: torch.Tensor
+    vy: torch.Tensor
+    m: torch.Tensor
+    alive: torch.Tensor
+    valid: torch.Tensor   # (D*C,) bool — slot occupancy
+    pid: torch.Tensor     # int32; meaningful only where valid
+    collisions: torch.Tensor
+    panics: torch.Tensor
+    overflow: torch.Tensor
+
+
+# Field dtypes shared by the states (TileState has occ, not alive).
 _DTYPES = {
     "x": torch.float32, "y": torch.float32, "vx": torch.float32,
     "vy": torch.float32, "m": torch.float32, "alive": torch.bool,
-    "occ": torch.bool, "pid": torch.int32, "collisions": torch.int64,
-    "panics": torch.int32, "overflow": torch.int32,
+    "occ": torch.bool, "valid": torch.bool, "pid": torch.int32,
+    "collisions": torch.int64, "panics": torch.int32,
+    "overflow": torch.int32,
 }
 
 
-def state_from_numpy(fields: dict, device) -> SimState | TileState:
+def state_from_numpy(fields: dict, device, dtype=None):
     """A state from NumPy arrays keyed by field name, on ``device``.
 
-    The dict holds every field of ``SimState`` or, when it has ``occ``, of
-    ``TileState``. Values are cast to the port's dtypes.
+    The dict holds every field of ``SimState``, of ``TileState`` when it has
+    ``occ``, or of ``ShardedState`` when it has ``valid``. Values are cast
+    to the port's dtypes; ``dtype`` (float32 by default) is the float
+    fields'.
     """
-    cls = TileState if "occ" in fields else SimState
-    return cls(**{f: torch.tensor(np.asarray(fields[f]), dtype=_DTYPES[f],
+    cls = (TileState if "occ" in fields else
+           ShardedState if "valid" in fields else SimState)
+    floats = dict.fromkeys(("x", "y", "vx", "vy", "m"),
+                           dtype or torch.float32)
+    return cls(**{f: torch.tensor(np.asarray(fields[f]),
+                                  dtype=floats.get(f, _DTYPES[f]),
                                   device=device) for f in cls._fields})
 
 
-def state_to_numpy(state: SimState | TileState) -> dict:
+def state_to_numpy(state) -> dict:
     """Every field of ``state`` as a NumPy array, keyed by field name."""
     return {f: getattr(state, f).cpu().numpy() for f in state._fields}
 

@@ -1,0 +1,101 @@
+"""State checkpoint/resume (counterpart of the JAX package's
+``utils/checkpointing.py``, in the same ``.npz`` format).
+
+The reference has none (state lives in memory for the whole run). States
+serialize to ``.npz`` with the JAX package's field names and dtypes, so a
+checkpoint written by either package loads in the other; the step is
+deterministic, so a restored state continues bit for bit.
+
+Both state families round-trip: the single-device ``SimState`` and the mesh
+engine's ``ShardedState`` (the ``valid`` mask tells them apart). A sharded
+checkpoint records its slab geometry (``n_shards``, ``row_starts``,
+``mesh_shape``, ``band_plan``): slab placement encodes cell ownership, so a
+restore places the slabs as they are only where the geometry matches, and
+otherwise re-packs the particles through the engine's own packer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from particlesimulation_tpu_torch.state import ShardedState, state_from_numpy
+
+_FIELDS = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions", "panics",
+           "overflow")
+_SHARDED_FIELDS = _FIELDS + ("valid",)
+
+
+def _host(state, fields) -> dict:
+    return {f: getattr(state, f).cpu().numpy() for f in fields}
+
+
+def save_state(path: str, state) -> None:
+    """Serialize a SimState or ShardedState (the latter without its slab
+    geometry; see :func:`save_sharded_state`)."""
+    fields = _SHARDED_FIELDS if isinstance(state, ShardedState) else _FIELDS
+    np.savez_compressed(path, **_host(state, fields))
+
+
+def save_sharded_state(path: str, state: ShardedState, n_shards: int,
+                       row_starts: tuple = (), mesh_shape: tuple = (),
+                       band_plan: tuple = ()) -> None:
+    """Serialize a ShardedState with its slab geometry: ``n_shards``, plus
+    ``row_starts`` when the row boundaries are census-planned
+    (``parallel/balance``), ``mesh_shape`` for a 2D mesh and ``band_plan``
+    for a banded engine's ownership (the JAX package's banded engines; the
+    port's mesh engines own cells by row block and pass none)."""
+    arrs = _host(state, _SHARDED_FIELDS)
+    arrs["n_shards"] = np.asarray(n_shards, np.int32)
+    arrs["row_starts"] = np.asarray(row_starts, np.int32)
+    arrs["mesh_shape"] = np.asarray(mesh_shape, np.int32)
+    arrs["band_plan"] = np.asarray(
+        [list(p) for p in band_plan] if band_plan else np.zeros((0, 3)),
+        np.int32)
+    np.savez_compressed(path, **arrs)
+
+
+def load_state(path: str, dtype=None, device=None):
+    """A SimState or ShardedState as saved, on ``device`` (default
+    ``cuda``). Float fields keep their saved dtype unless ``dtype`` is
+    given. A ShardedState comes back as saved, not placed for an engine:
+    use :func:`restore_sharded` for that."""
+    with np.load(path) as z:
+        fields = {f: z[f] for f in z.files}
+    dtype = dtype or torch.from_numpy(fields["x"][:0]).dtype
+    return state_from_numpy(fields, torch.device(device or "cuda"), dtype)
+
+
+def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
+    """Load a sharded checkpoint as a legal input of ``engine.run``.
+
+    Where the checkpoint's geometry (shard count, slab capacity, row
+    boundaries, mesh shape, row-block ownership) matches the engine's, the
+    slabs are placed as they are (a bit-exact resume); otherwise the valid
+    particles are gathered and re-packed through ``engine.pack_particles``,
+    as a checkpoint from another mesh width, another row decomposition or a
+    banded engine must be.
+    """
+    with np.load(path) as z:
+        saved = {f: z[f] for f in z.files}
+    cfg = engine.config
+    d = cfg.n_shards
+    saved_shards = (int(saved["n_shards"]) if "n_shards" in saved
+                    else None)
+    saved_starts = tuple(int(r) for r in saved.get("row_starts", ()))
+    saved_mesh = tuple(int(v) for v in saved.get("mesh_shape", ()))
+    saved_plan = tuple(tuple(int(v) for v in p)
+                       for p in saved.get("band_plan", ()))
+    cap = engine.capacity or cfg.resolved_shard_capacity()
+    dt = dtype or engine.dtype
+    if (saved_shards == d and saved["x"].shape[0] == d * cap
+            and saved_starts == tuple(cfg.row_starts)
+            and saved_mesh == tuple(cfg.mesh_shape)
+            and not saved_plan):  # the port's engines own by row block
+        return state_from_numpy({f: saved[f] for f in _SHARDED_FIELDS},
+                                engine.device, dt)
+    valid = saved["valid"]
+    particles = {f: saved[f][valid] for f in ("x", "y", "vx", "vy", "m",
+                                              "alive", "pid")}
+    return engine.pack_particles(particles, collisions=saved["collisions"],
+                                 panics=saved["panics"], dtype=dt)

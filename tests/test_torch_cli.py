@@ -71,13 +71,24 @@ def test_cli_usage_error(args, capsys):
     assert rc == 1 and out == [] and "Usage" in err
 
 
-@pytest.mark.parametrize("mesh", ["2", "2x4"])
+@pytest.mark.parametrize("mesh", ["2x4"])
 def test_cli_refuses_a_mesh(mesh, capsys):
     rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
                           "--mesh", mesh], capsys)
     assert rc != 0 and out == [] and "sharded engines are not ported" in err
     assert _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
                   "--mesh", "1"], capsys)[0] == 0
+
+
+@pytest.mark.parametrize("engine", ["parity", "fast"])
+def test_cli_mesh_golden_n1(engine, capsys):
+    """``--mesh 3`` on golden N1 (3 rows on 3 shards): the golden lines, in
+    parity (the sweep) and in fast precision (resident tiles), as the JAX
+    CLI's tests/test_cli.py:32-48 print them."""
+    rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
+                          "--engine", engine, "--mesh", "3"], capsys)
+    assert rc == 0 and out == ["0.002 0.035", "2"]
+    assert re.fullmatch(r"\d+\.\ds", err.strip())
 
 
 def test_cli_runs_on_cuda_unless_asked_for_cpu(capsys):
