@@ -98,6 +98,36 @@ w. checkpoints: 2 steps, save, restore as saved (D = 4) and re-packed onto
 x. ms/step, device ms/step, idle share, launches and syncs a step at
    D = 1, 2 and 4 in both precisions.
 
+Then the mesh census's other routes, on local meshes of the card:
+
+y. SMALL at D = 4 through the census: super-cell tiles (S = 10, 130
+   super-rows as 33/33/32/32); the JAX f32 result (±0.002) and the
+   one-device supercell run's count and dead set, positions within
+   1e-6·side; the CLI's ``--mesh 4 --engine fast`` in-process; the
+   labelled kernel and the cell sums kernel on the mesh run's own tiles
+   and cells; no host sync;
+z. UNEVEN at D = 4 through the census: column-sharded bands on the
+   one-device plan (13 bands, 25 columns a shard); after 2 steps the JAX
+   f32 engine's 14 collisions and particle 0 (±0.002), after 10 the
+   one-device banded run's count and dead set (positions within
+   2e-5·side), and its particle 0 (±0.002) and count through the CLI's
+   ``--mesh 4 --engine fast`` in-process; the fused kernel on the widest
+   band's own tiles; no host sync;
+aa. the streaming route at the 2e7 point (1 5000 447, D = 2): the
+   census's byte figure and band plan, 5 steps against resident tiles on
+   the same mesh (count and dead set exact, positions within 1e-6·side);
+ab. cuda = cpu on two small configs of each route;
+ac. the ladders: SMALL D = 4 from kcap 32, UNEVEN D = 4 from a plan at
+   0.7 of each band's K; each grows and ends on the untight run's count
+   and dead set (the rung it ended on printed);
+ad. ms/step, device ms/step, idle share, launches and syncs a step of
+   SMALL and UNEVEN at D = 1, 2 and 4 and on one device.
+
+``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
+flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
+checkout ROOT in turn (a process each): the way to compare two commits in
+one call (parent, change, change, parent).
+
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
 each tile engine's run loop run under
@@ -905,16 +935,18 @@ def check_medium():
     return eng, state, ms
 
 
-def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs"):
-    """(f, k) The CLI's fast route in-process (golden s1 through the census:
-    resident; SMALL: supercell), with the launch counts set to 0 just before
-    it: ``kernel`` must have launched. Returns the launch counts."""
+def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
+    """(f, k, y, z) The CLI's fast route in-process (golden s1 through the
+    census: resident; SMALL: supercell; UNEVEN: banded; on one device or
+    with ``extra`` ``--mesh 4``), with the launch counts set to 0 just
+    before it:
+    ``kernel`` must have launched. Returns the launch counts."""
     from particlesimulation_tpu_torch import cli
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
     seed, side, nc, n, steps, ex, ey, ec = vec
     args = [str(seed), f"{side:g}", str(nc), str(n), str(steps),
-            "--engine", "fast"]
+            "--engine", "fast", *extra]
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
     cell_pairs.reset_launches()
@@ -1050,25 +1082,30 @@ def v4_centre_error(tiles, sub):
     return out
 
 
-def check_cell_sums(tiles, sub, cfg):
-    """(i) The cell sums kernel on a path's tiles (its binned slots are those
-    with a label): within rtol 1e-6 of the plain version on the card, bit
-    for bit equal to the plain version on the CPU (slot order) and to a
-    second run of itself; timed, with its bound."""
+def true_cells(tiles, sub, cfg):
+    """Each labelled slot's cell on the true grid, -1 for the others."""
     from particlesimulation_tpu_torch.ops import resident as res
+
+    cx, cy, _ = res.cell_of(tiles[0], tiles[1], cfg.side, cfg.ncside)
+    return torch.where(sub >= 0, cy * cfg.ncside + cx, -1).to(torch.int32)
+
+
+def check_cell_sums(where, tiles, cell, ncells):
+    """(i) The cell sums kernel on a path's tiles and its cell ids (-1 for
+    an unbinned slot) onto ``ncells`` cells: within rtol 1e-6 of the plain
+    version on the card, bit for bit equal to the plain version on the CPU
+    (slot order) and to a second run of itself; timed, with its bound."""
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
     x, y, m, _, _ = tiles
-    cx, cy, _ = res.cell_of(x, y, cfg.side, cfg.ncside)
-    cell = torch.where(sub >= 0, cy * cfg.ncside + cx, -1).to(torch.int32)
-    args = (m, m * x, m * y, cell, cfg.ncells)
+    args = (m, m * x, m * y, cell, ncells)
     got = cell_pairs.supercell_cell_sums(*args)
     again = cell_pairs.supercell_cell_sums(*args)
     ref = cell_pairs.supercell_cell_sums_ref(*args)
     cpu = cell_pairs.supercell_cell_sums_ref(*(a.cpu() for a in args[:4]),
-                                             cfg.ncells)
+                                             ncells)
     torch.cuda.synchronize()
-    tag = f"supercell_cell_sums SMALL tiles {tuple(x.shape)}"
+    tag = f"supercell_cell_sums {where} {tuple(x.shape)}"
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{tag}: two runs differ")
     if not all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu)):
@@ -1078,7 +1115,7 @@ def check_cell_sums(tiles, sub, cfg):
     if not all(bool(((a - b).abs() <= 1e-6 * b.abs()).all())
                for a, b in zip(got, ref)):
         raise AssertionError(f"{tag}: off by {err}")
-    bound_ms, bound_by, _ = _bound(16 * x.numel() + 12 * cfg.ncells, 0, 0)
+    bound_ms, bound_by, _ = _bound(16 * x.numel() + 12 * ncells, 0, 0)
     rec = {"max_abs_err": err,
            **_kernel_times(lambda: cell_pairs.supercell_cell_sums(*args),
                            lambda: cell_pairs.supercell_cell_sums_ref(*args)),
@@ -1164,7 +1201,8 @@ def check_small(card):
                                sub=sub)
             for kind in (("v4", True), ("v4", False), ("v2", True))}
     v4_centre_error(tiles, sub)
-    sums = check_cell_sums(tiles, sub, cfg)
+    sums = check_cell_sums("SMALL tiles", tiles, true_cells(tiles, sub, cfg),
+                           cfg.ncells)
     check_gpu_vs_cpu(7, 5.0, 25, 400, 20, impl="supercell")
     cli_launches = check_cli_fast(SMALL + SMALL_10, "fused_pairs_sub")
     ms, t1, t21 = step_ms(eng, state, 20)
@@ -1441,15 +1479,262 @@ def check_mesh(card):
     return launches, rec
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available")
+# The mesh census's other routes (phases y-ad): SMALL's 130 super-rows on 4
+# shards, UNEVEN's 100 columns on 4 shards, and the N scaling row's 2e7
+# point on 2 shards (the streaming route).
+SMALL_SC_STARTS = (0, 33, 66, 98, 130)
+STREAM_2E7 = (1, 5000.0, 447, 20_000_000)
+# cuda = cpu on two small configs of each route (the CPU tests' configs).
+ROUTES_CARD_VS_CPU = (
+    ("supercell", (5893, 0.5, 16, 200), 15, 2, None),
+    ("supercell", (1, 3.0, 24, 300), 20, 3, None),
+    ("banded", (-10, 3.0, 16, 600), 10, 8, ((0, 8, 96), (8, 8, 64))),
+    ("banded", (17, 0.12, 13, 300), 20, 8, ((0, 6, 96), (6, 7, 96))))
 
-    # 1. The card.
+
+def _mesh_cells(eng, tiles, sub):
+    """The super-cell mesh's cell id of each labelled slot of its tiles: its
+    cell on its shard's local cell grid (the owned super-rows' S cell rows
+    each), shard-major; -1 for the others. Returns (cells, ncells)."""
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.parallel.sharded_supercell import (
+        sc_row_starts)
+
+    cfg, S = eng.config, eng._sc_factor
+    nc, d = cfg.ncside, cfg.n_shards
+    starts = sc_row_starts(nc // S, d)
+    rows_cells = max(b - a for a, b in zip(starts, starts[1:])) * S
+    row0 = torch.tensor(starts[:-1], device=tiles[0].device) * S
+    shard = (torch.arange(tiles[0].shape[0], device=tiles[0].device)
+             // (tiles[0].shape[0] // d))[:, None]
+    cx, cy, _ = res.cell_of(tiles[0], tiles[1], cfg.side, nc)
+    cell = shard * rows_cells * nc + (cy - row0[shard]) * nc + cx
+    return (torch.where(sub >= 0, cell, -1).to(torch.int32),
+            d * rows_cells * nc)
+
+
+def _mesh_times(label, eng, state, card, k=10):
+    ms, t1, tk = step_ms(eng, state, k)
+    n = eng.config.n_particles
+    print(f"{label}, {eng.impl}, kcap {eng.kcap}: {ms:.4f} ms/step, "
+          f"{n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} s, "
+          f"run({k + 1}) {tk:.4f} s) on {card}", flush=True)
+    return {"ms": ms, **device_breakdown(label, eng, state, ms)}
+
+
+def check_mesh_routes(card):
+    """(y)-(ad) The mesh census's other routes on a local mesh of the card:
+    sharded super-cell tiles at SMALL and column-sharded bands at UNEVEN
+    (D = 4), the streaming route at the 2e7 point (D = 2), their kernels on
+    the routes' own tiles, no host sync, cuda = cpu, both ladders, and the
+    step times at D = 1, 2 and 4 beside the one-device engines'. Returns
+    the paths' launch counts and the kernel records."""
+    from particlesimulation_tpu_torch import engine as single
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.banded import grow_plan
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        UNEVEN_BANDS)
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded_banded_cols import (
+        make_sharded_banded_cols_run)
+    from particlesimulation_tpu_torch.parallel.sharded_supercell import (
+        make_sharded_supercell_run, sc_row_starts)
+
+    t0 = time.perf_counter()
+    launches, recs, times = {}, {}, {}
+
+    def mesh(args, d, **kw):
+        return ShardedEngine(SimConfig(*args, n_shards=d), device="cuda",
+                             **kw)
+
+    # y. SMALL at D = 4 through the census: super-cell tiles, S = 10.
+    seed, side, nc, n, steps = SMALL
+    sm = mesh(SMALL[:4], 4)
+    sstate = sm.init_state()
+    if (sm.impl != "supercell" or sm._sc_factor != SMALL_S
+            or sc_row_starts(nc // SMALL_S, 4) != SMALL_SC_STARTS):
+        raise AssertionError(f"SMALL mesh census: {sm.impl}, S "
+                             f"{sm._sc_factor}")
+    print(f"SMALL mesh D=4: the census's route {sm.impl}, S {sm._sc_factor}, "
+          f"super-rows {SMALL_SC_STARTS}, kcap {sm.kcap}", flush=True)
+    sout, launches["SMALL mesh"] = check_golden(
+        "SMALL mesh supercell D=4", sm, sstate, steps, SMALL_10,
+        ["fused_pairs_sub", "supercell_cell_sums"])
+    one = Engine(SimConfig(*SMALL[:4]), device="cuda")
+    ostate = one.init_state()
+    oout = one.run(ostate, steps)
+    compare_runs("SMALL 10 steps, mesh supercell D=4 vs one-device supercell "
+                 "on cuda", (int(sout.collisions), _Valid(sout), side),
+                 (int(oout.collisions), oout, side), 1e-6, 1e-5)
+    launches["SMALL mesh CLI"] = check_cli_fast(
+        SMALL + SMALL_10, "fused_pairs_sub", ("--mesh", "4"))
+    _, pair_tiles, run = make_sharded_supercell_run(
+        sm.config, sm.mesh, sm.kcap, sm.capacity, sm._sc_factor)
+    *tiles, sub = pair_tiles(sstate, steps)
+    recs["fused_pairs_sub"] = fused_record("SMALL mesh D=4 tiles", tiles,
+                                           "v4", True, planted=False,
+                                           sub=sub)
+    recs["supercell_cell_sums"] = check_cell_sums(
+        "SMALL mesh D=4 tiles", tiles, *_mesh_cells(sm, tiles, sub))
+    check_no_sync("mesh supercell D=4", run, sstate)
+
+    # z. UNEVEN at D = 4 through the census: column-sharded bands on the
+    # one-device plan, 25 columns a shard.
+    um = mesh(UNEVEN, 4)
+    ustate = um.init_state()
+    if um.impl != "banded" or um._band_plan != UNEVEN_BANDS:
+        raise AssertionError(f"UNEVEN mesh census: {um.impl} {um._band_plan}")
+    print(f"UNEVEN mesh D=4: the census's route {um.impl} "
+          f"({um.banded_variant}), {len(um._band_plan)} bands "
+          f"{um._band_plan}, {UNEVEN[2] // 4} columns a shard", flush=True)
+    _, launches["UNEVEN mesh"] = check_golden(
+        "UNEVEN mesh banded D=4", um, ustate, 2, UNEVEN_2, ["fused_pairs"])
+    ub = Engine(SimConfig(*UNEVEN), device="cuda")
+    uout10 = um.run(ustate, 10)
+    bout10 = ub.run(ub.init_state(), 10)
+    if ub.impl != "banded" or int(uout10.overflow) != 0:
+        raise AssertionError(f"UNEVEN: one device ran {ub.impl}")
+    compare_runs("UNEVEN 10 steps, mesh banded D=4 vs one-device banded on "
+                 "cuda", (int(uout10.collisions), _Valid(uout10), UNEVEN[1]),
+                 (int(bout10.collisions), bout10, UNEVEN[1]), 2e-5, None)
+    launches["UNEVEN mesh CLI"] = check_cli_fast(
+        UNEVEN + (10, *ub.result(bout10)), "fused_pairs", ("--mesh", "4"))
+    _, band_tiles, urun = make_sharded_banded_cols_run(
+        um.config, um.mesh, um._band_plan, um.capacity)
+    widest = max(range(len(UNEVEN_BANDS)), key=lambda b: UNEVEN_BANDS[b][2])
+    recs["fused_pairs"] = fused_record(
+        f"UNEVEN mesh D=4 band tiles K={UNEVEN_BANDS[widest][2]}",
+        band_tiles(ustate, 2)[widest], "v4", True, planted=False)
+    check_no_sync("mesh banded D=4", urun, ustate)
+
+    # aa. The streaming route at the 2e7 point on 2 shards, against
+    # resident tiles on the same mesh.
+    big = mesh(STREAM_2E7, 2)
+    bstate = big.init_state()
+    occ_bytes = single._STREAM_BYTES
+    k_est = big._band_plan[0][2] if big._band_plan else None
+    print(f"2e7 mesh D=2: the census's route {big.impl}, tile state "
+          f"{STREAM_2E7[2] ** 2 * (k_est or 0) * 25 // 2 >> 20} MB a shard "
+          f"at K {k_est} (threshold {occ_bytes >> 20} MB), plan "
+          f"{big._band_plan}", flush=True)
+    if big.impl != "banded" or len(big._band_plan) < 2:
+        raise AssertionError(f"2e7 mesh census: {big.impl}")
+    outs = []
+    out, _, launches["2e7 mesh banded"] = drive(
+        "2e7 mesh banded D=2", big, bstate, 5, ["fused_pairs"])
+    outs = [(int(out.collisions), _Valid(out), STREAM_2E7[1])]
+    del big, bstate, out
+    res_mesh = mesh(STREAM_2E7, 2, impl="resident")
+    out, _, _ = drive("2e7 mesh resident D=2", res_mesh,
+                      res_mesh.init_state(), 5, ["fused_pairs"])
+    outs.append((int(out.collisions), _Valid(out), STREAM_2E7[1]))
+    del res_mesh, out
+    compare_runs("2e7 5 steps, mesh banded D=2 vs mesh resident D=2 on cuda",
+                 *outs, 1e-6, 1e-5)
+    del outs
+
+    # ab. cuda = cpu on two small configs of each route.
+    for impl, args, k, d, plan in ROUTES_CARD_VS_CPU:
+        runs = []
+        for device in ("cuda", "cpu"):
+            e = ShardedEngine(SimConfig(*args, n_shards=d), impl=impl,
+                              device=device)
+            if plan is not None:
+                e._band_plan = plan
+            o = e.run(e.init_state(), k)
+            if e.impl != impl or int(o.overflow) != 0:
+                raise AssertionError(f"cuda vs cpu: {impl} ran {e.impl}")
+            runs.append((int(o.collisions), _Valid(o), args[1]))
+        compare_runs(f"cuda vs cpu, mesh {impl} D={d} {args}, {k} steps",
+                     *runs, 1e-6, 1e-5)
+
+    # ac. The ladders: tiles too small at SMALL, bands too narrow at UNEVEN;
+    # each ends on the untight run's count and dead set.
+    for label, e, st, ref in (
+            ("SMALL mesh D=4, kcap 32", mesh(SMALL[:4], 4, kcap=32), None,
+             sout),
+            ("UNEVEN mesh D=4, plan at 0.7 K", mesh(UNEVEN, 4), None,
+             uout10)):
+        st = e.init_state()
+        if e.impl == "banded":
+            e._band_plan = tuple(map(tuple, grow_plan(UNEVEN_BANDS, 0.7)))
+        before = e._band_plan or e.kcap
+        o = e.run(st, 10 if e.impl == "banded" else steps)
+        after = e._band_plan or e.kcap
+        print(f"ladder {label}: {before} -> {after}, ended on {e.impl}",
+              flush=True)
+        if before == after or int(o.overflow) != 0:
+            raise AssertionError(f"ladder {label}: did not grow")
+        compare_runs(f"ladder {label} vs the untight run",
+                     (int(o.collisions), _Valid(o), e.config.side),
+                     (int(ref.collisions), _Valid(ref), e.config.side),
+                     2e-5, None)
+
+    # ad. Step times at D = 1, 2 and 4 beside the one-device engines'.
+    for name, args, eng0, st0, m4, s4 in (
+            ("SMALL", SMALL[:4], one, ostate, sm, sstate),
+            ("UNEVEN", UNEVEN, ub, None, um, ustate)):
+        times[f"{name} one device"] = _mesh_times(
+            f"{name} one device", eng0, st0 or eng0.init_state(), card)
+        for d in (1, 2, 4):
+            e, st = (m4, s4) if d == 4 else (mesh(args, d), None)
+            st = st or e.init_state()
+            times[f"{name} mesh D={d}"] = _mesh_times(
+                f"{name} mesh D={d}", e, st, card)
+    if any(t["syncs"] != 0 for t in times.values()):
+        raise AssertionError("mesh routes: host syncs in a run")
+    print(f"mesh route phases: {time.perf_counter() - t0:.1f} s; per step "
+          f"{json.dumps(times)}", flush=True)
+    return launches, recs
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def flagship_mesh_times(root):
+    """The flagship's fast mesh (resident tiles by the census) at D = 1, 2
+    and 4 with the port package of the checkout at ``root``: ms/step,
+    device ms/step, idle share, launches and syncs a step (phase x's fast
+    half). Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+
+    card = _card()
+    times = {}
+    for d in (1, 2, 4):
+        e = ShardedEngine(SimConfig(*GOLDEN_S1[:4], n_shards=d),
+                          device="cuda")
+        st = e.init_state()
+        e.run(st, 1)
+        times[f"D={d}"] = _mesh_times(f"{root}: mesh fast D={d}", e, st,
+                                      card, k=20)
+    print(f"flagship mesh times {root} on {card}: {json.dumps(times)}",
+          flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    if sys.argv[1:2] == ["--mesh-times"]:
+        # Checkouts in turns (e.g. parent, change, change, parent), each in
+        # a process of its own that imports that checkout's package.
+        for root in sys.argv[2:]:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--mesh-times-of", root], cwd=ROOT, check=True)
+        return
+    if sys.argv[1:2] == ["--mesh-times-of"]:
+        flagship_mesh_times(sys.argv[2])
+        return
+
+    # 1. The card.
+    card = _card()
     name = torch.cuda.get_device_name(0)
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1591,6 +1876,10 @@ def main():
     # 11. The 1D row mesh at the flagship on a local mesh of the card.
     mesh_launches, _ = check_mesh(card)
 
+    # 12. The mesh census's other routes: super-cells (SMALL), column
+    # bands (UNEVEN) and the streaming route (2e7).
+    route_launches, _ = check_mesh_routes(card)
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
@@ -1604,19 +1893,28 @@ def main():
           f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
           f"fast SMALL {small_cli}, banded UNEVEN (2 steps: 13 fused "
           f"launches a step and 13 for the first pass) {banded_launches}, "
-          f"mesh resident D=4 (golden s1) {mesh_launches}", flush=True)
+          f"mesh resident D=4 (golden s1) {mesh_launches}, "
+          + ", ".join(f"{k} {v}" for k, v in route_launches.items()),
+          flush=True)
+
+    def on_paths(name, *paths):
+        return sum(p[name] for p in paths)
+
+    sc_paths = (small_launches, route_launches["SMALL mesh"])
     print(json.dumps({"kernels": [
-        entry("fused_pairs", res_launches["fused_pairs"],
-              on_path[("v4", True)]),
+        entry("fused_pairs", on_paths(
+            "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
+            route_launches["2e7 mesh banded"]), on_path[("v4", True)]),
         entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),
         entry("dense_pairwise_forces", dense_launches["dense_forces"],
               forces[10_000]),
         entry("dense_collisions", dense_launches["dense_collisions"],
               colls[(10_000, False)]),
-        entry("fused_pairs_sub", small_launches["fused_pairs_sub"], sub_rec),
-        entry("supercell_cell_sums", small_launches["supercell_cell_sums"],
-              sums_rec),
+        entry("fused_pairs_sub", on_paths("fused_pairs_sub", *sc_paths),
+              sub_rec),
+        entry("supercell_cell_sums", on_paths("supercell_cell_sums",
+                                              *sc_paths), sums_rec),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,7 +4,7 @@ Usage mirrors the reference binary (reference serial/parsim.cpp:461-469):
 
     python -m particlesimulation_tpu_torch <seed> <side_length> <grid_size> \
         <n_particles> <n_timesteps> [--engine parity|fast] \
-        [--impl resident|supercell|banded|dense|tiered|sweep] \
+        [--impl resident|supercell|banded|banded-cols|dense|tiered|sweep] \
         [--device cuda|cpu] [--mesh N]
 
 stdout: two lines — particle 0's position at three decimals, then the
@@ -16,8 +16,11 @@ order) unless ``--engine fast`` is given; the device is ``cuda`` unless
 ``--device cpu`` is given. ``--mesh N`` runs the 1D row mesh of N shards
 (``parallel/sharded.ShardedEngine``) on a local mesh: N shards in this
 process on the one device, the analog of the JAX CLI's virtual CPU mesh.
-Parity runs its f64 sweep; fast precision takes ``--impl resident|sweep``
-or the census. ``--mesh RxC`` (the 2D mesh) is refused: not ported.
+Parity runs its f64 sweep; fast precision takes ``--impl
+resident|supercell|banded|banded-cols|sweep`` or the mesh census (sparse
+loads on super-cell tiles, clustered and large uniform ones on column-sharded
+bands, the rest on resident tiles). ``--impl banded-cyclic`` and ``--mesh
+RxC`` (the 2D mesh) are refused, naming the module: not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ USAGE = ("Usage: python -m particlesimulation_tpu_torch <seed> <side_length> "
          "[--impl resident|supercell|banded|dense|tiered|sweep] "
          "[--device cuda|cpu] [--mesh N] "
          "(default: parity on cuda; fast precision census-routes without "
-         "--impl; mesh impls: resident|sweep)")
+         "--impl; mesh impls: resident|supercell|banded|banded-cols|sweep)")
 _FLAGS = ("--engine", "--impl", "--device", "--mesh")
 
 
@@ -78,7 +81,11 @@ def main(argv: list[str] | None = None) -> int:
     # Parity always runs the sweep (ShardedEngine forces it, as the
     # single-device engine does); fast precision takes --impl or the census.
     cls = ShardedEngine if n_shards > 1 else Engine
-    eng = cls(config, impl=opts["--impl"], device=opts["--device"])
+    try:
+        eng = cls(config, impl=opts["--impl"], device=opts["--device"])
+    except NotImplementedError as e:
+        print(f"--impl {opts['--impl']}: {e}", file=sys.stderr)
+        return 2
     state = eng.init_state()
     # Warm-up outside the timed region (the reference's timer brackets only
     # simulate(); building the kernels is the analog of g++'s compile).

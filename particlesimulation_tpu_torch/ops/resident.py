@@ -88,7 +88,7 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None,
                    torch.arange(ncells + 1, device=dev) * kcap)
 
 
-def deliver(ts: TileState, moving, dest, row_start):
+def deliver(ts: TileState, moving, dest, row_start, at=None):
     """Move the ``moving`` slots to rows ``dest``, in one pass.
 
     The tiles are a pool of slots in which row r holds the contiguous slots
@@ -100,6 +100,12 @@ def deliver(ts: TileState, moving, dest, row_start):
     counts the movers beyond their destination rows' free slots. When it is
     nonzero no mover moves: the tiles come back unchanged, nothing is lost,
     and the engine flags overflow and replays the run with larger tiles.
+
+    ``at`` (int64 flat slot indices, ascending) limits the movers to those
+    slots: ``moving`` and ``dest`` are then given for them alone, and the
+    sort and the moves cover them alone (the mesh engines' halo slots after
+    a ship round). The result is the whole pool's delivery with no mover
+    outside ``at``.
     """
     shape = ts.x.shape
     nslots = ts.x.numel()
@@ -107,31 +113,42 @@ def deliver(ts: TileState, moving, dest, row_start):
     dev = ts.x.device
     occf = ts.occ.reshape(-1)
     moving = moving.reshape(-1)
+    if at is None:
+        leaving = moving
+    else:
+        leaving = torch.zeros_like(occf).index_put_((at,), moving)
 
-    # Free slots after departures: the q-th free slot of the pool, and the
-    # free slots before each row (a row's k-th free slot is the pool's
-    # (before[r] + k)-th).
-    free = ~occf | moving
+    # Free slots after departures: the free slots before each row (a row's
+    # k-th free slot is the pool's (before[r] + k)-th), and the slot of the
+    # q-th free slot of the pool.
+    free = ~occf | leaving
     cum = torch.cumsum(free, dim=0)                      # 1-based free rank
     before = torch.cat([cum.new_zeros(1), cum])[row_start]
     n_free = before[1:] - before[:-1]
-    slot_of_free = torch.full((nslots + 1,), nslots, dtype=torch.int64,
-                              device=dev)
-    slot_of_free[torch.where(free, cum - 1, nslots)] = torch.arange(
-        nslots, device=dev)
 
     # Movers sorted by (destination row, source slot); rank within the row.
     mkey = torch.where(moving, dest.reshape(-1).to(torch.int64), nrows)
     mkey, src = torch.sort(mkey, stable=True)
+    if at is not None:
+        src = at[src]
     rank, _ = segment_positions(mkey)
     is_mover = mkey < nrows
     drow = torch.clamp(mkey, max=nrows - 1)
     fits = is_mover & (rank < n_free[drow])
     undelivered = torch.sum(is_mover & ~fits, dtype=torch.int32)
     act = fits & (undelivered == 0)
+    q = torch.clamp(before[drow] + rank, max=nslots)
+    if at is None:
+        slot_of_free = torch.full((nslots + 1,), nslots, dtype=torch.int64,
+                                  device=dev)
+        slot_of_free[torch.where(free, cum - 1, nslots)] = torch.arange(
+            nslots, device=dev)
+        slot = slot_of_free[q]
+    else:
+        # A few movers: a binary search of the free ranks.
+        slot = torch.searchsorted(cum, q + 1)
     # Inactive entries write to a dump slot past the end.
-    tgt = torch.where(act, slot_of_free[torch.clamp(before[drow] + rank,
-                                                    max=nslots)], nslots)
+    tgt = torch.where(act, slot, nslots)
     src_act = torch.where(act, src, nslots)
 
     def move(a):

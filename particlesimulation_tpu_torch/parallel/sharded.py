@@ -39,13 +39,15 @@ census-planned (``parallel/balance``). Every shard's local COM grid is
 ``rows_max`` tall; a shard with fewer rows leaves its tail rows empty and
 takes its bottom halo at row ``rows_mine + 1``.
 
-The f32 fast precision runs the sharded resident tiles
-(``parallel/sharded_resident``) by default, and this sweep in f32 on
-request or as the ladder's last rung. JAX's other mesh routes (sharded
-supercell for sparse loads, column-sharded banded for clustered ones and
-streaming bands for large uniform ones, the 2D mesh) are not ported: the
-census raises ``NotImplementedError`` naming the route where it reaches
-one, rather than run another engine than JAX would.
+The f32 fast precision runs tile engines by the JAX mesh census: sharded
+super-cell tiles for sparse loads (``parallel/sharded_supercell``),
+column-sharded bands for clustered loads and for uniform ones whose tile
+state a shard exceeds ``engine._STREAM_BYTES`` (the streaming route,
+``parallel/sharded_banded_cols``), and the sharded resident tiles
+(``parallel/sharded_resident``) otherwise; this sweep runs in f32 on
+request or as the ladder's last rung. JAX's block-cyclic banded engine and
+its 2D mesh are not ported: asking for them raises ``NotImplementedError``
+naming the module.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimC
 from particlesimulation_tpu_torch.initializer import init_particles_host
 from particlesimulation_tpu_torch.ops import (binning, collisions, com, forces,
                                               integrate)
-from particlesimulation_tpu_torch.ops.banded import plan_bands
+from particlesimulation_tpu_torch.ops.banded import (grow_plan, plan_bands,
+                                                     uniform_band_plan)
 from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
 from particlesimulation_tpu_torch.ops.tiered import plan_tiers
@@ -85,14 +88,11 @@ INT32_MAX = np.iinfo(np.int32).max
 # (the JAX resident engine's).
 SHIP_SLACK = 4
 # The JAX census's tile-capacity limit (its XLA kernels' MAX_XLA_KCAP): the
-# clustered-route test uses it, so that the port routes as JAX does.
+# clustered route plans bands with it, so that the port routes as JAX does.
 JAX_MAX_KCAP = 4096
-IMPLS = ("resident", "sweep")
+IMPLS = ("resident", "sweep", "supercell", "banded", "banded-cols")
 # JAX's mesh routes that the port does not run yet, by ``impl`` name.
-UNPORTED = {"supercell": "sharded_supercell",
-            "banded": "sharded_banded_cols",
-            "banded-cols": "sharded_banded_cols",
-            "banded-cyclic": "sharded_banded (block-cyclic)"}
+UNPORTED = {"banded-cyclic": "sharded_banded (block-cyclic)"}
 
 
 def shard_rows(config: SimConfig, mesh):
@@ -329,25 +329,35 @@ def make_sharded_step(config: SimConfig, mesh, cap: int, bcap: int):
 class ShardedEngine:
     """Mesh engine with the single-device engine's interface.
 
-    Two implementations on the row-block decomposition:
+    Implementations (``impl``):
 
-    * ``sweep`` — sorted per-shard slabs, the neighbour-offset sweep. The
-      f64 parity path (bitwise equal to the single-device parity engine);
-    * ``resident`` — per-shard slot tiles with halo rows and the fused pair
-      kernel (``parallel/sharded_resident``); the fast-precision default.
+    * ``sweep`` — sorted per-shard slabs on row blocks, the neighbour-offset
+      sweep. The f64 parity path (bitwise equal to the single-device parity
+      engine) and the ladder's last rung;
+    * ``resident`` — per-shard slot tiles on row blocks with halo rows and
+      the fused pair kernel (``parallel/sharded_resident``);
+    * ``supercell`` — super-cell tiles on blocks of super-rows with the
+      labelled pair kernel (``parallel/sharded_supercell``);
+    * ``banded`` (or ``banded-cols``) — every row band over each shard's
+      column range (``parallel/sharded_banded_cols``).
 
     ``device`` defaults to ``cuda`` and raises without CUDA; the CPU only
     when the caller passes ``device="cpu"``. The mesh is a ``LocalMesh`` of
-    ``config.n_shards`` shards on that device. ``impl`` None lets the census
-    route (fast precision); JAX's routes that are not ported raise
-    ``NotImplementedError`` naming the route. ``init_state`` plans
-    census-weighted row boundaries for clustered loads unless
+    ``config.n_shards`` shards on that device. ``impl`` None lets the JAX
+    mesh census route (fast precision): sparse loads to super-cells where
+    ``supercell_shard_viable``, clustered loads with a band plan and uniform
+    loads above ``engine._STREAM_BYTES`` of tiles a shard to bands, the rest
+    to resident tiles. ``banded-cyclic`` (not ported) raises
+    ``NotImplementedError`` naming the module. ``init_state`` plans
+    census-weighted row boundaries for the row-block impls unless
     ``config.row_starts`` fixes them.
 
     Overflow replays the run losslessly: a slab out of slots grows the
-    slab, the sweep's migration buffers grow, resident tiles grow (then
-    escalate to the sweep), resident emigrants left in transit get more
-    ship rounds.
+    slab, the sweep's migration buffers grow, tiles grow (a band plan by
+    ``grow_plan``), emigrants left in transit get more ship rounds, and
+    where growth does not converge or passes the kernels' K, the run
+    escalates to the sweep (re-packed by row block where the tiles owned
+    cells otherwise).
     """
 
     def __init__(self, config: SimConfig, impl: str | None = None,
@@ -374,15 +384,31 @@ class ShardedEngine:
         self.device = device
         self.dtype = torch.float64 if parity else torch.float32
         self._impl_auto = impl is None and not parity
+        # The port has one banded decomposition, JAX's default: columns.
+        self.banded_variant = "cols"
+        self._band_plan = None  # [(row0, rows, kcap), ...] of banded
+        self._sc_factor = None  # super-cell S of supercell
+        if impl == "banded-cols":
+            impl = "banded"
         self.impl = "sweep" if parity else (impl or "resident")
+        # (Imported here: the tile meshes import this module.)
+        from particlesimulation_tpu_torch.parallel.sharded_supercell import (
+            supercell_shard_viable)
         if self._impl_auto and config.n_particles / config.ncells < 1.5:
             s = choose_supercell_factor(config)
-            if (s is not None and config.ncside % s == 0
-                    and config.ncside // s >= max(2, config.n_shards)):
-                raise NotImplementedError(
-                    f"the census routes this sparse load to super-cell "
-                    f"tiles (S={s}): the sharded_supercell route is not "
-                    f"ported yet")
+            if supercell_shard_viable(config, s):
+                self.impl, self._sc_factor = "supercell", s
+        elif self.impl == "supercell":
+            # Asked for: the chooser's S, else the largest divisor factor
+            # that keeps a super-row a shard; none declines to resident.
+            s = choose_supercell_factor(config)
+            if s is not None and not supercell_shard_viable(config, s):
+                s = next((f for f in range(s, 1, -1)
+                          if supercell_shard_viable(config, f)), None)
+            if supercell_shard_viable(config, s):
+                self._sc_factor = s
+            else:
+                self.impl = "resident"
         self.kcap = kcap
         self.capacity = config.shard_capacity or None  # set at pack time
         self.bcap = config.migration_capacity or None
@@ -394,42 +420,71 @@ class ShardedEngine:
         cfg = self.config
         cap = self.capacity or cfg.resolved_shard_capacity()
         self.capacity = cap
-        if self.impl == "resident" and self.kcap is None:
+        if self.impl in ("resident", "supercell") and self.kcap is None:
             # Snug Poisson-tail bound; overflow retries are lossless.
-            avg = max(1.0, cfg.n_particles / cfg.ncells)
+            nsc = cfg.ncside // (self._sc_factor or 1)
+            avg = max(1.0, cfg.n_particles / (nsc * nsc))
             self.kcap = binning.round_cap(avg + 4.5 * avg ** 0.5 + 8)
+        if self.impl == "banded":
+            if self._band_plan is None:
+                # No census: one whole-grid band at the Poisson bound.
+                avg = max(1.0, cfg.n_particles / cfg.ncells)
+                k = self.kcap or binning.round_cap(avg + 4.5 * avg ** 0.5
+                                                   + 8)
+                self._band_plan = ((0, cfg.ncside, k),)
+            # A band of JAX's plan wider than the kernels' K runs at their
+            # K; a cell too full for it overflows to the ladder.
+            self._band_plan = tuple(
+                (r0, rw, min(k, single.MAX_DENSE_KCAP))
+                for r0, rw, k in self._band_plan)
+            self.kcap = max(k for _, _, k in self._band_plan)  # telemetry
         if self.bcap is None:
             self.bcap = max(64, cap // 2)
         key = (self.impl, cap, self.bcap, self.kcap, self.ship_rounds,
-               cfg.row_starts)
+               self._band_plan, self._sc_factor, cfg.row_starts)
         if self._built_key == key:
             return
+        # (Imported here: the tile meshes import this module.)
         if self.impl == "resident":
-            # (Imported here: sharded_resident imports this module.)
             from particlesimulation_tpu_torch.parallel import (
                 sharded_resident)
             _, _, self._run = sharded_resident.make_sharded_resident_run(
                 cfg, self.mesh, self.kcap, cap, self.ship_rounds)
+        elif self.impl == "supercell":
+            from particlesimulation_tpu_torch.parallel import (
+                sharded_supercell)
+            _, _, self._run = sharded_supercell.make_sharded_supercell_run(
+                cfg, self.mesh, self.kcap, cap, self._sc_factor,
+                self.ship_rounds)
+        elif self.impl == "banded":
+            from particlesimulation_tpu_torch.parallel import (
+                sharded_banded_cols)
+            _, _, self._run = (
+                sharded_banded_cols.make_sharded_banded_cols_run(
+                    cfg, self.mesh, self._band_plan, cap, self.ship_rounds))
         else:
             _, self._run = make_sharded_step(cfg, self.mesh, cap, self.bcap)
         self._built_key = key
 
     def _census_route(self, hist) -> None:
         """The JAX mesh census on the occupancy histogram (auto impl only,
-        once): a clustered load with a band plan, or a uniform one whose
-        per-shard tile state exceeds ``engine._STREAM_BYTES``, goes to the
-        column-sharded banded engine there, which is not ported: raise."""
-        if not self._impl_auto:
+        once, while the census route is resident): a clustered load with a
+        band plan goes to the column-sharded bands on the one-device plan
+        (unquantized, at JAX's K cap); a uniform one whose tile state a
+        shard exceeds ``engine._STREAM_BYTES`` to equal streaming bands."""
+        if not self._impl_auto or self.impl != "resident":
+            self._impl_auto = False
             return
         self._impl_auto = False
         cfg = self.config
         hist = np.asarray(hist)
         tplan = plan_tiers(hist, cfg.ncells, JAX_MAX_KCAP)
-        if (single._clustered(tplan)
-                and plan_bands(hist, cfg.ncside, JAX_MAX_KCAP) is not None):
-            raise NotImplementedError(
-                "the census routes this clustered load to column-sharded "
-                "bands: the sharded_banded_cols route is not ported yet")
+        if single._clustered(tplan):
+            bands = plan_bands(hist, cfg.ncside, JAX_MAX_KCAP)
+            if bands is not None:
+                self.impl = "banded"
+                self._band_plan = tuple(tuple(p) for p in bands)
+                return
         occ = int(hist.max()) if hist.size else 1
         kcap_est = binning.round_cap(occ * 1.1 + 4)
         d = cfg.n_shards
@@ -437,25 +492,25 @@ class ShardedEngine:
         band_rows = max(1, single._STREAM_BAND_BYTES // row_bytes)
         if (cfg.ncells * kcap_est * 25 // d > single._STREAM_BYTES
                 and -(-cfg.ncside // band_rows) >= 2):
-            raise NotImplementedError(
-                "the census routes this load's tiles (over "
-                f"{single._STREAM_BYTES >> 20} MB a shard) to streaming "
-                "bands: the sharded_banded_cols streaming route is not "
-                "ported yet")
+            self.impl = "banded"
+            self._band_plan = uniform_band_plan(cfg.ncside, band_rows,
+                                                kcap_est)
 
     def init_state(self) -> ShardedState:
-        """Host init, then scatter by owner row block into per-shard slabs
-        (the reference initializes on rank 0 and distributes by ownership,
+        """Host init, then scatter by owner into per-shard slabs (the
+        reference initializes on rank 0 and distributes by ownership,
         mpi/parsim-mpi.cpp:344-349,406-465)."""
         cfg = self.config
         xs, ys, vxs, vys, ms = init_particles_host(cfg)
         w = cfg.side / cfg.ncside
         cx = np.clip((xs / w).astype(np.int64), 0, cfg.ncside - 1)
         cy = np.clip((ys / w).astype(np.int64), 0, cfg.ncside - 1)
-        # Route before balance planning, as JAX does.
+        # Route before balance planning, as JAX does: the band and
+        # super-cell impls own cells by their own rules.
         self._census_route(np.bincount(cy * cfg.ncside + cx,
                                        minlength=cfg.ncells))
-        if not cfg.row_starts and cfg.n_shards > 1:
+        if (not cfg.row_starts and cfg.n_shards > 1
+                and self.impl in ("resident", "sweep")):
             starts = plan_shard_rows(np.bincount(cy, minlength=cfg.ncside),
                                      cfg.n_shards)
             if starts is not None:
@@ -466,31 +521,84 @@ class ShardedEngine:
             "alive": np.ones(n, dtype=bool),
             "pid": np.arange(n, dtype=np.int32)})
 
-    def pack_particles(self, particles, collisions=0, panics=0,
-                       dtype=None) -> ShardedState:
-        """Scatter host particle arrays by owner row block into slabs, each
-        sorted by (cell key, pid). ``particles`` maps x/y/vx/vy/m/alive/pid
-        to equal-length arrays. Also the checkpoint path when the geometry
-        changed (``utils/checkpointing.restore_sharded``)."""
+    def ownership_plan(self) -> tuple:
+        """The slab ownership of this engine's impl, as the JAX package's
+        checkpoints record it (``band_plan``): ``((-2, S, -2),)`` for
+        super-cells (super-row blocks, a function of S and the shard count),
+        ``((-1, -1, -1),)`` for column bands (any plan: the column split
+        depends on the shard count alone), ``()`` for row blocks.
+        ``utils/checkpointing.restore_sharded`` places a checkpoint's slabs
+        as saved only where its ownership is the engine's."""
+        if self.impl == "supercell":
+            return ((-2, int(self._sc_factor), -2),)
+        if self.impl == "banded":
+            return ((-1, -1, -1),)
+        return ()
+
+    def _owners(self, cx, cy, in_range):
+        """Owning shard of each particle (NumPy) by the impl's rule: column
+        blocks, super-row blocks or row blocks; out-of-range ones to
+        shard 0."""
         cfg = self.config
         d = cfg.n_shards
-        xs, ys = np.asarray(particles["x"]), np.asarray(particles["y"])
-        w = cfg.side / cfg.ncside
+        row = np.clip(cy, 0, cfg.ncside - 1)
+        if self.impl == "banded":
+            from particlesimulation_tpu_torch.parallel.sharded_banded_cols \
+                import col_owner
+            shard = col_owner(cfg.ncside, d, np.clip(cx, 0, cfg.ncside - 1))
+        elif self.impl == "supercell":
+            from particlesimulation_tpu_torch.parallel.sharded_supercell \
+                import sc_row_starts
+            nsc = cfg.ncside // self._sc_factor
+            starts = np.asarray(sc_row_starts(nsc, d))
+            shard = np.searchsorted(starts, np.clip(row // self._sc_factor,
+                                                    0, nsc - 1),
+                                    side="right") - 1
+        else:
+            shard = cfg.shard_of_row(row)
+        return np.where(in_range, shard, 0)
+
+    def pack_particles(self, particles, collisions=0, panics=0,
+                       dtype=None) -> ShardedState:
+        """Scatter host particle arrays by owner into slabs, each sorted by
+        (cell key, pid). ``particles`` maps x/y/vx/vy/m/alive/pid to
+        equal-length arrays. Also the checkpoint path where the geometry or
+        the ownership changed (``utils/checkpointing.restore_sharded``), and
+        the ladder's re-pack."""
+        cfg = self.config
+        d = cfg.n_shards
+        dt = dtype or self.dtype
+        # Cells in the precision the run bins in (``binning.cell_keys``): a
+        # particle near a shard boundary must land where the prologue looks.
+        npdt = torch.empty((), dtype=dt).numpy().dtype
+        xs, ys = (np.asarray(particles[k]).astype(npdt) for k in ("x", "y"))
+        w = npdt.type(cfg.side / cfg.ncside)
         cx = (xs / w).astype(np.int32)
         cy = (ys / w).astype(np.int32)
         in_range = ((cx >= 0) & (cx < cfg.ncside) &
                     (cy >= 0) & (cy < cfg.ncside))
         row = np.clip(cy, 0, cfg.ncside - 1)
         col = np.clip(cx, 0, cfg.ncside - 1)
-        self._census_route(np.bincount((row * cfg.ncside + col)[in_range],
-                                       minlength=cfg.ncells))
-        shard = np.where(in_range, cfg.shard_of_row(row), 0)
+        hist = np.bincount((row * cfg.ncside + col)[in_range],
+                           minlength=cfg.ncells)
+        self._census_route(hist)
+        if self.impl == "banded" and self._band_plan is None:
+            # Asked for: this census's one-device plan; a uniform load
+            # (no plan) runs resident tiles, as in JAX.
+            bands = plan_bands(hist, cfg.ncside, JAX_MAX_KCAP)
+            if bands is None:
+                self.impl = "resident"
+            else:
+                self._band_plan = tuple(tuple(p) for p in bands)
+        shard = self._owners(cx, cy, in_range)
         counts = np.bincount(shard, minlength=d)
-        if self.impl == "resident" and self.kcap is None:
+        if self.impl in ("resident", "supercell") and self.kcap is None:
             # Occupancy-informed tile capacity; pair-pass cost scales with
             # kcap², and overflow retries are lossless.
-            occ = np.bincount(row * cfg.ncside + col,
-                              minlength=cfg.ncells).max()
+            s = self._sc_factor or 1
+            nsc = cfg.ncside // s
+            occ = np.bincount((row // s) * nsc + col // s,
+                              minlength=nsc * nsc).max()
             self.kcap = binning.round_cap(occ * 1.1 + 4)
         if self.capacity is None:
             # Slabs sized from the occupancy with migration slack.
@@ -516,7 +624,6 @@ class ShardedEngine:
         def put(a, dt):
             return torch.as_tensor(a.reshape(-1), dtype=dt).to(dev)
 
-        dt = dtype or self.dtype
         state = ShardedState(
             **{k: put(v, dt) for k, v in slabs.items()},
             alive=put(alive, torch.bool), valid=put(valid, torch.bool),
@@ -558,6 +665,18 @@ class ShardedEngine:
             alive=grow(state.alive, False), valid=grow(state.valid, False),
             pid=grow(state.pid, INT32_MAX))
 
+    def _to_sweep(self, state: ShardedState) -> ShardedState:
+        """The ladder's last rung: the sweep, on row blocks. A state whose
+        tiles owned cells by another rule is re-packed."""
+        owned_by_rows = self.impl == "resident"
+        self.impl = "sweep"
+        if owned_by_rows:
+            return state
+        return self.pack_particles(self.gather(state),
+                                   collisions=int(state.collisions),
+                                   panics=int(state.panics),
+                                   dtype=state.x.dtype)
+
     def run(self, state: ShardedState, n_steps: int) -> ShardedState:
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped; the reference instead
@@ -567,6 +686,10 @@ class ShardedEngine:
         for attempt in range(8):
             if self.capacity is not None:
                 state = self._grow_state(state, self.capacity)
+            if (self.impl in ("resident", "supercell")
+                    and (self.kcap or 0) > single.MAX_DENSE_KCAP):
+                # Past the kernels' K, as one device's supercell -> sweep.
+                state = self._to_sweep(state)
             self._build()
             out = self._run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
@@ -590,18 +713,26 @@ class ShardedEngine:
                 if self.ship_rounds < d + SHIP_SLACK:
                     self.ship_rounds = d + SHIP_SLACK
                 else:
-                    self.impl = "sweep"
+                    state = self._to_sweep(state)
             elif self.impl == "sweep":
                 # Emigrant buffer or landing-slot exhaustion.
                 self.capacity = binning.round_cap(cap * 1.5 + need)
                 self.bcap = binning.round_cap(self.bcap * 2 + need)
+            elif self.impl == "banded":
+                # Bands too narrow: grow them (to the kernels' K at most);
+                # where growth does not converge, the sweep.
+                plan = tuple(tuple(p) for p in grow_plan(
+                    self._band_plan, 1.5, single.MAX_DENSE_KCAP))
+                if attempt >= 2 or plan == self._band_plan:
+                    state = self._to_sweep(state)
+                self._band_plan = plan
             else:
                 # Tile occupancy outgrew the tiles: larger tiles, then the
-                # sweep (same row-block slabs, no repack).
+                # sweep.
                 self.kcap = max(binning.round_cap(need * 1.25 + 1),
                                 binning.round_cap(self.kcap * 1.5))
                 if attempt >= 2 or self.kcap > single.MAX_DENSE_KCAP:
-                    self.impl = "sweep"
+                    state = self._to_sweep(state)
         raise RuntimeError("sharded capacity retries exhausted")
 
     def result(self, state: ShardedState) -> tuple[float, float, int]:

@@ -9,8 +9,10 @@ deterministic, so a restored state continues bit for bit.
 Both state families round-trip: the single-device ``SimState`` and the mesh
 engine's ``ShardedState`` (the ``valid`` mask tells them apart). A sharded
 checkpoint records its slab geometry (``n_shards``, ``row_starts``,
-``mesh_shape``, ``band_plan``): slab placement encodes cell ownership, so a
-restore places the slabs as they are only where the geometry matches, and
+``mesh_shape``, and in ``band_plan`` the engine's ownership,
+``ShardedEngine.ownership_plan()``): slab placement encodes cell ownership
+(row blocks, super-row blocks or column blocks), so a restore places the
+slabs as they are only where the geometry and the ownership match, and
 otherwise re-packs the particles through the engine's own packer.
 """
 
@@ -42,9 +44,10 @@ def save_sharded_state(path: str, state: ShardedState, n_shards: int,
                        band_plan: tuple = ()) -> None:
     """Serialize a ShardedState with its slab geometry: ``n_shards``, plus
     ``row_starts`` when the row boundaries are census-planned
-    (``parallel/balance``), ``mesh_shape`` for a 2D mesh and ``band_plan``
-    for a banded engine's ownership (the JAX package's banded engines; the
-    port's mesh engines own cells by row block and pass none)."""
+    (``parallel/balance``), ``mesh_shape`` for a 2D mesh and, in
+    ``band_plan``, the writing engine's ``ownership_plan()`` (empty for row
+    blocks; the JAX package's sentinels for super-cells and column bands,
+    or a block-cyclic plan)."""
     arrs = _host(state, _SHARDED_FIELDS)
     arrs["n_shards"] = np.asarray(n_shards, np.int32)
     arrs["row_starts"] = np.asarray(row_starts, np.int32)
@@ -70,11 +73,12 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
     """Load a sharded checkpoint as a legal input of ``engine.run``.
 
     Where the checkpoint's geometry (shard count, slab capacity, row
-    boundaries, mesh shape, row-block ownership) matches the engine's, the
-    slabs are placed as they are (a bit-exact resume); otherwise the valid
-    particles are gathered and re-packed through ``engine.pack_particles``,
-    as a checkpoint from another mesh width, another row decomposition or a
-    banded engine must be.
+    boundaries, mesh shape) and ownership (``band_plan`` against
+    ``engine.ownership_plan()``) match the engine's, the slabs are placed as
+    they are (a bit-exact resume); otherwise the valid particles are
+    gathered and re-packed through ``engine.pack_particles``, as a
+    checkpoint from another mesh width, another row decomposition or
+    another ownership rule must be.
     """
     with np.load(path) as z:
         saved = {f: z[f] for f in z.files}
@@ -91,7 +95,8 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
     if (saved_shards == d and saved["x"].shape[0] == d * cap
             and saved_starts == tuple(cfg.row_starts)
             and saved_mesh == tuple(cfg.mesh_shape)
-            and not saved_plan):  # the port's engines own by row block
+            and saved_plan == tuple(tuple(int(v) for v in p)
+                                    for p in engine.ownership_plan())):
         return state_from_numpy({f: saved[f] for f in _SHARDED_FIELDS},
                                 engine.device, dt)
     valid = saved["valid"]

@@ -233,3 +233,127 @@ def test_jax_banded_checkpoint_repacks(impl, tmp_path):
     assert int(got.overflow) == 0 and eng.impl == impl
     _assert_same(eng.gather(got), _BANDED["ref"], got.collisions,
                  _BANDED["count"], exact=False)
+
+
+# The census's other mesh routes: super-cell tiles (owned by blocks of
+# super-rows) and column bands (owned by blocks of columns); checkpoints
+# record the ownership in ``band_plan`` (``ShardedEngine.ownership_plan``).
+ROUTES = {"supercell": ((5893, 0.5, 16, 200), None),
+          "banded": ((-10, 3.0, 16, 600), ((0, 8, 96), (8, 8, 64)))}
+_ROUTE_REF = {}
+
+
+def _route(kind, d=4, impl=None):
+    args, plan = ROUTES[kind]
+    eng = ShardedEngine(SimConfig(*args, n_shards=d), impl=impl or kind,
+                        device="cpu")
+    if plan is not None and (impl or kind) == "banded":
+        eng._band_plan = plan
+    return eng
+
+
+def _route_ref(kind):
+    """The uninterrupted 16-step run of a route: (gathered, count)."""
+    if kind not in _ROUTE_REF:
+        eng = _route(kind)
+        out = eng.run(eng.init_state(), 16)
+        _ROUTE_REF[kind] = (eng.gather(out), int(out.collisions))
+    return _ROUTE_REF[kind]
+
+
+def _route_mid(kind, path):
+    """8 steps of the route's mesh, saved with its ownership."""
+    eng = _route(kind)
+    mid = eng.run(eng.init_state(), 8)
+    checkpointing.save_sharded_state(path, mid, n_shards=4,
+                                     band_plan=eng.ownership_plan())
+    return eng, mid
+
+
+@pytest.mark.parametrize("kind", list(ROUTES))
+def test_route_checkpoint_resumes_as_saved(kind, tmp_path):
+    """A super-cell or column-band mesh checkpoint restored onto an engine
+    of the same route: the slabs placed as saved, bit for bit, and the
+    resumed run ends on the uninterrupted run's count and dead set."""
+    path = str(tmp_path / "mid.npz")
+    eng, mid = _route_mid(kind, path)
+    assert eng.ownership_plan() == {
+        "supercell": ((-2, eng._sc_factor, -2),),
+        "banded": ((-1, -1, -1),)}[kind]
+    restored = checkpointing.restore_sharded(path, eng)
+    for f in ShardedState._fields:
+        assert torch.equal(getattr(mid, f), getattr(restored, f)), f
+    out = eng.run(restored, 8)
+    assert eng.impl == kind and int(out.overflow) == 0
+    ref, count = _route_ref(kind)
+    _assert_same(eng.gather(out), ref, out.collisions, count, exact=False)
+
+
+@pytest.mark.parametrize("dst", ["rows", "width"])
+@pytest.mark.parametrize("kind", list(ROUTES))
+def test_route_checkpoint_repacks(kind, dst, tmp_path):
+    """The same checkpoint onto a row-block engine (resident tiles, the
+    ownership differs) or onto the same route at D = 2 (the width differs)
+    is re-packed, and the resumed run ends on the uninterrupted run's count
+    and dead set."""
+    path = str(tmp_path / "mid.npz")
+    src, mid = _route_mid(kind, path)
+    dst_eng = (_route(kind, impl="resident") if dst == "rows"
+               else _route(kind, d=2))
+    dst_eng.capacity = src.capacity
+    packs = []
+    pack = dst_eng.pack_particles
+    dst_eng.pack_particles = lambda *a, **kw: packs.append(1) or pack(*a,
+                                                                      **kw)
+    restored = checkpointing.restore_sharded(path, dst_eng)
+    assert packs
+    want = pack(src.gather(mid), collisions=mid.collisions,
+                panics=mid.panics)
+    assert all(torch.equal(getattr(restored, f), getattr(want, f))
+               for f in ShardedState._fields)
+    out = dst_eng.run(restored, 8)
+    assert int(out.overflow) == 0
+    assert dst_eng.impl == ("resident" if dst == "rows" else kind)
+    ref, count = _route_ref(kind)
+    _assert_same(dst_eng.gather(out), ref, out.collisions, count,
+                 exact=False)
+
+
+def _jax_route(kind):
+    args, plan = ROUTES[kind]
+    jeng = JShardedEngine(JSimConfig(*args, precision=JPrecision.FAST,
+                                     n_shards=4),
+                          impl="banded-cols" if kind == "banded" else kind)
+    if plan is not None:
+        jeng._band_plan = plan
+    return jeng
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+@pytest.mark.parametrize("kind", list(ROUTES))
+def test_route_checkpoint_crosses_packages(kind, direction, tmp_path):
+    """A super-cell or column-band checkpoint written by one package
+    resumes in the other's engine of the same route, placed as saved (the
+    ownership sentinels agree), and the two packages' resumes end on the
+    same count and dead set."""
+    path = str(tmp_path / "mid.npz")
+    eng, jeng = _route(kind), _jax_route(kind)
+    if direction == "port_to_jax":
+        mid = eng.run(eng.init_state(), 8)
+        checkpointing.save_sharded_state(path, mid, n_shards=4,
+                                         band_plan=eng.ownership_plan())
+        jeng.capacity = eng.capacity
+        jmid = jckpt.restore_sharded(path, jeng)
+        np.testing.assert_array_equal(np.asarray(jmid.pid), mid.pid.numpy())
+    else:
+        jmid = jeng.run(jeng.init_state(), 8)
+        jckpt.save_sharded_state(path, jmid, n_shards=4,
+                                 band_plan=jeng.ownership_plan())
+        eng.init_state()
+        eng.capacity = jeng.capacity
+        mid = checkpointing.restore_sharded(path, eng)
+        np.testing.assert_array_equal(mid.pid.numpy(), np.asarray(jmid.pid))
+    got, ref = eng.run(mid, 8), jeng.run(jmid, 8)
+    assert eng.impl == kind and jeng.impl == kind
+    _assert_same(eng.gather(got), jeng.gather(ref), got.collisions,
+                 np.asarray(ref.collisions), exact=False)

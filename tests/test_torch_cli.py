@@ -80,6 +80,34 @@ def test_cli_refuses_a_mesh(mesh, capsys):
                   "--mesh", "1"], capsys)[0] == 0
 
 
+def test_cli_refuses_banded_cyclic(capsys):
+    rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
+                          "--engine", "fast", "--mesh", "3", "--impl",
+                          "banded-cyclic"], capsys)
+    assert rc == 2 and out == [] and "sharded_banded (block-cyclic)" in err
+
+
+@pytest.mark.parametrize("impl,args,runs", [
+    ("supercell", (5893, 0.5, 16, 200), "supercell"),
+    # A load this small has no band plan: JAX's decline to resident tiles.
+    ("banded", (-10, 3.0, 16, 600), "resident"),
+    ("banded-cols", (-10, 3.0, 16, 600), "resident")])
+def test_cli_mesh_impls(impl, args, runs, capsys):
+    """``--mesh 4 --impl supercell|banded|banded-cols`` runs the mesh engine
+    of that impl and prints its result."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+
+    rc, out, _ = _main([str(a) for a in args] + [
+        "10", "--device", "cpu", "--engine", "fast", "--mesh", "4",
+        "--impl", impl], capsys)
+    eng = ShardedEngine(SimConfig(*args, n_shards=4), impl=impl,
+                        device="cpu")
+    x, y, c = eng.result(eng.run(eng.init_state(), 10))
+    assert eng.impl == runs
+    assert rc == 0 and out == [f"{x:.3f} {y:.3f}", str(c)]
+
+
 @pytest.mark.parametrize("engine", ["parity", "fast"])
 def test_cli_mesh_golden_n1(engine, capsys):
     """``--mesh 3`` on golden N1 (3 rows on 3 shards): the golden lines, in

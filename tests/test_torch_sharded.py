@@ -346,19 +346,29 @@ def test_rank_overflow_guard(monkeypatch):
         eng.run(eng.init_state(), 4)
 
 
-@pytest.mark.parametrize("case", ["sparse", "clustered", "stream", "banded",
-                                  "banded-cols", "banded-cyclic",
-                                  "supercell", "mesh2d"])
-def test_unported_routes_raise(case, monkeypatch):
+@pytest.mark.parametrize("case", ["banded-cyclic", "mesh2d"])
+def test_unported_routes_raise(case):
     """JAX's mesh routes the port does not run raise NotImplementedError
-    naming the route; none runs another engine instead."""
-    route = {"sparse": "sharded_supercell", "clustered":
-             "sharded_banded_cols", "stream": "streaming",
-             "banded": "sharded_banded_cols",
-             "banded-cols": "sharded_banded_cols",
-             "banded-cyclic": "block-cyclic", "supercell":
-             "sharded_supercell", "mesh2d": "sharded2d"}[case]
-    args, impl, kw = (1, 100.0, 10, 2000), None, {}
+    naming the module; none runs another engine instead."""
+    route = {"banded-cyclic": r"sharded_banded \(block-cyclic\)",
+             "mesh2d": "sharded2d"}[case]
+    impl, kw = (None, dict(mesh_shape=(2, 2))) if case == "mesh2d" else (
+        case, {})
+    with pytest.raises(NotImplementedError, match=route):
+        eng = ShardedEngine(SimConfig(1, 100.0, 10, 2000, n_shards=4, **kw),
+                            impl=impl, device="cpu")
+        eng.init_state()
+
+
+@pytest.mark.parametrize("case", ["sparse", "clustered", "stream", "banded",
+                                  "banded-cols", "supercell"])
+def test_mesh_routes_match_jax(case, monkeypatch):
+    """The port's mesh census takes JAX's route after ``init_state`` (no
+    run): the same impl, super-cell factor, band plan and banded variant as
+    the JAX ``ShardedEngine`` on the bootstrap's virtual devices. An
+    explicit banded or supercell impl on a uniform load declines to
+    resident tiles, as in JAX."""
+    args, impl = (1, 100.0, 10, 2000), None
     if case == "sparse":       # 0.8 a cell: super-cell tiles at S = 2
         args = (5893, 0.5, 16, 200)
     elif case == "clustered":  # a normal-mode blob with a band plan
@@ -366,14 +376,28 @@ def test_unported_routes_raise(case, monkeypatch):
     elif case == "stream":     # tiles above the (lowered) threshold
         monkeypatch.setattr(port_engine, "_STREAM_BYTES", 10_000)
         monkeypatch.setattr(port_engine, "_STREAM_BAND_BYTES", 10_000)
-    elif case == "mesh2d":
-        kw = dict(mesh_shape=(2, 2))
+        monkeypatch.setenv("PSIM_STREAM_BYTES", "10000")
+        monkeypatch.setenv("PSIM_STREAM_BAND_BYTES", "10000")
     else:
         impl = case
-    with pytest.raises(NotImplementedError, match=route):
-        eng = ShardedEngine(SimConfig(*args, n_shards=4, **kw), impl=impl,
-                            device="cpu")
-        eng.init_state()
+    eng = ShardedEngine(SimConfig(*args, n_shards=4), impl=impl,
+                        device="cpu")
+    eng.init_state()
+    jeng = JShardedEngine(JSimConfig(*args, precision=JPrecision.FAST,
+                                     n_shards=4), impl=impl)
+    jeng.init_state()
+    want = {"sparse": "supercell", "clustered": "banded",
+            "stream": "banded"}.get(case, "resident")
+    assert eng.impl == jeng.impl == want
+    assert eng._sc_factor == jeng._sc_factor
+    plan = jeng._band_plan if jeng.impl == "banded" else None
+    assert (eng._band_plan if eng.impl == "banded" else None) == (
+        plan and tuple(tuple(p) for p in plan))
+    if eng.impl == "banded":
+        assert eng.banded_variant == jeng.banded_variant == "cols"
+        assert len(plan) >= 2
+    assert eng.ownership_plan() == jeng.ownership_plan()
+    assert eng.config.row_starts == jeng.config.row_starts
 
 
 def test_pair_tiles_are_the_runs():
