@@ -123,6 +123,37 @@ ac. the ladders: SMALL D = 4 from kcap 32, UNEVEN D = 4 from a plan at
 ad. ms/step, device ms/step, idle share, launches and syncs a step of
    SMALL and UNEVEN at D = 1, 2 and 4 and on one device.
 
+Then the 2D rectangle mesh (``parallel/sharded2d.Sharded2DEngine``, shard
+(r, c) owning a rectangle of cells) and the block-cyclic bands
+(``ShardedEngine(impl="banded-cyclic")``), on local meshes of the card:
+
+ae. the CLI with ``--mesh 2x2``: golden s1's lines exactly in parity (as a
+   subprocess), and within ±0.002 and the count in fast precision
+   (in-process; the fused kernel launched);
+af. parity at (2, 2) against the one-device parity engine on the card, bit
+   for bit by pid after 4 steps; cuda against cpu bit for bit on (17 0.12 5
+   120) at (2, 3), uneven on both axes, and (1 100 8 10000) at (2, 2);
+ag. fast at (2, 2) through the census (rectangle tiles with a halo ring):
+   golden s1's count and particle 0 (±0.002), the one-device resident
+   run's count and dead set with positions within 1e-6·side; the fused
+   kernel launched, and held to its plain version on the 2D run's own
+   tiles (timed, with the bound); no host sync;
+ah. the census under (2, 2): SMALL delegates to super-cells on the 1D mesh
+   of 4 shards (the labelled and cell sums kernels launched; the 1D D = 4
+   route's bits), UNEVEN to column bands;
+ai. UNEVEN at D = 4 on block-cyclic bands (the cyclic plan printed): after
+   2 steps the JAX f32 engine's 14 collisions and particle 0 (±0.002),
+   after 10 the one-device banded run's count and dead set (positions
+   within 2e-5·side); the fused kernel on the widest band's own tiles; no
+   host sync;
+aj. the ladders: rectangle tiles from kcap 32, a slab 1000 below the
+   fullest shard (CAP_OVF), cyclic bands from a plan at 0.7 of each band's
+   K; each ends on the untight run's count and dead set;
+ak. ms/step, device ms/step, idle share, launches and syncs a step of the
+   flagship's fast mesh at (2, 2), (4, 1) and (1, 4) against 1D D = 4,
+   parity at (2, 2), and UNEVEN cyclic against column bands at D = 4.
+
+``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone.
 ``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
 flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
 checkout ROOT in turn (a process each): the way to compare two commits in
@@ -814,9 +845,9 @@ def _parity(seed, side, nc, n, device):
 
 
 def check_cli_parity(extra=()):
-    """(a, s) The CLI as a user runs it, with the default engine (parity)
-    and device (cuda), and ``extra`` arguments (``--mesh N``): golden s1's
-    exact output lines, and "%.1fs" on stderr."""
+    """(a, s, ae) The CLI as a user runs it, with the default engine
+    (parity) and device (cuda), and ``extra`` arguments (``--mesh N`` or
+    ``RxC``): golden s1's exact output lines, and "%.1fs" on stderr."""
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     args = [str(seed), str(int(side)), str(nc), str(n), str(steps), *extra]
     t = time.perf_counter()
@@ -936,10 +967,10 @@ def check_medium():
 
 
 def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
-    """(f, k, y, z) The CLI's fast route in-process (golden s1 through the
-    census: resident; SMALL: supercell; UNEVEN: banded; on one device or
-    with ``extra`` ``--mesh 4``), with the launch counts set to 0 just
-    before it:
+    """(f, k, y, z, ae) The CLI's fast route in-process (golden s1 through
+    the census: resident; SMALL: supercell; UNEVEN: banded; on one device
+    or with ``extra`` ``--mesh 4`` or ``--mesh 2x2``), with the launch
+    counts set to 0 just before it:
     ``kernel`` must have launched. Returns the launch counts."""
     from particlesimulation_tpu_torch import cli
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
@@ -1689,6 +1720,204 @@ def check_mesh_routes(card):
     return launches, recs
 
 
+# The 2D mesh and the block-cyclic bands (phases ae-ak). Parity on the 2D
+# mesh, cuda against cpu bit for bit: (config, steps, mesh shape); the
+# first uneven on both axes (2 + 2 + 1 columns, 3 + 2 rows).
+MESH2D_CARD_VS_CPU = (((17, 0.12, 5, 120), 20, (2, 3)),
+                      ((1, 100.0, 8, 10_000), 10, (2, 2)))
+
+
+def check_mesh2d(card):
+    """(ae)-(ak) The 2D rectangle mesh (``parallel/sharded2d``) at the
+    flagship on a local (2, 2) mesh of the card, the census's delegation
+    under it, and the block-cyclic bands (``parallel/sharded_banded``) at
+    UNEVEN on 4 shards: the CLI, parity bit for bit, rectangle tiles with
+    the fused kernel on their own tiles, the ladders, the step times.
+    Returns the paths' launch counts and the kernel record."""
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.banded import grow_plan
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded2d import (
+        Sharded2DEngine)
+    from particlesimulation_tpu_torch.parallel.sharded2d_resident import (
+        make_sharded2d_resident_run)
+    from particlesimulation_tpu_torch.parallel.sharded_banded import (
+        make_sharded_banded_run)
+
+    t0 = time.perf_counter()
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    parity, fast = Precision.PARITY, Precision.FAST
+    launches, times = {}, {}
+
+    def mesh2d(shape, precision=fast, device="cuda", args=GOLDEN_S1[:4],
+               **kw):
+        return Sharded2DEngine(SimConfig(
+            *args, precision=precision, n_shards=shape[0] * shape[1],
+            mesh_shape=shape), device=device, **kw)
+
+    def cyclic(**kw):
+        return ShardedEngine(SimConfig(*UNEVEN, n_shards=4),
+                             impl="banded-cyclic", device="cuda", **kw)
+
+    # ae. The CLI through the 2D mesh: parity as a subprocess, fast
+    # in-process (the fused kernel launched).
+    check_cli_parity(("--mesh", "2x2"))
+    launches["2D CLI fast"] = check_cli_fast(extra=("--mesh", "2x2"))
+
+    # af. Parity at (2, 2) against one device, bit for bit; cuda = cpu.
+    single = _parity(seed, side, nc, n, "cuda")
+    ss = single.run(single.init_state(), steps)
+    order = torch.argsort(ss.pid)
+    want = {f: getattr(ss, f)[order].cpu().numpy() for f in MESH_FIELDS}
+    pm = mesh2d((2, 2), parity)
+    pstate = pm.init_state()
+    pout = pm.run(pstate, steps)
+    _same_bits(f"golden s1 parity on cuda, mesh (2, 2) vs one device "
+               f"({int(pout.collisions)} collisions)", pm.gather(pout), want)
+    if not (pm.impl == "sweep" and int(pout.collisions) == ec):
+        raise AssertionError("golden s1 parity 2D mesh")
+    for args, k, shape in MESH2D_CARD_VS_CPU:
+        outs = []
+        for device in ("cuda", "cpu"):
+            e = mesh2d(shape, parity, device, args)
+            o = e.run(e.init_state(), k)
+            outs.append((e.gather(o), int(o.collisions)))
+        _same_bits(f"parity mesh {shape} {args}, {k} steps, cuda vs cpu "
+                   f"({outs[0][1]} = {outs[1][1]} collisions)",
+                   outs[0][0], outs[1][0])
+        if outs[0][1] != outs[1][1]:
+            raise AssertionError("parity 2D mesh cuda vs cpu: collisions")
+
+    # ag. Fast at (2, 2): rectangle tiles by the census.
+    fm = mesh2d((2, 2))
+    fstate = fm.init_state()
+    if fm.impl != "resident" or fm.target() is not fm:
+        raise AssertionError(f"flagship 2D census: {fm.impl}")
+    fout, launches["2D resident"] = check_golden(
+        "golden s1 mesh resident (2, 2)", fm, fstate, steps, (ex, ey, ec),
+        ["fused_pairs"])
+    rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
+    rout = rs.run(rs.init_state(), steps)
+    compare_runs("golden s1, mesh resident (2, 2) vs one-device resident on "
+                 "cuda", (int(fout.collisions), _Valid(fout), side),
+                 (int(rout.collisions), rout, side), 1e-6, 1e-5)
+    _, pair_tiles, run = make_sharded2d_resident_run(
+        fm.config, fm.mesh, fm.dec_r, fm.dec_c, fm.kcap, fm.capacity,
+        fm.ship_rounds)
+    rec = fused_record("mesh resident (2, 2) tiles",
+                       pair_tiles(fstate, steps), "v4", True, planted=False)
+    check_no_sync("mesh resident (2, 2)", run, fstate)
+
+    # ah. The census under (2, 2): SMALL to super-cells (the 1D D = 4
+    # route's bits), UNEVEN to column bands.
+    sm = mesh2d((2, 2), args=SMALL[:4])
+    sstate = sm.init_state()
+    if sm.impl != "supercell" or sm.target() is sm:
+        raise AssertionError(f"SMALL 2D census: {sm.impl}")
+    sout, _, launches["SMALL 2D -> supercell"] = drive(
+        "SMALL mesh (2, 2) -> supercell D=4", sm, sstate, SMALL[4],
+        ["fused_pairs_sub", "supercell_cell_sums"])
+    one_d = ShardedEngine(SimConfig(*SMALL[:4], n_shards=4), device="cuda")
+    _same_bits("SMALL 10 steps, mesh (2, 2) delegated vs 1D D=4",
+               sm.gather(sout), one_d.gather(one_d.run(one_d.init_state(),
+                                                       SMALL[4])))
+    um2 = mesh2d((2, 2), args=UNEVEN)
+    um2.init_state()
+    if um2.impl != "banded" or um2.target().banded_variant != "cols":
+        raise AssertionError(f"UNEVEN 2D census: {um2.impl}")
+    print(f"UNEVEN mesh (2, 2): the census delegates to {um2.impl} "
+          f"({um2.target().banded_variant}), plan "
+          f"{um2.target()._band_plan}", flush=True)
+    del sm, sstate, sout, one_d, um2
+
+    # ai. UNEVEN at D = 4 on block-cyclic bands.
+    cm = cyclic()
+    cstate = cm.init_state()
+    plan = cm._band_plan
+    print(f"UNEVEN cyclic D=4: {cm.impl} ({cm.banded_variant}), "
+          f"{len(plan)} bands {plan}", flush=True)
+    if cm.impl != "banded" or cm.banded_variant != "cyclic":
+        raise AssertionError(f"UNEVEN cyclic: {cm.impl}")
+    _, launches["UNEVEN cyclic"] = check_golden(
+        "UNEVEN mesh banded-cyclic D=4", cm, cstate, 2, UNEVEN_2,
+        ["fused_pairs"])
+    cout10 = cm.run(cstate, 10)
+    if cm._band_plan != plan or cm.impl != "banded":
+        print(f"UNEVEN cyclic D=4 ended on {cm.impl}, plan {cm._band_plan}",
+              flush=True)
+    ub = Engine(SimConfig(*UNEVEN), device="cuda")
+    bout10 = ub.run(ub.init_state(), 10)
+    compare_runs("UNEVEN 10 steps, mesh banded-cyclic D=4 vs one-device "
+                 "banded on cuda",
+                 (int(cout10.collisions), _Valid(cout10), UNEVEN[1]),
+                 (int(bout10.collisions), bout10, UNEVEN[1]), 2e-5, None)
+    _, band_tiles, crun = make_sharded_banded_run(
+        cm.config, cm.mesh, cm._band_plan, cm.capacity, cm.ship_rounds)
+    widest = max(range(len(cm._band_plan)),
+                 key=lambda b: cm._band_plan[b][2])
+    fused_record(f"UNEVEN cyclic D=4 band tiles K={cm._band_plan[widest][2]}",
+                 band_tiles(cstate, 2)[widest], "v4", True, planted=False)
+    check_no_sync("mesh banded-cyclic D=4", crun, cstate)
+    del ub, bout10
+
+    # aj. The ladders, each ending on the untight run's count and dead set.
+    lad = mesh2d((2, 2), kcap=32)
+    lout = lad.run(lad.init_state(), steps)
+    slab = mesh2d((2, 2))
+    sstate = slab.init_state()
+    tight = int(sstate.valid.view(4, -1).sum(1).max()) - 1000
+    slab.capacity = tight
+    sout = slab.run(sstate, steps)
+    grown = cyclic()
+    gstate = grown.init_state()
+    grown._band_plan = tuple(map(tuple, grow_plan(plan, 0.7)))
+    gout = grown.run(gstate, 10)
+    for label, e, o, ref, before, after in (
+            ("2D resident (2, 2), kcap 32", lad, lout, fout, 32, lad.kcap),
+            (f"2D resident (2, 2), slab {tight}", slab, sout, fout, tight,
+             slab.capacity),
+            ("UNEVEN cyclic D=4, plan at 0.7 K", grown, gout, cout10,
+             tuple(map(tuple, grow_plan(plan, 0.7))), grown._band_plan)):
+        print(f"ladder {label}: {before} -> {after}, ended on {e.impl}",
+              flush=True)
+        if before == after or int(o.overflow) != 0:
+            raise AssertionError(f"ladder {label}: did not grow")
+        compare_runs(f"ladder {label} vs the untight run",
+                     (int(o.collisions), _Valid(o), e.config.side),
+                     (int(ref.collisions), _Valid(ref), e.config.side),
+                     2e-5, None)
+    del lad, lout, slab, sstate, sout, grown, gstate, gout
+
+    # ak. Step times: the flagship's fast mesh at (2, 2), (4, 1), (1, 4)
+    # against 1D D = 4; parity at (2, 2); UNEVEN cyclic against column
+    # bands at D = 4.
+    for label, e, st in (
+            ("mesh fast (2, 2)", fm, fstate),
+            ("mesh fast (4, 1)", mesh2d((4, 1)), None),
+            ("mesh fast (1, 4)", mesh2d((1, 4)), None),
+            ("mesh fast 1D D=4", ShardedEngine(SimConfig(*GOLDEN_S1[:4],
+                                                         n_shards=4),
+                                               device="cuda"), None),
+            ("UNEVEN banded-cyclic D=4", cm, cstate),
+            ("UNEVEN banded-cols D=4", ShardedEngine(
+                SimConfig(*UNEVEN, n_shards=4), device="cuda"), None)):
+        st = st or e.init_state()
+        e.run(st, 1)
+        times[label] = _mesh_times(label, e, st, card,
+                                   k=10 if "UNEVEN" in label else 20)
+    ms, t1, tk = step_ms(pm, pstate, 4, reps=1)
+    print(f"mesh parity (2, 2), {pm.impl}: {ms:.4f} ms/step (run(1) "
+          f"{t1:.4f} s, run(5) {tk:.4f} s) on {card}", flush=True)
+    times["mesh parity (2, 2)"] = {
+        "ms": ms, **device_breakdown("mesh parity (2, 2)", pm, pstate, ms, 2)}
+    if any(t["syncs"] != 0 for k, t in times.items() if "parity" not in k):
+        raise AssertionError("2D mesh / cyclic: host syncs in a tile run")
+    print(f"2D mesh and cyclic phases: {time.perf_counter() - t0:.1f} s; "
+          f"per step {json.dumps(times)}", flush=True)
+    return launches, rec
+
+
 def _card():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -1731,6 +1960,12 @@ def main():
         return
     if sys.argv[1:2] == ["--mesh-times-of"]:
         flagship_mesh_times(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--mesh2d"]:
+        # Phases ae-ak alone.
+        card = _card()
+        print(card, flush=True)
+        check_mesh2d(card)
         return
 
     # 1. The card.
@@ -1880,6 +2115,10 @@ def main():
     # bands (UNEVEN) and the streaming route (2e7).
     route_launches, _ = check_mesh_routes(card)
 
+    # 13. The 2D mesh (the flagship, and the census's delegation under it)
+    # and the block-cyclic bands (UNEVEN).
+    mesh2d_launches, _ = check_mesh2d(card)
+
     def entry(name, launches, rec):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
@@ -1894,17 +2133,20 @@ def main():
           f"fast SMALL {small_cli}, banded UNEVEN (2 steps: 13 fused "
           f"launches a step and 13 for the first pass) {banded_launches}, "
           f"mesh resident D=4 (golden s1) {mesh_launches}, "
-          + ", ".join(f"{k} {v}" for k, v in route_launches.items()),
+          + ", ".join(f"{k} {v}" for k, v in (*route_launches.items(),
+                                              *mesh2d_launches.items())),
           flush=True)
 
     def on_paths(name, *paths):
         return sum(p[name] for p in paths)
 
-    sc_paths = (small_launches, route_launches["SMALL mesh"])
+    sc_paths = (small_launches, route_launches["SMALL mesh"],
+                mesh2d_launches["SMALL 2D -> supercell"])
     print(json.dumps({"kernels": [
         entry("fused_pairs", on_paths(
             "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
-            route_launches["2e7 mesh banded"]), on_path[("v4", True)]),
+            route_launches["2e7 mesh banded"], mesh2d_launches["2D resident"],
+            mesh2d_launches["UNEVEN cyclic"]), on_path[("v4", True)]),
         entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),
         entry("dense_pairwise_forces", dense_launches["dense_forces"],

@@ -13,9 +13,10 @@ and the CLI, ``python -m particlesimulation_tpu_torch``): the f32 fast
 engines (slot-resident, supercell, banded, dense, occupancy-classed tiered
 tiles, and the sweep), with every Pallas kernel of the JAX package rewritten
 in CUDA (``csrc/cell_pairs.cu``), and the f64 parity engine, which
-reproduces the reference's arithmetic bit for bit; and on the 1D row mesh
-(``parallel.sharded.ShardedEngine``, ``--mesh N``), whose shards a local
-mesh holds on one device.
+reproduces the reference's arithmetic bit for bit; and on the 1D mesh
+(``parallel.sharded.ShardedEngine``, ``--mesh N``) and the 2D rectangle
+mesh (``parallel.sharded2d.Sharded2DEngine``, ``--mesh RxC``), whose shards
+a local mesh holds on one device.
 """
 
 __version__ = "0.1.0"

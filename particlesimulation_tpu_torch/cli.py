@@ -4,8 +4,8 @@ Usage mirrors the reference binary (reference serial/parsim.cpp:461-469):
 
     python -m particlesimulation_tpu_torch <seed> <side_length> <grid_size> \
         <n_particles> <n_timesteps> [--engine parity|fast] \
-        [--impl resident|supercell|banded|banded-cols|dense|tiered|sweep] \
-        [--device cuda|cpu] [--mesh N]
+        [--impl resident|supercell|banded|banded-cols|banded-cyclic|dense|\
+tiered|sweep] [--device cuda|cpu] [--mesh N|RxC]
 
 stdout: two lines — particle 0's position at three decimals, then the
 cumulative collision count (serial/parsim.cpp:450-453). Wall time goes to
@@ -17,10 +17,13 @@ order) unless ``--engine fast`` is given; the device is ``cuda`` unless
 (``parallel/sharded.ShardedEngine``) on a local mesh: N shards in this
 process on the one device, the analog of the JAX CLI's virtual CPU mesh.
 Parity runs its f64 sweep; fast precision takes ``--impl
-resident|supercell|banded|banded-cols|sweep`` or the mesh census (sparse
-loads on super-cell tiles, clustered and large uniform ones on column-sharded
-bands, the rest on resident tiles). ``--impl banded-cyclic`` and ``--mesh
-RxC`` (the 2D mesh) are refused, naming the module: not ported.
+resident|supercell|banded|banded-cols|banded-cyclic|sweep`` or the mesh
+census (sparse loads on super-cell tiles, clustered and large uniform ones
+on column-sharded bands, the rest on resident tiles). ``--mesh RxC`` runs
+the 2D mesh of R rows by C columns of shards
+(``parallel/sharded2d.Sharded2DEngine``): parity its f64 sweep, fast
+precision ``--impl resident|sweep`` or the census, which hands sparse,
+clustered and streaming loads to the 1D mesh of R·C shards.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ import time
 USAGE = ("Usage: python -m particlesimulation_tpu_torch <seed> <side_length> "
          "<grid_size> <n_particles> <n_timesteps> [--engine parity|fast] "
          "[--impl resident|supercell|banded|dense|tiered|sweep] "
-         "[--device cuda|cpu] [--mesh N] "
+         "[--device cuda|cpu] [--mesh N|RxC] "
          "(default: parity on cuda; fast precision census-routes without "
-         "--impl; mesh impls: resident|supercell|banded|banded-cols|sweep)")
+         "--impl; mesh impls: resident|supercell|banded|banded-cols|"
+         "banded-cyclic|sweep; RxC impls: resident|sweep)")
 _FLAGS = ("--engine", "--impl", "--device", "--mesh")
 
 
@@ -63,29 +67,29 @@ def main(argv: list[str] | None = None) -> int:
         print(USAGE, file=sys.stderr)
         return 1
     n_shards = mesh[0] * (mesh[1] if len(mesh) > 1 else 1)
-    if len(mesh) > 1 and n_shards > 1:
-        print(f"--mesh {opts['--mesh']}: the 2D sharded engines are not "
-              f"ported yet (sharded2d); --mesh N runs the 1D row mesh",
-              file=sys.stderr)
-        return 2
+    mesh_shape = tuple(mesh) if len(mesh) > 1 else ()
 
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded2d import (
+        Sharded2DEngine)
 
     precision = (Precision.PARITY if opts["--engine"] == "parity"
                  else Precision.FAST)
-    config = SimConfig(seed=seed, side=side, ncside=ncside,
-                       n_particles=n_particles, precision=precision,
-                       n_shards=n_shards)
-    # Parity always runs the sweep (ShardedEngine forces it, as the
-    # single-device engine does); fast precision takes --impl or the census.
-    cls = ShardedEngine if n_shards > 1 else Engine
     try:
+        config = SimConfig(seed=seed, side=side, ncside=ncside,
+                           n_particles=n_particles, precision=precision,
+                           n_shards=n_shards, mesh_shape=mesh_shape)
+        # Parity always runs the sweep (the mesh engines force it, as the
+        # single-device engine does); fast precision takes --impl or the
+        # census.
+        cls = (Engine if n_shards == 1 else
+               Sharded2DEngine if mesh_shape else ShardedEngine)
         eng = cls(config, impl=opts["--impl"], device=opts["--device"])
-    except NotImplementedError as e:
-        print(f"--impl {opts['--impl']}: {e}", file=sys.stderr)
-        return 2
+    except ValueError as e:
+        print(f"{e}\n{USAGE}", file=sys.stderr)
+        return 1
     state = eng.init_state()
     # Warm-up outside the timed region (the reference's timer brackets only
     # simulate(); building the kernels is the analog of g++'s compile).

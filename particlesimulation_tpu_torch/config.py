@@ -4,7 +4,7 @@ The reference drives everything from five positional CLI args and four
 ``#define`` physics constants (reference ``serial/parsim.cpp:13-16,461-469``).
 The mesh fields read the same in both packages: ``n_shards`` and
 ``row_starts`` drive the 1D row mesh (``parallel/sharded.py``); ``mesh_shape``
-names the 2D mesh, which the port does not run yet.
+lays the ``n_shards`` shards out as the 2D mesh (``parallel/sharded2d.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ class SimConfig:
     # Per-step migration buffer entries per shard; 0 = auto.
     migration_capacity: int = 0
     # 2D mesh layout (d_rows, d_cols); empty = the 1D row decomposition.
+    # Its product is n_shards, and each side is <= ncside.
     mesh_shape: tuple = ()
     # Census-planned shard row boundaries (first owned global row per shard,
     # ascending, starting at 0; ``parallel/balance.py``). Empty = the
@@ -82,13 +83,24 @@ class SimConfig:
             raise ValueError("side must be > 0")
         if self.n_shards < 1:
             raise ValueError("n_shards must be >= 1")
-        if not self.mesh_shape and self.n_shards > self.ncside:
+        if self.mesh_shape:
+            ms = tuple(int(v) for v in self.mesh_shape)
+            if len(ms) != 2 or ms[0] < 1 or ms[1] < 1:
+                raise ValueError(f"mesh_shape {ms} must be (d_rows, d_cols)")
+            if ms[0] * ms[1] != self.n_shards:
+                raise ValueError(
+                    f"mesh_shape {ms} has {ms[0] * ms[1]} shards but "
+                    f"n_shards is {self.n_shards}")
+            if ms[0] > self.ncside or ms[1] > self.ncside:
+                raise ValueError(
+                    f"mesh_shape {ms} needs at least one grid row and "
+                    f"column per shard (ncside={self.ncside})")
+            object.__setattr__(self, "mesh_shape", ms)
+        elif self.n_shards > self.ncside:
             raise ValueError(
                 f"n_shards ({self.n_shards}) must be <= ncside "
                 f"({self.ncside}): the row-block decomposition needs at "
                 f"least one grid row per shard")
-        object.__setattr__(self, "mesh_shape",
-                           tuple(int(v) for v in self.mesh_shape))
         object.__setattr__(self, "row_starts",
                            tuple(int(r) for r in self.row_starts))
 

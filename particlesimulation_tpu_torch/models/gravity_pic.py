@@ -21,6 +21,7 @@ import torch
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.engine import Engine
 from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+from particlesimulation_tpu_torch.parallel.sharded2d import Sharded2DEngine
 
 
 @dataclasses.dataclass
@@ -42,7 +43,8 @@ class RunResult:
 
 class Simulation:
     """High-level entry point: the single-device engine, or the mesh engine
-    (``parallel.sharded.ShardedEngine``) when ``n_shards > 1``.
+    when ``n_shards > 1`` (``parallel.sharded2d.Sharded2DEngine`` where the
+    keywords give a ``mesh_shape``, else ``parallel.sharded.ShardedEngine``).
 
     ``precision="fast"`` (the default) runs the f32 engine the census picks;
     ``precision="parity"`` runs the f64 sweep, bit for bit the reference's
@@ -58,7 +60,8 @@ class Simulation:
             seed=seed, side=side, ncside=ncside, n_particles=n_particles,
             precision=Precision(precision), n_shards=n_shards, **kw)
         if n_shards > 1:
-            self.engine = ShardedEngine(self.config, device=device)
+            cls = Sharded2DEngine if self.config.mesh_shape else ShardedEngine
+            self.engine = cls(self.config, device=device)
         else:
             self.engine = Engine(self.config, device=device)
         self._state = None

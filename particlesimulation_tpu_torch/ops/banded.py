@@ -96,6 +96,54 @@ def plan_bands(hist2d, ncside: int, max_kcap: int):
     return [(i, j - i, seg_k(i, j)) for i, j in bounds]
 
 
+def plan_bands_cyclic(hist2d, ncside: int, n_shards: int, max_kcap: int):
+    """Band plan with boundaries at multiples of ``n_shards`` rows, for the
+    block-cyclic mesh (``parallel/sharded_banded``), where every shard owns
+    1/n_shards of every band's rows: the same cost model and return shape
+    as ``plan_bands``, over super-rows of ``n_shards`` rows (each band's
+    cost counts two halo rows a shard); the last band takes the ``ncside %
+    n_shards`` rows left over. None where one band is within 30% (uniform
+    occupancy) or there are fewer rows than shards."""
+    d = int(n_shards)
+    if d < 1 or ncside < d:
+        return None
+    occ = np.asarray(hist2d).reshape(ncside, ncside)
+    row_kmax = occ.max(axis=1).astype(np.int64)
+    g = ncside // d  # candidate boundaries: 0, d, 2d, ..., g*d (+ tail)
+
+    def hi(j):
+        return ncside if j == g else j * d
+
+    def seg_k(i, j):
+        return min(round_cap(int(row_kmax[i * d:hi(j)].max()) * 1.15 + 4),
+                   max_kcap)
+
+    def seg_cost(i, j):
+        k = seg_k(i, j)
+        return ((hi(j) - i * d + 2 * d) * ncside * k * (_SLOT_WEIGHT + k)
+                + d * _BAND_PENALTY)
+
+    best = np.full(g + 1, np.inf)
+    cut = np.zeros(g + 1, np.int64)
+    best[0] = 0.0
+    for j in range(1, g + 1):
+        for i in range(j):
+            c = best[i] + seg_cost(i, j)
+            if c < best[j]:
+                best[j] = c
+                cut[j] = i
+    if best[g] > 0.7 * seg_cost(0, g):
+        return None
+    bounds = []
+    j = g
+    while j > 0:
+        i = int(cut[j])
+        bounds.append((i, j))
+        j = i
+    bounds.reverse()
+    return [(i * d, hi(j) - i * d, seg_k(i, j)) for i, j in bounds]
+
+
 def uniform_band_plan(ncside: int, band_rows: int, kcap: int):
     """Equal-rows band plan at one K: the streaming split for uniform loads
     (the census's route above ``engine._STREAM_BYTES`` of tile state)."""

@@ -47,7 +47,8 @@ from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import STENCIL, com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded_resident import (
-    halo_dest_row, make_halo_transport, slabs_to_tiles, tiles_to_slabs)
+    halo_dest_row, index_ship, make_halo_transport, slabs_to_tiles,
+    tiles_to_slabs)
 
 
 def col_owner(ncside: int, n_shards: int, cols):
@@ -211,8 +212,9 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
         to = pool_row(shard, cy, dest_c)
         return occ & valid & (to != row), to
 
-    migrate = make_halo_transport(mesh, slots_at(0), slots_at(wide - 1),
-                                  row_start, row_of, geometry, dest)
+    migrate = make_halo_transport(
+        mesh, [index_ship(mesh, slots_at(0), slots_at(wide - 1))], row_start,
+        row_of, geometry, dest)
 
     def prologue(slab) -> res.TileState:
         """Each shard's sorted slab into its column tiles; out-of-range

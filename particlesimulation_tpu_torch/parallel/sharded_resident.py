@@ -106,51 +106,67 @@ def halo_row_slots(n_shards: int, nrows_t: int, ncols: int, kcap: int,
     return base + row, base + (nrows_t - 1) * ncols * kcap + row
 
 
-def make_halo_transport(mesh, low, high, row_start, rows, geometry, dest):
+def index_ship(mesh, low, high, axis: str = "rows"):
+    """A ship phase of ``make_halo_transport``: each shard's ``high`` halo
+    slots go to the ``low`` ones of the next shard along the mesh's
+    ``axis``, its ``low`` ones to the previous shard's ``high`` ones.
+    ``low``, ``high``: (L, H) flat slot indices of each shard's halos, the
+    same H on every shard. Returns (ship, halo slots)."""
+    def ship(ts):
+        for f in _FIELDS:
+            flat = getattr(ts, f).view(-1)
+            lo, hi = flat[low], flat[high]
+            flat[low] = mesh.ppermute(hi, 1, axis)
+            flat[high] = mesh.ppermute(lo, -1, axis)
+
+    return ship, torch.cat([low, high], dim=1)
+
+
+def make_halo_transport(mesh, phases, row_start, rows, geometry, dest):
     """The migration of a tile mesh whose shards exchange particles through
-    two halos each (``halo_row_slots``' rows, or the banded mesh's halo
-    columns). ``low``, ``high``: (L, H) flat slot indices of each shard's
-    halos, the same H on every shard; a shard's ``high`` halo ships to the
-    next shard's ``low`` one and its ``low`` to the previous shard's
-    ``high``. ``row_start``: the pool's row starts (``res.deliver``'s).
+    halos. ``phases``: the ship phases of a round, in order, each a pair
+    (ship, halo): ``ship(ts)`` moves the halos' particles to the shards
+    they are bound for, in place on the tiles, and returns None or the (L,)
+    count of arrivals it had no slot for; ``halo``: (L, H) flat slot
+    indices of each shard's halos of that phase (``index_ship``'s for two
+    halos of one index set: ``halo_row_slots``' rows, the banded meshes'
+    halo columns; the 2D mesh's rows phase, then its cols phase).
+    ``row_start``: the pool's row starts (``res.deliver``'s).
     ``geometry(rows)`` gives the engine's per-slot geometry of the given
     pool rows (a tuple of tensors); ``dest(x, y, occ, *geometry)`` gives
     (moving, destination pool row).
 
     Returns ``migrate(ts, ship_rounds)`` -> (ts, undelivered): one delivery
-    of every mover, then ``ship_rounds`` rounds of a ship and a delivery of
-    the halo slots alone (only an arrival can move then); halo occupants
-    left after the last round raise ``SHIP_OVF`` (the engine's ladder adds
-    rounds), unless a row was too full to deliver into (the tile overflow,
-    which ``undelivered`` reports)."""
-    L = low.shape[0]
-    cand, _ = torch.sort(torch.cat([low, high], dim=1).reshape(-1))
-    cand_rows = torch.searchsorted(row_start, cand, right=True) - 1
-    geo_cand = geometry(cand_rows)
+    of every mover, then ``ship_rounds`` rounds, each of every phase's ship
+    and a delivery of that phase's halo slots alone (only an arrival can
+    move then); halo occupants left after the last round raise ``SHIP_OVF``
+    (the engine's ladder adds rounds), unless a row was too full to deliver
+    into (the tile overflow, which ``undelivered`` reports)."""
     geo_all = geometry(rows)
-
-    def ship(ts):
-        """One round, in place on the tiles a delivery has just made: the
-        halos' slots go to the ring neighbours' opposite halos."""
-        for f in _FIELDS:
-            flat = getattr(ts, f).view(-1)
-            lo, hi = flat[low], flat[high]
-            flat[low] = mesh.ppermute(hi, 1)
-            flat[high] = mesh.ppermute(lo, -1)
+    steps = []
+    for ship, halo in phases:
+        cand, _ = torch.sort(halo.reshape(-1))
+        cand_rows = torch.searchsorted(row_start, cand, right=True) - 1
+        steps.append((ship, cand, geometry(cand_rows)))
 
     def migrate(ts, ship_rounds: int):
         moving, to = dest(ts.x, ts.y, ts.occ, *geo_all)
         ts, undelivered = res.deliver(ts, moving, to, row_start)
         undelivered = mesh.psum(undelivered[None])
         for _ in range(ship_rounds):
-            ship(ts)
-            moving, to = dest(*(a.reshape(-1)[cand]
-                                for a in (ts.x, ts.y, ts.occ)), *geo_cand)
-            ts, und = res.deliver(ts, moving, to, row_start, at=cand)
-            undelivered = undelivered + mesh.psum(und[None])
+            for ship, cand, geo_cand in steps:
+                dropped = ship(ts)
+                if dropped is not None:
+                    undelivered = undelivered + mesh.psum(dropped)
+                moving, to = dest(*(a.reshape(-1)[cand]
+                                    for a in (ts.x, ts.y, ts.occ)),
+                                  *geo_cand)
+                ts, und = res.deliver(ts, moving, to, row_start, at=cand)
+                undelivered = undelivered + mesh.psum(und[None])
         occ = ts.occ.view(-1)
-        pending = mesh.psum(torch.sum(occ[low], dim=1, dtype=torch.int32)
-                            + torch.sum(occ[high], dim=1, dtype=torch.int32))
+        pending = sum(mesh.psum(torch.sum(occ[halo], dim=1,
+                                          dtype=torch.int32))
+                      for _, halo in phases)
         # A row too full to deliver into is the tile overflow (grow the
         # tiles); otherwise halo occupants left are emigrants in transit.
         ship_ovf = torch.where((pending > 0) & (undelivered == 0), SHIP_OVF,
@@ -331,8 +347,9 @@ def make_sharded_resident_run(config: SimConfig, mesh, kcap: int, cap: int,
                         + torch.clamp(cx, 0, nc - 1))
 
     migrate = make_halo_transport(
-        mesh, *halo_row_slots(L, nrows_t, nc, kcap, dev), row_start,
-        torch.arange(L * ncells_t, device=dev)[:, None], geometry, dest)
+        mesh, [index_ship(mesh, *halo_row_slots(L, nrows_t, nc, kcap, dev))],
+        row_start, torch.arange(L * ncells_t, device=dev)[:, None], geometry,
+        dest)
 
     def advance(ts, fxd, fyd):
         """Monopole, integrate, migration; (ts, undelivered, limbo)."""

@@ -49,8 +49,8 @@ from particlesimulation_tpu_torch.ops.stencil import com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded import (halo_pad,
                                                            stencil_tables_halo)
 from particlesimulation_tpu_torch.parallel.sharded_resident import (
-    halo_dest_row, halo_row_slots, make_halo_transport, slabs_to_tiles,
-    tiles_to_slabs)
+    halo_dest_row, halo_row_slots, index_ship, make_halo_transport,
+    slabs_to_tiles, tiles_to_slabs)
 
 
 def sc_row_starts(nsc: int, d: int) -> tuple:
@@ -123,8 +123,8 @@ def make_sharded_supercell_run(config: SimConfig, mesh, kcap: int, cap: int,
                         + torch.clamp(scx, 0, nsc - 1))
 
     migrate = make_halo_transport(
-        mesh, *halo_row_slots(L, nrows_t, nsc, kcap, dev), row_start, trow,
-        geometry, dest)
+        mesh, [index_ship(mesh, *halo_row_slots(L, nrows_t, nsc, kcap, dev))],
+        row_start, trow, geometry, dest)
 
     def prologue(slab) -> res.TileState:
         """Each shard's sorted slab into its super-cell tiles, a tile's

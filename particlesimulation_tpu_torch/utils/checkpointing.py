@@ -11,9 +11,12 @@ engine's ``ShardedState`` (the ``valid`` mask tells them apart). A sharded
 checkpoint records its slab geometry (``n_shards``, ``row_starts``,
 ``mesh_shape``, and in ``band_plan`` the engine's ownership,
 ``ShardedEngine.ownership_plan()``): slab placement encodes cell ownership
-(row blocks, super-row blocks or column blocks), so a restore places the
-slabs as they are only where the geometry and the ownership match, and
-otherwise re-packs the particles through the engine's own packer.
+(row blocks, rectangles of the 2D mesh, super-row blocks, column blocks or
+block-cyclic band chunks), so a restore places the slabs as they are only
+where the geometry and the ownership match, and otherwise re-packs the
+particles through the engine's own packer. A 2D engine whose census handed
+its loads to a 1D delegate saves and restores through that delegate
+(``Sharded2DEngine.target``).
 """
 
 from __future__ import annotations
@@ -39,15 +42,29 @@ def save_state(path: str, state) -> None:
     np.savez_compressed(path, **_host(state, fields))
 
 
-def save_sharded_state(path: str, state: ShardedState, n_shards: int,
+def _target(engine, particles=None):
+    """The engine that holds ``engine``'s slabs: a 2D engine's delegate,
+    where its census chose one (run on ``particles`` if not yet run)."""
+    target = getattr(engine, "target", None)
+    return target(particles) if target else engine
+
+
+def save_sharded_state(path: str, state: ShardedState, n_shards: int = 0,
                        row_starts: tuple = (), mesh_shape: tuple = (),
-                       band_plan: tuple = ()) -> None:
+                       band_plan: tuple = (), engine=None) -> None:
     """Serialize a ShardedState with its slab geometry: ``n_shards``, plus
     ``row_starts`` when the row boundaries are census-planned
     (``parallel/balance``), ``mesh_shape`` for a 2D mesh and, in
     ``band_plan``, the writing engine's ``ownership_plan()`` (empty for row
-    blocks; the JAX package's sentinels for super-cells and column bands,
-    or a block-cyclic plan)."""
+    blocks and rectangles; the JAX package's sentinels for super-cells and
+    column bands, or a block-cyclic plan). ``engine``, where given, the
+    writing engine, supplies all four (a 2D engine's delegate's where it
+    has one)."""
+    if engine is not None:
+        eng = _target(engine)
+        n_shards, row_starts, mesh_shape, band_plan = (
+            eng.config.n_shards, eng.config.row_starts,
+            eng.config.mesh_shape, eng.ownership_plan())
     arrs = _host(state, _SHARDED_FIELDS)
     arrs["n_shards"] = np.asarray(n_shards, np.int32)
     arrs["row_starts"] = np.asarray(row_starts, np.int32)
@@ -77,11 +94,17 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
     ``engine.ownership_plan()``) match the engine's, the slabs are placed as
     they are (a bit-exact resume); otherwise the valid particles are
     gathered and re-packed through ``engine.pack_particles``, as a
-    checkpoint from another mesh width, another row decomposition or
-    another ownership rule must be.
+    checkpoint from another mesh width or shape, another row decomposition
+    or another ownership rule must be. A 2D engine places them through its
+    delegate, if its census (run on the checkpoint's particles if not yet
+    run) chose one.
     """
     with np.load(path) as z:
         saved = {f: z[f] for f in z.files}
+    valid = saved["valid"]
+    particles = {f: saved[f][valid] for f in ("x", "y", "vx", "vy", "m",
+                                              "alive", "pid")}
+    engine = _target(engine, particles)
     cfg = engine.config
     d = cfg.n_shards
     saved_shards = (int(saved["n_shards"]) if "n_shards" in saved
@@ -99,8 +122,5 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
                                     for p in engine.ownership_plan())):
         return state_from_numpy({f: saved[f] for f in _SHARDED_FIELDS},
                                 engine.device, dt)
-    valid = saved["valid"]
-    particles = {f: saved[f][valid] for f in ("x", "y", "vx", "vy", "m",
-                                              "alive", "pid")}
     return engine.pack_particles(particles, collisions=saved["collisions"],
                                  panics=saved["panics"], dtype=dt)

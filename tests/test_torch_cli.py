@@ -71,20 +71,32 @@ def test_cli_usage_error(args, capsys):
     assert rc == 1 and out == [] and "Usage" in err
 
 
-@pytest.mark.parametrize("mesh", ["2x4"])
-def test_cli_refuses_a_mesh(mesh, capsys):
-    rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
-                          "--mesh", mesh], capsys)
-    assert rc != 0 and out == [] and "sharded engines are not ported" in err
-    assert _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
-                  "--mesh", "1"], capsys)[0] == 0
+@pytest.mark.parametrize("args", [
+    ["--engine", "parity", "--mesh", "2x4"],
+    ["--engine", "fast", "--mesh", "2x4"],
+    ["--engine", "fast", "--mesh", "3", "--impl", "banded-cyclic"]],
+    ids=["2x4-parity", "2x4-fast", "3-banded-cyclic"])
+def test_cli_mesh_matches_jax_cli(args, capsys):
+    """``--mesh RxC`` (the 2D mesh) and ``--impl banded-cyclic`` on a small
+    config with collisions and migration: the JAX CLI's two lines, run
+    in-process on the bootstrap's virtual devices."""
+    from particlesimulation_tpu import cli as jcli
+
+    base = ["5893", "0.05", "8", "64", "12"]
+    rc, out, err = _main(base + args + ["--device", "cpu"], capsys)
+    assert re.fullmatch(r"\d+\.\ds", err.strip())
+    jrc = jcli.main(base + args)
+    jout = capsys.readouterr().out.splitlines()
+    assert rc == jrc == 0 and out == jout == ["0.001 0.035", "24"]
 
 
-def test_cli_refuses_banded_cyclic(capsys):
+@pytest.mark.parametrize("args", [
+    ["--mesh", "2x4"],                          # 4 columns of shards > 3
+    ["--mesh", "2x2", "--engine", "fast", "--impl", "banded"]])
+def test_cli_mesh_refuses_bad_arguments(args, capsys):
     rc, out, err = _main(["5893", "0.05", "3", "10", "10", "--device", "cpu",
-                          "--engine", "fast", "--mesh", "3", "--impl",
-                          "banded-cyclic"], capsys)
-    assert rc == 2 and out == [] and "sharded_banded (block-cyclic)" in err
+                          *args], capsys)
+    assert rc == 1 and out == [] and "Usage" in err
 
 
 @pytest.mark.parametrize("impl,args,runs", [

@@ -346,22 +346,8 @@ def test_rank_overflow_guard(monkeypatch):
         eng.run(eng.init_state(), 4)
 
 
-@pytest.mark.parametrize("case", ["banded-cyclic", "mesh2d"])
-def test_unported_routes_raise(case):
-    """JAX's mesh routes the port does not run raise NotImplementedError
-    naming the module; none runs another engine instead."""
-    route = {"banded-cyclic": r"sharded_banded \(block-cyclic\)",
-             "mesh2d": "sharded2d"}[case]
-    impl, kw = (None, dict(mesh_shape=(2, 2))) if case == "mesh2d" else (
-        case, {})
-    with pytest.raises(NotImplementedError, match=route):
-        eng = ShardedEngine(SimConfig(1, 100.0, 10, 2000, n_shards=4, **kw),
-                            impl=impl, device="cpu")
-        eng.init_state()
-
-
 @pytest.mark.parametrize("case", ["sparse", "clustered", "stream", "banded",
-                                  "banded-cols", "supercell"])
+                                  "banded-cols", "banded-cyclic", "supercell"])
 def test_mesh_routes_match_jax(case, monkeypatch):
     """The port's mesh census takes JAX's route after ``init_state`` (no
     run): the same impl, super-cell factor, band plan and banded variant as

@@ -154,16 +154,18 @@ def test_halo_columns_hold_movers_at_their_own_row(monkeypatch):
     args, steps, d, plan = PLANS[6]
     seen = []
 
-    def spy(mesh, low, high, row_start, rows, geometry, dest):
+    def spy(mesh, phases, row_start, rows, geometry, dest):
+        (_, halo), = phases
+
         def watched(x, y, occ, row, shard, gy, lc, c0, cnt):
-            if x.shape[0] == low.numel() + high.numel():  # the halo slots
+            if x.shape[0] == halo.numel():  # the halo slots
                 _, cy, _ = res.cell_of(x, y, args[1], args[2])
                 seen.append((int(occ.sum()),
                              bool(((cy == gy) | ~occ).all()),
                              bool(((lc == 0) | (lc == lc.max())).all())))
             return dest(x, y, occ, row, shard, gy, lc, c0, cnt)
 
-        return real(mesh, low, high, row_start, rows, geometry, watched)
+        return real(mesh, phases, row_start, rows, geometry, watched)
 
     real = sharded_banded_cols.make_halo_transport
     monkeypatch.setattr(sharded_banded_cols, "make_halo_transport", spy)
@@ -213,13 +215,6 @@ def test_banded_mesh_pair_tiles_are_the_runs():
             total += int(cell_pairs.fused_pairs_ref(
                 x, y, mf, alive, pid, kb, port_engine.EPSILON)[2])
         assert total == counts[k] - counts[k - 1]
-
-
-def test_banded_cyclic_raises():
-    with pytest.raises(NotImplementedError,
-                       match=r"sharded_banded \(block-cyclic\)"):
-        ShardedEngine(SimConfig(1, 100.0, 10, 2000, n_shards=4),
-                      impl="banded-cyclic", device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["banded", "resident"])
