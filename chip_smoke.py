@@ -153,7 +153,37 @@ ak. ms/step, device ms/step, idle share, launches and syncs a step of the
    flagship's fast mesh at (2, 2), (4, 1) and (1, 4) against 1D D = 4,
    parity at (2, 2), and UNEVEN cyclic against column bands at D = 4.
 
-``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone.
+Then the direct model (``models/direct_nbody``: exact all-pairs gravity
+and a global EPSILON first-pair search, two CUDA kernels of
+``csrc/direct_nbody.cu``):
+
+al. both kernels against their plain versions at N = 1, 4096, 5000 and
+   8191 (side 100) and 8191 at side 1 (dense: many hits and chains), in
+   float32 and float64, on the planted cases of
+   ``ops/cuda/adversarial.plant_direct_cases`` (a pair, a chain of three,
+   a coincident pair, a pair across the periodic edge, a dead particle
+   within EPSILON of an alive one, a pair at the tail): forces within the
+   stated tolerance, the first partners (so the deaths and the count)
+   exact;
+am. N = 1e5 (seed -1, side 1000: the reference's golden vector -1 1000 30
+   100000 1000) with pairs planted past slot 46 340, where the JAX
+   package's int32 pair rank would wrap: one step's kernels against the
+   plain versions on the card, the partners exact, the planted slots dead;
+   each launch split (1, 2 and 4 threads a receiver) checked and timed;
+   each kernel's ms, device ms and bound, its plain version's ms at N =
+   1e5 and 8191;
+an. ``DirectSimulation`` at N = 2048 (seed 1, 10 steps, side 100 and side
+   1), cuda against cpu: the count and dead set exact, positions within
+   DIRECT_TOL·side; two card runs bit for bit equal; the JAX package's
+   recorded results (DIRECT_2048, DIRECT_2048_DENSE) held;
+ao. no host synchronisation in ``DirectSimulation.advance`` (the run
+   loop), and exactly one (the count's readback) in ``run``;
+ap. N = 1e5 for 10 steps after a warm-up run (both kernels launched every
+   step), timed with ``utils/profiling.bench_fn``: ms/step, pair
+   evaluations/s, device ms, idle share and launches a step.
+
+``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone;
+``python3 chip_smoke.py --direct`` runs phases al-ap alone.
 ``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
 flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
 checkout ROOT in turn (a process each): the way to compare two commits in
@@ -213,6 +243,11 @@ Tolerances:
     within 2e-5·side; at 1e7 against resident, the count and dead set exact
     and positions within 1e-6·side (the same function on the same cell
     rows, another split of the pool).
+  * the direct force kernel: per particle within 2·(N + 8)·u·S of the
+    plain version, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum
+    of the terms' magnitudes (N terms added in another order, rsqrt by a
+    few ulps); the direct collision kernel: its partners exactly (the
+    minimum image and d² are correctly rounded in both versions);
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -226,7 +261,14 @@ function's sum of c² over the cells, where the kernel tests all n² used
 pairs of a row). The cell sums move 16 bytes a slot and 12 a true cell. The collision test's operations are not counted: it need test
 only the pairs near in x (a few per alive slot, 6 ops each), which cost
 little beside the row's bytes. The rsqrt count is shown against the SFU
-rate, 16 per SM and clock: 1/16 of the f32 rate.
+rate, 16 per SM and clock: 1/16 of the f32 rate. The direct kernels' bound
+also takes that rate in: per pair the force needs 22 f32 operations and 3
+special-function ones (an rsqrt and the reciprocal of each of two IEEE
+divisions), the collision test 14 and 2, counted over the pairs this run's
+data needs (pairs of used particles for the force; for the collision test
+each alive particle's alive partners up to its first hit, or all of them),
+and the larger of the two rates' times bounds it; float64 counts its
+operations at 34 TFLOP/s.
 """
 
 import contextlib
@@ -276,6 +318,22 @@ UNEVEN_2 = (2748.5098, 2624.1592, 14)
 SMALL = (50, 10000.0, 1300, 500_000, 10)
 SMALL_10 = (7907.5957, 7537.6602, 1)
 SMALL_S = 10
+# The direct model: the JAX package's f32 results (seed, side, N, steps,
+# particle 0's x and y, count) on a CPU, at side 100 and at side 1 (dense
+# enough to collide), and the tolerance (a fraction of side) the port's
+# runs are held to (tests/test_torch_direct_model.py holds the constants
+# to JAX's live values).
+DIRECT_2048 = (1, 100.0, 2048, 10, 71.11087036132812, 7.7793426513671875, 0)
+DIRECT_2048_DENSE = (1, 1.0, 2048, 10, 0.7723073959350586,
+                     0.03642868995666504, 597)
+DIRECT_TOL = 1e-5
+# N = 1e5 at the reference's golden vector -1 1000 30 100000 1000 (seed,
+# side, N); pairs planted there past slot 46 340 (JAX's int32 pair rank
+# i·(n+1)+j wraps from n = 46 341 on); the sizes and sides of phase al.
+DIRECT_BIG = (-1, 1000.0, 100_000)
+DIRECT_WRAP_PAIRS = ((46_341, 99_999), (60_000, 60_001), (70_000, 46_500))
+DIRECT_CASES = ((1, 100.0), (4096, 100.0), (5000, 100.0), (8191, 100.0),
+                (8191, 1.0))
 # The TPU kernel body each kernel replaces (file:line).
 REPLACES = {
     "fused_pairs": "particlesimulation_tpu/ops/pallas/cell_pairs.py:248",
@@ -287,15 +345,23 @@ REPLACES = {
     # fused_pairs_v2 / _v4, and the supercell per-cell one-hot sums.
     "fused_pairs_sub": "particlesimulation_tpu/ops/dense_xla.py:330",
     "supercell_cell_sums": "particlesimulation_tpu/ops/supercell.py:209",
+    # XLA code of the direct model: _pair_forces and make_step's collision
+    # block.
+    "direct_forces": "particlesimulation_tpu/models/direct_nbody.py:36-80",
+    "direct_collisions":
+        "particlesimulation_tpu/models/direct_nbody.py:105-117",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
-# The kernels' names in csrc/cell_pairs.cu, as the profiler reports them.
+DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
+# The kernels' names in csrc/, as the profiler reports them.
 PORT_KERNELS = ("fused_pairs_kernel", "dense_forces_kernel",
-                "dense_collisions_kernel", "cell_sums_kernel")
+                "dense_collisions_kernel", "cell_sums_kernel",
+                "direct_forces_kernel", "direct_collisions_kernel")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
 PEAK_SFU = PEAK_F32 / 16
+PEAK_F64 = 34e12       # FLOP/s outside the tensor cores
 
 
 def _timed(fn, reps):
@@ -1918,6 +1984,302 @@ def check_mesh2d(card):
     return launches, rec
 
 
+def _direct_planted(n, side, seed, dtype, pairs=()):
+    """(x, y, m, alive) on the card: n particles uniform on the box with
+    the reference's mass scale at ncside 1, the planted cases of
+    ``plant_direct_cases`` (and a pair at the last two slots from n = 20),
+    and the slots that must die."""
+    from particlesimulation_tpu_torch.config import EPSILON2, G
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        plant_direct_cases)
+
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(0.0, side, (2, n))
+    m = rng.uniform(size=n) * 0.01 / n / G * EPSILON2
+    alive = np.ones(n, bool)
+    pairs = tuple(pairs) + (((n - 2, n - 1),) if n >= 20 else ())
+    planted = plant_direct_cases(x, y, np.zeros(n), np.zeros(n), m, alive,
+                                 side, pairs)
+    out = [torch.tensor(a, dtype=dtype, device="cuda") for a in (x, y, m)]
+    return (*out, torch.tensor(alive, device="cuda"),
+            [s for s in planted if s not in (9, 10)])
+
+
+def _direct_terms(x, y, m, side, chunk=512):
+    """Per particle and axis, the summed magnitudes of the force's terms,
+    in float64."""
+    from particlesimulation_tpu_torch.config import G
+
+    x, y, m = (a.double() for a in (x, y, m))
+    sidet = torch.full((), side, dtype=torch.float64, device=x.device)
+    out = torch.empty(2, x.numel(), dtype=torch.float64, device=x.device)
+    for i0 in range(0, x.numel(), chunk):
+        d = []
+        for a in (x, y):
+            da = a[None, :] - a[i0:i0 + chunk, None]
+            d.append(da - sidet * torch.round(da / sidet))
+        d2 = d[0] * d[0] + d[1] * d[1]
+        w = (G * m[i0:i0 + chunk, None] * m[None, :]
+             * torch.where(d2 > 0, d2.clamp(min=1e-300) ** -1.5, 0.0))
+        for k in range(2):
+            out[k, i0:i0 + chunk] = (w * d[k].abs()).sum(1)
+    return out
+
+
+def _direct_force_err(got, ref, terms, tag):
+    """Max |kernel - plain| over both axes; raises beyond 2·(N + 8)·u·S."""
+    u = 2.0 ** -24 if got[0].dtype == torch.float32 else 2.0 ** -53
+    tol = 2 * (got[0].numel() + 8) * u * terms
+    err = torch.stack([(a.double() - b.double()).abs()
+                       for a, b in zip(got, ref)])
+    if not bool((err <= tol).all()):
+        worst = int(torch.argmax(err / tol.clamp(min=1e-300)))
+        raise AssertionError(f"{tag}: force off by {float(err.max())} "
+                             f"(worst {float(err.flatten()[worst])} against "
+                             f"{float(tol.flatten()[worst])})")
+    return float(err.max())
+
+
+def _check_partners(got, ref, tag, must_die=()):
+    """The kernel's first partners against the plain version's, exactly;
+    the planted slots must die. Returns (deaths, count)."""
+    from particlesimulation_tpu_torch.ops.cuda.direct_nbody import (
+        first_pair_outcome)
+
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{tag}: partners differ in "
+                             f"{int((got != ref).sum())} slots")
+    died, count = first_pair_outcome(ref)
+    if must_die and not bool(died[list(must_die)].all()):
+        raise AssertionError(f"{tag}: a planted slot did not die")
+    return int(died.sum()), int(count)
+
+
+def _direct_bound(ops, sfu, nbytes, dtype):
+    """(bound_ms, bound_by, sfu_ms): the larger of the bytes' time, the
+    operations' time at the type's rate and, in float32, the
+    special-function operations' at the SFU rate."""
+    mem_ms = nbytes / PEAK_BYTES * 1e3
+    f32 = dtype == torch.float32
+    ops_ms = ops / (PEAK_F32 if f32 else PEAK_F64) * 1e3
+    sfu_ms = sfu / PEAK_SFU * 1e3 if f32 else 0.0
+    bound = max(mem_ms, ops_ms, sfu_ms)
+    return bound, "bytes" if bound == mem_ms else "operations", sfu_ms
+
+
+def _direct_force_bound(x, m):
+    """x, y, m read and fx, fy written once; 22 f32 and 3 special-function
+    operations for each ordered pair of particles with mass."""
+    used = float((m > 0).sum())
+    return _direct_bound(22 * used * used, 3 * used * used,
+                         5 * x.numel() * x.element_size(), x.dtype)
+
+
+def _direct_collision_bound(x, alive, first):
+    """x, y, alive read and the partners written once; 14 f32 and 2
+    special-function operations for each pair the search needs: an alive
+    particle's alive partners up to its first hit, or all of them."""
+    upto = torch.cumsum(alive.long(), 0)
+    idx = torch.arange(x.numel(), device=x.device)
+    hit = first >= 0
+    seen = torch.where(hit, upto[first.clamp(min=0).long()] - (idx < first)
+                       .long(), upto[-1] - 1)
+    pairs = float(seen[alive].sum())
+    return _direct_bound(14 * pairs, 2 * pairs,
+                         x.numel() * (2 * x.element_size() + 1 + 4), x.dtype)
+
+
+def check_direct(card):
+    """(al)-(ap) The direct model: both kernels against their plain versions
+    on planted cases (N up to 8191, float32 and float64) and at N = 1e5
+    past JAX's int32 rank wrap; DirectSimulation cuda against cpu and the
+    JAX results; no host sync in the run loop; N = 1e5 timed. Returns the
+    main path's launch counts and the two kernel records."""
+    from types import SimpleNamespace
+
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.initializer import init_particles_host
+    from particlesimulation_tpu_torch.models.direct_nbody import (
+        DirectSimulation, make_step, state_from_numpy)
+    from particlesimulation_tpu_torch.ops.cuda import direct_nbody as dk
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        plant_direct_cases)
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+    from particlesimulation_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+
+    # al. Planted cases against the plain versions, both types.
+    plain_8191 = {}
+    for n, side in DIRECT_CASES:
+        for dtype in (f32, torch.float64):
+            tag = f"direct kernels N={n} side {side} {dtype}"
+            x, y, m, alive, planted = _direct_planted(n, side, n, dtype)
+            got = dk.direct_forces(x, y, m, side)
+            ferr = _direct_force_err(got, dk.direct_forces_ref(x, y, m, side),
+                                     _direct_terms(x, y, m, side), tag)
+            died, count = _check_partners(
+                dk.direct_collisions(x, y, alive, side),
+                dk.direct_collisions_ref(x, y, alive, side), tag, planted)
+            print(f"{tag}: max|df|={ferr:.3e}, partners equal, {died} "
+                  f"deaths, count {count}", flush=True)
+            if (n, side, dtype) == (8191, 100.0, f32):
+                plain_8191 = {
+                    "direct_forces": _timed(
+                        lambda: dk.direct_forces_ref(x, y, m, side), 3),
+                    "direct_collisions": _timed(
+                        lambda: dk.direct_collisions_ref(x, y, alive, side),
+                        3)}
+
+    # am. N = 1e5 with pairs planted past the int32 rank wrap: one step's
+    # kernels against the plain versions.
+    seed, side, n = DIRECT_BIG
+    xs, ys, vxs, vys, ms = (np.array(a) for a in init_particles_host(
+        SimConfig(seed, side, 1, n)))
+    alive = np.ones(n, bool)
+    planted = [s for s in plant_direct_cases(xs, ys, vxs, vys, ms, alive,
+                                             side, DIRECT_WRAP_PAIRS)
+               if s not in (9, 10)]
+    st = state_from_numpy({"x": xs, "y": ys, "vx": vxs, "vy": vys, "m": ms,
+                           "alive": alive, "collisions": np.zeros((), int)},
+                          "cuda")
+    tag = f"direct N={n} (seed {seed}, side {side})"
+    fargs = (st.x, st.y, st.m, side)
+    fref, terms = dk.direct_forces_ref(*fargs), _direct_terms(*fargs)
+    ferr = _direct_force_err(dk.direct_forces(*fargs), fref, terms, tag)
+    out = make_step(side, n, "cuda")(st)
+    cargs = (out.x, out.y, st.alive, side)
+    first, cref = dk.direct_collisions(*cargs), dk.direct_collisions_ref(
+        *cargs)
+    died, count = _check_partners(first, cref, tag, planted)
+    if (died != int((st.alive & ~out.alive).sum())
+            or count != int(out.collisions)):
+        raise AssertionError(f"{tag}: the step's deaths and count differ")
+    print(f"{tag}: one step, max|df|={ferr:.3e}; partners equal with pairs "
+          f"planted at {DIRECT_WRAP_PAIRS} (past 46 340): {died} deaths, "
+          f"count {count}", flush=True)
+    # The launch rule: threads a receiver, each split checked and timed.
+    split_ms = {}
+    for split in dk.SPLITS:
+        _direct_force_err(dk.direct_forces(*fargs, split=split), fref, terms,
+                          f"{tag}, split {split}")
+        _check_partners(dk.direct_collisions(*cargs, split=split), cref,
+                        f"{tag}, split {split}")
+        split_ms[split] = [device_ms(lambda: dk.direct_forces(
+            *fargs, split=split), 5), device_ms(lambda: dk.direct_collisions(
+                *cargs, split=split), 5)]
+    print(f"{tag}: device ms (forces, collisions) by threads a receiver "
+          f"{json.dumps(split_ms)}; the rule takes {dk.SPLIT}", flush=True)
+    recs = {}
+    for name, kernel, plain, bound in (
+            ("direct_forces", lambda: dk.direct_forces(*fargs),
+             lambda: dk.direct_forces_ref(*fargs),
+             _direct_force_bound(st.x, st.m)),
+            ("direct_collisions", lambda: dk.direct_collisions(*cargs),
+             lambda: dk.direct_collisions_ref(*cargs),
+             _direct_collision_bound(out.x, st.alive, first))):
+        recs[name] = {"max_abs_err": ferr if name == "direct_forces" else 0.0,
+                      **_kernel_times(kernel, plain),
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "sfu_ms": bound[2], "library_ms": None}
+        _report(f"{name} at N={n} (plain at N=8191: "
+                f"{plain_8191[name]:.4f} ms)", recs[name])
+
+    # an. DirectSimulation cuda against cpu, two card runs, JAX's results.
+    for cfg in (DIRECT_2048, DIRECT_2048_DENSE):
+        seed2, side2, n2, steps, x0, y0, c0 = cfg
+        runs = []
+        for device in ("cuda", "cuda", "cpu"):
+            sim = DirectSimulation(seed2, side2, n2, device=device)
+            sim.run(steps)
+            runs.append((sim.collisions, sim.state))
+        (ca, a), (cb, b), (cc, c) = runs
+        label = f"direct {seed2} {side2} {n2}, {steps} steps"
+        if not all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in a._fields):
+            raise AssertionError(f"{label}: two card runs differ")
+        dpos = max(float((getattr(a, f).cpu() - getattr(c, f)).abs().max())
+                   for f in ("x", "y"))
+        if (ca != cc or not torch.equal(a.alive.cpu(), c.alive)
+                or dpos > DIRECT_TOL * side2):
+            raise AssertionError(f"{label}: cuda ({ca}) vs cpu ({cc}), "
+                                 f"max|dpos|={dpos}, or the dead sets "
+                                 f"differ")
+        x, y = float(a.x[0]), float(a.y[0])
+        if not (ca == c0 and abs(x - x0) < DIRECT_TOL * side2
+                and abs(y - y0) < DIRECT_TOL * side2):
+            raise AssertionError(f"{label}: ({x}, {y}, {ca}) against JAX's "
+                                 f"({x0}, {y0}, {c0})")
+        print(f"{label}: two card runs bit for bit equal; cuda vs cpu: "
+              f"collisions {ca} = {cc}, dead sets equal, max|dpos|={dpos:.3e};"
+              f" JAX's result ({x0}, {y0}, {c0}) held: ({x:.6f}, {y:.6f}, "
+              f"{ca})", flush=True)
+
+    # ao. No host sync in the run loop; one (the count) in run.
+    sim = DirectSimulation(*DIRECT_2048[:3], device="cuda")
+    check_no_sync("direct", sim.advance, sim.state)
+    syncs = _syncs(SimpleNamespace(run=lambda s, k: sim.run(k)), None, 2)
+    if syncs != 1:
+        raise AssertionError(f"direct run: {syncs} host syncs, not 1")
+    print("direct run: one host synchronisation (the count's readback)",
+          flush=True)
+
+    # ap. N = 1e5: the main path's run, then timed.
+    sim = DirectSimulation(*DIRECT_BIG, device="cuda")
+    sim.advance(sim.state, 1)
+    torch.cuda.synchronize()
+    dk.reset_launches()
+    st = sim.run(10)
+    torch.cuda.synchronize()
+    launches = dict(dk.LAUNCHES)
+    print(f"direct N={n} on cuda, 10 steps: particle 0 ({float(st.x[0]):.4f}"
+          f", {float(st.y[0]):.4f}), collisions {sim.collisions}, launches "
+          f"{launches}", flush=True)
+    if not (bool(torch.isfinite(st.x).all() and torch.isfinite(st.y).all())
+            and st.x.shape == (n,) and all(v == 10 for v in
+                                           launches.values())):
+        raise AssertionError("direct N=1e5: non-finite, misshapen, or a "
+                             "kernel not launched every step")
+    ms = profiling.bench_fn(sim.advance, sim.state, 10, warmup=1, iters=3,
+                            device="cuda") / 10 * 1e3
+    print(f"direct N={n}: {ms:.4f} ms/step, {2 * n * n / ms / 1e9:.4f} "
+          f"T pair evaluations/s (two passes of N² a step) on {card}",
+          flush=True)
+    device_breakdown(f"direct N={n}", SimpleNamespace(run=sim.advance),
+                     sim.state, ms)
+    print(f"direct phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, recs
+
+
+def build_libraries():
+    """Build both kernel libraries from the checkout's sources, one nvcc
+    each, started together; print each one's -Xptxas -v report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, direct_nbody
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(cell_pairs.build, (cell_pairs.SOURCE,
+                                                direct_nbody.SOURCE)))
+    for lib in libs:
+        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for both)",
+              flush=True)
+        with open(f"{lib}.log") as f:
+            print(f.read().strip(), flush=True)
+
+
+def kernel_entry(name, launches, rec, source=SOURCE):
+    """A kernel's record in the ``kernels`` line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms")}
+
+
 def _card():
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -1967,6 +2329,16 @@ def main():
         print(card, flush=True)
         check_mesh2d(card)
         return
+    if sys.argv[1:2] == ["--direct"]:
+        # Phases al-ap alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        launches, recs = check_direct(card)
+        print(json.dumps({"kernels": [
+            kernel_entry(k, launches[k], recs[k], DIRECT_SOURCE)
+            for k in recs]}))
+        return
 
     # 1. The card.
     card = _card()
@@ -1979,16 +2351,11 @@ def main():
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import (
         Engine, make_dense_step, make_resident_run)
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
     from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
         UNEVEN_PLAN, class_tiles, dense_tiles, resident_tiles)
     from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
 
-    t0 = time.perf_counter()
-    lib = cell_pairs.build()
-    print(f"built {lib} in {time.perf_counter() - t0:.2f} s", flush=True)
-    with open(f"{lib}.log") as f:
-        print(f.read().strip(), flush=True)
+    build_libraries()
 
     # 3. Each kernel vs its plain version: the flagship tile shape, kcap
     # 1024, kcap 288 (no power of two) and a tiered UNEVEN class shape; then
@@ -2119,13 +2486,8 @@ def main():
     # and the block-cyclic bands (UNEVEN).
     mesh2d_launches, _ = check_mesh2d(card)
 
-    def entry(name, launches, rec):
-        return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches,
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-                "library_ms": rec.get("library_ms")}
+    # 14. The direct model (exact all-pairs), N = 1e5 its main path.
+    direct_launches, direct_recs = check_direct(card)
 
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
@@ -2134,8 +2496,8 @@ def main():
           f"launches a step and 13 for the first pass) {banded_launches}, "
           f"mesh resident D=4 (golden s1) {mesh_launches}, "
           + ", ".join(f"{k} {v}" for k, v in (*route_launches.items(),
-                                              *mesh2d_launches.items())),
-          flush=True)
+                                              *mesh2d_launches.items()))
+          + f", direct N=1e5 (10 steps) {direct_launches}", flush=True)
 
     def on_paths(name, *paths):
         return sum(p[name] for p in paths)
@@ -2143,20 +2505,22 @@ def main():
     sc_paths = (small_launches, route_launches["SMALL mesh"],
                 mesh2d_launches["SMALL 2D -> supercell"])
     print(json.dumps({"kernels": [
-        entry("fused_pairs", on_paths(
+        kernel_entry("fused_pairs", on_paths(
             "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
             route_launches["2e7 mesh banded"], mesh2d_launches["2D resident"],
             mesh2d_launches["UNEVEN cyclic"]), on_path[("v4", True)]),
-        entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
+        kernel_entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),
-        entry("dense_pairwise_forces", dense_launches["dense_forces"],
+        kernel_entry("dense_pairwise_forces", dense_launches["dense_forces"],
               forces[10_000]),
-        entry("dense_collisions", dense_launches["dense_collisions"],
+        kernel_entry("dense_collisions", dense_launches["dense_collisions"],
               colls[(10_000, False)]),
-        entry("fused_pairs_sub", on_paths("fused_pairs_sub", *sc_paths),
+        kernel_entry("fused_pairs_sub", on_paths("fused_pairs_sub", *sc_paths),
               sub_rec),
-        entry("supercell_cell_sums", on_paths("supercell_cell_sums",
+        kernel_entry("supercell_cell_sums", on_paths("supercell_cell_sums",
                                               *sc_paths), sums_rec),
+        *(kernel_entry(k, direct_launches[k], direct_recs[k], DIRECT_SOURCE)
+          for k in ("direct_forces", "direct_collisions")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

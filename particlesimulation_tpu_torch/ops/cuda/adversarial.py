@@ -4,9 +4,11 @@ The pair kernels compact the used or alive slots of a row, test the pairs
 of neighbouring x buckets and count first pairs from an inverse rank table;
 the fused kernel compacts the used slots again after its collision phase.
 ``adversarial_tiles`` builds one row for each
-case that structure can get wrong; the CPU tests hold the plain versions
-against the JAX package's kernels on them, and ``chip_smoke.py`` holds the
-CUDA kernels against the plain versions on them. NumPy only, so that both
+case that structure can get wrong, and ``plant_direct_cases`` the same
+kind of cases among the particles of the direct model's all-pairs passes;
+the CPU tests hold the plain versions against the JAX package's kernels on
+them, and ``chip_smoke.py`` holds the CUDA kernels against the plain
+versions on them. NumPy only, so that both
 can use it.
 """
 
@@ -94,3 +96,48 @@ def adversarial_tiles(kcap: int, seed: int = 0):
     pid = np.argsort(rng.uniform(size=(9, kcap)), axis=1)
     return (x.astype(np.float32), y.astype(np.float32), m.astype(np.float32),
             alive.astype(np.int32), pid.astype(np.int32))
+
+
+# The slots of plant_direct_cases' groups: a pair, a chain of three, a
+# coincident pair, a pair across the periodic edge, an alive slot and a dead
+# one within EPSILON of it.
+DIRECT_GROUPS = ((0, 1), (2, 3, 4), (5, 6), (7, 8), (9, 10))
+
+
+def plant_direct_cases(x, y, vx, vy, m, alive, side: float, pairs=()):
+    """Plant collision cases, in place, into float64 particle arrays of the
+    direct model (x, y, vx, vy, m and a bool ``alive``), each group at rest
+    on its own spot of the ``[0, side)²`` box:
+
+    * slots 0-1: a pair EPSILON/3 apart;
+    * 2-4: a chain of three 0.6·EPSILON apart (2-3 and 3-4 hit, 2-4 do not:
+      all three die, one pair counts);
+    * 5-6: a coincident pair (d = 0: a hit, and no force);
+    * 7-8: a pair across the periodic edge, at x = 0.001 and side - 0.001;
+    * 9-10: slot 10 dead (m = 0) EPSILON/4 from alive slot 9, which no hit
+      may reach;
+
+    where the arrays hold enough slots (n >= 11), and a pair EPSILON/3 apart
+    at the slots (i, j) of each entry of ``pairs``, each on a spot of its
+    own. Returns the slots planted.
+    """
+    n = x.shape[0]
+    offsets = {(0, 1): (0.0, EPSILON / 3), (2, 3, 4): (0.0, 0.6 * EPSILON,
+                                                      1.2 * EPSILON),
+               (5, 6): (0.0, 0.0), (9, 10): (0.0, EPSILON / 4)}
+    groups = [(g, offsets.get(g)) for g in DIRECT_GROUPS] if n >= 11 else []
+    groups += [(tuple(p), (0.0, EPSILON / 3)) for p in pairs]
+    planted = []
+    for k, (slots, offs) in enumerate(groups):
+        y0 = side * (0.05 + 0.9 * ((k * 0.37) % 1.0))
+        if slots == (7, 8):
+            xs = (0.001, side - 0.001)
+        else:
+            xs = tuple(side * (0.1 + 0.8 * ((k * 0.61) % 1.0)) + o
+                       for o in offs)
+        for s, xv in zip(slots, xs):
+            x[s], y[s], vx[s], vy[s] = xv, y0, 0.0, 0.0
+        planted += slots
+    if n >= 11:
+        m[10], alive[10] = 0.0, False
+    return planted

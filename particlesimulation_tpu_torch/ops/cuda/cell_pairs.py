@@ -82,15 +82,18 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build() -> str:
-    """Compile the kernel library if it is not built yet; returns its path.
+def build(source: str = SOURCE) -> str:
+    """Compile the kernel library of the CUDA file ``source`` (this module's
+    by default) if it is not built yet; returns its path,
+    ``lib<stem>_<content hash>.so`` in the build directory.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
     is kept beside the library as ``<name>.log``.
     """
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libcell_pairs_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -99,7 +102,7 @@ def build() -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
+           "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
@@ -166,7 +169,7 @@ def _on_card(x, what):
     return True
 
 
-def _launch(name, fn, x, *args):
+def _launch(name, fn, x, *args, launches=LAUNCHES):
     # The kernel goes to the current device, on its current stream. (The raw
     # stream handle saves the Stream object that torch.cuda.current_stream()
     # builds on every call.)
@@ -176,7 +179,7 @@ def _launch(name, fn, x, *args):
         err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    launches[name] += 1
 
 
 def _check_fused(x, y, mf, alive, pid, kcap, force_form, sub=None):

@@ -1,1 +1,2 @@
-"""Comparison instruments: physical observables and step-diff debugging."""
+"""Comparison instruments (physical observables, step-diff debugging),
+checkpoints and profiling."""

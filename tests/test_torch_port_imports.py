@@ -47,10 +47,11 @@ def test_scan_sees_the_package():
 
 # A string that names a path inside the JAX package, as a whole path or as
 # a path component ("particlesimulation_tpu/native/x.cpp", or the pieces of
-# os.path.join(root, "particlesimulation_tpu", ...)). A "file.py:line"
-# reference, as chip_smoke.py's "replaces" labels are, opens no file.
+# os.path.join(root, "particlesimulation_tpu", ...)). A "file.py:line" or
+# "file.py:first-last" reference, as chip_smoke.py's "replaces" labels are,
+# opens no file.
 _JAX_PATH = re.compile(r"(^|/)particlesimulation_tpu(/|$)")
-_LINE_REF = re.compile(r"\.py:\d+$")
+_LINE_REF = re.compile(r"\.py:\d+(-\d+)?$")
 
 
 def _jax_paths(source):
@@ -78,6 +79,8 @@ def test_path_scan_catches_a_jax_path():
     assert _jax_paths('os.path.join(root, "particlesimulation_tpu", "a.cpp")')
     assert _jax_paths('SRC = "particlesimulation_tpu/native/initgen.cpp"')
     assert not _jax_paths('REF = "particlesimulation_tpu/ops/x.py:248"')
+    assert not _jax_paths('REF = "particlesimulation_tpu/models/x.py:36-80"')
+    assert _jax_paths('SRC = "particlesimulation_tpu/models/x.py"')
     assert not _jax_paths('SRC = "particlesimulation_tpu_torch/csrc/a.cu"')
 
 

@@ -1,7 +1,8 @@
 """The port's comparison instruments (``utils/observables``,
 ``utils/debug``) against the JAX package's on the same states: observables
 to float64 rounding (rtol 1e-12: sums in another order), the digest and the
-step-diff search exactly."""
+step-diff search exactly; and ``utils/profiling`` on the CPU, as the JAX
+package's ``tests/test_utils.py`` holds its own."""
 
 import os
 import shutil
@@ -17,7 +18,7 @@ from particlesimulation_tpu.utils import debug as jdebug
 from particlesimulation_tpu.utils import observables as jobs
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.engine import Engine
-from particlesimulation_tpu_torch.utils import debug, observables
+from particlesimulation_tpu_torch.utils import debug, observables, profiling
 
 CFG = (-10, 3.0, 3, 100)
 
@@ -78,3 +79,29 @@ def test_run_reference_binary(tmp_path):
                                      build_dir=str(tmp_path / "build"))
     assert out == (1.5, 2.25, 7)
     assert os.path.exists(tmp_path / "build" / "parsim")
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_phase_timer_report(device):
+    t = profiling.PhaseTimer(device)
+    with t.phase("a"):
+        torch.ones(16).sum()
+    with t.phase("b"):
+        pass
+    rep = t.report()
+    assert "a" in rep and "b" in rep
+    assert list(t.totals) == ["a", "b"] and min(t.totals.values()) >= 0.0
+
+
+def test_bench_fn_returns_nonnegative():
+    f = lambda v: v * 2.0
+    assert profiling.bench_fn(f, torch.ones(16), warmup=1, iters=3,
+                              device="cpu") >= 0.0
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    logdir = tmp_path / "trace"
+    with profiling.trace(str(logdir), device="cpu"):
+        (torch.ones(64) * 2.0).sum()
+    files = list(logdir.glob("trace_*.json"))
+    assert len(files) == 1 and files[0].stat().st_size > 0
