@@ -169,9 +169,9 @@ am. N = 1e5 (seed -1, side 1000: the reference's golden vector -1 1000 30
    100000 1000) with pairs planted past slot 46 340, where the JAX
    package's int32 pair rank would wrap: one step's kernels against the
    plain versions on the card, the partners exact, the planted slots dead;
-   each launch split (1, 2 and 4 threads a receiver) checked and timed;
-   each kernel's ms, device ms and bound, its plain version's ms at N =
-   1e5 and 8191;
+   the force check shown to reject forces that lack the last tile's 160
+   partners; each kernel's ms, device ms and bound, its plain version's ms
+   at N = 1e5 and 8191;
 an. ``DirectSimulation`` at N = 2048 (seed 1, 10 steps, side 100 and side
    1), cuda against cpu: the count and dead set exact, positions within
    DIRECT_TOL·side; two card runs bit for bit equal; the JAX package's
@@ -180,7 +180,8 @@ ao. no host synchronisation in ``DirectSimulation.advance`` (the run
    loop), and exactly one (the count's readback) in ``run``;
 ap. N = 1e5 for 10 steps after a warm-up run (both kernels launched every
    step), timed with ``utils/profiling.bench_fn``: ms/step, pair
-   evaluations/s, device ms, idle share and launches a step.
+   evaluations/s, device ms, idle share and launches a step; the force
+   kernel's device ms (CUDA events) on the run's own state.
 
 ``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone;
 ``python3 chip_smoke.py --direct`` runs phases al-ap alone.
@@ -243,11 +244,20 @@ Tolerances:
     within 2e-5·side; at 1e7 against resident, the count and dead set exact
     and positions within 1e-6·side (the same function on the same cell
     rows, another split of the pool).
-  * the direct force kernel: per particle within 2·(N + 8)·u·S of the
-    plain version, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum
-    of the terms' magnitudes (N terms added in another order, rsqrt by a
-    few ulps); the direct collision kernel: its partners exactly (the
-    minimum image and d² are correctly rounded in both versions);
+  * the direct force kernel: per particle and axis within ((⌈N/4⌉ +
+    19)·u + (N - 1)·2⁻⁵³)·S of the plain version's own terms summed in
+    float64, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum of
+    the terms' magnitudes: the kernel's terms are the plain version's up
+    to the rsqrt's ulps (16·u·S), and each of its 4 threads a receiver
+    adds ⌈N/4⌉ of them in order before the 4 sums are added (the worst
+    case of ordered sums, (⌈N/4⌉ + 3)·u·S); the float64 sum adds at most
+    (N - 1)·2⁻⁵³·S. At N = 1e5 in float32 that is 1.5e-3·S (the bound of
+    two sums in any order, 2·(N + 8)·u·S, is 1.2e-2·S). Every case prints
+    its largest err/tol and the plain version's (its float32 sum against
+    the same reference); at N = 1e5 the script also shows that the check
+    rejects forces that lack the last tile's partners. The direct
+    collision kernel: its partners exactly (the minimum image and d² are
+    correctly rounded in both versions);
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -262,12 +272,14 @@ pairs of a row). The cell sums move 16 bytes a slot and 12 a true cell. The coll
 only the pairs near in x (a few per alive slot, 6 ops each), which cost
 little beside the row's bytes. The rsqrt count is shown against the SFU
 rate, 16 per SM and clock: 1/16 of the f32 rate. The direct kernels' bound
-also takes that rate in: per pair the force needs 22 f32 operations and 3
-special-function ones (an rsqrt and the reciprocal of each of two IEEE
-divisions), the collision test 14 and 2, counted over the pairs this run's
-data needs (pairs of used particles for the force; for the collision test
-each alive particle's alive partners up to its first hit, or all of them),
-and the larger of the two rates' times bounds it; float64 counts its
+also takes that rate in: per pair the force needs 22 f32 operations and one
+special-function one (the rsqrt), the collision test 14 and none (for |dx|
+< side the minimum image's rint(dx / side) is 0 or ±1, ±1 exactly where
+|dx| reaches one threshold, so the function needs no division, though the
+kernels divide as JAX's code does), counted over the pairs this run's data
+needs (pairs of used particles for the force; for the collision test each
+alive particle's alive partners up to its first hit, or all of them), and
+the larger of the two rates' times bounds it; float64 counts its
 operations at 34 TFLOP/s.
 """
 
@@ -327,6 +339,9 @@ DIRECT_2048 = (1, 100.0, 2048, 10, 71.11087036132812, 7.7793426513671875, 0)
 DIRECT_2048_DENSE = (1, 1.0, 2048, 10, 0.7723073959350586,
                      0.03642868995666504, 597)
 DIRECT_TOL = 1e-5
+# Threads a receiver in the direct kernels (csrc/direct_nbody.cu's kSplit):
+# each sums ⌈N/4⌉ terms in order, which sets the force check's tolerance.
+DIRECT_SPLIT = 4
 # N = 1e5 at the reference's golden vector -1 1000 30 100000 1000 (seed,
 # side, N); pairs planted there past slot 46 340 (JAX's int32 pair rank
 # i·(n+1)+j wraps from n = 46 341 on); the sizes and sides of phase al.
@@ -2005,39 +2020,75 @@ def _direct_planted(n, side, seed, dtype, pairs=()):
             [s for s in planted if s not in (9, 10)])
 
 
-def _direct_terms(x, y, m, side, chunk=512):
-    """Per particle and axis, the summed magnitudes of the force's terms,
-    in float64."""
+def _direct_exact(x, y, m, side):
+    """(exact, mag), each (2, N) float64: per particle and axis, the plain
+    version's own terms (its arithmetic in x's type) summed in float64,
+    and the sum of their magnitudes S."""
     from particlesimulation_tpu_torch.config import G
 
-    x, y, m = (a.double() for a in (x, y, m))
-    sidet = torch.full((), side, dtype=torch.float64, device=x.device)
-    out = torch.empty(2, x.numel(), dtype=torch.float64, device=x.device)
+    chunk = 512
+    sidet = torch.full((), side, dtype=x.dtype, device=x.device)
+    g = torch.full((), G, dtype=x.dtype, device=x.device)
+    exact = torch.empty(2, x.numel(), dtype=torch.float64, device=x.device)
+    mag = torch.empty_like(exact)
     for i0 in range(0, x.numel(), chunk):
         d = []
         for a in (x, y):
             da = a[None, :] - a[i0:i0 + chunk, None]
             d.append(da - sidet * torch.round(da / sidet))
         d2 = d[0] * d[0] + d[1] * d[1]
-        w = (G * m[i0:i0 + chunk, None] * m[None, :]
-             * torch.where(d2 > 0, d2.clamp(min=1e-300) ** -1.5, 0.0))
+        nz = d2 > 0
+        inv = torch.where(nz, torch.rsqrt(torch.where(nz, d2, 1.0)), 0.0)
+        s = (g * m[i0:i0 + chunk, None]) * m[None, :] * (inv * inv * inv)
         for k in range(2):
-            out[k, i0:i0 + chunk] = (w * d[k].abs()).sum(1)
-    return out
+            t = (s * d[k]).double()
+            exact[k, i0:i0 + chunk] = t.sum(1)
+            mag[k, i0:i0 + chunk] = t.abs().sum(1)
+    return exact, mag
 
 
-def _direct_force_err(got, ref, terms, tag):
-    """Max |kernel - plain| over both axes; raises beyond 2·(N + 8)·u·S."""
-    u = 2.0 ** -24 if got[0].dtype == torch.float32 else 2.0 ** -53
-    tol = 2 * (got[0].numel() + 8) * u * terms
-    err = torch.stack([(a.double() - b.double()).abs()
-                       for a, b in zip(got, ref)])
-    if not bool((err <= tol).all()):
-        worst = int(torch.argmax(err / tol.clamp(min=1e-300)))
-        raise AssertionError(f"{tag}: force off by {float(err.max())} "
-                             f"(worst {float(err.flatten()[worst])} against "
-                             f"{float(tol.flatten()[worst])})")
-    return float(err.max())
+def _direct_force_tol(mag, dtype):
+    """Per particle and axis, ((⌈N/4⌉ + 19)·u + (N - 1)·2⁻⁵³)·S (the module
+    docstring)."""
+    n = mag.shape[1]
+    u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+    return ((-(-n // DIRECT_SPLIT) + 19) * u + (n - 1) * 2.0 ** -53) * mag
+
+
+def _direct_force_err(got, exact, mag):
+    """(max |got - exact| over both axes, its largest err/tol)."""
+    tol = _direct_force_tol(mag, got[0].dtype).clamp(min=1e-300)
+    err = (torch.stack(got).double() - exact).abs()
+    return float(err.max()), float((err / tol).max())
+
+
+def _check_direct_forces(got, plain, x, y, m, side, tag):
+    """The kernel's forces against the plain version's terms summed in
+    float64: raises where err > tol. Returns (max error, largest err/tol,
+    the plain version's own largest err/tol, mag)."""
+    exact, mag = _direct_exact(x, y, m, side)
+    ferr, ratio = _direct_force_err(got, exact, mag)
+    if ratio > 1:
+        raise AssertionError(f"{tag}: force off by up to {ferr} (err/tol "
+                             f"{ratio})")
+    return ferr, ratio, _direct_force_err(plain, exact, mag)[1], mag
+
+
+def _tail_forces(x, y, m, side, lo):
+    """(2, N) float64: the force on every particle from partners [lo, N)
+    alone, the plain version's terms."""
+    from particlesimulation_tpu_torch.config import G
+
+    x, y, m = (a.double() for a in (x, y, m))
+    sidet = torch.full((), side, dtype=torch.float64, device=x.device)
+    d = []
+    for a in (x, y):
+        da = a[None, lo:] - a[:, None]
+        d.append(da - sidet * torch.round(da / sidet))
+    d2 = d[0] * d[0] + d[1] * d[1]
+    w = (G * m[:, None] * m[None, lo:]
+         * torch.where(d2 > 0, d2.clamp(min=1e-300) ** -1.5, 0.0))
+    return torch.stack([(w * dk).sum(1) for dk in d])
 
 
 def _check_partners(got, ref, tag, must_die=()):
@@ -2068,16 +2119,17 @@ def _direct_bound(ops, sfu, nbytes, dtype):
 
 
 def _direct_force_bound(x, m):
-    """x, y, m read and fx, fy written once; 22 f32 and 3 special-function
-    operations for each ordered pair of particles with mass."""
+    """x, y, m read and fx, fy written once; 22 f32 operations and one
+    special-function one (the rsqrt) for each ordered pair of particles
+    with mass."""
     used = float((m > 0).sum())
-    return _direct_bound(22 * used * used, 3 * used * used,
+    return _direct_bound(22 * used * used, used * used,
                          5 * x.numel() * x.element_size(), x.dtype)
 
 
 def _direct_collision_bound(x, alive, first):
-    """x, y, alive read and the partners written once; 14 f32 and 2
-    special-function operations for each pair the search needs: an alive
+    """x, y, alive read and the partners written once; 14 f32 operations
+    and no special-function one for each pair the search needs: an alive
     particle's alive partners up to its first hit, or all of them."""
     upto = torch.cumsum(alive.long(), 0)
     idx = torch.arange(x.numel(), device=x.device)
@@ -2085,7 +2137,7 @@ def _direct_collision_bound(x, alive, first):
     seen = torch.where(hit, upto[first.clamp(min=0).long()] - (idx < first)
                        .long(), upto[-1] - 1)
     pairs = float(seen[alive].sum())
-    return _direct_bound(14 * pairs, 2 * pairs,
+    return _direct_bound(14 * pairs, 0,
                          x.numel() * (2 * x.element_size() + 1 + 4), x.dtype)
 
 
@@ -2116,14 +2168,15 @@ def check_direct(card):
         for dtype in (f32, torch.float64):
             tag = f"direct kernels N={n} side {side} {dtype}"
             x, y, m, alive, planted = _direct_planted(n, side, n, dtype)
-            got = dk.direct_forces(x, y, m, side)
-            ferr = _direct_force_err(got, dk.direct_forces_ref(x, y, m, side),
-                                     _direct_terms(x, y, m, side), tag)
+            ferr, ratio, pratio, _ = _check_direct_forces(
+                dk.direct_forces(x, y, m, side),
+                dk.direct_forces_ref(x, y, m, side), x, y, m, side, tag)
             died, count = _check_partners(
                 dk.direct_collisions(x, y, alive, side),
                 dk.direct_collisions_ref(x, y, alive, side), tag, planted)
-            print(f"{tag}: max|df|={ferr:.3e}, partners equal, {died} "
-                  f"deaths, count {count}", flush=True)
+            print(f"{tag}: max|df|={ferr:.3e} (err/tol at most {ratio:.3e};"
+                  f" the plain version's {pratio:.3e}), partners equal, "
+                  f"{died} deaths, count {count}", flush=True)
             if (n, side, dtype) == (8191, 100.0, f32):
                 plain_8191 = {
                     "direct_forces": _timed(
@@ -2146,8 +2199,18 @@ def check_direct(card):
                           "cuda")
     tag = f"direct N={n} (seed {seed}, side {side})"
     fargs = (st.x, st.y, st.m, side)
-    fref, terms = dk.direct_forces_ref(*fargs), _direct_terms(*fargs)
-    ferr = _direct_force_err(dk.direct_forces(*fargs), fref, terms, tag)
+    ferr, ratio, pratio, mag = _check_direct_forces(
+        dk.direct_forces(*fargs), dk.direct_forces_ref(*fargs), *fargs, tag)
+    # The check's teeth: forces that lack the last tile's partners (N mod
+    # 256 = 160 of them; a kernel that dropped its tail) must fail it.
+    lo = n - n % 256
+    tail = _tail_forces(*fargs, lo)
+    tail_ratio = float((tail.abs() / _direct_force_tol(
+        mag, st.x.dtype).clamp(min=1e-300)).max())
+    if tail_ratio <= 1:
+        raise AssertionError(f"{tag}: the force check would pass forces "
+                             f"without partners [{lo}, {n}) (err/tol "
+                             f"{tail_ratio:.3e})")
     out = make_step(side, n, "cuda")(st)
     cargs = (out.x, out.y, st.alive, side)
     first, cref = dk.direct_collisions(*cargs), dk.direct_collisions_ref(
@@ -2156,21 +2219,11 @@ def check_direct(card):
     if (died != int((st.alive & ~out.alive).sum())
             or count != int(out.collisions)):
         raise AssertionError(f"{tag}: the step's deaths and count differ")
-    print(f"{tag}: one step, max|df|={ferr:.3e}; partners equal with pairs "
-          f"planted at {DIRECT_WRAP_PAIRS} (past 46 340): {died} deaths, "
-          f"count {count}", flush=True)
-    # The launch rule: threads a receiver, each split checked and timed.
-    split_ms = {}
-    for split in dk.SPLITS:
-        _direct_force_err(dk.direct_forces(*fargs, split=split), fref, terms,
-                          f"{tag}, split {split}")
-        _check_partners(dk.direct_collisions(*cargs, split=split), cref,
-                        f"{tag}, split {split}")
-        split_ms[split] = [device_ms(lambda: dk.direct_forces(
-            *fargs, split=split), 5), device_ms(lambda: dk.direct_collisions(
-                *cargs, split=split), 5)]
-    print(f"{tag}: device ms (forces, collisions) by threads a receiver "
-          f"{json.dumps(split_ms)}; the rule takes {dk.SPLIT}", flush=True)
+    print(f"{tag}: one step, max|df|={ferr:.3e} (err/tol at most "
+          f"{ratio:.3e}, the plain version's {pratio:.3e}; without partners [{lo}, {n}) err/tol would reach "
+          f"{tail_ratio:.3e}); partners equal with pairs planted at "
+          f"{DIRECT_WRAP_PAIRS} (past 46 340): {died} deaths, count {count}",
+          flush=True)
     recs = {}
     for name, kernel, plain, bound in (
             ("direct_forces", lambda: dk.direct_forces(*fargs),
@@ -2248,6 +2301,13 @@ def check_direct(card):
           flush=True)
     device_breakdown(f"direct N={n}", SimpleNamespace(run=sim.advance),
                      sim.state, ms)
+    st = sim.state
+    ev_f = device_ms(lambda: dk.direct_forces(st.x, st.y, st.m, side), 20)
+    ev_c = device_ms(lambda: dk.direct_collisions(st.x, st.y, st.alive,
+                                                  side), 20)
+    print(f"direct N={n}: on the run's state, device ms (CUDA events, "
+          f"median of 20): forces {ev_f:.4f}, collisions {ev_c:.4f}",
+          flush=True)
     print(f"direct phases: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, recs
 

@@ -12,21 +12,26 @@
 //
 // What bounds them on an H100: both do O(N^2) pair arithmetic on O(N) data
 // (at N = 1e5, 1e10 pairs a pass on 2 MB of inputs), so bytes cost nothing
-// and the instruction rate sets the time. Per pair the minimum image is two
-// IEEE divisions (a reciprocal on the special-function unit plus a Newton
-// step each) and two roundings, the force adds an rsqrt; the special-function
-// unit runs 16 operations an SM and clock, 1/16 of the f32 rate.
+// and the instruction rate sets the time. The function needs ~22 f32
+// operations a pair for the force and ~14 for the hit test, and one rsqrt
+// (on the special-function unit, 16 an SM and clock) for the force only:
+// for |dx| < side, rint(dx / side) is 0 or +-1, and +-1 exactly where |dx|
+// reaches one threshold, so the minimum image needs no division. This
+// kernel still divides and rounds, as JAX's code does: two IEEE divisions
+// (a reciprocal on the special-function unit plus Newton steps and range
+// checks) and two roundings a pair, which the bound does not count.
 //
-// Design, simple first: 256 threads a block, kSplit threads a receiver
-// (1, 2 or 4; part p of a receiver takes the p-th contiguous slice of every
-// tile). The block stages partner tiles of 256 (x, y, m) or (x, y, alive)
-// in shared memory and each thread loops over its slice in ascending j.
-// Splitting a receiver multiplies the warps in flight: at N = 1e5 one
-// receiver a thread gives only ~24 warps an SM for chains of dependent
-// divisions, roundings and rsqrts. The parts' sums are added in part order
-// in shared memory, and the parts' first hits reduce by minimum. No
-// atomics, no padding (the tail tile is cut by bounds), and a fixed order,
-// so two runs give the same bits.
+// Design, simple first: 256 threads a block, kSplit = 4 threads a receiver
+// (part p of a receiver takes the p-th contiguous slice of every tile). The
+// block stages partner tiles of 256 (x, y, m) or (x, y, alive) in shared
+// memory and each thread loops over its slice in ascending j. Splitting a
+// receiver multiplies the warps in flight: at N = 1e5 one receiver a thread
+// gives only ~24 warps an SM for chains of dependent divisions, roundings
+// and rsqrts (measured once at N = 1e5 on an H100: forces 22.12, 21.09 and
+// 20.38 device ms at 1, 2 and 4 threads a receiver; PERF.md). The parts'
+// sums are added in part order in shared memory, and the parts' first hits
+// reduce by minimum. No atomics, no padding (the tail tile is cut by
+// bounds), and a fixed order, so two runs give the same bits.
 //
 // Arithmetic as JAX's, term by term: dx = x[j] - x[i], dx -= side *
 // rint(dx / side) (rint rounds half to even, as jnp.round; the division is
@@ -48,6 +53,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Threads a receiver; kRecv receivers a block.
+constexpr int kSplit = 4;
+constexpr int kRecv = kThreads / kSplit;
 
 // Correctly rounded arithmetic, never contracted into a multiply-add.
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -70,14 +78,12 @@ __device__ __forceinline__ T min_image(T b, T a, T side) {
   return sub_rn(d, mul_rn(side, round_even(div_rn(d, side))));
 }
 
-template <typename T, int kSplit>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     direct_forces_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          const T* __restrict__ m, T* __restrict__ fx,
                          T* __restrict__ fy, int n, T side, T g) {
-  // kRecv receivers a block; part p takes partners [p kRecv, (p+1) kRecv)
-  // of each tile.
-  constexpr int kRecv = kThreads / kSplit;
+  // Part p takes partners [p kRecv, (p+1) kRecv) of each tile.
   __shared__ T sx[kThreads], sy[kThreads], sm[kThreads];
   const int r = threadIdx.x % kRecv, part = threadIdx.x / kRecv;
   const int i = blockIdx.x * kRecv + r;
@@ -107,15 +113,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  if constexpr (kSplit > 1) {
-    sx[threadIdx.x] = ax;  // the tiles are done with: reuse for the parts
-    sy[threadIdx.x] = ay;
-    __syncthreads();
-    if (part != 0) return;
-    for (int p = 1; p < kSplit; ++p) {
-      ax += sx[p * kRecv + r];
-      ay += sy[p * kRecv + r];
-    }
+  sx[threadIdx.x] = ax;  // the tiles are done with: reuse for the parts
+  sy[threadIdx.x] = ay;
+  __syncthreads();
+  if (part != 0) return;
+  for (int p = 1; p < kSplit; ++p) {
+    ax += sx[p * kRecv + r];
+    ay += sy[p * kRecv + r];
   }
   if (live) {
     fx[i] = ax;
@@ -135,12 +139,11 @@ __device__ __forceinline__ bool collides(T bx, T by, T ax, T ay, T side,
   return add_rn(mul_rn(dx, dx), mul_rn(dy, dy)) < eps2;
 }
 
-template <typename T, int kSplit>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     direct_collisions_kernel(const T* __restrict__ x, const T* __restrict__ y,
                              const bool* __restrict__ alive,
                              int* __restrict__ first, int n, T side, T eps2) {
-  constexpr int kRecv = kThreads / kSplit;  // as in direct_forces_kernel
   __shared__ T sx[kThreads], sy[kThreads];
   __shared__ bool sa[kThreads];
   __shared__ int sfound[kThreads];
@@ -182,101 +185,64 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  if constexpr (kSplit > 1) {
-    // The smallest of the parts' first hits.
-    sfound[threadIdx.x] = found;
-    __syncthreads();
-    if (part != 0) return;
-    for (int p = 1; p < kSplit; ++p) {
-      const int f = sfound[p * kRecv + r];
-      if (f >= 0 && (found < 0 || f < found)) found = f;
-    }
+  // The smallest of the parts' first hits.
+  sfound[threadIdx.x] = found;
+  __syncthreads();
+  if (part != 0) return;
+  for (int p = 1; p < kSplit; ++p) {
+    const int f = sfound[p * kRecv + r];
+    if (f >= 0 && (found < 0 || f < found)) found = f;
   }
   if (i < n) first[i] = found;
 }
 
-template <typename T, int kSplit>
+template <typename T>
 void launch_forces(const void* x, const void* y, const void* m, void* fx,
                    void* fy, int n, double side, double g, cudaStream_t s) {
-  constexpr int kRecv = kThreads / kSplit;
-  direct_forces_kernel<T, kSplit><<<(n + kRecv - 1) / kRecv, kThreads, 0,
-                                    s>>>(
+  direct_forces_kernel<T><<<(n + kRecv - 1) / kRecv, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(m), static_cast<T*>(fx), static_cast<T*>(fy), n,
       (T)side, (T)g);
 }
 
-template <typename T, int kSplit>
+template <typename T>
 void launch_collisions(const void* x, const void* y, const bool* alive,
                        int* first, int n, double side, double eps2,
                        cudaStream_t s) {
-  constexpr int kRecv = kThreads / kSplit;
-  direct_collisions_kernel<T, kSplit><<<(n + kRecv - 1) / kRecv, kThreads,
-                                        0, s>>>(
+  direct_collisions_kernel<T><<<(n + kRecv - 1) / kRecv, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), alive, first, n,
       (T)side, (T)eps2);
-}
-
-template <typename T>
-bool dispatch_forces(int split, const void* x, const void* y, const void* m,
-                     void* fx, void* fy, int n, double side, double g,
-                     cudaStream_t s) {
-  switch (split) {
-    case 1: launch_forces<T, 1>(x, y, m, fx, fy, n, side, g, s); return true;
-    case 2: launch_forces<T, 2>(x, y, m, fx, fy, n, side, g, s); return true;
-    case 4: launch_forces<T, 4>(x, y, m, fx, fy, n, side, g, s); return true;
-  }
-  return false;
-}
-
-template <typename T>
-bool dispatch_collisions(int split, const void* x, const void* y,
-                         const bool* alive, int* first, int n, double side,
-                         double eps2, cudaStream_t s) {
-  switch (split) {
-    case 1:
-      launch_collisions<T, 1>(x, y, alive, first, n, side, eps2, s);
-      return true;
-    case 2:
-      launch_collisions<T, 2>(x, y, alive, first, n, side, eps2, s);
-      return true;
-    case 4:
-      launch_collisions<T, 4>(x, y, alive, first, n, side, eps2, s);
-      return true;
-  }
-  return false;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue, without a launch, for n < 1 or a
-// split other than 1, 2 or 4). f64 selects double arrays, else float; side,
-// g and eps2 are cast to the arrays' type (the caller computes eps2 in that
-// type); split: threads a receiver.
+// after the launch (cudaErrorInvalidValue, without a launch, for n < 1).
+// f64 selects double arrays, else float; side, g and eps2 are cast to the
+// arrays' type (the caller computes eps2 in that type).
 extern "C" int psim_direct_forces(const void* x, const void* y, const void* m,
                                   void* fx, void* fy, int n, double side,
-                                  double g, int f64, int split,
-                                  void* stream) {
+                                  double g, int f64, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      n >= 1 &&
-      (f64 ? dispatch_forces<double>(split, x, y, m, fx, fy, n, side, g, s)
-           : dispatch_forces<float>(split, x, y, m, fx, fy, n, side, g, s));
-  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+  if (f64)
+    launch_forces<double>(x, y, m, fx, fy, n, side, g, s);
+  else
+    launch_forces<float>(x, y, m, fx, fy, n, side, g, s);
+  return (int)cudaGetLastError();
 }
 
 // alive: one byte a slot (torch.bool); first: int32, the partner or -1.
 extern "C" int psim_direct_collisions(const void* x, const void* y,
                                       const bool* alive, int* first, int n,
                                       double side, double eps2, int f64,
-                                      int split, void* stream) {
+                                      void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      n >= 1 && (f64 ? dispatch_collisions<double>(split, x, y, alive, first,
-                                                   n, side, eps2, s)
-                     : dispatch_collisions<float>(split, x, y, alive, first,
-                                                  n, side, eps2, s));
-  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+  if (f64)
+    launch_collisions<double>(x, y, alive, first, n, side, eps2, s);
+  else
+    launch_collisions<float>(x, y, alive, first, n, side, eps2, s);
+  return (int)cudaGetLastError();
 }

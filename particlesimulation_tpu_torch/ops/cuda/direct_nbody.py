@@ -38,10 +38,6 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "direct_nbody.cu")
 # Receivers a step of the plain versions (JAX's jchunk).
 CHUNK = 512
-# Threads a receiver in the kernels (1, 2 or 4): the launch rule, from
-# chip_smoke.py's split sweep at N = 1e5 on an H100.
-SPLITS = (1, 2, 4)
-SPLIT = 4
 FLOATS = (torch.float32, torch.float64)
 
 # Kernel launches per kernel since the last reset_launches().
@@ -63,20 +59,20 @@ def _library():
             lib = ctypes.CDLL(cell_pairs.build(SOURCE))
             vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             lib.psim_direct_forces.argtypes = (
-                [vp] * 5 + [ci, cd, cd, ci, ci, vp])
+                [vp] * 5 + [ci, cd, cd, ci, vp])
             lib.psim_direct_collisions.argtypes = (
-                [vp] * 4 + [ci, cd, cd, ci, ci, vp])
+                [vp] * 4 + [ci, cd, cd, ci, vp])
             lib.psim_direct_forces.restype = ci
             lib.psim_direct_collisions.restype = ci
             _lib = lib
         return _lib
 
 
-def eps2_of(dtype, eps: float = EPSILON) -> float:
+def eps2_of(dtype) -> float:
     """EPSILON² computed in ``dtype``, as JAX's ``asarray(EPSILON, dt)**2``."""
     if dtype == torch.float32:
-        return float(np.float32(eps) * np.float32(eps))
-    return eps * eps
+        return float(np.float32(EPSILON) * np.float32(EPSILON))
+    return EPSILON * EPSILON
 
 
 def _check(x, *others):
@@ -98,18 +94,11 @@ def _check(x, *others):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_split(split):
-    if split not in SPLITS:
-        raise ValueError(f"split {split}; valid: {SPLITS}")
-
-
-def direct_forces(x, y, m, side: float, split: int = SPLIT):
+def direct_forces(x, y, m, side: float):
     """(fx, fy): on each particle, the sum over every particle of
     ``G m_i m_j d / |d|³`` with d the minimum-image displacement on the
-    periodic ``[0, side)²`` box (no term where d = 0). ``split``: the
-    kernel's threads a receiver."""
+    periodic ``[0, side)²`` box (no term where d = 0)."""
     _check(x, ("y", y, None), ("m", m, None))
-    _check_split(split)
     if not cell_pairs._on_card(x, "direct_forces"):
         return direct_forces_ref(x, y, m, side)
     fx, fy = torch.empty_like(x), torch.empty_like(x)
@@ -117,7 +106,7 @@ def direct_forces(x, y, m, side: float, split: int = SPLIT):
         cell_pairs._launch(
             "direct_forces", _library().psim_direct_forces, x, x.data_ptr(),
             y.data_ptr(), m.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-            x.numel(), side, G, int(x.dtype == torch.float64), split,
+            x.numel(), side, G, int(x.dtype == torch.float64),
             launches=LAUNCHES)
     return fx, fy
 
@@ -127,64 +116,60 @@ def _min_image(b, a, side):
     return d - side * torch.round(d / side)
 
 
-def direct_forces_ref(x, y, m, side: float, chunk: int = CHUNK):
+def direct_forces_ref(x, y, m, side: float):
     """Plain torch version of ``direct_forces``: JAX's ``_pair_forces``, a
-    (chunk, N) block of receivers at a time."""
+    (CHUNK, N) block of receivers at a time."""
     _check(x, ("y", y, None), ("m", m, None))
     sidet = torch.full((), side, dtype=x.dtype, device=x.device)
     g = torch.full((), G, dtype=x.dtype, device=x.device)
     fx, fy = torch.empty_like(x), torch.empty_like(x)
-    for i0 in range(0, x.numel(), chunk):
-        xi, yi, mi = (a[i0:i0 + chunk, None] for a in (x, y, m))
+    for i0 in range(0, x.numel(), CHUNK):
+        xi, yi, mi = (a[i0:i0 + CHUNK, None] for a in (x, y, m))
         dx = _min_image(x[None, :], xi, sidet)
         dy = _min_image(y[None, :], yi, sidet)
         d2 = dx * dx + dy * dy
         nz = d2 > 0
         inv = torch.where(nz, torch.rsqrt(torch.where(nz, d2, 1.0)), 0.0)
         s = (g * mi) * m[None, :] * (inv * inv * inv)
-        fx[i0:i0 + chunk] = (s * dx).sum(1)
-        fy[i0:i0 + chunk] = (s * dy).sum(1)
+        fx[i0:i0 + CHUNK] = (s * dx).sum(1)
+        fy[i0:i0 + CHUNK] = (s * dy).sum(1)
     return fx, fy
 
 
-def direct_collisions(x, y, alive, side: float, eps: float = EPSILON,
-                      split: int = SPLIT):
+def direct_collisions(x, y, alive, side: float):
     """int32 (N,): for each alive particle the smallest index of another
-    alive particle within ``eps`` (minimum image; ``d² < eps²`` in x's
-    type), or -1. Dead particles neither hit nor are hit. ``split``: the
-    kernel's threads a receiver."""
+    alive particle within EPSILON (minimum image; ``d² < EPSILON²`` in x's
+    type), or -1. Dead particles neither hit nor are hit."""
     _check(x, ("y", y, None), ("alive", alive, torch.bool))
-    _check_split(split)
     if not cell_pairs._on_card(x, "direct_collisions"):
-        return direct_collisions_ref(x, y, alive, side, eps)
+        return direct_collisions_ref(x, y, alive, side)
     first = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     if x.numel():
         cell_pairs._launch(
             "direct_collisions", _library().psim_direct_collisions, x,
             x.data_ptr(), y.data_ptr(), alive.data_ptr(), first.data_ptr(),
-            x.numel(), side, eps2_of(x.dtype, eps),
-            int(x.dtype == torch.float64), split, launches=LAUNCHES)
+            x.numel(), side, eps2_of(x.dtype),
+            int(x.dtype == torch.float64), launches=LAUNCHES)
     return first
 
 
-def direct_collisions_ref(x, y, alive, side: float, eps: float = EPSILON,
-                          chunk: int = CHUNK):
-    """Plain torch version of ``direct_collisions``, a (chunk, N) block of
+def direct_collisions_ref(x, y, alive, side: float):
+    """Plain torch version of ``direct_collisions``, a (CHUNK, N) block of
     receivers at a time."""
     _check(x, ("y", y, None), ("alive", alive, torch.bool))
     n = x.numel()
     sidet = torch.full((), side, dtype=x.dtype, device=x.device)
-    eps2 = eps2_of(x.dtype, eps)
+    eps2 = eps2_of(x.dtype)
     idx = torch.arange(n, dtype=torch.int32, device=x.device)
     first = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    for i0 in range(0, n, chunk):
-        ii = idx[i0:i0 + chunk, None]
-        dx = _min_image(x[None, :], x[i0:i0 + chunk, None], sidet)
-        dy = _min_image(y[None, :], y[i0:i0 + chunk, None], sidet)
+    for i0 in range(0, n, CHUNK):
+        ii = idx[i0:i0 + CHUNK, None]
+        dx = _min_image(x[None, :], x[i0:i0 + CHUNK, None], sidet)
+        dy = _min_image(y[None, :], y[i0:i0 + CHUNK, None], sidet)
         hit = ((dx * dx + dy * dy < eps2) & alive[None, :]
-               & alive[i0:i0 + chunk, None] & (idx[None, :] != ii))
+               & alive[i0:i0 + CHUNK, None] & (idx[None, :] != ii))
         j = torch.where(hit, idx[None, :], n).amin(1)
-        first[i0:i0 + chunk] = torch.where(j < n, j, -1)
+        first[i0:i0 + CHUNK] = torch.where(j < n, j, -1)
     return first
 
 

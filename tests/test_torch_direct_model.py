@@ -146,20 +146,23 @@ def test_collision_partners():
 def test_run_matches_jax(cfg):
     """(d) DirectSimulation(1, 100.0, 256) for 20 steps, and two configs
     dense enough to collide (7 and 156 collisions): mass conserved, the
-    count and the dead set exact, positions and velocities within
+    count and the dead set exact, the masses JAX's (a death zeroes a mass,
+    nothing else changes one), positions and velocities within
     POS_TOL."""
     seed, side, n, steps = cfg
     ref = _jax_run(seed, side, n, steps)
     sim = DirectSimulation(seed, side, n, device="cpu")
-    m0 = float(sim.state.m.sum())
     st = sim.run(steps)
-    assert float(st.m.sum()) <= m0 + 1e-3
+    np.testing.assert_array_equal(st.m.numpy(), ref["m"])
+    assert float(st.m.sum()) == pytest.approx(float(ref["m"].sum()),
+                                              rel=n * 2.0 ** -24)
     assert sim.collisions == int(ref["collisions"])
     np.testing.assert_array_equal(st.alive.numpy(), ref["alive"])
     for f in ("x", "y"):
         assert np.abs(getattr(st, f).numpy() - ref[f]).max() < POS_TOL * side
-    vmax = np.abs(ref["vx"]).max()
-    assert np.abs(st.vx.numpy() - ref["vx"]).max() < POS_TOL * vmax
+    vmax = max(np.abs(ref[f]).max() for f in ("vx", "vy"))
+    for f in ("vx", "vy"):
+        assert np.abs(getattr(st, f).numpy() - ref[f]).max() < POS_TOL * vmax
 
 
 def test_run_float64_matches_jax():
@@ -237,16 +240,17 @@ def test_cuda_by_default_and_wrappers_refuse_other_devices(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "alive", "rank",
-                                 "split"])
+                                 "strided"])
 def test_wrappers_reject_bad_input(bad):
     x = torch.rand(16)
     y, m = torch.rand(16), torch.rand(16)
     alive = torch.ones(16, dtype=torch.bool)
-    if bad == "split":
-        with pytest.raises(ValueError, match="split"):
-            kernels.direct_forces(x, y, m, 1.0, split=3)
-        with pytest.raises(ValueError, match="split"):
-            kernels.direct_collisions(x, y, alive, 1.0, split=8)
+    if bad == "strided":
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.direct_forces(x, torch.rand(32)[::2], m, 1.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.direct_collisions(x, y, torch.ones(32, dtype=torch.bool)
+                                      [::2], 1.0)
         return
     if bad == "dtype":
         x = x.to(torch.float16)
