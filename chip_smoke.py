@@ -169,9 +169,10 @@ am. N = 1e5 (seed -1, side 1000: the reference's golden vector -1 1000 30
    100000 1000) with pairs planted past slot 46 340, where the JAX
    package's int32 pair rank would wrap: one step's kernels against the
    plain versions on the card, the partners exact, the planted slots dead;
-   the force check shown to reject forces that lack the last tile's 160
-   partners; each kernel's ms, device ms and bound, its plain version's ms
-   at N = 1e5 and 8191;
+   the force check shown to reject forces that lack the last tile's 672
+   partners (the kernel's tiles are 1024 wide); each kernel's ms, device
+   ms and bound, its plain version's ms at N = 1e5 and 8191, and, where the
+   toolkit has ``cuobjdump``, its inner loop's SASS instructions a pair;
 an. ``DirectSimulation`` at N = 2048 (seed 1, 10 steps, side 100 and side
    1), cuda against cpu: the count and dead set exact, positions within
    DIRECT_TOL·side; two card runs bit for bit equal; the JAX package's
@@ -180,11 +181,22 @@ ao. no host synchronisation in ``DirectSimulation.advance`` (the run
    loop), and exactly one (the count's readback) in ``run``;
 ap. N = 1e5 for 10 steps after a warm-up run (both kernels launched every
    step), timed with ``utils/profiling.bench_fn``: ms/step, pair
-   evaluations/s, device ms, idle share and launches a step; the force
-   kernel's device ms (CUDA events) on the run's own state.
+   evaluations/s, device ms, idle share and launches a step; both kernels'
+   device ms (CUDA events) on the run's own state, in float32 and float64;
+aq. the minimum image's threshold: two particles whose displacement is
+   exactly the threshold T (``min_image_threshold``), its float
+   neighbours, side/2 or one of the floats below side, on either axis, in
+   float32 and float64, positions in the box and out of it (|d| >= side
+   takes JAX's division): with one partner the force on each is a single
+   term, so the kernel's forces equal the plain version's bit for bit; the
+   same cases, and pairs near EPSILON across the periodic edge and near the
+   collision window's edges, give the plain version's partners.
 
 ``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone;
-``python3 chip_smoke.py --direct`` runs phases al-ap alone.
+``python3 chip_smoke.py --direct`` runs phases al-aq alone;
+``python3 chip_smoke.py --direct-times ROOT [ROOT ...]`` times only the
+direct model at N = 1e5 (both kernels' device ms and ms/step), once for
+the port package of each checkout ROOT in turn, as ``--mesh-times`` does.
 ``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
 flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
 checkout ROOT in turn (a process each): the way to compare two commits in
@@ -244,20 +256,25 @@ Tolerances:
     within 2e-5·side; at 1e7 against resident, the count and dead set exact
     and positions within 1e-6·side (the same function on the same cell
     rows, another split of the pool).
-  * the direct force kernel: per particle and axis within ((⌈N/4⌉ +
-    19)·u + (N - 1)·2⁻⁵³)·S of the plain version's own terms summed in
+  * the direct force kernel: per particle and axis within ((K + 16 + P -
+    1)·u + (N - 1)·2⁻⁵³)·S of the plain version's own terms summed in
     float64, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum of
     the terms' magnitudes: the kernel's terms are the plain version's up
-    to the rsqrt's ulps (16·u·S), and each of its 4 threads a receiver
-    adds ⌈N/4⌉ of them in order before the 4 sums are added (the worst
-    case of ordered sums, (⌈N/4⌉ + 3)·u·S); the float64 sum adds at most
-    (N - 1)·2⁻⁵³·S. At N = 1e5 in float32 that is 1.5e-3·S (the bound of
-    two sums in any order, 2·(N + 8)·u·S, is 1.2e-2·S). Every case prints
-    its largest err/tol and the plain version's (its float32 sum against
-    the same reference); at N = 1e5 the script also shows that the check
-    rejects forces that lack the last tile's partners. The direct
-    collision kernel: its partners exactly (the minimum image and d² are
-    correctly rounded in both versions);
+    to the rsqrt's ulps (16·u·S), each of its P threads a receiver
+    (kForceSplit) adds at most K of them in order, and the P sums are then
+    added in order (the worst case of ordered sums, (K + P - 1)·u·S); the
+    float64 sum adds at most (N - 1)·2⁻⁵³·S. K is the longest chain a
+    thread sums: a part takes 1024/P partners of each tile of 1024
+    (kTile), so K = ⌊N/1024⌋·1024/P + min(1024/P, N mod 1024), 25 088 at
+    N = 1e5 with P = 4: 1.5e-3·S in float32 (the bound of two sums in any
+    order, 2·(N + 8)·u·S, is 1.2e-2·S). Every case prints its largest
+    err/tol and the plain version's (its float32 sum against the same
+    reference); at N = 1e5 the script also shows that the check rejects
+    forces that lack the last tile's partners. With one partner (phase aq)
+    the force is one term and both versions' arithmetic is the same, so
+    there the forces are equal bit for bit. The direct collision kernel:
+    its partners exactly (the minimum image and d² are correctly rounded
+    in both versions, and the threshold gives JAX's image bit for bit);
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -273,14 +290,15 @@ only the pairs near in x (a few per alive slot, 6 ops each), which cost
 little beside the row's bytes. The rsqrt count is shown against the SFU
 rate, 16 per SM and clock: 1/16 of the f32 rate. The direct kernels' bound
 also takes that rate in: per pair the force needs 22 f32 operations and one
-special-function one (the rsqrt), the collision test 14 and none (for |dx|
-< side the minimum image's rint(dx / side) is 0 or ±1, ±1 exactly where
-|dx| reaches one threshold, so the function needs no division, though the
-kernels divide as JAX's code does), counted over the pairs this run's data
-needs (pairs of used particles for the force; for the collision test each
-alive particle's alive partners up to its first hit, or all of them), and
-the larger of the two rates' times bounds it; float64 counts its
-operations at 34 TFLOP/s.
+special-function one (the rsqrt; for |dx| < side the minimum image's
+rint(dx / side) is 0 or ±1, ±1 exactly where |dx| reaches one threshold,
+so the function needs no division), over the pairs of used particles. The
+collision test needs, over each alive particle's alive partners up to its
+first hit (or all of them), 2 operations for a pair whose x image alone
+has fl(dx²) >= eps2 (dx, one compare: no hit can follow) and 14 and none
+on the special-function unit for the rest, the candidates, which the
+script counts on this run's data. The larger of the two rates' times
+bounds each; float64 counts its operations at 34 TFLOP/s.
 """
 
 import contextlib
@@ -339,9 +357,6 @@ DIRECT_2048 = (1, 100.0, 2048, 10, 71.11087036132812, 7.7793426513671875, 0)
 DIRECT_2048_DENSE = (1, 1.0, 2048, 10, 0.7723073959350586,
                      0.03642868995666504, 597)
 DIRECT_TOL = 1e-5
-# Threads a receiver in the direct kernels (csrc/direct_nbody.cu's kSplit):
-# each sums ⌈N/4⌉ terms in order, which sets the force check's tolerance.
-DIRECT_SPLIT = 4
 # N = 1e5 at the reference's golden vector -1 1000 30 100000 1000 (seed,
 # side, N); pairs planted there past slot 46 340 (JAX's int32 pair rank
 # i·(n+1)+j wraps from n = 46 341 on); the sizes and sides of phase al.
@@ -2047,12 +2062,31 @@ def _direct_exact(x, y, m, side):
     return exact, mag
 
 
+def _direct_consts():
+    """(kTile, kForceSplit) of csrc/direct_nbody.cu."""
+    from particlesimulation_tpu_torch.ops.cuda.direct_nbody import (
+        source_constants)
+
+    c = source_constants()
+    return c["kTile"], c["kForceSplit"]
+
+
+def _direct_chain(n):
+    """The most force terms one thread of the kernel sums in order for a
+    receiver: its part's slice, kTile/kForceSplit wide, of every tile."""
+    tile, split = _direct_consts()
+    width = tile // split
+    return n // tile * width + min(width, n % tile)
+
+
 def _direct_force_tol(mag, dtype):
-    """Per particle and axis, ((⌈N/4⌉ + 19)·u + (N - 1)·2⁻⁵³)·S (the module
-    docstring)."""
+    """Per particle and axis, ((K + 16 + P - 1)·u + (N - 1)·2⁻⁵³)·S (the
+    module docstring)."""
     n = mag.shape[1]
     u = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
-    return ((-(-n // DIRECT_SPLIT) + 19) * u + (n - 1) * 2.0 ** -53) * mag
+    split = _direct_consts()[1]
+    return ((_direct_chain(n) + 16 + split - 1) * u
+            + (n - 1) * 2.0 ** -53) * mag
 
 
 def _direct_force_err(got, exact, mag):
@@ -2127,26 +2161,105 @@ def _direct_force_bound(x, m):
                          5 * x.numel() * x.element_size(), x.dtype)
 
 
-def _direct_collision_bound(x, alive, first):
-    """x, y, alive read and the partners written once; 14 f32 operations
-    and no special-function one for each pair the search needs: an alive
-    particle's alive partners up to its first hit, or all of them."""
+def _direct_candidates(x, alive, first, side):
+    """Of the pairs the search needs (each alive particle's alive partners
+    up to its first hit, or all of them), those whose x image alone has
+    fl(dx²) < eps2: the pairs that need the full test. JAX's image, a
+    block of receivers at a time."""
+    from particlesimulation_tpu_torch.ops.cuda.direct_nbody import (
+        _min_image, eps2_of)
+
+    n, chunk = x.numel(), 1024
+    sidet = torch.full((), side, dtype=x.dtype, device=x.device)
+    idx = torch.arange(n, device=x.device)
+    last = torch.where(first >= 0, first.long(), n - 1)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i0 in range(0, n, chunk):
+        i = idx[i0:i0 + chunk, None]
+        d = _min_image(x[None, :], x[i0:i0 + chunk, None], sidet)
+        total += ((d * d < eps2_of(x.dtype)) & alive[None, :]
+                  & alive[i0:i0 + chunk, None] & (idx[None, :] != i)
+                  & (idx[None, :] <= last[i0:i0 + chunk, None])).sum()
+    return int(total)
+
+
+def _direct_collision_bound(x, alive, first, side):
+    """x, y, alive read and the partners written once; for each pair the
+    search needs (an alive particle's alive partners up to its first hit,
+    or all of them), 2 f32 operations where the x image alone rules a hit
+    out and 14 for the rest (``_direct_candidates``), none on the
+    special-function unit. Returns the bound and the two pair counts."""
     upto = torch.cumsum(alive.long(), 0)
     idx = torch.arange(x.numel(), device=x.device)
     hit = first >= 0
     seen = torch.where(hit, upto[first.clamp(min=0).long()] - (idx < first)
                        .long(), upto[-1] - 1)
     pairs = float(seen[alive].sum())
-    return _direct_bound(14 * pairs, 0,
-                         x.numel() * (2 * x.element_size() + 1 + 4), x.dtype)
+    cand = _direct_candidates(x, alive, first, side)
+    return (*_direct_bound(2 * (pairs - cand) + 14 * cand, 0,
+                           x.numel() * (2 * x.element_size() + 1 + 4),
+                           x.dtype), pairs, cand)
+
+
+class _Clocks:
+    """nvidia-smi's SM clock and power draw sampled every 50 ms while the
+    block runs (a process of its own); ``summary()`` gives their medians."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate()[0]
+        rows = [line.split(",") for line in out.splitlines()
+                if line.count(",") == 1]
+        self.samples = [(float(a), float(b)) for a, b in rows
+                        if a.strip() and b.strip()]
+
+    def summary(self):
+        if not self.samples:
+            return "clocks not read"
+        mhz = statistics.median(a for a, _ in self.samples)
+        watts = statistics.median(b for _, b in self.samples)
+        return (f"SM clock {mhz:.0f} MHz, {watts:.1f} W (medians of "
+                f"{len(self.samples)} nvidia-smi samples)")
+
+
+def _direct_sass(recs):
+    """Print each direct kernel's inner-loop SASS instructions a pair
+    (float32 build, ``cuobjdump -sass``) beside its bound, where the
+    toolkit has cuobjdump."""
+    from particlesimulation_tpu_torch.ops.cuda import (
+        cell_pairs, direct_nbody, direct_sweep)
+
+    hot = direct_sweep.sass_per_pair(cell_pairs.build(direct_nbody.SOURCE))
+    if hot is None:
+        print("direct kernels' SASS: no cuobjdump, not read", flush=True)
+        return
+    ops = {"direct_forces": "22 f32 operations a pair, an FMA as 2",
+           "direct_collisions": "2 a pair ruled out on x, 14 a candidate"}
+    for name, rec in recs.items():
+        loop = hot.get(f"{name}_kernel<float>")
+        if loop is None:
+            raise AssertionError(f"{name}: no hot loop found in the SASS")
+        print(f"{name}_kernel<float> SASS hot loop {loop['from']}-"
+              f"{loop['to']}: {loop['path']} instructions on the common "
+              f"path for {loop['pairs']} pairs, {loop['per_pair']:.3f} a "
+              f"pair; kernel {rec['device_ms']:.4f} device ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({ops[name]})", flush=True)
 
 
 def check_direct(card):
-    """(al)-(ap) The direct model: both kernels against their plain versions
+    """(al)-(aq) The direct model: both kernels against their plain versions
     on planted cases (N up to 8191, float32 and float64) and at N = 1e5
     past JAX's int32 rank wrap; DirectSimulation cuda against cpu and the
-    JAX results; no host sync in the run loop; N = 1e5 timed. Returns the
-    main path's launch counts and the two kernel records."""
+    JAX results; no host sync in the run loop; N = 1e5 timed; the
+    threshold's two-particle plants. Returns the main path's launch counts
+    and the two kernel records."""
     from types import SimpleNamespace
 
     from particlesimulation_tpu_torch.config import SimConfig
@@ -2202,8 +2315,8 @@ def check_direct(card):
     ferr, ratio, pratio, mag = _check_direct_forces(
         dk.direct_forces(*fargs), dk.direct_forces_ref(*fargs), *fargs, tag)
     # The check's teeth: forces that lack the last tile's partners (N mod
-    # 256 = 160 of them; a kernel that dropped its tail) must fail it.
-    lo = n - n % 256
+    # kTile = 672 of them; a kernel that dropped its tail) must fail it.
+    lo = n - n % _direct_consts()[0]
     tail = _tail_forces(*fargs, lo)
     tail_ratio = float((tail.abs() / _direct_force_tol(
         mag, st.x.dtype).clamp(min=1e-300)).max())
@@ -2224,20 +2337,23 @@ def check_direct(card):
           f"{tail_ratio:.3e}); partners equal with pairs planted at "
           f"{DIRECT_WRAP_PAIRS} (past 46 340): {died} deaths, count {count}",
           flush=True)
+    cbound = _direct_collision_bound(out.x, st.alive, first, side)
+    print(f"{tag}: the collision search needs {cbound[3]:.0f} pairs, "
+          f"{cbound[4]} of them candidates (fl(dx²) < eps2)", flush=True)
     recs = {}
     for name, kernel, plain, bound in (
             ("direct_forces", lambda: dk.direct_forces(*fargs),
              lambda: dk.direct_forces_ref(*fargs),
              _direct_force_bound(st.x, st.m)),
             ("direct_collisions", lambda: dk.direct_collisions(*cargs),
-             lambda: dk.direct_collisions_ref(*cargs),
-             _direct_collision_bound(out.x, st.alive, first))):
+             lambda: dk.direct_collisions_ref(*cargs), cbound)):
         recs[name] = {"max_abs_err": ferr if name == "direct_forces" else 0.0,
                       **_kernel_times(kernel, plain),
                       "bound_ms": bound[0], "bound_by": bound[1],
                       "sfu_ms": bound[2], "library_ms": None}
         _report(f"{name} at N={n} (plain at N=8191: "
                 f"{plain_8191[name]:.4f} ms)", recs[name])
+    _direct_sass(recs)
 
     # an. DirectSimulation cuda against cpu, two card runs, JAX's results.
     for cfg in (DIRECT_2048, DIRECT_2048_DENSE):
@@ -2302,14 +2418,106 @@ def check_direct(card):
     device_breakdown(f"direct N={n}", SimpleNamespace(run=sim.advance),
                      sim.state, ms)
     st = sim.state
-    ev_f = device_ms(lambda: dk.direct_forces(st.x, st.y, st.m, side), 20)
-    ev_c = device_ms(lambda: dk.direct_collisions(st.x, st.y, st.alive,
-                                                  side), 20)
-    print(f"direct N={n}: on the run's state, device ms (CUDA events, "
-          f"median of 20): forces {ev_f:.4f}, collisions {ev_c:.4f}",
-          flush=True)
+    for dtype in (f32, torch.float64):
+        x, y, m = (a.to(dtype) for a in (st.x, st.y, st.m))
+        with _Clocks() as clocks:
+            ev_f = device_ms(lambda: dk.direct_forces(x, y, m, side), 20)
+            ev_c = device_ms(lambda: dk.direct_collisions(x, y, st.alive,
+                                                          side), 20)
+        print(f"direct N={n}: on the run's state in {dtype}, device ms "
+              f"(CUDA events, median of 20): forces {ev_f:.4f}, collisions "
+              f"{ev_c:.4f}; {clocks.summary()}", flush=True)
+
+    # aq. The threshold's planted pairs, forces bit for bit.
+    check_direct_threshold()
     print(f"direct phases: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches, recs
+
+
+def _around(v, k):
+    """v and its k float neighbours on either side, in v's type."""
+    f = type(v)
+    out, lo, hi = [v], v, v
+    for _ in range(k):
+        lo, hi = np.nextafter(lo, f(-np.inf)), np.nextafter(hi, f(np.inf))
+        out += [lo, hi]
+    return out
+
+
+def _threshold_cases(side, dtype):
+    """Phase aq's two-particle cases, (a, b) on one axis: from a = 0 (in
+    the box), b - a exactly the threshold T and its 2 float neighbours on
+    either side, side/2 and its neighbours, the 3 floats below side, 0, a
+    difference whose square is subnormal, EPSILON and its neighbours, and
+    the collision window's edges; across the periodic edge, b = side -
+    EPSILON and its neighbours; from a = -side/4 (out of the box) the same
+    differences, and two of side or more (JAX's division)."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda.direct_nbody import (
+        collision_window, min_image_threshold)
+
+    f = np.float32 if dtype == torch.float32 else np.float64
+    s, t = f(side), f(min_image_threshold(side, dtype))
+    c, h = (f(v) for v in collision_window(side, dtype))
+    below = [np.nextafter(s, f(0))]
+    for _ in range(2):
+        below.append(np.nextafter(below[-1], f(0)))
+    tiny = f(2.0 ** -70) if f is np.float32 else f(2.0 ** -540)
+    ds = (_around(t, 2) + _around(s / f(2), 1) + below
+          + [f(0), tiny] + _around(f(EPSILON), 2)
+          + _around(c - h, 1) + _around(c + h, 1))
+    cases = [(f(0), d) for d in ds]
+    cases += [(f(0), f(s - e)) for e in _around(f(EPSILON), 2)]
+    a = f(-side / 4)
+    cases += [(a, f(a + d)) for d in ds] + [(a, f(a + s)), (a, f(a + 1.25 * s))]
+    return cases
+
+
+def check_direct_threshold():
+    """(aq) Two particles, in float32 and float64 at sides 1000, 1 and
+    0.05, at each of ``_threshold_cases`` on x or on y, the other
+    coordinate equal, EPSILON/2 apart or 0.4·side apart: the kernel's
+    forces equal the plain version's bit for bit (one term each), and its
+    partners the plain version's."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import direct_nbody as dk
+
+    count = hits = 0
+    for dtype in (torch.float32, torch.float64):
+        f = np.float32 if dtype == torch.float32 else np.float64
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        m = torch.tensor([1.0, 3.0], dtype=dtype, device="cuda")
+        alive = torch.ones(2, dtype=torch.bool, device="cuda")
+        for side in (1000.0, 1.0, 0.05):
+            others = [(f(0.3 * side), f(0.3 * side + d))
+                      for d in (0.0, EPSILON / 2, 0.4 * side)]
+            for a, b in _threshold_cases(side, dtype):
+                for o in others:
+                    for axis in (0, 1):
+                        p = np.array([[a, b], o] if axis == 0
+                                     else [o, [a, b]], f)
+                        x, y = (torch.tensor(v, device="cuda") for v in p)
+                        tag = (f"threshold plant {dtype} side {side} "
+                               f"({a!r}, {b!r}) on axis {axis}, other "
+                               f"{o}")
+                        got = dk.direct_forces(x, y, m, side)
+                        ref = dk.direct_forces_ref(x, y, m, side)
+                        if not all(torch.equal(g.view(bits), r.view(bits))
+                                   for g, r in zip(got, ref)):
+                            raise AssertionError(
+                                f"{tag}: forces {[g.tolist() for g in got]}"
+                                f" against {[r.tolist() for r in ref]}")
+                        first = dk.direct_collisions(x, y, alive, side)
+                        cref = dk.direct_collisions_ref(x, y, alive, side)
+                        if not torch.equal(first, cref):
+                            raise AssertionError(
+                                f"{tag}: partners {first.tolist()} against "
+                                f"{cref.tolist()}")
+                        count += 1
+                        hits += int(cref[0] >= 0)
+    print(f"direct threshold plants: {count} two-particle cases ({hits} "
+          f"hits), forces bit for bit and partners equal to the plain "
+          f"version's", flush=True)
 
 
 def build_libraries():
@@ -2348,6 +2556,36 @@ def _card():
     return smi.stdout.strip().splitlines()[0]
 
 
+def direct_times(root):
+    """The direct model at N = 1e5 (DIRECT_BIG) with the port package of
+    the checkout at ``root``: both kernels' device ms on the state after
+    one step (CUDA events, median of 20) and ms/step over 10 steps
+    (``bench_fn``, median of 3). Prints one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from particlesimulation_tpu_torch.models.direct_nbody import (
+        DirectSimulation)
+    from particlesimulation_tpu_torch.ops.cuda import direct_nbody as dk
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+    from particlesimulation_tpu_torch.utils import profiling
+
+    card = _card()
+    seed, side, n = DIRECT_BIG
+    sim = DirectSimulation(seed, side, n, device="cuda")
+    st = sim.advance(sim.state, 1)
+    torch.cuda.synchronize()
+    with _Clocks() as clocks:
+        times = {
+            "forces_device_ms": device_ms(
+                lambda: dk.direct_forces(st.x, st.y, st.m, side), 20),
+            "collisions_device_ms": device_ms(
+                lambda: dk.direct_collisions(st.x, st.y, st.alive, side),
+                20),
+            "ms_per_step": profiling.bench_fn(sim.advance, st, 10, warmup=1,
+                                              iters=3, device="cuda") * 100}
+    print(f"direct times {root} on {card}: {json.dumps(times)}; "
+          f"{clocks.summary()}", flush=True)
+
+
 def flagship_mesh_times(root):
     """The flagship's fast mesh (resident tiles by the census) at D = 1, 2
     and 4 with the port package of the checkout at ``root``: ms/step,
@@ -2383,6 +2621,15 @@ def main():
     if sys.argv[1:2] == ["--mesh-times-of"]:
         flagship_mesh_times(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--direct-times"]:
+        # Checkouts in turns, a process each, as --mesh-times.
+        for root in sys.argv[2:]:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--direct-times-of", root], cwd=ROOT, check=True)
+        return
+    if sys.argv[1:2] == ["--direct-times-of"]:
+        direct_times(sys.argv[2])
+        return
     if sys.argv[1:2] == ["--mesh2d"]:
         # Phases ae-ak alone.
         card = _card()
@@ -2390,7 +2637,7 @@ def main():
         check_mesh2d(card)
         return
     if sys.argv[1:2] == ["--direct"]:
-        # Phases al-ap alone.
+        # Phases al-aq alone.
         card = _card()
         print(card, flush=True)
         build_libraries()
