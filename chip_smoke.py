@@ -42,15 +42,22 @@ g. the step times of parity s1, the f32 sweep s1 and MEDIUM.
 Then the supercell engine at SMALL (seed 50, side 10000, ncside 1300,
 N=5e5, 10 steps; the reference report's sparse workload, not cut):
 
-h. the labelled fused kernel on SMALL's own pair-pass tiles and on the
-   adversarial tiles with random labels (K 32 to 1024: the 1024 launch opts
-   in to more shared memory), with every label distinct (no pair may
-   collide: count 0, every ft INF) and every label 0 (the unlabelled
-   kernel's bits); the v4 and v2 forms against an f64 truth on SMALL's
-   tiles (the v4 centre is the whole row's mean);
+h. the labelled pass (the warp kernel at K <= 64, the block kernel above)
+   on SMALL's own pair-pass tiles and on the adversarial tiles at K = 32,
+   64, 160, 288 and 1024 (the 1024 launch opts in to more shared memory)
+   under each layout of ``adversarial.label_layouts``, v4 and v2, collide
+   on and off: random labels, runs of three between -1s, and labels that
+   return later in the row (a grouping that lost slot order within a run
+   would sum in another order) against the plain version; every label
+   distinct (no pair may collide: count 0, every ft INF, no force); every
+   label 0 (the unlabelled kernel's bits); the v4 and v2 forms against an
+   f64 truth on SMALL's tiles (the v4 centre is the whole row's mean);
 i. the cell sums kernel on SMALL's tiles: within rtol 1e-6 of the plain
    version on the card (atomics in any order), bit for bit equal to the
    plain version on the CPU (slot order) and to itself in a second run;
+   the same two bitwise checks on the adversarial tiles of (h), a cell for
+   each label and row; its zeroing of the output and its kernel timed
+   apart;
 j. SMALL through the census (supercell, S = 10), against the JAX package's
    f32 result and the port's f32 sweep on the card; both new kernels must
    launch; no host sync in the run loop; cuda == cpu on an uneven
@@ -192,6 +199,14 @@ aq. the minimum image's threshold: two particles whose displacement is
    same cases, and pairs near EPSILON across the periodic edge and near the
    collision window's edges, give the plain version's partners.
 
+``python3 chip_smoke.py --supercell`` runs phases h-l alone;
+``python3 chip_smoke.py --supercell-times ROOT [ROOT ...]`` runs the
+supercell engine's two kernels with the port package of each checkout ROOT
+in turn (a process each; parent, change, change, parent): their output
+digests on SMALL's tiles and on the adversarial labelled tiles at K = 32,
+64, 160 and 1024 under every label layout, which must agree in all runs,
+their ms and device ms against the bounds, the all-label-0 tiles' device
+ms at K = 32, 64 and 1024, and SMALL's ms/step and device ms/step;
 ``python3 chip_smoke.py --mesh2d`` runs phases ae-ak alone;
 ``python3 chip_smoke.py --direct`` runs phases al-aq alone;
 ``python3 chip_smoke.py --direct-times ROOT [ROOT ...]`` times only the
@@ -284,8 +299,8 @@ x and y only of the slots that take part (used ones, m > 0, for a force,
 alive ones for a collision). Operations: 14 per ordered pair of used slots
 for the v2 force, 15 for v4, 14 per monopole term (an FMA counts 2, an
 rsqrt 1); the labelled kernel's pairs are only those of equal labels (the
-function's sum of c² over the cells, where the kernel tests all n² used
-pairs of a row). The cell sums move 16 bytes a slot and 12 a true cell. The collision test's operations are not counted: it need test
+function's sum of c² over the cells, which since its redesign is what the
+kernel's receivers loop over: each its own label's slots). The cell sums move 16 bytes a slot and 12 a true cell. The collision test's operations are not counted: it need test
 only the pairs near in x (a few per alive slot, 6 ops each), which cost
 little beside the row's bytes. The rsqrt count is shown against the SFU
 rate, 16 per SM and clock: 1/16 of the f32 rate. The direct kernels' bound
@@ -384,8 +399,9 @@ REPLACES = {
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
 # The kernels' names in csrc/, as the profiler reports them.
-PORT_KERNELS = ("fused_pairs_kernel", "dense_forces_kernel",
-                "dense_collisions_kernel", "cell_sums_kernel",
+PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
+                "dense_forces_kernel", "dense_collisions_kernel",
+                "cell_sums_kernel", "cell_sums_warp_kernel",
                 "direct_forces_kernel", "direct_collisions_kernel")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
@@ -627,9 +643,9 @@ def fused_record(where, tiles, form, collide, gated=True, planted=True,
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": sfu_ms}
     if sub is not None:
         rec["pairs"] = (_pairs(m_post > 0)[0], p_force)
-        print(f"{tag}: the kernel tests {rec['pairs'][0]:.0f} ordered used "
-              f"pairs (n² a row), the function needs {p_force:.0f} (Σc² a "
-              f"cell)", flush=True)
+        print(f"{tag}: each receiver loops over its own label's used slots: "
+              f"{p_force:.0f} ordered pairs (Σc² a cell) of the rows' "
+              f"{rec['pairs'][0]:.0f} (n² a row)", flush=True)
     _report(f"{tag}: ft, count={int(got[2])} exact", rec)
     return rec
 
@@ -1123,50 +1139,73 @@ def time_sweeps(card, medium):
 
 
 def check_adversarial_labelled(kcap):
-    """(h) The labelled fused kernel on the adversarial tiles: random labels
-    and -1s (ft and count exact, forces within the tolerance); every label
-    distinct (no pair shares a cell: count 0, every ft INF, forces 0, where
-    the unlabelled kernel counts collisions); every label 0 (the unlabelled
-    kernel's bits)."""
+    """(h) The labelled pass on the adversarial tiles with each label layout
+    of ``adversarial.label_layouts`` (random labels and -1s; one label; every
+    label distinct; runs of three between -1s; labels that return later in
+    the row), v4 and v2, collide on and off: ft and count exact against the
+    plain version, forces within the tolerance; every label distinct: count
+    0, every ft INF, no force, where the unlabelled pass counts collisions;
+    every label 0: the unlabelled pass's bits."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
     from particlesimulation_tpu_torch.ops.cuda.adversarial import (
-        adversarial_tiles)
+        adversarial_tiles, label_layouts)
 
     x, y, m, alive, pid = (torch.from_numpy(a).cuda()
                            for a in adversarial_tiles(kcap, kcap))
-    rng = np.random.default_rng(kcap + 1)
-    sub = torch.from_numpy(rng.integers(-1, 4, x.shape).astype(
-        np.int32)).cuda()
-    apart = torch.arange(kcap, dtype=torch.int32,
-                         device="cuda").expand(x.shape).contiguous()
+    layouts = {name: torch.from_numpy(lab).cuda()
+               for name, lab in label_layouts(kcap, seed=kcap + 1).items()}
     tag = f"labelled adversarial K={kcap}"
-    counts = []
+    counts = {}
     for form in ("v4", "v2"):
-        args = (x, y, m, alive, pid, kcap, EPSILON, True, form)
-        got = cell_pairs.fused_pairs(*args, sub=sub)
-        ref = cell_pairs.fused_pairs_ref(*args, sub=sub)
-        _check_collisions((got[2], got[3]), (ref[2], ref[3]),
-                          f"{tag} {form}", planted=False)
-        m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
-        _force_err(got[:2], ref[:2], _term_sums(x, y, m_post, form, sub=sub),
-                   kcap, f"{tag} {form}")
-        plain = cell_pairs.fused_pairs(*args)
-        alone = cell_pairs.fused_pairs(*args, sub=apart)
-        if (int(alone[2]) != 0 or not bool((alone[3] == cell_pairs.INF).all())
-                or bool(alone[0].abs().max() > 0) or int(plain[2]) == 0):
-            raise AssertionError(f"{tag} {form}: distinct labels collided "
-                                 f"or pulled")
-        zero = cell_pairs.fused_pairs(*args, sub=torch.zeros_like(sub))
-        if not all(torch.equal(a, b) for a, b in zip(zero, plain)):
-            raise AssertionError(f"{tag} {form}: all labels 0 differ from "
-                                 f"the unlabelled kernel")
-        counts.append((int(got[2]), int(plain[2])))
+        for collide in (True, False):
+            args = (x, y, m, alive, pid, kcap, EPSILON, collide, form)
+            plain = cell_pairs.fused_pairs(*args)
+            for name, sub in layouts.items():
+                where = f"{tag} {form} collide={collide} labels {name}"
+                got = cell_pairs.fused_pairs(*args, sub=sub)
+                ref = cell_pairs.fused_pairs_ref(*args, sub=sub)
+                _check_collisions((got[2], got[3]), (ref[2], ref[3]), where,
+                                  planted=False)
+                m_post = torch.where(ref[3] != cell_pairs.INF, 0.0, m)
+                _force_err(got[:2], ref[:2],
+                           _term_sums(x, y, m_post, form, sub=sub), kcap,
+                           where)
+                if name == "distinct" and (
+                        int(got[2]) != 0
+                        or not bool((got[3] == cell_pairs.INF).all())
+                        or bool(got[0].abs().max() > 0)
+                        or (collide and int(plain[2]) == 0)):
+                    raise AssertionError(f"{where}: distinct labels "
+                                         f"collided or pulled")
+                if name == "one" and not all(
+                        torch.equal(a, b) for a, b in zip(got, plain)):
+                    raise AssertionError(f"{where}: all labels 0 differ "
+                                         f"from the unlabelled pass")
+                if collide and form == "v4":
+                    counts[name] = int(got[2])
+    # (i) The cell sums on the same tiles, each label a cell of its row.
+    for name, sub in layouts.items():
+        nl = int(sub.max()) + 1
+        row = torch.arange(sub.shape[0], device="cuda")[:, None]
+        cell = torch.where(sub >= 0, row * nl + sub, -1).to(torch.int32)
+        args = (m, m * x, m * y, cell, sub.shape[0] * nl)
+        got = cell_pairs.supercell_cell_sums(*args)
+        again = cell_pairs.supercell_cell_sums(*args)
+        cpu = cell_pairs.supercell_cell_sums_ref(
+            *(a.cpu() for a in args[:4]), args[4])
+        if not all(torch.equal(a, b) and torch.equal(a.cpu(), c)
+                   for a, b, c in zip(got, again, cpu)):
+            raise AssertionError(f"{tag} cell sums, labels {name}: not "
+                                 f"itself or the CPU plain version bit for "
+                                 f"bit")
     torch.cuda.synchronize()
-    print(f"{tag}: v4, v2 ft and count exact (count {counts[0][0]} labelled, "
-          f"{counts[0][1]} unlabelled); distinct labels: count 0, every ft "
-          f"INF, no force; all labels 0 = the unlabelled kernel bit for bit",
-          flush=True)
+    print(f"{tag}: v4, v2, collide on and off, labels "
+          f"{', '.join(layouts)}: ft and count exact (v4 counts "
+          f"{counts}), forces within the tolerance; distinct labels: count "
+          f"0, every ft INF, no force; all labels 0 = the unlabelled pass "
+          f"bit for bit; cell sums (a cell a label and row) = itself and "
+          f"the CPU plain version bit for bit", flush=True)
 
 
 def v4_centre_error(tiles, sub):
@@ -1221,8 +1260,11 @@ def check_cell_sums(where, tiles, cell, ncells):
     """(i) The cell sums kernel on a path's tiles and its cell ids (-1 for
     an unbinned slot) onto ``ncells`` cells: within rtol 1e-6 of the plain
     version on the card, bit for bit equal to the plain version on the CPU
-    (slot order) and to a second run of itself; timed, with its bound."""
+    (slot order) and to a second run of itself; timed, with its bound, and
+    its zeroing and its kernel timed apart."""
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        _cell_sums, device_ms)
 
     x, y, m, _, _ = tiles
     args = (m, m * x, m * y, cell, ncells)
@@ -1248,6 +1290,16 @@ def check_cell_sums(where, tiles, cell, ncells):
                            lambda: cell_pairs.supercell_cell_sums_ref(*args)),
            "bound_ms": bound_ms, "bound_by": bound_by, "sfu_ms": 0.0,
            **_cell_sums_library(args, ref)}
+    # The wrapper's two launches apart: zeroing the (3, ncells) output, and
+    # the kernel that writes the rows' cells into it.
+    warps = cell_pairs.cell_sums_launch(x.shape[1])
+    for key, parts in (("zero_device_ms", 1), ("sums_device_ms", 2)):
+        rec[key] = device_ms(lambda: _cell_sums(args, warps, parts), 20)
+    print(f"{tag}: device ms apart: zeroing "
+          f"{rec['zero_device_ms']:.4f} (its bound "
+          f"{12 * ncells / PEAK_BYTES * 1e3:.4f}), the kernel "
+          f"{rec['sums_device_ms']:.4f} (reads alone "
+          f"{16 * x.numel() / PEAK_BYTES * 1e3:.4f})", flush=True)
     _report(f"{tag}: {int((got[0] > 0).sum())} cells with mass; = itself "
             f"and the CPU plain version bit for bit, rtol 1e-6 of the card's",
             rec)
@@ -1305,7 +1357,7 @@ def check_small(card):
     t0 = time.perf_counter()
     seed, side, nc, n, steps = SMALL
     cfg = SimConfig(seed, side, nc, n)
-    for kcap in (32, 160, 288, 1024):
+    for kcap in (32, 64, 160, 288, 1024):
         check_adversarial_labelled(kcap)
     eng = Engine(cfg, device="cuda")
     state = eng.init_state()
@@ -2586,6 +2638,162 @@ def direct_times(root):
           f"{clocks.summary()}", flush=True)
 
 
+# The adversarial labelled tiles' widths in --supercell-times: the warp
+# kernel's one and two slots a lane, and the block kernel's.
+SUPERCELL_TIMES_K = (32, 64, 160, 1024)
+
+
+def digest(tensors):
+    """SHA-256 (hex) of ``tensors``' dtypes, shapes and bytes, in order:
+    equal for two lists exactly when every value has the same bits (-0 and
+    +0 differ, as do two NaNs of other payloads)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update(f"{t.dtype} {tuple(t.shape)};".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _adversarial_module():
+    """This checkout's ``ops/cuda/adversarial.py``, loaded from its file, so
+    that every checkout timed by --supercell-times gets the same tiles."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "psim_adversarial_tiles", os.path.join(
+            ROOT, "particlesimulation_tpu_torch", "ops", "cuda",
+            "adversarial.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _labelled_bound(tiles, sub, m_post, form, collide):
+    """(bound_ms, bound_by, sfu_ms) of the labelled pass: mf read and fx,
+    fy, ft and the label for every slot, alive and pid too with collide on;
+    x and y for the alive or used slots; the pair work over the pairs of
+    equal labels (sum c^2 over the cells)."""
+    x, _, m, alive, _ = tiles
+    p_force, _ = _pairs(m_post > 0, sub)
+    n_xy = float((((alive > 0) & collide) | (m > 0)).sum())
+    return _bound(((24 if collide else 16) + 4) * x.numel() + 8 * n_xy + 4,
+                  (15 if form == "v4" else 14) * p_force, p_force)
+
+
+def supercell_times(root):
+    """The supercell engine's two kernels with the port package of the
+    checkout at ``root`` (which only its public wrappers reach), on SMALL's
+    own pair-pass tiles (seed 50 from the
+    host initializer, the census's supercell prologue, the engine's
+    pair_tiles after SMALL's 10 steps) and on the adversarial tiles with
+    each label layout at SUPERCELL_TIMES_K: each kernel's output digests,
+    ms and device ms against the bound, the K = 32, 64 and 1024 all-label-0
+    tiles' device ms, and SMALL's ms/step and device ms/step. Prints one
+    JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from particlesimulation_tpu_torch.config import EPSILON, SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+    from particlesimulation_tpu_torch.ops.supercell import make_supercell_run
+
+    adv = _adversarial_module()
+    card = _card()
+    seed, side, nc, n, steps = SMALL
+    cfg = SimConfig(seed, side, nc, n)
+    eng = Engine(cfg, device="cuda")
+    state = eng.init_state()
+    tiles = make_supercell_run(cfg, eng.kcap,
+                               eng._supercell_factor())[1](state, steps)
+    *five, sub = tiles
+    kinds = (("v4", True), ("v4", False), ("v2", True))
+
+    def labelled(t5, lab, form, collide):
+        return cell_pairs.fused_pairs(*t5, t5[0].shape[1], EPSILON,
+                                      collide=collide, force_form=form,
+                                      sub=lab)
+
+    def sums_args(t5, cell, ncells):
+        x, y, m = t5[:3]
+        return (m, m * x, m * y, cell, ncells)
+
+    out = {"digests": {"SMALL tiles (inputs)": digest(tiles)}}
+    small_cells = true_cells(five, sub, cfg)
+    out["digests"]["SMALL labelled"] = digest(
+        [t for kind in kinds for t in labelled(five, sub, *kind)])
+    out["digests"]["SMALL cell sums"] = digest(cell_pairs.supercell_cell_sums(
+        *sums_args(five, small_cells, cfg.ncells)))
+    for kcap in SUPERCELL_TIMES_K:
+        t5 = [torch.from_numpy(a).cuda()
+              for a in adv.adversarial_tiles(kcap, kcap)]
+        res, sums = [], []
+        for name, lab in adv.label_layouts(kcap, seed=kcap).items():
+            lab = torch.from_numpy(lab).cuda()
+            res += [t for kind in kinds for t in labelled(t5, lab, *kind)]
+            nl = int(lab.max()) + 1
+            row = torch.arange(lab.shape[0], device="cuda")[:, None]
+            cell = torch.where(lab >= 0, row * nl + lab, -1).to(torch.int32)
+            sums += list(cell_pairs.supercell_cell_sums(
+                *sums_args(t5, cell, lab.shape[0] * nl)))
+        out["digests"][f"adversarial K={kcap} labelled"] = digest(res)
+        out["digests"][f"adversarial K={kcap} cell sums"] = digest(sums)
+        if kcap in (32, 64, 1024):
+            zero = torch.zeros_like(t5[0], dtype=torch.int32)
+            out[f"K={kcap} all labels 0 device_ms"] = device_ms(
+                lambda: labelled(t5, zero, "v4", True), 20)
+    torch.cuda.synchronize()
+    with _Clocks() as clocks:
+        got = labelled(five, sub, "v4", True)
+        m_post = torch.where(got[3] != cell_pairs.INF, 0.0, five[2])
+        bound = _labelled_bound(five, sub, m_post, "v4", True)
+        out["labelled"] = {
+            "ms": _timed(lambda: labelled(five, sub, "v4", True), 20),
+            "device_ms": device_ms(lambda: labelled(five, sub, "v4", True),
+                                   20),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        args = sums_args(five, small_cells, cfg.ncells)
+        sbound = _bound(16 * five[0].numel() + 12 * cfg.ncells, 0, 0)
+        out["cell sums"] = {
+            "ms": _timed(lambda: cell_pairs.supercell_cell_sums(*args), 20),
+            "device_ms": device_ms(
+                lambda: cell_pairs.supercell_cell_sums(*args), 20),
+            "bound_ms": sbound[0], "bound_by": sbound[1]}
+        for rec in (out["labelled"], out["cell sums"]):
+            rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    ms, _, _ = step_ms(eng, state, 20)
+    times = device_breakdown(f"{root}: SMALL supercell", eng, state, ms)
+    out["SMALL"] = {"ms_per_step": ms, "device_ms_per_step": times["device_ms"],
+                    "launches": times["launches"], "syncs": times["syncs"]}
+    print(f"supercell times {root} on {card}; kernels timed at "
+          f"{clocks.summary()}", flush=True)
+    print("SUPERCELL_TIMES " + json.dumps(out), flush=True)
+
+
+def supercell_times_of_all(roots):
+    """--supercell-times: each checkout in a process of its own, in turns;
+    fails unless every run gives the same output digests."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--supercell-times-of", root], cwd=ROOT,
+                              check=True, capture_output=True, text=True)
+        print(proc.stdout, end="", flush=True)
+        line = next(l for l in proc.stdout.splitlines()
+                    if l.startswith("SUPERCELL_TIMES "))
+        runs.append((root, json.loads(line.split(" ", 1)[1])))
+    first = runs[0][1]["digests"]
+    for root, rec in runs[1:]:
+        diff = [k for k in first if rec["digests"].get(k) != first[k]]
+        if diff:
+            raise AssertionError(f"{root}: digests differ from {runs[0][0]}'s "
+                                 f"in {diff}")
+    print(f"supercell times: every digest equal in all {len(runs)} runs "
+          f"({', '.join(r for r, _ in runs)}); on {_card()}", flush=True)
+
+
 def flagship_mesh_times(root):
     """The flagship's fast mesh (resident tiles by the census) at D = 1, 2
     and 4 with the port package of the checkout at ``root``: ms/step,
@@ -2629,6 +2837,24 @@ def main():
         return
     if sys.argv[1:2] == ["--direct-times-of"]:
         direct_times(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--supercell"]:
+        # Phases h-l alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        sub_rec, sums_rec, launches, _ = check_small(card)
+        print(json.dumps({"kernels": [
+            kernel_entry("fused_pairs_sub", launches["fused_pairs_sub"],
+                         sub_rec),
+            kernel_entry("supercell_cell_sums",
+                         launches["supercell_cell_sums"], sums_rec)]}))
+        return
+    if sys.argv[1:2] == ["--supercell-times"]:
+        supercell_times_of_all(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--supercell-times-of"]:
+        supercell_times(sys.argv[2])
         return
     if sys.argv[1:2] == ["--mesh2d"]:
         # Phases ae-ak alone.

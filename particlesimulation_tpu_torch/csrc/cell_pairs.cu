@@ -14,12 +14,15 @@
 //     pass (no force).
 // and two XLA programs of the JAX package's supercell engine, which has no
 // Pallas kernel:
-//   fused_pairs_kernel<kV4, kCollide, true, kRows, kSub = true>: the `sub`
-//     argument of ops/dense_xla.py fused_pairs_v2 / fused_pairs_v4, a
-//     same-cell label per slot (pairs of unequal labels neither interact nor
-//     collide);
+//   labelled_warp_kernel (rows of K <= 64, a warp a row) and
+//     fused_pairs_kernel<kV4, kCollide, true, kRows, kSub = true> (wider
+//     rows): the `sub` argument of ops/dense_xla.py fused_pairs_v2 /
+//     fused_pairs_v4, a same-cell label per slot (pairs of unequal labels
+//     neither interact nor collide); both loop each receiver over its own
+//     label's slots only;
 //   cell_sums_kernel: the per-cell mass and moment sums of
-//     ops/supercell.py (one-hot contractions on the TPU's matrix unit).
+//     ops/supercell.py (one-hot contractions on the TPU's matrix unit), a
+//     warp a row.
 //
 // What bounds them on an H100: each cell does pair arithmetic over its used
 // slots (the force loop: one rsqrt and ~12 f32 instructions per ordered
@@ -32,11 +35,12 @@
 // engine's rows have holes; a loop over all K slots pays for the padding
 // squared.
 //
-// Design: each block stages one cell row in shared memory, and compacts the
-// slots it needs (alive ones for collisions, used ones, m > 0, for the
-// forces) in slot order with one block scan (block_compact), so that every
-// loop runs over those slots only. Both force loops share one pair-sum
-// helper (pair_sums): float4 partners, kRows receivers a thread.
+// Design: each block stages one cell row in shared memory (the labelled
+// kernel's rows of K <= 64: each warp one row), and compacts the slots it
+// needs (alive ones for collisions, used ones, m > 0, for the forces) in
+// slot order with one block scan (block_compact; ballots in a warp), so
+// that every loop runs over those slots only. Every force loop goes through
+// one pair term (pair_term): float4 partners, kRows receivers a thread.
 //
 // Collision machinery (shared by the fused and the collision kernel):
 //   * the alive slots are put in x buckets at least 2 eps wide
@@ -87,22 +91,43 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   return r;
 }
 
-// Sum over the block; blockDim.x is a multiple of 32. Every thread gets the
-// total. scratch holds 32 entries.
-template <typename T>
-__device__ T block_sum(T v, T* scratch) {
+// The threads that work on one cell row together: the whole block, or one
+// warp of it (the labelled kernel's rows of K <= 64, several rows a block).
+// The collision helpers below take either; with BlockGroup they are the
+// block-wide code they were written as.
+struct BlockGroup {
+  __device__ static int rank() { return threadIdx.x; }
+  __device__ static int size() { return blockDim.x; }
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static bool any(int p) { return __syncthreads_or(p) != 0; }
+};
+
+struct WarpGroup {
+  __device__ static int rank() { return threadIdx.x & 31; }
+  __device__ static int size() { return 32; }
+  __device__ static void sync() { __syncwarp(); }
+  __device__ static bool any(int p) {
+    __syncwarp();  // a barrier for shared memory, as __syncthreads_or is
+    return __any_sync(kFull, p) != 0;
+  }
+};
+
+// Sum over the group; its size is a multiple of 32. Every thread gets the
+// total. scratch holds 32 entries (the group's own).
+template <class G, typename T>
+__device__ T group_sum(T v, T* scratch) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // earlier readers of scratch are done
+  const int lane = G::rank() & 31;
+  const int warp = G::rank() >> 5;
+  G::sync();  // earlier readers of scratch are done
   if (lane == 0) scratch[warp] = v;
-  __syncthreads();
+  G::sync();
   if (warp == 0) {
-    v = (lane < (int)(blockDim.x >> 5)) ? scratch[lane] : T(0);
+    v = (lane < (G::size() >> 5)) ? scratch[lane] : T(0);
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
     if (lane == 0) scratch[0] = v;
   }
-  __syncthreads();
+  G::sync();
   return scratch[0];
 }
 
@@ -153,15 +178,17 @@ __device__ int block_compact(int kcap, Load load, Visit visit, int* scratch) {
   return total;
 }
 
-// Exclusive prefix sum of v[0, len) in place, over the block; returns the
-// total to every thread. blockDim.x is a multiple of 32; scratch holds 32.
-__device__ int block_scan(int* v, int len, int* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+// Exclusive prefix sum of v[0, len) in place, over the group; returns the
+// total to every thread. The group's size is a multiple of 32; scratch holds
+// 32.
+template <class G>
+__device__ int group_scan(int* v, int len, int* scratch) {
+  const int lane = G::rank() & 31;
+  const int warp = G::rank() >> 5;
+  const int nwarps = G::size() >> 5;
   int carry = 0;
-  for (int i0 = 0; i0 < len; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
+  for (int i0 = 0; i0 < len; i0 += G::size()) {
+    const int i = i0 + G::rank();
     const int x = i < len ? v[i] : 0;
     int w = x;  // inclusive scan within the warp
     for (int o = 1; o < 32; o <<= 1) {
@@ -169,7 +196,7 @@ __device__ int block_scan(int* v, int len, int* scratch) {
       if (lane >= o) w += u;
     }
     if (lane == 31) scratch[warp] = w;
-    __syncthreads();
+    G::sync();
     int t = lane < nwarps ? scratch[lane] : 0;  // ... and over the warps
     for (int o = 1; o < 32; o <<= 1) {
       const int u = __shfl_up_sync(kFull, t, o);
@@ -178,9 +205,16 @@ __device__ int block_scan(int* v, int len, int* scratch) {
     const int before = __shfl_sync(kFull, t, (warp + 31) & 31);
     if (i < len) v[i] = carry + (warp > 0 ? before : 0) + w - x;
     carry += __shfl_sync(kFull, t, 31);
-    __syncthreads();
+    G::sync();
   }
   return carry;
+}
+
+// group_scan over the block, for the kernels' own use: nvcc 12.9's front
+// end fails (an internal error) on group_scan<BlockGroup> called directly
+// in a kernel template.
+__device__ int block_scan(int* v, int len, int* scratch) {
+  return group_scan<BlockGroup>(v, len, scratch);
 }
 
 // A cell's alive slots in shared memory, compacted in slot order, and their
@@ -211,10 +245,11 @@ struct AliveSlots {
 // a sorting network of n = 100 needs 28 and a comparison sort n^2 compares.
 // c.bend must hold zeros for the first n buckets. fscratch and iscratch hold
 // 32 entries each.
+template <class G>
 __device__ void bucket_by_x(AliveSlots& c, float eps2, float* fscratch,
                             int* iscratch) {
   float lo = __int_as_float(0x7F800000), hi = -lo;  // +inf, -inf
-  for (int a = threadIdx.x; a < c.n; a += blockDim.x) {
+  for (int a = G::rank(); a < c.n; a += G::size()) {
     lo = fminf(lo, c.xy[a].x);
     hi = fmaxf(hi, c.xy[a].x);
   }
@@ -222,26 +257,26 @@ __device__ void bucket_by_x(AliveSlots& c, float eps2, float* fscratch,
     lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
     hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o));
   }
-  const int lane = threadIdx.x & 31;
+  const int lane = G::rank() & 31;
   if (lane == 0) {
-    fscratch[threadIdx.x >> 5] = lo;
-    iscratch[threadIdx.x >> 5] = __float_as_int(hi);
+    fscratch[G::rank() >> 5] = lo;
+    iscratch[G::rank() >> 5] = __float_as_int(hi);
   }
-  __syncthreads();
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+  G::sync();
+  for (int w = 0; w < (G::size() >> 5); ++w) {
     lo = fminf(lo, fscratch[w]);
     hi = fmaxf(hi, __int_as_float(iscratch[w]));
   }
   c.nb = max(c.n, 1);
   c.xmin = lo;
   c.rh = 1.0f / fmaxf(2.0f * sqrtf(eps2), (hi - lo) / c.nb);
-  for (int a = threadIdx.x; a < c.n; a += blockDim.x)
+  for (int a = G::rank(); a < c.n; a += G::size())
     atomicAdd(&c.bend[c.bucket(c.xy[a].x)], 1);
-  __syncthreads();  // also: every thread has read the scratch
-  block_scan(c.bend, c.nb, iscratch);
-  for (int a = threadIdx.x; a < c.n; a += blockDim.x)
+  G::sync();  // also: every thread has read the scratch
+  group_scan<G>(c.bend, c.nb, iscratch);
+  for (int a = G::rank(); a < c.n; a += G::size())
     c.order[atomicAdd(&c.bend[c.bucket(c.xy[a].x)], 1)] = a;
-  __syncthreads();
+  G::sync();
 }
 
 // Calls hit(a, b) (compacted indices, a < b) for every pair of alive slots
@@ -253,10 +288,10 @@ __device__ void bucket_by_x(AliveSlots& c, float eps2, float* fscratch,
 // bucket or in neighbouring ones and is checked once. Buckets hold about one
 // slot each where the row is spread over its cell (50 wide, eps = 0.005, at
 // the flagship), so the sweep costs O(n), not O(n^2).
-template <bool kSub, typename Hit>
+template <class G, bool kSub, typename Hit>
 __device__ __forceinline__ void sweep_near(const AliveSlots& c, float eps2,
                                            Hit hit) {
-  for (int p = threadIdx.x; p < c.n; p += blockDim.x) {
+  for (int p = G::rank(); p < c.n; p += G::size()) {
     const int a = c.order[p];
     const float2 pa = c.xy[a];
     const int la = kSub ? c.lab[a] : 0;
@@ -270,26 +305,39 @@ __device__ __forceinline__ void sweep_near(const AliveSlots& c, float eps2,
   }
 }
 
-// Whether any two alive slots (of one label, with kSub) lie within eps (the
-// same answer in every thread of the block). The slots are in bucket order.
-template <bool kSub>
-__device__ bool cell_has_hit(const AliveSlots& c, float eps2) {
+// The x-bucket sweep as a near-pair search: near(hit) calls sweep_near.
+template <class G, bool kSub>
+struct BucketSearch {
+  const AliveSlots* c;
+  float eps2;
+  template <typename Hit>
+  __device__ void operator()(Hit hit) const {
+    sweep_near<G, kSub>(*c, eps2, hit);
+  }
+};
+
+// Whether near(hit) finds any pair within eps (the same answer in every
+// thread of the group). near is a near-pair search: it calls hit(a, b) for
+// every pair of alive slots that may collide (BucketSearch, or RunSearch:
+// the labelled warp kernel's search within label runs).
+template <class G, typename Near>
+__device__ bool cell_has_hit(Near near) {
   int found = 0;
-  sweep_near<kSub>(c, eps2, [&](int, int) { found = 1; });
-  return __syncthreads_or(found) != 0;
+  near([&](int, int) { found = 1; });
+  return G::any(found);
 }
 
-// Collision outputs of one cell whose alive slots are in bucket order: each
+// Collision outputs of one cell, its near pairs found by near(hit): each
 // slot's min first-pair rank into c.ft, and the count of pairs first for
 // both ends (returned to every thread). With `ranked`, the pid ranks go to
 // c.rank and c.inv becomes the inverse; without it, the rank is the
-// compacted index (slot order stands for pid order). With kSub only pairs
-// of equal labels hit; the ranks stay the row's.
-template <bool kSub>
+// compacted index (slot order stands for pid order). In the labelled
+// kernels only pairs of equal labels hit; the ranks stay the row's.
+template <class G, typename Near>
 __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
-                               float eps2, int* iscratch) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+                               Near near, int* iscratch) {
+  const int tid = G::rank();
+  const int nt = G::size();
   if (ranked) {
     for (int a = tid; a < c.n; a += nt) {
       const int p = c.inv[a];
@@ -297,12 +345,12 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
       for (int b = 0; b < c.n; ++b) r += c.inv[b] < p ? 1 : 0;
       c.rank[a] = r;
     }
-    __syncthreads();
+    G::sync();
     for (int a = tid; a < c.n; a += nt) c.inv[c.rank[a]] = a;
   }
   const int kb = kcap + 1;
   int found = 0;
-  sweep_near<kSub>(c, eps2, [&](int a, int b) {
+  near([&](int a, int b) {
     const int ra = ranked ? c.rank[a] : a;
     const int rb = ranked ? c.rank[b] : b;
     const int rank = min(ra, rb) * kb + max(ra, rb);
@@ -310,7 +358,7 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
     atomicMin(&c.ft[b], rank);
     found = 1;
   });
-  if (!__syncthreads_or(found)) return 0;  // no hit: every ft is INF
+  if (!G::any(found)) return 0;  // no hit: every ft is INF
   int local = 0;
   for (int a = tid; a < c.n; a += nt) {
     const int f = c.ft[a];
@@ -321,24 +369,49 @@ __device__ int cell_collisions(const AliveSlots& c, bool ranked, int kcap,
     const int b = ranked ? c.inv[partner] : partner;
     local += (b > a && c.ft[b] == f) ? 1 : 0;
   }
-  return block_sum(local, iscratch);
+  return group_sum<G>(local, iscratch);
+}
+
+// One partner's term on one receiver (x_i, y_i, label l_i) of the pair
+// sums below: w = m_j / |d|^3 (0 where d^2 == 0, and with kSub where the
+// labels differ), d^2 with one FMA and 1/|d| on the rsqrt unit alone, then
+//   v2 (kV4 = false): ax += w dx, ay += w dy            (12 instructions);
+//   v4 (kV4 = true):  ax += w x_j, ay += w y_j, aw += w  (13).
+// A masked pair adds fmaf(0, v, a) == a: exactly nothing, since a sum that
+// starts at +0 never becomes -0. Every pair loop of this file goes through
+// this one body, so all of them round alike.
+template <bool kV4, bool kSub>
+__device__ __forceinline__ void pair_term(const float4 pj, float xi, float yi,
+                                          int li, float& ax, float& ay,
+                                          float& aw) {
+  const float dx = pj.x - xi;
+  const float dy = pj.y - yi;
+  const float d2 = fmaf(dx, dx, dy * dy);
+  const float inv = d2 > 0.0f ? rsqrt_ftz(d2) : 0.0f;
+  float w = pj.z * (inv * inv * inv);
+  if (kSub && __float_as_int(pj.w) != li) w = 0.0f;
+  if (kV4) {
+    ax = fmaf(w, pj.x, ax);
+    ay = fmaf(w, pj.y, ay);
+    aw += w;
+  } else {
+    ax = fmaf(w, dx, ax);
+    ay = fmaf(w, dy, ay);
+  }
 }
 
 // The pair sums of the used slots q0 .. q0 + kRows - 1 (receivers past n
 // take a copy of the last one) of a row compacted into sp as float4
-// (x, y, m, 0), or with kSub (x, y, m, label bits), over its n used
-// partners in compacted order; n >= 1.
-// Per pair: w = m_j / |d|^3 (0 where d^2 == 0, and with kSub where the
-// labels differ), d^2 with one FMA and 1/|d| on the rsqrt unit alone, then
-//   v2 (kV4 = false): ax += w dx, ay += w dy            (12 instructions);
-//   v4 (kV4 = true):  ax += w x_j, ay += w y_j, aw += w  (13).
-// A masked pair adds fmaf(0, v, a) == a: exactly nothing. One partner load
-// feeds kRows receivers held in registers. The caller multiplies the sums
-// by gmi = G m_i once. A receiver's sum runs over the same partners in the
-// same order for any kRows and block size.
+// (x, y, m, 0), or with kSub (x, y, m, label bits), over the np partners
+// pp[0, np) in order (sp itself, or with kSub the run of sp that holds the
+// receivers' labels); n >= 1.
+// One partner load feeds kRows receivers held in registers. The caller
+// multiplies the sums by gmi = G m_i once. A receiver's sum runs over the
+// same partners in the same order for any kRows and block size.
 template <int kRows, bool kV4, bool kSub = false>
 __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
-                                          float g, float (&xi)[kRows],
+                                          const float4* pp, int np, float g,
+                                          float (&xi)[kRows],
                                           float (&yi)[kRows],
                                           float (&gmi)[kRows],
                                           float (&ax)[kRows],
@@ -357,24 +430,34 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
     aw[r] = 0.0f;
   }
 #pragma unroll 2
-  for (int j = 0; j < n; ++j) {
-    const float4 pj = sp[j];
+  for (int j = 0; j < np; ++j) {
+    const float4 pj = pp[j];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float dx = pj.x - xi[r];
-      const float dy = pj.y - yi[r];
-      const float d2 = fmaf(dx, dx, dy * dy);
-      const float inv = d2 > 0.0f ? rsqrt_ftz(d2) : 0.0f;
-      float w = pj.z * (inv * inv * inv);
-      if (kSub && __float_as_int(pj.w) != li[r]) w = 0.0f;
-      if (kV4) {
-        ax[r] = fmaf(w, pj.x, ax[r]);
-        ay[r] = fmaf(w, pj.y, ay[r]);
-        aw[r] += w;
-      } else {
-        ax[r] = fmaf(w, dx, ax[r]);
-        ay[r] = fmaf(w, dy, ay[r]);
+    for (int r = 0; r < kRows; ++r)
+      pair_term<kV4, kSub>(pj, xi[r], yi[r], li[r], ax[r], ay[r], aw[r]);
+  }
+}
+
+// Sorts keys[0, n) ascending over the block: a bitonic network whose
+// comparators all point up (each merge starts with a reflection), so it
+// needs no padding to a power of two: a comparator whose upper end lies past
+// n would meet +inf there and is skipped. log2(n)(log2(n) + 1) / 2 steps of
+// n / 2 comparators, a barrier each (55 at n = 1024).
+__device__ void block_sort(unsigned long long* keys, int n) {
+  for (int k = 2; k < 2 * n; k <<= 1) {
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      const int m = d == (k >> 1) ? k - 1 : d;  // reflect, then half-clean
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int j = i ^ m;
+        if (j > i && j < n) {
+          const unsigned long long a = keys[i], b = keys[j];
+          if (a > b) {
+            keys[i] = b;
+            keys[j] = a;
+          }
+        }
       }
+      __syncthreads();
     }
   }
 }
@@ -400,18 +483,25 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
 // (5K) reuse once ft is written. -Xptxas -v on sm_90a: 31-40 registers, at
 // most 256 bytes of static shared memory, no spills.
 //
-// The labelled form (kSub, the supercell engine's rows of S x S cells):
-// `sub` holds each slot's cell within the row, -1 for an unbinned slot. The
-// alive slots' labels take a twelfth (K,) array (48 KB at K = 1024, which
-// with the static scratch is over 48 KB: the launch opts in), and the hit
-// test of sweep_near passes only pairs of equal labels, so the gate and the
-// count see only same-cell pairs; ranks stay the row's pid ranks. The
-// partners carry their label's bits in the float4's fourth word, and a
-// mismatched pair gets w = 0 (pair_sums). The v4 centre stays the mean of
-// the whole row's used slots, as in the XLA form. The force loop still
-// visits all n^2 used pairs of the row, where the function needs only the
-// sum of c^2 over its cells: a receiver looping over its own cell alone
-// needs the slots sorted by label first.
+// The labelled form (kSub, the supercell engine's rows of S x S cells) on
+// rows of K > 64 (labelled_warp_kernel takes the others): `sub` holds each
+// slot's cell within the row, -1 for an unbinned slot. The alive slots'
+// labels take a twelfth (K,) array (48 KB at K = 1024, which with the
+// static scratch is over 48 KB: the launch opts in), and the hit test of
+// sweep_near passes only pairs of equal labels, so the gate and the count
+// see only same-cell pairs; ranks stay the row's pid ranks. The x-bucket
+// sweep stays: it costs O(n) whatever the labels, where grouping the alive
+// slots by label first would cost a sort. The v4 centre stays the mean of
+// the whole row's used slots, as in the XLA form. Then, unless every used
+// slot has one label, the used slots are sorted by (label, compacted index)
+// (block_sort over keys that also carry the slot), and receivers take the
+// sorted order: a thread's kRows receivers loop over the runs of their
+// labels only, each run in compacted order. A partner of another label (in
+// the other receiver's run) adds exactly nothing (pair_term), so every
+// receiver sums the same terms in the same order as over the whole row: the
+// same bits, with sum(c^2) pairs where the row has n^2. The sorted copy and
+// the runs reuse the dead collision and staging arrays: the twelve (K,)
+// words still hold it.
 template <bool kV4, bool kCollide, bool kGate, int kRows, bool kSub>
 __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -468,10 +558,11 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
           if (kSub) c.lab[a] = sub[base + i];
         },
         iscratch);
-    bucket_by_x(c, eps2, fscratch, iscratch);
+    bucket_by_x<BlockGroup>(c, eps2, fscratch, iscratch);
+    const BucketSearch<BlockGroup, kSub> near = {&c, eps2};
     int count = 0;
-    if (!kGate || cell_has_hit<kSub>(c, eps2))
-      count = cell_collisions<kSub>(c, true, kcap, eps2, iscratch);
+    if (!kGate || cell_has_hit<BlockGroup>(near))
+      count = cell_collisions<BlockGroup>(c, true, kcap, near, iscratch);
     if (tid == 0 && count > 0) atomicAdd(total, count);
     for (int a = tid; a < c.n; a += nt) {
       const int i = c.slot[a];
@@ -529,13 +620,69 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
     __syncthreads();
   }
 
+  // Receivers and partners in loop order: the compacted slots, or (labelled
+  // rows of more than one label) sorted by label, with each sorted
+  // position's run and the runs' bounds.
+  const float4* psp = sp;
+  const unsigned long long* key = nullptr;  // label, slot << 10 | index
+  int* runi = nullptr;                      // sorted position -> run
+  int* rs = nullptr;                        // run -> first position
+  int* re = nullptr;                        // run -> one past its last
+  if (kSub) {
+    int differ = 0;
+    for (int q = tid; q < n; q += nt)
+      differ |= __float_as_int(sp[q].w) != __float_as_int(sp[0].w);
+    if (__syncthreads_or(differ)) {
+      unsigned long long* keys = reinterpret_cast<unsigned long long*>(
+          smem + ((5 * kcap + 1) & ~1));  // over the dead collision arrays
+      for (int q = tid; q < n; q += nt)
+        keys[q] = (unsigned long long)(unsigned)__float_as_int(sp[q].w) << 32 |
+                  (unsigned)sslot[q] << 10 | (unsigned)q;
+      __syncthreads();
+      block_sort(keys, n);
+      float4* ssp = smem4 + 2 * kcap;  // over the dead staging arrays
+      for (int p = tid; p < n; p += nt) ssp[p] = sp[keys[p] & 1023u];
+      __syncthreads();  // sp and sslot are dead
+      runi = reinterpret_cast<int*>(smem);
+      rs = runi + kcap;
+      re = rs + kcap;
+      // p heads a run where its label (bits) differs from p - 1's.
+      for (int p = tid; p < n; p += nt)
+        runi[p] = p == 0 || __float_as_int(ssp[p].w) !=
+                                __float_as_int(ssp[p - 1].w);
+      block_scan(runi, n, iscratch);  // heads before p
+      for (int p = tid; p < n; p += nt) {
+        const bool head =
+            p == 0 || __float_as_int(ssp[p].w) != __float_as_int(ssp[p - 1].w);
+        const bool tail = p == n - 1 ||
+                          __float_as_int(ssp[p + 1].w) != __float_as_int(ssp[p].w);
+        const int r = runi[p] - (head ? 0 : 1);
+        runi[p] = r;
+        if (head) rs[r] = p;
+        if (tail) re[r] = p + 1;
+      }
+      __syncthreads();
+      psp = ssp;
+      key = keys;
+    }
+  }
+
   for (int q0 = tid * kRows; q0 < n; q0 += nt * kRows) {
     float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows], aw[kRows];
-    pair_sums<kRows, kV4, kSub>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
+    if (kSub && key != nullptr) {  // the receivers' runs
+      const int j0 = rs[runi[q0]];
+      const int j1 = re[runi[min(q0 + kRows - 1, n - 1)]];
+      pair_sums<kRows, kV4, kSub>(psp, n, q0, psp + j0, j1 - j0, g, xi, yi,
+                                  gmi, ax, ay, aw);
+    } else {  // every partner
+      pair_sums<kRows, kV4, kSub>(sp, n, q0, sp, n, g, xi, yi, gmi, ax, ay,
+                                  aw);
+    }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (q0 + r >= n) break;
-      const int i = sslot[q0 + r];
+      const int i = kSub && key != nullptr ? (int)(key[q0 + r] >> 10) & 1023
+                                           : sslot[q0 + r];
       if (kV4) {  // G m_i (sum w xl_j - xl_i sum w)
         fx[base + i] = gmi[r] * fmaf(-xi[r], aw[r], ax[r]);
         fy[base + i] = gmi[r] * fmaf(-yi[r], aw[r], ay[r]);
@@ -555,7 +702,7 @@ __device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
                                            const float (*stencil)[8], float g,
                                            float* fx, float* fy) {
   float xi[kRows], yi[kRows], gmi[kRows], ax[kRows], ay[kRows], aw[kRows];
-  pair_sums<kRows, false>(sp, n, q0, g, xi, yi, gmi, ax, ay, aw);
+  pair_sums<kRows, false>(sp, n, q0, sp, n, g, xi, yi, gmi, ax, ay, aw);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (q0 + r >= n) break;
@@ -697,53 +844,517 @@ __global__ void __launch_bounds__(kMaxCollThreads) dense_collisions_kernel(
       },
       iscratch);
 
-  bucket_by_x(c, eps2, fscratch, iscratch);
+  bucket_by_x<BlockGroup>(c, eps2, fscratch, iscratch);
+  const BucketSearch<BlockGroup, false> near = {&c, eps2};
   int count = 0;
-  if (!ranked || cell_has_hit<false>(c, eps2))
-    count = cell_collisions<false>(c, ranked, kcap, eps2, iscratch);
+  if (!ranked || cell_has_hit<BlockGroup>(near))
+    count = cell_collisions<BlockGroup>(c, ranked, kcap, near, iscratch);
   if (threadIdx.x == 0 && count > 0) atomicAdd(total, count);
   for (int a = threadIdx.x; a < c.n; a += blockDim.x)
     ft[base + c.slot[a]] = c.ft[a];
 }
 
-// The supercell engine's per-cell sums (the one-hot contractions
-// einsum("rk,rks->rs") of ops/supercell.py): M, sum m x and sum m y of every
-// true cell, from the (rows, K) tiles of mf, mf x and mf y and each slot's
-// true cell (-1 for a slot that is not binned; an index outside [0, ncells)
-// counts in no cell). Each true cell's slots lie
-// in one row, so one block per row writes its cells' sums with no atomics;
-// each cell's leader (its first slot in the row) adds the cell's slots in
-// slot order, so the result is the same bits in every run (and equals a
-// sequential index_add in slot order). The caller zeroes the outputs.
+// ---- The labelled pass on rows of K <= 64: a warp a row --------------------
 //
-// Bound: the bytes, 16 a slot read and 12 a true cell written; the adds
-// are few. Leader test and sum scan the staged labels, O(K) a leader.
+// fused_pairs_kernel<..., kSub = true>'s function (the same bits) on the
+// supercell engine's own rows: at SMALL, K = 64 and ~30 slots a row are used
+// in S^2 = 100 cells, so a block a row would be one warp waiting on ten
+// barriers, and the row's pairs of equal labels (sum c^2, ~9) are few beside
+// its n^2 (~900). One warp takes a row, several rows a block, and nothing
+// waits on the block:
+//   * every lane loads its slots l and l + 32 of all six inputs first;
+//     ballots and popc compact the alive and the used slots;
+//   * a table in shared memory keyed by label (open addressing, 2K slots,
+//     so no array is sized by S^2) gives each slot the 64-bit mask of the
+//     compacted slots of its label: its run, in compacted (slot) order;
+//   * collisions: with runs of at most kShortRun alive slots (the usual
+//     case) each alive slot tests the later slots of its run; a row with a
+//     longer run (one label for every slot) takes the x-bucket sweep of the
+//     block kernel at warp scale. Either finds every pair of one label
+//     within eps, so the gate, the ranks, ft and the count are the block
+//     kernel's integers (cell_collisions, shared);
+//   * the v4 centre is summed as in the block kernel (lane l takes used
+//     slots l and l + 32, then the xor tree): the same bits;
+//   * forces: lane l is the receiver of its own slots and loops over the
+//     union of their runs in compacted order through pair_term, a partner of
+//     the other receiver's label adding exactly nothing. Each receiver sums
+//     the block kernel's terms in its order, over sum c^2 pairs, not the
+//     row's n^2; the lanes write their slots' fx, fy, ft in slot order.
+//   * a row of one label takes no table (same_key_masks' vote) and its
+//     partners, one span, a counted loop: such rows cost what a loop over
+//     the whole row costs.
+// Bound: the bytes (six (K,) inputs read, three written); the pair work
+// that is left, ~9 pairs and ~30 compactions a row at SMALL, is small beside
+// them. -Xptxas -v on sm_90a: 28-52 registers, no spills; 4.1 KB of shared
+// memory a warp (WarpRow).
+constexpr int kWarpK = 64;        // widest row of the warp kernel
+constexpr int kTabLog = 7;
+constexpr int kTab = 1 << kTabLog;  // label table slots: 2 kWarpK
+constexpr int kShortRun = 8;      // longest run tested within runs
+constexpr int kMaxWarpRows = 16;  // rows (warps) a block
+constexpr int kEmpty = (int)0x80000000;  // a free table slot
+
+// One warp's shared memory: the collision arrays, which the force phase's
+// used slots reuse, and the label table.
+struct WarpRow {
+  union {
+    struct {
+      float2 xy[kWarpK];
+      int slot[kWarpK], rank[kWarpK], inv[kWarpK], ft[kWarpK],
+          order[kWarpK], bend[kWarpK], lab[kWarpK];
+    } c;
+    struct {
+      float4 sp[kWarpK];   // used slots: (x, y, m_post, label bits)
+      float2 cxy[kWarpK];  // used slots' raw x, y: the v4 centre's order
+    } f;
+  };
+  unsigned long long mask[kTab + 1];
+  int key[kTab + 1];
+  int iscratch[32];
+  float fscratch[32];
+};
+
+// The slot of key k in a warp's label table, claimed for k if it is free
+// (linear probing; at most kWarpK keys in kTab slots). kEmpty, which marks a
+// free slot, has the extra last slot to itself.
+__device__ int table_slot(int* tkey, int k) {
+  if (k == kEmpty) return kTab;
+  unsigned h = ((unsigned)k * 0x9E3779B1u) >> (32 - kTabLog);
+  for (;;) {
+    const int old = atomicCAS(&tkey[h], kEmpty, k);
+    if (old == kEmpty || old == k) return (int)h;
+    h = (h + 1) & (kTab - 1);
+  }
+}
+
+// For each of a lane's kP slots with index idx[p] >= 0 (< 64), the mask of
+// the indices whose key equals its key[p] (0 where idx[p] < 0), through a
+// warp's table of kTab + 1 keys tkey and masks tmask, cleared first.
+template <int kP>
+__device__ void same_key_masks(int* tkey, unsigned long long* tmask,
+                               const int (&key)[kP], const int (&idx)[kP],
+                               unsigned long long (&out)[kP]) {
+  // Where every index has lane 0's first key (a row of one label) the mask
+  // is the indices' own, without the table: two votes, where the table would
+  // serialise every lane's atomics on one slot.
+  const int k0 = __shfl_sync(kFull, key[0], 0);
+  unsigned long long mine = 0ull;
+  bool one = true;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if (idx[p] >= 0) mine |= 1ull << idx[p];
+    one = one && (idx[p] < 0 || key[p] == k0);
+  }
+  if (__all_sync(kFull, one)) {
+    const unsigned long long all =
+        (unsigned long long)__reduce_or_sync(kFull, (unsigned)(mine >> 32))
+            << 32 |
+        __reduce_or_sync(kFull, (unsigned)mine);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) out[p] = idx[p] >= 0 ? all : 0ull;
+    __syncwarp();  // as the table's path: earlier shared writes are visible
+    return;
+  }
+  for (int e = threadIdx.x & 31; e <= kTab; e += 32) {
+    tkey[e] = kEmpty;
+    tmask[e] = 0ull;
+  }
+  __syncwarp();
+  int ent[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    ent[p] = idx[p] >= 0 ? table_slot(tkey, key[p]) : -1;
+    if (ent[p] >= 0) atomicOr(&tmask[ent[p]], 1ull << idx[p]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int p = 0; p < kP; ++p) out[p] = ent[p] >= 0 ? tmask[ent[p]] : 0ull;
+  __syncwarp();  // the table may be cleared again
+}
+
+// The warp kernel's near-pair search within label runs: each of a lane's
+// alive slots (alive index ai[p], position xv[p], yv[p], its run's alive
+// slots am[p]) tests the later slots of its run.
+template <int kP>
+struct RunSearch {
+  const float2* xy;
+  const int* ai;
+  const unsigned long long* am;
+  const float* xv;
+  const float* yv;
+  float eps2;
+  template <typename Hit>
+  __device__ void operator()(Hit hit) const {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      if (ai[p] < 0) continue;
+      unsigned long long m = am[p] & ~((2ull << ai[p]) - 1ull);
+      while (m) {
+        const int b = __ffsll((long long)m) - 1;
+        m &= m - 1;
+        const float2 pb = xy[b];
+        if (dist2(xv[p], yv[p], pb.x, pb.y) < eps2) hit(ai[p], b);
+      }
+    }
+  }
+};
+
+// kP = ceil(K / 32) slots a lane; a block of 32 x (rows a block) threads.
+template <bool kV4, bool kCollide, int kP>
+__global__ void __launch_bounds__(kMaxWarpRows * 32) labelled_warp_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ mf, const int* __restrict__ alive,
+    const int* __restrict__ pid, const int* __restrict__ sub,
+    float* __restrict__ fx, float* __restrict__ fy, int* __restrict__ ft,
+    int* __restrict__ total, int ncells, int kcap, float eps2, float g) {
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= ncells) return;  // a whole warp; nothing waits on the block
+  WarpRow& s = reinterpret_cast<WarpRow*>(wsmem)[threadIdx.x >> 5];
+  const int64_t base = (int64_t)row * kcap;
+  const unsigned below = (1u << lane) - 1u;
+
+  float xv[kP], yv[kP], mv[kP];
+  int av[kP], pv[kP], lv[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {  // every load first
+    const int i = lane + 32 * p;
+    xv[p] = yv[p] = mv[p] = 0.0f;
+    av[p] = pv[p] = lv[p] = 0;
+    if (i < kcap) {
+      xv[p] = x[base + i];
+      yv[p] = y[base + i];
+      mv[p] = mf[base + i];
+      lv[p] = sub[base + i];
+      if (kCollide) {
+        av[p] = alive[base + i];
+        pv[p] = pid[base + i];
+      }
+    }
+  }
+
+  int ai[kP];                 // alive index, or -1
+  unsigned ab[kP];            // the alive ballots
+  unsigned long long am[kP];  // the alive slots of each one's label
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    ab[p] = 0u;
+    am[p] = 0ull;
+  }
+  if (kCollide) {
+    AliveSlots c;
+    c.xy = s.c.xy;
+    c.slot = s.c.slot;
+    c.rank = s.c.rank;
+    c.inv = s.c.inv;
+    c.ft = s.c.ft;
+    c.order = s.c.order;
+    c.bend = s.c.bend;
+    c.lab = s.c.lab;
+    c.n = 0;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const bool al = av[p] > 0;
+      ab[p] = __ballot_sync(kFull, al);
+      ai[p] = al ? c.n + __popc(ab[p] & below) : -1;
+      c.n += __popc(ab[p]);
+      if (al) {
+        c.xy[ai[p]] = make_float2(xv[p], yv[p]);
+        c.inv[ai[p]] = pv[p];
+        c.ft[ai[p]] = kInf;
+        c.lab[ai[p]] = lv[p];
+      }
+    }
+    same_key_masks<kP>(s.key, s.mask, lv, ai, am);
+    int run = 0;
+#pragma unroll
+    for (int p = 0; p < kP; ++p) run = max(run, __popcll(am[p]));
+    run = __reduce_max_sync(kFull, run);
+    int count = 0;
+    if (run <= kShortRun) {
+      const RunSearch<kP> near = {c.xy, ai, am, xv, yv, eps2};
+      if (cell_has_hit<WarpGroup>(near))
+        count = cell_collisions<WarpGroup>(c, true, kcap, near, s.iscratch);
+    } else {
+      for (int b = lane; b < kWarpK; b += 32) c.bend[b] = 0;
+      __syncwarp();
+      bucket_by_x<WarpGroup>(c, eps2, s.fscratch, s.iscratch);
+      const BucketSearch<WarpGroup, true> near = {&c, eps2};
+      if (cell_has_hit<WarpGroup>(near))
+        count = cell_collisions<WarpGroup>(c, true, kcap, near, s.iscratch);
+    }
+    if (lane == 0 && count > 0) atomicAdd(total, count);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int i = lane + 32 * p;
+      const int f = ai[p] >= 0 ? c.ft[ai[p]] : kInf;
+      if (i < kcap) ft[base + i] = f;
+      if (f != kInf) mv[p] = 0.0f;  // m_post
+    }
+    __syncwarp();  // the collision arrays are dead
+  } else {
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      if (lane + 32 * p < kcap) ft[base + lane + 32 * p] = kInf;
+  }
+
+  // The used slots (m_post > 0), compacted in slot order.
+  int qi[kP];
+  unsigned ub[kP];
+  int n = 0;
+  bool same = kCollide;  // the used slots are the alive ones
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const bool used = mv[p] > 0.0f;
+    ub[p] = __ballot_sync(kFull, used);
+    qi[p] = used ? n + __popc(ub[p] & below) : -1;
+    n += __popc(ub[p]);
+    if (used) s.f.cxy[qi[p]] = make_float2(xv[p], yv[p]);
+    if (kCollide) same = same && ub[p] == ab[p];
+  }
+  __syncwarp();
+  float cx = 0.0f, cy = 0.0f;
+  if (kV4) {  // the block kernel's centre, in its order
+    float sumx = 0.0f, sumy = 0.0f;
+    for (int q = lane; q < n; q += 32) {
+      sumx += s.f.cxy[q].x;
+      sumy += s.f.cxy[q].y;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      sumx += __shfl_xor_sync(kFull, sumx, o);
+      sumy += __shfl_xor_sync(kFull, sumy, o);
+    }
+    const float nrow = fmaxf((float)n, 1.0f);
+    cx = sumx / nrow;
+    cy = sumy / nrow;
+  }
+  float xi[kP], yi[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    xi[p] = kV4 ? xv[p] - cx : xv[p];
+    yi[p] = kV4 ? yv[p] - cy : yv[p];
+    if (qi[p] >= 0)
+      s.f.sp[qi[p]] = make_float4(xi[p], yi[p], mv[p], __int_as_float(lv[p]));
+  }
+  unsigned long long um[kP];  // the used slots of each one's label
+  if (same) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) um[p] = am[p];
+    __syncwarp();
+  } else {
+    same_key_masks<kP>(s.key, s.mask, lv, qi, um);
+  }
+
+  float gmi[kP], ax[kP], ay[kP], aw[kP];
+  unsigned long long runs = 0ull;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    gmi[p] = g * mv[p];
+    ax[p] = ay[p] = aw[p] = 0.0f;
+    runs |= um[p];
+  }
+  const int lo = runs ? __ffsll((long long)runs) - 1 : 0;
+  const int hi = runs ? 64 - __clzll((long long)runs) : 0;
+  if (__popcll(runs) == hi - lo) {
+    // The partners make one span (a row of one label, say): a counted loop.
+#pragma unroll 2
+    for (int j = lo; j < hi; ++j) {
+      const float4 pj = s.f.sp[j];
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        pair_term<kV4, true>(pj, xi[p], yi[p], lv[p], ax[p], ay[p], aw[p]);
+    }
+  } else {
+    while (runs) {
+      const int j = __ffsll((long long)runs) - 1;
+      runs &= runs - 1;
+      const float4 pj = s.f.sp[j];
+#pragma unroll
+      for (int p = 0; p < kP; ++p)
+        pair_term<kV4, true>(pj, xi[p], yi[p], lv[p], ax[p], ay[p], aw[p]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const int i = lane + 32 * p;
+    if (i >= kcap) continue;
+    float ox = 0.0f, oy = 0.0f;
+    if (qi[p] >= 0) {
+      if (kV4) {  // G m_i (sum w xl_j - xl_i sum w)
+        ox = gmi[p] * fmaf(-xi[p], aw[p], ax[p]);
+        oy = gmi[p] * fmaf(-yi[p], aw[p], ay[p]);
+      } else {
+        ox = ax[p] * gmi[p];
+        oy = ay[p] * gmi[p];
+      }
+    }
+    fx[base + i] = ox;
+    fy[base + i] = oy;
+  }
+}
+
+// ---- The supercell engine's per-cell sums ---------------------------------
+//
+// The one-hot contractions einsum("rk,rks->rs") of ops/supercell.py: M,
+// sum m x and sum m y of every true cell, from the (rows, K) tiles of mf,
+// mf x and mf y and each slot's true cell (-1 for a slot that is not
+// binned; an index outside [0, ncells) counts in no cell). Each true cell's
+// slots lie in one row, so each row's cells are written by one warp with no
+// atomics on the output, and each cell's sums are its slots' values added in
+// slot order from 0.0f: the same bits in every run, equal to a sequential
+// index_add in slot order (the CPU plain version).
+//
+// Bound: the bytes, 16 a slot read and 12 a true cell written (the caller's
+// zeroing included). Design: one warp a row, several rows a block, each
+// lane loading its slots once, coalesced; no slot scans the others.
+// Rows of K <= 64 (cell_sums_warp_kernel, SMALL's): the labelled kernel's
+// table keyed by cell gives each slot the 64-bit mask of its cell's slots;
+// the first of them sums them in slot order and writes the cell. Wider rows
+// (cell_sums_kernel): the warp reads its row 32 slots a round, the next
+// round's loads issued before this round's work; within a round
+// __match_any_sync groups the lanes by cell, and the group's first lane adds
+// the group's values, in lane order, onto its cell's entry of a table in
+// shared memory (open addressing on the cell id, at least 2K slots), which
+// carries the sums of earlier rounds; then the warp writes its row's cells
+// from the table. (__match_any_sync on SMALL's rows took 0.029 device ms
+// where the bytes need 0.005; the mask table takes the rows of K <= 64.)
+struct SumEntry {
+  int key;  // true cell, -1 for a free slot
+  float m, sx, sy;
+};
+
+// One warp's shared memory in cell_sums_warp_kernel.
+struct SumsRow {
+  unsigned long long mask[kTab + 1];
+  int key[kTab + 1];
+  float4 sv[kWarpK];  // each slot's (m, m x, m y)
+};
+
+// The cell sums on rows of K <= 64 (kP = ceil(K / 32) slots a lane): the
+// label table of the labelled warp kernel (same_key_masks) gives each slot
+// the mask of its row's slots in its cell, so no slot scans the others and
+// no warp-wide match runs; the cell's first slot adds the masked slots'
+// values in slot order and writes its cell.
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads) cell_sums_warp_kernel(
+    const float* __restrict__ mf, const float* __restrict__ mfx,
+    const float* __restrict__ mfy, const int* __restrict__ cell,
+    float* __restrict__ M, float* __restrict__ SX, float* __restrict__ SY,
+    int rows, int kcap, int ncells) {
+  extern __shared__ __align__(16) unsigned char csmem[];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp; nothing waits on the block
+  SumsRow& s = reinterpret_cast<SumsRow*>(csmem)[threadIdx.x >> 5];
+  const int64_t base = (int64_t)row * kcap;
+  int cv[kP], idx[kP];
+  float4 v[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const int i = lane + 32 * p;
+    cv[p] = -1;
+    v[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (i < kcap) {
+      cv[p] = cell[base + i];
+      v[p] = make_float4(mf[base + i], mfx[base + i], mfy[base + i], 0.0f);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    idx[p] = cv[p] >= 0 && cv[p] < ncells ? lane + 32 * p : -1;
+    s.sv[lane + 32 * p] = v[p];
+  }
+  unsigned long long mates[kP];
+  same_key_masks<kP>(s.key, s.mask, cv, idx, mates);  // syncs the stage too
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    if (idx[p] < 0 || (mates[p] & ((1ull << idx[p]) - 1ull))) continue;
+    float m = 0.0f, sx = 0.0f, sy = 0.0f;
+    for (unsigned long long g = mates[p]; g; g &= g - 1) {
+      const float4 u = s.sv[__ffsll((long long)g) - 1];
+      m += u.x;
+      sx += u.y;
+      sy += u.z;
+    }
+    M[cv[p]] = m;
+    SX[cv[p]] = sx;
+    SY[cv[p]] = sy;
+  }
+}
+
 __global__ void __launch_bounds__(kMaxThreads) cell_sums_kernel(
     const float* __restrict__ mf, const float* __restrict__ mfx,
     const float* __restrict__ mfy, const int* __restrict__ cell,
     float* __restrict__ M, float* __restrict__ SX, float* __restrict__ SY,
-    int kcap, int ncells) {
-  extern __shared__ int scell[];
-  const int64_t base = (int64_t)blockIdx.x * kcap;
-  for (int i = threadIdx.x; i < kcap; i += blockDim.x)
-    scell[i] = cell[base + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kcap; i += blockDim.x) {
-    const int c = scell[i];
-    if (c < 0 || c >= ncells) continue;
-    bool lead = true;
-    for (int j = 0; j < i && lead; ++j) lead = scell[j] != c;
-    if (!lead) continue;
-    float m = 0.0f, sx = 0.0f, sy = 0.0f;
-    for (int j = i; j < kcap; ++j) {
-      if (scell[j] != c) continue;
-      m += mf[base + j];
-      sx += mfx[base + j];
-      sy += mfy[base + j];
+    int rows, int kcap, int ncells, int tlog) {
+  extern __shared__ __align__(16) SumEntry stab[];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // a whole warp; nothing waits on the block
+  const int tsize = 1 << tlog;
+  SumEntry* tab = stab + (size_t)(threadIdx.x >> 5) * (tsize + 32);
+  float4* stage = reinterpret_cast<float4*>(tab + tsize);  // a round's values
+  for (int e = lane; e < tsize; e += 32) {
+    tab[e].key = -1;
+    tab[e].m = tab[e].sx = tab[e].sy = 0.0f;
+  }
+  const int64_t base = (int64_t)row * kcap;
+  const unsigned below = (1u << lane) - 1u;
+  int c = -1;
+  float m = 0.0f, sx = 0.0f, sy = 0.0f;
+  if (lane < kcap) {
+    c = cell[base + lane];
+    m = mf[base + lane];
+    sx = mfx[base + lane];
+    sy = mfy[base + lane];
+  }
+  __syncwarp();
+  for (int i0 = 0; i0 < kcap; i0 += 32) {
+    const int inext = i0 + 32 + lane;
+    int cn = -1;
+    float mn = 0.0f, sxn = 0.0f, syn = 0.0f;
+    if (inext < kcap) {
+      cn = cell[base + inext];
+      mn = mf[base + inext];
+      sxn = mfx[base + inext];
+      syn = mfy[base + inext];
     }
-    M[c] = m;
-    SX[c] = sx;
-    SY[c] = sy;
+    const bool valid = c >= 0 && c < ncells;
+    stage[lane] = make_float4(m, sx, sy, 0.0f);
+    __syncwarp();
+    const unsigned grp = __match_any_sync(kFull, valid ? c : -1 - lane);
+    if (valid && (grp & below) == 0) {  // the first slot of its cell here
+      unsigned h = ((unsigned)c * 0x9E3779B1u) >> (32 - tlog);
+      for (;;) {
+        const int old = atomicCAS(&tab[h].key, -1, c);
+        if (old == -1 || old == c) break;
+        h = (h + 1) & (tsize - 1);
+      }
+      float am = tab[h].m, asx = tab[h].sx, asy = tab[h].sy;
+      for (unsigned gm = grp; gm; gm &= gm - 1) {
+        const float4 v = stage[__ffs(gm) - 1];
+        am += v.x;
+        asx += v.y;
+        asy += v.z;
+      }
+      tab[h].m = am;
+      tab[h].sx = asx;
+      tab[h].sy = asy;
+    }
+    __syncwarp();  // the stage is free, the table up to date
+    c = cn;
+    m = mn;
+    sx = sxn;
+    sy = syn;
+  }
+  for (int e = lane; e < tsize; e += 32) {
+    const SumEntry t = tab[e];
+    if (t.key >= 0) {
+      M[t.key] = t.m;
+      SX[t.key] = t.sx;
+      SY[t.key] = t.sy;
+    }
   }
 }
 
@@ -756,21 +1367,27 @@ struct FusedArgs {
   float eps2, g;
 };
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
+// over the 48 KB a block may take without asking; once for each kernel and
+// size larger than any before (`opted`: the kernel's own record).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted) {
+  if (smem <= 48 * 1024 || smem <= opted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) opted = smem;
+  return err;
+}
+
 template <bool kV4, bool kCollide, bool kGate, int kRows, bool kSub>
 cudaError_t launch_fused(const FusedArgs& a, int threads, cudaStream_t stream) {
+  // The labelled form's twelve (K,) arrays and the static scratch are over
+  // 48 KB at K = 1024.
   const size_t smem = (size_t)(kSub ? 12 : 11) * a.kcap * sizeof(float);
   auto kernel = fused_pairs_kernel<kV4, kCollide, kGate, kRows, kSub>;
-  if constexpr (kSub) {
-    // Over 48 KB at K = 1024 with the static scratch: opt in, once for each
-    // instantiation and size larger than any before.
-    static size_t opted = 0;
-    if (smem > opted) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      opted = smem;
-    }
-  }
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(kernel, smem + 256, opted);
+  if (err != cudaSuccess) return err;
   kernel<<<a.ncells, threads, smem, stream>>>(a.x, a.y, a.mf, a.alive, a.pid,
                                               a.sub, a.fx, a.fy, a.ft,
                                               a.total, a.kcap, a.eps2, a.g);
@@ -791,6 +1408,27 @@ cudaError_t dispatch_fused(const FusedArgs& a, int collide, int gate,
   return launch_fused<kV4, true, false, kRows, false>(a, threads, s);
 }
 
+template <bool kV4, bool kCollide, int kP>
+cudaError_t launch_labelled_warp(const FusedArgs& a, int warps,
+                                 cudaStream_t s) {
+  const size_t smem = (size_t)warps * sizeof(WarpRow);
+  auto kernel = labelled_warp_kernel<kV4, kCollide, kP>;
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(kernel, smem, opted);
+  if (err != cudaSuccess) return err;
+  kernel<<<(a.ncells + warps - 1) / warps, warps * 32, smem, s>>>(
+      a.x, a.y, a.mf, a.alive, a.pid, a.sub, a.fx, a.fy, a.ft, a.total,
+      a.ncells, a.kcap, a.eps2, a.g);
+  return cudaGetLastError();
+}
+
+template <bool kV4, bool kCollide>
+cudaError_t dispatch_labelled_warp(const FusedArgs& a, int warps,
+                                   cudaStream_t s) {
+  if (a.kcap <= 32) return launch_labelled_warp<kV4, kCollide, 1>(a, warps, s);
+  return launch_labelled_warp<kV4, kCollide, 2>(a, warps, s);
+}
+
 bool whole_warps(int threads, int most) {
   return threads >= 32 && threads <= most && threads % 32 == 0;
 }
@@ -803,21 +1441,18 @@ bool whole_warps(int threads, int most) {
 // shape it does not take).
 //
 // total: one int, the count summed over the cells (0 with collide off);
-// sub: the same-cell labels, or null for the unlabelled kernels (the
-// labelled form is hit-gated only); rows: receivers per thread (1 or 2);
-// threads per block.
+// rows: receivers per thread (1 or 2); threads per block.
 extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
-                                const int* alive, const int* pid,
-                                const int* sub, float* fx, float* fy, int* ft,
-                                int* total, int ncells, int kcap, float eps2,
-                                float g, int collide, int v4, int gate,
-                                int rows, int threads, void* stream) {
-  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2) ||
-      (sub != nullptr && !gate))
+                                const int* alive, const int* pid, float* fx,
+                                float* fy, int* ft, int* total, int ncells,
+                                int kcap, float eps2, float g, int collide,
+                                int v4, int gate, int rows, int threads,
+                                void* stream) {
+  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(total, 0, sizeof(int), s);
-  const FusedArgs a = {x, y, mf, alive, pid, sub, fx, fy, ft, total,
+  const FusedArgs a = {x, y, mf, alive, pid, nullptr, fx, fy, ft, total,
                        ncells, kcap, eps2, g};
   if (v4 && rows == 1)
     return (int)dispatch_fused<true, 1>(a, collide, gate, threads, s);
@@ -825,6 +1460,45 @@ extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
   if (rows == 1)
     return (int)dispatch_fused<false, 1>(a, collide, gate, threads, s);
   return (int)dispatch_fused<false, 2>(a, collide, gate, threads, s);
+}
+
+// The labelled pass (hit-gated): sub holds the same-cell labels. With
+// row_warps > 0 the warp kernel (kcap <= 64), row_warps rows (warps) a
+// block; then rows must be ceil(kcap / 32) (a lane's slots) and threads 32
+// row_warps.
+// With row_warps == 0 the block kernel, a block a row, rows and threads as
+// for psim_fused_pairs.
+extern "C" int psim_labelled_pairs(const float* x, const float* y,
+                                   const float* mf, const int* alive,
+                                   const int* pid, const int* sub, float* fx,
+                                   float* fy, int* ft, int* total, int ncells,
+                                   int kcap, float eps2, float g, int collide,
+                                   int v4, int row_warps, int rows,
+                                   int threads, void* stream) {
+  if (sub == nullptr) return (int)cudaErrorInvalidValue;
+  if (row_warps > 0 ? (kcap > kWarpK || row_warps > kMaxWarpRows ||
+                       rows != (kcap + 31) / 32 || threads != 32 * row_warps)
+                    : (!whole_warps(threads, kMaxThreads) ||
+                       (rows != 1 && rows != 2)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(total, 0, sizeof(int), s);
+  const FusedArgs a = {x, y, mf, alive, pid, sub, fx, fy, ft, total,
+                       ncells, kcap, eps2, g};
+  if (row_warps > 0) {
+    if (v4 && collide)
+      return (int)dispatch_labelled_warp<true, true>(a, row_warps, s);
+    if (v4) return (int)dispatch_labelled_warp<true, false>(a, row_warps, s);
+    if (collide)
+      return (int)dispatch_labelled_warp<false, true>(a, row_warps, s);
+    return (int)dispatch_labelled_warp<false, false>(a, row_warps, s);
+  }
+  if (v4 && rows == 1)
+    return (int)dispatch_fused<true, 1>(a, collide, 1, threads, s);
+  if (v4) return (int)dispatch_fused<true, 2>(a, collide, 1, threads, s);
+  if (rows == 1)
+    return (int)dispatch_fused<false, 1>(a, collide, 1, threads, s);
+  return (int)dispatch_fused<false, 2>(a, collide, 1, threads, s);
 }
 
 // rows, threads: as for psim_fused_pairs; chunks: blocks per cell.
@@ -864,17 +1538,40 @@ extern "C" int psim_dense_collisions(const float* x, const float* y,
   return (int)cudaGetLastError();
 }
 
-// out: (3, ncells) floats, M, sum m x, sum m y; zeroed here, then each row's
-// cells written by one block of a warp per 32 slots (at most 256 threads).
+// out: (3, ncells) floats, M, sum m x, sum m y. parts: 1 zeroes out, 2 runs
+// the kernel (which writes only the cells of its rows), 3 both, as the
+// wrapper calls it; the two alone serve to time them apart. warps: rows
+// (warps) a block, 1 to 8. rounds: 0 takes the mask table up to K = 64, 1
+// the round kernel at any K (to time the two on the same rows).
 extern "C" int psim_cell_sums(const float* mf, const float* mfx,
                               const float* mfy, const int* cell, float* out,
-                              int rows, int kcap, int ncells, void* stream) {
+                              int rows, int kcap, int ncells, int warps,
+                              int parts, int rounds, void* stream) {
+  if (warps < 1 || warps > kMaxThreads / 32 || parts < 1 || parts > 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(out, 0, (size_t)3 * ncells * sizeof(float), s);
-  const int warps = (kcap + 31) / 32;
-  const int threads = warps < kMaxThreads / 32 ? warps * 32 : kMaxThreads;
-  cell_sums_kernel<<<rows, threads, (size_t)kcap * sizeof(int), s>>>(
-      mf, mfx, mfy, cell, out, out + ncells, out + 2 * (size_t)ncells, kcap,
-      ncells);
+  if (parts & 1) cudaMemsetAsync(out, 0, (size_t)3 * ncells * sizeof(float), s);
+  if (!(parts & 2)) return (int)cudaGetLastError();
+  const int blocks = (rows + warps - 1) / warps;
+  float* M = out;
+  float* SX = out + ncells;
+  float* SY = out + 2 * (size_t)ncells;
+  if (kcap <= kWarpK && !rounds) {
+    const size_t smem = (size_t)warps * sizeof(SumsRow);
+    auto kernel =
+        kcap <= 32 ? cell_sums_warp_kernel<1> : cell_sums_warp_kernel<2>;
+    kernel<<<blocks, warps * 32, smem, s>>>(mf, mfx, mfy, cell, M, SX, SY,
+                                            rows, kcap, ncells);
+    return (int)cudaGetLastError();
+  }
+  int tlog = 6;  // a table of at least 2 kcap slots, 64 at least
+  while ((1 << tlog) < 2 * kcap) ++tlog;
+  const size_t smem = (size_t)warps * ((1u << tlog) + 32) * sizeof(SumEntry);
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(cell_sums_kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
+  cell_sums_kernel<<<blocks, warps * 32, smem, s>>>(mf, mfx, mfy, cell, M, SX,
+                                                    SY, rows, kcap, ncells,
+                                                    tlog);
   return (int)cudaGetLastError();
 }

@@ -141,3 +141,34 @@ def plant_direct_cases(x, y, vx, vy, m, alive, side: float, pairs=()):
     if n >= 11:
         m[10], alive[10] = 0.0, False
     return planted
+
+
+LABEL_LAYOUTS = ("random", "one", "distinct", "gaps", "returning")
+
+
+def label_layouts(kcap: int, rows: int = 9, seed: int = 0):
+    """Same-cell labels for ``rows`` rows of ``kcap`` slots (int32), one
+    (rows, kcap) array per layout the labelled pass's grouping by label
+    risks:
+
+    * ``random``: labels 0-3 and -1 drawn per slot;
+    * ``one``: every label 0 (one run holds the row: the unlabelled pass);
+    * ``distinct``: every slot its own label (no pair may interact);
+    * ``gaps``: runs of three slots in slot order, each followed by a -1;
+    * ``returning``: labels 0, 1, 2 in turn, slot by slot, with every
+      seventh slot -1: each run is spread over the whole row, so a grouping
+      that does not keep slot order within a run sums in another order.
+
+    On ``adversarial_tiles``' rows the planted near pairs then fall within
+    one label, across labels or across runs.
+    """
+    rng = np.random.default_rng(seed)
+    i = np.broadcast_to(np.arange(kcap), (rows, kcap))
+    out = {
+        "random": rng.integers(-1, 4, (rows, kcap)),
+        "one": np.zeros((rows, kcap)),
+        "distinct": i,
+        "gaps": np.where(i % 4 == 3, -1, i // 4),
+        "returning": np.where(i % 7 == 6, -1, i % 3),
+    }
+    return {k: np.ascontiguousarray(v, dtype=np.int32) for k, v in out.items()}

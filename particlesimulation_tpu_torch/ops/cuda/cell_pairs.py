@@ -54,7 +54,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # Largest per-cell capacity the kernels take: the fused kernel's eleven (K,)
 # arrays of 4 bytes fit the 48 KB of shared memory a block may use without
 # opting in (the JAX package's MAX_DENSE_KCAP); its labelled form takes a
-# twelfth and opts in to more.
+# twelfth and opts in to more. The cell sums kernel takes any K up to it.
 MAX_KCAP = 1024
 INF = 0x7FFFFFFF
 FORCE_FORMS = ("v2", "v4")
@@ -121,14 +121,17 @@ def _library():
             ci = ctypes.c_int
             cf = ctypes.c_float
             lib.psim_fused_pairs.argtypes = (
+                [vp] * 9 + [ci, ci, cf, cf, ci, ci, ci, ci, ci, vp])
+            lib.psim_labelled_pairs.argtypes = (
                 [vp] * 10 + [ci, ci, cf, cf, ci, ci, ci, ci, ci, vp])
             lib.psim_dense_forces.argtypes = (
                 [vp] * 8 + [ci, ci, cf, ci, ci, ci, vp])
             lib.psim_dense_collisions.argtypes = (
                 [vp] * 6 + [ci, ci, cf, ci, vp])
-            lib.psim_cell_sums.argtypes = [vp] * 5 + [ci, ci, ci, vp]
-            for fn in (lib.psim_fused_pairs, lib.psim_dense_forces,
-                       lib.psim_dense_collisions, lib.psim_cell_sums):
+            lib.psim_cell_sums.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+            for fn in (lib.psim_fused_pairs, lib.psim_labelled_pairs,
+                       lib.psim_dense_forces, lib.psim_dense_collisions,
+                       lib.psim_cell_sums):
                 fn.restype = ci
             _lib = lib
         return _lib
@@ -221,15 +224,18 @@ def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
     fy = torch.empty_like(x)
     ft = torch.empty_like(pid)
     count = torch.empty((), dtype=torch.int32, device=x.device)
-    name = ("fused_pairs_sub" if sub is not None
-            else "fused_pairs" if gated else "fused_pairs_v1")
-    _launch(name, _library().psim_fused_pairs, x,
-            x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
-            pid.data_ptr(), None if sub is None else sub.data_ptr(),
-            fx.data_ptr(), fy.data_ptr(), ft.data_ptr(),
-            count.data_ptr(), ncells, kcap, _eps2(eps), G,
-            int(bool(collide)), int(force_form == "v4"), int(bool(gated)),
-            *fused_launch(kcap))
+    ptrs = (x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
+            pid.data_ptr())
+    outs = (fx.data_ptr(), fy.data_ptr(), ft.data_ptr(), count.data_ptr(),
+            ncells, kcap, _eps2(eps), G, int(bool(collide)),
+            int(force_form == "v4"))
+    if sub is not None:
+        _launch("fused_pairs_sub", _library().psim_labelled_pairs, x,
+                *ptrs, sub.data_ptr(), *outs, *labelled_launch(kcap))
+    else:
+        _launch("fused_pairs" if gated else "fused_pairs_v1",
+                _library().psim_fused_pairs, x, *ptrs, *outs,
+                int(bool(gated)), *fused_launch(kcap))
     return fx, fy, count, ft
 
 
@@ -304,6 +310,41 @@ def fused_launch(kcap: int):
     while threads < 256 and 10 * threads < 4 * kcap:
         threads *= 2
     return 2, threads
+
+
+# The labelled pass takes rows of up to WARP_ROW_KCAP slots a warp a row
+# (a lane's slots l and l + 32), wider rows a block a row.
+WARP_ROW_KCAP = 64
+LABELLED_ROW_WARPS = 2
+
+
+def labelled_launch(kcap: int):
+    """(rows a block, receivers a thread, threads a block) of the labelled
+    pass on (ncells, kcap) tiles. Up to ``WARP_ROW_KCAP`` slots a row: a
+    warp a row, ``LABELLED_ROW_WARPS`` rows a block, each lane the receiver
+    of its ceil(kcap / 32) slots. Wider rows: a block a row (0 rows a
+    block), in ``fused_launch``'s shape. On SMALL's tiles (16 900, 64)
+    (``launch_sweep.py --supercell``; device ms of v4 with collide on, on an
+    H100 80GB HBM3 at 700 W) 1, 2 and 4 rows a block gave 0.0252, 0.0251
+    and 0.0252, 8 and 16 gave 0.0266 and 0.0274; a block a row at 1 or 2
+    receivers and 32 or 64 threads 0.0712-0.0934."""
+    if kcap <= WARP_ROW_KCAP:
+        return LABELLED_ROW_WARPS, -(-kcap // 32), 32 * LABELLED_ROW_WARPS
+    return (0,) + fused_launch(kcap)
+
+
+def cell_sums_launch(kcap: int) -> int:
+    """Rows (warps) a block of the cell sums kernels on (rows, kcap) tiles:
+    8, or as many as 48 KB of shared memory hold. Up to ``WARP_ROW_KCAP``
+    slots a warp takes 2.6 KB; for wider rows its table takes 16 bytes for
+    each of 2 kcap rounded up to a power of two slots, and 32 more. On
+    SMALL's tiles (``launch_sweep.py --supercell``, an H100 80GB HBM3 at
+    700 W) 1, 2, 4 and 8 rows a block gave 0.0252, 0.0252, 0.0255 and
+    0.0254 device ms: the same within the spread."""
+    table = 64
+    while table < 2 * kcap:
+        table *= 2
+    return max(1, min(8, (48 * 1024) // (16 * (table + 32))))
 
 
 def force_launch(ncells: int, kcap: int, sms: int):
@@ -404,7 +445,8 @@ def supercell_cell_sums(mf, mfx, mfy, cell, ncells: int):
     out = torch.empty((3, ncells), dtype=torch.float32, device=mf.device)
     _launch("supercell_cell_sums", _library().psim_cell_sums, mf,
             mf.data_ptr(), mfx.data_ptr(), mfy.data_ptr(), cell.data_ptr(),
-            out.data_ptr(), rows, kcap, ncells)
+            out.data_ptr(), rows, kcap, ncells, cell_sums_launch(kcap), 3,
+            0)
     return out[0], out[1], out[2]
 
 

@@ -3,8 +3,9 @@
 Run on a machine with one CUDA card, from the repository root:
 
     python3 -m particlesimulation_tpu_torch.ops.cuda.launch_sweep
+    python3 -m particlesimulation_tpu_torch.ops.cuda.launch_sweep --supercell
 
-It builds the resident engine's pair-pass tiles after RESIDENT_STEPS steps
+The first builds the resident engine's pair-pass tiles after RESIDENT_STEPS steps
 of golden s1's configuration (the flagship) and of the same particles on
 coarser grids (RESIDENT_SWEEP: rows of ~200 and ~400 used slots), the dense
 engine's tiles of the flagship and the dense and tiered engines' tiles of
@@ -18,6 +19,16 @@ rules pick
 for bit. Times: CUDA events around each call, the calls queued behind a
 spin kernel, median of 10. The rules come from this table.
 
+``--supercell`` sweeps the supercell engine's two kernels instead, on
+SMALL's own pair-pass tiles (SMALL's configuration after SMALL_STEPS steps
+through the census): the labelled pass (v4 and v2, collide on and off) a
+warp a row at 1 to 16 rows a block, and a block a row at 1 or 2 receivers a
+thread and 32 or 64 threads, each against ``cell_pairs.labelled_launch``'s
+shape bit for bit; then the adversarial tiles at K = 160 and 1024 a block a
+row; then the cell sums kernel at 1 to 8 rows a block against
+``cell_pairs.cell_sums_launch``'s, with its zeroing of the output, its
+kernel and the round kernel (which rows of K > 64 take) timed apart.
+
 ``resident_tiles``, ``band_tiles``, ``class_tiles`` and ``dense_tiles`` also
 serve ``chip_smoke.py``.
 """
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -50,6 +62,12 @@ RESIDENT_SWEEP = (FLAGSHIP, (1, 5000.0, 70, 1_000_000),
                   (1, 5000.0, 50, 1_000_000))
 # The fused kernel's variants: (name, force form, hit-gated).
 FUSED_KINDS = (("v4", "v4", True), ("v2", "v2", True), ("v1", "v2", False))
+# SMALL (the reference report's sparse workload, seed 50, side 10000,
+# ncside 1300, N = 5e5): the census runs it on super-cells of S = 10.
+SMALL = (50, 10000.0, 1300, 500_000)
+SMALL_STEPS = 10
+# The labelled pass's variants: (force form, collide).
+LABELLED_KINDS = (("v4", True), ("v4", False), ("v2", True))
 
 
 def device_ms(fn, reps):
@@ -167,6 +185,125 @@ def sweep_fused(label, tiles):
           + "; ".join(parts) + f"; rule {rule}", flush=True)
 
 
+def supercell_tiles(config, kcap, S, state, steps=SMALL_STEPS):
+    """The (x, y, mf, alive, pid, sub) tiles the supercell engine's labelled
+    pass takes at step ``steps`` of a run from ``state``."""
+    from particlesimulation_tpu_torch.ops.supercell import make_supercell_run
+
+    return make_supercell_run(config, kcap, S)[1](state, steps)
+
+
+def _labelled(tiles, form, collide, shape):
+    """The labelled pass in launch shape (rows a block, receivers a thread,
+    threads a block); (fx, fy, count, ft) as ``cell_pairs.fused_pairs``
+    returns them."""
+    x, y, mf, alive, pid, sub = tiles
+    fx, fy = torch.empty_like(x), torch.empty_like(x)
+    ft = torch.empty_like(pid)
+    count = torch.empty((), dtype=torch.int32, device=x.device)
+    cell_pairs._launch(
+        "fused_pairs_sub", cell_pairs._library().psim_labelled_pairs, x,
+        x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),
+        pid.data_ptr(), sub.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+        ft.data_ptr(), count.data_ptr(), x.shape[0], x.shape[1],
+        cell_pairs._eps2(EPSILON), G, int(collide), int(form == "v4"),
+        *shape)
+    return fx, fy, count, ft
+
+
+def sweep_labelled(label, tiles):
+    """The labelled pass's launch shapes on one tile set, each one's outputs
+    equal to the rule's shape's bit for bit; prints one line."""
+    rows, kcap = tiles[0].shape
+    rule = cell_pairs.labelled_launch(kcap)
+    shapes = {(0, r, t) for r in (1, 2) for t in (32, 64, 96, 128, 192, 256)
+              if t <= 64 or kcap > cell_pairs.WARP_ROW_KCAP}
+    if kcap <= cell_pairs.WARP_ROW_KCAP:
+        shapes |= {(w, -(-kcap // 32), 32 * w) for w in (1, 2, 4, 8, 16)}
+    parts = []
+    for form, collide in LABELLED_KINDS:
+        ref = _labelled(tiles, form, collide, rule)
+        times = []
+        for shape in sorted(shapes | {rule}):
+            got = _labelled(tiles, form, collide, shape)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"{label}: labelled {form} collide="
+                                     f"{collide} of launch {shape} differs "
+                                     f"from the rule's launch {rule}")
+            times.append((shape, device_ms(
+                lambda: _labelled(tiles, form, collide, shape), 10)))
+        parts.append(f"{form} collide={collide} "
+                     + ", ".join(f"{s}={t:.4f}" for s, t in times))
+    print(f"{label} ({rows}, {kcap}): labelled (rows a block, receivers a "
+          f"thread, threads) ms: " + "; ".join(parts) + f"; rule {rule}",
+          flush=True)
+
+
+def _cell_sums(args, warps, parts=3, rounds=0):
+    """The cell sums kernel at ``warps`` rows a block; ``parts`` 1 only
+    zeroes the output, 2 only runs the kernel, 3 both; ``rounds`` 1 takes
+    the round kernel whatever K."""
+    mf, mfx, mfy, cell, ncells = args
+    out = torch.empty((3, ncells), dtype=torch.float32, device=mf.device)
+    cell_pairs._launch(
+        "supercell_cell_sums", cell_pairs._library().psim_cell_sums, mf,
+        mf.data_ptr(), mfx.data_ptr(), mfy.data_ptr(), cell.data_ptr(),
+        out.data_ptr(), mf.shape[0], mf.shape[1], ncells, warps, parts,
+        rounds)
+    return out
+
+
+def sweep_cell_sums(label, args):
+    """The cell sums kernel at 1 to 8 rows a block, each equal to the
+    rule's bit for bit, and at the rule's shape its zeroing, its kernel and
+    the round kernel (which wider rows take) timed apart; prints one
+    line."""
+    rows, kcap = args[0].shape
+    rule = cell_pairs.cell_sums_launch(kcap)
+    ref = _cell_sums(args, rule)
+    times = []
+    for w in sorted({1, 2, 4, 8, rule}):
+        if not torch.equal(_cell_sums(args, w), ref):
+            raise AssertionError(f"{label}: cell sums at {w} rows a block "
+                                 f"differ from the rule's {rule}")
+        times.append((w, device_ms(lambda: _cell_sums(args, w), 10)))
+    zero = device_ms(lambda: _cell_sums(args, rule, 1), 10)
+    kern = device_ms(lambda: _cell_sums(args, rule, 2), 10)
+    if not torch.equal(_cell_sums(args, rule, 3, 1), ref):
+        raise AssertionError(f"{label}: the round kernel differs")
+    rounds = device_ms(lambda: _cell_sums(args, rule, 2, 1), 10)
+    print(f"{label} ({rows}, {kcap}) onto {args[4]} cells: cell sums rows a "
+          f"block ms: " + ", ".join(f"{w}={t:.4f}" for w, t in times)
+          + f"; at the rule's {rule}: zeroing alone {zero:.4f}, kernel alone "
+          f"{kern:.4f}; the round kernel (__match_any_sync) alone "
+          f"{rounds:.4f}", flush=True)
+
+
+def supercell_main():
+    """The supercell engine's kernels on SMALL's tiles (``--supercell``)."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        adversarial_tiles, label_layouts)
+
+    config = SimConfig(*SMALL)
+    eng = Engine(config, device="cuda")
+    state = eng.init_state()
+    S = eng._supercell_factor()
+    tiles = supercell_tiles(config, eng.kcap, S, state)
+    sweep_labelled(f"SMALL tiles (S = {S})", tiles)
+    for kcap in (160, 1024):
+        adv = [torch.from_numpy(a).cuda() for a in adversarial_tiles(kcap)]
+        for name in ("random", "one"):
+            sub = torch.from_numpy(label_layouts(kcap)[name]).cuda()
+            sweep_labelled(f"adversarial tiles, labels {name}", adv + [sub])
+    x, y, mf, _, _, sub = tiles
+    cx, cy, _ = res.cell_of(x, y, config.side, config.ncside)
+    cell = torch.where(sub >= 0, cy * config.ncside + cx, -1).to(torch.int32)
+    sweep_cell_sums("SMALL tiles", (mf, mf * x, mf * y, cell, config.ncells))
+
+
 def _forces(x, y, m, ml, mxl, myl, shape):
     """The force kernel in launch shape (rows, threads, chunks)."""
     fx, fy = torch.empty_like(x), torch.empty_like(x)
@@ -238,6 +375,9 @@ def main():
                          text=True, check=True)
     print(f"{smi.stdout.strip().splitlines()[0]}, "
           f"{cell_pairs._sm_count(0)} SMs", flush=True)
+    if sys.argv[1:] == ["--supercell"]:
+        supercell_main()
+        return
     for args in RESIDENT_SWEEP:
         config = SimConfig(*args)
         eng = Engine(config, device="cuda", impl="resident")
