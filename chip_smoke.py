@@ -199,6 +199,44 @@ aq. the minimum image's threshold: two particles whose displacement is
    same cases, and pairs near EPSILON across the periodic edge and near the
    collision window's edges, give the plain version's partners.
 
+Then the tile step's advance phase (``ops/cuda/advance``: the cells'
+sums, the monopole terms with the integrator, the one-pass delivery; three
+kernels of ``csrc/advance.cu``), right after the pair kernels' checks and
+before the resident path runs on them:
+
+ar. ``deliver`` against the plain version on the card, every field of
+   every slot (holes and their stale values included) and the undelivered
+   count bit for bit, and against itself in a second run: on the flagship
+   run's own post-integrate tiles (the movers a step printed), on a subset
+   of 20 000 of them through ``at=``, on UNEVEN's banded pool (13 bands,
+   rows of 13 widths), and on ``adversarial.deliver_cases`` at K = 32, 160
+   and 1024 (hops of up to 2 cells and across the box edge, limbo slots; a
+   row receiving more than 32 and more than K/2 movers; two full rows
+   swapping particles, each arrival in a slot vacated in the same step; a
+   full row with 2 movers bound for it: nothing moves, 2 undelivered);
+as. ``cell_sums_rows`` against ``torch.sum`` on the card (the plain
+   version) within (K·2⁻²⁴)·Σ|terms| a row, the limbo count exactly, and
+   against itself bit for bit, on the same tiles;
+at. ``monopole_integrate`` against the plain composition on the card,
+   from the kernel's sums, every output bit for bit: the flagship's tiles,
+   UNEVEN's pool, and ``adversarial.advance_case`` (edge cells and their
+   mirror offsets, a d² = 0 term, frozen m = 0 slots, positions one ulp
+   below side and just below 0 at rest, an empty cell); each kernel timed
+   on the flagship's tiles against its bound, the cell sums beside three
+   ``torch.sum`` calls; golden s1 through resident and UNEVEN through
+   banded must launch all three, and the advance phase of each must issue
+   at most 10 kernel launches a step (torch.profiler over 5 calls of the
+   phase, caught where the engine hands it to ``make_tile_run``);
+au. ``python3 chip_smoke.py --advance-times ROOT [ROOT ...]``: for each
+   checkout in turn (a process each; parent, change, change, parent), the
+   flagship resident path, UNEVEN banded and N = 1e7 resident and banded:
+   ms/step, device ms/step, idle share and launches a step, and the
+   advance phase's own launches and device ms; where the checkout has the
+   kernels, their times on the flagship's tiles against their bounds.
+
+``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
+s1 through resident and UNEVEN through banded (launches, no host sync,
+the advance phase's launches, cuda == cpu on a small config of each);
 ``python3 chip_smoke.py --supercell`` runs phases h-l alone;
 ``python3 chip_smoke.py --supercell-times ROOT [ROOT ...]`` runs the
 supercell engine's two kernels with the port package of each checkout ROOT
@@ -271,6 +309,12 @@ Tolerances:
     within 2e-5·side; at 1e7 against resident, the count and dead set exact
     and positions within 1e-6·side (the same function on the same cell
     rows, another split of the pool).
+  * the advance kernels: the delivery and the monopole pass bit for bit
+    their plain versions (the delivery's placement decides the fused
+    kernel's summation order; the monopole pass rounds each f32 operation
+    as eager torch does), the cell sums within (K·2⁻²⁴)·Σ|terms| of
+    torch.sum (another order of the same f32 additions) and bit for bit
+    themselves in a second run;
   * the direct force kernel: per particle and axis within ((K + 16 + P -
     1)·u + (N - 1)·2⁻⁵³)·S of the plain version's own terms summed in
     float64, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum of
@@ -290,6 +334,13 @@ Tolerances:
     there the forces are equal bit for bit. The direct collision kernel:
     its partners exactly (the minimum image and d² are correctly rounded
     in both versions, and the threshold gives JAX's image bit for bit);
+
+Bounds of the advance kernels (bytes, each over 3.35 TB/s): the cell
+sums read x, y, m and occ (13 bytes a slot) and write 12 bytes a row; the
+monopole pass reads x, y, vx, vy, m, fxd, fyd and occ (29) and writes x,
+y, vx, vy, dest and moving (21); the delivery's outputs are new tiles, so
+it reads x, y, vx, vy, m, pid, occ and moving (26) and writes the seven
+fields (25) a slot, and reads each mover's destination (4).
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -395,14 +446,26 @@ REPLACES = {
     "direct_forces": "particlesimulation_tpu/models/direct_nbody.py:36-80",
     "direct_collisions":
         "particlesimulation_tpu/models/direct_nbody.py:105-117",
+    # XLA code of the tile step's advance phase: mono_tables' row sums,
+    # monopole_tile_forces (with stencil_tables and integrate), and rebin
+    # (the port's one-pass deliver).
+    "cell_sums_rows": "particlesimulation_tpu/engine.py:335-344",
+    "monopole_integrate": "particlesimulation_tpu/ops/dense_xla.py:1205",
+    "deliver": "particlesimulation_tpu/ops/resident.py:102",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
+ADVANCE_SOURCE = "particlesimulation_tpu_torch/csrc/advance.cu"
 # The kernels' names in csrc/, as the profiler reports them.
 PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "dense_forces_kernel", "dense_collisions_kernel",
                 "cell_sums_kernel", "cell_sums_warp_kernel",
-                "direct_forces_kernel", "direct_collisions_kernel")
+                "direct_forces_kernel", "direct_collisions_kernel",
+                "cell_sums_rows_kernel", "monopole_integrate_kernel",
+                "deliver_count_kernel", "deliver_bucket_kernel",
+                "deliver_place_kernel", "deliver_expand_kernel")
+# The advance phase's kernels (ops/cuda/advance), by their launch counts.
+ADVANCE_KERNELS = ("cell_sums_rows", "monopole_integrate", "deliver")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -788,16 +851,29 @@ def check_tiles(label, tile_sets):
                       .format(k, *v) for k, v in sums.items()), flush=True)
 
 
+def reset_launches():
+    """Set the launch counts of the tile kernels to 0."""
+    from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
+
+    cell_pairs.reset_launches()
+    advance.reset_launches()
+
+
+def read_launches():
+    """The tile kernels' launch counts, by name."""
+    from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
+
+    return {**cell_pairs.LAUNCHES, **advance.LAUNCHES}
+
+
 def drive(label, eng, state, steps, kernels):
     """One run of a path with the launch counts set to 0 just before it and
     read just after; fails if a kernel of the path did not launch."""
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-
     torch.cuda.synchronize()
-    cell_pairs.reset_launches()
+    reset_launches()
     out = eng.run(state, steps)
     torch.cuda.synchronize()
-    launches = dict(cell_pairs.LAUNCHES)
+    launches = read_launches()
     x, y, c = eng.result(out)
     finite = bool(torch.isfinite(out.x).all() and torch.isfinite(out.y).all())
     print(f"{label} on cuda: {eng.impl}, kcap {eng.kcap}, particle 0 "
@@ -893,11 +969,17 @@ def step_ms(eng, state, k, reps=2):
 def _profile(eng, state, steps):
     """(device ms, kernel launches) of one run of ``steps``, by name:
     [(ms, launches, name)], from torch.profiler."""
+    return _profile_fn(lambda: eng.run(state, steps))
+
+
+def _profile_fn(fn):
+    """[(device ms, launches, name)] of one call of ``fn`` (torch.profiler;
+    copies and memsets count no launch)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.run(state, steps)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for evt in prof.key_averages():
@@ -925,15 +1007,18 @@ def _syncs(eng, state, steps):
 
 
 def device_breakdown(label, eng, state, step_ms_host, steps=10):
-    """Device time per step by kernel name (torch.profiler over a run of
-    ``steps``, its prologue and epilogue included), the share of the
-    unprofiled step the device is idle, and per step the kernel launches
-    and host synchronisations (a run of ``steps`` less a run of 0)."""
+    """Device time per step by kernel name, the share of the unprofiled
+    step the device is idle, and per step the kernel launches and host
+    synchronisations: each a run of ``steps`` less a run of 0 (its
+    prologue and epilogue), over ``steps`` (torch.profiler; torch's sync
+    debug mode)."""
     rows = _profile(eng, state, steps)
     rows0 = _profile(eng, state, 0)
     launches = (sum(n for _, n, _ in rows) - sum(n for _, n, _ in rows0)) / steps
     syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
-    rows = sorted(((ms / steps, key) for ms, _, key in rows), reverse=True)
+    base = {key: ms for ms, _, key in rows0}
+    rows = sorted((((ms - base.get(key, 0.0)) / steps, key)
+                   for ms, _, key in rows), reverse=True)
     total = sum(ms for ms, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.4f}" for ms, key in rows[:8])
     ours = {name: sum(ms for ms, key in rows if name in key)
@@ -1085,18 +1170,17 @@ def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
     counts set to 0 just before it:
     ``kernel`` must have launched. Returns the launch counts."""
     from particlesimulation_tpu_torch import cli
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
     seed, side, nc, n, steps, ex, ey, ec = vec
     args = [str(seed), f"{side:g}", str(nc), str(n), str(steps),
             "--engine", "fast", *extra]
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
-    cell_pairs.reset_launches()
+    reset_launches()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(args)
     torch.cuda.synchronize()
-    launches = dict(cell_pairs.LAUNCHES)
+    launches = read_launches()
     lines = out.getvalue().splitlines()
     print(f"CLI {' '.join(args)} in-process on cuda: rc {rc}, {lines}, "
           f"{err.getvalue().strip()} on stderr, launches {launches}",
@@ -1436,7 +1520,9 @@ def check_banded(card, tiered, dense):
     if eng.impl != "banded" or eng._band_plan != UNEVEN_BANDS:
         raise AssertionError(f"UNEVEN census: {eng.impl} {eng._band_plan}")
     _, launches = check_golden("UNEVEN banded", eng, state, 2, UNEVEN_2,
-                               ["fused_pairs"])
+                               ["fused_pairs", *ADVANCE_KERNELS])
+    check_advance_launches("UNEVEN banded", _tile_phases(
+        make_banded_run, un, UNEVEN_BANDS), state)
     runs = []
     for e in (eng, Engine(un, device="cuda", impl="dense")):
         out = e.run(state, 10)
@@ -1483,7 +1569,8 @@ def check_banded(card, tiered, dense):
     outs = []
     for label, e, st in (("1e7 banded", eng_b, state_b),
                          ("1e7 resident", eng_r, state_r)):
-        out, _, _ = drive(label, e, st, 10, ["fused_pairs"])
+        out, _, _ = drive(label, e, st, 10, ["fused_pairs",
+                                             *ADVANCE_KERNELS])
         outs.append((int(out.collisions), out, big.side))
     same = all(torch.equal(getattr(outs[0][1], f), getattr(outs[1][1], f))
                for f in ("x", "y", "vx", "vy", "m", "alive", "pid"))
@@ -2572,19 +2659,474 @@ def check_direct_threshold():
           f"version's", flush=True)
 
 
-def build_libraries():
-    """Build both kernel libraries from the checkout's sources, one nvcc
-    each, started together; print each one's -Xptxas -v report."""
-    from concurrent.futures import ThreadPoolExecutor
+# --- The advance phase (phases ar-au) --------------------------------------
 
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, direct_nbody
+
+def _bits_equal(a, b):
+    """Whether two tensors hold the same values bit for bit (floats by their
+    bit patterns: -0 and +0 differ, NaNs compare by payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _max_diff(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+ADVANCE_FIELDS = ("x", "y", "vx", "vy", "m", "occ", "pid")
+
+
+def _tile_phases(build, *args):
+    """(prologue, advance, pair_pass) of a tile run, as the engine's maker
+    (``make_resident_run``, ``make_banded_run``) hands them to
+    ``ops/resident.make_tile_run``: caught there while ``build`` runs."""
+    from particlesimulation_tpu_torch.ops import resident as res
+
+    got = {}
+    orig = res.make_tile_run
+
+    def spy(prologue, advance, pair_args, pair_pass, *rest, **kw):
+        got.update(prologue=prologue, advance=advance, pair_pass=pair_pass)
+        return orig(prologue, advance, pair_args, pair_pass, *rest, **kw)
+
+    res.make_tile_run = spy
+    try:
+        build(*args)
+    finally:
+        res.make_tile_run = orig
+    return got
+
+
+def _advance_inputs(phases, state):
+    """The tiles the first step's advance phase takes: the prologue's, and
+    the first pair pass's forces."""
+    ts = phases["prologue"](state)
+    fxd, fyd, _, _ = phases["pair_pass"](ts, collide=False)
+    return ts, fxd, fyd
+
+
+def check_advance_launches(label, phases, state, most=10):
+    """The advance phase of a path must issue at most ``most`` kernel
+    launches a step."""
+    rec = advance_phase(label, phases, state)
+    if rec["advance_launches"] > most:
+        raise AssertionError(f"{label}: the advance phase issues "
+                             f"{rec['advance_launches']} launches")
+    return rec
+
+
+def advance_phase(label, phases, state):
+    """The advance phase of a step alone (the first step's, after a warm-up
+    call): its kernel launches and device ms a call, from torch.profiler
+    over 5 calls, each kernel's count over 5 rounded (a short profile late
+    in a long process was seen to miss a kernel or two of the port's
+    libraries)."""
+    ts, fxd, fyd = _advance_inputs(phases, state)
+    phases["advance"](ts, fxd, fyd)
+    reps = 5
+
+    def calls():
+        for _ in range(reps):
+            phases["advance"](ts, fxd, fyd)
+
+    rows = [(ms / reps, round(n / reps), key)
+            for ms, n, key in _profile_fn(calls)]
+    launches = sum(n for _, n, _ in rows)
+    dev = sum(ms for ms, _, _ in rows)
+    top = "; ".join(f"{k[:40]} {ms:.4f} ({n:g})" for ms, n, k in sorted(
+        rows, reverse=True)[:6])
+    print(f"{label}: the advance phase issues {launches:g} kernel launches, "
+          f"{dev:.4f} device ms; by kernel (ms, launches): {top}",
+          flush=True)
+    return {"advance_launches": launches, "advance_device_ms": dev}
+
+
+def _cell_sums_bound(nslots, nrows):
+    """(bound_ms, bound_by, sfu_ms): x, y, m (4 bytes) and occ (1) read a
+    slot, the row starts read and M, SX, SY written a row, the limbo count;
+    7 f32 operations a slot (the cell's two divisions, two products, three
+    sums)."""
+    return _bound(13 * nslots + 20 * nrows + 12, 7 * nslots, 0)
+
+
+def _monopole_bound(nslots, nrows):
+    """x, y, vx, vy, m, fxd, fyd (4 bytes) and occ read a slot, x, y, vx, vy,
+    dest (4) and moving (1) written; the rows' sums and starts read once;
+    ~150 f32 operations a slot (8 terms of 14 and an rsqrt, the integrator,
+    two cells) and 8 rsqrt."""
+    return _bound(50 * nslots + 20 * nrows, 150 * nslots, 8 * nslots)
+
+
+def _deliver_bound(nslots, nrows, movers):
+    """The function's outputs are new tiles: x, y, vx, vy, m, pid (4 bytes),
+    occ and moving (1) read and the seven fields written a slot, each
+    mover's destination read, the row starts read."""
+    return _bound(51 * nslots + 4 * movers + 8 * nrows, 0, 0)
+
+
+def _record(rec, bound):
+    rec["bound_ms"], rec["bound_by"], rec["sfu_ms"] = bound
+    return rec
+
+
+def check_cell_sums_rows(tag, ts, rs, side, nc, timed=False):
+    """(as) The kernel against torch.sum on the card (the plain version)
+    within (K·2⁻²⁴)·Σ|terms| a row, K the row's width; the limbo count
+    exactly; against itself in a second run bit for bit. With ``timed``,
+    the record: ms, device ms, plain ms and the three torch.sum calls'
+    (library) ms on the same terms."""
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+
+    args = (ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    got, limbo = adv.cell_sums_rows(*args)
+    again, limbo2 = adv.cell_sums_rows(*args)
+    ref, rlimbo = adv.cell_sums_rows_ref(*args)
+    x, y, m, occ = (t.reshape(-1) for t in (ts.x, ts.y, ts.m, ts.occ))
+    _, _, valid = res.cell_of(x, y, side, nc)
+    mf = torch.where(occ & valid, m, 0.0)
+    terms = (mf, mf * x, mf * y)
+    row = adv._row_of(rs)
+    nrows = rs.numel() - 1
+    width = (rs[1:] - rs[:-1]).double()
+    worst = 0.0
+    for g, r, t in zip(got, ref, terms):
+        mag = torch.zeros(nrows, dtype=torch.float64,
+                          device=t.device).index_add_(0, row,
+                                                      t.abs().double())
+        err = (g.double() - r.double()).abs()
+        tol = width * 2.0 ** -24 * mag
+        if bool((err > tol).any()):
+            raise AssertionError(f"{tag}: cell sums beyond (K 2^-24) sum|t| "
+                                 f"in {int((err > tol).sum())} rows")
+        ratio = err / torch.clamp(tol, min=1e-300)
+        worst = max(worst, float(ratio.max()))
+    if int(limbo) != int(rlimbo) or not (_bits_equal(got, again)
+                                         and int(limbo2) == int(limbo)):
+        raise AssertionError(f"{tag}: limbo {int(limbo)} vs {int(rlimbo)}, "
+                             f"second run equal {_bits_equal(got, again)}")
+    rec = {"max_abs_err": _max_diff(got, ref)}
+    print(f"{tag}: cell_sums_rows on {nrows} rows, {x.numel()} slots: within "
+          f"{worst:.3f} of the bound (K 2^-24 sum|t|) of torch.sum, "
+          f"max|d|={rec['max_abs_err']:.3e}, limbo {int(limbo)} exact, "
+          f"a second run bit for bit", flush=True)
+    if timed:
+        mf2, mx2, my2 = (t.view(ts.x.shape) for t in terms)
+
+        def library():
+            return (torch.sum(mf2, dim=1), torch.sum(mx2, dim=1),
+                    torch.sum(my2, dim=1))
+
+        rec.update(_kernel_times(lambda: adv.cell_sums_rows(*args),
+                                 lambda: adv.cell_sums_rows_ref(*args)))
+        rec["library_ms"] = _timed(library, 20)
+        rec["library_device_ms"] = device_ms(library, 20)
+        _record(rec, _cell_sums_bound(x.numel(), nrows))
+    return got, rec
+
+
+def check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, side, nc,
+                             timed=False):
+    """(at) The kernel against the plain composition on the card from the
+    same sums, every output bit for bit; with ``timed``, the record."""
+    from particlesimulation_tpu_torch.config import DELTAT
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    args = (ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums, rs, side,
+            nc, DELTAT)
+    got = adv.monopole_integrate(*args)
+    ref = adv.monopole_integrate_ref(*args)
+    names = ("x", "y", "vx", "vy", "dest", "moving")
+    bad = [n for n, a, b in zip(names, got, ref) if not _bits_equal(a, b)]
+    if bad:
+        diff = {n: int((a != b).sum()) for n, a, b in zip(names, got, ref)
+                if n in bad}
+        raise AssertionError(f"{tag}: monopole_integrate differs from the "
+                             f"plain composition in {diff} slots")
+    rec = {"max_abs_err": max(_max_diff(a, b) for a, b in zip(got, ref))}
+    print(f"{tag}: monopole_integrate bit for bit the plain composition "
+          f"(x, y, vx, vy, dest, moving) on {ts.x.numel()} slots, "
+          f"{int(got[5].sum())} movers", flush=True)
+    if timed:
+        rec.update(_kernel_times(lambda: adv.monopole_integrate(*args),
+                                 lambda: adv.monopole_integrate_ref(*args)))
+        rec["library_ms"] = None
+        _record(rec, _monopole_bound(ts.x.numel(), rs.numel() - 1))
+    return got, rec
+
+
+def check_deliver(tag, ts, moving, dest, rs, at=None, timed=False):
+    """(ar) The kernel against the plain deliver on the card: every field
+    of every slot bit for bit, and undelivered; against itself in a second
+    run. Returns (movers, undelivered, out, record)."""
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    args = (ts, moving, dest, rs, at)
+    got, left = adv.deliver(*args)
+    again, left2 = adv.deliver(*args)
+    ref, rleft = adv.deliver_ref(*args)
+    bad = [k for k in ADVANCE_FIELDS
+           if not _bits_equal(getattr(got, k), getattr(ref, k))]
+    redo = [k for k in ADVANCE_FIELDS
+            if not _bits_equal(getattr(got, k), getattr(again, k))]
+    if bad or redo or not int(left) == int(rleft) == int(left2):
+        raise AssertionError(f"{tag}: deliver differs from the plain "
+                             f"version in {bad}, from itself in {redo}; "
+                             f"undelivered {int(left)}, {int(left2)} vs "
+                             f"{int(rleft)}")
+    movers = int(moving.sum())
+    print(f"{tag}: deliver bit for bit the plain version in every field "
+          f"and slot ({ts.x.numel()} slots, {rs.numel() - 1} rows, "
+          f"{movers} movers{'' if at is None else f' among {at.numel()} at= slots'}"
+          f", undelivered {int(left)}), and a second run", flush=True)
+    rec = {"max_abs_err": 0.0}
+    if timed:
+        rec.update(_kernel_times(lambda: adv.deliver(*args),
+                                 lambda: adv.deliver_ref(*args)))
+        rec["library_ms"] = None
+        _record(rec, _deliver_bound(ts.x.numel(), rs.numel() - 1, movers))
+    return movers, int(left), got, rec
+
+
+def _movers(ts, side, nc, rs):
+    """Each slot's destination row and moving flag as rebin marks them."""
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    cx, cy, valid = res.cell_of(ts.x, ts.y, side, nc)
+    dest = cy * nc + cx
+    row = adv._row_of(rs).view(ts.x.shape)
+    return ts.occ & valid & (dest != row), dest
+
+
+def _cuda_tiles(fields):
+    from particlesimulation_tpu_torch.ops import resident as res
+
+    z = torch.zeros((), device="cuda")
+    return res.TileState(
+        **{k: torch.from_numpy(fields[k].copy()).cuda()
+           for k in ADVANCE_FIELDS},
+        collisions=z.long(), panics=z.int(), overflow=z.int())
+
+
+def flagship_advance():
+    """(ar-at on the main path) The three kernels on the flagship's own
+    tiles (golden s1's config: the resident engine's prologue and first pair
+    pass), each checked against its plain version and timed against its
+    bound. Returns (records, the post-integrate tiles, the monopole pass's
+    outputs, the row starts)."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine, make_resident_run
+
+    s1 = SimConfig(*GOLDEN_S1[:4])
+    eng = Engine(s1, device="cuda")
+    state = eng.init_state()
+    kcap = eng.kcap
+    ts, fxd, fyd = _advance_inputs(
+        _tile_phases(make_resident_run, s1, kcap), state)
+    rs = torch.arange(s1.ncells + 1, device="cuda") * kcap
+    tag = f"flagship tiles ({s1.ncells}, {kcap})"
+    recs = {}
+    sums, recs["cell_sums_rows"] = check_cell_sums_rows(
+        tag, ts, rs, s1.side, s1.ncside, timed=True)
+    out, recs["monopole_integrate"] = check_monopole_integrate(
+        tag, ts, fxd, fyd, sums, rs, s1.side, s1.ncside, timed=True)
+    post = ts._replace(x=out[0], y=out[1], vx=out[2], vy=out[3])
+    movers, _, _, recs["deliver"] = check_deliver(
+        "flagship post-integrate tiles", post, out[5], out[4], rs,
+        timed=True)
+    print(f"flagship (N = {s1.n_particles}, kcap {kcap}): {movers} movers "
+          f"a step (the first; {movers / s1.n_particles:.4%} of the "
+          f"particles)", flush=True)
+    for name, rec in recs.items():
+        _report(f"{name} on the flagship's tiles", rec)
+    lib = recs["cell_sums_rows"]
+    print(f"  torch.sum x 3 on the same terms (library): "
+          f"{lib['library_ms']:.4f} ms a call, {lib['library_device_ms']:.4f}"
+          f" device", flush=True)
+    return recs, post, out, rs
+
+
+def check_advance(card):
+    """(ar-at) The three advance kernels against their plain versions on
+    the card: on the flagship's own tiles (golden s1's config, the resident
+    engine's prologue and first pair pass), on UNEVEN's banded pool (13
+    bands, rows of 13 widths), on an at= subset, on the adversarial tiles
+    of ``adversarial.deliver_cases`` and ``advance_case`` at K = 32, 160
+    and 1024; then each kernel timed on the flagship's tiles against its
+    bound. Returns {kernel: record}."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
+                                                         row_starts)
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        UNEVEN_BANDS)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(cell_pairs.build, (cell_pairs.SOURCE,
-                                                direct_nbody.SOURCE)))
+    adversarial = _adversarial_module()
+    recs, post, out, rs = flagship_advance()
+    rng = np.random.default_rng(14)
+    at = torch.from_numpy(np.sort(rng.choice(post.x.numel(), 20_000,
+                                             replace=False))).cuda()
+    check_deliver("flagship post-integrate tiles, at= 20 000 slots", post,
+                  out[5].reshape(-1)[at], out[4].reshape(-1)[at], rs, at=at)
+
+    un = SimConfig(*UNEVEN)
+    eng_u = Engine(un, device="cuda")
+    state_u = eng_u.init_state()
+    if eng_u.impl != "banded" or eng_u._band_plan != UNEVEN_BANDS:
+        raise AssertionError(f"UNEVEN census: {eng_u.impl}")
+    ph = _tile_phases(make_banded_run, un, UNEVEN_BANDS)
+    ts, fxd, fyd = _advance_inputs(ph, state_u)
+    rs = row_starts(UNEVEN_BANDS, un.ncside, "cuda")
+    widths = sorted({k for _, _, k in UNEVEN_BANDS})
+    tag = f"UNEVEN banded pool ({len(UNEVEN_BANDS)} bands, widths {widths})"
+    sums, _ = check_cell_sums_rows(tag, ts, rs, un.side, un.ncside)
+    out, _ = check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, un.side,
+                                      un.ncside)
+    check_deliver(tag + ", post-integrate", ts._replace(
+        x=out[0], y=out[1], vx=out[2], vy=out[3]), out[5], out[4], rs)
+
+    for k in (32, 160, 1024):
+        fields, afx, afy, aside, anc = adversarial.advance_case(k, seed=k)
+        ts = _cuda_tiles(fields)
+        rs = torch.arange(anc * anc + 1, device="cuda") * k
+        tag = f"advance_case K={k} (edge cells, d2 = 0, frozen, the wrap)"
+        sums, _ = check_cell_sums_rows(tag, ts, rs, aside, anc)
+        check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
+                                 torch.from_numpy(afy).cuda(), sums, rs,
+                                 aside, anc)
+        for name, (fields, dside, dnc) in adversarial.deliver_cases(
+                k, seed=k).items():
+            ts = _cuda_tiles(fields)
+            rs = torch.arange(dnc * dnc + 1, device="cuda") * k
+            moving, dest = _movers(ts, dside, dnc, rs)
+            _, left, got, _ = check_deliver(f"deliver_cases {name} K={k}",
+                                            ts, moving, dest, rs)
+            if (name == "full") != (left == 2):
+                raise AssertionError(f"{name} K={k}: undelivered {left}")
+            if name == "full" and not all(
+                    _bits_equal(getattr(got, f), getattr(ts, f))
+                    for f in ADVANCE_FIELDS):
+                raise AssertionError("full row: the tiles changed")
+    print(f"advance kernel phases (ar-at): {time.perf_counter() - t0:.1f} s "
+          f"on {card}", flush=True)
+    return recs
+
+
+ADVANCE_PATHS = (("flagship resident", GOLDEN_S1[:4], None, 100),
+                 ("UNEVEN banded", UNEVEN, None, 10),
+                 ("1e7 resident", (1, 5000.0, 316, 10_000_000), "resident",
+                  10),
+                 ("1e7 banded", (1, 5000.0, 316, 10_000_000), None, 10))
+
+
+def advance_times(root):
+    """(au) With the port package of the checkout at ``root``: for the
+    flagship resident path, UNEVEN banded and N = 1e7 resident and banded,
+    ms/step, device ms/step, idle share and launches a step, and the
+    advance phase's own launches and device ms; where the checkout has the
+    advance kernels, each one's ms and device ms on the flagship's tiles
+    against its bound, beside three torch.sum calls. Prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine, make_resident_run
+    from particlesimulation_tpu_torch.ops.banded import make_banded_run
+
+    card = _card()
+    out = {}
+    for label, args, impl, k in ADVANCE_PATHS:
+        cfg = SimConfig(*args)
+        eng = Engine(cfg, device="cuda", impl=impl)
+        state = eng.init_state()  # the census routes here
+        eng.run(state, 1)
+        ms, _, _ = step_ms(eng, state, k)
+        rec = {"impl": eng.impl, "ms_per_step": ms}
+        times = device_breakdown(f"{root}: {label}", eng, state, ms)
+        rec.update(device_ms_per_step=times["device_ms"], idle=times["idle"],
+                   launches=times["launches"], syncs=times["syncs"])
+        if eng.impl == "banded":
+            ph = _tile_phases(make_banded_run, cfg, eng._band_plan)
+        else:
+            ph = _tile_phases(make_resident_run, cfg, eng.kcap)
+        rec.update(advance_phase(f"{root}: {label}", ph, state))
+        out[label] = rec
+    try:
+        from particlesimulation_tpu_torch.ops.cuda import advance  # noqa: F401
+    except ImportError:
+        advance = None
+    if advance is not None:
+        with _Clocks() as clocks:
+            recs = flagship_advance()[0]
+        out["kernels"] = recs
+        print(f"{root}: kernels timed at {clocks.summary()}", flush=True)
+    print(f"advance times {root} on {card}", flush=True)
+    print("ADVANCE_TIMES " + json.dumps(out), flush=True)
+
+
+def check_advance_paths():
+    """(--advance) Golden s1 through the resident engine and UNEVEN through
+    the banded engine with the advance kernels: the known results, every
+    kernel launched, no host sync, the advance phase's launches; cuda ==
+    cpu on a small config of each. Returns the two runs' launch counts,
+    summed."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine, make_resident_run
+    from particlesimulation_tpu_torch.ops.banded import make_banded_run
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        UNEVEN_BANDS)
+
+    s1 = SimConfig(*GOLDEN_S1[:4])
+    eng = Engine(s1, device="cuda")
+    state = eng.init_state()
+    _, res = check_golden("golden s1 resident", eng, state, GOLDEN_S1[4],
+                          GOLDEN_S1[5:], ["fused_pairs", *ADVANCE_KERNELS])
+    check_no_sync("resident", make_resident_run(s1, eng.kcap)[2], state)
+    check_advance_launches("resident flagship", _tile_phases(
+        make_resident_run, s1, eng.kcap), state)
+    un = SimConfig(*UNEVEN)
+    eng = Engine(un, device="cuda")
+    state = eng.init_state()
+    _, band = check_golden("UNEVEN banded", eng, state, 2, UNEVEN_2,
+                           ["fused_pairs", *ADVANCE_KERNELS])
+    check_no_sync("banded", make_banded_run(un, UNEVEN_BANDS)[2], state)
+    check_advance_launches("UNEVEN banded", _tile_phases(
+        make_banded_run, un, UNEVEN_BANDS), state)
+    check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5)
+    check_gpu_vs_cpu(-7, 100.0, 12, 4000, 10, impl="banded",
+                     plan=((0, 3, 64), (3, 3, 256), (6, 3, 256), (9, 3, 64)))
+    return {k: res[k] + band[k] for k in ADVANCE_KERNELS}
+
+
+def advance_times_of_all(roots):
+    """--advance-times: each checkout in a process of its own, in turns."""
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--advance-times-of", root], cwd=ROOT, check=True)
+    print(f"advance times: {len(roots)} runs ({', '.join(roots)}) on "
+          f"{_card()}", flush=True)
+
+
+def build_libraries():
+    """Build the three kernel libraries from the checkout's sources, one
+    nvcc each, started together; print each one's -Xptxas -v report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from particlesimulation_tpu_torch.ops.cuda import (advance, cell_pairs,
+                                                       direct_nbody)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda f: f(), (
+            cell_pairs.build, advance.build,
+            lambda: cell_pairs.build(direct_nbody.SOURCE))))
     for lib in libs:
-        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for both)",
+        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the three)",
               flush=True)
         with open(f"{lib}.log") as f:
             print(f.read().strip(), flush=True)
@@ -2856,6 +3398,23 @@ def main():
     if sys.argv[1:2] == ["--supercell-times-of"]:
         supercell_times(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--advance"]:
+        # Phases ar-at alone, and the two paths they serve.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        recs = check_advance(card)
+        launches = check_advance_paths()
+        print(json.dumps({"kernels": [
+            kernel_entry(k, launches[k], recs[k], ADVANCE_SOURCE)
+            for k in ADVANCE_KERNELS]}))
+        return
+    if sys.argv[1:2] == ["--advance-times"]:
+        advance_times_of_all(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--advance-times-of"]:
+        advance_times(sys.argv[2])
+        return
     if sys.argv[1:2] == ["--mesh2d"]:
         # Phases ae-ak alone.
         card = _card()
@@ -2907,6 +3466,8 @@ def main():
                 ncells, kcap, fill, with_pid)
     for kcap in (32, 160, 288, 1024):
         check_adversarial(kcap)
+    # The advance phase's three kernels (phases ar-at).
+    adv_recs = check_advance(card)
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     s1 = SimConfig(seed, side, nc, n)
@@ -2915,8 +3476,11 @@ def main():
     eng = Engine(s1, device="cuda")
     state = eng.init_state()
     _, res_launches = check_golden("golden s1 resident", eng, state, steps,
-                                   (ex, ey, ec), ["fused_pairs"])
+                                   (ex, ey, ec),
+                                   ["fused_pairs", *ADVANCE_KERNELS])
     check_no_sync("resident", make_resident_run(s1, eng.kcap)[2], state)
+    check_advance_launches("resident flagship", _tile_phases(
+        make_resident_run, s1, eng.kcap), state)
     # The fused kernel on the tiles the resident run hands its pair pass at
     # golden s1's last step, holes and limbo slots included.
     tiles = resident_tiles(s1, eng.kcap, state, steps)
@@ -3054,6 +3618,9 @@ def main():
                                               *sc_paths), sums_rec),
         *(kernel_entry(k, direct_launches[k], direct_recs[k], DIRECT_SOURCE)
           for k in ("direct_forces", "direct_collisions")),
+        *(kernel_entry(k, on_paths(k, res_launches, banded_launches),
+                       adv_recs[k], ADVANCE_SOURCE)
+          for k in ADVANCE_KERNELS),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

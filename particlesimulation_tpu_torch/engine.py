@@ -9,8 +9,10 @@ Counterpart of the JAX package's ``engine.py``. Six implementations:
      ``ops/dense.monopole_tile_forces``) added to the pair forces carried
      from the previous step;
   2. integration with periodic wrap (``ops/integrate``);
-  3. rebin: movers change rows (``ops/resident.rebin``);
+  3. rebin: movers change rows (``ops/resident.deliver``);
   4. the fused collision(t) + pair-force(t+1) pass (``ops/cuda/cell_pairs``).
+  Phases 1-3 run as three kernels on the GPU (``ops/cuda/advance``: the
+  cells' sums, the monopole terms with the integrator, the delivery).
 * ``supercell`` (``ops/supercell.make_supercell_run``) — the resident step
   on rows of S x S cells, for sparse grids, with a same-cell label in the
   pair pass.
@@ -51,6 +53,7 @@ from particlesimulation_tpu_torch.ops.banded import (grow_plan,
                                                      make_banded_run,
                                                      plan_bands,
                                                      uniform_band_plan)
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.supercell import (choose_supercell_factor,
                                                         make_supercell_run)
@@ -190,20 +193,19 @@ def make_resident_run(config: SimConfig, kcap: int,
             collisions=state.collisions, panics=state.panics,
             overflow=torch.maximum(state.overflow, ovf))
 
-    def mono_tables(ts, mf):
-        # COM + stencil from the tiles (row reductions only).
-        return stencil.tables_from_sums(
-            torch.sum(mf, dim=1), torch.sum(mf * ts.x, dim=1),
-            torch.sum(mf * ts.y, dim=1), side, nc)
+    row_starts = {}
 
-    def physics_mass(ts):
-        binned, limbo_count = res.binned_mask(ts, side, nc)
-        # Zero mf silences limbo slots in every physics pass: they exert
-        # and receive no force and never collide.
-        return torch.where(binned, ts.m, 0.0), binned, limbo_count
+    def row_start(dev):
+        """Each row's first slot and the pool's end, made once a device."""
+        if dev not in row_starts:
+            row_starts[dev] = torch.arange(ncells + 1, device=dev) * kcap
+        return row_starts[dev]
 
     def pair_args(ts):
-        mf, binned, _ = physics_mass(ts)
+        # Zero mf silences limbo slots in the pair pass: they exert and
+        # receive no force and never collide.
+        binned, _ = res.binned_mask(ts, side, nc)
+        mf = torch.where(binned, ts.m, 0.0)
         alive = (binned & (ts.m > 0)).to(torch.int32)
         return ts.x, ts.y, mf, alive, ts.pid
 
@@ -221,15 +223,17 @@ def make_resident_run(config: SimConfig, kcap: int,
         return fx, fy, count, ft != INF
 
     def advance(ts, fxd, fyd):
-        """Phases 1-3 of a step: monopole, integrate, rebin."""
-        mf, _, limbo_count = physics_mass(ts)
-        fxm, fym = dense.monopole_tile_forces(ts.x, ts.y, mf,
-                                              *mono_tables(ts, mf))
-        # Integrate in place; m==0 (dead or empty slot) stays frozen.
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts = ts._replace(x=x, y=y, vx=vx, vy=vy)
-        ts, undelivered = res.rebin(ts, side, nc, kcap)
+        """Phases 1-3 of a step: the cells' sums, the monopole terms and
+        the integrator (m==0, dead or empty, slots frozen), the delivery of
+        the movers; three kernels on the GPU (``ops/cuda/advance``)."""
+        rs = row_start(ts.x.device)
+        sums, limbo_count = advance_ops.cell_sums_rows(
+            ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+        x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums, rs, side,
+            nc, DELTAT)
+        ts, undelivered = res.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
+                                      moving, dest, rs)
         return ts, undelivered, limbo_count
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,

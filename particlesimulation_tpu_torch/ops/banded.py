@@ -22,12 +22,12 @@ GPU scatter delivers every mover in one pass:
   starts): a cross-band mover is a mover, landing in the rank-th free slot
   of its destination cell's row wherever that row lies; undelivered movers
   flag overflow and the engine retries losslessly with a grown plan;
-* integrate and the 8 monopole terms run once over the whole pool (each
-  slot's stencil terms gathered by its row's cell, ``dense.
-  monopole_gathered``), the stencil tables once on the global grid; only
-  the fused pair kernel and the per-cell COM row sums run per band, each at
-  its band's K. So the launches a step grow with the band count by those
-  two, and a run reads nothing back from the device but its overflow.
+* the cells' sums, the 8 monopole terms with the integrator, and the
+  delivery run once over the whole pool, on rows of each band's width
+  (``ops/cuda/advance``: three kernels on the GPU); only the fused pair
+  kernel runs per band, at its band's K. So the launches a step grow with
+  the band count by one, and a run reads nothing back from the device but
+  its overflow.
 
 Not ported, because one-pass delivery or the GPU leaves them no function:
 the halo rows, their lane budget (``HALO_W``, ``PSIM_BAND_HALO_W``) and the
@@ -44,9 +44,10 @@ import numpy as np
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, integrate, stencil
+from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.binning import round_cap
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
 # Cost-model weights of the JAX planner, in pair-lane units: per-slot
@@ -163,6 +164,17 @@ def grow_plan(plan, factor: float = 1.5, max_kcap: int = 1 << 30):
             for r0, rw, k in plan]
 
 
+def row_starts(plan, ncside: int, device):
+    """The pool's rows of a band plan: each cell row's first slot, in grid
+    order, and the pool's end (int64, (ncside² + 1,), on ``device``)."""
+    starts, off = [], 0
+    for _, rw, k in plan:
+        starts.append(off + k * torch.arange(rw * ncside, device=device))
+        off += rw * ncside * k
+    starts.append(torch.full((1,), off, device=device))
+    return torch.cat(starts)
+
+
 def make_banded_run(config: SimConfig, plan):
     """Build (prologue, pair_tiles, run) of the banded engine over ``plan``,
     ``[(row0, rows, kcap), ...]`` contiguous over the grid rows, as
@@ -195,17 +207,9 @@ def make_banded_run(config: SimConfig, plan):
     geometry = {}
 
     def geom(dev):
-        """Per device, made once: each cell row's first slot (and the pool's
-        end), and each slot's cell row (int32)."""
+        """``row_starts`` of the plan, made once a device."""
         if dev not in geometry:
-            starts, rows = [], []
-            for (r0, rw, k), off in zip(bands, offs):
-                starts.append(off + k * torch.arange(rw * nc, device=dev))
-                rows.append(torch.arange(r0 * nc, (r0 + rw) * nc,
-                                         dtype=torch.int32,
-                                         device=dev).repeat_interleave(k))
-            starts.append(torch.full((1,), nslots, device=dev))
-            geometry[dev] = (torch.cat(starts), torch.cat(rows))
+            geometry[dev] = row_starts(bands, nc, dev)
         return geometry[dev]
 
     def views(a):
@@ -220,7 +224,7 @@ def make_banded_run(config: SimConfig, plan):
         row, cell 0, in its tail slots from the top down; a cell above its
         band's K, or cell 0 and the limbo above K_0 together, flags
         overflow (lossless retry)."""
-        row_start, _ = geom(state.x.device)
+        row_start = geom(state.x.device)
         key, _ = binning.cell_keys(state.x, state.y, side, nc)
         key, pid, x, y, vx, vy, m = binning.sort_by_cell(
             key, state.pid, state.x, state.y, state.vx, state.vy, state.m)
@@ -252,15 +256,11 @@ def make_banded_run(config: SimConfig, plan):
             collisions=state.collisions, panics=state.panics,
             overflow=torch.maximum(state.overflow, ovf))
 
-    def physics_mass(ts, out=None):
-        """(mf, binned, limbo count): mf = where(binned, m, 0) (m >= 0)
-        silences unbinned slots in every physics pass: they exert and
-        receive no force and never collide."""
-        binned, limbo_count = res.binned_mask(ts, side, nc)
-        return torch.mul(ts.m, binned, out=out), binned, limbo_count
-
     def pair_args(ts):
-        mf, binned, _ = physics_mass(ts)
+        # mf = where(binned, m, 0) (m >= 0) silences unbinned slots in the
+        # pair pass: they exert and receive no force and never collide.
+        binned, _ = res.binned_mask(ts, side, nc)
+        mf = torch.mul(ts.m, binned)
         alive = (binned & (ts.m > 0)).to(torch.int32)
         return list(zip(*(views(a) for a in (ts.x, ts.y, mf, alive,
                                              ts.pid))))
@@ -278,27 +278,18 @@ def make_banded_run(config: SimConfig, plan):
                 torch.cat([a.reshape(-1) for a in ft]) != cell_pairs.INF)
 
     def advance(ts, fxd, fyd):
-        """Phases 1-3 of a step over the whole pool: monopole, integrate,
-        rebin; only the COM row sums run per band."""
-        row_start, row_of = geom(ts.x.device)
-        # M, m·x and m·y of every slot, then of every cell: row sums, one
-        # reduction a band (run to run the same bits).
-        sums = torch.empty((3, nslots), dtype=ts.x.dtype, device=ts.x.device)
-        mf, _, limbo_count = physics_mass(ts, out=sums[0])
-        torch.mul(mf, ts.x, out=sums[1])
-        torch.mul(mf, ts.y, out=sums[2])
-        cell = torch.cat([v.sum(dim=2) for v in views(sums)], dim=1)
-        fxm, fym = dense.monopole_gathered(
-            ts.x, ts.y, mf, *stencil.stencil_tables(
-                *stencil.com_from_sums(*cell), side, nc), row_of)
-        # Integrate in place; m==0 (dead or empty slot) stays frozen.
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts = ts._replace(x=x, y=y, vx=vx, vy=vy)
-        cx, cy, valid = res.cell_of(ts.x, ts.y, side, nc)
-        dest = cy * nc + cx
-        ts, undelivered = res.deliver(ts, ts.occ & valid & (dest != row_of),
-                                      dest, row_start)
+        """Phases 1-3 of a step over the whole pool, each once whatever the
+        band count: the cells' sums (rows of each band's width), the
+        monopole terms and the integrator (m==0 slots frozen), the delivery
+        of the movers; three kernels on the GPU (``ops/cuda/advance``)."""
+        row_start = geom(ts.x.device)
+        sums, limbo_count = advance_ops.cell_sums_rows(
+            ts.x, ts.y, ts.m, ts.occ, row_start, side, nc)
+        x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums,
+            row_start, side, nc, DELTAT)
+        ts, undelivered = res.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
+                                      moving, dest, row_start)
         return ts, undelivered, limbo_count
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,

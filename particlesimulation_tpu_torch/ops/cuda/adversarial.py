@@ -172,3 +172,177 @@ def label_layouts(kcap: int, rows: int = 9, seed: int = 0):
         "returning": np.where(i % 7 == 6, -1, i % 3),
     }
     return {k: np.ascontiguousarray(v, dtype=np.int32) for k, v in out.items()}
+
+
+def _resident_grid(ncside: int, kcap: int, fill: float, rng):
+    """Resident tiles of an ``ncside``² grid of unit cells (side =
+    ncside): each slot occupied with probability ``fill``, at a random
+    place in its row's cell; empty slots keep stale random x, y, vx, vy and
+    pid, with m 0. Returns the fields (numpy, (ncells, kcap))."""
+    ncells = ncside * ncside
+    shape = (ncells, kcap)
+    occ = rng.random(shape) < fill
+    cell = np.arange(ncells)[:, None]
+    x = np.where(occ, cell % ncside + 0.1 + 0.8 * rng.random(shape),
+                 rng.uniform(0.0, ncside, shape))
+    y = np.where(occ, cell // ncside + 0.1 + 0.8 * rng.random(shape),
+                 rng.uniform(0.0, ncside, shape))
+    pid = np.where(occ, rng.permutation(occ.size).reshape(shape),
+                   rng.integers(-5, occ.size, shape))
+    return {"x": x, "y": y, "vx": rng.normal(size=shape),
+            "vy": rng.normal(size=shape),
+            "m": np.where(occ, rng.uniform(0.5, 1.0, shape), 0.0),
+            "occ": occ, "pid": pid}
+
+
+def _place(f, rows, slots, cells, ncside, rng):
+    """Move the particles at (rows, slots) to random places in ``cells``."""
+    n = len(rows)
+    f["x"][rows, slots] = cells % ncside + 0.1 + 0.8 * rng.random(n)
+    f["y"][rows, slots] = cells // ncside + 0.1 + 0.8 * rng.random(n)
+
+
+def _typed(f):
+    out = {k: np.ascontiguousarray(v, dtype=np.float32)
+           for k, v in f.items() if k in ("x", "y", "vx", "vy", "m")}
+    out["occ"] = np.ascontiguousarray(f["occ"], dtype=bool)
+    out["pid"] = np.ascontiguousarray(f["pid"], dtype=np.int32)
+    return out
+
+
+DELIVER_CASES = ("traffic", "crowd", "vacated", "full")
+
+
+def deliver_cases(kcap: int, seed: int = 0):
+    """Resident tiles for the cases the one-pass delivery's structure
+    risks: ``{name: (fields, side, ncside)}``, fields numpy (ncells, kcap)
+    x, y, vx, vy, m (float32), occ (bool), pid (int32) on a grid of unit
+    cells, whose movers are the slots ``ops/resident.rebin`` marks (the
+    cell of the position is not the row's):
+
+    * ``traffic``: 6 x 6 cells about 30% full, half the particles hopping
+      up to 2 cells in x and y, across the box edges too (the periodic
+      wrap), and 5% out of the box (limbo: no mover);
+    * ``crowd``: 4 x 4 cells; one empty row receives min(K, max(33, K/2 +
+      9)) movers (more than a warp holds, more than half its slots) from
+      the other rows, half full, some of whose particles hop as well;
+    * ``vacated``: 3 x 3 cells; rows 0 and 1 full, and K/4 particles of
+      each move to the other: every arrival lands in a slot a mover left
+      in the same step;
+    * ``full``: 3 x 3 cells; row 4 full with none leaving and 2 movers
+      bound for it, among other movers: nothing moves, 2 undelivered.
+    """
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    f = _resident_grid(6, kcap, 0.3, rng)
+    rows, slots = np.nonzero(f["occ"])
+    hop = rng.random(rows.size) < 0.5
+    dx, dy = rng.integers(-2, 3, (2, rows.size))
+    cells = ((rows // 6 + dy) % 6) * 6 + (rows % 6 + dx) % 6
+    _place(f, rows[hop], slots[hop], cells[hop], 6, rng)
+    limbo = rng.random(rows.size) < 0.05
+    f["x"][rows[limbo], slots[limbo]] += 6.0
+    out["traffic"] = (_typed(f), 6.0, 6)
+
+    f = _resident_grid(4, kcap, 0.5, rng)
+    target = 5
+    f["occ"][target] = False
+    f["m"][target] = 0.0
+    rows, slots = np.nonzero(f["occ"])
+    n = min(kcap, max(33, kcap // 2 + 9), rows.size)
+    pick = rng.choice(rows.size, n, replace=False)
+    _place(f, rows[pick], slots[pick], np.full(n, target), 4, rng)
+    rest = np.setdiff1d(np.arange(rows.size), pick)
+    hop = rest[rng.random(rest.size) < 0.2]
+    cells = rng.choice(np.setdiff1d(np.arange(16), [target]), hop.size)
+    _place(f, rows[hop], slots[hop], cells, 4, rng)
+    out["crowd"] = (_typed(f), 4.0, 4)
+
+    f = _resident_grid(3, kcap, 0.2, rng)
+    for row, other in ((0, 1), (1, 0)):
+        f["occ"][row] = True
+        f["m"][row] = rng.uniform(0.5, 1.0, kcap)
+        f["pid"][row] = 10 * f["occ"].size + row * kcap + np.arange(kcap)
+        _place(f, np.full(kcap, row), np.arange(kcap), np.full(kcap, row), 3,
+               rng)
+        leave = rng.choice(kcap, kcap // 4, replace=False)
+        _place(f, np.full(leave.size, row), leave,
+               np.full(leave.size, other), 3, rng)
+    out["vacated"] = (_typed(f), 3.0, 3)
+
+    f = _resident_grid(3, kcap, 0.3, rng)
+    full = 4
+    f["occ"][full] = True
+    f["m"][full] = rng.uniform(0.5, 1.0, kcap)
+    f["pid"][full] = 10 * f["occ"].size + np.arange(kcap)
+    _place(f, np.full(kcap, full), np.arange(kcap), np.full(kcap, full), 3,
+           rng)
+    rows, slots = np.nonzero(f["occ"])
+    others = np.flatnonzero(rows != full)
+    pick = rng.choice(others, min(12, others.size), replace=False)
+    cells = np.where(np.arange(pick.size) < 2, full,
+                     rng.choice([0, 2, 6, 8], pick.size))
+    _place(f, rows[pick], slots[pick], cells, 3, rng)
+    out["full"] = (_typed(f), 3.0, 3)
+    return out
+
+
+def advance_case(kcap: int, seed: int = 0):
+    """(fields, fxd, fyd, side, ncside): resident tiles of a 5 x 5 grid of
+    cells 2 wide (side 10; every cell on an edge but the centre one) for
+    the monopole and integrate pass, with
+
+    * row 0: slot 0 exactly at the mirrored COM of the neighbour across the
+      left edge (dx = -1, dy = 0), which holds one particle of mass 1 (its
+      COM is that particle's position), so one term has d² = 0; slot 1 at
+      x = -0.3 (in cell 0 by C truncation: a binned slot just below 0),
+      slot 2 at x = -1e-7 at rest, which the wrap takes to side or just
+      below;
+    * row 9 (cell (4, 1), on the right edge): slots at rest at the float
+      just below side in x, and just below 0 in y;
+    * occupied slots with m = 0 (dead: frozen), empty slots with stale
+      values, slots out of the box (limbo: no monopole force), and an empty
+      cell (no mass, COM 0);
+
+    and random pair forces ``fxd``, ``fyd`` (float32 (ncells, kcap)).
+    """
+    rng = np.random.default_rng(seed)
+    nc, side = 5, 10.0
+    f = _resident_grid(nc, kcap, 0.4, rng)
+    for k in ("x", "y"):
+        f[k] = 2.0 * f[k]
+    # Row 4 = cell (4, 0): one particle of mass 1 at (9.7, 1.3).
+    f["occ"][4] = False
+    f["m"][4] = 0.0
+    f["occ"][4, 3], f["m"][4, 3] = True, 1.0
+    f["x"][4, 3], f["y"][4, 3] = np.float32(9.7), np.float32(1.3)
+    mirrored = np.float32(np.float32(-side) + np.float32(9.7))
+    f["occ"][0, :3] = True
+    f["m"][0, :3] = 1.0
+    f["x"][0, :3] = (mirrored, -0.3, -1e-7)
+    f["y"][0, :3] = (np.float32(1.3), 1.0, 1.0)
+    f["vx"][0, 2] = f["vy"][0, 2] = 0.0
+    below = np.nextafter(np.float32(side), np.float32(0.0))
+    f["occ"][9, :2] = True
+    f["m"][9, :2] = 0.75
+    f["x"][9, :2] = (below, 9.0)
+    f["y"][9, :2] = (3.0, -1e-7)
+    f["vx"][9, :2] = f["vy"][9, :2] = 0.0
+    # Row 12 (the centre) empty; dead and limbo slots elsewhere.
+    f["occ"][12] = False
+    f["m"][12] = 0.0
+    rows, slots = np.nonzero(f["occ"] & ~np.isin(np.arange(nc * nc),
+                                                 (0, 4, 9))[:, None])
+    dead = rng.random(rows.size) < 0.1
+    f["m"][rows[dead], slots[dead]] = 0.0
+    limbo = rng.random(rows.size) < 0.03
+    f["y"][rows[limbo], slots[limbo]] += side
+    shape = f["x"].shape
+    fxd = (rng.normal(size=shape) * 1e-9).astype(np.float32)
+    fyd = (rng.normal(size=shape) * 1e-9).astype(np.float32)
+    fields = _typed(f)
+    # The planted positions after the float32 cast, as planted.
+    fields["x"][0, 0] = mirrored
+    fields["x"][9, 0] = below
+    return fields, fxd, fyd, side, nc

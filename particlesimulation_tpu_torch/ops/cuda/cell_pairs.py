@@ -82,16 +82,20 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build(source: str = SOURCE) -> str:
+def build(source: str = SOURCE, flags=()) -> str:
     """Compile the kernel library of the CUDA file ``source`` (this module's
-    by default) if it is not built yet; returns its path,
-    ``lib<stem>_<content hash>.so`` in the build directory.
+    by default), with the extra ``nvcc`` options ``flags``, if it is not
+    built yet; returns its path, ``lib<stem>_<hash>.so`` in the build
+    directory, the hash taken over the source and the options.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
     is kept beside the library as ``<name>.log``.
     """
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256(f.read())
+    if flags:
+        h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(so):
@@ -102,7 +106,7 @@ def build(source: str = SOURCE) -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, source]
+           *flags, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")

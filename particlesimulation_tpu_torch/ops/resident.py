@@ -5,7 +5,8 @@ tiles and re-bins by moving the few particles that changed cell ("movers")
 directly between rows. The JAX package delivers movers in rounds of rolls
 and one-hot reductions because a TPU punishes scatters; on a GPU a scatter is
 cheap, so ``rebin`` delivers every mover in one pass (``deliver``, which
-also takes rows of different widths in one slot pool, the banded engine's):
+also takes rows of different widths in one slot pool, the banded engine's,
+and runs a hand-written kernel on the GPU, ``ops/cuda/advance``):
 
 1. mark the movers (occupied, in range, destination row != current row);
 2. sort them stably by (destination row, source slot);
@@ -24,8 +25,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-
-from particlesimulation_tpu_torch.ops.binning import segment_positions
 
 
 class TileState(NamedTuple):
@@ -106,64 +105,15 @@ def deliver(ts: TileState, moving, dest, row_start, at=None):
     sort and the moves cover them alone (the mesh engines' halo slots after
     a ship round). The result is the whole pool's delivery with no mover
     outside ``at``.
+
+    The kernel (``ops/cuda/advance.deliver``, on a CUDA tensor) and its
+    plain version (``advance.deliver_ref``, on a CPU tensor) give the same
+    tiles in every field and slot: a vacated slot keeps its stale x, y, vx,
+    vy and pid with ``occ`` false and ``m`` 0.
     """
-    shape = ts.x.shape
-    nslots = ts.x.numel()
-    nrows = row_start.shape[0] - 1
-    dev = ts.x.device
-    occf = ts.occ.reshape(-1)
-    moving = moving.reshape(-1)
-    if at is None:
-        leaving = moving
-    else:
-        leaving = torch.zeros_like(occf).index_put_((at,), moving)
+    from particlesimulation_tpu_torch.ops.cuda import advance
 
-    # Free slots after departures: the free slots before each row (a row's
-    # k-th free slot is the pool's (before[r] + k)-th), and the slot of the
-    # q-th free slot of the pool.
-    free = ~occf | leaving
-    cum = torch.cumsum(free, dim=0)                      # 1-based free rank
-    before = torch.cat([cum.new_zeros(1), cum])[row_start]
-    n_free = before[1:] - before[:-1]
-
-    # Movers sorted by (destination row, source slot); rank within the row.
-    mkey = torch.where(moving, dest.reshape(-1).to(torch.int64), nrows)
-    mkey, src = torch.sort(mkey, stable=True)
-    if at is not None:
-        src = at[src]
-    rank, _ = segment_positions(mkey)
-    is_mover = mkey < nrows
-    drow = torch.clamp(mkey, max=nrows - 1)
-    fits = is_mover & (rank < n_free[drow])
-    undelivered = torch.sum(is_mover & ~fits, dtype=torch.int32)
-    act = fits & (undelivered == 0)
-    q = torch.clamp(before[drow] + rank, max=nslots)
-    if at is None:
-        slot_of_free = torch.full((nslots + 1,), nslots, dtype=torch.int64,
-                                  device=dev)
-        slot_of_free[torch.where(free, cum - 1, nslots)] = torch.arange(
-            nslots, device=dev)
-        slot = slot_of_free[q]
-    else:
-        # A few movers: a binary search of the free ranks.
-        slot = torch.searchsorted(cum, q + 1)
-    # Inactive entries write to a dump slot past the end.
-    tgt = torch.where(act, slot, nslots)
-    src_act = torch.where(act, src, nslots)
-
-    def move(a):
-        flat = torch.cat([a.reshape(-1), a.new_zeros(1)])
-        vals = flat[src]
-        flat[tgt] = vals
-        return flat[:nslots].reshape(shape)
-
-    occ = torch.cat([occf, occf.new_zeros(1)])
-    occ = occ.index_fill_(0, src_act, False).index_fill_(0, tgt, True)
-    occ = occ[:nslots].reshape(shape)
-    m = torch.where(occ, move(ts.m), 0.0)
-    out = ts._replace(x=move(ts.x), y=move(ts.y), vx=move(ts.vx),
-                      vy=move(ts.vy), m=m, occ=occ, pid=move(ts.pid))
-    return out, undelivered
+    return advance.deliver(ts, moving, dest, row_start, at)
 
 
 def epilogue(ts: TileState, n: int, side: float, ncside: int):
