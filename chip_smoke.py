@@ -1011,11 +1011,14 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
     step the device is idle, and per step the kernel launches and host
     synchronisations: each a run of ``steps`` less a run of 0 (its
     prologue and epilogue), over ``steps`` (torch.profiler; torch's sync
-    debug mode)."""
+    debug mode). Also ``device_ms_whole``: the whole run of ``steps`` over
+    ``steps``, its prologue and epilogue included (the device ms/step of
+    the records before PR 14)."""
     rows = _profile(eng, state, steps)
     rows0 = _profile(eng, state, 0)
     launches = (sum(n for _, n, _ in rows) - sum(n for _, n, _ in rows0)) / steps
     syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
+    whole = sum(ms for ms, _, _ in rows) / steps
     base = {key: ms for ms, _, key in rows0}
     rows = sorted((((ms - base.get(key, 0.0)) / steps, key)
                    for ms, _, key in rows), reverse=True)
@@ -1024,13 +1027,15 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
     ours = {name: sum(ms for ms, key in rows if name in key)
             for name in PORT_KERNELS}
     print(f"{label}: device {total:.4f} ms/step of {step_ms_host:.4f} "
-          f"ms/step, idle {1 - total / step_ms_host:.1%}; {launches:.1f} "
+          f"ms/step (the whole run's {whole:.4f}), idle "
+          f"{1 - total / step_ms_host:.1%}; {launches:.1f} "
           f"kernel launches and {syncs:.2f} host synchronisations a step; "
           f"by kernel (ms/step): {top}; the port's kernels (ms/step): "
           + ", ".join(f"{k} {v:.4f}" for k, v in ours.items() if v > 0),
           flush=True)
-    return {"device_ms": total, "idle": 1 - total / step_ms_host,
-            "launches": launches, "syncs": syncs}
+    return {"device_ms": total, "device_ms_whole": whole,
+            "idle": 1 - total / step_ms_host, "launches": launches,
+            "syncs": syncs}
 
 
 def _parity(seed, side, nc, n, device):
@@ -2710,38 +2715,57 @@ def _advance_inputs(phases, state):
 
 def check_advance_launches(label, phases, state, most=10):
     """The advance phase of a path must issue at most ``most`` kernel
-    launches a step."""
+    launches a step, by the profile and by the wrappers' own counts."""
     rec = advance_phase(label, phases, state)
-    if rec["advance_launches"] > most:
+    if not (rec["advance_launches"] <= most
+            and rec["advance_wrapper_launches"] is not None
+            and rec["advance_wrapper_launches"] <= most):
         raise AssertionError(f"{label}: the advance phase issues "
-                             f"{rec['advance_launches']} launches")
+                             f"{rec['advance_launches']} launches by the "
+                             f"profile, {rec['advance_wrapper_launches']} by "
+                             f"the wrappers")
     return rec
 
 
-def advance_phase(label, phases, state):
+# Kernels one call of each advance wrapper launches (the delivery: its
+# count, bucket and place passes).
+ADVANCE_KERNELS_A_CALL = {"cell_sums_rows": 1, "monopole_integrate": 1,
+                          "deliver": 3}
+
+
+def advance_phase(label, phases, state, reps=5):
     """The advance phase of a step alone (the first step's, after a warm-up
-    call): its kernel launches and device ms a call, from torch.profiler
-    over 5 calls, each kernel's count over 5 rounded (a short profile late
-    in a long process was seen to miss a kernel or two of the port's
-    libraries)."""
+    call), a call over ``reps`` calls: its device ms and kernel launches
+    from torch.profiler, every kernel's count summed and not rounded; and,
+    where the checkout has the advance kernels, the exact launches from
+    their wrappers' counts over the same calls (None where it has not)."""
+    try:
+        from particlesimulation_tpu_torch.ops.cuda import advance as adv
+    except ImportError:
+        adv = None
     ts, fxd, fyd = _advance_inputs(phases, state)
     phases["advance"](ts, fxd, fyd)
-    reps = 5
+    if adv is not None:
+        adv.reset_launches()
 
     def calls():
         for _ in range(reps):
             phases["advance"](ts, fxd, fyd)
 
-    rows = [(ms / reps, round(n / reps), key)
-            for ms, n, key in _profile_fn(calls)]
-    launches = sum(n for _, n, _ in rows)
-    dev = sum(ms for ms, _, _ in rows)
-    top = "; ".join(f"{k[:40]} {ms:.4f} ({n:g})" for ms, n, k in sorted(
-        rows, reverse=True)[:6])
-    print(f"{label}: the advance phase issues {launches:g} kernel launches, "
-          f"{dev:.4f} device ms; by kernel (ms, launches): {top}",
-          flush=True)
-    return {"advance_launches": launches, "advance_device_ms": dev}
+    rows = _profile_fn(calls)
+    exact = None
+    if adv is not None:
+        exact = sum(ADVANCE_KERNELS_A_CALL[k] * n
+                    for k, n in adv.LAUNCHES.items()) / reps
+    launches = sum(n for _, n, _ in rows) / reps
+    dev = sum(ms for ms, _, _ in rows) / reps
+    top = "; ".join(f"{k[:40]} {ms / reps:.4f} ({n / reps:g})"
+                    for ms, n, k in sorted(rows, reverse=True)[:6])
+    print(f"{label}: the advance phase issues {launches:g} kernel launches "
+          f"by the profile, {exact} by the wrappers' counts, {dev:.4f} "
+          f"device ms; by kernel (ms, launches): {top}", flush=True)
+    return {"advance_launches": launches, "advance_wrapper_launches": exact,
+            "advance_device_ms": dev}
 
 
 def _cell_sums_bound(nslots, nrows):
@@ -2761,9 +2785,17 @@ def _monopole_bound(nslots, nrows):
 
 
 def _deliver_bound(nslots, nrows, movers):
-    """The function's outputs are new tiles: x, y, vx, vy, m, pid (4 bytes),
-    occ and moving (1) read and the seven fields written a slot, each
-    mover's destination read, the row starts read."""
+    """What the delivery needs: occ and moving (1 byte) read a slot; each
+    mover's destination read (4), its x, y, vx, vy, m, pid (4 bytes) read
+    and written to its new slot with that slot's occ (1), and its old slot's
+    occ and m cleared (5): 58 bytes a mover; the row starts read."""
+    return _bound(2 * nslots + 58 * movers + 8 * nrows, 0, 0)
+
+
+def _new_tiles_bound(nslots, nrows, movers):
+    """The floor of this kernel's design, which writes new tiles: x, y, vx,
+    vy, m, pid (4 bytes), occ and moving (1) read and the seven fields
+    written a slot, each mover's destination read, the row starts read."""
     return _bound(51 * nslots + 4 * movers + 8 * nrows, 0, 0)
 
 
@@ -2889,6 +2921,11 @@ def check_deliver(tag, ts, moving, dest, rs, at=None, timed=False):
                                  lambda: adv.deliver_ref(*args)))
         rec["library_ms"] = None
         _record(rec, _deliver_bound(ts.x.numel(), rs.numel() - 1, movers))
+        rec["new_tiles_bound_ms"] = _new_tiles_bound(
+            ts.x.numel(), rs.numel() - 1, movers)[0]
+        print(f"{tag}: deliver {rec['device_ms']:.4f} device ms against the "
+              f"function's bound {rec['bound_ms']:.4f} ms and the new "
+              f"tiles' {rec['new_tiles_bound_ms']:.4f} ms", flush=True)
     return movers, int(left), got, rec
 
 
@@ -2972,8 +3009,10 @@ def check_advance(card):
     rng = np.random.default_rng(14)
     at = torch.from_numpy(np.sort(rng.choice(post.x.numel(), 20_000,
                                              replace=False))).cuda()
-    check_deliver("flagship post-integrate tiles, at= 20 000 slots", post,
-                  out[5].reshape(-1)[at], out[4].reshape(-1)[at], rs, at=at)
+    # int64 destinations, as the mesh halo transport gives them.
+    check_deliver("flagship post-integrate tiles, at= 20 000 slots, int64 "
+                  "dest", post, out[5].reshape(-1)[at],
+                  out[4].reshape(-1)[at].long(), rs, at=at)
 
     un = SimConfig(*UNEVEN)
     eng_u = Engine(un, device="cuda")
@@ -3018,11 +3057,14 @@ def check_advance(card):
     return recs
 
 
-ADVANCE_PATHS = (("flagship resident", GOLDEN_S1[:4], None, 100),
-                 ("UNEVEN banded", UNEVEN, None, 10),
+# (label, config, impl asked for (None: the census), the engine the row
+# must measure, steps timed).
+ADVANCE_PATHS = (("flagship resident", GOLDEN_S1[:4], None, "resident", 100),
+                 ("UNEVEN banded", UNEVEN, None, "banded", 10),
                  ("1e7 resident", (1, 5000.0, 316, 10_000_000), "resident",
-                  10),
-                 ("1e7 banded", (1, 5000.0, 316, 10_000_000), None, 10))
+                  "resident", 10),
+                 ("1e7 banded", (1, 5000.0, 316, 10_000_000), None, "banded",
+                  10))
 
 
 def advance_times(root):
@@ -3040,7 +3082,7 @@ def advance_times(root):
 
     card = _card()
     out = {}
-    for label, args, impl, k in ADVANCE_PATHS:
+    for label, args, impl, want, k in ADVANCE_PATHS:
         cfg = SimConfig(*args)
         eng = Engine(cfg, device="cuda", impl=impl)
         state = eng.init_state()  # the census routes here
@@ -3048,8 +3090,12 @@ def advance_times(root):
         ms, _, _ = step_ms(eng, state, k)
         rec = {"impl": eng.impl, "ms_per_step": ms}
         times = device_breakdown(f"{root}: {label}", eng, state, ms)
-        rec.update(device_ms_per_step=times["device_ms"], idle=times["idle"],
-                   launches=times["launches"], syncs=times["syncs"])
+        if eng.impl != want:
+            raise AssertionError(f"{root}: {label} ran {eng.impl}")
+        rec.update(device_ms_per_step=times["device_ms"],
+                   device_ms_whole=times["device_ms_whole"],
+                   idle=times["idle"], launches=times["launches"],
+                   syncs=times["syncs"])
         if eng.impl == "banded":
             ph = _tile_phases(make_banded_run, cfg, eng._band_plan)
         else:

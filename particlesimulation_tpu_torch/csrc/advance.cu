@@ -25,10 +25,12 @@
 //
 // What bounds them on an H100: bytes. Each slot's fields are read once and
 // the outputs written once (about 13 bytes a slot for the sums, 50 for the
-// monopole and integrate pass, 50 for the delivery, which writes new
-// tiles); the arithmetic (8 terms of ~14 flops and an rsqrt a slot) is far
-// below the f32 rate. A warp works on one row at a time, its lanes on
-// neighbouring slots, so every load is coalesced.
+// monopole and integrate pass); the arithmetic (8 terms of ~14 flops and an
+// rsqrt a slot) is far below the f32 rate. The delivery needs only occ and
+// the moving flag a slot and ~58 bytes a mover, but this first form writes
+// new tiles (51 bytes a slot); moving only the movers in place is the next
+// step. A warp works on one row at a time, its lanes on neighbouring
+// slots, so every load is coalesced.
 //
 // The same bits as the plain torch versions, where the contract asks for
 // them:
@@ -70,7 +72,7 @@ __device__ __forceinline__ int warp_row(int nrows) {
 }
 
 // The cell (cy * nc + cx) of a position by C truncation of x / w, as
-// ops/resident.cell_of computes it (IEEE division, a conversion toward
+// ops/binning.cell_of computes it (IEEE division, a conversion toward
 // zero that saturates); true if it lies on the grid.
 __device__ __forceinline__ bool cell_of(float x, float y, float w, int nc,
                                         int* cell) {
@@ -260,26 +262,24 @@ __global__ void monopole_integrate_kernel(
 // A delivery limited to the slots at[0..n) (ascending): their moving flags
 // and destinations scattered into pool-wide arrays (moving_pool zeroed
 // first), so that the same passes deliver them.
-template <typename D>
 __global__ void deliver_expand_kernel(const int64_t* __restrict__ at, int n,
                                       const uint8_t* __restrict__ moving,
-                                      const D* __restrict__ dest,
+                                      const int* __restrict__ dest,
                                       uint8_t* __restrict__ moving_pool,
                                       int* __restrict__ dest_pool) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int64_t s = at[i];
   moving_pool[s] = moving[i];
-  dest_pool[s] = (int)dest[i];
+  dest_pool[s] = dest[i];
 }
 
 // Delivery, pass 1 (a warp a row): the row's free slots after this step's
 // departures (empty, or a mover's), and one count for each mover on its
 // destination row (integer atomics: the counts do not depend on the order).
-template <typename D>
 __global__ void deliver_count_kernel(const uint8_t* __restrict__ occ,
                                      const uint8_t* __restrict__ moving,
-                                     const D* __restrict__ dest,
+                                     const int* __restrict__ dest,
                                      const int64_t* __restrict__ row_start,
                                      int nrows, int* __restrict__ nfree,
                                      int* __restrict__ cnt) {
@@ -292,7 +292,7 @@ __global__ void deliver_count_kernel(const uint8_t* __restrict__ occ,
     const bool mv = moving[s] != 0;
     nf += !occ[s] || mv;
     if (mv) {
-      const int64_t d = (int64_t)dest[s];
+      const int d = dest[s];
       if (d >= 0 && d < nrows) atomicAdd(&cnt[d], 1);
     }
   }
@@ -304,9 +304,8 @@ __global__ void deliver_count_kernel(const uint8_t* __restrict__ occ,
 // destination row's bucket (the bucket array's slots of that row, in the
 // order of the atomics; pass 3 sorts them), at most as many as the row has
 // slots; and the movers beyond the row's free slots added to undelivered.
-template <typename D>
 __global__ void deliver_bucket_kernel(const uint8_t* __restrict__ moving,
-                                      const D* __restrict__ dest,
+                                      const int* __restrict__ dest,
                                       const int64_t* __restrict__ row_start,
                                       int nrows,
                                       const int* __restrict__ nfree,
@@ -320,7 +319,7 @@ __global__ void deliver_bucket_kernel(const uint8_t* __restrict__ moving,
   const int64_t s1 = row_start[r + 1];
   for (int64_t s = row_start[r] + lane; s < s1; s += 32) {
     if (!moving[s]) continue;
-    const int64_t d = (int64_t)dest[s];
+    const int d = dest[s];
     if (d < 0 || d >= nrows) continue;
     const int pos = atomicAdd(&cursor[d], 1);
     const int64_t b0 = row_start[d];
@@ -401,11 +400,10 @@ unsigned row_blocks(int nrows, int warps) {
   return (unsigned)((nrows + warps - 1) / warps);
 }
 
-template <typename D>
 cudaError_t deliver_passes(const float* x, const float* y, const float* vx,
                            const float* vy, const float* m, const int* pid,
                            const uint8_t* occ, const uint8_t* moving,
-                           const D* dest, const int64_t* row_start,
+                           const int* dest, const int64_t* row_start,
                            int nrows, int* nfree, int* cnt, int* cursor,
                            int* bucket, int* sorted, int* undelivered,
                            float* ox, float* oy, float* ovx, float* ovy,
@@ -413,10 +411,10 @@ cudaError_t deliver_passes(const float* x, const float* y, const float* vx,
                            cudaStream_t s) {
   const unsigned blocks = row_blocks(nrows, warps);
   const unsigned threads = 32u * warps;
-  deliver_count_kernel<D><<<blocks, threads, 0, s>>>(occ, moving, dest,
-                                                     row_start, nrows, nfree,
-                                                     cnt);
-  deliver_bucket_kernel<D><<<blocks, threads, 0, s>>>(
+  deliver_count_kernel<<<blocks, threads, 0, s>>>(occ, moving, dest,
+                                                  row_start, nrows, nfree,
+                                                  cnt);
+  deliver_bucket_kernel<<<blocks, threads, 0, s>>>(
       moving, dest, row_start, nrows, nfree, cnt, cursor, bucket,
       undelivered);
   deliver_place_kernel<<<blocks, threads, 0, s>>>(
@@ -466,7 +464,7 @@ extern "C" int psim_monopole_integrate(
   return (int)cudaGetLastError();
 }
 
-// dest: int32 (dest64 = 0) or int64 destination rows of the movers.
+// dest: the movers' destination rows (int32).
 // With at (n_at slots, ascending), moving and dest are given for those
 // slots alone and are first scattered into moving_pool (nslots bytes) and
 // dest_pool (nslots ints); else they are pool-wide and moving_pool,
@@ -478,11 +476,11 @@ extern "C" int psim_monopole_integrate(
 extern "C" int psim_deliver(
     const float* x, const float* y, const float* vx, const float* vy,
     const float* m, const int* pid, const uint8_t* occ,
-    const uint8_t* moving, const void* dest, int dest64,
-    const int64_t* row_start, int nrows, int64_t nslots, const int64_t* at,
-    int n_at, uint8_t* moving_pool, int* dest_pool, int* scratch,
-    int* bucket, int* sorted, float* ox, float* oy, float* ovx, float* ovy,
-    float* om, int* opid, uint8_t* oocc, int warps, void* stream) {
+    const uint8_t* moving, const int* dest, const int64_t* row_start,
+    int nrows, int64_t nslots, const int64_t* at, int n_at,
+    uint8_t* moving_pool, int* dest_pool, int* scratch, int* bucket,
+    int* sorted, float* ox, float* oy, float* ovx, float* ovy, float* om,
+    int* opid, uint8_t* oocc, int warps, void* stream) {
   if (!whole_warps(warps) || nrows < 1 || nslots >= (int64_t)1 << 31 ||
       n_at < 0)
     return (int)cudaErrorInvalidValue;
@@ -494,31 +492,14 @@ extern "C" int psim_deliver(
   cudaMemsetAsync(scratch, 0, (2 * (size_t)nrows + 1) * sizeof(int), s);
   if (at != nullptr) {
     cudaMemsetAsync(moving_pool, 0, (size_t)nslots, s);
-    if (n_at > 0) {
-      const unsigned blocks = (unsigned)((n_at + 255) / 256);
-      if (dest64)
-        deliver_expand_kernel<int64_t><<<blocks, 256, 0, s>>>(
-            at, n_at, moving, static_cast<const int64_t*>(dest), moving_pool,
-            dest_pool);
-      else
-        deliver_expand_kernel<int><<<blocks, 256, 0, s>>>(
-            at, n_at, moving, static_cast<const int*>(dest), moving_pool,
-            dest_pool);
-    }
-    return (int)deliver_passes<int>(x, y, vx, vy, m, pid, occ, moving_pool,
-                                    dest_pool, row_start, nrows, nfree, cnt,
-                                    cursor, bucket, sorted, undelivered, ox,
-                                    oy, ovx, ovy, om, opid, oocc, warps, s);
+    if (n_at > 0)
+      deliver_expand_kernel<<<(unsigned)((n_at + 255) / 256), 256, 0, s>>>(
+          at, n_at, moving, dest, moving_pool, dest_pool);
+    moving = moving_pool;
+    dest = dest_pool;
   }
-  if (dest64)
-    return (int)deliver_passes<int64_t>(
-        x, y, vx, vy, m, pid, occ, moving,
-        static_cast<const int64_t*>(dest), row_start, nrows, nfree, cnt,
-        cursor, bucket, sorted, undelivered, ox, oy, ovx, ovy, om, opid,
-        oocc, warps, s);
-  return (int)deliver_passes<int>(x, y, vx, vy, m, pid, occ, moving,
-                                  static_cast<const int*>(dest), row_start,
-                                  nrows, nfree, cnt, cursor, bucket, sorted,
-                                  undelivered, ox, oy, ovx, ovy, om, opid,
-                                  oocc, warps, s);
+  return (int)deliver_passes(x, y, vx, vy, m, pid, occ, moving, dest,
+                             row_start, nrows, nfree, cnt, cursor, bucket,
+                             sorted, undelivered, ox, oy, ovx, ovy, om, opid,
+                             oocc, warps, s);
 }

@@ -9,7 +9,7 @@ Counterpart of the JAX package's ``engine.py``. Six implementations:
      ``ops/dense.monopole_tile_forces``) added to the pair forces carried
      from the previous step;
   2. integration with periodic wrap (``ops/integrate``);
-  3. rebin: movers change rows (``ops/resident.deliver``);
+  3. rebin: movers change rows (``ops/cuda/advance.deliver``);
   4. the fused collision(t) + pair-force(t+1) pass (``ops/cuda/cell_pairs``).
   Phases 1-3 run as three kernels on the GPU (``ops/cuda/advance``: the
   cells' sums, the monopole terms with the integrator, the delivery).
@@ -232,8 +232,8 @@ def make_resident_run(config: SimConfig, kcap: int,
         x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums, rs, side,
             nc, DELTAT)
-        ts, undelivered = res.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                      moving, dest, rs)
+        ts, undelivered = advance_ops.deliver(
+            ts._replace(x=x, y=y, vx=vx, vy=vy), moving, dest, rs)
         return ts, undelivered, limbo_count
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,

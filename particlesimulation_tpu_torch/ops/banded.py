@@ -18,7 +18,7 @@ GPU scatter delivers every mover in one pass:
 * one slot pool: band b's tiles are a contiguous ``(rows_b·ncside, K_b)``
   view of flat per-field tensors at a fixed offset, one row per cell, and
   no halo rows;
-* one rebin for all bands (``resident.deliver`` on the pool's per-row
+* one rebin for all bands (``ops/cuda/advance.deliver`` on the pool's per-row
   starts): a cross-band mover is a mover, landing in the rank-th free slot
   of its destination cell's row wherever that row lies; undelivered movers
   flag overflow and the engine retries losslessly with a grown plan;
@@ -288,8 +288,8 @@ def make_banded_run(config: SimConfig, plan):
         x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums,
             row_start, side, nc, DELTAT)
-        ts, undelivered = res.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                      moving, dest, row_start)
+        ts, undelivered = advance_ops.deliver(
+            ts._replace(x=x, y=y, vx=vx, vy=vy), moving, dest, row_start)
         return ts, undelivered, limbo_count
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,

@@ -57,8 +57,8 @@ def occupancy(key_sorted, ncells: int) -> Occupancy:
                      order)
 
 
-def cell_keys(x, y, side: float, ncside: int):
-    """Cell key per particle (int32); sentinel ``ncside**2`` for out-of-range.
+def cell_of(x, y, side: float, ncside: int):
+    """Cell coordinates (int32) and validity of each position.
 
     Matches ``int(coord / (side/ncside))`` with C truncation-toward-zero
     (reference serial/parsim.cpp:268-272).
@@ -67,6 +67,13 @@ def cell_keys(x, y, side: float, ncside: int):
     cx = (x / w).to(torch.int32)
     cy = (y / w).to(torch.int32)
     valid = (cx >= 0) & (cx < ncside) & (cy >= 0) & (cy < ncside)
+    return cx, cy, valid
+
+
+def cell_keys(x, y, side: float, ncside: int):
+    """Cell key per particle (int32); sentinel ``ncside**2`` for out-of-range
+    (``cell_of``'s cells)."""
+    cx, cy, valid = cell_of(x, y, side, ncside)
     key = torch.where(valid, cy * ncside + cx,
                       torch.full_like(cx, ncside * ncside))
     return key, valid

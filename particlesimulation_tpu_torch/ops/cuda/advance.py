@@ -17,7 +17,7 @@ version of the same function:
 * ``monopole_integrate`` / ``monopole_integrate_ref``: the monopole terms,
   the integrator and each slot's destination row and moving flag;
 * ``deliver`` / ``deliver_ref``: every mover to its destination row in one
-  pass (``ops/resident.deliver`` is this wrapper).
+  pass (``ops/resident.rebin`` and the engines' advance phases call it).
 
 The tiles are a pool of slots in which row r holds the flat slots
 ``row_start[r]`` to ``row_start[r + 1]`` (int64, on the tiles' device):
@@ -48,8 +48,7 @@ import torch
 
 from particlesimulation_tpu_torch.config import G
 from particlesimulation_tpu_torch.ops import dense, integrate, stencil
-from particlesimulation_tpu_torch.ops import resident as res
-from particlesimulation_tpu_torch.ops.binning import segment_positions
+from particlesimulation_tpu_torch.ops.binning import cell_of, segment_positions
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -80,8 +79,7 @@ def load(path):
     lib.psim_monopole_integrate.argtypes = (
         [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 6 + [ci, vp])
     lib.psim_deliver.argtypes = (
-        [vp] * 9 + [ci, vp, ci, ctypes.c_int64, vp, ci] + [vp] * 12
-        + [ci, vp])
+        [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 12 + [ci, vp])
     for fn in (lib.psim_cell_sums_rows, lib.psim_monopole_integrate,
                lib.psim_deliver):
         fn.restype = ci
@@ -102,7 +100,7 @@ def _library():
 
 
 def cell_width(side: float, ncside: int) -> float:
-    """The cell width ``ops/resident.cell_of`` divides by, in float32."""
+    """The cell width ``ops/binning.cell_of`` divides by, in float32."""
     return float(np.float32(side / ncside))
 
 
@@ -160,7 +158,7 @@ def _row_of(row_start):
 
 def cell_sums_rows(x, y, m, occ, row_start, side: float, ncside: int):
     """Each row's sums over its binned slots (occupied, in the box by
-    ``resident.cell_of``): ``sums`` (3, nrows) float32 — M, Σm·x, Σm·y —
+    ``binning.cell_of``): ``sums`` (3, nrows) float32 — M, Σm·x, Σm·y —
     and ``limbo`` (0-d int32), the count of occupied slots out of the box.
 
     x, y, m: float32 and occ bool, the pool's fields (any shape,
@@ -191,7 +189,7 @@ def cell_sums_rows_ref(x, y, m, occ, row_start, side: float, ncside: int):
     dev = x.device
     _check_rows(row_start, dev)
     xf, yf, mf, of = (t.reshape(-1) for t in (x, y, m, occ))
-    _, _, valid = res.cell_of(xf, yf, side, ncside)
+    _, _, valid = cell_of(xf, yf, side, ncside)
     limbo = torch.sum(of & ~valid, dtype=torch.int32)
     mf = torch.where(of & valid, mf, 0.0)
     terms = (mf, mf * xf, mf * yf)
@@ -247,7 +245,7 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     """Plain torch version of ``monopole_integrate``: the composition
     ``stencil.tables_from_sums`` -> ``dense.monopole_tile_forces`` (each
     slot's cell row gathered) -> ``fxd + fxm`` -> ``integrate.integrate``
-    -> ``resident.cell_of``."""
+    -> ``binning.cell_of``."""
     dev = x.device
     nrows = _check_rows(row_start, dev)
     _check_grid(nrows, ncside)
@@ -255,7 +253,7 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     xf, yf, vxf, vyf, mf, of, fxf, fyf = (t.reshape(-1) for t in (
         x, y, vx, vy, m, occ, fxd, fyd))
     row = _row_of(row_start)
-    _, _, valid = res.cell_of(xf, yf, side, ncside)
+    _, _, valid = cell_of(xf, yf, side, ncside)
     tables = stencil.tables_from_sums(sums[0], sums[1], sums[2], side, ncside)
     fxm, fym = dense.monopole_tile_forces(
         xf[:, None], yf[:, None], torch.where(of & valid, mf, 0.0)[:, None],
@@ -263,16 +261,37 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     nx, ny, nvx, nvy = integrate.integrate(xf, yf, vxf, vyf, mf,
                                            fxf + fxm[:, 0], fyf + fym[:, 0],
                                            side, deltat)
-    cx, cy, valid = res.cell_of(nx, ny, side, ncside)
+    cx, cy, valid = cell_of(nx, ny, side, ncside)
     dest = cy * ncside + cx
     moving = of & valid & (dest != row)
     return tuple(t.reshape(shape) for t in (nx, ny, nvx, nvy, dest, moving))
 
 
 def deliver(ts, moving, dest, row_start, at=None):
-    """``ops/resident.deliver``'s function (its docstring is the contract):
-    returns (ts', undelivered), new tiles. A mover's ``dest`` must be a row
-    of the pool."""
+    """Move the ``moving`` slots to rows ``dest``, in one pass.
+
+    The tiles are a pool of slots in which row r holds the contiguous slots
+    ``row_start[r]`` to ``row_start[r + 1]`` (flat indices; rows may differ
+    in width, as the banded engine's do). A mover lands in its destination
+    row's rank-th free slot, free slots counted after this step's departures
+    in slot order, its rank being its place among the row's movers sorted by
+    source slot. Returns (ts', undelivered), new tiles: ``undelivered``
+    (int32, 0-d) counts the movers beyond their destination rows' free
+    slots. When it is nonzero no mover moves: the tiles come back unchanged,
+    nothing is lost, and the engine flags overflow and replays the run with
+    larger tiles. A mover's ``dest`` (int32 or int64) must be a row of the
+    pool.
+
+    ``at`` (int64 flat slot indices, ascending) limits the movers to those
+    slots: ``moving`` and ``dest`` are then given for them alone, and the
+    sort and the moves cover them alone (the mesh engines' halo slots after
+    a ship round). The result is the whole pool's delivery with no mover
+    outside ``at``.
+
+    The kernel (on a CUDA tensor) and ``deliver_ref`` (on a CPU tensor) give
+    the same tiles in every field and slot: a vacated slot keeps its stale
+    x, y, vx, vy and pid with ``occ`` false and ``m`` 0.
+    """
     dev = ts.x.device
     nrows = _check_rows(row_start, dev)
     n = ts.x.numel()
@@ -286,9 +305,11 @@ def deliver(ts, moving, dest, row_start, at=None):
     mv = _flat("moving", moving.contiguous(), torch.bool, k, dev)
     if dest.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"dest must be int32 or int64; got {dest.dtype}")
-    dst = _flat("dest", dest.contiguous(), dest.dtype, k, dev)
+    _flat("dest", dest.contiguous(), dest.dtype, k, dev)
     if not cell_pairs._on_card(ts.x, "delivery"):
         return deliver_ref(ts, moving, dest, row_start, at)
+    # The kernel reads int32 rows: exact for a mover's row of the pool.
+    dst = dest.to(torch.int32).contiguous().reshape(-1)
     shape = ts.x.shape
     outs = [torch.empty_like(a) for a in (*fields, pid, occ)]
     scratch = torch.empty(3 * nrows + 1, dtype=torch.int32, device=dev)
@@ -302,8 +323,7 @@ def deliver(ts, moving, dest, row_start, at=None):
     cell_pairs._launch(
         "deliver", _library().psim_deliver, ts.x,
         *(f.data_ptr() for f in fields), pid.data_ptr(), occ.data_ptr(),
-        mv.data_ptr(), dst.data_ptr(), int(dst.dtype == torch.int64),
-        row_start.data_ptr(), nrows, n, _ptr(at), k if at is not None else 0,
+        mv.data_ptr(), dst.data_ptr(), row_start.data_ptr(), nrows, n, _ptr(at), k if at is not None else 0,
         *(_ptr(p) for p in pool), scratch.data_ptr(), bucket.data_ptr(),
         ranked.data_ptr(), *(o.data_ptr() for o in outs), ROW_WARPS,
         launches=LAUNCHES)

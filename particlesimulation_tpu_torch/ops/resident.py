@@ -4,9 +4,10 @@ The resident representation keeps the *state itself* in (ncells, K) slot
 tiles and re-bins by moving the few particles that changed cell ("movers")
 directly between rows. The JAX package delivers movers in rounds of rolls
 and one-hot reductions because a TPU punishes scatters; on a GPU a scatter is
-cheap, so ``rebin`` delivers every mover in one pass (``deliver``, which
-also takes rows of different widths in one slot pool, the banded engine's,
-and runs a hand-written kernel on the GPU, ``ops/cuda/advance``):
+cheap, so ``rebin`` delivers every mover in one pass
+(``ops/cuda/advance.deliver``, which also takes rows of different widths in
+one slot pool, the banded engine's, and runs a hand-written kernel on the
+GPU):
 
 1. mark the movers (occupied, in range, destination row != current row);
 2. sort them stably by (destination row, source slot);
@@ -26,6 +27,9 @@ from typing import NamedTuple
 
 import torch
 
+from particlesimulation_tpu_torch.ops.binning import cell_of
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
+
 
 class TileState(NamedTuple):
     """Slot-resident simulation state. Tile tensors are (ncells, K)."""
@@ -40,15 +44,6 @@ class TileState(NamedTuple):
     collisions: torch.Tensor
     panics: torch.Tensor
     overflow: torch.Tensor
-
-
-def cell_of(x, y, side: float, ncside: int):
-    """Per-slot cell coordinates (int32) and validity (C truncation)."""
-    w = torch.full((), side / ncside, dtype=x.dtype, device=x.device)
-    cx = (x / w).to(torch.int32)
-    cy = (y / w).to(torch.int32)
-    valid = (cx >= 0) & (cx < ncside) & (cy >= 0) & (cy < ncside)
-    return cx, cy, valid
 
 
 def binned_mask(ts: TileState, side: float, ncside: int):
@@ -72,7 +67,8 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None,
     (moving, dest_row)`` marks the movers and gives each slot's destination
     row on that grid or on a grid of other rows (the supercell engine's
     super-cells, ``ops/supercell``; the mesh engine's local rows); by
-    default a slot's row is its cell. ``undelivered`` is ``deliver``'s.
+    default a slot's row is its cell. ``undelivered`` is
+    ``ops/cuda/advance.deliver``'s.
     """
     ncells = (nrows or ncside) * ncside
     dev = ts.x.device
@@ -83,37 +79,8 @@ def rebin(ts: TileState, side: float, ncside: int, kcap: int, dest_fn=None,
         moving = ts.occ & valid & (dest != row)
     else:
         moving, dest = dest_fn(ts)
-    return deliver(ts, moving, dest,
-                   torch.arange(ncells + 1, device=dev) * kcap)
-
-
-def deliver(ts: TileState, moving, dest, row_start, at=None):
-    """Move the ``moving`` slots to rows ``dest``, in one pass.
-
-    The tiles are a pool of slots in which row r holds the contiguous slots
-    ``row_start[r]`` to ``row_start[r + 1]`` (flat indices; rows may differ
-    in width, as the banded engine's do). A mover lands in its destination
-    row's rank-th free slot, free slots counted after this step's departures
-    in slot order, its rank being its place among the row's movers sorted by
-    source slot. Returns (ts', undelivered): ``undelivered`` (int32, 0-d)
-    counts the movers beyond their destination rows' free slots. When it is
-    nonzero no mover moves: the tiles come back unchanged, nothing is lost,
-    and the engine flags overflow and replays the run with larger tiles.
-
-    ``at`` (int64 flat slot indices, ascending) limits the movers to those
-    slots: ``moving`` and ``dest`` are then given for them alone, and the
-    sort and the moves cover them alone (the mesh engines' halo slots after
-    a ship round). The result is the whole pool's delivery with no mover
-    outside ``at``.
-
-    The kernel (``ops/cuda/advance.deliver``, on a CUDA tensor) and its
-    plain version (``advance.deliver_ref``, on a CPU tensor) give the same
-    tiles in every field and slot: a vacated slot keeps its stale x, y, vx,
-    vy and pid with ``occ`` false and ``m`` 0.
-    """
-    from particlesimulation_tpu_torch.ops.cuda import advance
-
-    return advance.deliver(ts, moving, dest, row_start, at)
+    return advance_ops.deliver(ts, moving, dest,
+                               torch.arange(ncells + 1, device=dev) * kcap)
 
 
 def epilogue(ts: TileState, n: int, side: float, ncside: int):

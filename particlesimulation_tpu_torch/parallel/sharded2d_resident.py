@@ -8,8 +8,8 @@ rectangle plus a one-cell particle halo ring; one step, written against the
 * local COM from the tiles (row sums) and the two-phase COM halo
   (``sharded2d.two_phase_com_halo``), then the monopole terms on the tiles;
 * integration, then migration routed dimension-ordered: one delivery
-  (``ops/resident.deliver``) moves every mover in one pass, a mover bound
-  for another row block into the top or bottom halo row, keeping its
+  (``ops/cuda/advance.deliver``) moves every mover in one pass, a mover
+  bound for another row block into the top or bottom halo row, keeping its
   column, and one whose row block matches but column block does not into
   the left or right halo column at its row; then each ship round
   (``sharded_resident.make_halo_transport``) ships the halo rows along the

@@ -8,7 +8,7 @@ mesh interface of ``parallel/mesh``, does
 * local COM from the tiles (row sums) and the one-row COM halo ring
   (``sharded.halo_pad``; the reference's ghost-cell Isend/Irecv,
   mpi/parsim-mpi.cpp:670-815), then the monopole terms on the tiles;
-* integration, then migration: one delivery (``ops/resident.deliver``
+* integration, then migration: one delivery (``ops/cuda/advance.deliver``
   on the local grid) moves every mover in one pass, an emigrant into the
   halo row on its side; the halo rows then ship to the ring neighbours
   (``mesh.ppermute``; the reference's Alltoall + point-to-point exchange,
@@ -64,7 +64,7 @@ import torch
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
 from particlesimulation_tpu_torch.ops import binning, dense, integrate
 from particlesimulation_tpu_torch.ops import resident as res
-from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded import (
     CAP_OVF, INT32_MAX, SHIP_OVF, STRAY_OVF, halo_pad, shard_rows, sort_slabs,
@@ -131,7 +131,7 @@ def make_halo_transport(mesh, phases, row_start, rows, geometry, dest):
     indices of each shard's halos of that phase (``index_ship``'s for two
     halos of one index set: ``halo_row_slots``' rows, the banded meshes'
     halo columns; the 2D mesh's rows phase, then its cols phase).
-    ``row_start``: the pool's row starts (``res.deliver``'s).
+    ``row_start``: the pool's row starts (``advance.deliver``'s).
     ``geometry(rows)`` gives the engine's per-slot geometry of the given
     pool rows (a tuple of tensors); ``dest(x, y, occ, *geometry)`` gives
     (moving, destination pool row).
@@ -151,7 +151,7 @@ def make_halo_transport(mesh, phases, row_start, rows, geometry, dest):
 
     def migrate(ts, ship_rounds: int):
         moving, to = dest(ts.x, ts.y, ts.occ, *geo_all)
-        ts, undelivered = res.deliver(ts, moving, to, row_start)
+        ts, undelivered = advance.deliver(ts, moving, to, row_start)
         undelivered = mesh.psum(undelivered[None])
         for _ in range(ship_rounds):
             for ship, cand, geo_cand in steps:
@@ -161,7 +161,8 @@ def make_halo_transport(mesh, phases, row_start, rows, geometry, dest):
                 moving, to = dest(*(a.reshape(-1)[cand]
                                     for a in (ts.x, ts.y, ts.occ)),
                                   *geo_cand)
-                ts, und = res.deliver(ts, moving, to, row_start, at=cand)
+                ts, und = advance.deliver(ts, moving, to, row_start,
+                                          at=cand)
                 undelivered = undelivered + mesh.psum(und[None])
         occ = ts.occ.view(-1)
         pending = sum(mesh.psum(torch.sum(occ[halo], dim=1,

@@ -380,8 +380,8 @@ def test_banded_engine_keeps_its_cpu_bits(args, plan, steps):
         ts = ts._replace(x=x, y=y, vx=vx, vy=vy)
         cx, cy, valid = res.cell_of(ts.x, ts.y, side, nc)
         dest = cy * nc + cx
-        ts, undelivered = res.deliver(ts, ts.occ & valid & (dest != row_of),
-                                      dest, row_start)
+        ts, undelivered = advance.deliver(
+            ts, ts.occ & valid & (dest != row_of), dest, row_start)
         return ts, undelivered, limbo
 
     kmax = max(k for _, _, k in plan)
@@ -511,3 +511,40 @@ def test_chip_check_compares_bit_patterns():
     assert chip_smoke._bits_equal(nan, nan.clone())
     assert not chip_smoke._bits_equal(zero, zero.double())
     assert chip_smoke._bits_equal(torch.tensor([3]), torch.tensor([3]))
+
+
+def test_advance_module_does_not_import_resident():
+    """``ops/resident.rebin`` calls ``advance.deliver``, so the kernels'
+    module takes nothing of ``ops/resident`` (no import cycle)."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(advance))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+        elif isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+    assert not any(n.endswith(("ops.resident", "ops.resident.cell_of"))
+                   for n in names), names
+    assert res.cell_of is advance.cell_of
+    assert res.rebin.__globals__["advance_ops"] is advance
+
+
+def test_chip_check_delivery_bound_is_what_the_function_moves():
+    """The delivery's bound counts occ and moving a slot, 58 bytes a mover
+    and the row starts; the new tiles' floor (this design's) 51 bytes a
+    slot."""
+    import chip_smoke
+
+    nslots, nrows, movers = 1_600_000, 10_000, 9_992
+    need = 2 * nslots + 58 * movers + 8 * nrows
+    ms, by, _ = chip_smoke._deliver_bound(nslots, nrows, movers)
+    assert by == "bytes"
+    assert ms == pytest.approx(need / chip_smoke.PEAK_BYTES * 1e3)
+    tiles = chip_smoke._new_tiles_bound(nslots, nrows, movers)[0]
+    assert tiles == pytest.approx((51 * nslots + 4 * movers + 8 * nrows)
+                                  / chip_smoke.PEAK_BYTES * 1e3)
+    assert chip_smoke._deliver_bound(nslots, nrows, 0)[0] < ms
