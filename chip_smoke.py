@@ -201,19 +201,24 @@ aq. the minimum image's threshold: two particles whose displacement is
 
 Then the tile step's advance phase (``ops/cuda/advance``: the cells'
 sums, the monopole terms with the integrator, the one-pass delivery; three
-kernels of ``csrc/advance.cu``), right after the pair kernels' checks and
+kernels of ``csrc/advance.cu``, the last two writing the tiles in place, so
+every call of a check or a timing gets its own copy of its input tiles,
+made outside the timed window), right after the pair kernels' checks and
 before the resident path runs on them:
 
 ar. ``deliver`` against the plain version on the card, every field of
    every slot (holes and their stale values included) and the undelivered
-   count bit for bit, and against itself in a second run: on the flagship
+   count bit for bit, and against itself in a second run (with movers
+   undelivered, the tiles passed must come back unchanged): on the flagship
    run's own post-integrate tiles (the movers a step printed), on a subset
    of 20 000 of them through ``at=``, on UNEVEN's banded pool (13 bands,
    rows of 13 widths), and on ``adversarial.deliver_cases`` at K = 32, 160
    and 1024 (hops of up to 2 cells and across the box edge, limbo slots; a
    row receiving more than 32 and more than K/2 movers; two full rows
    swapping particles, each arrival in a slot vacated in the same step; a
-   full row with 2 movers bound for it: nothing moves, 2 undelivered);
+   full row with 2 movers bound for it: nothing moves, 2 undelivered; three
+   full rows handing movers on in a cycle), and at K = 33 (rows off 4-byte
+   alignment: the passes' byte-wise reads);
 as. ``cell_sums_rows`` against ``torch.sum`` on the card (the plain
    version) within (K·2⁻²⁴)·Σ|terms| a row, the limbo count exactly, and
    against itself bit for bit, on the same tiles;
@@ -221,18 +226,25 @@ at. ``monopole_integrate`` against the plain composition on the card,
    from the kernel's sums, every output bit for bit: the flagship's tiles,
    UNEVEN's pool, and ``adversarial.advance_case`` (edge cells and their
    mirror offsets, a d² = 0 term, frozen m = 0 slots, positions one ulp
-   below side and just below 0 at rest, an empty cell); each kernel timed
-   on the flagship's tiles against its bound, the cell sums beside three
-   ``torch.sum`` calls; golden s1 through resident and UNEVEN through
-   banded must launch all three, and the advance phase of each must issue
-   at most 10 kernel launches a step (torch.profiler over 5 calls of the
-   phase, caught where the engine hands it to ``make_tile_run``);
+   below side and just below 0 at rest, an empty cell) and
+   ``adversarial.wrap_case`` (particles at rest under no force, whose
+   x + side is 2·side less an ulp, 2·side, 2·side plus an ulp, side, +0,
+   an ulp below 0, below -side); each kernel timed on the flagship's tiles
+   against its bound, the cell sums beside three ``torch.sum`` calls;
+   golden s1 through resident and UNEVEN
+   through banded must launch all three, and the advance phase of each
+   must issue at most 10 kernel launches a step (torch.profiler over 5
+   calls of the phase, caught where the engine hands it to
+   ``make_tile_run``);
 au. ``python3 chip_smoke.py --advance-times ROOT [ROOT ...]``: for each
    checkout in turn (a process each; parent, change, change, parent), the
    flagship resident path, UNEVEN banded and N = 1e7 resident and banded:
-   ms/step, device ms/step, idle share and launches a step, and the
-   advance phase's own launches and device ms; where the checkout has the
-   kernels, their times on the flagship's tiles against their bounds.
+   ms/step, device ms/step, idle share and launches a step, the advance
+   phase's own launches and device ms (each wrapper's kernels apart), and
+   the digest of each path's final state after 10 steps, which must agree
+   in all runs; where the checkout has the kernels, their times on the
+   flagship's tiles against their bounds. Every checkout is timed by this
+   checkout's measures (``ops/cuda/launch_sweep.device_ms``).
 
 ``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
 s1 through resident and UNEVEN through banded (launches, no host sync,
@@ -335,12 +347,15 @@ Tolerances:
     its partners exactly (the minimum image and d² are correctly rounded
     in both versions, and the threshold gives JAX's image bit for bit);
 
-Bounds of the advance kernels (bytes, each over 3.35 TB/s): the cell
-sums read x, y, m and occ (13 bytes a slot) and write 12 bytes a row; the
-monopole pass reads x, y, vx, vy, m, fxd, fyd and occ (29) and writes x,
-y, vx, vy, dest and moving (21); the delivery's outputs are new tiles, so
-it reads x, y, vx, vy, m, pid, occ and moving (26) and writes the seven
-fields (25) a slot, and reads each mover's destination (4).
+Bounds of the advance kernels (bytes, each over 3.35 TB/s), what each
+function needs: the cell sums read x, y, m and occ (13 bytes a slot) and
+write 12 bytes a row; the monopole pass reads x, y, vx, vy, m, fxd, fyd
+and occ (29) and writes x, y, vx, vy, dest and moving (21) for a live
+slot (m != 0), and reads x, y, m and occ and writes dest and moving (18)
+for a frozen one; the delivery reads occ and moving a slot and moves 58
+bytes a mover. Beside the last two, ``copy_out_bound_ms``: the floors of
+the first designs, which wrote every slot (50 bytes a slot for the monopole
+pass; 51 for the delivery's new tiles).
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -368,6 +383,7 @@ bounds each; float64 counts its operations at 34 TFLOP/s.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -462,8 +478,10 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "cell_sums_kernel", "cell_sums_warp_kernel",
                 "direct_forces_kernel", "direct_collisions_kernel",
                 "cell_sums_rows_kernel", "monopole_integrate_kernel",
-                "deliver_count_kernel", "deliver_bucket_kernel",
-                "deliver_place_kernel", "deliver_expand_kernel")
+                "deliver_count_kernel", "deliver_stage_kernel",
+                "deliver_place_kernel", "deliver_expand_kernel",
+                # a parent checkout's (--advance-times) pass 2
+                "deliver_bucket_kernel")
 # The advance phase's kernels (ops/cuda/advance), by their launch counts.
 ADVANCE_KERNELS = ("cell_sums_rows", "monopole_integrate", "deliver")
 
@@ -473,31 +491,40 @@ PEAK_SFU = PEAK_F32 / 16
 PEAK_F64 = 34e12       # FLOP/s outside the tensor cores
 
 
-def _timed(fn, reps):
+def _timed(fn, reps, fresh=None):
     """Median milliseconds of ``fn`` over ``reps`` calls, each on an idle
     card between CUDA events: the host's work up to the launch included, as
-    a caller that waits for each call sees it."""
-    fn()
+    a caller that waits for each call sees it. With ``fresh``, each call is
+    ``fn(fresh())``, the inputs made outside the timed window."""
+    sweep = _measures()
+    args = sweep.fresh_inputs(fresh, reps + 1)
+    sweep.call_with(fn, args[0])
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for a in args[1:]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        sweep.call_with(fn, a)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
-def _kernel_times(kernel, plain):
-    """The record's times: the kernel's per-call and device ms (median of
-    20), the plain version's per-call ms (median of 3)."""
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
+def device_ms(fn, reps, fresh=None):
+    """``ops/cuda/launch_sweep.device_ms`` of this checkout (see
+    ``_measures``)."""
+    return _measures().device_ms(fn, reps, fresh)
 
-    return {"ms": _timed(kernel, 20), "device_ms": device_ms(kernel, 20),
-            "plain_ms": _timed(plain, 3)}
+
+def _kernel_times(kernel, plain, fresh=None):
+    """The record's times: the kernel's per-call and device ms (median of
+    20), the plain version's per-call ms (median of 3); with ``fresh``,
+    each call on inputs of its own (see ``_timed``)."""
+    return {"ms": _timed(kernel, 20, fresh),
+            "device_ms": device_ms(kernel, 20, fresh),
+            "plain_ms": _timed(plain, 3, fresh)}
 
 
 def _tiles(ncells, kcap, fill, seed, device):
@@ -817,7 +844,6 @@ def check_tiles(label, tile_sets):
     sums over the sets, a step's worth."""
     from particlesimulation_tpu_torch.config import EPSILON
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
 
     names = ("dense_pairwise_forces", "dense_collisions")
     sums = {k: [0.0, 0.0, 0.0] for k in names}  # ms a call, device, bound
@@ -1352,8 +1378,7 @@ def check_cell_sums(where, tiles, cell, ncells):
     (slot order) and to a second run of itself; timed, with its bound, and
     its zeroing and its kernel timed apart."""
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
-        _cell_sums, device_ms)
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import _cell_sums
 
     x, y, m, _, _ = tiles
     args = (m, m * x, m * y, cell, ncells)
@@ -1406,7 +1431,6 @@ def _cell_sums_library(args, ref):
     timed as it runs by default (atomics, any order) and under
     ``torch.use_deterministic_algorithms`` (the same bits in every run, as
     the kernel gives). The port never calls it."""
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
 
     mf, mfx, mfy, cell, ncells = args
     src = torch.stack((mf, mfx, mfy)).reshape(3, -1)
@@ -2413,7 +2437,6 @@ def check_direct(card):
     from particlesimulation_tpu_torch.ops.cuda import direct_nbody as dk
     from particlesimulation_tpu_torch.ops.cuda.adversarial import (
         plant_direct_cases)
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
     from particlesimulation_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
@@ -2684,6 +2707,12 @@ def _max_diff(a, b):
 ADVANCE_FIELDS = ("x", "y", "vx", "vy", "m", "occ", "pid")
 
 
+def _clone_tiles(ts):
+    """The tiles in new tensors: the advance wrappers write theirs in
+    place, so each call of a check or a timing gets its own copy."""
+    return ts._replace(**{k: getattr(ts, k).clone() for k in ADVANCE_FIELDS})
+
+
 def _tile_phases(build, *args):
     """(prologue, advance, pair_pass) of a tile run, as the engine's maker
     (``make_resident_run``, ``make_banded_run``) hands them to
@@ -2728,29 +2757,33 @@ def check_advance_launches(label, phases, state, most=10):
 
 
 # Kernels one call of each advance wrapper launches (the delivery: its
-# count, bucket and place passes).
+# count, stage and place passes).
 ADVANCE_KERNELS_A_CALL = {"cell_sums_rows": 1, "monopole_integrate": 1,
                           "deliver": 3}
 
 
 def advance_phase(label, phases, state, reps=5):
     """The advance phase of a step alone (the first step's, after a warm-up
-    call), a call over ``reps`` calls: its device ms and kernel launches
-    from torch.profiler, every kernel's count summed and not rounded; and,
-    where the checkout has the advance kernels, the exact launches from
-    their wrappers' counts over the same calls (None where it has not)."""
+    call), a call over ``reps`` calls, each on its own copy of the first
+    step's tiles (made before the profiled window): its device ms and
+    kernel launches from torch.profiler, every kernel's count summed and
+    not rounded, and the device ms of each wrapper's kernels (by name:
+    cell_sums_rows, monopole_integrate, deliver_*); and, where the checkout
+    has the advance kernels, the exact launches from their wrappers' counts
+    over the same calls (None where it has not)."""
     try:
         from particlesimulation_tpu_torch.ops.cuda import advance as adv
     except ImportError:
         adv = None
     ts, fxd, fyd = _advance_inputs(phases, state)
-    phases["advance"](ts, fxd, fyd)
+    tiles = [_clone_tiles(ts) for _ in range(reps + 1)]
+    phases["advance"](tiles[0], fxd, fyd)
     if adv is not None:
         adv.reset_launches()
 
     def calls():
-        for _ in range(reps):
-            phases["advance"](ts, fxd, fyd)
+        for t in tiles[1:]:
+            phases["advance"](t, fxd, fyd)
 
     rows = _profile_fn(calls)
     exact = None
@@ -2759,13 +2792,18 @@ def advance_phase(label, phases, state, reps=5):
                     for k, n in adv.LAUNCHES.items()) / reps
     launches = sum(n for _, n, _ in rows) / reps
     dev = sum(ms for ms, _, _ in rows) / reps
+    parts = {f"{k}_device_ms": sum(ms for ms, _, key in rows
+                                   if k in key) / reps
+             for k in ("cell_sums_rows", "monopole_integrate", "deliver")}
     top = "; ".join(f"{k[:40]} {ms / reps:.4f} ({n / reps:g})"
                     for ms, n, k in sorted(rows, reverse=True)[:6])
     print(f"{label}: the advance phase issues {launches:g} kernel launches "
           f"by the profile, {exact} by the wrappers' counts, {dev:.4f} "
-          f"device ms; by kernel (ms, launches): {top}", flush=True)
+          f"device ms ("
+          + ", ".join(f"{k[:-10]} {v:.4f}" for k, v in parts.items())
+          + f"); by kernel (ms, launches): {top}", flush=True)
     return {"advance_launches": launches, "advance_wrapper_launches": exact,
-            "advance_device_ms": dev}
+            "advance_device_ms": dev, **parts}
 
 
 def _cell_sums_bound(nslots, nrows):
@@ -2776,12 +2814,23 @@ def _cell_sums_bound(nslots, nrows):
     return _bound(13 * nslots + 20 * nrows + 12, 7 * nslots, 0)
 
 
-def _monopole_bound(nslots, nrows):
-    """x, y, vx, vy, m, fxd, fyd (4 bytes) and occ read a slot, x, y, vx, vy,
-    dest (4) and moving (1) written; the rows' sums and starts read once;
-    ~150 f32 operations a slot (8 terms of 14 and an rsqrt, the integrator,
-    two cells) and 8 rsqrt."""
-    return _bound(50 * nslots + 20 * nrows, 150 * nslots, 8 * nslots)
+def _monopole_bound(nslots, nrows, live):
+    """What the function needs: a live slot (m != 0; occupied under the
+    engines' invariant that an empty slot has m 0) reads x, y, vx, vy, m,
+    fxd, fyd (4 bytes) and occ, and writes x, y, vx, vy, dest (4) and
+    moving (1), 50 bytes; any other slot is frozen, so only its x, y, m
+    and occ are read and dest and moving written, 18 bytes; the rows' sums
+    and starts read once. ~150 f32 operations and 8 rsqrt a live slot (8
+    terms of 14, the integrator, two cells), 2 a frozen slot (its cell)."""
+    frozen = nslots - live
+    return _bound(50 * live + 18 * frozen + 20 * nrows,
+                  150 * live + 2 * frozen, 8 * live)
+
+
+def _monopole_copy_bound(nslots, nrows):
+    """The copy-out floor of a design that reads and writes every
+    slot's state: 50 bytes a slot, the rows' sums and starts read."""
+    return _bound(50 * nslots + 20 * nrows, 0, 0)
 
 
 def _deliver_bound(nslots, nrows, movers):
@@ -2793,9 +2842,9 @@ def _deliver_bound(nslots, nrows, movers):
 
 
 def _new_tiles_bound(nslots, nrows, movers):
-    """The floor of this kernel's design, which writes new tiles: x, y, vx,
-    vy, m, pid (4 bytes), occ and moving (1) read and the seven fields
-    written a slot, each mover's destination read, the row starts read."""
+    """The floor of a design that writes new tiles: x, y, vx, vy, m,
+    pid (4 bytes), occ and moving (1) read and the seven fields written a
+    slot, each mover's destination read, the row starts read."""
     return _bound(51 * nslots + 4 * movers + 8 * nrows, 0, 0)
 
 
@@ -2812,7 +2861,6 @@ def check_cell_sums_rows(tag, ts, rs, side, nc, timed=False):
     (library) ms on the same terms."""
     from particlesimulation_tpu_torch.ops import resident as res
     from particlesimulation_tpu_torch.ops.cuda import advance as adv
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
 
     args = (ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
     got, limbo = adv.cell_sums_rows(*args)
@@ -2864,14 +2912,26 @@ def check_cell_sums_rows(tag, ts, rs, side, nc, timed=False):
 def check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, side, nc,
                              timed=False):
     """(at) The kernel against the plain composition on the card from the
-    same sums, every output bit for bit; with ``timed``, the record."""
+    same sums, every output bit for bit, each call on its own copy of x,
+    y, vx, vy (the wrappers update them in place); with ``timed``, the
+    record, its bound (what the function needs: 50 bytes a live slot, 18
+    a frozen one) and the copy-out floor (50 bytes a slot) beside it."""
     from particlesimulation_tpu_torch.config import DELTAT
     from particlesimulation_tpu_torch.ops.cuda import advance as adv
 
-    args = (ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums, rs, side,
-            nc, DELTAT)
-    got = adv.monopole_integrate(*args)
-    ref = adv.monopole_integrate_ref(*args)
+    rest = (ts.m, ts.occ, fxd, fyd, sums, rs, side, nc, DELTAT)
+
+    def fresh():
+        return tuple(t.clone() for t in (ts.x, ts.y, ts.vx, ts.vy))
+
+    def kernel(xyv):
+        return adv.monopole_integrate(*xyv, *rest)
+
+    def plain(xyv):
+        return adv.monopole_integrate_ref(*xyv, *rest)
+
+    got = kernel(fresh())
+    ref = plain(fresh())
     names = ("x", "y", "vx", "vy", "dest", "moving")
     bad = [n for n, a, b in zip(names, got, ref) if not _bits_equal(a, b)]
     if bad:
@@ -2880,27 +2940,46 @@ def check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, side, nc,
         raise AssertionError(f"{tag}: monopole_integrate differs from the "
                              f"plain composition in {diff} slots")
     rec = {"max_abs_err": max(_max_diff(a, b) for a, b in zip(got, ref))}
+    live = int((ts.m != 0).sum())
     print(f"{tag}: monopole_integrate bit for bit the plain composition "
-          f"(x, y, vx, vy, dest, moving) on {ts.x.numel()} slots, "
-          f"{int(got[5].sum())} movers", flush=True)
+          f"(x, y, vx, vy, dest, moving) on {ts.x.numel()} slots ({live} "
+          f"live), {int(got[5].sum())} movers", flush=True)
     if timed:
-        rec.update(_kernel_times(lambda: adv.monopole_integrate(*args),
-                                 lambda: adv.monopole_integrate_ref(*args)))
+        nslots, nrows = ts.x.numel(), rs.numel() - 1
+        rec.update(_kernel_times(kernel, plain, fresh))
         rec["library_ms"] = None
-        _record(rec, _monopole_bound(ts.x.numel(), rs.numel() - 1))
+        _record(rec, _monopole_bound(nslots, nrows, live))
+        rec["copy_out_bound_ms"] = _monopole_copy_bound(nslots, nrows)[0]
+        print(f"{tag}: monopole_integrate {rec['device_ms']:.4f} device ms "
+              f"against the function's bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; {live} live slots of {nslots}) and the "
+              f"copy-out floor {rec['copy_out_bound_ms']:.4f} ms", flush=True)
     return got, rec
 
 
 def check_deliver(tag, ts, moving, dest, rs, at=None, timed=False):
     """(ar) The kernel against the plain deliver on the card: every field
     of every slot bit for bit, and undelivered; against itself in a second
-    run. Returns (movers, undelivered, out, record)."""
+    run; each call on its own copy of the tiles (the wrappers write them
+    in place). With movers undelivered, the tiles passed must come back
+    unchanged, bit for bit. Returns (movers, undelivered, out, record)."""
     from particlesimulation_tpu_torch.ops.cuda import advance as adv
 
-    args = (ts, moving, dest, rs, at)
-    got, left = adv.deliver(*args)
-    again, left2 = adv.deliver(*args)
-    ref, rleft = adv.deliver_ref(*args)
+    args = (moving, dest, rs, at)
+
+    def fresh():
+        return _clone_tiles(ts)
+
+    def kernel(t):
+        return adv.deliver(t, *args)
+
+    def plain(t):
+        return adv.deliver_ref(t, *args)
+
+    inp = fresh()
+    got, left = kernel(inp)
+    again, left2 = kernel(fresh())
+    ref, rleft = plain(fresh())
     bad = [k for k in ADVANCE_FIELDS
            if not _bits_equal(getattr(got, k), getattr(ref, k))]
     redo = [k for k in ADVANCE_FIELDS
@@ -2910,22 +2989,28 @@ def check_deliver(tag, ts, moving, dest, rs, at=None, timed=False):
                              f"version in {bad}, from itself in {redo}; "
                              f"undelivered {int(left)}, {int(left2)} vs "
                              f"{int(rleft)}")
+    if int(left) and not all(
+            _bits_equal(getattr(t, k), getattr(ts, k))
+            for t in (inp, got) for k in ADVANCE_FIELDS):
+        raise AssertionError(f"{tag}: {int(left)} undelivered, but the "
+                             f"tiles changed")
     movers = int(moving.sum())
     print(f"{tag}: deliver bit for bit the plain version in every field "
           f"and slot ({ts.x.numel()} slots, {rs.numel() - 1} rows, "
           f"{movers} movers{'' if at is None else f' among {at.numel()} at= slots'}"
-          f", undelivered {int(left)}), and a second run", flush=True)
+          f", undelivered {int(left)}"
+          f"{', the tiles unchanged' if int(left) else ''}), and a second "
+          f"run", flush=True)
     rec = {"max_abs_err": 0.0}
     if timed:
-        rec.update(_kernel_times(lambda: adv.deliver(*args),
-                                 lambda: adv.deliver_ref(*args)))
+        nslots, nrows = ts.x.numel(), rs.numel() - 1
+        rec.update(_kernel_times(kernel, plain, fresh))
         rec["library_ms"] = None
-        _record(rec, _deliver_bound(ts.x.numel(), rs.numel() - 1, movers))
-        rec["new_tiles_bound_ms"] = _new_tiles_bound(
-            ts.x.numel(), rs.numel() - 1, movers)[0]
+        _record(rec, _deliver_bound(nslots, nrows, movers))
+        rec["copy_out_bound_ms"] = _new_tiles_bound(nslots, nrows, movers)[0]
         print(f"{tag}: deliver {rec['device_ms']:.4f} device ms against the "
-              f"function's bound {rec['bound_ms']:.4f} ms and the new "
-              f"tiles' {rec['new_tiles_bound_ms']:.4f} ms", flush=True)
+              f"function's bound {rec['bound_ms']:.4f} ms and the new tiles' "
+              f"floor {rec['copy_out_bound_ms']:.4f} ms", flush=True)
     return movers, int(left), got, rec
 
 
@@ -2993,9 +3078,10 @@ def check_advance(card):
     the card: on the flagship's own tiles (golden s1's config, the resident
     engine's prologue and first pair pass), on UNEVEN's banded pool (13
     bands, rows of 13 widths), on an at= subset, on the adversarial tiles
-    of ``adversarial.deliver_cases`` and ``advance_case`` at K = 32, 160
-    and 1024; then each kernel timed on the flagship's tiles against its
-    bound. Returns {kernel: record}."""
+    of ``adversarial.deliver_cases``, ``advance_case`` and ``wrap_case`` at
+    K = 32, 160 and 1024 (the delivery's at K = 33 too); then each kernel
+    timed on the flagship's tiles against its bound. Returns {kernel:
+    record}."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
@@ -3031,27 +3117,43 @@ def check_advance(card):
         x=out[0], y=out[1], vx=out[2], vy=out[3]), out[5], out[4], rs)
 
     for k in (32, 160, 1024):
-        fields, afx, afy, aside, anc = adversarial.advance_case(k, seed=k)
-        ts = _cuda_tiles(fields)
-        rs = torch.arange(anc * anc + 1, device="cuda") * k
-        tag = f"advance_case K={k} (edge cells, d2 = 0, frozen, the wrap)"
-        sums, _ = check_cell_sums_rows(tag, ts, rs, aside, anc)
-        check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
-                                 torch.from_numpy(afy).cuda(), sums, rs,
-                                 aside, anc)
+        for name, case in (
+                ("advance_case", "edge cells, d2 = 0, frozen, the wrap"),
+                ("wrap_case", "the wrap's edges: a = 2 side - ulp, 2 side, "
+                              "side, +0, -ulp, below -side")):
+            if name == "advance_case":
+                fields, afx, afy, aside, anc = adversarial.advance_case(
+                    k, seed=k)
+            else:
+                fields, afx, afy, aside, anc = adversarial.wrap_case(k)
+            ts = _cuda_tiles(fields)
+            rs = torch.arange(anc * anc + 1, device="cuda") * k
+            tag = f"{name} K={k} ({case})"
+            sums, _ = check_cell_sums_rows(tag, ts, rs, aside, anc)
+            check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
+                                     torch.from_numpy(afy).cuda(), sums, rs,
+                                     aside, anc)
         for name, (fields, dside, dnc) in adversarial.deliver_cases(
                 k, seed=k).items():
             ts = _cuda_tiles(fields)
             rs = torch.arange(dnc * dnc + 1, device="cuda") * k
             moving, dest = _movers(ts, dside, dnc, rs)
-            _, left, got, _ = check_deliver(f"deliver_cases {name} K={k}",
-                                            ts, moving, dest, rs)
+            _, left, _, _ = check_deliver(f"deliver_cases {name} K={k}", ts,
+                                          moving, dest, rs)
             if (name == "full") != (left == 2):
                 raise AssertionError(f"{name} K={k}: undelivered {left}")
-            if name == "full" and not all(
-                    _bits_equal(getattr(got, f), getattr(ts, f))
-                    for f in ADVANCE_FIELDS):
-                raise AssertionError("full row: the tiles changed")
+    # Rows of 33 slots: row starts off 4-byte alignment, so the delivery's
+    # passes read the flags a byte at a time.
+    for name, (fields, dside, dnc) in adversarial.deliver_cases(
+            33, seed=33).items():
+        ts = _cuda_tiles(fields)
+        rs = torch.arange(dnc * dnc + 1, device="cuda") * 33
+        moving, dest = _movers(ts, dside, dnc, rs)
+        _, left, _, _ = check_deliver(f"deliver_cases {name} K=33 (rows off "
+                                      f"4-byte alignment)", ts, moving, dest,
+                                      rs)
+        if (name == "full") != (left == 2):
+            raise AssertionError(f"{name} K=33: undelivered {left}")
     print(f"advance kernel phases (ar-at): {time.perf_counter() - t0:.1f} s "
           f"on {card}", flush=True)
     return recs
@@ -3065,21 +3167,28 @@ ADVANCE_PATHS = (("flagship resident", GOLDEN_S1[:4], None, "resident", 100),
                   "resident", 10),
                  ("1e7 banded", (1, 5000.0, 316, 10_000_000), None, "banded",
                   10))
+# Steps of the run whose final state each checkout's digest covers.
+ADVANCE_DIGEST_STEPS = 10
 
 
 def advance_times(root):
     """(au) With the port package of the checkout at ``root``: for the
     flagship resident path, UNEVEN banded and N = 1e7 resident and banded,
-    ms/step, device ms/step, idle share and launches a step, and the
-    advance phase's own launches and device ms; where the checkout has the
-    advance kernels, each one's ms and device ms on the flagship's tiles
-    against its bound, beside three torch.sum calls. Prints one JSON
-    line."""
+    ms/step, device ms/step, idle share and launches a step, the advance
+    phase's own launches and device ms (each wrapper's kernels apart), and
+    the digest of a run's final state (``ADVANCE_DIGEST_STEPS`` steps from
+    the path's initial state); where the checkout has the advance kernels,
+    each one's ms and device ms on the flagship's tiles against its bound,
+    beside three torch.sum calls. Prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine, make_resident_run
     from particlesimulation_tpu_torch.ops.banded import make_banded_run
 
+    try:
+        from particlesimulation_tpu_torch.ops.cuda import advance as adv
+    except ImportError:
+        adv = None
     card = _card()
     out = {}
     for label, args, impl, want, k in ADVANCE_PATHS:
@@ -3101,12 +3210,15 @@ def advance_times(root):
         else:
             ph = _tile_phases(make_resident_run, cfg, eng.kcap)
         rec.update(advance_phase(f"{root}: {label}", ph, state))
+        final = eng.run(state, ADVANCE_DIGEST_STEPS)
+        rec["digest"] = digest([getattr(final, f) for f in final._fields])
+        print(f"{root}: {label}: the final state after "
+              f"{ADVANCE_DIGEST_STEPS} steps ({int(final.collisions)} "
+              f"collisions), digest {rec['digest'][:16]}", flush=True)
         out[label] = rec
-    try:
-        from particlesimulation_tpu_torch.ops.cuda import advance  # noqa: F401
-    except ImportError:
-        advance = None
-    if advance is not None:
+        del eng, state, final
+        torch.cuda.empty_cache()
+    if adv is not None:
         with _Clocks() as clocks:
             recs = flagship_advance()[0]
         out["kernels"] = recs
@@ -3150,12 +3262,53 @@ def check_advance_paths():
 
 
 def advance_times_of_all(roots):
-    """--advance-times: each checkout in a process of its own, in turns."""
+    """--advance-times: each checkout in a process of its own, in turns;
+    fails unless every run's final states have the same digests, path by
+    path. Prints a summary line a path and checkout."""
+    runs = []
     for root in roots:
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--advance-times-of", root], cwd=ROOT, check=True)
-    print(f"advance times: {len(roots)} runs ({', '.join(roots)}) on "
-          f"{_card()}", flush=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--advance-times-of", root], cwd=ROOT,
+                              capture_output=True, text=True)
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr, end="", file=sys.stderr, flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"--advance-times-of {root}: exit "
+                             f"{proc.returncode}")
+        line = next(l for l in proc.stdout.splitlines()
+                    if l.startswith("ADVANCE_TIMES "))
+        runs.append((root, json.loads(line.split(" ", 1)[1])))
+    paths = [label for label, *_ in ADVANCE_PATHS]
+    for label in paths:
+        for root, rec in runs:
+            r = rec[label]
+            print(f"{label} | {root}: {r['ms_per_step']:.4f} ms/step, "
+                  f"{r['device_ms_per_step']:.4f} device ms/step, "
+                  f"{r['launches']:.1f} launches, {r['syncs']:.2f} syncs; "
+                  f"advance {r['advance_device_ms']:.4f} device ms, "
+                  f"{r['advance_launches']:g} / "
+                  f"{r['advance_wrapper_launches']} launches (cell sums "
+                  f"{r['cell_sums_rows_device_ms']:.4f}, monopole "
+                  f"{r['monopole_integrate_device_ms']:.4f}, delivery "
+                  f"{r['deliver_device_ms']:.4f}); digest "
+                  f"{r['digest'][:16]}", flush=True)
+    for root, rec in runs:
+        kern = rec.get("kernels", {})
+        print(f"kernels on the flagship's tiles | {root}: "
+              + ", ".join(f"{k} {v['device_ms']:.4f} device ms (bound "
+                          f"{v['bound_ms']:.4f}"
+                          + (f", copy-out floor {v['copy_out_bound_ms']:.4f}"
+                             if "copy_out_bound_ms" in v else "") + ")"
+                          for k, v in kern.items()), flush=True)
+    first = runs[0][1]
+    diff = [(root, label) for root, rec in runs[1:] for label in paths
+            if rec[label]["digest"] != first[label]["digest"]]
+    if diff:
+        raise AssertionError(f"final states differ from {runs[0][0]}'s: "
+                             f"{diff}")
+    print(f"advance times: {len(runs)} runs ({', '.join(roots)}), every "
+          f"path's final state bit for bit the same in all; on {_card()}",
+          flush=True)
 
 
 def build_libraries():
@@ -3179,13 +3332,17 @@ def build_libraries():
 
 
 def kernel_entry(name, launches, rec, source=SOURCE):
-    """A kernel's record in the ``kernels`` line."""
+    """A kernel's record in the ``kernels`` line (the delivery and the
+    monopole pass also carry ``copy_out_bound_ms``, the floor of their
+    first designs, beside the function's own bound)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms")}
+            "library_ms": rec.get("library_ms"),
+            **({"copy_out_bound_ms": rec["copy_out_bound_ms"]}
+               if "copy_out_bound_ms" in rec else {})}
 
 
 def _card():
@@ -3205,7 +3362,6 @@ def direct_times(root):
     from particlesimulation_tpu_torch.models.direct_nbody import (
         DirectSimulation)
     from particlesimulation_tpu_torch.ops.cuda import direct_nbody as dk
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
     from particlesimulation_tpu_torch.utils import profiling
 
     card = _card()
@@ -3245,18 +3401,33 @@ def digest(tensors):
     return h.hexdigest()
 
 
-def _adversarial_module():
-    """This checkout's ``ops/cuda/adversarial.py``, loaded from its file, so
-    that every checkout timed by --supercell-times gets the same tiles."""
+@functools.lru_cache(maxsize=None)
+def _own_module(name):
+    """This checkout's ``ops/cuda/<name>.py``, loaded from its file: the
+    --supercell-times and --advance-times runs put another checkout's
+    package first on the path, and this keeps their tiles and measures the
+    same for every checkout."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "psim_adversarial_tiles", os.path.join(
+        f"psim_own_{name}", os.path.join(
             ROOT, "particlesimulation_tpu_torch", "ops", "cuda",
-            "adversarial.py"))
+            f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _adversarial_module():
+    """This checkout's ``ops/cuda/adversarial.py``: every checkout timed by
+    --supercell-times gets the same tiles."""
+    return _own_module("adversarial")
+
+
+def _measures():
+    """This checkout's ``ops/cuda/launch_sweep.py``: its ``device_ms`` and
+    ``fresh_inputs`` time every checkout of --advance-times alike."""
+    return _own_module("launch_sweep")
 
 
 def _labelled_bound(tiles, sub, m_post, form, collide):
@@ -3285,7 +3456,6 @@ def supercell_times(root):
     from particlesimulation_tpu_torch.config import EPSILON, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import device_ms
     from particlesimulation_tpu_torch.ops.supercell import make_supercell_run
 
     adv = _adversarial_module()

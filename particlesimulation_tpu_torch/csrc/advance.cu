@@ -9,13 +9,14 @@
 //   cell_sums_rows_kernel: each row's M, sum m x and sum m y over its binned
 //     slots (occupied, and in the box by the C truncation of x / w), and the
 //     count of the occupied slots out of the box (limbo);
-//   monopole_integrate_kernel: each slot's 8 stencil monopole terms from
-//     its cell's neighbours' sums, the pair force carried from the last pair
-//     pass added, the explicit integrator with the periodic wrap, and the
-//     slot's destination row and moving flag;
-//   deliver_count_kernel, deliver_bucket_kernel, deliver_place_kernel (and
-//     deliver_expand_kernel for a delivery limited to given slots): every
-//     mover lands in its destination row's rank-th free slot, in one pass.
+//   monopole_integrate_kernel: in place, each live slot's 8 stencil
+//     monopole terms from its cell's neighbours' sums, the pair force
+//     carried from the last pair pass added, the explicit integrator with
+//     the periodic wrap; and every slot's destination row and moving flag;
+//   deliver_count_kernel, deliver_stage_kernel, deliver_place_kernel (and
+//     deliver_expand_kernel for a delivery limited to given slots): in
+//     place, every mover lands in its destination row's rank-th free slot,
+//     and only the movers' slots are written.
 //
 // They replace XLA code of the JAX package, which has no Pallas kernel for
 // this phase (its Pallas rebin was retired, since a TPU punishes scatters):
@@ -23,14 +24,21 @@
 // ops/dense_xla.py monopole_tile_forces, ops/integrate.py integrate, and
 // ops/resident.py rebin (the port's one-pass form of it, deliver).
 //
-// What bounds them on an H100: bytes. Each slot's fields are read once and
-// the outputs written once (about 13 bytes a slot for the sums, 50 for the
-// monopole and integrate pass); the arithmetic (8 terms of ~14 flops and an
-// rsqrt a slot) is far below the f32 rate. The delivery needs only occ and
-// the moving flag a slot and ~58 bytes a mover, but this first form writes
-// new tiles (51 bytes a slot); moving only the movers in place is the next
-// step. A warp works on one row at a time, its lanes on neighbouring
-// slots, so every load is coalesced.
+// What bounds them on an H100: bytes, and for the monopole pass the issue
+// of ~300 f32 instructions a live slot. The cell sums read 13 bytes a slot.
+// The monopole pass needs 50 bytes a live slot (occupied with m != 0: the
+// physics, its x, y, vx, vy written back) and 18 bytes a slot that is not
+// live (x, y, occ and m read, dest and moving written): an empty or dead
+// slot is frozen in the plain version, so it is not written and does no
+// arithmetic but its destination. The delivery needs occ and moving a slot
+// and ~100 bytes a mover: the count pass reads 2 bytes a slot, the stage
+// pass copies each mover's fields into a staging record at its place in
+// its destination row's bucket, and the place pass, a warp a row and only
+// on rows that an arrival or a departure touches, writes the arrivals from
+// staging into the free slots and clears the departures. Staging before any
+// tile is written lets the tiles be updated in place: a vacated slot may
+// take an arrival while the mover that left it is being read elsewhere.
+// The byte scans take 4 slots a lane (one 32-bit load of occ or moving).
 //
 // The same bits as the plain torch versions, where the contract asks for
 // them:
@@ -40,14 +48,14 @@
 //     rounds every operation to f32, so each one here is a separate
 //     correctly rounded intrinsic (__fadd_rn, __fmul_rn, __fdiv_rn; the
 //     library is also built with -fmad=false), IEEE division (torch divides
-//     by a tensor on the device with '/', not by a reciprocal), fmodf, and
+//     by a tensor on the device with '/', not by a reciprocal), the wrap's
+//     fmod (exact: taken as a - side where that is exact, see wrap), and
 //     rsqrtf: torch's CUDA rsqrt of a float is ::rsqrtf
 //     (c10/cuda/CUDAMathCompat.h, rsqrt(float)), not 1 / sqrtf;
 //   * the delivery places every mover where the plain deliver does, and
-//     writes every field of every slot as it does, holes included: slot
-//     order decides the fused pair kernel's summation order, so a placement
-//     in the order of arrival would change the forces' low bits from run to
-//     run;
+//     leaves every other slot as it was: slot order decides the fused pair
+//     kernel's summation order, so a placement in the order of arrival
+//     would change the forces' low bits from run to run;
 //   * the row sums add in a fixed order (a warp a row, lane l the slots
 //     l, l + 32, ... in turn, then a butterfly of shuffles), so two runs
 //     give the same bits; the order is not torch.sum's, which they match
@@ -98,6 +106,16 @@ __device__ __forceinline__ float warp_fsum(float v) {
   return v;
 }
 
+// The inclusive prefix sum of v over the warp's lanes.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += t;
+  }
+  return v;
+}
+
 // Each row's M, sum m x, sum m y over its binned slots (m x and m y rounded
 // to f32 first, as torch.mul does), into M[r], SX[r], SY[r]; the occupied
 // slots out of the box add to *limbo. A warp a row: lane l adds the slots
@@ -144,119 +162,234 @@ __global__ void cell_sums_rows_kernel(const float* __restrict__ x,
   }
 }
 
-// Per slot of row r (the cell r of an nc x nc grid): the 8 stencil monopole
-// terms of ops/dense.py monopole_tile_forces from the neighbours' (M, SX,
-// SY), added in stencil order to 0; the pair force fxd, fyd added; the
-// explicit step of ops/integrate.py (m == 0 slots frozen); then the new
-// position's cell: dest = cy * nc + cx, and moving = occupied, in the box
-// and dest != r. A warp a row: lanes 0-7 build the row's 8 temp cells (the
-// neighbour's COM by IEEE division, offset + neighbour COM at the mirrored
-// edges, as ops/stencil.py stencil_tables does with rolls), and the warp
-// shares them by shuffles.
-//
-// Every operation is one correctly rounded f32 operation in the plain
-// version's order and association, so the outputs are its bits.
-//
-// Bound: bytes, 29 a slot read (x, y, vx, vy, m, fxd, fyd, occ) and 21
-// written (x, y, vx, vy, dest, moving); the rows' sums are read from L2.
-__global__ void monopole_integrate_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ m, const uint8_t* __restrict__ occ,
-    const float* __restrict__ fxd, const float* __restrict__ fyd,
-    const float* __restrict__ M, const float* __restrict__ SX,
-    const float* __restrict__ SY, const int64_t* __restrict__ row_start,
-    int nrows, float w, int nc, float side, float dt, float g,
-    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
-    float* __restrict__ ovy, int* __restrict__ dest,
-    uint8_t* __restrict__ moving) {
+// ---------------------------------------------------------------------------
+// Monopole + integrate, in place.
+
+// The pool's fields as the monopole pass takes them: x, y, vx, vy updated
+// in place, dest and moving written for every slot.
+struct Pool {
+  float* x;
+  float* y;
+  float* vx;
+  float* vy;
+  const float* m;
+  const uint8_t* occ;
+  const float* fxd;
+  const float* fyd;
+  int* dest;
+  uint8_t* moving;
+};
+
+struct Grid {
+  float w, side, side2, dt, g;
+  int nc;
+};
+
+// A row's 8 temp cells: neighbour mass, and COM (offset at the mirrored
+// edges), in stencil order.
+struct Temps {
+  float cm[8], mx[8], my[8];
+};
+
+// A slot's inputs, and its state after the step.
+struct Slot {
+  float x, y, vx, vy, m, fx, fy;
+  bool o;
+};
+
+struct Next {
+  float x, y, vx, vy;
+};
+
+// fmodf(nx + side, side), as torch.fmod gives it. fmod is exact, and for
+// a = nx + side in [0, 2 side) it is a (below side) or a - side, which is
+// exact there (Sterbenz); -0.0 stays -0.0 as in fmodf. Elsewhere (a < 0,
+// a >= 2 side, where fmod of 2 side is 0, NaN, infinities) fmodf itself.
+__device__ __forceinline__ float wrap(float nx, const Grid& p) {
+  const float a = __fadd_rn(nx, p.side);
+  if (a >= 0.0f && a < p.side2)
+    return a >= p.side ? __fsub_rn(a, p.side) : a;
+  return fmodf(a, p.side);
+}
+
+// The temp cell of direction l for row r (the cell r; ops/stencil.py:
+// neighbour (cy + dy, cx + dx) wrapped, as torch.roll wraps; its COM, 0
+// where it holds no mass; +-side at the mirrored edges, added as offset +
+// COM).
+__device__ __forceinline__ void temp_cell(int r, int l, const Grid& p,
+                                          const float* __restrict__ M,
+                                          const float* __restrict__ SX,
+                                          const float* __restrict__ SY,
+                                          float* cm, float* tmx, float* tmy) {
+  const int nc = p.nc;
+  const int cx = r % nc, cy = r / nc;
+  const int dx = kStencil[l][0], dy = kStencil[l][1];
+  int nx = cx + dx, ny = cy + dy;
+  nx = nx < 0 ? nx + nc : (nx >= nc ? nx - nc : nx);
+  ny = ny < 0 ? ny + nc : (ny >= nc ? ny - nc : ny);
+  const int nb = ny * nc + nx;
+  const float mn = M[nb];
+  const bool has = mn > 0.0f;
+  const float safe = has ? mn : 1.0f;
+  const float mx = has ? __fdiv_rn(SX[nb], safe) : 0.0f;
+  const float my = has ? __fdiv_rn(SY[nb], safe) : 0.0f;
+  const float offx = dx == 1    ? (cx == nc - 1 ? p.side : 0.0f)
+                     : dx == -1 ? (cx == 0 ? -p.side : 0.0f)
+                                : 0.0f;
+  const float offy = dy == 1    ? (cy == nc - 1 ? p.side : 0.0f)
+                     : dy == -1 ? (cy == 0 ? -p.side : 0.0f)
+                                : 0.0f;
+  *cm = mn;
+  *tmx = __fadd_rn(offx, mx);
+  *tmy = __fadd_rn(offy, my);
+}
+
+// Slot s's inputs; returns whether it is live (m != 0). vx, vy and the
+// pair force are read only for a live slot.
+__device__ __forceinline__ bool load_slot(int64_t s, const Pool& f,
+                                          Slot* in) {
+  in->m = f.m[s];
+  in->x = f.x[s];
+  in->y = f.y[s];
+  in->o = f.occ[s] != 0;
+  const bool live = !(in->m == 0.0f);
+  in->vx = live ? f.vx[s] : 0.0f;
+  in->vy = live ? f.vy[s] : 0.0f;
+  in->fx = live ? f.fxd[s] : 0.0f;
+  in->fy = live ? f.fyd[s] : 0.0f;
+  return live;
+}
+
+// One slot's step: the 8 stencil terms of ops/dense.py
+// monopole_tile_forces from the row's temp cells, added in stencil order
+// to 0; the pair force added; the explicit step of ops/integrate.py (m == 0
+// slots frozen: their state comes out as it went in). Every operation is
+// one correctly rounded f32 operation in the plain version's order and
+// association.
+__device__ __forceinline__ Next step(const Slot& in, const Temps& t,
+                                     const Grid& p) {
+  int cell;
+  const bool binned = in.o && cell_of(in.x, in.y, p.w, p.nc, &cell);
+  const float gm = __fmul_rn(p.g, binned ? in.m : 0.0f);
+  float fx = 0.0f, fy = 0.0f;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    const float dxl = __fsub_rn(t.mx[l], in.x);
+    const float dyl = __fsub_rn(t.my[l], in.y);
+    const float d2 = __fadd_rn(__fmul_rn(dxl, dxl), __fmul_rn(dyl, dyl));
+    const float inv = d2 > 0.0f ? rsqrtf(d2) : 0.0f;
+    const float sl = __fmul_rn(__fmul_rn(gm, t.cm[l]),
+                               __fmul_rn(__fmul_rn(inv, inv), inv));
+    fx = __fadd_rn(fx, __fmul_rn(sl, dxl));
+    fy = __fadd_rn(fy, __fmul_rn(sl, dyl));
+  }
+  const float tfx = __fadd_rn(in.fx, fx);
+  const float tfy = __fadd_rn(in.fy, fy);
+  // x += vx*dt + 0.5*ax*dt*dt as ((vx*dt) + (((0.5*ax)*dt)*dt)).
+  const bool frozen = in.m == 0.0f;
+  const float safe_m = frozen ? 1.0f : in.m;
+  const float ax = __fdiv_rn(tfx, safe_m);
+  const float ay = __fdiv_rn(tfy, safe_m);
+  const float dt = p.dt;
+  const float nx = __fadd_rn(
+      in.x, __fadd_rn(__fmul_rn(in.vx, dt),
+                      __fmul_rn(__fmul_rn(__fmul_rn(0.5f, ax), dt), dt)));
+  const float ny = __fadd_rn(
+      in.y, __fadd_rn(__fmul_rn(in.vy, dt),
+                      __fmul_rn(__fmul_rn(__fmul_rn(0.5f, ay), dt), dt)));
+  Next out;
+  out.x = frozen ? in.x : wrap(nx, p);
+  out.y = frozen ? in.y : wrap(ny, p);
+  out.vx = frozen ? in.vx : __fadd_rn(in.vx, __fmul_rn(ax, dt));
+  out.vy = frozen ? in.vy : __fadd_rn(in.vy, __fmul_rn(ay, dt));
+  return out;
+}
+
+// A slot's outputs: a live slot's new state written back, and every
+// slot's destination row (the cell of its position) and moving flag
+// (occupied, in the box and not row r).
+__device__ __forceinline__ void finish(int64_t s, int r, bool live,
+                                       const Slot& in, const Next& nx,
+                                       const Pool& f, const Grid& p) {
+  if (live) {
+    f.x[s] = nx.x;
+    f.y[s] = nx.y;
+    f.vx[s] = nx.vx;
+    f.vy[s] = nx.vy;
+  }
+  int to;
+  const bool in_box = cell_of(nx.x, nx.y, p.w, p.nc, &to);
+  f.dest[s] = to;
+  f.moving[s] = in.o && in_box && to != r;
+}
+
+// A warp a row (cell). Lanes 0-7 first build the row's 8 temp cells (the
+// neighbours' sums loaded and their COM divided), shared by shuffles; then
+// a lane a slot. A slot that is not live (m == 0: empty or dead, frozen in
+// the plain version) does no physics and keeps its x, y, vx, vy; its lane
+// branches to the destination alone (the warp's live lanes run the physics
+// meanwhile).
+__global__ void monopole_integrate_kernel(Pool f, const float* __restrict__ M,
+                                          const float* __restrict__ SX,
+                                          const float* __restrict__ SY,
+                                          const int64_t* __restrict__ row_start,
+                                          int nrows, Grid p) {
   const int r = warp_row(nrows);
   if (r < 0) return;
   const int lane = threadIdx.x & 31;
-  const int cx = r % nc, cy = r / nc;
 
-  // The temp cell of direction l on lane l (ops/stencil.py: neighbour
-  // (cy + dy, cx + dx) wrapped, as torch.roll wraps; its COM, 0 where it
-  // holds no mass; +-side at the mirrored edges, added as offset + COM).
   float cm = 0.0f, tmx = 0.0f, tmy = 0.0f;
-  if (lane < 8) {
-    const int dx = kStencil[lane][0], dy = kStencil[lane][1];
-    int nx = cx + dx, ny = cy + dy;
-    nx = nx < 0 ? nx + nc : (nx >= nc ? nx - nc : nx);
-    ny = ny < 0 ? ny + nc : (ny >= nc ? ny - nc : ny);
-    const int nb = ny * nc + nx;
-    const float mn = M[nb];
-    const bool has = mn > 0.0f;
-    const float safe = has ? mn : 1.0f;
-    const float mx = has ? __fdiv_rn(SX[nb], safe) : 0.0f;
-    const float my = has ? __fdiv_rn(SY[nb], safe) : 0.0f;
-    const float offx = dx == 1    ? (cx == nc - 1 ? side : 0.0f)
-                       : dx == -1 ? (cx == 0 ? -side : 0.0f)
-                                  : 0.0f;
-    const float offy = dy == 1    ? (cy == nc - 1 ? side : 0.0f)
-                       : dy == -1 ? (cy == 0 ? -side : 0.0f)
-                                  : 0.0f;
-    cm = mn;
-    tmx = __fadd_rn(offx, mx);
-    tmy = __fadd_rn(offy, my);
-  }
-  float cml[8], mxl[8], myl[8];
+  if (lane < 8) temp_cell(r, lane, p, M, SX, SY, &cm, &tmx, &tmy);
+  Temps t;
 #pragma unroll
   for (int l = 0; l < 8; ++l) {
-    cml[l] = __shfl_sync(kFull, cm, l);
-    mxl[l] = __shfl_sync(kFull, tmx, l);
-    myl[l] = __shfl_sync(kFull, tmy, l);
+    t.cm[l] = __shfl_sync(kFull, cm, l);
+    t.mx[l] = __shfl_sync(kFull, tmx, l);
+    t.my[l] = __shfl_sync(kFull, tmy, l);
   }
+  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
+  for (int64_t s = s0 + lane; s < s1; s += 32) {
+    Slot in;
+    if (load_slot(s, f, &in))
+      finish(s, r, true, in, step(in, t, p), f, p);
+    else
+      finish(s, r, false, in, Next{in.x, in.y, 0.0f, 0.0f}, f, p);
+  }
+}
 
-  const int64_t s1 = row_start[r + 1];
-  for (int64_t s = row_start[r] + lane; s < s1; s += 32) {
-    const float xs = x[s], ys = y[s], vxs = vx[s], vys = vy[s], ms = m[s];
-    const bool o = occ[s] != 0;
-    int cell;
-    const bool binned = o && cell_of(xs, ys, w, nc, &cell);
-    const float gm = __fmul_rn(g, binned ? ms : 0.0f);
-    float fx = 0.0f, fy = 0.0f;
+// ---------------------------------------------------------------------------
+// Delivery, in place.
+
+// Whether the rows' byte flags can be read 4 slots a lane: the row's ends
+// and both arrays 4-byte aligned.
+__device__ __forceinline__ bool words(const uint8_t* a, const uint8_t* b,
+                                      int64_t s0, int64_t s1) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           (uintptr_t)s0 | (uintptr_t)s1) & 3u) == 0;
+}
+
+// The flags (0 or 1 a byte, as bool tensors hold them) of slots s to s + 3
+// as one word, byte b for slot s + b; slots at or past s1 read 0.
+__device__ __forceinline__ uint32_t flags4(const uint8_t* a, int64_t s,
+                                           int64_t s1, bool word) {
+  if (word) return *reinterpret_cast<const uint32_t*>(a + s) & 0x01010101u;
+  uint32_t v = 0;
 #pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      const float dxl = __fsub_rn(mxl[l], xs);
-      const float dyl = __fsub_rn(myl[l], ys);
-      const float d2 = __fadd_rn(__fmul_rn(dxl, dxl), __fmul_rn(dyl, dyl));
-      const float inv = d2 > 0.0f ? rsqrtf(d2) : 0.0f;
-      const float sl = __fmul_rn(__fmul_rn(gm, cml[l]),
-                                 __fmul_rn(__fmul_rn(inv, inv), inv));
-      fx = __fadd_rn(fx, __fmul_rn(sl, dxl));
-      fy = __fadd_rn(fy, __fmul_rn(sl, dyl));
-    }
-    const float tfx = __fadd_rn(fxd[s], fx);
-    const float tfy = __fadd_rn(fyd[s], fy);
-    // x += vx*dt + 0.5*ax*dt*dt as ((vx*dt) + (((0.5*ax)*dt)*dt)).
-    const bool frozen = ms == 0.0f;
-    const float safe_m = frozen ? 1.0f : ms;
-    const float ax = __fdiv_rn(tfx, safe_m);
-    const float ay = __fdiv_rn(tfy, safe_m);
-    float nx = __fadd_rn(xs, __fadd_rn(__fmul_rn(vxs, dt),
-                                       __fmul_rn(__fmul_rn(__fmul_rn(0.5f, ax),
-                                                           dt), dt)));
-    float ny = __fadd_rn(ys, __fadd_rn(__fmul_rn(vys, dt),
-                                       __fmul_rn(__fmul_rn(__fmul_rn(0.5f, ay),
-                                                           dt), dt)));
-    const float nvx = __fadd_rn(vxs, __fmul_rn(ax, dt));
-    const float nvy = __fadd_rn(vys, __fmul_rn(ay, dt));
-    nx = fmodf(__fadd_rn(nx, side), side);
-    ny = fmodf(__fadd_rn(ny, side), side);
-    if (frozen) {
-      nx = xs;
-      ny = ys;
-    }
-    ox[s] = nx;
-    oy[s] = ny;
-    ovx[s] = frozen ? vxs : nvx;
-    ovy[s] = frozen ? vys : nvy;
-    int to;
-    const bool in_box = cell_of(nx, ny, w, nc, &to);
-    dest[s] = to;
-    moving[s] = o && in_box && to != r;
-  }
+  for (int b = 0; b < 4; ++b)
+    if (s + b < s1) v |= (uint32_t)(a[s + b] != 0) << (8 * b);
+  return v;
+}
+
+// Staging: a mover's record at its place in its destination row's bucket,
+// 8 words (two 16-byte stores): source slot, x, y, vx, vy, m, pid, 0.
+__device__ __forceinline__ void stage_mover(int* stage, int64_t b, int64_t s,
+                                            const float* x, const float* y,
+                                            const float* vx, const float* vy,
+                                            const float* m, const int* pid) {
+  int4* rec = reinterpret_cast<int4*>(stage) + 2 * b;
+  rec[0] = make_int4((int)s, __float_as_int(x[s]), __float_as_int(y[s]),
+                     __float_as_int(vx[s]));
+  rec[1] = make_int4(__float_as_int(vy[s]), __float_as_int(m[s]), pid[s], 0);
 }
 
 // A delivery limited to the slots at[0..n) (ascending): their moving flags
@@ -274,123 +407,166 @@ __global__ void deliver_expand_kernel(const int64_t* __restrict__ at, int n,
   dest_pool[s] = dest[i];
 }
 
-// Delivery, pass 1 (a warp a row): the row's free slots after this step's
-// departures (empty, or a mover's), and one count for each mover on its
-// destination row (integer atomics: the counts do not depend on the order).
+// Delivery, pass 1 (a warp a row, 4 slots a lane): the row's free slots
+// after this step's departures (empty, or a mover's) and its departures;
+// its arrival cursor and the undelivered count zeroed for pass 2.
+//
+// Bound: bytes, occ and moving read a slot, 16 written a row.
 __global__ void deliver_count_kernel(const uint8_t* __restrict__ occ,
                                      const uint8_t* __restrict__ moving,
-                                     const int* __restrict__ dest,
                                      const int64_t* __restrict__ row_start,
                                      int nrows, int* __restrict__ nfree,
-                                     int* __restrict__ cnt) {
+                                     int* __restrict__ ndep,
+                                     int* __restrict__ cursor,
+                                     int* __restrict__ undelivered) {
   const int r = warp_row(nrows);
   if (r < 0) return;
   const int lane = threadIdx.x & 31;
-  const int64_t s1 = row_start[r + 1];
-  int nf = 0;
-  for (int64_t s = row_start[r] + lane; s < s1; s += 32) {
-    const bool mv = moving[s] != 0;
-    nf += !occ[s] || mv;
-    if (mv) {
-      const int d = dest[s];
-      if (d >= 0 && d < nrows) atomicAdd(&cnt[d], 1);
-    }
+  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
+  const bool word = words(occ, moving, s0, s1);
+  int nf = 0, nd = 0;
+  for (int64_t s = s0 + 4 * lane; s < s1; s += 128) {
+    const uint32_t o = flags4(occ, s, s1, word);
+    const uint32_t mv = flags4(moving, s, s1, word);
+    // A slot past s1 reads o = 0, mv = 0: not free. Count only slots < s1.
+    const uint32_t in = s1 - s >= 4 ? 0x01010101u
+                                    : (1u << (8 * (int)(s1 - s))) - 1u;
+    nf += __popc(((o ^ 0x01010101u) | mv) & in & 0x01010101u);
+    nd += __popc(mv);
   }
   nf = warp_sum(nf);
-  if (lane == 0) nfree[r] = nf;
-}
-
-// Delivery, pass 2 (a warp a row): each mover of the row written into its
-// destination row's bucket (the bucket array's slots of that row, in the
-// order of the atomics; pass 3 sorts them), at most as many as the row has
-// slots; and the movers beyond the row's free slots added to undelivered.
-__global__ void deliver_bucket_kernel(const uint8_t* __restrict__ moving,
-                                      const int* __restrict__ dest,
-                                      const int64_t* __restrict__ row_start,
-                                      int nrows,
-                                      const int* __restrict__ nfree,
-                                      const int* __restrict__ cnt,
-                                      int* __restrict__ cursor,
-                                      int* __restrict__ bucket,
-                                      int* __restrict__ undelivered) {
-  const int r = warp_row(nrows);
-  if (r < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t s1 = row_start[r + 1];
-  for (int64_t s = row_start[r] + lane; s < s1; s += 32) {
-    if (!moving[s]) continue;
-    const int d = dest[s];
-    if (d < 0 || d >= nrows) continue;
-    const int pos = atomicAdd(&cursor[d], 1);
-    const int64_t b0 = row_start[d];
-    if (pos < row_start[d + 1] - b0) bucket[b0 + pos] = (int)s;
-  }
+  nd = warp_sum(nd);
   if (lane == 0) {
-    const int over = cnt[r] - nfree[r];
-    if (over > 0) atomicAdd(undelivered, over);
+    nfree[r] = nf;
+    ndep[r] = nd;
+    cursor[r] = 0;
+    if (r == 0) *undelivered = 0;
   }
 }
 
-// Delivery, pass 3 (a warp a row), into new tiles: when no mover is
-// undelivered, the row's c movers are ranked by source slot (rank = the
-// count of smaller sources in the bucket) and the one of rank q lands in
-// the row's q-th free slot, in slot order (a ballot a 32 slots gives each
-// free slot its rank, and that slot pulls its mover's fields). Every slot
-// of the row is written: an arrival's fields (occupied); a departed mover's
-// own stale fields (empty, m 0); else its own fields (m 0 where empty).
-// When a mover is undelivered nothing moves (all or nothing). The inputs
-// are only read, so a slot that a mover leaves in this step can take an
-// arrival with no staging.
-__global__ void deliver_place_kernel(
+// Delivery, pass 2 (a warp a row, 4 slots a lane; a row with no departure
+// returns at once): each mover of the row takes the next place of its
+// destination row's bucket (an integer atomic; pass 3 ranks the bucket by
+// source slot); a mover within the row's free slots is staged there, with
+// its six fields, before any tile is written; one beyond them adds to
+// undelivered.
+//
+// Bound: bytes, a row's departures read, moving read a slot of a row with
+// departures; a mover's destination, its six fields read and its 32-byte
+// record written.
+__global__ void deliver_stage_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ m, const int* __restrict__ pid,
-    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ moving,
+    const uint8_t* __restrict__ moving, const int* __restrict__ dest,
     const int64_t* __restrict__ row_start, int nrows,
-    const int* __restrict__ cnt, const int* __restrict__ bucket,
-    int* __restrict__ sorted, const int* __restrict__ undelivered,
-    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ ovx,
-    float* __restrict__ ovy, float* __restrict__ om, int* __restrict__ opid,
-    uint8_t* __restrict__ oocc) {
+    const int* __restrict__ nfree, const int* __restrict__ ndep,
+    int* __restrict__ cursor, int* __restrict__ stage,
+    int* __restrict__ undelivered) {
   const int r = warp_row(nrows);
-  if (r < 0) return;
+  if (r < 0 || ndep[r] == 0) return;
   const int lane = threadIdx.x & 31;
-  const bool act = *undelivered == 0;
   const int64_t s0 = row_start[r], s1 = row_start[r + 1];
-  const int c = act ? cnt[r] : 0;  // <= the row's free slots when act
-  for (int i = lane; i < c; i += 32) {
-    const int b = bucket[s0 + i];
+  const bool word = words(moving, moving, s0, s1);
+  for (int64_t s = s0 + 4 * lane; s < s1; s += 128) {
+    const uint32_t mv = flags4(moving, s, s1, word);
+    if (!mv) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (!((mv >> (8 * b)) & 1u)) continue;
+      const int64_t src = s + b;
+      const int d = dest[src];
+      if (d < 0 || d >= nrows) continue;
+      const int pos = atomicAdd(&cursor[d], 1);
+      if (pos < nfree[d])
+        stage_mover(stage, row_start[d] + pos, src, x, y, vx, vy, m, pid);
+      else
+        atomicAdd(undelivered, 1);
+    }
+  }
+}
+
+// Delivery, pass 3 (a warp a row), in place: when no mover is undelivered,
+// on a row with arrivals or departures only, the row's c staged movers are
+// ranked by source slot (rank = the count of smaller sources in the
+// bucket, by shuffles), and the one of rank q lands in the row's q-th free
+// slot in slot order (a warp scan of the free slots, 4 a lane, gives each
+// its rank; that slot takes its mover's record: x, y, vx, vy, m, pid and
+// occ); a departed slot that takes no arrival is cleared (occ 0, m 0; its
+// other fields stay as they were). The warp reads and writes only its own
+// row's slots, and stops once every arrival is placed and every departure
+// seen. No slot is written when a mover is undelivered (all or nothing).
+__global__ void deliver_place_kernel(
+    float* __restrict__ x, float* __restrict__ y, float* __restrict__ vx,
+    float* __restrict__ vy, float* __restrict__ m, int* __restrict__ pid,
+    uint8_t* __restrict__ occ, const uint8_t* __restrict__ moving,
+    const int64_t* __restrict__ row_start, int nrows,
+    const int* __restrict__ ndep, const int* __restrict__ cursor,
+    const int* __restrict__ stage, int* __restrict__ perm,
+    const int* __restrict__ undelivered) {
+  const int r = warp_row(nrows);
+  if (r < 0 || *undelivered != 0) return;
+  const int c = cursor[r];  // <= the row's free slots: none undelivered
+  const int nd = ndep[r];
+  if (c == 0 && nd == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
+
+  for (int i0 = 0; i0 < c; i0 += 32) {
+    const int i = i0 + lane;
+    const int src = i < c ? stage[8 * (s0 + i)] : 0x7fffffff;
     int rank = 0;
-    for (int j = 0; j < c; ++j) rank += bucket[s0 + j] < b;
-    sorted[s0 + rank] = b;
+    for (int j0 = 0; j0 < c; j0 += 32) {
+      const int j = j0 + lane;
+      const int other = j < c ? stage[8 * (s0 + j)] : 0x7fffffff;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k)
+        rank += __shfl_sync(kFull, other, k) < src;
+    }
+    if (i < c) perm[s0 + rank] = i;
   }
   __syncwarp();
-  int base = 0;  // free slots of the row before this chunk
-  for (int64_t c0 = s0; c0 < s1; c0 += 32) {
-    const int64_t s = c0 + lane;
-    const bool in = s < s1;
-    const bool o = in && occ[s] != 0;
-    const bool mv = in && moving[s] != 0;
-    const bool free = in && (!o || mv);
-    const unsigned mask = __ballot_sync(kFull, free);
-    const int q = base + __popc(mask & ((1u << lane) - 1u));
-    base += __popc(mask);
-    if (!in) continue;
-    int64_t src = s;
-    bool now = o;
-    if (free && q < c) {
-      src = sorted[s0 + q];
-      now = true;
-    } else if (act && mv) {
-      now = false;
+
+  const bool word = words(occ, moving, s0, s1);
+  const int4* rec = reinterpret_cast<const int4*>(stage);
+  int base = 0, seen = 0;  // free slots and departures before this chunk
+  for (int64_t c0 = s0; c0 < s1; c0 += 128) {
+    const int64_t s = c0 + 4 * lane;
+    uint32_t o = 0, mv = 0;
+    if (s < s1) {
+      o = flags4(occ, s, s1, word);
+      mv = flags4(moving, s, s1, word);
     }
-    ox[s] = x[src];
-    oy[s] = y[src];
-    ovx[s] = vx[src];
-    ovy[s] = vy[src];
-    opid[s] = pid[src];
-    om[s] = now ? m[src] : 0.0f;
-    oocc[s] = now;
+    const uint32_t in = s >= s1 ? 0u
+                        : s1 - s >= 4 ? 0x01010101u
+                                      : (1u << (8 * (int)(s1 - s))) - 1u;
+    const uint32_t fr = ((o ^ 0x01010101u) | mv) & in & 0x01010101u;
+    const int nf = __popc(fr);
+    const int incl = warp_scan(nf, lane);
+    int q = base + incl - nf;
+    base += __shfl_sync(kFull, incl, 31);
+    seen += warp_sum(__popc(mv));
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (!((fr >> (8 * b)) & 1u)) continue;
+      const int64_t t = s + b;
+      if (q < c) {
+        const int64_t e = s0 + perm[s0 + q];
+        const int4 a = rec[2 * e], d = rec[2 * e + 1];
+        x[t] = __int_as_float(a.y);
+        y[t] = __int_as_float(a.z);
+        vx[t] = __int_as_float(a.w);
+        vy[t] = __int_as_float(d.x);
+        m[t] = __int_as_float(d.y);
+        pid[t] = d.z;
+        occ[t] = 1;
+      } else if ((mv >> (8 * b)) & 1u) {
+        occ[t] = 0;
+        m[t] = 0.0f;
+      }
+      ++q;
+    }
+    if (base >= c && seen >= nd) break;
   }
 }
 
@@ -400,36 +576,13 @@ unsigned row_blocks(int nrows, int warps) {
   return (unsigned)((nrows + warps - 1) / warps);
 }
 
-cudaError_t deliver_passes(const float* x, const float* y, const float* vx,
-                           const float* vy, const float* m, const int* pid,
-                           const uint8_t* occ, const uint8_t* moving,
-                           const int* dest, const int64_t* row_start,
-                           int nrows, int* nfree, int* cnt, int* cursor,
-                           int* bucket, int* sorted, int* undelivered,
-                           float* ox, float* oy, float* ovx, float* ovy,
-                           float* om, int* opid, uint8_t* oocc, int warps,
-                           cudaStream_t s) {
-  const unsigned blocks = row_blocks(nrows, warps);
-  const unsigned threads = 32u * warps;
-  deliver_count_kernel<<<blocks, threads, 0, s>>>(occ, moving, dest,
-                                                  row_start, nrows, nfree,
-                                                  cnt);
-  deliver_bucket_kernel<<<blocks, threads, 0, s>>>(
-      moving, dest, row_start, nrows, nfree, cnt, cursor, bucket,
-      undelivered);
-  deliver_place_kernel<<<blocks, threads, 0, s>>>(
-      x, y, vx, vy, m, pid, occ, moving, row_start, nrows, cnt, bucket,
-      sorted, undelivered, ox, oy, ovx, ovy, om, opid, oocc);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
 // after its launches (cudaErrorInvalidValue, without a launch, for a shape
-// it does not take). warps: rows (warps) a block, 1 to 32. Pool arrays are
-// flat; row_start holds nrows + 1 int64 slot offsets.
+// it does not take). warps: warps a block, 1 to 32. Pool arrays are flat;
+// row_start holds nrows + 1 int64 slot offsets.
 
 // out: (3, nrows) floats, M, sum m x, sum m y; limbo: one int.
 extern "C" int psim_cell_sums_rows(const float* x, const float* y,
@@ -446,50 +599,47 @@ extern "C" int psim_cell_sums_rows(const float* x, const float* y,
   return (int)cudaGetLastError();
 }
 
-// sums: (3, nrows) floats as psim_cell_sums_rows writes them; nrows must be
-// nc * nc (row r is cell r).
+// In place: x, y, vx, vy of the live slots (m != 0); dest (ints) and
+// moving (bytes) written for every slot. sums: (3, nrows) floats as
+// psim_cell_sums_rows writes them; nrows must be nc * nc (row r is cell r).
 extern "C" int psim_monopole_integrate(
-    const float* x, const float* y, const float* vx, const float* vy,
-    const float* m, const uint8_t* occ, const float* fxd, const float* fyd,
-    const float* sums, const int64_t* row_start, int nrows, float w, int nc,
-    float side, float dt, float g, float* ox, float* oy, float* ovx,
-    float* ovy, int* dest, uint8_t* moving, int warps, void* stream) {
+    float* x, float* y, float* vx, float* vy, const float* m,
+    const uint8_t* occ, const float* fxd, const float* fyd, const float* sums,
+    const int64_t* row_start, int nrows, float w, int nc, float side,
+    float dt, float g, int* dest, uint8_t* moving, int warps, void* stream) {
   if (!whole_warps(warps) || nc < 1 || nrows != nc * nc)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pool f{x, y, vx, vy, m, occ, fxd, fyd, dest, moving};
+  const Grid p{w, side, 2.0f * side, dt, g, nc};
   monopole_integrate_kernel<<<row_blocks(nrows, warps), 32 * warps, 0, s>>>(
-      x, y, vx, vy, m, occ, fxd, fyd, sums, sums + nrows,
-      sums + 2 * (size_t)nrows, row_start, nrows, w, nc, side, dt, g, ox, oy,
-      ovx, ovy, dest, moving);
+      f, sums, sums + nrows, sums + 2 * (size_t)nrows, row_start, nrows, p);
   return (int)cudaGetLastError();
 }
 
-// dest: the movers' destination rows (int32).
-// With at (n_at slots, ascending), moving and dest are given for those
-// slots alone and are first scattered into moving_pool (nslots bytes) and
-// dest_pool (nslots ints); else they are pool-wide and moving_pool,
-// dest_pool go unused. scratch: 3 nrows + 1 ints (counts, cursors,
-// undelivered, free counts); bucket, sorted: nslots ints each.
-// undelivered (scratch[2 nrows]) counts the movers beyond their rows' free
-// slots; when it is not 0 the output tiles are the input tiles (m 0 where
-// empty).
+// In place: x, y, vx, vy, m, pid (4 bytes) and occ (1) of the pool.
+// dest: the movers' destination rows (int32). With at (n_at slots,
+// ascending), moving and dest are given for those slots alone and are
+// first scattered into moving_pool (nslots bytes) and dest_pool (nslots
+// ints); else they are pool-wide and moving_pool, dest_pool go unused.
+// scratch: 3 nrows + 1 ints (free slots, departures, cursors, undelivered);
+// stage: 8 nslots ints (16-byte aligned); perm: nslots ints.
+// undelivered (scratch[3 nrows]) counts the movers beyond their rows' free
+// slots; when it is not 0 no slot is written.
 extern "C" int psim_deliver(
-    const float* x, const float* y, const float* vx, const float* vy,
-    const float* m, const int* pid, const uint8_t* occ,
-    const uint8_t* moving, const int* dest, const int64_t* row_start,
-    int nrows, int64_t nslots, const int64_t* at, int n_at,
-    uint8_t* moving_pool, int* dest_pool, int* scratch, int* bucket,
-    int* sorted, float* ox, float* oy, float* ovx, float* ovy, float* om,
-    int* opid, uint8_t* oocc, int warps, void* stream) {
+    float* x, float* y, float* vx, float* vy, float* m, int* pid,
+    uint8_t* occ, const uint8_t* moving, const int* dest,
+    const int64_t* row_start, int nrows, int64_t nslots, const int64_t* at,
+    int n_at, uint8_t* moving_pool, int* dest_pool, int* scratch, int* stage,
+    int* perm, int warps, void* stream) {
   if (!whole_warps(warps) || nrows < 1 || nslots >= (int64_t)1 << 31 ||
-      n_at < 0)
+      n_at < 0 || (reinterpret_cast<uintptr_t>(stage) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* cnt = scratch;
-  int* cursor = scratch + nrows;
-  int* undelivered = scratch + 2 * (size_t)nrows;
-  int* nfree = undelivered + 1;
-  cudaMemsetAsync(scratch, 0, (2 * (size_t)nrows + 1) * sizeof(int), s);
+  int* nfree = scratch;
+  int* ndep = scratch + nrows;
+  int* cursor = scratch + 2 * (size_t)nrows;
+  int* undelivered = scratch + 3 * (size_t)nrows;
   if (at != nullptr) {
     cudaMemsetAsync(moving_pool, 0, (size_t)nslots, s);
     if (n_at > 0)
@@ -498,8 +648,16 @@ extern "C" int psim_deliver(
     moving = moving_pool;
     dest = dest_pool;
   }
-  return (int)deliver_passes(x, y, vx, vy, m, pid, occ, moving, dest,
-                             row_start, nrows, nfree, cnt, cursor, bucket,
-                             sorted, undelivered, ox, oy, ovx, ovy, om, opid,
-                             oocc, warps, s);
+  const unsigned blocks = row_blocks(nrows, warps);
+  const unsigned threads = 32u * warps;
+  deliver_count_kernel<<<blocks, threads, 0, s>>>(occ, moving, row_start,
+                                                  nrows, nfree, ndep, cursor,
+                                                  undelivered);
+  deliver_stage_kernel<<<blocks, threads, 0, s>>>(
+      x, y, vx, vy, m, pid, moving, dest, row_start, nrows, nfree, ndep,
+      cursor, stage, undelivered);
+  deliver_place_kernel<<<blocks, threads, 0, s>>>(
+      x, y, vx, vy, m, pid, occ, moving, row_start, nrows, ndep, cursor,
+      stage, perm, undelivered);
+  return (int)cudaGetLastError();
 }

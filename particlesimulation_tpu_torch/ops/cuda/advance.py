@@ -15,15 +15,23 @@ version of the same function:
 * ``cell_sums_rows`` / ``cell_sums_rows_ref``: each row's M, Σm·x and Σm·y
   over its binned slots, and the count of limbo slots;
 * ``monopole_integrate`` / ``monopole_integrate_ref``: the monopole terms,
-  the integrator and each slot's destination row and moving flag;
+  the integrator (x, y, vx, vy updated in place) and each slot's
+  destination row and moving flag;
 * ``deliver`` / ``deliver_ref``: every mover to its destination row in one
-  pass (``ops/resident.rebin`` and the engines' advance phases call it).
+  pass, in place (``ops/resident.rebin`` and the engines' advance phases
+  call it).
 
 The tiles are a pool of slots in which row r holds the flat slots
 ``row_start[r]`` to ``row_start[r + 1]`` (int64, on the tiles' device):
 rows of one width in the resident engine, of each band's width in the
 banded pool. Row r is cell r of the ``ncside × ncside`` grid for the sums
 and the monopole pass; the delivery takes any rows.
+
+In place: ``monopole_integrate`` and ``deliver`` write into the tensors
+they are given (the plain versions too, so that a CPU run sees the same
+aliasing). No caller reads a step's tiles after handing them on: each
+engine's prologue lays a run's tiles out in fresh tensors, so a replay of a
+run (the retry ladder) starts from its untouched input state.
 
 A tensor on the CPU goes to the plain version; a tensor on a CUDA device
 goes to the kernel, or the wrapper raises. The library is compiled with
@@ -77,9 +85,9 @@ def load(path):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.psim_cell_sums_rows.argtypes = [vp] * 5 + [ci, cf, ci, vp, vp, ci, vp]
     lib.psim_monopole_integrate.argtypes = (
-        [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 6 + [ci, vp])
+        [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 2 + [ci, vp])
     lib.psim_deliver.argtypes = (
-        [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 12 + [ci, vp])
+        [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 5 + [ci, vp])
     for fn in (lib.psim_cell_sums_rows, lib.psim_monopole_integrate,
                lib.psim_deliver):
         fn.restype = ci
@@ -207,10 +215,11 @@ def monopole_integrate(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     neighbours' COM (``sums``: (3, nrows) M, Σm·x, Σm·y, as
     ``cell_sums_rows`` gives them; a slot out of the box feels none), plus
     the pair force ``fxd``, ``fyd``; then the explicit step with the
-    periodic wrap (``m == 0`` slots frozen). Returns (x, y, vx, vy, dest,
-    moving), each the shape of x: the new state, each slot's destination
-    row (int32 cell of its new position) and whether it moves (occupied,
-    in the box, dest != r).
+    periodic wrap (``m == 0`` slots frozen). x, y, vx, vy are updated in
+    place. Returns (x, y, vx, vy, dest, moving), each the shape of x: the
+    same x, y, vx, vy tensors, each slot's destination row (int32 cell of
+    its new position) and whether it moves (occupied, in the box, dest !=
+    r), new tensors.
     """
     dev = x.device
     nrows = _check_rows(row_start, dev)
@@ -224,20 +233,17 @@ def monopole_integrate(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     if not cell_pairs._on_card(x, "monopole and integrate pass"):
         return monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums,
                                       row_start, side, ncside, deltat)
-    outs = [torch.empty_like(x) for _ in range(4)]
     dest = torch.empty(x.shape, dtype=torch.int32, device=dev)
     moving = torch.empty(x.shape, dtype=torch.bool, device=dev)
-    xf, yf, vxf, vyf, mf, fxf, fyf = flat
     cell_pairs._launch(
         "monopole_integrate", _library().psim_monopole_integrate, x,
-        xf.data_ptr(), yf.data_ptr(), vxf.data_ptr(), vyf.data_ptr(),
-        mf.data_ptr(), of.data_ptr(), fxf.data_ptr(), fyf.data_ptr(),
-        sums.data_ptr(), row_start.data_ptr(), nrows,
-        cell_width(side, ncside), ncside, float(np.float32(side)),
-        float(np.float32(deltat)), float(np.float32(G)),
-        *(o.data_ptr() for o in outs), dest.data_ptr(), moving.data_ptr(),
-        ROW_WARPS, launches=LAUNCHES)
-    return (*outs, dest, moving)
+        *(f.data_ptr() for f in flat[:5]), of.data_ptr(),
+        *(f.data_ptr() for f in flat[5:]), sums.data_ptr(),
+        row_start.data_ptr(), nrows, cell_width(side, ncside), ncside,
+        float(np.float32(side)), float(np.float32(deltat)),
+        float(np.float32(G)), dest.data_ptr(), moving.data_ptr(), ROW_WARPS,
+        launches=LAUNCHES)
+    return x, y, vx, vy, dest, moving
 
 
 def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
@@ -245,7 +251,7 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     """Plain torch version of ``monopole_integrate``: the composition
     ``stencil.tables_from_sums`` -> ``dense.monopole_tile_forces`` (each
     slot's cell row gathered) -> ``fxd + fxm`` -> ``integrate.integrate``
-    -> ``binning.cell_of``."""
+    -> ``binning.cell_of``, copied into x, y, vx, vy."""
     dev = x.device
     nrows = _check_rows(row_start, dev)
     _check_grid(nrows, ncside)
@@ -258,29 +264,31 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     fxm, fym = dense.monopole_tile_forces(
         xf[:, None], yf[:, None], torch.where(of & valid, mf, 0.0)[:, None],
         *(t[row] for t in tables))
-    nx, ny, nvx, nvy = integrate.integrate(xf, yf, vxf, vyf, mf,
-                                           fxf + fxm[:, 0], fyf + fym[:, 0],
-                                           side, deltat)
-    cx, cy, valid = cell_of(nx, ny, side, ncside)
+    new = integrate.integrate(xf, yf, vxf, vyf, mf, fxf + fxm[:, 0],
+                              fyf + fym[:, 0], side, deltat)
+    cx, cy, valid = cell_of(new[0], new[1], side, ncside)
     dest = cy * ncside + cx
     moving = of & valid & (dest != row)
-    return tuple(t.reshape(shape) for t in (nx, ny, nvx, nvy, dest, moving))
+    for t, v in zip((x, y, vx, vy), new):
+        t.copy_(v.view(shape))
+    return x, y, vx, vy, dest.view(shape), moving.view(shape)
 
 
 def deliver(ts, moving, dest, row_start, at=None):
-    """Move the ``moving`` slots to rows ``dest``, in one pass.
+    """Move the ``moving`` slots to rows ``dest``, in one pass, in place.
 
     The tiles are a pool of slots in which row r holds the contiguous slots
     ``row_start[r]`` to ``row_start[r + 1]`` (flat indices; rows may differ
     in width, as the banded engine's do). A mover lands in its destination
     row's rank-th free slot, free slots counted after this step's departures
     in slot order, its rank being its place among the row's movers sorted by
-    source slot. Returns (ts', undelivered), new tiles: ``undelivered``
-    (int32, 0-d) counts the movers beyond their destination rows' free
-    slots. When it is nonzero no mover moves: the tiles come back unchanged,
-    nothing is lost, and the engine flags overflow and replays the run with
-    larger tiles. A mover's ``dest`` (int32 or int64) must be a row of the
-    pool.
+    source slot. ``ts``' x, y, vx, vy, m, pid and occ are updated in place;
+    returns (ts, undelivered), ``ts`` holding the same tensors:
+    ``undelivered`` (int32, 0-d) counts the movers beyond their destination
+    rows' free slots. When it is nonzero no mover moves: no byte of the
+    tiles changes, nothing is lost, and the engine flags overflow and
+    replays the run with larger tiles. A mover's ``dest`` (int32 or int64)
+    must be a row of the pool.
 
     ``at`` (int64 flat slot indices, ascending) limits the movers to those
     slots: ``moving`` and ``dest`` are then given for them alone, and the
@@ -288,9 +296,14 @@ def deliver(ts, moving, dest, row_start, at=None):
     a ship round). The result is the whole pool's delivery with no mover
     outside ``at``.
 
-    The kernel (on a CUDA tensor) and ``deliver_ref`` (on a CPU tensor) give
-    the same tiles in every field and slot: a vacated slot keeps its stale
-    x, y, vx, vy and pid with ``occ`` false and ``m`` 0.
+    Only the movers' slots change: an arrival's slot takes its fields (occ
+    true), a vacated slot that takes no arrival gets occ false and m 0 and
+    keeps its stale x, y, vx, vy and pid. Every other slot keeps its
+    values, so an empty slot's m stays 0 where it was 0 (each engine's
+    prologue lays empty slots out with m 0, deaths keep occ, and a ship
+    round copies whole slots). The kernel (on a CUDA tensor) and
+    ``deliver_ref`` (on a CPU tensor) give the same tiles in every field
+    and slot.
     """
     dev = ts.x.device
     nrows = _check_rows(row_start, dev)
@@ -310,11 +323,9 @@ def deliver(ts, moving, dest, row_start, at=None):
         return deliver_ref(ts, moving, dest, row_start, at)
     # The kernel reads int32 rows: exact for a mover's row of the pool.
     dst = dest.to(torch.int32).contiguous().reshape(-1)
-    shape = ts.x.shape
-    outs = [torch.empty_like(a) for a in (*fields, pid, occ)]
     scratch = torch.empty(3 * nrows + 1, dtype=torch.int32, device=dev)
-    bucket = torch.empty(n, dtype=torch.int32, device=dev)
-    ranked = torch.empty(n, dtype=torch.int32, device=dev)
+    stage = torch.empty(8 * n, dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
     if at is None:
         pool = (None, None)
     else:
@@ -323,20 +334,18 @@ def deliver(ts, moving, dest, row_start, at=None):
     cell_pairs._launch(
         "deliver", _library().psim_deliver, ts.x,
         *(f.data_ptr() for f in fields), pid.data_ptr(), occ.data_ptr(),
-        mv.data_ptr(), dst.data_ptr(), row_start.data_ptr(), nrows, n, _ptr(at), k if at is not None else 0,
-        *(_ptr(p) for p in pool), scratch.data_ptr(), bucket.data_ptr(),
-        ranked.data_ptr(), *(o.data_ptr() for o in outs), ROW_WARPS,
+        mv.data_ptr(), dst.data_ptr(), row_start.data_ptr(), nrows, n,
+        _ptr(at), 0 if at is None else k, *(_ptr(p) for p in pool),
+        scratch.data_ptr(), stage.data_ptr(), perm.data_ptr(), ROW_WARPS,
         launches=LAUNCHES)
-    x, y, vx, vy, m, pid, occ = (o.view(shape) for o in outs)
-    return (ts._replace(x=x, y=y, vx=vx, vy=vy, m=m, occ=occ, pid=pid),
-            scratch[2 * nrows])
+    return ts, scratch[3 * nrows]
 
 
 def deliver_ref(ts, moving, dest, row_start, at=None):
     """Plain torch version of ``deliver``: movers sorted stably by
     (destination row, source slot), ranked in their row, landed in the
-    row's rank-th free slot by a scatter of every field."""
-    shape = ts.x.shape
+    row's rank-th free slot by a scatter of every field, copied into the
+    tiles."""
     nslots = ts.x.numel()
     nrows = row_start.shape[0] - 1
     dev = ts.x.device
@@ -380,16 +389,19 @@ def deliver_ref(ts, moving, dest, row_start, at=None):
     tgt = torch.where(act, slot, nslots)
     src_act = torch.where(act, src, nslots)
 
-    def move(a):
+    def move(a, vacated=None):
+        # The movers' values first, then (occ, m) the vacated slots
+        # cleared, then the arrivals written.
         flat = torch.cat([a.reshape(-1), a.new_zeros(1)])
         vals = flat[src]
+        if vacated is not None:
+            flat[src_act] = vacated
         flat[tgt] = vals
-        return flat[:nslots].reshape(shape)
+        a.view(-1).copy_(flat[:nslots])
 
-    occ = torch.cat([occf, occf.new_zeros(1)])
-    occ = occ.index_fill_(0, src_act, False).index_fill_(0, tgt, True)
-    occ = occ[:nslots].reshape(shape)
-    m = torch.where(occ, move(ts.m), 0.0)
-    out = ts._replace(x=move(ts.x), y=move(ts.y), vx=move(ts.vx),
-                      vy=move(ts.vy), m=m, occ=occ, pid=move(ts.pid))
-    return out, undelivered
+    for k in ("x", "y", "vx", "vy", "pid"):
+        move(getattr(ts, k))
+    move(ts.m, 0.0)
+    ts.occ.view(-1).index_fill_(0, src_act[src_act < nslots], False)
+    ts.occ.view(-1).index_fill_(0, tgt[tgt < nslots], True)
+    return ts, undelivered

@@ -210,7 +210,7 @@ def _typed(f):
     return out
 
 
-DELIVER_CASES = ("traffic", "crowd", "vacated", "full")
+DELIVER_CASES = ("traffic", "crowd", "vacated", "full", "cycle")
 
 
 def deliver_cases(kcap: int, seed: int = 0):
@@ -230,7 +230,11 @@ def deliver_cases(kcap: int, seed: int = 0):
       each move to the other: every arrival lands in a slot a mover left
       in the same step;
     * ``full``: 3 x 3 cells; row 4 full with none leaving and 2 movers
-      bound for it, among other movers: nothing moves, 2 undelivered.
+      bound for it, among other movers: nothing moves, 2 undelivered;
+    * ``cycle``: 3 x 3 cells; rows 0, 1 and 2 full, and K/4 particles of
+      each move on to the next (0 to 1, 1 to 2, 2 to 0): every arrival
+      lands in a slot whose mover is itself arriving in another row, so an
+      in-place delivery must read every mover before it writes a slot.
     """
     rng = np.random.default_rng(seed)
     out = {}
@@ -285,7 +289,59 @@ def deliver_cases(kcap: int, seed: int = 0):
                      rng.choice([0, 2, 6, 8], pick.size))
     _place(f, rows[pick], slots[pick], cells, 3, rng)
     out["full"] = (_typed(f), 3.0, 3)
+
+    f = _resident_grid(3, kcap, 0.2, rng)
+    for row in range(3):
+        f["occ"][row] = True
+        f["m"][row] = rng.uniform(0.5, 1.0, kcap)
+        f["pid"][row] = 10 * f["occ"].size + row * kcap + np.arange(kcap)
+        _place(f, np.full(kcap, row), np.arange(kcap), np.full(kcap, row), 3,
+               rng)
+    for row in range(3):
+        leave = rng.choice(kcap, max(1, kcap // 4), replace=False)
+        _place(f, np.full(leave.size, row), leave,
+               np.full(leave.size, (row + 1) % 3), 3, rng)
+    out["cycle"] = (_typed(f), 3.0, 3)
     return out
+
+
+def wrap_case(kcap: int):
+    """(fields, fxd, fyd, side, ncside): the wrap's edges. A 3 x 3 grid of
+    cells 4 wide (side 12) whose only particles sit at rest in row 4 (the
+    centre cell's row) with m = 1 and no pair force, so that no monopole
+    term acts (every neighbour is empty) and the integrator gives
+    a = x + side exactly: each slot's x (then, with x inside, its y) puts
+    a at 2·side less one ulp, 2·side (fmod gives 0), 2·side plus one ulp,
+    side (from x = 0, and from x = -0.0), side less one ulp, +0 (x =
+    -side: a sum x + side with side > 0 is never -0.0), one ulp below 0,
+    below -side, 2·side and beyond; one dead slot (m = 0) at x = -0.0.
+    The first ``kcap`` slots of that list are used."""
+    nc, side = 3, np.float32(12.0)
+    f32 = np.float32
+    ulp = f32(2.0 ** -20)  # of [8, 16); [16, 32) has 2 ulp
+    edges = np.array([side - 2 * ulp,              # a = 2 side - ulp
+                      np.nextafter(side, f32(0)),  # a rounds to 2 side
+                      side + 2 * ulp,              # a = 2 side + ulp
+                      0.0, -0.0,                   # a = side
+                      -ulp,                        # a = side - ulp
+                      -side,                       # a = +0
+                      np.nextafter(-side, f32(-np.inf)),  # a = -ulp
+                      -20.0, -12.5,                # a < 0, below -side
+                      13.0, 30.0, 5.0], dtype=f32)
+    x = np.concatenate([edges, np.full(edges.size, 6.0, f32), [-0.0]])
+    y = np.concatenate([np.full(edges.size, 6.0, f32), edges, [6.0]])
+    m = np.concatenate([np.ones(2 * edges.size, f32), [0.0]])
+    n = min(kcap, x.size)
+    shape = (nc * nc, kcap)
+    fields = {k: np.zeros(shape, np.float32)
+              for k in ("x", "y", "vx", "vy", "m")}
+    fields["occ"] = np.zeros(shape, bool)
+    fields["pid"] = np.arange(nc * nc * kcap, dtype=np.int32).reshape(shape)
+    fields["x"][4, :n], fields["y"][4, :n] = x[:n], y[:n]
+    fields["m"][4, :n] = m[:n]
+    fields["occ"][4, :n] = True
+    zero = np.zeros(shape, np.float32)
+    return fields, zero, zero.copy(), float(side), nc
 
 
 def advance_case(kcap: int, seed: int = 0):

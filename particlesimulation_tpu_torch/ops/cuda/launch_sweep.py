@@ -70,19 +70,33 @@ SMALL_STEPS = 10
 LABELLED_KINDS = (("v4", True), ("v4", False), ("v2", True))
 
 
-def device_ms(fn, reps):
+def fresh_inputs(fresh, reps):
+    """``reps`` calls' inputs: ``fresh()`` each, made before any is timed
+    (a function that writes its inputs in place gets new ones each call);
+    without ``fresh``, None each."""
+    return [fresh() if fresh else None for _ in range(reps)]
+
+
+def call_with(fn, arg):
+    """``fn(arg)``, or ``fn()`` for an input of None (``fresh_inputs``)."""
+    return fn() if arg is None else fn(arg)
+
+
+def device_ms(fn, reps, fresh=None):
     """Median device milliseconds of ``fn`` over ``reps`` calls: CUDA events
     around each call, all queued behind a spin kernel, so that each pair of
     events brackets the call's kernels and not the host's work between
-    launches."""
-    fn()
+    launches. With ``fresh``, each call is ``fn(fresh())``, the inputs made
+    before the spin kernel is queued."""
+    args = fresh_inputs(fresh, reps + 1)
+    call_with(fn, args[0])
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(SPIN_CYCLES * reps)
-    for start, end in events:
+    for (start, end), a in zip(events, args[1:]):
         start.record()
-        fn()
+        call_with(fn, a)
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)

@@ -11,14 +11,23 @@ package, and the engines rewired onto them against their earlier bits.
 * ``deliver`` (the wrapper, on the CPU its plain version) against JAX's
   ``rebin`` on ``adversarial.deliver_cases``: each row's pid multiset and
   the undelivered count, as ``tests/test_torch_ops.py`` holds ``rebin``;
+  in place (the passed tensors hold the result; with movers undelivered
+  not a bit changes), and a cycle of three full rows swapping movers into
+  each other's vacated slots;
+* ``monopole_integrate`` in place: the input tensors returned, empty and
+  dead slots untouched, the wrap's edges (``adversarial.wrap_case``) as
+  ``np.fmod`` gives them;
 * the resident and banded engines on the CPU: the bits of the run the
   plain functions gave before the advance phase took the wrappers
-  (``assert_array_equal``).
+  (``assert_array_equal``), and ``Engine.run`` twice on one state (every
+  tile engine and the mesh resident) the same result, the state untouched.
 
 The kernels themselves run only on the card (``chip_smoke.py`` phases
 ar-at hold them to these plain versions there); the last two tests cover
 the chip check's helpers that the CPU can run.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +58,11 @@ def _tiles(fields):
         collisions=torch.zeros((), dtype=torch.int64),
         panics=torch.zeros((), dtype=torch.int32),
         overflow=torch.zeros((), dtype=torch.int32))
+
+
+def _clone(ts):
+    """The tiles in new tensors (the advance wrappers write in place)."""
+    return ts._replace(**{k: getattr(ts, k).clone() for k in FIELDS})
 
 
 def _jtiles(fields):
@@ -182,7 +196,8 @@ def test_plain_advance_is_the_old_composition(kcap):
     fxd, fyd = torch.from_numpy(fxd), torch.from_numpy(fyd)
     rs = _rows(nc * nc, kcap)
     sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
-    got = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ,
+    t = _clone(ts)
+    got = advance.monopole_integrate(t.x, t.y, t.vx, t.vy, t.m, t.occ,
                                      fxd, fyd, sums, rs, side, nc, DELTAT)
     ref = _old_monopole_integrate(ts, fxd, fyd, side, nc, kcap)
     for a, b in zip(got, ref):
@@ -217,6 +232,8 @@ def test_deliver_matches_jax_rebin(case, kcap):
     out, left = advance.deliver(ts, moving, dest, _rows(nc * nc, kcap))
     jout, jleft = jres.rebin(_jtiles(fields), side, nc, kcap)
     assert left.dtype == torch.int32 and int(left) == int(jleft)
+    # In place: the passed tensors hold the result.
+    assert all(getattr(out, k) is getattr(ts, k) for k in FIELDS)
     if case == "full":
         assert int(left) == 2
         for k in FIELDS:  # all or nothing: the tiles come back unchanged
@@ -244,7 +261,7 @@ def test_deliver_cases_land_in_vacated_slots():
     fields, side, nc = adversarial.deliver_cases(64, seed=3)["vacated"]
     ts = _tiles(fields)
     moving, dest = _movers(ts, side, nc)
-    out, left = advance.deliver(ts, moving, dest, _rows(nc * nc, 64))
+    out, left = advance.deliver(_clone(ts), moving, dest, _rows(nc * nc, 64))
     assert int(left) == 0
     assert out.occ[:2].all()
     left_slots = moving[:2].numpy()
@@ -270,9 +287,9 @@ def test_deliver_at_is_the_pool_delivery_of_those_slots(dest_dtype):
                                              replace=False)))
     inside = torch.zeros(moving.numel(), dtype=torch.bool)
     inside[at] = True
-    pool, left = advance.deliver(ts, moving & inside.view(moving.shape),
-                                 dest, rs)
-    sub, left_at = advance.deliver(ts, moving.reshape(-1)[at],
+    pool, left = advance.deliver(_clone(ts),
+                                 moving & inside.view(moving.shape), dest, rs)
+    sub, left_at = advance.deliver(_clone(ts), moving.reshape(-1)[at],
                                    dest.reshape(-1)[at], rs, at=at)
     assert int(left) == int(left_at) == 0 and int(moving.reshape(-1)[at].sum())
     for k in FIELDS:
@@ -409,11 +426,13 @@ def test_wrappers_dispatch_by_device_not_by_cuda_availability(monkeypatch):
         ref = advance.cell_sums_rows_ref(ts.x, ts.y, ts.m, ts.occ, rs, side,
                                          nc)
         assert torch.equal(sums, ref[0]) and torch.equal(limbo, ref[1])
-        out = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                         ts.occ, fxd, fyd, sums, rs, side, nc,
+        t = _clone(ts)
+        out = advance.monopole_integrate(t.x, t.y, t.vx, t.vy, t.m, t.occ,
+                                         fxd, fyd, sums, rs, side, nc,
                                          DELTAT)
-        moved, left = advance.deliver(ts, out[5], out[4], rs)
-        ref_moved, ref_left = advance.deliver_ref(ts, out[5], out[4], rs)
+        moved, left = advance.deliver(_clone(t), out[5], out[4], rs)
+        ref_moved, ref_left = advance.deliver_ref(_clone(t), out[5], out[4],
+                                                  rs)
         assert int(left) == int(ref_left)
         for k in FIELDS:
             assert torch.equal(getattr(moved, k), getattr(ref_moved, k))
@@ -491,7 +510,7 @@ def test_chip_check_catches_the_engines_advance():
     ph = chip_smoke._tile_phases(make_resident_run, cfg, eng.kcap)
     assert res.make_tile_run is orig
     ts, fxd, fyd = chip_smoke._advance_inputs(ph, state)
-    got, left, limbo = ph["advance"](ts, fxd, fyd)
+    got, left, limbo = ph["advance"](chip_smoke._clone_tiles(ts), fxd, fyd)
     x, y, vx, vy = _old_monopole_integrate(ts, fxd, fyd, cfg.side,
                                            cfg.ncside, eng.kcap)
     ref, ref_left = res.rebin(ts._replace(x=x, y=y, vx=vx, vy=vy), cfg.side,
@@ -535,8 +554,8 @@ def test_advance_module_does_not_import_resident():
 
 def test_chip_check_delivery_bound_is_what_the_function_moves():
     """The delivery's bound counts occ and moving a slot, 58 bytes a mover
-    and the row starts; the new tiles' floor (this design's) 51 bytes a
-    slot."""
+    and the row starts; the floor of a design that writes new tiles, kept
+    beside it, 51 bytes a slot."""
     import chip_smoke
 
     nslots, nrows, movers = 1_600_000, 10_000, 9_992
@@ -548,3 +567,198 @@ def test_chip_check_delivery_bound_is_what_the_function_moves():
     assert tiles == pytest.approx((51 * nslots + 4 * movers + 8 * nrows)
                                   / chip_smoke.PEAK_BYTES * 1e3)
     assert chip_smoke._deliver_bound(nslots, nrows, 0)[0] < ms
+
+
+def test_chip_check_monopole_bound_is_what_the_function_moves():
+    """The monopole pass's bound counts 50 bytes a live slot and 18 a
+    frozen one (x, y, m, occ read; dest, moving written), the rows' sums
+    and starts; the copy-out floor kept beside it, 50 bytes a slot."""
+    import chip_smoke
+
+    nslots, nrows, live = 1_600_000, 10_000, 999_000
+    need = 50 * live + 18 * (nslots - live) + 20 * nrows
+    ms, by, sfu = chip_smoke._monopole_bound(nslots, nrows, live)
+    assert by == "bytes"
+    assert ms == pytest.approx(need / chip_smoke.PEAK_BYTES * 1e3)
+    assert sfu == pytest.approx(8 * live / chip_smoke.PEAK_SFU * 1e3)
+    copy = chip_smoke._monopole_copy_bound(nslots, nrows)[0]
+    assert copy == pytest.approx((50 * nslots + 20 * nrows)
+                                 / chip_smoke.PEAK_BYTES * 1e3)
+    assert chip_smoke._monopole_bound(nslots, nrows, nslots)[0] == copy
+    assert chip_smoke._monopole_bound(nslots, nrows, 0)[0] < ms
+
+
+def test_chip_check_clones_the_tiles():
+    """Each check and timing of the in-place wrappers takes its own copy
+    of the tiles: new tensors with the same bits."""
+    import chip_smoke
+
+    ts, *_ = _small()
+    t = chip_smoke._clone_tiles(ts)
+    for k in FIELDS:
+        a, b = getattr(ts, k), getattr(t, k)
+        assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+    assert t.collisions is ts.collisions
+    sweep = chip_smoke._measures()
+    assert sweep.fresh_inputs(None, 2) == [None, None]
+    made = sweep.fresh_inputs(lambda: chip_smoke._clone_tiles(ts), 3)
+    assert len({m.x.data_ptr() for m in made}) == 3
+
+
+def test_chip_check_times_every_checkout_by_its_own_measure():
+    """The device-time measure is ``launch_sweep.device_ms`` of the
+    checkout that holds chip_smoke.py, loaded from its file whatever
+    package comes first on the path, and it calls ``fn`` with each fresh
+    input (or with none)."""
+    import chip_smoke
+    from particlesimulation_tpu_torch.ops.cuda import launch_sweep
+
+    sweep = chip_smoke._measures()
+    assert sweep is chip_smoke._measures()
+    assert os.path.samefile(sweep.__file__, os.path.join(
+        chip_smoke.ROOT, "particlesimulation_tpu_torch", "ops", "cuda",
+        "launch_sweep.py"))
+    assert sweep.device_ms.__code__.co_code == (
+        launch_sweep.device_ms.__code__.co_code)
+    assert sweep.call_with(lambda: 1, None) == 1
+    assert sweep.call_with(lambda a: a + 1, 2) == 3
+
+
+@pytest.mark.parametrize("kcap", [32, 160])
+def test_deliver_cycle_lands_in_vacated_slots(kcap):
+    """Three full rows hand movers on in a cycle (0 to 1, 1 to 2, 2 to 0):
+    each arrival lands in a slot vacated in the same step, in source-slot
+    order, with its own fields; the rows stay full and nothing else
+    changes. The in-place delivery must read every mover before it writes
+    any slot (the kernel stages them)."""
+    fields, side, nc = adversarial.deliver_cases(kcap, seed=kcap)["cycle"]
+    ts = _tiles(fields)
+    moving, dest = _movers(ts, side, nc)
+    out, left = advance.deliver(ts, moving, dest, _rows(nc * nc, kcap))
+    assert int(left) == 0 and out.occ[:3].all()
+    mv = moving.numpy()
+    for row in range(3):
+        src = (row + 2) % 3           # the row whose movers arrive here
+        assert mv[row].sum() == mv[src].sum() == max(1, kcap // 4)
+        landed = np.flatnonzero(mv[row])
+        for k in ("x", "y", "vx", "vy", "m", "pid"):
+            np.testing.assert_array_equal(
+                getattr(out, k).numpy()[row][landed],
+                fields[k][src][np.flatnonzero(mv[src])])
+    stay = ~mv
+    stay[3:] = True
+    for k in FIELDS:
+        np.testing.assert_array_equal(getattr(out, k).numpy()[stay],
+                                      fields[k][stay])
+
+
+@pytest.mark.parametrize("kcap", [32, 160])
+@pytest.mark.parametrize("limited", [False, True])
+def test_deliver_undelivered_leaves_every_byte(kcap, limited):
+    """With movers undelivered (a full row), not a bit of the passed tiles
+    changes, through the pool-wide delivery and through ``at=``."""
+    fields, side, nc = adversarial.deliver_cases(kcap, seed=kcap)["full"]
+    ts = _tiles(fields)
+    moving, dest = _movers(ts, side, nc)
+    rs = _rows(nc * nc, kcap)
+    if limited:
+        at = torch.nonzero(moving.reshape(-1))[:, 0]
+        out, left = advance.deliver(ts, moving.reshape(-1)[at],
+                                    dest.reshape(-1)[at], rs, at=at)
+    else:
+        out, left = advance.deliver(ts, moving, dest, rs)
+    assert int(left) == 2
+    for k in FIELDS:
+        assert getattr(out, k) is getattr(ts, k)
+        a = getattr(out, k).numpy()
+        assert a.tobytes() == fields[k].tobytes(), k
+
+
+@pytest.mark.parametrize("kcap", [32, 160])
+def test_monopole_integrate_in_place(kcap):
+    """The outputs x, y, vx, vy are the input tensors; empty and dead slots
+    (m = 0, frozen) keep every bit; dest and moving are new tensors."""
+    fields, fxd, fyd, side, nc = adversarial.advance_case(kcap, seed=kcap)
+    ts = _tiles(fields)
+    rs = _rows(nc * nc, kcap)
+    sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    ref = _old_monopole_integrate(_clone(ts), torch.from_numpy(fxd),
+                                  torch.from_numpy(fyd), side, nc, kcap)
+    got = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ,
+                                     torch.from_numpy(fxd),
+                                     torch.from_numpy(fyd), sums, rs, side,
+                                     nc, DELTAT)
+    assert all(a is b for a, b in zip(got[:4], (ts.x, ts.y, ts.vx, ts.vy)))
+    frozen = fields["m"] == 0
+    assert (frozen & fields["occ"]).any() and (frozen & ~fields["occ"]).any()
+    for a, b, k in zip(got[:4], ref, ("x", "y", "vx", "vy")):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert a.numpy()[frozen].tobytes() == fields[k][frozen].tobytes()
+    assert got[4].data_ptr() != ts.pid.data_ptr()
+    assert got[4].dtype == torch.int32 and got[5].dtype == torch.bool
+
+
+@pytest.mark.parametrize("kcap", [16, 32])
+def test_monopole_wrap_edges(kcap):
+    """``adversarial.wrap_case``: particles at rest under no force, so the
+    wrap alone moves them: x and y are np.fmod(x + side, side) in float32
+    bit for bit (fmod of 2·side is 0; a sum x + side is never -0.0), the
+    dead slot keeps -0.0, and the old composition gives the same bits."""
+    fields, fxd, fyd, side, nc = adversarial.wrap_case(kcap)
+    ts = _tiles(fields)
+    rs = _rows(nc * nc, kcap)
+    sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    ref = _old_monopole_integrate(_clone(ts), torch.from_numpy(fxd),
+                                  torch.from_numpy(fyd), side, nc, kcap)
+    got = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ,
+                                     torch.from_numpy(fxd),
+                                     torch.from_numpy(fyd), sums, rs, side,
+                                     nc, DELTAT)
+    for a, b in zip(got[:4], ref):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    live = fields["occ"] & (fields["m"] != 0)
+    s32 = np.float32(side)
+    for a, k in ((got[0], "x"), (got[1], "y")):
+        want = np.fmod(fields[k][live] + np.float32(0.0) + s32, s32)
+        assert a.numpy()[live].tobytes() == want.tobytes()
+    assert (got[0].numpy()[live] == 0).sum() >= 2   # a = side, a = 2 side
+    dead = fields["occ"] & (fields["m"] == 0)
+    assert dead.sum() == (kcap >= 27) and np.signbit(
+        got[0].numpy()[dead]).all()
+
+
+def _twice_engine(kind):
+    if kind == "resident":   # tiles of K 32 overflow: the ladder replays
+        return Engine(SimConfig(2, 100.0, 16, 12000), impl="resident",
+                      kcap=32, device="cpu")
+    if kind == "banded":
+        eng = Engine(SimConfig(-7, 100.0, 12, 4000), impl="banded",
+                     device="cpu")
+        eng._band_plan = ((0, 3, 64), (3, 3, 256), (6, 3, 256), (9, 3, 64))
+        return eng
+    if kind == "supercell":
+        return Engine(SimConfig(1, 3.0, 24, 300), impl="supercell",
+                      device="cpu")
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+
+    return ShardedEngine(SimConfig(2, 100.0, 16, 12000, n_shards=2),
+                         impl="resident", device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["resident", "banded", "supercell", "mesh"])
+def test_engine_run_twice_same_state(kind):
+    """The advance wrappers write the tiles in place: ``Engine.run`` on one
+    state twice gives the same result bit for bit and leaves the input
+    state as it was (each prologue lays the tiles out in new tensors, the
+    ladder's replays included)."""
+    eng = _twice_engine(kind)
+    state = eng.init_state()
+    before = [getattr(state, k).clone() for k in state._fields]
+    runs = [eng.run(state, 3) for _ in range(2)]
+    assert eng.impl == ("resident" if kind == "mesh" else kind)
+    for k, b in zip(state._fields, before):
+        assert getattr(state, k).numpy().tobytes() == b.numpy().tobytes(), k
+    for k in runs[0]._fields:
+        a, b = (getattr(r, k).numpy() for r in runs)
+        assert a.tobytes() == b.tobytes(), k
+

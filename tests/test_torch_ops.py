@@ -153,7 +153,9 @@ def _tile_state(ncside, kcap, per_row, move_frac, hop, seed, limbo=0.0):
 
 def _run_both(fields, ncside, kcap):
     side = float(ncside)
-    ts = res.TileState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    # New tensors: rebin writes the tiles in place, and the tests compare
+    # the result with ``fields``.
+    ts = res.TileState(**{k: torch.tensor(v) for k, v in fields.items()})
     jts = jres.TileState(**{k: jnp.asarray(v) for k, v in fields.items()})
     out, left = res.rebin(ts, side, ncside, kcap)
     jout, jleft = jres.rebin(jts, side, ncside, kcap)

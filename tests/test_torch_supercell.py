@@ -316,7 +316,9 @@ def test_rebin_dest_hook_matches_jax(nsc, S, kcap, per_row, frac, hop, seed,
     fields["y"] = fields["y"] * S
     side = float(nsc * S)
     port, jmover, jdest = _sc_dest(S, nsc)
-    ts = res.TileState(**{k: torch.as_tensor(v) for k, v in fields.items()})
+    # New tensors: rebin writes the tiles in place, and the test compares
+    # the result with ``fields``.
+    ts = res.TileState(**{k: torch.tensor(v) for k, v in fields.items()})
     jts = jres.TileState(**{k: jnp.asarray(v) for k, v in fields.items()})
     out, left = res.rebin(ts, side, nsc, kcap, dest_fn=port)
     jout, jleft = jres.rebin(jts, side, nsc, kcap, mover_fn=jmover,
@@ -337,15 +339,19 @@ def test_rebin_dest_hook_matches_jax(nsc, S, kcap, per_row, frac, hop, seed,
 def test_rebin_default_dest_unchanged():
     """Without a hook the rebin is the cell grid's, as before."""
     fields = _tile_state(6, 12, 3, 0.5, 1, 31)
-    ts = res.TileState(**{k: torch.as_tensor(v) for k, v in fields.items()})
-    out, left = res.rebin(ts, 6.0, 6, 12)
+
+    def tiles():  # rebin writes the tiles in place: each call its own
+        return res.TileState(**{k: torch.tensor(v)
+                                for k, v in fields.items()})
+
+    out, left = res.rebin(tiles(), 6.0, 6, 12)
 
     def cells(t):
         cx, cy, valid = res.cell_of(t.x, t.y, 6.0, 6)
         return t.occ & valid & (cy * 6 + cx != torch.arange(36)[:, None]), \
             cy * 6 + cx
 
-    hooked, hleft = res.rebin(ts, 6.0, 6, 12, dest_fn=cells)
+    hooked, hleft = res.rebin(tiles(), 6.0, 6, 12, dest_fn=cells)
     assert int(left) == int(hleft) == 0
     for a, b in zip(out, hooked):
         assert torch.equal(a, b)
