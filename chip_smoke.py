@@ -199,12 +199,14 @@ aq. the minimum image's threshold: two particles whose displacement is
    same cases, and pairs near EPSILON across the periodic edge and near the
    collision window's edges, give the plain version's partners.
 
-Then the tile step's advance phase (``ops/cuda/advance``: the cells'
-sums, the monopole terms with the integrator, the one-pass delivery; three
-kernels of ``csrc/advance.cu``, the last two writing the tiles in place, so
-every call of a check or a timing gets its own copy of its input tiles,
-made outside the timed window), right after the pair kernels' checks and
-before the resident path runs on them:
+Then the tile step's kernels around its pair pass (``ops/cuda/advance``,
+``csrc/advance.cu``: the monopole terms with the integrator, the one-pass
+delivery, the pair pass's masks, and after the pair pass the step's tail
+with the next step's sums; the monopole pass, the delivery and the settle
+pass write the tiles in place, so every call of a check or a timing gets
+its own copy of its input tiles and counters, made outside the timed
+window), right after the pair kernels' checks and before the resident
+path runs on them:
 
 ar. ``deliver`` against the plain version on the card, every field of
    every slot (holes and their stale values included) and the undelivered
@@ -219,36 +221,54 @@ ar. ``deliver`` against the plain version on the card, every field of
    full row with 2 movers bound for it: nothing moves, 2 undelivered; three
    full rows handing movers on in a cycle), and at K = 33 (rows off 4-byte
    alignment: the passes' byte-wise reads);
-as. ``cell_sums_rows`` against ``torch.sum`` on the card (the plain
-   version) within (K·2⁻²⁴)·Σ|terms| a row, the limbo count exactly, and
-   against itself bit for bit, on the same tiles;
+as. ``pair_masks`` and ``settle_sums`` against their plain versions on the
+   card: the masks (mf, alive) bit for bit, also through views that start
+   one slot in (off 16-byte alignment: the kernel's one-slot path); the
+   settle pass after a run's first pass (no deaths, no counters but the
+   panics), after a step and after a run's last step (no sums, no limbo):
+   m and every counter bit for bit, the sums bit for bit against the plain
+   torch sums in the kernel's order (a warp's lanes, then the butterfly:
+   ``_lane_order_sums``) and within (K·2⁻²⁴)·Σ|terms| of ``torch.sum``,
+   and a second run bit for bit; on the flagship's own tiles after a
+   step's delivery and pair pass, UNEVEN's pool (rows of 13 widths), and
+   ``adversarial.settle_case`` (deaths planted among holes, dead and limbo
+   slots) at K = 32, 33 (rows off 4-byte alignment), 160 and 1024;
 at. ``monopole_integrate`` against the plain composition on the card,
-   from the kernel's sums, every output bit for bit: the flagship's tiles,
-   UNEVEN's pool, and ``adversarial.advance_case`` (edge cells and their
-   mirror offsets, a d² = 0 term, frozen m = 0 slots, positions one ulp
-   below side and just below 0 at rest, an empty cell) and
+   from the settle pass's sums, every output bit for bit: the flagship's
+   tiles, UNEVEN's pool, and ``adversarial.advance_case`` (edge cells and
+   their mirror offsets, a d² = 0 term, frozen m = 0 slots, positions one
+   ulp below side and just below 0 at rest, an empty cell) and
    ``adversarial.wrap_case`` (particles at rest under no force, whose
    x + side is 2·side less an ulp, 2·side, 2·side plus an ulp, side, +0,
    an ulp below 0, below -side); each kernel timed on the flagship's tiles
-   against its bound, the cell sums beside three ``torch.sum`` calls;
-   golden s1 through resident and UNEVEN
-   through banded must launch all three, and the advance phase of each
+   against its bound, the settle pass beside three ``torch.sum`` calls;
+   golden s1 through resident and UNEVEN through banded must launch all
+   four wrappers' kernels, the advance phase (monopole, delivery) of each
    must issue at most 10 kernel launches a step (torch.profiler over 5
    calls of the phase, caught where the engine hands it to
-   ``make_tile_run``);
+   ``make_tile_run``), and the whole step at most 12 launches a step on
+   the resident path (the profile's count equal to the wrappers' counts)
+   and 30 on the banded one, with no host synchronisation;
 au. ``python3 chip_smoke.py --advance-times ROOT [ROOT ...]``: for each
    checkout in turn (a process each; parent, change, change, parent), the
    flagship resident path, UNEVEN banded and N = 1e7 resident and banded:
-   ms/step, device ms/step, idle share and launches a step, the advance
-   phase's own launches and device ms (each wrapper's kernels apart), and
-   the digest of each path's final state after 10 steps, which must agree
-   in all runs; where the checkout has the kernels, their times on the
-   flagship's tiles against their bounds. Every checkout is timed by this
-   checkout's measures (``ops/cuda/launch_sweep.device_ms``).
+   the whole step's ms/step, device ms/step, idle share and launches a
+   step, and the digest of each path's final state after 10 steps, which
+   must agree in all runs; then each checkout's advance phase (its launches
+   and device ms, each wrapper's kernels apart) by its own measure, not
+   set side by side (the parent's sums are in its advance phase, the
+   change's in its settle pass); where the checkout has the kernels, their
+   times on the flagship's tiles against their bounds. Every checkout is
+   timed by this checkout's measures
+   (``ops/cuda/launch_sweep.device_ms``).
 
 ``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
 s1 through resident and UNEVEN through banded (launches, no host sync,
-the advance phase's launches, cuda == cpu on a small config of each);
+the advance phase's launches, the whole step's launches and syncs, cuda ==
+cpu on a small config of each);
+``python3 chip_smoke.py --settle-sweep`` times the settle pass at each
+launch shape (rows a block, slots a lane loaded ahead; ``settle_sweep``),
+the table its wrapper's constants come from;
 ``python3 chip_smoke.py --supercell`` runs phases h-l alone;
 ``python3 chip_smoke.py --supercell-times ROOT [ROOT ...]`` runs the
 supercell engine's two kernels with the port package of each checkout ROOT
@@ -321,12 +341,13 @@ Tolerances:
     within 2e-5·side; at 1e7 against resident, the count and dead set exact
     and positions within 1e-6·side (the same function on the same cell
     rows, another split of the pool).
-  * the advance kernels: the delivery and the monopole pass bit for bit
-    their plain versions (the delivery's placement decides the fused
-    kernel's summation order; the monopole pass rounds each f32 operation
-    as eager torch does), the cell sums within (K·2⁻²⁴)·Σ|terms| of
-    torch.sum (another order of the same f32 additions) and bit for bit
-    themselves in a second run;
+  * the kernels around the pair pass: the delivery and the monopole pass
+    bit for bit their plain versions (the delivery's placement decides the
+    fused kernel's summation order; the monopole pass rounds each f32
+    operation as eager torch does); the masks, the deaths and the counters
+    bit for bit; the settle pass's sums bit for bit the plain sums in its
+    own order and within (K·2⁻²⁴)·Σ|terms| of torch.sum (another order of
+    the same f32 additions), and bit for bit themselves in a second run;
   * the direct force kernel: per particle and axis within ((K + 16 + P -
     1)·u + (N - 1)·2⁻⁵³)·S of the plain version's own terms summed in
     float64, u the type's unit roundoff (2⁻²⁴ or 2⁻⁵³) and S the sum of
@@ -347,9 +368,11 @@ Tolerances:
     its partners exactly (the minimum image and d² are correctly rounded
     in both versions, and the threshold gives JAX's image bit for bit);
 
-Bounds of the advance kernels (bytes, each over 3.35 TB/s), what each
-function needs: the cell sums read x, y, m and occ (13 bytes a slot) and
-write 12 bytes a row; the monopole pass reads x, y, vx, vy, m, fxd, fyd
+Bounds of the kernels around the pair pass (bytes, each over 3.35 TB/s),
+what each function needs: the masks read x, y, m and occ (13 bytes a slot)
+and write mf and alive (8); the settle pass reads x, y, m, ft and occ (17
+bytes a slot), writes 12 bytes a row and the m of each death (4); the
+monopole pass reads x, y, vx, vy, m, fxd, fyd
 and occ (29) and writes x, y, vx, vy, dest and moving (21) for a live
 slot (m != 0), and reads x, y, m and occ and writes dest and moving (18)
 for a frozen one; the delivery reads occ and moving a slot and moves 58
@@ -385,6 +408,7 @@ bounds each; float64 counts its operations at 34 TFLOP/s.
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
 import re
@@ -462,12 +486,14 @@ REPLACES = {
     "direct_forces": "particlesimulation_tpu/models/direct_nbody.py:36-80",
     "direct_collisions":
         "particlesimulation_tpu/models/direct_nbody.py:105-117",
-    # XLA code of the tile step's advance phase: mono_tables' row sums,
-    # monopole_tile_forces (with stencil_tables and integrate), and rebin
-    # (the port's one-pass deliver).
-    "cell_sums_rows": "particlesimulation_tpu/engine.py:335-344",
+    # XLA code of the tile step around its pair pass: monopole_tile_forces
+    # (with stencil_tables and integrate), rebin (the port's one-pass
+    # deliver), physics_mass (with the pair pass's alive mask, :369), and
+    # mono_tables' row sums (with the step's tail, :462-478).
     "monopole_integrate": "particlesimulation_tpu/ops/dense_xla.py:1205",
     "deliver": "particlesimulation_tpu/ops/resident.py:102",
+    "pair_masks": "particlesimulation_tpu/engine.py:346-352",
+    "settle_sums": "particlesimulation_tpu/engine.py:335-338",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
@@ -477,13 +503,16 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "dense_forces_kernel", "dense_collisions_kernel",
                 "cell_sums_kernel", "cell_sums_warp_kernel",
                 "direct_forces_kernel", "direct_collisions_kernel",
-                "cell_sums_rows_kernel", "monopole_integrate_kernel",
-                "deliver_count_kernel", "deliver_stage_kernel",
-                "deliver_place_kernel", "deliver_expand_kernel",
-                # a parent checkout's (--advance-times) pass 2
-                "deliver_bucket_kernel")
-# The advance phase's kernels (ops/cuda/advance), by their launch counts.
-ADVANCE_KERNELS = ("cell_sums_rows", "monopole_integrate", "deliver")
+                "monopole_integrate_kernel", "deliver_count_kernel",
+                "deliver_stage_kernel", "deliver_place_kernel",
+                "deliver_expand_kernel", "pair_masks_kernel",
+                "settle_sums_kernel",
+                # a parent checkout's (--advance-times) row sums
+                "cell_sums_rows_kernel")
+# The kernels of ops/cuda/advance on the resident and banded steps, by
+# their launch counts.
+ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
+                   "settle_sums")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -1061,7 +1090,7 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
           flush=True)
     return {"device_ms": total, "device_ms_whole": whole,
             "idle": 1 - total / step_ms_host, "launches": launches,
-            "syncs": syncs}
+            "syncs": syncs, "kernels": {k: v for k, v in ours.items() if v}}
 
 
 def _parity(seed, side, nc, n, device):
@@ -1552,6 +1581,7 @@ def check_banded(card, tiered, dense):
                                ["fused_pairs", *ADVANCE_KERNELS])
     check_advance_launches("UNEVEN banded", _tile_phases(
         make_banded_run, un, UNEVEN_BANDS), state)
+    check_step("UNEVEN banded", eng, state, 30, exact=False)
     runs = []
     for e in (eng, Engine(un, device="cuda", impl="dense")):
         out = e.run(state, 10)
@@ -2708,22 +2738,27 @@ ADVANCE_FIELDS = ("x", "y", "vx", "vy", "m", "occ", "pid")
 
 
 def _clone_tiles(ts):
-    """The tiles in new tensors: the advance wrappers write theirs in
-    place, so each call of a check or a timing gets its own copy."""
-    return ts._replace(**{k: getattr(ts, k).clone() for k in ADVANCE_FIELDS})
+    """The tiles and their counters in new tensors: the wrappers write
+    theirs in place, so each call of a check or a timing gets its own
+    copy."""
+    return ts._replace(**{k: getattr(ts, k).clone() for k in (
+        *ADVANCE_FIELDS, "collisions", "panics", "overflow")})
 
 
 def _tile_phases(build, *args):
-    """(prologue, advance, pair_pass) of a tile run, as the engine's maker
-    (``make_resident_run``, ``make_banded_run``) hands them to
-    ``ops/resident.make_tile_run``: caught there while ``build`` runs."""
+    """(prologue, advance, pair_pass, settle) of a tile run, as the
+    engine's maker (``make_resident_run``, ``make_banded_run``) hands them
+    to ``ops/resident.make_tile_run``: caught there while ``build`` runs
+    (settle None where the checkout's engine has none: its advance phase
+    sums the cells)."""
     from particlesimulation_tpu_torch.ops import resident as res
 
     got = {}
     orig = res.make_tile_run
 
     def spy(prologue, advance, pair_args, pair_pass, *rest, **kw):
-        got.update(prologue=prologue, advance=advance, pair_pass=pair_pass)
+        got.update(prologue=prologue, advance=advance, pair_pass=pair_pass,
+                   settle=kw.get("settle"))
         return orig(prologue, advance, pair_args, pair_pass, *rest, **kw)
 
     res.make_tile_run = spy
@@ -2735,11 +2770,24 @@ def _tile_phases(build, *args):
 
 
 def _advance_inputs(phases, state):
-    """The tiles the first step's advance phase takes: the prologue's, and
-    the first pair pass's forces."""
-    ts = phases["prologue"](state)
+    """What the first step's advance phase takes: the prologue's tiles (with
+    counters of their own), the first pair pass's forces, and the extra
+    arguments, (the settle pass's row sums,) where the engine settles after
+    its pair pass, else ()."""
+    ts = _clone_tiles(phases["prologue"](state))
     fxd, fyd, _, _ = phases["pair_pass"](ts, collide=False)
-    return ts, fxd, fyd
+    if phases["settle"] is None:
+        return ts, fxd, fyd, ()
+    return ts, fxd, fyd, (phases["settle"](ts, None, None, None, True),)
+
+
+def _settle_inputs(phases, state):
+    """What the first step's settle pass takes: the tiles after its
+    delivery, its pair pass's ft and count, and its undelivered count."""
+    ts, fxd, fyd, extra = _advance_inputs(phases, state)
+    ts, undelivered = phases["advance"](ts, fxd, fyd, *extra)[:2]
+    _, _, count, ft = phases["pair_pass"](ts, collide=True)
+    return ts, ft, count, undelivered
 
 
 def check_advance_launches(label, phases, state, most=10):
@@ -2756,10 +2804,39 @@ def check_advance_launches(label, phases, state, most=10):
     return rec
 
 
-# Kernels one call of each advance wrapper launches (the delivery: its
-# count, stage and place passes).
+def check_step(label, eng, state, most, exact, steps=10):
+    """(at) A tile path's whole step: its kernel launches a step by the
+    profile and by the wrappers' counts, and its host synchronisations a
+    step, each a run of ``steps`` less a run of 0, over ``steps``. Fails
+    on a synchronisation, on more than ``most`` launches, and with
+    ``exact``, unless the two counts agree (every launch a wrapper's)."""
+    def counted(n):
+        torch.cuda.synchronize()
+        reset_launches()
+        eng.run(state, n)
+        torch.cuda.synchronize()
+        return sum(ADVANCE_KERNELS_A_CALL.get(k, 1) * v
+                   for k, v in read_launches().items())
+
+    rows, rows0 = _profile(eng, state, steps), _profile(eng, state, 0)
+    profiled = (sum(n for _, n, _ in rows)
+                - sum(n for _, n, _ in rows0)) / steps
+    wrappers = (counted(steps) - counted(0)) / steps
+    syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
+    print(f"{label}: the whole step issues {profiled:g} kernel launches a "
+          f"step by the profile, {wrappers:g} by the wrappers' counts, and "
+          f"{syncs:g} host synchronisations", flush=True)
+    if syncs != 0 or profiled > most or (exact and profiled != wrappers):
+        raise AssertionError(f"{label}: {profiled} launches (at most "
+                             f"{most}), {wrappers} by the wrappers, {syncs} "
+                             f"syncs a step")
+    return profiled, wrappers
+
+
+# Kernels one call of each ops/cuda/advance wrapper launches (the delivery:
+# its count, stage and place passes), a parent checkout's too.
 ADVANCE_KERNELS_A_CALL = {"cell_sums_rows": 1, "monopole_integrate": 1,
-                          "deliver": 3}
+                          "deliver": 3, "pair_masks": 1, "settle_sums": 1}
 
 
 def advance_phase(label, phases, state, reps=5):
@@ -2768,22 +2845,23 @@ def advance_phase(label, phases, state, reps=5):
     step's tiles (made before the profiled window): its device ms and
     kernel launches from torch.profiler, every kernel's count summed and
     not rounded, and the device ms of each wrapper's kernels (by name:
-    cell_sums_rows, monopole_integrate, deliver_*); and, where the checkout
-    has the advance kernels, the exact launches from their wrappers' counts
-    over the same calls (None where it has not)."""
+    cell_sums_rows (a parent checkout's), monopole_integrate, deliver_*);
+    and, where the checkout has the advance kernels, the exact launches
+    from their wrappers' counts over the same calls (None where it has
+    not)."""
     try:
         from particlesimulation_tpu_torch.ops.cuda import advance as adv
     except ImportError:
         adv = None
-    ts, fxd, fyd = _advance_inputs(phases, state)
+    ts, fxd, fyd, extra = _advance_inputs(phases, state)
     tiles = [_clone_tiles(ts) for _ in range(reps + 1)]
-    phases["advance"](tiles[0], fxd, fyd)
+    phases["advance"](tiles[0], fxd, fyd, *extra)
     if adv is not None:
         adv.reset_launches()
 
     def calls():
         for t in tiles[1:]:
-            phases["advance"](t, fxd, fyd)
+            phases["advance"](t, fxd, fyd, *extra)
 
     rows = _profile_fn(calls)
     exact = None
@@ -2807,11 +2885,53 @@ def advance_phase(label, phases, state, reps=5):
 
 
 def _cell_sums_bound(nslots, nrows):
-    """(bound_ms, bound_by, sfu_ms): x, y, m (4 bytes) and occ (1) read a
-    slot, the row starts read and M, SX, SY written a row, the limbo count;
-    7 f32 operations a slot (the cell's two divisions, two products, three
-    sums)."""
+    """(bound_ms, bound_by, sfu_ms) of a parent checkout's row sums: x, y,
+    m (4 bytes) and occ (1) read a slot, the row starts read and M, SX, SY
+    written a row, the limbo count; 7 f32 operations a slot (the cell's two
+    divisions, two products, three sums)."""
     return _bound(13 * nslots + 20 * nrows + 12, 7 * nslots, 0)
+
+
+def _masks_bound(nslots):
+    """(bound_ms, bound_by, sfu_ms) of the pair pass's masks: x, y, m (4
+    bytes) and occ (1) read and mf, alive (4) written a slot; 4 f32
+    operations a slot (the cell's two divisions, m > 0, the select)."""
+    return _bound(21 * nslots, 4 * nslots, 0)
+
+
+def _settle_bound(nslots, nrows, deaths):
+    """(bound_ms, bound_by, sfu_ms) of the settle pass: x, y, m, ft (4
+    bytes) and occ (1) read a slot; the row starts read and M, SX, SY
+    written a row; each death's m written (4); count and undelivered read
+    and collisions (8), overflow and panics read and written (24); 7 f32
+    operations a slot (the cell's two divisions, two products, three
+    sums)."""
+    return _bound(17 * nslots + 20 * nrows + 4 * deaths + 24, 7 * nslots, 0)
+
+
+def _lane_order_sums(terms, row_start):
+    """Each row's sum of the flat float32 ``terms`` in the settle kernel's
+    order, in plain torch: lane l of the row's warp adds the row's slots l,
+    l + 32, ... in turn from +0, then the lanes' sums meet in warp_fsum's
+    butterfly (offsets 16, 8, 4, 2, 1). Each add is one rounded f32 add, as
+    on the card; the +0 terms that pad a row to a multiple of 32 change no
+    lane's sum (a lane's sum is never -0)."""
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    lane = torch.arange(32, device=terms.device)
+    parts = []
+    for s0, rows, w in adv._segments(row_start):
+        chunks = (w + 31) // 32
+        v = torch.nn.functional.pad(terms[s0:s0 + rows * w].view(rows, w),
+                                    (0, 32 * chunks - w))
+        v = v.view(rows, chunks, 32)
+        acc = torch.zeros((rows, 32), dtype=terms.dtype, device=terms.device)
+        for j in range(chunks):
+            acc = acc + v[:, j]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lane ^ off]
+        parts.append(acc[:, 0])
+    return torch.cat(parts)
 
 
 def _monopole_bound(nslots, nrows, live):
@@ -2854,7 +2974,9 @@ def _record(rec, bound):
 
 
 def check_cell_sums_rows(tag, ts, rs, side, nc, timed=False):
-    """(as) The kernel against torch.sum on the card (the plain version)
+    """A parent checkout's row sums kernel (``--advance-times``, where its
+    advance phase sums the cells) against torch.sum on the card (the plain
+    version)
     within (K·2⁻²⁴)·Σ|terms| a row, K the row's width; the limbo count
     exactly; against itself in a second run bit for bit. With ``timed``,
     the record: ms, device ms, plain ms and the three torch.sum calls'
@@ -2907,6 +3029,128 @@ def check_cell_sums_rows(tag, ts, rs, side, nc, timed=False):
         rec["library_device_ms"] = device_ms(library, 20)
         _record(rec, _cell_sums_bound(x.numel(), nrows))
     return got, rec
+
+
+def check_pair_masks(tag, ts, side, nc, timed=False):
+    """(as) The masks kernel against the plain version on the card, mf by
+    its bits and alive, and against itself in a second run; then the same
+    pool's slots from the second on (views off 16-byte alignment: the
+    kernel's one-slot path). With ``timed``, the record and its bound (21
+    bytes a slot)."""
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    args = (ts.x, ts.y, ts.m, ts.occ, side, nc)
+    got, again, ref = (adv.pair_masks(*args), adv.pair_masks(*args),
+                       adv.pair_masks_ref(*args))
+    shifted = [t.reshape(-1)[1:] for t in args[:4]]
+    off, off_ref = (adv.pair_masks(*shifted, side, nc),
+                    adv.pair_masks_ref(*shifted, side, nc))
+    for name, a, b in (("plain", got, ref), ("second run", got, again),
+                       ("one slot in, plain", off, off_ref),
+                       ("one slot in, whole pool",
+                        off, [t.reshape(-1)[1:] for t in got])):
+        if not all(_bits_equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{tag}: pair_masks differs from {name}")
+    rec = {"max_abs_err": _max_diff(got[0], ref[0])}
+    print(f"{tag}: pair_masks bit for bit the plain version (mf, alive) on "
+          f"{ts.x.numel()} slots ({int(got[1].sum())} alive), also one slot "
+          f"in (off 16-byte alignment), and a second run", flush=True)
+    if timed:
+        rec.update(_kernel_times(lambda: adv.pair_masks(*args),
+                                 lambda: adv.pair_masks_ref(*args)))
+        rec["library_ms"] = None
+        _record(rec, _masks_bound(ts.x.numel()))
+    return rec
+
+
+def check_settle_sums(tag, ts, ft, count, undelivered, rs, side, nc, kcap,
+                      timed=False):
+    """(as) The settle kernel against the plain version on the card, each
+    call on its own copy of the tiles and counters: after a run's first
+    pass (no ft, count or undelivered), after a step, and after a run's
+    last step (no sums): m and the collision, panic and overflow counters
+    bit for bit, the sums bit for bit ``_lane_order_sums`` of the plain
+    version's terms and within (K·2⁻²⁴)·Σ|terms| of its ``torch.sum``, and
+    all of it again in a second run. With ``timed``, the record of a step's
+    call, its bound and three torch.sum calls on the same terms (library).
+    Returns the record."""
+    from particlesimulation_tpu_torch.ops import resident as res
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    def fresh():
+        return _clone_tiles(ts)
+
+    modes = (("first pass", None, None, None, True),
+             ("step", ft, count, undelivered, True),
+             ("last step", ft, count, undelivered, False))
+    width = (rs[1:] - rs[:-1]).double()
+    row = adv._row_of(rs)
+    nrows = rs.numel() - 1
+    for name, *parts, with_sums in modes:
+        got_ts, again_ts, ref_ts = fresh(), fresh(), fresh()
+        call = (*parts, rs, side, nc, kcap, with_sums)
+        got = adv.settle_sums(got_ts, *call)
+        again = adv.settle_sums(again_ts, *call)
+        ref = adv.settle_sums_ref(ref_ts, *call)
+        fields = ("m", "collisions", "panics", "overflow")
+        bad = [k for k in fields
+               if not _bits_equal(getattr(got_ts, k), getattr(ref_ts, k))
+               or not _bits_equal(getattr(got_ts, k), getattr(again_ts, k))]
+        if bad:
+            raise AssertionError(f"{tag}, {name}: settle_sums differs in "
+                                 f"{bad} from the plain version or itself")
+        if not with_sums:
+            if got is not None:
+                raise AssertionError(f"{tag}, {name}: sums without sums")
+            continue
+        x, y, m, occ = (t.reshape(-1) for t in (ref_ts.x, ref_ts.y, ref_ts.m,
+                                                 ref_ts.occ))
+        _, _, valid = res.cell_of(x, y, side, nc)
+        mf = torch.where(occ & valid, m, 0.0)
+        terms = (mf, mf * x, mf * y)
+        lanes = torch.stack([_lane_order_sums(t, rs) for t in terms])
+        if not (_bits_equal(got, lanes) and _bits_equal(got, again)):
+            raise AssertionError(f"{tag}, {name}: sums not bit for bit the "
+                                 f"lane order's or a second run's")
+        worst = 0.0
+        for g, r, t in zip(got, ref, terms):
+            mag = torch.zeros(nrows, dtype=torch.float64,
+                              device=t.device).index_add_(0, row,
+                                                          t.abs().double())
+            err = (g.double() - r.double()).abs()
+            tol = width * 2.0 ** -24 * mag
+            if bool((err > tol).any()):
+                raise AssertionError(f"{tag}: sums beyond (K 2^-24) sum|t| "
+                                     f"of torch.sum in "
+                                     f"{int((err > tol).sum())} rows")
+            worst = max(worst, float((err / torch.clamp(tol, min=1e-300))
+                                     .max()))
+        if name == "step":
+            rec = {"max_abs_err": _max_diff(got, ref)}
+            step_terms = terms
+            limbo = int(ref_ts.panics) - int(ts.panics)
+    deaths = 0 if ft is None else int((ft != 0x7FFFFFFF).sum())
+    print(f"{tag}: settle_sums on {nrows} rows, {ts.x.numel()} slots "
+          f"({deaths} deaths, {limbo} limbo): m and counters bit for bit the "
+          f"plain version after a first pass, a step and a last step; the "
+          f"sums bit for bit the lane order, within {worst:.3f} of the "
+          f"bound (K 2^-24 sum|t|) of torch.sum; a second run bit for bit",
+          flush=True)
+    if timed:
+        call = (ft, count, undelivered, rs, side, nc, kcap, True)
+        rec.update(_kernel_times(lambda t: adv.settle_sums(t, *call),
+                                 lambda t: adv.settle_sums_ref(t, *call),
+                                 fresh))
+        mf2, mx2, my2 = (t.view(ts.x.shape) for t in step_terms)
+
+        def library():
+            return (torch.sum(mf2, dim=1), torch.sum(mx2, dim=1),
+                    torch.sum(my2, dim=1))
+
+        rec["library_ms"] = _timed(library, 20)
+        rec["library_device_ms"] = device_ms(library, 20)
+        _record(rec, _settle_bound(ts.x.numel(), nrows, deaths))
+    return rec
 
 
 def check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, side, nc,
@@ -3036,11 +3280,15 @@ def _cuda_tiles(fields):
 
 
 def flagship_advance():
-    """(ar-at on the main path) The three kernels on the flagship's own
-    tiles (golden s1's config: the resident engine's prologue and first pair
-    pass), each checked against its plain version and timed against its
-    bound. Returns (records, the post-integrate tiles, the monopole pass's
-    outputs, the row starts)."""
+    """(ar-at on the main path) The kernels around the pair pass on the
+    flagship's own tiles (golden s1's config: the resident engine's
+    prologue and first pair pass, and its first settle where the checkout
+    settles after its pair pass; the masks and the settle pass on the tiles
+    after step 1's delivery and pair pass), each checked against its plain
+    version and timed against its bound. Where the checkout's advance phase
+    sums the cells (a parent checkout's), its row sums kernel stands in for
+    the masks and the settle pass. Returns (records, the post-integrate
+    tiles, the monopole pass's outputs, the row starts)."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine, make_resident_run
 
@@ -3048,44 +3296,63 @@ def flagship_advance():
     eng = Engine(s1, device="cuda")
     state = eng.init_state()
     kcap = eng.kcap
-    ts, fxd, fyd = _advance_inputs(
-        _tile_phases(make_resident_run, s1, kcap), state)
+    ph = _tile_phases(make_resident_run, s1, kcap)
+    ts, fxd, fyd, extra = _advance_inputs(ph, state)
     rs = torch.arange(s1.ncells + 1, device="cuda") * kcap
     tag = f"flagship tiles ({s1.ncells}, {kcap})"
     recs = {}
-    sums, recs["cell_sums_rows"] = check_cell_sums_rows(
-        tag, ts, rs, s1.side, s1.ncside, timed=True)
+    if extra:
+        sums = extra[0]
+    else:
+        sums, recs["cell_sums_rows"] = check_cell_sums_rows(
+            tag, ts, rs, s1.side, s1.ncside, timed=True)
     out, recs["monopole_integrate"] = check_monopole_integrate(
         tag, ts, fxd, fyd, sums, rs, s1.side, s1.ncside, timed=True)
     post = ts._replace(x=out[0], y=out[1], vx=out[2], vy=out[3])
     movers, _, _, recs["deliver"] = check_deliver(
         "flagship post-integrate tiles", post, out[5], out[4], rs,
         timed=True)
+    if extra:
+        t1, ft, count, undelivered = _settle_inputs(ph, state)
+        tag = (f"flagship tiles ({s1.ncells}, {kcap}) after step 1's "
+               f"delivery and pair pass")
+        recs["pair_masks"] = check_pair_masks(tag, t1, s1.side, s1.ncside,
+                                              timed=True)
+        recs["settle_sums"] = check_settle_sums(
+            tag, t1, ft, count, undelivered, rs, s1.side, s1.ncside, kcap,
+            timed=True)
     print(f"flagship (N = {s1.n_particles}, kcap {kcap}): {movers} movers "
           f"a step (the first; {movers / s1.n_particles:.4%} of the "
           f"particles)", flush=True)
     for name, rec in recs.items():
         _report(f"{name} on the flagship's tiles", rec)
-    lib = recs["cell_sums_rows"]
+    lib = recs.get("settle_sums", recs.get("cell_sums_rows"))
     print(f"  torch.sum x 3 on the same terms (library): "
           f"{lib['library_ms']:.4f} ms a call, {lib['library_device_ms']:.4f}"
           f" device", flush=True)
     return recs, post, out, rs
 
 
+def _cuda_counts(count, undelivered):
+    return (torch.tensor(count, dtype=torch.int32, device="cuda"),
+            torch.tensor(undelivered, dtype=torch.int32, device="cuda"))
+
+
 def check_advance(card):
-    """(ar-at) The three advance kernels against their plain versions on
-    the card: on the flagship's own tiles (golden s1's config, the resident
-    engine's prologue and first pair pass), on UNEVEN's banded pool (13
-    bands, rows of 13 widths), on an at= subset, on the adversarial tiles
-    of ``adversarial.deliver_cases``, ``advance_case`` and ``wrap_case`` at
-    K = 32, 160 and 1024 (the delivery's at K = 33 too); then each kernel
-    timed on the flagship's tiles against its bound. Returns {kernel:
-    record}."""
+    """(ar-at) The kernels around the pair pass against their plain
+    versions on the card: on the flagship's own tiles (golden s1's config,
+    the resident engine's prologue, first pair pass and first settle, and
+    step 1's tiles after its delivery and pair pass), on UNEVEN's banded
+    pool (13 bands, rows of 13 widths), on an at= subset, on the
+    adversarial tiles of ``adversarial.deliver_cases``, ``advance_case``,
+    ``wrap_case`` and ``settle_case`` at K = 32, 160 and 1024 (the delivery
+    and the settle pass at K = 33 too); then each kernel timed on the
+    flagship's tiles against its bound. Returns {kernel: record}."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
                                                          row_starts)
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
     from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
         UNEVEN_BANDS)
 
@@ -3106,15 +3373,19 @@ def check_advance(card):
     if eng_u.impl != "banded" or eng_u._band_plan != UNEVEN_BANDS:
         raise AssertionError(f"UNEVEN census: {eng_u.impl}")
     ph = _tile_phases(make_banded_run, un, UNEVEN_BANDS)
-    ts, fxd, fyd = _advance_inputs(ph, state_u)
+    ts, fxd, fyd, (sums,) = _advance_inputs(ph, state_u)
     rs = row_starts(UNEVEN_BANDS, un.ncside, "cuda")
     widths = sorted({k for _, _, k in UNEVEN_BANDS})
     tag = f"UNEVEN banded pool ({len(UNEVEN_BANDS)} bands, widths {widths})"
-    sums, _ = check_cell_sums_rows(tag, ts, rs, un.side, un.ncside)
     out, _ = check_monopole_integrate(tag, ts, fxd, fyd, sums, rs, un.side,
                                       un.ncside)
     check_deliver(tag + ", post-integrate", ts._replace(
         x=out[0], y=out[1], vx=out[2], vy=out[3]), out[5], out[4], rs)
+    t1, ft, count, undelivered = _settle_inputs(ph, state_u)
+    tag += ", after step 1's delivery and pair pass"
+    check_pair_masks(tag, t1, un.side, un.ncside)
+    check_settle_sums(tag, t1, ft, count, undelivered, rs, un.side,
+                      un.ncside, max(widths))
 
     for k in (32, 160, 1024):
         for name, case in (
@@ -3129,7 +3400,8 @@ def check_advance(card):
             ts = _cuda_tiles(fields)
             rs = torch.arange(anc * anc + 1, device="cuda") * k
             tag = f"{name} K={k} ({case})"
-            sums, _ = check_cell_sums_rows(tag, ts, rs, aside, anc)
+            sums = adv.settle_sums(_clone_tiles(ts), None, None, None, rs,
+                                   aside, anc, k)
             check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
                                      torch.from_numpy(afy).cuda(), sums, rs,
                                      aside, anc)
@@ -3154,8 +3426,18 @@ def check_advance(card):
                                       rs)
         if (name == "full") != (left == 2):
             raise AssertionError(f"{name} K=33: undelivered {left}")
-    print(f"advance kernel phases (ar-at): {time.perf_counter() - t0:.1f} s "
-          f"on {card}", flush=True)
+    # Deaths planted among holes, dead and limbo slots; 3 collisions and 1
+    # undelivered mover (overflow to K + 1).
+    for k in (32, 33, 160, 1024):
+        fields, sft, sside, snc = adversarial.settle_case(k, seed=k)
+        ts = _cuda_tiles(fields)
+        rs = torch.arange(snc * snc + 1, device="cuda") * k
+        tag = f"settle_case K={k} (deaths, holes, dead and limbo slots)"
+        check_pair_masks(tag, ts, sside, snc)
+        check_settle_sums(tag, ts, torch.from_numpy(sft).cuda(),
+                          *_cuda_counts(3, 1), rs, sside, snc, k)
+    print(f"kernel phases around the pair pass (ar-at): "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     return recs
 
 
@@ -3174,12 +3456,14 @@ ADVANCE_DIGEST_STEPS = 10
 def advance_times(root):
     """(au) With the port package of the checkout at ``root``: for the
     flagship resident path, UNEVEN banded and N = 1e7 resident and banded,
-    ms/step, device ms/step, idle share and launches a step, the advance
-    phase's own launches and device ms (each wrapper's kernels apart), and
-    the digest of a run's final state (``ADVANCE_DIGEST_STEPS`` steps from
-    the path's initial state); where the checkout has the advance kernels,
-    each one's ms and device ms on the flagship's tiles against its bound,
-    beside three torch.sum calls. Prints one JSON line."""
+    the whole step's ms/step, device ms/step, idle share, launches and
+    syncs a step and its kernels' device ms/step, the advance phase's own
+    launches and device ms (each wrapper's kernels apart; the phase is the
+    checkout's own), and the digest of a run's final state
+    (``ADVANCE_DIGEST_STEPS`` steps from the path's initial state); where
+    the checkout has the advance kernels, each one's ms and device ms on
+    the flagship's tiles against its bound, beside three torch.sum calls.
+    Prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine, make_resident_run
@@ -3204,7 +3488,7 @@ def advance_times(root):
         rec.update(device_ms_per_step=times["device_ms"],
                    device_ms_whole=times["device_ms_whole"],
                    idle=times["idle"], launches=times["launches"],
-                   syncs=times["syncs"])
+                   syncs=times["syncs"], step_kernels=times["kernels"])
         if eng.impl == "banded":
             ph = _tile_phases(make_banded_run, cfg, eng._band_plan)
         else:
@@ -3227,12 +3511,90 @@ def advance_times(root):
     print("ADVANCE_TIMES " + json.dumps(out), flush=True)
 
 
+# The settle pass's variants swept (--settle-sweep): rows (warps) a block,
+# the slots a lane loads ahead, and the in-box test (compares with the
+# box's edges, or two divisions).
+SETTLE_WARPS = (2, 4, 8, 16)
+SETTLE_DEPTHS = (1, 4, 8)
+SETTLE_EDGES = (False, True)
+
+
+def settle_sweep():
+    """(--settle-sweep) The settle pass on the tiles after step 1's delivery
+    and pair pass of the flagship resident path, UNEVEN's banded pool and
+    the 1e7 resident tiles, in each variant (``SETTLE_WARPS`` rows a block
+    x ``SETTLE_DEPTHS`` slots a lane loaded ahead x ``SETTLE_EDGES``), each
+    on its own copy of the tiles and counters: every variant's sums, m and
+    counters bit for bit the wrapper's, and its device ms (median of 20).
+    Prints a line a tile set."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine, make_resident_run
+    from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
+                                                         row_starts)
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    rule = (adv.SETTLE_WARPS, adv.SETTLE_DEPTH, adv.SETTLE_EDGES)
+    for label, args, impl in (
+            ("flagship resident", GOLDEN_S1[:4], "resident"),
+            ("UNEVEN banded pool", UNEVEN, "banded"),
+            ("1e7 resident", (1, 5000.0, 316, 10_000_000), "resident")):
+        cfg = SimConfig(*args)
+        eng = Engine(cfg, device="cuda", impl=impl)
+        state = eng.init_state()
+        if impl == "banded":
+            ph = _tile_phases(make_banded_run, cfg, eng._band_plan)
+            rs = row_starts(eng._band_plan, cfg.ncside, "cuda")
+            kcap = max(k for _, _, k in eng._band_plan)
+        else:
+            ph = _tile_phases(make_resident_run, cfg, eng.kcap)
+            rs = torch.arange(cfg.ncells + 1, device="cuda") * eng.kcap
+            kcap = eng.kcap
+        ts, ft, count, undelivered = _settle_inputs(ph, state)
+
+        def settle(t):
+            return adv.settle_sums(t, ft, count, undelivered, rs, cfg.side,
+                                   cfg.ncside, kcap)
+
+        def fresh():
+            return _clone_tiles(ts)
+
+        times = []
+        try:
+            ref_t = fresh()
+            ref = settle(ref_t)
+            for variant in itertools.product(SETTLE_WARPS, SETTLE_DEPTHS,
+                                             SETTLE_EDGES):
+                (adv.SETTLE_WARPS, adv.SETTLE_DEPTH,
+                 adv.SETTLE_EDGES) = variant
+                t = fresh()
+                got = settle(t)
+                same = _bits_equal(got, ref) and all(
+                    _bits_equal(getattr(t, k), getattr(ref_t, k))
+                    for k in ("m", "collisions", "panics", "overflow"))
+                if not same:
+                    raise AssertionError(f"{label}: settle in {variant} "
+                                         f"differs from {rule}")
+                times.append((variant, device_ms(settle, 20, fresh)))
+        finally:
+            adv.SETTLE_WARPS, adv.SETTLE_DEPTH, adv.SETTLE_EDGES = rule
+        print(f"{label} ({ts.x.numel()} slots, {rs.numel() - 1} rows): "
+              f"settle_sums device ms by (rows a block, slots a lane ahead, "
+              f"edges): "
+              + ", ".join(f"({w}, {d}, {int(e)}) {ms:.4f}"
+                          for (w, d, e), ms in times)
+              + f"; the wrapper's {rule}; bound "
+              f"{_settle_bound(ts.x.numel(), rs.numel() - 1, 0)[0]:.4f}",
+              flush=True)
+        del eng, state, ts, ft
+        torch.cuda.empty_cache()
+
+
 def check_advance_paths():
     """(--advance) Golden s1 through the resident engine and UNEVEN through
     the banded engine with the advance kernels: the known results, every
-    kernel launched, no host sync, the advance phase's launches; cuda ==
-    cpu on a small config of each. Returns the two runs' launch counts,
-    summed."""
+    kernel launched, no host sync, the advance phase's launches, the whole
+    step's launches and syncs; cuda == cpu on a small config of each.
+    Returns the two runs' launch counts, summed."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine, make_resident_run
     from particlesimulation_tpu_torch.ops.banded import make_banded_run
@@ -3247,6 +3609,7 @@ def check_advance_paths():
     check_no_sync("resident", make_resident_run(s1, eng.kcap)[2], state)
     check_advance_launches("resident flagship", _tile_phases(
         make_resident_run, s1, eng.kcap), state)
+    check_step("resident flagship", eng, state, 12, exact=True)
     un = SimConfig(*UNEVEN)
     eng = Engine(un, device="cuda")
     state = eng.init_state()
@@ -3255,6 +3618,7 @@ def check_advance_paths():
     check_no_sync("banded", make_banded_run(un, UNEVEN_BANDS)[2], state)
     check_advance_launches("UNEVEN banded", _tile_phases(
         make_banded_run, un, UNEVEN_BANDS), state)
+    check_step("UNEVEN banded", eng, state, 30, exact=False)
     check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5)
     check_gpu_vs_cpu(-7, 100.0, 12, 4000, 10, impl="banded",
                      plan=((0, 3, 64), (3, 3, 256), (6, 3, 256), (9, 3, 64)))
@@ -3282,16 +3646,29 @@ def advance_times_of_all(roots):
     for label in paths:
         for root, rec in runs:
             r = rec[label]
-            print(f"{label} | {root}: {r['ms_per_step']:.4f} ms/step, "
-                  f"{r['device_ms_per_step']:.4f} device ms/step, "
-                  f"{r['launches']:.1f} launches, {r['syncs']:.2f} syncs; "
-                  f"advance {r['advance_device_ms']:.4f} device ms, "
-                  f"{r['advance_launches']:g} / "
-                  f"{r['advance_wrapper_launches']} launches (cell sums "
-                  f"{r['cell_sums_rows_device_ms']:.4f}, monopole "
-                  f"{r['monopole_integrate_device_ms']:.4f}, delivery "
-                  f"{r['deliver_device_ms']:.4f}); digest "
+            print(f"{label} | {root}: the whole step {r['ms_per_step']:.4f} "
+                  f"ms/step, {r['device_ms_per_step']:.4f} device ms/step, "
+                  f"idle {r['idle']:.1%}, {r['launches']:.1f} launches, "
+                  f"{r['syncs']:.2f} syncs a step; digest "
                   f"{r['digest'][:16]}", flush=True)
+    # Each checkout's advance phase by its own measure: a parent's sums the
+    # cells, the change's does not (its settle pass does), so the two are
+    # not set side by side.
+    for root, rec in runs:
+        for label in paths:
+            r = rec[label]
+            parts = ", ".join(
+                f"{k} {r[f'{k}_device_ms']:.4f}"
+                for k in ("cell_sums_rows", "monopole_integrate", "deliver")
+                if r[f"{k}_device_ms"] > 0)
+            print(f"{root} | {label}: its advance phase "
+                  f"{r['advance_device_ms']:.4f} device ms, "
+                  f"{r['advance_launches']:g} / "
+                  f"{r['advance_wrapper_launches']} launches ({parts}); its "
+                  f"step's own kernels (device ms/step): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in r["step_kernels"].items()),
+                  flush=True)
     for root, rec in runs:
         kern = rec.get("kernels", {})
         print(f"kernels on the flagship's tiles | {root}: "
@@ -3628,6 +4005,11 @@ def main():
     if sys.argv[1:2] == ["--advance-times"]:
         advance_times_of_all(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--settle-sweep"]:
+        print(_card(), flush=True)
+        build_libraries()
+        settle_sweep()
+        return
     if sys.argv[1:2] == ["--advance-times-of"]:
         advance_times(sys.argv[2])
         return
@@ -3682,7 +4064,7 @@ def main():
                 ncells, kcap, fill, with_pid)
     for kcap in (32, 160, 288, 1024):
         check_adversarial(kcap)
-    # The advance phase's three kernels (phases ar-at).
+    # The kernels around the pair pass (phases ar-at).
     adv_recs = check_advance(card)
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
@@ -3697,6 +4079,7 @@ def main():
     check_no_sync("resident", make_resident_run(s1, eng.kcap)[2], state)
     check_advance_launches("resident flagship", _tile_phases(
         make_resident_run, s1, eng.kcap), state)
+    check_step("resident flagship", eng, state, 12, exact=True)
     # The fused kernel on the tiles the resident run hands its pair pass at
     # golden s1's last step, holes and limbo slots included.
     tiles = resident_tiles(s1, eng.kcap, state, steps)

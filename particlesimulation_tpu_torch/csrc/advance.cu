@@ -1,14 +1,11 @@
-// The tile step's advance phase on a pool of slot rows, for Hopper (sm_90a).
+// The tile step's kernels around its pair pass on a pool of slot rows, for
+// Hopper (sm_90a).
 //
 // A slot-resident engine keeps its particles in rows of slots, one row per
 // cell of the grid; row r holds the slots row_start[r] to row_start[r + 1]
 // of flat per-field arrays (rows of one width K in the resident engine, of
-// each band's K in the banded engine's pool). Between two fused pair passes
-// a step runs its advance phase:
+// each band's K in the banded engine's pool). A step runs, in order:
 //
-//   cell_sums_rows_kernel: each row's M, sum m x and sum m y over its binned
-//     slots (occupied, and in the box by the C truncation of x / w), and the
-//     count of the occupied slots out of the box (limbo);
 //   monopole_integrate_kernel: in place, each live slot's 8 stencil
 //     monopole terms from its cell's neighbours' sums, the pair force
 //     carried from the last pair pass added, the explicit integrator with
@@ -16,16 +13,34 @@
 //   deliver_count_kernel, deliver_stage_kernel, deliver_place_kernel (and
 //     deliver_expand_kernel for a delivery limited to given slots): in
 //     place, every mover lands in its destination row's rank-th free slot,
-//     and only the movers' slots are written.
+//     and only the movers' slots are written;
+//   pair_masks_kernel: every slot's masks for the pair pass (binned:
+//     occupied and in the box by the C truncation of x / w; mf, its mass
+//     where binned; alive, binned with m > 0);
+//   (the fused pair pass, csrc/cell_pairs.cu)
+//   settle_sums_kernel: the step's tail after its pair pass (the slots it
+//     killed get m 0 in place; the collision, limbo and overflow counters)
+//     and the next step's row sums: each row's M, sum m x and sum m y over
+//     its binned slots.
+//
+// Between the delivery of step t and the sums of step t + 1 only the m of
+// the slots that died in pair pass t changes, so the masks the pair pass
+// needs and the sums the next monopole pass needs are the same function of
+// the tiles split where its inputs are ready: two passes, each taking in
+// the plain passes around it.
 //
 // They replace XLA code of the JAX package, which has no Pallas kernel for
 // this phase (its Pallas rebin was retired, since a TPU punishes scatters):
-// the row sums of engine.py's mono_tables, ops/stencil.py stencil_tables,
-// ops/dense_xla.py monopole_tile_forces, ops/integrate.py integrate, and
-// ops/resident.py rebin (the port's one-pass form of it, deliver).
+// engine.py's physics_mass and the pair pass's alive mask, the row sums of
+// its mono_tables and the step's tail (deaths and counters), ops/stencil.py
+// stencil_tables, ops/dense_xla.py monopole_tile_forces, ops/integrate.py
+// integrate, and ops/resident.py rebin (the port's one-pass form of it,
+// deliver).
 //
 // What bounds them on an H100: bytes, and for the monopole pass the issue
-// of ~300 f32 instructions a live slot. The cell sums read 13 bytes a slot.
+// of ~300 f32 instructions a live slot. The masks read 13 bytes a slot and
+// write 8; the settle pass reads 17 a slot (x, y, m, occ and the pair
+// pass's first-pair rank ft), writes 12 a row and 4 a death.
 // The monopole pass needs 50 bytes a live slot (occupied with m != 0: the
 // physics, its x, y, vx, vy written back) and 18 bytes a slot that is not
 // live (x, y, occ and m read, dest and moving written): an empty or dead
@@ -56,6 +71,7 @@
 //     leaves every other slot as it was: slot order decides the fused pair
 //     kernel's summation order, so a placement in the order of arrival
 //     would change the forces' low bits from run to run;
+//   * the masks, the deaths and the counters are exact;
 //   * the row sums add in a fixed order (a warp a row, lane l the slots
 //     l, l + 32, ... in turn, then a butterfly of shuffles), so two runs
 //     give the same bits; the order is not torch.sum's, which they match
@@ -114,52 +130,6 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
     if (lane >= off) v += t;
   }
   return v;
-}
-
-// Each row's M, sum m x, sum m y over its binned slots (m x and m y rounded
-// to f32 first, as torch.mul does), into M[r], SX[r], SY[r]; the occupied
-// slots out of the box add to *limbo. A warp a row: lane l adds the slots
-// l, l + 32, ... of the row in turn, then the warp adds the 32 partial sums
-// in a fixed butterfly.
-//
-// Bound: bytes, 13 a slot read (x, y, m, occ) and 12 a row written.
-__global__ void cell_sums_rows_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ y,
-                                      const float* __restrict__ m,
-                                      const uint8_t* __restrict__ occ,
-                                      const int64_t* __restrict__ row_start,
-                                      int nrows, float w, int nc,
-                                      float* __restrict__ M,
-                                      float* __restrict__ SX,
-                                      float* __restrict__ SY,
-                                      int* __restrict__ limbo) {
-  const int r = warp_row(nrows);
-  if (r < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t s1 = row_start[r + 1];
-  float a = 0.0f, b = 0.0f, c = 0.0f;
-  int lost = 0;
-  for (int64_t s = row_start[r] + lane; s < s1; s += 32) {
-    const float xs = x[s], ys = y[s];
-    const bool o = occ[s] != 0;
-    int cell;
-    const bool in_box = cell_of(xs, ys, w, nc, &cell);
-    const float mf = (o && in_box) ? m[s] : 0.0f;
-    lost += o && !in_box;
-    a = __fadd_rn(a, mf);
-    b = __fadd_rn(b, __fmul_rn(mf, xs));
-    c = __fadd_rn(c, __fmul_rn(mf, ys));
-  }
-  a = warp_fsum(a);
-  b = warp_fsum(b);
-  c = warp_fsum(c);
-  lost = warp_sum(lost);
-  if (lane == 0) {
-    M[r] = a;
-    SX[r] = b;
-    SY[r] = c;
-    if (lost) atomicAdd(limbo, lost);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -570,6 +540,184 @@ __global__ void deliver_place_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pair pass's masks, before it.
+
+constexpr int kInf = 0x7fffffff;  // a first-pair rank: no partner
+constexpr int kMaskThreads = 256;
+
+// A slot's masks: mf = m where it is binned (occupied, in the box), else
+// +0; alive = binned with m > 0 (1 or 0).
+__device__ __forceinline__ void slot_masks(float x, float y, float m, bool o,
+                                           float w, int nc, float* mf,
+                                           int* alive) {
+  int cell;
+  const bool binned = o && cell_of(x, y, w, nc, &cell);
+  *mf = binned ? m : 0.0f;
+  *alive = binned && m > 0.0f;
+}
+
+// Replaces engine.py's physics_mass (the binned mask and mf) and the pair
+// pass's alive mask (XLA, fused before the Pallas call there; some twenty
+// plain torch passes in the port before). Elementwise: a thread takes the
+// 4 slots 4 i to 4 i + 3, with one 16-byte load of each of x, y and m, one
+// 4-byte load of the occ bytes and one 16-byte store each of mf and alive
+// where every array is aligned for it (vec), else one slot at a time.
+//
+// Bound: bytes, 13 a slot read (x, y, m, occ) and 8 written (mf, alive).
+__global__ void pair_masks_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ y,
+                                  const float* __restrict__ m,
+                                  const uint8_t* __restrict__ occ, int64_t n,
+                                  float w, int nc, bool vec,
+                                  float* __restrict__ mf,
+                                  int* __restrict__ alive) {
+  const int64_t s = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (s >= n) return;
+  if (vec && n - s >= 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(x + s);
+    const float4 yv = *reinterpret_cast<const float4*>(y + s);
+    const float4 mv = *reinterpret_cast<const float4*>(m + s);
+    const uint32_t o = *reinterpret_cast<const uint32_t*>(occ + s);
+    float4 f;
+    int4 a;
+    slot_masks(xv.x, yv.x, mv.x, (o & 0xffu) != 0, w, nc, &f.x, &a.x);
+    slot_masks(xv.y, yv.y, mv.y, (o & 0xff00u) != 0, w, nc, &f.y, &a.y);
+    slot_masks(xv.z, yv.z, mv.z, (o & 0xff0000u) != 0, w, nc, &f.z, &a.z);
+    slot_masks(xv.w, yv.w, mv.w, (o & 0xff000000u) != 0, w, nc, &f.w, &a.w);
+    *reinterpret_cast<float4*>(mf + s) = f;
+    *reinterpret_cast<int4*>(alive + s) = a;
+    return;
+  }
+  for (int64_t t = s; t < s + 4 && t < n; ++t)
+    slot_masks(x[t], y[t], m[t], occ[t] != 0, w, nc, &mf[t], &alive[t]);
+}
+
+// ---------------------------------------------------------------------------
+// The step's tail and the next step's row sums, after the pair pass.
+
+// Whether cell_of puts (x, y) on the grid, from the box's edges: its cell
+// coordinate trunc(RN(x / w)) lies in [0, nc) exactly where RN(x / w) lies
+// in (-1, nc), and RN(x / w) grows with x, so exactly where lo < x < hi
+// for the float32 edges lo (the largest x with RN(x / w) <= -1) and hi
+// (the smallest with RN(x / w) >= nc), which the host finds. A NaN
+// converts to cell 0, on the grid, as in cell_of.
+__device__ __forceinline__ bool in_box_edges(float x, float y, float lo,
+                                             float hi) {
+  return ((x > lo && x < hi) || x != x) && ((y > lo && y < hi) || y != y);
+}
+
+// The counters the tail updates, each given or null: collisions += count;
+// overflow = max(overflow, undelivered > 0 ? ovf : 0); panics += the
+// limbo slots (with the sums only).
+struct Counters {
+  long long* collisions;
+  const int* count;
+  int* overflow;
+  const int* undelivered;
+  int ovf;
+  int* panics;
+};
+
+// Replaces the row sums of engine.py's mono_tables and the step's tail
+// (m zeroed on the pass's deaths, the collision, panic and overflow
+// counters; XLA there, a torch.where, a cast and three counter updates in
+// the port before). A warp a row. Each slot: died = ft != INF; a dying
+// slot's m becomes 0 in place; mf' = m' where the slot is binned; the row's
+// M, sum m' x, sum m' y added in the order the port's row sums have
+// always taken: lane l takes the slots l, l + 32, ... in turn, each product
+// rounded to f32 before its add, then the fixed butterfly of warp_fsum. So
+// the sums keep their bits, and with them every later bit of a run. The
+// order makes a row a chain of dependent adds a lane; a kernel that loads a
+// slot and adds it before loading the next waits on each slot's loads.
+// Here a lane issues the loads of its next D slots of the row (x, y, m,
+// occ, ft into registers) before the first add, so D slots' loads are in
+// flight a lane; rows wider than 32 D slots take chunks of 32 D.
+// Without sums (M null: a run's last step) only the deaths; without ft
+// (a run's first pass, collide off) none. The counters are integers,
+// summed in any order: a warp adds its row's limbo count to panics by an
+// atomic, and one thread updates collisions and overflow, reading count
+// and undelivered on the device (no host synchronisation).
+//
+// Bound: bytes, 17 a slot read (x, y, m, ft: 4; occ: 1), 12 a row written
+// and 4 a death.
+//
+// The in-box test: cell_of's two IEEE divisions, or (kEdges) the same test
+// as compares with the box's edges lo and hi (see in_box_edges).
+template <int D, bool kEdges>
+__global__ void settle_sums_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ y,
+                                   float* __restrict__ m,
+                                   const uint8_t* __restrict__ occ,
+                                   const int* __restrict__ ft,
+                                   const int64_t* __restrict__ row_start,
+                                   int nrows, float w, int nc, float lo,
+                                   float hi, float* __restrict__ M,
+                                   float* __restrict__ SX,
+                                   float* __restrict__ SY, Counters k) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (k.count != nullptr) *k.collisions += *k.count;
+    if (k.undelivered != nullptr) {
+      const int v = *k.undelivered > 0 ? k.ovf : 0;
+      if (v > *k.overflow) *k.overflow = v;
+    }
+  }
+  const int r = warp_row(nrows);
+  if (r < 0) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
+  if (M == nullptr) {
+    if (ft != nullptr)
+      for (int64_t s = s0 + lane; s < s1; s += 32)
+        if (ft[s] != kInf) m[s] = 0.0f;
+    return;
+  }
+  float a = 0.0f, b = 0.0f, c = 0.0f;
+  int lost = 0;
+  for (int64_t c0 = s0 + lane; c0 < s1; c0 += 32 * D) {
+    float xs[D], ys[D], ms[D];
+    bool os[D], dies[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int64_t s = c0 + 32 * j;
+      const bool in = s < s1;
+      xs[j] = in ? x[s] : 0.0f;
+      ys[j] = in ? y[s] : 0.0f;
+      ms[j] = in ? m[s] : 0.0f;
+      os[j] = in && occ[s] != 0;
+      dies[j] = in && ft != nullptr && ft[s] != kInf;
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const int64_t s = c0 + 32 * j;
+      if (s >= s1) break;
+      float mj = ms[j];
+      if (dies[j]) {
+        mj = 0.0f;
+        m[s] = 0.0f;
+      }
+      int cell;
+      const bool in_box = kEdges ? in_box_edges(xs[j], ys[j], lo, hi)
+                                 : cell_of(xs[j], ys[j], w, nc, &cell);
+      const float mf = (os[j] && in_box) ? mj : 0.0f;
+      lost += os[j] && !in_box;
+      a = __fadd_rn(a, mf);
+      b = __fadd_rn(b, __fmul_rn(mf, xs[j]));
+      c = __fadd_rn(c, __fmul_rn(mf, ys[j]));
+    }
+  }
+  a = warp_fsum(a);
+  b = warp_fsum(b);
+  c = warp_fsum(c);
+  lost = warp_sum(lost);
+  if (lane == 0) {
+    M[r] = a;
+    SX[r] = b;
+    SY[r] = c;
+    if (lost && k.panics != nullptr) atomicAdd(k.panics, lost);
+  }
+}
+
 bool whole_warps(int warps) { return warps >= 1 && warps <= kMaxWarps; }
 
 unsigned row_blocks(int nrows, int warps) {
@@ -584,24 +732,69 @@ unsigned row_blocks(int nrows, int warps) {
 // it does not take). warps: warps a block, 1 to 32. Pool arrays are flat;
 // row_start holds nrows + 1 int64 slot offsets.
 
-// out: (3, nrows) floats, M, sum m x, sum m y; limbo: one int.
-extern "C" int psim_cell_sums_rows(const float* x, const float* y,
-                                   const float* m, const uint8_t* occ,
-                                   const int64_t* row_start, int nrows,
-                                   float w, int nc, float* out, int* limbo,
-                                   int warps, void* stream) {
-  if (!whole_warps(warps) || nrows < 1) return (int)cudaErrorInvalidValue;
+// mf (floats) and alive (ints) of the n slots: the pair pass's masks.
+extern "C" int psim_pair_masks(const float* x, const float* y, const float* m,
+                               const uint8_t* occ, int64_t n, float w, int nc,
+                               float* mf, int* alive, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(y) |
+                     reinterpret_cast<uintptr_t>(m) |
+                     reinterpret_cast<uintptr_t>(mf) |
+                     reinterpret_cast<uintptr_t>(alive)) & 15u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(occ) & 3u) == 0;
+  const int64_t quads = (n + 3) / 4;
+  pair_masks_kernel<<<(unsigned)((quads + kMaskThreads - 1) / kMaskThreads),
+                      kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, occ, n, w, nc, vec, mf, alive);
+  return (int)cudaGetLastError();
+}
+
+// In place: m of the slots with ft != INF (ft null: none) set to 0;
+// collisions (one int64) += *count and overflow (one int) = max(overflow,
+// *undelivered > 0 ? ovf : 0), each where its pointers are given. With
+// sums ((3, nrows) floats, M, sum m x, sum m y, after the deaths), panics
+// (one int) += the limbo slots; without (null), neither. The rows must
+// cover the pool. depth: the slots a lane loads ahead, 1, 4 or 8; edges:
+// the in-box test by compares with the box's edges lo and hi (1) or by
+// cell_of (0).
+extern "C" int psim_settle_sums(const float* x, const float* y, float* m,
+                                const uint8_t* occ, const int* ft,
+                                const int64_t* row_start, int nrows, float w,
+                                int nc, float lo, float hi, float* sums,
+                                int* panics, long long* collisions,
+                                const int* count, int* overflow,
+                                const int* undelivered, int ovf, int warps,
+                                int depth, int edges, void* stream) {
+  if (!whole_warps(warps) || nrows < 1 ||
+      (count != nullptr && collisions == nullptr) ||
+      (undelivered != nullptr && overflow == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(limbo, 0, sizeof(int), s);
-  cell_sums_rows_kernel<<<row_blocks(nrows, warps), 32 * warps, 0, s>>>(
-      x, y, m, occ, row_start, nrows, w, nc, out, out + nrows,
-      out + 2 * (size_t)nrows, limbo);
+  float* M = sums;
+  float* SX = sums == nullptr ? nullptr : sums + nrows;
+  float* SY = sums == nullptr ? nullptr : sums + 2 * (size_t)nrows;
+  const Counters k{collisions, count, overflow, undelivered, ovf,
+                   sums == nullptr ? nullptr : panics};
+  const unsigned blocks = row_blocks(nrows, warps);
+  const unsigned threads = 32u * warps;
+#define PSIM_SETTLE(D, E)                                                 \
+  settle_sums_kernel<D, E><<<blocks, threads, 0, s>>>(                    \
+      x, y, m, occ, ft, row_start, nrows, w, nc, lo, hi, M, SX, SY, k)
+  if (depth == 1 && edges) PSIM_SETTLE(1, true);
+  else if (depth == 1) PSIM_SETTLE(1, false);
+  else if (depth == 4 && edges) PSIM_SETTLE(4, true);
+  else if (depth == 4) PSIM_SETTLE(4, false);
+  else if (depth == 8 && edges) PSIM_SETTLE(8, true);
+  else if (depth == 8) PSIM_SETTLE(8, false);
+  else return (int)cudaErrorInvalidValue;
+#undef PSIM_SETTLE
   return (int)cudaGetLastError();
 }
 
 // In place: x, y, vx, vy of the live slots (m != 0); dest (ints) and
 // moving (bytes) written for every slot. sums: (3, nrows) floats as
-// psim_cell_sums_rows writes them; nrows must be nc * nc (row r is cell r).
+// psim_settle_sums writes them; nrows must be nc * nc (row r is cell r).
 extern "C" int psim_monopole_integrate(
     float* x, float* y, float* vx, float* vy, const float* m,
     const uint8_t* occ, const float* fxd, const float* fyd, const float* sums,

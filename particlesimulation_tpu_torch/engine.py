@@ -175,7 +175,8 @@ def make_resident_run(config: SimConfig, kcap: int,
         # Scatter by the CLAMPED cell key: out-of-range (PANIC2-limbo)
         # particles land in their nearest valid row, at most one hop from
         # home once they re-enter the box; they stay masked out of physics
-        # (binned_mask). Valid particles keep their in-cell pid order.
+        # (pair_masks, settle_sums). Valid particles keep their in-cell pid
+        # order.
         cx, cy, _ = res.cell_of(state.x, state.y, side, nc)
         ck = (torch.clamp(cy, 0, nc - 1) * nc + torch.clamp(cx, 0, nc - 1))
         ck, pid, x, y, vx, vy, m = binning.sort_by_cell(
@@ -204,40 +205,43 @@ def make_resident_run(config: SimConfig, kcap: int,
     def pair_args(ts):
         # Zero mf silences limbo slots in the pair pass: they exert and
         # receive no force and never collide.
-        binned, _ = res.binned_mask(ts, side, nc)
-        mf = torch.where(binned, ts.m, 0.0)
-        alive = (binned & (ts.m > 0)).to(torch.int32)
+        mf, alive = advance_ops.pair_masks(ts.x, ts.y, ts.m, ts.occ, side, nc)
         return ts.x, ts.y, mf, alive, ts.pid
 
     def pair_pass(ts, collide: bool):
-        """Fused collision(t) + pair-force(t+1) pass; (fx, fy, count, died).
+        """Fused collision(t) + pair-force(t+1) pass; (fx, fy, count, ft).
 
         The post-move positions a step's collision pass scans are the
         positions the next step's force pass needs; forces come out with
         this pass's deaths applied (merged particles are massless from the
-        next step on). pid tiles give the reference's pid-order tie-breaks.
+        next step on; ``settle`` zeroes their m). pid tiles give the
+        reference's pid-order tie-breaks.
         """
-        fx, fy, count, ft = cell_pairs.fused_pairs(
+        return cell_pairs.fused_pairs(
             *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form,
             gated=pair_impl != "v1")
-        return fx, fy, count, ft != INF
 
-    def advance(ts, fxd, fyd):
-        """Phases 1-3 of a step: the cells' sums, the monopole terms and
-        the integrator (m==0, dead or empty, slots frozen), the delivery of
-        the movers; three kernels on the GPU (``ops/cuda/advance``)."""
+    def settle(ts, ft, count, undelivered, sums):
+        """The step's tail after its pair pass and the next step's cell
+        sums, one kernel on the GPU (``ops/cuda/advance.settle_sums``)."""
+        return advance_ops.settle_sums(ts, ft, count, undelivered,
+                                       row_start(ts.x.device), side, nc,
+                                       kcap, sums)
+
+    def advance(ts, fxd, fyd, sums):
+        """The monopole terms from the cells' sums and the integrator
+        (m==0, dead or empty, slots frozen), then the delivery of the
+        movers; two kernels on the GPU (``ops/cuda/advance``)."""
         rs = row_start(ts.x.device)
-        sums, limbo_count = advance_ops.cell_sums_rows(
-            ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
         x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums, rs, side,
             nc, DELTAT)
-        ts, undelivered = advance_ops.deliver(
-            ts._replace(x=x, y=y, vx=vx, vy=vy), moving, dest, rs)
-        return ts, undelivered, limbo_count
+        return advance_ops.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
+                                   moving, dest, rs)
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,
-                                        pair_pass, kcap, side, nc)
+                                        pair_pass, kcap, side, nc,
+                                        settle=settle)
     return prologue, pair_tiles, run
 
 

@@ -22,12 +22,13 @@ GPU scatter delivers every mover in one pass:
   starts): a cross-band mover is a mover, landing in the rank-th free slot
   of its destination cell's row wherever that row lies; undelivered movers
   flag overflow and the engine retries losslessly with a grown plan;
-* the cells' sums, the 8 monopole terms with the integrator, and the
-  delivery run once over the whole pool, on rows of each band's width
-  (``ops/cuda/advance``: three kernels on the GPU); only the fused pair
-  kernel runs per band, at its band's K. So the launches a step grow with
-  the band count by one, and a run reads nothing back from the device but
-  its overflow.
+* the 8 monopole terms with the integrator, the delivery, the pair
+  pass's masks, and after the pair pass the step's tail with the next
+  step's cell sums run once over the whole pool, on rows of each band's
+  width (``ops/cuda/advance``: four kernels on the GPU); only the fused
+  pair kernel runs per band, at its band's K. So the launches a step grow
+  with the band count by one, and a run reads nothing back from the device
+  but its overflow.
 
 Not ported, because one-pass delivery or the GPU leaves them no function:
 the halo rows, their lane budget (``HALO_W``, ``PSIM_BAND_HALO_W``) and the
@@ -257,17 +258,16 @@ def make_banded_run(config: SimConfig, plan):
             overflow=torch.maximum(state.overflow, ovf))
 
     def pair_args(ts):
-        # mf = where(binned, m, 0) (m >= 0) silences unbinned slots in the
-        # pair pass: they exert and receive no force and never collide.
-        binned, _ = res.binned_mask(ts, side, nc)
-        mf = torch.mul(ts.m, binned)
-        alive = (binned & (ts.m > 0)).to(torch.int32)
+        # Zero mf silences unbinned slots in the pair pass: they exert and
+        # receive no force and never collide. One launch masks the whole
+        # pool; each band takes its views.
+        mf, alive = advance_ops.pair_masks(ts.x, ts.y, ts.m, ts.occ, side, nc)
         return list(zip(*(views(a) for a in (ts.x, ts.y, mf, alive,
                                              ts.pid))))
 
     def pair_pass(ts, collide: bool):
         """The fused collision(t) + pair-force(t+1) pass, one launch per
-        band at its K; (fx, fy, count, died) over the pool."""
+        band at its K; (fx, fy, count, ft) over the pool."""
         outs = [cell_pairs.fused_pairs(*tiles, k, EPSILON, collide=collide,
                                        force_form=form)
                 for tiles, (_, _, k) in zip(pair_args(ts), bands)]
@@ -275,23 +275,27 @@ def make_banded_run(config: SimConfig, plan):
         return (torch.cat([a.reshape(-1) for a in fx]),
                 torch.cat([a.reshape(-1) for a in fy]),
                 torch.sum(torch.stack(count), dtype=torch.int32),
-                torch.cat([a.reshape(-1) for a in ft]) != cell_pairs.INF)
+                torch.cat([a.reshape(-1) for a in ft]))
 
-    def advance(ts, fxd, fyd):
-        """Phases 1-3 of a step over the whole pool, each once whatever the
-        band count: the cells' sums (rows of each band's width), the
-        monopole terms and the integrator (m==0 slots frozen), the delivery
-        of the movers; three kernels on the GPU (``ops/cuda/advance``)."""
+    def settle(ts, ft, count, undelivered, sums):
+        """The step's tail and the next step's cell sums over the whole
+        pool, one kernel on the GPU (``ops/cuda/advance.settle_sums``)."""
+        return advance_ops.settle_sums(ts, ft, count, undelivered,
+                                       geom(ts.x.device), side, nc, kmax,
+                                       sums)
+
+    def advance(ts, fxd, fyd, sums):
+        """The monopole terms and the integrator (m==0 slots frozen), then
+        the delivery of the movers, each once over the whole pool whatever
+        the band count; two kernels on the GPU (``ops/cuda/advance``)."""
         row_start = geom(ts.x.device)
-        sums, limbo_count = advance_ops.cell_sums_rows(
-            ts.x, ts.y, ts.m, ts.occ, row_start, side, nc)
         x, y, vx, vy, dest, moving = advance_ops.monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ, fxd, fyd, sums,
             row_start, side, nc, DELTAT)
-        ts, undelivered = advance_ops.deliver(
-            ts._replace(x=x, y=y, vx=vx, vy=vy), moving, dest, row_start)
-        return ts, undelivered, limbo_count
+        return advance_ops.deliver(ts._replace(x=x, y=y, vx=vx, vy=vy),
+                                   moving, dest, row_start)
 
     pair_tiles, run = res.make_tile_run(prologue, advance, pair_args,
-                                        pair_pass, kmax, side, nc)
+                                        pair_pass, kmax, side, nc,
+                                        settle=settle)
     return prologue, pair_tiles, run

@@ -1,37 +1,46 @@
-"""The tile step's advance phase: cell sums, monopole + integrate, delivery.
+"""The tile step's kernels around its pair pass: masks, monopole +
+integrate, delivery, the tail with the next step's sums.
 
-Between two fused pair passes a slot-resident step (the resident engine's
-``engine.make_resident_run``, the banded engine's ``ops/banded``) sums each
-cell's mass and moments, applies the 8 stencil monopole terms and the pair
-force carried from the last pass, integrates, and delivers the particles
-that changed cell. The JAX package runs this phase as XLA code (the row sums
-of ``engine.py``'s ``mono_tables``, ``ops/stencil.stencil_tables``,
+A slot-resident step (the resident engine's ``engine.make_resident_run``,
+the banded engine's ``ops/banded``) applies the 8 stencil monopole terms of
+each cell's neighbours and the pair force carried from the last pass,
+integrates, delivers the particles that changed cell, masks the slots for
+the fused pair pass, runs it, and then settles: the slots the pass killed
+lose their mass, the counters move, and each cell's mass and moments are
+summed for the next step. The JAX package runs all of this but the pair
+pass as XLA code (``engine.py``'s ``physics_mass``, the row sums of its
+``mono_tables`` and its step's tail, ``ops/stencil.stencil_tables``,
 ``ops/dense_xla.monopole_tile_forces``, ``ops/integrate.integrate`` and
-``ops/resident.rebin``), which eager torch ran as 320-430 launches a
+``ops/resident.rebin``), which eager torch ran as hundreds of launches a
 step. Each wrapper below launches a hand-written CUDA kernel of
 ``csrc/advance.cu``; the ``*_ref`` function beside it is the plain torch
 version of the same function:
 
-* ``cell_sums_rows`` / ``cell_sums_rows_ref``: each row's M, Σm·x and Σm·y
-  over its binned slots, and the count of limbo slots;
 * ``monopole_integrate`` / ``monopole_integrate_ref``: the monopole terms,
   the integrator (x, y, vx, vy updated in place) and each slot's
   destination row and moving flag;
 * ``deliver`` / ``deliver_ref``: every mover to its destination row in one
   pass, in place (``ops/resident.rebin`` and the engines' advance phases
-  call it).
+  call it);
+* ``pair_masks`` / ``pair_masks_ref``: each slot's ``mf`` and ``alive``
+  for the pair pass;
+* ``settle_sums`` / ``settle_sums_ref``: after the pair pass, the deaths
+  (m 0 in place) and the collision, panic and overflow counters (in
+  place), and each row's M, Σm·x and Σm·y over its binned slots for the
+  next step (``cell_sums_rows_ref`` is the plain sums).
 
 The tiles are a pool of slots in which row r holds the flat slots
 ``row_start[r]`` to ``row_start[r + 1]`` (int64, on the tiles' device):
 rows of one width in the resident engine, of each band's width in the
 banded pool. Row r is cell r of the ``ncside × ncside`` grid for the sums
-and the monopole pass; the delivery takes any rows.
+and the monopole pass; the delivery takes any rows; the masks take no rows.
 
-In place: ``monopole_integrate`` and ``deliver`` write into the tensors
-they are given (the plain versions too, so that a CPU run sees the same
-aliasing). No caller reads a step's tiles after handing them on: each
-engine's prologue lays a run's tiles out in fresh tensors, so a replay of a
-run (the retry ladder) starts from its untouched input state.
+In place: ``monopole_integrate``, ``deliver`` and ``settle_sums`` write
+into the tensors they are given (the plain versions too, so that a CPU run
+sees the same aliasing). No caller reads a step's tiles after handing them
+on: each engine's prologue lays a run's tiles out in fresh tensors, and
+``ops/resident.make_tile_run`` gives a run counters of its own, so a
+replay of a run (the retry ladder) starts from its untouched input state.
 
 A tensor on the CPU goes to the plain version; a tensor on a CUDA device
 goes to the kernel, or the wrapper raises. The library is compiled with
@@ -39,15 +48,17 @@ goes to the kernel, or the wrapper raises. The library is compiled with
 every f32 operation of the monopole pass rounds as eager torch rounds it.
 
 Bits: ``monopole_integrate`` gives the plain version's bits from the same
-sums, and ``deliver`` the plain version's tiles in every field and slot.
-``cell_sums_rows`` adds in a fixed order of its own (a warp a row, see
-``csrc/advance.cu``): the same bits in every run, within (K·2⁻²⁴)·Σ|terms|
-of ``torch.sum``'s.
+sums, ``deliver`` the plain version's tiles in every field and slot, and
+``pair_masks`` and ``settle_sums`` their masks, deaths and counters.
+``settle_sums`` adds the sums in a fixed order of its own (a warp a row,
+see ``csrc/advance.cu``): the same bits in every run, within
+(K·2⁻²⁴)·Σ|terms| of ``torch.sum``'s.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -63,12 +74,19 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "advance.cu")
 # Every f32 multiply and add rounds on its own, as eager torch's do.
 FLAGS = ("-fmad=false",)
-# Rows (warps) a block of every kernel: a warp a row.
+# Rows (warps) a block of the monopole pass and the delivery: a warp a row.
 ROW_WARPS = 8
+# The settle pass: rows (warps) a block, the slots a lane loads ahead (1, 4
+# or 8), and its in-box test (True: compares with ``box_edges``; False:
+# two divisions), from ``chip_smoke.py --settle-sweep``.
+SETTLE_WARPS = 2
+SETTLE_DEPTH = 4
+SETTLE_EDGES = True
 
 # Kernel launches per wrapper since the last reset_launches() (one a call:
 # the delivery's call runs its three passes).
-LAUNCHES = {"cell_sums_rows": 0, "monopole_integrate": 0, "deliver": 0}
+LAUNCHES = {"pair_masks": 0, "monopole_integrate": 0, "deliver": 0,
+            "settle_sums": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -83,13 +101,16 @@ def load(path):
     """The kernel library at ``path`` (a build of ``SOURCE``), bound."""
     lib = ctypes.CDLL(path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.psim_cell_sums_rows.argtypes = [vp] * 5 + [ci, cf, ci, vp, vp, ci, vp]
+    lib.psim_pair_masks.argtypes = [vp] * 4 + [ctypes.c_int64, cf, ci] + (
+        [vp] * 3)
+    lib.psim_settle_sums.argtypes = (
+        [vp] * 6 + [ci, cf, ci, cf, cf] + [vp] * 6 + [ci] * 4 + [vp])
     lib.psim_monopole_integrate.argtypes = (
         [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 2 + [ci, vp])
     lib.psim_deliver.argtypes = (
         [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 5 + [ci, vp])
-    for fn in (lib.psim_cell_sums_rows, lib.psim_monopole_integrate,
-               lib.psim_deliver):
+    for fn in (lib.psim_pair_masks, lib.psim_settle_sums,
+               lib.psim_monopole_integrate, lib.psim_deliver):
         fn.restype = ci
     return lib
 
@@ -110,6 +131,33 @@ def _library():
 def cell_width(side: float, ncside: int) -> float:
     """The cell width ``ops/binning.cell_of`` divides by, in float32."""
     return float(np.float32(side / ncside))
+
+
+@functools.lru_cache(maxsize=None)
+def box_edges(side: float, ncside: int):
+    """(lo, hi), float32: ``binning.cell_of`` puts a finite float32
+    coordinate x in the grid's range [0, ncside) exactly where lo < x < hi.
+    Its cell coordinate is trunc(RN(x / w)), in range exactly where RN(x /
+    w) > -1 and < ncside, and RN(x / w) grows with x: lo is the largest x
+    with RN(x / w) <= -1, hi the smallest with RN(x / w) >= ncside."""
+    w = np.float32(cell_width(side, ncside))
+    nc = np.float32(ncside)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+
+    def q(x):
+        return np.float32(x) / w
+
+    hi = np.float32(nc * w)
+    while q(hi) >= nc:
+        hi = np.nextafter(hi, down)
+    while q(hi) < nc:
+        hi = np.nextafter(hi, up)
+    lo = -w
+    while q(lo) <= -1:
+        lo = np.nextafter(lo, up)
+    while q(lo) > -1:
+        lo = np.nextafter(lo, down)
+    return float(lo), float(hi)
 
 
 def _flat(name, t, dtype, n, dev):
@@ -164,36 +212,12 @@ def _row_of(row_start):
                                    rs[1:] - rs[:-1])
 
 
-def cell_sums_rows(x, y, m, occ, row_start, side: float, ncside: int):
+def cell_sums_rows_ref(x, y, m, occ, row_start, side: float, ncside: int):
     """Each row's sums over its binned slots (occupied, in the box by
     ``binning.cell_of``): ``sums`` (3, nrows) float32 — M, Σm·x, Σm·y —
-    and ``limbo`` (0-d int32), the count of occupied slots out of the box.
-
-    x, y, m: float32 and occ bool, the pool's fields (any shape,
-    contiguous); ``row_start``: the pool's rows. The kernel adds each row's
-    terms in a fixed order (a warp a row): the same bits in every run.
-    """
-    dev = x.device
-    nrows = _check_rows(row_start, dev)
-    n = x.numel()
-    xf, yf, mf = (_flat(k, t, torch.float32, n, dev)
-                  for k, t in (("x", x), ("y", y), ("m", m)))
-    of = _flat("occ", occ, torch.bool, n, dev)
-    if not cell_pairs._on_card(x, "cell sums"):
-        return cell_sums_rows_ref(x, y, m, occ, row_start, side, ncside)
-    sums = torch.empty((3, nrows), dtype=torch.float32, device=dev)
-    limbo = torch.empty((), dtype=torch.int32, device=dev)
-    cell_pairs._launch("cell_sums_rows", _library().psim_cell_sums_rows, x,
-                       xf.data_ptr(), yf.data_ptr(), mf.data_ptr(),
-                       of.data_ptr(), row_start.data_ptr(), nrows,
-                       cell_width(side, ncside), ncside, sums.data_ptr(),
-                       limbo.data_ptr(), ROW_WARPS, launches=LAUNCHES)
-    return sums, limbo
-
-
-def cell_sums_rows_ref(x, y, m, occ, row_start, side: float, ncside: int):
-    """Plain torch version of ``cell_sums_rows``: ``torch.sum`` over each
-    run of rows of one width, as a (rows, width) view."""
+    and ``limbo`` (0-d int32), the count of occupied slots out of the box;
+    ``torch.sum`` over each run of rows of one width, as a (rows, width)
+    view. The plain sums of ``settle_sums_ref``."""
     dev = x.device
     _check_rows(row_start, dev)
     xf, yf, mf, of = (t.reshape(-1) for t in (x, y, m, occ))
@@ -213,7 +237,7 @@ def monopole_integrate(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
 
     Each slot of row r (cell r) takes the 8 stencil monopole terms of its
     neighbours' COM (``sums``: (3, nrows) M, Σm·x, Σm·y, as
-    ``cell_sums_rows`` gives them; a slot out of the box feels none), plus
+    ``settle_sums`` gives them; a slot out of the box feels none), plus
     the pair force ``fxd``, ``fyd``; then the explicit step with the
     periodic wrap (``m == 0`` slots frozen). x, y, vx, vy are updated in
     place. Returns (x, y, vx, vy, dest, moving), each the shape of x: the
@@ -405,3 +429,104 @@ def deliver_ref(ts, moving, dest, row_start, at=None):
     ts.occ.view(-1).index_fill_(0, src_act[src_act < nslots], False)
     ts.occ.view(-1).index_fill_(0, tgt[tgt < nslots], True)
     return ts, undelivered
+
+
+def pair_masks(x, y, m, occ, side: float, ncside: int):
+    """The pair pass's masks of every slot: ``mf`` (float32: m where the
+    slot is binned — occupied, and in the box by ``binning.cell_of`` — else
+    0) and ``alive`` (int32: 1 where binned with m > 0, else 0), each the
+    shape of x, new tensors.
+
+    x, y, m: float32 and occ bool, the pool's fields (any shape,
+    contiguous). Zero mf silences limbo slots in the pair pass: they exert
+    and receive no force and never collide.
+    """
+    dev = x.device
+    n = x.numel()
+    flat = [_flat(k, t, torch.float32, n, dev)
+            for k, t in (("x", x), ("y", y), ("m", m))]
+    of = _flat("occ", occ, torch.bool, n, dev)
+    if not cell_pairs._on_card(x, "pair masks"):
+        return pair_masks_ref(x, y, m, occ, side, ncside)
+    mf = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    alive = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    cell_pairs._launch("pair_masks", _library().psim_pair_masks, x,
+                       *(f.data_ptr() for f in flat), of.data_ptr(), n,
+                       cell_width(side, ncside), ncside, mf.data_ptr(),
+                       alive.data_ptr(), launches=LAUNCHES)
+    return mf, alive
+
+
+def pair_masks_ref(x, y, m, occ, side: float, ncside: int):
+    """Plain torch version of ``pair_masks``: ``binning.cell_of``'s in-box
+    test, ``where`` and a cast."""
+    _, _, valid = cell_of(x, y, side, ncside)
+    binned = occ & valid
+    return torch.where(binned, m, 0.0), (binned & (m > 0)).to(torch.int32)
+
+
+def settle_sums(ts, ft, count, undelivered, row_start, side: float,
+                ncside: int, kcap: int, sums: bool = True):
+    """A step's tail after its pair pass, and the next step's row sums, over
+    the pool, in place.
+
+    ``ft`` (int32, the pair pass's first-pair ranks of the pool's slots, or
+    None: no deaths): a slot with ``ft != INF`` died, and ``ts.m`` there
+    becomes 0. ``count`` (0-d int32, or None) adds to ``ts.collisions``
+    (int64); ``undelivered`` (0-d int32, or None) raises ``ts.overflow``
+    (int32) to ``kcap + 1`` where it is nonzero. With ``sums``, returns
+    each row's M, Σm·x, Σm·y over its binned slots after the deaths ((3,
+    nrows) float32, as ``cell_sums_rows_ref`` gives them) and adds the
+    count of occupied slots out of the box (limbo) to ``ts.panics``
+    (int32); without, returns None and counts no limbo. The counters are
+    updated in place, so a run must own them (``make_tile_run`` clones
+    them); the rows must cover the pool. The kernel reads ``count`` and
+    ``undelivered`` on the device: no host synchronisation.
+    """
+    dev = ts.x.device
+    nrows = _check_rows(row_start, dev)
+    n = ts.x.numel()
+    flat = [_flat(k, getattr(ts, k), torch.float32, n, dev)
+            for k in ("x", "y", "m")]
+    of = _flat("occ", ts.occ, torch.bool, n, dev)
+    if ft is not None:
+        _flat("ft", ft, torch.int32, n, dev)
+    for name, t in (("count", count), ("undelivered", undelivered)):
+        if t is not None:
+            _flat(name, t, torch.int32, 1, dev)
+    for name, dtype in (("collisions", torch.int64), ("panics", torch.int32),
+                        ("overflow", torch.int32)):
+        _flat(name, getattr(ts, name), dtype, 1, dev)
+    if not cell_pairs._on_card(ts.x, "settle pass"):
+        return settle_sums_ref(ts, ft, count, undelivered, row_start, side,
+                               ncside, kcap, sums)
+    out = (torch.empty((3, nrows), dtype=torch.float32, device=dev)
+           if sums else None)
+    cell_pairs._launch(
+        "settle_sums", _library().psim_settle_sums, ts.x,
+        *(f.data_ptr() for f in flat), of.data_ptr(), _ptr(ft),
+        row_start.data_ptr(), nrows, cell_width(side, ncside), ncside,
+        *box_edges(side, ncside), _ptr(out), ts.panics.data_ptr(),
+        ts.collisions.data_ptr(), _ptr(count), ts.overflow.data_ptr(),
+        _ptr(undelivered), kcap + 1, SETTLE_WARPS, SETTLE_DEPTH,
+        int(SETTLE_EDGES), launches=LAUNCHES)
+    return out
+
+
+def settle_sums_ref(ts, ft, count, undelivered, row_start, side: float,
+                    ncside: int, kcap: int, sums: bool = True):
+    """Plain torch version of ``settle_sums``: the deaths' ``where`` (as a
+    ``masked_fill_``), the three counter updates, ``cell_sums_rows_ref``."""
+    if ft is not None:
+        ts.m.masked_fill_((ft != cell_pairs.INF).reshape(ts.m.shape), 0.0)
+    if count is not None:
+        ts.collisions.add_(count)
+    if undelivered is not None:
+        ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
+        ts.overflow.copy_(torch.maximum(ts.overflow, ovf))
+    if not sums:
+        return None
+    out, limbo = cell_sums_rows_ref(ts.x, ts.y, ts.m, ts.occ, row_start,
+                                    side, ncside)
+    ts.panics.add_(limbo)
+    return out

@@ -402,3 +402,21 @@ def advance_case(kcap: int, seed: int = 0):
     fields["x"][0, 0] = mirrored
     fields["x"][9, 0] = below
     return fields, fxd, fyd, side, nc
+
+
+def settle_case(kcap: int, seed: int = 0):
+    """(fields, ft, side, ncside): ``advance_case``'s tiles (dead slots
+    with m 0, empty slots with stale values, limbo slots, an empty cell,
+    positions just below side and just below 0) as a pair pass leaves them,
+    with the first-pair ranks ``ft`` (int32 (ncells, kcap)) of the slots it
+    killed: about 1 in 12 of the live ones, and row 0's first slot (the
+    row's slots 0-2 live in cell 0, slot 1 just below 0); INF elsewhere.
+    """
+    fields, _, _, side, nc = advance_case(kcap, seed)
+    rng = np.random.default_rng(seed + 1)
+    live = fields["occ"] & (fields["m"] > 0)
+    dies = live & (rng.random(live.shape) < 1.0 / 12.0)
+    dies[0, 0] = True
+    ft = np.where(dies, rng.integers(0, kcap * kcap, live.shape),
+                  0x7FFFFFFF).astype(np.int32)
+    return fields, ft, side, nc

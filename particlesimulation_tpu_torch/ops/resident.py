@@ -102,23 +102,43 @@ def epilogue(ts: TileState, n: int, side: float, ncside: int):
 
 
 def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
-                  side: float, ncside: int, finish=None):
+                  side: float, ncside: int, finish=None, settle=None):
     """(pair_tiles, run) of a slot-resident engine from its phases.
 
-    ``prologue(state)`` lays a state out in tiles; ``advance(ts, fxd,
-    fyd)`` runs a step's monopole, integrate and rebin and returns (ts,
-    undelivered, limbo_count); ``pair_args(ts)`` gives the pair pass's tile
-    arguments and ``pair_pass(ts, collide)`` runs it, giving (fx, fy,
-    count, died); ``finish(ts, state)`` gives the run's final state from
-    its tiles and its input state (by default ``epilogue``'s SimState on
-    ``ncside``'s cell grid). ``run(state, n_steps)`` returns the final
-    state; ``pair_tiles(state, n_steps)`` the ``pair_args`` that step
-    ``n_steps`` of that run hands its pair pass (0: the run's first pass),
-    holes and limbo slots as they lie.
+    ``prologue(state)`` lays a state out in tiles; ``pair_args(ts)`` gives
+    the pair pass's tile arguments and ``pair_pass(ts, collide)`` runs it;
+    ``finish(ts, state)`` gives the run's final state from its tiles and
+    its input state (by default ``epilogue``'s SimState on ``ncside``'s cell
+    grid). ``run(state, n_steps)`` returns the final state;
+    ``pair_tiles(state, n_steps)`` the ``pair_args`` that step ``n_steps``
+    of that run hands its pair pass (0: the run's first pass), holes and
+    limbo slots as they lie.
+
+    Without ``settle``, ``advance(ts, fxd, fyd)`` runs a step's cell sums,
+    monopole, integrate and rebin and returns (ts, undelivered,
+    limbo_count), ``pair_pass`` gives (fx, fy, count, died), and the step's
+    tail (deaths, counters) is plain torch here.
+
+    With ``settle`` (the resident and banded engines), the tail and the
+    next step's cell sums run as one pass after each pair pass:
+    ``pair_pass`` gives (fx, fy, count, ft) and ``settle(ts, ft, count,
+    undelivered, sums)`` zeroes the dead slots' m and updates the counters
+    in place (None skips a part: the first pass kills none and counts
+    nothing), and with ``sums`` returns the row sums and counts the limbo
+    slots into the panics; ``advance(ts, fxd, fyd, sums)`` takes those
+    sums and returns (ts, undelivered). So a run of n steps settles after
+    its first pass and after each step's pass with sums, but the last,
+    and panics counts the limbo slots of the tiles at the start of steps 1
+    to n, as without ``settle``. The run's counters are cloned first: they
+    are updated in place.
     """
     if finish is None:
         def finish(ts, state):
             return epilogue(ts, state.x.shape[0], side, ncside)
+
+    if settle is not None:
+        return _settled_run(prologue, advance, pair_args, pair_pass, settle,
+                            finish)
 
     def step(ts, fxd, fyd):
         ts, undelivered, limbo_count = advance(ts, fxd, fyd)
@@ -146,5 +166,45 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
                 ts, fxd, fyd = step(ts, fxd, fyd)
             ts = advance(ts, fxd, fyd)[0]
         return pair_args(ts)
+
+    return pair_tiles, run
+
+
+def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
+    """``make_tile_run``'s (pair_tiles, run) with ``settle``."""
+
+    def start(state):
+        # The prologue's tiles; the tiles with the run's own counters after
+        # its first pass and their settle, the carried forces and step 1's
+        # sums.
+        first = prologue(state)
+        ts = first._replace(collisions=first.collisions.clone(),
+                            panics=first.panics.clone(),
+                            overflow=first.overflow.clone())
+        fxd, fyd, _, _ = pair_pass(ts, collide=False)
+        return first, ts, fxd, fyd, settle(ts, None, None, None, sums=True)
+
+    def step(ts, fxd, fyd, sums, last: bool):
+        ts, undelivered = advance(ts, fxd, fyd, sums)
+        fxd, fyd, count, ft = pair_pass(ts, collide=True)
+        sums = settle(ts, ft, count, undelivered, sums=not last)
+        return ts, fxd, fyd, sums
+
+    def run(state, n_steps: int):
+        first, ts, fxd, fyd, sums = start(state)
+        if n_steps == 0:
+            # The first settle counted step 1's limbo slots: not this run's.
+            return finish(ts._replace(panics=first.panics), state)
+        for i in range(n_steps):
+            ts, fxd, fyd, sums = step(ts, fxd, fyd, sums, i == n_steps - 1)
+        return finish(ts, state)
+
+    def pair_tiles(state, n_steps: int):
+        if n_steps == 0:
+            return pair_args(prologue(state))
+        _, ts, fxd, fyd, sums = start(state)
+        for _ in range(n_steps - 1):
+            ts, fxd, fyd, sums = step(ts, fxd, fyd, sums, False)
+        return pair_args(advance(ts, fxd, fyd, sums)[0])
 
     return pair_tiles, run

@@ -61,8 +61,10 @@ def _tiles(fields):
 
 
 def _clone(ts):
-    """The tiles in new tensors (the advance wrappers write in place)."""
-    return ts._replace(**{k: getattr(ts, k).clone() for k in FIELDS})
+    """The tiles and counters in new tensors (the advance wrappers write
+    in place)."""
+    return ts._replace(**{k: getattr(ts, k).clone() for k in (
+        *FIELDS, "collisions", "panics", "overflow")})
 
 
 def _jtiles(fields):
@@ -175,6 +177,12 @@ def test_monopole_integrate_ref_matches_jax(kcap):
             ).all()
 
 
+def _sums(ts, rs, side, nc):
+    """The wrappers' row sums of the tiles as they lie (no deaths, no
+    counters but the panics): ``settle_sums``."""
+    return advance.settle_sums(ts, None, None, None, rs, side, nc, 0)
+
+
 def _old_monopole_integrate(ts, fxd, fyd, side, nc, kcap):
     """The resident engine's advance before the wrappers, up to rebin."""
     binned, _ = res.binned_mask(ts, side, nc)
@@ -189,13 +197,14 @@ def _old_monopole_integrate(ts, fxd, fyd, side, nc, kcap):
 
 @pytest.mark.parametrize("kcap", [32, 160])
 def test_plain_advance_is_the_old_composition(kcap):
-    """cell_sums_rows_ref -> monopole_integrate_ref on (ncells, K) tiles
-    gives the bits of the plain composition the resident engine ran."""
+    """settle_sums_ref's sums -> monopole_integrate_ref on (ncells, K)
+    tiles gives the bits of the plain composition the resident engine
+    ran."""
     fields, fxd, fyd, side, nc = adversarial.advance_case(kcap, seed=1)
     ts = _tiles(fields)
     fxd, fyd = torch.from_numpy(fxd), torch.from_numpy(fyd)
     rs = _rows(nc * nc, kcap)
-    sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    sums = _sums(ts, rs, side, nc)
     t = _clone(ts)
     got = advance.monopole_integrate(t.x, t.y, t.vx, t.vy, t.m, t.occ,
                                      fxd, fyd, sums, rs, side, nc, DELTAT)
@@ -205,6 +214,110 @@ def test_plain_advance_is_the_old_composition(kcap):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     cx, cy, valid = res.cell_of(*ref[:2], side, nc)
     np.testing.assert_array_equal(got[4].numpy(), (cy * nc + cx).numpy())
+
+
+@pytest.mark.parametrize("kcap", [32, 33, 160])
+def test_pair_masks_ref_is_the_engines_composition(kcap):
+    """pair_masks_ref gives, bit for bit, the masks the resident engine
+    (``where``) and the banded engine (``mul``, the same for m >= 0) built
+    before, and JAX's ``physics_mass`` mf and its pair pass's alive mask,
+    on tiles with holes, dead slots (m 0) and planted out-of-box slots."""
+    fields, _, _, side, nc = adversarial.advance_case(kcap, seed=kcap)
+    ts = _tiles(fields)
+    mf, alive = advance.pair_masks_ref(ts.x, ts.y, ts.m, ts.occ, side, nc)
+    binned, _ = res.binned_mask(ts, side, nc)
+    for ref in (torch.where(binned, ts.m, 0.0), torch.mul(ts.m, binned)):
+        assert mf.numpy().tobytes() == ref.numpy().tobytes()
+    assert alive.dtype == torch.int32
+    assert torch.equal(alive, (binned & (ts.m > 0)).to(torch.int32))
+    jts = _jtiles(fields)
+    jbinned, _ = jres.binned_mask(jts, side, nc)
+    jmf = jnp.where(jbinned, jts.m, jnp.float32(0.0))
+    assert mf.numpy().tobytes() == np.asarray(jmf).tobytes()
+    np.testing.assert_array_equal(
+        alive.numpy(), np.asarray((jbinned & (jts.m > 0)).astype(jnp.int32)))
+    occ, b = fields["occ"], binned.numpy()
+    assert (occ & ~b).any() and (b & (fields["m"] == 0)).any()
+    assert (~occ).any() and alive.numpy().any()
+
+
+_SETTLE_MODES = {"first": (False, False, True), "step": (True, True, True),
+                 "last": (True, True, False)}
+
+
+def _settle_inputs(kcap):
+    """``adversarial.settle_case`` as tiles with nonzero counters, its ft,
+    a count and an undelivered count."""
+    fields, ft, side, nc = adversarial.settle_case(kcap, seed=kcap)
+    ts = _tiles(fields)._replace(
+        collisions=torch.tensor(7, dtype=torch.int64),
+        panics=torch.tensor(5, dtype=torch.int32),
+        overflow=torch.tensor(3, dtype=torch.int32))
+    return (fields, ts, torch.from_numpy(ft),
+            torch.tensor(4, dtype=torch.int32),
+            torch.tensor(2, dtype=torch.int32), side, nc)
+
+
+@pytest.mark.parametrize("kcap", [32, 33, 160])
+@pytest.mark.parametrize("mode", sorted(_SETTLE_MODES))
+def test_settle_sums_ref_is_the_old_tail(kcap, mode):
+    """settle_sums (on the CPU its plain version) gives bit for bit the
+    step's tail ``make_tile_run`` ran (``where`` of the deaths, the three
+    counter updates) and ``cell_sums_rows_ref`` on the tiles after it, in
+    place: after a run's first pass (no deaths, no counter but the
+    panics), a step, and a run's last step (no sums, no limbo)."""
+    fields, ts, ft, count, undelivered, side, nc = _settle_inputs(kcap)
+    deaths, counters, with_sums = _SETTLE_MODES[mode]
+    rs = _rows(nc * nc, kcap)
+    t = _clone(ts)
+    sums = advance.settle_sums(t, ft if deaths else None,
+                               count if counters else None,
+                               undelivered if counters else None, rs, side,
+                               nc, kcap, with_sums)
+    died = (ft != cell_pairs.INF) & deaths
+    m = torch.where(died, 0.0, ts.m)
+    ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
+    want = {"m": m,
+            "collisions": (ts.collisions + count if counters
+                           else ts.collisions),
+            "overflow": (torch.maximum(ts.overflow, ovf) if counters
+                         else ts.overflow)}
+    ref_sums, limbo = advance.cell_sums_rows_ref(ts.x, ts.y, m, ts.occ, rs,
+                                                 side, nc)
+    want["panics"] = ts.panics + limbo if with_sums else ts.panics
+    for k, v in want.items():
+        got = getattr(t, k)
+        assert got.dtype == v.dtype and got.numpy().tobytes() == (
+            v.numpy().tobytes()), k
+    if with_sums:
+        assert sums.numpy().tobytes() == ref_sums.numpy().tobytes()
+        assert int(limbo) > 0
+    else:
+        assert sums is None
+    if deaths:
+        assert int(died.sum()) > 0 and (t.m.numpy()[died.numpy()] == 0).all()
+
+
+@pytest.mark.parametrize("kcap", [32, 160])
+def test_settle_sums_ref_matches_jax(kcap):
+    """settle_sums_ref against JAX's step tail and mono_tables row sums on
+    post-pair tiles with deaths: m (``jnp.where(died, 0, m)``) and the
+    counters exact, the sums within (K·2⁻²⁴)·Σ|terms| a row."""
+    fields, ts, ft, count, undelivered, side, nc = _settle_inputs(kcap)
+    sums = advance.settle_sums(ts, ft, count, undelivered,
+                               _rows(nc * nc, kcap), side, nc, kcap)
+    died = ft.numpy() != cell_pairs.INF
+    jm = jnp.where(jnp.asarray(died), jnp.float32(0.0),
+                   jnp.asarray(fields["m"]))
+    assert ts.m.numpy().tobytes() == np.asarray(jm).tobytes()
+    after = dict(fields, m=np.asarray(jm))
+    ref, jlimbo, terms = _jax_sums(after, side, nc)
+    assert int(ts.panics) == 5 + jlimbo and jlimbo > 0
+    assert int(ts.collisions) == 7 + 4 and ts.collisions.dtype == torch.int64
+    assert int(ts.overflow) == kcap + 1
+    for got, want, t in zip(sums, ref, terms):
+        bound = kcap * 2.0 ** -24 * np.abs(t).sum(axis=1)
+        assert (np.abs(got.numpy() - want) <= bound).all()
 
 
 def _movers(ts, side, nc):
@@ -312,12 +425,32 @@ def _same_state(a, b):
                                       getattr(b, k).numpy(), err_msg=k)
 
 
+def _plant_limbo(state, side, nc, k=3):
+    """The state with ``k`` particles of the grid's first column put at
+    rest at x = -1.5·side: out of the box (limbo: no force) at the start of
+    step 1, at -0.5·side at the start of step 2 (the wrap's fmod leaves a
+    position in (-side, 0) as it is), in the box at 0.5·side from step 3
+    on. So a run of n >= 2 steps counts 2k panics, and one that counted
+    the limbo slots of the tiles after its last step in place of those
+    before its first would count k."""
+    first = torch.nonzero(state.x < side / nc)[:k, 0]
+    x, vx, vy = (a.clone() for a in (state.x, state.vx, state.vy))
+    x[first] = -1.5 * side
+    vx[first] = 0.0
+    vy[first] = 0.0
+    return state._replace(x=x, vx=vx, vy=vy), k
+
+
 @pytest.mark.parametrize("args,steps", [((2, 100.0, 16, 12000), 4),
                                         ((-10, 3.0, 3, 100), 6)])
 def test_resident_engine_keeps_its_cpu_bits(args, steps):
+    """The engine's run (the masks, settle and advance wrappers) against
+    the plain composition it ran before, bit for bit, with limbo particles
+    planted (``_plant_limbo``: panics nonzero, and other at the start of
+    the last step than after it)."""
     cfg = SimConfig(*args)
     eng = Engine(cfg, impl="resident", device="cpu")
-    state = eng.init_state()
+    state, planted = _plant_limbo(eng.init_state(), cfg.side, cfg.ncside)
     kcap = eng.kcap
     side, nc = cfg.side, cfg.ncside
     prologue, _, run = make_resident_run(cfg, kcap)
@@ -338,7 +471,10 @@ def test_resident_engine_keeps_its_cpu_bits(args, steps):
         prologue, old_advance, pair_args,
         _pair_pass(pair_args, kcap, dense.pair_force_form(side)), kcap,
         side, nc)
-    _same_state(run(state, steps), old_run(state, steps))
+    out = run(state, steps)
+    _same_state(out, old_run(state, steps))
+    assert int(out.panics) == 2 * planted and int(out.overflow) == 0
+    _same_state(run(state, 0), old_run(state, 0))
 
 
 @pytest.mark.parametrize("args,plan,steps", [
@@ -347,8 +483,12 @@ def test_resident_engine_keeps_its_cpu_bits(args, steps):
     ((5, 8.0, 8, 600), ((0, 2, 64), (2, 2, 64), (4, 2, 64), (6, 2, 64)), 6),
 ])
 def test_banded_engine_keeps_its_cpu_bits(args, plan, steps):
+    """As the resident engine's: the plain composition's bits, with limbo
+    particles planted (in band 0's first row)."""
     cfg = SimConfig(*args)
-    state = Engine(cfg, impl="banded", device="cpu").init_state()
+    state, planted = _plant_limbo(
+        Engine(cfg, impl="banded", device="cpu").init_state(), cfg.side,
+        cfg.ncside)
     side, nc = cfg.side, cfg.ncside
     prologue, _, run = make_banded_run(cfg, plan)
     sizes = [rw * nc * k for _, rw, k in plan]
@@ -404,7 +544,10 @@ def test_banded_engine_keeps_its_cpu_bits(args, plan, steps):
     kmax = max(k for _, _, k in plan)
     _, old_run = res.make_tile_run(prologue, old_advance, pair_args,
                                    pair_pass, kmax, side, nc)
-    _same_state(run(state, steps), old_run(state, steps))
+    out = run(state, steps)
+    _same_state(out, old_run(state, steps))
+    assert int(out.panics) == 2 * planted and int(out.overflow) == 0
+    _same_state(run(state, 0), old_run(state, 0))
 
 
 def _small(kcap=32, nc=3):
@@ -421,12 +564,14 @@ def test_wrappers_dispatch_by_device_not_by_cuda_availability(monkeypatch):
     before = dict(advance.LAUNCHES)
     for avail in (True, False):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: avail)
-        sums, limbo = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs,
-                                             side, nc)
+        t = _clone(ts)
+        sums = _sums(t, rs, side, nc)
         ref = advance.cell_sums_rows_ref(ts.x, ts.y, ts.m, ts.occ, rs, side,
                                          nc)
-        assert torch.equal(sums, ref[0]) and torch.equal(limbo, ref[1])
-        t = _clone(ts)
+        assert torch.equal(sums, ref[0]) and torch.equal(t.panics, ref[1])
+        masks = advance.pair_masks(ts.x, ts.y, ts.m, ts.occ, side, nc)
+        ref_masks = advance.pair_masks_ref(ts.x, ts.y, ts.m, ts.occ, side, nc)
+        assert all(torch.equal(a, b) for a, b in zip(masks, ref_masks))
         out = advance.monopole_integrate(t.x, t.y, t.vx, t.vy, t.m, t.occ,
                                          fxd, fyd, sums, rs, side, nc,
                                          DELTAT)
@@ -440,10 +585,14 @@ def test_wrappers_dispatch_by_device_not_by_cuda_availability(monkeypatch):
     meta = ts._replace(**{k: torch.empty(getattr(ts, k).shape,
                                          dtype=getattr(ts, k).dtype,
                                          device="meta") for k in FIELDS})
+    meta = meta._replace(**{k: torch.empty((), dtype=getattr(ts, k).dtype,
+                                           device="meta")
+                            for k in ("collisions", "panics", "overflow")})
     rs_meta = torch.empty(rs.shape, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="device"):
-        advance.cell_sums_rows(meta.x, meta.y, meta.m, meta.occ, rs_meta,
-                               side, nc)
+        advance.settle_sums(meta, None, None, None, rs_meta, side, nc, 32)
+    with pytest.raises(ValueError, match="device"):
+        advance.pair_masks(meta.x, meta.y, meta.m, meta.occ, side, nc)
     with pytest.raises(ValueError, match="device"):
         advance.monopole_integrate(
             meta.x, meta.y, meta.vx, meta.vy, meta.m, meta.occ, meta.x,
@@ -452,18 +601,18 @@ def test_wrappers_dispatch_by_device_not_by_cuda_availability(monkeypatch):
     with pytest.raises(ValueError, match="device"):
         advance.deliver(meta, meta.occ, meta.pid, rs_meta)
     with pytest.raises(ValueError, match="device"):  # mixed devices
-        advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs_meta, side, nc)
+        advance.settle_sums(ts, None, None, None, rs_meta, side, nc, 32)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "size", "rows", "grid", "dest",
-                                 "strided"])
+                                 "strided", "ft", "counter", "occ"])
 def test_wrappers_reject_bad_input(bad):
     ts, fxd, fyd, side, nc = _small()
     rs = _rows(nc * nc, 32)
     if bad == "dtype":
         with pytest.raises(TypeError):
-            advance.cell_sums_rows(ts.x, ts.y, ts.m.double(), ts.occ, rs,
-                                   side, nc)
+            advance.settle_sums(ts._replace(m=ts.m.double()), None, None,
+                                None, rs, side, nc, 32)
     elif bad == "size":
         with pytest.raises(ValueError):
             advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
@@ -471,8 +620,7 @@ def test_wrappers_reject_bad_input(bad):
                                            3, nc * nc), rs, side, nc, DELTAT)
     elif bad == "rows":
         with pytest.raises(ValueError):
-            advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs.int(), side,
-                                   nc)
+            advance.settle_sums(ts, None, None, None, rs.int(), side, nc, 32)
     elif bad == "grid":
         with pytest.raises(ValueError, match="grid"):
             advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
@@ -482,10 +630,22 @@ def test_wrappers_reject_bad_input(bad):
     elif bad == "dest":
         with pytest.raises(TypeError):
             advance.deliver(ts, ts.occ, ts.x, rs)
-    else:
+    elif bad == "strided":
         with pytest.raises(ValueError, match="contiguous"):
-            advance.cell_sums_rows(ts.x.t(), ts.y, ts.m, ts.occ, rs, side,
-                                   nc)
+            advance.settle_sums(ts._replace(x=ts.x.t()), None, None, None,
+                                rs, side, nc, 32)
+    elif bad == "ft":
+        with pytest.raises(TypeError):
+            advance.settle_sums(ts, ts.pid.long(), None, None, rs, side, nc,
+                                32)
+    elif bad == "counter":
+        with pytest.raises(TypeError):
+            advance.settle_sums(ts._replace(collisions=ts.panics), None,
+                                None, None, rs, side, nc, 32)
+    else:
+        with pytest.raises(TypeError):
+            advance.pair_masks(ts.x, ts.y, ts.m, ts.occ.to(torch.uint8),
+                               side, nc)
 
 
 def test_segments_group_runs_of_equal_width():
@@ -509,13 +669,14 @@ def test_chip_check_catches_the_engines_advance():
     orig = res.make_tile_run
     ph = chip_smoke._tile_phases(make_resident_run, cfg, eng.kcap)
     assert res.make_tile_run is orig
-    ts, fxd, fyd = chip_smoke._advance_inputs(ph, state)
-    got, left, limbo = ph["advance"](chip_smoke._clone_tiles(ts), fxd, fyd)
+    ts, fxd, fyd, extra = chip_smoke._advance_inputs(ph, state)
+    assert len(extra) == 1 and int(ts.panics) == 0
+    got, left = ph["advance"](chip_smoke._clone_tiles(ts), fxd, fyd, *extra)
     x, y, vx, vy = _old_monopole_integrate(ts, fxd, fyd, cfg.side,
                                            cfg.ncside, eng.kcap)
     ref, ref_left = res.rebin(ts._replace(x=x, y=y, vx=vx, vy=vy), cfg.side,
                               cfg.ncside, eng.kcap)
-    assert int(left) == int(ref_left) == 0 and int(limbo) == 0
+    assert int(left) == int(ref_left) == 0
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       getattr(ref, k).numpy())
@@ -590,15 +751,14 @@ def test_chip_check_monopole_bound_is_what_the_function_moves():
 
 def test_chip_check_clones_the_tiles():
     """Each check and timing of the in-place wrappers takes its own copy
-    of the tiles: new tensors with the same bits."""
+    of the tiles and their counters: new tensors with the same bits."""
     import chip_smoke
 
     ts, *_ = _small()
     t = chip_smoke._clone_tiles(ts)
-    for k in FIELDS:
+    for k in (*FIELDS, "collisions", "panics", "overflow"):
         a, b = getattr(ts, k), getattr(t, k)
         assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
-    assert t.collisions is ts.collisions
     sweep = chip_smoke._measures()
     assert sweep.fresh_inputs(None, 2) == [None, None]
     made = sweep.fresh_inputs(lambda: chip_smoke._clone_tiles(ts), 3)
@@ -681,7 +841,7 @@ def test_monopole_integrate_in_place(kcap):
     fields, fxd, fyd, side, nc = adversarial.advance_case(kcap, seed=kcap)
     ts = _tiles(fields)
     rs = _rows(nc * nc, kcap)
-    sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    sums = _sums(ts, rs, side, nc)
     ref = _old_monopole_integrate(_clone(ts), torch.from_numpy(fxd),
                                   torch.from_numpy(fyd), side, nc, kcap)
     got = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ,
@@ -707,7 +867,7 @@ def test_monopole_wrap_edges(kcap):
     fields, fxd, fyd, side, nc = adversarial.wrap_case(kcap)
     ts = _tiles(fields)
     rs = _rows(nc * nc, kcap)
-    sums, _ = advance.cell_sums_rows(ts.x, ts.y, ts.m, ts.occ, rs, side, nc)
+    sums = _sums(ts, rs, side, nc)
     ref = _old_monopole_integrate(_clone(ts), torch.from_numpy(fxd),
                                   torch.from_numpy(fyd), side, nc, kcap)
     got = advance.monopole_integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m, ts.occ,
@@ -762,3 +922,110 @@ def test_engine_run_twice_same_state(kind):
         a, b = (getattr(r, k).numpy() for r in runs)
         assert a.tobytes() == b.tobytes(), k
 
+
+
+def test_chip_check_lane_order_is_the_kernels():
+    """``chip_smoke._lane_order_sums``: each row's terms added lane by lane
+    (lane l the row's slots l, l + 32, ... from +0), then in warp_fsum's
+    butterfly, every add rounded to float32: the bits of that order taken
+    one add at a time in numpy, on runs of rows of several widths (a banded
+    pool), with -0, zero and huge terms."""
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    widths = np.repeat([1, 31, 32, 33, 160, 65], 2)
+    start = np.concatenate([[0], np.cumsum(widths)])
+    terms = (rng.normal(size=int(start[-1])) * 10.0 ** rng.integers(
+        -3, 8, int(start[-1]))).astype(np.float32)
+    terms[::7] = 0.0
+    terms[3::11] = -0.0
+    got = chip_smoke._lane_order_sums(torch.from_numpy(terms),
+                                      torch.from_numpy(start))
+    for r, (a, b) in enumerate(zip(start[:-1], start[1:])):
+        lanes = [np.float32(0.0)] * 32
+        for i, t in enumerate(terms[a:b]):
+            lanes[i % 32] = np.float32(lanes[i % 32] + t)
+        for off in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[j] + lanes[j ^ off])
+                     for j in range(32)]
+        assert got[r].numpy().tobytes() == lanes[0].tobytes(), r
+
+
+def test_chip_check_masks_and_settle_bounds_are_what_they_move():
+    """The masks read 13 bytes a slot and write 8; the settle pass reads 17
+    a slot, the row starts, writes the sums, each death's m and the
+    counters: 0.0100 and 0.0082 ms on the flagship's 1.6 M slots."""
+    import chip_smoke
+
+    nslots, nrows, deaths = 1_600_000, 10_000, 6
+    ms, by, _ = chip_smoke._masks_bound(nslots)
+    assert by == "bytes" and ms == pytest.approx(
+        21 * nslots / chip_smoke.PEAK_BYTES * 1e3)
+    assert round(ms, 4) == 0.0100
+    ms, by, _ = chip_smoke._settle_bound(nslots, nrows, deaths)
+    assert by == "bytes" and ms == pytest.approx(
+        (17 * nslots + 20 * nrows + 4 * deaths + 24)
+        / chip_smoke.PEAK_BYTES * 1e3)
+    assert round(ms, 4) == 0.0082
+
+
+@pytest.mark.parametrize("kind", ["resident", "banded"])
+def test_chip_check_settles_the_engines_tiles(kind):
+    """The chip check's settle inputs are the engine's own: the tiles after
+    step 1's delivery (with their masks, what ``pair_tiles(state, 1)``
+    hands the pair pass), that pass's ft and count, the delivery's
+    undelivered count; and its advance inputs carry the first settle's
+    sums."""
+    import chip_smoke
+
+    if kind == "resident":
+        eng = Engine(SimConfig(2, 100.0, 16, 12000), impl="resident",
+                     device="cpu")
+        state = eng.init_state()
+        build = (make_resident_run, eng.config, eng.kcap)
+    else:
+        eng = _twice_engine(kind)
+        state = eng.init_state()
+        build = (make_banded_run, eng.config, eng._band_plan)
+    ph = chip_smoke._tile_phases(*build)
+    assert ph["settle"] is not None
+    _, _, _, (sums,) = chip_smoke._advance_inputs(ph, state)
+    assert sums.shape == (3, eng.config.ncells)
+    t1, ft, count, undelivered = chip_smoke._settle_inputs(ph, state)
+    want = build[0](*build[1:])[1](state, 1)
+    if kind == "banded":
+        want = [torch.cat([b.reshape(-1) for b in a]) for a in zip(*want)]
+    masks = advance.pair_masks(t1.x, t1.y, t1.m, t1.occ, eng.config.side,
+                               eng.config.ncside)
+    for a, b in zip((t1.x, t1.y, *masks, t1.pid), want):
+        assert torch.equal(a.reshape(-1), b.reshape(-1))
+    assert ft.dtype == torch.int32 and ft.numel() == t1.x.numel()
+    assert int(undelivered) == 0 and count.dtype == torch.int32
+
+
+@pytest.mark.parametrize("side,nc", [(5000.0, 100), (5000.0, 316),
+                                     (10.0, 5), (0.05, 3), (1.0, 5)])
+def test_box_edges_are_cell_ofs_range(side, nc):
+    """``advance.box_edges``: lo < x < hi exactly where ``binning.cell_of``
+    puts x's cell coordinate in [0, nc), on the floats within 3000 ulps of
+    lo, 0, w and hi and on random floats across (-2 side, 2 side)."""
+    lo, hi = advance.box_edges(side, nc)
+    w = np.float32(advance.cell_width(side, nc))
+    near = []
+    for c in (lo, 0.0, w, hi, -w):
+        start = np.float32(c)
+        for step in (np.float32(np.inf), np.float32(-np.inf)):
+            v = start
+            for _ in range(3000):
+                near.append(v)
+                v = np.nextafter(v, step)
+    rng = np.random.default_rng(nc)
+    x = np.concatenate([np.array(near, dtype=np.float32),
+                        rng.uniform(-2 * side, 2 * side, 20000).astype(
+                            np.float32), np.float32([-0.0, side, -side])])
+    xt = torch.from_numpy(x)
+    cx, _, _ = res.cell_of(xt, torch.zeros_like(xt), side, nc)
+    want = ((cx >= 0) & (cx < nc)).numpy()
+    got = (x > np.float32(lo)) & (x < np.float32(hi))
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()
