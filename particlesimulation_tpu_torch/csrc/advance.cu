@@ -596,12 +596,13 @@ __global__ void pair_masks_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // The step's tail and the next step's row sums, after the pair pass.
 
-// Whether cell_of puts (x, y) on the grid, from the box's edges: its cell
-// coordinate trunc(RN(x / w)) lies in [0, nc) exactly where RN(x / w) lies
-// in (-1, nc), and RN(x / w) grows with x, so exactly where lo < x < hi
-// for the float32 edges lo (the largest x with RN(x / w) <= -1) and hi
-// (the smallest with RN(x / w) >= nc), which the host finds. A NaN
-// converts to cell 0, on the grid, as in cell_of.
+// Whether cell_of puts (x, y) on the grid, from the box's edges, without
+// its divisions: its cell coordinate trunc(RN(x / w)) lies in [0, nc)
+// exactly where RN(x / w) lies in (-1, nc), and RN(x / w) grows with x, so
+// exactly where lo < x < hi for the float32 edges lo (the largest x with
+// RN(x / w) <= -1) and hi (the smallest with RN(x / w) >= nc), which the
+// host finds (ops/cuda/advance.py box_edges). A NaN converts to cell 0, on
+// the grid, as in cell_of.
 __device__ __forceinline__ bool in_box_edges(float x, float y, float lo,
                                              float hi) {
   return ((x > lo && x < hi) || x != x) && ((y > lo && y < hi) || y != y);
@@ -627,32 +628,29 @@ struct Counters {
 // M, sum m' x, sum m' y added in the order the port's row sums have
 // always taken: lane l takes the slots l, l + 32, ... in turn, each product
 // rounded to f32 before its add, then the fixed butterfly of warp_fsum. So
-// the sums keep their bits, and with them every later bit of a run. The
-// order makes a row a chain of dependent adds a lane; a kernel that loads a
-// slot and adds it before loading the next waits on each slot's loads.
-// Here a lane issues the loads of its next D slots of the row (x, y, m,
-// occ, ft into registers) before the first add, so D slots' loads are in
-// flight a lane; rows wider than 32 D slots take chunks of 32 D.
-// Without sums (M null: a run's last step) only the deaths; without ft
-// (a run's first pass, collide off) none. The counters are integers,
-// summed in any order: a warp adds its row's limbo count to panics by an
-// atomic, and one thread updates collisions and overflow, reading count
-// and undelivered on the device (no host synchronisation).
+// the sums keep their bits, and with them every later bit of a run.
+// Without sums (M null: a run's last step) only the deaths; without ft (a
+// run's first pass, collide off) none. The counters are integers, summed in
+// any order: a warp adds its row's limbo count to panics by an atomic, and
+// one thread updates collisions and overflow, reading count and undelivered
+// on the device (no host synchronisation).
+//
+// Design: the in-box test takes two compares an axis against the box's
+// edges (in_box_edges) in place of cell_of's two IEEE divisions, the
+// larger part of a slot's instructions. Loading a lane's next slots ahead
+// of its adds (4 or 8 in flight), 4 to 16 rows a block, and the divisions
+// were each measured slower (PERF.md section 6).
 //
 // Bound: bytes, 17 a slot read (x, y, m, ft: 4; occ: 1), 12 a row written
 // and 4 a death.
-//
-// The in-box test: cell_of's two IEEE divisions, or (kEdges) the same test
-// as compares with the box's edges lo and hi (see in_box_edges).
-template <int D, bool kEdges>
 __global__ void settle_sums_kernel(const float* __restrict__ x,
                                    const float* __restrict__ y,
                                    float* __restrict__ m,
                                    const uint8_t* __restrict__ occ,
                                    const int* __restrict__ ft,
                                    const int64_t* __restrict__ row_start,
-                                   int nrows, float w, int nc, float lo,
-                                   float hi, float* __restrict__ M,
+                                   int nrows, float lo, float hi,
+                                   float* __restrict__ M,
                                    float* __restrict__ SX,
                                    float* __restrict__ SY, Counters k) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -674,37 +672,20 @@ __global__ void settle_sums_kernel(const float* __restrict__ x,
   }
   float a = 0.0f, b = 0.0f, c = 0.0f;
   int lost = 0;
-  for (int64_t c0 = s0 + lane; c0 < s1; c0 += 32 * D) {
-    float xs[D], ys[D], ms[D];
-    bool os[D], dies[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const int64_t s = c0 + 32 * j;
-      const bool in = s < s1;
-      xs[j] = in ? x[s] : 0.0f;
-      ys[j] = in ? y[s] : 0.0f;
-      ms[j] = in ? m[s] : 0.0f;
-      os[j] = in && occ[s] != 0;
-      dies[j] = in && ft != nullptr && ft[s] != kInf;
+  for (int64_t s = s0 + lane; s < s1; s += 32) {
+    const float xs = x[s], ys = y[s];
+    float ms = m[s];
+    const bool o = occ[s] != 0;
+    if (ft != nullptr && ft[s] != kInf) {
+      ms = 0.0f;
+      m[s] = 0.0f;
     }
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const int64_t s = c0 + 32 * j;
-      if (s >= s1) break;
-      float mj = ms[j];
-      if (dies[j]) {
-        mj = 0.0f;
-        m[s] = 0.0f;
-      }
-      int cell;
-      const bool in_box = kEdges ? in_box_edges(xs[j], ys[j], lo, hi)
-                                 : cell_of(xs[j], ys[j], w, nc, &cell);
-      const float mf = (os[j] && in_box) ? mj : 0.0f;
-      lost += os[j] && !in_box;
-      a = __fadd_rn(a, mf);
-      b = __fadd_rn(b, __fmul_rn(mf, xs[j]));
-      c = __fadd_rn(c, __fmul_rn(mf, ys[j]));
-    }
+    const bool in_box = in_box_edges(xs, ys, lo, hi);
+    const float mf = (o && in_box) ? ms : 0.0f;
+    lost += o && !in_box;
+    a = __fadd_rn(a, mf);
+    b = __fadd_rn(b, __fmul_rn(mf, xs));
+    c = __fadd_rn(c, __fmul_rn(mf, ys));
   }
   a = warp_fsum(a);
   b = warp_fsum(b);
@@ -754,41 +735,27 @@ extern "C" int psim_pair_masks(const float* x, const float* y, const float* m,
 // collisions (one int64) += *count and overflow (one int) = max(overflow,
 // *undelivered > 0 ? ovf : 0), each where its pointers are given. With
 // sums ((3, nrows) floats, M, sum m x, sum m y, after the deaths), panics
-// (one int) += the limbo slots; without (null), neither. The rows must
-// cover the pool. depth: the slots a lane loads ahead, 1, 4 or 8; edges:
-// the in-box test by compares with the box's edges lo and hi (1) or by
-// cell_of (0).
+// (one int) += the limbo slots; without (null), neither. lo, hi: the box's
+// edges (in_box_edges). The rows must cover the pool.
 extern "C" int psim_settle_sums(const float* x, const float* y, float* m,
                                 const uint8_t* occ, const int* ft,
-                                const int64_t* row_start, int nrows, float w,
-                                int nc, float lo, float hi, float* sums,
-                                int* panics, long long* collisions,
-                                const int* count, int* overflow,
-                                const int* undelivered, int ovf, int warps,
-                                int depth, int edges, void* stream) {
+                                const int64_t* row_start, int nrows, float lo,
+                                float hi, float* sums, int* panics,
+                                long long* collisions, const int* count,
+                                int* overflow, const int* undelivered,
+                                int ovf, int warps, void* stream) {
   if (!whole_warps(warps) || nrows < 1 ||
       (count != nullptr && collisions == nullptr) ||
       (undelivered != nullptr && overflow == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* M = sums;
   float* SX = sums == nullptr ? nullptr : sums + nrows;
   float* SY = sums == nullptr ? nullptr : sums + 2 * (size_t)nrows;
   const Counters k{collisions, count, overflow, undelivered, ovf,
                    sums == nullptr ? nullptr : panics};
-  const unsigned blocks = row_blocks(nrows, warps);
-  const unsigned threads = 32u * warps;
-#define PSIM_SETTLE(D, E)                                                 \
-  settle_sums_kernel<D, E><<<blocks, threads, 0, s>>>(                    \
-      x, y, m, occ, ft, row_start, nrows, w, nc, lo, hi, M, SX, SY, k)
-  if (depth == 1 && edges) PSIM_SETTLE(1, true);
-  else if (depth == 1) PSIM_SETTLE(1, false);
-  else if (depth == 4 && edges) PSIM_SETTLE(4, true);
-  else if (depth == 4) PSIM_SETTLE(4, false);
-  else if (depth == 8 && edges) PSIM_SETTLE(8, true);
-  else if (depth == 8) PSIM_SETTLE(8, false);
-  else return (int)cudaErrorInvalidValue;
-#undef PSIM_SETTLE
+  settle_sums_kernel<<<row_blocks(nrows, warps), 32 * warps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, occ, ft, row_start, nrows, lo, hi, M, SX, SY, k);
   return (int)cudaGetLastError();
 }
 

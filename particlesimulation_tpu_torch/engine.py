@@ -11,8 +11,10 @@ Counterpart of the JAX package's ``engine.py``. Six implementations:
   2. integration with periodic wrap (``ops/integrate``);
   3. rebin: movers change rows (``ops/cuda/advance.deliver``);
   4. the fused collision(t) + pair-force(t+1) pass (``ops/cuda/cell_pairs``).
-  Phases 1-3 run as three kernels on the GPU (``ops/cuda/advance``: the
-  cells' sums, the monopole terms with the integrator, the delivery).
+  On the GPU each step is seven launches: the monopole terms with the
+  integrator and the delivery (``ops/cuda/advance``, four kernels), the
+  pair pass's masks, the fused pass, and one settle pass (the deaths and
+  counters of the pass, the cells' sums for the next step).
 * ``supercell`` (``ops/supercell.make_supercell_run``) — the resident step
   on rows of S x S cells, for sparse grids, with a same-cell label in the
   pair pass.

@@ -76,12 +76,9 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 FLAGS = ("-fmad=false",)
 # Rows (warps) a block of the monopole pass and the delivery: a warp a row.
 ROW_WARPS = 8
-# The settle pass: rows (warps) a block, the slots a lane loads ahead (1, 4
-# or 8), and its in-box test (True: compares with ``box_edges``; False:
-# two divisions), from ``chip_smoke.py --settle-sweep``.
+# Rows (warps) a block of the settle pass, from ``chip_smoke.py
+# --settle-sweep``.
 SETTLE_WARPS = 2
-SETTLE_DEPTH = 4
-SETTLE_EDGES = True
 
 # Kernel launches per wrapper since the last reset_launches() (one a call:
 # the delivery's call runs its three passes).
@@ -104,7 +101,7 @@ def load(path):
     lib.psim_pair_masks.argtypes = [vp] * 4 + [ctypes.c_int64, cf, ci] + (
         [vp] * 3)
     lib.psim_settle_sums.argtypes = (
-        [vp] * 6 + [ci, cf, ci, cf, cf] + [vp] * 6 + [ci] * 4 + [vp])
+        [vp] * 6 + [ci, cf, cf] + [vp] * 6 + [ci] * 2 + [vp])
     lib.psim_monopole_integrate.argtypes = (
         [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 2 + [ci, vp])
     lib.psim_deliver.argtypes = (
@@ -142,6 +139,8 @@ def box_edges(side: float, ncside: int):
     with RN(x / w) <= -1, hi the smallest with RN(x / w) >= ncside."""
     w = np.float32(cell_width(side, ncside))
     nc = np.float32(ncside)
+    # RN(x / w) is within an ulp or two of the exact quotient: start at
+    # nc·w and -w and step to the edges.
     up, down = np.float32(np.inf), np.float32(-np.inf)
 
     def q(x):
@@ -505,11 +504,10 @@ def settle_sums(ts, ft, count, undelivered, row_start, side: float,
     cell_pairs._launch(
         "settle_sums", _library().psim_settle_sums, ts.x,
         *(f.data_ptr() for f in flat), of.data_ptr(), _ptr(ft),
-        row_start.data_ptr(), nrows, cell_width(side, ncside), ncside,
-        *box_edges(side, ncside), _ptr(out), ts.panics.data_ptr(),
-        ts.collisions.data_ptr(), _ptr(count), ts.overflow.data_ptr(),
-        _ptr(undelivered), kcap + 1, SETTLE_WARPS, SETTLE_DEPTH,
-        int(SETTLE_EDGES), launches=LAUNCHES)
+        row_start.data_ptr(), nrows, *box_edges(side, ncside), _ptr(out),
+        ts.panics.data_ptr(), ts.collisions.data_ptr(), _ptr(count),
+        ts.overflow.data_ptr(), _ptr(undelivered), kcap + 1, SETTLE_WARPS,
+        launches=LAUNCHES)
     return out
 
 
