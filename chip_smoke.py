@@ -262,6 +262,39 @@ au. ``python3 chip_smoke.py --advance-times ROOT [ROOT ...]``: for each
    timed by this checkout's measures
    (``ops/cuda/launch_sweep.device_ms``).
 
+Then tiles wider than 1024 slots (the JAX package's XLA kernels run
+them up to MAX_XLA_KCAP = 4096; its Pallas kernels stop at 1024), which
+the port's kernels take up to 4096, opting in to the shared memory a row
+needs:
+
+av. at K = 1056, 2048 and 4096 on the adversarial tiles, the fused kernel
+   in v4, v2 and v1, collide on and off, both dense kernels (with and
+   without pids), the labelled block form under every label layout and
+   the cell sums on the same tiles, each against its plain version as in
+   (h), (i) and the kernel checks above; then at K = 4096 on 132 rows of
+   flagship-like tiles (~3000 slots full; 100 labels a row for the
+   labelled form and the cell sums) the fused kernel (v4 and v1), the
+   labelled form, the cell sums and both dense kernels checked and timed
+   against their bounds;
+aw. the kernels around the pair pass on rows of K = 4096, bit for bit as
+   in (ar)-(at): the delivery on ``adversarial.deliver_cases``, the
+   monopole pass on ``advance_case`` and ``wrap_case``, the masks and the
+   settle pass on ``settle_case``;
+ax. MEDIUM (golden s3's config) with ``Engine(..., dense_backend="xla")``:
+   resident tiles at kcap > 1024, overflow 0, the fused kernel and the
+   four kernels around it launched, two runs bit for bit equal, no host
+   sync; particle 0 and the count printed beside golden s3's f64 values
+   and the f32 sweep's of (e) (not held); ms/step, device ms/step, idle
+   share, launches and syncs a step; the fused kernel on the run's own
+   tiles and both dense kernels on the dense engine's MEDIUM tiles,
+   checked, timed, with their bounds; cuda == cpu on the CPU tests'
+   ncside-2 config (1 10 2 5000, resident at K = 1440);
+ay. MEDIUM through the CLI's ``--mesh 4 --engine fast`` in-process: a tile
+   route (the fused kernel launched), its lines printed; the mesh engine
+   the CLI builds (resident tiles at kcap > 1024) timed as in (x).
+
+``python3 chip_smoke.py --wide`` runs phases av-ay alone (MEDIUM's f32
+sweep is not run there, so its result is not printed beside the tiles').
 ``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
 s1 through resident and UNEVEN through banded (launches, no host sync,
 the advance phase's launches, the whole step's launches and syncs, cuda ==
@@ -603,10 +636,13 @@ def _term_sums(x, y, m_post, form, tables=None, sub=None):
     from particlesimulation_tpu_torch.config import G
 
     out = []
-    for c0 in range(0, x.shape[0], 64):
-        xs, ys, ms = (a[c0:c0 + 64].double() for a in (x, y, m_post))
+    # 64 rows a chunk up to K = 1024; fewer above, so that a chunk's (rows,
+    # K, K) float64 arrays stay at 512 MB each.
+    rows = max(1, min(64, (1 << 26) // (x.shape[1] * x.shape[1])))
+    for c0 in range(0, x.shape[0], rows):
+        xs, ys, ms = (a[c0:c0 + rows].double() for a in (x, y, m_post))
         if sub is not None:
-            ls = sub[c0:c0 + 64]
+            ls = sub[c0:c0 + rows]
         if form == "v4":
             used = ms > 0
             n = used.sum(1, keepdim=True).clamp(min=1)
@@ -626,7 +662,7 @@ def _term_sums(x, y, m_post, form, tables=None, sub=None):
             bx = (w * dx.abs()).sum(2)
             by = (w * dy.abs()).sum(2)
         if tables is not None:
-            ml, mxl, myl = (t[c0:c0 + 64].double() for t in tables)
+            ml, mxl, myl = (t[c0:c0 + rows].double() for t in tables)
             dlx = mxl[:, None, :] - xs[:, :, None]
             dly = myl[:, None, :] - ys[:, :, None]
             d2l = dlx * dlx + dly * dly
@@ -984,13 +1020,15 @@ def compare_runs(label, a, b, pos_tol, v_tol):
           f"max|dpos|={dpos:.3e}, max|dvx|={dvx:.3e}", flush=True)
 
 
-def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None, plan=None):
+def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None, plan=None,
+                     **engine_kw):
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
     outs = []
     for device in ("cuda", "cpu"):
-        eng = Engine(SimConfig(seed, side, nc, n), impl=impl, device=device)
+        eng = Engine(SimConfig(seed, side, nc, n), impl=impl, device=device,
+                     **engine_kw)
         state = eng.init_state()
         if plan is not None:
             eng._band_plan = plan
@@ -1000,8 +1038,8 @@ def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None, plan=None):
         if impl is not None and eng.impl != impl:
             raise AssertionError(f"{impl} escalated to {eng.impl}")
         outs.append((int(out.collisions), out, side))
-    compare_runs(f"cuda vs cpu, {eng.impl} ({seed} {side} {nc} {n}, {steps} "
-                 f"steps)", *outs, 1e-6, 1e-5)
+    compare_runs(f"cuda vs cpu, {eng.impl} kcap {eng.kcap} ({seed} {side} "
+                 f"{nc} {n}, {steps} steps)", *outs, 1e-6, 1e-5)
 
 
 def step_ms(eng, state, k, reps=2):
@@ -1189,7 +1227,8 @@ def check_f32_sweep():
 def check_medium():
     """(e) MEDIUM through the census: the ladder (resident -> dense ->
     sweep) ends on the sweep with overflow 0, and two runs give the same
-    bits. Returns the engine and its initial state."""
+    bits. Returns the engine, its initial state, its ms/step and its
+    result (particle 0 and the count after MEDIUM's steps)."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
@@ -1223,7 +1262,7 @@ def check_medium():
     ms = (t_k - t_1) / (steps - 1) * 1e3
     print(f"MEDIUM f32 sweep: {ms:.4f} ms/step (run(1) {t_1:.4f} s, "
           f"run({steps}) {t_k:.4f} s)", flush=True)
-    return eng, state, ms
+    return eng, state, ms, (x, y, c)
 
 
 def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
@@ -1271,7 +1310,7 @@ def time_sweeps(card, medium):
                                     impl="sweep", device="cuda"), 2),
             ("MEDIUM f32 sweep", medium[0], 1)):
         if eng is medium[0]:
-            state, ms = medium[1:]
+            state, ms = medium[1:3]
         else:
             state = eng.init_state()
             ms, t1, tk = step_ms(eng, state, 4, reps=1)
@@ -3347,6 +3386,56 @@ def _cuda_counts(count, undelivered):
             torch.tensor(undelivered, dtype=torch.int32, device="cuda"))
 
 
+def _monopole_cases(adversarial, k):
+    """(at) ``monopole_integrate`` on ``adversarial.advance_case`` and
+    ``wrap_case`` at K = k, from the settle pass's sums."""
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    for name, case in (
+            ("advance_case", "edge cells, d2 = 0, frozen, the wrap"),
+            ("wrap_case", "the wrap's edges: a = 2 side - ulp, 2 side, "
+                          "side, +0, -ulp, below -side")):
+        if name == "advance_case":
+            fields, afx, afy, aside, anc = adversarial.advance_case(k, seed=k)
+        else:
+            fields, afx, afy, aside, anc = adversarial.wrap_case(k)
+        ts = _cuda_tiles(fields)
+        rs = torch.arange(anc * anc + 1, device="cuda") * k
+        tag = f"{name} K={k} ({case})"
+        sums = adv.settle_sums(_clone_tiles(ts), None, None, None, rs,
+                               aside, anc, k)
+        check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
+                                 torch.from_numpy(afy).cuda(), sums, rs,
+                                 aside, anc)
+
+
+def _deliver_cases(adversarial, k, note=""):
+    """(ar) ``deliver`` on ``adversarial.deliver_cases`` at K = k: the full
+    row's 2 movers stay undelivered, every other case's none."""
+    for name, (fields, dside, dnc) in adversarial.deliver_cases(
+            k, seed=k).items():
+        ts = _cuda_tiles(fields)
+        rs = torch.arange(dnc * dnc + 1, device="cuda") * k
+        moving, dest = _movers(ts, dside, dnc, rs)
+        _, left, _, _ = check_deliver(f"deliver_cases {name} K={k}{note}", ts,
+                                      moving, dest, rs)
+        if (name == "full") != (left == 2):
+            raise AssertionError(f"{name} K={k}: undelivered {left}")
+
+
+def _settle_cases(adversarial, k):
+    """(as) ``pair_masks`` and ``settle_sums`` on ``adversarial.settle_case``
+    at K = k: deaths planted among holes, dead and limbo slots; 3
+    collisions and 1 undelivered mover (overflow to K + 1)."""
+    fields, sft, sside, snc = adversarial.settle_case(k, seed=k)
+    ts = _cuda_tiles(fields)
+    rs = torch.arange(snc * snc + 1, device="cuda") * k
+    tag = f"settle_case K={k} (deaths, holes, dead and limbo slots)"
+    check_pair_masks(tag, ts, sside, snc)
+    check_settle_sums(tag, ts, torch.from_numpy(sft).cuda(),
+                      *_cuda_counts(3, 1), rs, sside, snc, k)
+
+
 def check_advance(card):
     """(ar-at) The kernels around the pair pass against their plain
     versions on the card: on the flagship's own tiles (golden s1's config,
@@ -3361,7 +3450,6 @@ def check_advance(card):
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.ops.banded import (make_banded_run,
                                                          row_starts)
-    from particlesimulation_tpu_torch.ops.cuda import advance as adv
     from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
         UNEVEN_BANDS)
 
@@ -3397,54 +3485,13 @@ def check_advance(card):
                       un.ncside, max(widths))
 
     for k in (32, 160, 1024):
-        for name, case in (
-                ("advance_case", "edge cells, d2 = 0, frozen, the wrap"),
-                ("wrap_case", "the wrap's edges: a = 2 side - ulp, 2 side, "
-                              "side, +0, -ulp, below -side")):
-            if name == "advance_case":
-                fields, afx, afy, aside, anc = adversarial.advance_case(
-                    k, seed=k)
-            else:
-                fields, afx, afy, aside, anc = adversarial.wrap_case(k)
-            ts = _cuda_tiles(fields)
-            rs = torch.arange(anc * anc + 1, device="cuda") * k
-            tag = f"{name} K={k} ({case})"
-            sums = adv.settle_sums(_clone_tiles(ts), None, None, None, rs,
-                                   aside, anc, k)
-            check_monopole_integrate(tag, ts, torch.from_numpy(afx).cuda(),
-                                     torch.from_numpy(afy).cuda(), sums, rs,
-                                     aside, anc)
-        for name, (fields, dside, dnc) in adversarial.deliver_cases(
-                k, seed=k).items():
-            ts = _cuda_tiles(fields)
-            rs = torch.arange(dnc * dnc + 1, device="cuda") * k
-            moving, dest = _movers(ts, dside, dnc, rs)
-            _, left, _, _ = check_deliver(f"deliver_cases {name} K={k}", ts,
-                                          moving, dest, rs)
-            if (name == "full") != (left == 2):
-                raise AssertionError(f"{name} K={k}: undelivered {left}")
+        _monopole_cases(adversarial, k)
+        _deliver_cases(adversarial, k)
     # Rows of 33 slots: row starts off 4-byte alignment, so the delivery's
     # passes read the flags a byte at a time.
-    for name, (fields, dside, dnc) in adversarial.deliver_cases(
-            33, seed=33).items():
-        ts = _cuda_tiles(fields)
-        rs = torch.arange(dnc * dnc + 1, device="cuda") * 33
-        moving, dest = _movers(ts, dside, dnc, rs)
-        _, left, _, _ = check_deliver(f"deliver_cases {name} K=33 (rows off "
-                                      f"4-byte alignment)", ts, moving, dest,
-                                      rs)
-        if (name == "full") != (left == 2):
-            raise AssertionError(f"{name} K=33: undelivered {left}")
-    # Deaths planted among holes, dead and limbo slots; 3 collisions and 1
-    # undelivered mover (overflow to K + 1).
+    _deliver_cases(adversarial, 33, " (rows off 4-byte alignment)")
     for k in (32, 33, 160, 1024):
-        fields, sft, sside, snc = adversarial.settle_case(k, seed=k)
-        ts = _cuda_tiles(fields)
-        rs = torch.arange(snc * snc + 1, device="cuda") * k
-        tag = f"settle_case K={k} (deaths, holes, dead and limbo slots)"
-        check_pair_masks(tag, ts, sside, snc)
-        check_settle_sums(tag, ts, torch.from_numpy(sft).cuda(),
-                          *_cuda_counts(3, 1), rs, sside, snc, k)
+        _settle_cases(adversarial, k)
     print(f"kernel phases around the pair pass (ar-at): "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     return recs
@@ -3686,6 +3733,202 @@ def advance_times_of_all(roots):
     print(f"advance times: {len(runs)} runs ({', '.join(roots)}), every "
           f"path's final state bit for bit the same in all; on {_card()}",
           flush=True)
+
+
+# --- Tiles up to K = 4096 (phases av-ay) ------------------------------------
+
+# The widths of phase av: a multiple of 32 just past the JAX Pallas cap
+# (1024), the middle, and the kernels' MAX_KCAP.
+WIDE_K = (1056, 2048, 4096)
+# Rows of the timed K = 4096 tiles (one block an SM on an H100's 132) and
+# their occupied slots a row (Poisson mean), S² labels a row for the
+# labelled form and the cell sums.
+WIDE_ROWS, WIDE_FILL, WIDE_LABELS = 132, 3000, 100
+# The CPU tests' ncside-2 config (tests/test_torch_wide_tiles.py), 5 steps:
+# resident at K = 1440 under dense_backend="xla".
+WIDE_CARD_VS_CPU = (1, 10.0, 2, 5000, 5)
+
+
+def check_wide_kernels(card):
+    """(av) The kernels that take rows wider than 1024 slots against their
+    plain versions on the card: at K = 1056, 2048 and 4096 on the
+    adversarial tiles, the fused kernel in v4, v2 and v1 with collide on
+    and off, both dense kernels (with and without pids), the labelled block
+    form under every label layout with the cell sums on the same tiles;
+    then each kernel at K = 4096 on WIDE_ROWS rows of flagship-like tiles
+    (``_tiles``, WIDE_FILL slots full, WIDE_LABELS labels a row for the
+    labelled form and the cell sums), checked and timed with its bound.
+    Returns {kernel: record at K = 4096}."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+    from particlesimulation_tpu_torch.ops.cuda.adversarial import (
+        adversarial_tiles)
+
+    t0 = time.perf_counter()
+    for kcap in WIDE_K:
+        check_adversarial(kcap)
+        x, y, m, alive, pid = (torch.from_numpy(a).cuda()
+                               for a in adversarial_tiles(kcap, kcap))
+        for form in ("v4", "v2"):
+            args = (x, y, m, alive, pid, kcap, EPSILON, False, form)
+            got = cell_pairs.fused_pairs(*args)
+            ref = cell_pairs.fused_pairs_ref(*args)
+            tag = f"adversarial K={kcap} fused_pairs {form} collide=False"
+            if int(got[2]) != 0 or not torch.equal(got[3], ref[3]):
+                raise AssertionError(f"{tag}: collisions with collide off")
+            err = _force_err(got[:2], ref[:2], _term_sums(x, y, m, form),
+                             kcap, tag)
+            print(f"{tag}: no collision, max|df|={err:.3e}", flush=True)
+        check_adversarial_labelled(kcap)
+    recs = {}
+    kcap = WIDE_K[-1]
+    where = f"({WIDE_ROWS}, {kcap})"
+    tiles = _tiles(WIDE_ROWS, kcap, WIDE_FILL, kcap + WIDE_ROWS, "cuda")
+    recs["fused_pairs"] = fused_record(where, tiles, "v4", True)
+    recs["fused_pairs_v1"] = fused_record(where, tiles, "v2", True,
+                                          gated=False)
+    # Labels 0..WIDE_LABELS-1 on occupied slots, -1 on the others; each
+    # planted chain (slots 0-2 of every 50th row) in one label.
+    rng = np.random.default_rng(kcap)
+    sub = torch.from_numpy(rng.integers(0, WIDE_LABELS, (WIDE_ROWS, kcap))
+                           .astype(np.int32)).cuda()
+    sub[:, :3] = 7
+    sub = torch.where(tiles[2] > 0, sub, -1).contiguous()
+    recs["fused_pairs_sub"] = fused_record(where, tiles, "v4", True, sub=sub)
+    row = torch.arange(WIDE_ROWS, device="cuda")[:, None]
+    cell = torch.where(sub >= 0, row * WIDE_LABELS + sub, -1).to(torch.int32)
+    recs["supercell_cell_sums"] = check_cell_sums(
+        f"K={kcap}, {WIDE_LABELS} cells a row", tiles, cell,
+        WIDE_ROWS * WIDE_LABELS)
+    recs["dense_pairwise_forces"] = check_dense_forces(WIDE_ROWS, kcap,
+                                                       WIDE_FILL)
+    recs["dense_collisions"] = check_dense_collisions(WIDE_ROWS, kcap,
+                                                      WIDE_FILL, False)
+    check_dense_collisions(WIDE_ROWS, kcap, WIDE_FILL, True)
+    print(f"wide-tile kernel phase (av): {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    return recs
+
+
+def check_advance_wide(card):
+    """(aw) The kernels around the pair pass on rows of K = 4096 against
+    their plain versions on the card, bit for bit as in (ar)-(at): the
+    delivery on ``adversarial.deliver_cases``, the monopole pass on
+    ``advance_case`` and ``wrap_case``, the masks and the settle pass on
+    ``settle_case``."""
+    t0 = time.perf_counter()
+    adversarial = _adversarial_module()
+    k = WIDE_K[-1]
+    _monopole_cases(adversarial, k)
+    _deliver_cases(adversarial, k)
+    _settle_cases(adversarial, k)
+    print(f"kernels around the pair pass at K = {k} (aw): "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def check_medium_tiles(card, sweep):
+    """(ax) MEDIUM (golden s3's config) under ``dense_backend="xla"``:
+    resident tiles at K > 1024 with overflow 0, the fused kernel and the
+    kernels around it launched, two runs bit for bit equal, no host sync;
+    particle 0 and the count printed beside golden s3's f64 values and the
+    f32 sweep's ``sweep`` (not held, as in (e)); the step's ms, device ms,
+    idle share, launches and syncs; the fused kernel on the run's own tiles
+    and both dense kernels on the dense engine's MEDIUM tiles (checked,
+    timed, with the bound); cuda == cpu on WIDE_CARD_VS_CPU. Returns the
+    path's launch counts and its measures."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import (Engine, make_dense_step,
+                                                     make_resident_run)
+    from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
+        dense_tiles, resident_tiles)
+
+    t0 = time.perf_counter()
+    seed, side, nc, n, steps = MEDIUM
+    cfg = SimConfig(seed, side, nc, n)
+    eng = Engine(cfg, device="cuda", dense_backend="xla")
+    state = eng.init_state()
+    out, (x, y, c), launches = drive(
+        "MEDIUM, dense_backend=xla", eng, state, steps,
+        ["fused_pairs", *ADVANCE_KERNELS])
+    again = eng.run(state, steps)
+    fields = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions")
+    same = all(torch.equal(getattr(out, f), getattr(again, f))
+               for f in fields)
+    swept = ("not run" if sweep is None else
+             f"({sweep[0]:.4f}, {sweep[1]:.4f}, {sweep[2]})")
+    print(f"MEDIUM on {eng.impl} tiles at kcap {eng.kcap}: particle 0 "
+          f"({x:.4f}, {y:.4f}), {c} collisions after {steps} steps; golden "
+          f"s3 (f64) {GOLDEN_S3}, the f32 sweep {swept} (not held); two "
+          f"runs bitwise equal: {same}", flush=True)
+    if eng.impl != "resident" or eng.kcap <= 1024 or not same:
+        raise AssertionError("MEDIUM under dense_backend='xla'")
+    check_no_sync("MEDIUM resident", make_resident_run(cfg, eng.kcap)[2],
+                  state)
+    ms, t1, tk = step_ms(eng, state, steps)
+    print(f"MEDIUM resident, kcap {eng.kcap}: {ms:.4f} ms/step, "
+          f"{n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} s, "
+          f"run({steps + 1}) {tk:.4f} s) on {card}", flush=True)
+    times = {"ms": ms, **device_breakdown("MEDIUM resident", eng, state, ms)}
+    times["fused_pairs"] = fused_record(
+        "MEDIUM resident tiles", resident_tiles(cfg, eng.kcap, state, steps),
+        "v4", True, planted=False)
+    eng_d = Engine(cfg, device="cuda", impl="dense", dense_backend="xla")
+    state_d = eng_d.init_state()
+    check_tiles("MEDIUM dense", [dense_tiles(
+        cfg, make_dense_step(cfg, eng_d.kcap)[1](state_d))])
+    check_gpu_vs_cpu(*WIDE_CARD_VS_CPU, dense_backend="xla")
+    print(f"MEDIUM on tiles (ax): {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    return launches, times
+
+
+def check_medium_mesh(card):
+    """(ay) MEDIUM through the CLI's ``--mesh 4 --engine fast``
+    in-process: a tile route (the fused kernel launched; the mesh sweep
+    launches none), its lines printed (not held); then the mesh engine the
+    CLI builds (the census: resident tiles at K > 1024), timed. Returns the
+    CLI's launch counts and the measures."""
+    from particlesimulation_tpu_torch import cli
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+
+    t0 = time.perf_counter()
+    seed, side, nc, n, steps = MEDIUM
+    args = [str(seed), f"{side:g}", str(nc), str(n), str(steps), "--engine",
+            "fast", "--mesh", "4"]
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lines = out.getvalue().splitlines()
+    print(f"CLI {' '.join(args)} in-process on cuda: rc {rc}, {lines}, "
+          f"{err.getvalue().strip()} on stderr, launches {launches} (golden "
+          f"s3, f64: {GOLDEN_S3}; not held)", flush=True)
+    if not (rc == 0 and len(lines) == 2 and launches["fused_pairs"] > 0
+            and all(np.isfinite(float(v)) for v in lines[0].split())):
+        raise AssertionError("MEDIUM --mesh 4 --engine fast")
+    eng = ShardedEngine(SimConfig(seed, side, nc, n, n_shards=4),
+                        device="cuda")
+    state = eng.init_state()
+    if eng.impl != "resident" or eng.kcap <= 1024:
+        raise AssertionError(f"MEDIUM mesh: {eng.impl}, kcap {eng.kcap}")
+    times = _mesh_times("MEDIUM mesh D=4", eng, state, card)
+    print(f"MEDIUM mesh (ay): {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    return launches, times
+
+
+def check_wide(card, sweep):
+    """Phases av-ay. Returns the kernels' records at K = 4096 and the
+    launch counts of MEDIUM's one-device tile run."""
+    recs = check_wide_kernels(card)
+    check_advance_wide(card)
+    launches, _ = check_medium_tiles(card, sweep)
+    check_medium_mesh(card)
+    return recs, launches
 
 
 def build_libraries():
@@ -4019,6 +4262,17 @@ def main():
         print(card, flush=True)
         check_mesh2d(card)
         return
+    if sys.argv[1:2] == ["--wide"]:
+        # Phases av-ay alone (MEDIUM's f32 sweep not run).
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        recs, launches = check_wide(card, None)
+        print(json.dumps({"kernels": [
+            kernel_entry(k, launches[k if k != "dense_pairwise_forces"
+                                     else "dense_forces"], rec)
+            for k, rec in recs.items()]}))
+        return
     if sys.argv[1:2] == ["--direct"]:
         # Phases al-aq alone.
         card = _card()
@@ -4185,6 +4439,11 @@ def main():
     # 14. The direct model (exact all-pairs), N = 1e5 its main path.
     direct_launches, direct_recs = check_direct(card)
 
+    # 15. Tiles up to K = 4096 (phases av-ay): the kernels at K = 1056, 2048
+    # and 4096, the kernels around the pair pass at 4096, and MEDIUM on
+    # resident tiles under dense_backend="xla" and through --mesh 4.
+    _, medium_launches = check_wide(card, medium[3])
+
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
           f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
@@ -4193,7 +4452,9 @@ def main():
           f"mesh resident D=4 (golden s1) {mesh_launches}, "
           + ", ".join(f"{k} {v}" for k, v in (*route_launches.items(),
                                               *mesh2d_launches.items()))
-          + f", direct N=1e5 (10 steps) {direct_launches}", flush=True)
+          + f", direct N=1e5 (10 steps) {direct_launches}, MEDIUM "
+          f"dense_backend=xla (10 steps on resident tiles) "
+          f"{medium_launches}", flush=True)
 
     def on_paths(name, *paths):
         return sum(p[name] for p in paths)
@@ -4204,7 +4465,8 @@ def main():
         kernel_entry("fused_pairs", on_paths(
             "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
             route_launches["2e7 mesh banded"], mesh2d_launches["2D resident"],
-            mesh2d_launches["UNEVEN cyclic"]), on_path[("v4", True)]),
+            mesh2d_launches["UNEVEN cyclic"], medium_launches),
+            on_path[("v4", True)]),
         kernel_entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),
         kernel_entry("dense_pairwise_forces", dense_launches["dense_forces"],
@@ -4217,7 +4479,8 @@ def main():
                                               *sc_paths), sums_rec),
         *(kernel_entry(k, direct_launches[k], direct_recs[k], DIRECT_SOURCE)
           for k in ("direct_forces", "direct_collisions")),
-        *(kernel_entry(k, on_paths(k, res_launches, banded_launches),
+        *(kernel_entry(k, on_paths(k, res_launches, banded_launches,
+                                   medium_launches),
                        adv_recs[k], ADVANCE_SOURCE)
           for k in ADVANCE_KERNELS),
     ]}))

@@ -64,6 +64,16 @@
 //
 // Collision decisions must match the plain version bit for bit, so the hit
 // test computes d^2 from raw x, y without FMA contraction.
+//
+// Every kernel takes rows of K <= kMaxK = 4096 slots, the JAX package's
+// MAX_XLA_KCAP (the widest tile its XLA kernels run; its Pallas kernels stop
+// at 1024, which the port's engines keep as the cap of JAX's "pallas"
+// route). A kernel that stages a row in shared memory takes K-sized arrays
+// there, more than the 48 KB a block may use without asking once K passes
+// ~1000; each launch asks for what its K needs (opt_in), up to the 227 KB a
+// block may have on an H100, and fails (no launch) where the request does.
+// At K <= 1024 the launches are the ones they were before wider rows came:
+// the same shapes and shared memory, and so the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +83,9 @@ namespace {
 constexpr int kInf = 0x7FFFFFFF;
 constexpr int kMaxThreads = 256;       // fused and force kernels
 constexpr int kMaxCollThreads = 1024;  // collision kernel
+constexpr int kMaxK = 4096;            // widest row (tile capacity K)
+constexpr int kSlotBits = 12;          // bits of a slot index below kMaxK
+static_assert((1 << kSlotBits) >= kMaxK, "slot indices must fit kSlotBits");
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dist2(float xi, float yi, float xj,
@@ -240,9 +253,15 @@ struct AliveSlots {
 
 // Orders the alive slots by x bucket: n buckets over the row's x range, each
 // at least 2 eps wide, so two slots less than eps apart in x lie in one
-// bucket or in neighbouring ones (the bucket arithmetic rounds by < 2e-4 of
-// a bucket at n <= 1024). A count, a scan and a scatter: five barriers, where
-// a sorting network of n = 100 needs 28 and a comparison sort n^2 compares.
+// bucket or in neighbouring ones. The rounding, at n <= kMaxK = 4096: a
+// slot's u = fl(fl(x - xmin) * rh) is within 2 u_r of (x - xmin) rh, u_r =
+// 2^-24, and u <= nb (1 + 2 u_r), so within 2^-23 nb < 5e-4 of a bucket
+// (2e-4 at n <= 1024); rh is one value for every slot, so it scales the
+// whole row alike, by a factor within 3 u_r of 1 / width. Two slots less
+// than eps <= width / 2 apart then have u's less than 0.5 (1 + 3 u_r) +
+// 1e-3 < 1 apart, and buckets (int)u at most one apart. A count, a scan
+// and a scatter: five barriers, where a sorting network of n = 100 needs
+// 28 and a comparison sort n^2 compares.
 // c.bend must hold zeros for the first n buckets. fscratch and iscratch hold
 // 32 entries each.
 template <class G>
@@ -442,7 +461,7 @@ __device__ __forceinline__ void pair_sums(const float4* sp, int n, int q0,
 // comparators all point up (each merge starts with a reflection), so it
 // needs no padding to a power of two: a comparator whose upper end lies past
 // n would meet +inf there and is skipped. log2(n)(log2(n) + 1) / 2 steps of
-// n / 2 comparators, a barrier each (55 at n = 1024).
+// n / 2 comparators, a barrier each (55 at n = 1024, 78 at n = 4096).
 __device__ void block_sort(unsigned long long* keys, int n) {
   for (int k = 2; k < 2 * n; k <<= 1) {
     for (int d = k >> 1; d > 0; d >>= 1) {
@@ -478,24 +497,28 @@ __device__ void block_sort(unsigned long long* keys, int n) {
 // receivers a thread; one block per cell.
 //
 // Shared memory, eleven (K,) words (44 KB at K = 1024, under the 48 KB a
-// block may take without opting in): the row's x, y, m (3K), and the
-// collision arrays (8K), which the used slots' float4 and slot indices
-// (5K) reuse once ft is written. -Xptxas -v on sm_90a: 31-40 registers, at
-// most 256 bytes of static shared memory, no spills.
+// block may take without opting in; 176 KB at K = 4096, opted in, one
+// block an SM): the row's x, y, m (3K), and the collision arrays (8K),
+// which the used slots' float4 and slot indices (5K) reuse once ft is
+// written. The pair ranks a (K + 1) + b stay below 4097^2 < 2^31.
+// -Xptxas -v on sm_90a: 31-40 registers, at most 256 bytes of static
+// shared memory, no spills.
 //
 // The labelled form (kSub, the supercell engine's rows of S x S cells) on
 // rows of K > 64 (labelled_warp_kernel takes the others): `sub` holds each
 // slot's cell within the row, -1 for an unbinned slot. The alive slots'
 // labels take a twelfth (K,) array (48 KB at K = 1024, which with the
-// static scratch is over 48 KB: the launch opts in), and the hit test of
-// sweep_near passes only pairs of equal labels, so the gate and the count
-// see only same-cell pairs; ranks stay the row's pid ranks. The x-bucket
+// static scratch is over 48 KB: the launch opts in; 192 KB at K = 4096),
+// and the hit test of sweep_near passes only pairs of equal labels, so the
+// gate and the count see only same-cell pairs; ranks stay the row's pid
+// ranks. The x-bucket
 // sweep stays: it costs O(n) whatever the labels, where grouping the alive
 // slots by label first would cost a sort. The v4 centre stays the mean of
 // the whole row's used slots, as in the XLA form. Then, unless every used
 // slot has one label, the used slots are sorted by (label, compacted index)
-// (block_sort over keys that also carry the slot), and receivers take the
-// sorted order: a thread's kRows receivers loop over the runs of their
+// (block_sort over keys that also carry the slot and the compacted index,
+// kSlotBits each), and receivers take the sorted order: a thread's kRows
+// receivers loop over the runs of their
 // labels only, each run in compacted order. A partner of another label (in
 // the other receiver's run) adds exactly nothing (pair_term), so every
 // receiver sums the same terms in the same order as over the whole row: the
@@ -624,7 +647,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
   // rows of more than one label) sorted by label, with each sorted
   // position's run and the runs' bounds.
   const float4* psp = sp;
-  const unsigned long long* key = nullptr;  // label, slot << 10 | index
+  // label, slot << kSlotBits | index
+  const unsigned long long* key = nullptr;
   int* runi = nullptr;                      // sorted position -> run
   int* rs = nullptr;                        // run -> first position
   int* re = nullptr;                        // run -> one past its last
@@ -637,11 +661,12 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
           smem + ((5 * kcap + 1) & ~1));  // over the dead collision arrays
       for (int q = tid; q < n; q += nt)
         keys[q] = (unsigned long long)(unsigned)__float_as_int(sp[q].w) << 32 |
-                  (unsigned)sslot[q] << 10 | (unsigned)q;
+                  (unsigned)sslot[q] << kSlotBits | (unsigned)q;
       __syncthreads();
       block_sort(keys, n);
       float4* ssp = smem4 + 2 * kcap;  // over the dead staging arrays
-      for (int p = tid; p < n; p += nt) ssp[p] = sp[keys[p] & 1023u];
+      for (int p = tid; p < n; p += nt)
+        ssp[p] = sp[keys[p] & ((1u << kSlotBits) - 1u)];
       __syncthreads();  // sp and sslot are dead
       runi = reinterpret_cast<int*>(smem);
       rs = runi + kcap;
@@ -681,8 +706,10 @@ __global__ void __launch_bounds__(kMaxThreads) fused_pairs_kernel(
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (q0 + r >= n) break;
-      const int i = kSub && key != nullptr ? (int)(key[q0 + r] >> 10) & 1023
-                                           : sslot[q0 + r];
+      const int i = kSub && key != nullptr
+                        ? (int)(key[q0 + r] >> kSlotBits) &
+                              ((1 << kSlotBits) - 1)
+                        : sslot[q0 + r];
       if (kV4) {  // G m_i (sum w xl_j - xl_i sum w)
         fx[base + i] = gmi[r] * fmaf(-xi[r], aw[r], ax[r]);
         fy[base + i] = gmi[r] * fmaf(-yi[r], aw[r], ay[r]);
@@ -735,12 +762,12 @@ __device__ __forceinline__ void force_rows(const float4* sp, const int* sslot,
 // kRows consecutive receivers in registers, so one partner load feeds kRows
 // independent pairs. The grid is (cells x chunks): a class with few rows
 // splits each row's receivers over `chunks` blocks, each staging the whole
-// row (at most 20 KB of shared memory at K = 1024). One block per cell and
-// chunk, not a grid-stride loop: rows differ in work by n^2, and the
+// row (20 KB of shared memory at K = 1024; 80 KB at K = 4096, opted in,
+// two blocks an SM). One block per cell and chunk, not a grid-stride loop: rows differ in work by n^2, and the
 // hardware hands a freed SM the next block (a grid-stride loop measured
 // slower on an H100). -Xptxas -v on sm_90a: 48 (kRows = 1) or 64
 // registers, 224 bytes of static shared memory, no spills; 20 K bytes of
-// dynamic shared memory.
+// dynamic shared memory at K = 1024.
 template <int kRows>
 __global__ void __launch_bounds__(kMaxThreads) dense_forces_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
@@ -801,7 +828,9 @@ __global__ void __launch_bounds__(kMaxThreads) dense_forces_kernel(
 // block, in hit cells only). The cells' counts are added into one total,
 // zeroed before the launch (integer atomics: exact in any order). -Xptxas -v on
 // sm_90a: 32 registers, 256 bytes of static shared memory, no spills; 24 K
-// bytes of dynamic shared memory (32 K with a pid).
+// bytes of dynamic shared memory at K = 1024 (32 K with a pid; 96 K and
+// 128 K at K = 4096, opted in). At most kMaxCollThreads threads over up to
+// kMaxK slots: every loop strides by the block.
 __global__ void __launch_bounds__(kMaxCollThreads) dense_collisions_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const int* __restrict__ alive, const int* __restrict__ pid,
@@ -1382,7 +1411,7 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted) {
 template <bool kV4, bool kCollide, bool kGate, int kRows, bool kSub>
 cudaError_t launch_fused(const FusedArgs& a, int threads, cudaStream_t stream) {
   // The labelled form's twelve (K,) arrays and the static scratch are over
-  // 48 KB at K = 1024.
+  // 48 KB at K = 1024, the unlabelled form's eleven from K = 1112 on.
   const size_t smem = (size_t)(kSub ? 12 : 11) * a.kcap * sizeof(float);
   auto kernel = fused_pairs_kernel<kV4, kCollide, kGate, kRows, kSub>;
   static size_t opted = 0;
@@ -1433,12 +1462,33 @@ bool whole_warps(int threads, int most) {
   return threads >= 32 && threads <= most && threads % 32 == 0;
 }
 
+bool row_width(int kcap) { return kcap >= 1 && kcap <= kMaxK; }
+
+template <int kRows>
+cudaError_t launch_dense_forces(const float* x, const float* y,
+                                const float* m, const float* ml,
+                                const float* mxl, const float* myl, float* fx,
+                                float* fy, int ncells, int kcap, float g,
+                                int threads, int chunks, cudaStream_t s) {
+  // With the static scratch over 48 KB from K = 2447 on.
+  const size_t smem = (size_t)kcap * (sizeof(float4) + sizeof(int));
+  auto kernel = dense_forces_kernel<kRows>;
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(kernel, smem + 256, opted);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)ncells * (unsigned)chunks), threads, smem, s>>>(
+      x, y, m, ml, mxl, myl, fx, fy, kcap, chunks, g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Each function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue, without a launch, for a launch
-// shape it does not take).
+// shape it does not take or a kcap outside [1, kMaxK]; the error of
+// cudaFuncSetAttribute, without a launch, where the shared memory the
+// launch needs cannot be had).
 //
 // total: one int, the count summed over the cells (0 with collide off);
 // rows: receivers per thread (1 or 2); threads per block.
@@ -1448,7 +1498,8 @@ extern "C" int psim_fused_pairs(const float* x, const float* y, const float* mf,
                                 int kcap, float eps2, float g, int collide,
                                 int v4, int gate, int rows, int threads,
                                 void* stream) {
-  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2))
+  if (!whole_warps(threads, kMaxThreads) || (rows != 1 && rows != 2) ||
+      !row_width(kcap))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(total, 0, sizeof(int), s);
@@ -1475,7 +1526,7 @@ extern "C" int psim_labelled_pairs(const float* x, const float* y,
                                    int kcap, float eps2, float g, int collide,
                                    int v4, int row_warps, int rows,
                                    int threads, void* stream) {
-  if (sub == nullptr) return (int)cudaErrorInvalidValue;
+  if (sub == nullptr || !row_width(kcap)) return (int)cudaErrorInvalidValue;
   if (row_warps > 0 ? (kcap > kWarpK || row_warps > kMaxWarpRows ||
                        rows != (kcap + 31) / 32 || threads != 32 * row_warps)
                     : (!whole_warps(threads, kMaxThreads) ||
@@ -1507,20 +1558,16 @@ extern "C" int psim_dense_forces(const float* x, const float* y, const float* m,
                                  const float* myl, float* fx, float* fy,
                                  int ncells, int kcap, float g, int rows,
                                  int threads, int chunks, void* stream) {
-  if (!whole_warps(threads, kMaxThreads) || chunks < 1)
+  if (!whole_warps(threads, kMaxThreads) || chunks < 1 || !row_width(kcap))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kcap * (sizeof(float4) + sizeof(int));
-  const dim3 grid((unsigned)ncells * (unsigned)chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 1)
-    dense_forces_kernel<1><<<grid, threads, smem, s>>>(
-        x, y, m, ml, mxl, myl, fx, fy, kcap, chunks, g);
-  else if (rows == 2)
-    dense_forces_kernel<2><<<grid, threads, smem, s>>>(
-        x, y, m, ml, mxl, myl, fx, fy, kcap, chunks, g);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)launch_dense_forces<1>(x, y, m, ml, mxl, myl, fx, fy, ncells,
+                                       kcap, g, threads, chunks, s);
+  if (rows == 2)
+    return (int)launch_dense_forces<2>(x, y, m, ml, mxl, myl, fx, fy, ncells,
+                                       kcap, g, threads, chunks, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // total: one int, the count summed over the cells.
@@ -1528,11 +1575,16 @@ extern "C" int psim_dense_collisions(const float* x, const float* y,
                                      const int* alive, const int* pid, int* ft,
                                      int* total, int ncells, int kcap,
                                      float eps2, int threads, void* stream) {
-  if (!whole_warps(threads, kMaxCollThreads))
+  if (!whole_warps(threads, kMaxCollThreads) || !row_width(kcap))
     return (int)cudaErrorInvalidValue;
+  // With the static scratch over 48 KB from K = 1529 on with a pid,
+  // 2038 without.
+  const size_t smem = (size_t)kcap * (pid != nullptr ? 8 : 6) * sizeof(int);
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(dense_collisions_kernel, smem + 256, opted);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(total, 0, sizeof(int), s);
-  const size_t smem = (size_t)kcap * (pid != nullptr ? 8 : 6) * sizeof(int);
   dense_collisions_kernel<<<ncells, threads, smem, s>>>(x, y, alive, pid, ft,
                                                          total, kcap, eps2);
   return (int)cudaGetLastError();
@@ -1547,7 +1599,8 @@ extern "C" int psim_cell_sums(const float* mf, const float* mfx,
                               const float* mfy, const int* cell, float* out,
                               int rows, int kcap, int ncells, int warps,
                               int parts, int rounds, void* stream) {
-  if (warps < 1 || warps > kMaxThreads / 32 || parts < 1 || parts > 3)
+  if (warps < 1 || warps > kMaxThreads / 32 || parts < 1 || parts > 3 ||
+      !row_width(kcap))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (parts & 1) cudaMemsetAsync(out, 0, (size_t)3 * ncells * sizeof(float), s);
@@ -1564,7 +1617,9 @@ extern "C" int psim_cell_sums(const float* mf, const float* mfx,
                                             rows, kcap, ncells);
     return (int)cudaGetLastError();
   }
-  int tlog = 6;  // a table of at least 2 kcap slots, 64 at least
+  // A table of at least 2 kcap slots, 64 at least: 16 bytes a slot, 131 KB
+  // a warp at K = 4096 (one warp a block, opted in; cell_sums_launch).
+  int tlog = 6;
   while ((1 << tlog) < 2 * kcap) ++tlog;
   const size_t smem = (size_t)warps * ((1u << tlog) + 32) * sizeof(SumEntry);
   static size_t opted = 0;

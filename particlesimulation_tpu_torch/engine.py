@@ -62,18 +62,24 @@ from particlesimulation_tpu_torch.ops.supercell import (choose_supercell_factor,
 from particlesimulation_tpu_torch.ops.tiered import make_tiered_step, plan_tiers
 from particlesimulation_tpu_torch.state import SimState, result_of
 
-# Largest tile capacity the tile kernels take; beyond it the ladder
-# escalates resident -> dense -> sweep, and supercell -> sweep. (The JAX
-# supercell and banded engines run on XLA kernels up to MAX_XLA_KCAP = 4096,
-# so a super-cell row of 1025-4096 particles stays on supercell there and
-# runs the sweep here, and a band grows to 4096 there and to 1024 here.)
-MAX_DENSE_KCAP = cell_pairs.MAX_KCAP
+# Tile capacity caps, the JAX package's two (Engine._max_kcap): its Pallas
+# kernels' MAX_DENSE_KCAP = 1024, which caps the tile engines under
+# dense_backend="pallas", and its XLA kernels' MAX_XLA_KCAP = 4096, which
+# caps supercell always, the others under dense_backend="xla", and the mesh
+# engines. The port's kernels take both (cell_pairs.MAX_KCAP = 4096); beyond
+# the cap the ladder escalates resident -> dense -> sweep, supercell ->
+# sweep.
+MAX_DENSE_KCAP = 1024
+MAX_XLA_KCAP = cell_pairs.MAX_KCAP
 INF = cell_pairs.INF
 # Telemetry value of a collision-rank domain overflow (a cell of RANK_LIMIT
 # occupants or more), far above any tile-capacity retry value.
 RANK_OVF = 1 << 30
 
 IMPLS = ("resident", "supercell", "banded", "dense", "tiered", "sweep")
+# The JAX package's dense backends (its PSIM_DENSE_BACKEND): both run the
+# port's CUDA kernels; the backend sets only the tile cap (_max_kcap).
+DENSE_BACKENDS = ("pallas", "xla")
 CLUSTERED_IMPLS = ("banded", "tiered")
 # Pair kernels of the resident engine (the JAX package's PSIM_PALLAS_PAIR):
 # v4 and v2 are the hit-gated kernel's two force forms, v1 the ungated
@@ -356,12 +362,21 @@ class Engine:
     census takes tiered where no band plan exists.
     ``pair_impl`` picks the resident engine's pair kernel (see
     ``PAIR_IMPLS``; supercell takes "v2" or "v4").
+    ``dense_backend`` is the JAX engine's keyword ("pallas", its default,
+    or "xla"; ``DENSE_BACKENDS``). Both run the same CUDA kernels here; it
+    decides only the tile cap, and so the route, as in JAX
+    (``_max_kcap``): under "pallas" the resident, dense, banded and tiered
+    engines stop at K = 1024 (the JAX Pallas kernels' cap), and MEDIUM's
+    ~2600 particles a cell climb the ladder to the sweep; under "xla" they
+    take tiles up to K = 4096 (MEDIUM stays on resident tiles). Supercell
+    takes K up to 4096 under both.
     """
 
     def __init__(self, config: SimConfig, kcap: int | None = None,
                  impl: str | None = None, device=None,
                  clustered_impl: str = "banded",
-                 pair_impl: str | None = None):
+                 pair_impl: str | None = None,
+                 dense_backend: str = "pallas"):
         if config.n_shards > 1:
             raise NotImplementedError(
                 "Engine runs one shard; for n_shards > 1 use "
@@ -372,6 +387,9 @@ class Engine:
                              f"{CLUSTERED_IMPLS}")
         if pair_impl is not None and pair_impl not in PAIR_IMPLS:
             raise ValueError(f"pair_impl {pair_impl!r}; valid: {PAIR_IMPLS}")
+        if dense_backend not in DENSE_BACKENDS:
+            raise ValueError(f"dense_backend {dense_backend!r}; valid: "
+                             f"{DENSE_BACKENDS}")
         parity = config.precision is Precision.PARITY
         auto = impl is None and not parity
         if parity:
@@ -395,6 +413,7 @@ class Engine:
         self.impl = impl or "resident"
         self.clustered_impl = clustered_impl
         self.pair_impl = pair_impl
+        self.dense_backend = dense_backend
         self.kcap = kcap
         self._tier_plan = None  # [(cap, rows), ...] of the tiered engine
         self._band_plan = None  # [(row0, rows, kcap), ...] of the banded one
@@ -418,13 +437,22 @@ class Engine:
                 else self.config.ncells)
         avg = max(1.0, self.config.n_particles / rows)
         bound = avg + 4.5 * avg ** 0.5 + 8
-        return min(binning.round_cap(bound), MAX_DENSE_KCAP)
+        return min(binning.round_cap(bound), self._max_kcap())
+
+    def _max_kcap(self) -> int:
+        """The tile cap of the current impl, as the JAX engine's: its XLA
+        kernels' 4096 for supercell (whose labelled pass JAX runs in XLA
+        whatever the backend) and under ``dense_backend="xla"``, its Pallas
+        kernels' 1024 otherwise."""
+        if self.impl == "supercell" or self.dense_backend != "pallas":
+            return MAX_XLA_KCAP
+        return MAX_DENSE_KCAP
 
     def _default_tier_plan(self):
         # No census plan: Poisson k_small for the bulk plus a generous top
         # class; the retry ladder refines.
         ks = self._heuristic_kcap()
-        kb = min(max(4 * ks, 256), MAX_DENSE_KCAP)
+        kb = min(max(4 * ks, 256), self._max_kcap())
         fatrows = binning.round_cap(max(self.config.ncells // 16, 32))
         if kb <= ks:
             kb = binning.round_cap(ks + 32)
@@ -438,7 +466,7 @@ class Engine:
                                     self._heuristic_kcap()),)
             self._band_plan = tuple(tuple(p) for p in self._band_plan)
             self.kcap = max(k for _, _, k in self._band_plan)  # telemetry
-            if self.kcap > MAX_DENSE_KCAP:
+            if self.kcap > self._max_kcap():
                 self.impl = "dense"
                 self._band_plan = None
                 self.kcap = None
@@ -447,7 +475,7 @@ class Engine:
                 self._tier_plan = self._default_tier_plan()
             self._tier_plan = tuple(tuple(p) for p in self._tier_plan)
             self.kcap = self._tier_plan[-1][0]  # telemetry: the top cap
-            if self.kcap > MAX_DENSE_KCAP:
+            if self.kcap > self._max_kcap():
                 self.impl = "dense"
                 self._tier_plan = None
                 self.kcap = None
@@ -458,7 +486,7 @@ class Engine:
                 # The epilogue's compaction needs rows·kcap >= N slots.
                 need = -(-self.config.n_particles // self._sc_rows()) + 8
                 self.kcap = max(self.kcap, binning.round_cap(need))
-            if self.kcap > MAX_DENSE_KCAP:
+            if self.kcap > self._max_kcap():
                 self.impl = "sweep"
         key = (self.impl, self.kcap, self._tier_plan, self._band_plan,
                self.pair_impl)
@@ -499,7 +527,7 @@ class Engine:
             # Snug slack: pair-pass cost scales with kcap², and overflow
             # retries are lossless.
             kcap = min(binning.round_cap(int(hist.max()) * 1.1 + 4),
-                       MAX_DENSE_KCAP)
+                       self._max_kcap())
             if self.impl != "supercell":
                 self._census(hist, kcap)
             self.kcap = kcap
@@ -531,11 +559,11 @@ class Engine:
         plan, or none (one whole-grid band)."""
         cfg = self.config
         if self.impl == "banded" and self._band_plan is None:
-            bands = plan_bands(hist, cfg.ncside, MAX_DENSE_KCAP)
+            bands = plan_bands(hist, cfg.ncside, self._max_kcap())
             self._band_plan = bands and tuple(tuple(p) for p in bands)
-        plan = plan_tiers(hist, cfg.ncells, MAX_DENSE_KCAP)
+        plan = plan_tiers(hist, cfg.ncells, self._max_kcap())
         if self.impl == "tiered" or (self._impl_auto and _clustered(plan)):
-            bands = (plan_bands(hist, cfg.ncside, MAX_DENSE_KCAP)
+            bands = (plan_bands(hist, cfg.ncside, self._max_kcap())
                      if self.impl != "tiered"
                      and self.clustered_impl == "banded" else None)
             if bands is not None:
@@ -573,7 +601,7 @@ class Engine:
                 # Grow every band; if growth does not converge, the dense
                 # engine has no bands to outgrow.
                 self._band_plan = tuple(tuple(p) for p in grow_plan(
-                    self._band_plan, 1.5, MAX_DENSE_KCAP))
+                    self._band_plan, 1.5, self._max_kcap()))
                 self.kcap = max(k for _, _, k in self._band_plan)
                 if attempt >= 2:
                     self.impl = "dense"
@@ -586,7 +614,7 @@ class Engine:
             self.kcap = max(binning.round_cap(need * 1.25 + 1),
                             binning.round_cap(self.kcap * 1.5))
             if self.impl == "resident" and (attempt >= 2
-                                            or self.kcap > MAX_DENSE_KCAP):
+                                            or self.kcap > self._max_kcap()):
                 # Growth is not converging (or cannot): the dense engine has
                 # no delivery step and re-censuses from the Poisson bound.
                 self.impl = "dense"
@@ -595,7 +623,7 @@ class Engine:
                 # Clustering at super-cell granularity: the sweep has no
                 # tile capacity to outgrow.
                 self.impl = "sweep"
-            elif self.kcap > MAX_DENSE_KCAP:
+            elif self.kcap > self._max_kcap():
                 self.impl = "sweep"  # no tile capacity to outgrow
         raise RuntimeError("tile capacity retries exhausted")
 
@@ -612,7 +640,7 @@ class Engine:
             plan[-1][0] = max(binning.round_cap(need * 1.25 + 1),
                               binning.round_cap(plan[-1][0] * 1.5))
         self._tier_plan = tuple(tuple(p) for p in plan)
-        if attempt >= 2 or plan[-1][0] > MAX_DENSE_KCAP:
+        if attempt >= 2 or plan[-1][0] > self._max_kcap():
             self.impl = "dense"
             self._tier_plan = None
             self.kcap = None

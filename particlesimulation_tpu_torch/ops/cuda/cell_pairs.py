@@ -51,11 +51,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCE = os.path.join(_PKG, "csrc", "cell_pairs.cu")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-# Largest per-cell capacity the kernels take: the fused kernel's eleven (K,)
-# arrays of 4 bytes fit the 48 KB of shared memory a block may use without
-# opting in (the JAX package's MAX_DENSE_KCAP); its labelled form takes a
-# twelfth and opts in to more. The cell sums kernel takes any K up to it.
-MAX_KCAP = 1024
+# Largest per-cell capacity the kernels take: the JAX package's MAX_XLA_KCAP,
+# the widest tile its XLA kernels run. A launch whose row needs more shared
+# memory than the 48 KB a block may use without asking (the fused kernel's
+# eleven (K,) words of 4 bytes from K = 1112 on, its labelled form's twelve
+# from K = 1024) opts in to it, up to 192 KB at K = 4096; a launch past
+# MAX_KCAP raises, as does one whose opt-in fails.
+MAX_KCAP = 4096
 INF = 0x7FFFFFFF
 FORCE_FORMS = ("v2", "v4")
 
@@ -309,7 +311,9 @@ def fused_launch(kcap: int):
     (2, 64) at (10 000,
     160), 0.1168 against a thread per slot pair's (2, 96) 0.1231; (2, 128)
     at (4900, 288), 0.1771 against (2, 160) 0.1791; (2, 256) at (2500,
-    544), 0.2864 against (2, 224) 0.2997 and (2, 192) 0.3265."""
+    544), 0.2864 against (2, 224) 0.2997 and (2, 192) 0.3265. Rows wider
+    than 640 slots take (2, 256), the kernel's largest block, up to
+    ``MAX_KCAP``: its receivers loop over the row in passes of 512."""
     threads = 32
     while threads < 256 and 10 * threads < 4 * kcap:
         threads *= 2
@@ -339,9 +343,11 @@ def labelled_launch(kcap: int):
 
 def cell_sums_launch(kcap: int) -> int:
     """Rows (warps) a block of the cell sums kernels on (rows, kcap) tiles:
-    8, or as many as 48 KB of shared memory hold. Up to ``WARP_ROW_KCAP``
-    slots a warp takes 2.6 KB; for wider rows its table takes 16 bytes for
-    each of 2 kcap rounded up to a power of two slots, and 32 more. On
+    8, or as many as 48 KB of shared memory hold, at least 1. Up to
+    ``WARP_ROW_KCAP`` slots a warp takes 2.6 KB; for wider rows its table
+    takes 16 bytes for each of 2 kcap rounded up to a power of two slots,
+    and 32 more (from K = 769 on one warp a block, 131 KB at K = 4096, which
+    the launch opts in to). On
     SMALL's tiles (``launch_sweep.py --supercell``, an H100 80GB HBM3 at
     700 W) 1, 2, 4 and 8 rows a block gave 0.0252, 0.0252, 0.0255 and
     0.0254 device ms: the same within the spread."""
@@ -357,7 +363,9 @@ def force_launch(ncells: int, kcap: int, sms: int):
     multiprocessors, as the launch sweep (``launch_sweep.py``) on an H100
     chose them: two receivers a thread and a full row per pass, up to 256
     threads; where a class has fewer rows than two per SM, each row over up
-    to four blocks per SM in all, one receiver a thread."""
+    to four blocks per SM in all, one receiver a thread. Every shape is
+    legal up to ``MAX_KCAP``: at most 256 threads, and a row's chunks (at
+    most K / 128) each staging the whole row."""
     if ncells >= 2 * sms:
         return 2, min(256, -(-kcap // 64) * 32), 1
     chunks = max(1, min(-(-4 * sms // ncells), -(-kcap // 128)))
@@ -409,7 +417,8 @@ def collision_threads(ncells: int, kcap: int, sms: int) -> int:
     thread for eight where it has thousands, so that more cells are in
     flight at once (10 000 rows, 76 per SM). The switch, at 16 rows per SM,
     lies between the two, where no shape was measured. In whole warps, 32
-    to 512."""
+    to 512 (512 from K = 1024 on, each thread then striding over the row's
+    slots up to ``MAX_KCAP``)."""
     share = 8 if ncells >= 16 * sms else 2
     return min(512, max(32, -(-kcap // (32 * share)) * 32))
 

@@ -89,9 +89,6 @@ INT32_MAX = np.iinfo(np.int32).max
 # Ship rounds beyond the D-hop worst case: the resident ladder's round cap
 # (the JAX resident engine's).
 SHIP_SLACK = 4
-# The JAX census's tile-capacity limit (its XLA kernels' MAX_XLA_KCAP): the
-# clustered route plans bands with it, so that the port routes as JAX does.
-JAX_MAX_KCAP = 4096
 IMPLS = ("resident", "sweep", "supercell", "banded", "banded-cols",
          "banded-cyclic")
 
@@ -561,10 +558,10 @@ class ShardedEngine(SlabMesh):
                 k = self.kcap or binning.round_cap(avg + 4.5 * avg ** 0.5
                                                    + 8)
                 self._band_plan = ((0, cfg.ncside, k),)
-            # A band of JAX's plan wider than the kernels' K runs at their
-            # K; a cell too full for it overflows to the ladder.
+            # A band wider than the cap (a plan given by the caller) runs at
+            # the cap; a cell too full for it overflows to the ladder.
             self._band_plan = tuple(
-                (r0, rw, min(k, single.MAX_DENSE_KCAP))
+                (r0, rw, min(k, single.MAX_XLA_KCAP))
                 for r0, rw, k in self._band_plan)
             self.kcap = max(k for _, _, k in self._band_plan)  # telemetry
         if self.bcap is None:
@@ -612,9 +609,9 @@ class ShardedEngine(SlabMesh):
         self._impl_auto = False
         cfg = self.config
         hist = np.asarray(hist)
-        tplan = plan_tiers(hist, cfg.ncells, JAX_MAX_KCAP)
+        tplan = plan_tiers(hist, cfg.ncells, single.MAX_XLA_KCAP)
         if single._clustered(tplan):
-            bands = plan_bands(hist, cfg.ncside, JAX_MAX_KCAP)
+            bands = plan_bands(hist, cfg.ncside, single.MAX_XLA_KCAP)
             if bands is not None:
                 self.impl = "banded"
                 self._band_plan = tuple(tuple(p) for p in bands)
@@ -732,9 +729,10 @@ class ShardedEngine(SlabMesh):
             # Asked for: this census's one-device plan (for columns) or
             # shard-divisible one (block-cyclic); a uniform load (no plan)
             # runs resident tiles, as in JAX.
-            bands = (plan_bands_cyclic(hist, cfg.ncside, d, JAX_MAX_KCAP)
+            cap = single.MAX_XLA_KCAP
+            bands = (plan_bands_cyclic(hist, cfg.ncside, d, cap)
                      if self.banded_variant == "cyclic"
-                     else plan_bands(hist, cfg.ncside, JAX_MAX_KCAP))
+                     else plan_bands(hist, cfg.ncside, cap))
             if bands is None:
                 self.impl = "resident"
             else:
@@ -780,8 +778,9 @@ class ShardedEngine(SlabMesh):
             if self.capacity is not None:
                 state = self._grow_state(state, self.capacity)
             if (self.impl in ("resident", "supercell")
-                    and (self.kcap or 0) > single.MAX_DENSE_KCAP):
-                # Past the kernels' K, as one device's supercell -> sweep.
+                    and (self.kcap or 0) > single.MAX_XLA_KCAP):
+                # Past the cap (JAX's MAX_XLA_KCAP, as every mesh engine of
+                # JAX's), as one device's supercell -> sweep.
                 state = self._to_sweep(state)
             self._build()
             out = self._run(state._replace(
@@ -812,11 +811,12 @@ class ShardedEngine(SlabMesh):
                 self.capacity = binning.round_cap(cap * 1.5 + need)
                 self.bcap = binning.round_cap(self.bcap * 2 + need)
             elif self.impl == "banded":
-                # Bands too narrow: grow them (to the kernels' K at most);
-                # where growth does not converge, the sweep.
-                plan = tuple(tuple(p) for p in grow_plan(
-                    self._band_plan, 1.5, single.MAX_DENSE_KCAP))
-                if attempt >= 2 or plan == self._band_plan:
+                # Bands too narrow: grow them; where growth does not
+                # converge or a band passes the cap, the sweep (JAX's rule).
+                plan = tuple(tuple(p) for p in grow_plan(self._band_plan,
+                                                         1.5))
+                widest = max(k for _, _, k in plan)
+                if attempt >= 2 or widest > single.MAX_XLA_KCAP:
                     state = self._to_sweep(state)
                 self._band_plan = plan
             else:
@@ -824,6 +824,6 @@ class ShardedEngine(SlabMesh):
                 # sweep.
                 self.kcap = max(binning.round_cap(need * 1.25 + 1),
                                 binning.round_cap(self.kcap * 1.5))
-                if attempt >= 2 or self.kcap > single.MAX_DENSE_KCAP:
+                if attempt >= 2 or self.kcap > single.MAX_XLA_KCAP:
                     state = self._to_sweep(state)
         raise RuntimeError("sharded capacity retries exhausted")

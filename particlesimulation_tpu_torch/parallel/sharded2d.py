@@ -433,7 +433,7 @@ class Sharded2DEngine(SlabMesh):
         for attempt in range(8):
             if self.capacity is not None:
                 state = self._grow_state(state, self.capacity)
-            if self._impl == "resident" and self.kcap > single.MAX_DENSE_KCAP:
+            if self._impl == "resident" and self.kcap > single.MAX_XLA_KCAP:
                 self._impl = "sweep"
             self._build()
             out = self._run(state._replace(

@@ -302,7 +302,7 @@ def test_ladder_replays_losslessly(case, monkeypatch):
     precision = PARITY if parity else FAST
     impl = None if parity else "resident"
     if case == "to_sweep":
-        monkeypatch.setattr(port_engine, "MAX_DENSE_KCAP", 16)
+        monkeypatch.setattr(port_engine, "MAX_XLA_KCAP", 16)
     big = _mesh(args, precision, impl)
     if case == "migration":
         # tests/test_sharded2d.py:186's capacities.

@@ -135,7 +135,7 @@ def test_banded_mesh_ladder_reaches_the_sweep(monkeypatch):
     below the 19 particles of the fullest cell), the ladder escalates to
     the mesh sweep, re-packed by row block: the one-device resident run's
     count and dead set."""
-    monkeypatch.setattr(port_engine, "MAX_DENSE_KCAP", 16)
+    monkeypatch.setattr(port_engine, "MAX_XLA_KCAP", 16)
     args, steps, d = (-10, 3.0, 16, 600), 10, 8
     eng = _mesh(args, d, ((0, 8, 8), (8, 8, 8)))
     out = eng.run(eng.init_state(), steps)

@@ -27,11 +27,11 @@ from particlesimulation_tpu.utils import checkpointing as jckpt
 from particlesimulation_tpu_torch import engine as port_engine
 from particlesimulation_tpu_torch.config import SimConfig
 from particlesimulation_tpu_torch.engine import Engine
+from particlesimulation_tpu_torch.engine import MAX_XLA_KCAP as JAX_MAX_KCAP
 from particlesimulation_tpu_torch.initializer import init_particles_host
 from particlesimulation_tpu_torch.ops.banded import plan_bands_cyclic
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
-from particlesimulation_tpu_torch.parallel.sharded import (JAX_MAX_KCAP,
-                                                           ShardedEngine)
+from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
 from particlesimulation_tpu_torch.parallel.sharded_banded import (
     cyclic_halo_pad, cyclic_owner_of_rows)
 from particlesimulation_tpu_torch.state import ShardedState
@@ -228,7 +228,7 @@ def test_cyclic_ladder_reaches_the_sweep(monkeypatch):
     """Where a grown plan cannot pass the kernels' K (lowered to 16, below
     the fullest cell's 19), the ladder re-packs onto the mesh sweep by row
     block: the one-device resident run's count and dead set."""
-    monkeypatch.setattr(port_engine, "MAX_DENSE_KCAP", 16)
+    monkeypatch.setattr(port_engine, "MAX_XLA_KCAP", 16)
     args, steps, d = (-10, 3.0, 16, 600), 10, 8
     eng = _mesh(args, d, ((0, 8, 8), (8, 8, 8)))
     out = eng.run(eng.init_state(), steps)

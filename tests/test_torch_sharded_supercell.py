@@ -142,7 +142,7 @@ def test_supercell_mesh_kcap_ladder():
 
 
 def test_supercell_mesh_escalates_past_the_kernel_cap():
-    """A kcap above the kernels' 1024 runs the mesh sweep (re-packed by row
+    """A kcap above the kernels' 4096 runs the mesh sweep (re-packed by row
     block), as one device's supercell -> sweep rung: the one-device
     supercell run's count and dead set."""
     args = (5893, 0.5, 16, 200)
