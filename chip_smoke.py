@@ -24,20 +24,60 @@ and O(n) count risk); then it drives the three engines through ``Engine``:
   bound), then 10 steps against the dense engine on the card, whose own
   UNEVEN tiles go through both kernels too.
 
-Then the sweep engine (plain torch, no kernel of its own) and the CLI:
+Then the sweep engine (its three kernels of ``csrc/sweep.cu``: the COM,
+the forces, the collision pass; ``ops/cuda/sweep``) and the CLI; each
+sweep path must launch all three kernels:
 
 a. ``python -m particlesimulation_tpu_torch`` on golden s1 with the default
    engine (f64 parity) and device (cuda), as a subprocess: the golden lines
-   exactly, and "%.1fs" on stderr;
+   exactly, and "%.1fs" on stderr; then the same in-process, the kernels'
+   launches counted;
 b. golden s0 and the five small golden vectors through the parity engine
    on cuda at the harness's ±0.001, the counts exact;
-c. the parity engine on cuda and on cpu, bitwise equal in every field;
+c. the parity engine on cuda (the kernels) and on cpu (their plain
+   versions), bitwise equal in every field: the kernels' gate on the
+   parity engine;
 d. the f32 sweep on golden s1 (±0.002, 4 collisions), and 1200 particles
    in one cell through resident, where the ladder must end on the sweep;
 e. MEDIUM (golden s3's config, kcap ~2750) through the census: the ladder
    ends on the sweep, overflow 0, and two runs give the same bits;
 f. the CLI's fast route in-process, which must launch the fused kernel;
-g. the step times of parity s1, the f32 sweep s1 and MEDIUM.
+g. the step times of parity s1, the f32 sweep s1 and MEDIUM, with device
+   ms, idle share, launches and syncs a step.
+
+Then the sweep's kernels alone (``python3 chip_smoke.py --sweep`` runs
+phases a-g, az and ba alone):
+
+az. each kernel against its plain version on the card (``sweep_*_ref``):
+   on the sorted states of parity s1, the f32 sweep at s1 and MEDIUM in f32
+   and f64, each also after one step, and on
+   ``adversarial.sweep_particles`` (a zero-mass lane opening a cell, a
+   massless lane inside a massive cell, a coincident pair, two live
+   particles out of the box at one position, a collision chain A-B, B-C,
+   one hot cell), sorted and in the mesh's layout
+   (``adversarial.mesh_lane_order``: cells contiguous but out of key
+   order, sentinel lanes between them), in both precisions: parity bit for
+   bit; the collision count and the dead set exact; f32 forces bit for bit
+   or within the tolerance below, f32 COM within its tolerance; a second
+   run bit for bit. Each kernel timed (ms, device ms) at parity s1, the f32
+   sweep at s1 and MEDIUM against its bound and its plain version; the
+   fast COM beside ``index_add_`` of (m, m·x, m·y) onto the cells;
+ba. the reference's heavy golden vectors through the default CLI (parity on
+   cuda), a process each, their lines exactly: ``1 5000 100 1000000 100``
+   (163), ``1 5000 20 1000000 10`` (MEDIUM in f64, 19), ``3 5000 50 1000000
+   300`` (BIG, 469), ``-11 3500 20 500000 10`` (35), ``-50 10000 200 500000
+   10`` (4).
+
+``python3 chip_smoke.py --golden-long`` runs the four long-horizon golden
+vectors (``1 1000 3 10000 10000``, ``12 100 5 10000 10000``, ``3 5000 50
+1000000 500``, ``-1 1000 30 100000 1000``) through the CLI and prints each
+result beside its golden lines, whatever they are.
+``python3 chip_smoke.py --sweep-times ROOT [ROOT ...]`` (bb) times parity
+s1, the f32 sweep at s1 and MEDIUM by the default census with the port
+package of each checkout ROOT in turn (a process each; parent, change,
+change, parent): ms/step, device ms/step, idle share, launches and syncs a
+step, and the digest of each run's final state after 4 steps, which must
+agree in all runs.
 
 Then the supercell engine at SMALL (seed 50, side 10000, ncside 1300,
 N=5e5, 10 steps; the reference report's sparse workload, not cut):
@@ -339,6 +379,14 @@ shapes the wrappers' rules pick come from ``ops/cuda/launch_sweep.py``.
 
 Tolerances:
   * collision outputs (ft, count, collisions, dead set) are exact;
+  * the sweep kernels: parity (float64) bit for bit their plain versions
+    (the same operations in each lane's order, no FMA, IEEE division and
+    square root); in float32 the forces bit for bit where ``rsqrtf`` gives
+    torch.rsqrt's bits, else within (c + 8)·4·2⁻²⁴·Σ|terms| a lane (c the
+    lane's cell occupancy; the terms' magnitudes summed in float64); the
+    fast COM within c·2⁻²⁴·M + 2⁻²⁴·M for M and (2c + 2)·2⁻²⁴·Σm|x|/M +
+    2⁻²⁴·|MX| for the quotients (each cell's c terms summed in position
+    order, the plain version's torch.sum in another);
   * kernel forces hold to the plain version within 1e-5·|f| + 1e-6·max|f|
     plus (K + 8)·2^-24 of the summed magnitudes of the terms of each force:
     the worst-case rounding of a (K + 8)-term sequential f32 sum (the
@@ -412,6 +460,14 @@ for a frozen one; the delivery reads occ and moving a slot and moves 58
 bytes a mover. Beside the last two, ``copy_out_bound_ms``: the floors of
 the first designs, which wrote every slot (50 bytes a slot for the monopole
 pass; 51 for the delivery's new tiles).
+
+Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes), pos (8)
+and the float fields a lane, counts (8) a cell, each output once; 9
+operations a lane for the COM, 17 an unordered pair of alive lanes in one
+cell for the forces (their term once, added to both ends; the division and
+square root one operation each) and 17 a monopole term (8 an alive lane),
+6 an unordered alive pair for the collision test; float64 at 34 TFLOP/s,
+float32 at 67.
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -526,10 +582,17 @@ REPLACES = {
     "deliver": "particlesimulation_tpu/ops/resident.py:102",
     "pair_masks": "particlesimulation_tpu/engine.py:346-352",
     "settle_sums": "particlesimulation_tpu/engine.py:335-338",
+    # XLA code of the sweep engine: com_parity's lax.scan (com_fast :71),
+    # the blocked parity force sweep's fori_loop (fast :243, then
+    # monopole_forces :289), and the blocked collision sweep.
+    "sweep_com": "particlesimulation_tpu/ops/com.py:33",
+    "sweep_forces": "particlesimulation_tpu/ops/forces.py:127",
+    "sweep_collisions": "particlesimulation_tpu/ops/collisions.py:110",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
 ADVANCE_SOURCE = "particlesimulation_tpu_torch/csrc/advance.cu"
+SWEEP_SOURCE = "particlesimulation_tpu_torch/csrc/sweep.cu"
 # The kernels' names in csrc/, as the profiler reports them.
 PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "dense_forces_kernel", "dense_collisions_kernel",
@@ -538,13 +601,17 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "monopole_integrate_kernel", "deliver_count_kernel",
                 "deliver_stage_kernel", "deliver_place_kernel",
                 "deliver_expand_kernel", "pair_masks_kernel",
-                "settle_sums_kernel",
+                "settle_sums_kernel", "sweep_com_kernel",
+                "sweep_forces_kernel", "sweep_collisions_kernel",
+                "sweep_collision_count_kernel",
                 # a parent checkout's (--advance-times) row sums
                 "cell_sums_rows_kernel")
 # The kernels of ops/cuda/advance on the resident and banded steps, by
 # their launch counts.
 ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
                    "settle_sums")
+# The sweep engine's kernels (ops/cuda/sweep), by their launch counts.
+SWEEP_KERNELS = ("sweep_com", "sweep_forces", "sweep_collisions")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -1113,6 +1180,7 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10):
     rows = _profile(eng, state, steps)
     rows0 = _profile(eng, state, 0)
     launches = (sum(n for _, n, _ in rows) - sum(n for _, n, _ in rows0)) / steps
+    _syncs(eng, state, 0)  # the process's first count holds a one-off sync
     syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
     whole = sum(ms for ms, _, _ in rows) / steps
     base = {key: ms for ms, _, key in rows0}
@@ -1166,7 +1234,9 @@ def check_cli_parity(extra=()):
 
 def check_parity_golden():
     """(b) Golden s0 and the five small golden vectors through the parity
-    engine on cuda: the reference harness's ±0.001, the count exact."""
+    engine on cuda: the reference harness's ±0.001, the count exact; the
+    sweep kernels launched."""
+    reset_sweep_launches()
     for seed, side, nc, n, steps, ex, ey, ec in (GOLDEN_S0,) + FAST_VECTORS:
         eng = _parity(seed, side, nc, n, "cuda")
         out = eng.run(eng.init_state(), steps)
@@ -1178,11 +1248,15 @@ def check_parity_golden():
                 and c == ec and abs(x - ex) <= PARITY_TOL
                 and abs(y - ey) <= PARITY_TOL):
             raise AssertionError(f"parity golden {seed} {side} {nc} {n}")
+    read_sweep_launches("parity golden s0 and the small vectors")
 
 
 def check_parity_card_vs_cpu():
     """(c) The parity engine on cuda and on cpu, field by field with
-    torch.equal: the card contracted nothing and took no reciprocal."""
+    torch.equal: the card contracted nothing and took no reciprocal. The
+    card runs the sweep kernels, the CPU their plain versions: the kernels'
+    gate on the parity engine."""
+    reset_sweep_launches()
     for seed, side, nc, n, steps in CARD_VS_CPU:
         outs = []
         for device in ("cuda", "cpu"):
@@ -1197,6 +1271,7 @@ def check_parity_card_vs_cpu():
         print(f"parity cuda vs cpu ({seed} {side} {nc} {n}, {steps} steps): "
               f"{', '.join(fields)} bitwise equal; {int(outs[1].collisions)} "
               f"collisions", flush=True)
+    read_sweep_launches("parity cuda vs cpu (the cuda runs)")
 
 
 def check_f32_sweep():
@@ -1208,18 +1283,25 @@ def check_f32_sweep():
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     eng = Engine(SimConfig(seed, side, nc, n), impl="sweep", device="cuda")
-    out = eng.run(eng.init_state(), steps)
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    reset_sweep_launches()
+    out = eng.run(state, steps)
+    launches = read_sweep_launches("f32 sweep s1")
     x, y, c = eng.result(out)
     print(f"golden s1 f32 sweep on cuda: ({x:.4f}, {y:.4f}), {c} collisions, "
-          f"overflow {int(out.overflow)}", flush=True)
+          f"overflow {int(out.overflow)}, launches {launches}", flush=True)
     if not (eng.impl == "sweep" and c == ec and abs(x - ex) <= GOLDEN_TOL
             and abs(y - ey) <= GOLDEN_TOL and int(out.overflow) == 0):
         raise AssertionError("golden s1 f32 sweep")
     eng = Engine(SimConfig(1, 10.0, 1, 1200), impl="resident", device="cuda")
-    out = eng.run(eng.init_state(), 2)
+    state = eng.init_state()
+    reset_sweep_launches()
+    out = eng.run(state, 2)
+    launches = read_sweep_launches("ladder to the sweep (1 10 1 1200)")
     print(f"1200 particles in one cell, from resident: the ladder ends on "
           f"{eng.impl}, overflow {int(out.overflow)}, collisions "
-          f"{int(out.collisions)}", flush=True)
+          f"{int(out.collisions)}, sweep launches {launches}", flush=True)
     if eng.impl != "sweep" or int(out.overflow) != 0:
         raise AssertionError("the ladder did not end on the sweep")
 
@@ -1242,7 +1324,9 @@ def check_medium():
         out = eng.run(state, k)  # ends in a readback
         return out, time.perf_counter() - t
 
+    reset_sweep_launches()
     first, t_ladder = timed_run(steps)
+    launches = read_sweep_launches("MEDIUM (the census's ladder -> sweep)")
     second, t_k = timed_run(steps)
     t_1 = timed_run(1)[1]
     runs = [first, second]
@@ -1254,8 +1338,8 @@ def check_medium():
           f"and ladder end on {eng.impl} ({t_ladder:.1f} s with the ladder's "
           f"tile attempts), overflow {int(runs[0].overflow)}, two runs "
           f"bitwise equal: {same}; particle 0 ({x:.4f}, {y:.4f}), {c} "
-          f"collisions (golden s3, f64: {GOLDEN_S3}; f32 not held to it)",
-          flush=True)
+          f"collisions (golden s3, f64: {GOLDEN_S3}; f32 not held to it); "
+          f"sweep launches {launches}", flush=True)
     if eng.impl != "sweep" or int(runs[0].overflow) != 0 or not same:
         raise AssertionError("MEDIUM")
     # ms a step as step_ms defines it, from the second run and a run of 1.
@@ -1296,7 +1380,7 @@ def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
 
 
 def time_sweeps(card, medium):
-    """(g) ms a step of the sweep engine (step_ms over 4 steps; MEDIUM's
+    """(g) ms a step of the sweep engine (step_ms over 20 steps; MEDIUM's
     from ``check_medium``'s runs): parity s1, f32 sweep s1, MEDIUM; each
     with its device time, idle share, launches and host syncs a step."""
     from particlesimulation_tpu_torch.config import SimConfig
@@ -1305,16 +1389,16 @@ def time_sweeps(card, medium):
     seed, side, nc, n = GOLDEN_S1[:4]
     out = {}
     for label, eng, steps in (
-            ("parity s1", _parity(seed, side, nc, n, "cuda"), 2),
+            ("parity s1", _parity(seed, side, nc, n, "cuda"), 10),
             ("f32 sweep s1", Engine(SimConfig(seed, side, nc, n),
-                                    impl="sweep", device="cuda"), 2),
+                                    impl="sweep", device="cuda"), 10),
             ("MEDIUM f32 sweep", medium[0], 1)):
         if eng is medium[0]:
             state, ms = medium[1:3]
         else:
             state = eng.init_state()
-            ms, t1, tk = step_ms(eng, state, 4, reps=1)
-            print(f"{label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, run(5) "
+            ms, t1, tk = step_ms(eng, state, 20, reps=2)
+            print(f"{label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, run(21) "
                   f"{tk:.4f} s)", flush=True)
         print(f"{label}, {eng.impl}: {ms:.4f} ms/step, "
               f"{state.x.shape[0] / ms / 1e3:.4f} M particle-steps/s on "
@@ -1747,7 +1831,10 @@ def check_mesh(card):
     want = {f: getattr(ss, f)[order].cpu().numpy() for f in MESH_FIELDS}
     pm = mesh(4, parity)
     pstate = pm.init_state()
+    torch.cuda.synchronize()
+    reset_sweep_launches()
     pout = pm.run(pstate, steps)
+    read_sweep_launches("mesh parity D=4 (golden s1)")
     _same_bits(f"golden s1 parity on cuda, mesh D=4 vs one device "
                f"({int(pout.collisions)} collisions)", pm.gather(pout), want)
     if not int(pout.collisions) == int(ss.collisions) == ec:
@@ -3931,21 +4018,492 @@ def check_wide(card, sweep):
     return recs, launches
 
 
+# -- the sweep's kernels (phases az-bb) ---------------------------------------
+
+# The reference's heavy golden vectors (tests/test_golden.py:33-44) that
+# phase ba runs through the default CLI (parity on cuda), and the four
+# long-horizon ones that --golden-long runs.
+HEAVY_GOLDEN = (
+    (1, 5000, 100, 1_000_000, 100, 3899.787, 156.291, 163),
+    (1, 5000, 20, 1_000_000, 10, 3918.912, 143.364, 19),
+    (3, 5000, 50, 1_000_000, 300, 3819.032, 25.659, 469),
+    (-11, 3500, 20, 500_000, 10, 1984.878, 1625.992, 35),
+    (-50, 10000, 200, 500_000, 10, 5025.384, 5303.928, 4),
+)
+LONG_GOLDEN = (
+    (1, 1000, 3, 10_000, 10_000, 287.788, 261.446, 31),
+    (12, 100, 5, 10_000, 10_000, 76.732, 61.943, 2209),
+    (3, 5000, 50, 1_000_000, 500, 3738.436, 58.743, 804),
+    (-1, 1000, 30, 100_000, 1000, 575.878, 370.663, 1203),
+)
+# Launch counts of the sweep kernels on each path that ran them, by label
+# (the kernels line sums them).
+SWEEP_LAUNCHES = {}
+
+
+def reset_sweep_launches():
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    sweep.reset_launches()
+
+
+def read_sweep_launches(label=None):
+    """The sweep kernels' launch counts; with ``label``, recorded for the
+    kernels line and required non-zero (each path of the sweep runs all
+    three)."""
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    got = dict(sweep.LAUNCHES)
+    if label is not None:
+        if not all(got[k] > 0 for k in SWEEP_KERNELS):
+            raise AssertionError(f"{label}: a sweep kernel did not launch: "
+                                 f"{got}")
+        SWEEP_LAUNCHES[label] = got
+    return got
+
+
+def _sweep_lanes(x, y, side, nc):
+    """The sweep step's lanes of sorted positions: key, pos, occupancy."""
+    from particlesimulation_tpu_torch.ops import binning
+
+    key, _ = binning.cell_keys(x, y, side, nc)
+    pos, _ = binning.segment_positions(key)
+    return key, pos, binning.occupancy(key, nc * nc)
+
+
+def _alive_pairs(key, alive, ncells):
+    """(unordered same-cell pairs of alive lanes, alive lanes in cells, the
+    lanes in cells): the work the pair passes' functions need."""
+    real = key < ncells
+    a = torch.zeros(ncells + 1, dtype=torch.float64, device=key.device)
+    a.index_add_(0, key.long(), (alive & real).double())
+    return (float((a * (a - 1) / 2).sum()), float(a.sum()),
+            int(real.sum()))
+
+
+def _sweep_bounds(key, alive, plan, ncells, dtype):
+    """{kernel: (bound_ms, bound_by)}: each input read once, each output
+    written once; the operations the function needs on these lanes: the COM
+    9 a lane (parity: two divisions, four products, three sums; fast: two
+    products, three sums a lane, two divisions a cell); the forces 17 an
+    unordered pair of alive lanes in one cell (their term once, added to
+    both ends; parity's division and square root counted as one operation
+    each) and 17 a monopole term of an alive lane, 8 a lane; the collision
+    test 6 an unordered alive pair (hits are rare, and the square root only
+    near EPSILON). float64 at 34 TFLOP/s, float32 at 67."""
+    n = key.shape[0]
+    s = 8 if dtype == torch.float64 else 4
+    peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
+    pairs, alive_lanes, lanes = _alive_pairs(key, alive, ncells)
+    lane_bytes = n * (4 + 8) + (ncells + 1) * 8   # key, pos; counts
+    work = {
+        "sweep_com": (lane_bytes + n * 3 * s + 3 * s * ncells, 9 * lanes),
+        "sweep_forces": (lane_bytes + n * (5 * s + 1)
+                         + 3 * 8 * (ncells + 1) * s,
+                         17 * pairs + 17 * 8 * alive_lanes),
+        "sweep_collisions": (lane_bytes + n * (2 * s + 2) + 8, 6 * pairs),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        mem, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+        out[k] = (max(mem, ops_ms), "bytes" if mem >= ops_ms else
+                  "operations")
+    return out, pairs
+
+
+def _sweep_term_sums(x, y, m, alive, key, plan, tables, ncells):
+    """Per lane, Σ|term| of its force in float64 (pair terms over the
+    occupancy sweep, then the 8 stencil terms): the scale of the f32 forces'
+    rounding."""
+    from particlesimulation_tpu_torch.config import G
+    from particlesimulation_tpu_torch.ops import forces
+
+    xd, yd, md = (t.double() for t in (x, y, m))
+    xq, yq, mq, aq, kq = forces.in_plan_order(plan, xd, yd, md, alive, key)
+    ka = forces.alive_cells(kq, aq)
+    sx, sy = torch.zeros_like(xq), torch.zeros_like(xq)
+    for o in range(1, plan.kmax):
+        n = plan.lanes[o]
+        lo, hi = slice(0, n - o), slice(o, n)
+        dx, dy = xq[hi] - xq[lo], yq[hi] - yq[lo]
+        d2 = dx * dx + dy * dy
+        on = (ka[lo] == ka[hi]) & (d2 > 0)
+        f = torch.where(on, G * mq[lo] * mq[hi] / torch.where(on, d2, 1.0)
+                        / torch.sqrt(torch.where(on, d2, 1.0)), 0.0)
+        tx, ty = f * dx.abs(), f * dy.abs()
+        sx[lo] += tx
+        sx[hi] += tx
+        sy[lo] += ty
+        sy[hi] += ty
+    sx, sy = forces.from_plan_order(plan, sx, sy)
+    kc = torch.clamp(key.long(), max=ncells)
+    on = alive & (key < ncells)
+    for l in range(8):
+        dx = tables[1][l][kc].double() - xd
+        dy = tables[2][l][kc].double() - yd
+        d2 = dx * dx + dy * dy
+        ok = on & (d2 > 0)
+        f = torch.where(ok, G * md * tables[0][l][kc].double()
+                        / torch.where(ok, d2, 1.0)
+                        / torch.sqrt(torch.where(ok, d2, 1.0)), 0.0)
+        sx += f * dx.abs()
+        sy += f * dy.abs()
+    return sx, sy
+
+
+def _cell_lanes(key, plan, ncells):
+    """Each lane's cell occupancy (0 for a sentinel lane)."""
+    return torch.where(key < ncells,
+                       plan.counts[torch.clamp(key.long(), max=ncells)], 0)
+
+
+def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
+    """(az) The three kernels against their plain versions on the card on
+    one set of lanes; returns the kernel calls (for timing) and the max
+    abs errors."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops import stencil
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    key, pos, plan = lanes_
+    ncells = nc * nc
+    parity = x.dtype == torch.float64
+    u = 2.0 ** -53 if parity else 2.0 ** -24
+
+    def com_k():
+        return sweep.sweep_com(key, pos, plan, x, y, m, ncells, parity)
+
+    def com_p():
+        return sweep.sweep_com_ref(key, pos, plan, x, y, m, ncells, parity)
+
+    ck, cp = com_k(), com_p()
+    tables = stencil.stencil_tables(*ck, side, nc)
+
+    def forces_k():
+        return sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
+                                  ncells, parity)
+
+    def forces_p():
+        return sweep.sweep_forces_ref(x, y, m, alive, key, pos, plan,
+                                      tables, ncells, parity)
+
+    def coll_k():
+        return sweep.sweep_collisions(x, y, alive, key, pos, plan, EPSILON,
+                                      ncells)
+
+    def coll_p():
+        return sweep.sweep_collisions_ref(x, y, alive, key, pos, plan,
+                                          EPSILON, ncells)
+
+    fk, fp = forces_k(), forces_p()
+    (nk, dk), (np_, dp) = coll_k(), coll_p()
+    errs = {"sweep_com": max(_max_diff(a, b) for a, b in zip(ck, cp)),
+            "sweep_forces": max(_max_diff(a, b) for a, b in zip(fk, fp)),
+            "sweep_collisions": float(int(nk) != int(np_))}
+    com_bits = all(_bits_equal(a, b) for a, b in zip(ck, cp))
+    force_bits = all(_bits_equal(a, b) for a, b in zip(fk, fp))
+    if int(nk) != int(np_) or not torch.equal(dk, dp):
+        raise AssertionError(f"{tag}: collisions {int(nk)} vs {int(np_)}, "
+                             f"dead sets equal {torch.equal(dk, dp)}")
+    if parity and not (com_bits and force_bits):
+        raise AssertionError(f"{tag}: parity COM bitwise {com_bits}, "
+                             f"forces bitwise {force_bits}")
+    note = ""
+    if not parity:
+        # COM: each cell's c sums in another order: |d Σ| <= c·u·Σ|terms|,
+        # and the quotients' relative error twice that plus an ulp.
+        kc = torch.clamp(key.long(), max=ncells)
+
+        def cell_sums(v):
+            return torch.zeros(ncells + 1, dtype=torch.float64,
+                               device=x.device).index_add_(0, kc, v)[:ncells]
+
+        c = cell_sums(torch.ones_like(x, dtype=torch.float64))
+        M = cell_sums(m.double())
+        tol_m = c * u * M + u * M
+        bad = (ck[0].double() - cp[0].double()).abs() > tol_m
+        for q, v in ((1, x), (2, y)):
+            S = cell_sums((m * v.abs()).double())
+            tol = (2 * c * u + 2 * u) * S / torch.where(M > 0, M, 1.0) + (
+                u * cp[q].double().abs())
+            bad |= (ck[q].double() - cp[q].double()).abs() > tol
+        if bool(bad.any()):
+            raise AssertionError(f"{tag}: f32 COM outside c·2^-24·Σ|terms| "
+                                 f"in {int(bad.sum())} cells")
+        if not force_bits:
+            # Forces: the same terms in the same order up to the rsqrt's
+            # ulps: (c + 8)·4·u·Σ|terms| a lane.
+            sx, sy = _sweep_term_sums(x, y, m, alive, key, plan, tables,
+                                      ncells)
+            cl = _cell_lanes(key, plan, ncells).double() + 8
+            for got, ref, s in ((fk[0], fp[0], sx), (fk[1], fp[1], sy)):
+                if bool(((got.double() - ref.double()).abs()
+                         > cl * 4 * u * s).any()):
+                    raise AssertionError(f"{tag}: f32 forces outside "
+                                         f"(c + 8)·4·2^-24·Σ|terms|")
+            note = " (f32 forces within (c + 8)·4·2^-24·Σ|terms|)"
+    # A second run, bit for bit.
+    again = [*com_k(), *forces_k(), *coll_k()]
+    first = [*ck, *fk, nk, dk]
+    if not all(_bits_equal(a, b) for a, b in zip(again, first)):
+        raise AssertionError(f"{tag}: a second run differs")
+    print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}, "
+          f"{int(nk)} collisions, {int(dk.sum())} deaths: COM bitwise "
+          f"{com_bits} (max |err| {errs['sweep_com']:.3e}), forces bitwise "
+          f"{force_bits} (max |err| {errs['sweep_forces']:.3e}){note}, "
+          f"count and dead set exact, a second run bit for bit", flush=True)
+    return {"sweep_com": (com_k, com_p), "sweep_forces": (forces_k, forces_p),
+            "sweep_collisions": (coll_k, coll_p)}, errs
+
+
+def _com_library(x, y, m, key, ncells):
+    """``index_add_`` of (m, m·x, m·y) onto the cells: one PyTorch call for
+    the fast COM's sums (timed only; the port never calls it)."""
+    src = torch.stack([m, m * x, m * y])
+    k = key.long()
+    out = torch.zeros((3, ncells + 1), dtype=x.dtype, device=x.device)
+    return lambda: out.index_add_(1, k, src)
+
+
+def _sweep_state(args, parity, steps=0):
+    """An engine's sorted sweep state on the card (after ``steps`` steps)."""
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    prec = Precision.PARITY if parity else Precision.FAST
+    eng = Engine(SimConfig(*args[:4], precision=prec), impl="sweep",
+                 device="cuda")
+    state = eng.init_state()
+    return eng.run(state, steps) if steps else state
+
+
+def check_sweep_kernels(card):
+    """(az) The sweep's three kernels against their plain versions on the
+    card: the sorted states of parity s1, the f32 sweep at s1 and MEDIUM
+    (f32 and f64), each also after one step, and the adversarial lanes of
+    ``adversarial.sweep_particles`` (sorted, and in the mesh's layout) in
+    both precisions; each kernel timed at parity s1, the f32 sweep at s1
+    and MEDIUM against its bound and its plain version. Returns
+    {kernel: record} at parity s1 (the CLI's default path)."""
+    from particlesimulation_tpu_torch.ops import binning
+    from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
+
+    t0 = time.perf_counter()
+    side, nc = adv.SWEEP_SIDE, adv.SWEEP_NCSIDE
+    for case in ("planted", "hot"):
+        for dtype in (torch.float64, torch.float32):
+            xs, ys, ms, al = adv.sweep_particles(case)
+            x, y, m = (torch.from_numpy(a).to(dtype) for a in (xs, ys, ms))
+            key, _ = binning.cell_keys(x, y, side, nc)
+            key, _, x, y, m, alive = binning.sort_by_cell(
+                key, torch.arange(x.shape[0], dtype=torch.int32), x, y, m,
+                torch.from_numpy(al))
+            pos, _ = binning.segment_positions(key)
+            for layout in ("sorted", "mesh"):
+                perm = (torch.from_numpy(adv.mesh_lane_order(
+                    key.numpy(), nc * nc)) if layout == "mesh"
+                    else torch.arange(x.shape[0]))
+                lx, ly, lm, la, lk, lp = (t[perm].contiguous().cuda()
+                                          for t in (x, y, m, alive, key, pos))
+                plan = binning.occupancy(lk, nc * nc)
+                _check_sweep_outputs(
+                    f"sweep kernels, adversarial {case} {dtype} {layout}",
+                    (lk, lp, plan), lx, ly, lm, la, side, nc)
+    recs, times = None, {}
+    for label, args, parity in (("parity s1", GOLDEN_S1, True),
+                                ("f32 sweep s1", GOLDEN_S1, False),
+                                ("MEDIUM f32", MEDIUM, False),
+                                ("MEDIUM f64", MEDIUM, True)):
+        side, nc = float(args[1]), args[2]
+        for steps in (0, 1):
+            st = _sweep_state(args, parity, steps)
+            lanes_ = _sweep_lanes(st.x, st.y, side, nc)
+            calls, errs = _check_sweep_outputs(
+                f"sweep kernels, {label} after {steps} steps", lanes_, st.x,
+                st.y, st.m, st.alive, side, nc)
+        if label == "MEDIUM f64":
+            continue  # checked; timed through the golden phase's MEDIUM
+        key, pos, plan = lanes_
+        bounds, pairs = _sweep_bounds(key, st.alive, plan, nc * nc,
+                                      st.x.dtype)
+        out = {}
+        for k in SWEEP_KERNELS:
+            kern, plain = calls[k]
+            rec = _kernel_times(kern, plain)
+            rec.update(max_abs_err=errs[k], bound_ms=bounds[k][0],
+                       bound_by=bounds[k][1], library_ms=None)
+            if k == "sweep_com" and not parity:
+                lib = _com_library(st.x, st.y, st.m, key, nc * nc)
+                rec["library_ms"] = _timed(lib, 20)
+                rec["library_device_ms"] = device_ms(lib, 20)
+            out[k] = rec
+            print(f"{label} {k}: {rec['ms']:.4f} ms a call, "
+                  f"{rec['device_ms']:.4f} device ms, bound "
+                  f"{rec['bound_ms']:.4f} ({rec['bound_by']}; "
+                  f"{pairs:.4g} alive pairs), plain {rec['plain_ms']:.4f} "
+                  f"ms" + (f", index_add_ {rec['library_ms']:.4f} ms a call "
+                           f"({rec['library_device_ms']:.4f} device)"
+                           if rec["library_ms"] is not None else "")
+                  + f" on {card}", flush=True)
+        times[label] = out
+        recs = recs or out
+    print(f"sweep kernel phase (az): {time.perf_counter() - t0:.1f} s; "
+          f"SWEEP_KERNEL_TIMES {json.dumps(times)}", flush=True)
+    return recs
+
+
+def check_cli_parity_inprocess():
+    """(a) The CLI's default (parity on cuda) on golden s1 in-process, with
+    the launch counts set to 0 just before: golden s1's lines exactly, the
+    three sweep kernels launched. Returns the launch counts."""
+    from particlesimulation_tpu_torch import cli
+
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    args = [str(seed), str(int(side)), str(nc), str(n), str(steps)]
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_sweep_launches()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = read_sweep_launches("CLI parity s1 (in-process)")
+    lines = out.getvalue().splitlines()
+    print(f"CLI {' '.join(args)} (parity, cuda) in-process: rc {rc}, "
+          f"{lines}, launches {launches}", flush=True)
+    if rc != 0 or lines != [f"{ex:.3f} {ey:.3f}", str(ec)]:
+        raise AssertionError("CLI parity in-process")
+    return launches
+
+
+def run_golden(vectors, required):
+    """(ba) The reference's golden vectors through the default CLI (parity
+    on cuda), a process each: with ``required``, each must print its two
+    lines exactly; else (--golden-long) each result is printed whatever it
+    is. Returns [(vector, lines, seconds)]."""
+    out = []
+    for seed, side, nc, n, steps, ex, ey, ec in vectors:
+        args = [str(seed), str(side), str(nc), str(n), str(steps)]
+        want = [f"{ex:.3f} {ey:.3f}", str(ec)]
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "particlesimulation_tpu_torch", *args], cwd=ROOT,
+                           capture_output=True, text=True, timeout=1800)
+        sec = time.perf_counter() - t
+        lines = r.stdout.splitlines()
+        timing = (r.stderr.strip().splitlines() or [""])[-1]
+        ok = r.returncode == 0 and lines == want
+        print(f"golden {' '.join(args)} through the CLI (parity, cuda): "
+              f"{lines} (golden {want}) {'MATCH' if ok else 'DIFFERS'}; "
+              f"{timing} on stderr, {sec:.1f} s with the process start",
+              flush=True)
+        if required and not ok:
+            raise AssertionError(f"golden {args}: rc {r.returncode}, "
+                                 f"{lines}, stderr {r.stderr[-2000:]}")
+        out.append((args, lines, sec))
+    return out
+
+
+def checkout_sweep_times(root):
+    """(bb) With the port package of the checkout at ``root``: parity s1,
+    the f32 sweep at s1 and MEDIUM by the default census (the sweep under
+    dense_backend="pallas"): ms/step (step_ms over 4 steps), device ms/step,
+    idle share, launches and syncs a step (2 steps profiled; MEDIUM 1), and
+    the digest of each run's final state after 4 steps. Prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+
+    card = _card()
+    seed, side, nc, n = GOLDEN_S1[:4]
+    out = {}
+    for label, make, steps in (
+            ("parity s1", lambda: _parity(seed, side, nc, n, "cuda"), 2),
+            ("f32 sweep s1", lambda: Engine(SimConfig(seed, side, nc, n),
+                                            impl="sweep", device="cuda"), 2),
+            ("MEDIUM default", lambda: Engine(SimConfig(*MEDIUM[:4]),
+                                              device="cuda"), 1)):
+        eng = make()
+        state = eng.init_state()
+        final = eng.run(state, 4)
+        if eng.impl != "sweep":
+            raise AssertionError(f"{root}: {label} ran {eng.impl}")
+        ms, t1, tk = step_ms(eng, state, 4, reps=1)
+        rec = {"ms_per_step": ms, **device_breakdown(
+            f"{root}: {label}", eng, state, ms, steps)}
+        rec["digest"] = digest([getattr(final, f) for f in final._fields])
+        out[label] = rec
+        print(f"{root}: {label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, "
+              f"run(5) {tk:.4f} s), final digest {rec['digest'][:16]}",
+              flush=True)
+        del eng, state, final
+        torch.cuda.empty_cache()
+    print(f"sweep times {root} on {card}", flush=True)
+    print("SWEEP_TIMES " + json.dumps(out), flush=True)
+
+
+def sweep_times_of_all(roots):
+    """--sweep-times: each checkout in a process of its own, in turns;
+    fails unless every run's final states have the same digests, path by
+    path."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--sweep-times-of", root], cwd=ROOT,
+                              capture_output=True, text=True)
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"--sweep-times-of {root}: exit "
+                             f"{proc.returncode}")
+        line = next(l for l in proc.stdout.splitlines()
+                    if l.startswith("SWEEP_TIMES "))
+        runs.append((root, json.loads(line.split(" ", 1)[1])))
+    for label in runs[0][1]:
+        for root, rec in runs:
+            r = rec[label]
+            print(f"{label} | {root}: {r['ms_per_step']:.4f} ms/step, "
+                  f"{r['device_ms']:.4f} device ms/step, idle "
+                  f"{r['idle']:.1%}, {r['launches']:.1f} launches, "
+                  f"{r['syncs']:.2f} syncs a step; digest "
+                  f"{r['digest'][:16]}", flush=True)
+        if len({rec[label]["digest"] for _, rec in runs}) != 1:
+            raise SystemExit(f"{label}: the checkouts' final states differ")
+
+
+def check_sweep(card):
+    """(az, ba) The sweep kernels against their plain versions and timed,
+    then the heavy golden vectors through the default CLI. Returns the
+    kernels' records."""
+    recs = check_sweep_kernels(card)
+    t = time.perf_counter()
+    run_golden(HEAVY_GOLDEN, required=True)
+    print(f"golden phase (ba): {time.perf_counter() - t:.1f} s", flush=True)
+    return recs
+
+
+def sweep_entries(recs):
+    """The sweep kernels' records in the kernels line, their launches summed
+    over the sweep paths this run drove (SWEEP_LAUNCHES)."""
+    return [kernel_entry(k, sum(v[k] for v in SWEEP_LAUNCHES.values()),
+                         recs[k], SWEEP_SOURCE) for k in SWEEP_KERNELS]
+
+
 def build_libraries():
-    """Build the three kernel libraries from the checkout's sources, one
+    """Build the four kernel libraries from the checkout's sources, one
     nvcc each, started together; print each one's -Xptxas -v report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from particlesimulation_tpu_torch.ops.cuda import (advance, cell_pairs,
-                                                       direct_nbody)
+                                                       direct_nbody, sweep)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda f: f(), (
-            cell_pairs.build, advance.build,
+            cell_pairs.build, advance.build, sweep.build,
             lambda: cell_pairs.build(direct_nbody.SOURCE))))
     for lib in libs:
-        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the three)",
+        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the four)",
               flush=True)
         with open(f"{lib}.log") as f:
             print(f.read().strip(), flush=True)
@@ -4273,6 +4831,34 @@ def main():
                                      else "dense_forces"], rec)
             for k, rec in recs.items()]}))
         return
+    if sys.argv[1:2] == ["--sweep"]:
+        # The sweep's phases alone: (a)-(g), then az-ba.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        check_cli_parity()
+        check_cli_parity_inprocess()
+        check_parity_golden()
+        check_parity_card_vs_cpu()
+        check_f32_sweep()
+        medium = check_medium()
+        check_cli_fast()
+        time_sweeps(card, medium)
+        recs = check_sweep(card)
+        print(json.dumps({"kernels": sweep_entries(recs)}))
+        return
+    if sys.argv[1:2] == ["--golden-long"]:
+        # The four long-horizon golden vectors, recorded whatever they give.
+        print(_card(), flush=True)
+        build_libraries()
+        run_golden(LONG_GOLDEN, required=False)
+        return
+    if sys.argv[1:2] == ["--sweep-times"]:
+        sweep_times_of_all(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--sweep-times-of"]:
+        checkout_sweep_times(sys.argv[2])
+        return
     if sys.argv[1:2] == ["--direct"]:
         # Phases al-aq alone.
         card = _card()
@@ -4409,6 +4995,7 @@ def main():
     # 8. The sweep engine (f64 parity and f32) and the CLI.
     t_sweep = time.perf_counter()
     check_cli_parity()
+    check_cli_parity_inprocess()
     check_parity_golden()
     check_parity_card_vs_cpu()
     check_f32_sweep()
@@ -4417,6 +5004,9 @@ def main():
     sweep_times = time_sweeps(card, medium)
     print(f"sweep and CLI phases: {time.perf_counter() - t_sweep:.1f} s; "
           f"per step {json.dumps(sweep_times)}", flush=True)
+    # The sweep's kernels against their plain versions, timed (az), and the
+    # heavy golden vectors through the default CLI (ba).
+    sweep_recs = check_sweep(card)
 
     # 9. The supercell engine at SMALL.
     sub_rec, sums_rec, small_launches, small_cli = check_small(card)
@@ -4483,6 +5073,7 @@ def main():
                                    medium_launches),
                        adv_recs[k], ADVANCE_SOURCE)
           for k in ADVANCE_KERNELS),
+        *sweep_entries(sweep_recs),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -29,8 +29,10 @@ Counterpart of the JAX package's ``engine.py``. Six implementations:
 * ``sweep`` (``make_step``) — neighbor-offset sweeps over the sorted
   particle arrays, with no tile capacity to outgrow: the f64 parity engine
   (the reference's operation order, bit for bit) and, in f32, the last rung
-  of the ladder and the census's engine for small sparse grids. Plain torch,
-  as in the JAX package (XLA code there, not Pallas).
+  of the ladder and the census's engine for small sparse grids. Its COM,
+  force and collision passes are three hand-written kernels on the GPU
+  (``ops/cuda/sweep``; XLA loops in the JAX package), the keys, the sort and
+  the integrator plain torch.
 
 A tile engine's run is a Python loop over steps on the device with no host
 readback inside it; the engine reads the overflow counter once per run and,
@@ -48,15 +50,15 @@ import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
-from particlesimulation_tpu_torch.ops import (binning, collisions, com, dense,
-                                              forces, integrate, stencil)
+from particlesimulation_tpu_torch.ops import (binning, collisions, dense,
+                                              integrate, stencil)
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.banded import (grow_plan,
                                                      make_banded_run,
                                                      plan_bands,
                                                      uniform_band_plan)
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
-from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda import cell_pairs, sweep
 from particlesimulation_tpu_torch.ops.supercell import (choose_supercell_factor,
                                                         make_supercell_run)
 from particlesimulation_tpu_torch.ops.tiered import make_tiered_step, plan_tiers
@@ -96,36 +98,38 @@ def make_step(config: SimConfig):
     """Build (step, run) of the sweep engine: parity (f64, the reference's
     operation order) or fast (f32, order-free), by ``config.precision``.
 
-    ``step(state, plan)`` takes a state sorted by (cell key, pid) and
-    ``plan``, the ``binning.occupancy`` of its keys, and returns the next
-    state and the occupancy of its keys. The post-move sort of step t is the
-    binning of step t+1 (positions do not change between the collision pass
-    and the next COM pass), so a step sorts once and reads the occupancy
-    back once; ``run(state, n_steps)`` adds one read for the first step.
+    ``step(state, lanes)`` takes a state sorted by (cell key, pid) and
+    ``lanes``, the (key, pos, plan) of its positions: each lane's cell key
+    (int32), its position in its cell (``binning.segment_positions``) and
+    the keys' ``binning.occupancy``; it returns the next state and its
+    lanes. The post-move sort of step t is the binning of step t+1
+    (positions do not change between the collision pass and the next COM
+    pass), so a step sorts once and reads the occupancy back once;
+    ``run(state, n_steps)`` adds one read for the first step. The three
+    passes are ``ops/cuda/sweep``'s wrappers: the kernels on a CUDA device,
+    ``ops/com``, ``ops/forces`` and ``ops/collisions`` on the CPU.
     """
     side = config.side
     nc = config.ncside
     ncells = config.ncells
     parity = config.precision is Precision.PARITY
 
-    def step(state: SimState, plan):
+    def lanes_of(x, y):
+        key, _ = binning.cell_keys(x, y, side, nc)
+        pos, _ = binning.segment_positions(key)
+        return key, pos, binning.occupancy(key, ncells)
+
+    def step(state: SimState, lanes):
         x, y, vx, vy, m, alive, pid = (state.x, state.y, state.vx, state.vy,
                                        state.m, state.alive, state.pid)
+        key, pos, plan = lanes
         # Phase 1 — COM (the arrays arrive sorted by this key).
-        key, valid = binning.cell_keys(x, y, side, nc)
-        if parity:
-            M, MX, MY = com.com_parity(key, x, y, m, ncells, plan)
-            fx, fy = forces.pairwise_forces_parity_blocked(
-                x, y, m, alive, key, ncells, plan)
-        else:
-            M, MX, MY = com.com_fast(key, x, y, m, ncells, plan)
-            fx, fy = forces.pairwise_forces_fast(x, y, m, alive, key, ncells,
-                                                 plan)
-        # Phase 2 — forces: the pair sweeps above, then the 8 stencil
+        M, MX, MY = sweep.sweep_com(key, pos, plan, x, y, m, ncells, parity)
+        # Phase 2 — forces: the same-cell pairs, then the 8 stencil
         # monopole terms.
-        ml, mxl, myl = stencil.stencil_tables(M, MX, MY, side, nc)
-        fx, fy = forces.monopole_forces(x, y, m, alive, key, fx, fy, ml, mxl,
-                                        myl, ncells)
+        tables = stencil.stencil_tables(M, MX, MY, side, nc)
+        fx, fy = sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
+                                    ncells, parity)
         # Phase 3 — integrate + periodic wrap.
         x, y, vx, vy = integrate.integrate(x, y, vx, vy, m, fx, fy, side,
                                            DELTAT)
@@ -135,23 +139,24 @@ def make_step(config: SimConfig):
             key2, pid, x, y, vx, vy, m, alive)
         pos2, _ = binning.segment_positions(key2)
         plan2 = binning.occupancy(key2, ncells)
-        count, died = collisions.detect_collisions_blocked(
-            x, y, alive, key2, pos2, EPSILON, ncells, plan2)
+        count, died = sweep.sweep_collisions(x, y, alive, key2, pos2, plan2,
+                                             EPSILON, ncells)
         m, alive = collisions.apply_deaths(m, alive, died)
         overflow = state.overflow
         if collisions.rank_overflow(plan2.kmax):
             overflow = torch.clamp(overflow, min=RANK_OVF)
+        # The step's panics: the lanes out of range at its start, the
+        # sentinel key's count.
         return SimState(
             x=x, y=y, vx=vx, vy=vy, m=m, alive=alive, pid=pid,
             collisions=state.collisions + count,
-            panics=state.panics + torch.sum(~valid, dtype=torch.int32),
-            overflow=overflow), plan2
+            panics=state.panics + plan.counts[ncells].to(torch.int32),
+            overflow=overflow), (key2, pos2, plan2)
 
     def run(state: SimState, n_steps: int) -> SimState:
-        key, _ = binning.cell_keys(state.x, state.y, side, nc)
-        plan = binning.occupancy(key, ncells)
+        lanes = lanes_of(state.x, state.y)
         for _ in range(n_steps):
-            state, plan = step(state, plan)
+            state, lanes = step(state, lanes)
         return state
 
     return step, run

@@ -14,47 +14,60 @@ package; in torch they are host integers, which ``occupancy`` reads back.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
 
 import numpy as np
 import torch
 
 
-class Occupancy(NamedTuple):
+class Occupancy:
     """Cell occupancy of a (key, pid)-sorted particle array, as the sweeps
     (``ops/com``, ``ops/forces``, ``ops/collisions``) take it: trip counts on
-    the host, a lane order on the device.
+    the host, a lane order and the per-key counts on the device.
 
     ``order`` lists the lanes cell by cell, the cells by occupancy descending
     (ties by key), each cell's lanes in their sorted order, then the
     out-of-range (sentinel) lanes. So the cells holding more than ``o``
     particles are the first ``lanes[o]`` lanes of that order, and a partner
-    at ``pos ± o`` in the same cell sits at ``± o`` there too.
+    at ``pos ± o`` in the same cell sits at ``± o`` there too. Only the plain
+    sweeps read it, so it is sorted at first use: the sweep kernels
+    (``ops/cuda/sweep``) take each lane's cell from its key, its position
+    and ``counts``.
     """
 
-    kmax: int            # the most particles in one real cell
-    lanes: list          # lanes[o], o < kmax: lanes of cells holding > o
-    cells: list          # cells[p], p < kmax: cells holding > p
-    order: torch.Tensor  # (N,) int64 lane permutation
+    def __init__(self, kmax: int, lanes: list, cells: list,
+                 counts: torch.Tensor, key: torch.Tensor):
+        self.kmax = kmax      # the most particles in one real cell
+        self.lanes = lanes    # lanes[o], o < kmax: lanes of cells holding > o
+        self.cells = cells    # cells[p], p < kmax: cells holding > p
+        self.counts = counts  # (ncells + 1,) int64: lanes a key, sentinel last
+        self._key = key
+
+    @functools.cached_property
+    def order(self) -> torch.Tensor:
+        """(N,) int64 lane permutation (the class docstring)."""
+        k, counts = self._key, self.counts
+        ncells = counts.shape[0] - 1
+        # Sentinel lanes sort last.
+        return torch.sort(torch.where(k < ncells, -counts[k], 0),
+                          stable=True).indices
 
 
 def occupancy(key_sorted, ncells: int) -> Occupancy:
-    """The occupancy of sorted cell keys; sentinel keys (``ncells``) count in
-    no cell. Reads the per-cell counts back to the host: one synchronising
-    copy of ``ncells`` integers."""
+    """The occupancy of sorted cell keys (or of keys whose cells are
+    contiguous); sentinel keys (``ncells``) count in no cell. Reads the
+    per-cell counts back to the host: one synchronising copy of ``ncells``
+    integers."""
     k = key_sorted.to(torch.int64)
     counts = torch.zeros(ncells + 1, dtype=torch.int64, device=k.device)
     counts.index_add_(0, k, torch.ones_like(k))
-    # Sentinel lanes sort last.
-    order = torch.sort(torch.where(k < ncells, -counts[k], 0),
-                       stable=True).indices
     host = counts[:ncells].cpu().numpy()
     kmax = int(host.max())
     hist = np.bincount(host, minlength=kmax + 1)  # cells by occupancy
     cells_ge = np.cumsum(hist[::-1])[::-1]
     lanes_ge = np.cumsum((hist * np.arange(kmax + 1))[::-1])[::-1]
     return Occupancy(kmax, lanes_ge[1:].tolist(), cells_ge[1:].tolist(),
-                     order)
+                     counts, k)
 
 
 def cell_of(x, y, side: float, ncside: int):

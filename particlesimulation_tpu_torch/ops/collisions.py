@@ -21,6 +21,11 @@ error so that both behave alike.
 Distances use post-move positions on freshly rebuilt buckets (the
 reference's incrementally-repaired buckets are buggy; a clean rebuild
 reproduces every golden vector).
+
+:func:`detect_collisions_blocked` is the plain version of the sweep's
+collision kernel: the engines reach it through
+``ops/cuda/sweep.sweep_collisions``, which runs it for CPU tensors and the
+kernel for CUDA tensors.
 """
 
 from __future__ import annotations

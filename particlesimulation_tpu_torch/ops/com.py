@@ -18,6 +18,10 @@ Two formulations:
 Both return flat ``(ncells,)`` tensors indexed by ``cy*ncside + cx``; empty
 cells hold zeros (the reference's freshly-assigned ``Cell{}``,
 serial/parsim.cpp:263-264).
+
+These are the plain versions of the sweep's COM kernel: the engines reach
+them through ``ops/cuda/sweep.sweep_com``, which runs them for CPU tensors
+and the kernel for CUDA tensors.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ The pair kernels compact the used or alive slots of a row, test the pairs
 of neighbouring x buckets and count first pairs from an inverse rank table;
 the fused kernel compacts the used slots again after its collision phase.
 ``adversarial_tiles`` builds one row for each
-case that structure can get wrong, and ``plant_direct_cases`` the same
-kind of cases among the particles of the direct model's all-pairs passes;
+case that structure can get wrong, ``plant_direct_cases`` the same
+kind of cases among the particles of the direct model's all-pairs passes,
+and ``sweep_particles`` (with ``mesh_lane_order``) the lanes the sweep
+kernels' per-lane order and cell bounds risk;
 the CPU tests hold the plain versions against the JAX package's kernels on
 them, and ``chip_smoke.py`` holds the CUDA kernels against the plain
 versions on them. NumPy only, so that both
@@ -420,3 +422,66 @@ def settle_case(kcap: int, seed: int = 0):
     ft = np.where(dies, rng.integers(0, kcap * kcap, live.shape),
                   0x7FFFFFFF).astype(np.int32)
     return fields, ft, side, nc
+
+
+# The sweep cases' box: a 3 x 3 grid of side 4.
+SWEEP_SIDE, SWEEP_NCSIDE = 4.0, 3
+
+
+def sweep_particles(case: str, seed: int = 7):
+    """(x, y, m, alive): float64 and bool particles in pid order on the
+    ``SWEEP_SIDE`` box of ``SWEEP_NCSIDE``² cells, for the sweep's passes.
+    ``case``:
+
+    * "planted" (300 particles): pids 0 and 1 open cell (0, 0), pid 0
+      massless and dead, pid 1 live (the parity COM adopts pid 1's
+      position); pids 2-4 in cell (2, 0) with the massless pid 3 between
+      them; pids 5 and 6 live at one position in cell (0, 1) (a coincident
+      pair: it collides, and feels no pair force); pids 7 and 8 live at one
+      position out of the box (sentinel keys: no pair term, no collision);
+      pids 9-11 in cell (2, 2) on a line, 0.6·EPSILON apart (the chain
+      A-B, B-C: one count, three deaths); the rest random, ~10% dead;
+    * "hot" (600 particles): 40% of them in cell (1, 1), ~10% dead.
+    """
+    rng = np.random.default_rng(seed)
+    side, w = SWEEP_SIDE, SWEEP_SIDE / SWEEP_NCSIDE
+    n = 600 if case == "hot" else 300
+    x, y = rng.uniform(0, side, n), rng.uniform(0, side, n)
+    if case == "hot":
+        k = int(0.4 * n)
+        x[:k] = rng.uniform(w, 2 * w, k)
+        y[:k] = rng.uniform(w, 2 * w, k)
+    m = rng.uniform(0.5, 2.0, n)
+    alive = rng.uniform(size=n) > 0.1
+    if case == "planted":
+        def put(i, cx, cy, dx=0.0, dy=0.0):
+            x[i], y[i] = (cx + 0.5) * w + dx, (cy + 0.5) * w + dy
+
+        put(0, 0, 0)
+        put(1, 0, 0, 0.1, 0.05)
+        for i, d in zip((2, 3, 4), (-0.2, 0.0, 0.2)):
+            put(i, 2, 0, d, d)
+        put(5, 0, 1)
+        put(6, 0, 1)
+        x[7] = x[8] = side + 0.25
+        y[7] = y[8] = 0.5
+        for i, d in zip((9, 10, 11), (0.0, 0.6, 1.2)):
+            put(i, 2, 2, d * EPSILON)
+        alive[:12] = True
+        alive[[0, 3]] = False
+    m[~alive] = 0.0
+    return x, y, m, alive
+
+
+def mesh_lane_order(key, ncells: int):
+    """A permutation of sorted lanes (cell keys ``key``, NumPy) into the
+    layout of the mesh's slabs: each cell's lanes contiguous and in order,
+    but the cells out of key order, sentinel lanes (key >= ncells) between
+    them: the cells of the upper half of the keys, half the sentinel lanes,
+    the lower cells, the other sentinel lanes."""
+    key = np.asarray(key)
+    half = ncells // 2 + 1
+    sent = np.flatnonzero(key >= ncells)
+    return np.concatenate([
+        np.flatnonzero((key >= half) & (key < ncells)), sent[:len(sent) // 2],
+        np.flatnonzero(key < half), sent[len(sent) // 2:]])

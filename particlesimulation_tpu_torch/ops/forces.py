@@ -43,6 +43,11 @@ Every divisor is a tensor on the operands' device: torch divides by a CPU
 scalar on CUDA as a multiplication by its reciprocal, which can differ from
 IEEE division in the last bit. Each operation is its own eager kernel, so
 ``dx*dx + dy*dy`` has no FMA in it on either device.
+
+The occupancy sweeps followed by :func:`monopole_forces` are the plain
+version of the sweep's force kernel: the engines reach them through
+``ops/cuda/sweep.sweep_forces``, which runs them for CPU tensors and the
+kernel (pairs and monopole terms in one pass) for CUDA tensors.
 """
 
 from __future__ import annotations

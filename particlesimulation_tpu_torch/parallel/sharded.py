@@ -23,10 +23,12 @@ Each cell lives wholly on one shard and its particles keep pid order, so
 per-cell arithmetic is the single-device sweep's: the f64 run is bitwise
 equal to the single-device parity engine (and to the JAX sharded engine).
 The sweeps run once over all the local shards' lanes: shard l's local cell
-c gets the key ``l * ncells_local + c``, so ``ops/com``, ``ops/forces`` and
-``ops/collisions`` run unchanged, cell by cell, with one occupancy readback
-a step as on one device; the halo tables are built per shard from global
-coordinates.
+c gets the key ``l * ncells_local + c``, so the sweep's three passes
+(``ops/cuda/sweep``: the kernels on the card, ``ops/com``, ``ops/forces``
+and ``ops/collisions`` on the CPU) run unchanged, cell by cell, on each
+lane's batched key and its position in its cell, with one occupancy
+readback a step as on one device; the halo tables are built per shard from
+global coordinates.
 
 Migration runs D-1 ring hops every step. The JAX engine gates its hops on
 a ``psum`` of the pending emigrants, a value the host would read each hop;
@@ -61,11 +63,11 @@ import torch
 from particlesimulation_tpu_torch import engine as single
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
-from particlesimulation_tpu_torch.ops import (binning, collisions, com, forces,
-                                              integrate)
+from particlesimulation_tpu_torch.ops import binning, collisions, integrate
 from particlesimulation_tpu_torch.ops.banded import (grow_plan, plan_bands,
                                                      plan_bands_cyclic,
                                                      uniform_band_plan)
+from particlesimulation_tpu_torch.ops.cuda import sweep
 from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
 from particlesimulation_tpu_torch.ops.tiered import plan_tiers
@@ -237,7 +239,8 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         that keeps the out-of-range and empty lanes of each shard apart)."""
         real = key < ncells
         lk = local_cell(key, real)
-        bkey = torch.where(real, lpos * ncl + lk, nb).reshape(-1)
+        bkey = torch.where(real, lpos * ncl + lk, nb).reshape(-1).to(
+            torch.int32)
         skey = lpos * (ncl + 2) + torch.where(real, lk, key - ncells + ncl)
         pos, _ = binning.segment_positions(skey.reshape(-1))
         return bkey, pos
@@ -249,18 +252,10 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         key, _ = _slab_key(x, y, valid, side, nc)
         bkey, pos = lanes(key)
         X, Y, Mf, Af = (a.reshape(-1) for a in (x, y, m, alive))
-        if parity:
-            M, MX, MY = com.com_parity(bkey, X, Y, Mf, nb, plan, pos)
-            fx, fy = forces.pairwise_forces_parity_blocked(X, Y, Mf, Af,
-                                                           bkey, nb, plan)
-        else:
-            M, MX, MY = com.com_fast(bkey, X, Y, Mf, nb, plan, pos)
-            fx, fy = forces.pairwise_forces_fast(X, Y, Mf, Af, bkey, nb,
-                                                 plan)
-        # ---- COM halo, then the monopole terms ----
-        ml, mxl, myl = tables(M, MX, MY)
-        fx, fy = forces.monopole_forces(X, Y, Mf, Af, bkey, fx, fy, ml, mxl,
-                                        myl, nb)
+        M, MX, MY = sweep.sweep_com(bkey, pos, plan, X, Y, Mf, nb, parity)
+        # ---- COM halo, then the pair and monopole terms ----
+        fx, fy = sweep.sweep_forces(X, Y, Mf, Af, bkey, pos, plan,
+                                    tables(M, MX, MY), nb, parity)
         # ---- integrate + wrap ----
         x, y, vx, vy = (a.view(L, -1) for a in integrate.integrate(
             X, Y, vx.reshape(-1), vy.reshape(-1), Mf, fx, fy, side, DELTAT))
@@ -282,9 +277,9 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
             key3, pid, x, y, vx, vy, m, alive, valid)
         bkey3, pos3 = lanes(key3)
         plan2 = binning.occupancy(bkey3, nb)
-        count, died = collisions.detect_collisions_blocked(
+        count, died = sweep.sweep_collisions(
             x.reshape(-1), y.reshape(-1), alive.reshape(-1), bkey3, pos3,
-            EPSILON, nb, plan2)
+            plan2, EPSILON, nb)
         m, alive = collisions.apply_deaths(m.reshape(-1), alive.reshape(-1),
                                            died)
         # Counts add up; the rank sentinel is combined by maximum, as on
