@@ -58,9 +58,9 @@ az. each kernel against its plain version on the card (``sweep_*_ref``):
    (``adversarial.mesh_lane_order``: cells contiguous but out of key
    order, sentinel lanes between them), in both precisions: parity bit for
    bit; the collision count and the dead set exact; f32 forces bit for bit
-   or within the tolerance below, f32 COM within its tolerance; a second
-   run bit for bit. Each kernel timed (ms, device ms) at parity s1, the f32
-   sweep at s1 and MEDIUM against its bound and its plain version; the
+   too, f32 COM within its tolerance; a second run bit for bit. Each
+   kernel timed (ms, device ms) at parity s1, the f32 sweep at s1 and
+   MEDIUM in f32 and f64 against its bound and its plain version; the
    fast COM beside ``index_add_`` of (m, m·x, m·y) onto the cells;
 ba. the reference's heavy golden vectors through the default CLI (parity on
    cuda), a process each, their lines exactly: ``1 5000 100 1000000 100``
@@ -381,9 +381,8 @@ Tolerances:
   * collision outputs (ft, count, collisions, dead set) are exact;
   * the sweep kernels: parity (float64) bit for bit their plain versions
     (the same operations in each lane's order, no FMA, IEEE division and
-    square root); in float32 the forces bit for bit where ``rsqrtf`` gives
-    torch.rsqrt's bits, else within (c + 8)·4·2⁻²⁴·Σ|terms| a lane (c the
-    lane's cell occupancy; the terms' magnitudes summed in float64); the
+    square root); in float32 the forces bit for bit too (``rsqrtf`` is
+    the instruction torch.rsqrt runs: any difference fails); the
     fast COM within c·2⁻²⁴·M + 2⁻²⁴·M for M and (2c + 2)·2⁻²⁴·Σm|x|/M +
     2⁻²⁴·|MX| for the quotients (each cell's c terms summed in position
     order, the plain version's torch.sum in another);
@@ -2940,8 +2939,9 @@ def check_step(label, eng, state, most, exact, steps=10, tries=3):
     on a synchronisation, on more than ``most`` launches, and with
     ``exact``, unless the two counts agree (every launch a wrapper's). The
     profiler has been seen to hand a session's kernel records to the next
-    one, so a profile that disagrees is taken again, up to ``tries``
-    times."""
+    one, so a profile that disagrees (with ``exact``, with the wrappers'
+    count; else with itself: a count that is not a whole number a step)
+    is taken again, up to ``tries`` times."""
     def counted(n):
         torch.cuda.synchronize()
         reset_launches()
@@ -2959,7 +2959,7 @@ def check_step(label, eng, state, most, exact, steps=10, tries=3):
         print(f"{label}: the whole step issues {profiled:g} kernel launches "
               f"a step by the profile, {wrappers:g} by the wrappers' counts, "
               f"and {syncs:g} host synchronisations", flush=True)
-        if not exact or profiled == wrappers:
+        if profiled == (wrappers if exact else int(profiled)):
             break
     if syncs != 0 or profiled > most or (exact and profiled != wrappers):
         raise AssertionError(f"{label}: {profiled} launches (at most "
@@ -3759,24 +3759,26 @@ def check_advance_paths():
     return {k: res[k] + band[k] for k in ADVANCE_KERNELS}
 
 
-def advance_times_of_all(roots):
-    """--advance-times: each checkout in a process of its own, in turns;
-    fails unless every run's final states have the same digests, path by
-    path. Prints a summary line a path and checkout."""
+def times_of_all(roots, kind):
+    """--advance-times and --sweep-times (``kind`` "advance" or "sweep"):
+    each checkout in a process of its own (``--{kind}-times-of``), in
+    turns; prints each path's whole step for every checkout and fails
+    unless every run's final states have the same digests, path by path."""
+    marker = f"{kind.upper()}_TIMES "
     runs = []
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--advance-times-of", root], cwd=ROOT,
+                               f"--{kind}-times-of", root], cwd=ROOT,
                               capture_output=True, text=True)
         print(proc.stdout, end="", flush=True)
-        print(proc.stderr, end="", file=sys.stderr, flush=True)
+        print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
         if proc.returncode != 0:
-            raise SystemExit(f"--advance-times-of {root}: exit "
+            raise SystemExit(f"--{kind}-times-of {root}: exit "
                              f"{proc.returncode}")
         line = next(l for l in proc.stdout.splitlines()
-                    if l.startswith("ADVANCE_TIMES "))
-        runs.append((root, json.loads(line.split(" ", 1)[1])))
-    paths = [label for label, *_ in ADVANCE_PATHS]
+                    if l.startswith(marker))
+        runs.append((root, json.loads(line[len(marker):])))
+    paths = [label for label in runs[0][1] if label != "kernels"]
     for label in paths:
         for root, rec in runs:
             r = rec[label]
@@ -3785,9 +3787,24 @@ def advance_times_of_all(roots):
                   f"idle {r['idle']:.1%}, {r['launches']:.1f} launches, "
                   f"{r['syncs']:.2f} syncs a step; digest "
                   f"{r['digest'][:16]}", flush=True)
-    # Each checkout's advance phase by its own measure: a parent's sums the
-    # cells, the change's does not (its settle pass does), so the two are
-    # not set side by side.
+    if kind == "advance":
+        _advance_summaries(runs, paths)
+    first = runs[0][1]
+    diff = [(root, label) for root, rec in runs[1:] for label in paths
+            if rec[label]["digest"] != first[label]["digest"]]
+    if diff:
+        raise AssertionError(f"final states differ from {runs[0][0]}'s: "
+                             f"{diff}")
+    print(f"{kind} times: {len(runs)} runs ({', '.join(roots)}), every "
+          f"path's final state bit for bit the same in all; on {_card()}",
+          flush=True)
+
+
+def _advance_summaries(runs, paths):
+    """--advance-times: each checkout's advance phase by its own measure (a
+    parent's sums the cells, the change's does not: its settle pass does,
+    so the two are not set side by side) and its kernels on the
+    flagship's tiles."""
     for root, rec in runs:
         for label in paths:
             r = rec[label]
@@ -3811,15 +3828,6 @@ def advance_times_of_all(roots):
                           + (f", copy-out floor {v['copy_out_bound_ms']:.4f}"
                              if "copy_out_bound_ms" in v else "") + ")"
                           for k, v in kern.items()), flush=True)
-    first = runs[0][1]
-    diff = [(root, label) for root, rec in runs[1:] for label in paths
-            if rec[label]["digest"] != first[label]["digest"]]
-    if diff:
-        raise AssertionError(f"final states differ from {runs[0][0]}'s: "
-                             f"{diff}")
-    print(f"advance times: {len(runs)} runs ({', '.join(roots)}), every "
-          f"path's final state bit for bit the same in all; on {_card()}",
-          flush=True)
 
 
 # --- Tiles up to K = 4096 (phases av-ay) ------------------------------------
@@ -4082,8 +4090,14 @@ def _alive_pairs(key, alive, ncells):
 
 
 def _sweep_bounds(key, alive, plan, ncells, dtype):
-    """{kernel: (bound_ms, bound_by)}: each input read once, each output
-    written once; the operations the function needs on these lanes: the COM
+    """{kernel: (bound_ms, bound_by)}: each input of the JAX function read
+    once, each output written once: the COM the sorted keys (4 B a lane),
+    x, y, m and 3 values a cell out; the forces the keys, x, y, m, alive,
+    the (8, ncells + 1) tables and fx, fy out; the collisions the keys,
+    the positions in cell (int32 in JAX, 4 B a lane), x, y, alive, the
+    dead mask and the count out. The lanes' int64 ``pos`` and the per-key
+    counts are this interface's choice, not the functions' need, and are
+    not counted. The operations the function needs on these lanes: the COM
     9 a lane (parity: two divisions, four products, three sums; fast: two
     products, three sums a lane, two divisions a cell); the forces 17 an
     unordered pair of alive lanes in one cell (their term once, added to
@@ -4095,13 +4109,11 @@ def _sweep_bounds(key, alive, plan, ncells, dtype):
     s = 8 if dtype == torch.float64 else 4
     peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
     pairs, alive_lanes, lanes = _alive_pairs(key, alive, ncells)
-    lane_bytes = n * (4 + 8) + (ncells + 1) * 8   # key, pos; counts
     work = {
-        "sweep_com": (lane_bytes + n * 3 * s + 3 * s * ncells, 9 * lanes),
-        "sweep_forces": (lane_bytes + n * (5 * s + 1)
-                         + 3 * 8 * (ncells + 1) * s,
+        "sweep_com": (n * (4 + 3 * s) + 3 * s * ncells, 9 * lanes),
+        "sweep_forces": (n * (4 + 5 * s + 1) + 3 * 8 * (ncells + 1) * s,
                          17 * pairs + 17 * 8 * alive_lanes),
-        "sweep_collisions": (lane_bytes + n * (2 * s + 2) + 8, 6 * pairs),
+        "sweep_collisions": (n * (4 + 4 + 2 * s + 2) + 8, 6 * pairs),
     }
     out = {}
     for k, (nbytes, ops) in work.items():
@@ -4109,52 +4121,6 @@ def _sweep_bounds(key, alive, plan, ncells, dtype):
         out[k] = (max(mem, ops_ms), "bytes" if mem >= ops_ms else
                   "operations")
     return out, pairs
-
-
-def _sweep_term_sums(x, y, m, alive, key, plan, tables, ncells):
-    """Per lane, Σ|term| of its force in float64 (pair terms over the
-    occupancy sweep, then the 8 stencil terms): the scale of the f32 forces'
-    rounding."""
-    from particlesimulation_tpu_torch.config import G
-    from particlesimulation_tpu_torch.ops import forces
-
-    xd, yd, md = (t.double() for t in (x, y, m))
-    xq, yq, mq, aq, kq = forces.in_plan_order(plan, xd, yd, md, alive, key)
-    ka = forces.alive_cells(kq, aq)
-    sx, sy = torch.zeros_like(xq), torch.zeros_like(xq)
-    for o in range(1, plan.kmax):
-        n = plan.lanes[o]
-        lo, hi = slice(0, n - o), slice(o, n)
-        dx, dy = xq[hi] - xq[lo], yq[hi] - yq[lo]
-        d2 = dx * dx + dy * dy
-        on = (ka[lo] == ka[hi]) & (d2 > 0)
-        f = torch.where(on, G * mq[lo] * mq[hi] / torch.where(on, d2, 1.0)
-                        / torch.sqrt(torch.where(on, d2, 1.0)), 0.0)
-        tx, ty = f * dx.abs(), f * dy.abs()
-        sx[lo] += tx
-        sx[hi] += tx
-        sy[lo] += ty
-        sy[hi] += ty
-    sx, sy = forces.from_plan_order(plan, sx, sy)
-    kc = torch.clamp(key.long(), max=ncells)
-    on = alive & (key < ncells)
-    for l in range(8):
-        dx = tables[1][l][kc].double() - xd
-        dy = tables[2][l][kc].double() - yd
-        d2 = dx * dx + dy * dy
-        ok = on & (d2 > 0)
-        f = torch.where(ok, G * md * tables[0][l][kc].double()
-                        / torch.where(ok, d2, 1.0)
-                        / torch.sqrt(torch.where(ok, d2, 1.0)), 0.0)
-        sx += f * dx.abs()
-        sy += f * dy.abs()
-    return sx, sy
-
-
-def _cell_lanes(key, plan, ncells):
-    """Each lane's cell occupancy (0 for a sentinel lane)."""
-    return torch.where(key < ncells,
-                       plan.counts[torch.clamp(key.long(), max=ncells)], 0)
 
 
 def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
@@ -4171,21 +4137,21 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
     u = 2.0 ** -53 if parity else 2.0 ** -24
 
     def com_k():
-        return sweep.sweep_com(key, pos, plan, x, y, m, ncells, parity)
+        return sweep.sweep_com(x, y, m, key, pos, plan, ncells)
 
     def com_p():
-        return sweep.sweep_com_ref(key, pos, plan, x, y, m, ncells, parity)
+        return sweep.sweep_com_ref(x, y, m, key, pos, plan, ncells)
 
     ck, cp = com_k(), com_p()
     tables = stencil.stencil_tables(*ck, side, nc)
 
     def forces_k():
         return sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
-                                  ncells, parity)
+                                  ncells)
 
     def forces_p():
         return sweep.sweep_forces_ref(x, y, m, alive, key, pos, plan,
-                                      tables, ncells, parity)
+                                      tables, ncells)
 
     def coll_k():
         return sweep.sweep_collisions(x, y, alive, key, pos, plan, EPSILON,
@@ -4205,10 +4171,9 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
     if int(nk) != int(np_) or not torch.equal(dk, dp):
         raise AssertionError(f"{tag}: collisions {int(nk)} vs {int(np_)}, "
                              f"dead sets equal {torch.equal(dk, dp)}")
-    if parity and not (com_bits and force_bits):
-        raise AssertionError(f"{tag}: parity COM bitwise {com_bits}, "
-                             f"forces bitwise {force_bits}")
-    note = ""
+    if not force_bits or (parity and not com_bits):
+        raise AssertionError(f"{tag}: COM bitwise {com_bits}, forces "
+                             f"bitwise {force_bits}")
     if not parity:
         # COM: each cell's c sums in another order: |d Σ| <= c·u·Σ|terms|,
         # and the quotients' relative error twice that plus an ulp.
@@ -4230,18 +4195,6 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
         if bool(bad.any()):
             raise AssertionError(f"{tag}: f32 COM outside c·2^-24·Σ|terms| "
                                  f"in {int(bad.sum())} cells")
-        if not force_bits:
-            # Forces: the same terms in the same order up to the rsqrt's
-            # ulps: (c + 8)·4·u·Σ|terms| a lane.
-            sx, sy = _sweep_term_sums(x, y, m, alive, key, plan, tables,
-                                      ncells)
-            cl = _cell_lanes(key, plan, ncells).double() + 8
-            for got, ref, s in ((fk[0], fp[0], sx), (fk[1], fp[1], sy)):
-                if bool(((got.double() - ref.double()).abs()
-                         > cl * 4 * u * s).any()):
-                    raise AssertionError(f"{tag}: f32 forces outside "
-                                         f"(c + 8)·4·2^-24·Σ|terms|")
-            note = " (f32 forces within (c + 8)·4·2^-24·Σ|terms|)"
     # A second run, bit for bit.
     again = [*com_k(), *forces_k(), *coll_k()]
     first = [*ck, *fk, nk, dk]
@@ -4250,7 +4203,7 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
     print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}, "
           f"{int(nk)} collisions, {int(dk.sum())} deaths: COM bitwise "
           f"{com_bits} (max |err| {errs['sweep_com']:.3e}), forces bitwise "
-          f"{force_bits} (max |err| {errs['sweep_forces']:.3e}){note}, "
+          f"{force_bits} (max |err| {errs['sweep_forces']:.3e}), "
           f"count and dead set exact, a second run bit for bit", flush=True)
     return {"sweep_com": (com_k, com_p), "sweep_forces": (forces_k, forces_p),
             "sweep_collisions": (coll_k, coll_p)}, errs
@@ -4283,7 +4236,8 @@ def check_sweep_kernels(card):
     (f32 and f64), each also after one step, and the adversarial lanes of
     ``adversarial.sweep_particles`` (sorted, and in the mesh's layout) in
     both precisions; each kernel timed at parity s1, the f32 sweep at s1
-    and MEDIUM against its bound and its plain version. Returns
+    and MEDIUM in f32 and f64 against its bound and its plain version.
+    Returns
     {kernel: record} at parity s1 (the CLI's default path)."""
     from particlesimulation_tpu_torch.ops import binning
     from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
@@ -4321,8 +4275,6 @@ def check_sweep_kernels(card):
             calls, errs = _check_sweep_outputs(
                 f"sweep kernels, {label} after {steps} steps", lanes_, st.x,
                 st.y, st.m, st.alive, side, nc)
-        if label == "MEDIUM f64":
-            continue  # checked; timed through the golden phase's MEDIUM
         key, pos, plan = lanes_
         bounds, pairs = _sweep_bounds(key, st.alive, plan, nc * nc,
                                       st.x.dtype)
@@ -4403,72 +4355,47 @@ def run_golden(vectors, required):
     return out
 
 
-def checkout_sweep_times(root):
-    """(bb) With the port package of the checkout at ``root``: parity s1,
-    the f32 sweep at s1 and MEDIUM by the default census (the sweep under
-    dense_backend="pallas"): ms/step (step_ms over 4 steps), device ms/step,
-    idle share, launches and syncs a step (2 steps profiled; MEDIUM 1), and
-    the digest of each run's final state after 4 steps. Prints one JSON
-    line."""
+# --sweep-times: (label, config, parity, impl asked for (None: the
+# census), steps profiled).
+SWEEP_PATHS = (("parity s1", GOLDEN_S1[:4], True, None, 2),
+               ("f32 sweep s1", GOLDEN_S1[:4], False, "sweep", 2),
+               ("MEDIUM default", MEDIUM[:4], False, None, 1))
+
+
+def sweep_times(root):
+    """(bb) With the port package of the checkout at ``root``, each path of
+    ``SWEEP_PATHS`` (MEDIUM by the default census: the sweep under
+    dense_backend="pallas"): ms/step (step_ms over 4 steps), device
+    ms/step, idle share, launches and syncs a step, and the digest of each
+    run's final state after 4 steps. Prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
-    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
     card = _card()
-    seed, side, nc, n = GOLDEN_S1[:4]
     out = {}
-    for label, make, steps in (
-            ("parity s1", lambda: _parity(seed, side, nc, n, "cuda"), 2),
-            ("f32 sweep s1", lambda: Engine(SimConfig(seed, side, nc, n),
-                                            impl="sweep", device="cuda"), 2),
-            ("MEDIUM default", lambda: Engine(SimConfig(*MEDIUM[:4]),
-                                              device="cuda"), 1)):
-        eng = make()
+    for label, args, parity, impl, steps in SWEEP_PATHS:
+        prec = Precision.PARITY if parity else Precision.FAST
+        eng = Engine(SimConfig(*args, precision=prec), impl=impl,
+                     device="cuda")
         state = eng.init_state()
         final = eng.run(state, 4)
         if eng.impl != "sweep":
             raise AssertionError(f"{root}: {label} ran {eng.impl}")
         ms, t1, tk = step_ms(eng, state, 4, reps=1)
-        rec = {"ms_per_step": ms, **device_breakdown(
-            f"{root}: {label}", eng, state, ms, steps)}
-        rec["digest"] = digest([getattr(final, f) for f in final._fields])
-        out[label] = rec
+        t = device_breakdown(f"{root}: {label}", eng, state, ms, steps)
+        out[label] = {"ms_per_step": ms, "device_ms_per_step": t["device_ms"],
+                      "idle": t["idle"], "launches": t["launches"],
+                      "syncs": t["syncs"], "step_kernels": t["kernels"],
+                      "digest": digest([getattr(final, f)
+                                        for f in final._fields])}
         print(f"{root}: {label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, "
-              f"run(5) {tk:.4f} s), final digest {rec['digest'][:16]}",
-              flush=True)
+              f"run(5) {tk:.4f} s), final digest "
+              f"{out[label]['digest'][:16]}", flush=True)
         del eng, state, final
         torch.cuda.empty_cache()
     print(f"sweep times {root} on {card}", flush=True)
     print("SWEEP_TIMES " + json.dumps(out), flush=True)
-
-
-def sweep_times_of_all(roots):
-    """--sweep-times: each checkout in a process of its own, in turns;
-    fails unless every run's final states have the same digests, path by
-    path."""
-    runs = []
-    for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--sweep-times-of", root], cwd=ROOT,
-                              capture_output=True, text=True)
-        print(proc.stdout, end="", flush=True)
-        print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"--sweep-times-of {root}: exit "
-                             f"{proc.returncode}")
-        line = next(l for l in proc.stdout.splitlines()
-                    if l.startswith("SWEEP_TIMES "))
-        runs.append((root, json.loads(line.split(" ", 1)[1])))
-    for label in runs[0][1]:
-        for root, rec in runs:
-            r = rec[label]
-            print(f"{label} | {root}: {r['ms_per_step']:.4f} ms/step, "
-                  f"{r['device_ms']:.4f} device ms/step, idle "
-                  f"{r['idle']:.1%}, {r['launches']:.1f} launches, "
-                  f"{r['syncs']:.2f} syncs a step; digest "
-                  f"{r['digest'][:16]}", flush=True)
-        if len({rec[label]["digest"] for _, rec in runs}) != 1:
-            raise SystemExit(f"{label}: the checkouts' final states differ")
 
 
 def check_sweep(card):
@@ -4804,7 +4731,7 @@ def main():
             for k in ADVANCE_KERNELS]}))
         return
     if sys.argv[1:2] == ["--advance-times"]:
-        advance_times_of_all(sys.argv[2:])
+        times_of_all(sys.argv[2:], "advance")
         return
     if sys.argv[1:2] == ["--settle-sweep"]:
         print(_card(), flush=True)
@@ -4854,10 +4781,10 @@ def main():
         run_golden(LONG_GOLDEN, required=False)
         return
     if sys.argv[1:2] == ["--sweep-times"]:
-        sweep_times_of_all(sys.argv[2:])
+        times_of_all(sys.argv[2:], "sweep")
         return
     if sys.argv[1:2] == ["--sweep-times-of"]:
-        checkout_sweep_times(sys.argv[2])
+        sweep_times(sys.argv[2])
         return
     if sys.argv[1:2] == ["--direct"]:
         # Phases al-aq alone.
@@ -5001,9 +4928,9 @@ def main():
     check_f32_sweep()
     medium = check_medium()
     cli_launches = check_cli_fast()
-    sweep_times = time_sweeps(card, medium)
+    sweep_steps = time_sweeps(card, medium)
     print(f"sweep and CLI phases: {time.perf_counter() - t_sweep:.1f} s; "
-          f"per step {json.dumps(sweep_times)}", flush=True)
+          f"per step {json.dumps(sweep_steps)}", flush=True)
     # The sweep's kernels against their plain versions, timed (az), and the
     # heavy golden vectors through the default CLI (ba).
     sweep_recs = check_sweep(card)

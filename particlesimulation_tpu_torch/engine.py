@@ -112,7 +112,6 @@ def make_step(config: SimConfig):
     side = config.side
     nc = config.ncside
     ncells = config.ncells
-    parity = config.precision is Precision.PARITY
 
     def lanes_of(x, y):
         key, _ = binning.cell_keys(x, y, side, nc)
@@ -124,12 +123,12 @@ def make_step(config: SimConfig):
                                        state.m, state.alive, state.pid)
         key, pos, plan = lanes
         # Phase 1 — COM (the arrays arrive sorted by this key).
-        M, MX, MY = sweep.sweep_com(key, pos, plan, x, y, m, ncells, parity)
+        M, MX, MY = sweep.sweep_com(x, y, m, key, pos, plan, ncells)
         # Phase 2 — forces: the same-cell pairs, then the 8 stencil
         # monopole terms.
         tables = stencil.stencil_tables(M, MX, MY, side, nc)
         fx, fy = sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
-                                    ncells, parity)
+                                    ncells)
         # Phase 3 — integrate + periodic wrap.
         x, y, vx, vy = integrate.integrate(x, y, vx, vy, m, fx, fy, side,
                                            DELTAT)

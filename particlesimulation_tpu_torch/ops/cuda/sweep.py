@@ -26,8 +26,8 @@ count on the device; a key of ``ncells`` or more is a sentinel, in no cell.
 The kernels read no lane order: ``plan.order`` (and the plain sweeps'
 gathers) is for the plain versions alone.
 
-Parity (float64) or fast (float32): ``parity`` picks the kernel and the
-type the tensors must have. A tensor on the CPU goes to the plain version;
+Parity (float64) or fast (float32): the lanes' type picks the kernel and
+the plain version. A tensor on the CPU goes to the plain version;
 a tensor on a CUDA device goes to the kernel, or the wrapper raises. The
 library is compiled with ``nvcc`` at first use (``cell_pairs.build``) with
 ``-fmad=false`` (``advance.FLAGS``), so that every product and sum rounds
@@ -100,16 +100,20 @@ def _library():
         return _lib
 
 
-def _float_type(parity):
-    return torch.float64 if parity else torch.float32
+def _float_type(x):
+    """``x``'s type, float32 (fast) or float64 (parity)."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x must be float32 or float64; got {x.dtype}")
+    return x.dtype
 
 
-def _check(floats, others, key, pos, plan, ncells, dtype):
-    """Validate the lanes: ``floats`` (name, tensor) of ``dtype``, ``others``
-    (name, tensor, dtype), ``key`` (int32) and ``pos`` (int64), all (n,)
-    contiguous on the first float's device; ``plan.counts`` (ncells + 1,)
-    int64 there. Returns n."""
+def _check(floats, others, key, pos, plan, ncells):
+    """Validate the lanes: ``floats`` (name, tensor) of the first one's
+    type, float32 or float64; ``others`` (name, tensor, dtype); ``key``
+    (int32) and ``pos`` (int64), all (n,) contiguous on the first float's
+    device; ``plan.counts`` (ncells + 1,) int64 there. Returns n."""
     x = floats[0][1]
+    dtype = _float_type(x)
     n = x.shape[0] if x.dim() == 1 else -1
     if n < 1:
         raise ValueError(f"lanes must be (n >= 1,); got {tuple(x.shape)}")
@@ -134,67 +138,66 @@ def _check(floats, others, key, pos, plan, ncells, dtype):
     return n
 
 
-def sweep_com(key, pos, plan, x, y, m, ncells: int, parity: bool):
-    """Per-cell (M, MX, MY), each (ncells,): parity (float64) or fast
-    (float32) by ``parity``; empty cells hold zeros. ``plan`` is
+def _kernel(name, x):
+    """The library's ``psim_sweep_{name}`` for ``x``'s type."""
+    t = "f64" if x.dtype == torch.float64 else "f32"
+    return getattr(_library(), f"psim_sweep_{name}_{t}")
+
+
+def sweep_com(x, y, m, key, pos, plan, ncells: int):
+    """Per-cell (M, MX, MY), each (ncells,) of the lanes' type: parity
+    (float64) or fast (float32); empty cells hold zeros. ``plan`` is
     ``binning.occupancy(key, ncells)``."""
-    dt = _float_type(parity)
-    n = _check([("x", x), ("y", y), ("m", m)], [], key, pos, plan, ncells,
-               dt)
+    n = _check([("x", x), ("y", y), ("m", m)], [], key, pos, plan, ncells)
     if not cell_pairs._on_card(x, "sweep COM pass"):
-        return sweep_com_ref(key, pos, plan, x, y, m, ncells, parity)
-    out = torch.empty((3, ncells), dtype=dt, device=x.device)
-    fn = _library().psim_sweep_com_f64 if parity else (
-        _library().psim_sweep_com_f32)
+        return sweep_com_ref(x, y, m, key, pos, plan, ncells)
+    out = torch.empty((3, ncells), dtype=x.dtype, device=x.device)
     cell_pairs._launch(
-        "sweep_com", fn, x, x.data_ptr(), y.data_ptr(), m.data_ptr(),
-        key.data_ptr(), pos.data_ptr(), plan.counts.data_ptr(), n, ncells,
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        "sweep_com", _kernel("com", x), x, x.data_ptr(), y.data_ptr(),
+        m.data_ptr(), key.data_ptr(), pos.data_ptr(), plan.counts.data_ptr(),
+        n, ncells, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         launches=LAUNCHES)
     return out[0], out[1], out[2]
 
 
-def sweep_com_ref(key, pos, plan, x, y, m, ncells: int, parity: bool):
-    """Plain torch version of ``sweep_com``: ``com.com_parity`` or
-    ``com.com_fast``."""
-    fn = com.com_parity if parity else com.com_fast
+def sweep_com_ref(x, y, m, key, pos, plan, ncells: int):
+    """Plain torch version of ``sweep_com``: ``com.com_parity`` (float64)
+    or ``com.com_fast`` (float32)."""
+    fn = com.com_parity if _float_type(x) == torch.float64 else com.com_fast
     return fn(key, x, y, m, ncells, plan, pos)
 
 
-def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int,
-                 parity: bool):
+def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
     """Each lane's (fx, fy): its same-cell pair forces, then the 8 stencil
     monopole terms of ``tables`` ((ml, mxl, myl), each (8, ncells + 1) of
     the lanes' type, the last column the sentinel's), in one pass."""
-    dt = _float_type(parity)
     n = _check([("x", x), ("y", y), ("m", m)], [("alive", alive, torch.bool)],
-               key, pos, plan, ncells, dt)
+               key, pos, plan, ncells)
     for name, t in zip(("ml", "mxl", "myl"), tables):
-        if t.dtype != dt or t.shape != (8, ncells + 1):
-            raise ValueError(f"{name} must be (8, {ncells + 1}) {dt}; got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        if t.dtype != x.dtype or t.shape != (8, ncells + 1):
+            raise ValueError(f"{name} must be (8, {ncells + 1}) {x.dtype}; "
+                             f"got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if not cell_pairs._on_card(x, "sweep force pass"):
         return sweep_forces_ref(x, y, m, alive, key, pos, plan, tables,
-                                ncells, parity)
-    out = torch.empty((2, n), dtype=dt, device=x.device)
-    fn = _library().psim_sweep_forces_f64 if parity else (
-        _library().psim_sweep_forces_f32)
+                                ncells)
+    out = torch.empty((2, n), dtype=x.dtype, device=x.device)
     cell_pairs._launch(
-        "sweep_forces", fn, x, x.data_ptr(), y.data_ptr(), m.data_ptr(),
-        alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
+        "sweep_forces", _kernel("forces", x), x, x.data_ptr(), y.data_ptr(),
+        m.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
         plan.counts.data_ptr(), n, ncells, *(t.data_ptr() for t in tables),
         float(G), out[0].data_ptr(), out[1].data_ptr(), launches=LAUNCHES)
     return out[0], out[1]
 
 
-def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int,
-                     parity: bool):
+def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):
     """Plain torch version of ``sweep_forces``:
-    ``forces.pairwise_forces_parity_blocked`` or
-    ``forces.pairwise_forces_fast``, then ``forces.monopole_forces``."""
-    pair = (forces.pairwise_forces_parity_blocked if parity
+    ``forces.pairwise_forces_parity_blocked`` (float64) or
+    ``forces.pairwise_forces_fast`` (float32), then
+    ``forces.monopole_forces``."""
+    pair = (forces.pairwise_forces_parity_blocked
+            if _float_type(x) == torch.float64
             else forces.pairwise_forces_fast)
     fx, fy = pair(x, y, m, alive, key, ncells, plan)
     return forces.monopole_forces(x, y, m, alive, key, fx, fy, *tables,
@@ -207,10 +210,8 @@ def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
     float64 lanes. A cell of ``collisions.RANK_LIMIT`` lanes or more
     (``plan.kmax``) takes no detection, as in the plain version: the
     engine flags it."""
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"x must be float32 or float64; got {x.dtype}")
     n = _check([("x", x), ("y", y)], [("alive", alive, torch.bool)], key,
-               pos, plan, ncells, x.dtype)
+               pos, plan, ncells)
     if not cell_pairs._on_card(x, "sweep collision pass"):
         return sweep_collisions_ref(x, y, alive, key, pos, plan, epsilon,
                                     ncells)
@@ -220,11 +221,9 @@ def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
     count = torch.empty((), dtype=torch.int64, device=x.device)
     first = torch.empty(n, dtype=torch.int32, device=x.device)
     died = torch.empty(n, dtype=torch.bool, device=x.device)
-    fn = (_library().psim_sweep_collisions_f64 if x.dtype == torch.float64
-          else _library().psim_sweep_collisions_f32)
     cell_pairs._launch(
-        "sweep_collisions", fn, x, x.data_ptr(), y.data_ptr(),
-        alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
+        "sweep_collisions", _kernel("collisions", x), x, x.data_ptr(),
+        y.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
         plan.counts.data_ptr(), n, ncells, float(epsilon), first.data_ptr(),
         died.data_ptr(), count.data_ptr(), launches=LAUNCHES)
     return count, died

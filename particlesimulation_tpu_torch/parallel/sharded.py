@@ -228,7 +228,6 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
     side = config.side
     nc = config.ncside
     ncells = config.ncells
-    parity = config.precision is Precision.PARITY
     L = len(mesh.local_shards)
     nb = L * ncl                            # cells of the batched grid
     lpos = torch.arange(L, device=mesh.device)[:, None]
@@ -252,10 +251,10 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         key, _ = _slab_key(x, y, valid, side, nc)
         bkey, pos = lanes(key)
         X, Y, Mf, Af = (a.reshape(-1) for a in (x, y, m, alive))
-        M, MX, MY = sweep.sweep_com(bkey, pos, plan, X, Y, Mf, nb, parity)
+        M, MX, MY = sweep.sweep_com(X, Y, Mf, bkey, pos, plan, nb)
         # ---- COM halo, then the pair and monopole terms ----
         fx, fy = sweep.sweep_forces(X, Y, Mf, Af, bkey, pos, plan,
-                                    tables(M, MX, MY), nb, parity)
+                                    tables(M, MX, MY), nb)
         # ---- integrate + wrap ----
         x, y, vx, vy = (a.view(L, -1) for a in integrate.integrate(
             X, Y, vx.reshape(-1), vy.reshape(-1), Mf, fx, fy, side, DELTAT))

@@ -77,12 +77,11 @@ def _port(case, dtype, mesh):
                            if mesh else np.arange(x.shape[0]))
     xs, ys, ms, alives, keys, poss = (a[perm].contiguous() for a in (
         x, y, m, alive, key, pos))
-    parity = dtype == np.float64
     plan = binning.occupancy(keys, NCELLS)
-    M, MX, MY = sweep.sweep_com(keys, poss, plan, xs, ys, ms, NCELLS, parity)
+    M, MX, MY = sweep.sweep_com(xs, ys, ms, keys, poss, plan, NCELLS)
     tables = stencil.stencil_tables(M, MX, MY, SIDE, NC)
     fx, fy = sweep.sweep_forces(xs, ys, ms, alives, keys, poss, plan, tables,
-                                NCELLS, parity)
+                                NCELLS)
     count, died = sweep.sweep_collisions(xs, ys, alives, keys, poss, plan,
                                          EPSILON, NCELLS)
     back = torch.empty_like(perm).index_copy_(0, perm,
@@ -157,9 +156,9 @@ def test_planted_outcomes():
     assert float(m[lane[0]]) == 0.0 and int(count) >= 2
     # The cell's COM through pid 1 alone is pid 1's position; the mean of
     # the whole cell from there on is the one JAX computes (test above).
-    one = sweep.sweep_com(key[:2].contiguous(), pos[:2].contiguous(),
-                          binning.occupancy(key[:2], NCELLS), x[:2], y[:2],
-                          m[:2], NCELLS, True)
+    one = sweep.sweep_com(x[:2], y[:2], m[:2], key[:2].contiguous(),
+                          pos[:2].contiguous(),
+                          binning.occupancy(key[:2], NCELLS), NCELLS)
     assert float(one[1][0]) == float(x[1]) and float(one[2][0]) == float(
         y[1])
 
@@ -194,13 +193,13 @@ def test_wrappers_check_their_arguments(which, bad):
     a = BAD[bad](dict(x=x, y=y, m=m, alive=alive, key=key, pos=pos,
                       plan=plan))
     tables = stencil.stencil_tables(*sweep.sweep_com_ref(
-        key, pos, plan, x, y, m, NCELLS, True), SIDE, NC)
+        x, y, m, key, pos, plan, NCELLS), SIDE, NC)
     call = {
-        "com": lambda: sweep.sweep_com(a["key"], a["pos"], a["plan"], a["x"],
-                                       a["y"], a["m"], NCELLS, True),
+        "com": lambda: sweep.sweep_com(a["x"], a["y"], a["m"], a["key"],
+                                       a["pos"], a["plan"], NCELLS),
         "forces": lambda: sweep.sweep_forces(
             a["x"], a["y"], a["m"], a["alive"], a["key"], a["pos"],
-            a["plan"], tables, NCELLS, True),
+            a["plan"], tables, NCELLS),
         "collisions": lambda: sweep.sweep_collisions(
             a["x"], a["y"], a["alive"], a["key"], a["pos"], a["plan"],
             EPSILON, NCELLS)}[which]
@@ -221,15 +220,17 @@ def test_forces_check_their_tables():
     x, y, m, alive, key, pos = _lanes("planted", np.float64)
     plan = binning.occupancy(key, NCELLS)
     tables = stencil.stencil_tables(*sweep.sweep_com(
-        key, pos, plan, x, y, m, NCELLS, True), SIDE, NC)
+        x, y, m, key, pos, plan, NCELLS), SIDE, NC)
     for bad in ((tables[0][:, :-1].contiguous(),) + tables[1:],
                 (tables[0].float(),) + tables[1:]):
         with pytest.raises(ValueError, match="ml"):
-            sweep.sweep_forces(x, y, m, alive, key, pos, plan, bad, NCELLS,
-                               True)
-    with pytest.raises(TypeError):  # parity asks for float64 lanes
+            sweep.sweep_forces(x, y, m, alive, key, pos, plan, bad, NCELLS)
+    with pytest.raises(ValueError, match="ml"):  # f32 lanes, f64 tables
         sweep.sweep_forces(x.float(), y.float(), m.float(), alive, key, pos,
-                           plan, tables, NCELLS, True)
+                           plan, tables, NCELLS)
+    with pytest.raises(TypeError):  # lanes of neither float32 nor float64
+        sweep.sweep_forces(x.half(), y.half(), m.half(), alive, key, pos,
+                           plan, tables, NCELLS)
 
 
 def test_library_is_built_without_fma(monkeypatch, tmp_path):
