@@ -460,13 +460,16 @@ bytes a mover. Beside the last two, ``copy_out_bound_ms``: the floors of
 the first designs, which wrote every slot (50 bytes a slot for the monopole
 pass; 51 for the delivery's new tiles).
 
-Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes), pos (8)
-and the float fields a lane, counts (8) a cell, each output once; 9
-operations a lane for the COM, 17 an unordered pair of alive lanes in one
-cell for the forces (their term once, added to both ends; the division and
-square root one operation each) and 17 a monopole term (8 an alive lane),
-6 an unordered alive pair for the collision test; float64 at 34 TFLOP/s,
-float32 at 67.
+Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes) and the
+float fields a lane, each output once; 9 operations a lane for the COM, 17
+an unordered pair of alive lanes in one cell for the forces (their term
+once, added to both ends; the division and square root one operation
+each) and 17 a monopole term (8 an alive lane); for the collision test 6
+an unordered pair of alive lanes in one cell whose x alone has fl(dx²) <
+4·EPSILON² (the x window's candidates, counted on this run's lanes by
+``_sweep_candidates``: no other pair can hit), beside the all-pairs figure
+of PR 18 (6 every unordered alive pair) as ``all_pairs_bound_ms``; float64
+at 34 TFLOP/s, float32 at 67.
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -4089,38 +4092,69 @@ def _alive_pairs(key, alive, ncells):
             int(real.sum()))
 
 
-def _sweep_bounds(key, alive, plan, ncells, dtype):
-    """{kernel: (bound_ms, bound_by)}: each input of the JAX function read
-    once, each output written once: the COM the sorted keys (4 B a lane),
-    x, y, m and 3 values a cell out; the forces the keys, x, y, m, alive,
-    the (8, ncells + 1) tables and fx, fy out; the collisions the keys,
-    the positions in cell (int32 in JAX, 4 B a lane), x, y, alive, the
-    dead mask and the count out. The lanes' int64 ``pos`` and the per-key
-    counts are this interface's choice, not the functions' need, and are
-    not counted. The operations the function needs on these lanes: the COM
-    9 a lane (parity: two divisions, four products, three sums; fast: two
-    products, three sums a lane, two divisions a cell); the forces 17 an
-    unordered pair of alive lanes in one cell (their term once, added to
-    both ends; parity's division and square root counted as one operation
-    each) and 17 a monopole term of an alive lane, 8 a lane; the collision
-    test 6 an unordered alive pair (hits are rare, and the square root only
-    near EPSILON). float64 at 34 TFLOP/s, float32 at 67."""
+def _sweep_candidates(x, key, alive, ncells):
+    """The unordered pairs of alive lanes in one cell whose x alone has
+    fl(dx²) < 4·EPSILON² (dx in the lanes' type): the pairs the collision
+    function must test. In (key, x) order a lane's candidates follow it
+    within its cell, and if no pair lies an offset d apart none lies
+    further."""
+    from particlesimulation_tpu_torch.config import EPSILON
+
+    live = (key < ncells) & alive
+    k, xs = key[live].long(), x[live]
+    order = torch.argsort(xs, stable=True)
+    order = order[torch.argsort(k[order], stable=True)]
+    k, xs = k[order], xs[order]
+    eps = torch.full((), EPSILON, dtype=x.dtype, device=x.device)
+    far2 = 4 * eps * eps
+    total, d = 0, 1
+    while d < k.numel():
+        dx = xs[d:] - xs[:-d]
+        near = int(((k[d:] == k[:-d]) & (dx * dx < far2)).sum())
+        if near == 0:
+            break
+        total, d = total + near, d + 1
+    return total
+
+
+def _sweep_bounds(key, alive, plan, ncells, x):
+    """({kernel: (bound_ms, bound_by)}, alive pairs, the collision
+    function's candidates, the collisions' PR 18 all-pairs bound_ms): each
+    input of the JAX function read once, each output written once: the COM
+    the sorted keys (4 B a lane), x, y, m and 3 values a cell out; the
+    forces the keys, x, y, m, alive, the (8, ncells + 1) tables and fx, fy
+    out; the collisions the keys, the positions in cell (int32 in JAX, 4 B
+    a lane), x, y, alive, the dead mask and the count out. The lanes' int64
+    ``pos`` and the per-key counts are this interface's choice, not the
+    functions' need, and are not counted. The operations the function needs
+    on these lanes: the COM 9 a lane (parity: two divisions, four products,
+    three sums; fast: two products, three sums a lane, two divisions a
+    cell); the forces 17 an unordered pair of alive lanes in one cell (their
+    term once, added to both ends; parity's division and square root
+    counted as one operation each) and 17 a monopole term of an alive lane,
+    8 a lane; the collision test 6 a candidate pair (``_sweep_candidates``;
+    hits are rare, and the square root only near EPSILON). float64 at 34
+    TFLOP/s, float32 at 67."""
     n = key.shape[0]
+    dtype = x.dtype
     s = 8 if dtype == torch.float64 else 4
     peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
     pairs, alive_lanes, lanes = _alive_pairs(key, alive, ncells)
+    cand = _sweep_candidates(x, key, alive, ncells)
+    coll_bytes = n * (4 + 4 + 2 * s + 2) + 8
     work = {
         "sweep_com": (n * (4 + 3 * s) + 3 * s * ncells, 9 * lanes),
         "sweep_forces": (n * (4 + 5 * s + 1) + 3 * 8 * (ncells + 1) * s,
                          17 * pairs + 17 * 8 * alive_lanes),
-        "sweep_collisions": (n * (4 + 4 + 2 * s + 2) + 8, 6 * pairs),
+        "sweep_collisions": (coll_bytes, 6 * cand),
     }
     out = {}
     for k, (nbytes, ops) in work.items():
         mem, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
         out[k] = (max(mem, ops_ms), "bytes" if mem >= ops_ms else
                   "operations")
-    return out, pairs
+    all_pairs = max(coll_bytes / PEAK_BYTES, 6 * pairs / peak) * 1e3
+    return out, pairs, cand, all_pairs
 
 
 def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
@@ -4234,17 +4268,19 @@ def check_sweep_kernels(card):
     """(az) The sweep's three kernels against their plain versions on the
     card: the sorted states of parity s1, the f32 sweep at s1 and MEDIUM
     (f32 and f64), each also after one step, and the adversarial lanes of
-    ``adversarial.sweep_particles`` (sorted, and in the mesh's layout) in
-    both precisions; each kernel timed at parity s1, the f32 sweep at s1
-    and MEDIUM in f32 and f64 against its bound and its plain version.
-    Returns
-    {kernel: record} at parity s1 (the CLI's default path)."""
+    ``adversarial.sweep_particles`` (sorted, and in the mesh's layout; the
+    10 000-lane cell of "huge", more than the kernels stage at once,
+    sorted) in both precisions; each kernel timed at parity s1, the f32
+    sweep at s1 and MEDIUM in f32 and f64 against its bound and its plain
+    version, and the term-once force kernel against the each-receiver
+    build (``_forces_designs``). Returns {kernel: record} at parity s1 (the
+    CLI's default path)."""
     from particlesimulation_tpu_torch.ops import binning
     from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
 
     t0 = time.perf_counter()
     side, nc = adv.SWEEP_SIDE, adv.SWEEP_NCSIDE
-    for case in ("planted", "hot"):
+    for case in ("planted", "hot", "wide", "huge"):
         for dtype in (torch.float64, torch.float32):
             xs, ys, ms, al = adv.sweep_particles(case)
             x, y, m = (torch.from_numpy(a).to(dtype) for a in (xs, ys, ms))
@@ -4253,7 +4289,7 @@ def check_sweep_kernels(card):
                 key, torch.arange(x.shape[0], dtype=torch.int32), x, y, m,
                 torch.from_numpy(al))
             pos, _ = binning.segment_positions(key)
-            for layout in ("sorted", "mesh"):
+            for layout in ("sorted", "mesh")[:1 if case == "huge" else 2]:
                 perm = (torch.from_numpy(adv.mesh_lane_order(
                     key.numpy(), nc * nc)) if layout == "mesh"
                     else torch.arange(x.shape[0]))
@@ -4263,7 +4299,8 @@ def check_sweep_kernels(card):
                 _check_sweep_outputs(
                     f"sweep kernels, adversarial {case} {dtype} {layout}",
                     (lk, lp, plan), lx, ly, lm, la, side, nc)
-    recs, times = None, {}
+    recs, times, designs = None, {}, {}
+    each_receiver = _forces_each_receiver()
     for label, args, parity in (("parity s1", GOLDEN_S1, True),
                                 ("f32 sweep s1", GOLDEN_S1, False),
                                 ("MEDIUM f32", MEDIUM, False),
@@ -4276,8 +4313,8 @@ def check_sweep_kernels(card):
                 f"sweep kernels, {label} after {steps} steps", lanes_, st.x,
                 st.y, st.m, st.alive, side, nc)
         key, pos, plan = lanes_
-        bounds, pairs = _sweep_bounds(key, st.alive, plan, nc * nc,
-                                      st.x.dtype)
+        bounds, pairs, cand, all_pairs = _sweep_bounds(
+            key, st.alive, plan, nc * nc, st.x)
         out = {}
         for k in SWEEP_KERNELS:
             kern, plain = calls[k]
@@ -4288,6 +4325,8 @@ def check_sweep_kernels(card):
                 lib = _com_library(st.x, st.y, st.m, key, nc * nc)
                 rec["library_ms"] = _timed(lib, 20)
                 rec["library_device_ms"] = device_ms(lib, 20)
+            if k == "sweep_collisions":
+                rec.update(candidates=cand, all_pairs_bound_ms=all_pairs)
             out[k] = rec
             print(f"{label} {k}: {rec['ms']:.4f} ms a call, "
                   f"{rec['device_ms']:.4f} device ms, bound "
@@ -4296,12 +4335,65 @@ def check_sweep_kernels(card):
                   f"ms" + (f", index_add_ {rec['library_ms']:.4f} ms a call "
                            f"({rec['library_device_ms']:.4f} device)"
                            if rec["library_ms"] is not None else "")
+                  + (f"; {cand} candidate pairs, all-pairs bound "
+                     f"{all_pairs:.4f}" if k == "sweep_collisions" else "")
                   + f" on {card}", flush=True)
+        designs[label] = _forces_designs(
+            label, each_receiver, calls["sweep_forces"][0], st, key, pos,
+            plan, side, nc)
         times[label] = out
         recs = recs or out
     print(f"sweep kernel phase (az): {time.perf_counter() - t0:.1f} s; "
-          f"SWEEP_KERNEL_TIMES {json.dumps(times)}", flush=True)
+          f"SWEEP_KERNEL_TIMES {json.dumps(times)}; SWEEP_FORCE_DESIGNS "
+          f"{json.dumps(designs)}", flush=True)
     return recs
+
+
+def _forces_each_receiver():
+    """The sweep library built with PSIM_SWEEP_ONCE=0: force kernels in
+    which each receiver computes all of its own terms (partners staged in
+    shared memory), the design the term-once schedules are timed against."""
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, sweep
+    from particlesimulation_tpu_torch.ops.cuda.advance import FLAGS
+
+    return sweep.load(cell_pairs.build(sweep.SOURCE,
+                                       FLAGS + ("-DPSIM_SWEEP_ONCE=0",)))
+
+
+def _forces_designs(label, lib, once, st, key, pos, plan, side, nc):
+    """The term-once force kernel (``once``, the wrapper's call) against
+    ``lib``'s each-receiver one on one state: bit for bit, then both timed
+    (device ms, median of 20)."""
+    from particlesimulation_tpu_torch.config import G
+    from particlesimulation_tpu_torch.ops import stencil
+    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, sweep
+
+    ncells = nc * nc
+    tables = stencil.stencil_tables(*sweep.sweep_com(
+        st.x, st.y, st.m, key, pos, plan, ncells), side, nc)
+    fn = getattr(lib, "psim_sweep_forces_"
+                 + ("f64" if st.x.dtype == torch.float64 else "f32"))
+
+    def each():
+        out = torch.empty((2, st.x.shape[0]), dtype=st.x.dtype,
+                          device=st.x.device)
+        cell_pairs._launch(
+            "sweep_forces", fn, st.x, st.x.data_ptr(), st.y.data_ptr(),
+            st.m.data_ptr(), st.alive.data_ptr(), key.data_ptr(),
+            pos.data_ptr(), plan.counts.data_ptr(), st.x.shape[0], ncells,
+            plan.kmax, *(t.data_ptr() for t in tables), float(G),
+            out[0].data_ptr(), out[1].data_ptr(),
+            launches={"sweep_forces": 0})
+        return out[0], out[1]
+
+    if not all(_bits_equal(a, b) for a, b in zip(each(), once())):
+        raise AssertionError(f"{label}: the two force designs differ")
+    rec = {"once_device_ms": device_ms(once, 20),
+           "each_receiver_device_ms": device_ms(each, 20)}
+    print(f"{label} sweep forces: term-once {rec['once_device_ms']:.4f} "
+          f"device ms, each receiver its own terms "
+          f"{rec['each_receiver_device_ms']:.4f} (bit for bit)", flush=True)
+    return rec
 
 
 def check_cli_parity_inprocess():

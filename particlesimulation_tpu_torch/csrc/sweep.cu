@@ -93,19 +93,27 @@
 //     RN(sqrt(d2)) >= RN(sqrt(4*eps*eps)) ~ 2*eps > eps (the square root is
 //     monotonic), so the skip changes no outcome.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// 1: the force kernels compute each pair term once (term-once schedules);
+// 0: each receiver computes all of its own terms (a measurement build).
+#ifndef PSIM_SWEEP_ONCE
+#define PSIM_SWEEP_ONCE 1
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChunk = 4096;   // the force and collision passes' chunk
+constexpr int kRowTile = 32;   // parity: receivers a step (a row tile)
+constexpr int kColTile = 64;   // parity: partners a stage (a column tile)
+constexpr int kBand = 2;       // fast: offsets a band
 
 inline unsigned blocks_for(int n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
-
-__device__ __forceinline__ float rsqrt_of(float v) { return rsqrtf(v); }
-__device__ __forceinline__ double rsqrt_of(double v) { return rsqrt(v); }
 
 // The lane's cell: its first lane and one past its last; false for a
 // sentinel lane.
@@ -171,155 +179,681 @@ __global__ void sweep_com_kernel(const T* __restrict__ x,
   }
 }
 
-// Same-cell pair forces then the 8 stencil monopole terms, each lane its
-// own sum (ops/forces.py pairwise_forces_parity_blocked or
-// pairwise_forces_fast, then monopole_forces). ml, mxl, myl: (8, ncells +
-// 1) rows, the last column a zero sentinel.
-template <typename T, bool kParity>
-__global__ void sweep_forces_kernel(
-    const T* __restrict__ x, const T* __restrict__ y,
-    const T* __restrict__ m, const bool* __restrict__ alive,
-    const int* __restrict__ key, const int64_t* __restrict__ pos,
-    const int64_t* __restrict__ counts, int n, int ncells,
-    const T* __restrict__ ml, const T* __restrict__ mxl,
-    const T* __restrict__ myl, T g, T* fx, T* fy) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T xi = x[i], yi = y[i], mi = m[i];
-  const bool ai = alive[i];
-  // The plain version's accumulators start at x * 0, both of them.
-  T ax = xi * T(0), ay = xi * T(0);
-  int s, e;
-  const bool real = cell_of_lane(i, key, pos, counts, ncells, &s, &e);
-  if (real && !ai) {
-    // A dead lane: the parity upper sweep's first offset adds a literal 0.
-    if (kParity && i < e - 1) {
-      ax = ax + T(0);
-      ay = ay + T(0);
-    }
-  } else if (real && kParity) {
-    for (int j = s; j < e; ++j) {
-      if (j == i) continue;
-      const bool below = j < i;
-      if (!alive[j]) {
-        if (!below) {
-          ax = ax + T(0);
-          ay = ay + T(0);
-        }
-        continue;
-      }
-      const T xj = x[j], yj = y[j], mj = m[j];
-      // The term from the lower lane's side: t(lo, hi).
-      const T xl = below ? xj : xi, yl = below ? yj : yi,
-              mlo = below ? mj : mi;
-      const T xh = below ? xi : xj, yh = below ? yi : yj,
-              mhi = below ? mi : mj;
-      const T dx = xh - xl, dy = yh - yl;
-      const T d2 = dx * dx + dy * dy;
-      const T dist = sqrt(d2);
-      if (dist == T(0)) {
-        if (!below) {
-          ax = ax + T(0);
-          ay = ay + T(0);
-        }
-        continue;
-      }
-      const T fm = ((g * mlo) * mhi) / d2;
-      const T tx = fm * (dx / dist), ty = fm * (dy / dist);
-      if (below) {
-        ax = ax - tx;
-        ay = ay - ty;
-      } else {
-        ax = ax + tx;
-        ay = ay + ty;
-      }
-    }
-  } else if (real) {
-    const T gmi = g * mi;
-    const int up = e - 1 - i, down = i - s;
-    const int omax = up > down ? up : down;
-    for (int o = 1; o <= omax; ++o) {
-      if (o <= up && alive[i + o]) {
-        const int j = i + o;
-        const T dx = x[j] - xi, dy = y[j] - yi;
-        const T d2 = dx * dx + dy * dy;
-        if (d2 > T(0)) {
-          const T inv = rsqrt_of(d2);
-          const T sc = (gmi * m[j]) * ((inv * inv) * inv);
-          ax = ax + sc * dx;
-          ay = ay + sc * dy;
-        }
-      }
-      if (o <= down && alive[i - o]) {
-        const int j = i - o;
-        const T dx = xi - x[j], dy = yi - y[j];
-        const T d2 = dx * dx + dy * dy;
-        if (d2 > T(0)) {
-          const T inv = rsqrt_of(d2);
-          const T sc = ((g * m[j]) * mi) * ((inv * inv) * inv);
-          ax = ax - sc * dx;
-          ay = ay - sc * dy;
-        }
-      }
+// ---- The force and collision passes: a block a range of kThreads lanes.
+//
+// The block runs the chunks that start in its range: a chunk is up to
+// `chunk` (the host's min(kmax, kChunk)) consecutive lanes of one cell,
+// starting at a lane whose position is a multiple of `chunk`, so every lane
+// of a cell lies in exactly one chunk and a cell of kmax lanes or fewer is
+// one chunk. The block also writes its range's sentinel lanes.
+
+// The chunk starts of this block's range, into starts[0 .. *nstarts); the
+// sentinel lanes of the range are handed to `sentinel(i)`.
+template <typename Sentinel>
+__device__ __forceinline__ void chunk_starts(const int* key,
+                                             const int64_t* pos, int n,
+                                             int ncells, int chunk,
+                                             int* starts, int* nstarts,
+                                             Sentinel sentinel) {
+  if (threadIdx.x == 0) *nstarts = 0;
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) {
+    const int k = key[i];
+    if ((unsigned)k >= (unsigned)ncells) {
+      sentinel(i);
+    } else if (pos[i] % chunk == 0) {
+      starts[atomicAdd(nstarts, 1)] = i;
     }
   }
-  // The 8 stencil terms, in stencil order, each as the plain version
-  // computes it (its guards on d2 and dist included); masked: + 0.
-  const int ld = ncells + 1;
-  const int kc = real ? key[i] : ncells;
+  __syncthreads();
+}
+
+// The cell [*s, *e) of the chunk that starts at lane c0, and the chunk's
+// end *c1.
+__device__ __forceinline__ void chunk_of(int c0, const int* key,
+                                         const int64_t* pos,
+                                         const int64_t* counts, int chunk,
+                                         int* s, int* e, int* c1) {
+  *s = c0 - (int)pos[c0];
+  *e = *s + (int)counts[key[c0]];
+  *c1 = c0 + chunk < *e ? c0 + chunk : *e;
+}
+
+// The 8 stencil terms of a lane, in stencil order, each as the plain
+// version computes it (its guards on d2 and dist included); masked (a dead
+// or sentinel lane, or dist 0): + 0.
+template <typename T>
+__device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
+                                            int kc, int ld, const T* ml,
+                                            const T* mxl, const T* myl, T g,
+                                            T* ax, T* ay) {
   for (int l = 0; l < 8; ++l) {
     const T cm = ml[l * ld + kc], cmx = mxl[l * ld + kc],
             cmy = myl[l * ld + kc];
     const T dx = cmx - xi, dy = cmy - yi;
     const T d2 = dx * dx + dy * dy;
     const T dist = sqrt(d2);
-    if (!(ai && real && dist != T(0))) {
-      ax = ax + T(0);
-      ay = ay + T(0);
+    if (!(live && dist != T(0))) {
+      *ax = *ax + T(0);
+      *ay = *ay + T(0);
       continue;
     }
     const T fm = ((g * mi) * cm) / (d2 > T(0) ? d2 : T(1));
     const T safe = dist > T(0) ? dist : T(1);
-    ax = ax + fm * (dx / safe);
-    ay = ay + fm * (dy / safe);
+    *ax = *ax + fm * (dx / safe);
+    *ay = *ay + fm * (dy / safe);
   }
-  fx[i] = ax;
-  fy[i] = ay;
+}
+
+// ---- Parity forces (f64).
+
+// t(lo, hi) = ((G*m_lo)*m_hi)/d2 * (d/dist), d = hi - lo; gml = G*m_lo.
+// +0 where the pair is masked (a dead end, or dist 0).
+__device__ __forceinline__ void parity_term(double xl, double yl, double gml,
+                                            bool al, double xh, double yh,
+                                            double mh, bool ah, double* tx,
+                                            double* ty) {
+  *tx = 0.0;
+  *ty = 0.0;
+  if (!(al && ah)) return;
+  const double dx = xh - xl, dy = yh - yl;
+  const double d2 = dx * dx + dy * dy;
+  const double dist = sqrt(d2);
+  if (dist == 0.0) return;
+  const double fm = (gml * mh) / d2;
+  *tx = fm * (dx / dist);
+  *ty = fm * (dy / dist);
+}
+
+// The parity chunk's shared memory: each receiver's sums (ax, ay), the
+// term tile (bx, by: kRowTile rows of kColTile + 1, the pad keeping a row
+// walk off one bank), the row tile's lanes (rx, ry, rm, rgm = G*m, ra) and
+// a column tile's (cx, cy, cm, ca).
+struct ParityShared {
+  double *ax, *ay, *bx, *by, *rx, *ry, *rm, *rgm, *cx, *cy, *cm;
+  unsigned char *ra, *ca;
+};
+
+constexpr int kTermStride = kColTile + 1;
+
+inline size_t parity_shared_bytes(int chunk) {
+  return sizeof(double) * (2 * (size_t)chunk + 2 * kRowTile * kTermStride +
+                           4 * kRowTile + 3 * kColTile) +
+         kRowTile + kColTile;
+}
+
+__device__ __forceinline__ ParityShared parity_shared(unsigned char* base,
+                                                      int chunk) {
+  ParityShared s;
+  s.ax = reinterpret_cast<double*>(base);
+  s.ay = s.ax + chunk;
+  s.bx = s.ay + chunk;
+  s.by = s.bx + kRowTile * kTermStride;
+  s.rx = s.by + kRowTile * kTermStride;
+  s.ry = s.rx + kRowTile;
+  s.rm = s.ry + kRowTile;
+  s.rgm = s.rm + kRowTile;
+  s.cx = s.rgm + kRowTile;
+  s.cy = s.cx + kColTile;
+  s.cm = s.cy + kColTile;
+  s.ra = reinterpret_cast<unsigned char*>(s.cm + kColTile);
+  s.ca = s.ra + kRowTile;
+  return s;
+}
+
+// Stage lanes t0 .. t0+w-1 into the column tile (threads 0 .. w-1).
+__device__ __forceinline__ void stage_columns(const double* x,
+                                              const double* y,
+                                              const double* m,
+                                              const bool* alive,
+                                              const ParityShared& s, int t0,
+                                              int w) {
+  const int q = threadIdx.x;
+  if (q < w) {
+    s.cx[q] = x[t0 + q];
+    s.cy[q] = y[t0 + q];
+    s.cm[q] = m[t0 + q];
+    s.ca[q] = alive[t0 + q];
+  }
+}
+
+// Receivers c0 .. c0+rc-1 add the terms of partners j0 .. j1-1, ascending:
+// j < i: -t(j, i); j > i: +t(i, j) (+0 where masked, as the plain upper
+// sweep adds); j = i: none. Partners staged a column tile at a time.
+__device__ void parity_one_sided(const double* x, const double* y,
+                                 const double* m, const bool* alive, double g,
+                                 const ParityShared& s, int c0, int rc,
+                                 int j0, int j1) {
+  for (int t0 = j0; t0 < j1; t0 += kColTile) {
+    const int w = j1 - t0 < kColTile ? j1 - t0 : kColTile;
+    __syncthreads();
+    stage_columns(x, y, m, alive, s, t0, w);
+    __syncthreads();
+    for (int r = threadIdx.x; r < rc; r += kThreads) {
+      const int i = c0 + r;
+      const double xi = x[i], yi = y[i], mi = m[i];
+      const bool ai = alive[i];
+      const double gmi = g * mi;
+      double sx = s.ax[r], sy = s.ay[r];
+      for (int q = 0; q < w; ++q) {
+        const int j = t0 + q;
+        double tx, ty;
+        if (j < i) {
+          parity_term(s.cx[q], s.cy[q], g * s.cm[q], s.ca[q], xi, yi, mi, ai,
+                      &tx, &ty);
+          sx = sx - tx;
+          sy = sy - ty;
+        } else if (j > i) {
+          parity_term(xi, yi, gmi, ai, s.cx[q], s.cy[q], s.cm[q], s.ca[q],
+                      &tx, &ty);
+          sx = sx + tx;
+          sy = sy + ty;
+        }
+      }
+      s.ax[r] = sx;
+      s.ay[r] = sy;
+    }
+  }
+  __syncthreads();
+}
+
+// The p-th pair (u, v), u < v < n, of the row-major upper triangle.
+__device__ __forceinline__ void triangle_pair(int p, int n, int* u, int* v) {
+  const float b = 2.0f * n - 1.0f;
+  int a = (int)((b - sqrtf(fmaxf(b * b - 8.0f * p, 0.0f))) * 0.5f);
+  a = a < 0 ? 0 : a;
+  while (a > 0 && a * (2 * n - 1 - a) / 2 > p) --a;
+  while ((a + 1) * (2 * n - 2 - a) / 2 <= p) ++a;
+  *u = a;
+  *v = p - a * (2 * n - 1 - a) / 2 + a + 1;
+}
+
+// Each unordered pair of the chunk's lanes, its term computed once. Row
+// tile k (lanes k0 .. k0+tk-1) at a time: first the pairs inside it (the
+// triangle), each lane v adding its column (-t(u, v), u < v ascending) then
+// its row (+t(v, w), w > v ascending); then column tiles h0 .. h0+w-1
+// above it, ascending: the column lanes add -t(u, h) for u ascending, the
+// row lanes +t(u, h) for h ascending. So every lane receives its partners
+// in ascending order: the lower ones in the steps of the tiles below it,
+// then its own tile's, then the upper ones in its own step.
+__device__ void parity_once(const double* x, const double* y, const double* m,
+                            const bool* alive, double g,
+                            const ParityShared& s, int c0, int rc) {
+  const int tid = threadIdx.x;
+  for (int k0 = 0; k0 < rc; k0 += kRowTile) {
+    const int tk = rc - k0 < kRowTile ? rc - k0 : kRowTile;
+    if (tid < tk) {
+      const int i = c0 + k0 + tid;
+      s.rx[tid] = x[i];
+      s.ry[tid] = y[i];
+      s.rm[tid] = m[i];
+      s.rgm[tid] = g * m[i];
+      s.ra[tid] = alive[i];
+    }
+    __syncthreads();
+    const int np = tk * (tk - 1) / 2;
+    for (int p = tid; p < np; p += kThreads) {
+      int u, v;
+      triangle_pair(p, tk, &u, &v);
+      parity_term(s.rx[u], s.ry[u], s.rgm[u], s.ra[u], s.rx[v], s.ry[v],
+                  s.rm[v], s.ra[v], &s.bx[u * kTermStride + v],
+                  &s.by[u * kTermStride + v]);
+    }
+    __syncthreads();
+    if (tid < tk) {
+      double sx = s.ax[k0 + tid], sy = s.ay[k0 + tid];
+      for (int u = 0; u < tid; ++u) {
+        sx = sx - s.bx[u * kTermStride + tid];
+        sy = sy - s.by[u * kTermStride + tid];
+      }
+      for (int v = tid + 1; v < tk; ++v) {
+        sx = sx + s.bx[tid * kTermStride + v];
+        sy = sy + s.by[tid * kTermStride + v];
+      }
+      s.ax[k0 + tid] = sx;
+      s.ay[k0 + tid] = sy;
+    }
+    for (int h0 = k0 + tk; h0 < rc; h0 += kColTile) {
+      const int w = rc - h0 < kColTile ? rc - h0 : kColTile;
+      __syncthreads();
+      stage_columns(x, y, m, alive, s, c0 + h0, w);
+      __syncthreads();
+      for (int p = tid; p < tk * kColTile; p += kThreads) {
+        const int u = p / kColTile, q = p % kColTile;
+        if (q < w) {
+          parity_term(s.rx[u], s.ry[u], s.rgm[u], s.ra[u], s.cx[q], s.cy[q],
+                      s.cm[q], s.ca[q], &s.bx[u * kTermStride + q],
+                      &s.by[u * kTermStride + q]);
+        }
+      }
+      __syncthreads();
+      if (tid < w) {
+        double sx = s.ax[h0 + tid], sy = s.ay[h0 + tid];
+        for (int u = 0; u < tk; ++u) {
+          sx = sx - s.bx[u * kTermStride + tid];
+          sy = sy - s.by[u * kTermStride + tid];
+        }
+        s.ax[h0 + tid] = sx;
+        s.ay[h0 + tid] = sy;
+      } else if (tid >= kColTile && tid < kColTile + tk) {
+        const int u = tid - kColTile;
+        double sx = s.ax[k0 + u], sy = s.ay[k0 + u];
+        for (int q = 0; q < w; ++q) {
+          sx = sx + s.bx[u * kTermStride + q];
+          sy = sy + s.by[u * kTermStride + q];
+        }
+        s.ax[k0 + u] = sx;
+        s.ay[k0 + u] = sy;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One chunk c0 .. c1-1 of cell [cs, ce): the partners below the chunk
+// (one-sided), the chunk's own pairs (each term once), the partners above
+// it (one-sided), then the stencil terms; or, with kOnce off, every
+// receiver walking all of its cell's partners (each term from both ends).
+template <bool kOnce>
+__device__ void parity_chunk(const double* x, const double* y,
+                             const double* m, const bool* alive, int kc,
+                             int ld, const double* ml, const double* mxl,
+                             const double* myl, double g,
+                             const ParityShared& s, int c0, int c1, int cs,
+                             int ce, double* fx, double* fy) {
+  const int rc = c1 - c0;
+  for (int r = threadIdx.x; r < rc; r += kThreads) {
+    const double xi = x[c0 + r];
+    s.ax[r] = xi * 0.0;  // the plain version's sums start at x * 0, both
+    s.ay[r] = xi * 0.0;
+  }
+  __syncthreads();
+  if (kOnce) {
+    if (cs < c0) parity_one_sided(x, y, m, alive, g, s, c0, rc, cs, c0);
+    parity_once(x, y, m, alive, g, s, c0, rc);
+    if (c1 < ce) parity_one_sided(x, y, m, alive, g, s, c0, rc, c1, ce);
+  } else {
+    parity_one_sided(x, y, m, alive, g, s, c0, rc, cs, ce);
+  }
+  for (int r = threadIdx.x; r < rc; r += kThreads) {
+    const int i = c0 + r;
+    double sx = s.ax[r], sy = s.ay[r];
+    add_stencil<double>(x[i], y[i], m[i], alive[i], kc, ld, ml, mxl, myl, g,
+                        &sx, &sy);
+    fx[i] = sx;
+    fy[i] = sy;
+  }
+  __syncthreads();
+}
+
+// ---- Fast forces (f32).
+
+// The fast sweep's term t(lo, hi) = (G*m_lo*m_hi) * ((inv*inv)*inv) * d,
+// d = hi - lo, inv = rsqrtf(d2); gml = G*m_lo. False where the pair is
+// masked (a dead end, or d2 not > 0): the kernel skips those terms.
+__device__ __forceinline__ bool fast_term(float xl, float yl, float gml,
+                                          bool al, float xh, float yh,
+                                          float mh, bool ah, float* tx,
+                                          float* ty) {
+  if (!(al && ah)) return false;
+  const float dx = xh - xl, dy = yh - yl;
+  const float d2 = dx * dx + dy * dy;
+  if (!(d2 > 0.0f)) return false;
+  const float inv = rsqrtf(d2);
+  const float sc = (gml * mh) * ((inv * inv) * inv);
+  *tx = sc * dx;
+  *ty = sc * dy;
+  return true;
+}
+
+// The fast chunk's shared memory: the chunk's lanes (x, y, m, alive as
+// 1/0), each receiver's sums, and with kOnce a band's terms and their
+// masks (kBand rows of `chunk`).
+struct FastShared {
+  float4* lane;
+  float2* acc;
+  float2* term;
+  unsigned char* ok;
+};
+
+template <bool kOnce>
+size_t fast_shared_bytes(int chunk) {
+  return (size_t)chunk *
+         (sizeof(float4) + sizeof(float2) +
+          (kOnce ? kBand * (sizeof(float2) + 1) : 0));
+}
+
+__device__ __forceinline__ FastShared fast_shared(unsigned char* base,
+                                                  int chunk) {
+  FastShared s;
+  s.lane = reinterpret_cast<float4*>(base);
+  s.acc = reinterpret_cast<float2*>(s.lane + chunk);
+  s.term = s.acc + chunk;
+  s.ok = reinterpret_cast<unsigned char*>(s.term + kBand * chunk);
+  return s;
+}
+
+// One chunk c0 .. c1-1 of cell [cs, ce) in the fast sweep's order: for
+// o = 1, 2, ...: +t(i, i+o), then -t(i-o, i). With kOnce, the offsets come
+// kBand at a time, each term with both ends in the chunk computed once
+// into the band's row (then each lane adds its own in order); a term with
+// an end outside the chunk is computed by its receiver. Without, every
+// receiver walks its partners, staged in the chunk or read from memory.
+template <bool kOnce>
+__device__ void fast_chunk(const float* x, const float* y, const float* m,
+                           const bool* alive, int kc, int ld, const float* ml,
+                           const float* mxl, const float* myl, float g,
+                           const FastShared& s, int chunk, int c0, int c1,
+                           int cs, int ce, float* fx, float* fy) {
+  const int rc = c1 - c0, tid = threadIdx.x;
+  for (int r = tid; r < rc; r += kThreads) {
+    const int i = c0 + r;
+    const float xi = x[i];
+    s.lane[r] = make_float4(xi, y[i], m[i], alive[i] ? 1.0f : 0.0f);
+    s.acc[r] = make_float2(xi * 0.0f, xi * 0.0f);
+  }
+  __syncthreads();
+  if (kOnce) {
+    const int omax = ce - 1 - c0 > c1 - 1 - cs ? ce - 1 - c0 : c1 - 1 - cs;
+    for (int o0 = 1; o0 <= omax; o0 += kBand) {
+      for (int b = 0; b < kBand; ++b) {
+        const int o = o0 + b;
+        for (int r = tid; r < rc - o; r += kThreads) {
+          const float4 lo = s.lane[r], hi = s.lane[r + o];
+          float tx = 0.0f, ty = 0.0f;
+          s.ok[b * chunk + r] =
+              fast_term(lo.x, lo.y, g * lo.z, lo.w != 0.0f, hi.x, hi.y, hi.z,
+                        hi.w != 0.0f, &tx, &ty);
+          s.term[b * chunk + r] = make_float2(tx, ty);
+        }
+      }
+      __syncthreads();
+      for (int r = tid; r < rc; r += kThreads) {
+        const float4 li = s.lane[r];
+        if (li.w == 0.0f) continue;
+        const int i = c0 + r;
+        float2 a = s.acc[r];
+        for (int b = 0; b < kBand; ++b) {
+          const int o = o0 + b;
+          float tx, ty;
+          if (i + o < ce) {
+            if (r + o < rc) {
+              if (s.ok[b * chunk + r]) {
+                const float2 t = s.term[b * chunk + r];
+                a.x = a.x + t.x;
+                a.y = a.y + t.y;
+              }
+            } else if (fast_term(li.x, li.y, g * li.z, true, x[i + o],
+                                 y[i + o], m[i + o], alive[i + o], &tx,
+                                 &ty)) {
+              a.x = a.x + tx;
+              a.y = a.y + ty;
+            }
+          }
+          if (i - o >= cs) {
+            if (r - o >= 0) {
+              if (s.ok[b * chunk + r - o]) {
+                const float2 t = s.term[b * chunk + r - o];
+                a.x = a.x - t.x;
+                a.y = a.y - t.y;
+              }
+            } else if (fast_term(x[i - o], y[i - o], g * m[i - o],
+                                 alive[i - o], li.x, li.y, li.z, true, &tx,
+                                 &ty)) {
+              a.x = a.x - tx;
+              a.y = a.y - ty;
+            }
+          }
+        }
+        s.acc[r] = a;
+      }
+      __syncthreads();
+    }
+  } else {
+    for (int r = tid; r < rc; r += kThreads) {
+      const float4 li = s.lane[r];
+      if (li.w == 0.0f) continue;
+      const int i = c0 + r, up = ce - 1 - i, down = i - cs;
+      const int omax = up > down ? up : down;
+      const float gmi = g * li.z;
+      float2 a = s.acc[r];
+      for (int o = 1; o <= omax; ++o) {
+        float tx, ty;
+        if (o <= up) {
+          const float4 hi = r + o < rc ? s.lane[r + o]
+                                       : make_float4(x[i + o], y[i + o],
+                                                     m[i + o],
+                                                     alive[i + o] ? 1.0f
+                                                                  : 0.0f);
+          if (fast_term(li.x, li.y, gmi, true, hi.x, hi.y, hi.z,
+                        hi.w != 0.0f, &tx, &ty)) {
+            a.x = a.x + tx;
+            a.y = a.y + ty;
+          }
+        }
+        if (o <= down) {
+          const float4 lo = r - o >= 0 ? s.lane[r - o]
+                                       : make_float4(x[i - o], y[i - o],
+                                                     m[i - o],
+                                                     alive[i - o] ? 1.0f
+                                                                  : 0.0f);
+          if (fast_term(lo.x, lo.y, g * lo.z, lo.w != 0.0f, li.x, li.y,
+                        li.z, true, &tx, &ty)) {
+            a.x = a.x - tx;
+            a.y = a.y - ty;
+          }
+        }
+      }
+      s.acc[r] = a;
+    }
+    __syncthreads();
+  }
+  for (int r = tid; r < rc; r += kThreads) {
+    const int i = c0 + r;
+    const float4 li = s.lane[r];
+    float2 a = s.acc[r];
+    add_stencil<float>(li.x, li.y, li.z, li.w != 0.0f, kc, ld, ml, mxl, myl,
+                       g, &a.x, &a.y);
+    fx[i] = a.x;
+    fy[i] = a.y;
+  }
+  __syncthreads();
+}
+
+// Same-cell pair forces then the 8 stencil monopole terms, each lane its
+// own sum (ops/forces.py pairwise_forces_parity_blocked or
+// pairwise_forces_fast, then monopole_forces). ml, mxl, myl: (8, ncells +
+// 1) rows, the last column a zero sentinel.
+template <typename T, bool kParity, bool kOnce>
+__global__ void __launch_bounds__(kThreads) sweep_forces_kernel(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ m, const bool* __restrict__ alive,
+    const int* __restrict__ key, const int64_t* __restrict__ pos,
+    const int64_t* __restrict__ counts, int n, int ncells, int chunk,
+    const T* __restrict__ ml, const T* __restrict__ mxl,
+    const T* __restrict__ myl, T g, T* fx, T* fy) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  __shared__ int starts[kThreads];
+  __shared__ int nstarts;
+  const int ld = ncells + 1;
+  // A sentinel lane: its sums x * 0, then the 8 masked stencil terms.
+  chunk_starts(key, pos, n, ncells, chunk, starts, &nstarts, [&](int i) {
+    const T xi = x[i];
+    T ax = xi * T(0), ay = xi * T(0);
+    add_stencil<T>(xi, y[i], m[i], false, ncells, ld, ml, mxl, myl, g, &ax,
+                   &ay);
+    fx[i] = ax;
+    fy[i] = ay;
+  });
+  for (int c = 0; c < nstarts; ++c) {
+    const int c0 = starts[c];
+    int cs, ce, c1;
+    chunk_of(c0, key, pos, counts, chunk, &cs, &ce, &c1);
+    if constexpr (kParity) {
+      parity_chunk<kOnce>(x, y, m, alive, key[c0], ld, ml, mxl, myl, g,
+                          parity_shared(shared, chunk), c0, c1, cs, ce, fx,
+                          fy);
+    } else {
+      fast_chunk<kOnce>(x, y, m, alive, key[c0], ld, ml, mxl, myl, g,
+                        fast_shared(shared, chunk), chunk, c0, c1, cs, ce,
+                        fx, fy);
+    }
+  }
+}
+
+// ---- Collisions.
+
+// Sort keys: the float's bits made to order as unsigned integers as the
+// values do (-0 just below +0); a NaN gets the largest key, kNone, which
+// also marks a dead lane.
+__device__ __forceinline__ uint32_t sort_key(float v) {
+  if (v != v) return 0xFFFFFFFFu;
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long sort_key(double v) {
+  if (v != v) return ~0ull;
+  const unsigned long long u =
+      static_cast<unsigned long long>(__double_as_longlong(v));
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+
+template <typename T>
+struct SortKey;
+template <>
+struct SortKey<float> {
+  using type = uint32_t;
+  static constexpr uint32_t kNone = 0xFFFFFFFFu;
+};
+template <>
+struct SortKey<double> {
+  using type = unsigned long long;
+  static constexpr unsigned long long kNone = ~0ull;
+};
+
+// keys[0 .. np) ascending (np a power of two), idx alongside.
+template <typename K>
+__device__ void bitonic_sort(K* keys, unsigned short* idx, int np) {
+  for (int k = 2; k <= np; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < np; t += kThreads) {
+        const int p = t ^ j;
+        if (p > t) {
+          const K a = keys[t], b = keys[p];
+          if ((a > b) == ((t & k) == 0)) {
+            keys[t] = b;
+            keys[p] = a;
+            const unsigned short it = idx[t];
+            idx[t] = idx[p];
+            idx[p] = it;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T>
+size_t collision_shared_bytes(int chunk, int span) {
+  return (size_t)span * (sizeof(typename SortKey<T>::type) + 2) +
+         (size_t)chunk * sizeof(int);
 }
 
 // Each lane's first colliding pair (ops/collisions.py
 // detect_collisions_blocked): first[i] is the position in the cell of the
 // partner of lane i's lexicographically first pair within eps, -1 if none;
-// died[i] whether it has one.
+// died[i] whether it has one. For each chunk of receivers, each chunk of
+// the cell (the whole cell where it is one chunk) is sorted by x in shared
+// memory, and each alive receiver walks outward from its own x, up then
+// down, while fl(dx²) < 4 eps², testing each alive partner as the plain
+// version does and keeping the lowest position that hits. `span`: a power
+// of two at least `chunk`.
 template <typename T>
-__global__ void sweep_collisions_kernel(
+__global__ void __launch_bounds__(kThreads) sweep_collisions_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const bool* __restrict__ alive, const int* __restrict__ key,
     const int64_t* __restrict__ pos, const int64_t* __restrict__ counts,
-    int n, int ncells, T eps, int* first, bool* died,
+    int n, int ncells, int chunk, int span, T eps, int* first, bool* died,
     unsigned long long* count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) *count = 0;  // the count pass runs after this one
-  if (i >= n) return;
-  int f = -1;
-  int s, e;
-  if (alive[i] && cell_of_lane(i, key, pos, counts, ncells, &s, &e)) {
-    const T far2 = T(4) * eps * eps;
-    const T xi = x[i], yi = y[i];
-    // Ascending partners: a hit below i, (j, i), ranks before every (i, k).
-    for (int j = s; j < e; ++j) {
-      if (j == i || !alive[j]) continue;
-      const T dx = j < i ? x[j] - xi : xi - x[j];
-      const T dy = j < i ? y[j] - yi : yi - y[j];
-      const T d2 = dx * dx + dy * dy;
-      if (d2 < far2 && sqrt(d2) < eps) {
-        f = j - s;
-        break;
+  using K = typename SortKey<T>::type;
+  constexpr K kNone = SortKey<T>::kNone;
+  extern __shared__ __align__(16) unsigned char shared[];
+  K* keys = reinterpret_cast<K*>(shared);
+  unsigned short* idx = reinterpret_cast<unsigned short*>(keys + span);
+  int* best = reinterpret_cast<int*>(idx + span);
+  __shared__ int starts[kThreads];
+  __shared__ int nstarts;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count = 0;  // the count pass
+                                                        // runs after this
+  chunk_starts(key, pos, n, ncells, chunk, starts, &nstarts, [&](int i) {
+    first[i] = -1;
+    died[i] = false;
+  });
+  const T far2 = T(4) * eps * eps;
+  for (int c = 0; c < nstarts; ++c) {
+    const int c0 = starts[c];
+    int cs, ce, c1;
+    chunk_of(c0, key, pos, counts, chunk, &cs, &ce, &c1);
+    const int rc = c1 - c0;
+    for (int r = threadIdx.x; r < rc; r += kThreads) best[r] = INT_MAX;
+    for (int d0 = cs; d0 < ce; d0 += chunk) {
+      const int rd = ce - d0 < chunk ? ce - d0 : chunk;
+      int np = 1;
+      while (np < rd) np <<= 1;
+      __syncthreads();
+      for (int q = threadIdx.x; q < np; q += kThreads) {
+        keys[q] = q < rd && alive[d0 + q] ? sort_key(x[d0 + q]) : kNone;
+        idx[q] = (unsigned short)q;
+      }
+      __syncthreads();
+      bitonic_sort(keys, idx, np);
+      for (int r = threadIdx.x; r < rc; r += kThreads) {
+        const int i = c0 + r;
+        if (!alive[i]) continue;
+        const T xi = x[i], yi = y[i];
+        const K kx = sort_key(xi);
+        if (kx == kNone) continue;
+        int lo = 0, hi = np;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (keys[mid] < kx) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        int f = best[r];
+        // Today's test on each candidate, with its dx, dy and d2.
+        auto test = [&](int j) {
+          const T dx = j < i ? x[j] - xi : xi - x[j];
+          const T dy = j < i ? y[j] - yi : yi - y[j];
+          const T d2 = dx * dx + dy * dy;
+          if (d2 < far2 && sqrt(d2) < eps && j - cs < f) f = j - cs;
+        };
+        for (int q = lo; q < np && keys[q] != kNone; ++q) {
+          const int j = d0 + idx[q];
+          const T w = x[j] - xi;
+          if (!(w * w < far2)) break;
+          if (j != i) test(j);
+        }
+        for (int q = lo - 1; q >= 0; --q) {
+          const int j = d0 + idx[q];
+          const T w = x[j] - xi;
+          if (!(w * w < far2)) break;
+          if (j != i) test(j);
+        }
+        best[r] = f;
       }
     }
+    for (int r = threadIdx.x; r < rc; r += kThreads) {
+      const int f = best[r] == INT_MAX ? -1 : best[r];
+      first[c0 + r] = f;
+      died[c0 + r] = f >= 0;
+    }
   }
-  first[i] = f;
-  died[i] = f >= 0;
 }
 
 // The pairs that are first for both ends, counted at their lower end.
@@ -349,29 +883,63 @@ int com(const T* x, const T* y, const T* m, const int* key,
   return (int)cudaGetLastError();
 }
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
+// over the 48 KB a block may take without asking; once for each kernel and
+// size larger than any before (`opted`: the kernel's own record).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted) {
+  if (smem <= 48 * 1024 || smem <= opted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) opted = smem;
+  return err;
+}
+
+// The chunk length: the largest cell's lane count, up to kChunk.
+inline int chunk_for(int kmax) {
+  return kmax < 1 ? 1 : (kmax < kChunk ? kmax : kChunk);
+}
+
 template <typename T, bool kParity>
 int forces(const T* x, const T* y, const T* m, const bool* alive,
            const int* key, const int64_t* pos, const int64_t* counts, int n,
-           int ncells, const T* ml, const T* mxl, const T* myl, double g,
-           T* fx, T* fy, void* stream) {
+           int ncells, int kmax, const T* ml, const T* mxl, const T* myl,
+           double g, T* fx, T* fy, void* stream) {
   if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
-  sweep_forces_kernel<T, kParity>
-      <<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, y, m, alive, key, pos, counts, n, ncells, ml, mxl, myl, (T)g,
-          fx, fy);
+  constexpr bool kOnce = PSIM_SWEEP_ONCE != 0;
+  const int chunk = chunk_for(kmax);
+  const size_t smem = kParity ? parity_shared_bytes(chunk)
+                              : fast_shared_bytes<kOnce>(chunk);
+  auto kernel = sweep_forces_kernel<T, kParity, kOnce>;
+  static size_t opted = 0;
+  const cudaError_t err = opt_in(kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks_for(n), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, alive, key, pos, counts, n, ncells, chunk, ml, mxl, myl, (T)g,
+      fx, fy);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int collisions(const T* x, const T* y, const bool* alive, const int* key,
                const int64_t* pos, const int64_t* counts, int n, int ncells,
-               double eps, int* first, bool* died, long long* count,
+               int kmax, double eps, int* first, bool* died, long long* count,
                void* stream) {
   if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* total = reinterpret_cast<unsigned long long*>(count);
-  sweep_collisions_kernel<T><<<blocks_for(n), kThreads, 0, s>>>(
-      x, y, alive, key, pos, counts, n, ncells, (T)eps, first, died, total);
+  const int chunk = chunk_for(kmax);
+  int span = 2;
+  while (span < chunk) span <<= 1;
+  const size_t smem = collision_shared_bytes<T>(chunk, span);
+  auto kernel = sweep_collisions_kernel<T>;
+  static size_t opted = 0;
+  const cudaError_t oerr = opt_in(kernel, smem, opted);
+  if (oerr != cudaSuccess) return (int)oerr;
+  kernel<<<blocks_for(n), kThreads, smem, s>>>(x, y, alive, key, pos, counts,
+                                               n, ncells, chunk, span, (T)eps,
+                                               first, died, total);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   sweep_collision_count_kernel<<<blocks_for(n), kThreads, 0, s>>>(
@@ -402,51 +970,55 @@ extern "C" int psim_sweep_com_f32(const float* x, const float* y,
                            stream);
 }
 
-// alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to
-// the type. Outputs fx, fy: n each. _f64 parity, _f32 fast.
+// alive: n bytes (0/1); kmax: the most lanes in one cell (plan.kmax); ml,
+// mxl, myl: (8, ncells + 1) each; g = G, cast to the type. Outputs fx, fy:
+// n each. _f64 parity, _f32 fast.
 extern "C" int psim_sweep_forces_f64(const double* x, const double* y,
                                      const double* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
-                                     const double* ml, const double* mxl,
-                                     const double* myl, double g, double* fx,
-                                     double* fy, void* stream) {
+                                     int kmax, const double* ml,
+                                     const double* mxl, const double* myl,
+                                     double g, double* fx, double* fy,
+                                     void* stream) {
   return forces<double, true>(x, y, m, alive, key, pos, counts, n, ncells,
-                              ml, mxl, myl, g, fx, fy, stream);
+                              kmax, ml, mxl, myl, g, fx, fy, stream);
 }
 
 extern "C" int psim_sweep_forces_f32(const float* x, const float* y,
                                      const float* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
-                                     const float* ml, const float* mxl,
-                                     const float* myl, double g, float* fx,
-                                     float* fy, void* stream) {
+                                     int kmax, const float* ml,
+                                     const float* mxl, const float* myl,
+                                     double g, float* fx, float* fy,
+                                     void* stream) {
   return forces<float, false>(x, y, m, alive, key, pos, counts, n, ncells,
-                              ml, mxl, myl, g, fx, fy, stream);
+                              kmax, ml, mxl, myl, g, fx, fy, stream);
 }
 
-// eps = EPSILON, cast to the type. Outputs: first (n ints, scratch),
-// died (n bytes); count (one int64): the pairs first for both ends. Two
-// launches: the first pairs (which zero the count), then the count.
+// kmax as above; eps = EPSILON, cast to the type. Outputs: first (n ints,
+// scratch), died (n bytes); count (one int64): the pairs first for both
+// ends. Two launches: the first pairs (which zero the count), then the
+// count.
 extern "C" int psim_sweep_collisions_f64(const double* x, const double* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
-                                         int ncells, double eps, int* first,
-                                         bool* died, long long* count,
-                                         void* stream) {
-  return collisions<double>(x, y, alive, key, pos, counts, n, ncells, eps,
-                            first, died, count, stream);
+                                         int ncells, int kmax, double eps,
+                                         int* first, bool* died,
+                                         long long* count, void* stream) {
+  return collisions<double>(x, y, alive, key, pos, counts, n, ncells, kmax,
+                            eps, first, died, count, stream);
 }
 
 extern "C" int psim_sweep_collisions_f32(const float* x, const float* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
-                                         int ncells, double eps, int* first,
-                                         bool* died, long long* count,
-                                         void* stream) {
-  return collisions<float>(x, y, alive, key, pos, counts, n, ncells, eps,
-                           first, died, count, stream);
+                                         int ncells, int kmax, double eps,
+                                         int* first, bool* died,
+                                         long long* count, void* stream) {
+  return collisions<float>(x, y, alive, key, pos, counts, n, ncells, kmax,
+                           eps, first, died, count, stream);
 }

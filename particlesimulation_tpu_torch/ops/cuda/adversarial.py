@@ -441,12 +441,32 @@ def sweep_particles(case: str, seed: int = 7):
       position out of the box (sentinel keys: no pair term, no collision);
       pids 9-11 in cell (2, 2) on a line, 0.6·EPSILON apart (the chain
       A-B, B-C: one count, three deaths); the rest random, ~10% dead;
-    * "hot" (600 particles): 40% of them in cell (1, 1), ~10% dead.
+    * "hot" (600 particles): 40% of them in cell (1, 1), ~10% dead;
+    * "wide" (3000 particles): pids 0-2599 in cell (1, 1), so pid p sits at
+      position p there (more lanes than a row or column tile of the
+      kernels), ~10% of them dead; planted in it, each in a clear spot
+      (no other particle within 0.02): a coincident live pair across a
+      tile boundary (positions 31, 32 and 63, 64); a lane (pid 500) whose
+      lowest hitting partner (pid 100, 0.004 away in x) is not its nearest
+      in x (pid 900, 0.001 away in x, 0.0035 in y); for each float type,
+      a pair whose fl(dx²) is the least at or above 4·EPSILON² (the x
+      window's edge) and one whose is the largest below it; three lanes
+      at one x (two 0.003 apart in y, the third far); and pid 2600, live
+      at x = -0.3 (in (-w, 0), column 0) with a hitting partner;
+    * "huge" (10600 particles): pids 0-9999 in cell (1, 1), more lanes than
+      the kernels stage at once (4096), ~10% dead; coincident live pairs
+      at positions 4095, 4096 and 8191, 8192 (across the chunks), and pid
+      9000 whose lowest hitting partner (pid 100, another chunk) is not
+      its nearest in x (pid 9500).
     """
     rng = np.random.default_rng(seed)
     side, w = SWEEP_SIDE, SWEEP_SIDE / SWEEP_NCSIDE
-    n = 600 if case == "hot" else 300
+    n = {"hot": 600, "wide": 3000, "huge": 10600}.get(case, 300)
     x, y = rng.uniform(0, side, n), rng.uniform(0, side, n)
+    if case == "wide":
+        return _wide_particles(rng, x, y, w)
+    if case == "huge":
+        return _huge_particles(rng, x, y, w)
     if case == "hot":
         k = int(0.4 * n)
         x[:k] = rng.uniform(w, 2 * w, k)
@@ -471,6 +491,88 @@ def sweep_particles(case: str, seed: int = 7):
         alive[[0, 3]] = False
     m[~alive] = 0.0
     return x, y, m, alive
+
+
+def _window_edge(x0, dtype):
+    """(the least x1 > x0 with fl((x1 - x0)²) >= 4·EPSILON², the largest
+    with it below), both of ``dtype``, as float64."""
+    t = np.dtype(dtype).type
+    far2 = t(4) * t(EPSILON) * t(EPSILON)
+    x0 = t(x0)
+    x1 = t(x0 + t(2) * t(EPSILON))
+    while t(t(x1 - x0) * t(x1 - x0)) >= far2:
+        x1 = np.nextafter(x1, t(-np.inf))
+    while t(t(x1 - x0) * t(x1 - x0)) < far2:
+        x1 = np.nextafter(x1, t(np.inf))
+    return float(x1), float(np.nextafter(x1, t(-np.inf)))
+
+
+def _wide_particles(rng, x, y, w):
+    """The "wide" case of ``sweep_particles``."""
+    k = 2600
+    x[:k] = rng.uniform(w, 2 * w, k)
+    y[:k] = rng.uniform(w, 2 * w, k)
+    n = x.shape[0]
+    m = rng.uniform(0.5, 2.0, n)
+    alive = rng.uniform(size=n) > 0.1
+    cx, cy = 1.5 * w, 1.5 * w
+    spots = {}  # pid -> (x, y)
+
+    def put(pid, px, py):
+        spots[pid] = (px, py)
+
+    for a, b, dy in ((31, 32, -0.4), (63, 64, -0.3)):
+        put(a, cx - 0.5, cy + dy)
+        put(b, cx - 0.5, cy + dy)
+    put(500, cx, cy)
+    put(100, cx - 0.004, cy)
+    put(900, cx + 0.001, cy + 0.0035)
+    for (lo, hi), dtype, dy in (((1200, 1201), np.float64, 0.1),
+                                ((1202, 1203), np.float64, 0.2),
+                                ((1210, 1211), np.float32, 0.3),
+                                ((1212, 1213), np.float32, 0.4)):
+        x0 = float(np.dtype(dtype).type(cx + 0.2))
+        edge, inside = _window_edge(x0, dtype)
+        put(lo, x0, cy - dy)
+        put(hi, edge if dy in (0.1, 0.3) else inside, cy - dy)
+    for pid, dy in ((1500, 0.0), (1501, 0.003), (1502, 0.5)):
+        put(pid, cx - 0.3, cy - 0.5 + dy)
+    put(k, -0.3, 0.5)
+    put(k + 1, -0.3 + 0.002, 0.5)
+    return _plant(rng, x, y, m, alive, spots, k, w)
+
+
+def _plant(rng, x, y, m, alive, spots, k, w):
+    """Move every other particle at least 0.02 from each spot (pids below
+    ``k`` within cell (1, 1)), then put each spot's pid there, alive."""
+    pts = np.array(list(spots.values()))
+    for i in range(x.shape[0]):
+        if i in spots:
+            continue
+        while (np.hypot(pts[:, 0] - x[i], pts[:, 1] - y[i]) < 0.02).any():
+            x[i] = rng.uniform(w, 2 * w) if i < k else rng.uniform(0, 3 * w)
+            y[i] = rng.uniform(w, 2 * w) if i < k else rng.uniform(0, 3 * w)
+    for pid, (px, py) in spots.items():
+        x[pid], y[pid] = px, py
+        alive[pid] = True
+    m[~alive] = 0.0
+    return x, y, m, alive
+
+
+def _huge_particles(rng, x, y, w):
+    """The "huge" case of ``sweep_particles``."""
+    k = 10000
+    x[:k] = rng.uniform(w, 2 * w, k)
+    y[:k] = rng.uniform(w, 2 * w, k)
+    n = x.shape[0]
+    m = rng.uniform(0.5, 2.0, n)
+    alive = rng.uniform(size=n) > 0.1
+    c = 1.5 * w
+    spots = {4095: (c - 0.5, c - 0.4), 4096: (c - 0.5, c - 0.4),
+             8191: (c - 0.5, c - 0.3), 8192: (c - 0.5, c - 0.3),
+             9000: (c, c), 100: (c - 0.004, c),
+             9500: (c + 0.001, c + 0.0035)}
+    return _plant(rng, x, y, m, alive, spots, k, w)
 
 
 def mesh_lane_order(key, ncells: int):

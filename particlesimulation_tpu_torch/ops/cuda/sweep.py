@@ -79,9 +79,10 @@ def load(path):
         com_fn = getattr(lib, f"psim_sweep_com_{t}")
         com_fn.argtypes = [vp] * 6 + [ci, ci] + [vp] * 4
         forces_fn = getattr(lib, f"psim_sweep_forces_{t}")
-        forces_fn.argtypes = [vp] * 7 + [ci, ci] + [vp] * 3 + [cd] + [vp] * 3
+        forces_fn.argtypes = ([vp] * 7 + [ci, ci, ci] + [vp] * 3 + [cd]
+                              + [vp] * 3)
         coll_fn = getattr(lib, f"psim_sweep_collisions_{t}")
-        coll_fn.argtypes = [vp] * 6 + [ci, ci, cd] + [vp] * 4
+        coll_fn.argtypes = [vp] * 6 + [ci, ci, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
             fn.restype = ci
     return lib
@@ -186,7 +187,8 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
     cell_pairs._launch(
         "sweep_forces", _kernel("forces", x), x, x.data_ptr(), y.data_ptr(),
         m.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
-        plan.counts.data_ptr(), n, ncells, *(t.data_ptr() for t in tables),
+        plan.counts.data_ptr(), n, ncells, plan.kmax,
+        *(t.data_ptr() for t in tables),
         float(G), out[0].data_ptr(), out[1].data_ptr(), launches=LAUNCHES)
     return out[0], out[1]
 
@@ -224,8 +226,9 @@ def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
     cell_pairs._launch(
         "sweep_collisions", _kernel("collisions", x), x, x.data_ptr(),
         y.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
-        plan.counts.data_ptr(), n, ncells, float(epsilon), first.data_ptr(),
-        died.data_ptr(), count.data_ptr(), launches=LAUNCHES)
+        plan.counts.data_ptr(), n, ncells, plan.kmax, float(epsilon),
+        first.data_ptr(), died.data_ptr(), count.data_ptr(),
+        launches=LAUNCHES)
     return count, died
 
 
