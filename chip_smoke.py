@@ -54,9 +54,13 @@ az. each kernel against its plain version on the card (``sweep_*_ref``):
    ``adversarial.sweep_particles`` (a zero-mass lane opening a cell, a
    massless lane inside a massive cell, a coincident pair, two live
    particles out of the box at one position, a collision chain A-B, B-C,
-   one hot cell), sorted and in the mesh's layout
-   (``adversarial.mesh_lane_order``: cells contiguous but out of key
-   order, sentinel lanes between them), in both precisions: parity bit for
+   one hot cell; "wide": a 2600-lane cell with coincident pairs across
+   tile boundaries, a first partner that is not the nearest in x, pairs
+   at the x window's edge, a live lane at x < 0; "huge": a 10 000-lane
+   cell, more than the collision kernel stages at once), sorted and in the
+   mesh's layout (``adversarial.mesh_lane_order``: cells contiguous but
+   out of key order, sentinel lanes between them; "huge" sorted only), in
+   both precisions: parity bit for
    bit; the collision count and the dead set exact; f32 forces bit for bit
    too, f32 COM within its tolerance; a second run bit for bit. Each
    kernel timed (ms, device ms) at parity s1, the f32 sweep at s1 and
@@ -73,7 +77,8 @@ vectors (``1 1000 3 10000 10000``, ``12 100 5 10000 10000``, ``3 5000 50
 1000000 500``, ``-1 1000 30 100000 1000``) through the CLI and prints each
 result beside its golden lines, whatever they are.
 ``python3 chip_smoke.py --sweep-times ROOT [ROOT ...]`` (bb) times parity
-s1, the f32 sweep at s1 and MEDIUM by the default census with the port
+s1, the f32 sweep at s1, MEDIUM by the default census and MEDIUM in parity
+(golden s3's, the CLI's default) with the port
 package of each checkout ROOT in turn (a process each; parent, change,
 change, parent): ms/step, device ms/step, idle share, launches and syncs a
 step, and the digest of each run's final state after 4 steps, which must
@@ -604,10 +609,11 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "deliver_stage_kernel", "deliver_place_kernel",
                 "deliver_expand_kernel", "pair_masks_kernel",
                 "settle_sums_kernel", "sweep_com_kernel",
-                "sweep_forces_kernel", "sweep_collisions_kernel",
-                "sweep_collision_count_kernel",
-                # a parent checkout's (--advance-times) row sums
-                "cell_sums_rows_kernel")
+                "sweep_forces_parity_kernel", "sweep_forces_fast_kernel",
+                "sweep_collisions_kernel", "sweep_collision_count_kernel",
+                # a parent checkout's (--advance-times) row sums, and its
+                # sweep force kernel (--sweep-times)
+                "cell_sums_rows_kernel", "sweep_forces_kernel")
 # The kernels of ops/cuda/advance on the resident and banded steps, by
 # their launch counts.
 ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
@@ -4272,9 +4278,8 @@ def check_sweep_kernels(card):
     10 000-lane cell of "huge", more than the kernels stage at once,
     sorted) in both precisions; each kernel timed at parity s1, the f32
     sweep at s1 and MEDIUM in f32 and f64 against its bound and its plain
-    version, and the term-once force kernel against the each-receiver
-    build (``_forces_designs``). Returns {kernel: record} at parity s1 (the
-    CLI's default path)."""
+    version. Returns {kernel: record} at parity s1 (the CLI's default
+    path)."""
     from particlesimulation_tpu_torch.ops import binning
     from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
 
@@ -4299,8 +4304,7 @@ def check_sweep_kernels(card):
                 _check_sweep_outputs(
                     f"sweep kernels, adversarial {case} {dtype} {layout}",
                     (lk, lp, plan), lx, ly, lm, la, side, nc)
-    recs, times, designs = None, {}, {}
-    each_receiver = _forces_each_receiver()
+    recs, times = None, {}
     for label, args, parity in (("parity s1", GOLDEN_S1, True),
                                 ("f32 sweep s1", GOLDEN_S1, False),
                                 ("MEDIUM f32", MEDIUM, False),
@@ -4338,62 +4342,11 @@ def check_sweep_kernels(card):
                   + (f"; {cand} candidate pairs, all-pairs bound "
                      f"{all_pairs:.4f}" if k == "sweep_collisions" else "")
                   + f" on {card}", flush=True)
-        designs[label] = _forces_designs(
-            label, each_receiver, calls["sweep_forces"][0], st, key, pos,
-            plan, side, nc)
         times[label] = out
         recs = recs or out
     print(f"sweep kernel phase (az): {time.perf_counter() - t0:.1f} s; "
-          f"SWEEP_KERNEL_TIMES {json.dumps(times)}; SWEEP_FORCE_DESIGNS "
-          f"{json.dumps(designs)}", flush=True)
+          f"SWEEP_KERNEL_TIMES {json.dumps(times)}", flush=True)
     return recs
-
-
-def _forces_each_receiver():
-    """The sweep library built with PSIM_SWEEP_ONCE=0: force kernels in
-    which each receiver computes all of its own terms (partners staged in
-    shared memory), the design the term-once schedules are timed against."""
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, sweep
-    from particlesimulation_tpu_torch.ops.cuda.advance import FLAGS
-
-    return sweep.load(cell_pairs.build(sweep.SOURCE,
-                                       FLAGS + ("-DPSIM_SWEEP_ONCE=0",)))
-
-
-def _forces_designs(label, lib, once, st, key, pos, plan, side, nc):
-    """The term-once force kernel (``once``, the wrapper's call) against
-    ``lib``'s each-receiver one on one state: bit for bit, then both timed
-    (device ms, median of 20)."""
-    from particlesimulation_tpu_torch.config import G
-    from particlesimulation_tpu_torch.ops import stencil
-    from particlesimulation_tpu_torch.ops.cuda import cell_pairs, sweep
-
-    ncells = nc * nc
-    tables = stencil.stencil_tables(*sweep.sweep_com(
-        st.x, st.y, st.m, key, pos, plan, ncells), side, nc)
-    fn = getattr(lib, "psim_sweep_forces_"
-                 + ("f64" if st.x.dtype == torch.float64 else "f32"))
-
-    def each():
-        out = torch.empty((2, st.x.shape[0]), dtype=st.x.dtype,
-                          device=st.x.device)
-        cell_pairs._launch(
-            "sweep_forces", fn, st.x, st.x.data_ptr(), st.y.data_ptr(),
-            st.m.data_ptr(), st.alive.data_ptr(), key.data_ptr(),
-            pos.data_ptr(), plan.counts.data_ptr(), st.x.shape[0], ncells,
-            plan.kmax, *(t.data_ptr() for t in tables), float(G),
-            out[0].data_ptr(), out[1].data_ptr(),
-            launches={"sweep_forces": 0})
-        return out[0], out[1]
-
-    if not all(_bits_equal(a, b) for a, b in zip(each(), once())):
-        raise AssertionError(f"{label}: the two force designs differ")
-    rec = {"once_device_ms": device_ms(once, 20),
-           "each_receiver_device_ms": device_ms(each, 20)}
-    print(f"{label} sweep forces: term-once {rec['once_device_ms']:.4f} "
-          f"device ms, each receiver its own terms "
-          f"{rec['each_receiver_device_ms']:.4f} (bit for bit)", flush=True)
-    return rec
 
 
 def check_cli_parity_inprocess():
@@ -4451,7 +4404,8 @@ def run_golden(vectors, required):
 # census), steps profiled).
 SWEEP_PATHS = (("parity s1", GOLDEN_S1[:4], True, None, 2),
                ("f32 sweep s1", GOLDEN_S1[:4], False, "sweep", 2),
-               ("MEDIUM default", MEDIUM[:4], False, None, 1))
+               ("MEDIUM default", MEDIUM[:4], False, None, 1),
+               ("MEDIUM parity", MEDIUM[:4], True, None, 1))
 
 
 def sweep_times(root):

@@ -14,33 +14,39 @@
 // They replace XLA programs of the JAX package (no Pallas kernel there):
 //   sweep_com_kernel<T, kParity>: ops/com.py com_parity (a lax.scan over
 //     the lanes, :33) and com_fast (segment sums, :71);
-//   sweep_forces_kernel<T, kParity>: ops/forces.py
-//     pairwise_forces_parity_blocked (:127) or pairwise_forces_fast (:243),
-//     fori_loops over neighbour offsets, followed by monopole_forces (:289);
+//   sweep_forces_parity_kernel (f64) and sweep_forces_fast_kernel (f32):
+//     ops/forces.py pairwise_forces_parity_blocked (:127) or
+//     pairwise_forces_fast (:243), fori_loops over neighbour offsets,
+//     followed by monopole_forces (:289);
 //   sweep_collisions_kernel<T> + sweep_collision_count_kernel: ops/
 //     collisions.py detect_collisions_blocked (:110), fori_loops of the
 //     pair ranks' minimum and the mutual-first count.
 // The port ran them as eager torch, one launch per operation per offset
 // (~9600 launches a step at the parity flagship).
 //
-// Design: one thread a lane, partners read through L1. In the parity
-// passes every thread of a warp walks its cell's lanes in the same order,
-// so a warp inside one cell reads each partner once, as a broadcast; the
-// f32 force pass walks outward from its lane (i + o, then i - o), so a
-// warp's partner reads are consecutive. The COM pass is one thread a cell
-// (the lane with pos 0), since the parity mean is a sequential recurrence.
-// The collision pass stops at a lane's first hit. Staging a cell in shared
-// memory, and splitting MEDIUM's 2500-lane cells over several threads a
-// lane, are later work.
+// Design. The COM pass is one thread a cell (the lane with pos 0), since
+// the parity mean is a sequential recurrence. The parity force pass
+// computes each pair's term once in a large cell (more than kTeam row
+// tiles, MEDIUM's ~2500 lanes): a warp a row tile of 32 lanes, 16 warps a
+// cell, the column lanes' sums handed on from one row tile to the next
+// through fx/fy (the section's note below); a lane of a small cell (the
+// flagship's ~100) computes its own terms, as a warp-sized tile there
+// leaves most of its term slots empty. The f32 force pass is one thread a
+// lane walking outward from its lane (i + o, then i - o), so a warp's
+// partner reads are consecutive; each term is computed at both ends, as a
+// term computed once cost more shared-memory traffic than it saved (PERF.md
+// section 6, PR 19). The collision pass sorts each chunk of a cell (up to
+// kChunk lanes) by x in shared memory; each alive lane walks outward from
+// its own x while fl(dx²) < 4 eps² and tests only those partners.
 //
 // What bounds them on an H100: the forces are bound by operations: ~17
 // f64 operations an unordered same-cell pair of alive lanes in parity (the
 // IEEE division and square root counted as one each; on the card each is a
-// sequence of ~10 DFMA), ~14 f32 and one rsqrt in fast precision; this
-// kernel computes each pair's term twice, once from each end, since a
-// lane sums its own terms in its own order. The collision pass: ~6
-// operations a pair tested, the square root only near EPSILON. The COM
-// pass is bound by bytes (each lane's x, y, m once, 3 values a cell out).
+// sequence of ~10 DFMA), ~14 f32 and one rsqrt in fast precision. The
+// collision pass: ~6 operations a pair near in x (the window's
+// candidates), the square root only near EPSILON, and the lanes' bytes.
+// The COM pass is bound by bytes (each lane's x, y, m once, 3 values a
+// cell out).
 //
 // Bits. Each kernel reproduces its plain version's per-lane order
 // (particlesimulation_tpu_torch/ops/com.py, forces.py, collisions.py), so
@@ -62,9 +68,13 @@
 //     association of the plain version; rsqrtf is the instruction
 //     torch.rsqrt runs on a float CUDA tensor;
 //   * collisions: a lane's first colliding pair, lexicographically by
-//     (pos_lo, pos_hi), is its lowest partner that hits when the partners
-//     are walked in ascending order; a pair counts when it is first for
-//     both ends. The count and the dead set are exact.
+//     (pos_lo, pos_hi), is its lowest partner that hits; a pair counts
+//     when it is first for both ends. The count and the dead set are
+//     exact. The x window finds every hit: d2 = fl(fl(dx²) + fl(dy²)) >=
+//     fl(dx²), so a hit needs fl(dx²) < 4 eps²; fl(x_j - x_i) is monotone
+//     in x_j and odd under round-to-nearest, so the partners that pass
+//     form one run of the cell's lanes sorted by x, around the receiver's
+//     own x. Ties in x do not matter to a minimum.
 // The library is built with -fmad=false: dx*dx + dy*dy and every other
 // product and sum rounds on its own, as eager torch's do. Division and
 // square root are the IEEE ones (no fast math).
@@ -97,19 +107,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// 1: the force kernels compute each pair term once (term-once schedules);
-// 0: each receiver computes all of its own terms (a measurement build).
-#ifndef PSIM_SWEEP_ONCE
-#define PSIM_SWEEP_ONCE 1
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 4096;   // the force and collision passes' chunk
-constexpr int kRowTile = 32;   // parity: receivers a step (a row tile)
-constexpr int kColTile = 64;   // parity: partners a stage (a column tile)
-constexpr int kBand = 2;       // fast: offsets a band
+constexpr int kChunk = 4096;  // the collision pass's chunk of a cell
+constexpr int kTile = 32;     // parity forces: a row tile, a column tile
+constexpr int kGroup = 8;     // parity forces: row lanes a buffer round
+constexpr int kWarps = 8;     // parity forces: warps a block
+constexpr int kTeam = 16;     // parity forces: warps a large cell
 
 inline unsigned blocks_for(int n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -179,13 +184,390 @@ __global__ void sweep_com_kernel(const T* __restrict__ x,
   }
 }
 
-// ---- The force and collision passes: a block a range of kThreads lanes.
+// The 8 stencil terms of a lane, in stencil order, each as the plain
+// version computes it (its guards on d2 and dist included); masked (a dead
+// or sentinel lane, or dist 0): + 0.
+template <typename T>
+__device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
+                                            int kc, int ld, const T* ml,
+                                            const T* mxl, const T* myl, T g,
+                                            T* ax, T* ay) {
+  for (int l = 0; l < 8; ++l) {
+    const T cm = ml[l * ld + kc], cmx = mxl[l * ld + kc],
+            cmy = myl[l * ld + kc];
+    const T dx = cmx - xi, dy = cmy - yi;
+    const T d2 = dx * dx + dy * dy;
+    const T dist = sqrt(d2);
+    if (!(live && dist != T(0))) {
+      *ax = *ax + T(0);
+      *ay = *ay + T(0);
+      continue;
+    }
+    const T fm = ((g * mi) * cm) / (d2 > T(0) ? d2 : T(1));
+    const T safe = dist > T(0) ? dist : T(1);
+    *ax = *ax + fm * (dx / safe);
+    *ay = *ay + fm * (dy / safe);
+  }
+}
+
+// ---- Parity forces (f64): in a large cell each pair's term once, a warp a
+// row tile; in a small one each lane by itself.
 //
-// The block runs the chunks that start in its range: a chunk is up to
-// `chunk` (the host's min(kmax, kChunk)) consecutive lanes of one cell,
-// starting at a lane whose position is a multiple of `chunk`, so every lane
-// of a cell lies in exactly one chunk and a cell of kmax lanes or fewer is
-// one chunk. The block also writes its range's sentinel lanes.
+// A warp takes the next kTile lanes from a work counter. A lane of a small
+// cell (kTeam row tiles or fewer) computes its own sum (parity_lane: every
+// term from the lower lane's side, so each pair's term twice). A large
+// cell's row tiles (kTile lanes from a position that is a multiple of
+// kTile; column tiles likewise) go to a team of kTeam warps, each taking
+// every kTeam-th: the warp that took a lane of row tile r < kTeam runs row
+// tiles r, r + kTeam, ... of the cell. In a row tile, thread u holds row
+// lane u's sum. The warp computes the triangle of pairs inside the row
+// tile, then each column tile above it, ascending: thread v computes t(u,
+// v) for the row lanes u in ascending order and subtracts each from
+// column lane v's sum; the terms go through the warp's buffer, kGroup rows
+// at a time, to their row lanes, which add them in ascending v. A column
+// lane's sum lives in fx/fy between row tiles: row tile k - 1 of the cell
+// hands column tile a on (its progress word) before row tile k reads and
+// adds to it, so kTeam rows of a cell are in flight, each about a column
+// tile behind the one before. Each lane receives its lower partners'
+// terms (rows 0 .. k-1, then its own tile's lower lanes) in ascending
+// order, then its upper partners' (its own tile's, then the column
+// tiles') in ascending order: the plain order. A row tile waits only on
+// the cell's previous one, held by a warp of its team; the counter hands
+// a team's first row tiles out in lane order, so only the cell at the
+// counter's front can have a team member not yet started; a large cell
+// means more than kTeam work items, so at least kTeam warps are launched
+// (all resident at once on the card), and every other cell's warps run to
+// their end and free the warps that start it: every wait ends.
+
+// t(lo, hi) = ((G*m_lo)*m_hi)/d2 * (d/dist), d = hi - lo; gml = G*m_lo, or
+// negative for a dead lo. +0 where the pair is masked (a dead end, or dist
+// 0), as the plain sweeps add it.
+__device__ __forceinline__ void parity_term(double xl, double yl, double gml,
+                                            double xh, double yh, double mh,
+                                            bool ah, double* tx,
+                                            double* ty) {
+  *tx = 0.0;
+  *ty = 0.0;
+  if (!(gml >= 0.0 && ah)) return;
+  const double dx = xh - xl, dy = yh - yl;
+  const double d2 = dx * dx + dy * dy;
+  const double dist = sqrt(d2);
+  if (dist == 0.0) return;
+  const double fm = (gml * mh) / d2;
+  *tx = fm * (dx / dist);
+  *ty = fm * (dy / dist);
+}
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// A large cell: more than kTeam row tiles. Its row tiles go to a team of
+// kTeam warps, each taking every kTeam-th, which keeps kTeam rows of the
+// cell in flight, each about a column tile behind the one before.
+__device__ __forceinline__ bool large_cell(int lanes) {
+  return lanes > kTeam * kTile;
+}
+
+// A warp's shared memory: its row tile's lanes (x, y, G*m or -1 for a
+// dead lane) and the term buffer (kGroup rows of kTile + 1, the pad
+// keeping a row walk off one bank).
+struct RowShared {
+  double rx[kTile], ry[kTile], rg[kTile];
+  double bx[kGroup * (kTile + 1)], by[kGroup * (kTile + 1)];
+};
+
+// Wait until the cell's previous row tile (progress word `prev`) has handed
+// on column tile `a`; then the sums it wrote are read from L2 (__ldcg).
+__device__ __forceinline__ void wait_for(const volatile int* prev, int a) {
+  if ((threadIdx.x & 31) == 0) {
+    while (*prev <= a) __nanosleep(64);
+  }
+  __syncwarp();
+  __threadfence();
+}
+
+// The terms of row tile rs (row lanes' data in `sh`) with column lanes
+// (cx, cy, cm, ca) of this thread: thread v subtracts t(u, v) for the
+// valid u (u < tk, and u < v in the diagonal) from (sx, sy), in ascending
+// u; row lane u adds the t(u, v) of the valid v (v < ncol, and v > u in the
+// diagonal) to (ax, ay), in ascending v. In the diagonal the column sum
+// is the row sum (the caller passes the same variables).
+template <bool kDiagonal>
+__device__ __forceinline__ void row_tile_terms(RowShared& sh, int tk,
+                                               int ncol, double cx,
+                                               double cy, double cm, bool ca,
+                                               double* sx, double* sy,
+                                               double* ax, double* ay) {
+  const int lane = threadIdx.x & 31;
+  for (int g0 = 0; g0 < tk; g0 += kGroup) {
+    for (int q = 0; q < kGroup && g0 + q < tk; ++q) {
+      const int u = g0 + q;
+      double tx = 0.0, ty = 0.0;
+      if (u < tk && lane < ncol && (!kDiagonal || u < lane)) {
+        parity_term(sh.rx[u], sh.ry[u], sh.rg[u], cx, cy, cm, ca, &tx, &ty);
+        *sx = *sx - tx;
+        *sy = *sy - ty;
+      }
+      sh.bx[q * (kTile + 1) + lane] = tx;
+      sh.by[q * (kTile + 1) + lane] = ty;
+    }
+    __syncwarp();
+    if (lane >= g0 && lane < g0 + kGroup && lane < tk) {
+      const int q = lane - g0;
+      for (int v = kDiagonal ? lane + 1 : 0; v < ncol; ++v) {
+        *ax = *ax + sh.bx[q * (kTile + 1) + v];
+        *ay = *ay + sh.by[q * (kTile + 1) + v];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Row tile starting at lane i0 (the whole warp), then its lanes' stencil
+// terms; progress[i0] counts the column tiles it has handed on.
+__device__ void parity_row(const double* x, const double* y, const double* m,
+                           const bool* alive, const int* key,
+                           const int64_t* pos, const int64_t* counts,
+                           int ncells, const double* ml, const double* mxl,
+                           const double* myl, double g, double* fx,
+                           double* fy, volatile int* progress, RowShared& sh,
+                           int i0) {
+  const int lane = threadIdx.x & 31;
+  const int kc = key[i0];
+  const int s = i0 - (int)pos[i0], e = s + (int)counts[kc];
+  const int k = (i0 - s) / kTile;
+  const int tk = e - i0 < kTile ? e - i0 : kTile;
+  const int lo = i0 + lane;
+  const bool row = lane < tk;
+  const double xi = row ? x[lo] : 0.0, yi = row ? y[lo] : 0.0,
+               mi = row ? m[lo] : 0.0;
+  const bool ai = row && alive[lo];
+  sh.rx[lane] = xi;
+  sh.ry[lane] = yi;
+  sh.rg[lane] = ai ? g * mi : -1.0;
+  // The row lanes' sums: x * 0 (both) in the first row tile, else what
+  // the tiles below handed on.
+  if (k > 0) wait_for(progress + i0 - kTile, k);
+  double ax = xi * 0.0, ay = xi * 0.0;
+  if (k > 0 && row) {
+    ax = __ldcg(fx + lo);
+    ay = __ldcg(fy + lo);
+  }
+  __syncwarp();
+  row_tile_terms<true>(sh, tk, tk, xi, yi, mi, ai, &ax, &ay, &ax, &ay);
+  for (int a = k + 1, h0 = i0 + kTile; h0 < e; ++a, h0 += kTile) {
+    const int ncol = e - h0 < kTile ? e - h0 : kTile;
+    const int hi = h0 + lane;
+    const bool col = lane < ncol;
+    if (k > 0) wait_for(progress + i0 - kTile, a);
+    const double cx = col ? x[hi] : 0.0, cy = col ? y[hi] : 0.0,
+                 cm = col ? m[hi] : 0.0;
+    const bool ca = col && alive[hi];
+    double sx = cx * 0.0, sy = cx * 0.0;
+    if (k > 0 && col) {
+      sx = __ldcg(fx + hi);
+      sy = __ldcg(fy + hi);
+    }
+    row_tile_terms<false>(sh, tk, ncol, cx, cy, cm, ca, &sx, &sy, &ax, &ay);
+    if (col) {
+      fx[hi] = sx;
+      fy[hi] = sy;
+    }
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) progress[i0] = a + 1;
+  }
+  if (row) {
+    add_stencil<double>(xi, yi, mi, ai, kc, ncells + 1, ml, mxl, myl, g, &ax,
+                        &ay);
+    fx[lo] = ax;
+    fy[lo] = ay;
+  }
+  __syncwarp();
+}
+
+// Lane i of a small cell [s, e) (key k), by itself: each partner's term
+// from the lower lane's side, in ascending order (the reaction terms
+// -t(j, i), j < i, then its own +t(i, j), j > i), adding the literal +0
+// where the plain upper sweep adds it; then the stencil terms.
+__device__ void parity_lane(const double* x, const double* y, const double* m,
+                            const bool* alive, int k, int ncells,
+                            const double* ml, const double* mxl,
+                            const double* myl, double g, double* fx,
+                            double* fy, int i, int s, int e) {
+  const double xi = x[i], yi = y[i], mi = m[i];
+  const bool ai = alive[i];
+  double ax = xi * 0.0, ay = xi * 0.0;
+  if (!ai) {
+    // A dead lane: the plain upper sweep's first offset adds a literal 0.
+    if (i < e - 1) {
+      ax = ax + 0.0;
+      ay = ay + 0.0;
+    }
+  } else {
+    for (int j = s; j < e; ++j) {
+      if (j == i) continue;
+      const bool below = j < i;
+      if (!alive[j]) {
+        if (!below) {
+          ax = ax + 0.0;
+          ay = ay + 0.0;
+        }
+        continue;
+      }
+      const double xj = x[j], yj = y[j], mj = m[j];
+      // The term from the lower lane's side: t(lo, hi).
+      const double xl = below ? xj : xi, yl = below ? yj : yi,
+                   mlo = below ? mj : mi;
+      const double xh = below ? xi : xj, yh = below ? yi : yj,
+                   mhi = below ? mi : mj;
+      const double dx = xh - xl, dy = yh - yl;
+      const double d2 = dx * dx + dy * dy;
+      const double dist = sqrt(d2);
+      if (dist == 0.0) {
+        if (!below) {
+          ax = ax + 0.0;
+          ay = ay + 0.0;
+        }
+        continue;
+      }
+      const double fm = ((g * mlo) * mhi) / d2;
+      const double tx = fm * (dx / dist), ty = fm * (dy / dist);
+      if (below) {
+        ax = ax - tx;
+        ay = ay - ty;
+      } else {
+        ax = ax + tx;
+        ay = ay + ty;
+      }
+    }
+  }
+  add_stencil<double>(xi, yi, mi, ai, k, ncells + 1, ml, mxl, myl, g, &ax,
+                      &ay);
+  fx[i] = ax;
+  fy[i] = ay;
+}
+
+// Same-cell pair forces then the 8 stencil monopole terms, each lane its
+// own sum (ops/forces.py pairwise_forces_parity_blocked, then
+// monopole_forces). ml, mxl, myl: (8, ncells + 1) rows, the last column a
+// zero sentinel. sync: n + 1 zeros (each row tile's progress by its first
+// lane; the work counter).
+__global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
+    const double* __restrict__ x, const double* __restrict__ y,
+    const double* __restrict__ m, const bool* __restrict__ alive,
+    const int* __restrict__ key, const int64_t* __restrict__ pos,
+    const int64_t* __restrict__ counts, int n, int ncells,
+    const double* __restrict__ ml, const double* __restrict__ mxl,
+    const double* __restrict__ myl, double g, double* fx, double* fy,
+    int* sync) {
+  __shared__ RowShared shared[kWarps];
+  RowShared& sh = shared[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int items = (n + kTile - 1) / kTile;
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(sync + n, 1);
+    t = __shfl_sync(kFullMask, t, 0);
+    if (t >= items) break;
+    const int i = t * kTile + lane;
+    bool start = false;
+    if (i < n) {
+      const int k = key[i];
+      if ((unsigned)k >= (unsigned)ncells) {
+        // A sentinel lane: x * 0, then the 8 masked stencil terms.
+        const double xi = x[i];
+        double ax = xi * 0.0, ay = xi * 0.0;
+        add_stencil<double>(xi, y[i], m[i], false, ncells, ncells + 1, ml,
+                            mxl, myl, g, &ax, &ay);
+        fx[i] = ax;
+        fy[i] = ay;
+      } else {
+        const int p = (int)pos[i], c = (int)counts[k];
+        if (large_cell(c)) {
+          start = p % kTile == 0 && p / kTile < kTeam;
+        } else {
+          parity_lane(x, y, m, alive, k, ncells, ml, mxl, myl, g, fx, fy, i,
+                      i - p, i - p + c);
+        }
+      }
+    }
+    for (unsigned starts = __ballot_sync(kFullMask, start); starts;
+         starts &= starts - 1) {
+      // This warp's row tiles of the cell: this one, then every kTeam-th.
+      const int i0 = t * kTile + __ffs(starts) - 1;
+      const int e = i0 - (int)pos[i0] + (int)counts[key[i0]];
+      for (int r = i0; r < e; r += kTeam * kTile) {
+        parity_row(x, y, m, alive, key, pos, counts, ncells, ml, mxl, myl,
+                   g, fx, fy, sync, sh, r);
+      }
+    }
+  }
+}
+
+// ---- Fast forces (f32): a thread a lane, partners through L1.
+
+// Same-cell pair forces then the 8 stencil monopole terms, each lane its
+// own sum (ops/forces.py pairwise_forces_fast, then monopole_forces): for
+// o = 1, 2, ...: +t(i, i+o), then -t(i-o, i), each term from its own end.
+__global__ void __launch_bounds__(kThreads) sweep_forces_fast_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ m, const bool* __restrict__ alive,
+    const int* __restrict__ key, const int64_t* __restrict__ pos,
+    const int64_t* __restrict__ counts, int n, int ncells,
+    const float* __restrict__ ml, const float* __restrict__ mxl,
+    const float* __restrict__ myl, float g, float* fx, float* fy) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float xi = x[i], yi = y[i], mi = m[i];
+  const bool ai = alive[i];
+  // The plain version's accumulators start at x * 0, both of them.
+  float ax = xi * 0.0f, ay = xi * 0.0f;
+  int s, e;
+  const bool real = cell_of_lane(i, key, pos, counts, ncells, &s, &e);
+  if (real && ai) {
+    const float gmi = g * mi;
+    const int up = e - 1 - i, down = i - s;
+    const int omax = up > down ? up : down;
+    // Branch-free partners (a masked term is computed and not added), so
+    // that the unrolled loop's loads issue ahead of the arithmetic.
+#pragma unroll 2
+    for (int o = 1; o <= omax; ++o) {
+      if (o <= up) {
+        const int j = i + o;
+        const float dx = x[j] - xi, dy = y[j] - yi;
+        const float d2 = dx * dx + dy * dy;
+        const float inv = rsqrtf(d2);
+        const float sc = (gmi * m[j]) * ((inv * inv) * inv);
+        const bool add = alive[j] && d2 > 0.0f;
+        ax = add ? ax + sc * dx : ax;
+        ay = add ? ay + sc * dy : ay;
+      }
+      if (o <= down) {
+        const int j = i - o;
+        const float dx = xi - x[j], dy = yi - y[j];
+        const float d2 = dx * dx + dy * dy;
+        const float inv = rsqrtf(d2);
+        const float sc = ((g * m[j]) * mi) * ((inv * inv) * inv);
+        const bool sub = alive[j] && d2 > 0.0f;
+        ax = sub ? ax - sc * dx : ax;
+        ay = sub ? ay - sc * dy : ay;
+      }
+    }
+  }
+  add_stencil<float>(xi, yi, mi, ai && real, real ? key[i] : ncells,
+                     ncells + 1, ml, mxl, myl, g, &ax, &ay);
+  fx[i] = ax;
+  fy[i] = ay;
+}
+
+// ---- Collisions.
+
+// A block a range of kThreads lanes. The block runs the chunks that start
+// in its range: a chunk is up to `chunk` (the host's min(kmax, kChunk))
+// consecutive lanes of one cell, starting at a lane whose position is a
+// multiple of `chunk`, so every lane of a cell lies in exactly one chunk
+// and a cell of kmax lanes or fewer is one chunk. The block also writes
+// its range's sentinel lanes.
 
 // The chunk starts of this block's range, into starts[0 .. *nstarts); the
 // sentinel lanes of the range are handed to `sentinel(i)`.
@@ -220,489 +602,6 @@ __device__ __forceinline__ void chunk_of(int c0, const int* key,
   *c1 = c0 + chunk < *e ? c0 + chunk : *e;
 }
 
-// The 8 stencil terms of a lane, in stencil order, each as the plain
-// version computes it (its guards on d2 and dist included); masked (a dead
-// or sentinel lane, or dist 0): + 0.
-template <typename T>
-__device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
-                                            int kc, int ld, const T* ml,
-                                            const T* mxl, const T* myl, T g,
-                                            T* ax, T* ay) {
-  for (int l = 0; l < 8; ++l) {
-    const T cm = ml[l * ld + kc], cmx = mxl[l * ld + kc],
-            cmy = myl[l * ld + kc];
-    const T dx = cmx - xi, dy = cmy - yi;
-    const T d2 = dx * dx + dy * dy;
-    const T dist = sqrt(d2);
-    if (!(live && dist != T(0))) {
-      *ax = *ax + T(0);
-      *ay = *ay + T(0);
-      continue;
-    }
-    const T fm = ((g * mi) * cm) / (d2 > T(0) ? d2 : T(1));
-    const T safe = dist > T(0) ? dist : T(1);
-    *ax = *ax + fm * (dx / safe);
-    *ay = *ay + fm * (dy / safe);
-  }
-}
-
-// ---- Parity forces (f64).
-
-// t(lo, hi) = ((G*m_lo)*m_hi)/d2 * (d/dist), d = hi - lo; gml = G*m_lo.
-// +0 where the pair is masked (a dead end, or dist 0).
-__device__ __forceinline__ void parity_term(double xl, double yl, double gml,
-                                            bool al, double xh, double yh,
-                                            double mh, bool ah, double* tx,
-                                            double* ty) {
-  *tx = 0.0;
-  *ty = 0.0;
-  if (!(al && ah)) return;
-  const double dx = xh - xl, dy = yh - yl;
-  const double d2 = dx * dx + dy * dy;
-  const double dist = sqrt(d2);
-  if (dist == 0.0) return;
-  const double fm = (gml * mh) / d2;
-  *tx = fm * (dx / dist);
-  *ty = fm * (dy / dist);
-}
-
-// The parity chunk's shared memory: each receiver's sums (ax, ay), the
-// term tile (bx, by: kRowTile rows of kColTile + 1, the pad keeping a row
-// walk off one bank), the row tile's lanes (rx, ry, rm, rgm = G*m, ra) and
-// a column tile's (cx, cy, cm, ca).
-struct ParityShared {
-  double *ax, *ay, *bx, *by, *rx, *ry, *rm, *rgm, *cx, *cy, *cm;
-  unsigned char *ra, *ca;
-};
-
-constexpr int kTermStride = kColTile + 1;
-
-inline size_t parity_shared_bytes(int chunk) {
-  return sizeof(double) * (2 * (size_t)chunk + 2 * kRowTile * kTermStride +
-                           4 * kRowTile + 3 * kColTile) +
-         kRowTile + kColTile;
-}
-
-__device__ __forceinline__ ParityShared parity_shared(unsigned char* base,
-                                                      int chunk) {
-  ParityShared s;
-  s.ax = reinterpret_cast<double*>(base);
-  s.ay = s.ax + chunk;
-  s.bx = s.ay + chunk;
-  s.by = s.bx + kRowTile * kTermStride;
-  s.rx = s.by + kRowTile * kTermStride;
-  s.ry = s.rx + kRowTile;
-  s.rm = s.ry + kRowTile;
-  s.rgm = s.rm + kRowTile;
-  s.cx = s.rgm + kRowTile;
-  s.cy = s.cx + kColTile;
-  s.cm = s.cy + kColTile;
-  s.ra = reinterpret_cast<unsigned char*>(s.cm + kColTile);
-  s.ca = s.ra + kRowTile;
-  return s;
-}
-
-// Stage lanes t0 .. t0+w-1 into the column tile (threads 0 .. w-1).
-__device__ __forceinline__ void stage_columns(const double* x,
-                                              const double* y,
-                                              const double* m,
-                                              const bool* alive,
-                                              const ParityShared& s, int t0,
-                                              int w) {
-  const int q = threadIdx.x;
-  if (q < w) {
-    s.cx[q] = x[t0 + q];
-    s.cy[q] = y[t0 + q];
-    s.cm[q] = m[t0 + q];
-    s.ca[q] = alive[t0 + q];
-  }
-}
-
-// Receivers c0 .. c0+rc-1 add the terms of partners j0 .. j1-1, ascending:
-// j < i: -t(j, i); j > i: +t(i, j) (+0 where masked, as the plain upper
-// sweep adds); j = i: none. Partners staged a column tile at a time.
-__device__ void parity_one_sided(const double* x, const double* y,
-                                 const double* m, const bool* alive, double g,
-                                 const ParityShared& s, int c0, int rc,
-                                 int j0, int j1) {
-  for (int t0 = j0; t0 < j1; t0 += kColTile) {
-    const int w = j1 - t0 < kColTile ? j1 - t0 : kColTile;
-    __syncthreads();
-    stage_columns(x, y, m, alive, s, t0, w);
-    __syncthreads();
-    for (int r = threadIdx.x; r < rc; r += kThreads) {
-      const int i = c0 + r;
-      const double xi = x[i], yi = y[i], mi = m[i];
-      const bool ai = alive[i];
-      const double gmi = g * mi;
-      double sx = s.ax[r], sy = s.ay[r];
-      for (int q = 0; q < w; ++q) {
-        const int j = t0 + q;
-        double tx, ty;
-        if (j < i) {
-          parity_term(s.cx[q], s.cy[q], g * s.cm[q], s.ca[q], xi, yi, mi, ai,
-                      &tx, &ty);
-          sx = sx - tx;
-          sy = sy - ty;
-        } else if (j > i) {
-          parity_term(xi, yi, gmi, ai, s.cx[q], s.cy[q], s.cm[q], s.ca[q],
-                      &tx, &ty);
-          sx = sx + tx;
-          sy = sy + ty;
-        }
-      }
-      s.ax[r] = sx;
-      s.ay[r] = sy;
-    }
-  }
-  __syncthreads();
-}
-
-// The p-th pair (u, v), u < v < n, of the row-major upper triangle.
-__device__ __forceinline__ void triangle_pair(int p, int n, int* u, int* v) {
-  const float b = 2.0f * n - 1.0f;
-  int a = (int)((b - sqrtf(fmaxf(b * b - 8.0f * p, 0.0f))) * 0.5f);
-  a = a < 0 ? 0 : a;
-  while (a > 0 && a * (2 * n - 1 - a) / 2 > p) --a;
-  while ((a + 1) * (2 * n - 2 - a) / 2 <= p) ++a;
-  *u = a;
-  *v = p - a * (2 * n - 1 - a) / 2 + a + 1;
-}
-
-// Each unordered pair of the chunk's lanes, its term computed once. Row
-// tile k (lanes k0 .. k0+tk-1) at a time: first the pairs inside it (the
-// triangle), each lane v adding its column (-t(u, v), u < v ascending) then
-// its row (+t(v, w), w > v ascending); then column tiles h0 .. h0+w-1
-// above it, ascending: the column lanes add -t(u, h) for u ascending, the
-// row lanes +t(u, h) for h ascending. So every lane receives its partners
-// in ascending order: the lower ones in the steps of the tiles below it,
-// then its own tile's, then the upper ones in its own step.
-__device__ void parity_once(const double* x, const double* y, const double* m,
-                            const bool* alive, double g,
-                            const ParityShared& s, int c0, int rc) {
-  const int tid = threadIdx.x;
-  for (int k0 = 0; k0 < rc; k0 += kRowTile) {
-    const int tk = rc - k0 < kRowTile ? rc - k0 : kRowTile;
-    if (tid < tk) {
-      const int i = c0 + k0 + tid;
-      s.rx[tid] = x[i];
-      s.ry[tid] = y[i];
-      s.rm[tid] = m[i];
-      s.rgm[tid] = g * m[i];
-      s.ra[tid] = alive[i];
-    }
-    __syncthreads();
-    const int np = tk * (tk - 1) / 2;
-    for (int p = tid; p < np; p += kThreads) {
-      int u, v;
-      triangle_pair(p, tk, &u, &v);
-      parity_term(s.rx[u], s.ry[u], s.rgm[u], s.ra[u], s.rx[v], s.ry[v],
-                  s.rm[v], s.ra[v], &s.bx[u * kTermStride + v],
-                  &s.by[u * kTermStride + v]);
-    }
-    __syncthreads();
-    if (tid < tk) {
-      double sx = s.ax[k0 + tid], sy = s.ay[k0 + tid];
-      for (int u = 0; u < tid; ++u) {
-        sx = sx - s.bx[u * kTermStride + tid];
-        sy = sy - s.by[u * kTermStride + tid];
-      }
-      for (int v = tid + 1; v < tk; ++v) {
-        sx = sx + s.bx[tid * kTermStride + v];
-        sy = sy + s.by[tid * kTermStride + v];
-      }
-      s.ax[k0 + tid] = sx;
-      s.ay[k0 + tid] = sy;
-    }
-    for (int h0 = k0 + tk; h0 < rc; h0 += kColTile) {
-      const int w = rc - h0 < kColTile ? rc - h0 : kColTile;
-      __syncthreads();
-      stage_columns(x, y, m, alive, s, c0 + h0, w);
-      __syncthreads();
-      for (int p = tid; p < tk * kColTile; p += kThreads) {
-        const int u = p / kColTile, q = p % kColTile;
-        if (q < w) {
-          parity_term(s.rx[u], s.ry[u], s.rgm[u], s.ra[u], s.cx[q], s.cy[q],
-                      s.cm[q], s.ca[q], &s.bx[u * kTermStride + q],
-                      &s.by[u * kTermStride + q]);
-        }
-      }
-      __syncthreads();
-      if (tid < w) {
-        double sx = s.ax[h0 + tid], sy = s.ay[h0 + tid];
-        for (int u = 0; u < tk; ++u) {
-          sx = sx - s.bx[u * kTermStride + tid];
-          sy = sy - s.by[u * kTermStride + tid];
-        }
-        s.ax[h0 + tid] = sx;
-        s.ay[h0 + tid] = sy;
-      } else if (tid >= kColTile && tid < kColTile + tk) {
-        const int u = tid - kColTile;
-        double sx = s.ax[k0 + u], sy = s.ay[k0 + u];
-        for (int q = 0; q < w; ++q) {
-          sx = sx + s.bx[u * kTermStride + q];
-          sy = sy + s.by[u * kTermStride + q];
-        }
-        s.ax[k0 + u] = sx;
-        s.ay[k0 + u] = sy;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One chunk c0 .. c1-1 of cell [cs, ce): the partners below the chunk
-// (one-sided), the chunk's own pairs (each term once), the partners above
-// it (one-sided), then the stencil terms; or, with kOnce off, every
-// receiver walking all of its cell's partners (each term from both ends).
-template <bool kOnce>
-__device__ void parity_chunk(const double* x, const double* y,
-                             const double* m, const bool* alive, int kc,
-                             int ld, const double* ml, const double* mxl,
-                             const double* myl, double g,
-                             const ParityShared& s, int c0, int c1, int cs,
-                             int ce, double* fx, double* fy) {
-  const int rc = c1 - c0;
-  for (int r = threadIdx.x; r < rc; r += kThreads) {
-    const double xi = x[c0 + r];
-    s.ax[r] = xi * 0.0;  // the plain version's sums start at x * 0, both
-    s.ay[r] = xi * 0.0;
-  }
-  __syncthreads();
-  if (kOnce) {
-    if (cs < c0) parity_one_sided(x, y, m, alive, g, s, c0, rc, cs, c0);
-    parity_once(x, y, m, alive, g, s, c0, rc);
-    if (c1 < ce) parity_one_sided(x, y, m, alive, g, s, c0, rc, c1, ce);
-  } else {
-    parity_one_sided(x, y, m, alive, g, s, c0, rc, cs, ce);
-  }
-  for (int r = threadIdx.x; r < rc; r += kThreads) {
-    const int i = c0 + r;
-    double sx = s.ax[r], sy = s.ay[r];
-    add_stencil<double>(x[i], y[i], m[i], alive[i], kc, ld, ml, mxl, myl, g,
-                        &sx, &sy);
-    fx[i] = sx;
-    fy[i] = sy;
-  }
-  __syncthreads();
-}
-
-// ---- Fast forces (f32).
-
-// The fast sweep's term t(lo, hi) = (G*m_lo*m_hi) * ((inv*inv)*inv) * d,
-// d = hi - lo, inv = rsqrtf(d2); gml = G*m_lo. False where the pair is
-// masked (a dead end, or d2 not > 0): the kernel skips those terms.
-__device__ __forceinline__ bool fast_term(float xl, float yl, float gml,
-                                          bool al, float xh, float yh,
-                                          float mh, bool ah, float* tx,
-                                          float* ty) {
-  if (!(al && ah)) return false;
-  const float dx = xh - xl, dy = yh - yl;
-  const float d2 = dx * dx + dy * dy;
-  if (!(d2 > 0.0f)) return false;
-  const float inv = rsqrtf(d2);
-  const float sc = (gml * mh) * ((inv * inv) * inv);
-  *tx = sc * dx;
-  *ty = sc * dy;
-  return true;
-}
-
-// The fast chunk's shared memory: the chunk's lanes (x, y, m, alive as
-// 1/0), each receiver's sums, and with kOnce a band's terms and their
-// masks (kBand rows of `chunk`).
-struct FastShared {
-  float4* lane;
-  float2* acc;
-  float2* term;
-  unsigned char* ok;
-};
-
-template <bool kOnce>
-size_t fast_shared_bytes(int chunk) {
-  return (size_t)chunk *
-         (sizeof(float4) + sizeof(float2) +
-          (kOnce ? kBand * (sizeof(float2) + 1) : 0));
-}
-
-__device__ __forceinline__ FastShared fast_shared(unsigned char* base,
-                                                  int chunk) {
-  FastShared s;
-  s.lane = reinterpret_cast<float4*>(base);
-  s.acc = reinterpret_cast<float2*>(s.lane + chunk);
-  s.term = s.acc + chunk;
-  s.ok = reinterpret_cast<unsigned char*>(s.term + kBand * chunk);
-  return s;
-}
-
-// One chunk c0 .. c1-1 of cell [cs, ce) in the fast sweep's order: for
-// o = 1, 2, ...: +t(i, i+o), then -t(i-o, i). With kOnce, the offsets come
-// kBand at a time, each term with both ends in the chunk computed once
-// into the band's row (then each lane adds its own in order); a term with
-// an end outside the chunk is computed by its receiver. Without, every
-// receiver walks its partners, staged in the chunk or read from memory.
-template <bool kOnce>
-__device__ void fast_chunk(const float* x, const float* y, const float* m,
-                           const bool* alive, int kc, int ld, const float* ml,
-                           const float* mxl, const float* myl, float g,
-                           const FastShared& s, int chunk, int c0, int c1,
-                           int cs, int ce, float* fx, float* fy) {
-  const int rc = c1 - c0, tid = threadIdx.x;
-  for (int r = tid; r < rc; r += kThreads) {
-    const int i = c0 + r;
-    const float xi = x[i];
-    s.lane[r] = make_float4(xi, y[i], m[i], alive[i] ? 1.0f : 0.0f);
-    s.acc[r] = make_float2(xi * 0.0f, xi * 0.0f);
-  }
-  __syncthreads();
-  if (kOnce) {
-    const int omax = ce - 1 - c0 > c1 - 1 - cs ? ce - 1 - c0 : c1 - 1 - cs;
-    for (int o0 = 1; o0 <= omax; o0 += kBand) {
-      for (int b = 0; b < kBand; ++b) {
-        const int o = o0 + b;
-        for (int r = tid; r < rc - o; r += kThreads) {
-          const float4 lo = s.lane[r], hi = s.lane[r + o];
-          float tx = 0.0f, ty = 0.0f;
-          s.ok[b * chunk + r] =
-              fast_term(lo.x, lo.y, g * lo.z, lo.w != 0.0f, hi.x, hi.y, hi.z,
-                        hi.w != 0.0f, &tx, &ty);
-          s.term[b * chunk + r] = make_float2(tx, ty);
-        }
-      }
-      __syncthreads();
-      for (int r = tid; r < rc; r += kThreads) {
-        const float4 li = s.lane[r];
-        if (li.w == 0.0f) continue;
-        const int i = c0 + r;
-        float2 a = s.acc[r];
-        for (int b = 0; b < kBand; ++b) {
-          const int o = o0 + b;
-          float tx, ty;
-          if (i + o < ce) {
-            if (r + o < rc) {
-              if (s.ok[b * chunk + r]) {
-                const float2 t = s.term[b * chunk + r];
-                a.x = a.x + t.x;
-                a.y = a.y + t.y;
-              }
-            } else if (fast_term(li.x, li.y, g * li.z, true, x[i + o],
-                                 y[i + o], m[i + o], alive[i + o], &tx,
-                                 &ty)) {
-              a.x = a.x + tx;
-              a.y = a.y + ty;
-            }
-          }
-          if (i - o >= cs) {
-            if (r - o >= 0) {
-              if (s.ok[b * chunk + r - o]) {
-                const float2 t = s.term[b * chunk + r - o];
-                a.x = a.x - t.x;
-                a.y = a.y - t.y;
-              }
-            } else if (fast_term(x[i - o], y[i - o], g * m[i - o],
-                                 alive[i - o], li.x, li.y, li.z, true, &tx,
-                                 &ty)) {
-              a.x = a.x - tx;
-              a.y = a.y - ty;
-            }
-          }
-        }
-        s.acc[r] = a;
-      }
-      __syncthreads();
-    }
-  } else {
-    for (int r = tid; r < rc; r += kThreads) {
-      const float4 li = s.lane[r];
-      if (li.w == 0.0f) continue;
-      const int i = c0 + r, up = ce - 1 - i, down = i - cs;
-      const int omax = up > down ? up : down;
-      const float gmi = g * li.z;
-      float2 a = s.acc[r];
-      for (int o = 1; o <= omax; ++o) {
-        float tx, ty;
-        if (o <= up) {
-          const float4 hi = r + o < rc ? s.lane[r + o]
-                                       : make_float4(x[i + o], y[i + o],
-                                                     m[i + o],
-                                                     alive[i + o] ? 1.0f
-                                                                  : 0.0f);
-          if (fast_term(li.x, li.y, gmi, true, hi.x, hi.y, hi.z,
-                        hi.w != 0.0f, &tx, &ty)) {
-            a.x = a.x + tx;
-            a.y = a.y + ty;
-          }
-        }
-        if (o <= down) {
-          const float4 lo = r - o >= 0 ? s.lane[r - o]
-                                       : make_float4(x[i - o], y[i - o],
-                                                     m[i - o],
-                                                     alive[i - o] ? 1.0f
-                                                                  : 0.0f);
-          if (fast_term(lo.x, lo.y, g * lo.z, lo.w != 0.0f, li.x, li.y,
-                        li.z, true, &tx, &ty)) {
-            a.x = a.x - tx;
-            a.y = a.y - ty;
-          }
-        }
-      }
-      s.acc[r] = a;
-    }
-    __syncthreads();
-  }
-  for (int r = tid; r < rc; r += kThreads) {
-    const int i = c0 + r;
-    const float4 li = s.lane[r];
-    float2 a = s.acc[r];
-    add_stencil<float>(li.x, li.y, li.z, li.w != 0.0f, kc, ld, ml, mxl, myl,
-                       g, &a.x, &a.y);
-    fx[i] = a.x;
-    fy[i] = a.y;
-  }
-  __syncthreads();
-}
-
-// Same-cell pair forces then the 8 stencil monopole terms, each lane its
-// own sum (ops/forces.py pairwise_forces_parity_blocked or
-// pairwise_forces_fast, then monopole_forces). ml, mxl, myl: (8, ncells +
-// 1) rows, the last column a zero sentinel.
-template <typename T, bool kParity, bool kOnce>
-__global__ void __launch_bounds__(kThreads) sweep_forces_kernel(
-    const T* __restrict__ x, const T* __restrict__ y,
-    const T* __restrict__ m, const bool* __restrict__ alive,
-    const int* __restrict__ key, const int64_t* __restrict__ pos,
-    const int64_t* __restrict__ counts, int n, int ncells, int chunk,
-    const T* __restrict__ ml, const T* __restrict__ mxl,
-    const T* __restrict__ myl, T g, T* fx, T* fy) {
-  extern __shared__ __align__(16) unsigned char shared[];
-  __shared__ int starts[kThreads];
-  __shared__ int nstarts;
-  const int ld = ncells + 1;
-  // A sentinel lane: its sums x * 0, then the 8 masked stencil terms.
-  chunk_starts(key, pos, n, ncells, chunk, starts, &nstarts, [&](int i) {
-    const T xi = x[i];
-    T ax = xi * T(0), ay = xi * T(0);
-    add_stencil<T>(xi, y[i], m[i], false, ncells, ld, ml, mxl, myl, g, &ax,
-                   &ay);
-    fx[i] = ax;
-    fy[i] = ay;
-  });
-  for (int c = 0; c < nstarts; ++c) {
-    const int c0 = starts[c];
-    int cs, ce, c1;
-    chunk_of(c0, key, pos, counts, chunk, &cs, &ce, &c1);
-    if constexpr (kParity) {
-      parity_chunk<kOnce>(x, y, m, alive, key[c0], ld, ml, mxl, myl, g,
-                          parity_shared(shared, chunk), c0, c1, cs, ce, fx,
-                          fy);
-    } else {
-      fast_chunk<kOnce>(x, y, m, alive, key[c0], ld, ml, mxl, myl, g,
-                        fast_shared(shared, chunk), chunk, c0, c1, cs, ce,
-                        fx, fy);
-    }
-  }
-}
-
-// ---- Collisions.
 
 // Sort keys: the float's bits made to order as unsigned integers as the
 // values do (-0 just below +0); a NaN gets the largest key, kNone, which
@@ -900,23 +799,29 @@ inline int chunk_for(int kmax) {
   return kmax < 1 ? 1 : (kmax < kChunk ? kmax : kChunk);
 }
 
-template <typename T, bool kParity>
-int forces(const T* x, const T* y, const T* m, const bool* alive,
-           const int* key, const int64_t* pos, const int64_t* counts, int n,
-           int ncells, int kmax, const T* ml, const T* mxl, const T* myl,
-           double g, T* fx, T* fy, void* stream) {
+int forces_parity(const double* x, const double* y, const double* m,
+                  const bool* alive, const int* key, const int64_t* pos,
+                  const int64_t* counts, int n, int ncells, const double* ml,
+                  const double* mxl, const double* myl, double g, double* fx,
+                  double* fy, int* sync, void* stream) {
   if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
-  constexpr bool kOnce = PSIM_SWEEP_ONCE != 0;
-  const int chunk = chunk_for(kmax);
-  const size_t smem = kParity ? parity_shared_bytes(chunk)
-                              : fast_shared_bytes<kOnce>(chunk);
-  auto kernel = sweep_forces_kernel<T, kParity, kOnce>;
-  static size_t opted = 0;
-  const cudaError_t err = opt_in(kernel, smem, opted);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks_for(n), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      x, y, m, alive, key, pos, counts, n, ncells, chunk, ml, mxl, myl, (T)g,
+  const int items = (n + kTile - 1) / kTile;
+  sweep_forces_parity_kernel<<<(items + kWarps - 1) / kWarps, kWarps * 32,
+                               0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, alive, key, pos, counts, n, ncells, ml, mxl, myl, g, fx, fy,
+      sync);
+  return (int)cudaGetLastError();
+}
+
+int forces_fast(const float* x, const float* y, const float* m,
+                const bool* alive, const int* key, const int64_t* pos,
+                const int64_t* counts, int n, int ncells, const float* ml,
+                const float* mxl, const float* myl, double g, float* fx,
+                float* fy, void* stream) {
+  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+  sweep_forces_fast_kernel<<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, alive, key, pos, counts, n, ncells, ml, mxl, myl, (float)g,
       fx, fy);
   return (int)cudaGetLastError();
 }
@@ -970,37 +875,35 @@ extern "C" int psim_sweep_com_f32(const float* x, const float* y,
                            stream);
 }
 
-// alive: n bytes (0/1); kmax: the most lanes in one cell (plan.kmax); ml,
-// mxl, myl: (8, ncells + 1) each; g = G, cast to the type. Outputs fx, fy:
-// n each. _f64 parity, _f32 fast.
+// alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to
+// the type. Outputs fx, fy: n each. _f64 parity (sync: n + 1 int32 zeros,
+// the kernel's scratch), _f32 fast.
 extern "C" int psim_sweep_forces_f64(const double* x, const double* y,
                                      const double* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
-                                     int kmax, const double* ml,
-                                     const double* mxl, const double* myl,
-                                     double g, double* fx, double* fy,
-                                     void* stream) {
-  return forces<double, true>(x, y, m, alive, key, pos, counts, n, ncells,
-                              kmax, ml, mxl, myl, g, fx, fy, stream);
+                                     const double* ml, const double* mxl,
+                                     const double* myl, double g, double* fx,
+                                     double* fy, int* sync, void* stream) {
+  return forces_parity(x, y, m, alive, key, pos, counts, n, ncells, ml, mxl,
+                       myl, g, fx, fy, sync, stream);
 }
 
 extern "C" int psim_sweep_forces_f32(const float* x, const float* y,
                                      const float* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
-                                     int kmax, const float* ml,
-                                     const float* mxl, const float* myl,
-                                     double g, float* fx, float* fy,
-                                     void* stream) {
-  return forces<float, false>(x, y, m, alive, key, pos, counts, n, ncells,
-                              kmax, ml, mxl, myl, g, fx, fy, stream);
+                                     const float* ml, const float* mxl,
+                                     const float* myl, double g, float* fx,
+                                     float* fy, void* stream) {
+  return forces_fast(x, y, m, alive, key, pos, counts, n, ncells, ml, mxl,
+                     myl, g, fx, fy, stream);
 }
 
-// kmax as above; eps = EPSILON, cast to the type. Outputs: first (n ints,
-// scratch), died (n bytes); count (one int64): the pairs first for both
-// ends. Two launches: the first pairs (which zero the count), then the
-// count.
+// kmax: the most lanes in one cell (plan.kmax); eps = EPSILON, cast to the
+// type. Outputs: first (n ints, scratch), died (n bytes); count (one
+// int64): the pairs first for both ends. Two launches: the first pairs
+// (which zero the count), then the count.
 extern "C" int psim_sweep_collisions_f64(const double* x, const double* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,

@@ -515,30 +515,21 @@ def _wide_particles(rng, x, y, w):
     n = x.shape[0]
     m = rng.uniform(0.5, 2.0, n)
     alive = rng.uniform(size=n) > 0.1
-    cx, cy = 1.5 * w, 1.5 * w
-    spots = {}  # pid -> (x, y)
-
-    def put(pid, px, py):
-        spots[pid] = (px, py)
-
-    for a, b, dy in ((31, 32, -0.4), (63, 64, -0.3)):
-        put(a, cx - 0.5, cy + dy)
-        put(b, cx - 0.5, cy + dy)
-    put(500, cx, cy)
-    put(100, cx - 0.004, cy)
-    put(900, cx + 0.001, cy + 0.0035)
-    for (lo, hi), dtype, dy in (((1200, 1201), np.float64, 0.1),
-                                ((1202, 1203), np.float64, 0.2),
-                                ((1210, 1211), np.float32, 0.3),
-                                ((1212, 1213), np.float32, 0.4)):
-        x0 = float(np.dtype(dtype).type(cx + 0.2))
+    c = 1.5 * w
+    spots = {31: (c - 0.5, c - 0.4), 32: (c - 0.5, c - 0.4),
+             63: (c - 0.5, c - 0.3), 64: (c - 0.5, c - 0.3),
+             500: (c, c), 100: (c - 0.004, c), 900: (c + 0.001, c + 0.0035),
+             1500: (c - 0.3, c - 0.5), 1501: (c - 0.3, c - 0.497),
+             1502: (c - 0.3, c), k: (-0.3, 0.5), k + 1: (-0.298, 0.5)}
+    for (lo, hi), dtype, dy, at_edge in (
+            ((1200, 1201), np.float64, 0.1, True),
+            ((1202, 1203), np.float64, 0.2, False),
+            ((1210, 1211), np.float32, 0.3, True),
+            ((1212, 1213), np.float32, 0.4, False)):
+        x0 = float(np.dtype(dtype).type(c + 0.2))
         edge, inside = _window_edge(x0, dtype)
-        put(lo, x0, cy - dy)
-        put(hi, edge if dy in (0.1, 0.3) else inside, cy - dy)
-    for pid, dy in ((1500, 0.0), (1501, 0.003), (1502, 0.5)):
-        put(pid, cx - 0.3, cy - 0.5 + dy)
-    put(k, -0.3, 0.5)
-    put(k + 1, -0.3 + 0.002, 0.5)
+        spots[lo] = (x0, c - dy)
+        spots[hi] = (edge if at_edge else inside, c - dy)
     return _plant(rng, x, y, m, alive, spots, k, w)
 
 

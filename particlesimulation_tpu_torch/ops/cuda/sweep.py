@@ -79,8 +79,9 @@ def load(path):
         com_fn = getattr(lib, f"psim_sweep_com_{t}")
         com_fn.argtypes = [vp] * 6 + [ci, ci] + [vp] * 4
         forces_fn = getattr(lib, f"psim_sweep_forces_{t}")
-        forces_fn.argtypes = ([vp] * 7 + [ci, ci, ci] + [vp] * 3 + [cd]
-                              + [vp] * 3)
+        # The parity kernel also takes its scratch (sync) before the stream.
+        forces_fn.argtypes = ([vp] * 7 + [ci, ci] + [vp] * 3 + [cd]
+                              + [vp] * (4 if t == "f64" else 3))
         coll_fn = getattr(lib, f"psim_sweep_collisions_{t}")
         coll_fn.argtypes = [vp] * 6 + [ci, ci, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
@@ -184,12 +185,15 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
         return sweep_forces_ref(x, y, m, alive, key, pos, plan, tables,
                                 ncells)
     out = torch.empty((2, n), dtype=x.dtype, device=x.device)
+    # The parity kernel's scratch: each row tile's progress, a work counter.
+    sync = ([torch.zeros(n + 1, dtype=torch.int32, device=x.device)]
+            if x.dtype == torch.float64 else [])
     cell_pairs._launch(
         "sweep_forces", _kernel("forces", x), x, x.data_ptr(), y.data_ptr(),
         m.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
-        plan.counts.data_ptr(), n, ncells, plan.kmax,
-        *(t.data_ptr() for t in tables),
-        float(G), out[0].data_ptr(), out[1].data_ptr(), launches=LAUNCHES)
+        plan.counts.data_ptr(), n, ncells, *(t.data_ptr() for t in tables),
+        float(G), out[0].data_ptr(), out[1].data_ptr(),
+        *(t.data_ptr() for t in sync), launches=LAUNCHES)
     return out[0], out[1]
 
 

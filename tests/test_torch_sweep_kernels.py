@@ -19,8 +19,11 @@ gives the kernels too): a cell whose first lane has zero mass followed by
 a live one (the parity COM adopts its position) and a massless lane inside
 a massive cell; two coincident live particles; two live particles out of
 the box (sentinel keys: no pair term, no collision) at one position; a
-collision chain A-B, B-C (one count, three deaths); one hot cell; and the
-mesh's lanes (``adversarial.mesh_lane_order``), each cell contiguous but
+collision chain A-B, B-C (one count, three deaths); one hot cell; one
+wide cell of 2600 lanes (more than a tile of the kernels: coincident pairs
+across tile boundaries, a first partner that is not the nearest in x,
+pairs at the x window's edge, a live lane at x < 0); and the mesh's lanes
+(``adversarial.mesh_lane_order``), each cell contiguous but
 the cells out of key order, sentinel lanes between them, with each lane's
 position given.
 
@@ -113,7 +116,7 @@ def _jax(case, dtype):
     return _JAX[key_]
 
 
-CASES = [(case, dt, mesh) for case in ("planted", "hot")
+CASES = [(case, dt, mesh) for case in ("planted", "hot", "wide")
          for dt in (np.float64, np.float32) for mesh in (False, True)]
 IDS = [f"{c}-{'f64' if dt == np.float64 else 'f32'}-{'mesh' if mesh else 'sorted'}"
        for c, dt, mesh in CASES]
