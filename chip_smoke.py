@@ -77,8 +77,9 @@ vectors (``1 1000 3 10000 10000``, ``12 100 5 10000 10000``, ``3 5000 50
 1000000 500``, ``-1 1000 30 100000 1000``) through the CLI and prints each
 result beside its golden lines, whatever they are.
 ``python3 chip_smoke.py --sweep-times ROOT [ROOT ...]`` (bb) times parity
-s1, the f32 sweep at s1, MEDIUM by the default census and MEDIUM in parity
-(golden s3's, the CLI's default) with the port
+s1, the f32 sweep at s1, MEDIUM by the default census, MEDIUM in parity
+(golden s3's, the CLI's default) and ``1 1000 3 10000`` in parity (a
+long golden vector's: nine cells of ~1100 lanes) with the port
 package of each checkout ROOT in turn (a process each; parent, change,
 change, parent): ms/step, device ms/step, idle share, launches and syncs a
 step, and the digest of each run's final state after 4 steps, which must
@@ -4405,7 +4406,8 @@ def run_golden(vectors, required):
 SWEEP_PATHS = (("parity s1", GOLDEN_S1[:4], True, None, 2),
                ("f32 sweep s1", GOLDEN_S1[:4], False, "sweep", 2),
                ("MEDIUM default", MEDIUM[:4], False, None, 1),
-               ("MEDIUM parity", MEDIUM[:4], True, None, 1))
+               ("MEDIUM parity", MEDIUM[:4], True, None, 1),
+               ("parity 9 cells", LONG_GOLDEN[0][:4], True, None, 2))
 
 
 def sweep_times(root):

@@ -26,10 +26,10 @@
 //
 // Design. The COM pass is one thread a cell (the lane with pos 0), since
 // the parity mean is a sequential recurrence. The parity force pass
-// computes each pair's term once in a large cell (more than kTeam row
-// tiles, MEDIUM's ~2500 lanes): a warp a row tile of 32 lanes, 16 warps a
-// cell, the column lanes' sums handed on from one row tile to the next
-// through fx/fy (the section's note below); a lane of a small cell (the
+// computes each pair's term once in a large cell (more than kLarge lanes,
+// MEDIUM's ~2500): a warp a row tile of 32 lanes, a team of at least 16
+// warps a cell, the column lanes' sums handed on from one row tile to the
+// next through fx/fy (the section's note below); a lane of a small cell (the
 // flagship's ~100) computes its own terms, as a warp-sized tile there
 // leaves most of its term slots empty. The f32 force pass is one thread a
 // lane walking outward from its lane (i + o, then i - o), so a warp's
@@ -114,7 +114,7 @@ constexpr int kChunk = 4096;  // the collision pass's chunk of a cell
 constexpr int kTile = 32;     // parity forces: a row tile, a column tile
 constexpr int kGroup = 8;     // parity forces: row lanes a buffer round
 constexpr int kWarps = 8;     // parity forces: warps a block
-constexpr int kTeam = 16;     // parity forces: warps a large cell
+constexpr int kLarge = 512;   // parity forces: the most lanes a small cell
 
 inline unsigned blocks_for(int n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -214,30 +214,31 @@ __device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
 // row tile; in a small one each lane by itself.
 //
 // A warp takes the next kTile lanes from a work counter. A lane of a small
-// cell (kTeam row tiles or fewer) computes its own sum (parity_lane: every
+// cell (kLarge lanes or fewer) computes its own sum (parity_lane: every
 // term from the lower lane's side, so each pair's term twice). A large
 // cell's row tiles (kTile lanes from a position that is a multiple of
-// kTile; column tiles likewise) go to a team of kTeam warps, each taking
-// every kTeam-th: the warp that took a lane of row tile r < kTeam runs row
-// tiles r, r + kTeam, ... of the cell. In a row tile, thread u holds row
-// lane u's sum. The warp computes the triangle of pairs inside the row
-// tile, then each column tile above it, ascending: thread v computes t(u,
-// v) for the row lanes u in ascending order and subtracts each from
-// column lane v's sum; the terms go through the warp's buffer, kGroup rows
-// at a time, to their row lanes, which add them in ascending v. A column
-// lane's sum lives in fx/fy between row tiles: row tile k - 1 of the cell
-// hands column tile a on (its progress word) before row tile k reads and
-// adds to it, so kTeam rows of a cell are in flight, each about a column
-// tile behind the one before. Each lane receives its lower partners'
-// terms (rows 0 .. k-1, then its own tile's lower lanes) in ascending
-// order, then its upper partners' (its own tile's, then the column
-// tiles') in ascending order: the plain order. A row tile waits only on
-// the cell's previous one, held by a warp of its team; the counter hands
-// a team's first row tiles out in lane order, so only the cell at the
-// counter's front can have a team member not yet started; a large cell
-// means more than kTeam work items, so at least kTeam warps are launched
-// (all resident at once on the card), and every other cell's warps run to
-// their end and free the warps that start it: every wait ends.
+// kTile; column tiles likewise) go to a team of warps (the host's `team`,
+// at least 16, or the cell's row tiles if fewer), each taking every
+// team-th: the warp that took a lane of row tile r < team runs row tiles
+// r, r + team, ... of the cell. In a row tile, thread u holds row lane u's
+// sum. The warp computes the triangle of pairs inside the row tile, then
+// each column tile above it, ascending: thread v computes t(u, v) for the
+// row lanes u in ascending order and subtracts each from column lane v's
+// sum; the terms go through the warp's buffer, kGroup rows at a time, to
+// their row lanes, which add them in ascending v. A column lane's sum lives
+// in fx/fy between row tiles: row tile k - 1 of the cell hands column tile
+// a on (its progress word) before row tile k reads and adds to it, so a
+// team's rows are in flight together, each about a column tile behind the
+// one before. Each lane receives its lower partners' terms (rows 0 .. k-1,
+// then its own tile's lower lanes) in ascending order, then its upper
+// partners' (its own tile's, then the column tiles') in ascending order:
+// the plain order. A row tile waits only on the cell's previous one, held
+// by a warp of its team; the counter hands a team's first row tiles out in
+// lane order, so only the cell at the counter's front can have a team
+// member not yet started. A team is no larger than the cell's row tiles
+// (so than the warps launched) nor than one block an SM (all resident at
+// once), so every other cell's warps run to their end and free the warps
+// that start it: every wait ends.
 
 // t(lo, hi) = ((G*m_lo)*m_hi)/d2 * (d/dist), d = hi - lo; gml = G*m_lo, or
 // negative for a dead lo. +0 where the pair is masked (a dead end, or dist
@@ -260,11 +261,11 @@ __device__ __forceinline__ void parity_term(double xl, double yl, double gml,
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
-// A large cell: more than kTeam row tiles. Its row tiles go to a team of
-// kTeam warps, each taking every kTeam-th, which keeps kTeam rows of the
-// cell in flight, each about a column tile behind the one before.
-__device__ __forceinline__ bool large_cell(int lanes) {
-  return lanes > kTeam * kTile;
+// The warps that take a cell of `lanes` lanes' row tiles: 0 for a small
+// cell, else `team` or its row tiles if fewer.
+__device__ __forceinline__ int team_of(int lanes, int team) {
+  const int rows = (lanes + kTile - 1) / kTile;
+  return lanes <= kLarge ? 0 : (rows < team ? rows : team);
 }
 
 // A warp's shared memory: its row tile's lanes (x, y, G*m or -1 for a
@@ -459,7 +460,7 @@ __global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
     const int64_t* __restrict__ counts, int n, int ncells,
     const double* __restrict__ ml, const double* __restrict__ mxl,
     const double* __restrict__ myl, double g, double* fx, double* fy,
-    int* sync) {
+    int team, int* sync) {
   __shared__ RowShared shared[kWarps];
   RowShared& sh = shared[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
@@ -483,8 +484,8 @@ __global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
         fy[i] = ay;
       } else {
         const int p = (int)pos[i], c = (int)counts[k];
-        if (large_cell(c)) {
-          start = p % kTile == 0 && p / kTile < kTeam;
+        if (team_of(c, team) > 0) {
+          start = p % kTile == 0 && p / kTile < team_of(c, team);
         } else {
           parity_lane(x, y, m, alive, k, ncells, ml, mxl, myl, g, fx, fy, i,
                       i - p, i - p + c);
@@ -493,10 +494,11 @@ __global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
     }
     for (unsigned starts = __ballot_sync(kFullMask, start); starts;
          starts &= starts - 1) {
-      // This warp's row tiles of the cell: this one, then every kTeam-th.
+      // This warp's row tiles of the cell: this one, then every team-th.
       const int i0 = t * kTile + __ffs(starts) - 1;
-      const int e = i0 - (int)pos[i0] + (int)counts[key[i0]];
-      for (int r = i0; r < e; r += kTeam * kTile) {
+      const int c = (int)counts[key[i0]];
+      const int e = i0 - (int)pos[i0] + c;
+      for (int r = i0; r < e; r += team_of(c, team) * kTile) {
         parity_row(x, y, m, alive, key, pos, counts, ncells, ml, mxl, myl,
                    g, fx, fy, sync, sh, r);
       }
@@ -803,13 +805,13 @@ int forces_parity(const double* x, const double* y, const double* m,
                   const bool* alive, const int* key, const int64_t* pos,
                   const int64_t* counts, int n, int ncells, const double* ml,
                   const double* mxl, const double* myl, double g, double* fx,
-                  double* fy, int* sync, void* stream) {
-  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+                  double* fy, int team, int* sync, void* stream) {
+  if (n < 1 || ncells < 1 || team < 1) return (int)cudaErrorInvalidValue;
   const int items = (n + kTile - 1) / kTile;
   sweep_forces_parity_kernel<<<(items + kWarps - 1) / kWarps, kWarps * 32,
                                0, static_cast<cudaStream_t>(stream)>>>(
       x, y, m, alive, key, pos, counts, n, ncells, ml, mxl, myl, g, fx, fy,
-      sync);
+      team, sync);
   return (int)cudaGetLastError();
 }
 
@@ -876,17 +878,19 @@ extern "C" int psim_sweep_com_f32(const float* x, const float* y,
 }
 
 // alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to
-// the type. Outputs fx, fy: n each. _f64 parity (sync: n + 1 int32 zeros,
-// the kernel's scratch), _f32 fast.
+// the type. Outputs fx, fy: n each. _f64 parity (team: the warps a large
+// cell takes, at most kWarps times the SMs; sync: n + 1 int32 zeros, the
+// kernel's scratch), _f32 fast.
 extern "C" int psim_sweep_forces_f64(const double* x, const double* y,
                                      const double* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
                                      const double* ml, const double* mxl,
                                      const double* myl, double g, double* fx,
-                                     double* fy, int* sync, void* stream) {
+                                     double* fy, int team, int* sync,
+                                     void* stream) {
   return forces_parity(x, y, m, alive, key, pos, counts, n, ncells, ml, mxl,
-                       myl, g, fx, fy, sync, stream);
+                       myl, g, fx, fy, team, sync, stream);
 }
 
 extern "C" int psim_sweep_forces_f32(const float* x, const float* y,

@@ -79,9 +79,11 @@ def load(path):
         com_fn = getattr(lib, f"psim_sweep_com_{t}")
         com_fn.argtypes = [vp] * 6 + [ci, ci] + [vp] * 4
         forces_fn = getattr(lib, f"psim_sweep_forces_{t}")
-        # The parity kernel also takes its scratch (sync) before the stream.
+        # The parity kernel also takes its team and scratch (sync) before
+        # the stream.
         forces_fn.argtypes = ([vp] * 7 + [ci, ci] + [vp] * 3 + [cd]
-                              + [vp] * (4 if t == "f64" else 3))
+                              + ([vp, vp, ci, vp, vp] if t == "f64"
+                                 else [vp] * 3))
         coll_fn = getattr(lib, f"psim_sweep_collisions_{t}")
         coll_fn.argtypes = [vp] * 6 + [ci, ci, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
@@ -185,16 +187,36 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
         return sweep_forces_ref(x, y, m, alive, key, pos, plan, tables,
                                 ncells)
     out = torch.empty((2, n), dtype=x.dtype, device=x.device)
-    # The parity kernel's scratch: each row tile's progress, a work counter.
-    sync = ([torch.zeros(n + 1, dtype=torch.int32, device=x.device)]
-            if x.dtype == torch.float64 else [])
+    parity = []
+    if x.dtype == torch.float64:
+        # The team, and the scratch: each row tile's progress, a counter.
+        sync = torch.zeros(n + 1, dtype=torch.int32, device=x.device)
+        parity = [parity_team(plan, cell_pairs._sm_count(x.device.index)),
+                  sync.data_ptr()]
     cell_pairs._launch(
         "sweep_forces", _kernel("forces", x), x, x.data_ptr(), y.data_ptr(),
         m.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
         plan.counts.data_ptr(), n, ncells, *(t.data_ptr() for t in tables),
-        float(G), out[0].data_ptr(), out[1].data_ptr(),
-        *(t.data_ptr() for t in sync), launches=LAUNCHES)
+        float(G), out[0].data_ptr(), out[1].data_ptr(), *parity,
+        launches=LAUNCHES)
     return out[0], out[1]
+
+
+# csrc/sweep.cu: the most lanes of a cell the parity force kernel runs a
+# lane a thread (larger cells go to a team of warps, each pair's term
+# once), and the warps a block.
+SMALL_CELL = 512
+BLOCK_WARPS = 8
+
+
+def parity_team(plan, sms: int) -> int:
+    """The warps that share a large cell in the parity force kernel: 16, or
+    with fewer large cells than fill the card that way, the warps of one
+    block an SM (``sms`` of them) shared among the large cells, so that a
+    few large cells still keep every SM busy. At most one block an SM, which
+    the card holds at once: a team's warps wait on each other."""
+    large = plan.cells[SMALL_CELL] if plan.kmax > SMALL_CELL else 0
+    return max(16, BLOCK_WARPS * sms // max(large, 1))
 
 
 def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):

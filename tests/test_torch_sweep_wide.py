@@ -260,3 +260,21 @@ def test_wide_plants():
     assert abs(x[s + 900] - x[s + 500]) < abs(x[s + 100] - x[s + 500])
     neg = int(np.flatnonzero(x.numpy() < 0)[0])
     assert first[neg] >= 0 and int(key[neg]) == 0
+
+
+@pytest.mark.parametrize("kmax,large,team", [
+    (140, 0, 1056),      # no large cell: the team is never used
+    (2700, 400, 16),     # MEDIUM: 400 large cells, 16 warps each
+    (1111, 9, 117),      # nine large cells share one block an SM
+    (65534, 1, 1056),    # one cell: a block an SM, the most that waits
+])
+def test_parity_team(kmax, large, team):
+    """The parity force kernel's team of warps a large cell (more than
+    ``sweep.SMALL_CELL`` lanes) on a card of 132 SMs: at least 16, at most
+    one block an SM (the card holds them at once)."""
+    cells = [0] * kmax
+    if large:
+        cells[sweep.SMALL_CELL] = large
+    plan = binning.Occupancy(kmax, [], cells, None, None)
+    assert sweep.parity_team(plan, 132) == team
+    assert 16 <= team <= sweep.BLOCK_WARPS * 132
