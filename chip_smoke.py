@@ -474,7 +474,7 @@ each) and 17 a monopole term (8 an alive lane); for the collision test 6
 an unordered pair of alive lanes in one cell whose x alone has fl(dx²) <
 4·EPSILON² (the x window's candidates, counted on this run's lanes by
 ``_sweep_candidates``: no other pair can hit), beside the all-pairs figure
-of PR 18 (6 every unordered alive pair) as ``all_pairs_bound_ms``; float64
+(6 every unordered alive pair) as ``all_pairs_bound_ms``; float64
 at 34 TFLOP/s, float32 at 67.
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
@@ -4126,7 +4126,7 @@ def _sweep_candidates(x, key, alive, ncells):
 
 def _sweep_bounds(key, alive, plan, ncells, x):
     """({kernel: (bound_ms, bound_by)}, alive pairs, the collision
-    function's candidates, the collisions' PR 18 all-pairs bound_ms): each
+    function's candidates, the collisions' all-pairs bound_ms): each
     input of the JAX function read once, each output written once: the COM
     the sorted keys (4 B a lane), x, y, m and 3 values a cell out; the
     forces the keys, x, y, m, alive, the (8, ncells + 1) tables and fx, fy

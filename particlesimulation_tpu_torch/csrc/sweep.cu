@@ -27,17 +27,19 @@
 // Design. The COM pass is one thread a cell (the lane with pos 0), since
 // the parity mean is a sequential recurrence. The parity force pass
 // computes each pair's term once in a large cell (more than kLarge lanes,
-// MEDIUM's ~2500): a warp a row tile of 32 lanes, a team of at least 16
-// warps a cell, the column lanes' sums handed on from one row tile to the
-// next through fx/fy (the section's note below); a lane of a small cell (the
-// flagship's ~100) computes its own terms, as a warp-sized tile there
-// leaves most of its term slots empty. The f32 force pass is one thread a
-// lane walking outward from its lane (i + o, then i - o), so a warp's
-// partner reads are consecutive; each term is computed at both ends, as a
-// term computed once cost more shared-memory traffic than it saved (PERF.md
-// section 6, PR 19). The collision pass sorts each chunk of a cell (up to
-// kChunk lanes) by x in shared memory; each alive lane walks outward from
-// its own x while fl(dx²) < 4 eps² and tests only those partners.
+// MEDIUM's ~2500) where there are enough of them to fill the card: a warp
+// a row tile of 32 lanes, a team of 16 warps a cell, the column lanes'
+// sums handed on from one row tile to the next through fx/fy (the
+// section's note below). Otherwise a lane computes its own terms: in a
+// small cell (the flagship's ~100) a warp-sized tile leaves most of its
+// term slots empty, and a few large cells' teams would mostly wait. The
+// f32 force pass is one thread a lane walking outward from its lane (i +
+// o, then i - o), so a warp's partner reads are consecutive; each term is
+// computed at both ends, as a term computed once cost more shared-memory
+// traffic than it saved (PERF.md section 6). The collision pass sorts each
+// chunk of a cell (up to kChunk lanes) by x in shared memory; each alive
+// lane walks outward from its own x while fl(dx²) < 4 eps² and tests only
+// those partners.
 //
 // What bounds them on an H100: the forces are bound by operations: ~17
 // f64 operations an unordered same-cell pair of alive lanes in parity (the
@@ -218,14 +220,15 @@ __device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
 // term from the lower lane's side, so each pair's term twice). A large
 // cell's row tiles (kTile lanes from a position that is a multiple of
 // kTile; column tiles likewise) go to a team of warps (the host's `team`,
-// at least 16, or the cell's row tiles if fewer), each taking every
-// team-th: the warp that took a lane of row tile r < team runs row tiles
-// r, r + team, ... of the cell. In a row tile, thread u holds row lane u's
-// sum. The warp computes the triangle of pairs inside the row tile, then
-// each column tile above it, ascending: thread v computes t(u, v) for the
-// row lanes u in ascending order and subtracts each from column lane v's
-// sum; the terms go through the warp's buffer, kGroup rows at a time, to
-// their row lanes, which add them in ascending v. A column lane's sum lives
+// 16 where the large cells' teams fill the card, else 0: every cell a lane
+// a thread), each taking every team-th: the warp that took a lane of row
+// tile r < team runs row tiles r, r + team, ... of the cell. In a row
+// tile, thread u holds row lane u's sum. The warp computes the triangle of
+// pairs inside the row tile, then each column tile above it, ascending:
+// thread v computes t(u, v) for the row lanes u in ascending order and
+// subtracts each from column lane v's sum; the terms go through the warp's
+// buffer, kGroup rows at a time, to their row lanes, which add them in
+// ascending v. A column lane's sum lives
 // in fx/fy between row tiles: row tile k - 1 of the cell hands column tile
 // a on (its progress word) before row tile k reads and adds to it, so a
 // team's rows are in flight together, each about a column tile behind the
@@ -236,9 +239,9 @@ __device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
 // by a warp of its team; the counter hands a team's first row tiles out in
 // lane order, so only the cell at the counter's front can have a team
 // member not yet started. A team is no larger than the cell's row tiles
-// (so than the warps launched) nor than one block an SM (all resident at
-// once), so every other cell's warps run to their end and free the warps
-// that start it: every wait ends.
+// (so than the warps launched) nor than the card holds at once, so every
+// other cell's warps run to their end and free the warps that start it:
+// every wait ends.
 
 // t(lo, hi) = ((G*m_lo)*m_hi)/d2 * (d/dist), d = hi - lo; gml = G*m_lo, or
 // negative for a dead lo. +0 where the pair is masked (a dead end, or dist
@@ -262,7 +265,7 @@ __device__ __forceinline__ void parity_term(double xl, double yl, double gml,
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // The warps that take a cell of `lanes` lanes' row tiles: 0 for a small
-// cell, else `team` or its row tiles if fewer.
+// cell or with no teams (team 0), else `team` or its row tiles if fewer.
 __device__ __forceinline__ int team_of(int lanes, int team) {
   const int rows = (lanes + kTile - 1) / kTile;
   return lanes <= kLarge ? 0 : (rows < team ? rows : team);
@@ -806,7 +809,7 @@ int forces_parity(const double* x, const double* y, const double* m,
                   const int64_t* counts, int n, int ncells, const double* ml,
                   const double* mxl, const double* myl, double g, double* fx,
                   double* fy, int team, int* sync, void* stream) {
-  if (n < 1 || ncells < 1 || team < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || ncells < 1 || team < 0) return (int)cudaErrorInvalidValue;
   const int items = (n + kTile - 1) / kTile;
   sweep_forces_parity_kernel<<<(items + kWarps - 1) / kWarps, kWarps * 32,
                                0, static_cast<cudaStream_t>(stream)>>>(
@@ -879,8 +882,8 @@ extern "C" int psim_sweep_com_f32(const float* x, const float* y,
 
 // alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to
 // the type. Outputs fx, fy: n each. _f64 parity (team: the warps a large
-// cell takes, at most kWarps times the SMs; sync: n + 1 int32 zeros, the
-// kernel's scratch), _f32 fast.
+// cell takes, 0 for none, at most what the card holds at once; sync: n + 1
+// int32 zeros, the kernel's scratch), _f32 fast.
 extern "C" int psim_sweep_forces_f64(const double* x, const double* y,
                                      const double* m, const bool* alive,
                                      const int* key, const int64_t* pos,

@@ -203,20 +203,22 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
 
 
 # csrc/sweep.cu: the most lanes of a cell the parity force kernel runs a
-# lane a thread (larger cells go to a team of warps, each pair's term
-# once), and the warps a block.
+# lane a thread when large cells take teams (larger cells go to a team of
+# TEAM warps, each pair's term once), and the warps the card holds an SM.
 SMALL_CELL = 512
-BLOCK_WARPS = 8
+TEAM = 16
+SM_WARPS = 32
 
 
 def parity_team(plan, sms: int) -> int:
-    """The warps that share a large cell in the parity force kernel: 16, or
-    with fewer large cells than fill the card that way, the warps of one
-    block an SM (``sms`` of them) shared among the large cells, so that a
-    few large cells still keep every SM busy. At most one block an SM, which
-    the card holds at once: a team's warps wait on each other."""
+    """The warps a large cell takes in the parity force kernel: TEAM where
+    the large cells' teams fill every warp of the card (``sms`` SMs), else
+    0, every cell a lane a thread. A team's rows wait on each other, so a
+    few cells run mostly waiting (nine cells of ~1100 lanes: 1.14 → 4.58
+    device ms a step, PERF.md section 6), where a lane a thread keeps the
+    card busy."""
     large = plan.cells[SMALL_CELL] if plan.kmax > SMALL_CELL else 0
-    return max(16, BLOCK_WARPS * sms // max(large, 1))
+    return TEAM if large * TEAM >= SM_WARPS * sms else 0
 
 
 def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):

@@ -263,18 +263,18 @@ def test_wide_plants():
 
 
 @pytest.mark.parametrize("kmax,large,team", [
-    (140, 0, 1056),      # no large cell: the team is never used
-    (2700, 400, 16),     # MEDIUM: 400 large cells, 16 warps each
-    (1111, 9, 117),      # nine large cells share one block an SM
-    (65534, 1, 1056),    # one cell: a block an SM, the most that waits
+    (140, 0, 0),         # no large cell: every lane a thread
+    (2700, 400, 16),     # MEDIUM: 400 large cells' teams fill the card
+    (2600, 264, 16),     # just enough teams to fill 132 SMs of 32 warps
+    (2600, 263, 0),      # one fewer: a lane a thread
+    (1111, 9, 0),        # nine large cells: a lane a thread
 ])
 def test_parity_team(kmax, large, team):
     """The parity force kernel's team of warps a large cell (more than
-    ``sweep.SMALL_CELL`` lanes) on a card of 132 SMs: at least 16, at most
-    one block an SM (the card holds them at once)."""
+    ``sweep.SMALL_CELL`` lanes) on a card of 132 SMs: 16 where the large
+    cells' teams fill every warp the card holds, else 0 (no teams)."""
     cells = [0] * kmax
     if large:
         cells[sweep.SMALL_CELL] = large
     plan = binning.Occupancy(kmax, [], cells, None, None)
     assert sweep.parity_team(plan, 132) == team
-    assert 16 <= team <= sweep.BLOCK_WARPS * 132
