@@ -62,16 +62,32 @@ az. each kernel against its plain version on the card (``sweep_*_ref``):
    out of key order, sentinel lanes between them; "huge" sorted only), in
    both precisions: parity bit for
    bit; the collision count and the dead set exact; f32 forces bit for bit
-   too, f32 COM within its tolerance; a second run bit for bit. Each
-   kernel timed (ms, device ms) at parity s1, the f32 sweep at s1 and
-   MEDIUM in f32 and f64 against its bound and its plain version; the
-   fast COM beside ``index_add_`` of (m, m·x, m·y) onto the cells;
+   too, f32 COM the sums in position order bit for bit (its kernel's
+   order, and its parent's) and within its tolerance of the plain version;
+   a second run bit for bit. The COM also on ``adversarial.com_particles``
+   (cells opening with massless runs; cells of a round of the kernel's
+   staging and a round plus one; masses from 2^-1074 to 2^1023, on both
+   sides of the parity division's range edges; 7680 one-lane cells between
+   empty ones) in both precisions and layouts, and its parity division
+   against ``__ddiv_rn`` on 1.32e7 operand pairs made on the card (random,
+   all-ones divisors, quotients next to a rounding midpoint, operands at
+   the range's edges, quotients at its ends, numerators +0 and -0): 0
+   mismatches. Each kernel
+   timed (ms, device ms) at parity s1, the f32 sweep at s1 and MEDIUM in
+   f32 and f64 against its bound and its plain version; the fast COM
+   beside ``index_add_`` of (m, m·x, m·y) onto the cells; the COM against
+   its chain floor too (the longest cell's lanes times one lane's latency
+   on its chain, timed by a one-thread kernel running the same chain code:
+   ``sweep.com_chain``);
 ba. the reference's heavy golden vectors through the default CLI (parity on
    cuda), a process each, their lines exactly: ``1 5000 100 1000000 100``
    (163), ``1 5000 20 1000000 10`` (MEDIUM in f64, 19), ``3 5000 50 1000000
    300`` (BIG, 469), ``-11 3500 20 500000 10`` (35), ``-50 10000 200 500000
    10`` (4).
 
+``python3 chip_smoke.py --sweep-com`` runs az's COM parts alone (the
+division check, the COM case, the kernel against its plain version on
+every az input, timed against its bounds and chain floor).
 ``python3 chip_smoke.py --golden-long`` runs the four long-horizon golden
 vectors (``1 1000 3 10000 10000``, ``12 100 5 10000 10000``, ``3 5000 50
 1000000 500``, ``-1 1000 30 100000 1000``) through the CLI and prints each
@@ -475,7 +491,12 @@ an unordered pair of alive lanes in one cell whose x alone has fl(dx²) <
 4·EPSILON² (the x window's candidates, counted on this run's lanes by
 ``_sweep_candidates``: no other pair can hit), beside the all-pairs figure
 (6 every unordered alive pair) as ``all_pairs_bound_ms``; float64
-at 34 TFLOP/s, float32 at 67.
+at 34 TFLOP/s, float32 at 67. Beside the COM's, ``chain_floor_ms``: a
+cell's lanes are one serial recurrence (the parity mean, and the fast
+sums kept in position order), so the COM takes at least its longest
+cell's lanes (``plan.kmax``) times one lane's dependent latency on its
+chain, timed in this run by a one-thread launch of the kernel's own chain
+code (``sweep.com_chain``, 65 536 lanes, CUDA events, median of 5).
 
 Bounds: a kernel's bound is the larger of its bytes over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet), counted from
@@ -2868,6 +2889,14 @@ def _bits_equal(a, b):
     return torch.equal(a, b)
 
 
+def _float_bits_equal(a, b):
+    """Whether two float tensors hold the same bit patterns (in either
+    width: -0 and +0 differ, NaNs compare by payload)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
 def _max_diff(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
@@ -4164,18 +4193,42 @@ def _sweep_bounds(key, alive, plan, ncells, x):
     return out, pairs, cand, all_pairs
 
 
-def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
-    """(az) The three kernels against their plain versions on the card on
-    one set of lanes; returns the kernel calls (for timing) and the max
-    abs errors."""
-    from particlesimulation_tpu_torch.config import EPSILON
-    from particlesimulation_tpu_torch.ops import stencil
+def _position_order_com(x, y, m, key, pos, plan, ncells):
+    """The fast COM with each cell's sums in position order (the kernel's
+    order, and its parent's), as plain torch: position p's lanes added to
+    their cells' sums, one lane a cell in each call, then the quotients."""
+    real = key < ncells
+    p = torch.where(real, pos, torch.full_like(pos, plan.kmax))
+    order = torch.argsort(p, stable=True)
+    per = torch.bincount(p, minlength=plan.kmax + 1).tolist()
+    k = key.long()
+    sums = torch.zeros((3, ncells), dtype=x.dtype, device=x.device)
+    terms = torch.stack([m, m * x, m * y])
+    start = 0
+    for c in per[:plan.kmax]:
+        idx = order[start:start + c]
+        sums.index_add_(1, k[idx], terms[:, idx])
+        start += c
+    M, SX, SY = sums
+    has = M > 0
+    safe = torch.where(has, M, torch.ones_like(M))
+    zero = torch.zeros_like(M)
+    return (M, torch.where(has, SX / safe, zero),
+            torch.where(has, SY / safe, zero))
+
+
+def _check_com(tag, lanes_, x, y, m, ncells):
+    """The COM kernel against its plain version on one set of lanes: parity
+    bit for bit; fast bit for bit against the sums in position order
+    (``_position_order_com``) and, where finite, within c·2⁻²⁴·Σ|terms| of
+    the plain version (which sums (ncells, kmax) rows with torch.sum); a
+    second run bit for bit. Returns (the kernel call, the plain call, the
+    kernel's (M, MX, MY), max |err| against the plain version, whether it
+    equals the plain version bit for bit)."""
     from particlesimulation_tpu_torch.ops.cuda import sweep
 
     key, pos, plan = lanes_
-    ncells = nc * nc
     parity = x.dtype == torch.float64
-    u = 2.0 ** -53 if parity else 2.0 ** -24
 
     def com_k():
         return sweep.sweep_com(x, y, m, key, pos, plan, ncells)
@@ -4184,6 +4237,65 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
         return sweep.sweep_com_ref(x, y, m, key, pos, plan, ncells)
 
     ck, cp = com_k(), com_p()
+    err = max(_max_diff(a, b) for a, b in zip(ck, cp))
+    bits = all(_float_bits_equal(a, b) for a, b in zip(ck, cp))
+    if parity and not bits:
+        diff = [torch.nonzero(a.view(torch.int64) != b.view(torch.int64))
+                .flatten()[:4].tolist() for a, b in zip(ck, cp)]
+        raise AssertionError(
+            f"{tag}: parity COM not bit for bit; first cells differing "
+            f"(M, MX, MY): {diff}; kernel "
+            f"{[a[d].tolist() for a, d in zip(ck, diff)]}, plain "
+            f"{[b[d].tolist() for b, d in zip(cp, diff)]}")
+    if not parity:
+        order = _position_order_com(x, y, m, key, pos, plan, ncells)
+        if not all(_float_bits_equal(a, b) for a, b in zip(ck, order)):
+            raise AssertionError(f"{tag}: f32 COM differs from the sums in "
+                                 f"position order")
+        # Each cell's c sums in another order: |d Σ| <= c·u·Σ|terms|, and
+        # the quotients' relative error twice that plus an ulp.
+        u = 2.0 ** -24
+        kc = torch.clamp(key.long(), max=ncells)
+
+        def cell_sums(v):
+            return torch.zeros(ncells + 1, dtype=torch.float64,
+                               device=x.device).index_add_(0, kc, v)[:ncells]
+
+        c = cell_sums(torch.ones_like(x, dtype=torch.float64))
+        M = cell_sums(m.double())
+        tol_m = c * u * M + u * M
+        bad = (ck[0].double() - cp[0].double()).abs() > tol_m
+        for q, v in ((1, x), (2, y)):
+            S = cell_sums((m * v.abs()).double())
+            tol = (2 * c * u + 2 * u) * S / torch.where(M > 0, M, 1.0) + (
+                u * cp[q].double().abs())
+            bad |= (ck[q].double() - cp[q].double()).abs() > tol
+        if bool(bad.any()):
+            raise AssertionError(f"{tag}: f32 COM outside c·2^-24·Σ|terms| "
+                                 f"in {int(bad.sum())} cells")
+    if not all(_float_bits_equal(a, b) for a, b in zip(com_k(), ck)):
+        raise AssertionError(f"{tag}: a second COM run differs")
+    return com_k, com_p, ck, err, bits
+
+
+def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
+                         com_only=False):
+    """(az) The three kernels (with ``com_only`` the COM alone) against
+    their plain versions on the card on one set of lanes; returns the
+    kernel calls (for timing) and the max abs errors."""
+    from particlesimulation_tpu_torch.config import EPSILON
+    from particlesimulation_tpu_torch.ops import stencil
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    key, pos, plan = lanes_
+    ncells = nc * nc
+    com_k, com_p, ck, com_err, com_bits = _check_com(tag, lanes_, x, y, m,
+                                                      ncells)
+    if com_only:
+        print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}: COM bitwise "
+              f"{com_bits} (max |err| {com_err:.3e}; f32: the position-order "
+              f"sums' bits), a second run bit for bit", flush=True)
+        return {"sweep_com": (com_k, com_p)}, {"sweep_com": com_err}
     tables = stencil.stencil_tables(*ck, side, nc)
 
     def forces_k():
@@ -4204,46 +4316,24 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc):
 
     fk, fp = forces_k(), forces_p()
     (nk, dk), (np_, dp) = coll_k(), coll_p()
-    errs = {"sweep_com": max(_max_diff(a, b) for a, b in zip(ck, cp)),
+    errs = {"sweep_com": com_err,
             "sweep_forces": max(_max_diff(a, b) for a, b in zip(fk, fp)),
             "sweep_collisions": float(int(nk) != int(np_))}
-    com_bits = all(_bits_equal(a, b) for a, b in zip(ck, cp))
     force_bits = all(_bits_equal(a, b) for a, b in zip(fk, fp))
     if int(nk) != int(np_) or not torch.equal(dk, dp):
         raise AssertionError(f"{tag}: collisions {int(nk)} vs {int(np_)}, "
                              f"dead sets equal {torch.equal(dk, dp)}")
-    if not force_bits or (parity and not com_bits):
-        raise AssertionError(f"{tag}: COM bitwise {com_bits}, forces "
-                             f"bitwise {force_bits}")
-    if not parity:
-        # COM: each cell's c sums in another order: |d Σ| <= c·u·Σ|terms|,
-        # and the quotients' relative error twice that plus an ulp.
-        kc = torch.clamp(key.long(), max=ncells)
-
-        def cell_sums(v):
-            return torch.zeros(ncells + 1, dtype=torch.float64,
-                               device=x.device).index_add_(0, kc, v)[:ncells]
-
-        c = cell_sums(torch.ones_like(x, dtype=torch.float64))
-        M = cell_sums(m.double())
-        tol_m = c * u * M + u * M
-        bad = (ck[0].double() - cp[0].double()).abs() > tol_m
-        for q, v in ((1, x), (2, y)):
-            S = cell_sums((m * v.abs()).double())
-            tol = (2 * c * u + 2 * u) * S / torch.where(M > 0, M, 1.0) + (
-                u * cp[q].double().abs())
-            bad |= (ck[q].double() - cp[q].double()).abs() > tol
-        if bool(bad.any()):
-            raise AssertionError(f"{tag}: f32 COM outside c·2^-24·Σ|terms| "
-                                 f"in {int(bad.sum())} cells")
+    if not force_bits:
+        raise AssertionError(f"{tag}: forces bitwise {force_bits}")
     # A second run, bit for bit.
-    again = [*com_k(), *forces_k(), *coll_k()]
-    first = [*ck, *fk, nk, dk]
+    again = [*forces_k(), *coll_k()]
+    first = [*fk, nk, dk]
     if not all(_bits_equal(a, b) for a, b in zip(again, first)):
         raise AssertionError(f"{tag}: a second run differs")
     print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}, "
           f"{int(nk)} collisions, {int(dk.sum())} deaths: COM bitwise "
-          f"{com_bits} (max |err| {errs['sweep_com']:.3e}), forces bitwise "
+          f"{com_bits} (max |err| {errs['sweep_com']:.3e}; f32: the "
+          f"position-order sums' bits), forces bitwise "
           f"{force_bits} (max |err| {errs['sweep_forces']:.3e}), "
           f"count and dead set exact, a second run bit for bit", flush=True)
     return {"sweep_com": (com_k, com_p), "sweep_forces": (forces_k, forces_p),
@@ -4271,65 +4361,204 @@ def _sweep_state(args, parity, steps=0):
     return eng.run(state, steps) if steps else state
 
 
-def check_sweep_kernels(card):
-    """(az) The sweep's three kernels against their plain versions on the
-    card: the sorted states of parity s1, the f32 sweep at s1 and MEDIUM
-    (f32 and f64), each also after one step, and the adversarial lanes of
-    ``adversarial.sweep_particles`` (sorted, and in the mesh's layout; the
-    10 000-lane cell of "huge", more than the kernels stage at once,
-    sorted) in both precisions; each kernel timed at parity s1, the f32
-    sweep at s1 and MEDIUM in f32 and f64 against its bound and its plain
-    version. Returns {kernel: record} at parity s1 (the CLI's default
-    path)."""
+def _sorted_lanes(xs, ys, ms, al, dtype, side, nc):
+    """NumPy particles as sorted sweep lanes on the CPU: x, y, m, alive,
+    key, pos."""
+    from particlesimulation_tpu_torch.ops import binning
+
+    x, y, m = (torch.from_numpy(a).to(dtype) for a in (xs, ys, ms))
+    key, _ = binning.cell_keys(x, y, side, nc)
+    key, _, x, y, m, alive = binning.sort_by_cell(
+        key, torch.arange(x.shape[0], dtype=torch.int32), x, y, m,
+        torch.from_numpy(al))
+    pos, _ = binning.segment_positions(key)
+    return x, y, m, alive, key, pos
+
+
+def _layouts(lanes, ncells, layouts=("sorted", "mesh")):
+    """(layout, lanes on the card in that layout, occupancy) for each of
+    ``layouts``: sorted, or the mesh's (``adversarial.mesh_lane_order``)."""
     from particlesimulation_tpu_torch.ops import binning
     from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
 
+    key = lanes[4]
+    for layout in layouts:
+        perm = (torch.from_numpy(adv.mesh_lane_order(key.numpy(), ncells))
+                if layout == "mesh" else torch.arange(key.shape[0]))
+        out = [t[perm].contiguous().cuda() for t in lanes]
+        yield layout, out, binning.occupancy(out[4], ncells)
+
+
+def check_com_case():
+    """(az) The COM kernel on ``adversarial.com_particles`` (cells opening
+    with massless runs, one past a round; cells of a round of the kernel's
+    staging and a round plus one; masses from 2^-1074 to 2^1023, on both
+    sides of the parity division's range edges; 7680 one-lane cells between
+    empty ones), both precisions, sorted and in the mesh's layout."""
+    from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
+
+    side, nc = adv.COM_SIDE, adv.COM_NCSIDE
+    for dtype in (torch.float64, torch.float32):
+        lanes = _sorted_lanes(*adv.com_particles(), dtype, side, nc)
+        for layout, (x, y, m, _, key, pos), plan in _layouts(lanes, nc * nc):
+            _check_sweep_outputs(f"COM kernel, adversarial COM case {dtype} "
+                                 f"{layout}", (key, pos, plan), x, y, m,
+                                 None, side, nc, com_only=True)
+
+
+# (label, u's binary exponents, v's (each a tuple of ranges), pairs,
+# midpoint, all-ones divisors)
+_EDGES = ((-512, -508), (508, 512))
+DIV_CHECK = (("random, exponents -540..540", ((-540, 540),), ((-540, 540),),
+              4_000_000, False, False),
+             ("all-ones divisors", ((-520, 520),), ((-520, 520),),
+              1_000_000, False, True),
+             ("quotients next to a midpoint", ((-240, 240),), ((-240, 240),),
+              4_000_000, True, False),
+             ("next to a midpoint, all-ones divisors", ((-240, 240),),
+              ((-240, 240),), 1_000_000, True, True),
+             ("operands at the range's edges", _EDGES, _EDGES, 2_000_000,
+              False, False),
+             ("quotients at the range's ends (2^-1024 .. 2^1024)",
+              ((-512, -505),), ((505, 512),), 1_000_000, False, False),
+             ("numerators +0 and -0", ((0, 0),), ((-520, 520),), 200_000,
+              False, False))
+
+
+def check_com_division():
+    """(az) The parity COM's division (the reciprocal, then two fma
+    corrections where the divisor lies in its range and the numerator too
+    or is +0, else __ddiv_rn; ``sweep.div_check``) against __ddiv_rn on
+    1.32e7 operand pairs made on the card (``DIV_CHECK``: random mantissas,
+    u of either sign; the ends' pairs half of them swapped, so quotients
+    reach both ends): the quotients' bits must all agree. Returns the
+    mismatches and the pairs that took the reciprocal."""
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    dev, f64 = "cuda", torch.float64
+
+    def operand(k, spans, ones):
+        exps = torch.cat([torch.arange(lo, hi + 1) for lo, hi in spans]).to(
+            device=dev, dtype=f64)
+        e = exps[torch.randint(0, exps.shape[0], (k,), device=dev,
+                               generator=gen)]
+        mant = (torch.full((k,), 2 - 2.0 ** -52, dtype=f64, device=dev)
+                if ones else
+                1 + torch.rand(k, dtype=f64, device=dev, generator=gen))
+        return torch.ldexp(mant, e)
+
+    total, fast = 0, 0
+    for label, eu, ev, k, midpoint, ones in DIV_CHECK:
+        u = operand(k, eu, False) * torch.where(
+            torch.rand(k, device=dev, generator=gen) < 0.5, -1.0, 1.0).to(f64)
+        v = operand(k, ev, ones)
+        if "ends" in label:
+            h = k // 2
+            u[h:], v[h:] = v[h:].clone(), u[h:].abs()
+        if "+0" in label:
+            u = u * 0
+        bad, rcp = sweep.div_check(u, v, midpoint).tolist()
+        print(f"COM division vs __ddiv_rn, {label}: {k} pairs, {bad} "
+              f"mismatches, {rcp} through the reciprocal", flush=True)
+        total, fast = total + bad, fast + rcp
+    print(f"COM division vs __ddiv_rn: {sum(c[3] for c in DIV_CHECK)} "
+          f"pairs, {total} mismatches, {fast} through the reciprocal",
+          flush=True)
+    if total or not fast:
+        raise AssertionError(f"COM division: {total} mismatches, {fast} "
+                             f"through the reciprocal")
+    return total, fast
+
+
+def com_chain_lane_ms(dtype, steps=1 << 16):
+    """One lane's dependent latency on the COM kernel's chain, in ms: one
+    thread walking ``steps`` lanes (``sweep.com_chain``), CUDA events,
+    median of 5 launches over ``steps``."""
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    out = torch.zeros(3, dtype=dtype, device="cuda")
+    sweep.com_chain(out, steps)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sweep.com_chain(out, steps)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"COM chain yardstick: {out.tolist()}")
+    return statistics.median(times) / steps
+
+
+SWEEP_STATES = (("parity s1", GOLDEN_S1, True),
+                ("f32 sweep s1", GOLDEN_S1, False),
+                ("MEDIUM f32", MEDIUM, False),
+                ("MEDIUM f64", MEDIUM, True))
+
+
+def check_sweep_kernels(card, com_only=False):
+    """(az) The sweep's three kernels (with ``com_only`` the COM alone)
+    against their plain versions on the card: the sorted states of parity
+    s1, the f32 sweep at s1 and MEDIUM (f32 and f64), each also after one
+    step, and the adversarial lanes of ``adversarial.sweep_particles``
+    (sorted, and in the mesh's layout; the 10 000-lane cell of "huge", more
+    than the kernels stage at once, sorted) in both precisions; the COM
+    also on ``adversarial.com_particles`` (``check_com_case``) and its
+    parity division against __ddiv_rn (``check_com_division``); each kernel
+    timed at parity s1, the f32 sweep at s1 and MEDIUM in f32 and f64
+    against its bound and its plain version, the COM also against its chain
+    floor (the longest cell's lanes times one lane's latency on its chain,
+    ``com_chain_lane_ms``). Returns {kernel: record} at parity s1 (the
+    CLI's default path)."""
+    from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
+
     t0 = time.perf_counter()
+    check_com_division()
+    check_com_case()
+    lane_ms = {dt: com_chain_lane_ms(dt)
+               for dt in (torch.float64, torch.float32)}
+    print("COM chain, one lane's latency: "
+          + ", ".join(f"{dt} {ms * 1e6:.2f} ns" for dt, ms in lane_ms.items())
+          + f" on {card}", flush=True)
     side, nc = adv.SWEEP_SIDE, adv.SWEEP_NCSIDE
     for case in ("planted", "hot", "wide", "huge"):
         for dtype in (torch.float64, torch.float32):
-            xs, ys, ms, al = adv.sweep_particles(case)
-            x, y, m = (torch.from_numpy(a).to(dtype) for a in (xs, ys, ms))
-            key, _ = binning.cell_keys(x, y, side, nc)
-            key, _, x, y, m, alive = binning.sort_by_cell(
-                key, torch.arange(x.shape[0], dtype=torch.int32), x, y, m,
-                torch.from_numpy(al))
-            pos, _ = binning.segment_positions(key)
-            for layout in ("sorted", "mesh")[:1 if case == "huge" else 2]:
-                perm = (torch.from_numpy(adv.mesh_lane_order(
-                    key.numpy(), nc * nc)) if layout == "mesh"
-                    else torch.arange(x.shape[0]))
-                lx, ly, lm, la, lk, lp = (t[perm].contiguous().cuda()
-                                          for t in (x, y, m, alive, key, pos))
-                plan = binning.occupancy(lk, nc * nc)
+            lanes = _sorted_lanes(*adv.sweep_particles(case), dtype, side, nc)
+            layouts = ("sorted", "mesh")[:1 if case == "huge" else 2]
+            for layout, (x, y, m, al, key, pos), plan in _layouts(
+                    lanes, nc * nc, layouts):
                 _check_sweep_outputs(
                     f"sweep kernels, adversarial {case} {dtype} {layout}",
-                    (lk, lp, plan), lx, ly, lm, la, side, nc)
+                    (key, pos, plan), x, y, m, al, side, nc, com_only)
     recs, times = None, {}
-    for label, args, parity in (("parity s1", GOLDEN_S1, True),
-                                ("f32 sweep s1", GOLDEN_S1, False),
-                                ("MEDIUM f32", MEDIUM, False),
-                                ("MEDIUM f64", MEDIUM, True)):
+    kernels = ("sweep_com",) if com_only else SWEEP_KERNELS
+    for label, args, parity in SWEEP_STATES:
         side, nc = float(args[1]), args[2]
         for steps in (0, 1):
             st = _sweep_state(args, parity, steps)
             lanes_ = _sweep_lanes(st.x, st.y, side, nc)
             calls, errs = _check_sweep_outputs(
                 f"sweep kernels, {label} after {steps} steps", lanes_, st.x,
-                st.y, st.m, st.alive, side, nc)
+                st.y, st.m, st.alive, side, nc, com_only)
         key, pos, plan = lanes_
         bounds, pairs, cand, all_pairs = _sweep_bounds(
             key, st.alive, plan, nc * nc, st.x)
         out = {}
-        for k in SWEEP_KERNELS:
+        for k in kernels:
             kern, plain = calls[k]
             rec = _kernel_times(kern, plain)
             rec.update(max_abs_err=errs[k], bound_ms=bounds[k][0],
                        bound_by=bounds[k][1], library_ms=None)
-            if k == "sweep_com" and not parity:
-                lib = _com_library(st.x, st.y, st.m, key, nc * nc)
-                rec["library_ms"] = _timed(lib, 20)
-                rec["library_device_ms"] = device_ms(lib, 20)
+            if k == "sweep_com":
+                rec["chain_floor_ms"] = plan.kmax * lane_ms[st.x.dtype]
+                if not parity:
+                    lib = _com_library(st.x, st.y, st.m, key, nc * nc)
+                    rec["library_ms"] = _timed(lib, 20)
+                    rec["library_device_ms"] = device_ms(lib, 20)
             if k == "sweep_collisions":
                 rec.update(candidates=cand, all_pairs_bound_ms=all_pairs)
             out[k] = rec
@@ -4340,6 +4569,10 @@ def check_sweep_kernels(card):
                   f"ms" + (f", index_add_ {rec['library_ms']:.4f} ms a call "
                            f"({rec['library_device_ms']:.4f} device)"
                            if rec["library_ms"] is not None else "")
+                  + (f"; chain floor {rec['chain_floor_ms']:.4f} ms "
+                     f"({plan.kmax} lanes), the kernel "
+                     f"{rec['device_ms'] / rec['chain_floor_ms']:.2f}x it"
+                     if k == "sweep_com" else "")
                   + (f"; {cand} candidate pairs, all-pairs bound "
                      f"{all_pairs:.4f}" if k == "sweep_collisions" else "")
                   + f" on {card}", flush=True)
@@ -4487,15 +4720,17 @@ def build_libraries():
 def kernel_entry(name, launches, rec, source=SOURCE):
     """A kernel's record in the ``kernels`` line (the delivery and the
     monopole pass also carry ``copy_out_bound_ms``, the floor of their
-    first designs, beside the function's own bound)."""
+    first designs, beside the function's own bound; the COM
+    ``chain_floor_ms``, its longest cell's lanes times one lane's latency
+    on its chain)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
-            **({"copy_out_bound_ms": rec["copy_out_bound_ms"]}
-               if "copy_out_bound_ms" in rec else {})}
+            **{k: rec[k] for k in ("copy_out_bound_ms", "chain_floor_ms")
+               if k in rec}}
 
 
 def _card():
@@ -4821,6 +5056,16 @@ def main():
         time_sweeps(card, medium)
         recs = check_sweep(card)
         print(json.dumps({"kernels": sweep_entries(recs)}))
+        return
+    if sys.argv[1:2] == ["--sweep-com"]:
+        # The COM kernel's checks and times alone (az without the forces
+        # and collisions).
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        recs = check_sweep_kernels(card, com_only=True)
+        print(json.dumps({"kernels": [kernel_entry(
+            "sweep_com", 0, recs["sweep_com"], SWEEP_SOURCE)]}))
         return
     if sys.argv[1:2] == ["--golden-long"]:
         # The four long-horizon golden vectors, recorded whatever they give.

@@ -24,8 +24,13 @@
 // The port ran them as eager torch, one launch per operation per offset
 // (~9600 launches a step at the parity flagship).
 //
-// Design. The COM pass is one thread a cell (the lane with pos 0), since
-// the parity mean is a sequential recurrence. The parity force pass
+// Design. The COM pass is a serial chain a cell (the parity mean is a
+// recurrence, and the fast sums keep position order): a warp takes 32
+// cells at once, a chain a lane, every cell's chain in flight together;
+// the whole warp stages the cells' lanes into shared memory 32 a round
+// and computes there what does not wait on the chain (products, the parity
+// divisors' reciprocals), so that a chain step is the dependent arithmetic
+// alone (its section's note below). The parity force pass
 // computes each pair's term once in a large cell (more than kLarge lanes,
 // MEDIUM's ~2500) where there are enough of them to fill the card: a warp
 // a row tile of 32 lanes, a team of 16 warps a cell, the column lanes'
@@ -47,8 +52,9 @@
 // sequence of ~10 DFMA), ~14 f32 and one rsqrt in fast precision. The
 // collision pass: ~6 operations a pair near in x (the window's
 // candidates), the square root only near EPSILON, and the lanes' bytes.
-// The COM pass is bound by bytes (each lane's x, y, m once, 3 values a
-// cell out).
+// The COM pass moves few bytes (each lane's x, y, m once, 3 values a cell
+// out) and is bound by its chain: the longest cell's lanes times one lane's
+// dependent latency (the chain floor).
 //
 // Bits. Each kernel reproduces its plain version's per-lane order
 // (particlesimulation_tpu_torch/ops/com.py, forces.py, collisions.py), so
@@ -117,6 +123,7 @@ constexpr int kTile = 32;     // parity forces: a row tile, a column tile
 constexpr int kGroup = 8;     // parity forces: row lanes a buffer round
 constexpr int kWarps = 8;     // parity forces: warps a block
 constexpr int kLarge = 512;   // parity forces: the most lanes a small cell
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 inline unsigned blocks_for(int n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -135,54 +142,522 @@ __device__ __forceinline__ bool cell_of_lane(int i, const int* key,
   return true;
 }
 
-// Per cell: M, MX, MY (ops/com.py com_parity or com_fast). One thread a
-// cell: the lane at pos 0 walks its cell. Thread t also writes the zeros of
-// cell t where that cell holds no lane (the launch covers max(n, ncells)).
+// ---- The COM pass: per cell M, MX, MY (ops/com.py com_parity or com_fast).
+//
+// A block is eight warps, and the grid at most the blocks the card holds at
+// once (the launcher's occupancy query), so every cell's chain is in flight
+// together. Block b owns the cells whose first lane lies in its stretch of
+// lanes [b * stretch, (b + 1) * stretch): its warps read the stretch's pos
+// kComScan words of 32 lanes each at a time and __ballot_sync the pos-0
+// lanes; from the ballots' counts each start knows its place among the
+// block's starts, and the cells go out in lane order, 32 a group (a
+// sentinel lane at pos 0 takes a slot and no lanes). A group of
+// `have` cells gives each cell K = 32 / g columns of 32 rows of shared
+// memory (g: `have` rounded up to a power of two), so a round holds K * 32
+// lanes of every cell: 32 at the flagship's ~100 lanes a cell, 1024 at
+// MEDIUM's one cell a block. A round:
+//   1. staged: the helper warps (1 to 7) copy each cell's lanes of x, y, m
+//      into its columns (cp.async, 32 consecutive lanes a column);
+//   2. (parity) warp 1, a cell a lane, runs its cell's prefix masses, one
+//      serial add a lane, the plain version's m0 + mi, into one of two
+//      buffers;
+//   3. the whole block computes, a lane of a cell a thread, what does not
+//      depend on the running mean: m*x and m*y (x and y where the prefix
+//      mass is 0: the adoption), and (parity) the divisor's reciprocal
+//      __drcp_rn(m0 + mi);
+//   4. warp 0, a cell a lane, walks its cell's lanes of the round: the
+//      chain, carried across rounds in registers. Meanwhile the helpers
+//      stage the next round and warp 1 runs its prefix masses (1 and 2).
+// Empty cells are zeroed by the same launch (a grid-stride loop).
+//
+// The parity division. The running mean's step is a = (a*m0 + mi*xi) / d,
+// d = m0 + mi, and only a*m0, the add and the quotient wait on the previous
+// a. With r = RN(1/d) computed ahead (step 3), the quotient is
+//   q0 = RN(n*r);  e0 = RN(n - d*q0);  q1 = RN(q0 + e0*r);
+//   e1 = RN(n - d*q1) (exact);  q2 = RN(q1 + e1*r) = RN(n/d),
+// each RN(u + v*w) one fma. q0 lies within 1.5 ulps of n/d, so q1, its
+// error cut by r's (2^-53), is faithful; then e1 is exact and q2 is the
+// IEEE quotient (Markstein's theorem: a faithful quotient and a reciprocal
+// within half an ulp; Muller et al., Handbook of Floating-Point
+// Arithmetic, division with an FMA). It holds while no step under- or
+// overflows: d of binary exponent in [-510, 510] (div_range), n too or +0
+// (rcp_ok; a numerator of -0 would come out +0, and subnormals, infinities
+// and NaNs lie outside). A cell whose lanes so far each hold x, y and m at
+// +0 or in [2^-200, 2^200] (com_plain, checked in step 3) keeps every
+// numerator there, so its chain takes the sequence at every step without a
+// test or a branch; any other cell walks the round step by step as the
+// plain version does, with the sequence where rcp_ok and div_range allow
+// it and __ddiv_rn elsewhere. a*m0 and the add stay two roundings
+// (-fmad=false, and no fma is written there).
+//
+// What bounds it: not the bytes (each lane's x, y, m once) but the chain: a
+// cell's lanes are one serial recurrence, so the pass takes at least the
+// longest cell's lanes times one lane's dependent latency (parity: a
+// product, a sum, a product and four fmas; fast: one add),
+// which chip_smoke measures with sweep_com_chain_kernel below (the chain
+// floor).
+
+constexpr int kComLanes = 32;               // rows: a column's lanes
+constexpr int kComPitch = 33;               // a row: 32 columns + 1
+constexpr int kComTile = kComLanes * kComPitch;
+constexpr int kComWarps = 8;                // a block
+constexpr int kComThreads = 32 * kComWarps;
+constexpr int kComScan = 12;                // pos words a warp a scan step
+constexpr unsigned kDivLo = 1023 - 510;     // div_range's biased exponents
+constexpr unsigned kDivHi = 1023 + 510;
+
+// The COM kernel's shared memory: x, y, m as staged; the per-lane work
+// (parity: m*x, m*y and the reciprocal; fast: (m*x, m*y, m) a float4);
+// (parity) two buffers of prefix masses, a row longer (row 0 of a column:
+// the mass carried into it).
 template <typename T, bool kParity>
-__global__ void sweep_com_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ y,
-                                 const T* __restrict__ m,
-                                 const int* __restrict__ key,
-                                 const int64_t* __restrict__ pos,
-                                 const int64_t* __restrict__ counts, int n,
-                                 int ncells, T* M, T* MX, T* MY) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < ncells && counts[i] == 0) {
-    M[i] = T(0);
-    MX[i] = T(0);
-    MY[i] = T(0);
+constexpr size_t com_shared_bytes() {
+  return sizeof(T) * (kParity ? 8 * kComTile + 2 * kComPitch : 7 * kComTile);
+}
+
+// Whether v's binary exponent lies in [-510, 510].
+__device__ __forceinline__ bool div_range(double v) {
+  const unsigned e = ((unsigned)__double2hiint(v) >> 20) & 0x7ffu;
+  return e - kDivLo <= kDivHi - kDivLo;
+}
+
+// Whether a numerator may take the reciprocal division: in div_range, or
+// +0 (the sequence below keeps +0; a numerator of -0 would come out +0).
+__device__ __forceinline__ bool rcp_ok(double n) {
+  return div_range(n) || __double_as_longlong(n) == 0;
+}
+
+// RN(n / d) from r = RN(1/d), for d in div_range and rcp_ok(n) (see
+// above).
+__device__ __forceinline__ double div_by_rcp(double n, double d, double r) {
+  double q = __dmul_rn(n, r);
+  double e = __fma_rn(-d, q, n);
+  q = __fma_rn(e, r, q);
+  e = __fma_rn(-d, q, n);
+  return __fma_rn(e, r, q);
+}
+
+// One lane of the parity chain as the plain version computes it: (a, b)
+// takes the lane whose prefix masses are prev (before it) and d (with it),
+// whose products are (px, py) (its x, y where prev is 0) and whose
+// divisor's reciprocal is r (0 where prev is 0 or d lies outside
+// div_range).
+__device__ __forceinline__ void parity_com_step(double prev, double d,
+                                                double px, double py,
+                                                double r, double& a,
+                                                double& b) {
+  const double na = __dadd_rn(__dmul_rn(a, prev), px);
+  const double nb = __dadd_rn(__dmul_rn(b, prev), py);
+  double qa = div_by_rcp(na, d, r), qb = div_by_rcp(nb, d, r);
+  if (prev != 0.0 && !(r != 0.0 && rcp_ok(na) && rcp_ok(nb))) {
+    qa = __ddiv_rn(na, d);
+    qb = __ddiv_rn(nb, d);
   }
-  if (i >= n || pos[i] != 0) return;
-  int s, e;
-  if (!cell_of_lane(i, key, pos, counts, ncells, &s, &e)) return;
-  T m0 = T(0), a = T(0), b = T(0);
-  for (int j = s; j < e; ++j) {
-    const T xj = x[j], yj = y[j], mj = m[j];
-    if (kParity) {
-      // The running weighted mean; an empty (zero-mass) cell adopts xj.
-      if (m0 == T(0)) {
-        a = xj;
-        b = yj;
+  a = prev == 0.0 ? px : qa;
+  b = prev == 0.0 ? py : qb;
+}
+
+// Whether a lane keeps its cell's parity chain in the reciprocal
+// division's range: x, y and m each +0 or in [2^-200, 2^200]. While every
+// lane of a cell so far does, the masses are sums of such (prev, d in
+// [2^-200, 2^232] once not 0), the mean stays within the positions' range,
+// and each numerator a*m0 + mi*xi is a sum of two terms of one sign: +0, or
+// in [2^-400, 2^432]; so every step may take the reciprocal division.
+__device__ __forceinline__ bool com_plain(double v) {
+  return __double_as_longlong(v) == 0 ||
+         (v >= 0x1p-200 && v <= 0x1p200);
+}
+
+// One lane of the parity chain at staged element i, without a branch: the
+// reciprocal division (its cell within range: see com_chain). kCareful:
+// rows t >= rows leave (a, b) as they are, and a prefix mass of 0 adopts
+// the lane's x, y (in PX, PY there), both by a select.
+template <bool kCareful>
+__device__ __forceinline__ void parity_fast_step(const double* Dp,
+                                                 const double* PX,
+                                                 const double* PY,
+                                                 const double* W, int i,
+                                                 bool live, double& a,
+                                                 double& b) {
+  const double prev = Dp[i], d = Dp[i + kComPitch], r = W[i], px = PX[i],
+               py = PY[i];
+  const double qa = div_by_rcp(__dadd_rn(__dmul_rn(a, prev), px), d, r);
+  const double qb = div_by_rcp(__dadd_rn(__dmul_rn(b, prev), py), d, r);
+  if constexpr (kCareful) {
+    a = !live ? a : prev == 0.0 ? px : qa;
+    b = !live ? b : prev == 0.0 ? py : qb;
+  } else {
+    a = qa;
+    b = qb;
+  }
+}
+
+// Step 4 (parity) for one column (col) of a cell in range: rows 0 ..
+// rows-1, all 32 unrolled, so that their operands are read ahead of the
+// chain. A full column whose carried-in mass is not 0 holds no adoption
+// (the prefix masses of a cell in range, once not 0, stay so) and takes
+// the steps bare; another column takes them with kCareful's selects.
+__device__ __forceinline__ void parity_fast_column(const double* Dp,
+                                                   const double* PX,
+                                                   const double* PY,
+                                                   const double* W, int col,
+                                                   int rows, double& a,
+                                                   double& b) {
+  if (rows == kComLanes && Dp[col] != 0.0) {
+#pragma unroll 8
+    for (int t = 0; t < kComLanes; ++t)
+      parity_fast_step<false>(Dp, PX, PY, W, t * kComPitch + col, true, a,
+                              b);
+  } else {
+#pragma unroll 8
+    for (int t = 0; t < kComLanes; ++t)
+      parity_fast_step<true>(Dp, PX, PY, W, t * kComPitch + col, t < rows,
+                             a, b);
+  }
+}
+
+// Step 4: the chain over lanes 0 .. cnt-1 of a round, 32 rows of each of
+// the cell's columns from col0 in turn. Parity: a cell whose lanes so far
+// all keep it in range (`plain`) by parity_fast_column; another cell as
+// the plain version does (parity_com_step), a step at a time. Fast: the
+// three sums, a lane's (m*x, m*y, m) read at once.
+template <typename T, bool kParity>
+__device__ __forceinline__ void com_chain(const T* Dp, const T* PX,
+                                          const T* PY, const T* W, int col0,
+                                          int cnt, bool plain, T& m0, T& a,
+                                          T& b) {
+  if constexpr (kParity) {
+    for (int e = 0; e < cnt; e += kComLanes) {
+      const int col = col0 + (e >> 5), rows = min(kComLanes, cnt - e);
+      if (plain) {
+        parity_fast_column(Dp, PX, PY, W, col, rows, a, b);
       } else {
-        const T d = m0 + mj;
-        a = (a * m0 + mj * xj) / d;
-        b = (b * m0 + mj * yj) / d;
+        for (int t = 0; t < rows; ++t) {
+          const int i = t * kComPitch + col;
+          parity_com_step(Dp[i], Dp[i + kComPitch], PX[i], PY[i], W[i], a,
+                          b);
+        }
       }
-      m0 = m0 + mj;
-    } else {
-      m0 = m0 + mj;
-      a = a + mj * xj;
-      b = b + mj * yj;
+    }
+  } else {
+    const float4* V = reinterpret_cast<const float4*>(PX);
+    for (int e = 0; e < cnt; e += kComLanes) {
+      const int col = col0 + (e >> 5), rows = min(kComLanes, cnt - e);
+      if (rows == kComLanes) {
+#pragma unroll 8
+        for (int t = 0; t < kComLanes; ++t) {
+          const float4 v = V[t * kComPitch + col];
+          m0 = m0 + v.z;
+          a = a + v.x;
+          b = b + v.y;
+        }
+      } else {
+        for (int t = 0; t < rows; ++t) {
+          const float4 v = V[t * kComPitch + col];
+          m0 = m0 + v.z;
+          a = a + v.x;
+          b = b + v.y;
+        }
+      }
     }
   }
-  const int k = key[i];
-  M[k] = m0;
-  if (kParity) {
-    MX[k] = a;
-    MY[k] = b;
-  } else {
-    MX[k] = m0 > T(0) ? a / m0 : T(0);
-    MY[k] = m0 > T(0) ? b / m0 : T(0);
+}
+
+// Step 2 (parity): the prefix masses of lanes 0 .. cnt-1 of a round, by
+// column; row 0 of a column holds the mass carried into it.
+template <typename T>
+__device__ __forceinline__ void com_prefix(const T* Mr, T* Dp, int col0,
+                                           int cnt, T& m0) {
+  for (int o = 0; o < cnt; o += kComLanes) {
+    const int col = col0 + (o >> 5);
+    Dp[col] = m0;
+    if (cnt - o >= kComLanes) {
+#pragma unroll 8
+      for (int t = 0; t < kComLanes; ++t) {
+        m0 = m0 + Mr[t * kComPitch + col];
+        Dp[(t + 1) * kComPitch + col] = m0;
+      }
+    } else {
+      for (int t = 0; t < cnt - o; ++t) {
+        m0 = m0 + Mr[t * kComPitch + col];
+        Dp[(t + 1) * kComPitch + col] = m0;
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A group's cells: first lanes, lengths; columns a cell (K = 1 << lk);
+// (parity) whether a lane so far took the cell out of range (com_plain).
+struct ComGroup {
+  int have, lk;
+  const int* start;
+  const int* len;
+  int* wild;
+};
+
+// Step 1: the helper warps (1 ..) copy lanes o .. o + K*32 - 1 of each cell
+// into its columns of X, Y, Mr.
+template <typename T>
+__device__ __forceinline__ void com_stage(const T* x, const T* y,
+                                          const T* m, ComGroup g, int o,
+                                          T* X, T* Y, T* Mr) {
+  for (int f = threadIdx.x - 32; f < (g.have << g.lk) * 32;
+       f += kComThreads - 32) {
+    const int t = f & 31, col = f >> 5, c = col >> g.lk;
+    const int idx = o + ((col & ((1 << g.lk) - 1)) << 5) + t;
+    if (idx < g.len[c]) {
+      const int i = t * kComPitch + col, j = g.start[c] + idx;
+      cp_async(X + i, x + j);
+      cp_async(Y + i, y + j);
+      cp_async(Mr + i, m + j);
+    }
+  }
+  cp_async_commit();
+}
+
+// The helper warps' barrier (named barrier 1): their staged copies, waited
+// for by each, are then visible to all of them.
+__device__ __forceinline__ void helpers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kComThreads - 32) : "memory");
+}
+
+// A group of g.have cells, walked by the whole block (see above). Every
+// thread calls it. Warp 0 runs the chains, lane c cell c's; the helper
+// warps stage each round, and (parity) warp 1 runs the prefix masses, lane
+// c cell c's, into one of two buffers: round r+1's while warp 0 walks round
+// r's chain.
+template <typename T, bool kParity>
+__device__ void com_cells(ComGroup g, const T* x, const T* y, const T* m,
+                          const int* key, int ncells, T* sh, T* M, T* MX,
+                          T* MY) {
+  const int tid = threadIdx.x, c1 = tid - 32;
+  const bool chain = tid < g.have, helper = tid >= 32;
+  const bool prefixer = kParity && c1 >= 0 && c1 < g.have;
+  T *X = sh, *Y = X + kComTile, *Mr = Y + kComTile, *PX = Mr + kComTile,
+    *PY = PX + kComTile, *W = PY + kComTile;
+  T* const Dp0 = W + kComTile;  // two prefix buffers, rounds alternating
+  constexpr int kDpStride = kComTile + kComPitch;
+  if (chain) g.wild[tid] = 0;
+  int most = 0;
+  for (int c = 0; c < g.have; ++c) most = max(most, g.len[c]);
+  const int span = kComLanes << g.lk;
+  const int len = chain ? g.len[tid] : prefixer ? g.len[c1] : 0;
+  T m0 = T(0), a = T(0), b = T(0);
+  if (helper) {
+    com_stage(x, y, m, g, 0, X, Y, Mr);
+    cp_async_wait_all();
+    helpers_sync();
+    if (prefixer) com_prefix(Mr, Dp0, c1 << g.lk, min(len, span), m0);
+  }
+  __syncthreads();
+  for (int o = 0, r = 0; o < most; o += span, ++r) {
+    const T* Dp = Dp0 + (r & 1) * kDpStride;
+    for (int f = tid; f < (g.have << g.lk) * 32; f += kComThreads) {
+      const int t = f & 31, col = f >> 5, c = col >> g.lk;
+      const int idx = o + ((col & ((1 << g.lk) - 1)) << 5) + t;
+      if (idx < g.len[c]) {
+        const int i = t * kComPitch + col;
+        const T xv = X[i], yv = Y[i], mv = Mr[i];
+        if constexpr (kParity) {
+          const T prev = Dp[i], d = Dp[i + kComPitch];
+          PX[i] = prev == T(0) ? xv : mv * xv;
+          PY[i] = prev == T(0) ? yv : mv * yv;
+          W[i] = prev != T(0) && div_range(d) ? __drcp_rn(d) : T(0);
+          if (!(com_plain(xv) && com_plain(yv) && com_plain(mv)))
+            g.wild[c] = 1;
+        } else {
+          reinterpret_cast<float4*>(PX)[i] =
+              make_float4(mv * xv, mv * yv, mv, 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+    if (helper) {
+      if (o + span < most) {
+        com_stage(x, y, m, g, o + span, X, Y, Mr);
+        cp_async_wait_all();
+        helpers_sync();
+        if (prefixer)
+          com_prefix(Mr, Dp0 + ((r + 1) & 1) * kDpStride, c1 << g.lk,
+                     min(max(len - o - span, 0), span), m0);
+      }
+    } else if (chain) {
+      com_chain<T, kParity>(Dp, PX, PY, W, tid << g.lk,
+                            min(max(len - o, 0), span), g.wild[tid] == 0,
+                            m0, a, b);
+    }
+    __syncthreads();
+  }
+  if (len > 0) {
+    if (prefixer) {
+      M[key[g.start[c1]]] = m0;
+    } else if (chain) {
+      const int k = key[g.start[tid]];
+      if constexpr (kParity) {
+        MX[k] = a;
+        MY[k] = b;
+      } else {
+        M[k] = m0;
+        MX[k] = m0 > T(0) ? a / m0 : T(0);
+        MY[k] = m0 > T(0) ? b / m0 : T(0);
+      }
+    }
+  }
+}
+
+template <typename T, bool kParity>
+__global__ void __launch_bounds__(kComThreads)
+    sweep_com_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                     const T* __restrict__ m, const int* __restrict__ key,
+                     const int64_t* __restrict__ pos,
+                     const int64_t* __restrict__ counts, int n, int ncells,
+                     int stretch, T* M, T* MX, T* MY) {
+  extern __shared__ __align__(16) unsigned char com_shared[];
+  __shared__ int starts[32], lens[32], wild[32], found[kComWarps];
+  __shared__ unsigned words[kComWarps * kComScan];
+  T* sh = reinterpret_cast<T*>(com_shared);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c = blockIdx.x * kComThreads + tid; c < ncells;
+       c += gridDim.x * kComThreads) {
+    if (counts[c] == 0) {
+      M[c] = T(0);
+      MX[c] = T(0);
+      MY[c] = T(0);
+    }
+  }
+  // The group's cells: first lanes and lengths, then the block walks them.
+  auto run = [&](int have) {
+    __syncthreads();
+    if (tid < have) {
+      const int k = key[starts[tid]];
+      lens[tid] = (unsigned)k < (unsigned)ncells ? (int)counts[k] : 0;
+    }
+    __syncthreads();
+    int lk = 5;
+    while ((1 << (5 - lk)) < have) --lk;
+    com_cells<T, kParity>(ComGroup{have, lk, starts, lens, wild}, x, y, m,
+                          key, ncells, sh, M, MX, MY);
+    __syncthreads();
+  };
+  const int s0 = blockIdx.x * stretch;
+  const int s1 = min(n, s0 + stretch);
+  int have = 0;  // starts already in starts[] (carried from a step)
+  for (int base = s0; base < s1; base += kComThreads * kComScan) {
+    // Word warp * kComScan + u: lanes base + word * 32 + (0 .. 31).
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < kComScan; ++u) {
+      const int i = base + (warp * kComScan + u) * 32 + lane;
+      const unsigned f = __ballot_sync(
+          kFullMask, (pos[min(i, s1 - 1)] == 0) & (i < s1));
+      if (lane == 0) words[warp * kComScan + u] = f;
+      mine += __popc(f);
+    }
+    if (lane == 0) found[warp] = mine;
+    __syncthreads();
+    // Each start's place in the block's sequence: the starts before it
+    // (the carried ones, earlier warps' words, its warp's earlier words,
+    // the lanes before it in its word).
+    int before = have, total = have;
+    for (int w = 0; w < kComWarps; ++w) {
+      before += w < warp ? found[w] : 0;
+      total += found[w];
+    }
+    // Groups of 32 in sequence; the last, if not full, waits for the next
+    // step's starts.
+    for (int g0 = 0; g0 < total; g0 += 32) {
+      int j = before - g0;
+      for (int u = 0; u < kComScan; ++u) {
+        const unsigned f = words[warp * kComScan + u];
+        const int at = j + __popc(f & ((1u << lane) - 1u));
+        if (((f >> lane) & 1u) && at >= 0 && at < 32)
+          starts[at] = base + (warp * kComScan + u) * 32 + lane;
+        j += __popc(f);
+      }
+      if (total - g0 < 32) {
+        have = total - g0;
+        break;
+      }
+      run(32);
+      have = 0;
+    }
+    __syncthreads();
+  }
+  if (have > 0) run(have);
+}
+
+// The chain floor's yardstick: one thread walks `steps` lanes of the COM
+// chain (step 4, the same code) over a round of unit-scale operands staged
+// in shared memory (no adoption, no fallback), so that a launch's time over
+// `steps` is one lane's dependent latency on the chain.
+template <typename T, bool kParity>
+__global__ void sweep_com_chain_kernel(int steps, T* out) {
+  // fast: PX holds float4 elements
+  __shared__ __align__(16) T PX[kParity ? kComTile : 4 * kComTile];
+  __shared__ T Dp[kComTile + kComPitch], PY[kComTile], W[kComTile];
+  for (int t = 0; t <= kComLanes; ++t) Dp[t * kComPitch] = T(t + 1);
+  for (int t = 0; t < kComLanes; ++t) {
+    const int at = t * kComPitch;
+    const T px = T(0.5) + T(t) / T(64), py = T(0.25) + T(t) / T(128);
+    if constexpr (kParity) {
+      PX[at] = px;
+      PY[at] = py;
+      W[at] = T(1) / Dp[at + kComPitch];
+    } else {
+      reinterpret_cast<float4*>(PX)[at] = make_float4(px, py, 1.0f, 0.0f);
+    }
+  }
+  T m0 = T(0), a = T(0.5), b = T(0.25);
+  for (int s = 0; s < steps; s += kComLanes)
+    com_chain<T, kParity>(Dp, PX, PY, W, 0, kComLanes, true, m0, a, b);
+  out[0] = m0;
+  out[1] = a;
+  out[2] = b;
+}
+
+// The reciprocal division against __ddiv_rn: pair i is (n, d) = (u[i],
+// v[i]), or with `midpoint` (v[i], d * (u[i] + ulp(u[i])/2) rounded), whose
+// quotient lies next to the midpoint after u[i], the hardest case to round.
+// Each pair takes the COM chain's path (div_by_rcp in div_range, else
+// __ddiv_rn); out[0] counts the quotients whose bits differ from
+// __ddiv_rn's, out[1] the pairs that took div_by_rcp.
+__global__ void sweep_div_check_kernel(const double* __restrict__ u,
+                                       const double* __restrict__ v,
+                                       int count, int midpoint,
+                                       unsigned long long* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool bad = false, fast = false;
+  if (i < count) {
+    const double d = v[i];
+    double nu = u[i];
+    if (midpoint) {
+      const double half = ldexp(1.0, ilogb(nu) - 53);
+      nu = __fma_rn(d, nu, __dmul_rn(d, half));
+    }
+    const double r = div_range(d) ? __drcp_rn(d) : 0.0;
+    fast = r != 0.0 && rcp_ok(nu);
+    const double q = fast ? div_by_rcp(nu, d, r) : __ddiv_rn(nu, d);
+    bad = __double_as_longlong(q) != __double_as_longlong(__ddiv_rn(nu, d));
+  }
+  const int nbad = __syncthreads_count(bad), nfast = __syncthreads_count(fast);
+  if (threadIdx.x == 0) {
+    if (nbad) atomicAdd(out, (unsigned long long)nbad);
+    if (nfast) atomicAdd(out + 1, (unsigned long long)nfast);
   }
 }
 
@@ -262,7 +737,6 @@ __device__ __forceinline__ void parity_term(double xl, double yl, double gml,
   *ty = fm * (dy / dist);
 }
 
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // The warps that take a cell of `lanes` lanes' row tiles: 0 for a small
 // cell or with no teams (team 0), else `team` or its row tiles if fewer.
@@ -775,18 +1249,6 @@ __global__ void sweep_collision_count_kernel(const int* __restrict__ first,
   if (threadIdx.x == 0 && c > 0) atomicAdd(count, (unsigned long long)c);
 }
 
-template <typename T, bool kParity>
-int com(const T* x, const T* y, const T* m, const int* key,
-        const int64_t* pos, const int64_t* counts, int n, int ncells, T* M,
-        T* MX, T* MY, void* stream) {
-  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
-  sweep_com_kernel<T, kParity>
-      <<<blocks_for(n > ncells ? n : ncells), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          x, y, m, key, pos, counts, n, ncells, M, MX, MY);
-  return (int)cudaGetLastError();
-}
-
 // Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
 // over the 48 KB a block may take without asking; once for each kernel and
 // size larger than any before (`opted`: the kernel's own record).
@@ -797,6 +1259,37 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) opted = smem;
   return err;
+}
+
+template <typename T, bool kParity>
+int com(const T* x, const T* y, const T* m, const int* key,
+        const int64_t* pos, const int64_t* counts, int n, int ncells, T* M,
+        T* MX, T* MY, void* stream) {
+  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+  auto kernel = sweep_com_kernel<T, kParity>;
+  const size_t smem = com_shared_bytes<T, kParity>();
+  static size_t opted = 0;
+  cudaError_t err = opt_in(kernel, smem, opted);
+  if (err != cudaSuccess) return (int)err;
+  // The blocks the card holds at once: the stretches are sized so that the
+  // grid is no larger, every cell's chain in flight together.
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per, kernel, kComThreads, smem)) != cudaSuccess)
+      return (int)err;
+    resident = sms * per > 0 ? sms * per : 1;
+  }
+  const long long per_block = ((long long)n + resident - 1) / resident;
+  const int stretch = (int)((per_block + 31) / 32 * 32);
+  const unsigned blocks = (unsigned)((n + stretch - 1) / stretch);
+  kernel<<<blocks, kComThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, y, m, key, pos, counts, n, ncells, stretch, M, MX, MY);
+  return (int)cudaGetLastError();
 }
 
 // The chunk length: the largest cell's lane count, up to kChunk.
@@ -878,6 +1371,34 @@ extern "C" int psim_sweep_com_f32(const float* x, const float* y,
                                   float* MY, void* stream) {
   return com<float, false>(x, y, m, key, pos, counts, n, ncells, M, MX, MY,
                            stream);
+}
+
+// The chain floor's yardstick (sweep_com_chain_kernel): one thread, `steps`
+// lanes of the COM chain; out: 3 values (the chain's result, kept so that
+// the loop is not optimised away).
+extern "C" int psim_sweep_com_chain_f64(int steps, double* out,
+                                        void* stream) {
+  sweep_com_chain_kernel<double, true>
+      <<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(steps, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psim_sweep_com_chain_f32(int steps, float* out, void* stream) {
+  sweep_com_chain_kernel<float, false>
+      <<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(steps, out);
+  return (int)cudaGetLastError();
+}
+
+// u, v: count values each; out: two zeroed counters (sweep_div_check_kernel:
+// the mismatches against __ddiv_rn, the pairs that took the reciprocal).
+extern "C" int psim_sweep_div_check(const double* u, const double* v,
+                                    int count, int midpoint,
+                                    unsigned long long* out, void* stream) {
+  if (count < 1) return (int)cudaErrorInvalidValue;
+  sweep_div_check_kernel<<<blocks_for(count), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      u, v, count, midpoint, out);
+  return (int)cudaGetLastError();
 }
 
 // alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to

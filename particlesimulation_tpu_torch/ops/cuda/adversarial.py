@@ -6,8 +6,9 @@ the fused kernel compacts the used slots again after its collision phase.
 ``adversarial_tiles`` builds one row for each
 case that structure can get wrong, ``plant_direct_cases`` the same
 kind of cases among the particles of the direct model's all-pairs passes,
-and ``sweep_particles`` (with ``mesh_lane_order``) the lanes the sweep
-kernels' per-lane order and cell bounds risk;
+``sweep_particles`` (with ``mesh_lane_order``) the lanes the sweep
+kernels' per-lane order and cell bounds risk, and ``com_particles`` those
+the COM kernel's rounds, groups and parity division risk;
 the CPU tests hold the plain versions against the JAX package's kernels on
 them, and ``chip_smoke.py`` holds the CUDA kernels against the plain
 versions on them. NumPy only, so that both
@@ -564,6 +565,97 @@ def _huge_particles(rng, x, y, w):
              9000: (c, c), 100: (c - 0.004, c),
              9500: (c + 0.001, c + 0.0035)}
     return _plant(rng, x, y, m, alive, spots, k, w)
+
+
+# The COM case's box: 128 x 128 unit cells.
+COM_SIDE, COM_NCSIDE = 128.0, 128
+# csrc/sweep.cu kComLanes: a column of the COM kernel's staging. A group of
+# g cells (up to 32, rounded up to a power of two) takes 32/g columns a
+# cell, so a cell's round is 32 to 1024 lanes.
+COM_ROUND = 32
+# Binary exponents of the masses of the COM case's scale cells: float64's
+# ends, and both sides of the edges (-510, 510) of the range in which the
+# parity division takes the reciprocal.
+COM_SCALES = (-1074, -1060, -1022, -600, -520, -516, -513, -512, -511,
+              -510, -509, -505, -500, -201, -200, -199, 199, 200, 201, 500,
+              503, 505, 508, 509, 510, 511, 512, 520, 1000, 1020, 1023)
+
+
+def com_particles(seed: int = 11):
+    """(x, y, m, alive): float64 and bool particles on the ``COM_SIDE`` box
+    of ``COM_NCSIDE``² cells for the COM pass, alive where m > 0:
+
+    * row 0, adoption (the parity mean adopts a lane's position while the
+      cell's mass is 0): cell 0 opens with 5 massless lanes, then massive
+      and massless lanes mixed; cell 1 holds 10 massless lanes only; cell 2
+      opens with 40 massless lanes (past a round of ``COM_ROUND``); cell 3
+      is one massless lane; cell 4 opens with 31 massless lanes, then two
+      massive ones across the round's edge;
+    * row 1, lengths about the rounds (32 to 1024 lanes): cells of 1, 31,
+      32, 33, 63, 64, 65, 96, 97, 1023, 1024 and 1025 lanes, and one of 300
+      with 50 massless lanes at 100-149;
+    * rows 2-3, scales: a cell of 12 lanes for each exponent s of
+      ``COM_SCALES``, masses 2^s·U(1, 2) (row 2 at columns 0-30, x < 31;
+      row 3 the same at columns 90-120, x ≥ 90, so that the numerators'
+      exponents pass the edges too; 2^±200 bounds the masses the parity
+      chain takes without a range test), and two cells whose 60 masses
+      step through 2^-540 .. 2^540, one up, one down;
+    * signed zeros: cell (0, 4) with two of its six lanes at x = +0, cell
+      (0, 5) with two at x = -0, cell (5, 0) with two at y = +0 (a chain
+      at +0 divides +0; one at -0 cannot take the reciprocal division);
+    * rows 8-127, a checkerboard of one-lane cells between empty ones
+      (7680 cells);
+    * 20 particles out of the box (sentinel keys).
+
+    Masses are otherwise U(0.5, 2); positions uniform in their cells; each
+    cell's lanes in the order listed.
+    """
+    rng = np.random.default_rng(seed)
+    xs, ys, ms = [], [], []
+
+    def cell(cx, cy, masses):
+        k = len(masses)
+        xs.append(cx + rng.uniform(0.0, 1.0, k))
+        ys.append(cy + rng.uniform(0.0, 1.0, k))
+        ms.append(np.asarray(masses, dtype=np.float64))
+
+    def mixed(k):
+        return rng.uniform(0.5, 2.0, k)
+
+    first = mixed(20)
+    first[:5] = 0.0
+    first[[7, 8, 12]] = 0.0
+    cell(0, 0, first)
+    cell(1, 0, np.zeros(10))
+    cell(2, 0, np.concatenate([np.zeros(40), mixed(30)]))
+    cell(3, 0, np.zeros(1))
+    cell(4, 0, np.concatenate([np.zeros(31), mixed(2)]))
+    for cx, k in enumerate((1, 31, 32, 33, 63, 64, 65, 96, 97, 1023, 1024,
+                            1025)):
+        cell(cx, 1, mixed(k))
+    long_ = mixed(300)
+    long_[100:150] = 0.0
+    cell(12, 1, long_)
+    for i, e in enumerate(COM_SCALES):
+        for cx, cy in ((i, 2), (90 + i, 3)):
+            cell(cx, cy, np.ldexp(rng.uniform(1.0, 2.0, 12), e))
+    steps = np.ldexp(rng.uniform(1.0, 2.0, 60),
+                     np.linspace(-540, 540, 60).astype(int))
+    cell(40, 2, steps)
+    cell(41, 2, steps[::-1])
+    for cx, cy, zero in ((0, 4, 0.0), (0, 5, -0.0), (5, 0, 0.0)):
+        cell(cx, cy, mixed(6))
+        (ys if cy == 0 else xs)[-1][[1, 3]] = zero
+    for cy in range(8, COM_NCSIDE):
+        for cx in range(cy % 2, COM_NCSIDE, 2):
+            cell(cx, cy, mixed(1))
+    xs.append(COM_SIDE + rng.uniform(0.0, 5.0, 20))
+    ys.append(rng.uniform(0.0, COM_SIDE, 20))
+    ms.append(mixed(20))
+    # In pid order each cell's lanes come as listed, which the sort by
+    # (key, pid) keeps.
+    x, y, m = (np.concatenate(a) for a in (xs, ys, ms))
+    return x, y, m, m > 0
 
 
 def mesh_lane_order(key, ncells: int):

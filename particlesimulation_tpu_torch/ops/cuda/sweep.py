@@ -19,6 +19,11 @@ plain torch version, those modules' functions:
 * ``sweep_collisions`` / ``sweep_collisions_ref``: the collision count
   (pairs first for both ends) and the dead set, exact.
 
+Beside them, two yardsticks of the COM kernel that no path runs:
+``com_chain`` (one thread walking the kernel's chain, whose time a lane is
+the chain floor) and ``div_check`` (its parity division against
+``__ddiv_rn``).
+
 The lanes come in the caller's order: each cell's lanes contiguous, in
 position order, ``pos`` each lane's position in its cell (so a cell starts
 at ``lane - pos``), ``plan.counts`` (``binning.occupancy``) each key's lane
@@ -88,6 +93,11 @@ def load(path):
         coll_fn.argtypes = [vp] * 6 + [ci, ci, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
             fn.restype = ci
+        chain_fn = getattr(lib, f"psim_sweep_com_chain_{t}")
+        chain_fn.argtypes = [ci, vp, vp]
+        chain_fn.restype = ci
+    lib.psim_sweep_div_check.argtypes = [vp, vp, ci, ci, vp, vp]
+    lib.psim_sweep_div_check.restype = ci
     return lib
 
 
@@ -169,6 +179,51 @@ def sweep_com_ref(x, y, m, key, pos, plan, ncells: int):
     or ``com.com_fast`` (float32)."""
     fn = com.com_parity if _float_type(x) == torch.float64 else com.com_fast
     return fn(key, x, y, m, ncells, plan, pos)
+
+
+# Launches of the COM kernel's two yardsticks (chip_smoke's chain floor and
+# division check), on no path and so apart from LAUNCHES.
+YARDSTICKS = {"sweep_com_chain": 0, "sweep_div_check": 0}
+
+
+def com_chain(out, steps: int):
+    """Launch the COM chain's yardstick (``csrc/sweep.cu``
+    ``sweep_com_chain_kernel``): one thread walks ``steps`` (a multiple of
+    32) lanes of the COM kernel's chain, parity for a float64 ``out``, fast
+    for float32; ``out`` ((3,) on the card) takes the chain's result. Its
+    time over ``steps`` is one lane's dependent latency on the chain."""
+    if steps < 32 or steps % 32:
+        raise ValueError(f"steps {steps} must be a positive multiple of 32")
+    _float_type(out)
+    if out.shape != (3,) or not cell_pairs._on_card(out, "COM chain"):
+        raise ValueError("out must be (3,) on a CUDA device")
+    cell_pairs._launch("sweep_com_chain", _kernel("com_chain", out), out,
+                       steps, out.data_ptr(), launches=YARDSTICKS)
+
+
+def div_check(u, v, midpoint: bool = False):
+    """The COM kernel's parity division (a reciprocal, then two fma
+    corrections where the divisor lies in its range and the numerator too or
+    is +0, else ``__ddiv_rn``) against
+    ``__ddiv_rn`` on float64 pairs on the card (``sweep_div_check_kernel``):
+    pair i divides u[i] by v[i], or with ``midpoint`` RN(v[i]·(u[i] +
+    ulp(u[i])/2)) by v[i], a quotient next to a rounding midpoint. Returns
+    (the quotients whose bits differ, the pairs that took the reciprocal),
+    an int64 (2,) tensor on the card."""
+    if u.dtype != torch.float64 or v.dtype != torch.float64:
+        raise TypeError("u and v must be float64")
+    if u.shape != v.shape or u.dim() != 1 or u.shape[0] < 1:
+        raise ValueError(f"u {tuple(u.shape)} and v {tuple(v.shape)} must "
+                         f"be (n >= 1,)")
+    if not (cell_pairs._on_card(u, "division check") and v.device == u.device
+            and u.is_contiguous() and v.is_contiguous()):
+        raise ValueError("u and v must be contiguous on one CUDA device")
+    out = torch.zeros(2, dtype=torch.int64, device=u.device)
+    cell_pairs._launch("sweep_div_check", _library().psim_sweep_div_check, u,
+                       u.data_ptr(), v.data_ptr(), u.shape[0],
+                       int(bool(midpoint)), out.data_ptr(),
+                       launches=YARDSTICKS)
+    return out
 
 
 def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
