@@ -355,6 +355,36 @@ ay. MEDIUM through the CLI's ``--mesh 4 --engine fast`` in-process: a tile
    route (the fused kernel launched), its lines printed; the mesh engine
    the CLI builds (resident tiles at kcap > 1024) timed as in (x).
 
+Then the tile runs as CUDA graphs (``ops/graphed``: a run's steady step,
+and with the settle pass its last step, captured once an engine build and
+replayed each step) and the COM kernel over many launches:
+
+bc. for each of ``GRAPH_PATHS`` (the flagship resident, N = 1e7 resident
+   and banded, UNEVEN banded, MEDIUM on resident tiles, SMALL supercell,
+   the mesh's fast, supercell, column-band and cyclic routes at D = 4 and
+   the 2D (2, 2) mesh): the graphed run (``run``) against the eager one
+   (``run_eager``) from one state, every field and counter bit for bit;
+   the same engine on a second state (the first run's result) against its
+   eager run, its graphs reused (the same graph objects), and the first
+   result unchanged after it; a retry forced by small tiles (half the
+   census kcap, 0.7 of the band widths, or where the engine's floor keeps
+   the kcap 96 particles moved into one cell), graphed against eager on
+   two engines built alike; three replays of every captured step under
+   ``torch.cuda.set_sync_debug_mode("error")``; the profile's kernels a
+   step (a run of k steps less a run of 1: the steady steps) equal,
+   graphed and eager; ms/step, device ms/step and idle share of both in
+   the same call, the capture's host time and the graphs' pool bytes;
+   then a step that reads a value back, whose capture must raise out of
+   ``StepGraph`` (no eager fallback), the card running on after it;
+bd. ``sweep.sweep_com`` launched back to back in one process: cells of 1
+   to 5000 lanes (rounds of 32 to 1024 lanes and past them), cells of mixed
+   sizes, ``adversarial.com_particles`` and golden s1's lanes, in f64 and
+   f32, sorted and in the mesh's layout, three passes in a seeded order,
+   each launch bit for bit against the plain version in parity and the
+   position-order sums in f32.
+
+``python3 chip_smoke.py --graphs`` runs phase bc alone,
+``python3 chip_smoke.py --com-back-to-back`` phase bd alone.
 ``python3 chip_smoke.py --wide`` runs phases av-ay alone (MEDIUM's f32
 sweep is not run there, so its result is not printed beside the tiles').
 ``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
@@ -380,7 +410,8 @@ the port package of each checkout ROOT in turn, as ``--mesh-times`` does.
 ``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
 flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
 checkout ROOT in turn (a process each): the way to compare two commits in
-one call (parent, change, change, parent).
+one call (parent, change, change, parent); each run's final state after
+10 steps must have the same digest in all.
 
 Each path runs with the kernel launch counts set to 0 just before and read
 just after, and fails if a kernel of the path did not launch. Two steps of
@@ -1139,12 +1170,15 @@ def check_gpu_vs_cpu(seed, side, nc, n, steps, impl=None, plan=None,
                  f"{nc} {n}, {steps} steps)", *outs, 1e-6, 1e-5)
 
 
-def step_ms(eng, state, k, reps=2):
-    """Per-step ms as (t(run k+1) - t(run 1)) / k, best of ``reps``."""
+def step_ms(eng, state, k, reps=2, run=None):
+    """Per-step ms as (t(run k+1) - t(run 1)) / k, best of ``reps``
+    (``run``: ``eng.run`` by default)."""
+    run = run or eng.run
+
     def run_seconds(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        o = eng.run(state, steps)
+        o = run(state, steps)
         torch.cuda.synchronize()
         if int(o.overflow) != 0:
             raise AssertionError("overflow in the timed run")
@@ -1155,15 +1189,17 @@ def step_ms(eng, state, k, reps=2):
     return (tk - t1) / k * 1e3, t1, tk
 
 
-def _profile(eng, state, steps):
+def _profile(eng, state, steps, run=None):
     """(device ms, kernel launches) of one run of ``steps``, by name:
     [(ms, launches, name)], from torch.profiler."""
-    return _profile_fn(lambda: eng.run(state, steps))
+    run = run or eng.run
+    return _profile_fn(lambda: run(state, steps))
 
 
 def _profile_fn(fn):
     """[(device ms, launches, name)] of one call of ``fn`` (torch.profiler;
-    copies and memsets count no launch)."""
+    copies and memsets count no launch, nor do the kernels that carry out a
+    CUDA graph's copy and memset nodes, ``memcpy32_post`` and the like)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1180,41 +1216,47 @@ def _profile_fn(fn):
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0:
-            copy = evt.key.startswith(("Memcpy", "Memset"))
+            copy = evt.key.lower().startswith(("memcpy", "memset"))
             rows.append((us / 1e3, 0 if copy else evt.count, evt.key))
     return rows
 
 
-def _syncs(eng, state, steps):
+def _syncs(eng, state, steps, run=None):
     """Host synchronisations (readbacks) in one run of ``steps``: the
     warnings of torch's CUDA sync debug mode, one per synchronising call."""
+    run = run or eng.run
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            eng.run(state, steps)
+            run(state, steps)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def device_breakdown(label, eng, state, step_ms_host, steps=10):
+def device_breakdown(label, eng, state, step_ms_host, steps=10, run=None,
+                     base=0):
     """Device time per step by kernel name, the share of the unprofiled
     step the device is idle, and per step the kernel launches and host
-    synchronisations: each a run of ``steps`` less a run of 0 (its
-    prologue and epilogue), over ``steps`` (torch.profiler; torch's sync
-    debug mode). Also ``device_ms_whole``: the whole run of ``steps`` over
-    ``steps``, its prologue and epilogue included (the device ms/step of
-    the records before PR 14)."""
-    rows = _profile(eng, state, steps)
-    rows0 = _profile(eng, state, 0)
-    launches = (sum(n for _, n, _ in rows) - sum(n for _, n, _ in rows0)) / steps
-    _syncs(eng, state, 0)  # the process's first count holds a one-off sync
-    syncs = (_syncs(eng, state, steps) - _syncs(eng, state, 0)) / steps
+    synchronisations: each a run of ``steps`` less a run of ``base``
+    steps (0: its prologue and epilogue), over ``steps - base``
+    (torch.profiler; torch's sync debug mode). Also ``device_ms_whole``: the whole run of ``steps`` over
+    ``steps``, its prologue and epilogue included (the older records'
+    device ms/step). ``run``: ``eng.run`` by default; ``base``:
+    the steps of the run taken off (1 leaves a graphed run's carry load and
+    its last step out: the steady steps alone)."""
+    rows = _profile(eng, state, steps, run)
+    rows0 = _profile(eng, state, base, run)
+    n = steps - base
+    launches = (sum(k for _, k, _ in rows) - sum(k for _, k, _ in rows0)) / n
+    _syncs(eng, state, 0, run)  # the first count holds a one-off sync
+    syncs = (_syncs(eng, state, steps, run)
+             - _syncs(eng, state, base, run)) / n
     whole = sum(ms for ms, _, _ in rows) / steps
-    base = {key: ms for ms, _, key in rows0}
-    rows = sorted((((ms - base.get(key, 0.0)) / steps, key)
+    less = {key: ms for ms, _, key in rows0}
+    rows = sorted((((ms - less.get(key, 0.0)) / n, key)
                    for ms, _, key in rows), reverse=True)
     total = sum(ms for ms, _ in rows)
     top = "; ".join(f"{key[:48]} {ms:.4f}" for ms, key in rows[:8])
@@ -3799,7 +3841,8 @@ def check_advance_paths():
 
 
 def times_of_all(roots, kind):
-    """--advance-times and --sweep-times (``kind`` "advance" or "sweep"):
+    """--advance-times, --sweep-times and --mesh-times (``kind`` "advance",
+    "sweep" or "mesh"):
     each checkout in a process of its own (``--{kind}-times-of``), in
     turns; prints each path's whole step for every checkout and fails
     unless every run's final states have the same digests, path by path."""
@@ -4944,7 +4987,8 @@ def flagship_mesh_times(root):
     """The flagship's fast mesh (resident tiles by the census) at D = 1, 2
     and 4 with the port package of the checkout at ``root``: ms/step,
     device ms/step, idle share, launches and syncs a step (phase x's fast
-    half). Prints one JSON line."""
+    half), and the digest of each run's final state after 10 steps. Prints
+    one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
@@ -4956,10 +5000,386 @@ def flagship_mesh_times(root):
                           device="cuda")
         st = e.init_state()
         e.run(st, 1)
-        times[f"D={d}"] = _mesh_times(f"{root}: mesh fast D={d}", e, st,
-                                      card, k=20)
-    print(f"flagship mesh times {root} on {card}: {json.dumps(times)}",
-          flush=True)
+        t = _mesh_times(f"{root}: mesh fast D={d}", e, st, card, k=20)
+        final = e.run(st, 10)
+        times[f"mesh fast D={d}"] = {
+            "impl": e.impl, "ms_per_step": t["ms"],
+            "device_ms_per_step": t["device_ms"], "idle": t["idle"],
+            "launches": t["launches"], "syncs": t["syncs"],
+            "digest": digest([getattr(final, f) for f in final._fields])}
+    print(f"flagship mesh times {root} on {card}", flush=True)
+    print("MESH_TIMES " + json.dumps(times), flush=True)
+
+
+# --- Tile runs as CUDA graphs (phase bc) ------------------------------------
+
+# (label, engine class, config args, config keywords, engine keywords, the
+# engine the census must choose, steps checked, steps timed): every path
+# that runs ``ops/resident.make_tile_run``. A graphed run's host time
+# overlaps its device time, so a step's time is timed over enough steps
+# that the device's part outlasts the run's prologue and epilogue.
+GRAPH_PATHS = (
+    ("flagship resident", "engine", GOLDEN_S1[:4], {}, {}, "resident", 10,
+     100),
+    ("1e7 resident", "engine", (1, 5000.0, 316, 10_000_000), {},
+     {"impl": "resident"}, "resident", 5, 40),
+    ("1e7 banded", "engine", (1, 5000.0, 316, 10_000_000), {}, {}, "banded",
+     5, 40),
+    ("UNEVEN banded", "engine", UNEVEN, {}, {}, "banded", 10, 100),
+    ("MEDIUM resident tiles", "engine", MEDIUM[:4], {},
+     {"dense_backend": "xla"}, "resident", 10, 40),
+    ("SMALL supercell", "engine", SMALL[:4], {}, {}, "supercell", 10, 40),
+    ("mesh fast D=4", "mesh", GOLDEN_S1[:4], {"n_shards": 4}, {},
+     "resident", 10, 40),
+    ("mesh supercell D=4", "mesh", SMALL[:4], {"n_shards": 4}, {},
+     "supercell", 10, 40),
+    ("column bands D=4", "mesh", UNEVEN, {"n_shards": 4}, {}, "banded", 10,
+     40),
+    ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
+     {"impl": "banded-cyclic"}, "banded", 10, 40),
+    ("2D (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2)}, {}, "resident", 10, 40),
+)
+
+
+def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
+    """(engine, state) of a graph path, built from the seed; ``small``
+    starts the tiles below what the run needs (a band plan at 0.7 of its
+    census widths, else half the census kcap; where the engine's floor
+    keeps the census kcap, as supercell's rows·kcap >= N does at SMALL, 96
+    particles moved into particle 0's cell), so that the ladder retries on
+    a tile run."""
+    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.engine import Engine
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded2d import (
+        Sharded2DEngine)
+
+    cls = {"engine": Engine, "mesh": ShardedEngine,
+           "mesh2d": Sharded2DEngine}[kind]
+    cfg = SimConfig(*args, **cfg_kw)
+    eng = cls(cfg, device="cuda", **eng_kw)
+    state = eng.init_state()
+    if not small:
+        return eng, state
+    target = _target(eng)
+    if getattr(target, "_band_plan", None) is not None:
+        target._band_plan = tuple((r0, rw, max(8, int(k * 0.7)))
+                                  for r0, rw, k in target._band_plan)
+    else:
+        target._build()
+        census = target.kcap
+        eng = cls(cfg, device="cuda", kcap=max(8, census // 2), **eng_kw)
+        state = eng.init_state()
+        _target(eng)._build()
+        if _target(eng).kcap >= census:
+            state = _crowd(state, cfg, 96)
+    _target(eng)._build()
+    return eng, state
+
+
+def _crowd(state, cfg, n):
+    """A one-device state with particles 1..n moved to seeded places in
+    particle 0's cell."""
+    g = torch.Generator().manual_seed(0)
+    w = cfg.side / cfg.ncside
+    x, y = state.x.clone(), state.y.clone()
+    for a in (x, y):
+        corner = float(torch.floor(a[0] / w)) * w
+        a[1:n + 1] = (corner + w * (0.05 + 0.9 * torch.rand(
+            n, generator=g, dtype=torch.float64))).to(a.dtype).to(a.device)
+    return state._replace(x=x, y=y)
+
+
+def _target(eng):
+    """The engine that holds a mesh's slabs and builds its runs (a 2D
+    mesh's delegate where the census chose one)."""
+    return eng.target() if hasattr(eng, "target") else eng
+
+
+def _tile_run_of(eng):
+    """The ``graphed.TileRun`` an engine built last (a 2D mesh's delegate's
+    where the census chose one)."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    target = _target(eng)
+    run = target._run
+    if not isinstance(run, graphed.TileRun):
+        raise AssertionError(f"{type(eng).__name__} ran {target.impl}: no "
+                             f"tile run")
+    return run
+
+
+def _state_bits(state):
+    """Every field of a SimState or ShardedState on the host."""
+    return {f: getattr(state, f).detach().cpu().clone() for f in state._fields}
+
+
+def _bitwise(label, a, b):
+    """Two states' fields bit for bit (floats by their bit patterns)."""
+    bad = [f for f in a if not _bits_equal(a[f], b[f])]
+    if bad:
+        raise AssertionError(f"{label}: fields {bad} differ")
+
+
+def _pool_bytes(pool):
+    """Bytes the caching allocator holds for a graph pool (None where the
+    snapshot names no pools)."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def _replays_sync_free(label, graphs):
+    """Three replays of every captured step on the carry as it stands,
+    under ``torch.cuda.set_sync_debug_mode("error")``: any synchronising
+    call raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            for name in graphs.names:
+                graphs.step(name, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"{label}: 3 replays of {', '.join(graphs.names)} with no host "
+          f"synchronisation", flush=True)
+
+
+def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
+                     k_time):
+    """(bc) One tile path: the graphed run against the eager one, bit for
+    bit, from one state; the same engine on a second state (the first
+    run's result) against its eager run, its graphs reused, the first
+    result unchanged after it; a forced retry graphed against eager; no
+    host sync in the replays; the profile's kernels a step graphed against
+    eager; ms/step, device ms/step and idle share of both, the capture's
+    host time and the graphs' pool bytes. Returns the path's record."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    t0 = time.perf_counter()
+    eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
+    reset_launches()
+    first = eng.run(state, k)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if eng.impl != want or int(first.overflow) != 0:
+        raise AssertionError(f"{label}: ran {eng.impl} (want {want}), "
+                             f"overflow {int(first.overflow)}")
+    run = _tile_run_of(eng)
+    graphs = run.graphs
+    captured = {name: graphs._graphs[name][0] for name in graphs.names}
+    a = _state_bits(first)
+    _bitwise(f"{label}: graphed vs eager", a,
+             _state_bits(eng.run_eager(state, k)))
+    # The same engine on a second state: the graphs reused, the carry
+    # loaded anew; the first result untouched.
+    second = eng.run(first, k)
+    if {n: graphs._graphs[n][0] for n in graphs.names} != captured:
+        raise AssertionError(f"{label}: the second run captured anew")
+    _bitwise(f"{label}: second state, graphed vs eager",
+             _state_bits(second), _state_bits(eng.run_eager(first, k)))
+    _bitwise(f"{label}: the first result after the second run", a,
+             _state_bits(first))
+    # A retry forced by small tiles: graphed against eager on two engines
+    # built alike.
+    e1, s1_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
+    k0 = _target(e1).kcap
+    r1 = e1.run(s1_, k)
+    e2, s2_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
+    r2 = e2.run_eager(s2_, k)
+    k1 = _target(e1).kcap
+    if (k1 or 0) <= k0 or e1.impl != e2.impl or e1.kcap != e2.kcap:
+        raise AssertionError(f"{label}: no retry (kcap {k0} -> {k1}, "
+                             f"{e1.impl} vs {e2.impl})")
+    _bitwise(f"{label}: retried, graphed vs eager", _state_bits(r1),
+             _state_bits(r2))
+    retried = f"{e1.impl} kcap {k0} -> {k1}"
+    for e in (e1, e2):
+        graphed.release(_target(e)._run)
+    del e1, e2, r1, r2
+    _replays_sync_free(label, graphs)
+    # Time both in the same call, and profile both.
+    rec = {"impl": eng.impl, "kcap": eng.kcap, "launches": launches,
+           "retried": retried,
+           "capture_s": dict(graphs.capture_s),
+           "pool_bytes": _pool_bytes(graphs.pool)}
+    for tag, fn in (("graphed", eng.run), ("eager", eng.run_eager)):
+        ms, _, _ = step_ms(eng, state, k_time, run=fn)
+        times = device_breakdown(f"{label} {tag}", eng, state, ms, steps=k,
+                                 run=fn, base=1)
+        rec[tag] = {"ms": ms, "device_ms": times["device_ms"],
+                    "idle": times["idle"], "launches": times["launches"],
+                    "syncs": times["syncs"]}
+    for _ in range(2):
+        if rec["graphed"]["launches"] == rec["eager"]["launches"]:
+            break
+        # The profiler has lost kernel records before: profile both again.
+        for tag, fn in (("graphed", eng.run), ("eager", eng.run_eager)):
+            rec[tag]["launches"] = device_breakdown(
+                f"{label} {tag} (again)", eng, state, rec[tag]["ms"],
+                steps=k, run=fn, base=1)["launches"]
+    if rec["graphed"]["launches"] != rec["eager"]["launches"]:
+        raise AssertionError(f"{label}: {rec['graphed']['launches']} kernels "
+                             f"a step graphed, {rec['eager']['launches']} "
+                             f"eager")
+    if rec["graphed"]["syncs"] != 0:
+        raise AssertionError(f"{label}: host syncs in the graphed steps")
+    g, e = rec["graphed"], rec["eager"]
+    pool = ("not measured" if rec["pool_bytes"] is None
+            else f"{rec['pool_bytes'] / 2**20:.1f} MiB")
+    print(f"{label} ({eng.impl}, kcap {eng.kcap}, {k} steps checked, "
+          f"{k_time} timed): graphed "
+          f"{g['ms']:.4f} ms/step, {g['device_ms']:.4f} device ms/step, idle "
+          f"{g['idle']:.1%}; eager {e['ms']:.4f} ms/step, "
+          f"{e['device_ms']:.4f} device ms/step, idle {e['idle']:.1%}; "
+          f"{g['launches']:.1f} kernels a step both; capture "
+          + ", ".join(f"{n} {v * 1e3:.1f} ms" for n, v in
+                      rec["capture_s"].items())
+          + f"; graph pool {pool}; retry {retried}; bit for bit graphed = "
+          f"eager on the first state, a second state and the retry "
+          f"({time.perf_counter() - t0:.1f} s) on {card}", flush=True)
+    run.release()
+    del eng, state, first, second
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_capture_raises():
+    """(bc) A step that reads a value back to the host cannot be captured:
+    ``StepGraph.step`` raises, with no eager fallback; the card still
+    runs after it."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    sg = graphed.StepGraph(counters=())
+    sg.load((torch.ones(1024, device="cuda"),))
+
+    def reads_back(x):
+        return (x * 2.0 if float(x.sum()) > 0 else x,)
+
+    try:
+        sg.step("reads back", reads_back)
+    except RuntimeError as err:
+        msg = "; ".join(str(e).splitlines()[0][:100]
+                        for e in (err.__context__, err) if e is not None)
+    else:
+        raise AssertionError("a capture with a host readback did not raise")
+    if sg.names:
+        raise AssertionError("a failed capture left a graph")
+    torch.cuda.synchronize()
+    if float((torch.ones(10, device="cuda") * 2).sum()) != 20.0:
+        raise AssertionError("the card after a failed capture")
+    print(f"a step with a host readback: the capture raised ({msg}); the "
+          f"card runs on", flush=True)
+
+
+def check_graphs(card):
+    """(bc) Every tile path graphed against eager (``check_graph_path``),
+    then a capture that must raise. Returns {label: record}."""
+    t0 = time.perf_counter()
+    recs = {}
+    for label, *path in GRAPH_PATHS:
+        recs[label] = check_graph_path(card, label, *path)
+    check_capture_raises()
+    print(f"tile runs as CUDA graphs (bc): {len(recs)} paths, "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    print("GRAPH_TIMES " + json.dumps(recs), flush=True)
+    return recs
+
+
+# --- The COM kernel's launches back to back (phase bd) ----------------------
+
+# Lanes a cell of the round cases: about the kernel's rounds (32 to 1024
+# lanes a cell, by how many cells share a group of 32) and past them.
+COM_ROUND_LANES = (1, 31, 32, 33, 64, 65, 100, 257, 1023, 1024, 1025, 2050,
+                   5000)
+COM_BTB_SIDE, COM_BTB_NCSIDE = 64.0, 64
+COM_BTB_PASSES = 3
+
+
+def _com_round_particles(lanes, seed):
+    """(x, y, m, alive): cells of ``lanes`` lanes each (``lanes`` an int),
+    or of mixed sizes from 1 to 1100 (``lanes`` None), at seeded cells of
+    the 64 x 64 unit-cell box among empty ones; masses U(0.5, 2), a tenth
+    massless (alive where m > 0)."""
+    rng = np.random.default_rng(seed)
+    ncells = COM_BTB_NCSIDE * COM_BTB_NCSIDE
+    if lanes is None:
+        sizes = np.minimum(rng.geometric(1 / 60, 300), 1100)
+    else:
+        sizes = np.full(max(1, min(300, 20_000 // lanes)), lanes)
+    cells = rng.choice(ncells, sizes.shape[0], replace=False)
+    cx = np.repeat(cells % COM_BTB_NCSIDE, sizes)
+    cy = np.repeat(cells // COM_BTB_NCSIDE, sizes)
+    n = int(sizes.sum())
+    x = cx + rng.uniform(0.0, 1.0, n)
+    y = cy + rng.uniform(0.0, 1.0, n)
+    m = np.where(rng.uniform(size=n) < 0.1, 0.0, rng.uniform(0.5, 2.0, n))
+    return x, y, m, m > 0
+
+
+def check_com_back_to_back(card):
+    """(bd) ``sweep.sweep_com`` launched back to back in one process on
+    differing layouts: cells of each of ``COM_ROUND_LANES`` lanes, cells of
+    mixed sizes, ``adversarial.com_particles`` and golden s1's lanes, in
+    f64 (parity) and f32, sorted and in the mesh's layout;
+    ``COM_BTB_PASSES`` passes over every case in a seeded order, each
+    launch held bit for bit against the plain version in parity
+    (``sweep_com_ref``) and against the sums in position order in f32 (its
+    kernel's order; ``_position_order_com``). Fails on any mismatch."""
+    from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    t0 = time.perf_counter()
+    sources = [(f"cells of {c} lanes", _com_round_particles(c, 100 + i),
+                COM_BTB_SIDE, COM_BTB_NCSIDE)
+               for i, c in enumerate(COM_ROUND_LANES)]
+    sources.append(("cells of mixed sizes", _com_round_particles(None, 99),
+                    COM_BTB_SIDE, COM_BTB_NCSIDE))
+    sources.append(("adversarial COM case", adv.com_particles(),
+                    adv.COM_SIDE, adv.COM_NCSIDE))
+    cases = []
+    for label, parts, side, nc in sources:
+        for dtype in (torch.float64, torch.float32):
+            lanes = _sorted_lanes(*parts, dtype, side, nc)
+            for layout, (x, y, m, _, key, pos), plan in _layouts(lanes,
+                                                                 nc * nc):
+                cases.append((f"{label}, {dtype}, {layout}",
+                              (x, y, m, key, pos, plan, nc * nc)))
+    for parity in (True, False):
+        st = _sweep_state(GOLDEN_S1, parity)
+        key, pos, plan = _sweep_lanes(st.x, st.y, GOLDEN_S1[1], GOLDEN_S1[2])
+        cases.append((f"golden s1 lanes, {st.x.dtype}, sorted",
+                      (st.x, st.y, st.m, key, pos, plan,
+                       GOLDEN_S1[2] ** 2)))
+    refs = []
+    for _, (x, y, m, key, pos, plan, ncells) in cases:
+        if x.dtype == torch.float64:
+            refs.append(sweep.sweep_com_ref(x, y, m, key, pos, plan, ncells))
+        else:
+            refs.append(_position_order_com(x, y, m, key, pos, plan, ncells))
+    rng = np.random.default_rng(21)
+    launches, bad = 0, []
+    for _ in range(COM_BTB_PASSES):
+        for i in rng.permutation(len(cases)):
+            label, (x, y, m, key, pos, plan, ncells) = cases[i]
+            got = sweep.sweep_com(x, y, m, key, pos, plan, ncells)
+            launches += 1
+            if not all(_float_bits_equal(a, b) for a, b in zip(got,
+                                                               refs[i])):
+                bad.append(label)
+    print(f"COM kernel back to back (bd): {launches} launches over "
+          f"{len(cases)} layouts ({COM_BTB_PASSES} passes in a seeded "
+          f"order), {len(bad)} differing from the plain version"
+          + (f": {sorted(set(bad))}" if bad else "")
+          + f" ({time.perf_counter() - t0:.1f} s) on {card}", flush=True)
+    if bad:
+        raise AssertionError(f"COM kernel back to back: {len(bad)} launches "
+                             f"differ")
+    return launches
 
 
 def main():
@@ -4968,9 +5388,7 @@ def main():
     if sys.argv[1:2] == ["--mesh-times"]:
         # Checkouts in turns (e.g. parent, change, change, parent), each in
         # a process of its own that imports that checkout's package.
-        for root in sys.argv[2:]:
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--mesh-times-of", root], cwd=ROOT, check=True)
+        times_of_all(sys.argv[2:], "mesh")
         return
     if sys.argv[1:2] == ["--mesh-times-of"]:
         flagship_mesh_times(sys.argv[2])
@@ -5078,6 +5496,20 @@ def main():
         return
     if sys.argv[1:2] == ["--sweep-times-of"]:
         sweep_times(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--graphs"]:
+        # Phase bc alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        check_graphs(card)
+        return
+    if sys.argv[1:2] == ["--com-back-to-back"]:
+        # Phase bd alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        check_com_back_to_back(card)
         return
     if sys.argv[1:2] == ["--direct"]:
         # Phases al-aq alone.
@@ -5253,6 +5685,11 @@ def main():
     # and 4096, the kernels around the pair pass at 4096, and MEDIUM on
     # resident tiles under dense_backend="xla" and through --mesh 4.
     _, medium_launches = check_wide(card, medium[3])
+
+    # 16. Every tile path's run as CUDA graphs against its eager run (bc),
+    # and the COM kernel launched back to back on differing layouts (bd).
+    check_graphs(card)
+    check_com_back_to_back(card)
 
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "

@@ -265,24 +265,30 @@ def make_banded_run(config: SimConfig, plan):
         return list(zip(*(views(a) for a in (ts.x, ts.y, mf, alive,
                                              ts.pid))))
 
-    def pair_pass(ts, collide: bool):
+    def pair_pass(ts, collide: bool, out=None):
         """The fused collision(t) + pair-force(t+1) pass, one launch per
-        band at its K; (fx, fy, count, ft) over the pool."""
-        outs = [cell_pairs.fused_pairs(*tiles, k, EPSILON, collide=collide,
-                                       force_form=form)
-                for tiles, (_, _, k) in zip(pair_args(ts), bands)]
+        band at its K; (fx, fy, count, ft) over the pool, the forces
+        written into ``out`` (pool tensors) where given."""
+        fxo, fyo = ([[None] * len(bands)] * 2 if out is None
+                    else [views(o) for o in out])
+        outs = [cell_pairs.fused_pairs(
+                    *tiles, k, EPSILON, collide=collide, force_form=form,
+                    out=None if out is None else (ox, oy))
+                for tiles, (_, _, k), ox, oy in zip(pair_args(ts), bands,
+                                                    fxo, fyo)]
         fx, fy, count, ft = zip(*outs)
-        return (torch.cat([a.reshape(-1) for a in fx]),
-                torch.cat([a.reshape(-1) for a in fy]),
-                torch.sum(torch.stack(count), dtype=torch.int32),
+        if out is None:
+            out = (torch.cat([a.reshape(-1) for a in fx]),
+                   torch.cat([a.reshape(-1) for a in fy]))
+        return (*out, torch.sum(torch.stack(count), dtype=torch.int32),
                 torch.cat([a.reshape(-1) for a in ft]))
 
-    def settle(ts, ft, count, undelivered, sums):
+    def settle(ts, ft, count, undelivered, sums, out=None):
         """The step's tail and the next step's cell sums over the whole
         pool, one kernel on the GPU (``ops/cuda/advance.settle_sums``)."""
         return advance_ops.settle_sums(ts, ft, count, undelivered,
                                        geom(ts.x.device), side, nc, kmax,
-                                       sums)
+                                       sums, out)
 
     def advance(ts, fxd, fyd, sums):
         """The monopole terms and the integrator (m==0 slots frozen), then

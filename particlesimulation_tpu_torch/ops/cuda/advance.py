@@ -465,7 +465,7 @@ def pair_masks_ref(x, y, m, occ, side: float, ncside: int):
 
 
 def settle_sums(ts, ft, count, undelivered, row_start, side: float,
-                ncside: int, kcap: int, sums: bool = True):
+                ncside: int, kcap: int, sums: bool = True, out=None):
     """A step's tail after its pair pass, and the next step's row sums, over
     the pool, in place.
 
@@ -480,7 +480,9 @@ def settle_sums(ts, ft, count, undelivered, row_start, side: float,
     (int32); without, returns None and counts no limbo. The counters are
     updated in place, so a run must own them (``make_tile_run`` clones
     them); the rows must cover the pool. The kernel reads ``count`` and
-    ``undelivered`` on the device: no host synchronisation.
+    ``undelivered`` on the device: no host synchronisation. ``out``: a
+    (3, nrows) float32 tensor the sums are written into (a tile run's
+    carried sums, read before this pass), else a new one.
     """
     dev = ts.x.device
     nrows = _check_rows(row_start, dev)
@@ -496,11 +498,18 @@ def settle_sums(ts, ft, count, undelivered, row_start, side: float,
     for name, dtype in (("collisions", torch.int64), ("panics", torch.int32),
                         ("overflow", torch.int32)):
         _flat(name, getattr(ts, name), dtype, 1, dev)
+    if sums and out is not None:
+        _flat("out", out, torch.float32, 3 * nrows, dev)
+        if out.shape != (3, nrows):
+            raise ValueError(f"out shape {tuple(out.shape)} != {(3, nrows)}")
     if not cell_pairs._on_card(ts.x, "settle pass"):
-        return settle_sums_ref(ts, ft, count, undelivered, row_start, side,
-                               ncside, kcap, sums)
-    out = (torch.empty((3, nrows), dtype=torch.float32, device=dev)
-           if sums else None)
+        got = settle_sums_ref(ts, ft, count, undelivered, row_start, side,
+                              ncside, kcap, sums)
+        return got if got is None or out is None else out.copy_(got)
+    if not sums:
+        out = None
+    elif out is None:
+        out = torch.empty((3, nrows), dtype=torch.float32, device=dev)
     cell_pairs._launch(
         "settle_sums", _library().psim_settle_sums, ts.x,
         *(f.data_ptr() for f in flat), of.data_ptr(), _ptr(ft),

@@ -204,7 +204,7 @@ def _check_fused(x, y, mf, alive, pid, kcap, force_form, sub=None):
 
 def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
                 collide: bool = True, force_form: str = "v4",
-                gated: bool = True, sub=None):
+                gated: bool = True, sub=None, out=None):
     """Fused collision + pair-force pass over (ncells, kcap) tiles.
 
     x, y, mf: float32 positions and physics masses (limbo slots zeroed);
@@ -217,17 +217,27 @@ def fused_pairs(x, y, mf, alive, pid, kcap: int, eps: float,
     rule (serial/parsim.cpp:356-366,393-411) inside a super-cell row. Ranks
     stay the row's pid ranks. The labelled pass is hit-gated only. Returns
     (fx, fy, count, ft): float32 forces, the int32 0-d collision count and
-    the int32 first-pair ranks.
+    the int32 first-pair ranks. ``out`` (fx, fy): float32 tiles the forces
+    are written into (a tile run's carried forces, read before this pass),
+    else new ones.
     """
     _check_fused(x, y, mf, alive, pid, kcap, force_form, sub)
     if sub is not None and not gated:
         raise ValueError("the labelled pair pass has no ungated (v1) form")
+    if out is not None:
+        _check(kcap, x, ("fx", out[0], torch.float32, kcap),
+               ("fy", out[1], torch.float32, kcap))
     if not _on_card(x, "fused pair pass"):
-        return fused_pairs_ref(x, y, mf, alive, pid, kcap, eps, collide,
-                               force_form, sub)
+        fx, fy, count, ft = fused_pairs_ref(x, y, mf, alive, pid, kcap, eps,
+                                            collide, force_form, sub)
+        if out is None:
+            return fx, fy, count, ft
+        out[0].copy_(fx)
+        out[1].copy_(fy)
+        return out[0], out[1], count, ft
     ncells = x.shape[0]
-    fx = torch.empty_like(x)
-    fy = torch.empty_like(x)
+    fx, fy = out if out is not None else (torch.empty_like(x),
+                                          torch.empty_like(x))
     ft = torch.empty_like(pid)
     count = torch.empty((), dtype=torch.int32, device=x.device)
     ptrs = (x.data_ptr(), y.data_ptr(), mf.data_ptr(), alive.data_ptr(),

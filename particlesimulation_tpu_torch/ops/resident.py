@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from particlesimulation_tpu_torch.ops import graphed
 from particlesimulation_tpu_torch.ops.binning import cell_of
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 
@@ -117,7 +118,7 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
     Without ``settle``, ``advance(ts, fxd, fyd)`` runs a step's cell sums,
     monopole, integrate and rebin and returns (ts, undelivered,
     limbo_count), ``pair_pass`` gives (fx, fy, count, died), and the step's
-    tail (deaths, counters) is plain torch here.
+    tail (deaths, counters) is plain torch here, in place.
 
     With ``settle`` (the resident and banded engines), the tail and the
     next step's cell sums run as one pass after each pair pass:
@@ -130,7 +131,21 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
     its first pass and after each step's pass with sums, but the last,
     and panics counts the limbo slots of the tiles at the start of steps 1
     to n, as without ``settle``. The run's counters are cloned first: they
-    are updated in place.
+    are updated in place. ``pair_pass(ts, collide, out)`` writes a step's
+    forces into ``out``, the forces the step's advance read, and
+    ``settle(..., out)`` its sums into the sums the advance read, so that
+    a step's carry is updated in place.
+
+    ``run`` is a ``graphed.TileRun``: the prologue and the first pair pass
+    (with its settle) run eagerly, their tiles, forces, sums and counters
+    are copied into the run's static carry (``graphed.StepGraph``), and the
+    steps replay graphs captured on it at the run's first steps, the
+    steady step's and, with ``settle``, the last step's (no sums; the
+    JAX package's ``jax.jit`` over ``lax.fori_loop``); ``finish`` reads the
+    carry and what it hands out is cloned where it shares the carry's
+    memory. The graphs serve every ``n_steps`` and live as long as ``run``.
+    ``run.eager`` is the plain loop, each step dispatched from Python: the
+    same bits.
     """
     if finish is None:
         def finish(ts, state):
@@ -140,34 +155,57 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
         return _settled_run(prologue, advance, pair_args, pair_pass, settle,
                             finish)
 
-    def step(ts, fxd, fyd):
-        ts, undelivered, limbo_count = advance(ts, fxd, fyd)
-        fxd, fyd, count, died = pair_pass(ts, collide=True)
-        ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
-        ts = ts._replace(
-            m=torch.where(died, 0.0, ts.m),
-            collisions=ts.collisions + count,
-            panics=ts.panics + limbo_count,
-            overflow=torch.maximum(ts.overflow, ovf))
+    def start(state):
+        # The prologue's tiles with the run's own counters, and the forces
+        # of the first pass.
+        ts = _own_counters(prologue(state))
+        fxd, fyd, _, _ = pair_pass(ts, collide=False)
         return ts, fxd, fyd
 
-    def run(state, n_steps: int):
-        ts = prologue(state)
-        fxd, fyd, _, _ = pair_pass(ts, collide=False)
+    def step(ts, fxd, fyd):
+        ts, undelivered, limbo_count = advance(ts, fxd, fyd)
+        fxd, fyd, count, died = pair_pass(ts, collide=True, out=(fxd, fyd))
+        ovf = torch.where(undelivered > 0, kcap + 1, 0).to(torch.int32)
+        ts.m.masked_fill_(died, 0.0)
+        ts.collisions.add_(count)
+        ts.panics.add_(limbo_count)
+        ts.overflow.copy_(torch.maximum(ts.overflow, ovf))
+        return ts, fxd, fyd
+
+    def run_eager(state, n_steps: int):
+        ts, fxd, fyd = start(state)
         for _ in range(n_steps):
             ts, fxd, fyd = step(ts, fxd, fyd)
         return finish(ts, state)
 
-    def pair_tiles(state, n_steps: int):
-        ts = prologue(state)
-        if n_steps > 0:
-            fxd, fyd, _, _ = pair_pass(ts, collide=False)
-            for _ in range(n_steps - 1):
-                ts, fxd, fyd = step(ts, fxd, fyd)
-            ts = advance(ts, fxd, fyd)[0]
-        return pair_args(ts)
+    graphs = graphed.StepGraph()
 
-    return pair_tiles, run
+    def run(state, n_steps: int):
+        carry = start(state)
+        if n_steps == 0:
+            return finish(carry[0], state)
+        graphs.load(carry)
+        del carry
+        for _ in range(n_steps):
+            graphs.step("step", step)
+        return graphs.own(finish(graphs.carry()[0], state))
+
+    def pair_tiles(state, n_steps: int):
+        if n_steps == 0:
+            return pair_args(prologue(state))
+        ts, fxd, fyd = start(state)
+        for _ in range(n_steps - 1):
+            ts, fxd, fyd = step(ts, fxd, fyd)
+        return pair_args(advance(ts, fxd, fyd)[0])
+
+    return pair_tiles, graphed.TileRun(run, run_eager, graphs)
+
+
+def _own_counters(ts):
+    """``ts`` with its counters cloned: a run updates them in place."""
+    return ts._replace(collisions=ts.collisions.clone(),
+                       panics=ts.panics.clone(),
+                       overflow=ts.overflow.clone())
 
 
 def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
@@ -178,19 +216,17 @@ def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
         # its first pass and their settle, the carried forces and step 1's
         # sums.
         first = prologue(state)
-        ts = first._replace(collisions=first.collisions.clone(),
-                            panics=first.panics.clone(),
-                            overflow=first.overflow.clone())
+        ts = _own_counters(first)
         fxd, fyd, _, _ = pair_pass(ts, collide=False)
         return first, ts, fxd, fyd, settle(ts, None, None, None, sums=True)
 
     def step(ts, fxd, fyd, sums, last: bool):
         ts, undelivered = advance(ts, fxd, fyd, sums)
-        fxd, fyd, count, ft = pair_pass(ts, collide=True)
-        sums = settle(ts, ft, count, undelivered, sums=not last)
+        fxd, fyd, count, ft = pair_pass(ts, collide=True, out=(fxd, fyd))
+        sums = settle(ts, ft, count, undelivered, sums=not last, out=sums)
         return ts, fxd, fyd, sums
 
-    def run(state, n_steps: int):
+    def run_eager(state, n_steps: int):
         first, ts, fxd, fyd, sums = start(state)
         if n_steps == 0:
             # The first settle counted step 1's limbo slots: not this run's.
@@ -198,6 +234,27 @@ def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
         for i in range(n_steps):
             ts, fxd, fyd, sums = step(ts, fxd, fyd, sums, i == n_steps - 1)
         return finish(ts, state)
+
+    def middle(ts, fxd, fyd, sums):
+        return step(ts, fxd, fyd, sums, False)
+
+    def last(ts, fxd, fyd, sums):
+        # No sums after the last pass: the carry keeps the last ones.
+        return step(ts, fxd, fyd, sums, True)[:3] + (sums,)
+
+    graphs = graphed.StepGraph()
+
+    def run(state, n_steps: int):
+        first, *carry = start(state)
+        if n_steps == 0:
+            return finish(carry[0]._replace(panics=first.panics), state)
+        del first
+        graphs.load(tuple(carry))
+        del carry
+        for _ in range(n_steps - 1):
+            graphs.step("middle", middle)
+        graphs.step("last", last)
+        return graphs.own(finish(graphs.carry()[0], state))
 
     def pair_tiles(state, n_steps: int):
         if n_steps == 0:
@@ -207,4 +264,4 @@ def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
             ts, fxd, fyd, sums = step(ts, fxd, fyd, sums, False)
         return pair_args(advance(ts, fxd, fyd, sums)[0])
 
-    return pair_tiles, run
+    return pair_tiles, graphed.TileRun(run, run_eager, graphs)

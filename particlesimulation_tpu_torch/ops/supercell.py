@@ -151,11 +151,11 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
         alive = (binned & (ts.m > 0)).to(torch.int32)
         return ts.x, ts.y, mf, alive, ts.pid, sub
 
-    def pair_pass(ts, collide: bool):
+    def pair_pass(ts, collide: bool, out=None):
         x, y, mf, alive, pid, sub = pair_args(ts)
         fx, fy, count, ft = cell_pairs.fused_pairs(
             x, y, mf, alive, pid, kcap, EPSILON, collide=collide,
-            force_form=pair_impl, sub=sub)
+            force_form=pair_impl, sub=sub, out=out)
         return fx, fy, count, ft != cell_pairs.INF
 
     def advance(ts, fxd, fyd):

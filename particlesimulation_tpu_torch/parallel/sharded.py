@@ -63,7 +63,8 @@ import torch
 from particlesimulation_tpu_torch import engine as single
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
-from particlesimulation_tpu_torch.ops import binning, collisions, integrate
+from particlesimulation_tpu_torch.ops import (binning, collisions, graphed,
+                                              integrate)
 from particlesimulation_tpu_torch.ops.banded import (grow_plan, plan_bands,
                                                      plan_bands_cyclic,
                                                      uniform_band_plan)
@@ -565,6 +566,7 @@ class ShardedEngine(SlabMesh):
                cfg.row_starts)
         if self._built_key == key:
             return
+        graphed.release(self._run)
         # (Imported here: the tile meshes import this module.)
         if self.impl == "resident":
             from particlesimulation_tpu_torch.parallel import (
@@ -766,7 +768,16 @@ class ShardedEngine(SlabMesh):
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped; the reference instead
         PANIC-skips or dies). The adapted impl and capacities stick for
-        later runs of this engine."""
+        later runs of this engine. A tile run replays its step graphs on
+        the GPU (``ops/graphed``)."""
+        return self._ladder(state, n_steps, eager=False)
+
+    def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:
+        """``run`` with each tile run's plain loop, every kernel of every
+        step dispatched from Python: the same bits as ``run``."""
+        return self._ladder(state, n_steps, eager=True)
+
+    def _ladder(self, state: ShardedState, n_steps: int, eager: bool):
         d = self.config.n_shards
         for attempt in range(8):
             if self.capacity is not None:
@@ -777,7 +788,8 @@ class ShardedEngine(SlabMesh):
                 # JAX's), as one device's supercell -> sweep.
                 state = self._to_sweep(state)
             self._build()
-            out = self._run(state._replace(
+            run = graphed.eager(self._run) if eager else self._run
+            out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
             need = int(out.overflow)  # the run's one readback
             if need == 0:

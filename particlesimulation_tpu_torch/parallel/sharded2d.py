@@ -45,7 +45,7 @@ import torch
 from particlesimulation_tpu_torch import engine as single
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
-from particlesimulation_tpu_torch.ops import binning
+from particlesimulation_tpu_torch.ops import binning, graphed
 from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.parallel.sharded import (
@@ -412,6 +412,7 @@ class Sharded2DEngine(SlabMesh):
         key = (self._impl, cap, self.bcap, self.kcap, self.ship_rounds)
         if self._built_key == key:
             return
+        graphed.release(self._run)
         if self._impl == "resident":
             from particlesimulation_tpu_torch.parallel import (
                 sharded2d_resident)
@@ -426,9 +427,20 @@ class Sharded2DEngine(SlabMesh):
     def run(self, state: ShardedState, n_steps: int) -> ShardedState:
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped). The adapted impl and
-        capacities stick for later runs."""
+        capacities stick for later runs. A tile run replays its step
+        graphs on the GPU (``ops/graphed``)."""
         if self._delegate:
             return self._delegate.run(state, n_steps)
+        return self._ladder(state, n_steps, eager=False)
+
+    def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:
+        """``run`` with each tile run's plain loop, every kernel of every
+        step dispatched from Python: the same bits as ``run``."""
+        if self._delegate:
+            return self._delegate.run_eager(state, n_steps)
+        return self._ladder(state, n_steps, eager=True)
+
+    def _ladder(self, state: ShardedState, n_steps: int, eager: bool):
         d_r, d_c = self.mesh.shape
         for attempt in range(8):
             if self.capacity is not None:
@@ -436,7 +448,8 @@ class Sharded2DEngine(SlabMesh):
             if self._impl == "resident" and self.kcap > single.MAX_XLA_KCAP:
                 self._impl = "sweep"
             self._build()
-            out = self._run(state._replace(
+            run = graphed.eager(self._run) if eager else self._run
+            out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
             need = int(out.overflow)  # the run's one readback
             if need == 0:

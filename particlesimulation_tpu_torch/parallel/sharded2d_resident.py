@@ -181,9 +181,10 @@ def make_sharded2d_resident_run(config: SimConfig, mesh, dec_r: AxisDecomp,
         mf, binned, _ = physics_mass(ts)
         return ts.x, ts.y, mf, (binned & (ts.m > 0)).to(torch.int32), ts.pid
 
-    def pair_pass(ts, collide: bool):
+    def pair_pass(ts, collide: bool, out=None):
         fx, fy, count, ft = cell_pairs.fused_pairs(
-            *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form)
+            *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form,
+            out=out)
         return fx, fy, mesh.psum(count[None]), ft != cell_pairs.INF
 
     pair_tiles, run = res.make_tile_run(

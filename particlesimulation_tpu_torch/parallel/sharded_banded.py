@@ -345,16 +345,21 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
         return list(zip(*(views(a) for a in (ts.x, ts.y, mf, alive,
                                              ts.pid))))
 
-    def pair_pass(ts, collide: bool):
+    def pair_pass(ts, collide: bool, out=None):
         """The fused collision(t) + pair-force(t+1) pass, one launch a band
         over every shard's chunk of it; (fx, fy, count, died) over the
-        pool."""
-        outs = [cell_pairs.fused_pairs(*tiles, k, EPSILON, collide=collide,
-                                       force_form=form)
-                for tiles, k in zip(pair_args(ts), ks)]
+        pool, the forces written into ``out`` (pool tensors) where given."""
+        fxo, fyo = ([[None] * len(ks)] * 2 if out is None
+                    else [views(o) for o in out])
+        outs = [cell_pairs.fused_pairs(
+                    *tiles, k, EPSILON, collide=collide, force_form=form,
+                    out=None if out is None else (ox, oy))
+                for tiles, k, ox, oy in zip(pair_args(ts), ks, fxo, fyo)]
         fx, fy, count, ft = zip(*outs)
-        return (torch.cat([a.reshape(-1) for a in fx]),
-                torch.cat([a.reshape(-1) for a in fy]),
+        if out is None:
+            out = (torch.cat([a.reshape(-1) for a in fx]),
+                   torch.cat([a.reshape(-1) for a in fy]))
+        return (*out,
                 mesh.psum(torch.sum(torch.stack(count), dtype=torch.int32)
                           [None]),
                 torch.cat([a.reshape(-1) for a in ft]) != cell_pairs.INF)

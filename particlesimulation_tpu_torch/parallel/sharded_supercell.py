@@ -180,11 +180,11 @@ def make_sharded_supercell_run(config: SimConfig, mesh, kcap: int, cap: int,
         alive = (binned & (ts.m > 0)).to(torch.int32)
         return ts.x, ts.y, mf, alive, ts.pid, sub.to(torch.int32)
 
-    def pair_pass(ts, collide: bool):
+    def pair_pass(ts, collide: bool, out=None):
         x, y, mf, alive, pid, sub = pair_args(ts)
         fx, fy, count, ft = cell_pairs.fused_pairs(
             x, y, mf, alive, pid, kcap, EPSILON, collide=collide,
-            force_form=form, sub=sub)
+            force_form=form, sub=sub, out=out)
         return fx, fy, mesh.psum(count[None]), ft != cell_pairs.INF
 
     pair_tiles, run = res.make_tile_run(

@@ -411,9 +411,10 @@ def test_deliver_at_is_the_pool_delivery_of_those_slots(dest_dtype):
 
 
 def _pair_pass(pair_args, kcap, form):
-    def pair_pass(ts, collide):
+    def pair_pass(ts, collide, out=None):
         fx, fy, count, ft = cell_pairs.fused_pairs(
-            *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form)
+            *pair_args(ts), kcap, EPSILON, collide=collide, force_form=form,
+            out=out)
         return fx, fy, count, ft != cell_pairs.INF
     return pair_pass
 
@@ -512,14 +513,15 @@ def test_banded_engine_keeps_its_cpu_bits(args, plan, steps):
         return list(zip(*(views(a) for a in (ts.x, ts.y, mf, alive,
                                              ts.pid))))
 
-    def pair_pass(ts, collide):
+    def pair_pass(ts, collide, out=None):
         outs = [cell_pairs.fused_pairs(*t, k, EPSILON, collide=collide,
                                        force_form=form)
                 for t, (_, _, k) in zip(pair_args(ts), plan)]
         fx, fy, count, ft = zip(*outs)
-        return (torch.cat([a.reshape(-1) for a in fx]),
-                torch.cat([a.reshape(-1) for a in fy]),
-                torch.sum(torch.stack(count), dtype=torch.int32),
+        fx, fy = (torch.cat([a.reshape(-1) for a in f]) for f in (fx, fy))
+        if out is not None:
+            fx, fy = out[0].copy_(fx), out[1].copy_(fy)
+        return (fx, fy, torch.sum(torch.stack(count), dtype=torch.int32),
                 torch.cat([a.reshape(-1) for a in ft]) != cell_pairs.INF)
 
     def old_advance(ts, fxd, fyd):
