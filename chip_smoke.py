@@ -24,9 +24,10 @@ and O(n) count risk); then it drives the three engines through ``Engine``:
   bound), then 10 steps against the dense engine on the card, whose own
   UNEVEN tiles go through both kernels too.
 
-Then the sweep engine (its three kernels of ``csrc/sweep.cu``: the COM,
-the forces, the collision pass; ``ops/cuda/sweep``) and the CLI; each
-sweep path must launch all three kernels:
+Then the sweep engine (its four kernels of ``csrc/sweep.cu``: the COM,
+the forces, the collision pass, and the occupancy they read on the card;
+``ops/cuda/sweep``) and the CLI; each sweep path must launch all four
+kernels:
 
 a. ``python -m particlesimulation_tpu_torch`` on golden s1 with the default
    engine (f64 parity) and device (cuda), as a subprocess: the golden lines
@@ -43,7 +44,8 @@ e. MEDIUM (golden s3's config, kcap ~2750) through the census: the ladder
    ends on the sweep, overflow 0, and two runs give the same bits;
 f. the CLI's fast route in-process, which must launch the fused kernel;
 g. the step times of parity s1, the f32 sweep s1 and MEDIUM, with device
-   ms, idle share, launches and syncs a step.
+   ms, idle share, launches and syncs a step (0: the sweep's run replays
+   one CUDA graph and reads nothing back inside it).
 
 Then the sweep's kernels alone (``python3 chip_smoke.py --sweep`` runs
 phases a-g, az and ba alone):
@@ -78,7 +80,11 @@ az. each kernel against its plain version on the card (``sweep_*_ref``):
    beside ``index_add_`` of (m, m·x, m·y) onto the cells; the COM against
    its chain floor too (the longest cell's lanes times one lane's latency
    on its chain, timed by a one-thread kernel running the same chain code:
-   ``sweep.com_chain``);
+   ``sweep.com_chain``). On every one of these inputs the occupancy kernel
+   against its plain version (``sweep_occupancy_ref``: an ``index_add_`` of
+   ones and the maxima), field for field: each key's count (the sentinel
+   lanes', wherever they lie, last), kmax, the cells of more than 512
+   lanes; timed beside ``index_add_`` + ``amax``;
 ba. the reference's heavy golden vectors through the default CLI (parity on
    cuda), a process each, their lines exactly: ``1 5000 100 1000000 100``
    (163), ``1 5000 20 1000000 10`` (MEDIUM in f64, 19), ``3 5000 50 1000000
@@ -98,8 +104,8 @@ s1, the f32 sweep at s1, MEDIUM by the default census, MEDIUM in parity
 long golden vector's: nine cells of ~1100 lanes) with the port
 package of each checkout ROOT in turn (a process each; parent, change,
 change, parent): ms/step, device ms/step, idle share, launches and syncs a
-step, and the digest of each run's final state after 4 steps, which must
-agree in all runs.
+step (0 required of this checkout), and the digest of each run's final
+state after 4 steps, which must agree in all runs.
 
 Then the supercell engine at SMALL (seed 50, side 10000, ncside 1300,
 N=5e5, 10 steps; the reference report's sparse workload, not cut):
@@ -355,21 +361,26 @@ ay. MEDIUM through the CLI's ``--mesh 4 --engine fast`` in-process: a tile
    route (the fused kernel launched), its lines printed; the mesh engine
    the CLI builds (resident tiles at kcap > 1024) timed as in (x).
 
-Then the tile runs as CUDA graphs (``ops/graphed``: a run's steady step,
-and with the settle pass its last step, captured once an engine build and
+Then the runs as CUDA graphs (``ops/graphed``: a run's steady step, and
+with the settle pass its last step, captured once an engine build and
 replayed each step) and the COM kernel over many launches:
 
 bc. for each of ``GRAPH_PATHS`` (the flagship resident, N = 1e7 resident
    and banded, UNEVEN banded, MEDIUM on resident tiles, SMALL supercell,
    the mesh's fast, supercell, column-band and cyclic routes at D = 4 and
-   the 2D (2, 2) mesh): the graphed run (``run``) against the eager one
-   (``run_eager``) from one state, every field and counter bit for bit;
+   the 2D (2, 2) mesh; then the sweep at parity s1, f32 s1, MEDIUM f32,
+   MEDIUM in parity (golden s3's config), ``1 1000 3 10000`` in parity
+   (teams off; MEDIUM's are on), the parity mesh at D = 2 and 4 and (2,
+   2), dense at the flagship and tiered at UNEVEN; the sweep paths' four
+   kernels must have launched, replays counted): the graphed run (``run``)
+   against the eager one (``run_eager``) from one state, every field and
+   counter bit for bit;
    the same engine on a second state (the first run's result) against its
    eager run, its graphs reused (the same graph objects), and the first
-   result unchanged after it; a retry forced by small tiles (half the
-   census kcap, 0.7 of the band widths, or where the engine's floor keeps
-   the kcap 96 particles moved into one cell), graphed against eager on
-   two engines built alike; three replays of every captured step under
+   result unchanged after it; on the tile paths and dense a retry forced
+   by small tiles (half the census kcap, 0.7 of the band widths, or where
+   the engine's floor keeps the kcap 96 particles moved into one cell),
+   graphed against eager on two engines built alike; three replays of every captured step under
    ``torch.cuda.set_sync_debug_mode("error")``; the profile's kernels a
    step (a run of k steps less a run of 1: the steady steps) equal,
    graphed and eager; ms/step, device ms/step and idle share of both in
@@ -648,6 +659,9 @@ REPLACES = {
     "sweep_com": "particlesimulation_tpu/ops/com.py:33",
     "sweep_forces": "particlesimulation_tpu/ops/forces.py:127",
     "sweep_collisions": "particlesimulation_tpu/ops/collisions.py:110",
+    # XLA code: the sweep's traced kmax (the JAX step's max_occupancy at
+    # engine.py:74 and :103).
+    "sweep_occupancy": "particlesimulation_tpu/ops/binning.py:58",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
@@ -664,6 +678,7 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "settle_sums_kernel", "sweep_com_kernel",
                 "sweep_forces_parity_kernel", "sweep_forces_fast_kernel",
                 "sweep_collisions_kernel", "sweep_collision_count_kernel",
+                "sweep_occupancy_kernel",
                 # a parent checkout's (--advance-times) row sums, and its
                 # sweep force kernel (--sweep-times)
                 "cell_sums_rows_kernel", "sweep_forces_kernel")
@@ -672,7 +687,8 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
 ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
                    "settle_sums")
 # The sweep engine's kernels (ops/cuda/sweep), by their launch counts.
-SWEEP_KERNELS = ("sweep_com", "sweep_forces", "sweep_collisions")
+SWEEP_KERNELS = ("sweep_com", "sweep_forces", "sweep_collisions",
+                 "sweep_occupancy")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -1274,6 +1290,20 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10, run=None,
             "syncs": syncs, "kernels": {k: v for k, v in ours.items() if v}}
 
 
+def steady_breakdown(label, eng, state, step_ms_host, steps):
+    """``device_breakdown`` of the steady steps (a run of ``steps`` less a
+    run of 1), taken again (up to twice) where the profiler lost or
+    misplaced kernel records: a count of launches a step that is not a
+    whole number, or more device time than 1.05x the step took."""
+    for again in range(3):
+        times = device_breakdown(label + (" (again)" if again else ""), eng,
+                                 state, step_ms_host, steps, base=1)
+        whole = abs(times["launches"] - round(times["launches"])) < 0.01
+        if whole and times["idle"] > -0.05:
+            break
+    return times
+
+
 def _parity(seed, side, nc, n, device):
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
@@ -1454,7 +1484,8 @@ def check_cli_fast(vec=GOLDEN_S1, kernel="fused_pairs", extra=()):
 def time_sweeps(card, medium):
     """(g) ms a step of the sweep engine (step_ms over 20 steps; MEDIUM's
     from ``check_medium``'s runs): parity s1, f32 sweep s1, MEDIUM; each
-    with its device time, idle share, launches and host syncs a step."""
+    with its device time, idle share, launches and host syncs a step (a
+    run of one step more less a run of 1; 0 syncs required)."""
     from particlesimulation_tpu_torch.config import SimConfig
     from particlesimulation_tpu_torch.engine import Engine
 
@@ -1475,8 +1506,12 @@ def time_sweeps(card, medium):
         print(f"{label}, {eng.impl}: {ms:.4f} ms/step, "
               f"{state.x.shape[0] / ms / 1e3:.4f} M particle-steps/s on "
               f"{card}", flush=True)
-        out[label] = {"ms": ms, **device_breakdown(label, eng, state, ms,
-                                                   steps)}
+        out[label] = {"ms": ms, **steady_breakdown(label, eng, state, ms,
+                                                   steps + 1)}
+        if out[label]["syncs"] != 0:
+            raise AssertionError(f"{label}: {out[label]['syncs']} host syncs "
+                                 f"a step (a graphed sweep reads nothing "
+                                 f"back inside a run)")
     return out
 
 
@@ -4153,12 +4188,13 @@ def read_sweep_launches(label=None):
 
 
 def _sweep_lanes(x, y, side, nc):
-    """The sweep step's lanes of sorted positions: key, pos, occupancy."""
+    """The sweep step's lanes of sorted positions: key, pos, occupancy (its
+    host part read back, for the plain versions)."""
     from particlesimulation_tpu_torch.ops import binning
 
     key, _ = binning.cell_keys(x, y, side, nc)
     pos, _ = binning.segment_positions(key)
-    return key, pos, binning.occupancy(key, nc * nc)
+    return key, pos, binning.occupancy(key, nc * nc, pos).read()
 
 
 def _alive_pairs(key, alive, ncells):
@@ -4205,7 +4241,9 @@ def _sweep_bounds(key, alive, plan, ncells, x):
     out; the collisions the keys, the positions in cell (int32 in JAX, 4 B
     a lane), x, y, alive, the dead mask and the count out. The lanes' int64
     ``pos`` and the per-key counts are this interface's choice, not the
-    functions' need, and are not counted. The operations the function needs
+    functions' need, and are not counted there; the occupancy kernel's
+    function is the counts: its keys and pos read, the counts written. The
+    operations the function needs
     on these lanes: the COM 9 a lane (parity: two divisions, four products,
     three sums; fast: two products, three sums a lane, two divisions a
     cell); the forces 17 an unordered pair of alive lanes in one cell (their
@@ -4226,6 +4264,9 @@ def _sweep_bounds(key, alive, plan, ncells, x):
         "sweep_forces": (n * (4 + 5 * s + 1) + 3 * 8 * (ncells + 1) * s,
                          17 * pairs + 17 * 8 * alive_lanes),
         "sweep_collisions": (coll_bytes, 6 * cand),
+        # each lane's key and pos read, each key's count written (the
+        # occupancy's own interface: the function is the counts)
+        "sweep_occupancy": (n * (4 + 8) + 8 * (ncells + 1), 0),
     }
     out = {}
     for k, (nbytes, ops) in work.items():
@@ -4241,14 +4282,14 @@ def _position_order_com(x, y, m, key, pos, plan, ncells):
     order, and its parent's), as plain torch: position p's lanes added to
     their cells' sums, one lane a cell in each call, then the quotients."""
     real = key < ncells
-    p = torch.where(real, pos, torch.full_like(pos, plan.kmax))
+    p = torch.where(real, pos, torch.full_like(pos, plan.host_kmax))
     order = torch.argsort(p, stable=True)
-    per = torch.bincount(p, minlength=plan.kmax + 1).tolist()
+    per = torch.bincount(p, minlength=plan.host_kmax + 1).tolist()
     k = key.long()
     sums = torch.zeros((3, ncells), dtype=x.dtype, device=x.device)
     terms = torch.stack([m, m * x, m * y])
     start = 0
-    for c in per[:plan.kmax]:
+    for c in per[:plan.host_kmax]:
         idx = order[start:start + c]
         sums.index_add_(1, k[idx], terms[:, idx])
         start += c
@@ -4335,11 +4376,15 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
     com_k, com_p, ck, com_err, com_bits = _check_com(tag, lanes_, x, y, m,
                                                       ncells)
     if com_only:
-        print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}: COM bitwise "
+        print(f"{tag}: {key.shape[0]} lanes, kmax {plan.host_kmax}: COM "
+              f"bitwise "
               f"{com_bits} (max |err| {com_err:.3e}; f32: the position-order "
               f"sums' bits), a second run bit for bit", flush=True)
         return {"sweep_com": (com_k, com_p)}, {"sweep_com": com_err}
     tables = stencil.stencil_tables(*ck, side, nc)
+    occ_k, occ_p = check_occupancy(tag, key, pos, ncells)
+    # The chunk class a run takes from its first occupancy.
+    chunk = sweep.chunk_class(plan.host_kmax)
 
     def forces_k():
         return sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
@@ -4351,7 +4396,7 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
 
     def coll_k():
         return sweep.sweep_collisions(x, y, alive, key, pos, plan, EPSILON,
-                                      ncells)
+                                      ncells, chunk)
 
     def coll_p():
         return sweep.sweep_collisions_ref(x, y, alive, key, pos, plan,
@@ -4361,7 +4406,8 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
     (nk, dk), (np_, dp) = coll_k(), coll_p()
     errs = {"sweep_com": com_err,
             "sweep_forces": max(_max_diff(a, b) for a, b in zip(fk, fp)),
-            "sweep_collisions": float(int(nk) != int(np_))}
+            "sweep_collisions": float(int(nk) != int(np_)),
+            "sweep_occupancy": 0.0}
     force_bits = all(_bits_equal(a, b) for a, b in zip(fk, fp))
     if int(nk) != int(np_) or not torch.equal(dk, dp):
         raise AssertionError(f"{tag}: collisions {int(nk)} vs {int(np_)}, "
@@ -4373,14 +4419,60 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
     first = [*fk, nk, dk]
     if not all(_bits_equal(a, b) for a, b in zip(again, first)):
         raise AssertionError(f"{tag}: a second run differs")
-    print(f"{tag}: {key.shape[0]} lanes, kmax {plan.kmax}, "
+    print(f"{tag}: {key.shape[0]} lanes, kmax {plan.host_kmax}, "
           f"{int(nk)} collisions, {int(dk.sum())} deaths: COM bitwise "
           f"{com_bits} (max |err| {errs['sweep_com']:.3e}; f32: the "
           f"position-order sums' bits), forces bitwise "
           f"{force_bits} (max |err| {errs['sweep_forces']:.3e}), "
           f"count and dead set exact, a second run bit for bit", flush=True)
     return {"sweep_com": (com_k, com_p), "sweep_forces": (forces_k, forces_p),
-            "sweep_collisions": (coll_k, coll_p)}, errs
+            "sweep_collisions": (coll_k, coll_p),
+            "sweep_occupancy": (occ_k, occ_p)}, errs
+
+
+def check_occupancy(tag, key, pos, ncells):
+    """(az) The occupancy kernel against its plain version on one set of
+    lanes, field for field: each key's count (the sentinels' last), kmax,
+    the large cells; a second run the same. Returns the kernel call and the
+    plain call (for timing)."""
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    def occ_k():
+        return sweep.sweep_occupancy(key, pos, ncells)
+
+    def occ_p():
+        return sweep.sweep_occupancy_ref(key, pos, ncells)
+
+    got, want = occ_k(), occ_p()
+    bad = [f for f, a, b in zip(("counts", "kmax", "large"), got, want)
+           if not torch.equal(a, b)]
+    if bad or not all(torch.equal(a, b) for a, b in zip(occ_k(), got)):
+        raise AssertionError(f"{tag}: occupancy {bad} differ from the plain "
+                             f"version (or a second run)")
+    print(f"{tag}: occupancy kernel = plain field for field (kmax "
+          f"{int(got[1])}, {int(got[2])} cells of more than "
+          f"{sweep.SMALL_CELL} lanes, {int(got[0][-1])} sentinel lanes)",
+          flush=True)
+    return occ_k, occ_p
+
+
+def _occupancy_library(key, ncells):
+    """``index_add_`` of ones onto the keys' counts and ``amax`` of the
+    real cells': the PyTorch calls the occupancy kernel replaces (timed
+    only; the port never calls them)."""
+    k = torch.clamp(key.long(), max=ncells)
+    ones = torch.ones_like(k)
+    counts = torch.zeros(ncells + 1, dtype=torch.int64, device=key.device)
+
+    def lib():
+        counts.zero_().index_add_(0, k, ones)
+        return torch.amax(counts[:ncells])
+    return lib
+
+
+# The PyTorch calls timed beside a sweep kernel (library_ms).
+LIBRARY_CALLS = {"sweep_com": "index_add_",
+                 "sweep_occupancy": "index_add_ + amax"}
 
 
 def _com_library(x, y, m, key, ncells):
@@ -4429,7 +4521,7 @@ def _layouts(lanes, ncells, layouts=("sorted", "mesh")):
         perm = (torch.from_numpy(adv.mesh_lane_order(key.numpy(), ncells))
                 if layout == "mesh" else torch.arange(key.shape[0]))
         out = [t[perm].contiguous().cuda() for t in lanes]
-        yield layout, out, binning.occupancy(out[4], ncells)
+        yield layout, out, binning.occupancy(out[4], ncells, out[5]).read()
 
 
 def check_com_case():
@@ -4597,23 +4689,29 @@ def check_sweep_kernels(card, com_only=False):
             rec.update(max_abs_err=errs[k], bound_ms=bounds[k][0],
                        bound_by=bounds[k][1], library_ms=None)
             if k == "sweep_com":
-                rec["chain_floor_ms"] = plan.kmax * lane_ms[st.x.dtype]
+                rec["chain_floor_ms"] = (plan.host_kmax
+                                         * lane_ms[st.x.dtype])
                 if not parity:
                     lib = _com_library(st.x, st.y, st.m, key, nc * nc)
                     rec["library_ms"] = _timed(lib, 20)
                     rec["library_device_ms"] = device_ms(lib, 20)
             if k == "sweep_collisions":
                 rec.update(candidates=cand, all_pairs_bound_ms=all_pairs)
+            if k == "sweep_occupancy":
+                lib = _occupancy_library(key, nc * nc)
+                rec["library_ms"] = _timed(lib, 20)
+                rec["library_device_ms"] = device_ms(lib, 20)
             out[k] = rec
             print(f"{label} {k}: {rec['ms']:.4f} ms a call, "
                   f"{rec['device_ms']:.4f} device ms, bound "
                   f"{rec['bound_ms']:.4f} ({rec['bound_by']}; "
                   f"{pairs:.4g} alive pairs), plain {rec['plain_ms']:.4f} "
-                  f"ms" + (f", index_add_ {rec['library_ms']:.4f} ms a call "
+                  f"ms" + (f", {LIBRARY_CALLS[k]} {rec['library_ms']:.4f} ms "
+                           f"a call "
                            f"({rec['library_device_ms']:.4f} device)"
                            if rec["library_ms"] is not None else "")
                   + (f"; chain floor {rec['chain_floor_ms']:.4f} ms "
-                     f"({plan.kmax} lanes), the kernel "
+                     f"({plan.host_kmax} lanes), the kernel "
                      f"{rec['device_ms'] / rec['chain_floor_ms']:.2f}x it"
                      if k == "sweep_com" else "")
                   + (f"; {cand} candidate pairs, all-pairs bound "
@@ -4678,7 +4776,10 @@ def run_golden(vectors, required):
 
 
 # --sweep-times: (label, config, parity, impl asked for (None: the
-# census), steps profiled).
+# census), steps profiled (a run of one more less a run of 1)); each
+# path's ms/step over SWEEP_TIMED steps (a graphed run's host time
+# overlaps its device time, so a few steps do not time it).
+SWEEP_TIMED = 20
 SWEEP_PATHS = (("parity s1", GOLDEN_S1[:4], True, None, 2),
                ("f32 sweep s1", GOLDEN_S1[:4], False, "sweep", 2),
                ("MEDIUM default", MEDIUM[:4], False, None, 1),
@@ -4689,9 +4790,11 @@ SWEEP_PATHS = (("parity s1", GOLDEN_S1[:4], True, None, 2),
 def sweep_times(root):
     """(bb) With the port package of the checkout at ``root``, each path of
     ``SWEEP_PATHS`` (MEDIUM by the default census: the sweep under
-    dense_backend="pallas"): ms/step (step_ms over 4 steps), device
-    ms/step, idle share, launches and syncs a step, and the digest of each
-    run's final state after 4 steps. Prints one JSON line."""
+    dense_backend="pallas"): ms/step (step_ms over SWEEP_TIMED steps, best
+    of 2),
+    device ms/step, idle share, launches and syncs a step (0 required of
+    this checkout), and the digest of each run's final state after 4
+    steps. Prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
@@ -4706,15 +4809,17 @@ def sweep_times(root):
         final = eng.run(state, 4)
         if eng.impl != "sweep":
             raise AssertionError(f"{root}: {label} ran {eng.impl}")
-        ms, t1, tk = step_ms(eng, state, 4, reps=1)
-        t = device_breakdown(f"{root}: {label}", eng, state, ms, steps)
+        ms, t1, tk = step_ms(eng, state, SWEEP_TIMED)
+        t = steady_breakdown(f"{root}: {label}", eng, state, ms, steps + 1)
+        if os.path.samefile(root, ROOT) and t["syncs"] != 0:
+            raise AssertionError(f"{label}: {t['syncs']} host syncs a step")
         out[label] = {"ms_per_step": ms, "device_ms_per_step": t["device_ms"],
                       "idle": t["idle"], "launches": t["launches"],
                       "syncs": t["syncs"], "step_kernels": t["kernels"],
                       "digest": digest([getattr(final, f)
                                         for f in final._fields])}
         print(f"{root}: {label}: {ms:.4f} ms/step (run(1) {t1:.4f} s, "
-              f"run(5) {tk:.4f} s), final digest "
+              f"run({SWEEP_TIMED + 1}) {tk:.4f} s), final digest "
               f"{out[label]['digest'][:16]}", flush=True)
         del eng, state, final
         torch.cuda.empty_cache()
@@ -5011,13 +5116,16 @@ def flagship_mesh_times(root):
     print("MESH_TIMES " + json.dumps(times), flush=True)
 
 
-# --- Tile runs as CUDA graphs (phase bc) ------------------------------------
+# --- Runs as CUDA graphs (phase bc) -----------------------------------------
 
-# (label, engine class, config args, config keywords, engine keywords, the
-# engine the census must choose, steps checked, steps timed): every path
-# that runs ``ops/resident.make_tile_run``. A graphed run's host time
-# overlaps its device time, so a step's time is timed over enough steps
-# that the device's part outlasts the run's prologue and epilogue.
+# (label, engine class, config args, config keywords ("precision":
+# "parity" for the parity engine), engine keywords, the engine the census
+# must choose, steps checked, steps timed): every path that runs
+# ``ops/resident.make_tile_run``, then the sweep (one device, the 1D and 2D
+# meshes), dense and tiered runs (``graphed.loop_run``). A graphed run's
+# host time overlaps its device time, so a step's time is timed over
+# enough steps that the device's part outlasts the run's prologue and
+# epilogue.
 GRAPH_PATHS = (
     ("flagship resident", "engine", GOLDEN_S1[:4], {}, {}, "resident", 10,
      100),
@@ -5039,6 +5147,26 @@ GRAPH_PATHS = (
      {"impl": "banded-cyclic"}, "banded", 10, 40),
     ("2D (2, 2)", "mesh2d", GOLDEN_S1[:4],
      {"n_shards": 4, "mesh_shape": (2, 2)}, {}, "resident", 10, 40),
+    ("parity s1", "engine", GOLDEN_S1[:4], {"precision": "parity"}, {},
+     "sweep", 6, 40),
+    ("f32 sweep s1", "engine", GOLDEN_S1[:4], {}, {"impl": "sweep"}, "sweep",
+     6, 40),
+    ("MEDIUM f32 sweep", "engine", MEDIUM[:4], {}, {}, "sweep", 6, 20),
+    ("MEDIUM parity (golden s3)", "engine", MEDIUM[:4],
+     {"precision": "parity"}, {}, "sweep", 5, 10),
+    ("parity 9 cells (teams off)", "engine", LONG_GOLDEN[0][:4],
+     {"precision": "parity"}, {}, "sweep", 6, 40),
+    ("mesh parity D=2", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 2, "precision": "parity"}, {}, "sweep", 4, 20),
+    ("mesh parity D=4", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 4, "precision": "parity"}, {}, "sweep", 4, 20),
+    ("2D parity (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2), "precision": "parity"}, {},
+     "sweep", 4, 20),
+    ("dense flagship", "engine", GOLDEN_S1[:4], {}, {"impl": "dense"},
+     "dense", 6, 40),
+    ("UNEVEN tiered", "engine", UNEVEN, {}, {"impl": "tiered"}, "tiered", 6,
+     40),
 )
 
 
@@ -5049,7 +5177,7 @@ def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
     keeps the census kcap, as supercell's rows·kcap >= N does at SMALL, 96
     particles moved into particle 0's cell), so that the ladder retries on
     a tile run."""
-    from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
     from particlesimulation_tpu_torch.parallel.sharded2d import (
@@ -5057,6 +5185,8 @@ def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
 
     cls = {"engine": Engine, "mesh": ShardedEngine,
            "mesh2d": Sharded2DEngine}[kind]
+    if cfg_kw.get("precision") == "parity":
+        cfg_kw = {**cfg_kw, "precision": Precision.PARITY}
     cfg = SimConfig(*args, **cfg_kw)
     eng = cls(cfg, device="cuda", **eng_kw)
     state = eng.init_state()
@@ -5097,16 +5227,16 @@ def _target(eng):
     return eng.target() if hasattr(eng, "target") else eng
 
 
-def _tile_run_of(eng):
-    """The ``graphed.TileRun`` an engine built last (a 2D mesh's delegate's
-    where the census chose one)."""
+def _graphed_run_of(eng):
+    """The ``graphed.GraphedRun`` an engine built last (a 2D mesh's
+    delegate's where the census chose one)."""
     from particlesimulation_tpu_torch.ops import graphed
 
     target = _target(eng)
     run = target._run
-    if not isinstance(run, graphed.TileRun):
+    if not isinstance(run, graphed.GraphedRun):
         raise AssertionError(f"{type(eng).__name__} ran {target.impl}: no "
-                             f"tile run")
+                             f"graphed run")
     return run
 
 
@@ -5151,11 +5281,12 @@ def _replays_sync_free(label, graphs):
 
 def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
                      k_time):
-    """(bc) One tile path: the graphed run against the eager one, bit for
-    bit, from one state; the same engine on a second state (the first
-    run's result) against its eager run, its graphs reused, the first
-    result unchanged after it; a forced retry graphed against eager; no
-    host sync in the replays; the profile's kernels a step graphed against
+    """(bc) One path: the graphed run against the eager one, bit for bit,
+    from one state; the same engine on a second state (the first run's
+    result) against its eager run, its graphs reused, the first result
+    unchanged after it; on a tile path (resident, supercell, banded, the
+    meshes' tiles, dense) a forced retry graphed against eager; no host
+    sync in the replays; the profile's kernels a step graphed against
     eager; ms/step, device ms/step and idle share of both, the capture's
     host time and the graphs' pool bytes. Returns the path's record."""
     from particlesimulation_tpu_torch.ops import graphed
@@ -5163,13 +5294,18 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
     t0 = time.perf_counter()
     eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
     reset_launches()
+    reset_sweep_launches()
     first = eng.run(state, k)
     torch.cuda.synchronize()
     launches = read_launches()
+    if want == "sweep":
+        # The graphed sweep's launches (the replays' included), for the
+        # kernels line: each of its four kernels must have launched.
+        launches = read_sweep_launches(f"{label} (bc, graphed)")
     if eng.impl != want or int(first.overflow) != 0:
         raise AssertionError(f"{label}: ran {eng.impl} (want {want}), "
                              f"overflow {int(first.overflow)}")
-    run = _tile_run_of(eng)
+    run = _graphed_run_of(eng)
     graphs = run.graphs
     captured = {name: graphs._graphs[name][0] for name in graphs.names}
     a = _state_bits(first)
@@ -5185,22 +5321,25 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
     _bitwise(f"{label}: the first result after the second run", a,
              _state_bits(first))
     # A retry forced by small tiles: graphed against eager on two engines
-    # built alike.
-    e1, s1_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
-    k0 = _target(e1).kcap
-    r1 = e1.run(s1_, k)
-    e2, s2_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
-    r2 = e2.run_eager(s2_, k)
-    k1 = _target(e1).kcap
-    if (k1 or 0) <= k0 or e1.impl != e2.impl or e1.kcap != e2.kcap:
-        raise AssertionError(f"{label}: no retry (kcap {k0} -> {k1}, "
-                             f"{e1.impl} vs {e2.impl})")
-    _bitwise(f"{label}: retried, graphed vs eager", _state_bits(r1),
-             _state_bits(r2))
-    retried = f"{e1.impl} kcap {k0} -> {k1}"
-    for e in (e1, e2):
-        graphed.release(_target(e)._run)
-    del e1, e2, r1, r2
+    # built alike (the sweep has no tiles; tiered's plan comes from the
+    # census of a run without a given kcap).
+    retried = "none (no tile retry on this path)"
+    if want not in ("sweep", "tiered"):
+        e1, s1_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
+        k0 = _target(e1).kcap
+        r1 = e1.run(s1_, k)
+        e2, s2_ = _graph_engine(kind, args, cfg_kw, eng_kw, small=True)
+        r2 = e2.run_eager(s2_, k)
+        k1 = _target(e1).kcap
+        if (k1 or 0) <= k0 or e1.impl != e2.impl or e1.kcap != e2.kcap:
+            raise AssertionError(f"{label}: no retry (kcap {k0} -> {k1}, "
+                                 f"{e1.impl} vs {e2.impl})")
+        _bitwise(f"{label}: retried, graphed vs eager", _state_bits(r1),
+                 _state_bits(r2))
+        retried = f"{e1.impl} kcap {k0} -> {k1}"
+        for e in (e1, e2):
+            graphed.release(_target(e)._run)
+        del e1, e2, r1, r2
     _replays_sync_free(label, graphs)
     # Time both in the same call, and profile both.
     rec = {"impl": eng.impl, "kcap": eng.kcap, "launches": launches,
@@ -5214,14 +5353,22 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
         rec[tag] = {"ms": ms, "device_ms": times["device_ms"],
                     "idle": times["idle"], "launches": times["launches"],
                     "syncs": times["syncs"]}
-    for _ in range(2):
-        if rec["graphed"]["launches"] == rec["eager"]["launches"]:
+    def clean():
+        g, e = rec["graphed"]["launches"], rec["eager"]["launches"]
+        return (g == e and g == round(g)
+                and min(rec["graphed"]["idle"], rec["eager"]["idle"]) > -0.05)
+
+    for _ in range(4):
+        if clean():
             break
-        # The profiler has lost kernel records before: profile both again.
+        # The profiler has lost or misplaced kernel records before (a
+        # count off by a fraction or by a stray record, or more device time
+        # than the step took): profile both again.
         for tag, fn in (("graphed", eng.run), ("eager", eng.run_eager)):
-            rec[tag]["launches"] = device_breakdown(
-                f"{label} {tag} (again)", eng, state, rec[tag]["ms"],
-                steps=k, run=fn, base=1)["launches"]
+            times = device_breakdown(f"{label} {tag} (again)", eng, state,
+                                     rec[tag]["ms"], steps=k, run=fn, base=1)
+            rec[tag].update(device_ms=times["device_ms"], idle=times["idle"],
+                            launches=times["launches"])
     if rec["graphed"]["launches"] != rec["eager"]["launches"]:
         raise AssertionError(f"{label}: {rec['graphed']['launches']} kernels "
                              f"a step graphed, {rec['eager']['launches']} "
@@ -5240,7 +5387,7 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
           + ", ".join(f"{n} {v * 1e3:.1f} ms" for n, v in
                       rec["capture_s"].items())
           + f"; graph pool {pool}; retry {retried}; bit for bit graphed = "
-          f"eager on the first state, a second state and the retry "
+          f"eager on the first state, a second state and any retry "
           f"({time.perf_counter() - t0:.1f} s) on {card}", flush=True)
     run.release()
     del eng, state, first, second
@@ -5277,14 +5424,15 @@ def check_capture_raises():
 
 
 def check_graphs(card):
-    """(bc) Every tile path graphed against eager (``check_graph_path``),
-    then a capture that must raise. Returns {label: record}."""
+    """(bc) Every path of ``GRAPH_PATHS`` graphed against eager
+    (``check_graph_path``), then a capture that must raise. Returns
+    {label: record}."""
     t0 = time.perf_counter()
     recs = {}
     for label, *path in GRAPH_PATHS:
         recs[label] = check_graph_path(card, label, *path)
     check_capture_raises()
-    print(f"tile runs as CUDA graphs (bc): {len(recs)} paths, "
+    print(f"runs as CUDA graphs (bc): {len(recs)} paths, "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     print("GRAPH_TIMES " + json.dumps(recs), flush=True)
     return recs
@@ -5535,6 +5683,7 @@ def main():
         Engine, make_dense_step, make_resident_run)
     from particlesimulation_tpu_torch.ops.cuda.launch_sweep import (
         UNEVEN_PLAN, class_tiles, dense_tiles, resident_tiles)
+    from particlesimulation_tpu_torch.ops import graphed
     from particlesimulation_tpu_torch.ops.tiered import make_tiered_step
 
     build_libraries()
@@ -5643,6 +5792,13 @@ def main():
               f"{n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} s, "
               f"run(11) {t11:.4f} s) on {card}", flush=True)
         device_breakdown(f"UNEVEN {label}", e, st, ms)
+    # Each engine's graphs go with the phase that used them: a graph
+    # replayed under torch.profiler after many phases of other graphs
+    # crashed inside replay() (PERF.md section 7), so check_banded times
+    # engines of its own.
+    for e in (eng, eng_v1, eng_d, eng_t, eng_dun):
+        graphed.release(e._run)
+    del eng_t, eng_dun
 
     # 8. The sweep engine (f64 parity and f32) and the CLI.
     t_sweep = time.perf_counter()
@@ -5664,8 +5820,11 @@ def main():
     sub_rec, sums_rec, small_launches, small_cli = check_small(card)
 
     # 10. The banded engine: UNEVEN by the census, and N = 1e7 streaming.
-    banded_launches, _ = check_banded(card, (eng_t, state_t),
-                                      (eng_dun, state_dun))
+    def fresh(impl):
+        e = Engine(un, device="cuda", impl=impl)
+        return e, e.init_state()
+
+    banded_launches, _ = check_banded(card, fresh("tiered"), fresh("dense"))
 
     # 11. The 1D row mesh at the flagship on a local mesh of the card.
     mesh_launches, _ = check_mesh(card)

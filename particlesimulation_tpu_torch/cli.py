@@ -92,7 +92,10 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     state = eng.init_state()
     # Warm-up outside the timed region (the reference's timer brackets only
-    # simulate(); building the kernels is the analog of g++'s compile).
+    # simulate(); building the kernels is the analog of g++'s compile): a
+    # run of 0 steps builds the kernels and captures the run's CUDA graphs,
+    # as JAX's run(state, 0) compiles its one program, so that the timed
+    # run replays them.
     state0 = eng.run(state, 0)
     t0 = time.perf_counter()
     state = eng.run(state0, n_steps)

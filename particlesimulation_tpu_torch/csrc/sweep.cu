@@ -1,15 +1,19 @@
 // The sweep engine's three passes over sorted particle lanes, for Hopper
 // (sm_90a): per-cell centre of mass, the forces (same-cell pairs, then the
-// 8 stencil monopole terms) and the collision pass.
+// 8 stencil monopole terms) and the collision pass; and the occupancy they
+// read.
 //
 // The sweep engine keeps its particles in flat arrays sorted so that each
 // cell's lanes are contiguous (by cell key and particle id on one device;
 // on the mesh, each shard's slab sorted by its local cell, the shards'
 // out-of-range lanes between them). Each lane carries its cell key and its
 // position in the cell (pos): the cell starts at lane - pos, and its length
-// is counts[key], the per-key count that binning.occupancy builds on the
-// device (an index_add_ of ones). A key at or above ncells is a sentinel:
-// an out-of-range particle or an empty mesh slot, in no cell.
+// is counts[key], the per-key count that sweep_occupancy_kernel builds on
+// the card beside the largest cell's count (kmax) and the count of large
+// cells, which the force and collision kernels read there: no value of the
+// step goes through the host, so a CUDA graph replays the step whole. A key
+// at or above ncells is a sentinel: an out-of-range particle or an empty
+// mesh slot, in no cell.
 //
 // They replace XLA programs of the JAX package (no Pallas kernel there):
 //   sweep_com_kernel<T, kParity>: ops/com.py com_parity (a lax.scan over
@@ -20,7 +24,9 @@
 //     followed by monopole_forces (:289);
 //   sweep_collisions_kernel<T> + sweep_collision_count_kernel: ops/
 //     collisions.py detect_collisions_blocked (:110), fori_loops of the
-//     pair ranks' minimum and the mutual-first count.
+//     pair ranks' minimum and the mutual-first count;
+//   sweep_occupancy_kernel: ops/binning.py max_occupancy (:58), the
+//     traced kmax the JAX sweep's loops and rank guard take.
 // The port ran them as eager torch, one launch per operation per offset
 // (~9600 launches a step at the parity flagship).
 //
@@ -123,6 +129,8 @@ constexpr int kTile = 32;     // parity forces: a row tile, a column tile
 constexpr int kGroup = 8;     // parity forces: row lanes a buffer round
 constexpr int kWarps = 8;     // parity forces: warps a block
 constexpr int kLarge = 512;   // parity forces: the most lanes a small cell
+constexpr int kTeam = 16;     // parity forces: the warps of a large cell
+constexpr int kSmWarps = 32;  // the warps an SM holds
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 inline unsigned blocks_for(int n) {
@@ -140,6 +148,61 @@ __device__ __forceinline__ bool cell_of_lane(int i, const int* key,
   *s = i - (int)pos[i];
   *e = *s + (int)counts[k];
   return true;
+}
+
+// ---- The occupancy: each key's lane count, the largest cell and the large
+// cells, on the card (the JAX package's ops/binning.py max_occupancy, a
+// 0-d device value its sweep carries; in the port it replaces an
+// index_add_ of ones and a copy of the counts to the host).
+//
+// out: ncells + 3 int64, zeroed by the launcher (empty cells keep 0):
+// out[k] the lanes of real cell k, out[ncells] the sentinel lanes (key >=
+// ncells, wherever they lie: in the mesh's batched keys they sit between
+// the shards' cells, so the keys are not sorted as a whole), out[ncells + 1]
+// the most lanes of one real cell (kmax), out[ncells + 2] the real cells
+// of more than kLarge lanes (the parity force kernel's team rule). A cell's
+// lanes are contiguous and in position order, so its last lane (the next
+// lane's key differs) writes pos + 1: no atomic a lane. A block adds its
+// sentinels and large cells and takes its kmax in one atomic each.
+//
+// What bounds it: bytes, each lane's key (4 B) and pos (8 B) read once and
+// each cell's count (8 B) written once; N = 1e6 lanes of 4900 cells move
+// ~12 MB, ~4 us at 3.35 TB/s.
+__global__ void __launch_bounds__(kThreads) sweep_occupancy_kernel(
+    const int* __restrict__ key, const int64_t* __restrict__ pos, int n,
+    int ncells, long long* out) {
+  __shared__ long long top[kThreads / 32];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool sentinel = false, large = false;
+  long long c = 0;
+  if (i < n) {
+    const int k = key[i];
+    if ((unsigned)k >= (unsigned)ncells) {
+      sentinel = true;
+    } else if (i == n - 1 || key[i + 1] != k) {
+      c = pos[i] + 1;
+      out[k] = c;
+      large = c > kLarge;
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    const long long o = __shfl_down_sync(kFullMask, c, d);
+    c = o > c ? o : c;
+  }
+  if ((threadIdx.x & 31) == 0) top[threadIdx.x >> 5] = c;
+  const int sentinels = __syncthreads_count(sentinel);
+  const int larges = __syncthreads_count(large);
+  if (threadIdx.x == 0) {
+    long long m = 0;
+    for (int w = 0; w < kThreads / 32; ++w) m = top[w] > m ? top[w] : m;
+    if (sentinels > 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(out + ncells),
+                (unsigned long long)sentinels);
+    if (m > 0) atomicMax(out + ncells + 1, m);
+    if (larges > 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(out + ncells + 2),
+                (unsigned long long)larges);
+  }
 }
 
 // ---- The COM pass: per cell M, MX, MY (ops/com.py com_parity or com_fast).
@@ -694,9 +757,10 @@ __device__ __forceinline__ void add_stencil(T xi, T yi, T mi, bool live,
 // cell (kLarge lanes or fewer) computes its own sum (parity_lane: every
 // term from the lower lane's side, so each pair's term twice). A large
 // cell's row tiles (kTile lanes from a position that is a multiple of
-// kTile; column tiles likewise) go to a team of warps (the host's `team`,
-// 16 where the large cells' teams fill the card, else 0: every cell a lane
-// a thread), each taking every team-th: the warp that took a lane of row
+// kTile; column tiles likewise) go to a team of warps (`team`, kTeam where
+// the large cells' teams fill the card, else 0: every cell a lane a thread;
+// the kernel reads the large cells' count from the occupancy on the card),
+// each taking every team-th: the warp that took a lane of row
 // tile r < team runs row tiles r, r + team, ... of the cell. In a row
 // tile, thread u holds row lane u's sum. The warp computes the triangle of
 // pairs inside the row tile, then each column tile above it, ascending:
@@ -937,8 +1001,13 @@ __global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
     const int64_t* __restrict__ counts, int n, int ncells,
     const double* __restrict__ ml, const double* __restrict__ mxl,
     const double* __restrict__ myl, double g, double* fx, double* fy,
-    int team, int* sync) {
+    const long long* __restrict__ large, int sms, int* sync) {
   __shared__ RowShared shared[kWarps];
+  // The team rule, on the occupancy's large-cell count: kTeam warps a large
+  // cell where the large cells' teams fill every warp of the card's `sms`
+  // SMs, else none.
+  const int team =
+      *large * kTeam >= (long long)kSmWarps * sms ? kTeam : 0;
   RowShared& sh = shared[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
   const int items = (n + kTile - 1) / kTile;
@@ -1042,11 +1111,15 @@ __global__ void __launch_bounds__(kThreads) sweep_forces_fast_kernel(
 // ---- Collisions.
 
 // A block a range of kThreads lanes. The block runs the chunks that start
-// in its range: a chunk is up to `chunk` (the host's min(kmax, kChunk))
-// consecutive lanes of one cell, starting at a lane whose position is a
-// multiple of `chunk`, so every lane of a cell lies in exactly one chunk
-// and a cell of kmax lanes or fewer is one chunk. The block also writes
-// its range's sentinel lanes.
+// in its range: a chunk is up to `chunk` = min(kmax, cls) consecutive
+// lanes of one cell, starting at a lane whose position is a multiple of
+// `chunk`, so every lane of a cell lies in exactly one chunk and a cell of
+// `chunk` lanes or fewer is one chunk. kmax is the occupancy's, read on the
+// card; `cls`, a power of two up to kChunk, is the launcher's, and sets
+// the shared memory (a graph captures it with the launch). Every receiver
+// chunk meets every partner chunk of its cell, and the lowest partner that
+// hits is the same whatever the chunks: the count and the dead set do not
+// depend on the chunk. The block also writes its range's sentinel lanes.
 
 // The chunk starts of this block's range, into starts[0 .. *nstarts); the
 // sentinel lanes of the range are handed to `sentinel(i)`.
@@ -1135,9 +1208,8 @@ __device__ void bitonic_sort(K* keys, unsigned short* idx, int np) {
 }
 
 template <typename T>
-size_t collision_shared_bytes(int chunk, int span) {
-  return (size_t)span * (sizeof(typename SortKey<T>::type) + 2) +
-         (size_t)chunk * sizeof(int);
+size_t collision_shared_bytes(int cls) {
+  return (size_t)cls * (sizeof(typename SortKey<T>::type) + 2 + sizeof(int));
 }
 
 // Each lane's first colliding pair (ops/collisions.py
@@ -1147,25 +1219,38 @@ size_t collision_shared_bytes(int chunk, int span) {
 // the cell (the whole cell where it is one chunk) is sorted by x in shared
 // memory, and each alive receiver walks outward from its own x, up then
 // down, while fl(dx²) < 4 eps², testing each alive partner as the plain
-// version does and keeping the lowest position that hits. `span`: a power
-// of two at least `chunk`.
+// version does and keeping the lowest position that hits. A kmax at or
+// above `rank_limit` runs no detection.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sweep_collisions_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const bool* __restrict__ alive, const int* __restrict__ key,
     const int64_t* __restrict__ pos, const int64_t* __restrict__ counts,
-    int n, int ncells, int chunk, int span, T eps, int* first, bool* died,
+    int n, int ncells, const long long* __restrict__ kmax, int cls,
+    int rank_limit, T eps, int* first, bool* died,
     unsigned long long* count) {
   using K = typename SortKey<T>::type;
   constexpr K kNone = SortKey<T>::kNone;
   extern __shared__ __align__(16) unsigned char shared[];
   K* keys = reinterpret_cast<K*>(shared);
-  unsigned short* idx = reinterpret_cast<unsigned short*>(keys + span);
-  int* best = reinterpret_cast<int*>(idx + span);
+  unsigned short* idx = reinterpret_cast<unsigned short*>(keys + cls);
+  int* best = reinterpret_cast<int*>(idx + cls);
   __shared__ int starts[kThreads];
   __shared__ int nstarts;
   if (blockIdx.x == 0 && threadIdx.x == 0) *count = 0;  // the count pass
                                                         // runs after this
+  const long long km = *kmax;
+  if (km >= rank_limit) {
+    // A cell beyond the rank domain: no detection (the plain version's
+    // guard; the engine flags the run from the same kmax).
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < n) {
+      first[i] = -1;
+      died[i] = false;
+    }
+    return;
+  }
+  const int chunk = km < 1 ? 1 : (km < cls ? (int)km : cls);
   chunk_starts(key, pos, n, ncells, chunk, starts, &nstarts, [&](int i) {
     first[i] = -1;
     died[i] = false;
@@ -1292,22 +1377,18 @@ int com(const T* x, const T* y, const T* m, const int* key,
   return (int)cudaGetLastError();
 }
 
-// The chunk length: the largest cell's lane count, up to kChunk.
-inline int chunk_for(int kmax) {
-  return kmax < 1 ? 1 : (kmax < kChunk ? kmax : kChunk);
-}
-
 int forces_parity(const double* x, const double* y, const double* m,
                   const bool* alive, const int* key, const int64_t* pos,
                   const int64_t* counts, int n, int ncells, const double* ml,
                   const double* mxl, const double* myl, double g, double* fx,
-                  double* fy, int team, int* sync, void* stream) {
-  if (n < 1 || ncells < 1 || team < 0) return (int)cudaErrorInvalidValue;
+                  double* fy, const long long* large, int sms, int* sync,
+                  void* stream) {
+  if (n < 1 || ncells < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   const int items = (n + kTile - 1) / kTile;
   sweep_forces_parity_kernel<<<(items + kWarps - 1) / kWarps, kWarps * 32,
                                0, static_cast<cudaStream_t>(stream)>>>(
       x, y, m, alive, key, pos, counts, n, ncells, ml, mxl, myl, g, fx, fy,
-      team, sync);
+      large, sms, sync);
   return (int)cudaGetLastError();
 }
 
@@ -1327,22 +1408,21 @@ int forces_fast(const float* x, const float* y, const float* m,
 template <typename T>
 int collisions(const T* x, const T* y, const bool* alive, const int* key,
                const int64_t* pos, const int64_t* counts, int n, int ncells,
-               int kmax, double eps, int* first, bool* died, long long* count,
-               void* stream) {
-  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+               const long long* kmax, int cls, int rank_limit, double eps,
+               int* first, bool* died, long long* count, void* stream) {
+  if (n < 1 || ncells < 1 || cls < 2 || cls > kChunk || (cls & (cls - 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* total = reinterpret_cast<unsigned long long*>(count);
-  const int chunk = chunk_for(kmax);
-  int span = 2;
-  while (span < chunk) span <<= 1;
-  const size_t smem = collision_shared_bytes<T>(chunk, span);
+  const size_t smem = collision_shared_bytes<T>(cls);
   auto kernel = sweep_collisions_kernel<T>;
   static size_t opted = 0;
   const cudaError_t oerr = opt_in(kernel, smem, opted);
   if (oerr != cudaSuccess) return (int)oerr;
   kernel<<<blocks_for(n), kThreads, smem, s>>>(x, y, alive, key, pos, counts,
-                                               n, ncells, chunk, span, (T)eps,
-                                               first, died, total);
+                                               n, ncells, kmax, cls,
+                                               rank_limit, (T)eps, first,
+                                               died, total);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   sweep_collision_count_kernel<<<blocks_for(n), kThreads, 0, s>>>(
@@ -1350,7 +1430,29 @@ int collisions(const T* x, const T* y, const bool* alive, const int* key,
   return (int)cudaGetLastError();
 }
 
+int occupancy(const int* key, const int64_t* pos, int n, int ncells,
+              long long* out, void* stream) {
+  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(long long) * ((size_t)ncells + 3), s);
+  if (err != cudaSuccess) return (int)err;
+  sweep_occupancy_kernel<<<blocks_for(n), kThreads, 0, s>>>(key, pos, n,
+                                                            ncells, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// key (int32), pos (int64): n each, each cell's lanes contiguous and in
+// position order. Output out: ncells + 3 int64 (zeroed here, then the
+// kernel): each key's lane count (the sentinel's at ncells), kmax, the
+// cells of more than kLarge lanes.
+extern "C" int psim_sweep_occupancy(const int* key, const int64_t* pos, int n,
+                                    int ncells, long long* out,
+                                    void* stream) {
+  return occupancy(key, pos, n, ncells, out, stream);
+}
 
 // x, y, m: n values each; key (int32), pos (int64): n each; counts
 // (int64): ncells + 1 (the sentinel's last). Outputs M, MX, MY: ncells
@@ -1402,19 +1504,19 @@ extern "C" int psim_sweep_div_check(const double* u, const double* v,
 }
 
 // alive: n bytes (0/1); ml, mxl, myl: (8, ncells + 1) each; g = G, cast to
-// the type. Outputs fx, fy: n each. _f64 parity (team: the warps a large
-// cell takes, 0 for none, at most what the card holds at once; sync: n + 1
-// int32 zeros, the kernel's scratch), _f32 fast.
+// the type. Outputs fx, fy: n each. _f64 parity (large: the occupancy's
+// count of cells of more than kLarge lanes, on the card; sms: the card's
+// SMs; sync: n + 1 int32 zeros, the kernel's scratch), _f32 fast.
 extern "C" int psim_sweep_forces_f64(const double* x, const double* y,
                                      const double* m, const bool* alive,
                                      const int* key, const int64_t* pos,
                                      const int64_t* counts, int n, int ncells,
                                      const double* ml, const double* mxl,
                                      const double* myl, double g, double* fx,
-                                     double* fy, int team, int* sync,
-                                     void* stream) {
+                                     double* fy, const long long* large,
+                                     int sms, int* sync, void* stream) {
   return forces_parity(x, y, m, alive, key, pos, counts, n, ncells, ml, mxl,
-                       myl, g, fx, fy, team, sync, stream);
+                       myl, g, fx, fy, large, sms, sync, stream);
 }
 
 extern "C" int psim_sweep_forces_f32(const float* x, const float* y,
@@ -1428,28 +1530,34 @@ extern "C" int psim_sweep_forces_f32(const float* x, const float* y,
                      myl, g, fx, fy, stream);
 }
 
-// kmax: the most lanes in one cell (plan.kmax); eps = EPSILON, cast to the
-// type. Outputs: first (n ints, scratch), died (n bytes); count (one
-// int64): the pairs first for both ends. Two launches: the first pairs
+// kmax: the most lanes in one real cell, on the card (the occupancy's);
+// cls: a power of two in [2, kChunk], the most lanes of a chunk (the chunk
+// is min(kmax, cls)); rank_limit: the kmax from which no detection runs;
+// eps = EPSILON, cast to the type. Outputs: first (n ints, scratch), died
+// (n bytes); count (one int64): the pairs first for both ends. Two launches: the first pairs
 // (which zero the count), then the count.
 extern "C" int psim_sweep_collisions_f64(const double* x, const double* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
-                                         int ncells, int kmax, double eps,
+                                         int ncells, const long long* kmax,
+                                         int cls, int rank_limit, double eps,
                                          int* first, bool* died,
                                          long long* count, void* stream) {
   return collisions<double>(x, y, alive, key, pos, counts, n, ncells, kmax,
-                            eps, first, died, count, stream);
+                            cls, rank_limit, eps, first, died, count,
+                            stream);
 }
 
 extern "C" int psim_sweep_collisions_f32(const float* x, const float* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
-                                         int ncells, int kmax, double eps,
+                                         int ncells, const long long* kmax,
+                                         int cls, int rank_limit, double eps,
                                          int* first, bool* died,
                                          long long* count, void* stream) {
   return collisions<float>(x, y, alive, key, pos, counts, n, ncells, kmax,
-                           eps, first, died, count, stream);
+                           cls, rank_limit, eps, first, died, count,
+                           stream);
 }

@@ -9,7 +9,8 @@ Out-of-range cells (the reference's ``[PANIC2]`` skip-and-continue,
 serial/parsim.cpp:276-280) map to a sentinel key ``ncells`` that sorts last.
 
 The sweep engine's ``fori_loop`` trip counts are traced scalars in the JAX
-package; in torch they are host integers, which ``occupancy`` reads back.
+package. In the port the sweep kernels read the occupancy on the card, and
+only the plain sweeps read it on the host (``Occupancy``).
 """
 
 from __future__ import annotations
@@ -21,31 +22,75 @@ import torch
 
 
 class Occupancy:
-    """Cell occupancy of a (key, pid)-sorted particle array, as the sweeps
-    (``ops/com``, ``ops/forces``, ``ops/collisions``) take it: trip counts on
-    the host, a lane order and the per-key counts on the device.
+    """Cell occupancy of lanes whose cells are contiguous, each cell's lanes
+    in position order, as the sweeps take it.
 
-    ``order`` lists the lanes cell by cell, the cells by occupancy descending
-    (ties by key), each cell's lanes in their sorted order, then the
-    out-of-range (sentinel) lanes. So the cells holding more than ``o``
-    particles are the first ``lanes[o]`` lanes of that order, and a partner
-    at ``pos ± o`` in the same cell sits at ``± o`` there too. Only the plain
-    sweeps read it, so it is sorted at first use: the sweep kernels
-    (``ops/cuda/sweep``) take each lane's cell from its key, its position
-    and ``counts``.
+    The device part, which the sweep kernels (``ops/cuda/sweep``) read and
+    a run carries from step to step: ``counts`` ((ncells + 1,) int64, each
+    key's lanes, the sentinel keys' last), ``kmax`` (0-d int64, the most
+    lanes of one real cell) and ``large`` (0-d int64, the real cells of
+    more than ``sweep.SMALL_CELL`` lanes).
+
+    The host part, which only the plain sweeps (``ops/com``, ``ops/forces``,
+    ``ops/collisions``) read, is derived from ``counts`` at first use:
+    ``host_kmax`` (``kmax`` as an int, their trip count), ``lanes``,
+    ``cells`` and ``order``. ``order`` lists the lanes cell by cell, the
+    cells by occupancy descending (ties by key), each cell's lanes in their
+    sorted order, then the out-of-range (sentinel) lanes. So the cells
+    holding more than ``o`` particles are the first ``lanes[o]`` lanes of
+    that order, and a partner at ``pos ± o`` in the same cell sits at ``±
+    o`` there too. Reading the host part of a plan on the card raises,
+    unless ``read()`` has copied the counts back: a step of a run never
+    does, so that a CUDA graph captures it.
     """
 
-    def __init__(self, kmax: int, lanes: list, cells: list,
-                 counts: torch.Tensor, key: torch.Tensor):
-        self.kmax = kmax      # the most particles in one real cell
-        self.lanes = lanes    # lanes[o], o < kmax: lanes of cells holding > o
-        self.cells = cells    # cells[p], p < kmax: cells holding > p
+    def __init__(self, counts: torch.Tensor, kmax: torch.Tensor,
+                 large: torch.Tensor, key: torch.Tensor):
         self.counts = counts  # (ncells + 1,) int64: lanes a key, sentinel last
+        self.kmax = kmax      # 0-d int64: the most particles in one real cell
+        self.large = large    # 0-d int64: real cells of > SMALL_CELL lanes
         self._key = key
+        self._read = counts.device.type == "cpu"
+
+    def read(self) -> "Occupancy":
+        """This plan, with its host part read back now: one synchronising
+        copy of the counts (for the plain sweeps on the card)."""
+        self._read = True
+        self._host  # noqa: B018 (the copy, made here)
+        return self
+
+    @functools.cached_property
+    def _host(self):
+        if not self._read:
+            raise RuntimeError(
+                "the occupancy's host part (lanes, cells, order) of a plan on "
+                f"{self.counts.device}: call read() first (a readback)")
+        host = self.counts[:-1].cpu().numpy()
+        kmax = int(host.max())
+        hist = np.bincount(host, minlength=kmax + 1)  # cells by occupancy
+        cells_ge = np.cumsum(hist[::-1])[::-1]
+        lanes_ge = np.cumsum((hist * np.arange(kmax + 1))[::-1])[::-1]
+        return kmax, lanes_ge[1:].tolist(), cells_ge[1:].tolist()
+
+    @property
+    def host_kmax(self) -> int:
+        """``kmax`` on the host."""
+        return self._host[0]
+
+    @property
+    def lanes(self) -> list:
+        """lanes[o], o < kmax: the lanes of cells holding more than o."""
+        return self._host[1]
+
+    @property
+    def cells(self) -> list:
+        """cells[p], p < kmax: the cells holding more than p."""
+        return self._host[2]
 
     @functools.cached_property
     def order(self) -> torch.Tensor:
         """(N,) int64 lane permutation (the class docstring)."""
+        self._host  # noqa: B018 (raises for an unread plan on the card)
         k, counts = self._key, self.counts
         ncells = counts.shape[0] - 1
         # Sentinel lanes sort last.
@@ -53,21 +98,21 @@ class Occupancy:
                           stable=True).indices
 
 
-def occupancy(key_sorted, ncells: int) -> Occupancy:
-    """The occupancy of sorted cell keys (or of keys whose cells are
-    contiguous); sentinel keys (``ncells``) count in no cell. Reads the
-    per-cell counts back to the host: one synchronising copy of ``ncells``
-    integers."""
-    k = key_sorted.to(torch.int64)
-    counts = torch.zeros(ncells + 1, dtype=torch.int64, device=k.device)
-    counts.index_add_(0, k, torch.ones_like(k))
-    host = counts[:ncells].cpu().numpy()
-    kmax = int(host.max())
-    hist = np.bincount(host, minlength=kmax + 1)  # cells by occupancy
-    cells_ge = np.cumsum(hist[::-1])[::-1]
-    lanes_ge = np.cumsum((hist * np.arange(kmax + 1))[::-1])[::-1]
-    return Occupancy(kmax, lanes_ge[1:].tolist(), cells_ge[1:].tolist(),
-                     counts, k)
+def occupancy(key, ncells: int, pos=None) -> Occupancy:
+    """The occupancy of cell keys whose cells are contiguous, each cell's
+    lanes in position order (sorted keys, or the mesh's batched keys);
+    sentinel keys (``ncells`` or more) count in no cell. ``pos`` is each
+    lane's position in its cell (``segment_positions`` of sorted keys where
+    not given). Its device part comes from ``ops/cuda/sweep.
+    sweep_occupancy``: on a CUDA tensor the kernel, which reads nothing back;
+    on a CPU tensor its plain version."""
+    from particlesimulation_tpu_torch.ops.cuda import sweep
+
+    k = key.to(torch.int32)
+    if pos is None:
+        pos, _ = segment_positions(k)
+    return Occupancy(*sweep.sweep_occupancy(k, pos.to(torch.int64), ncells),
+                     k.to(torch.int64))
 
 
 def cell_of(x, y, side: float, ncside: int):

@@ -106,17 +106,17 @@ def detect_collisions_blocked(x, y, alive, key, pos_in_cell, epsilon: float,
     """
     plan = plan or occupancy(key, ncells)
     n = x.shape[0]
-    if rank_overflow(plan.kmax):
+    if rank_overflow(plan.host_kmax):
         return (torch.zeros((), dtype=torch.int64, device=x.device),
                 torch.zeros(n, dtype=torch.bool, device=x.device))
     xq, yq, aq, kq, pq = in_plan_order(plan, x, y, alive, key,
                                        pos_in_cell.to(torch.int64))
     ka = alive_cells(kq, aq)
     eps = torch.full((), epsilon, dtype=x.dtype, device=x.device)
-    base = plan.kmax + 1
+    base = plan.host_kmax + 1
     pqb = pq * base
     ft = torch.full((n,), INF, dtype=torch.int64, device=x.device)
-    for o in range(1, plan.kmax):
+    for o in range(1, plan.host_kmax):
         m = plan.lanes[o]
         lo, hi = slice(0, m - o), slice(o, m)
         dx = xq[lo] - xq[hi]

@@ -41,7 +41,7 @@ def com_parity(key_sorted, x, y, m, ncells: int, plan=None, pos=None):
     plan = plan or occupancy(key_sorted, ncells)
     M, MX, MY = (torch.zeros(ncells, dtype=x.dtype, device=x.device)
                  for _ in range(3))
-    if plan.kmax == 0:
+    if plan.host_kmax == 0:
         return M, MX, MY
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     one = torch.ones((), dtype=x.dtype, device=x.device)
@@ -78,7 +78,7 @@ def com_fast(key_sorted, x, y, m, ncells: int, plan=None, pos=None):
     rows so that its bits do not depend on the run. ``plan`` and ``pos`` as
     in :func:`com_parity`."""
     plan = plan or occupancy(key_sorted, ncells)
-    kmax = max(plan.kmax, 1)
+    kmax = max(plan.host_kmax, 1)
     if pos is None:
         pos, _ = segment_positions(key_sorted)
     slot = torch.where(key_sorted < ncells,

@@ -17,7 +17,11 @@ plain torch version, those modules' functions:
   tables (``ops/stencil.stencil_tables``; the mesh's halo tables), in one
   launch;
 * ``sweep_collisions`` / ``sweep_collisions_ref``: the collision count
-  (pairs first for both ends) and the dead set, exact.
+  (pairs first for both ends) and the dead set, exact;
+* ``sweep_occupancy`` / ``sweep_occupancy_ref``: the occupancy the three
+  passes read (``binning.Occupancy``'s device part: each key's lane count,
+  the largest cell's, the count of large cells), which
+  ``binning.occupancy`` dispatches to.
 
 Beside them, two yardsticks of the COM kernel that no path runs:
 ``com_chain`` (one thread walking the kernel's chain, whose time a lane is
@@ -28,8 +32,12 @@ The lanes come in the caller's order: each cell's lanes contiguous, in
 position order, ``pos`` each lane's position in its cell (so a cell starts
 at ``lane - pos``), ``plan.counts`` (``binning.occupancy``) each key's lane
 count on the device; a key of ``ncells`` or more is a sentinel, in no cell.
-The kernels read no lane order: ``plan.order`` (and the plain sweeps'
-gathers) is for the plain versions alone.
+The kernels read no lane order and no host value of the plan: the force
+kernel takes its team from ``plan.large`` and the collision kernel its
+chunk from ``plan.kmax``, both on the card, so a step reads nothing back
+and a CUDA graph captures it (``ops/graphed``). ``plan.order`` and the
+other host lists (and the plain sweeps' gathers) are for the plain
+versions alone.
 
 Parity (float64) or fast (float32): the lanes' type picks the kernel and
 the plain version. A tensor on the CPU goes to the plain version;
@@ -65,7 +73,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 # Kernel launches per wrapper since the last reset_launches() (one a call:
 # the collision call runs its two passes).
-LAUNCHES = {"sweep_com": 0, "sweep_forces": 0, "sweep_collisions": 0}
+LAUNCHES = {"sweep_com": 0, "sweep_forces": 0, "sweep_collisions": 0,
+            "sweep_occupancy": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -84,13 +93,13 @@ def load(path):
         com_fn = getattr(lib, f"psim_sweep_com_{t}")
         com_fn.argtypes = [vp] * 6 + [ci, ci] + [vp] * 4
         forces_fn = getattr(lib, f"psim_sweep_forces_{t}")
-        # The parity kernel also takes its team and scratch (sync) before
-        # the stream.
+        # The parity kernel also takes the large cells' count, the SMs and
+        # its scratch (sync) before the stream.
         forces_fn.argtypes = ([vp] * 7 + [ci, ci] + [vp] * 3 + [cd]
-                              + ([vp, vp, ci, vp, vp] if t == "f64"
+                              + ([vp, vp, vp, ci, vp, vp] if t == "f64"
                                  else [vp] * 3))
         coll_fn = getattr(lib, f"psim_sweep_collisions_{t}")
-        coll_fn.argtypes = [vp] * 6 + [ci, ci, ci, cd] + [vp] * 4
+        coll_fn.argtypes = [vp] * 6 + [ci, ci, vp, ci, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
             fn.restype = ci
         chain_fn = getattr(lib, f"psim_sweep_com_chain_{t}")
@@ -98,6 +107,8 @@ def load(path):
         chain_fn.restype = ci
     lib.psim_sweep_div_check.argtypes = [vp, vp, ci, ci, vp, vp]
     lib.psim_sweep_div_check.restype = ci
+    lib.psim_sweep_occupancy.argtypes = [vp, vp, ci, ci, vp, vp]
+    lib.psim_sweep_occupancy.restype = ci
     return lib
 
 
@@ -244,10 +255,12 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
     out = torch.empty((2, n), dtype=x.dtype, device=x.device)
     parity = []
     if x.dtype == torch.float64:
-        # The team, and the scratch: each row tile's progress, a counter.
+        # The team's inputs (the large cells' count on the card, the SMs),
+        # and the scratch: each row tile's progress, a counter.
+        _check_scalar("plan.large", plan.large, x.device)
         sync = torch.zeros(n + 1, dtype=torch.int32, device=x.device)
-        parity = [parity_team(plan, cell_pairs._sm_count(x.device.index)),
-                  sync.data_ptr()]
+        parity = [plan.large.data_ptr(),
+                  cell_pairs._sm_count(x.device.index), sync.data_ptr()]
     cell_pairs._launch(
         "sweep_forces", _kernel("forces", x), x, x.data_ptr(), y.data_ptr(),
         m.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
@@ -265,14 +278,15 @@ TEAM = 16
 SM_WARPS = 32
 
 
-def parity_team(plan, sms: int) -> int:
-    """The warps a large cell takes in the parity force kernel: TEAM where
-    the large cells' teams fill every warp of the card (``sms`` SMs), else
-    0, every cell a lane a thread. A team's rows wait on each other, so a
-    few cells run mostly waiting (nine cells of ~1100 lanes: 1.14 → 4.58
-    device ms a step, PERF.md section 6), where a lane a thread keeps the
-    card busy."""
-    large = plan.cells[SMALL_CELL] if plan.kmax > SMALL_CELL else 0
+def parity_team(large: int, sms: int) -> int:
+    """The warps a large cell takes in the parity force kernel, given
+    ``large``, the cells of more than SMALL_CELL lanes (``plan.large``):
+    TEAM where the large cells' teams fill every warp of the card (``sms``
+    SMs), else 0, every cell a lane a thread. A team's rows wait on each
+    other, so a few cells run mostly waiting (nine cells of ~1100 lanes:
+    1.14 → 4.58 device ms a step, PERF.md section 6), where a lane a thread
+    keeps the card busy. The kernel applies this rule to the count on the
+    card; this is its statement on the host."""
     return TEAM if large * TEAM >= SM_WARPS * sms else 0
 
 
@@ -289,29 +303,47 @@ def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):
                                   ncells)
 
 
+# csrc/sweep.cu: the most lanes of a collision chunk.
+CHUNK = 4096
+
+
+def chunk_class(kmax: int) -> int:
+    """The collision kernel's chunk class for a largest cell of ``kmax``
+    lanes: the power of two at or above it, from 2 up to CHUNK. The kernel
+    runs chunks of min(kmax, class) lanes (kmax read on the card), and the
+    class sizes its shared memory; every chunking gives the same count and
+    dead set."""
+    cls = 2
+    while cls < min(kmax, CHUNK):
+        cls *= 2
+    return cls
+
+
 def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
-                     ncells: int):
+                     ncells: int, chunk: int = CHUNK):
     """(count int64 0-d, died bool (n,)): the collision pass of float32 or
     float64 lanes. A cell of ``collisions.RANK_LIMIT`` lanes or more
     (``plan.kmax``) takes no detection, as in the plain version: the
-    engine flags it."""
+    engine flags it. ``chunk`` (``chunk_class``'s; the kernel's alone) is
+    the most lanes of a chunk: a run fixes it before its loop, so that its
+    steps capture as one graph."""
     n = _check([("x", x), ("y", y)], [("alive", alive, torch.bool)], key,
                pos, plan, ncells)
     if not cell_pairs._on_card(x, "sweep collision pass"):
         return sweep_collisions_ref(x, y, alive, key, pos, plan, epsilon,
                                     ncells)
-    if collisions.rank_overflow(plan.kmax):
-        return (torch.zeros((), dtype=torch.int64, device=x.device),
-                torch.zeros(n, dtype=torch.bool, device=x.device))
+    if chunk != chunk_class(chunk):
+        raise ValueError(f"chunk {chunk}: a power of two in [2, {CHUNK}]")
+    _check_scalar("plan.kmax", plan.kmax, x.device)
     count = torch.empty((), dtype=torch.int64, device=x.device)
     first = torch.empty(n, dtype=torch.int32, device=x.device)
     died = torch.empty(n, dtype=torch.bool, device=x.device)
     cell_pairs._launch(
         "sweep_collisions", _kernel("collisions", x), x, x.data_ptr(),
         y.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
-        plan.counts.data_ptr(), n, ncells, plan.kmax, float(epsilon),
-        first.data_ptr(), died.data_ptr(), count.data_ptr(),
-        launches=LAUNCHES)
+        plan.counts.data_ptr(), n, ncells, plan.kmax.data_ptr(), chunk,
+        collisions.RANK_LIMIT, float(epsilon), first.data_ptr(),
+        died.data_ptr(), count.data_ptr(), launches=LAUNCHES)
     return count, died
 
 
@@ -321,3 +353,52 @@ def sweep_collisions_ref(x, y, alive, key, pos, plan, epsilon: float,
     ``collisions.detect_collisions_blocked``."""
     return collisions.detect_collisions_blocked(x, y, alive, key, pos,
                                                 epsilon, ncells, plan)
+
+
+def _check_scalar(name, t, device):
+    """``t`` must be a 0-d int64 tensor on ``device``."""
+    if t.dtype != torch.int64 or t.shape != () or t.device != device:
+        raise ValueError(f"{name} must be a 0-d int64 tensor on {device}; "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def sweep_occupancy(key, pos, ncells: int):
+    """(counts, kmax, large) of lanes whose cells are contiguous, each in
+    position order (``key`` int32, ``pos`` int64, (n,) contiguous), on the
+    lanes' device: ``counts`` ((ncells + 1,) int64) each key's lanes, the
+    sentinel keys' (``ncells`` or more, wherever they lie) last; ``kmax``
+    (0-d int64) the most lanes of one real cell; ``large`` (0-d int64) the
+    real cells of more than ``SMALL_CELL`` lanes. One kernel on the card
+    (``csrc/sweep.cu`` ``sweep_occupancy_kernel``, after a memset of its
+    output), which reads nothing back."""
+    n = key.shape[0] if key.dim() == 1 else -1
+    if n < 1:
+        raise ValueError(f"key must be (n >= 1,); got {tuple(key.shape)}")
+    if ncells < 1:
+        raise ValueError(f"ncells {ncells} < 1")
+    for name, t, dt in (("key", key, torch.int32), ("pos", pos, torch.int64)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}; got {t.dtype}")
+        if t.shape != (n,) or t.device != key.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be ({n},) contiguous on "
+                             f"{key.device}")
+    if not cell_pairs._on_card(key, "sweep occupancy"):
+        return sweep_occupancy_ref(key, pos, ncells)
+    out = torch.empty(ncells + 3, dtype=torch.int64, device=key.device)
+    cell_pairs._launch(
+        "sweep_occupancy", _library().psim_sweep_occupancy, key,
+        key.data_ptr(), pos.data_ptr(), n, ncells, out.data_ptr(),
+        launches=LAUNCHES)
+    return out[:ncells + 1], out[ncells + 1], out[ncells + 2]
+
+
+def sweep_occupancy_ref(key, pos, ncells: int):
+    """Plain torch version of ``sweep_occupancy``: an ``index_add_`` of
+    ones over the keys (the sentinels clamped to ``ncells``), then the
+    maxima. ``pos`` is not read: the counts do not depend on it."""
+    k = torch.clamp(key.to(torch.int64), max=ncells)
+    counts = torch.zeros(ncells + 1, dtype=torch.int64, device=key.device)
+    counts.index_add_(0, k, torch.ones_like(k))
+    real = counts[:ncells]
+    return (counts, torch.amax(real),
+            torch.sum(real > SMALL_CELL, dtype=torch.int64))

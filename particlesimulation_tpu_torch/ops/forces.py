@@ -196,12 +196,12 @@ def pairwise_forces_parity_blocked(x, y, m, alive, key, ncells: int,
 
     fxq = xq * zero
     fyq = xq * zero
-    for o in range(plan.kmax - 1, 0, -1):
+    for o in range(plan.host_kmax - 1, 0, -1):
         # Reaction terms, partners ascending (serial/parsim.cpp:356-366).
         _, hi, tx, ty = pair_terms(o)
         fxq[hi].sub_(tx)
         fyq[hi].sub_(ty)
-    for o in range(1, plan.kmax):
+    for o in range(1, plan.host_kmax):
         lo, _, tx, ty = pair_terms(o)
         fxq[lo].add_(tx)
         fyq[lo].add_(ty)
@@ -219,7 +219,7 @@ def pairwise_forces_fast(x, y, m, alive, key, ncells: int, plan=None):
     gm = g * mq
     fxq = xq * zero
     fyq = xq * zero
-    for o in range(1, plan.kmax):
+    for o in range(1, plan.host_kmax):
         n = plan.lanes[o]
         lo, hi = slice(0, n - o), slice(o, n)
         dx = xq[hi] - xq[lo]

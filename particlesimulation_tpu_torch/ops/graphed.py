@@ -1,13 +1,17 @@
-"""Tile runs as CUDA graphs: a run's step captured once, replayed each step.
+"""Runs as CUDA graphs: a run's step captured once, replayed each step.
 
-Counterpart of the JAX package's one-program tile runs: JAX jits a tile
-run and runs its steps in a ``lax.fori_loop``, one compiled program whatever
-the step count. Here ``ops/resident.make_tile_run`` captures the steady
-step of a run once, as a ``torch.cuda.CUDAGraph`` on a static carry (the
-tiles, the carried forces, the settle sums and the run's counters), and
-replays it ``n_steps`` times; the graphs live as long as the run function,
-so an engine keeps them until it rebuilds, as JAX's jit cache is keyed on
-the build.
+Counterpart of the JAX package's one-program runs: JAX jits a run and runs
+its steps in a ``lax.fori_loop``, one compiled program whatever the step
+count. Here a run captures its steady step once, as a
+``torch.cuda.CUDAGraph`` on a static carry, and replays it ``n_steps``
+times: ``ops/resident.make_tile_run`` (the carry: the tiles, the carried
+forces, the settle sums and the run's counters) and ``loop_run``, the runs
+whose step is one function of its carry (the sweep's: the state and its
+lanes' occupancy; dense and tiered: the state and its tiles). The graphs
+live as long as the run function, so an engine keeps them until it
+rebuilds, as JAX's jit cache is keyed on the build. A run of 0 steps
+captures them too (JAX's ``run(state, 0)`` compiles the program), so that
+a caller can keep the capture out of a timed run.
 
 ``StepGraph`` chooses its path by the carry's device, like every wrapper in
 the port: on CUDA tensors it captures a graph or raises (a step that reads a
@@ -24,10 +28,11 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
-from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
+from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs, sweep
 
-# The launch counters of the kernels a tile step runs.
-COUNTERS = (cell_pairs.LAUNCHES, advance.LAUNCHES)
+# The launch counters of the kernels a step runs (the sweep's occupancy
+# kernel among ``sweep.LAUNCHES``).
+COUNTERS = (cell_pairs.LAUNCHES, advance.LAUNCHES, sweep.LAUNCHES)
 
 
 class StepGraph:
@@ -54,6 +59,7 @@ class StepGraph:
     def __init__(self, counters=COUNTERS):
         self.counters = counters
         self.capture_s = {}      # name -> seconds of host time of its capture
+        self.captures = 0        # captures made (the twin's first steps too)
         self._leaves = None
         self._spec = None
         self._sig = None
@@ -106,6 +112,12 @@ class StepGraph:
             self._body(graph)
             self._write(saved)
         self._add(launches)
+
+    def capture(self, name, fn) -> None:
+        """Capture ``fn`` under ``name`` where it is not captured yet (its
+        warm-up steps the carry); no replay."""
+        if name not in self._graphs:
+            self.step(name, fn)
 
     def release(self) -> None:
         """Drop every graph and the static carry."""
@@ -170,6 +182,7 @@ class StepGraph:
                 launches = self._delta(saved)
                 self._write(saved)
             self.capture_s[name] = time.perf_counter() - t0
+            self.captures += 1
         if self._pool is None:
             self._pool = graph.pool()
         return graph, launches
@@ -178,6 +191,7 @@ class StepGraph:
         saved = self._read()
         self._body(fn)
         self.capture_s[name] = 0.0
+        self.captures += 1
         return fn, self._delta(saved)
 
     def _read(self):
@@ -197,11 +211,12 @@ class StepGraph:
                 c[k] += v
 
 
-class TileRun:
-    """A tile run of ``ops/resident.make_tile_run``: ``run(state, n_steps)``
-    replays its step graphs on ``graphs`` (the twin on CPU tensors);
-    ``run.eager(state, n_steps)``, the plain loop, dispatches each kernel of
-    each step from Python. Both give the same bits."""
+class GraphedRun:
+    """A run whose steps replay graphs: ``run(state, n_steps)`` replays its
+    step graphs on ``graphs`` (the twin on CPU tensors), and a run of 0
+    steps captures them; ``run.eager(state, n_steps)``, the plain loop,
+    dispatches each kernel of each step from Python. Both give the same
+    bits."""
 
     def __init__(self, graphed, eager, graphs: StepGraph):
         self._graphed = graphed
@@ -217,13 +232,42 @@ class TileRun:
         self.graphs.release()
 
 
-def eager(run):
-    """The plain loop of an engine's run function: a tile run's ``eager``,
-    any other run (the sweep, dense, tiered) itself."""
-    return run.eager if isinstance(run, TileRun) else run
+def loop_run(start, step, finish) -> GraphedRun:
+    """The ``GraphedRun`` of a run whose steps are one function of a carry:
+    ``start(state)`` gives the first carry (a tree of tensors),
+    ``step(*carry)`` the next (of the same structure, shapes and dtypes),
+    ``finish(carry, state)`` the run's final state. The carry is loaded
+    into a ``StepGraph`` (the caller's tensors are not written) and "step"
+    replays; a run of 0 steps captures it and returns ``finish`` of the
+    first carry. What ``finish`` hands out is cloned where it shares the
+    static carry."""
+
+    def run_eager(state, n_steps: int):
+        carry = start(state)
+        for _ in range(n_steps):
+            carry = step(*carry)
+        return finish(carry, state)
+
+    graphs = StepGraph()
+
+    def run(state, n_steps: int):
+        carry = start(state)
+        if n_steps == 0:
+            out = finish(carry, state)
+            graphs.load(carry)
+            del carry
+            graphs.capture("step", step)
+            return out
+        graphs.load(carry)
+        del carry
+        for _ in range(n_steps):
+            graphs.step("step", step)
+        return graphs.own(finish(graphs.carry(), state))
+
+    return GraphedRun(run, run_eager, graphs)
 
 
 def release(run) -> None:
-    """Drop a run function's graphs, if it has any."""
-    if isinstance(run, TileRun):
+    """Drop a run function's graphs (None: no run built yet)."""
+    if run is not None:
         run.release()

@@ -136,16 +136,16 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
     ``settle(..., out)`` its sums into the sums the advance read, so that
     a step's carry is updated in place.
 
-    ``run`` is a ``graphed.TileRun``: the prologue and the first pair pass
+    ``run`` is a ``graphed.GraphedRun``: the prologue and the first pair pass
     (with its settle) run eagerly, their tiles, forces, sums and counters
     are copied into the run's static carry (``graphed.StepGraph``), and the
     steps replay graphs captured on it at the run's first steps, the
     steady step's and, with ``settle``, the last step's (no sums; the
     JAX package's ``jax.jit`` over ``lax.fori_loop``); ``finish`` reads the
     carry and what it hands out is cloned where it shares the carry's
-    memory. The graphs serve every ``n_steps`` and live as long as ``run``.
-    ``run.eager`` is the plain loop, each step dispatched from Python: the
-    same bits.
+    memory. The graphs serve every ``n_steps`` and live as long as ``run``;
+    a run of 0 steps captures them. ``run.eager`` is the plain loop, each
+    step dispatched from Python: the same bits.
     """
     if finish is None:
         def finish(ts, state):
@@ -183,7 +183,11 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
     def run(state, n_steps: int):
         carry = start(state)
         if n_steps == 0:
-            return finish(carry[0], state)
+            out = finish(carry[0], state)
+            graphs.load(carry)
+            del carry
+            graphs.capture("step", step)
+            return out
         graphs.load(carry)
         del carry
         for _ in range(n_steps):
@@ -198,7 +202,7 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
             ts, fxd, fyd = step(ts, fxd, fyd)
         return pair_args(advance(ts, fxd, fyd)[0])
 
-    return pair_tiles, graphed.TileRun(run, run_eager, graphs)
+    return pair_tiles, graphed.GraphedRun(run, run_eager, graphs)
 
 
 def _own_counters(ts):
@@ -247,7 +251,13 @@ def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
     def run(state, n_steps: int):
         first, *carry = start(state)
         if n_steps == 0:
-            return finish(carry[0]._replace(panics=first.panics), state)
+            out = finish(carry[0]._replace(panics=first.panics), state)
+            del first
+            graphs.load(tuple(carry))
+            del carry
+            graphs.capture("middle", middle)
+            graphs.capture("last", last)
+            return out
         del first
         graphs.load(tuple(carry))
         del carry
@@ -264,4 +274,4 @@ def _settled_run(prologue, advance, pair_args, pair_pass, settle, finish):
             ts, fxd, fyd, sums = step(ts, fxd, fyd, sums, False)
         return pair_args(advance(ts, fxd, fyd, sums)[0])
 
-    return pair_tiles, graphed.TileRun(run, run_eager, graphs)
+    return pair_tiles, graphed.GraphedRun(run, run_eager, graphs)

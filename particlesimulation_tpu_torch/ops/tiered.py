@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, collisions, integrate, stencil
+from particlesimulation_tpu_torch.ops import (binning, collisions, graphed,
+                                              integrate, stencil)
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.state import SimState
 
@@ -81,8 +82,10 @@ def make_tiered_step(config: SimConfig, plan, device):
 
     ``plan``: [(cap, rows), ...] caps ascending, rows_0 == ncells. Mirrors
     ``engine.make_dense_step`` (same step sequence, same carried post-move
-    tiles) with the tile build and consumption split across the classes.
-    Returns (step, build_tiles, run).
+    tiles) with the tile build and consumption split across the classes;
+    ``run`` is a ``graphed.GraphedRun`` on the carry (state, tiles), the
+    plan's sizes fixed here at build time. Returns (step, build_tiles,
+    run).
     """
     side = config.side
     nc = config.ncside
@@ -239,12 +242,8 @@ def make_tiered_step(config: SimConfig, plan, device):
             overflow=_merge_ovf(state.overflow, ovf))
         return out, tiles2
 
-    def run(state: SimState, n_steps: int) -> SimState:
-        tiles = build_tiles(state)
-        for _ in range(n_steps):
-            state, tiles = step(state, tiles)
-        return state
-
+    run = graphed.loop_run(lambda state: (state, build_tiles(state)), step,
+                           lambda carry, state: carry[0])
     return step, build_tiles, run
 
 

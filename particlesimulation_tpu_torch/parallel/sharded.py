@@ -26,9 +26,9 @@ The sweeps run once over all the local shards' lanes: shard l's local cell
 c gets the key ``l * ncells_local + c``, so the sweep's three passes
 (``ops/cuda/sweep``: the kernels on the card, ``ops/com``, ``ops/forces``
 and ``ops/collisions`` on the CPU) run unchanged, cell by cell, on each
-lane's batched key and its position in its cell, with one occupancy
-readback a step as on one device; the halo tables are built per shard from
-global coordinates.
+lane's batched key and its position in its cell, the occupancy read on the
+card as on one device (no readback in a step: the run replays one CUDA
+graph); the halo tables are built per shard from global coordinates.
 
 Migration runs D-1 ring hops every step. The JAX engine gates its hops on
 a ``psum`` of the pending emigrants, a value the host would read each hop;
@@ -222,16 +222,20 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
       (L,) overflow).
 
     Parity (f64, the reference's operation order) or fast (f32), by
-    ``config.precision``. ``step(state, plan)`` takes a ShardedState and
-    ``plan``, the occupancy of its batched cell keys, and returns the next
-    state and the plan of its keys, as ``engine.make_step``'s step does;
-    ``run(state, n_steps)`` returns the final ShardedState."""
+    ``config.precision``. ``step(state, counts, kmax, large)`` takes a
+    ShardedState and the device part of the occupancy of its batched cell
+    keys, and returns the next state and the occupancy of its keys in the
+    same form, as ``engine.make_step``'s step does, reading nothing back;
+    ``run(state, n_steps)`` returns the final ShardedState, a
+    ``graphed.GraphedRun`` whose steps replay one graph on the card (the
+    collision kernel's chunk class fixed at the first run, as there)."""
     side = config.side
     nc = config.ncside
     ncells = config.ncells
     L = len(mesh.local_shards)
     nb = L * ncl                            # cells of the batched grid
     lpos = torch.arange(L, device=mesh.device)[:, None]
+    chunk = []
 
     def lanes(key):
         """Batched keys of (L, C) global keys, flat (sentinel lanes nb),
@@ -245,12 +249,13 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         pos, _ = binning.segment_positions(skey.reshape(-1))
         return bkey, pos
 
-    def step(state: ShardedState, plan):
+    def step(state: ShardedState, counts, kmax, large):
         x, y, vx, vy, m, alive, valid, pid = (a.view(L, -1)
                                               for a in state[:8])
         # ---- binning, local COM, pair forces (the slab arrives sorted) ----
         key, _ = _slab_key(x, y, valid, side, nc)
         bkey, pos = lanes(key)
+        plan = binning.Occupancy(counts, kmax, large, bkey)
         X, Y, Mf, Af = (a.reshape(-1) for a in (x, y, m, alive))
         M, MX, MY = sweep.sweep_com(X, Y, Mf, bkey, pos, plan, nb)
         # ---- COM halo, then the pair and monopole terms ----
@@ -276,33 +281,35 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         key3, pid, x, y, vx, vy, m, alive, valid = sort_slabs(
             key3, pid, x, y, vx, vy, m, alive, valid)
         bkey3, pos3 = lanes(key3)
-        plan2 = binning.occupancy(bkey3, nb)
+        plan2 = binning.occupancy(bkey3, nb, pos3)
         count, died = sweep.sweep_collisions(
             x.reshape(-1), y.reshape(-1), alive.reshape(-1), bkey3, pos3,
-            plan2, EPSILON, nb)
+            plan2, EPSILON, nb, chunk[0])
         m, alive = collisions.apply_deaths(m.reshape(-1), alive.reshape(-1),
                                            died)
         # Counts add up; the rank sentinel is combined by maximum, as on
         # one device, so that it holds however many steps raise it.
-        overflow = state.overflow + mesh.psum(overflow)
-        if collisions.rank_overflow(plan2.kmax):
-            overflow = torch.clamp(overflow, min=single.RANK_OVF)
-        return ShardedState(
+        overflow = single.rank_flag(state.overflow + mesh.psum(overflow),
+                                    plan2.kmax)
+        out = ShardedState(
             x=x.reshape(-1), y=y.reshape(-1), vx=vx.reshape(-1),
             vy=vy.reshape(-1), m=m, alive=alive, valid=valid.reshape(-1),
             pid=pid.reshape(-1),
             collisions=state.collisions + mesh.psum(count[None]),
             panics=state.panics + mesh.psum(panics),
-            overflow=overflow), plan2
+            overflow=overflow)
+        return out, plan2.counts, plan2.kmax, plan2.large
 
-    def run(state: ShardedState, n_steps: int) -> ShardedState:
+    def start(state: ShardedState):
         key, _ = _slab_key(state.x.view(L, -1), state.y.view(L, -1),
                            state.valid.view(L, -1), side, nc)
-        plan = binning.occupancy(lanes(key)[0], nb)
-        for _ in range(n_steps):
-            state, plan = step(state, plan)
-        return state
+        bkey, pos = lanes(key)
+        plan = binning.occupancy(bkey, nb, pos)
+        if not chunk:
+            chunk.append(sweep.chunk_class(int(plan.kmax)))
+        return state, plan.counts, plan.kmax, plan.large
 
+    run = graphed.loop_run(start, step, lambda carry, state: carry[0])
     return step, run
 
 
@@ -768,13 +775,13 @@ class ShardedEngine(SlabMesh):
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped; the reference instead
         PANIC-skips or dies). The adapted impl and capacities stick for
-        later runs of this engine. A tile run replays its step graphs on
-        the GPU (``ops/graphed``)."""
+        later runs of this engine. The run replays its step graphs on the
+        GPU (``ops/graphed``); a run of 0 steps captures them."""
         return self._ladder(state, n_steps, eager=False)
 
     def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:
-        """``run`` with each tile run's plain loop, every kernel of every
-        step dispatched from Python: the same bits as ``run``."""
+        """``run`` with each run's plain loop, every kernel of every step
+        dispatched from Python: the same bits as ``run``."""
         return self._ladder(state, n_steps, eager=True)
 
     def _ladder(self, state: ShardedState, n_steps: int, eager: bool):
@@ -788,7 +795,7 @@ class ShardedEngine(SlabMesh):
                 # JAX's), as one device's supercell -> sweep.
                 state = self._to_sweep(state)
             self._build()
-            run = graphed.eager(self._run) if eager else self._run
+            run = self._run.eager if eager else self._run
             out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
             need = int(out.overflow)  # the run's one readback

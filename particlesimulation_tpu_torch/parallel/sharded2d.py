@@ -427,15 +427,15 @@ class Sharded2DEngine(SlabMesh):
     def run(self, state: ShardedState, n_steps: int) -> ShardedState:
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped). The adapted impl and
-        capacities stick for later runs. A tile run replays its step
-        graphs on the GPU (``ops/graphed``)."""
+        capacities stick for later runs. The run replays its step graphs
+        on the GPU (``ops/graphed``); a run of 0 steps captures them."""
         if self._delegate:
             return self._delegate.run(state, n_steps)
         return self._ladder(state, n_steps, eager=False)
 
     def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:
-        """``run`` with each tile run's plain loop, every kernel of every
-        step dispatched from Python: the same bits as ``run``."""
+        """``run`` with each run's plain loop, every kernel of every step
+        dispatched from Python: the same bits as ``run``."""
         if self._delegate:
             return self._delegate.run_eager(state, n_steps)
         return self._ladder(state, n_steps, eager=True)
@@ -448,7 +448,7 @@ class Sharded2DEngine(SlabMesh):
             if self._impl == "resident" and self.kcap > single.MAX_XLA_KCAP:
                 self._impl = "sweep"
             self._build()
-            run = graphed.eager(self._run) if eager else self._run
+            run = self._run.eager if eager else self._run
             out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
             need = int(out.overflow)  # the run's one readback

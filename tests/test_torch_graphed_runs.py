@@ -123,7 +123,7 @@ def test_graphed_equals_eager(engines, name, steps):
     before = _bits(state)
     got = eng.run(state, steps)
     assert eng.impl == WANT[name] and int(got.overflow) == 0
-    assert isinstance(_target(eng)._run, graphed.TileRun)
+    assert isinstance(_target(eng)._run, graphed.GraphedRun)
     _assert_bits(_bits(got), _bits(eng.run_eager(state, steps)))
     _assert_bits(_bits(state), before)
 
@@ -308,7 +308,7 @@ def test_mesh_d2_graphed_matches_jax():
                         impl="resident", device="cpu")
     out = eng.run(eng.init_state(), steps)
     assert eng.impl == "resident" and int(out.overflow) == 0
-    assert isinstance(eng._run, graphed.TileRun) and eng._run.graphs.names
+    assert isinstance(eng._run, graphed.GraphedRun) and eng._run.graphs.names
     got, ref = eng.gather(out), jeng.gather(jout)
     np.testing.assert_array_equal(got["pid"], np.arange(n))
     np.testing.assert_array_equal(ref["pid"], np.arange(n))

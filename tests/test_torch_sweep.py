@@ -314,7 +314,8 @@ def test_rank_overflow_guard(monkeypatch):
 
 
 def test_make_step_reads_the_occupancy_once_a_step(monkeypatch):
-    """One occupancy read a step, plus one at the start of a run."""
+    """One occupancy a step (built on the device, read back by no step),
+    plus one at the start of a run."""
     calls = []
     real = binning.occupancy
     monkeypatch.setattr(binning, "occupancy",

@@ -175,8 +175,7 @@ BAD = {
     "pos int32": lambda a: {**a, "pos": a["pos"].int()},
     "x strided": lambda a: {**a, "x": torch.stack([a["x"], a["x"]], 1)[:, 0]},
     "counts short": lambda a: {**a, "plan": binning.Occupancy(
-        a["plan"].kmax, a["plan"].lanes, a["plan"].cells,
-        a["plan"].counts[:-1], a["key"])},
+        a["plan"].counts[:-1], a["plan"].kmax, a["plan"].large, a["key"])},
     "2-D x": lambda a: {**a, "x": a["x"][None]},
 }
 

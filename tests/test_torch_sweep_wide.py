@@ -218,9 +218,14 @@ def test_parity_model_matches_plain(case, mesh):
                                       b.numpy().view(np.int64))
 
 
+# Chunks of 4096 lanes (the kernel's most), of 700 (a huge cell's several),
+# and below the largest cell's count: a graph's chunk class is fixed at
+# capture, and a later step's kmax may outgrow it (the kernel's chunk is
+# min(kmax, class)).
 WINDOW = [(c, dt, mesh, chunk) for c in CASES
           for dt in (np.float64, np.float32) for mesh in LAYOUTS
-          for chunk in ((CHUNK, 700) if c in ("wide", "huge") else (CHUNK,))]
+          for chunk in ((CHUNK, 700) if c == "huge" else (CHUNK, 700, 256)
+                        if c == "wide" else (CHUNK, 8))]
 
 
 @pytest.mark.parametrize("case,dtype,mesh,chunk", WINDOW, ids=[
@@ -273,8 +278,5 @@ def test_parity_team(kmax, large, team):
     """The parity force kernel's team of warps a large cell (more than
     ``sweep.SMALL_CELL`` lanes) on a card of 132 SMs: 16 where the large
     cells' teams fill every warp the card holds, else 0 (no teams)."""
-    cells = [0] * kmax
-    if large:
-        cells[sweep.SMALL_CELL] = large
-    plan = binning.Occupancy(kmax, [], cells, None, None)
-    assert sweep.parity_team(plan, 132) == team
+    assert sweep.parity_team(large if kmax > sweep.SMALL_CELL else 0,
+                             132) == team
