@@ -1207,15 +1207,43 @@ def step_ms(eng, state, k, reps=2, run=None):
 
 def _profile(eng, state, steps, run=None):
     """(device ms, kernel launches) of one run of ``steps``, by name:
-    [(ms, launches, name)], from torch.profiler."""
+    [(ms, launches, name)], from torch.profiler. A graphed run's graphs are
+    captured anew just before the session (``_recapture``)."""
     run = run or eng.run
-    return _profile_fn(lambda: run(state, steps))
+    return _profile_fn(lambda: run(state, steps),
+                       before=lambda: _recapture(eng, state, run))
 
 
-def _profile_fn(fn):
+def _recapture(eng, state, run):
+    """Where ``run`` replays graphs (``eng.run``, or a GraphedRun), drop
+    them and capture them again with a run of 0 steps. CUPTI faults inside
+    ``cuGraphLaunch`` when a graph captured before other profiler sessions
+    and other graphs is replayed under a session (a segfault in libcupti's
+    launch callback, PERF.md section 7); a graph captured just before its
+    session has not. ``check_long_lived`` replays long-lived graphs
+    unprofiled."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    kind = getattr(graphed, "GraphedRun", None)  # None: an older checkout
+    if kind is None:
+        return
+    if isinstance(run, kind):
+        runs = run
+    elif run == getattr(eng, "run", None) and isinstance(
+            getattr(_target(eng), "_run", None), kind):
+        runs = _target(eng)._run
+    else:
+        return
+    runs.release()
+    run(state, 0)
+    torch.cuda.synchronize()
+
+
+def _profile_fn(fn, before=None):
     """[(device ms, launches, name)] of one call of ``fn`` (torch.profiler;
     copies and memsets count no launch, nor do the kernels that carry out a
-    CUDA graph's copy and memset nodes, ``memcpy32_post`` and the like)."""
+    CUDA graph's copy and memset nodes, ``memcpy32_post`` and the like).
+    ``before()`` runs between the two sessions, unprofiled."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1223,6 +1251,8 @@ def _profile_fn(fn):
     # delivers late lands there, not in this one's.
     with profile(activities=[ProfilerActivity.CUDA]):
         torch.cuda.synchronize()
+    if before is not None:
+        before()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1267,6 +1297,8 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10, run=None,
     rows0 = _profile(eng, state, base, run)
     n = steps - base
     launches = (sum(k for _, k, _ in rows) - sum(k for _, k, _ in rows0)) / n
+    calls0 = {key: k for _, k, key in rows0}
+    per_kernel = {key: (k - calls0.get(key, 0)) / n for _, k, key in rows}
     _syncs(eng, state, 0, run)  # the first count holds a one-off sync
     syncs = (_syncs(eng, state, steps, run)
              - _syncs(eng, state, base, run)) / n
@@ -1287,7 +1319,8 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10, run=None,
           flush=True)
     return {"device_ms": total, "device_ms_whole": whole,
             "idle": 1 - total / step_ms_host, "launches": launches,
-            "syncs": syncs, "kernels": {k: v for k, v in ours.items() if v}}
+            "syncs": syncs, "kernels": {k: v for k, v in ours.items() if v},
+            "per_kernel": per_kernel}
 
 
 def steady_breakdown(label, eng, state, step_ms_host, steps):
@@ -4383,8 +4416,6 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
         return {"sweep_com": (com_k, com_p)}, {"sweep_com": com_err}
     tables = stencil.stencil_tables(*ck, side, nc)
     occ_k, occ_p = check_occupancy(tag, key, pos, ncells)
-    # The chunk class a run takes from its first occupancy.
-    chunk = sweep.chunk_class(plan.host_kmax)
 
     def forces_k():
         return sweep.sweep_forces(x, y, m, alive, key, pos, plan, tables,
@@ -4396,7 +4427,7 @@ def _check_sweep_outputs(tag, lanes_, x, y, m, alive, side, nc,
 
     def coll_k():
         return sweep.sweep_collisions(x, y, alive, key, pos, plan, EPSILON,
-                                      ncells, chunk)
+                                      ncells)
 
     def coll_p():
         return sweep.sweep_collisions_ref(x, y, alive, key, pos, plan,
@@ -5352,7 +5383,9 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
                                  run=fn, base=1)
         rec[tag] = {"ms": ms, "device_ms": times["device_ms"],
                     "idle": times["idle"], "launches": times["launches"],
-                    "syncs": times["syncs"]}
+                    "syncs": times["syncs"],
+                    "per_kernel": times["per_kernel"]}
+
     def clean():
         g, e = rec["graphed"]["launches"], rec["eager"]["launches"]
         return (g == e and g == round(g)
@@ -5363,19 +5396,28 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
             break
         # The profiler has lost or misplaced kernel records before (a
         # count off by a fraction or by a stray record, or more device time
-        # than the step took): profile both again.
+        # than the step took): name the kernels whose counts differ, then
+        # profile both again.
+        print(f"{label}: kernels a step that differ, graphed / eager: "
+              + _kernel_count_diff(rec["graphed"]["per_kernel"],
+                                   rec["eager"]["per_kernel"]), flush=True)
         for tag, fn in (("graphed", eng.run), ("eager", eng.run_eager)):
             times = device_breakdown(f"{label} {tag} (again)", eng, state,
                                      rec[tag]["ms"], steps=k, run=fn, base=1)
             rec[tag].update(device_ms=times["device_ms"], idle=times["idle"],
-                            launches=times["launches"])
+                            launches=times["launches"],
+                            per_kernel=times["per_kernel"])
     if rec["graphed"]["launches"] != rec["eager"]["launches"]:
-        raise AssertionError(f"{label}: {rec['graphed']['launches']} kernels "
-                             f"a step graphed, {rec['eager']['launches']} "
-                             f"eager")
+        raise AssertionError(
+            f"{label}: {rec['graphed']['launches']} kernels a step graphed, "
+            f"{rec['eager']['launches']} eager: "
+            + _kernel_count_diff(rec["graphed"]["per_kernel"],
+                                 rec["eager"]["per_kernel"]))
     if rec["graphed"]["syncs"] != 0:
         raise AssertionError(f"{label}: host syncs in the graphed steps")
     g, e = rec["graphed"], rec["eager"]
+    for r in (g, e):
+        del r["per_kernel"]
     pool = ("not measured" if rec["pool_bytes"] is None
             else f"{rec['pool_bytes'] / 2**20:.1f} MiB")
     print(f"{label} ({eng.impl}, kcap {eng.kcap}, {k} steps checked, "
@@ -5393,6 +5435,31 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
     del eng, state, first, second
     torch.cuda.empty_cache()
     return rec
+
+
+def _kernel_count_diff(graphed, eager):
+    """The kernels whose launches a step differ between two profiles
+    ({name: launches a step}), each as "name graphed / eager"; "none" if
+    only the totals or the idle share were off."""
+    diff = [f"{key[:60]} {graphed.get(key, 0):.2f} / {eager.get(key, 0):.2f}"
+            for key in sorted(set(graphed) | set(eager))
+            if abs(graphed.get(key, 0) - eager.get(key, 0)) > 1e-9]
+    return "; ".join(diff) or "none"
+
+
+def check_long_lived(label, eng, state, steps, bits, captures):
+    """A run's graphs replayed long after their capture, other phases'
+    graphs made, replayed and dropped in between: ``eng.run(state,
+    steps)`` must give ``bits`` again with no capture beyond ``captures``
+    (the count when ``bits`` were taken)."""
+    graphs = eng._run.graphs
+    _bitwise(f"{label}: graphs replayed after later phases", bits,
+             _state_bits(eng.run(state, steps)))
+    if graphs.captures != captures:
+        raise AssertionError(f"{label}: {graphs.captures - captures} new "
+                             f"captures after later phases")
+    print(f"{label}: graphs captured in an earlier phase replayed, bit for "
+          f"bit as then, no new capture ({captures} in all)", flush=True)
 
 
 def check_capture_raises():
@@ -5792,13 +5859,13 @@ def main():
               f"{n / ms / 1e3:.2f} M particle-steps/s (run(1) {t1:.4f} s, "
               f"run(11) {t11:.4f} s) on {card}", flush=True)
         device_breakdown(f"UNEVEN {label}", e, st, ms)
-    # Each engine's graphs go with the phase that used them: a graph
-    # replayed under torch.profiler after many phases of other graphs
-    # crashed inside replay() (PERF.md section 7), so check_banded times
-    # engines of its own.
-    for e in (eng, eng_v1, eng_d, eng_t, eng_dun):
+    # The tiered engine's graphs, captured here, are replayed and profiled
+    # again in phase q, after the sweep and supercell phases' own graphs:
+    # the result of that replay must be this one's, with no new capture.
+    long_lived = (_state_bits(eng_t.run(state_t, 10)),
+                  eng_t._run.graphs.captures)
+    for e in (eng, eng_v1, eng_d):
         graphed.release(e._run)
-    del eng_t, eng_dun
 
     # 8. The sweep engine (f64 parity and f32) and the CLI.
     t_sweep = time.perf_counter()
@@ -5819,12 +5886,15 @@ def main():
     # 9. The supercell engine at SMALL.
     sub_rec, sums_rec, small_launches, small_cli = check_small(card)
 
-    # 10. The banded engine: UNEVEN by the census, and N = 1e7 streaming.
-    def fresh(impl):
-        e = Engine(un, device="cuda", impl=impl)
-        return e, e.init_state()
-
-    banded_launches, _ = check_banded(card, fresh("tiered"), fresh("dense"))
+    # 10. The banded engine: UNEVEN by the census, and N = 1e7 streaming,
+    # beside phase 7's tiered and dense engines, their graphs replayed and
+    # profiled a long while after their capture.
+    check_long_lived("UNEVEN tiered", eng_t, state_t, 10, *long_lived)
+    banded_launches, _ = check_banded(card, (eng_t, state_t),
+                                      (eng_dun, state_dun))
+    for e in (eng_t, eng_dun):
+        graphed.release(e._run)
+    del eng_t, eng_dun
 
     # 11. The 1D row mesh at the flagship on a local mesh of the card.
     mesh_launches, _ = check_mesh(card)

@@ -50,7 +50,10 @@
 // traffic than it saved (PERF.md section 6). The collision pass sorts each
 // chunk of a cell (up to kChunk lanes) by x in shared memory; each alive
 // lane walks outward from its own x while fl(dx²) < 4 eps² and tests only
-// those partners.
+// those partners. It is two launches of one kernel: the cells of kLarge
+// lanes or fewer with shared memory for kLarge lanes (so an SM holds as
+// many blocks as threads allow), the larger cells with shared memory for
+// kChunk, so that no launch takes a host value of the occupancy.
 //
 // What bounds them on an H100: the forces are bound by operations: ~17
 // f64 operations an unordered same-cell pair of alive lanes in parity (the
@@ -128,7 +131,8 @@ constexpr int kChunk = 4096;  // the collision pass's chunk of a cell
 constexpr int kTile = 32;     // parity forces: a row tile, a column tile
 constexpr int kGroup = 8;     // parity forces: row lanes a buffer round
 constexpr int kWarps = 8;     // parity forces: warps a block
-constexpr int kLarge = 512;   // parity forces: the most lanes a small cell
+constexpr int kLarge = 512;   // the most lanes of a small cell (parity
+                              // forces' teams, the collision launches)
 constexpr int kTeam = 16;     // parity forces: the warps of a large cell
 constexpr int kSmWarps = 32;  // the warps an SM holds
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -1005,7 +1009,11 @@ __global__ void __launch_bounds__(kWarps * 32, 4) sweep_forces_parity_kernel(
   __shared__ RowShared shared[kWarps];
   // The team rule, on the occupancy's large-cell count: kTeam warps a large
   // cell where the large cells' teams fill every warp of the card's `sms`
-  // SMs, else none.
+  // SMs (kSmWarps an SM), else none, every cell a lane a thread. A team's
+  // rows wait on each other, so a few large cells would run mostly waiting
+  // (nine cells of ~1100 lanes: 1.14 -> 4.58 device ms a step), where a
+  // lane a thread keeps the card busy; MEDIUM's 400 cells of ~2600 lanes
+  // fill 132 SMs and take teams (264 cells would, 263 would not).
   const int team =
       *large * kTeam >= (long long)kSmWarps * sms ? kTeam : 0;
   RowShared& sh = shared[threadIdx.x >> 5];
@@ -1111,23 +1119,27 @@ __global__ void __launch_bounds__(kThreads) sweep_forces_fast_kernel(
 // ---- Collisions.
 
 // A block a range of kThreads lanes. The block runs the chunks that start
-// in its range: a chunk is up to `chunk` = min(kmax, cls) consecutive
+// in its range: a chunk is up to `chunk` = min(kmax, kChunk) consecutive
 // lanes of one cell, starting at a lane whose position is a multiple of
 // `chunk`, so every lane of a cell lies in exactly one chunk and a cell of
 // `chunk` lanes or fewer is one chunk. kmax is the occupancy's, read on the
-// card; `cls`, a power of two up to kChunk, is the launcher's, and sets
-// the shared memory (a graph captures it with the launch). Every receiver
-// chunk meets every partner chunk of its cell, and the lowest partner that
-// hits is the same whatever the chunks: the count and the dead set do not
-// depend on the chunk. The block also writes its range's sentinel lanes.
+// card. The launch for small cells (kLarge lanes or fewer, each one chunk)
+// holds kLarge lanes in shared memory, the one for larger cells kChunk, so
+// each captured launch serves every state. Every receiver chunk meets
+// every partner chunk of its cell, and the lowest partner that hits is the
+// same whatever the chunks: the count and the dead set do not depend on
+// the chunk. The small cells' launch also writes the sentinel lanes.
 
-// The chunk starts of this block's range, into starts[0 .. *nstarts); the
-// sentinel lanes of the range are handed to `sentinel(i)`.
+// The chunk starts of this block's range in cells of kLarge lanes or fewer
+// (`small`) or of more, into starts[0 .. *nstarts); the sentinel lanes of
+// the range are handed to `sentinel(i)`.
 template <typename Sentinel>
 __device__ __forceinline__ void chunk_starts(const int* key,
-                                             const int64_t* pos, int n,
+                                             const int64_t* pos,
+                                             const int64_t* counts, int n,
                                              int ncells, int chunk,
-                                             int* starts, int* nstarts,
+                                             bool small, int* starts,
+                                             int* nstarts,
                                              Sentinel sentinel) {
   if (threadIdx.x == 0) *nstarts = 0;
   __syncthreads();
@@ -1136,7 +1148,7 @@ __device__ __forceinline__ void chunk_starts(const int* key,
     const int k = key[i];
     if ((unsigned)k >= (unsigned)ncells) {
       sentinel(i);
-    } else if (pos[i] % chunk == 0) {
+    } else if (pos[i] % chunk == 0 && (counts[k] <= kLarge) == small) {
       starts[atomicAdd(nstarts, 1)] = i;
     }
   }
@@ -1207,9 +1219,10 @@ __device__ void bitonic_sort(K* keys, unsigned short* idx, int np) {
   }
 }
 
-template <typename T>
-size_t collision_shared_bytes(int cls) {
-  return (size_t)cls * (sizeof(typename SortKey<T>::type) + 2 + sizeof(int));
+template <typename T, int kLanes>
+constexpr size_t collision_shared_bytes() {
+  return (size_t)kLanes *
+         (sizeof(typename SortKey<T>::type) + 2 + sizeof(int));
 }
 
 // Each lane's first colliding pair (ops/collisions.py
@@ -1220,41 +1233,48 @@ size_t collision_shared_bytes(int cls) {
 // memory, and each alive receiver walks outward from its own x, up then
 // down, while fl(dx²) < 4 eps², testing each alive partner as the plain
 // version does and keeping the lowest position that hits. A kmax at or
-// above `rank_limit` runs no detection.
-template <typename T>
+// above `rank_limit` runs no detection. kLanes: kLarge, the small cells'
+// launch, or kChunk, the larger cells'.
+template <typename T, int kLanes>
 __global__ void __launch_bounds__(kThreads) sweep_collisions_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const bool* __restrict__ alive, const int* __restrict__ key,
     const int64_t* __restrict__ pos, const int64_t* __restrict__ counts,
-    int n, int ncells, const long long* __restrict__ kmax, int cls,
-    int rank_limit, T eps, int* first, bool* died,
+    int n, int ncells, const long long* __restrict__ kmax, int rank_limit,
+    T eps, int* first, bool* died,
     unsigned long long* count) {
   using K = typename SortKey<T>::type;
   constexpr K kNone = SortKey<T>::kNone;
   extern __shared__ __align__(16) unsigned char shared[];
   K* keys = reinterpret_cast<K*>(shared);
-  unsigned short* idx = reinterpret_cast<unsigned short*>(keys + cls);
-  int* best = reinterpret_cast<int*>(idx + cls);
+  unsigned short* idx = reinterpret_cast<unsigned short*>(keys + kLanes);
+  int* best = reinterpret_cast<int*>(idx + kLanes);
   __shared__ int starts[kThreads];
   __shared__ int nstarts;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = 0;  // the count pass
-                                                        // runs after this
+  constexpr bool kSmall = kLanes == kLarge;
   const long long km = *kmax;
+  // The small cells' launch zeroes the count (the count pass runs after
+  // both) and writes the lanes no chunk holds.
+  if (kSmall && blockIdx.x == 0 && threadIdx.x == 0) *count = 0;
   if (km >= rank_limit) {
     // A cell beyond the rank domain: no detection (the plain version's
     // guard; the engine flags the run from the same kmax).
     const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i < n) {
+    if (kSmall && i < n) {
       first[i] = -1;
       died[i] = false;
     }
     return;
   }
-  const int chunk = km < 1 ? 1 : (km < cls ? (int)km : cls);
-  chunk_starts(key, pos, n, ncells, chunk, starts, &nstarts, [&](int i) {
-    first[i] = -1;
-    died[i] = false;
-  });
+  if (!kSmall && km <= kLarge) return;  // no cell for this launch
+  const int chunk = kSmall ? kLarge : (km < kChunk ? (int)km : kChunk);
+  chunk_starts(key, pos, counts, n, ncells, chunk, kSmall, starts, &nstarts,
+               [&](int i) {
+                 if (kSmall) {
+                   first[i] = -1;
+                   died[i] = false;
+                 }
+               });
   const T far2 = T(4) * eps * eps;
   for (int c = 0; c < nstarts; ++c) {
     const int c0 = starts[c];
@@ -1405,25 +1425,39 @@ int forces_fast(const float* x, const float* y, const float* m,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int collisions(const T* x, const T* y, const bool* alive, const int* key,
-               const int64_t* pos, const int64_t* counts, int n, int ncells,
-               const long long* kmax, int cls, int rank_limit, double eps,
-               int* first, bool* died, long long* count, void* stream) {
-  if (n < 1 || ncells < 1 || cls < 2 || cls > kChunk || (cls & (cls - 1)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* total = reinterpret_cast<unsigned long long*>(count);
-  const size_t smem = collision_shared_bytes<T>(cls);
-  auto kernel = sweep_collisions_kernel<T>;
+template <typename T, int kLanes>
+int collision_launch(const T* x, const T* y, const bool* alive,
+                     const int* key, const int64_t* pos,
+                     const int64_t* counts, int n, int ncells,
+                     const long long* kmax, int rank_limit, double eps,
+                     int* first, bool* died, unsigned long long* total,
+                     cudaStream_t s) {
+  const size_t smem = collision_shared_bytes<T, kLanes>();
+  auto kernel = sweep_collisions_kernel<T, kLanes>;
   static size_t opted = 0;
   const cudaError_t oerr = opt_in(kernel, smem, opted);
   if (oerr != cudaSuccess) return (int)oerr;
   kernel<<<blocks_for(n), kThreads, smem, s>>>(x, y, alive, key, pos, counts,
-                                               n, ncells, kmax, cls,
-                                               rank_limit, (T)eps, first,
-                                               died, total);
-  const int err = (int)cudaGetLastError();
+                                               n, ncells, kmax, rank_limit,
+                                               (T)eps, first, died, total);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int collisions(const T* x, const T* y, const bool* alive, const int* key,
+               const int64_t* pos, const int64_t* counts, int n, int ncells,
+               const long long* kmax, int rank_limit, double eps,
+               int* first, bool* died, long long* count, void* stream) {
+  if (n < 1 || ncells < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* total = reinterpret_cast<unsigned long long*>(count);
+  int err = collision_launch<T, kLarge>(x, y, alive, key, pos, counts, n,
+                                        ncells, kmax, rank_limit, eps, first,
+                                        died, total, s);
+  if (err != 0) return err;
+  err = collision_launch<T, kChunk>(x, y, alive, key, pos, counts, n, ncells,
+                                    kmax, rank_limit, eps, first, died,
+                                    total, s);
   if (err != 0) return err;
   sweep_collision_count_kernel<<<blocks_for(n), kThreads, 0, s>>>(
       first, pos, n, total);
@@ -1530,23 +1564,22 @@ extern "C" int psim_sweep_forces_f32(const float* x, const float* y,
                      myl, g, fx, fy, stream);
 }
 
-// kmax: the most lanes in one real cell, on the card (the occupancy's);
-// cls: a power of two in [2, kChunk], the most lanes of a chunk (the chunk
-// is min(kmax, cls)); rank_limit: the kmax from which no detection runs;
-// eps = EPSILON, cast to the type. Outputs: first (n ints, scratch), died
-// (n bytes); count (one int64): the pairs first for both ends. Two launches: the first pairs
-// (which zero the count), then the count.
+// kmax: the most lanes in one real cell, on the card (the occupancy's;
+// a chunk is min(kmax, kChunk) lanes); rank_limit: the kmax from which no
+// detection runs; eps = EPSILON, cast to the type. Outputs: first (n ints,
+// scratch), died (n bytes); count (one int64): the pairs first for both
+// ends. Three launches: the first pairs in the small cells (which zero the
+// count) and in the larger ones, then the count.
 extern "C" int psim_sweep_collisions_f64(const double* x, const double* y,
                                          const bool* alive, const int* key,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
                                          int ncells, const long long* kmax,
-                                         int cls, int rank_limit, double eps,
+                                         int rank_limit, double eps,
                                          int* first, bool* died,
                                          long long* count, void* stream) {
   return collisions<double>(x, y, alive, key, pos, counts, n, ncells, kmax,
-                            cls, rank_limit, eps, first, died, count,
-                            stream);
+                            rank_limit, eps, first, died, count, stream);
 }
 
 extern "C" int psim_sweep_collisions_f32(const float* x, const float* y,
@@ -1554,10 +1587,9 @@ extern "C" int psim_sweep_collisions_f32(const float* x, const float* y,
                                          const int64_t* pos,
                                          const int64_t* counts, int n,
                                          int ncells, const long long* kmax,
-                                         int cls, int rank_limit, double eps,
+                                         int rank_limit, double eps,
                                          int* first, bool* died,
                                          long long* count, void* stream) {
   return collisions<float>(x, y, alive, key, pos, counts, n, ncells, kmax,
-                           cls, rank_limit, eps, first, died, count,
-                           stream);
+                           rank_limit, eps, first, died, count, stream);
 }

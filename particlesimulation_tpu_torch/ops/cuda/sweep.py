@@ -99,7 +99,7 @@ def load(path):
                               + ([vp, vp, vp, ci, vp, vp] if t == "f64"
                                  else [vp] * 3))
         coll_fn = getattr(lib, f"psim_sweep_collisions_{t}")
-        coll_fn.argtypes = [vp] * 6 + [ci, ci, vp, ci, ci, cd] + [vp] * 4
+        coll_fn.argtypes = [vp] * 6 + [ci, ci, vp, ci, cd] + [vp] * 4
         for fn in (com_fn, forces_fn, coll_fn):
             fn.restype = ci
         chain_fn = getattr(lib, f"psim_sweep_com_chain_{t}")
@@ -270,24 +270,11 @@ def sweep_forces(x, y, m, alive, key, pos, plan, tables, ncells: int):
     return out[0], out[1]
 
 
-# csrc/sweep.cu: the most lanes of a cell the parity force kernel runs a
-# lane a thread when large cells take teams (larger cells go to a team of
-# TEAM warps, each pair's term once), and the warps the card holds an SM.
+# csrc/sweep.cu's kLarge: the most lanes of a cell that the parity force
+# kernel runs a lane a thread whatever the team rule says (the occupancy's
+# ``large`` counts the cells above it), and of a cell in the collision
+# pass's first launch.
 SMALL_CELL = 512
-TEAM = 16
-SM_WARPS = 32
-
-
-def parity_team(large: int, sms: int) -> int:
-    """The warps a large cell takes in the parity force kernel, given
-    ``large``, the cells of more than SMALL_CELL lanes (``plan.large``):
-    TEAM where the large cells' teams fill every warp of the card (``sms``
-    SMs), else 0, every cell a lane a thread. A team's rows wait on each
-    other, so a few cells run mostly waiting (nine cells of ~1100 lanes:
-    1.14 → 4.58 device ms a step, PERF.md section 6), where a lane a thread
-    keeps the card busy. The kernel applies this rule to the count on the
-    card; this is its statement on the host."""
-    return TEAM if large * TEAM >= SM_WARPS * sms else 0
 
 
 def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):
@@ -307,33 +294,20 @@ def sweep_forces_ref(x, y, m, alive, key, pos, plan, tables, ncells: int):
 CHUNK = 4096
 
 
-def chunk_class(kmax: int) -> int:
-    """The collision kernel's chunk class for a largest cell of ``kmax``
-    lanes: the power of two at or above it, from 2 up to CHUNK. The kernel
-    runs chunks of min(kmax, class) lanes (kmax read on the card), and the
-    class sizes its shared memory; every chunking gives the same count and
-    dead set."""
-    cls = 2
-    while cls < min(kmax, CHUNK):
-        cls *= 2
-    return cls
-
-
 def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
-                     ncells: int, chunk: int = CHUNK):
+                     ncells: int):
     """(count int64 0-d, died bool (n,)): the collision pass of float32 or
     float64 lanes. A cell of ``collisions.RANK_LIMIT`` lanes or more
     (``plan.kmax``) takes no detection, as in the plain version: the
-    engine flags it. ``chunk`` (``chunk_class``'s; the kernel's alone) is
-    the most lanes of a chunk: a run fixes it before its loop, so that its
-    steps capture as one graph."""
+    engine flags it. The kernel reads ``plan.kmax`` on the card, in two
+    launches: cells of SMALL_CELL lanes or fewer, each one chunk, and the
+    larger cells in chunks of min(kmax, CHUNK) lanes, each launch's shared
+    memory sized for its most, so that one capture serves every state."""
     n = _check([("x", x), ("y", y)], [("alive", alive, torch.bool)], key,
                pos, plan, ncells)
     if not cell_pairs._on_card(x, "sweep collision pass"):
         return sweep_collisions_ref(x, y, alive, key, pos, plan, epsilon,
                                     ncells)
-    if chunk != chunk_class(chunk):
-        raise ValueError(f"chunk {chunk}: a power of two in [2, {CHUNK}]")
     _check_scalar("plan.kmax", plan.kmax, x.device)
     count = torch.empty((), dtype=torch.int64, device=x.device)
     first = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -341,7 +315,7 @@ def sweep_collisions(x, y, alive, key, pos, plan, epsilon: float,
     cell_pairs._launch(
         "sweep_collisions", _kernel("collisions", x), x, x.data_ptr(),
         y.data_ptr(), alive.data_ptr(), key.data_ptr(), pos.data_ptr(),
-        plan.counts.data_ptr(), n, ncells, plan.kmax.data_ptr(), chunk,
+        plan.counts.data_ptr(), n, ncells, plan.kmax.data_ptr(),
         collisions.RANK_LIMIT, float(epsilon), first.data_ptr(),
         died.data_ptr(), count.data_ptr(), launches=LAUNCHES)
     return count, died

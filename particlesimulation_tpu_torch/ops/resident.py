@@ -172,28 +172,6 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
         ts.overflow.copy_(torch.maximum(ts.overflow, ovf))
         return ts, fxd, fyd
 
-    def run_eager(state, n_steps: int):
-        ts, fxd, fyd = start(state)
-        for _ in range(n_steps):
-            ts, fxd, fyd = step(ts, fxd, fyd)
-        return finish(ts, state)
-
-    graphs = graphed.StepGraph()
-
-    def run(state, n_steps: int):
-        carry = start(state)
-        if n_steps == 0:
-            out = finish(carry[0], state)
-            graphs.load(carry)
-            del carry
-            graphs.capture("step", step)
-            return out
-        graphs.load(carry)
-        del carry
-        for _ in range(n_steps):
-            graphs.step("step", step)
-        return graphs.own(finish(graphs.carry()[0], state))
-
     def pair_tiles(state, n_steps: int):
         if n_steps == 0:
             return pair_args(prologue(state))
@@ -202,7 +180,8 @@ def make_tile_run(prologue, advance, pair_args, pair_pass, kcap: int,
             ts, fxd, fyd = step(ts, fxd, fyd)
         return pair_args(advance(ts, fxd, fyd)[0])
 
-    return pair_tiles, graphed.GraphedRun(run, run_eager, graphs)
+    return pair_tiles, graphed.loop_run(start, step,
+                                        lambda c, state: finish(c[0], state))
 
 
 def _own_counters(ts):

@@ -12,6 +12,7 @@ Stencil order is the reference's loop order — dx outer, dy inner, skipping
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -21,11 +22,33 @@ STENCIL = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1),
            (1, -1), (1, 0), (1, 1))
 
 
-# Never evicted: a CUDA graph that captured a step (``ops/graphed``) holds
-# the plan's device addresses, not its tensors, so a plan freed by an
-# eviction would leave the graph reading memory reused by other tensors.
-# A plan is 64 + 16 · itemsize bytes a cell: one per grid, type and device.
-@functools.lru_cache(maxsize=None)
+# The lists that the captures in progress add each plan they read to
+# (``holding``).
+_HOLDERS = []
+
+
+@contextlib.contextmanager
+def holding(into: list):
+    """Inside the block, every plan the stencil reads is also appended to
+    ``into``. A CUDA graph (``ops/graphed``) keeps a plan's device
+    addresses, not its tensors: its capture runs in this block, and the
+    graph holds the list, so that a plan the bounded cache evicts stays
+    allocated as long as a graph reads it."""
+    _HOLDERS.append(into)
+    try:
+        yield into
+    finally:
+        _HOLDERS.remove(into)
+
+
+def _plan(side: float, ncside: int, dtype, device):
+    plan = _stencil_plan(side, ncside, dtype, device)
+    for into in _HOLDERS:
+        into.append(plan)
+    return plan
+
+
+@functools.lru_cache(maxsize=8)
 def _stencil_plan(side: float, ncside: int, dtype, device):
     """The stencil as a gather: ``idx`` (8, ncells + 1) int64, row l column
     c the index of cell c's l-th neighbour, (cy + dy) % nc * nc + (cx + dx)
@@ -75,7 +98,7 @@ def stencil_tables(M, MX, MY, side: float, ncside: int):
     (serial/parsim.cpp:316-347): the offset is added to the neighbour's
     value, 0 where no mirror applies, as the reference adds it.
     """
-    idx, off = _stencil_plan(float(side), ncside, MX.dtype, MX.device)
+    idx, off = _plan(float(side), ncside, MX.dtype, MX.device)
     z = MX.new_zeros(1)
     v = torch.cat([M, z, MX, z, MY, z]).view(3, -1)
     g = v[:, idx]

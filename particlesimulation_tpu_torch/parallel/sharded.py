@@ -227,15 +227,13 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
     keys, and returns the next state and the occupancy of its keys in the
     same form, as ``engine.make_step``'s step does, reading nothing back;
     ``run(state, n_steps)`` returns the final ShardedState, a
-    ``graphed.GraphedRun`` whose steps replay one graph on the card (the
-    collision kernel's chunk class fixed at the first run, as there)."""
+    ``graphed.GraphedRun`` whose steps replay one graph on the card."""
     side = config.side
     nc = config.ncside
     ncells = config.ncells
     L = len(mesh.local_shards)
     nb = L * ncl                            # cells of the batched grid
     lpos = torch.arange(L, device=mesh.device)[:, None]
-    chunk = []
 
     def lanes(key):
         """Batched keys of (L, C) global keys, flat (sentinel lanes nb),
@@ -284,7 +282,7 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
         plan2 = binning.occupancy(bkey3, nb, pos3)
         count, died = sweep.sweep_collisions(
             x.reshape(-1), y.reshape(-1), alive.reshape(-1), bkey3, pos3,
-            plan2, EPSILON, nb, chunk[0])
+            plan2, EPSILON, nb)
         m, alive = collisions.apply_deaths(m.reshape(-1), alive.reshape(-1),
                                            died)
         # Counts add up; the rank sentinel is combined by maximum, as on
@@ -305,8 +303,6 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
                            state.valid.view(L, -1), side, nc)
         bkey, pos = lanes(key)
         plan = binning.occupancy(bkey, nb, pos)
-        if not chunk:
-            chunk.append(sweep.chunk_class(int(plan.kmax)))
         return state, plan.counts, plan.kmax, plan.large
 
     run = graphed.loop_run(start, step, lambda carry, state: carry[0])

@@ -34,7 +34,8 @@ from particlesimulation_tpu.ops import binning as jbinning
 from particlesimulation_tpu_torch import engine as engine_mod
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.engine import Engine
-from particlesimulation_tpu_torch.ops import binning, collisions, graphed
+from particlesimulation_tpu_torch.ops import (binning, collisions, graphed,
+                                          stencil)
 from particlesimulation_tpu_torch.ops.cuda import adversarial as adv
 from particlesimulation_tpu_torch.ops.cuda import sweep
 from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
@@ -160,13 +161,6 @@ def test_occupancy_checks_its_arguments():
                 (key[None], pos)):
         with pytest.raises((TypeError, ValueError)):
             sweep.sweep_occupancy(*bad, NCELLS)
-
-
-def test_chunk_class():
-    """Powers of two from 2 up to the kernel's 4096, at or above kmax."""
-    got = [sweep.chunk_class(k) for k in (0, 1, 2, 3, 100, 128, 129, 2700,
-                                          4096, 10_000)]
-    assert got == [2, 2, 2, 4, 128, 128, 256, 4096, 4096, 4096]
 
 
 # --- Runs graphed against eager ---------------------------------------------
@@ -326,3 +320,56 @@ def test_zero_steps_capture(name):
     out = eng.run(state0, 3)
     assert graphs.captures == captures and graphs.names == names
     _assert_bits(_bits(out), _bits(eng.run_eager(state, 3)))
+
+
+# --- The graphs hold the stencil plans they read ----------------------------
+
+HELD = ["parity sweep", "f32 sweep", "dense", "tiered", "resident"]
+
+
+@pytest.mark.parametrize("name", HELD)
+def test_graphs_hold_the_stencil_plans_they_read(name):
+    """A graph reads its stencil plan's memory without holding the plan's
+    tensors: the run's ``StepGraph`` holds the plans its capture read, so
+    that the bounded cache may evict them (cleared here, then filled with
+    other grids). The run replays with the same bits and no new capture;
+    ``release`` drops the plans."""
+    if name == "resident":
+        eng = Engine(SimConfig(5893, 0.08, 4, 120), impl="resident",
+                     device="cpu")
+        state = eng.init_state()
+    else:
+        eng, state = _build(name)
+    first = _bits(eng.run(state, 2))
+    graphs = eng._run.graphs
+    captures = graphs.captures
+    dtype = torch.float64 if "parity" in name else torch.float32
+    key = (float(eng.config.side), eng.config.ncside, dtype,
+           torch.device("cpu"))
+    plan = stencil._stencil_plan(*key)
+    assert graphs.held and all(p is plan for p in graphs.held)
+    stencil._stencil_plan.cache_clear()
+    for nc in range(5, 5 + stencil._stencil_plan.cache_info().maxsize):
+        stencil._stencil_plan(1.0, nc, dtype, torch.device("cpu"))
+    assert stencil._stencil_plan(*key) is not plan
+    _assert_bits(_bits(eng.run(state, 2)), first)
+    assert graphs.captures == captures and graphs.held[0] is plan
+    graphs.release()
+    assert graphs.held == []
+
+
+def test_stencil_holding():
+    """``stencil.holding``: every plan read inside the block is appended to
+    each list held open, and none after; the cache is bounded."""
+    M = torch.rand(9, dtype=torch.float64)
+    outer, inner = [], []
+    with stencil.holding(outer):
+        stencil.stencil_tables(M, M, M, 1.0, 3)
+        with stencil.holding(inner):
+            stencil.stencil_tables(M, M, M, 1.0, 3)
+    stencil.stencil_tables(M, M, M, 1.0, 3)
+    plan = stencil._stencil_plan(1.0, 3, torch.float64, torch.device("cpu"))
+    assert len(outer) == 2 and len(inner) == 1
+    assert all(p is plan for p in outer + inner)
+    assert stencil._HOLDERS == []
+    assert stencil._stencil_plan.cache_info().maxsize == 8

@@ -219,9 +219,9 @@ def test_parity_model_matches_plain(case, mesh):
 
 
 # Chunks of 4096 lanes (the kernel's most), of 700 (a huge cell's several),
-# and below the largest cell's count: a graph's chunk class is fixed at
-# capture, and a later step's kmax may outgrow it (the kernel's chunk is
-# min(kmax, class)).
+# and far below the largest cell's count: the kernel splits every cell of
+# more than 4096 lanes, which holds only if the count and the dead set do
+# not depend on the chunk.
 WINDOW = [(c, dt, mesh, chunk) for c in CASES
           for dt in (np.float64, np.float32) for mesh in LAYOUTS
           for chunk in ((CHUNK, 700) if c == "huge" else (CHUNK, 700, 256)
@@ -265,18 +265,3 @@ def test_wide_plants():
     assert abs(x[s + 900] - x[s + 500]) < abs(x[s + 100] - x[s + 500])
     neg = int(np.flatnonzero(x.numpy() < 0)[0])
     assert first[neg] >= 0 and int(key[neg]) == 0
-
-
-@pytest.mark.parametrize("kmax,large,team", [
-    (140, 0, 0),         # no large cell: every lane a thread
-    (2700, 400, 16),     # MEDIUM: 400 large cells' teams fill the card
-    (2600, 264, 16),     # just enough teams to fill 132 SMs of 32 warps
-    (2600, 263, 0),      # one fewer: a lane a thread
-    (1111, 9, 0),        # nine large cells: a lane a thread
-])
-def test_parity_team(kmax, large, team):
-    """The parity force kernel's team of warps a large cell (more than
-    ``sweep.SMALL_CELL`` lanes) on a card of 132 SMs: 16 where the large
-    cells' teams fill every warp the card holds, else 0 (no teams)."""
-    assert sweep.parity_team(large if kmax > sweep.SMALL_CELL else 0,
-                             132) == team
