@@ -371,8 +371,10 @@ bc. for each of ``GRAPH_PATHS`` (the flagship resident, N = 1e7 resident
    the 2D (2, 2) mesh; then the sweep at parity s1, f32 s1, MEDIUM f32,
    MEDIUM in parity (golden s3's config), ``1 1000 3 10000`` in parity
    (teams off; MEDIUM's are on), the parity mesh at D = 2 and 4 and (2,
-   2), dense at the flagship and tiered at UNEVEN; the sweep paths' four
-   kernels must have launched, replays counted): the graphed run (``run``)
+   2), dense at the flagship and tiered at UNEVEN, and the 1D mesh on
+   phase be's NCCL ``DistMesh`` of world size 1, fast and parity; the
+   sweep paths' four kernels must have launched, replays counted): the
+   graphed run (``run``)
    against the eager one (``run_eager``) from one state, every field and
    counter bit for bit;
    the same engine on a second state (the first run's result) against its
@@ -392,10 +394,25 @@ bd. ``sweep.sweep_com`` launched back to back in one process: cells of 1
    sizes, ``adversarial.com_particles`` and golden s1's lanes, in f64 and
    f32, sorted and in the mesh's layout, three passes in a seeded order,
    each launch bit for bit against the plain version in parity and the
-   position-order sums in f32.
+   position-order sums in f32;
+be. the ``torch.distributed`` mesh (``parallel/mesh.DistMesh``, one shard
+   a rank) under the 1D row mesh, at golden s1 fast (the census: resident
+   tiles, the fused kernel) and in parity (the sweep's kernels): (i) NCCL
+   at world size 1 on the card, initialised in this process through a
+   ``file://`` store: the run graphed (the steps' all-reduces captured)
+   against eager bit for bit, three sync-free replays, golden s1's lines
+   (parity's exactly), the final state's digest against ``LocalMesh(1)``'s,
+   ms/step; (ii) gloo ranks sharing the card at D = 2 and 4, spawned, each
+   running ``run_eager`` (its collectives pass through host memory, so
+   ``run`` must refuse): every rank's digest of the gathered state and its
+   count against the ``LocalMesh`` engine's at the same D on the card,
+   ms/step by rank (host-staged gloo collectives on one card: not a scaling
+   number); (iii) NCCL across cards at D = 2, graphed, only where the
+   machine has two cards (else printed as not run).
 
 ``python3 chip_smoke.py --graphs`` runs phase bc alone,
-``python3 chip_smoke.py --com-back-to-back`` phase bd alone.
+``python3 chip_smoke.py --com-back-to-back`` phase bd alone,
+``python3 chip_smoke.py --dist`` phase be alone.
 ``python3 chip_smoke.py --wide`` runs phases av-ay alone (MEDIUM's f32
 sweep is not run there, so its result is not printed beside the tiles').
 ``python3 chip_smoke.py --advance`` runs phases ar-at alone, with golden
@@ -5198,6 +5215,12 @@ GRAPH_PATHS = (
      "dense", 6, 40),
     ("UNEVEN tiered", "engine", UNEVEN, {}, {"impl": "tiered"}, "tiered", 6,
      40),
+    # The 1D row mesh on a DistMesh over NCCL at world size 1 (phase be's
+    # mesh): the steps' all-reduces captured in the graphs.
+    ("DistMesh NCCL fast D=1", "dist", GOLDEN_S1[:4], {"n_shards": 1}, {},
+     "resident", 10, 40),
+    ("DistMesh NCCL parity D=1", "dist", GOLDEN_S1[:4],
+     {"n_shards": 1, "precision": "parity"}, {}, "sweep", 4, 20),
 )
 
 
@@ -5214,12 +5237,14 @@ def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
     from particlesimulation_tpu_torch.parallel.sharded2d import (
         Sharded2DEngine)
 
-    cls = {"engine": Engine, "mesh": ShardedEngine,
+    cls = {"engine": Engine, "mesh": ShardedEngine, "dist": ShardedEngine,
            "mesh2d": Sharded2DEngine}[kind]
     if cfg_kw.get("precision") == "parity":
         cfg_kw = {**cfg_kw, "precision": Precision.PARITY}
     cfg = SimConfig(*args, **cfg_kw)
-    eng = cls(cfg, device="cuda", **eng_kw)
+    # "dist": the 1D row mesh on phase be's NCCL DistMesh of world size 1.
+    where = {"mesh": _nccl_mesh()} if kind == "dist" else {"device": "cuda"}
+    eng = cls(cfg, **where, **eng_kw)
     state = eng.init_state()
     if not small:
         return eng, state
@@ -5230,7 +5255,7 @@ def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
     else:
         target._build()
         census = target.kcap
-        eng = cls(cfg, device="cuda", kcap=max(8, census // 2), **eng_kw)
+        eng = cls(cfg, **where, kcap=max(8, census // 2), **eng_kw)
         state = eng.init_state()
         _target(eng)._build()
         if _target(eng).kcap >= census:
@@ -5597,6 +5622,256 @@ def check_com_back_to_back(card):
     return launches
 
 
+# --- The torch.distributed mesh (phase be) ----------------------------------
+
+# Golden s1's config through the 1D row mesh: fast (the census picks
+# resident tiles: the fused kernel) and parity (the sweep's kernels).
+DIST_PATHS = (("flagship fast", {}, "resident"),
+              ("parity s1", {"precision": "parity"}, "sweep"))
+DIST_WORLDS = (2, 4)
+DIST_TIMEOUT = 300.0
+
+
+def _nccl_mesh():
+    """This process's ``DistMesh`` on cuda:0 over an NCCL group of world
+    size 1, initialised once through a ``file://`` store and destroyed at
+    exit."""
+    import atexit
+    import tempfile
+
+    import torch.distributed as dist
+    from particlesimulation_tpu_torch.parallel.mesh import DistMesh
+
+    if not dist.is_initialized():
+        torch.cuda.set_device(0)
+        store = os.path.join(tempfile.mkdtemp(), "store")
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+        atexit.register(dist.destroy_process_group)
+    return DistMesh("cuda:0")
+
+
+def _dist_engine(cfg_kw, d, mesh):
+    """A ``ShardedEngine`` of ``d`` shards on golden s1's config, on
+    ``mesh`` (None: its ``LocalMesh`` on the card)."""
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+
+    if cfg_kw.get("precision") == "parity":
+        cfg_kw = {**cfg_kw, "precision": Precision.PARITY}
+    cfg = SimConfig(*GOLDEN_S1[:4], n_shards=d, **cfg_kw)
+    if mesh is None:
+        return ShardedEngine(cfg, device="cuda")
+    return ShardedEngine(cfg, mesh=mesh)
+
+
+def _gathered_digest(eng, state):
+    """The digest of the mesh's particles in pid order (every rank's)."""
+    g = eng.gather(state)
+    return digest([torch.from_numpy(np.ascontiguousarray(g[f]))
+                   for f in MESH_FIELDS])
+
+
+def _path_launches(want):
+    """The launch counts of a path's kernels (tile or sweep), required
+    non-zero."""
+    got = read_launches() if want == "resident" else read_sweep_launches()
+    names = ("fused_pairs",) if want == "resident" else SWEEP_KERNELS
+    if not all(got[k] > 0 for k in names):
+        raise AssertionError(f"a kernel of the {want} path did not launch: "
+                             f"{got}")
+    return got
+
+
+def _dist_rank(rank, world, backend, tmp):
+    """One rank of a ``DistMesh`` group spawned by ``check_dist_ranks``:
+    gloo ranks share cuda:0 and run eagerly (their collectives pass
+    through host memory: ``run`` must refuse them), NCCL ranks take a card
+    each and run graphed. Each path of ``DIST_PATHS`` for golden s1's
+    steps, then timed; each rank writes its record as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+    from particlesimulation_tpu_torch.parallel.mesh import DistMesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(tmp, 'store')}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    steps = GOLDEN_S1[4]
+    recs = {}
+    try:
+        mesh = DistMesh(dev)
+        for label, cfg_kw, want in DIST_PATHS:
+            eng = _dist_engine(cfg_kw, world, mesh)
+            state = eng.init_state()
+            run = eng.run if backend == "nccl" else eng.run_eager
+            torch.cuda.synchronize()
+            reset_launches()
+            reset_sweep_launches()
+            out = run(state, steps)
+            torch.cuda.synchronize()
+            launches = _path_launches(want)
+            refused = None
+            if backend == "gloo":
+                try:
+                    eng.run(state, steps)
+                except ValueError as err:
+                    refused = str(err)
+            ms, _, _ = step_ms(eng, state, 3, reps=1, run=run)
+            recs[label] = {"impl": eng.impl, "digest": _gathered_digest(
+                eng, out), "collisions": int(out.collisions),
+                "result": eng.result(out), "launches": launches,
+                "ms": ms, "refused": refused}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def _spawn_ranks(world, backend):
+    """Spawn ``world`` ranks of ``_dist_rank`` and wait for them (a rank
+    that raises, or DIST_TIMEOUT seconds, ends them all and raises);
+    returns each rank's records."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp()
+    ctx = mp.start_processes(_dist_rank, args=(world, backend, tmp),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{backend} ranks still running after "
+                                     f"{DIST_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_dist_nccl(card):
+    """(be i) NCCL at world size 1 on cuda:0: golden s1 fast (resident
+    tiles) and in parity (the sweep) on a ``DistMesh``, graphed (its
+    all-reduces captured in the step's graph) against eager bit for bit,
+    three sync-free replays, golden s1's lines, the final state's digest
+    against ``LocalMesh(1)``'s, ms/step. Returns each path's launches."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    mesh = _nccl_mesh()
+    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
+    launches = {}
+    for label, cfg_kw, want in DIST_PATHS:
+        tag = f"DistMesh NCCL D=1 {label}"
+        eng = _dist_engine(cfg_kw, 1, mesh)
+        state = eng.init_state()
+        torch.cuda.synchronize()
+        reset_launches()
+        reset_sweep_launches()
+        out = eng.run(state, steps)
+        torch.cuda.synchronize()
+        launches[label] = _path_launches(want)
+        if want == "sweep":
+            read_sweep_launches(tag)
+        x, y, c = eng.result(out)
+        lines = (f"{x:.3f} {y:.3f}", str(c))
+        ok = (c == ec and abs(x - ex) <= GOLDEN_TOL
+              and abs(y - ey) <= GOLDEN_TOL if want == "resident"
+              else lines == (f"{ex:.3f} {ey:.3f}", str(ec)))
+        if eng.impl != want or int(out.overflow) != 0 or not ok:
+            raise AssertionError(f"{tag}: {eng.impl}, overflow "
+                                 f"{int(out.overflow)}, lines {lines}")
+        bits = _state_bits(out)
+        _bitwise(f"{tag}: graphed vs eager", bits,
+                 _state_bits(eng.run_eager(state, steps)))
+        _replays_sync_free(tag, eng._run.graphs)
+        local = _dist_engine(cfg_kw, 1, None)
+        lbits = _state_bits(local.run(local.init_state(), steps))
+        got, ref = (digest(list(b.values())) for b in (bits, lbits))
+        if got != ref:
+            raise AssertionError(f"{tag}: digest {got} vs LocalMesh(1)'s "
+                                 f"{ref}")
+        graphed.release(local._run)
+        ms, _, _ = step_ms(eng, state, 10)
+        print(f"{tag}: {eng.impl}, kcap {eng.kcap}, lines {lines}, graphed "
+              f"= eager bit for bit, digest {got[:16]} = LocalMesh(1)'s, "
+              f"{ms:.4f} ms/step graphed, launches {launches[label]} on "
+              f"{card}", flush=True)
+        graphed.release(eng._run)
+    return launches
+
+
+def check_dist_ranks(card):
+    """(be ii, iii) gloo ranks sharing cuda:0 at D = 2 and 4, spawned, each
+    path eager: every rank's digest and count equal to the ``LocalMesh``
+    engine's at the same D on the card, ``run`` refused; then NCCL across
+    cards at D = 2, graphed, where the machine has two cards."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    steps = GOLDEN_S1[4]
+    cases = [("gloo", d) for d in DIST_WORLDS]
+    if torch.cuda.device_count() >= 2:
+        cases.append(("nccl", 2))
+    else:
+        print(f"be iii, NCCL across cards at D = 2: not run (this machine "
+              f"has {torch.cuda.device_count()} card; NCCL refuses two "
+              f"ranks on one card)", flush=True)
+    for backend, d in cases:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(d, backend)
+        for label, cfg_kw, want in DIST_PATHS:
+            local = _dist_engine(cfg_kw, d, None)
+            lout = local.run(local.init_state(), steps)
+            ref = _gathered_digest(local, lout)
+            graphed.release(local._run)
+            for r, rec in enumerate(ranks):
+                got = rec[label]
+                if (got["digest"] != ref or got["impl"] != want
+                        or got["collisions"] != int(lout.collisions)):
+                    raise AssertionError(
+                        f"{backend} D={d} {label}, rank {r}: {got['impl']}, "
+                        f"{got['collisions']} collisions, digest "
+                        f"{got['digest']} vs LocalMesh D={d}'s "
+                        f"{int(lout.collisions)}, {ref}")
+                if backend == "gloo" and "run_eager" not in (got["refused"]
+                                                             or ""):
+                    raise AssertionError(f"gloo D={d} {label}, rank {r}: "
+                                         f"run was not refused")
+            note = ("host-staged gloo collectives on one card — not a "
+                    "scaling number" if backend == "gloo"
+                    else "NCCL across cards, graphed")
+            print(f"DistMesh {backend} D={d} {label}: {want}, "
+                  f"{ranks[0][label]['collisions']} collisions, every "
+                  f"rank's digest {ref[:16]} = LocalMesh D={d}'s; ms/step "
+                  f"by rank " + ", ".join(f"{rec[label]['ms']:.2f}"
+                                          for rec in ranks)
+                  + f" ({note}); rank 0's launches "
+                  f"{ranks[0][label]['launches']} on {card}", flush=True)
+        print(f"DistMesh {backend} D={d}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def check_dist(card):
+    """(be) The ``torch.distributed`` mesh; returns the NCCL paths'
+    launches."""
+    t0 = time.perf_counter()
+    launches = check_dist_nccl(card)
+    check_dist_ranks(card)
+    print(f"DistMesh phases (be): {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -5718,6 +5993,13 @@ def main():
         print(card, flush=True)
         build_libraries()
         check_graphs(card)
+        return
+    if sys.argv[1:2] == ["--dist"]:
+        # Phase be alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        check_dist(card)
         return
     if sys.argv[1:2] == ["--com-back-to-back"]:
         # Phase bd alone.
@@ -5920,6 +6202,11 @@ def main():
     check_graphs(card)
     check_com_back_to_back(card)
 
+    # 17. The torch.distributed mesh (be): NCCL at world size 1 in this
+    # process, gloo ranks sharing the card, NCCL across cards where there
+    # are two.
+    dist_launches = check_dist(card)
+
     print(f"launches per path: resident {res_launches}, resident v1 "
           f"{v1_launches}, dense {dense_launches}, tiered {tiered_launches}, "
           f"CLI fast {cli_launches}, supercell SMALL {small_launches}, CLI "
@@ -5930,7 +6217,8 @@ def main():
                                               *mesh2d_launches.items()))
           + f", direct N=1e5 (10 steps) {direct_launches}, MEDIUM "
           f"dense_backend=xla (10 steps on resident tiles) "
-          f"{medium_launches}", flush=True)
+          f"{medium_launches}, DistMesh NCCL D=1 (golden s1) "
+          f"{dist_launches}", flush=True)
 
     def on_paths(name, *paths):
         return sum(p[name] for p in paths)
@@ -5941,7 +6229,8 @@ def main():
         kernel_entry("fused_pairs", on_paths(
             "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
             route_launches["2e7 mesh banded"], mesh2d_launches["2D resident"],
-            mesh2d_launches["UNEVEN cyclic"], medium_launches),
+            mesh2d_launches["UNEVEN cyclic"], medium_launches,
+            dist_launches["flagship fast"]),
             on_path[("v4", True)]),
         kernel_entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),

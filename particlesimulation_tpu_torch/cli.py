@@ -24,10 +24,22 @@ the 2D mesh of R rows by C columns of shards
 (``parallel/sharded2d.Sharded2DEngine``): parity its f64 sweep, fast
 precision ``--impl resident|sweep`` or the census, which hands sparse,
 clustered and streaming loads to the 1D mesh of R·C shards.
+
+Under torchrun (``WORLD_SIZE`` set), ``--mesh D`` runs the 1D row mesh on a
+``parallel/mesh.DistMesh``, one shard per rank, D the world size:
+
+    python -m torch.distributed.run --standalone --nproc-per-node D \
+        -m particlesimulation_tpu_torch <5 args> --mesh D [--engine fast] \
+        [--device cpu]
+
+NCCL on ``cuda:LOCAL_RANK`` (a card a rank), or gloo with ``--device cpu``;
+the sweep and the resident tiles (the census's other routes raise). Rank 0
+alone prints the lines; every rank exits 0.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -55,9 +67,8 @@ def main(argv: list[str] | None = None) -> int:
             pos_args.append(argv[i])
             i += 1
     try:
-        seed, side, ncside, n_particles, n_steps = (
-            int(pos_args[0]), float(pos_args[1]), int(pos_args[2]),
-            int(pos_args[3]), int(pos_args[4]))
+        args = (int(pos_args[0]), float(pos_args[1]), int(pos_args[2]),
+                int(pos_args[3]), int(pos_args[4]))
         mesh = [int(v) for v in opts["--mesh"].split("x")]
     except (IndexError, ValueError):
         print(USAGE, file=sys.stderr)
@@ -68,7 +79,36 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     n_shards = mesh[0] * (mesh[1] if len(mesh) > 1 else 1)
     mesh_shape = tuple(mesh) if len(mesh) > 1 else ()
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if world and (mesh_shape or n_shards != world):
+        # Under torchrun, --mesh D with D the world size (--mesh 1 on one
+        # rank runs the one-device engine).
+        print(f"--mesh {opts['--mesh']} under torchrun with WORLD_SIZE="
+              f"{world}: give --mesh {world}\n{USAGE}", file=sys.stderr)
+        return 1
 
+    import torch
+
+    if (world > 1 and opts["--device"] != "cpu"
+            and torch.cuda.device_count() < world):
+        print(f"{world} ranks need {world} CUDA devices, one a rank; this "
+              f"machine has {torch.cuda.device_count()} (--device cpu runs "
+              f"gloo)", file=sys.stderr)
+        return 1
+    if world <= 1:
+        return _simulate(opts, args, n_shards, mesh_shape, None)
+    from particlesimulation_tpu_torch.parallel.mesh import init_dist_mesh
+
+    dist_mesh = init_dist_mesh(device=opts["--device"])
+    try:
+        return _simulate(opts, args, n_shards, mesh_shape, dist_mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _simulate(opts, args, n_shards, mesh_shape, dist_mesh) -> int:
+    """Build the engine (the 1D row mesh on ``dist_mesh``, where given) and
+    run it."""
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
     from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
@@ -77,6 +117,7 @@ def main(argv: list[str] | None = None) -> int:
 
     precision = (Precision.PARITY if opts["--engine"] == "parity"
                  else Precision.FAST)
+    seed, side, ncside, n_particles, n_steps = args
     try:
         config = SimConfig(seed=seed, side=side, ncside=ncside,
                            n_particles=n_particles, precision=precision,
@@ -84,12 +125,20 @@ def main(argv: list[str] | None = None) -> int:
         # Parity always runs the sweep (the mesh engines force it, as the
         # single-device engine does); fast precision takes --impl or the
         # census.
-        cls = (Engine if n_shards == 1 else
-               Sharded2DEngine if mesh_shape else ShardedEngine)
-        eng = cls(config, impl=opts["--impl"], device=opts["--device"])
+        if dist_mesh is not None:
+            eng = ShardedEngine(config, impl=opts["--impl"], mesh=dist_mesh)
+        else:
+            cls = (Engine if n_shards == 1 else
+                   Sharded2DEngine if mesh_shape else ShardedEngine)
+            eng = cls(config, impl=opts["--impl"], device=opts["--device"])
     except ValueError as e:
         print(f"{e}\n{USAGE}", file=sys.stderr)
         return 1
+    return _run(eng, n_steps, dist_mesh is None or dist_mesh.rank == 0)
+
+
+def _run(eng, n_steps: int, prints: bool) -> int:
+    """The timed run and the output contract (printed where ``prints``)."""
     state = eng.init_state()
     # Warm-up outside the timed region (the reference's timer brackets only
     # simulate(); building the kernels is the analog of g++'s compile): a
@@ -102,9 +151,10 @@ def main(argv: list[str] | None = None) -> int:
     elapsed = time.perf_counter() - t0
 
     x, y, cols = eng.result(state)
-    print(f"{elapsed:.1f}s", file=sys.stderr)
-    print(f"{x:.3f} {y:.3f}")
-    print(cols)
+    if prints:
+        print(f"{elapsed:.1f}s", file=sys.stderr)
+        print(f"{x:.3f} {y:.3f}")
+        print(cols)
     return 0
 
 

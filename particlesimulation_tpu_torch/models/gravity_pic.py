@@ -50,18 +50,19 @@ class Simulation:
     ``precision="parity"`` runs the f64 sweep, bit for bit the reference's
     arithmetic. ``device`` defaults to ``cuda`` (and raises if CUDA is
     absent); pass ``device="cpu"`` to run the plain torch versions on the
-    CPU.
+    CPU. ``mesh`` (a ``parallel.mesh.DistMesh`` of ``n_shards`` ranks, or a
+    ``LocalMesh``) goes to the mesh engine, which takes its device.
     """
 
     def __init__(self, seed: int, side: float, ncside: int, n_particles: int,
                  precision: str = "fast", n_shards: int = 1, device=None,
-                 **kw):
+                 mesh=None, **kw):
         self.config = SimConfig(
             seed=seed, side=side, ncside=ncside, n_particles=n_particles,
             precision=Precision(precision), n_shards=n_shards, **kw)
-        if n_shards > 1:
+        if n_shards > 1 or mesh is not None:
             cls = Sharded2DEngine if self.config.mesh_shape else ShardedEngine
-            self.engine = cls(self.config, device=device)
+            self.engine = cls(self.config, device=device, mesh=mesh)
         else:
             self.engine = Engine(self.config, device=device)
         self._state = None

@@ -18,7 +18,11 @@ the port: on CUDA tensors it captures a graph or raises (a step that reads a
 value back to the host cannot be captured, and there is no eager fallback);
 on CPU tensors its twin calls the same step function on the same static
 buffers, so that the CPU tests exercise the carry, the copy-back and the
-run's first and last steps.
+run's first and last steps. A mesh step's collectives are captured with it
+where the mesh can capture them (``LocalMesh``; a ``DistMesh`` over NCCL,
+whose kernels torch captures): a mesh whose collectives pass through host
+memory (gloo on a CUDA device) has ``capturable`` False, and its engine's
+``run`` refuses it rather than fall back (``run_eager`` runs it).
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@
                                       one-column, or two-phase) COM halo
   P4 particle migration Alltoall    → ring-forwarded buffers (the sweeps) or
                                       shipped halos (the tile meshes)
-  P5 MPI_Reduce / Gatherv           → ``mesh.psum`` / host gather at read-out
+  P5 MPI_Reduce / Gatherv           → ``mesh.psum`` / ``mesh.all_gather`` at
+                                      read-out
 
-The mesh is ``mesh.LocalMesh``: D shards, as (rows, cols), held by one
-process on one device.
+The mesh is ``mesh.LocalMesh`` (D shards, as (rows, cols), held by one
+process on one device) or, for the 1D row mesh's sweep and resident
+tiles, ``mesh.DistMesh`` (one shard a ``torch.distributed`` rank).
 """

@@ -73,7 +73,7 @@ from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
 from particlesimulation_tpu_torch.ops.tiered import plan_tiers
 from particlesimulation_tpu_torch.parallel.balance import plan_shard_rows
-from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
+from particlesimulation_tpu_torch.parallel.mesh import DistMesh, LocalMesh
 from particlesimulation_tpu_torch.state import ShardedState
 
 # Overflow-cause sentinels. ``ShardedState.overflow`` combines causes by
@@ -94,6 +94,17 @@ INT32_MAX = np.iinfo(np.int32).max
 SHIP_SLACK = 4
 IMPLS = ("resident", "sweep", "supercell", "banded", "banded-cols",
          "banded-cyclic")
+# The routes a DistMesh carries so far.
+DIST_IMPLS = ("resident", "sweep")
+
+
+def refuse_dist(mesh, what: str, item: str) -> None:
+    """Raise NotImplementedError naming ``what`` and ``ROADMAP.md``'s
+    ``item`` where ``mesh`` is a ``DistMesh`` (what the distributed mesh
+    does not carry yet)."""
+    if isinstance(mesh, DistMesh):
+        raise NotImplementedError(f"{what} on a DistMesh is not ported yet "
+                                  f"(ROADMAP.md, Queue 1: {item})")
 
 
 def shard_rows(config: SimConfig, mesh):
@@ -365,27 +376,31 @@ def make_sharded_step(config: SimConfig, mesh, cap: int, bcap: int):
 
 
 class SlabMesh:
-    """The slab state of a mesh engine (``config``, ``device``): scattered
-    from host arrays, grown, gathered and read back the same way whatever
-    the decomposition."""
+    """The slab state of a mesh engine (``config``, ``device``, ``mesh``):
+    scattered from host arrays, grown, gathered and read back the same way
+    whatever the decomposition. A state holds the slabs of the mesh's local
+    shards (``mesh.local_shards``): all of them on a ``LocalMesh``, this
+    rank's on a ``DistMesh``."""
 
     def _scatter(self, particles, shard, cap: int, collisions, panics,
                  dt) -> ShardedState:
-        """Host particle arrays into slabs of ``cap`` slots by ``shard``
-        (each particle's owner), each slab sorted by (cell key, pid)."""
-        d = self.config.n_shards
-        slabs = {k: np.zeros((d, cap)) for k in ("x", "y", "vx", "vy", "m")}
-        alive = np.zeros((d, cap), dtype=bool)
-        valid = np.zeros((d, cap), dtype=bool)
-        pids = np.full((d, cap), INT32_MAX, dtype=np.int32)
-        for s in range(d):
+        """Host particle arrays into the local shards' slabs of ``cap``
+        slots by ``shard`` (each particle's owner), each slab sorted by
+        (cell key, pid)."""
+        local = self.mesh.local_shards
+        L = len(local)
+        slabs = {k: np.zeros((L, cap)) for k in ("x", "y", "vx", "vy", "m")}
+        alive = np.zeros((L, cap), dtype=bool)
+        valid = np.zeros((L, cap), dtype=bool)
+        pids = np.full((L, cap), INT32_MAX, dtype=np.int32)
+        for l, s in enumerate(local):
             idx = np.nonzero(shard == s)[0]
             k = len(idx)
             for name in slabs:
-                slabs[name][s, :k] = np.asarray(particles[name])[idx]
-            alive[s, :k] = np.asarray(particles["alive"])[idx]
-            valid[s, :k] = True
-            pids[s, :k] = np.asarray(particles["pid"])[idx]
+                slabs[name][l, :k] = np.asarray(particles[name])[idx]
+            alive[l, :k] = np.asarray(particles["alive"])[idx]
+            valid[l, :k] = True
+            pids[l, :k] = np.asarray(particles["pid"])[idx]
         dev = self.device
 
         def put(a, dt):
@@ -403,8 +418,8 @@ class SlabMesh:
 
     def _presort(self, state: ShardedState) -> ShardedState:
         """Each slab sorted by (cell key, pid), its empty slots last."""
-        d = self.config.n_shards
-        x, y, vx, vy, m, alive, valid, pid = (a.view(d, -1)
+        L = len(self.mesh.local_shards)
+        x, y, vx, vy, m, alive, valid, pid = (a.view(L, -1)
                                               for a in state[:8])
         key, _ = _slab_key(x, y, valid, self.config.side, self.config.ncside)
         _, pid, x, y, vx, vy, m, alive, valid = sort_slabs(
@@ -416,15 +431,15 @@ class SlabMesh:
     def _grow_state(self, state: ShardedState, new_cap: int) -> ShardedState:
         """The slabs at a larger capacity: empty slots appended at each
         shard's tail (sentinel key, pid INT32_MAX), so each stays sorted."""
-        d = self.config.n_shards
-        old_cap = state.x.shape[0] // d
+        L = len(self.mesh.local_shards)
+        old_cap = state.x.shape[0] // L
         if old_cap >= new_cap:
             return state
 
         def grow(a, fill):
-            tail = torch.full((d, new_cap - old_cap), fill, dtype=a.dtype,
+            tail = torch.full((L, new_cap - old_cap), fill, dtype=a.dtype,
                               device=a.device)
-            return torch.cat([a.view(d, old_cap), tail], dim=1).reshape(-1)
+            return torch.cat([a.view(L, old_cap), tail], dim=1).reshape(-1)
 
         return state._replace(
             **{k: grow(getattr(state, k), 0)
@@ -433,22 +448,29 @@ class SlabMesh:
             pid=grow(state.pid, INT32_MAX))
 
     def result(self, state: ShardedState) -> tuple[float, float, int]:
-        valid = state.valid
-        pid = state.pid[valid]
-        i = int(torch.argmin(pid))
-        return (float(state.x[valid][i]), float(state.y[valid][i]),
-                int(state.collisions))
+        """Particle 0's position (the smallest valid pid over the mesh; a
+        shard may hold none) and the collision count."""
+        L = len(self.mesh.local_shards)
+        pid = torch.where(state.valid, state.pid, INT32_MAX).view(L, -1)
+        slot = torch.argmin(pid, dim=1, keepdim=True)
+        pids, xs, ys = (self.mesh.all_gather(torch.gather(a.view(L, -1), 1,
+                                                          slot))[:, 0]
+                        for a in (pid, state.x, state.y))
+        i = int(torch.argmin(pids))
+        return float(xs[i]), float(ys[i]), int(state.collisions)
 
     def gather(self, state: ShardedState) -> dict:
-        """The valid particles in pid order, as NumPy arrays (the
-        reference's Gatherv)."""
-        valid = state.valid.cpu().numpy()
-        pid = state.pid.cpu().numpy()[valid]
+        """The mesh's valid particles in pid order, as NumPy arrays, on
+        every rank (the reference's Gatherv)."""
+        L = len(self.mesh.local_shards)
+        slabs = {name: self.mesh.all_gather(getattr(state, name).view(L, -1))
+                 .reshape(-1).cpu().numpy()
+                 for name in ("x", "y", "vx", "vy", "m", "alive", "valid",
+                              "pid")}
+        valid = slabs.pop("valid")
+        pid = slabs["pid"][valid]
         order = np.argsort(pid)
-        out = {name: getattr(state, name).cpu().numpy()[valid][order]
-               for name in ("x", "y", "vx", "vy", "m", "alive")}
-        out["pid"] = pid[order]
-        return out
+        return {name: a[valid][order] for name, a in slabs.items()}
 
 
 class ShardedEngine(SlabMesh):
@@ -471,7 +493,13 @@ class ShardedEngine(SlabMesh):
 
     ``device`` defaults to ``cuda`` and raises without CUDA; the CPU only
     when the caller passes ``device="cpu"``. The mesh is a ``LocalMesh`` of
-    ``config.n_shards`` shards on that device. ``impl`` None lets the JAX
+    ``config.n_shards`` shards on that device, or ``mesh`` (the JAX
+    engine's ``devices=``): a ``DistMesh`` of ``config.n_shards`` ranks,
+    whose device it takes, holding this rank's slab alone; it carries the
+    sweep and the resident tiles (the census's other routes, like
+    checkpoints, raise NotImplementedError there), and every rank reaches
+    the same route, plan and capacities from the same seed without a
+    broadcast. ``impl`` None lets the JAX
     mesh census route (fast precision): sparse loads to super-cells where
     ``supercell_shard_viable``, clustered loads with a band plan and uniform
     loads above ``engine._STREAM_BYTES`` of tiles a shard to bands, the rest
@@ -489,7 +517,7 @@ class ShardedEngine(SlabMesh):
     """
 
     def __init__(self, config: SimConfig, impl: str | None = None,
-                 kcap: int | None = None, device=None):
+                 kcap: int | None = None, device=None, mesh=None):
         if config.mesh_shape:
             config = dataclasses.replace(config, mesh_shape=())
         parity = config.precision is Precision.PARITY
@@ -497,12 +525,16 @@ class ShardedEngine(SlabMesh):
             impl = None  # parity always runs the sweep, as in JAX
         if impl is not None and impl not in IMPLS:
             raise ValueError(f"unknown sharded impl {impl!r}; valid: {IMPLS}")
-        device = torch.device(device or "cuda")
+        if mesh is not None and mesh.size != config.n_shards:
+            raise ValueError(f"a mesh of {mesh.size} shards for n_shards="
+                             f"{config.n_shards}")
+        device = torch.device(mesh.device if mesh is not None
+                              else device or "cuda")
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run on the CPU")
         self.config = config
-        self.mesh = LocalMesh(config.n_shards, device)
+        self.mesh = mesh or LocalMesh(config.n_shards, device)
         self.device = device
         self.dtype = torch.float64 if parity else torch.float32
         self._impl_auto = impl is None and not parity
@@ -539,6 +571,15 @@ class ShardedEngine(SlabMesh):
         self.ship_rounds = 1
         self._built_key = None
         self._run = None
+        self._refuse_route()
+
+    def _refuse_route(self) -> None:
+        if self.impl not in DIST_IMPLS:
+            route = (f"banded-{self.banded_variant}" if self.impl == "banded"
+                     else self.impl)
+            refuse_dist(self.mesh, f"the {route} route",
+                        "the DistMesh for the supercell, column-band and "
+                        "block-cyclic routes")
 
     def _build(self):
         cfg = self.config
@@ -736,6 +777,7 @@ class ShardedEngine(SlabMesh):
                 self.impl = "resident"
             else:
                 self._band_plan = tuple(tuple(p) for p in bands)
+        self._refuse_route()
         shard = self._owners(cx, cy, in_range)
         counts = np.bincount(shard, minlength=d)
         if self.impl in ("resident", "supercell") and self.kcap is None:
@@ -772,7 +814,13 @@ class ShardedEngine(SlabMesh):
         with more capacity (nothing is dropped; the reference instead
         PANIC-skips or dies). The adapted impl and capacities stick for
         later runs of this engine. The run replays its step graphs on the
-        GPU (``ops/graphed``); a run of 0 steps captures them."""
+        GPU (``ops/graphed``); a run of 0 steps captures them. A mesh whose
+        collectives cannot be captured (``capturable`` False: gloo on a
+        CUDA device) raises: use ``run_eager``."""
+        if not self.mesh.capturable:
+            raise ValueError("this mesh's collectives pass through host "
+                             "memory and cannot be captured as CUDA graphs; "
+                             "use run_eager")
         return self._ladder(state, n_steps, eager=False)
 
     def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:

@@ -50,7 +50,8 @@ from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.parallel.sharded import (
     CAP_OVF, SHIP_OVF, SHIP_SLACK, STRAY_OVF, ShardedEngine, SlabMesh,
-    _slab_key, emigrant_buffer, halo_pad, make_slab_sweep, pack_into)
+    _slab_key, emigrant_buffer, halo_pad, make_slab_sweep, pack_into,
+    refuse_dist)
 from particlesimulation_tpu_torch.state import ShardedState
 
 IMPLS = ("resident", "sweep")
@@ -258,7 +259,9 @@ class Sharded2DEngine(SlabMesh):
     ``pack_particles`` (``init_state``'s, or a checkpoint's re-pack):
     sparse, clustered and streaming loads delegate to a ``ShardedEngine``
     of the same shard count on the same device, the rest stay on resident
-    tiles; where ``n_shards > ncside`` nothing delegates. A fresh
+    tiles; where ``n_shards > ncside`` nothing delegates. ``mesh``, where
+    given, is a ``LocalMesh`` of that shape (a ``DistMesh`` raises
+    NotImplementedError: not ported yet). A fresh
     ``init_state`` routes again.
 
     Overflow replays the run losslessly: CAP_OVF grows the slab, the
@@ -269,10 +272,16 @@ class Sharded2DEngine(SlabMesh):
     """
 
     def __init__(self, config: SimConfig, impl: str | None = None,
-                 kcap: int | None = None, device=None):
+                 kcap: int | None = None, device=None, mesh=None):
         if not config.mesh_shape:
             raise ValueError("Sharded2DEngine needs config.mesh_shape "
                              "(d_rows, d_cols)")
+        if mesh is not None:
+            refuse_dist(mesh, "the 2D mesh", "the 2D mesh on a DistMesh")
+            if tuple(mesh.shape) != tuple(config.mesh_shape):
+                raise ValueError(f"a mesh of shape {mesh.shape} for "
+                                 f"mesh_shape={config.mesh_shape}")
+            device = mesh.device
         parity = config.precision is Precision.PARITY
         if parity:
             impl = None  # parity always runs the sweep, as in JAX
@@ -288,7 +297,7 @@ class Sharded2DEngine(SlabMesh):
         d_r, d_c = config.mesh_shape
         self.dec_r = AxisDecomp(config.ncside, d_r)
         self.dec_c = AxisDecomp(config.ncside, d_c)
-        self.mesh = LocalMesh(config.n_shards, device, (d_r, d_c))
+        self.mesh = mesh or LocalMesh(config.n_shards, device, (d_r, d_c))
         self.dtype = torch.float64 if parity else torch.float32
         self._auto = impl is None and not parity
         self._routed = False

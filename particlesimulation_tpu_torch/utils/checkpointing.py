@@ -16,7 +16,8 @@ block-cyclic band chunks), so a restore places the slabs as they are only
 where the geometry and the ownership match, and otherwise re-packs the
 particles through the engine's own packer. A 2D engine whose census handed
 its loads to a 1D delegate saves and restores through that delegate
-(``Sharded2DEngine.target``).
+(``Sharded2DEngine.target``). An engine on a ``DistMesh`` (one shard per
+rank) neither saves nor restores yet: both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from particlesimulation_tpu_torch.parallel.sharded import refuse_dist
 from particlesimulation_tpu_torch.state import ShardedState, state_from_numpy
 
 _FIELDS = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions", "panics",
            "overflow")
 _SHARDED_FIELDS = _FIELDS + ("valid",)
+_DIST_ITEM = "checkpoints from a DistMesh (rank 0 writes after gather)"
 
 
 def _host(state, fields) -> dict:
@@ -61,6 +64,7 @@ def save_sharded_state(path: str, state: ShardedState, n_shards: int = 0,
     writing engine, supplies all four (a 2D engine's delegate's where it
     has one)."""
     if engine is not None:
+        refuse_dist(engine.mesh, "a checkpoint", _DIST_ITEM)
         eng = _target(engine)
         n_shards, row_starts, mesh_shape, band_plan = (
             eng.config.n_shards, eng.config.row_starts,
@@ -99,6 +103,7 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
     delegate, if its census (run on the checkpoint's particles if not yet
     run) chose one.
     """
+    refuse_dist(engine.mesh, "a checkpoint", _DIST_ITEM)
     with np.load(path) as z:
         saved = {f: z[f] for f in z.files}
     valid = saved["valid"]
