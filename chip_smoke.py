@@ -5216,11 +5216,17 @@ GRAPH_PATHS = (
     ("UNEVEN tiered", "engine", UNEVEN, {}, {"impl": "tiered"}, "tiered", 6,
      40),
     # The 1D row mesh on a DistMesh over NCCL at world size 1 (phase be's
-    # mesh): the steps' all-reduces captured in the graphs.
+    # mesh): the steps' all-reduces captured in the graphs; resident tiles,
+    # the sweep, super-cells (SMALL) and column bands (UNEVEN), each
+    # through the census.
     ("DistMesh NCCL fast D=1", "dist", GOLDEN_S1[:4], {"n_shards": 1}, {},
      "resident", 10, 40),
     ("DistMesh NCCL parity D=1", "dist", GOLDEN_S1[:4],
      {"n_shards": 1, "precision": "parity"}, {}, "sweep", 4, 20),
+    ("DistMesh NCCL supercell D=1", "dist", SMALL[:4], {"n_shards": 1}, {},
+     "supercell", 10, 20),
+    ("DistMesh NCCL bands D=1", "dist", UNEVEN, {"n_shards": 1}, {},
+     "banded", 10, 20),
 )
 
 
@@ -5624,12 +5630,39 @@ def check_com_back_to_back(card):
 
 # --- The torch.distributed mesh (phase be) ----------------------------------
 
-# Golden s1's config through the 1D row mesh: fast (the census picks
-# resident tiles: the fused kernel) and parity (the sweep's kernels).
-DIST_PATHS = (("flagship fast", {}, "resident"),
-              ("parity s1", {"precision": "parity"}, "sweep"))
+# Phase be's paths on a DistMesh: (label, config args, SimConfig keywords,
+# engine keywords, 2D mesh, the route the census must take, the kernels the
+# run must launch, steps, particle 0 and the count after them (None: golden
+# s1's lines), the world sizes it runs at: 1 is NCCL in this process, 2 and
+# 4 gloo ranks sharing the card). A 2D path's mesh is (1, 1) at world size 1
+# and (2, 2) at 4. Every route of both mesh engines: resident tiles and the
+# sweep (golden s1), super-cells (SMALL, through the census), column bands
+# (UNEVEN, through the census) and block-cyclic bands, rectangle tiles and
+# the 2D sweep, and the 2D census's delegation to super-cells.
+SC_KERNELS = ("fused_pairs_sub", "supercell_cell_sums", "deliver")
+BAND_KERNELS = ("fused_pairs", "deliver")
+DIST_PATHS = (
+    ("flagship fast", GOLDEN_S1[:4], {}, {}, False, "resident",
+     ("fused_pairs",), GOLDEN_S1[4], None, (1, 2, 4)),
+    ("parity s1", GOLDEN_S1[:4], {"precision": "parity"}, {}, False, "sweep",
+     SWEEP_KERNELS, GOLDEN_S1[4], None, (1, 2, 4)),
+    ("SMALL census", SMALL[:4], {}, {}, False, "supercell", SC_KERNELS,
+     SMALL[4], SMALL_10, (1, 2, 4)),
+    ("UNEVEN census", UNEVEN, {}, {}, False, "banded", BAND_KERNELS, 2,
+     UNEVEN_2, (1, 2, 4)),
+    ("UNEVEN cyclic", UNEVEN, {}, {"impl": "banded-cyclic"}, False, "banded",
+     BAND_KERNELS, 2, UNEVEN_2, (1, 2, 4)),
+    ("flagship 2D fast", GOLDEN_S1[:4], {}, {}, True, "resident",
+     BAND_KERNELS, GOLDEN_S1[4], None, (1, 4)),
+    ("flagship 2D parity", GOLDEN_S1[:4], {"precision": "parity"}, {}, True,
+     "sweep", SWEEP_KERNELS, GOLDEN_S1[4], None, (1, 4)),
+    ("SMALL 2D delegated", SMALL[:4], {}, {}, True, "supercell", SC_KERNELS,
+     SMALL[4], SMALL_10, (4,)),
+)
 DIST_WORLDS = (2, 4)
-DIST_TIMEOUT = 300.0
+DIST_TIMEOUT = 420.0
+# The checkpoint's path: parity s1, saved after 2 steps, 2 more after.
+DIST_CKPT = "parity s1"
 
 
 def _nccl_mesh():
@@ -5651,18 +5684,33 @@ def _nccl_mesh():
     return DistMesh("cuda:0")
 
 
-def _dist_engine(cfg_kw, d, mesh):
-    """A ``ShardedEngine`` of ``d`` shards on golden s1's config, on
-    ``mesh`` (None: its ``LocalMesh`` on the card)."""
-    from particlesimulation_tpu_torch.config import Precision, SimConfig
-    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+def _path(label):
+    return next(p for p in DIST_PATHS if p[0] == label)
 
+
+def _dist_engine(path, d, mesh):
+    """A path's engine of ``d`` shards on ``mesh`` (a 1D ``DistMesh``; a 2D
+    path takes the mesh of its shape over the same group), or, where
+    ``mesh`` is None, on its ``LocalMesh`` on the card."""
+    from particlesimulation_tpu_torch.config import Precision, SimConfig
+    from particlesimulation_tpu_torch.parallel.mesh import DistMesh
+    from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
+    from particlesimulation_tpu_torch.parallel.sharded2d import (
+        Sharded2DEngine)
+
+    _, args, cfg_kw, eng_kw, mesh2d = path[:5]
     if cfg_kw.get("precision") == "parity":
         cfg_kw = {**cfg_kw, "precision": Precision.PARITY}
-    cfg = SimConfig(*GOLDEN_S1[:4], n_shards=d, **cfg_kw)
+    shape = (1, 1) if d == 1 else (2, d // 2)
+    if mesh2d:
+        cfg_kw = {**cfg_kw, "mesh_shape": shape}
+    cfg = SimConfig(*args, n_shards=d, **cfg_kw)
+    cls = Sharded2DEngine if mesh2d else ShardedEngine
     if mesh is None:
-        return ShardedEngine(cfg, device="cuda")
-    return ShardedEngine(cfg, mesh=mesh)
+        return cls(cfg, device="cuda", **eng_kw)
+    if mesh2d:
+        mesh = DistMesh(mesh.device, shape)
+    return cls(cfg, mesh=mesh, **eng_kw)
 
 
 def _gathered_digest(eng, state):
@@ -5672,23 +5720,70 @@ def _gathered_digest(eng, state):
                    for f in MESH_FIELDS])
 
 
-def _path_launches(want):
-    """The launch counts of a path's kernels (tile or sweep), required
-    non-zero."""
-    got = read_launches() if want == "resident" else read_sweep_launches()
-    names = ("fused_pairs",) if want == "resident" else SWEEP_KERNELS
-    if not all(got[k] > 0 for k in names):
-        raise AssertionError(f"a kernel of the {want} path did not launch: "
-                             f"{got}")
+def _path_launches(path, tag=None):
+    """The launch counts of a path's kernels since they were set to 0
+    (tile and sweep kernels), each required non-zero; with ``tag``, a sweep
+    path's counts recorded for the kernels line."""
+    label, kernels = path[0], path[6]
+    if kernels is SWEEP_KERNELS:
+        return read_sweep_launches(tag or label)
+    got = read_launches()
+    if not all(got[k] > 0 for k in kernels):
+        raise AssertionError(f"a kernel of {label} did not launch: {got}")
     return got
+
+
+def _lines_ok(path, eng, out):
+    """Particle 0 and the count against the path's values: golden s1's
+    lines exactly in parity, within GOLDEN_TOL in f32 (count exact)."""
+    x, y, c = eng.result(out)
+    want = path[8]
+    if want is None:
+        ex, ey, ec = GOLDEN_S1[5:]
+        if path[2].get("precision") == "parity":
+            return (f"{x:.3f} {y:.3f}", c) == (f"{ex:.3f} {ey:.3f}", ec)
+    else:
+        ex, ey, ec = want
+    return c == ec and abs(x - ex) <= GOLDEN_TOL and abs(y - ey) <= GOLDEN_TOL
+
+
+def _load_npz(path):
+    with np.load(path) as z:
+        return {f: z[f] for f in z.files}
+
+
+def _same_files(label, a, b):
+    """Two checkpoints array for array (names, dtypes, values)."""
+    fa, fb = _load_npz(a), _load_npz(b)
+    bad = sorted(f for f in set(fa) | set(fb)
+                 if f not in fa or f not in fb or fa[f].dtype != fb[f].dtype
+                 or not np.array_equal(fa[f], fb[f]))
+    if bad:
+        raise AssertionError(f"{label}: arrays {bad} differ")
+
+
+def _checkpoint_run(eng, path, steps):
+    """``steps`` steps, saved to ``path`` (every rank calls the save),
+    restored onto the same engine (each rank its own slab, as saved) and
+    ``steps`` more: (the continued state, whether the restored state is
+    the saved one bit for bit)."""
+    from particlesimulation_tpu_torch.utils import checkpointing
+
+    run = eng.run if eng.mesh.capturable else eng.run_eager
+    mid = run(eng.init_state(), steps)
+    checkpointing.save_sharded_state(path, mid, engine=eng)
+    restored = checkpointing.restore_sharded(path, eng)
+    a, b = _state_bits(restored), _state_bits(mid)
+    return run(restored, steps), all(_bits_equal(a[f], b[f]) for f in a)
 
 
 def _dist_rank(rank, world, backend, tmp):
     """One rank of a ``DistMesh`` group spawned by ``check_dist_ranks``:
     gloo ranks share cuda:0 and run eagerly (their collectives pass
     through host memory: ``run`` must refuse them), NCCL ranks take a card
-    each and run graphed. Each path of ``DIST_PATHS`` for golden s1's
-    steps, then timed; each rank writes its record as JSON."""
+    each and run graphed. Each path of ``DIST_PATHS`` at this world size
+    for its steps (golden s1's timed), then the checkpoint; each rank
+    writes its record as JSON."""
     import datetime
 
     import torch.distributed as dist
@@ -5699,13 +5794,16 @@ def _dist_rank(rank, world, backend, tmp):
     dist.init_process_group(
         backend, init_method=f"file://{os.path.join(tmp, 'store')}",
         rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
-    steps = GOLDEN_S1[4]
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT / 2))
     recs = {}
     try:
         mesh = DistMesh(dev)
-        for label, cfg_kw, want in DIST_PATHS:
-            eng = _dist_engine(cfg_kw, world, mesh)
+        for path in DIST_PATHS:
+            if world not in path[9]:
+                continue
+            label, steps = path[0], path[7]
+            t0 = time.perf_counter()
+            eng = _dist_engine(path, world, mesh)
             state = eng.init_state()
             run = eng.run if backend == "nccl" else eng.run_eager
             torch.cuda.synchronize()
@@ -5713,33 +5811,41 @@ def _dist_rank(rank, world, backend, tmp):
             reset_sweep_launches()
             out = run(state, steps)
             torch.cuda.synchronize()
-            launches = _path_launches(want)
+            launches = _path_launches(path)
             refused = None
             if backend == "gloo":
                 try:
                     eng.run(state, steps)
                 except ValueError as err:
                     refused = str(err)
-            ms, _, _ = step_ms(eng, state, 3, reps=1, run=run)
+            ms = None
+            if path[1] == GOLDEN_S1[:4] and not path[4]:
+                ms, _, _ = step_ms(eng, state, 3, reps=1, run=run)
             recs[label] = {"impl": eng.impl, "digest": _gathered_digest(
                 eng, out), "collisions": int(out.collisions),
                 "result": eng.result(out), "launches": launches,
-                "ms": ms, "refused": refused}
+                "ms": ms, "refused": refused,
+                "seconds": time.perf_counter() - t0}
+            del eng, state, out
+            torch.cuda.empty_cache()
+        if world == 4:
+            eng = _dist_engine(_path(DIST_CKPT), world, mesh)
+            out, same = _checkpoint_run(eng, os.path.join(tmp, "ckpt.npz"),
+                                        2)
+            recs["checkpoint"] = {"digest": _gathered_digest(eng, out),
+                                  "as_saved": same}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(recs, f)
 
 
-def _spawn_ranks(world, backend):
+def _spawn_ranks(world, backend, tmp):
     """Spawn ``world`` ranks of ``_dist_rank`` and wait for them (a rank
     that raises, or DIST_TIMEOUT seconds, ends them all and raises);
     returns each rank's records."""
-    import tempfile
-
     import torch.multiprocessing as mp
 
-    tmp = tempfile.mkdtemp()
     ctx = mp.start_processes(_dist_rank, args=(world, backend, tmp),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + DIST_TIMEOUT
@@ -5761,64 +5867,98 @@ def _spawn_ranks(world, backend):
 
 
 def check_dist_nccl(card):
-    """(be i) NCCL at world size 1 on cuda:0: golden s1 fast (resident
-    tiles) and in parity (the sweep) on a ``DistMesh``, graphed (its
-    all-reduces captured in the step's graph) against eager bit for bit,
-    three sync-free replays, golden s1's lines, the final state's digest
-    against ``LocalMesh(1)``'s, ms/step. Returns each path's launches."""
+    """(be i) NCCL at world size 1 on cuda:0: every path of DIST_PATHS at
+    world size 1 on a ``DistMesh`` (the 2D ones on its (1, 1) mesh),
+    graphed (its all-reduces captured in the step's graph) against eager
+    bit for bit, three sync-free replays, particle 0 and the count, the
+    final state's digest against ``LocalMesh(1)``'s, the path's kernels
+    launched, ms/step; then a checkpoint saved and restored mid-run,
+    continuing bit for bit, its file ``LocalMesh(1)``'s. Returns each
+    path's launches."""
+    import tempfile
+
     from particlesimulation_tpu_torch.ops import graphed
 
     mesh = _nccl_mesh()
-    seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     launches = {}
-    for label, cfg_kw, want in DIST_PATHS:
+    for path in DIST_PATHS:
+        label, want, steps = path[0], path[5], path[7]
+        if 1 not in path[9]:
+            continue
         tag = f"DistMesh NCCL D=1 {label}"
-        eng = _dist_engine(cfg_kw, 1, mesh)
+        eng = _dist_engine(path, 1, mesh)
         state = eng.init_state()
         torch.cuda.synchronize()
         reset_launches()
         reset_sweep_launches()
         out = eng.run(state, steps)
         torch.cuda.synchronize()
-        launches[label] = _path_launches(want)
-        if want == "sweep":
-            read_sweep_launches(tag)
+        launches[label] = _path_launches(path, tag)
         x, y, c = eng.result(out)
-        lines = (f"{x:.3f} {y:.3f}", str(c))
-        ok = (c == ec and abs(x - ex) <= GOLDEN_TOL
-              and abs(y - ey) <= GOLDEN_TOL if want == "resident"
-              else lines == (f"{ex:.3f} {ey:.3f}", str(ec)))
-        if eng.impl != want or int(out.overflow) != 0 or not ok:
+        if (eng.impl != want or int(out.overflow) != 0
+                or not _lines_ok(path, eng, out)):
             raise AssertionError(f"{tag}: {eng.impl}, overflow "
-                                 f"{int(out.overflow)}, lines {lines}")
+                                 f"{int(out.overflow)}, ({x}, {y}, {c})")
         bits = _state_bits(out)
         _bitwise(f"{tag}: graphed vs eager", bits,
                  _state_bits(eng.run_eager(state, steps)))
-        _replays_sync_free(tag, eng._run.graphs)
-        local = _dist_engine(cfg_kw, 1, None)
+        run = _graphed_run_of(eng)
+        _replays_sync_free(tag, run.graphs)
+        local = _dist_engine(path, 1, None)
         lbits = _state_bits(local.run(local.init_state(), steps))
         got, ref = (digest(list(b.values())) for b in (bits, lbits))
         if got != ref:
             raise AssertionError(f"{tag}: digest {got} vs LocalMesh(1)'s "
                                  f"{ref}")
-        graphed.release(local._run)
-        ms, _, _ = step_ms(eng, state, 10)
-        print(f"{tag}: {eng.impl}, kcap {eng.kcap}, lines {lines}, graphed "
-              f"= eager bit for bit, digest {got[:16]} = LocalMesh(1)'s, "
-              f"{ms:.4f} ms/step graphed, launches {launches[label]} on "
-              f"{card}", flush=True)
-        graphed.release(eng._run)
+        graphed.release(_graphed_run_of(local))
+        ms, _, _ = step_ms(eng, state, steps)
+        print(f"{tag}: {eng.impl}, kcap {_target(eng).kcap}, particle 0 "
+              f"({x:.4f}, {y:.4f}), {c} collisions, graphed = eager bit for "
+              f"bit, digest {got[:16]} = LocalMesh(1)'s, {ms:.4f} ms/step "
+              f"graphed, launches {launches[label]} on {card}", flush=True)
+        graphed.release(run)
+        del eng, state, out, local
+        torch.cuda.empty_cache()
+    # The checkpoint: saved from the DistMesh, restored onto it (as saved)
+    # and continued; the file against LocalMesh(1)'s, the continued state
+    # against LocalMesh(1)'s.
+    tmp = tempfile.mkdtemp()
+    files = {}
+    ends = {}
+    for where, m in (("DistMesh", mesh), ("LocalMesh", None)):
+        eng = _dist_engine(_path(DIST_CKPT), 1, m)
+        files[where] = os.path.join(tmp, f"{where}.npz")
+        out, same = _checkpoint_run(eng, files[where], 2)
+        if not same:
+            raise AssertionError(f"NCCL D=1 checkpoint on {where}: the "
+                                 f"restored state is not the saved one")
+        ends[where] = digest(list(_state_bits(out).values()))
+        graphed.release(_graphed_run_of(eng))
+    _same_files("NCCL D=1 checkpoint vs LocalMesh(1)'s", files["DistMesh"],
+                files["LocalMesh"])
+    if ends["DistMesh"] != ends["LocalMesh"]:
+        raise AssertionError(f"NCCL D=1 checkpoint: continued digest "
+                             f"{ends['DistMesh']} vs LocalMesh(1)'s "
+                             f"{ends['LocalMesh']}")
+    print(f"DistMesh NCCL D=1 checkpoint ({DIST_CKPT}, 2 steps saved, 2 "
+          f"more): restored as saved bit for bit, the file LocalMesh(1)'s "
+          f"array for array, continued digest {ends['DistMesh'][:16]} = "
+          f"LocalMesh(1)'s on {card}", flush=True)
     return launches
 
 
 def check_dist_ranks(card):
     """(be ii, iii) gloo ranks sharing cuda:0 at D = 2 and 4, spawned, each
-    path eager: every rank's digest and count equal to the ``LocalMesh``
-    engine's at the same D on the card, ``run`` refused; then NCCL across
-    cards at D = 2, graphed, where the machine has two cards."""
+    path of DIST_PATHS at that size eagerly: every rank's route, digest and
+    count equal to the ``LocalMesh`` engine's of the same shape on the
+    card, ``run`` refused; at D = 4 a checkpoint whose file is the
+    ``LocalMesh``'s array for array and whose continued run is its; then
+    NCCL across cards at D = 2, graphed, where the machine has two
+    cards."""
+    import tempfile
+
     from particlesimulation_tpu_torch.ops import graphed
 
-    steps = GOLDEN_S1[4]
     cases = [("gloo", d) for d in DIST_WORLDS]
     if torch.cuda.device_count() >= 2:
         cases.append(("nccl", 2))
@@ -5828,20 +5968,25 @@ def check_dist_ranks(card):
               f"ranks on one card)", flush=True)
     for backend, d in cases:
         t0 = time.perf_counter()
-        ranks = _spawn_ranks(d, backend)
-        for label, cfg_kw, want in DIST_PATHS:
-            local = _dist_engine(cfg_kw, d, None)
+        tmp = tempfile.mkdtemp()
+        ranks = _spawn_ranks(d, backend, tmp)
+        for path in DIST_PATHS:
+            label, want, steps = path[0], path[5], path[7]
+            if d not in path[9]:
+                continue
+            local = _dist_engine(path, d, None)
             lout = local.run(local.init_state(), steps)
             ref = _gathered_digest(local, lout)
-            graphed.release(local._run)
+            graphed.release(_graphed_run_of(local))
             for r, rec in enumerate(ranks):
                 got = rec[label]
                 if (got["digest"] != ref or got["impl"] != want
+                        or local.impl != want
                         or got["collisions"] != int(lout.collisions)):
                     raise AssertionError(
                         f"{backend} D={d} {label}, rank {r}: {got['impl']}, "
                         f"{got['collisions']} collisions, digest "
-                        f"{got['digest']} vs LocalMesh D={d}'s "
+                        f"{got['digest']} vs LocalMesh D={d}'s {local.impl}, "
                         f"{int(lout.collisions)}, {ref}")
                 if backend == "gloo" and "run_eager" not in (got["refused"]
                                                              or ""):
@@ -5850,13 +5995,34 @@ def check_dist_ranks(card):
             note = ("host-staged gloo collectives on one card — not a "
                     "scaling number" if backend == "gloo"
                     else "NCCL across cards, graphed")
+            ms = ("" if ranks[0][label]["ms"] is None else
+                  "ms/step by rank " + ", ".join(
+                      f"{rec[label]['ms']:.2f}" for rec in ranks) + ", ")
             print(f"DistMesh {backend} D={d} {label}: {want}, "
                   f"{ranks[0][label]['collisions']} collisions, every "
-                  f"rank's digest {ref[:16]} = LocalMesh D={d}'s; ms/step "
-                  f"by rank " + ", ".join(f"{rec[label]['ms']:.2f}"
-                                          for rec in ranks)
-                  + f" ({note}); rank 0's launches "
-                  f"{ranks[0][label]['launches']} on {card}", flush=True)
+                  f"rank's digest {ref[:16]} = LocalMesh D={d}'s; {ms}"
+                  f"{ranks[0][label]['seconds']:.1f} s of rank 0 ({note}); "
+                  f"rank 0's launches {ranks[0][label]['launches']} on "
+                  f"{card}", flush=True)
+            del local, lout
+            torch.cuda.empty_cache()
+        if d == 4:
+            local = _dist_engine(_path(DIST_CKPT), d, None)
+            lfile = os.path.join(tmp, "local.npz")
+            lout, same = _checkpoint_run(local, lfile, 2)
+            ref = _gathered_digest(local, lout)
+            graphed.release(_graphed_run_of(local))
+            _same_files(f"{backend} D=4 checkpoint vs LocalMesh D=4's",
+                        os.path.join(tmp, "ckpt.npz"), lfile)
+            for r, rec in enumerate(ranks):
+                got = rec["checkpoint"]
+                if not (same and got["as_saved"]) or got["digest"] != ref:
+                    raise AssertionError(f"{backend} D=4 checkpoint, rank "
+                                         f"{r}: {got} vs {ref}")
+            print(f"DistMesh {backend} D=4 checkpoint ({DIST_CKPT}, 2 steps "
+                  f"saved, 2 more): the file LocalMesh D=4's array for "
+                  f"array, every rank restored as saved, continued digest "
+                  f"{ref[:16]} = LocalMesh's on {card}", flush=True)
         print(f"DistMesh {backend} D={d}: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
@@ -6217,20 +6383,23 @@ def main():
                                               *mesh2d_launches.items()))
           + f", direct N=1e5 (10 steps) {direct_launches}, MEDIUM "
           f"dense_backend=xla (10 steps on resident tiles) "
-          f"{medium_launches}, DistMesh NCCL D=1 (golden s1) "
-          f"{dist_launches}", flush=True)
+          f"{medium_launches}, DistMesh NCCL D=1 {dist_launches}",
+          flush=True)
 
     def on_paths(name, *paths):
-        return sum(p[name] for p in paths)
+        return sum(p.get(name, 0) for p in paths)
 
     sc_paths = (small_launches, route_launches["SMALL mesh"],
-                mesh2d_launches["SMALL 2D -> supercell"])
+                mesh2d_launches["SMALL 2D -> supercell"],
+                dist_launches["SMALL census"])
     print(json.dumps({"kernels": [
         kernel_entry("fused_pairs", on_paths(
             "fused_pairs", res_launches, route_launches["UNEVEN mesh"],
             route_launches["2e7 mesh banded"], mesh2d_launches["2D resident"],
             mesh2d_launches["UNEVEN cyclic"], medium_launches,
-            dist_launches["flagship fast"]),
+            *(dist_launches[k] for k in ("flagship fast", "UNEVEN census",
+                                         "UNEVEN cyclic",
+                                         "flagship 2D fast"))),
             on_path[("v4", True)]),
         kernel_entry("fused_pairs_v1", v1_launches["fused_pairs_v1"],
               on_path[("v2", True, False)]),
@@ -6245,7 +6414,7 @@ def main():
         *(kernel_entry(k, direct_launches[k], direct_recs[k], DIRECT_SOURCE)
           for k in ("direct_forces", "direct_collisions")),
         *(kernel_entry(k, on_paths(k, res_launches, banded_launches,
-                                   medium_launches),
+                                   medium_launches, *dist_launches.values()),
                        adv_recs[k], ADVANCE_SOURCE)
           for k in ADVANCE_KERNELS),
         *sweep_entries(sweep_recs),

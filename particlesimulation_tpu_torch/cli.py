@@ -25,16 +25,17 @@ the 2D mesh of R rows by C columns of shards
 precision ``--impl resident|sweep`` or the census, which hands sparse,
 clustered and streaming loads to the 1D mesh of R·C shards.
 
-Under torchrun (``WORLD_SIZE`` set), ``--mesh D`` runs the 1D row mesh on a
-``parallel/mesh.DistMesh``, one shard per rank, D the world size:
+Under torchrun (``WORLD_SIZE`` set), the mesh is a
+``parallel/mesh.DistMesh``, one shard per rank: ``--mesh D`` the 1D row
+mesh, D the world size, on every route ``--impl`` or the census gives, and
+``--mesh RxC`` the 2D mesh, R·C the world size:
 
     python -m torch.distributed.run --standalone --nproc-per-node D \
-        -m particlesimulation_tpu_torch <5 args> --mesh D [--engine fast] \
-        [--device cpu]
+        -m particlesimulation_tpu_torch <5 args> --mesh D|RxC \
+        [--engine fast] [--impl ...] [--device cpu]
 
-NCCL on ``cuda:LOCAL_RANK`` (a card a rank), or gloo with ``--device cpu``;
-the sweep and the resident tiles (the census's other routes raise). Rank 0
-alone prints the lines; every rank exits 0.
+NCCL on ``cuda:LOCAL_RANK`` (a card a rank), or gloo with ``--device cpu``.
+Rank 0 alone prints the lines; every rank exits 0.
 """
 
 from __future__ import annotations
@@ -80,11 +81,12 @@ def main(argv: list[str] | None = None) -> int:
     n_shards = mesh[0] * (mesh[1] if len(mesh) > 1 else 1)
     mesh_shape = tuple(mesh) if len(mesh) > 1 else ()
     world = int(os.environ.get("WORLD_SIZE", "0"))
-    if world and (mesh_shape or n_shards != world):
-        # Under torchrun, --mesh D with D the world size (--mesh 1 on one
-        # rank runs the one-device engine).
+    if world and n_shards != world:
+        # Under torchrun, --mesh D or RxC of the world size's shards
+        # (--mesh 1 on one rank runs the one-device engine).
         print(f"--mesh {opts['--mesh']} under torchrun with WORLD_SIZE="
-              f"{world}: give --mesh {world}\n{USAGE}", file=sys.stderr)
+              f"{world}: give --mesh {world} (or RxC with R·C = {world})"
+              f"\n{USAGE}", file=sys.stderr)
         return 1
 
     import torch
@@ -99,7 +101,8 @@ def main(argv: list[str] | None = None) -> int:
         return _simulate(opts, args, n_shards, mesh_shape, None)
     from particlesimulation_tpu_torch.parallel.mesh import init_dist_mesh
 
-    dist_mesh = init_dist_mesh(device=opts["--device"])
+    dist_mesh = init_dist_mesh(shape=mesh_shape or None,
+                               device=opts["--device"])
     try:
         return _simulate(opts, args, n_shards, mesh_shape, dist_mesh)
     finally:
@@ -107,7 +110,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _simulate(opts, args, n_shards, mesh_shape, dist_mesh) -> int:
-    """Build the engine (the 1D row mesh on ``dist_mesh``, where given) and
+    """Build the engine (the mesh engine on ``dist_mesh``, where given) and
     run it."""
     from particlesimulation_tpu_torch.config import Precision, SimConfig
     from particlesimulation_tpu_torch.engine import Engine
@@ -125,12 +128,11 @@ def _simulate(opts, args, n_shards, mesh_shape, dist_mesh) -> int:
         # Parity always runs the sweep (the mesh engines force it, as the
         # single-device engine does); fast precision takes --impl or the
         # census.
-        if dist_mesh is not None:
-            eng = ShardedEngine(config, impl=opts["--impl"], mesh=dist_mesh)
-        else:
-            cls = (Engine if n_shards == 1 else
-                   Sharded2DEngine if mesh_shape else ShardedEngine)
-            eng = cls(config, impl=opts["--impl"], device=opts["--device"])
+        cls = (Engine if n_shards == 1 and dist_mesh is None else
+               Sharded2DEngine if mesh_shape else ShardedEngine)
+        where = ({"device": opts["--device"]} if dist_mesh is None
+                 else {"mesh": dist_mesh})
+        eng = cls(config, impl=opts["--impl"], **where)
     except ValueError as e:
         print(f"{e}\n{USAGE}", file=sys.stderr)
         return 1

@@ -18,13 +18,17 @@ mpi/run_tests.sh:8-16), not a multi-GPU run.
 length 1); ``ppermute`` is a send to the rank ``shift`` places further along
 the axis and a receive from the rank ``shift`` places back (the reference's
 Isend/Irecv), ``psum`` and ``pmax`` are all-reduces (its MPI_Allreduce),
-``all_gather`` its Allgather. NCCL carries CUDA tensors; gloo carries CPU
-tensors, and a gloo mesh on a CUDA device stages each collective through
-host memory, which no CUDA graph can capture (``capturable`` False).
+``all_gather`` its Allgather, ``barrier`` its MPI_Barrier. NCCL carries
+CUDA tensors; gloo carries CPU tensors, and a gloo mesh on a CUDA device
+stages each collective through host memory, which no CUDA graph can capture
+(``capturable`` False). Every route of both mesh engines runs on either
+mesh, with the same bits.
 
 A mesh of shape ``(d_r, d_c)`` lays its shards out row-major: shard ``r *
 d_c + c`` sits at row ``r``, column ``c``. A 1D mesh of D shards is ``(D,
-1)``: "rows" is its one axis.
+1)``: "rows" is its one axis. ``flat()`` is the 1D mesh of the same shards
+(shard ``s`` at rank ``s`` in both layouts), the 2D engine's census
+delegate's.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ class LocalMesh:
     # Its collectives are tensor operations: a step captures as a CUDA
     # graph (``ops/graphed``) on any device.
     capturable = True
+    # This process's rank: one process holds the whole mesh.
+    rank = 0
 
     def __init__(self, size: int, device, shape: tuple | None = None):
         shape = _mesh_shape(size, shape)
@@ -99,6 +105,14 @@ class LocalMesh:
         """Every shard's rows of ``t`` (leading shard axis), in shard
         order: here, ``t`` itself."""
         return t
+
+    def barrier(self) -> None:
+        """Every shard has reached this point: here, at once."""
+
+    def flat(self) -> LocalMesh:
+        """The 1D mesh, ``(size, 1)``, of the same shards on the same
+        device."""
+        return LocalMesh(self.size, self.device)
 
 
 class DistMesh:
@@ -201,6 +215,20 @@ class DistMesh:
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t)
         return self._in(torch.cat(parts))
+
+    def barrier(self) -> None:
+        """Return once every rank has called it (an all-reduce read back on
+        the host, so that an NCCL rank waits for it too): what one rank
+        wrote to a file before it, every rank reads after it."""
+        int(self._all_reduce(torch.zeros(1, dtype=torch.int32,
+                                          device=self.device),
+                             dist.ReduceOp.SUM))
+
+    def flat(self) -> DistMesh:
+        """The 1D mesh, ``(size, 1)``, over the same group and device:
+        shard ``s`` is rank ``s`` in both layouts, so a 2D mesh's delegate
+        holds the slab of the shard this rank holds."""
+        return DistMesh(self.device)
 
 
 def init_dist_mesh(shape: tuple | None = None, device="cuda") -> DistMesh:

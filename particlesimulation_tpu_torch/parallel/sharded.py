@@ -73,7 +73,7 @@ from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
 from particlesimulation_tpu_torch.ops.tiered import plan_tiers
 from particlesimulation_tpu_torch.parallel.balance import plan_shard_rows
-from particlesimulation_tpu_torch.parallel.mesh import DistMesh, LocalMesh
+from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.state import ShardedState
 
 # Overflow-cause sentinels. ``ShardedState.overflow`` combines causes by
@@ -94,17 +94,26 @@ INT32_MAX = np.iinfo(np.int32).max
 SHIP_SLACK = 4
 IMPLS = ("resident", "sweep", "supercell", "banded", "banded-cols",
          "banded-cyclic")
-# The routes a DistMesh carries so far.
-DIST_IMPLS = ("resident", "sweep")
 
 
-def refuse_dist(mesh, what: str, item: str) -> None:
-    """Raise NotImplementedError naming ``what`` and ``ROADMAP.md``'s
-    ``item`` where ``mesh`` is a ``DistMesh`` (what the distributed mesh
-    does not carry yet)."""
-    if isinstance(mesh, DistMesh):
-        raise NotImplementedError(f"{what} on a DistMesh is not ported yet "
-                                  f"(ROADMAP.md, Queue 1: {item})")
+def check_capturable(mesh) -> None:
+    """Raise ValueError where ``mesh``'s collectives cannot be captured in
+    a CUDA graph (a gloo mesh on a CUDA device): ``run`` replays graphs,
+    ``run_eager`` runs there."""
+    if not mesh.capturable:
+        raise ValueError("this mesh's collectives pass through host "
+                         "memory and cannot be captured as CUDA graphs; "
+                         "use run_eager")
+
+
+def mesh_need(mesh, out: ShardedState) -> int:
+    """A run's overflow as the ladder reads it: the mesh's maximum, the
+    run's one readback. The causes are combined over the mesh in the run
+    (counts by ``psum``, sentinels by ``pmax``) but for the sweep's rank
+    flag, which each shard raises from its own cells; the maximum makes
+    every shard take the same rung, so that none waits in a collective the
+    others do not reach."""
+    return int(mesh.pmax(out.overflow[None]))
 
 
 def shard_rows(config: SimConfig, mesh):
@@ -495,11 +504,11 @@ class ShardedEngine(SlabMesh):
     when the caller passes ``device="cpu"``. The mesh is a ``LocalMesh`` of
     ``config.n_shards`` shards on that device, or ``mesh`` (the JAX
     engine's ``devices=``): a ``DistMesh`` of ``config.n_shards`` ranks,
-    whose device it takes, holding this rank's slab alone; it carries the
-    sweep and the resident tiles (the census's other routes, like
-    checkpoints, raise NotImplementedError there), and every rank reaches
-    the same route, plan and capacities from the same seed without a
-    broadcast. ``impl`` None lets the JAX
+    whose device it takes, holding this rank's slab alone. Every route runs
+    on either mesh with the same bits: every rank reaches the same route,
+    plan and capacities from the same host data (the seed's init, a
+    checkpoint, a gathered state) without a broadcast, and the ladder's
+    one readback is the mesh's maximum. ``impl`` None lets the JAX
     mesh census route (fast precision): sparse loads to super-cells where
     ``supercell_shard_viable``, clustered loads with a band plan and uniform
     loads above ``engine._STREAM_BYTES`` of tiles a shard to bands, the rest
@@ -571,15 +580,6 @@ class ShardedEngine(SlabMesh):
         self.ship_rounds = 1
         self._built_key = None
         self._run = None
-        self._refuse_route()
-
-    def _refuse_route(self) -> None:
-        if self.impl not in DIST_IMPLS:
-            route = (f"banded-{self.banded_variant}" if self.impl == "banded"
-                     else self.impl)
-            refuse_dist(self.mesh, f"the {route} route",
-                        "the DistMesh for the supercell, column-band and "
-                        "block-cyclic routes")
 
     def _build(self):
         cfg = self.config
@@ -777,7 +777,6 @@ class ShardedEngine(SlabMesh):
                 self.impl = "resident"
             else:
                 self._band_plan = tuple(tuple(p) for p in bands)
-        self._refuse_route()
         shard = self._owners(cx, cy, in_range)
         counts = np.bincount(shard, minlength=d)
         if self.impl in ("resident", "supercell") and self.kcap is None:
@@ -817,10 +816,7 @@ class ShardedEngine(SlabMesh):
         GPU (``ops/graphed``); a run of 0 steps captures them. A mesh whose
         collectives cannot be captured (``capturable`` False: gloo on a
         CUDA device) raises: use ``run_eager``."""
-        if not self.mesh.capturable:
-            raise ValueError("this mesh's collectives pass through host "
-                             "memory and cannot be captured as CUDA graphs; "
-                             "use run_eager")
+        check_capturable(self.mesh)
         return self._ladder(state, n_steps, eager=False)
 
     def run_eager(self, state: ShardedState, n_steps: int) -> ShardedState:
@@ -842,7 +838,7 @@ class ShardedEngine(SlabMesh):
             run = self._run.eager if eager else self._run
             out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
-            need = int(out.overflow)  # the run's one readback
+            need = mesh_need(self.mesh, out)
             if need == 0:
                 return out
             if need >= single.RANK_OVF:

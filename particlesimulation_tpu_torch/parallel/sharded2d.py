@@ -4,7 +4,7 @@ the JAX package's ``parallel/sharded2d.py``).
 The reference decomposes the grid by rows only (mpi/parsim-mpi.cpp:330-465).
 Here each shard owns a ``rows × cols`` rectangle of cells, block (r, c) of
 the balanced-uneven split of each axis (``AxisDecomp``), and the shards of
-a ``LocalMesh`` of shape (d_r, d_c) talk along two axes:
+a mesh of shape (d_r, d_c) talk along two axes:
 
 * the COM halo is the two-phase exchange (``two_phase_com_halo``): the rows
   axis first, then the cols axis over the row-padded grids, so the corner
@@ -29,8 +29,9 @@ The f32 fast precision runs rectangle tiles (``parallel/sharded2d_resident``)
 by default, or, with no ``impl``, the JAX census's delegation: sparse
 loads go to ``ShardedEngine``'s super-cell tiles, clustered loads and
 uniform ones above ``engine._STREAM_BYTES`` of tiles a shard to its column
-bands, each a 1D mesh of the same shard count on the same device. Unlike
-JAX, every entry that reads or writes slabs (``pack_particles``,
+bands, each on the 1D mesh of the same shards (``mesh.flat()``: on a
+``DistMesh`` the same ranks, shard ``s`` at rank ``s``). Unlike JAX, every
+entry that reads or writes slabs (``pack_particles``,
 ``ownership_plan``, ``run``, ``result``, ``gather``, checkpoints through
 ``target``) goes to the delegate.
 """
@@ -50,8 +51,8 @@ from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.parallel.sharded import (
     CAP_OVF, SHIP_OVF, SHIP_SLACK, STRAY_OVF, ShardedEngine, SlabMesh,
-    _slab_key, emigrant_buffer, halo_pad, make_slab_sweep, pack_into,
-    refuse_dist)
+    _slab_key, check_capturable, emigrant_buffer, halo_pad, make_slab_sweep,
+    mesh_need, pack_into)
 from particlesimulation_tpu_torch.state import ShardedState
 
 IMPLS = ("resident", "sweep")
@@ -245,8 +246,10 @@ class Sharded2DEngine(SlabMesh):
     ``config.mesh_shape`` = (d_r, d_c) lays ``config.n_shards`` shards out
     as a ``LocalMesh`` of that shape on ``device`` (``cuda`` by default,
     raising without CUDA; the CPU only when the caller passes
-    ``device="cpu"``); shard (r, c) owns the cells [row block r] × [col
-    block c]. Implementations (``impl``):
+    ``device="cpu"``), or on ``mesh`` (the JAX engine's ``devices=``): a
+    mesh of that shape, a ``DistMesh`` holding this rank's shard alone,
+    whose device it takes; shard (r, c) owns the cells [row block r] ×
+    [col block c]. Implementations (``impl``):
 
     * ``sweep`` — sorted slabs and the neighbour-offset sweep: the f64
       parity path (bitwise the one-device parity engine) and the ladder's
@@ -258,10 +261,9 @@ class Sharded2DEngine(SlabMesh):
     ``impl`` None (fast precision) runs JAX's census at the first
     ``pack_particles`` (``init_state``'s, or a checkpoint's re-pack):
     sparse, clustered and streaming loads delegate to a ``ShardedEngine``
-    of the same shard count on the same device, the rest stay on resident
-    tiles; where ``n_shards > ncside`` nothing delegates. ``mesh``, where
-    given, is a ``LocalMesh`` of that shape (a ``DistMesh`` raises
-    NotImplementedError: not ported yet). A fresh
+    on ``mesh.flat()``, the 1D mesh of the same shards, the rest stay on
+    resident tiles; where ``n_shards > ncside`` nothing delegates. Every
+    rank of a ``DistMesh`` routes alike, from the same host data. A fresh
     ``init_state`` routes again.
 
     Overflow replays the run losslessly: CAP_OVF grows the slab, the
@@ -277,7 +279,6 @@ class Sharded2DEngine(SlabMesh):
             raise ValueError("Sharded2DEngine needs config.mesh_shape "
                              "(d_rows, d_cols)")
         if mesh is not None:
-            refuse_dist(mesh, "the 2D mesh", "the 2D mesh on a DistMesh")
             if tuple(mesh.shape) != tuple(config.mesh_shape):
                 raise ValueError(f"a mesh of shape {mesh.shape} for "
                                  f"mesh_shape={config.mesh_shape}")
@@ -333,7 +334,7 @@ class Sharded2DEngine(SlabMesh):
             # The row split needs a grid row a shard, the rectangles not.
             return
         cand = ShardedEngine(dataclasses.replace(cfg, mesh_shape=()),
-                             device=self.device)
+                             mesh=self.mesh.flat())
         if cand.impl == "supercell":
             self._delegate = cand
             return
@@ -437,7 +438,10 @@ class Sharded2DEngine(SlabMesh):
         """Run ``n_steps``; overflow replays the run from the input state
         with more capacity (nothing is dropped). The adapted impl and
         capacities stick for later runs. The run replays its step graphs
-        on the GPU (``ops/graphed``); a run of 0 steps captures them."""
+        on the GPU (``ops/graphed``); a run of 0 steps captures them. A
+        mesh whose collectives cannot be captured raises: use
+        ``run_eager``."""
+        check_capturable(self.mesh)
         if self._delegate:
             return self._delegate.run(state, n_steps)
         return self._ladder(state, n_steps, eager=False)
@@ -460,7 +464,7 @@ class Sharded2DEngine(SlabMesh):
             run = self._run.eager if eager else self._run
             out = run(state._replace(
                 overflow=torch.zeros_like(state.overflow)), n_steps)
-            need = int(out.overflow)  # the run's one readback
+            need = mesh_need(self.mesh, out)
             if need == 0:
                 return out
             if need >= single.RANK_OVF:

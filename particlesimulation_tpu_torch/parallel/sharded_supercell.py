@@ -103,6 +103,8 @@ def make_sharded_supercell_run(config: SimConfig, mesh, kcap: int, cap: int,
     lrow = trow % ncells_t // nsc
     owned_row = (lrow >= 1) & (lrow <= rows_mine[shard_t])
     cell0_t = shard_t * ncl - row0[shard_t] * S * nc  # local cell of (0, 0)
+    # The cell rows of each pool row's shard.
+    cy0_t, cy1_t = row0[shard_t] * S, (row0 + rows_mine)[shard_t] * S
 
     def geometry(rows):
         """Per pool row: its shard, local super-row and super-column, and
@@ -145,7 +147,11 @@ def make_sharded_supercell_run(config: SimConfig, mesh, kcap: int, cap: int,
         -1 keep unbinned slots (out of range, or in a halo super-row) out
         of every physics pass."""
         cx, cy, valid = res.cell_of(ts.x, ts.y, side, nc)
-        binned = ts.occ & valid & owned_row
+        # A particle a full row could not take (the run's tile overflow:
+        # it replays) stays in its slot, maybe outside its shard's cell
+        # rows: it bins nowhere, so that every cell index lies on its
+        # shard's grid (this rank's alone on a DistMesh).
+        binned = ts.occ & valid & owned_row & (cy >= cy0_t) & (cy < cy1_t)
         limbo = torch.sum((ts.occ & ~valid).view(L, -1), dim=1,
                           dtype=torch.int32)
         sub = (cy % S) * S + cx % S

@@ -16,8 +16,11 @@ block-cyclic band chunks), so a restore places the slabs as they are only
 where the geometry and the ownership match, and otherwise re-packs the
 particles through the engine's own packer. A 2D engine whose census handed
 its loads to a 1D delegate saves and restores through that delegate
-(``Sharded2DEngine.target``). An engine on a ``DistMesh`` (one shard per
-rank) neither saves nor restores yet: both raise NotImplementedError.
+(``Sharded2DEngine.target``). On a ``DistMesh`` (one shard per rank)
+every rank saves and restores: the file holds the slabs of every shard in
+shard order, as a ``LocalMesh`` state of the same shape holds them, written
+by rank 0; each rank restores its own shard's slab, or re-packs its own
+shard's particles.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from particlesimulation_tpu_torch.parallel.sharded import refuse_dist
 from particlesimulation_tpu_torch.state import ShardedState, state_from_numpy
 
 _FIELDS = ("x", "y", "vx", "vy", "m", "alive", "pid", "collisions", "panics",
            "overflow")
 _SHARDED_FIELDS = _FIELDS + ("valid",)
-_DIST_ITEM = "checkpoints from a DistMesh (rank 0 writes after gather)"
+# The fields a ShardedState holds a slab of per shard; the rest are the
+# mesh's counters, the same on every shard.
+_SLAB_FIELDS = ("x", "y", "vx", "vy", "m", "alive", "valid", "pid")
 
 
 def _host(state, fields) -> dict:
@@ -62,13 +66,20 @@ def save_sharded_state(path: str, state: ShardedState, n_shards: int = 0,
     blocks and rectangles; the JAX package's sentinels for super-cells and
     column bands, or a block-cyclic plan). ``engine``, where given, the
     writing engine, supplies all four (a 2D engine's delegate's where it
-    has one)."""
+    has one) and its mesh's slabs: on a ``DistMesh`` every rank calls this,
+    the slabs are all-gathered in shard order, rank 0 writes and every
+    rank returns once the file is written."""
+    mesh = None
     if engine is not None:
-        refuse_dist(engine.mesh, "a checkpoint", _DIST_ITEM)
         eng = _target(engine)
+        mesh = eng.mesh
         n_shards, row_starts, mesh_shape, band_plan = (
             eng.config.n_shards, eng.config.row_starts,
             eng.config.mesh_shape, eng.ownership_plan())
+        L = len(mesh.local_shards)
+        state = state._replace(**{
+            f: mesh.all_gather(getattr(state, f).view(L, -1)).reshape(-1)
+            for f in _SLAB_FIELDS})
     arrs = _host(state, _SHARDED_FIELDS)
     arrs["n_shards"] = np.asarray(n_shards, np.int32)
     arrs["row_starts"] = np.asarray(row_starts, np.int32)
@@ -76,7 +87,10 @@ def save_sharded_state(path: str, state: ShardedState, n_shards: int = 0,
     arrs["band_plan"] = np.asarray(
         [list(p) for p in band_plan] if band_plan else np.zeros((0, 3)),
         np.int32)
-    np.savez_compressed(path, **arrs)
+    if mesh is None or mesh.rank == 0:
+        np.savez_compressed(path, **arrs)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_state(path: str, dtype=None, device=None):
@@ -101,9 +115,9 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
     checkpoint from another mesh width or shape, another row decomposition
     or another ownership rule must be. A 2D engine places them through its
     delegate, if its census (run on the checkpoint's particles if not yet
-    run) chose one.
+    run) chose one. On a ``DistMesh`` every rank calls this and takes its
+    own shard's slab (or packs its own shard's particles).
     """
-    refuse_dist(engine.mesh, "a checkpoint", _DIST_ITEM)
     with np.load(path) as z:
         saved = {f: z[f] for f in z.files}
     valid = saved["valid"]
@@ -125,7 +139,10 @@ def restore_sharded(path: str, engine, dtype=None) -> ShardedState:
             and saved_mesh == tuple(cfg.mesh_shape)
             and saved_plan == tuple(tuple(int(v) for v in p)
                                     for p in engine.ownership_plan())):
-        return state_from_numpy({f: saved[f] for f in _SHARDED_FIELDS},
-                                engine.device, dt)
+        mine = list(engine.mesh.local_shards)
+        return state_from_numpy(
+            {f: (saved[f].reshape(d, cap)[mine].reshape(-1)
+                 if f in _SLAB_FIELDS else saved[f])
+             for f in _SHARDED_FIELDS}, engine.device, dt)
     return engine.pack_particles(particles, collisions=saved["collisions"],
                                  panics=saved["panics"], dtype=dt)

@@ -19,13 +19,10 @@ import pickle
 import numpy as np
 import torch
 
-from particlesimulation_tpu_torch import engine as single
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.models.gravity_pic import Simulation
 from particlesimulation_tpu_torch.parallel.mesh import DistMesh
 from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
-from particlesimulation_tpu_torch.parallel.sharded2d import Sharded2DEngine
-from particlesimulation_tpu_torch.utils import checkpointing
 
 PARITY = "parity"
 RESIDENT = "resident"
@@ -143,46 +140,16 @@ def _raises(fn):
     """The (type name, message) of what ``fn()`` raises; None if nothing."""
     try:
         fn()
-    except (NotImplementedError, ValueError) as err:
+    except ValueError as err:
         return type(err).__name__, str(err)
     return None
 
 
-def refusals(mesh, d, tmp):
-    """What a DistMesh refuses, each as ``_raises`` gives it."""
-    def sparse():         # the census picks super-cells at __init__
-        ShardedEngine(SimConfig(-10, 3.0, 16, 300, n_shards=d),
-                      device="cpu", mesh=mesh)
-
-    def explicit(impl):
-        return lambda: ShardedEngine(SimConfig(-10, 3.0, 16, 300,
-                                               n_shards=d),
-                                     impl=impl, device="cpu", mesh=mesh)
-
-    def streaming():      # the census picks bands at init_state
-        saved = single._STREAM_BYTES, single._STREAM_BAND_BYTES
-        single._STREAM_BYTES, single._STREAM_BAND_BYTES = 1, 4000
-        try:
-            ShardedEngine(SimConfig(1, 8.0, 16, 2048, n_shards=d),
-                          device="cpu", mesh=mesh).init_state()
-        finally:
-            single._STREAM_BYTES, single._STREAM_BAND_BYTES = saved
-
-    def mesh2d():
-        Sharded2DEngine(SimConfig(1, 2.0, 8, 200, n_shards=d,
-                                  mesh_shape=(2, d // 2)),
-                        device="cpu", mesh=DistMesh("cpu", (2, d // 2)))
-
+def refusals(mesh):
+    """A mesh that cannot capture: what ``run`` raises (as ``_raises``
+    gives it), and ``run_eager``'s gathered state before and after."""
     eng, steps = _engine(RUNS[1], mesh)
     state = eng.init_state()
-    path = os.path.join(tmp, f"ckpt_{mesh.rank}.npz")
-
-    def save():
-        checkpointing.save_sharded_state(path, state, engine=eng)
-
-    def restore():
-        checkpointing.restore_sharded(path, eng)
-
     eager = eng.gather(eng.run_eager(state, steps))
     mesh.capturable = False   # as a gloo mesh on a CUDA device is
     try:
@@ -190,14 +157,8 @@ def refusals(mesh, d, tmp):
         eager_after = eng.gather(eng.run_eager(state, steps))
     finally:
         mesh.capturable = True
-    return {"supercell census": _raises(sparse),
-            "supercell": _raises(explicit("supercell")),
-            "banded": _raises(explicit("banded")),
-            "banded-cyclic": _raises(explicit("banded-cyclic")),
-            "streaming census": _raises(streaming),
-            "2D": _raises(mesh2d), "save": _raises(save),
-            "restore": _raises(restore), "run, not capturable": graphed,
-            "eager": eager, "eager, not capturable": eager_after}
+    return {"run, not capturable": graphed, "eager": eager,
+            "eager, not capturable": eager_after}
 
 
 def collectives(mesh, d, seed=7):
@@ -244,24 +205,30 @@ def rank_main(rank, world, tmp):
             for case in RETRIES:
                 recs[case[0]] = retry_case(case, mesh)
             recs["empty"] = empty_case(mesh)
-            recs["refusals"] = refusals(mesh, world, tmp)
+            recs["refusals"] = refusals(mesh)
     finally:
         torch.distributed.destroy_process_group()
     with open(os.path.join(tmp, f"rank_{world}_{rank}.pkl"), "wb") as f:
         pickle.dump(recs, f)
 
 
-def launch(worlds, tmp, timeout=240.0):
-    """Spawn a group of ranks for each world size, all at once; wait for
-    them (a rank that raises, or ``timeout`` seconds, ends every rank and
-    raises); return {world: [each rank's records]}."""
-    import time
-
+def start(worlds, tmp, main=None):
+    """Spawn a group of ranks of ``main`` (``rank_main`` by default; called
+    as ``main(rank, world, tmp)``) for each world size, all at once, and
+    return their contexts without waiting."""
     import torch.multiprocessing as mp
 
-    contexts = [mp.start_processes(rank_main, args=(w, tmp), nprocs=w,
-                                   join=False, start_method="spawn")
-                for w in worlds]
+    return [mp.start_processes(main or rank_main, args=(w, tmp), nprocs=w,
+                               join=False, start_method="spawn")
+            for w in worlds]
+
+
+def collect(contexts, worlds, tmp, timeout):
+    """Wait for the groups ``start`` spawned (a rank that raises, or
+    ``timeout`` seconds, ends every rank and raises); return {world: [each
+    rank's records]}."""
+    import time
+
     deadline = time.monotonic() + timeout
     try:
         for ctx in contexts:
@@ -282,3 +249,10 @@ def launch(worlds, tmp, timeout=240.0):
             with open(os.path.join(tmp, f"rank_{w}_{r}.pkl"), "rb") as f:
                 out[w].append(pickle.load(f))
     return out
+
+
+def launch(worlds, tmp, timeout=240.0):
+    """Spawn a group of ranks for each world size, all at once; wait for
+    them (a rank that raises, or ``timeout`` seconds, ends every rank and
+    raises); return {world: [each rank's records]}."""
+    return collect(start(worlds, tmp), worlds, tmp, timeout)

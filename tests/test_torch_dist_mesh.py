@@ -19,7 +19,10 @@ of its size and hands back its records. Held here:
 * every rank on the same route, plan and capacities, the same gathered
   state, the same rung of a forced retry;
 * gather and result with shards that hold no particle;
-* the CLI under torchrun, and what a DistMesh refuses.
+* the CLI under torchrun, and what it refuses; ``run`` on a mesh that
+  cannot capture.
+
+The other routes on a DistMesh are ``test_torch_dist_routes.py``'s.
 """
 
 import os
@@ -215,25 +218,6 @@ def test_simulation_takes_a_mesh(ranks, world):
         assert got["collisions"] == want["collisions"]
 
 
-@pytest.mark.parametrize("name,item", [
-    ("supercell census", "supercell, column-band and block-cyclic"),
-    ("supercell", "supercell, column-band and block-cyclic"),
-    ("banded", "supercell, column-band and block-cyclic"),
-    ("banded-cyclic", "supercell, column-band and block-cyclic"),
-    ("streaming census", "supercell, column-band and block-cyclic"),
-    ("2D", "the 2D mesh on a DistMesh"),
-    ("save", "checkpoints from a DistMesh"),
-    ("restore", "checkpoints from a DistMesh")])
-def test_unported_routes_raise(ranks, name, item):
-    """The census's other routes (at construction or at the census of
-    init_state), explicit impls, the 2D mesh and checkpoints raise
-    NotImplementedError naming ROADMAP.md's item, on every rank."""
-    for rec in ranks[4]:
-        kind, msg = rec["refusals"][name]
-        assert kind == "NotImplementedError" and "ROADMAP.md" in msg
-        assert item in msg
-
-
 def test_run_refuses_a_mesh_that_cannot_capture(ranks):
     """A mesh whose collectives cannot be captured: ``run`` raises a
     ValueError naming ``run_eager``, and ``run_eager`` gives the same bits
@@ -279,13 +263,15 @@ def test_cli_under_torchrun(engine, capsys):
 
 @pytest.mark.parametrize("env,args,says", [
     ("2", ["--mesh", "4", "--device", "cpu"], "give --mesh 2"),
-    ("4", ["--mesh", "2x2", "--device", "cpu"], "give --mesh 4"),
+    ("2", ["--mesh", "2x2", "--device", "cpu"],
+     "give --mesh 2 (or RxC with R·C = 2)"),
     ("2", ["--mesh", "2"], "2 ranks need 2 CUDA devices")],
-    ids=["world-not-D", "RxC", "cuda-fewer-cards"])
+    ids=["world-not-D", "world-not-RxC", "cuda-fewer-cards"])
 def test_cli_refusals_under_torchrun(env, args, says, capsys, monkeypatch):
-    """Under torchrun (WORLD_SIZE set): a mesh other than the world size, a
-    2D mesh, or --device cuda with fewer cards than ranks print a message
-    and return 1, before any process group is made."""
+    """Under torchrun (WORLD_SIZE set): a mesh of another shard count than
+    the world size (D or RxC), or --device cuda with fewer cards than
+    ranks print a message and return 1, before any process group is
+    made."""
     monkeypatch.setenv("WORLD_SIZE", env)
     if "CUDA" in says:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
