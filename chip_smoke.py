@@ -410,6 +410,24 @@ be. the ``torch.distributed`` mesh (``parallel/mesh.DistMesh``, one shard
    number); (iii) NCCL across cards at D = 2, graphed, only where the
    machine has two cards (else printed as not run).
 
+bf. the migration pack (``ops/cuda/migrate``: ``compact``, the emigrant
+   buffer, and ``pack``, the landing) and the mesh monopole + integrate
+   (``ops/cuda/advance``'s ``tile_monopole_integrate`` and
+   ``gathered_monopole_integrate``, one kernel family) against their plain
+   versions on the card, bit for bit: on ``ops/cuda/adversarial``'s
+   ``pack_cases`` (no free slot, overflow, no arrival, all arriving, thin
+   arrivals over many blocks with only the last slot free, a buffer of 1,
+   f32 fields, the 2D column buffer), ``compact_cases`` and
+   ``mesh_monopole_case`` (both forms; a slot's index, int64 and int32, a
+   row's, a band pool's rows; d² = 0 and subnormal d²; frozen, unbinned and
+   wrapping slots), then on every migration call of the first step of the
+   parity meshes at golden s1 (D = 2, 4, (2, 2)) and the monopole +
+   integrate call of the six tile engines (the flagship's mesh at D = 4 and
+   (2, 2), SMALL's mesh super-cells, UNEVEN's column and cyclic bands at D
+   = 4, SMALL on one device), their own inputs recorded from an eager
+   step; those calls timed against their bounds (run in the main run after
+   ar-at; alone with ``--mesh-kernels``).
+
 ``python3 chip_smoke.py --graphs`` runs phase bc alone,
 ``python3 chip_smoke.py --com-back-to-back`` phase bd alone,
 ``python3 chip_smoke.py --dist`` phase be alone.
@@ -436,13 +454,18 @@ ms at K = 32, 64 and 1024, and SMALL's ms/step and device ms/step;
 direct model at N = 1e5 (both kernels' device ms and ms/step), once for
 the port package of each checkout ROOT in turn, as ``--mesh-times`` does.
 ``python3 chip_smoke.py --mesh-times ROOT [ROOT ...]`` times only the
-flagship's fast mesh at D = 1, 2 and 4, once for the port package of each
-checkout ROOT in turn (a process each): the way to compare two commits in
-one call (parent, change, change, parent); each run's final state after
-10 steps must have the same digest in all.
+flagship's fast mesh at D = 1, 2 and 4, the parity meshes at D = 2, 4 and
+(2, 2), UNEVEN's column and cyclic bands at D = 4, SMALL's mesh
+super-cells at D = 4 and SMALL on one device, once for the port package
+of each checkout ROOT in turn (a process each): the way to compare two
+commits in one call (parent, change, change, parent); each run's final
+state after 10 steps must have the same digest in all.
 
 Each path runs with the kernel launch counts set to 0 just before and read
-just after, and fails if a kernel of the path did not launch. Two steps of
+just after, and fails if a kernel of the path did not launch (the mesh
+monopole + integrate on every tile mesh and on SMALL, the migration pack
+on every parity mesh: its emigrant buffer always, its landing where a
+ring hop or the 2D mesh's landing runs). Two steps of
 each tile engine's run loop run under
 ``torch.cuda.set_sync_debug_mode("error")``; each engine on the GPU is
 compared with the same engine on the CPU; the flagship, UNEVEN and sweep
@@ -540,6 +563,16 @@ for a frozen one; the delivery reads occ and moving a slot and moves 58
 bytes a mover. Beside the last two, ``copy_out_bound_ms``: the floors of
 the first designs, which wrote every slot (50 bytes a slot for the monopole
 pass; 51 for the delivery's new tiles).
+
+Bounds of phase bf's kernels (bytes): the pack reads the valid and take
+flags once and moves each landed entry's fields (read and written) with
+its valid flag; the emigrant buffer reads the emig flags and moves every
+buffer entry's fields with its valid flag (the plain version fills all of
+them); the mesh monopole + integrate reads m, mf, fxd, fyd, x, y, vx, vy
+and writes x, y, vx, vy for a live slot (48 bytes), m for a frozen one
+(4), the index (a live slot's, or a row's) and the binned flag where
+given, and the 24 table words of each index read, once (``library_ms``:
+none; no single PyTorch call computes either function).
 
 Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes) and the
 float fields a lane, each output once; 9 operations a lane for the COM, 17
@@ -679,11 +712,20 @@ REPLACES = {
     # XLA code: the sweep's traced kmax (the JAX step's max_occupancy at
     # engine.py:74 and :103).
     "sweep_occupancy": "particlesimulation_tpu/ops/binning.py:58",
+    # XLA code of the mesh engines: the parity mesh's accept (the landing:
+    # a stable argsort, a cumsum of the free slots, a gather a field; its
+    # emigrant pack :212-221, the 2D mesh's _pack_into :227-244), and the
+    # tile meshes' monopole + integrate (sharded_resident.py:345-349; the
+    # other meshes' and ops/supercell.py's :209, :404-407 alike).
+    "migrate_pack": "particlesimulation_tpu/parallel/sharded.py:223-240",
+    "monopole_gathered":
+        "particlesimulation_tpu/parallel/sharded_resident.py:345-349",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
 ADVANCE_SOURCE = "particlesimulation_tpu_torch/csrc/advance.cu"
 SWEEP_SOURCE = "particlesimulation_tpu_torch/csrc/sweep.cu"
+MIGRATE_SOURCE = "particlesimulation_tpu_torch/csrc/migrate.cu"
 # The kernels' names in csrc/, as the profiler reports them.
 PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "dense_forces_kernel", "dense_collisions_kernel",
@@ -695,7 +737,10 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "settle_sums_kernel", "sweep_com_kernel",
                 "sweep_forces_parity_kernel", "sweep_forces_fast_kernel",
                 "sweep_collisions_kernel", "sweep_collision_count_kernel",
-                "sweep_occupancy_kernel",
+                "sweep_occupancy_kernel", "monopole_rows_kernel",
+                "monopole_slots_kernel", "migrate_count_kernel",
+                "pack_arrivals_kernel", "pack_place_kernel",
+                "compact_place_kernel",
                 # a parent checkout's (--advance-times) row sums, and its
                 # sweep force kernel (--sweep-times)
                 "cell_sums_rows_kernel", "sweep_forces_kernel")
@@ -706,6 +751,8 @@ ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
 # The sweep engine's kernels (ops/cuda/sweep), by their launch counts.
 SWEEP_KERNELS = ("sweep_com", "sweep_forces", "sweep_collisions",
                  "sweep_occupancy")
+# The migration pack's two wrappers, by their launch counts (ops/cuda/migrate).
+MIGRATE_KERNELS = ("pack", "compact")
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -1102,19 +1149,42 @@ def check_tiles(label, tile_sets):
                       .format(k, *v) for k, v in sums.items()), flush=True)
 
 
+def _migrate_launches():
+    """``ops/cuda/migrate``'s launch counts (a parent checkout without the
+    module, timed by ``--mesh-times``: none)."""
+    try:
+        from particlesimulation_tpu_torch.ops.cuda import migrate
+    except ImportError:
+        return None
+    return migrate
+
+
 def reset_launches():
-    """Set the launch counts of the tile kernels to 0."""
+    """Set the launch counts of the tile kernels and the migration pack to
+    0."""
     from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
 
     cell_pairs.reset_launches()
     advance.reset_launches()
+    if _migrate_launches() is not None:
+        _migrate_launches().reset_launches()
 
 
 def read_launches():
-    """The tile kernels' launch counts, by name."""
+    """The tile kernels' and the migration pack's launch counts, by name."""
     from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
 
-    return {**cell_pairs.LAUNCHES, **advance.LAUNCHES}
+    mig = _migrate_launches()
+    return {**cell_pairs.LAUNCHES, **advance.LAUNCHES,
+            **(mig.LAUNCHES if mig is not None else {})}
+
+
+def require_launches(label, launches, kernels):
+    """Fail unless every kernel of ``kernels`` launched on the path."""
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} did not launch: "
+                             f"{launches}")
 
 
 def drive(label, eng, state, steps, kernels):
@@ -1256,12 +1326,26 @@ def _recapture(eng, state, run):
     torch.cuda.synchronize()
 
 
+# The pause after each marker kernel of a profiler session, in seconds.
+PROFILE_PAUSE_S = 0.02
+
+
 def _profile_fn(fn, before=None):
     """[(device ms, launches, name)] of one call of ``fn`` (torch.profiler;
     copies and memsets count no launch, nor do the kernels that carry out a
     CUDA graph's copy and memset nodes, ``memcpy32_post`` and the like).
-    ``before()`` runs between the two sessions, unprofiled."""
+    ``before()`` runs between the two sessions, unprofiled. Inside the
+    session a marker kernel (``torch.cuda._sleep``'s ``spin_kernel``, left
+    out of the rows) runs and is waited for on each side of ``fn``, with a
+    pause: without them the profiler has dropped a session's first kernels
+    (a run's prologue) or let another run's land in it, a count a step off
+    by a fraction (PERF.md section 7)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def marker():
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
 
     torch.cuda.synchronize()
     # A session of nothing first: a kernel record that an earlier session
@@ -1270,15 +1354,18 @@ def _profile_fn(fn, before=None):
         torch.cuda.synchronize()
     if before is not None:
         before()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker()
         fn()
         torch.cuda.synchronize()
+        marker()
     rows = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us > 0:
+        if us > 0 and "spin_kernel" not in evt.key:
             copy = evt.key.lower().startswith(("memcpy", "memset"))
             rows.append((us / 1e3, 0 if copy else evt.count, evt.key))
     return rows
@@ -1337,7 +1424,8 @@ def device_breakdown(label, eng, state, step_ms_host, steps=10, run=None,
     return {"device_ms": total, "device_ms_whole": whole,
             "idle": 1 - total / step_ms_host, "launches": launches,
             "syncs": syncs, "kernels": {k: v for k, v in ours.items() if v},
-            "per_kernel": per_kernel}
+            "per_kernel": per_kernel,
+            "per_kernel_ms": {key[:60]: ms for ms, key in rows[:12]}}
 
 
 def steady_breakdown(label, eng, state, step_ms_host, steps):
@@ -1788,7 +1876,7 @@ def check_small(card):
     state = eng.init_state()
     out, launches = check_golden(
         "SMALL supercell", eng, state, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
     if eng.impl != "supercell" or eng._supercell_factor() != SMALL_S:
         raise AssertionError(f"SMALL: {eng.impl}, S {eng._supercell_factor()}")
     print(f"SMALL: the census's route {eng.impl}, S {eng._supercell_factor()} "
@@ -1991,7 +2079,8 @@ def check_mesh(card):
     torch.cuda.synchronize()
     reset_sweep_launches()
     pout = pm.run(pstate, steps)
-    read_sweep_launches("mesh parity D=4 (golden s1)")
+    require_launches("mesh parity D=4 (golden s1)", read_sweep_launches(
+        "mesh parity D=4 (golden s1)"), MIGRATE_KERNELS)
     _same_bits(f"golden s1 parity on cuda, mesh D=4 vs one device "
                f"({int(pout.collisions)} collisions)", pm.gather(pout), want)
     if not int(pout.collisions) == int(ss.collisions) == ec:
@@ -2014,7 +2103,8 @@ def check_mesh(card):
     if fm.impl != "resident":
         raise AssertionError(f"flagship mesh census: {fm.impl}")
     fout, launches = check_golden("golden s1 mesh resident D=4", fm, fstate,
-                                  steps, (ex, ey, ec), ["fused_pairs"])
+                                  steps, (ex, ey, ec),
+                                  ["fused_pairs", "monopole_gathered"])
     rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
     rout = rs.run(rs.init_state(), steps)
     compare_runs("golden s1, mesh resident D=4 vs one-device resident on "
@@ -2075,6 +2165,8 @@ def check_mesh(card):
             e, st = ((pm, pstate) if prec is parity else (fm, fstate)) \
                 if d == 4 else (mesh(d, prec), None)
             st = st or e.init_state()
+            # A new engine's first run captures its graphs: not timed.
+            e.run(st, 0)
             ms, t1, tk = step_ms(e, st, k, reps=1 if prec is parity else 2)
             label = f"mesh {prec.value} D={d}"
             print(f"{label}, {e.impl}, kcap {e.kcap}, slab {e.capacity}: "
@@ -2171,7 +2263,7 @@ def check_mesh_routes(card):
           f"super-rows {SMALL_SC_STARTS}, kcap {sm.kcap}", flush=True)
     sout, launches["SMALL mesh"] = check_golden(
         "SMALL mesh supercell D=4", sm, sstate, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
     one = Engine(SimConfig(*SMALL[:4]), device="cuda")
     ostate = one.init_state()
     oout = one.run(ostate, steps)
@@ -2200,7 +2292,8 @@ def check_mesh_routes(card):
           f"({um.banded_variant}), {len(um._band_plan)} bands "
           f"{um._band_plan}, {UNEVEN[2] // 4} columns a shard", flush=True)
     _, launches["UNEVEN mesh"] = check_golden(
-        "UNEVEN mesh banded D=4", um, ustate, 2, UNEVEN_2, ["fused_pairs"])
+        "UNEVEN mesh banded D=4", um, ustate, 2, UNEVEN_2,
+        ["fused_pairs", "monopole_gathered"])
     ub = Engine(SimConfig(*UNEVEN), device="cuda")
     uout10 = um.run(ustate, 10)
     bout10 = ub.run(ub.init_state(), 10)
@@ -2233,7 +2326,8 @@ def check_mesh_routes(card):
         raise AssertionError(f"2e7 mesh census: {big.impl}")
     outs = []
     out, _, launches["2e7 mesh banded"] = drive(
-        "2e7 mesh banded D=2", big, bstate, 5, ["fused_pairs"])
+        "2e7 mesh banded D=2", big, bstate, 5,
+        ["fused_pairs", "monopole_gathered"])
     outs = [(int(out.collisions), _Valid(out), STREAM_2E7[1])]
     del big, bstate, out
     res_mesh = mesh(STREAM_2E7, 2, impl="resident")
@@ -2352,7 +2446,11 @@ def check_mesh2d(card):
     want = {f: getattr(ss, f)[order].cpu().numpy() for f in MESH_FIELDS}
     pm = mesh2d((2, 2), parity)
     pstate = pm.init_state()
+    torch.cuda.synchronize()
+    reset_sweep_launches()
     pout = pm.run(pstate, steps)
+    require_launches("mesh parity (2, 2) (golden s1)", read_sweep_launches(
+        "mesh parity (2, 2) (golden s1)"), MIGRATE_KERNELS)
     _same_bits(f"golden s1 parity on cuda, mesh (2, 2) vs one device "
                f"({int(pout.collisions)} collisions)", pm.gather(pout), want)
     if not (pm.impl == "sweep" and int(pout.collisions) == ec):
@@ -2376,7 +2474,7 @@ def check_mesh2d(card):
         raise AssertionError(f"flagship 2D census: {fm.impl}")
     fout, launches["2D resident"] = check_golden(
         "golden s1 mesh resident (2, 2)", fm, fstate, steps, (ex, ey, ec),
-        ["fused_pairs"])
+        ["fused_pairs", "monopole_gathered"])
     rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
     rout = rs.run(rs.init_state(), steps)
     compare_runs("golden s1, mesh resident (2, 2) vs one-device resident on "
@@ -2397,7 +2495,7 @@ def check_mesh2d(card):
         raise AssertionError(f"SMALL 2D census: {sm.impl}")
     sout, _, launches["SMALL 2D -> supercell"] = drive(
         "SMALL mesh (2, 2) -> supercell D=4", sm, sstate, SMALL[4],
-        ["fused_pairs_sub", "supercell_cell_sums"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
     one_d = ShardedEngine(SimConfig(*SMALL[:4], n_shards=4), device="cuda")
     _same_bits("SMALL 10 steps, mesh (2, 2) delegated vs 1D D=4",
                sm.gather(sout), one_d.gather(one_d.run(one_d.init_state(),
@@ -2421,7 +2519,7 @@ def check_mesh2d(card):
         raise AssertionError(f"UNEVEN cyclic: {cm.impl}")
     _, launches["UNEVEN cyclic"] = check_golden(
         "UNEVEN mesh banded-cyclic D=4", cm, cstate, 2, UNEVEN_2,
-        ["fused_pairs"])
+        ["fused_pairs", "monopole_gathered"])
     cout10 = cm.run(cstate, 10)
     if cm._band_plan != plan or cm.impl != "banded":
         print(f"UNEVEN cyclic D=4 ended on {cm.impl}, plan {cm._band_plan}",
@@ -3137,7 +3235,8 @@ def check_step(label, eng, state, most, exact, steps=10, tries=3):
 # Kernels one call of each ops/cuda/advance wrapper launches (the delivery:
 # its count, stage and place passes), a parent checkout's too.
 ADVANCE_KERNELS_A_CALL = {"cell_sums_rows": 1, "monopole_integrate": 1,
-                          "deliver": 3, "pair_masks": 1, "settle_sums": 1}
+                          "deliver": 3, "pair_masks": 1, "settle_sums": 1,
+                          "monopole_gathered": 1, "pack": 3, "compact": 2}
 
 
 def advance_phase(label, phases, state, reps=5):
@@ -3949,11 +4048,17 @@ def times_of_all(roots, kind):
     for label in paths:
         for root, rec in runs:
             r = rec[label]
+            top = "".join(f"; {k} {v:.4f}" for k, v in r.get("top", ()))
+            top += "; the port's kernels: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r.get("ours", {}).items())
+            if "sorts" in r:
+                top += (f"; sort launches {r['sorts']:g}, scan launches "
+                        f"{r['scans']:g} a step")
             print(f"{label} | {root}: the whole step {r['ms_per_step']:.4f} "
                   f"ms/step, {r['device_ms_per_step']:.4f} device ms/step, "
                   f"idle {r['idle']:.1%}, {r['launches']:.1f} launches, "
                   f"{r['syncs']:.2f} syncs a step; digest "
-                  f"{r['digest'][:16]}", flush=True)
+                  f"{r['digest'][:16]}{top}", flush=True)
     if kind == "advance":
         _advance_summaries(runs, paths)
     first = runs[0][1]
@@ -4220,15 +4325,18 @@ def reset_sweep_launches():
     from particlesimulation_tpu_torch.ops.cuda import sweep
 
     sweep.reset_launches()
+    if _migrate_launches() is not None:
+        _migrate_launches().reset_launches()
 
 
 def read_sweep_launches(label=None):
-    """The sweep kernels' launch counts; with ``label``, recorded for the
-    kernels line and required non-zero (each path of the sweep runs all
-    three)."""
+    """The sweep kernels' launch counts, and the migration pack's (a mesh's
+    sweep); with ``label``, recorded for the kernels line and the sweep's
+    required non-zero (each path of the sweep runs all four)."""
     from particlesimulation_tpu_torch.ops.cuda import sweep
 
-    got = dict(sweep.LAUNCHES)
+    mig = _migrate_launches()
+    got = {**sweep.LAUNCHES, **(mig.LAUNCHES if mig is not None else {})}
     if label is not None:
         if not all(got[k] > 0 for k in SWEEP_KERNELS):
             raise AssertionError(f"{label}: a sweep kernel did not launch: "
@@ -4894,20 +5002,21 @@ def sweep_entries(recs):
 
 
 def build_libraries():
-    """Build the four kernel libraries from the checkout's sources, one
+    """Build the five kernel libraries from the checkout's sources, one
     nvcc each, started together; print each one's -Xptxas -v report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from particlesimulation_tpu_torch.ops.cuda import (advance, cell_pairs,
-                                                       direct_nbody, sweep)
+                                                       direct_nbody, migrate,
+                                                       sweep)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(lambda f: f(), (
-            cell_pairs.build, advance.build, sweep.build,
+            cell_pairs.build, advance.build, sweep.build, migrate.build,
             lambda: cell_pairs.build(direct_nbody.SOURCE))))
     for lib in libs:
-        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the four)",
+        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the five)",
               flush=True)
         with open(f"{lib}.log") as f:
             print(f.read().strip(), flush=True)
@@ -5136,31 +5245,67 @@ def supercell_times_of_all(roots):
           f"({', '.join(r for r, _ in runs)}); on {_card()}", flush=True)
 
 
+# The paths ``--mesh-times`` times beside the flagship's fast mesh at D =
+# 1, 2 and 4: (label, ``_graph_engine``'s kind, args, config and engine
+# keywords, steps timed).
+MESH_TIMES_PATHS = (
+    ("mesh parity D=2", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 2, "precision": "parity"}, {}, 20),
+    ("mesh parity D=4", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 4, "precision": "parity"}, {}, 20),
+    ("2D parity (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2), "precision": "parity"}, {}, 20),
+    ("column bands D=4", "mesh", UNEVEN, {"n_shards": 4}, {}, 10),
+    ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
+     {"impl": "banded-cyclic"}, 10),
+    ("mesh supercell D=4", "mesh", SMALL[:4], {"n_shards": 4}, {}, 20),
+    ("SMALL supercell", "engine", SMALL[:4], {}, {}, 20),
+)
+
+
 def flagship_mesh_times(root):
     """The flagship's fast mesh (resident tiles by the census) at D = 1, 2
-    and 4 with the port package of the checkout at ``root``: ms/step,
-    device ms/step, idle share, launches and syncs a step (phase x's fast
-    half), and the digest of each run's final state after 10 steps. Prints
-    one JSON line."""
+    and 4, then ``MESH_TIMES_PATHS`` (the parity meshes, UNEVEN's column
+    and cyclic bands, SMALL's mesh super-cells and SMALL on one device),
+    with the port package of the checkout at ``root``: ms/step, device
+    ms/step, idle share, launches and syncs a step (phase x's), each path's
+    largest device items, and the digest of each run's final state after
+    10 steps. Prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     from particlesimulation_tpu_torch.config import SimConfig
+    from particlesimulation_tpu_torch.ops import graphed
     from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
 
     card = _card()
     times = {}
-    for d in (1, 2, 4):
-        e = ShardedEngine(SimConfig(*GOLDEN_S1[:4], n_shards=d),
-                          device="cuda")
-        st = e.init_state()
+
+    def timed(label, e, st, k):
         e.run(st, 1)
-        t = _mesh_times(f"{root}: mesh fast D={d}", e, st, card, k=20)
+        t = _mesh_times(f"{root}: {label}", e, st, card, k=k)
         final = e.run(st, 10)
-        times[f"mesh fast D={d}"] = {
+        top = sorted(t["per_kernel_ms"].items(), key=lambda kv: -kv[1])[:6]
+        times[label] = {
             "impl": e.impl, "ms_per_step": t["ms"],
             "device_ms_per_step": t["device_ms"], "idle": t["idle"],
             "launches": t["launches"], "syncs": t["syncs"],
+            "top": top, "ours": t["kernels"],
+            # Launches a step of sort and scan kernels (the parity meshes'
+            # plain migration ran two argsorts and a cumsum a hop).
+            "sorts": sum(v for k, v in t["per_kernel"].items()
+                         if "sort" in k.lower()),
+            "scans": sum(v for k, v in t["per_kernel"].items()
+                         if "scan" in k.lower()),
             "digest": digest([getattr(final, f) for f in final._fields])}
-    print(f"flagship mesh times {root} on {card}", flush=True)
+        graphed.release(getattr(_target(e), "_run", None))
+        torch.cuda.empty_cache()
+
+    for d in (1, 2, 4):
+        e = ShardedEngine(SimConfig(*GOLDEN_S1[:4], n_shards=d),
+                          device="cuda")
+        timed(f"mesh fast D={d}", e, e.init_state(), 20)
+    for label, kind, args, cfg_kw, eng_kw, k in MESH_TIMES_PATHS:
+        timed(label, *_graph_engine(kind, args, cfg_kw, eng_kw), k)
+    print(f"mesh times {root} on {card}", flush=True)
     print("MESH_TIMES " + json.dumps(times), flush=True)
 
 
@@ -5228,6 +5373,22 @@ GRAPH_PATHS = (
     ("DistMesh NCCL bands D=1", "dist", UNEVEN, {"n_shards": 1}, {},
      "banded", 10, 20),
 )
+
+
+# The mesh kernels each graph path must launch, beside its own: the
+# mesh monopole + integrate on the tile meshes and single-device SMALL, the
+# migration pack on the parity meshes (at D = 1 the emigrant buffer alone:
+# no ring hop lands anything).
+GRAPH_NEEDS = {
+    **{label: ("monopole_gathered",) for label in (
+        "SMALL supercell", "mesh fast D=4", "mesh supercell D=4",
+        "column bands D=4", "cyclic D=4", "2D (2, 2)",
+        "DistMesh NCCL fast D=1", "DistMesh NCCL supercell D=1",
+        "DistMesh NCCL bands D=1")},
+    **{label: MIGRATE_KERNELS for label in (
+        "mesh parity D=2", "mesh parity D=4", "2D parity (2, 2)")},
+    "DistMesh NCCL parity D=1": ("compact",),
+}
 
 
 def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
@@ -5341,6 +5502,11 @@ def _replays_sync_free(label, graphs):
           f"synchronisation", flush=True)
 
 
+# Profiles of a graph path's graphed and eager runs taken again, at most,
+# where a side's counts are not whole or the two differ.
+PROFILE_RETRIES = 12
+
+
 def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
                      k_time):
     """(bc) One path: the graphed run against the eager one, bit for bit,
@@ -5364,6 +5530,8 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
         # The graphed sweep's launches (the replays' included), for the
         # kernels line: each of its four kernels must have launched.
         launches = read_sweep_launches(f"{label} (bc, graphed)")
+    require_launches(f"{label} (bc, graphed)", launches,
+                     GRAPH_NEEDS.get(label, ()))
     if eng.impl != want or int(first.overflow) != 0:
         raise AssertionError(f"{label}: ran {eng.impl} (want {want}), "
                              f"overflow {int(first.overflow)}")
@@ -5417,22 +5585,29 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
                     "syncs": times["syncs"],
                     "per_kernel": times["per_kernel"]}
 
-    def clean():
-        g, e = rec["graphed"]["launches"], rec["eager"]["launches"]
-        return (g == e and g == round(g)
-                and min(rec["graphed"]["idle"], rec["eager"]["idle"]) > -0.05)
+    def whole(r):
+        # Every kernel a whole number of launches a step, and no more
+        # device time than the step took: no record lost or misplaced.
+        return (all(abs(n - round(n)) < 1e-9
+                    for n in r["per_kernel"].values())
+                and r["idle"] > -0.05)
 
-    for _ in range(4):
-        if clean():
+    for _ in range(PROFILE_RETRIES):
+        if (whole(rec["graphed"]) and whole(rec["eager"])
+                and rec["graphed"]["launches"] == rec["eager"]["launches"]):
             break
         # The profiler has lost or misplaced kernel records before (a
         # count off by a fraction or by a stray record, or more device time
-        # than the step took): name the kernels whose counts differ, then
-        # profile both again.
+        # than the step took), on one side for several profiles running:
+        # name the kernels whose counts differ, then profile again the
+        # side whose counts are not whole, or both where both are.
         print(f"{label}: kernels a step that differ, graphed / eager: "
               + _kernel_count_diff(rec["graphed"]["per_kernel"],
                                    rec["eager"]["per_kernel"]), flush=True)
+        again = [tag for tag in ("graphed", "eager") if not whole(rec[tag])]
         for tag, fn in (("graphed", eng.run), ("eager", eng.run_eager)):
+            if again and tag not in again:
+                continue
             times = device_breakdown(f"{label} {tag} (again)", eng, state,
                                      rec[tag]["ms"], steps=k, run=fn, base=1)
             rec[tag].update(device_ms=times["device_ms"], idle=times["idle"],
@@ -5446,6 +5621,12 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
                                  rec["eager"]["per_kernel"]))
     if rec["graphed"]["syncs"] != 0:
         raise AssertionError(f"{label}: host syncs in the graphed steps")
+    scans = [key for r in (rec["graphed"], rec["eager"])
+             for key in r["per_kernel"] if "scan" in key]
+    if GRAPH_NEEDS.get(label) == MIGRATE_KERNELS and scans:
+        # The parity meshes' migration: the pack kernels, no cumsum left
+        # (the sweep's step runs no other scan).
+        raise AssertionError(f"{label}: scan kernels in the step: {scans}")
     g, e = rec["graphed"], rec["eager"]
     for r in (g, e):
         del r["per_kernel"]
@@ -5639,11 +5820,12 @@ def check_com_back_to_back(card):
 # sweep (golden s1), super-cells (SMALL, through the census), column bands
 # (UNEVEN, through the census) and block-cyclic bands, rectangle tiles and
 # the 2D sweep, and the 2D census's delegation to super-cells.
-SC_KERNELS = ("fused_pairs_sub", "supercell_cell_sums", "deliver")
-BAND_KERNELS = ("fused_pairs", "deliver")
+SC_KERNELS = ("fused_pairs_sub", "supercell_cell_sums", "deliver",
+              "monopole_gathered")
+BAND_KERNELS = ("fused_pairs", "deliver", "monopole_gathered")
 DIST_PATHS = (
     ("flagship fast", GOLDEN_S1[:4], {}, {}, False, "resident",
-     ("fused_pairs",), GOLDEN_S1[4], None, (1, 2, 4)),
+     ("fused_pairs", "monopole_gathered"), GOLDEN_S1[4], None, (1, 2, 4)),
     ("parity s1", GOLDEN_S1[:4], {"precision": "parity"}, {}, False, "sweep",
      SWEEP_KERNELS, GOLDEN_S1[4], None, (1, 2, 4)),
     ("SMALL census", SMALL[:4], {}, {}, False, "supercell", SC_KERNELS,
@@ -5720,13 +5902,19 @@ def _gathered_digest(eng, state):
                    for f in MESH_FIELDS])
 
 
-def _path_launches(path, tag=None):
+def _path_launches(path, tag=None, d=1):
     """The launch counts of a path's kernels since they were set to 0
     (tile and sweep kernels), each required non-zero; with ``tag``, a sweep
-    path's counts recorded for the kernels line."""
+    path's counts recorded for the kernels line. A parity path (a mesh's
+    sweep, of ``d`` shards) must also launch the migration's emigrant
+    buffer, and its landing where a ring hop (d > 1) or the 2D mesh's
+    landing runs."""
     label, kernels = path[0], path[6]
     if kernels is SWEEP_KERNELS:
-        return read_sweep_launches(tag or label)
+        got = read_sweep_launches(tag or label)
+        require_launches(label, got, ("compact",) + (
+            ("pack",) if d > 1 or path[4] else ()))
+        return got
     got = read_launches()
     if not all(got[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel of {label} did not launch: {got}")
@@ -5811,7 +5999,7 @@ def _dist_rank(rank, world, backend, tmp):
             reset_sweep_launches()
             out = run(state, steps)
             torch.cuda.synchronize()
-            launches = _path_launches(path)
+            launches = _path_launches(path, d=world)
             refused = None
             if backend == "gloo":
                 try:
@@ -6038,6 +6226,370 @@ def check_dist(card):
     return launches
 
 
+# --- The migration pack and the mesh monopole + integrate (phase bf) -------
+
+# The parity meshes whose migration calls phase bf holds the pack to, and
+# the tile engines whose monopole + integrate calls it holds the mesh
+# kernel to (``_graph_engine``'s kind, args, config and engine keywords).
+BF_PACK_PATHS = (
+    ("mesh parity D=2", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 2, "precision": "parity"}, {}),
+    ("mesh parity D=4", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 4, "precision": "parity"}, {}),
+    ("2D parity (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2), "precision": "parity"}, {}),
+)
+BF_MONOPOLE_PATHS = (
+    ("mesh fast D=4", "mesh", GOLDEN_S1[:4], {"n_shards": 4}, {}),
+    ("2D (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2)}, {}),
+    ("mesh supercell D=4", "mesh", SMALL[:4], {"n_shards": 4}, {}),
+    ("column bands D=4", "mesh", UNEVEN, {"n_shards": 4}, {}),
+    ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
+     {"impl": "banded-cyclic"}),
+    ("SMALL supercell", "engine", SMALL[:4], {}, {}),
+)
+
+
+def _exact(a, b):
+    """Two tensors' values bit for bit, floats of any width by their bit
+    patterns."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def _clone_tree(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+@contextlib.contextmanager
+def _recording(module, name, keep):
+    """Within the block, ``module.name`` records copies of the arguments
+    (args, kwargs) of its first ``keep`` calls, taken before each call
+    (the wrappers write in place), into the list it yields."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        if len(calls) < keep:
+            calls.append(_clone_tree((args, kw)))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _pack_bytes(dst, valid, take):
+    """What a pack needs: the valid and take flags read once, and each
+    landed entry's fields read from the buffer and written to its slot
+    with its valid flag."""
+    n_arr = take.sum(1)
+    landed = int(torch.minimum(n_arr, (~valid).sum(1)).sum())
+    row = sum(t.element_size() for t in dst.values())
+    return valid.numel() + take.numel() + landed * (2 * row + 1)
+
+
+def _compact_bytes(fields, emig, bcap):
+    """What a compact needs: the emig flags read once, each emigrant's
+    fields that land (the first B of a row's) read and written, the B
+    valid flags of a row and its overflow count written. The entries past
+    the emigrants are not read by any caller: their fields count for
+    nothing."""
+    B = min(bcap, emig.shape[1])
+    landed = int(torch.clamp(emig.sum(1), max=B).sum())
+    row = sum(t.element_size() for t in fields.values())
+    return (emig.numel() + landed * 2 * row
+            + emig.shape[0] * (B + 4))
+
+
+def _monopole_mesh_bound(f, row_start, index, binned):
+    """What the mesh monopole + integrate needs: a live slot (m != 0) reads
+    m, mf, fxd, fyd, x, y, vx, vy and writes x, y, vx, vy (48 bytes), a
+    frozen one reads m (4); the binned flag of a live slot where given;
+    with ``row_start`` (an index a row), the index (8 bytes, where given:
+    else the row is its own) and the 24 table words of each row with a
+    live slot, else each live slot's index and the 24 table words of each
+    index they read, once; ~150 f32 operations and 8 rsqrt a live slot."""
+    live_mask = f["m"].reshape(-1) != 0
+    live = int(live_mask.sum())
+    nbytes = 48 * live + 4 * (live_mask.numel() - live)
+    if binned is not None:
+        nbytes += live
+    if row_start is not None:
+        cum = torch.cat([live_mask.new_zeros(1, dtype=torch.int64),
+                         torch.cumsum(live_mask, 0)])
+        used = int((cum[row_start[1:]] > cum[row_start[:-1]]).sum())
+        nbytes += 8 * used if index is not None else 0
+    else:
+        nbytes += index.element_size() * live
+        used = int(torch.unique(index.reshape(-1)[live_mask]).numel())
+    return _bound(nbytes + 96 * used, 150 * live, 8 * live)
+
+
+def check_pack(tag, args, timed=False):
+    """(bf) The pack kernel against the plain version on the card, each on
+    its own copy of the slab: every field and valid bit for bit, the
+    overflow exact; with ``timed``, the record and its bound."""
+    from particlesimulation_tpu_torch.ops.cuda import migrate
+
+    dst, valid, src, take = args
+
+    def fresh():
+        return ({k: v.clone() for k, v in dst.items()}, valid.clone(), src,
+                take)
+
+    def kernel(a):
+        return migrate.pack(*a)
+
+    def plain(a):
+        return migrate.pack_ref(*a)
+
+    got, ref = kernel(fresh()), plain(fresh())
+    bad = [k for k in dst if not _exact(got[0][k], ref[0][k])]
+    bad += [n for n, i in (("valid", 1), ("overflow", 2))
+            if not _exact(got[i], ref[i])]
+    if bad:
+        raise AssertionError(f"{tag}: the pack differs from the plain "
+                             f"version in {bad}")
+    n_arr = int(take.sum())
+    print(f"{tag}: pack bit for bit the plain version ({len(dst)} fields, "
+          f"{tuple(valid.shape)} slab, {tuple(take.shape)} buffer, {n_arr} "
+          f"arrivals, overflow {got[2].tolist()})", flush=True)
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    if timed:
+        rec.update(_kernel_times(kernel, plain, fresh))
+        _record(rec, _bound(_pack_bytes(dst, valid, take), 0, 0))
+        print(f"{tag}: pack {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f}"
+              f" device (bound {rec['bound_ms']:.4f}, {rec['bound_by']}); "
+              f"plain {rec['plain_ms']:.4f}", flush=True)
+    return rec
+
+
+def check_compact(tag, args, timed=False):
+    """(bf) The emigrant buffer kernel against the plain version on the
+    card: the valid flag of every entry and every field of the valid
+    entries bit for bit, the overflow exact (the kernel does not write the
+    fields of the entries past the emigrants, which no caller reads); with
+    ``timed``, the record and its bound."""
+    from particlesimulation_tpu_torch.ops.cuda import migrate
+
+    (slab, emig, bcap), extra = args
+
+    def kernel():
+        return migrate.compact(slab, emig, bcap, **extra)
+
+    def plain():
+        return migrate.compact_ref(slab, emig, bcap, **extra)
+
+    got, ref = kernel(), plain()
+    ok = ref[0]["valid"]
+    bad = [k for k in ref[0] if not (
+        _exact(got[0][k], ref[0][k]) if k == "valid"
+        else _exact(got[0][k][ok], ref[0][k][ok]))]
+    if not _exact(got[1], ref[1]):
+        bad.append("overflow")
+    if bad or list(got[0]) != list(ref[0]):
+        raise AssertionError(f"{tag}: the emigrant buffer differs from the "
+                             f"plain version in {bad}")
+    print(f"{tag}: compact bit for bit the plain version on the valid "
+          f"entries and flags "
+          f"({len(slab) + len(extra)} fields, {tuple(emig.shape)} slab, "
+          f"bcap {bcap}, {int(emig.sum())} emigrants, overflow "
+          f"{got[1].tolist()})", flush=True)
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    if timed:
+        rec.update(_kernel_times(kernel, plain))
+        _record(rec, _bound(_compact_bytes({**slab, **extra}, emig, bcap),
+                            0, 0))
+        print(f"{tag}: compact {rec['ms']:.4f} ms a call, "
+              f"{rec['device_ms']:.4f} device (bound {rec['bound_ms']:.4f}, "
+              f"{rec['bound_by']}); plain {rec['plain_ms']:.4f}", flush=True)
+    return rec
+
+
+def check_mesh_monopole(tag, fn_name, args, kw, timed=False):
+    """(bf) The mesh monopole + integrate kernel (``fn_name``:
+    ``tile_monopole_integrate`` or ``gathered_monopole_integrate``) against
+    its plain version on the card, each on its own copy of x, y, vx, vy:
+    every output bit for bit; with ``timed``, the record and its bound
+    (timed on one copy, updated in place call after call: the same work
+    each call, the frozen slots staying frozen)."""
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+
+    fields = dict(zip(("x", "y", "vx", "vy", "m", "mf", "fxd", "fyd"),
+                      args[:8]))
+    rest = args[8:]
+    fn, ref_fn = getattr(adv, fn_name), getattr(adv, fn_name + "_ref")
+
+    def fresh():
+        return tuple(fields[k].clone() for k in ("x", "y", "vx", "vy"))
+
+    def kernel(xyv):
+        return fn(*xyv, *args[4:8], *rest, **kw)
+
+    def plain(xyv):
+        return ref_fn(*xyv, *args[4:8], *rest, **kw)
+
+    got, ref = kernel(fresh()), plain(fresh())
+    bad = [k for k, a, b in zip(("x", "y", "vx", "vy"), got, ref)
+           if not _exact(a, b)]
+    if bad:
+        diff = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                for k, a, b in zip(("x", "y", "vx", "vy"), got, ref)
+                if k in bad}
+        raise AssertionError(f"{tag}: {fn_name} differs from the plain "
+                             f"chain in {diff} slots")
+    live = int((fields["m"] != 0).sum())
+    finite = [bool(torch.isfinite(a).all()) for a in got]
+    print(f"{tag}: {fn_name} bit for bit the plain chain on "
+          f"{fields['x'].numel()} slots ({live} live; all finite: "
+          f"{all(finite)})", flush=True)
+    rec = {"library_ms": None,
+           "max_abs_err": max(_max_diff(a[torch.isfinite(a)],
+                                        b[torch.isfinite(b)])
+                              for a, b in zip(got, ref))}
+    if timed:
+        one = fresh()
+        rec.update({"ms": _timed(lambda: kernel(one), 20),
+                    "device_ms": device_ms(lambda: kernel(one), 20),
+                    "plain_ms": _timed(lambda: plain(one), 3)})
+        if fn_name == "tile_monopole_integrate":
+            rows, index = rest[1], None
+        else:
+            rows, index = kw.get("row_start"), rest[1]
+        _record(rec, _monopole_mesh_bound(fields, rows, index,
+                                          kw.get("binned")))
+        print(f"{tag}: {fn_name} {rec['ms']:.4f} ms a call, "
+              f"{rec['device_ms']:.4f} device (bound {rec['bound_ms']:.4f}, "
+              f"{rec['bound_by']}; {live} live slots); plain chain "
+              f"{rec['plain_ms']:.4f}", flush=True)
+    return rec
+
+
+def _adversarial_mesh_calls(dev):
+    """The adversarial inputs of phase bf on ``dev``: (pack cases, compact
+    cases, monopole calls [(tag, wrapper, args, kwargs)])."""
+    adv = _adversarial_module()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    packs = {name: ({k: t(v) for k, v in d.items()}, t(v),
+                    {k: t(x) for k, x in s.items()}, t(tk))
+             for name, (d, v, s, tk) in adv.pack_cases().items()}
+    compacts = {name: ((({k: t(v) for k, v in sl.items()}, t(e), b),
+                        {k: t(v) for k, v in ex.items()}))
+                for name, (sl, e, b, ex) in adv.compact_cases().items()}
+    c = adv.mesh_monopole_case()
+    f = [t(c[k]) for k in ("x", "y", "vx", "vy", "m", "mf", "fxd", "fyd")]
+    side = c["side"]
+    from particlesimulation_tpu_torch.config import DELTAT
+
+    tile = tuple(t(a) for a in c["tile"])
+    gath = tuple(t(a) for a in c["gathered"])
+    slot, binned = t(c["slot_index"]), t(c["binned"])
+    monos = [
+        ("tile", "tile_monopole_integrate",
+         (*f, tile, t(c["row_start"]), side, DELTAT), {}),
+        ("slots int64", "gathered_monopole_integrate",
+         (*f, gath, slot, side, DELTAT), {}),
+        ("slots int32", "gathered_monopole_integrate",
+         (*f, gath, slot.int(), side, DELTAT), {}),
+        ("slots binned", "gathered_monopole_integrate",
+         (*f, gath, slot, side, DELTAT), {"binned": binned}),
+        ("rows", "gathered_monopole_integrate",
+         (*f, gath, t(c["row_index"]), side, DELTAT),
+         {"row_start": t(c["row_start"]), "binned": binned}),
+        ("pool rows", "gathered_monopole_integrate",
+         (*f, gath, t(c["pool_row_index"]), side, DELTAT),
+         {"row_start": t(c["pool_row_start"]), "binned": binned}),
+    ]
+    return packs, compacts, monos
+
+
+def check_mesh_kernels(card):
+    """(bf) The migration pack (``pack``, ``compact``) and the mesh
+    monopole + integrate kernel against their plain versions on the card,
+    bit for bit: on ``ops/cuda/adversarial``'s cases (``pack_cases``,
+    ``compact_cases``, ``mesh_monopole_case`` in every form and index
+    mode), on every migration call of the first step of the parity meshes
+    at D = 2, 4 and (2, 2) (golden s1; their own slabs and buffers,
+    recorded from an eager run), and on the monopole + integrate call of
+    the first step of the six tile engines at their paths' sizes (the
+    flagship's mesh at D = 4 and on (2, 2), SMALL's mesh super-cells at D =
+    4, UNEVEN's column and cyclic bands at D = 4, single-device SMALL); the
+    engines' calls timed (ms, device ms) against their bounds. Returns
+    {"migrate_pack": record, "monopole_gathered": record} (the flagship
+    parity mesh at D = 2's pack, the flagship fast mesh's monopole)."""
+    from particlesimulation_tpu_torch.ops import graphed
+    from particlesimulation_tpu_torch.ops.cuda import advance as adv
+    from particlesimulation_tpu_torch.ops.cuda import migrate
+
+    t0 = time.perf_counter()
+    packs, compacts, monos = _adversarial_mesh_calls("cuda")
+    for name, a in packs.items():
+        check_pack(f"adversarial pack, {name}", a)
+    for name, a in compacts.items():
+        check_compact(f"adversarial compact, {name}", a)
+    for name, fn, a, kw in monos:
+        check_mesh_monopole(f"adversarial monopole, {name}", fn, a, kw)
+    del packs, compacts, monos
+    recs = {}
+    for label, kind, args, cfg_kw, eng_kw in BF_PACK_PATHS:
+        eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
+        with _recording(migrate, "pack", 8) as packs, _recording(
+                migrate, "compact", 1) as compacts:
+            eng.run_eager(state, 1)
+        torch.cuda.synchronize()
+        if not packs or not compacts:
+            raise AssertionError(f"{label}: no migration call recorded")
+        for i, (a, kw) in enumerate(packs):
+            r = check_pack(f"{label}, its pack {i}", a, timed=i == 0)
+            if i == 0:
+                pack_rec = r
+        (a, kw), = compacts
+        crec = check_compact(f"{label}, its emigrant buffer",
+                             ((a[0], a[1], a[2]), kw), timed=True)
+        recs.setdefault("migrate_pack", {**pack_rec,
+                                         "compact_device_ms":
+                                             crec["device_ms"]})
+        graphed.release(_target(eng)._run)
+        del eng, state, packs, compacts
+        torch.cuda.empty_cache()
+    for label, kind, args, cfg_kw, eng_kw in BF_MONOPOLE_PATHS:
+        eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
+        names = ("tile_monopole_integrate", "gathered_monopole_integrate")
+        with _recording(adv, names[0], 1) as tiles, _recording(
+                adv, names[1], 1) as gathered:
+            eng.run_eager(state, 1)
+        torch.cuda.synchronize()
+        calls = [(names[0], c) for c in tiles] + [(names[1], c)
+                                                   for c in gathered]
+        if len(calls) != 1:
+            raise AssertionError(f"{label}: {len(calls)} monopole calls "
+                                 f"recorded, not 1")
+        fn, (a, kw) = calls[0]
+        r = check_mesh_monopole(f"{label} ({eng.impl})", fn, a, kw,
+                                timed=True)
+        recs.setdefault("monopole_gathered", r)
+        graphed.release(_target(eng)._run)
+        del eng, state, calls
+        torch.cuda.empty_cache()
+    print(f"the mesh kernels (bf): {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -6160,6 +6712,18 @@ def main():
         build_libraries()
         check_graphs(card)
         return
+    if sys.argv[1:2] == ["--mesh-kernels"]:
+        # Phase bf alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        recs = check_mesh_kernels(card)
+        print(json.dumps({"kernels": [
+            kernel_entry("migrate_pack", 0, recs["migrate_pack"],
+                         MIGRATE_SOURCE),
+            kernel_entry("monopole_gathered", 0, recs["monopole_gathered"],
+                         ADVANCE_SOURCE)]}))
+        return
     if sys.argv[1:2] == ["--dist"]:
         # Phase be alone.
         card = _card()
@@ -6220,8 +6784,10 @@ def main():
                 ncells, kcap, fill, with_pid)
     for kcap in (32, 160, 288, 1024):
         check_adversarial(kcap)
-    # The kernels around the pair pass (phases ar-at).
+    # The kernels around the pair pass (phases ar-at), and the migration
+    # pack and the mesh monopole + integrate (bf).
     adv_recs = check_advance(card)
+    mesh_recs = check_mesh_kernels(card)
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     s1 = SimConfig(seed, side, nc, n)
@@ -6418,6 +6984,15 @@ def main():
                        adv_recs[k], ADVANCE_SOURCE)
           for k in ADVANCE_KERNELS),
         *sweep_entries(sweep_recs),
+        kernel_entry("migrate_pack", sum(
+            v.get("pack", 0) + v.get("compact", 0)
+            for v in SWEEP_LAUNCHES.values()), mesh_recs["migrate_pack"],
+            MIGRATE_SOURCE),
+        kernel_entry("monopole_gathered", on_paths(
+            "monopole_gathered", small_launches, mesh_launches,
+            *route_launches.values(), *mesh2d_launches.values(),
+            medium_launches, *dist_launches.values()),
+            mesh_recs["monopole_gathered"], ADVANCE_SOURCE),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -23,6 +23,13 @@
 //     and the next step's row sums: each row's M, sum m x and sum m y over
 //     its binned slots.
 //
+// The mesh engines and the super-cell engines take the monopole and the
+// integrator in one pass too, monopole_rows_kernel or monopole_slots_kernel
+// (step_mf's arithmetic): their tables come from a halo exchange (or the
+// true grid's cells), not from row sums with row = cell, so these read
+// each slot's 8 terms from the tables at a row's or a slot's index, and
+// leave the destinations to the engine.
+//
 // Between the delivery of step t and the sums of step t + 1 only the m of
 // the slots that died in pair pass t changes, so the masks the pair pass
 // needs and the sums the next monopole pass needs are the same function of
@@ -230,24 +237,26 @@ __device__ __forceinline__ bool load_slot(int64_t s, const Pool& f,
   return live;
 }
 
-// One slot's step: the 8 stencil terms of ops/dense.py
-// monopole_tile_forces from the row's temp cells, added in stencil order
-// to 0; the pair force added; the explicit step of ops/integrate.py (m == 0
-// slots frozen: their state comes out as it went in). Every operation is
-// one correctly rounded f32 operation in the plain version's order and
-// association.
-__device__ __forceinline__ Next step(const Slot& in, const Temps& t,
-                                     const Grid& p) {
-  int cell;
-  const bool binned = in.o && cell_of(in.x, in.y, p.w, p.nc, &cell);
-  const float gm = __fmul_rn(p.g, binned ? in.m : 0.0f);
+// One slot's step under the monopole mass mf: the 8 stencil terms of
+// ops/dense.py monopole_tile_forces (kGathered false) or monopole_gathered
+// (true: a term whose neighbour mass cm is 0 is dropped, as there; not the
+// same as a zero term where d2 is subnormal and 0 * inv^3 is NaN) from the
+// temp cells t, added in stencil order to 0; the pair force added; the
+// explicit step of ops/integrate.py (m == 0 slots frozen: their state comes
+// out as it went in). Every operation is one correctly rounded f32
+// operation in the plain version's order and association.
+template <bool kGathered>
+__device__ __forceinline__ Next step_mf(const Slot& in, float mf,
+                                        const Temps& t, const Grid& p) {
+  const float gm = __fmul_rn(p.g, mf);
   float fx = 0.0f, fy = 0.0f;
 #pragma unroll
   for (int l = 0; l < 8; ++l) {
     const float dxl = __fsub_rn(t.mx[l], in.x);
     const float dyl = __fsub_rn(t.my[l], in.y);
     const float d2 = __fadd_rn(__fmul_rn(dxl, dxl), __fmul_rn(dyl, dyl));
-    const float inv = d2 > 0.0f ? rsqrtf(d2) : 0.0f;
+    const bool nz = d2 > 0.0f && (!kGathered || t.cm[l] != 0.0f);
+    const float inv = nz ? rsqrtf(d2) : 0.0f;
     const float sl = __fmul_rn(__fmul_rn(gm, t.cm[l]),
                                __fmul_rn(__fmul_rn(inv, inv), inv));
     fx = __fadd_rn(fx, __fmul_rn(sl, dxl));
@@ -273,6 +282,15 @@ __device__ __forceinline__ Next step(const Slot& in, const Temps& t,
   out.vx = frozen ? in.vx : __fadd_rn(in.vx, __fmul_rn(ax, dt));
   out.vy = frozen ? in.vy : __fadd_rn(in.vy, __fmul_rn(ay, dt));
   return out;
+}
+
+// The resident step's form: the monopole mass is m where the slot is
+// binned (occupied, in the box), else 0.
+__device__ __forceinline__ Next step(const Slot& in, const Temps& t,
+                                     const Grid& p) {
+  int cell;
+  const bool binned = in.o && cell_of(in.x, in.y, p.w, p.nc, &cell);
+  return step_mf<false>(in, binned ? in.m : 0.0f, t, p);
 }
 
 // A slot's outputs: a live slot's new state written back, and every
@@ -325,6 +343,142 @@ __global__ void monopole_integrate_kernel(Pool f, const float* __restrict__ M,
     else
       finish(s, r, false, in, Next{in.x, in.y, 0.0f, 0.0f}, f, p);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The mesh and super-cell engines' monopole + integrate, in place.
+
+// Stencil tables: term l of table index i at i * sidx + l * sdir of each
+// of ml (neighbour mass), mx, my (mirrored COM): (nidx, 8) row tables
+// (sidx 8, sdir 1) or (8, nidx) gathered tables (sidx 1, sdir nidx); an
+// index outside [0, nidx) reads the zero sentinel index.
+struct Tables {
+  const float* ml;
+  const float* mx;
+  const float* my;
+  int64_t sidx, sdir, nidx, sentinel;
+};
+
+// The fields the pass takes: x, y, vx, vy updated in place; m (frozen
+// where 0), the monopole mass mf, the pair force.
+struct MeshPool {
+  float* x;
+  float* y;
+  float* vx;
+  float* vy;
+  const float* m;
+  const float* mf;
+  const float* fxd;
+  const float* fyd;
+};
+
+__device__ __forceinline__ int64_t table_index(int64_t i, const Tables& tb) {
+  return i >= 0 && i < tb.nidx ? i : tb.sentinel;
+}
+
+__device__ __forceinline__ void load_term(const Tables& tb, int64_t i, int l,
+                                          float* cm, float* mx, float* my) {
+  const int64_t o = i * tb.sidx + (int64_t)l * tb.sdir;
+  *cm = tb.ml[o];
+  *mx = tb.mx[o];
+  *my = tb.my[o];
+}
+
+// Slot s's step under temp cells t: a live slot (m != 0) does the physics
+// and writes x, y, vx, vy; a frozen one writes nothing (the plain
+// version's where gives its bits back).
+template <bool kGathered>
+__device__ __forceinline__ void mesh_slot(int64_t s, const MeshPool& f,
+                                          const Temps& t, const Grid& p) {
+  Slot in;
+  in.m = f.m[s];
+  if (in.m == 0.0f) return;
+  in.x = f.x[s];
+  in.y = f.y[s];
+  in.vx = f.vx[s];
+  in.vy = f.vy[s];
+  in.fx = f.fxd[s];
+  in.fy = f.fyd[s];
+  in.o = true;
+  const Next out = step_mf<kGathered>(in, f.mf[s], t, p);
+  f.x[s] = out.x;
+  f.y[s] = out.y;
+  f.vx[s] = out.vx;
+  f.vy[s] = out.vy;
+}
+
+// A warp a pool row, where all of a row's slots read one table index: the
+// row itself (row_idx null: the resident meshes' row-aligned tables) or
+// row_idx[r] (the band meshes' cell of each pool row). Lanes 0-7 load the
+// row's 8 terms, lanes 8-15 the sentinel's where a slot may be unbinned
+// (binned given: such a slot takes the sentinel, as the plain version's
+// where does), shared by shuffles; then a lane a slot.
+//
+// Replaces XLA code of the JAX package (no Pallas kernel): the mesh
+// engines' monopole_tile_forces or monopole_gathered over their halo
+// tables, then integrate (parallel/sharded_resident.py:345-349,
+// sharded2d_resident.py:391-395, sharded_banded_cols.py:557-561,
+// sharded_banded.py:463-466). Bound: bytes, 48 a live slot (m, mf, the pair
+// force and x, y, vx, vy read, x, y, vx, vy written back), 4 a frozen one
+// (m), and the row's index and 24 table words.
+template <bool kGathered>
+__global__ void monopole_rows_kernel(MeshPool f, Tables tb,
+                                     const int64_t* __restrict__ row_start,
+                                     int nrows,
+                                     const int64_t* __restrict__ row_idx,
+                                     const uint8_t* __restrict__ binned,
+                                     Grid p) {
+  const int r = warp_row(nrows);
+  if (r < 0) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t idx = table_index(row_idx == nullptr ? r : row_idx[r], tb);
+  float cm = 0.0f, tmx = 0.0f, tmy = 0.0f;
+  if (lane < 8)
+    load_term(tb, idx, lane, &cm, &tmx, &tmy);
+  else if (lane < 16 && binned != nullptr)
+    load_term(tb, tb.sentinel, lane - 8, &cm, &tmx, &tmy);
+  Temps t, ts;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    t.cm[l] = __shfl_sync(kFull, cm, l);
+    t.mx[l] = __shfl_sync(kFull, tmx, l);
+    t.my[l] = __shfl_sync(kFull, tmy, l);
+    ts.cm[l] = __shfl_sync(kFull, cm, 8 + l);
+    ts.mx[l] = __shfl_sync(kFull, tmx, 8 + l);
+    ts.my[l] = __shfl_sync(kFull, tmy, 8 + l);
+  }
+  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
+  for (int64_t s = s0 + lane; s < s1; s += 32) {
+    if (binned == nullptr || binned[s] != 0)
+      mesh_slot<kGathered>(s, f, t, p);
+    else
+      mesh_slot<kGathered>(s, f, ts, p);
+  }
+}
+
+// A thread a slot, where each slot reads its own table index at[s]
+// (int32 or int64; negative, or binned given and false: the sentinel): the
+// super-cell engines' true cell of each slot.
+//
+// Replaces XLA code of the JAX package: ops/supercell.py's
+// monopole_forces_general (:209) and integrate (:404-407), and the mesh
+// super-cells' (parallel/sharded_supercell.py:200-260, :428-431). Bound:
+// bytes, as above with the slot's index and 24 table words a live slot.
+__global__ void monopole_slots_kernel(MeshPool f, Tables tb, int64_t n,
+                                      const void* __restrict__ at, bool at64,
+                                      const uint8_t* __restrict__ binned,
+                                      Grid p) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n || f.m[s] == 0.0f) return;
+  int64_t i = at64 ? static_cast<const int64_t*>(at)[s]
+                   : static_cast<const int*>(at)[s];
+  if (binned != nullptr && binned[s] == 0) i = -1;
+  i = table_index(i, tb);
+  Temps t;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) load_term(tb, i, l, &t.cm[l], &t.mx[l],
+                                        &t.my[l]);
+  mesh_slot<true>(s, f, t, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -774,6 +928,50 @@ extern "C" int psim_monopole_integrate(
   const Grid p{w, side, 2.0f * side, dt, g, nc};
   monopole_integrate_kernel<<<row_blocks(nrows, warps), 32 * warps, 0, s>>>(
       f, sums, sums + nrows, sums + 2 * (size_t)nrows, row_start, nrows, p);
+  return (int)cudaGetLastError();
+}
+
+// In place: x, y, vx, vy of the live slots (m != 0) of nslots, under the
+// monopole mass mf, the pair force (fxd, fyd) and the 8 stencil terms of
+// each slot's table index in (ml, mxl, myl) (sidx, sdir, nidx, sentinel:
+// the Tables above); gathered: monopole_gathered's form (a term with
+// neighbour mass 0 dropped), else monopole_tile_forces'. With row_start
+// (nrows + 1 int64 slot offsets covering the pool), a warp a row and each
+// row's index row_idx[r] (int64), or r where row_idx is null; else a
+// thread a slot and each slot's index at[s] (int64 where at64, else int32;
+// a negative index: the sentinel), in the gathered form only. binned
+// (bytes, or null): a slot where it is 0 takes the sentinel.
+extern "C" int psim_monopole_gathered(
+    float* x, float* y, float* vx, float* vy, const float* m, const float* mf,
+    const float* fxd, const float* fyd, const float* ml, const float* mxl,
+    const float* myl, int64_t sidx, int64_t sdir, int64_t nidx,
+    int64_t sentinel, const int64_t* row_start, int nrows,
+    const int64_t* row_idx, const void* at, int at64, int64_t nslots,
+    const uint8_t* binned, int gathered, float side, float dt, float g,
+    int warps, void* stream) {
+  if (!whole_warps(warps) || nidx < 1 || sentinel < 0 || sentinel >= nidx ||
+      (row_start == nullptr && at == nullptr) || nslots < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const MeshPool f{x, y, vx, vy, m, mf, fxd, fyd};
+  const Tables tb{ml, mxl, myl, sidx, sdir, nidx, sentinel};
+  const Grid p{0.0f, side, 2.0f * side, dt, g, 0};
+  if (row_start != nullptr) {
+    if (nrows < 1) return (int)cudaErrorInvalidValue;
+    if (gathered)
+      monopole_rows_kernel<true><<<row_blocks(nrows, warps), 32 * warps, 0,
+                                   s>>>(f, tb, row_start, nrows, row_idx,
+                                        binned, p);
+    else
+      monopole_rows_kernel<false><<<row_blocks(nrows, warps), 32 * warps, 0,
+                                    s>>>(f, tb, row_start, nrows, row_idx,
+                                         binned, p);
+  } else {
+    if (!gathered) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((nslots + 255) / 256);
+    monopole_slots_kernel<<<blocks, 256, 0, s>>>(f, tb, nslots, at, at64 != 0,
+                                                 binned, p);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,12 @@ version of the same function:
 * ``monopole_integrate`` / ``monopole_integrate_ref``: the monopole terms,
   the integrator (x, y, vx, vy updated in place) and each slot's
   destination row and moving flag;
+* ``tile_monopole_integrate`` / ``tile_monopole_integrate_ref`` and
+  ``gathered_monopole_integrate`` / ``gathered_monopole_integrate_ref``:
+  the mesh and super-cell engines' monopole and integrator (x, y, vx, vy in
+  place) from stencil tables they build themselves (a halo exchange, the
+  true grid's cells), each slot's 8 terms at its row's or its own table
+  index; the engines find the destinations;
 * ``deliver`` / ``deliver_ref``: every mover to its destination row in one
   pass, in place (``ops/resident.rebin`` and the engines' advance phases
   call it);
@@ -83,7 +89,7 @@ SETTLE_WARPS = 2
 # Kernel launches per wrapper since the last reset_launches() (one a call:
 # the delivery's call runs its three passes).
 LAUNCHES = {"pair_masks": 0, "monopole_integrate": 0, "deliver": 0,
-            "settle_sums": 0}
+            "settle_sums": 0, "monopole_gathered": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -106,8 +112,13 @@ def load(path):
         [vp] * 10 + [ci, cf, ci, cf, cf, cf] + [vp] * 2 + [ci, vp])
     lib.psim_deliver.argtypes = (
         [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 5 + [ci, vp])
+    i64 = ctypes.c_int64
+    lib.psim_monopole_gathered.argtypes = (
+        [vp] * 11 + [i64] * 4 + [vp, ci, vp, vp, ci, i64, vp, ci, cf, cf, cf,
+                                 ci, vp])
     for fn in (lib.psim_pair_masks, lib.psim_settle_sums,
-               lib.psim_monopole_integrate, lib.psim_deliver):
+               lib.psim_monopole_integrate, lib.psim_deliver,
+               lib.psim_monopole_gathered):
         fn.restype = ci
     return lib
 
@@ -203,12 +214,13 @@ def _segments(row_start):
     return out
 
 
-def _row_of(row_start):
-    """Each slot's row (int64)."""
+def _row_of(row_start, nslots=None):
+    """Each slot's row (int64); ``nslots``, where given, the pool's slots
+    (no host read of the row starts)."""
     rs = row_start
     nrows = rs.numel() - 1
     return torch.repeat_interleave(torch.arange(nrows, device=rs.device),
-                                   rs[1:] - rs[:-1])
+                                   rs[1:] - rs[:-1], output_size=nslots)
 
 
 def cell_sums_rows_ref(x, y, m, occ, row_start, side: float, ncside: int):
@@ -295,6 +307,154 @@ def monopole_integrate_ref(x, y, vx, vy, m, occ, fxd, fyd, sums, row_start,
     for t, v in zip((x, y, vx, vy), new):
         t.copy_(v.view(shape))
     return x, y, vx, vy, dest.view(shape), moving.view(shape)
+
+
+def _check_tables(tables, shape, dev):
+    """The three stencil tables: float32, ``shape`` each, on ``dev``, with
+    one layout (their strides)."""
+    if len(tables) != 3:
+        raise ValueError(f"{len(tables)} tables, not 3 (ml, mxl, myl)")
+    for name, t in zip(("ml", "mxl", "myl"), tables):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}; got "
+                             f"{t.dtype}{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} on device {t.device}, x on {dev}")
+        if t.stride() != tables[0].stride():
+            raise ValueError("the tables' layouts differ")
+
+
+def _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd):
+    dev, n = x.device, x.numel()
+    return [_flat(k, t, torch.float32, n, dev) for k, t in (
+        ("x", x), ("y", y), ("vx", vx), ("vy", vy), ("m", m), ("mf", mf),
+        ("fxd", fxd), ("fyd", fyd))]
+
+
+def _launch_mesh(flat, tables, sidx, sdir, nidx, sentinel, row_start,
+                 row_idx, at, binned, gathered, side, deltat):
+    x = flat[0]
+    if row_start is not None:
+        rows = (row_start.data_ptr(), row_start.numel() - 1, _ptr(row_idx))
+    else:
+        rows = (None, 0, None)
+    cell_pairs._launch(
+        "monopole_gathered", _library().psim_monopole_gathered, x,
+        *(f.data_ptr() for f in flat), *(t.data_ptr() for t in tables),
+        sidx, sdir, nidx, sentinel, *rows, _ptr(at),
+        int(at is not None and at.dtype == torch.int64), x.numel(),
+        _ptr(binned), int(gathered), float(np.float32(side)),
+        float(np.float32(deltat)), float(np.float32(G)), ROW_WARPS,
+        launches=LAUNCHES)
+
+
+def tile_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables,
+                            row_start, side: float, deltat: float):
+    """The resident meshes' monopole and integration over (nrows, K) tiles,
+    in place.
+
+    Each slot of row r takes the 8 stencil terms of row r of ``tables``
+    ((ml, mxl, myl), (nrows, 8) float32 each: the row-aligned tables of a
+    halo exchange) in ``dense.monopole_tile_forces``' form under its
+    monopole mass ``mf``, plus the pair force ``fxd``, ``fyd``; then the
+    explicit step with the periodic wrap, ``m == 0`` slots frozen. x, y,
+    vx, vy ((nrows, K) float32, like every field) are updated in place and
+    returned. ``row_start``: the tiles' (nrows + 1,) int64 row starts, r·K.
+    """
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"tiles must be (nrows, K); got {tuple(x.shape)}")
+    nrows = _check_rows(row_start, dev)
+    if nrows != x.shape[0]:
+        raise ValueError(f"{nrows} row starts for {x.shape[0]} rows")
+    flat = _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd)
+    _check_tables(tables, (nrows, 8), dev)
+    if not cell_pairs._on_card(x, "monopole and integrate pass"):
+        return tile_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd,
+                                           tables, row_start, side, deltat)
+    _launch_mesh(flat, tables, tables[0].stride(0), tables[0].stride(1),
+                 nrows, 0, row_start, None, None, None, False, side, deltat)
+    return x, y, vx, vy
+
+
+def tile_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, tables,
+                                row_start, side: float, deltat: float):
+    """Plain torch version of ``tile_monopole_integrate``:
+    ``dense.monopole_tile_forces`` -> ``fxd + fxm`` ->
+    ``integrate.integrate``, copied into x, y, vx, vy."""
+    fxm, fym = dense.monopole_tile_forces(x, y, mf, *tables)
+    new = integrate.integrate(x, y, vx, vy, m, fxd + fxm, fyd + fym, side,
+                              deltat)
+    for t, v in zip((x, y, vx, vy), new):
+        t.copy_(v)
+    return x, y, vx, vy
+
+
+def gathered_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables, at,
+                                side: float, deltat: float, row_start=None,
+                                binned=None):
+    """The band meshes' and the super-cell engines' monopole and
+    integration, in place.
+
+    ``tables`` ((ml, mxl, myl), (8, ncells + 1) float32 each, the last
+    column the zero sentinel: ``ops/stencil.stencil_tables`` or a mesh's
+    halo tables); each slot takes the 8 terms of its table index in
+    ``dense.monopole_gathered``'s form under its monopole mass ``mf``, plus
+    the pair force ``fxd``, ``fyd``; then the explicit step with the
+    periodic wrap, ``m == 0`` slots frozen. x, y, vx, vy (float32, any
+    shape, like every field) are updated in place and returned.
+
+    The index: without ``row_start``, ``at`` gives each slot's (int32 or
+    int64, the shape of x); with it (the pool's (nrows + 1,) int64 row
+    starts), ``at`` gives each row's ((nrows,) int64), shared by its slots.
+    An index off the tables (a negative one), or a slot where ``binned``
+    (bool, the shape of x, optional) is false, takes the sentinel.
+    """
+    dev = x.device
+    flat = _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd)
+    if len(tables) != 3 or tables[0].dim() != 2 or tables[0].shape[0] != 8:
+        raise ValueError("tables must be three (8, ncells + 1) tensors")
+    nidx = tables[0].shape[1]
+    _check_tables(tables, (8, nidx), dev)
+    if row_start is None:
+        if at.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"at must be int32 or int64; got {at.dtype}")
+        _flat("at", at, at.dtype, x.numel(), dev)
+    else:
+        nrows = _check_rows(row_start, dev)
+        _flat("at", at, torch.int64, nrows, dev)
+    if binned is not None:
+        _flat("binned", binned, torch.bool, x.numel(), dev)
+    if not cell_pairs._on_card(x, "monopole and integrate pass"):
+        return gathered_monopole_integrate_ref(
+            x, y, vx, vy, m, mf, fxd, fyd, tables, at, side, deltat,
+            row_start, binned)
+    _launch_mesh(flat, tables, tables[0].stride(1), tables[0].stride(0),
+                 nidx, nidx - 1, row_start, at if row_start is not None
+                 else None, at if row_start is None else None, binned, True,
+                 side, deltat)
+    return x, y, vx, vy
+
+
+def gathered_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, tables,
+                                    at, side: float, deltat: float,
+                                    row_start=None, binned=None):
+    """Plain torch version of ``gathered_monopole_integrate``: each slot's
+    index (a row's by ``repeat_interleave``), the sentinel by ``where``,
+    ``dense.monopole_gathered`` -> ``fxd + fxm`` -> ``integrate.integrate``,
+    copied into x, y, vx, vy."""
+    sentinel = tables[0].shape[1] - 1
+    if row_start is not None:
+        at = at[_row_of(row_start, x.numel())].view(x.shape)
+    idx = torch.where((at >= 0) & (at < sentinel + 1), at, sentinel)
+    if binned is not None:
+        idx = torch.where(binned, idx, sentinel)
+    fxm, fym = dense.monopole_gathered(x, y, mf, *tables, idx)
+    new = integrate.integrate(x, y, vx, vy, m, fxd + fxm, fyd + fym, side,
+                              deltat)
+    for t, v in zip((x, y, vx, vy), new):
+        t.copy_(v)
+    return x, y, vx, vy
 
 
 def deliver(ts, moving, dest, row_start, at=None):

@@ -670,3 +670,219 @@ def mesh_lane_order(key, ncells: int):
     return np.concatenate([
         np.flatnonzero((key >= half) & (key < ncells)), sent[:len(sent) // 2],
         np.flatnonzero(key < half), sent[len(sent) // 2:]])
+
+
+# Entries a block of the migration kernels takes (csrc/migrate.cu kChunk).
+MIGRATE_CHUNK = 4096
+MIGRATE_CASES = ("no free slot", "overflow", "no arrival", "all arrive",
+                 "spread, last slot free", "buffer of 1", "f32 fields",
+                 "2D column buffer")
+
+
+def _migrate_fields(rng, L, n, parity=True, dest2=False):
+    """A slab's or a buffer's fields, (L, n) each: x, y, vx, vy, m (f64, or
+    f32), alive (bool), pid (int32), and dest (int64), or dest_r and
+    dest_c (int64) for the 2D column buffer."""
+    fdt = np.float64 if parity else np.float32
+    f = {k: rng.normal(size=(L, n)).astype(fdt)
+         for k in ("x", "y", "vx", "vy", "m")}
+    f["x"][:, ::7] = -0.0  # a sign bit to keep
+    f["alive"] = rng.random((L, n)) < 0.9
+    f["pid"] = rng.integers(-2**31, 2**31 - 1, (L, n)).astype(np.int32)
+    for k in (("dest_r", "dest_c") if dest2 else ("dest",)):
+        f[k] = rng.integers(-2**62, 2**62, (L, n)).astype(np.int64)
+    return f
+
+
+def pack_cases(seed: int = 0):
+    """Inputs of the migration's landing (``ops/cuda/migrate.pack``), for
+    the cases its chunked scan risks: ``{name: (dst, dst_valid, src,
+    take)}``, NumPy: ``dst`` the slab's fields ((L, C) each), ``dst_valid``
+    (L, C) bool, ``src`` the buffer's fields ((L, B), holding ``dst``'s
+    keys), ``take`` (L, B) bool; rows of one case differ:
+
+    * ``no free slot``: a full slab, arrivals (every one overflows);
+    * ``overflow``: more arrivals than free slots, spread over chunks;
+    * ``no arrival``: free slots, nothing taken;
+    * ``all arrive``: every buffer entry taken, every slot free, and a row
+      of as many free slots as arrivals;
+    * ``spread, last slot free``: C and B of several chunks
+      (``MIGRATE_CHUNK``), arrivals and free slots thin over all of them,
+      and a row whose only free slot is the last;
+    * ``buffer of 1``: B = 1, taken or not;
+    * ``f32 fields``: the fast meshes' slab;
+    * ``2D column buffer``: dest_r and dest_c (int64) among the fields.
+    """
+    rng = np.random.default_rng(seed)
+    K = MIGRATE_CHUNK
+    out = {}
+
+    def case(name, L, C, B, free_p, take_p, parity=True, dest2=False):
+        dst = _migrate_fields(rng, L, C, parity, dest2)
+        src = _migrate_fields(rng, L, B, parity, dest2)
+        valid = rng.random((L, C)) >= np.asarray(free_p)[:, None]
+        take = rng.random((L, B)) < np.asarray(take_p)[:, None]
+        out[name] = (dst, valid, src, take)
+        return valid, take
+
+    case("no free slot", 2, 300, 150, [0.0, 0.0], [0.3, 1.0])
+    case("overflow", 3, 3 * K + 77, 2 * K + 5, [0.05, 0.01, 0.2],
+         [0.5, 0.9, 0.95])
+    case("no arrival", 2, 500, 250, [0.5, 1.0], [0.0, 0.0])
+    valid, take = case("all arrive", 3, K + 300, K + 100, [1.0, 1.0, 0.0],
+                       [1.0, 1.0, 1.0])
+    # Row 2: exactly as many free slots as arrivals, at random places.
+    valid[2] = True
+    valid[2, rng.choice(K + 300, K + 100, replace=False)] = False
+    valid, take = case("spread, last slot free", 3, 5 * K + 13, 3 * K + 1,
+                       [0.002, 0.01, 0.0], [0.001, 0.004, 0.3])
+    valid[2] = True
+    valid[2, -1] = False
+    valid[1, :-1] = True  # free slots of row 1: the last and none else
+    valid[1, -1] = False
+    case("buffer of 1", 3, 40, 1, [0.5, 0.0, 1.0], [1.0, 1.0, 0.0])
+    case("f32 fields", 4, K + 1, K // 2, [0.3, 0.3, 0.0, 1.0],
+         [0.2, 0.02, 0.5, 0.5], parity=False)
+    case("2D column buffer", 2, 2 * K + 3, K + 9, [0.1, 0.3], [0.4, 0.7],
+         dest2=True)
+    return out
+
+
+COMPACT_CASES = ("none", "all", "spread", "past the buffer", "buffer of 1",
+                 "buffer past the slab", "f32, 2D")
+
+
+def compact_cases(seed: int = 0):
+    """Inputs of the emigrant buffer (``ops/cuda/migrate.compact``):
+    ``{name: (slab, emig, bcap, extra)}``, NumPy: ``slab`` the fields
+    ((L, C) each, x, y, vx, vy, m, alive, pid), ``emig`` (L, C) bool,
+    ``extra`` the destination fields ((L, C) int64); rows differ:
+
+    * ``none``, ``all``: no emigrant, every slot an emigrant;
+    * ``spread``: emigrants thin over several chunks (``MIGRATE_CHUNK``);
+    * ``past the buffer``: more emigrants than ``bcap`` in some rows (the
+      overflow), exactly ``bcap`` in another;
+    * ``buffer of 1``: bcap 1;
+    * ``buffer past the slab``: bcap > C (the buffer holds C entries);
+    * ``f32, 2D``: the fast slab's fields with dest_r and dest_c.
+    """
+    rng = np.random.default_rng(seed)
+    K = MIGRATE_CHUNK
+    out = {}
+
+    def case(name, L, C, bcap, p, parity=True, dest2=False):
+        f = _migrate_fields(rng, L, C, parity, dest2)
+        extra = {k: f.pop(k) for k in ("dest", "dest_r", "dest_c") if k in f}
+        emig = rng.random((L, C)) < np.asarray(p)[:, None]
+        out[name] = (f, emig, bcap, extra)
+        return emig
+
+    case("none", 2, 700, 350, [0.0, 0.0])
+    case("all", 2, K + 5, (K + 5) // 2, [1.0, 1.0])
+    case("spread", 3, 4 * K + 21, 2 * K + 10, [0.001, 0.01, 0.1])
+    emig = case("past the buffer", 3, 3 * K + 2, K + 50, [0.5, 0.9, 0.0])
+    emig[2, rng.choice(3 * K + 2, K + 50, replace=False)] = True
+    case("buffer of 1", 3, 100, 1, [0.0, 0.02, 0.7])
+    case("buffer past the slab", 2, 64, 96, [0.3, 1.0])
+    case("f32, 2D", 4, 2 * K + 1, K, [0.05, 0.6, 0.0, 1.0], parity=False,
+         dest2=True)
+    return out
+
+
+def mesh_monopole_case(kcap: int = 40, seed: int = 0):
+    """Inputs of the mesh and super-cell engines' monopole + integrate
+    (``ops/cuda/advance.tile_monopole_integrate`` and
+    ``gathered_monopole_integrate``) on (25, kcap) tiles of a 5 x 5 grid
+    (side 10): a dict, NumPy float32 unless named, of
+
+    * ``x``, ``y``, ``vx``, ``vy``, ``m``, ``mf``, ``fxd``, ``fyd``: the
+      slots: live ones binned (mf = m), live ones not binned (mf = 0: a
+      halo row's, a slot out of the box), frozen ones (m = 0; -0.0 too),
+      stale empty slots, slots that wrap across the box's edges, a slot
+      exactly at a term's COM (d² = 0) and slots a subnormal d² from one,
+      with their neighbour mass zero in some rows and not in others (the
+      two forms differ there: ``monopole_gathered`` drops a term whose
+      mass is 0, ``monopole_tile_forces`` computes 0·inv³, NaN where inv³
+      is inf);
+    * ``tile``: (ml, mxl, myl), (25, 8) each, a row's terms (row 12 and
+      row 3 all zero mass, row 7 some);
+    * ``gathered``: (ml, mxl, myl), (8, 26) each, the same cells' terms
+      and a zero sentinel column;
+    * ``slot_index`` (int64, the tiles' shape): each slot's cell, -1 where
+      not binned, an index past the table at one slot;
+    * ``row_index`` (int64, (25,)): each row's cell, -1 and past the table
+      on rows whose slots are all unbinned;
+    * ``binned`` (bool, the tiles' shape);
+    * ``row_start`` (int64, (26,)): the uniform rows, r·kcap;
+    * ``pool_row_start`` (int64): the flat pool cut into rows of widths 1
+      to 3·kcap (a band pool), with ``pool_row_index``.
+    """
+    rng = np.random.default_rng(seed)
+    nc, side, nrows = 5, np.float32(10.0), 25
+    shape = (nrows, kcap)
+    f32 = np.float32
+    cell = np.arange(nrows)[:, None]
+    x = (cell % nc * 2 + 2 * rng.random(shape)).astype(f32)
+    y = (cell // nc * 2 + 2 * rng.random(shape)).astype(f32)
+    vx = rng.normal(size=shape).astype(f32)
+    vy = rng.normal(size=shape).astype(f32)
+    m = rng.uniform(0.5, 1.0, shape).astype(f32)
+    occ = rng.random(shape) < 0.7
+    m[~occ] = 0.0
+    binned = occ & (rng.random(shape) < 0.9)
+    mf = np.where(binned, m, f32(0.0)).astype(f32)
+    fxd = (rng.normal(size=shape) * 1e-3).astype(f32)
+    fyd = (rng.normal(size=shape) * 1e-3).astype(f32)
+    # Frozen slots: m 0 and -0.0, occupied or not.
+    m[0, :3] = (0.0, -0.0, 0.0)
+    mf[0, :3] = 0.0
+    # Wrap edges: at rest at the box's edges, pushed across them.
+    ulp = f32(2.0 ** -20)
+    x[1, :6] = (side - ulp, f32(0.0), f32(-0.0), -ulp, side, f32(5.0))
+    vx[1, :6] = (f32(1e-3), f32(-1e-3), f32(-1e-3), f32(0.0), f32(0.0),
+                 f32(200.0))
+    m[1, :6] = mf[1, :6] = 1.0
+    # The row tables: COM near the row's cell, masses ~ N particles.
+    ml = rng.uniform(0.0, 30.0, (nrows, 8)).astype(f32)
+    ml[rng.random((nrows, 8)) < 0.15] = 0.0
+    ml[12] = ml[3] = 0.0
+    mxl = (x[:, :8] + rng.normal(size=(nrows, 8))).astype(f32)
+    myl = (y[:, :8] + rng.normal(size=(nrows, 8))).astype(f32)
+    # Row 7: slot 0 exactly at term 2's COM (d² = 0); slots 1-3 a subnormal
+    # d² from term 4's (mass 0) and term 5's (mass 3): inv³ overflows.
+    for s in range(4):
+        binned[7, s] = occ[7, s] = True
+        m[7, s] = mf[7, s] = 1.0
+    x[7, 0], y[7, 0] = mxl[7, 2], myl[7, 2]
+    ml[7, 4], ml[7, 5] = 0.0, 3.0
+    # About the origin, where a difference of 1e-22 is exact: d² = 1e-44.
+    mxl[7, 4:6], myl[7, 4:6] = f32(1e-22), (f32(0.5), f32(0.75))
+    for s, l in ((1, 4), (2, 5), (3, 5)):
+        x[7, s], y[7, s] = f32(2e-22), myl[7, l]
+    mf[7, 3] = 0.0  # unbinned but live: 0·cm·inv³ in the tile form
+    binned[7, 3] = False
+    m[~occ] = 0.0
+    mf = np.where(binned, mf, f32(0.0)).astype(f32)
+    gathered = tuple(np.concatenate([t.T, np.zeros((8, 1), f32)], axis=1)
+                     for t in (ml, mxl, myl))
+    slot_index = np.where(binned, cell, -1).astype(np.int64)
+    slot_index[9, 1] = nrows + 5  # past the table: the sentinel
+    row_index = np.arange(nrows, dtype=np.int64)
+    for r, v in ((20, -1), (21, nrows + 40)):
+        row_index[r] = v
+        binned[r] = False
+        mf[r] = 0.0
+    widths, total, nslots = [], 0, nrows * kcap
+    while total < nslots:
+        w = min(int(rng.integers(1, 3 * kcap + 1)), nslots - total)
+        widths.append(w)
+        total += w
+    pool_row_start = np.concatenate([[0], np.cumsum(widths)]).astype(np.int64)
+    pool_row_index = rng.integers(-1, nrows + 1, len(widths)).astype(np.int64)
+    return {"x": x, "y": y, "vx": vx, "vy": vy, "m": m, "mf": mf,
+            "fxd": fxd, "fyd": fyd, "tile": (ml, mxl, myl),
+            "gathered": gathered, "slot_index": slot_index,
+            "row_index": row_index, "binned": binned,
+            "row_start": np.arange(nrows + 1, dtype=np.int64) * kcap,
+            "pool_row_start": pool_row_start,
+            "pool_row_index": pool_row_index, "side": float(side)}

@@ -15,7 +15,8 @@ track the particles, not the grid:
 * monopole: the per-cell mass and moment sums straight onto the true
   (ncside, ncside) grid (``cell_pairs.supercell_cell_sums``), the stencil
   tables there (``ops/stencil``, periodic mirrors at cell granularity),
-  then each slot gathers its own cell's 8 terms;
+  then each slot's 8 terms at its own cell and the integration in one
+  kernel (``ops/cuda/advance.gathered_monopole_integrate``);
 * rebin: ``ops/resident.rebin`` over the super-cell grid; only super-cell
   crossers move.
 
@@ -33,8 +34,9 @@ import math
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, integrate, stencil
+from particlesimulation_tpu_torch.ops import binning, dense, stencil
 from particlesimulation_tpu_torch.ops import resident as res
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 
 
@@ -128,16 +130,14 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
             collisions=state.collisions, panics=state.panics,
             overflow=torch.maximum(state.overflow, ovf))
 
-    def monopole(ts, mf, binned, cell):
-        """The 8 stencil terms of each slot's own cell: per-cell sums on the
-        true grid, the stencil tables there (a zero sentinel cell last), and
-        each slot's 8 terms gathered by its cell."""
-        sums = cell_pairs.supercell_cell_sums(
-            mf, mf * ts.x, mf * ts.y, torch.where(binned, cell, -1), ncells)
-        return dense.monopole_gathered(
-            ts.x, ts.y, mf, *stencil.stencil_tables(
-                *stencil.com_from_sums(*sums), side, nc),
-            torch.where(binned, cell, ncells))
+    def mono_tables(ts, mf, cell):
+        """The stencil tables of the true grid: per-cell sums there (a
+        binned slot's ``cell``, -1 for the others), the tables (a zero
+        sentinel cell last)."""
+        sums = cell_pairs.supercell_cell_sums(mf, mf * ts.x, mf * ts.y, cell,
+                                              ncells)
+        return stencil.stencil_tables(*stencil.com_from_sums(*sums), side,
+                                      nc)
 
     def dest_fn(ts):
         rowk, _, _, valid = geometry(ts.x, ts.y)
@@ -159,12 +159,14 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
         return fx, fy, count, ft != cell_pairs.INF
 
     def advance(ts, fxd, fyd):
-        """Phases 1-3 of a step: monopole, integrate, rebin."""
+        """Phases 1-3 of a step: monopole and integrate (one kernel, in
+        place, each binned slot's terms at its own cell, the others' at the
+        sentinel), rebin."""
         mf, binned, limbo_count, _, cell = physics(ts)
-        fxm, fym = monopole(ts, mf, binned, cell)
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts = ts._replace(x=x, y=y, vx=vx, vy=vy)
+        cell = torch.where(binned, cell, -1)
+        advance_ops.gathered_monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd,
+            mono_tables(ts, mf, cell), cell, side, DELTAT)
         ts, undelivered = res.rebin(ts, side, nsc, kcap, dest_fn=dest_fn)
         return ts, undelivered, limbo_count
 

@@ -68,6 +68,7 @@ from particlesimulation_tpu_torch.ops import (binning, collisions, graphed,
 from particlesimulation_tpu_torch.ops.banded import (grow_plan, plan_bands,
                                                      plan_bands_cyclic,
                                                      uniform_band_plan)
+from particlesimulation_tpu_torch.ops.cuda import migrate as migrate_ops
 from particlesimulation_tpu_torch.ops.cuda import sweep
 from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.ops.supercell import choose_supercell_factor
@@ -200,29 +201,18 @@ def sort_slabs(key, pid, *arrays):
     return tuple(torch.gather(a, 1, order) for a in (key, pid) + arrays)
 
 
-def pack_into(dst, dst_valid, src, take):
-    """Move the ``src`` entries under ``take`` (dicts of (L, B) tensors), in
-    their order, into the free slots of ``dst`` (a dict of (L, C) tensors,
-    slots free where ``dst_valid`` is not), in slot order. Returns (dst',
-    valid', overflow): arrivals beyond a shard's free slots are counted in
-    its (L,) overflow, not landed (the ladder replays the run)."""
-    n_arr = torch.sum(take, dim=1, dtype=torch.int32)
-    aorder = torch.argsort((~take).to(torch.uint8), dim=1, stable=True)
-    free = ~dst_valid
-    slot_rank = torch.cumsum(free.to(torch.int32), dim=1) - 1
-    idx = torch.gather(aorder, 1, torch.clamp(slot_rank, 0,
-                                              take.shape[1] - 1))
-    fill = free & (slot_rank < n_arr[:, None])
-    overflow = torch.clamp(n_arr - torch.sum(free, dim=1, dtype=torch.int32),
-                           min=0)
-    out = {k: torch.where(fill, torch.gather(src[k], 1, idx), v)
-           for k, v in dst.items()}
-    return out, dst_valid | fill, overflow
-
-
 def _slab_key(x, y, valid, side, nc):
     key, in_range = binning.cell_keys(x, y, side, nc)
     return torch.where(valid, key, nc * nc + 1), in_range
+
+
+def own_fields(slab):
+    """A migration's slab with copies of the fields the sweep's step took
+    from its state (m, alive, pid), so that its packs, which land arrivals
+    in place, write no tensor of the state (a retry replays the run from
+    it, ``run_eager`` from the caller's)."""
+    return {k: v.clone() if k in ("m", "alive", "pid") else v
+            for k, v in slab.items()}
 
 
 def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
@@ -239,7 +229,10 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
       the local COM over the batched cells (the halo exchange);
     * ``migrate(slab, valid)``: the emigrants moved to their owners' slabs
       (``slab`` a dict of (L, C) x/y/vx/vy/m/alive/pid); (slab, valid,
-      (L,) overflow).
+      (L,) overflow). Its packs write in place (``ops/cuda/migrate``):
+      x, y, vx, vy and ``valid`` are the step's own tensors, but m, alive
+      and pid are the state's, which it copies before its first pack
+      (``own_fields``).
 
     Parity (f64, the reference's operation order) or fast (f32), by
     ``config.precision``. ``step(state, counts, kmax, large)`` takes a
@@ -329,17 +322,6 @@ def make_slab_sweep(config: SimConfig, mesh, ncl: int, local_cell, tables,
     return step, run
 
 
-def emigrant_buffer(slab, emig, bcap: int, **extra):
-    """Each shard's emigrants (``emig``, (L, C)) in slab order, the first
-    ``bcap`` of them, as a ring buffer: ``slab``'s fields, ``extra``'s
-    (L, C) tensors and ``valid``; and the (L,) count that did not fit."""
-    overflow = torch.clamp(torch.sum(emig, dim=1, dtype=torch.int32) - bcap,
-                           min=0)
-    take = torch.argsort((~emig).to(torch.uint8), dim=1, stable=True)[:, :bcap]
-    return {k: torch.gather(a, 1, take) for k, a in (
-        *slab.items(), *extra.items(), ("valid", emig))}, overflow
-
-
 def make_sharded_step(config: SimConfig, mesh, cap: int, bcap: int):
     """Build (step, run) of the sweep over the mesh's slabs of ``cap`` slots
     on row blocks (``make_slab_sweep``), with emigrant buffers of ``bcap``
@@ -370,13 +352,15 @@ def make_sharded_step(config: SimConfig, mesh, cap: int, bcap: int):
         dest = torch.where(real2, owner[torch.where(real2, key2 // nc, 0)],
                            me)
         emig = valid & (dest != me)
-        buf, overflow = emigrant_buffer(slab, emig, bcap, dest=dest)
+        buf, overflow = migrate_ops.compact(slab, emig, bcap, dest=dest)
         valid = valid & ~emig
+        if d > 1:
+            slab = own_fields(slab)
         for _ in range(d - 1):
             buf = mesh.ppermute(buf, 1)
             # Arrivals, in buffer order, fill the free slots in slot order.
             arr = buf["valid"] & (buf["dest"] == me)
-            slab, valid, ovf = pack_into(slab, valid, buf, arr)
+            slab, valid, ovf = migrate_ops.pack(slab, valid, buf, arr)
             overflow = overflow + ovf
             buf["valid"] = buf["valid"] & ~arr
         return slab, valid, overflow

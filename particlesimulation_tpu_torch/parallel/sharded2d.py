@@ -47,12 +47,13 @@ from particlesimulation_tpu_torch import engine as single
 from particlesimulation_tpu_torch.config import Precision, SimConfig
 from particlesimulation_tpu_torch.initializer import init_particles_host
 from particlesimulation_tpu_torch.ops import binning, graphed
+from particlesimulation_tpu_torch.ops.cuda import migrate as migrate_ops
 from particlesimulation_tpu_torch.ops.stencil import STENCIL
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.parallel.sharded import (
     CAP_OVF, SHIP_OVF, SHIP_SLACK, STRAY_OVF, ShardedEngine, SlabMesh,
-    _slab_key, check_capturable, emigrant_buffer, halo_pad, make_slab_sweep,
-    mesh_need, pack_into)
+    _slab_key, check_capturable, halo_pad, make_slab_sweep, mesh_need,
+    own_fields)
 from particlesimulation_tpu_torch.state import ShardedState
 
 IMPLS = ("resident", "sweep")
@@ -201,10 +202,10 @@ def make_sharded2d_step(config: SimConfig, mesh, dec_r: AxisDecomp,
         in the slab, the rest go to the column buffer."""
         landed = buf["valid"] & (buf["dest_r"] == mer)
         direct = landed & (buf["dest_c"] == mec)
-        slab, valid, o1 = pack_into(slab, valid, buf, direct)
+        slab, valid, o1 = migrate_ops.pack(slab, valid, buf, direct)
         cfields = {k: v for k, v in cbuf.items() if k != "valid"}
-        cfields, cvalid, o2 = pack_into(cfields, cbuf["valid"], buf,
-                                        landed & ~direct)
+        cfields, cvalid, o2 = migrate_ops.pack(cfields, cbuf["valid"], buf,
+                                               landed & ~direct)
         buf = {**buf, "valid": buf["valid"] & ~landed}
         return slab, valid, buf, {**cfields, "valid": cvalid}, o1 + o2
 
@@ -216,9 +217,10 @@ def make_sharded2d_step(config: SimConfig, mesh, dec_r: AxisDecomp,
         dest_r = torch.where(real2, owner_r[gy], mer)
         dest_c = torch.where(real2, owner_c[gx], mec)
         emig = valid & ((dest_r != mer) | (dest_c != mec))
-        buf, overflow = emigrant_buffer(slab, emig, bcap, dest_r=dest_r,
-                                        dest_c=dest_c)
+        buf, overflow = migrate_ops.compact(slab, emig, bcap, dest_r=dest_r,
+                                            dest_c=dest_c)
         valid = valid & ~emig
+        slab = own_fields(slab)
         cbuf = {k: torch.zeros_like(v) for k, v in buf.items()}
         # Emigrants already on their row block go to the column buffer
         # with no row hop.
@@ -231,7 +233,7 @@ def make_sharded2d_step(config: SimConfig, mesh, dec_r: AxisDecomp,
         for _ in range(d_c - 1):
             cbuf = mesh.ppermute(cbuf, 1, "cols")
             arr = cbuf["valid"] & (cbuf["dest_c"] == mec)
-            slab, valid, ovf = pack_into(slab, valid, cbuf, arr)
+            slab, valid, ovf = migrate_ops.pack(slab, valid, cbuf, arr)
             overflow = overflow + ovf
             cbuf["valid"] = cbuf["valid"] & ~arr
         return slab, valid, overflow

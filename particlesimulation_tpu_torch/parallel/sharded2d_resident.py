@@ -6,8 +6,10 @@ rectangle plus a one-cell particle halo ring; one step, written against the
 2D mesh of ``parallel/mesh``, does
 
 * local COM from the tiles (row sums) and the two-phase COM halo
-  (``sharded2d.two_phase_com_halo``), then the monopole terms on the tiles;
-* integration, then migration routed dimension-ordered: one delivery
+  (``sharded2d.two_phase_com_halo``), then the monopole terms on the tiles
+  and the integration, one kernel
+  (``ops/cuda/advance.tile_monopole_integrate``);
+* migration routed dimension-ordered: one delivery
   (``ops/cuda/advance.deliver``) moves every mover in one pass, a mover
   bound for another row block into the top or bottom halo row, keeping its
   column, and one whose row block matches but column block does not into
@@ -47,8 +49,9 @@ from __future__ import annotations
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, integrate
+from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded2d import (
@@ -167,14 +170,13 @@ def make_sharded2d_resident_run(config: SimConfig, mesh, dec_r: AxisDecomp,
         row_start, trow[:, None], geometry, dest)
 
     def advance(ts, fxd, fyd):
-        """Monopole, integrate, migration; (ts, undelivered, limbo)."""
+        """Monopole and integrate (one kernel, in place), migration; (ts,
+        undelivered, limbo)."""
         mf, _, limbo = physics_mass(ts)
-        fxm, fym = dense.monopole_tile_forces(ts.x, ts.y, mf,
-                                              *mono_tables(ts, mf))
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts, undelivered = migrate(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                  ship_rounds)
+        advance_ops.tile_monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd, mono_tables(ts, mf),
+            row_start, side, DELTAT)
+        ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 
     def pair_args(ts):

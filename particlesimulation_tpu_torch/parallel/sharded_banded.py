@@ -25,7 +25,10 @@ This engine composes JAX's decomposition with the port's one-pool banded
 design (``ops/banded``'s docstring): every band's chunk of every shard,
 each with two halo rows at the band's K, lies in one band-major slot pool,
 so the fused pair kernel and the COM row sums run once a band over all
-shards, and a mover whose new row this shard owns moves in one delivery,
+shards, the monopole and the integration once over the pool (one kernel,
+``ops/cuda/advance.gathered_monopole_integrate``: a binned slot's terms at
+its pool row's cell), and a mover whose new row this shard owns moves in
+one delivery,
 across bands too; a mover bound for another shard parks in its chunk's
 halo row toward it, at its own column. One ship round stages the halo
 rows of every band at the widest K (no lane is cut: JAX's
@@ -44,8 +47,9 @@ import numpy as np
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, integrate
+from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded import stencil_tables_halo
@@ -298,7 +302,8 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
         limbo = torch.sum(ts.occ & ~valid, dtype=torch.int32)
         return torch.mul(ts.m, binned, out=out), binned, mesh.psum(limbo[None])
 
-    # Each owned slot's cell in the bands' stacked stencil tables.
+    # Each pool row's cell in the bands' stacked stencil tables
+    # (meaningful on owned rows).
     tbase = np.cumsum([0] + [L * c * nc for c in cmax]).tolist()
     cell_of_row = torch.cat([
         tb + ((torch.arange(L, device=dev)[:, None] * c
@@ -306,37 +311,33 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
         .expand(L, n, nc).reshape(-1) + torch.arange(nc, device=dev).repeat(
             L * n)
         for tb, c, n in zip(tbase, cmax, nrt)])
-    cell_of_slot = cell_of_row[row_of]
 
-    def monopole(ts, sums, binned):
-        """Each slot's 8 stencil terms from the per-cell sums of the COM
-        row sums a band (``sums``: (3, slots) of m, m·x, m·y): each chunk's
-        COM grid, the cyclic halo, the tables, gathered by each binned
-        slot's cell."""
+    def mono_tables(sums):
+        """The stencil tables from the per-cell sums of the COM row sums a
+        band (``sums``: (3, slots) of m, m·x, m·y): each chunk's COM grid,
+        the cyclic halo, the tables, stacked band by band (a zero sentinel
+        cell last)."""
         grids = [com_from_sums(*v.sum(dim=2).view(3, L, n, nc)[:, :, 1:c + 1])
                  for v, n, c in zip(views(sums), nrt, cmax)]
         tables = [stencil_tables_halo(*padded, side, nc, G0[b])
                   for b, padded in enumerate(cyclic_halo_pad(mesh, grids,
                                                              CNT))]
-        ml, mxl, myl = (torch.cat([t[i][:, :-1] for t in tables]
-                                  + [tables[0][i][:, -1:]], dim=1)
-                        for i in range(3))
-        return dense.monopole_gathered(
-            ts.x, ts.y, sums[0], ml, mxl, myl,
-            torch.where(binned, cell_of_slot, tbase[-1]))
+        return tuple(torch.cat([t[i][:, :-1] for t in tables]
+                               + [tables[0][i][:, -1:]], dim=1)
+                     for i in range(3))
 
     def advance(ts, fxd, fyd):
-        """Monopole, integrate, migration over the pool; only the COM row
+        """Monopole and integrate over the pool (one kernel, in place, a
+        binned slot's terms at its row's cell), migration; only the COM row
         sums run a band. (ts, undelivered, limbo)."""
         sums = torch.empty((3, nslots), dtype=ts.x.dtype, device=dev)
         mf, binned, limbo = physics_mass(ts, out=sums[0])
         torch.mul(mf, ts.x, out=sums[1])
         torch.mul(mf, ts.y, out=sums[2])
-        fxm, fym = monopole(ts, sums, binned)
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts, undelivered = migrate(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                  ship_rounds)
+        advance_ops.gathered_monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd, mono_tables(sums),
+            cell_of_row, side, DELTAT, row_start=row_start, binned=binned)
+        ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 
     def pair_args(ts):

@@ -28,9 +28,10 @@ every mover) with the column split:
   shard, at each band's K: one ship round gathers them, ppermutes them and
   delivers the arrivals (``sharded_resident.make_halo_transport``). So
   JAX's uniform halo lane cut (``PSIM_BAND_HALO_W``) has no counterpart;
-* integrate, the 8 monopole terms (gathered per slot by its cell) and the
-  stencil tables (``stencil_tables_halo_cols``, on the column-halo-padded
-  local COM grids) run once over the pool.
+* the stencil tables (``stencil_tables_halo_cols``, on the
+  column-halo-padded local COM grids) and the 8 monopole terms with the
+  integration (one kernel, ``ops/cuda/advance.gathered_monopole_integrate``:
+  a binned slot's terms at its pool row's cell) run once over the pool.
 
 Capacity overflow anywhere flags ``overflow`` and the engine replays the
 run with a grown plan; no particle is dropped.
@@ -42,8 +43,9 @@ import numpy as np
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, integrate
+from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import STENCIL, com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded_resident import (
@@ -172,7 +174,9 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
                         for rb, n, (_, _, k) in zip(rbase, nrows_b, bands)])
     ncl = nc * cmaxc                         # cells of a local COM grid
     owned = ((lc_r >= 1) & (lc_r <= cnt[shard_r]))[row_of]
-    cell_of_slot = (shard_r * ncl + gy_r * cmaxc + lc_r - 1)[row_of]
+    # Each pool row's cell in the local COM grids' tables (meaningful on
+    # owned columns).
+    cell_of_row = shard_r * ncl + gy_r * cmaxc + lc_r - 1
 
     def pool_row(shard, gy, lc):
         gy = torch.clamp(gy, 0, nc - 1)
@@ -241,11 +245,10 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
         limbo = torch.sum(ts.occ & ~valid, dtype=torch.int32)
         return torch.mul(ts.m, binned, out=out), binned, mesh.psum(limbo[None])
 
-    def monopole(ts, sums, binned):
-        """Each slot's 8 stencil terms from the per-cell sums of the COM
-        row sums a band (``sums``: (3, slots) of m, m·x, m·y): the local
-        COM grids, the column halo, the tables, gathered by each binned
-        slot's cell."""
+    def mono_tables(sums):
+        """The stencil tables from the per-cell sums of the COM row sums a
+        band (``sums``: (3, slots) of m, m·x, m·y): the local COM grids,
+        the column halo, the tables (a zero sentinel cell last)."""
         cells = torch.cat([v.sum(dim=2).view(3, L, rw, wide)
                            for v, (_, rw, _) in zip(views(sums), bands)],
                           dim=2)[..., 1:cmaxc + 1]       # (3, L, nc, cmaxc)
@@ -260,23 +263,20 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
             torch.where(at_right, r, torch.cat([lh, g, g.new_zeros(L, nc, 1)],
                                                dim=2))
             for g, lh, r in zip(grids, left, right))
-        tables = stencil_tables_halo_cols(*padded, side, nc, col0)
-        return dense.monopole_gathered(
-            ts.x, ts.y, sums[0], *tables,
-            torch.where(binned, cell_of_slot, L * ncl))
+        return stencil_tables_halo_cols(*padded, side, nc, col0)
 
     def advance(ts, fxd, fyd):
-        """Monopole, integrate, migration over the pool; only the COM row
+        """Monopole and integrate over the pool (one kernel, in place, a
+        binned slot's terms at its row's cell), migration; only the COM row
         sums run a band. (ts, undelivered, limbo)."""
         sums = torch.empty((3, nslots), dtype=ts.x.dtype, device=dev)
         mf, binned, limbo = physics_mass(ts, out=sums[0])
         torch.mul(mf, ts.x, out=sums[1])
         torch.mul(mf, ts.y, out=sums[2])
-        fxm, fym = monopole(ts, sums, binned)
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts, undelivered = migrate(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                  ship_rounds)
+        advance_ops.gathered_monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd, mono_tables(sums),
+            cell_of_row, side, DELTAT, row_start=row_start, binned=binned)
+        ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 
     def pair_args(ts):

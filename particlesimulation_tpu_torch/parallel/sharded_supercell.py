@@ -27,8 +27,9 @@ granularity:
   super-rows' S cell rows each), one boundary cell row exchanged each way
   (``sharded.halo_pad``; the reference's ghost-cell COM halo,
   mpi/parsim-mpi.cpp:670-815), ``sharded.stencil_tables_halo`` from global
-  rows, and each slot's 8 terms gathered by its cell
-  (``dense.monopole_gathered``, as ``ops/supercell`` does). The JAX
+  rows, and each slot's 8 terms read at its cell with the integration in
+  one kernel (``ops/cuda/advance.gathered_monopole_integrate``, as
+  ``ops/supercell`` does). The JAX
   engine's one-hot contractions are a layout for a TPU's matrix unit.
 
 Requires ``ncside % S == 0`` (shard boundaries at super-rows are cell-row
@@ -42,8 +43,9 @@ from __future__ import annotations
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import dense, integrate
+from particlesimulation_tpu_torch.ops import dense
 from particlesimulation_tpu_torch.ops import resident as res
+from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
 from particlesimulation_tpu_torch.ops.stencil import com_from_sums
 from particlesimulation_tpu_torch.parallel.sharded import (halo_pad,
@@ -159,26 +161,25 @@ def make_sharded_supercell_run(config: SimConfig, mesh, kcap: int, cap: int,
                 torch.where(binned, sub, -1),
                 torch.where(binned, cell0_t + cy * nc + cx, -1))
 
-    def monopole(ts, mf, cell):
-        """Each slot's 8 stencil terms: the cell sums on the local cell
-        grids, the boundary cell rows' halo, the tables there (a zero
-        sentinel cell last), gathered by each slot's cell."""
+    def mono_tables(ts, mf, cell):
+        """The stencil tables of the local cell grids: the cell sums there,
+        the boundary cell rows' halo, the tables (a zero sentinel cell
+        last), which each slot reads at its cell."""
         sums = cell_pairs.supercell_cell_sums(mf, mf * ts.x, mf * ts.y,
                                               cell.to(torch.int32), L * ncl)
         grids = tuple(a.view(L, rows_cells, nc) for a in com_from_sums(*sums))
-        tables = stencil_tables_halo(*halo_pad(mesh, grids, rows_mine * S),
-                                     side, nc, row0 * S)
-        return dense.monopole_gathered(ts.x, ts.y, mf, *tables,
-                                       torch.where(cell >= 0, cell, L * ncl))
+        return stencil_tables_halo(*halo_pad(mesh, grids, rows_mine * S),
+                                   side, nc, row0 * S)
 
     def advance(ts, fxd, fyd):
-        """Monopole, integrate, migration; (ts, undelivered, limbo)."""
+        """Monopole and integrate (one kernel, in place, each slot's terms
+        at its cell, an unbinned slot's at the sentinel), migration; (ts,
+        undelivered, limbo)."""
         mf, _, limbo, _, cell = physics(ts)
-        fxm, fym = monopole(ts, mf, cell)
-        x, y, vx, vy = integrate.integrate(ts.x, ts.y, ts.vx, ts.vy, ts.m,
-                                           fxd + fxm, fyd + fym, side, DELTAT)
-        ts, undelivered = migrate(ts._replace(x=x, y=y, vx=vx, vy=vy),
-                                  ship_rounds)
+        advance_ops.gathered_monopole_integrate(
+            ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd,
+            mono_tables(ts, mf, cell), cell, side, DELTAT)
+        ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 
     def pair_args(ts):
