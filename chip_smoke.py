@@ -574,6 +574,23 @@ and writes x, y, vx, vy for a live slot (48 bytes), m for a frozen one
 given, and the 24 table words of each index read, once (``library_ms``:
 none; no single PyTorch call computes either function).
 
+Phase bg (``check_stencil``; alone: ``--stencil``): the stencil tables'
+kernels of ``csrc/stencil.cu`` against their plain versions, bit for bit,
+on ``adversarial.stencil_cases`` in f32 and f64, from the COM and from the
+sums, and on the tables inputs of an eager step of every route that builds
+tables (BG_PATHS); each route's call timed, and its tables phase profiled:
+the tables kernel once (on the mesh, once for each 32 bands), and nothing
+else but what the plain exchange alone launches (its payload slices and
+``mesh.ppermute``'s ``torch.roll``s, profiled on their own). Bounds
+(bytes): each grid, line and table entry read or written once;
+operations, 16 additions a cell and 16 divisions from the sums, at the
+dtype's peak. ``library_ms``: the plain version's gather ``v[:, idx]``
+alone, v every source (a 0, the grids, the received lines) and idx each
+table entry's (from the plain version's mass table run on the sources'
+own indices); the port never calls it. Every path that builds tables must
+launch its kernel (``stencil_grid`` on one device, ``stencil_halo`` on the
+mesh routes).
+
 Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes) and the
 float fields a lane, each output once; 9 operations a lane for the COM, 17
 an unordered pair of alive lanes in one cell for the forces (their term
@@ -720,6 +737,14 @@ REPLACES = {
     "migrate_pack": "particlesimulation_tpu/parallel/sharded.py:223-240",
     "monopole_gathered":
         "particlesimulation_tpu/parallel/sharded_resident.py:345-349",
+    # XLA code: the stencil tables (eight rolls and the mirror offsets)
+    # with the COM from the sums; the meshes' halo forms with their pads
+    # (the 1D mesh's, the 2D mesh's and its two-phase halo :147, the column
+    # bands', the cyclic bands' com_tables).
+    "stencil_grid": "particlesimulation_tpu/ops/stencil.py:25",
+    "stencil_halo": "particlesimulation_tpu/parallel/sharded.py:67 and "
+                    ":175-182; sharded2d.py:101, :147-206; "
+                    "sharded_banded_cols.py:88; sharded_banded.py:206-265",
 }
 SOURCE = "particlesimulation_tpu_torch/csrc/cell_pairs.cu"
 DIRECT_SOURCE = "particlesimulation_tpu_torch/csrc/direct_nbody.cu"
@@ -740,7 +765,8 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "sweep_occupancy_kernel", "monopole_rows_kernel",
                 "monopole_slots_kernel", "migrate_count_kernel",
                 "pack_arrivals_kernel", "pack_place_kernel",
-                "compact_place_kernel",
+                "compact_place_kernel", "stencil_grid_kernel",
+                "stencil_halo_kernel",
                 # a parent checkout's (--advance-times) row sums, and its
                 # sweep force kernel (--sweep-times)
                 "cell_sums_rows_kernel", "sweep_forces_kernel")
@@ -753,6 +779,13 @@ SWEEP_KERNELS = ("sweep_com", "sweep_forces", "sweep_collisions",
                  "sweep_occupancy")
 # The migration pack's two wrappers, by their launch counts (ops/cuda/migrate).
 MIGRATE_KERNELS = ("pack", "compact")
+# The stencil tables' wrappers (ops/cuda/stencil): one device's, and what a
+# mesh route's tables phase launches.
+STENCIL_SOURCE = "particlesimulation_tpu_torch/csrc/stencil.cu"
+STENCIL_KERNELS = ("stencil_grid", "stencil_halo")
+STENCIL_MESH = ("stencil_halo",)
+# The bands one stencil_halo launch takes (csrc/stencil.cu kMaxBands).
+STENCIL_BANDS = 32
 
 PEAK_BYTES = 3.35e12   # B/s, HBM3
 PEAK_F32 = 67e12       # FLOP/s outside the tensor cores
@@ -1160,23 +1193,27 @@ def _migrate_launches():
 
 
 def reset_launches():
-    """Set the launch counts of the tile kernels and the migration pack to
-    0."""
+    """Set the launch counts of the tile kernels, the migration pack and
+    the stencil tables to 0."""
     from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
 
     cell_pairs.reset_launches()
     advance.reset_launches()
-    if _migrate_launches() is not None:
-        _migrate_launches().reset_launches()
+    for mod in (_migrate_launches(), _stencil_module()):
+        if mod is not None:
+            mod.reset_launches()
 
 
 def read_launches():
-    """The tile kernels' and the migration pack's launch counts, by name."""
+    """The tile kernels', the migration pack's and the stencil tables'
+    launch counts, by name."""
     from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs
 
-    mig = _migrate_launches()
-    return {**cell_pairs.LAUNCHES, **advance.LAUNCHES,
-            **(mig.LAUNCHES if mig is not None else {})}
+    got = {**cell_pairs.LAUNCHES, **advance.LAUNCHES}
+    for mod in (_migrate_launches(), _stencil_module()):
+        if mod is not None:
+            got.update(mod.LAUNCHES)
+    return got
 
 
 def require_launches(label, launches, kernels):
@@ -1876,7 +1913,8 @@ def check_small(card):
     state = eng.init_state()
     out, launches = check_golden(
         "SMALL supercell", eng, state, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
+         "stencil_grid"])
     if eng.impl != "supercell" or eng._supercell_factor() != SMALL_S:
         raise AssertionError(f"SMALL: {eng.impl}, S {eng._supercell_factor()}")
     print(f"SMALL: the census's route {eng.impl}, S {eng._supercell_factor()} "
@@ -2104,7 +2142,8 @@ def check_mesh(card):
         raise AssertionError(f"flagship mesh census: {fm.impl}")
     fout, launches = check_golden("golden s1 mesh resident D=4", fm, fstate,
                                   steps, (ex, ey, ec),
-                                  ["fused_pairs", "monopole_gathered"])
+                                  ["fused_pairs", "monopole_gathered",
+                                   *STENCIL_MESH])
     rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
     rout = rs.run(rs.init_state(), steps)
     compare_runs("golden s1, mesh resident D=4 vs one-device resident on "
@@ -2263,7 +2302,8 @@ def check_mesh_routes(card):
           f"super-rows {SMALL_SC_STARTS}, kcap {sm.kcap}", flush=True)
     sout, launches["SMALL mesh"] = check_golden(
         "SMALL mesh supercell D=4", sm, sstate, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
+         *STENCIL_MESH])
     one = Engine(SimConfig(*SMALL[:4]), device="cuda")
     ostate = one.init_state()
     oout = one.run(ostate, steps)
@@ -2293,7 +2333,7 @@ def check_mesh_routes(card):
           f"{um._band_plan}, {UNEVEN[2] // 4} columns a shard", flush=True)
     _, launches["UNEVEN mesh"] = check_golden(
         "UNEVEN mesh banded D=4", um, ustate, 2, UNEVEN_2,
-        ["fused_pairs", "monopole_gathered"])
+        ["fused_pairs", "monopole_gathered", *STENCIL_MESH])
     ub = Engine(SimConfig(*UNEVEN), device="cuda")
     uout10 = um.run(ustate, 10)
     bout10 = ub.run(ub.init_state(), 10)
@@ -2327,7 +2367,7 @@ def check_mesh_routes(card):
     outs = []
     out, _, launches["2e7 mesh banded"] = drive(
         "2e7 mesh banded D=2", big, bstate, 5,
-        ["fused_pairs", "monopole_gathered"])
+        ["fused_pairs", "monopole_gathered", *STENCIL_MESH])
     outs = [(int(out.collisions), _Valid(out), STREAM_2E7[1])]
     del big, bstate, out
     res_mesh = mesh(STREAM_2E7, 2, impl="resident")
@@ -2474,7 +2514,7 @@ def check_mesh2d(card):
         raise AssertionError(f"flagship 2D census: {fm.impl}")
     fout, launches["2D resident"] = check_golden(
         "golden s1 mesh resident (2, 2)", fm, fstate, steps, (ex, ey, ec),
-        ["fused_pairs", "monopole_gathered"])
+        ["fused_pairs", "monopole_gathered", *STENCIL_MESH])
     rs = Engine(SimConfig(seed, side, nc, n), device="cuda")
     rout = rs.run(rs.init_state(), steps)
     compare_runs("golden s1, mesh resident (2, 2) vs one-device resident on "
@@ -2495,7 +2535,8 @@ def check_mesh2d(card):
         raise AssertionError(f"SMALL 2D census: {sm.impl}")
     sout, _, launches["SMALL 2D -> supercell"] = drive(
         "SMALL mesh (2, 2) -> supercell D=4", sm, sstate, SMALL[4],
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered"])
+        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
+         *STENCIL_MESH])
     one_d = ShardedEngine(SimConfig(*SMALL[:4], n_shards=4), device="cuda")
     _same_bits("SMALL 10 steps, mesh (2, 2) delegated vs 1D D=4",
                sm.gather(sout), one_d.gather(one_d.run(one_d.init_state(),
@@ -2519,7 +2560,7 @@ def check_mesh2d(card):
         raise AssertionError(f"UNEVEN cyclic: {cm.impl}")
     _, launches["UNEVEN cyclic"] = check_golden(
         "UNEVEN mesh banded-cyclic D=4", cm, cstate, 2, UNEVEN_2,
-        ["fused_pairs", "monopole_gathered"])
+        ["fused_pairs", "monopole_gathered", *STENCIL_MESH])
     cout10 = cm.run(cstate, 10)
     if cm._band_plan != plan or cm.impl != "banded":
         print(f"UNEVEN cyclic D=4 ended on {cm.impl}, plan {cm._band_plan}",
@@ -4325,20 +4366,28 @@ def reset_sweep_launches():
     from particlesimulation_tpu_torch.ops.cuda import sweep
 
     sweep.reset_launches()
-    if _migrate_launches() is not None:
-        _migrate_launches().reset_launches()
+    for mod in (_migrate_launches(), _stencil_module()):
+        if mod is not None:
+            mod.reset_launches()
 
 
 def read_sweep_launches(label=None):
-    """The sweep kernels' launch counts, and the migration pack's (a mesh's
-    sweep); with ``label``, recorded for the kernels line and the sweep's
-    required non-zero (each path of the sweep runs all four)."""
+    """The sweep kernels' launch counts, the migration pack's (a mesh's
+    sweep) and the stencil tables'; with ``label``, recorded for the
+    kernels line and the sweep's required non-zero (each path of the sweep
+    runs all four, and the one-device or the mesh tables' kernels)."""
     from particlesimulation_tpu_torch.ops.cuda import sweep
 
-    mig = _migrate_launches()
-    got = {**sweep.LAUNCHES, **(mig.LAUNCHES if mig is not None else {})}
+    got = dict(sweep.LAUNCHES)
+    for mod in (_migrate_launches(), _stencil_module()):
+        if mod is not None:
+            got.update(mod.LAUNCHES)
     if label is not None:
-        if not all(got[k] > 0 for k in SWEEP_KERNELS):
+        need = list(SWEEP_KERNELS)
+        if _stencil_module() is not None:
+            need += (STENCIL_MESH if got["stencil_halo"] or got.get("compact")
+                     else ("stencil_grid",))
+        if not all(got.get(k, 0) > 0 for k in need):
             raise AssertionError(f"{label}: a sweep kernel did not launch: "
                                  f"{got}")
         SWEEP_LAUNCHES[label] = got
@@ -5002,21 +5051,21 @@ def sweep_entries(recs):
 
 
 def build_libraries():
-    """Build the five kernel libraries from the checkout's sources, one
+    """Build the six kernel libraries from the checkout's sources, one
     nvcc each, started together; print each one's -Xptxas -v report."""
     from concurrent.futures import ThreadPoolExecutor
 
     from particlesimulation_tpu_torch.ops.cuda import (advance, cell_pairs,
                                                        direct_nbody, migrate,
-                                                       sweep)
+                                                       stencil, sweep)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         libs = list(pool.map(lambda f: f(), (
             cell_pairs.build, advance.build, sweep.build, migrate.build,
-            lambda: cell_pairs.build(direct_nbody.SOURCE))))
+            stencil.build, lambda: cell_pairs.build(direct_nbody.SOURCE))))
     for lib in libs:
-        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the five)",
+        print(f"built {lib} ({time.perf_counter() - t0:.2f} s for the six)",
               flush=True)
         with open(f"{lib}.log") as f:
             print(f.read().strip(), flush=True)
@@ -5378,16 +5427,22 @@ GRAPH_PATHS = (
 # The mesh kernels each graph path must launch, beside its own: the
 # mesh monopole + integrate on the tile meshes and single-device SMALL, the
 # migration pack on the parity meshes (at D = 1 the emigrant buffer alone:
-# no ring hop lands anything).
+# no ring hop lands anything), the stencil tables' kernels on every path
+# that builds tables (all but the resident and banded steps, whose
+# monopole pass reads the row sums).
 GRAPH_NEEDS = {
-    **{label: ("monopole_gathered",) for label in (
-        "SMALL supercell", "mesh fast D=4", "mesh supercell D=4",
-        "column bands D=4", "cyclic D=4", "2D (2, 2)",
-        "DistMesh NCCL fast D=1", "DistMesh NCCL supercell D=1",
-        "DistMesh NCCL bands D=1")},
-    **{label: MIGRATE_KERNELS for label in (
+    **{label: ("monopole_gathered", *STENCIL_MESH) for label in (
+        "mesh fast D=4", "mesh supercell D=4", "column bands D=4",
+        "cyclic D=4", "2D (2, 2)", "DistMesh NCCL fast D=1",
+        "DistMesh NCCL supercell D=1", "DistMesh NCCL bands D=1")},
+    "SMALL supercell": ("monopole_gathered", "stencil_grid"),
+    **{label: MIGRATE_KERNELS + STENCIL_MESH for label in (
         "mesh parity D=2", "mesh parity D=4", "2D parity (2, 2)")},
-    "DistMesh NCCL parity D=1": ("compact",),
+    "DistMesh NCCL parity D=1": ("compact", *STENCIL_MESH),
+    **{label: ("stencil_grid",) for label in (
+        "parity s1", "f32 sweep s1", "MEDIUM f32 sweep",
+        "MEDIUM parity (golden s3)", "parity 9 cells (teams off)",
+        "dense flagship", "UNEVEN tiered")},
 }
 
 
@@ -5623,7 +5678,7 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
         raise AssertionError(f"{label}: host syncs in the graphed steps")
     scans = [key for r in (rec["graphed"], rec["eager"])
              for key in r["per_kernel"] if "scan" in key]
-    if GRAPH_NEEDS.get(label) == MIGRATE_KERNELS and scans:
+    if set(MIGRATE_KERNELS) <= set(GRAPH_NEEDS.get(label, ())) and scans:
         # The parity meshes' migration: the pack kernels, no cumsum left
         # (the sweep's step runs no other scan).
         raise AssertionError(f"{label}: scan kernels in the step: {scans}")
@@ -5821,11 +5876,12 @@ def check_com_back_to_back(card):
 # (UNEVEN, through the census) and block-cyclic bands, rectangle tiles and
 # the 2D sweep, and the 2D census's delegation to super-cells.
 SC_KERNELS = ("fused_pairs_sub", "supercell_cell_sums", "deliver",
-              "monopole_gathered")
-BAND_KERNELS = ("fused_pairs", "deliver", "monopole_gathered")
+              "monopole_gathered", *STENCIL_MESH)
+BAND_KERNELS = ("fused_pairs", "deliver", "monopole_gathered", *STENCIL_MESH)
 DIST_PATHS = (
     ("flagship fast", GOLDEN_S1[:4], {}, {}, False, "resident",
-     ("fused_pairs", "monopole_gathered"), GOLDEN_S1[4], None, (1, 2, 4)),
+     ("fused_pairs", "monopole_gathered", *STENCIL_MESH), GOLDEN_S1[4], None,
+     (1, 2, 4)),
     ("parity s1", GOLDEN_S1[:4], {"precision": "parity"}, {}, False, "sweep",
      SWEEP_KERNELS, GOLDEN_S1[4], None, (1, 2, 4)),
     ("SMALL census", SMALL[:4], {}, {}, False, "supercell", SC_KERNELS,
@@ -6590,6 +6646,293 @@ def check_mesh_kernels(card):
     return recs
 
 
+# Phase bg: the stencil tables' kernels (ops/cuda/stencil, csrc/stencil.cu)
+# on the adversarial layouts and on the tables inputs of an eager step of
+# every route that builds tables.
+BG_PATHS = (
+    ("parity s1", "engine", GOLDEN_S1[:4], {"precision": "parity"}, {}),
+    ("MEDIUM f64", "engine", MEDIUM[:4], {"precision": "parity"}, {}),
+    ("SMALL supercell", "engine", SMALL[:4], {}, {}),
+    ("dense flagship", "engine", GOLDEN_S1[:4], {}, {"impl": "dense"}),
+    ("UNEVEN tiered", "engine", UNEVEN, {}, {"impl": "tiered"}),
+    ("mesh parity D=2", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 2, "precision": "parity"}, {}),
+    ("mesh parity D=4", "mesh", GOLDEN_S1[:4],
+     {"n_shards": 4, "precision": "parity"}, {}),
+    ("2D parity (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2), "precision": "parity"}, {}),
+    ("mesh fast D=4", "mesh", GOLDEN_S1[:4], {"n_shards": 4}, {}),
+    ("2D (2, 2)", "mesh2d", GOLDEN_S1[:4],
+     {"n_shards": 4, "mesh_shape": (2, 2)}, {}),
+    ("mesh supercell D=4", "mesh", SMALL[:4], {"n_shards": 4}, {}),
+    ("column bands D=4", "mesh", UNEVEN, {"n_shards": 4}, {}),
+    ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
+     {"impl": "banded-cyclic"}),
+)
+# The records of the kernels line: SMALL's true grid, the fast mesh's halo.
+BG_RECORDS = {"stencil_grid": "SMALL supercell",
+              "stencil_halo": "mesh fast D=4"}
+
+
+def _stencil_module():
+    """``ops/cuda/stencil`` (a parent checkout without it, timed by
+    ``--mesh-times``: None)."""
+    try:
+        from particlesimulation_tpu_torch.ops.cuda import stencil
+    except ImportError:
+        return None
+    return stencil
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _stencil_bound(nbytes, cells, from_sums, dtype):
+    """A tables call's bound: its bytes (each input read once, each output
+    written once) against its operations (16 additions a cell, and 16
+    divisions from the sums) at the dtype's peak."""
+    ops = 16 * cells * (2 if from_sums else 1)
+    mem_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = ops / (PEAK_F64 if dtype == torch.float64 else PEAK_F32) * 1e3
+    return (max(mem_ms, ops_ms), "bytes" if mem_ms >= ops_ms
+            else "operations", 0.0)
+
+
+def _same_tables(tag, got, ref):
+    """Fail unless every table of ``got`` is ``ref``'s, bit for bit."""
+    bad = [i for i, (a, b) in enumerate(zip(got, ref)) if not _exact(a, b)]
+    if bad or len(got) != len(ref):
+        diff = {i: int((got[i] != ref[i]).sum()) for i in bad}
+        raise AssertionError(f"{tag}: tables {bad} differ from the plain "
+                             f"version ({diff} entries)")
+
+
+def _grid_gather(a, b, c, ncside):
+    """The one-device tables' library call: the plain version's gather
+    ``v[:, idx]`` of the three grids by its plan, alone (v, idx)."""
+    from particlesimulation_tpu_torch.ops import stencil
+
+    idx, _ = stencil._stencil_plan(1.0, ncside, a.dtype, a.device)
+    z = a.new_zeros(1)
+    return torch.cat([a, z, b, z, c, z]).view(3, -1), idx
+
+
+def _halo_gather(st, grids, layout, lines, side, nc):
+    """A mesh's tables as one gather ``v[:, idx]``: v every source (a 0,
+    the grids, the received lines) a field, idx each table entry's source,
+    read off the plain version's mass table run on the sources' own
+    indices (in f64, exact)."""
+    dev = grids[0][0].device
+    parts = [torch.zeros(3, 1, dtype=grids[0][0].dtype, device=dev)]
+    at, ig, il = 1, [], []
+    for gb in grids:
+        parts.append(torch.stack(gb).reshape(3, -1))
+        n = gb[0].numel()
+        ig.append((torch.arange(at, at + n, dtype=torch.float64, device=dev)
+                   .view(gb[0].shape),) * 3)
+        at += n
+    for t in lines:
+        if t is None:
+            il.append(None)
+            continue
+        L, B, _, n = t.shape
+        parts.append(t.transpose(0, 2).reshape(3, -1))
+        il.append((at + torch.arange(B * L * n, dtype=torch.float64,
+                                     device=dev).view(B, L, n))
+                  .transpose(0, 1)[:, :, None, :].expand(L, B, 3, n)
+                  .contiguous())
+        at += B * L * n
+    idx = st.halo_tables_ref(ig, layout, il, 0.0, nc)[0]
+    return torch.cat(parts, dim=1), idx.to(torch.int64)
+
+
+def _library_times(v, idx):
+    return {"library_ms": _timed(lambda: v[:, idx], 20),
+            "library_device_ms": device_ms(lambda: v[:, idx], 20)}
+
+
+def _launch_rows(fn):
+    """{kernel name: launches} of one profiled call of ``fn``."""
+    rows = {}
+    for _, n, name in _profile_fn(fn):
+        if n:
+            rows[name] = rows.get(name, 0) + n
+    return rows
+
+
+def _stencil_profile(tag, fn, want, exchange=None):
+    """Profile one call: fail unless it launches the stencil kernels of
+    ``want`` ({name: launches}) and nothing else but what ``exchange`` (the
+    plain exchange alone, which launches no stencil kernel) launches,
+    kernel for kernel. Returns the other launches."""
+    got, others = {}, {}
+    for name, n in _launch_rows(fn).items():
+        hit = [k for k in STENCIL_KERNELS if f"{k}_kernel" in name]
+        if hit:
+            got[hit[0]] = got.get(hit[0], 0) + n
+        else:
+            others[name] = n
+    plain = _launch_rows(exchange) if exchange is not None else {}
+    if any(k in name for name in plain for k in STENCIL_KERNELS):
+        raise AssertionError(f"{tag}: the exchange launched a stencil "
+                             f"kernel: {plain}")
+    if got != want or others != plain:
+        raise AssertionError(f"{tag}: the tables phase launched {got} and "
+                             f"{others}, not {want} and the exchange's "
+                             f"{plain}")
+    return sum(others.values())
+
+
+def check_stencil_grid(tag, args, kw, timed=False):
+    """(bg) The one-device tables kernel against its plain version on the
+    card, bit for bit; with ``timed``, the record (its bound, the plain
+    gather alone as the library call) and the profile of one call."""
+    st = _stencil_module()
+    a, b, c, side, nc = args
+
+    def kernel():
+        return st.grid_tables(a, b, c, side, nc, **kw)
+
+    def plain():
+        return st.grid_tables_ref(a, b, c, side, nc, **kw)
+
+    got = kernel()
+    _same_tables(tag, got, plain())
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    if not timed:
+        return rec
+    rec.update(_kernel_times(kernel, plain))
+    _record(rec, _stencil_bound(_nbytes(a, b, c, *got), nc * nc,
+                                kw.get("from_sums", False), a.dtype))
+    rec.update(_library_times(*_grid_gather(a, b, c, nc)))
+    _stencil_profile(tag, kernel, {"stencil_grid": 1})
+    print(f"{tag}: stencil_grid bit for bit ({nc * nc} cells, {a.dtype}, "
+          f"{kw}); {rec['ms']:.4f} ms a call, {rec['device_ms']:.4f} device "
+          f"(bound {rec['bound_ms']:.4f}, {rec['bound_by']}); plain "
+          f"{rec['plain_ms']:.4f}; the gather alone {rec['library_ms']:.4f}, "
+          f"{rec['library_device_ms']:.4f} device", flush=True)
+    return rec
+
+
+def check_stencil_mesh(tag, args, kw, timed=False):
+    """(bg) A mesh route's tables kernel against its plain version on the
+    card, bit for bit, on the lines the plain exchange delivered; with
+    ``timed``, its record (bound; the plain gather alone as the library
+    call) and the profile of one whole tables phase: the tables kernel once
+    for each 32 bands, and what the exchange alone launches. A layout of
+    more than 32 bands is profiled untimed too."""
+    st = _stencil_module()
+    mesh, layout, grids, side, nc = args
+    fs = kw.get("from_sums", False)
+    lines = st.exchange(mesh, layout, grids)
+
+    def kernel():
+        return st.halo_tables(grids, layout, lines, side, nc, fs)
+
+    def plain():
+        return st.halo_tables_ref(grids, layout, lines, side, nc, fs)
+
+    out = kernel()
+    _same_tables(tag, out, plain())
+    want = {"stencil_halo": -(-len(grids) // STENCIL_BANDS)}
+    if not timed:
+        if len(grids) > STENCIL_BANDS:
+            _stencil_profile(tag, kernel, want)
+            print(f"{tag}: {len(grids)} bands, stencil_halo launched "
+                  f"{want['stencil_halo']}x", flush=True)
+        return {}
+    like = grids[0][0]
+    rec = {"max_abs_err": 0.0}
+    rec.update(_kernel_times(kernel, plain))
+    _record(rec, _stencil_bound(
+        _nbytes(*(t for gb in grids for t in gb), *lines, *out),
+        layout.cells, fs, like.dtype))
+    rec.update(_library_times(*_halo_gather(st, grids, layout, lines, side,
+                                            nc)))
+    sent = _stencil_profile(tag, lambda: st.mesh_tables(*args, **kw), want,
+                            lambda: st.exchange(mesh, layout, grids))
+    print(f"{tag}: stencil_halo bit for bit ({layout.cells} cells in "
+          f"{len(grids)} band(s), {like.dtype}, from sums {fs}, aligned "
+          f"{layout.aligned}); {rec['ms']:.4f} ms a call, "
+          f"{rec['device_ms']:.4f} device (bound {rec['bound_ms']:.4f}, "
+          f"{rec['bound_by']}); plain {rec['plain_ms']:.4f}; the gather "
+          f"alone {rec['library_ms']:.4f}, {rec['library_device_ms']:.4f} "
+          f"device; the phase launches the tables "
+          f"{want['stencil_halo']}x and the exchange's {sent} launches",
+          flush=True)
+    return {"stencil_halo": rec}
+
+
+def check_stencil(card):
+    """(bg) The stencil tables' kernels against their plain versions on the
+    card, bit for bit: on ``adversarial.stencil_cases`` (one device at nc
+    = 1, 2, 3, 5, 100 in both layouts; every halo layout of the meshes) in
+    f32 and f64, from the COM and from the sums; and on the tables inputs
+    of an eager step of every route that builds tables (BG_PATHS: parity
+    s1, MEDIUM f64, SMALL (1.69 M cells), dense, tiered UNEVEN, the parity
+    meshes at D = 2, 4 and (2, 2), the fast mesh at D = 4 and (2, 2),
+    SMALL's mesh super-cells, UNEVEN's column and cyclic bands), each
+    timed against its byte bound and beside the plain gather ``v[:, idx]``
+    alone, and its tables phase profiled: the tables kernel once a call
+    (once for each 32 bands), and nothing else but the plain exchange's
+    launches.
+    Returns the kernels line's records (BG_RECORDS)."""
+    from particlesimulation_tpu_torch.ops import graphed
+
+    st = _stencil_module()
+    adv = _adversarial_module()
+    t0 = time.perf_counter()
+    n = 0
+    for case in adv.stencil_cases():
+        for dtype in (torch.float32, torch.float64):
+            for fs in (False, True):
+                if case["kind"] == "grid":
+                    a, b, c = (torch.from_numpy(x).to(dtype).cuda()
+                               for x in case["grid"])
+                    for aligned in (False, True):
+                        check_stencil_grid(
+                            f"adversarial {case['name']}",
+                            (a, b, c, case["side"], case["nc"]),
+                            {"from_sums": fs, "aligned": aligned})
+                        n += 1
+                    continue
+                mesh, layout, grids = adv.stencil_inputs(case, dtype, "cuda")
+                check_stencil_mesh(f"adversarial {case['name']}",
+                                   (mesh, layout, grids, case["side"],
+                                    case["nc"]), {"from_sums": fs})
+                n += 1
+    print(f"bg: {n} adversarial tables bit for bit the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    recs = {}
+    for label, kind, args, cfg_kw, eng_kw in BG_PATHS:
+        eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
+        with _recording(st, "grid_tables", 1) as grid, _recording(
+                st, "mesh_tables", 1) as meshes:
+            eng.run_eager(state, 1)
+        torch.cuda.synchronize()
+        if len(grid) + len(meshes) != 1:
+            raise AssertionError(f"{label}: {len(grid)} grid and "
+                                 f"{len(meshes)} mesh tables calls recorded")
+        tag = f"{label} ({_target(eng).impl})"
+        if grid:
+            (a, kw), = grid
+            r = {"stencil_grid": check_stencil_grid(tag, a, kw, timed=True)}
+        else:
+            (a, kw), = meshes
+            r = check_stencil_mesh(tag, a, kw, timed=True)
+        for k, rec in r.items():
+            if BG_RECORDS[k] == label:
+                recs[k] = rec
+        graphed.release(_target(eng)._run)
+        del eng, state, grid, meshes
+        torch.cuda.empty_cache()
+    print(f"the stencil kernels (bg): {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -6724,6 +7067,16 @@ def main():
             kernel_entry("monopole_gathered", 0, recs["monopole_gathered"],
                          ADVANCE_SOURCE)]}))
         return
+    if sys.argv[1:2] == ["--stencil"]:
+        # Phase bg alone.
+        card = _card()
+        print(card, flush=True)
+        build_libraries()
+        recs = check_stencil(card)
+        print(json.dumps({"kernels": [
+            kernel_entry(k, 0, recs[k], STENCIL_SOURCE)
+            for k in STENCIL_KERNELS]}))
+        return
     if sys.argv[1:2] == ["--dist"]:
         # Phase be alone.
         card = _card()
@@ -6788,6 +7141,8 @@ def main():
     # pack and the mesh monopole + integrate (bf).
     adv_recs = check_advance(card)
     mesh_recs = check_mesh_kernels(card)
+    # The stencil tables' kernels (bg).
+    stencil_recs = check_stencil(card)
 
     seed, side, nc, n, steps, ex, ey, ec = GOLDEN_S1
     s1 = SimConfig(seed, side, nc, n)
@@ -6827,7 +7182,7 @@ def main():
     state_d = eng_d.init_state()
     _, dense_launches = check_golden(
         "golden s1 dense", eng_d, state_d, steps, (ex, ey, ec),
-        ["dense_forces", "dense_collisions"])
+        ["dense_forces", "dense_collisions", "stencil_grid"])
     check_no_sync("dense", make_dense_step(s1, eng_d.kcap)[2], state_d)
     check_gpu_vs_cpu(2, 100.0, 16, 12_000, 5, impl="dense")
     dense_ms, t1, t101 = step_ms(eng_d, state_d, 100)
@@ -6847,7 +7202,7 @@ def main():
         raise AssertionError(f"UNEVEN plan {eng_t._tier_plan}")
     _, tiered_launches = check_golden(
         "UNEVEN tiered", eng_t, state_t, 2, UNEVEN_2,
-        ["dense_forces", "dense_collisions"])
+        ["dense_forces", "dense_collisions", "stencil_grid"])
     check_no_sync("tiered", make_tiered_step(un, UNEVEN_PLAN, "cuda")[2],
                   state_t)
     check_tiles("UNEVEN tiered", class_tiles(un, UNEVEN_PLAN, state_t))
@@ -6953,7 +7308,9 @@ def main():
           flush=True)
 
     def on_paths(name, *paths):
-        return sum(p.get(name, 0) for p in paths)
+        # A run's counts once, though two names hold them (a DistMesh sweep
+        # path's dict is also in SWEEP_LAUNCHES).
+        return sum(p.get(name, 0) for p in {id(p): p for p in paths}.values())
 
     sc_paths = (small_launches, route_launches["SMALL mesh"],
                 mesh2d_launches["SMALL 2D -> supercell"],
@@ -6993,6 +7350,12 @@ def main():
             *route_launches.values(), *mesh2d_launches.values(),
             medium_launches, *dist_launches.values()),
             mesh_recs["monopole_gathered"], ADVANCE_SOURCE),
+        *(kernel_entry(k, on_paths(
+            k, dense_launches, tiered_launches, small_launches, small_cli,
+            mesh_launches, *route_launches.values(),
+            *mesh2d_launches.values(), medium_launches,
+            *dist_launches.values(), *SWEEP_LAUNCHES.values()),
+            stencil_recs[k], STENCIL_SOURCE) for k in STENCIL_KERNELS),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

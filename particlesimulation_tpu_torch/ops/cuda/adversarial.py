@@ -7,12 +7,13 @@ the fused kernel compacts the used slots again after its collision phase.
 case that structure can get wrong, ``plant_direct_cases`` the same
 kind of cases among the particles of the direct model's all-pairs passes,
 ``sweep_particles`` (with ``mesh_lane_order``) the lanes the sweep
-kernels' per-lane order and cell bounds risk, and ``com_particles`` those
-the COM kernel's rounds, groups and parity division risk;
-the CPU tests hold the plain versions against the JAX package's kernels on
-them, and ``chip_smoke.py`` holds the CUDA kernels against the plain
-versions on them. NumPy only, so that both
-can use it.
+kernels' per-lane order and cell bounds risk, ``com_particles`` those
+the COM kernel's rounds, groups and parity division risk, and
+``stencil_cases`` the grids and halo layouts the stencil kernels'
+addressing risks; the CPU tests hold the plain versions against the JAX
+package's kernels on them, and ``chip_smoke.py`` holds the CUDA kernels
+against the plain versions on them. NumPy only (but ``stencil_inputs``,
+which builds the torch inputs of a stencil case), so that both can use it.
 """
 
 from __future__ import annotations
@@ -886,3 +887,178 @@ def mesh_monopole_case(kcap: int = 40, seed: int = 0):
             "row_start": np.arange(nrows + 1, dtype=np.int64) * kcap,
             "pool_row_start": pool_row_start,
             "pool_row_index": pool_row_index, "side": float(side)}
+
+
+def _stencil_values(rng, shape):
+    """(3, *shape) float64 per-cell values, read as the COM (M, MX, MY) or
+    as the sums (M, Σm·x, Σm·y): empty cells (all 0), a mass of 0 beside
+    nonzero moments, -0.0 masses and moments, masses subnormal in f32
+    (1e-40) and in f64 (1e-310, 0 in f32), and moments of either sign."""
+    m = rng.uniform(0.25, 4.0, shape)
+    x = rng.uniform(-30.0, 30.0, shape)
+    y = rng.uniform(-30.0, 30.0, shape)
+    pick = rng.integers(0, 9, shape)
+    m = np.where(pick == 0, 0.0, m)
+    x = np.where(pick == 0, 0.0, x)
+    y = np.where(pick == 0, 0.0, y)
+    m = np.where(pick == 1, 0.0, m)
+    m = np.where(pick == 2, -0.0, m)
+    m = np.where(pick == 3, 1e-40, m)
+    m = np.where(pick == 4, 1e-310, m)
+    x = np.where(pick == 5, -0.0, x)
+    y = np.where((pick == 5) | (pick == 6), -0.0, y)
+    x = np.where(pick == 7, 3e-39, x)
+    return np.stack([m, x, y])
+
+
+def _split(n: int, d: int):
+    """(first, count) of each of the ``d`` balanced-uneven blocks of ``n``
+    lines, the first ``n % d`` one line longer."""
+    base, rem = divmod(n, d)
+    counts = [base + (s < rem) for s in range(d)]
+    return np.cumsum([0] + counts[:-1]).tolist(), counts
+
+
+def _blocks(rng, grid, rows, cols, R, C):
+    """Each shard's (R, C) block of the (3, nc, nc) ``grid``: rows ``rows``
+    and columns ``cols`` of it (lists of global indices a shard), the
+    entries past them (a short shard's tail) random. (3, L, R, C)."""
+    L = len(rows)
+    out = _stencil_values(rng, (L, R, C))
+    for s in range(L):
+        out[:, s, :len(rows[s]), :len(cols[s])] = grid[
+            :, np.asarray(rows[s])[:, None], np.asarray(cols[s])[None, :]]
+    return out
+
+
+def stencil_cases(seed: int = 0):
+    """The layouts the stencil kernels' addressing risks, as NumPy:
+
+    * one device (``kind`` "grid"): nc = 1, 2 (neighbours alias, both
+      mirrors on one cell at nc = 1), 3, 5 and 100, ``grid`` (3, nc²);
+    * the meshes (``kind`` "mesh"), each ``mesh`` a LocalMesh shape,
+      ``layout`` the keyword arguments of ``ops/cuda/stencil.HaloLayout``
+      (NumPy int64 and bool arrays for its tensors) and ``grids`` a list of
+      bands, each (3, L, R, C): the 1D row mesh at D = 1, 2 (a shard of
+      rows_mine < rows_max), 4 on 6 rows (one-row shards) and 2 on 2 rows,
+      aligned too; column bands with cnt < cmaxc (D = 3 on 7 columns), D =
+      1 and D = 2 on 2; the 2D mesh (2, 3) on 7 (uneven on both axes),
+      aligned too, (2, 2) on 3 and (1, 1); block-cyclic bands of one-row
+      chunks with a ragged band, at D = 3 and at D = 1, and 37 bands at D =
+      2 (more than the tables kernel takes in one launch).
+
+    Every grid holds ``_stencil_values``; the tails past a shard's owned
+    lines are random."""
+    rng = np.random.default_rng(seed)
+    side = 10.0 / 3.0
+    cases = []
+    for nc in (1, 2, 3, 5, 100):
+        cases.append({"name": f"grid nc={nc}", "kind": "grid", "nc": nc,
+                      "side": side,
+                      "grid": _stencil_values(rng, (nc * nc,))})
+
+    def i64(v):
+        return np.asarray(v, dtype=np.int64)
+
+    for nc, d, aligned in ((5, 1, None), (5, 2, None), (6, 4, None),
+                           (2, 2, None), (6, 4, (1, 0))):
+        grid = _stencil_values(rng, (nc, nc))
+        r0, cnt = _split(nc, d)
+        R = max(cnt)
+        cols = [list(range(nc))] * d
+        rows = [list(range(a, a + n)) for a, n in zip(r0, cnt)]
+        cases.append({
+            "name": f"rows D={d} nc={nc}" + (" aligned" if aligned else ""),
+            "kind": "mesh", "nc": nc, "side": side, "mesh": (d, 1),
+            "layout": {"rows": (R,), "C": nc, "row0": (i64(r0),),
+                       "rows_mine": (i64(cnt),), "aligned": aligned},
+            "grids": [_blocks(rng, grid, rows, cols, R, nc)]})
+    for nc, d in ((7, 3), (4, 1), (2, 2)):
+        grid = _stencil_values(rng, (nc, nc))
+        c0, cnt = _split(nc, d)
+        C = max(cnt)
+        rows = [list(range(nc))] * d
+        cols = [list(range(a, a + n)) for a, n in zip(c0, cnt)]
+        cases.append({
+            "name": f"cols D={d} nc={nc}", "kind": "mesh", "nc": nc,
+            "side": side, "mesh": (d, 1),
+            "layout": {"rows": (nc,), "C": C, "col0": i64(c0),
+                       "cols_mine": i64(cnt), "y_ge": False},
+            "grids": [_blocks(rng, grid, rows, cols, nc, C)]})
+    for nc, (dr, dc), aligned in ((7, (2, 3), None), (7, (2, 3), (1, 1)),
+                                  (3, (2, 2), None), (3, (1, 1), None)):
+        grid = _stencil_values(rng, (nc, nc))
+        r0, rc = _split(nc, dr)
+        c0, cc = _split(nc, dc)
+        R, C = max(rc), max(cc)
+        sh = [(r, c) for r in range(dr) for c in range(dc)]
+        rows = [list(range(r0[r], r0[r] + rc[r])) for r, _ in sh]
+        cols = [list(range(c0[c], c0[c] + cc[c])) for _, c in sh]
+        cases.append({
+            "name": f"2D {(dr, dc)} nc={nc}" + (" aligned" if aligned
+                                                else ""),
+            "kind": "mesh", "nc": nc, "side": side, "mesh": (dr, dc),
+            "layout": {"rows": (R,), "C": C,
+                       "row0": (i64([r0[r] for r, _ in sh]),),
+                       "rows_mine": (i64([rc[r] for r, _ in sh]),),
+                       "col0": i64([c0[c] for _, c in sh]),
+                       "cols_mine": i64([cc[c] for _, c in sh]),
+                       "y_ge": False, "aligned": aligned,
+                       "cols_axis": "cols"},
+            "grids": [_blocks(rng, grid, rows, cols, R, C)]})
+    many = [2] * 34 + [4] * 3
+    for nc, d, plan in ((11, 3, ((0, 3), (3, 5), (8, 3))),
+                        (5, 1, ((0, 2), (2, 3))),
+                        (80, 2, tuple(zip(np.cumsum([0] + many[:-1]).tolist(),
+                                          many)))):
+        grid = _stencil_values(rng, (nc, nc))
+        g0, cnt, grids = [], [], []
+        for a, rw in plan:
+            s0, sc = _split(rw, d)
+            g0.append(i64([a + s for s in s0]))
+            cnt.append(i64(sc))
+            rows = [list(range(a + s, a + s + n)) for s, n in zip(s0, sc)]
+            grids.append(_blocks(rng, grid, rows, [list(range(nc))] * d,
+                                 max(sc), nc))
+        cases.append({
+            "name": f"cyclic D={d} nc={nc}" + (f" {len(plan)} bands"
+                                               if len(plan) > 3 else ""),
+            "kind": "mesh", "nc": nc,
+            "side": side, "mesh": (d, 1),
+            "layout": {"rows": tuple(g.shape[2] for g in grids), "C": nc,
+                       "row0": tuple(g0), "rows_mine": tuple(cnt),
+                       "top_shift": np.arange(d) == 0,
+                       "bot_shift": np.arange(d) == d - 1},
+            "grids": grids})
+    return cases
+
+
+def stencil_inputs(case, dtype, device):
+    """A mesh case of ``stencil_cases`` as the wrappers take it: (mesh, a
+    ``LocalMesh`` of the case's shape; layout, its ``HaloLayout``; grids, a
+    list of bands, each three (L, R, C) ``dtype`` views with the strides of
+    a larger tensor, as the routes' sliced sums are)."""
+    import torch
+
+    from particlesimulation_tpu_torch.ops.cuda.stencil import HaloLayout
+    from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    kw = {}
+    for k, v in case["layout"].items():
+        if isinstance(v, tuple) and v and isinstance(v[0], np.ndarray):
+            v = tuple(t(a) for a in v)
+        elif isinstance(v, np.ndarray):
+            v = t(v)
+        kw[k] = v
+    grids = []
+    for g in case["grids"]:
+        _, L, R, C = g.shape
+        big = torch.full((3, L, R + 2, C + 3), 7.0, dtype=dtype, device=device)
+        big[:, :, 1:R + 1, 2:C + 2] = t(g).to(dtype)
+        grids.append(tuple(big[:, :, 1:R + 1, 2:C + 2]))
+    d_r, d_c = case["mesh"]
+    return (LocalMesh(d_r * d_c, device, shape=(d_r, d_c)), HaloLayout(**kw),
+            grids)

@@ -178,17 +178,19 @@ def _on_card(x, what):
     return True
 
 
-def _launch(name, fn, x, *args, launches=LAUNCHES):
+def _launch(name, fn, x, *args, launches=LAUNCHES, made=None):
     # The kernel goes to the current device, on its current stream. (The raw
     # stream handle saves the Stream object that torch.cuda.current_stream()
-    # builds on every call.)
+    # builds on every call.) ``made``: a ctypes.c_int among ``args`` (by
+    # reference) in which an entry point that launches more than once
+    # writes its launches; else it launches once.
     dev = x.device.index
     with (contextlib.nullcontext() if dev == torch.cuda.current_device()
           else torch.cuda.device(dev)):
         err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    launches[name] += 1 if made is None else made.value
 
 
 def _check_fused(x, y, mf, alive, pid, kcap, force_form, sub=None):

@@ -32,12 +32,13 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
-from particlesimulation_tpu_torch.ops import stencil
-from particlesimulation_tpu_torch.ops.cuda import advance, cell_pairs, sweep
+from particlesimulation_tpu_torch.ops.cuda import (advance, cell_pairs,
+                                                   migrate, stencil, sweep)
 
 # The launch counters of the kernels a step runs (the sweep's occupancy
 # kernel among ``sweep.LAUNCHES``).
-COUNTERS = (cell_pairs.LAUNCHES, advance.LAUNCHES, sweep.LAUNCHES)
+COUNTERS = (cell_pairs.LAUNCHES, advance.LAUNCHES, sweep.LAUNCHES,
+            migrate.LAUNCHES, stencil.LAUNCHES)
 
 
 class StepGraph:
@@ -55,8 +56,7 @@ class StepGraph:
     every later one replays the capture. Graphs share one memory pool: no
     tensor of it outlives a replay, since every output lands in the carry.
     What a capture reads outside the carry and the pool is held by the
-    step function's closure, or, for the stencil plans of
-    ``ops/stencil``'s bounded cache, in ``held`` until ``release``.
+    step function's closure.
 
     Launch counts: a wrapper counts its launch when its Python runs, so the
     capture's counts (``counters``, dicts of ints) are taken back, and each
@@ -73,7 +73,6 @@ class StepGraph:
         self._sig = None
         self._graphs = {}        # name -> (graph or CPU fn, launches)
         self._pool = None
-        self.held = []           # the stencil plans the graphs read
 
     def load(self, carry) -> None:
         leaves, spec = pytree.tree_flatten(carry)
@@ -135,7 +134,6 @@ class StepGraph:
                 graph.reset()
         self._graphs = {}
         self._pool = None
-        self.held = []
         self._leaves = self._spec = self._sig = None
 
     @property
@@ -185,8 +183,8 @@ class StepGraph:
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             try:
-                with stencil.holding(self.held), torch.cuda.graph(
-                        graph, pool=self._pool, stream=torch.cuda.Stream()):
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=torch.cuda.Stream()):
                     self._body(fn)
             finally:
                 launches = self._delta(saved)
@@ -199,8 +197,7 @@ class StepGraph:
 
     def _twin(self, name, fn):
         saved = self._read()
-        with stencil.holding(self.held):
-            self._body(fn)
+        self._body(fn)
         self.capture_s[name] = 0.0
         self.captures += 1
         return fn, self._delta(saved)

@@ -14,7 +14,8 @@ track the particles, not the grid:
   the reference's same-cell rule (serial/parsim.cpp:356-366,393-411);
 * monopole: the per-cell mass and moment sums straight onto the true
   (ncside, ncside) grid (``cell_pairs.supercell_cell_sums``), the stencil
-  tables there (``ops/stencil``, periodic mirrors at cell granularity),
+  tables there from the sums (``ops/cuda/stencil.grid_tables``, one kernel;
+  periodic mirrors at cell granularity),
   then each slot's 8 terms at its own cell and the integration in one
   kernel (``ops/cuda/advance.gathered_monopole_integrate``);
 * rebin: ``ops/resident.rebin`` over the super-cell grid; only super-cell
@@ -34,10 +35,11 @@ import math
 import torch
 
 from particlesimulation_tpu_torch.config import DELTAT, EPSILON, SimConfig
-from particlesimulation_tpu_torch.ops import binning, dense, stencil
+from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 
 
 def choose_supercell_factor(config: SimConfig, target_occ: float = 24.0,
@@ -136,8 +138,7 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
         sentinel cell last)."""
         sums = cell_pairs.supercell_cell_sums(mf, mf * ts.x, mf * ts.y, cell,
                                               ncells)
-        return stencil.stencil_tables(*stencil.com_from_sums(*sums), side,
-                                      nc)
+        return stencil_ops.grid_tables(*sums, side, nc, from_sums=True)
 
     def dest_fn(ts):
         rowk, _, _, valid = geometry(ts.x, ts.y)

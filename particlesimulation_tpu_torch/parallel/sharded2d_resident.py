@@ -6,7 +6,7 @@ rectangle plus a one-cell particle halo ring; one step, written against the
 2D mesh of ``parallel/mesh``, does
 
 * local COM from the tiles (row sums) and the two-phase COM halo
-  (``sharded2d.two_phase_com_halo``), then the monopole terms on the tiles
+  (``sharded2d.com_halo_layout``), then the monopole terms on the tiles
   and the integration, one kernel
   (``ops/cuda/advance.tile_monopole_integrate``);
 * migration routed dimension-ordered: one delivery
@@ -53,9 +53,9 @@ from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-from particlesimulation_tpu_torch.ops.stencil import com_from_sums
+from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 from particlesimulation_tpu_torch.parallel.sharded2d import (
-    AxisDecomp, rect_geometry, stencil_tables_halo2d, two_phase_com_halo)
+    AxisDecomp, com_halo_layout, rect_geometry)
 from particlesimulation_tpu_torch.parallel.sharded_resident import (
     halo_dest_row, index_ship, make_halo_transport, slabs_to_tiles,
     tiles_to_slabs)
@@ -116,20 +116,19 @@ def make_sharded2d_resident_run(config: SimConfig, mesh, dec_r: AxisDecomp,
                           dtype=torch.int32)
         return torch.where(binned, ts.m, 0.0), binned, mesh.psum(limbo)
 
+    layout = com_halo_layout(dec_r, dec_c, row0, rows_mine, col0, cols_mine,
+                             aligned=(1, 1))
+
     def mono_tables(ts, mf):
         """(L * ncells_t, 8) stencil rows: COM of the rectangles, the
         two-phase halo, the tables; zero rows for the halo ring."""
         sums = (torch.sum(mf, dim=1), torch.sum(mf * ts.x, dim=1),
                 torch.sum(mf * ts.y, dim=1))
-        grids = tuple(a.view(L, nrows_t, ncols_t)[:, 1:rows_max + 1,
-                                                  1:cols_max + 1]
-                      for a in com_from_sums(*sums))
-        tables = stencil_tables_halo2d(
-            *two_phase_com_halo(mesh, grids, rows_mine, cols_mine), side, nc,
-            row0, col0)
-        return tuple(torch.nn.functional.pad(
-            t[:, :-1].T.reshape(L, rows_max, cols_max, 8),
-            (0, 0, 1, 1, 1, 1)).view(L * ncells_t, 8) for t in tables)
+        grids = [tuple(a.view(L, nrows_t, ncols_t)[:, 1:rows_max + 1,
+                                                   1:cols_max + 1]
+                       for a in sums)]
+        return stencil_ops.mesh_tables(mesh, layout, grids, side, nc,
+                                       from_sums=True)
 
     def geometry(rows):
         """Per pool row: the row itself, its shard's local index, local row

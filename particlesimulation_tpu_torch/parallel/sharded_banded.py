@@ -51,8 +51,7 @@ from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-from particlesimulation_tpu_torch.ops.stencil import com_from_sums
-from particlesimulation_tpu_torch.parallel.sharded import stencil_tables_halo
+from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 from particlesimulation_tpu_torch.parallel.sharded_resident import (
     _FIELDS, make_halo_transport, slabs_to_tiles, tiles_to_slabs, wrap_delta)
 
@@ -75,38 +74,16 @@ def cyclic_owner_of_rows(plan, n_shards: int, rows):
     return out
 
 
-def cyclic_halo_pad(mesh, grids, cnt):
-    """Halo-padded COM grids of every band's chunk: ``grids[b]`` is a tuple
-    of (L, cmax_b, nc) grids, ``cnt``: (B, L) owned rows of each chunk.
-    Each grid becomes (L, cmax_b + 2, nc) with row 0 the upper neighbour
-    chunk's last owned row and row ``cnt + 1`` the lower one's first row,
-    the edge shards' halos rolled one band (the edge-shard band shift)."""
-    L, nc = grids[0][0].shape[0], grids[0][0].shape[2]
-    d = mesh.size
-    first = mesh.shard_ids[:, None, None] == 0
-    last_shard = mesh.shard_ids[:, None, None] == d - 1
-
-    def stack(rows):
-        return tuple(torch.stack(r, dim=1) for r in zip(*rows))
-
-    lasts = stack([tuple(torch.gather(
-        g, 1, (cnt[b] - 1).view(L, 1, 1).expand(L, 1, nc))[:, 0] for g in gb)
-        for b, gb in enumerate(grids)])
-    firsts = stack([tuple(g[:, 0] for g in gb) for gb in grids])
-    top = tuple(torch.where(first, torch.roll(t, 1, dims=1), t)
-                for t in mesh.ppermute(lasts, 1))
-    bot = tuple(torch.where(last_shard, torch.roll(t, -1, dims=1), t)
-                for t in mesh.ppermute(firsts, -1))
-    out = []
-    for b, gb in enumerate(grids):
-        rows = torch.arange(gb[0].shape[1] + 2, device=gb[0].device)
-        at_bot = rows[None, :, None] == (cnt[b] + 1)[:, None, None]
-        out.append(tuple(
-            torch.where(at_bot, bo[:, b, None],
-                        torch.cat([t[:, b, None], g, g.new_zeros(L, 1, nc)],
-                                  dim=1))
-            for g, t, bo in zip(gb, top, bot)))
-    return out
+def cyclic_layout(mesh, rows, C: int, row0, rows_mine):
+    """The cyclic bands' COM halo (``ops/cuda/stencil.HaloLayout``): band b
+    of ``rows[b]`` rows a chunk, each shard's chunk from global row
+    ``row0[b]``, ``rows_mine[b]`` owned ((L,) int64 each); shard 0 takes its
+    top halo line from the band above, shard D - 1 its bottom line from
+    the band below (the edge-shard band shift), the 1D form's mirrors."""
+    return stencil_ops.HaloLayout(
+        tuple(rows), C, row0=tuple(row0), rows_mine=tuple(rows_mine),
+        top_shift=mesh.shard_ids == 0,
+        bot_shift=mesh.shard_ids == mesh.size - 1)
 
 
 def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
@@ -312,19 +289,19 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
             L * n)
         for tb, c, n in zip(tbase, cmax, nrt)])
 
+    layout = cyclic_layout(mesh, cmax, nc,
+                           [G0[b].contiguous() for b in range(B)],
+                           [CNT[b].contiguous() for b in range(B)])
+
     def mono_tables(sums):
         """The stencil tables from the per-cell sums of the COM row sums a
         band (``sums``: (3, slots) of m, m·x, m·y): each chunk's COM grid,
         the cyclic halo, the tables, stacked band by band (a zero sentinel
         cell last)."""
-        grids = [com_from_sums(*v.sum(dim=2).view(3, L, n, nc)[:, :, 1:c + 1])
+        grids = [tuple(v.sum(dim=2).view(3, L, n, nc)[:, :, 1:c + 1])
                  for v, n, c in zip(views(sums), nrt, cmax)]
-        tables = [stencil_tables_halo(*padded, side, nc, G0[b])
-                  for b, padded in enumerate(cyclic_halo_pad(mesh, grids,
-                                                             CNT))]
-        return tuple(torch.cat([t[i][:, :-1] for t in tables]
-                               + [tables[0][i][:, -1:]], dim=1)
-                     for i in range(3))
+        return stencil_ops.mesh_tables(mesh, layout, grids, side, nc,
+                                       from_sums=True)
 
     def advance(ts, fxd, fyd):
         """Monopole and integrate over the pool (one kernel, in place, a

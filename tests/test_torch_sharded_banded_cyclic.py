@@ -30,10 +30,11 @@ from particlesimulation_tpu_torch.engine import Engine
 from particlesimulation_tpu_torch.engine import MAX_XLA_KCAP as JAX_MAX_KCAP
 from particlesimulation_tpu_torch.initializer import init_particles_host
 from particlesimulation_tpu_torch.ops.banded import plan_bands_cyclic
+from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 from particlesimulation_tpu_torch.parallel.mesh import LocalMesh
 from particlesimulation_tpu_torch.parallel.sharded import ShardedEngine
 from particlesimulation_tpu_torch.parallel.sharded_banded import (
-    cyclic_halo_pad, cyclic_owner_of_rows)
+    cyclic_layout, cyclic_owner_of_rows)
 from particlesimulation_tpu_torch.state import ShardedState
 from particlesimulation_tpu_torch.utils import checkpointing
 from tests.test_torch_sharded import FIELDS, _assert_close, _single
@@ -198,7 +199,11 @@ def test_edge_shift_of_the_com_halo():
             grids.append((g,))
             cnt.append([len(rs) for rs in rows])
             first.append([rs[0] for rs in rows])
-        padded = cyclic_halo_pad(mesh, grids, torch.tensor(cnt))
+        layout = cyclic_layout(mesh, [g[0].shape[1] for g in grids], 2,
+                               [torch.tensor(f) for f in first],
+                               [torch.tensor(c) for c in cnt])
+        padded = stencil_ops.padded_grids(
+            grids, layout, stencil_ops.exchange(mesh, layout, grids))
         for b, (gp,) in enumerate(padded):
             for s in range(d):
                 top, n = first[b][s], cnt[b][s]

@@ -322,18 +322,18 @@ def test_zero_steps_capture(name):
     _assert_bits(_bits(out), _bits(eng.run_eager(state, 3)))
 
 
-# --- The graphs hold the stencil plans they read ----------------------------
+# --- The graphed runs and the stencil plans' cache -------------------------
 
-HELD = ["parity sweep", "f32 sweep", "dense", "tiered", "resident"]
+PLANNED = ["parity sweep", "f32 sweep", "dense", "tiered", "resident"]
 
 
-@pytest.mark.parametrize("name", HELD)
-def test_graphs_hold_the_stencil_plans_they_read(name):
-    """A graph reads its stencil plan's memory without holding the plan's
-    tensors: the run's ``StepGraph`` holds the plans its capture read, so
-    that the bounded cache may evict them (cleared here, then filled with
-    other grids). The run replays with the same bits and no new capture;
-    ``release`` drops the plans."""
+@pytest.mark.parametrize("name", PLANNED)
+def test_graphed_runs_outlive_the_plan_cache(name):
+    """On the CPU the tables are the plain gather by ``ops/stencil``'s
+    bounded plan cache (a CUDA tensor launches the tables kernel, which
+    reads no plan): a graphed run whose plan the cache evicted (cleared,
+    then filled with other grids) runs again with the same bits and no new
+    capture, on a new plan of its grid."""
     if name == "resident":
         eng = Engine(SimConfig(5893, 0.08, 4, 120), impl="resident",
                      device="cpu")
@@ -347,29 +347,26 @@ def test_graphs_hold_the_stencil_plans_they_read(name):
     key = (float(eng.config.side), eng.config.ncside, dtype,
            torch.device("cpu"))
     plan = stencil._stencil_plan(*key)
-    assert graphs.held and all(p is plan for p in graphs.held)
     stencil._stencil_plan.cache_clear()
     for nc in range(5, 5 + stencil._stencil_plan.cache_info().maxsize):
         stencil._stencil_plan(1.0, nc, dtype, torch.device("cpu"))
-    assert stencil._stencil_plan(*key) is not plan
     _assert_bits(_bits(eng.run(state, 2)), first)
-    assert graphs.captures == captures and graphs.held[0] is plan
-    graphs.release()
-    assert graphs.held == []
+    assert graphs.captures == captures
+    assert stencil._stencil_plan(*key) is not plan
 
 
-def test_stencil_holding():
-    """``stencil.holding``: every plan read inside the block is appended to
-    each list held open, and none after; the cache is bounded."""
+def test_stencil_plan_cache():
+    """``ops/stencil``'s plan cache: one plan a grid, which every tables
+    call on the grid reuses, at most 8 grids; a plan made anew gives the
+    same tables."""
     M = torch.rand(9, dtype=torch.float64)
-    outer, inner = [], []
-    with stencil.holding(outer):
-        stencil.stencil_tables(M, M, M, 1.0, 3)
-        with stencil.holding(inner):
-            stencil.stencil_tables(M, M, M, 1.0, 3)
-    stencil.stencil_tables(M, M, M, 1.0, 3)
-    plan = stencil._stencil_plan(1.0, 3, torch.float64, torch.device("cpu"))
-    assert len(outer) == 2 and len(inner) == 1
-    assert all(p is plan for p in outer + inner)
-    assert stencil._HOLDERS == []
+    stencil._stencil_plan.cache_clear()
+    first = stencil.stencil_tables(M, M, M, 1.0, 3)
+    hits = stencil._stencil_plan.cache_info().hits
+    again = stencil.stencil_tables(M, M, M, 1.0, 3)
+    assert stencil._stencil_plan.cache_info().hits == hits + 1
+    stencil._stencil_plan.cache_clear()
+    fresh = stencil.stencil_tables(M, M, M, 1.0, 3)
+    for a, b, c in zip(first, again, fresh):
+        assert torch.equal(a, b) and torch.equal(a, c)
     assert stencil._stencil_plan.cache_info().maxsize == 8
