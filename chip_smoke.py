@@ -413,20 +413,31 @@ be. the ``torch.distributed`` mesh (``parallel/mesh.DistMesh``, one shard
 bf. the migration pack (``ops/cuda/migrate``: ``compact``, the emigrant
    buffer, and ``pack``, the landing) and the mesh monopole + integrate
    (``ops/cuda/advance``'s ``tile_monopole_integrate`` and
-   ``gathered_monopole_integrate``, one kernel family) against their plain
+   ``gathered_monopole_integrate``, the resident and band meshes' rows, a
+   thread a slot; ``supercell_monopole_integrate``,
+   the super-cell routes' pass from the cell sums, its neighbourhood staged
+   where it fits, else every slot building its terms from the sums)
+   against their plain
    versions on the card, bit for bit: on ``ops/cuda/adversarial``'s
    ``pack_cases`` (no free slot, overflow, no arrival, all arriving, thin
    arrivals over many blocks with only the last slot free, a buffer of 1,
-   f32 fields, the 2D column buffer), ``compact_cases`` and
-   ``mesh_monopole_case`` (both forms; a slot's index, int64 and int32, a
-   row's, a band pool's rows; d² = 0 and subnormal d²; frozen, unbinned and
-   wrapping slots), then on every migration call of the first step of the
-   parity meshes at golden s1 (D = 2, 4, (2, 2)) and the monopole +
-   integrate call of the six tile engines (the flagship's mesh at D = 4 and
-   (2, 2), SMALL's mesh super-cells, UNEVEN's column and cyclic bands at D
-   = 4, SMALL on one device), their own inputs recorded from an eager
-   step; those calls timed against their bounds (run in the main run after
-   ar-at; alone with ``--mesh-kernels``).
+   f32 fields, the 2D column buffer), ``compact_cases``,
+   ``mesh_monopole_case`` (both forms; a row's index, a band pool's rows;
+   d² = 0 and subnormal d²; frozen, unbinned and wrapping slots),
+   ``row_monopole_cases`` (bands of K 32 to 896, one live slot in 896, 40
+   runs) and ``supercell_monopole_cases`` (nc 1-3, short edge
+   super-cells, limbo, strays, empty and full rows, a row of 4096, a box
+   past the stage, a mesh's tail and halo rows; int64 and int32 cells),
+   then on every migration call of the first step of the parity meshes at
+   golden s1 (D = 2, 4, (2, 2)) and the monopole + integrate call of the
+   six tile engines (the flagship's mesh at D = 4 and (2, 2), SMALL's mesh
+   super-cells, UNEVEN's column and cyclic bands at D = 4, SMALL on one
+   device) and the ``DistMesh`` NCCL D = 1 super-cell and band paths,
+   their own inputs recorded from an eager step; those calls timed against
+   their bounds, the super-cells' beside the tables kernel on the same
+   sums (run in the main run after ar-at; alone with ``--mesh-kernels``;
+   ``--mesh-times`` times the parent's kernels on the same paths, each
+   checkout in its own process).
 
 ``python3 chip_smoke.py --graphs`` runs phase bc alone,
 ``python3 chip_smoke.py --com-back-to-back`` phase bd alone,
@@ -570,9 +581,11 @@ its valid flag; the emigrant buffer reads the emig flags and moves every
 buffer entry's fields with its valid flag (the plain version fills all of
 them); the mesh monopole + integrate reads m, mf, fxd, fyd, x, y, vx, vy
 and writes x, y, vx, vy for a live slot (48 bytes), m for a frozen one
-(4), the index (a live slot's, or a row's) and the binned flag where
-given, and the 24 table words of each index read, once (``library_ms``:
-none; no single PyTorch call computes either function).
+(4), the row's index and the binned flag where given, and the 24 table
+words of each index read, once; the super-cell pass the same 48 and 4, a
+live slot's cell index, the sums (12 bytes a cell) and the halo lines
+once, and no table (``library_ms``: none; no single PyTorch call computes
+any of these functions).
 
 Phase bg (``check_stencil``; alone: ``--stencil``): the stencil tables'
 kernels of ``csrc/stencil.cu`` against their plain versions, bit for bit,
@@ -589,7 +602,9 @@ alone, v every source (a 0, the grids, the received lines) and idx each
 table entry's (from the plain version's mass table run on the sources'
 own indices); the port never calls it. Every path that builds tables must
 launch its kernel (``stencil_grid`` on one device, ``stencil_halo`` on the
-mesh routes).
+mesh routes); the super-cell routes (SMALL on one device and on the mesh)
+build none: their monopole pass takes the cell sums, and every check of
+those paths fails if a stencil kernel launched there.
 
 Bounds of the sweep kernels (``_sweep_bounds``): key (4 bytes) and the
 float fields a lane, each output once; 9 operations a lane for the COM, 17
@@ -737,6 +752,11 @@ REPLACES = {
     "migrate_pack": "particlesimulation_tpu/parallel/sharded.py:223-240",
     "monopole_gathered":
         "particlesimulation_tpu/parallel/sharded_resident.py:345-349",
+    # XLA code: the super-cell engines' monopole (ops/supercell.py's
+    # monopole_forces_general :209 with integrate :404-407; the mesh's
+    # sharded_supercell.py:200-260, :428-431), with the stencil tables it
+    # gathers from.
+    "monopole_supercell": "particlesimulation_tpu/ops/supercell.py:209",
     # XLA code: the stencil tables (eight rolls and the mirror offsets)
     # with the COM from the sums; the meshes' halo forms with their pads
     # (the 1D mesh's, the 2D mesh's and its two-phase halo :147, the column
@@ -762,14 +782,17 @@ PORT_KERNELS = ("fused_pairs_kernel", "labelled_warp_kernel",
                 "settle_sums_kernel", "sweep_com_kernel",
                 "sweep_forces_parity_kernel", "sweep_forces_fast_kernel",
                 "sweep_collisions_kernel", "sweep_collision_count_kernel",
-                "sweep_occupancy_kernel", "monopole_rows_kernel",
-                "monopole_slots_kernel", "migrate_count_kernel",
+                "sweep_occupancy_kernel", "monopole_pool_kernel",
+                "monopole_supercell_kernel", "migrate_count_kernel",
                 "pack_arrivals_kernel", "pack_place_kernel",
                 "compact_place_kernel", "stencil_grid_kernel",
                 "stencil_halo_kernel",
-                # a parent checkout's (--advance-times) row sums, and its
-                # sweep force kernel (--sweep-times)
-                "cell_sums_rows_kernel", "sweep_forces_kernel")
+                # a parent checkout's (--advance-times) row sums, its
+                # sweep force kernel (--sweep-times) and its two mesh
+                # monopole kernels (--mesh-times), which these kernels
+                # replaced: each named in the per-kernel times
+                "cell_sums_rows_kernel", "sweep_forces_kernel",
+                "monopole_rows_kernel", "monopole_slots_kernel")
 # The kernels of ops/cuda/advance on the resident and banded steps, by
 # their launch counts.
 ADVANCE_KERNELS = ("monopole_integrate", "deliver", "pair_masks",
@@ -784,6 +807,9 @@ MIGRATE_KERNELS = ("pack", "compact")
 STENCIL_SOURCE = "particlesimulation_tpu_torch/csrc/stencil.cu"
 STENCIL_KERNELS = ("stencil_grid", "stencil_halo")
 STENCIL_MESH = ("stencil_halo",)
+# The super-cell paths' monopole pass, which builds its terms from the cell
+# sums: those paths launch no stencil tables kernel.
+SC_MONOPOLE = ("monopole_supercell",)
 # The bands one stencil_halo launch takes (csrc/stencil.cu kMaxBands).
 STENCIL_BANDS = 32
 
@@ -1222,6 +1248,14 @@ def require_launches(label, launches, kernels):
     if missing:
         raise AssertionError(f"{label}: {missing} did not launch: "
                              f"{launches}")
+
+
+def forbid_launches(label, launches, kernels):
+    """Fail if a kernel of ``kernels`` launched on the path (the super-cell
+    paths build no stencil tables)."""
+    ran = [k for k in kernels if launches.get(k, 0) > 0]
+    if ran:
+        raise AssertionError(f"{label}: {ran} launched: {launches}")
 
 
 def drive(label, eng, state, steps, kernels):
@@ -1913,8 +1947,8 @@ def check_small(card):
     state = eng.init_state()
     out, launches = check_golden(
         "SMALL supercell", eng, state, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
-         "stencil_grid"])
+        ["fused_pairs_sub", "supercell_cell_sums", *SC_MONOPOLE])
+    forbid_launches("SMALL supercell", launches, STENCIL_KERNELS)
     if eng.impl != "supercell" or eng._supercell_factor() != SMALL_S:
         raise AssertionError(f"SMALL: {eng.impl}, S {eng._supercell_factor()}")
     print(f"SMALL: the census's route {eng.impl}, S {eng._supercell_factor()} "
@@ -2302,8 +2336,9 @@ def check_mesh_routes(card):
           f"super-rows {SMALL_SC_STARTS}, kcap {sm.kcap}", flush=True)
     sout, launches["SMALL mesh"] = check_golden(
         "SMALL mesh supercell D=4", sm, sstate, steps, SMALL_10,
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
-         *STENCIL_MESH])
+        ["fused_pairs_sub", "supercell_cell_sums", *SC_MONOPOLE])
+    forbid_launches("SMALL mesh supercell D=4", launches["SMALL mesh"],
+                    STENCIL_KERNELS)
     one = Engine(SimConfig(*SMALL[:4]), device="cuda")
     ostate = one.init_state()
     oout = one.run(ostate, steps)
@@ -2535,8 +2570,9 @@ def check_mesh2d(card):
         raise AssertionError(f"SMALL 2D census: {sm.impl}")
     sout, _, launches["SMALL 2D -> supercell"] = drive(
         "SMALL mesh (2, 2) -> supercell D=4", sm, sstate, SMALL[4],
-        ["fused_pairs_sub", "supercell_cell_sums", "monopole_gathered",
-         *STENCIL_MESH])
+        ["fused_pairs_sub", "supercell_cell_sums", *SC_MONOPOLE])
+    forbid_launches("SMALL mesh (2, 2) -> supercell D=4",
+                    launches["SMALL 2D -> supercell"], STENCIL_KERNELS)
     one_d = ShardedEngine(SimConfig(*SMALL[:4], n_shards=4), device="cuda")
     _same_bits("SMALL 10 steps, mesh (2, 2) delegated vs 1D D=4",
                sm.gather(sout), one_d.gather(one_d.run(one_d.init_state(),
@@ -3277,7 +3313,8 @@ def check_step(label, eng, state, most, exact, steps=10, tries=3):
 # its count, stage and place passes), a parent checkout's too.
 ADVANCE_KERNELS_A_CALL = {"cell_sums_rows": 1, "monopole_integrate": 1,
                           "deliver": 3, "pair_masks": 1, "settle_sums": 1,
-                          "monopole_gathered": 1, "pack": 3, "compact": 2}
+                          "monopole_gathered": 1, "monopole_supercell": 1,
+                          "pack": 3, "compact": 2}
 
 
 def advance_phase(label, phases, state, reps=5):
@@ -5425,17 +5462,20 @@ GRAPH_PATHS = (
 
 
 # The mesh kernels each graph path must launch, beside its own: the
-# mesh monopole + integrate on the tile meshes and single-device SMALL, the
-# migration pack on the parity meshes (at D = 1 the emigrant buffer alone:
-# no ring hop lands anything), the stencil tables' kernels on every path
-# that builds tables (all but the resident and banded steps, whose
-# monopole pass reads the row sums).
+# mesh monopole + integrate on the resident and band meshes, the super-cell
+# monopole on SMALL and the mesh's super-cells, the migration pack on the
+# parity meshes (at D = 1 the emigrant buffer alone: no ring hop lands
+# anything), the stencil tables' kernels on every path that builds tables
+# (all but the resident and banded steps, whose monopole pass reads the row
+# sums, and the super-cell paths, whose pass builds its terms from the
+# cell sums: GRAPH_FORBIDS).
 GRAPH_NEEDS = {
     **{label: ("monopole_gathered", *STENCIL_MESH) for label in (
-        "mesh fast D=4", "mesh supercell D=4", "column bands D=4",
-        "cyclic D=4", "2D (2, 2)", "DistMesh NCCL fast D=1",
-        "DistMesh NCCL supercell D=1", "DistMesh NCCL bands D=1")},
-    "SMALL supercell": ("monopole_gathered", "stencil_grid"),
+        "mesh fast D=4", "column bands D=4", "cyclic D=4", "2D (2, 2)",
+        "DistMesh NCCL fast D=1", "DistMesh NCCL bands D=1")},
+    **{label: SC_MONOPOLE for label in (
+        "SMALL supercell", "mesh supercell D=4",
+        "DistMesh NCCL supercell D=1")},
     **{label: MIGRATE_KERNELS + STENCIL_MESH for label in (
         "mesh parity D=2", "mesh parity D=4", "2D parity (2, 2)")},
     "DistMesh NCCL parity D=1": ("compact", *STENCIL_MESH),
@@ -5444,6 +5484,10 @@ GRAPH_NEEDS = {
         "MEDIUM parity (golden s3)", "parity 9 cells (teams off)",
         "dense flagship", "UNEVEN tiered")},
 }
+
+
+GRAPH_FORBIDS = {label: STENCIL_KERNELS for label in (
+    "SMALL supercell", "mesh supercell D=4", "DistMesh NCCL supercell D=1")}
 
 
 def _graph_engine(kind, args, cfg_kw, eng_kw, small=False):
@@ -5587,6 +5631,8 @@ def check_graph_path(card, label, kind, args, cfg_kw, eng_kw, want, k,
         launches = read_sweep_launches(f"{label} (bc, graphed)")
     require_launches(f"{label} (bc, graphed)", launches,
                      GRAPH_NEEDS.get(label, ()))
+    forbid_launches(f"{label} (bc, graphed)", launches,
+                    GRAPH_FORBIDS.get(label, ()))
     if eng.impl != want or int(first.overflow) != 0:
         raise AssertionError(f"{label}: ran {eng.impl} (want {want}), "
                              f"overflow {int(first.overflow)}")
@@ -5876,7 +5922,7 @@ def check_com_back_to_back(card):
 # (UNEVEN, through the census) and block-cyclic bands, rectangle tiles and
 # the 2D sweep, and the 2D census's delegation to super-cells.
 SC_KERNELS = ("fused_pairs_sub", "supercell_cell_sums", "deliver",
-              "monopole_gathered", *STENCIL_MESH)
+              *SC_MONOPOLE)
 BAND_KERNELS = ("fused_pairs", "deliver", "monopole_gathered", *STENCIL_MESH)
 DIST_PATHS = (
     ("flagship fast", GOLDEN_S1[:4], {}, {}, False, "resident",
@@ -5974,6 +6020,8 @@ def _path_launches(path, tag=None, d=1):
     got = read_launches()
     if not all(got[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel of {label} did not launch: {got}")
+    if kernels is SC_KERNELS:
+        forbid_launches(label, got, STENCIL_KERNELS)
     return got
 
 
@@ -6304,7 +6352,14 @@ BF_MONOPOLE_PATHS = (
     ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
      {"impl": "banded-cyclic"}),
     ("SMALL supercell", "engine", SMALL[:4], {}, {}),
+    ("DistMesh NCCL supercell D=1", "dist", SMALL[:4], {"n_shards": 1}, {}),
+    ("DistMesh NCCL bands D=1", "dist", UNEVEN, {"n_shards": 1}, {}),
 )
+# The wrappers of the mesh monopole pass whose calls phase bf records: the
+# resident meshes', the band meshes' and the super-cell engines'.
+BF_MONOPOLE_WRAPPERS = ("tile_monopole_integrate",
+                        "gathered_monopole_integrate",
+                        "supercell_monopole_integrate")
 
 
 def _exact(a, b):
@@ -6372,23 +6427,18 @@ def _monopole_mesh_bound(f, row_start, index, binned):
     """What the mesh monopole + integrate needs: a live slot (m != 0) reads
     m, mf, fxd, fyd, x, y, vx, vy and writes x, y, vx, vy (48 bytes), a
     frozen one reads m (4); the binned flag of a live slot where given;
-    with ``row_start`` (an index a row), the index (8 bytes, where given:
-    else the row is its own) and the 24 table words of each row with a
-    live slot, else each live slot's index and the 24 table words of each
-    index they read, once; ~150 f32 operations and 8 rsqrt a live slot."""
+    the row index (8 bytes, where given: else the row is its own) and the
+    24 table words of each row (``row_start``) with a live slot, once;
+    ~150 f32 operations and 8 rsqrt a live slot."""
     live_mask = f["m"].reshape(-1) != 0
     live = int(live_mask.sum())
     nbytes = 48 * live + 4 * (live_mask.numel() - live)
     if binned is not None:
         nbytes += live
-    if row_start is not None:
-        cum = torch.cat([live_mask.new_zeros(1, dtype=torch.int64),
-                         torch.cumsum(live_mask, 0)])
-        used = int((cum[row_start[1:]] > cum[row_start[:-1]]).sum())
-        nbytes += 8 * used if index is not None else 0
-    else:
-        nbytes += index.element_size() * live
-        used = int(torch.unique(index.reshape(-1)[live_mask]).numel())
+    cum = torch.cat([live_mask.new_zeros(1, dtype=torch.int64),
+                     torch.cumsum(live_mask, 0)])
+    used = int((cum[row_start[1:]] > cum[row_start[:-1]]).sum())
+    nbytes += 8 * used if index is not None else 0
     return _bound(nbytes + 96 * used, 150 * live, 8 * live)
 
 
@@ -6473,19 +6523,51 @@ def check_compact(tag, args, timed=False):
     return rec
 
 
+def _monopole_super_bound(f, cell, sums, lines):
+    """What the super-cell monopole + integrate needs: 48 bytes a live slot
+    and 4 a frozen one (as the mesh pass), each live slot's cell index, the
+    sums (12 bytes a cell) and the halo lines once; ~150 f32 operations and
+    8 rsqrt a live slot. No table is read or written."""
+    live_mask = f["m"].reshape(-1) != 0
+    live = int(live_mask.sum())
+    nbytes = (48 * live + 4 * (live_mask.numel() - live)
+              + cell.element_size() * live + _nbytes(*sums)
+              + (_nbytes(*lines[:2]) if lines is not None else 0))
+    return _bound(nbytes, 150 * live, 8 * live)
+
+
+def _tables_call(sums, side, nc, kw):
+    """The stencil tables kernel (``stencil_grid`` / ``stencil_halo``) on a
+    super-cell call's sums, as a callable: the tables the super-cell pass
+    no longer builds."""
+    from particlesimulation_tpu_torch.ops.cuda import stencil as st
+
+    layout = kw.get("layout")
+    if layout is None:
+        return lambda: st.grid_tables(*sums, side, nc, from_sums=True)
+    L, R = layout.row0[0].shape[0], layout.rows[0]
+    grids = [tuple(a.view(L, R, nc) for a in sums)]
+    return lambda: st.halo_tables(grids, layout, kw["lines"], side, nc,
+                                  from_sums=True)
+
+
 def check_mesh_monopole(tag, fn_name, args, kw, timed=False):
-    """(bf) The mesh monopole + integrate kernel (``fn_name``:
-    ``tile_monopole_integrate`` or ``gathered_monopole_integrate``) against
-    its plain version on the card, each on its own copy of x, y, vx, vy:
-    every output bit for bit; with ``timed``, the record and its bound
-    (timed on one copy, updated in place call after call: the same work
-    each call, the frozen slots staying frozen)."""
+    """(bf) The mesh monopole + integrate kernels (``fn_name``:
+    ``tile_monopole_integrate`` or ``gathered_monopole_integrate``, the
+    resident and band meshes' rows; or ``supercell_monopole_integrate``,
+    the super-cell routes' pass from the cell sums) against the plain
+    version on the card, each on its own copy of x, y, vx, vy: every
+    output bit for bit. With ``timed``, the record and its bound (timed on
+    one copy, updated in place call after call: the same work each call,
+    the frozen slots staying frozen) and, for the super-cells, the tables
+    kernel (``stencil_grid`` / ``stencil_halo``) on the same sums."""
     from particlesimulation_tpu_torch.ops.cuda import advance as adv
 
     fields = dict(zip(("x", "y", "vx", "vy", "m", "mf", "fxd", "fyd"),
                       args[:8]))
     rest = args[8:]
     fn, ref_fn = getattr(adv, fn_name), getattr(adv, fn_name + "_ref")
+    sc = fn_name == "supercell_monopole_integrate"
 
     def fresh():
         return tuple(fields[k].clone() for k in ("x", "y", "vx", "vy"))
@@ -6496,15 +6578,14 @@ def check_mesh_monopole(tag, fn_name, args, kw, timed=False):
     def plain(xyv):
         return ref_fn(*xyv, *args[4:8], *rest, **kw)
 
-    got, ref = kernel(fresh()), plain(fresh())
-    bad = [k for k, a, b in zip(("x", "y", "vx", "vy"), got, ref)
-           if not _exact(a, b)]
+    ref = plain(fresh())
+    got = kernel(fresh())
+    bad = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+           for k, a, b in zip(("x", "y", "vx", "vy"), got, ref)
+           if not _exact(a, b)}
     if bad:
-        diff = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
-                for k, a, b in zip(("x", "y", "vx", "vy"), got, ref)
-                if k in bad}
         raise AssertionError(f"{tag}: {fn_name} differs from the plain "
-                             f"chain in {diff} slots")
+                             f"chain in {bad} slots")
     live = int((fields["m"] != 0).sum())
     finite = [bool(torch.isfinite(a).all()) for a in got]
     print(f"{tag}: {fn_name} bit for bit the plain chain on "
@@ -6514,21 +6595,30 @@ def check_mesh_monopole(tag, fn_name, args, kw, timed=False):
            "max_abs_err": max(_max_diff(a[torch.isfinite(a)],
                                         b[torch.isfinite(b)])
                               for a, b in zip(got, ref))}
-    if timed:
-        one = fresh()
-        rec.update({"ms": _timed(lambda: kernel(one), 20),
-                    "device_ms": device_ms(lambda: kernel(one), 20),
-                    "plain_ms": _timed(lambda: plain(one), 3)})
-        if fn_name == "tile_monopole_integrate":
-            rows, index = rest[1], None
-        else:
-            rows, index = kw.get("row_start"), rest[1]
-        _record(rec, _monopole_mesh_bound(fields, rows, index,
-                                          kw.get("binned")))
-        print(f"{tag}: {fn_name} {rec['ms']:.4f} ms a call, "
-              f"{rec['device_ms']:.4f} device (bound {rec['bound_ms']:.4f}, "
-              f"{rec['bound_by']}; {live} live slots); plain chain "
-              f"{rec['plain_ms']:.4f}", flush=True)
+    if not timed:
+        return rec
+    one = fresh()
+    rec.update({"ms": _timed(lambda: kernel(one), 20),
+                "device_ms": device_ms(lambda: kernel(one), 20),
+                "plain_ms": _timed(lambda: plain(one), 3)})
+    tables_txt = ""
+    if sc:
+        _record(rec, _monopole_super_bound(fields, rest[1], rest[0],
+                                           kw.get("lines")))
+        rec["tables_device_ms"] = device_ms(
+            _tables_call(rest[0], rest[2], rest[3], kw), 20)
+        tables_txt = (f"; the tables kernel on the same sums "
+                      f"{rec['tables_device_ms']:.4f}")
+    elif fn_name == "tile_monopole_integrate":
+        _record(rec, _monopole_mesh_bound(fields, rest[1], None, None))
+    else:
+        _record(rec, _monopole_mesh_bound(
+            fields, adv.row_starts(rest[4], one[0].device), rest[1],
+            kw.get("binned")))
+    print(f"{tag}: {fn_name} {rec['ms']:.4f} ms a call, "
+          f"{rec['device_ms']:.4f} device (bound {rec['bound_ms']:.4f}, "
+          f"{rec['bound_by']}; {live} live slots){tables_txt}; plain chain "
+          f"{rec['plain_ms']:.4f}", flush=True)
     return rec
 
 
@@ -6546,47 +6636,80 @@ def _adversarial_mesh_calls(dev):
     compacts = {name: ((({k: t(v) for k, v in sl.items()}, t(e), b),
                         {k: t(v) for k, v in ex.items()}))
                 for name, (sl, e, b, ex) in adv.compact_cases().items()}
-    c = adv.mesh_monopole_case()
-    f = [t(c[k]) for k in ("x", "y", "vx", "vy", "m", "mf", "fxd", "fyd")]
-    side = c["side"]
     from particlesimulation_tpu_torch.config import DELTAT
+    from particlesimulation_tpu_torch.ops.cuda import advance
+    from particlesimulation_tpu_torch.ops.cuda import stencil as st
 
+    names = ("x", "y", "vx", "vy", "m", "mf", "fxd", "fyd")
+    c = adv.mesh_monopole_case()
+    f = [t(c[k]) for k in names]
+    side = c["side"]
     tile = tuple(t(a) for a in c["tile"])
     gath = tuple(t(a) for a in c["gathered"])
-    slot, binned = t(c["slot_index"]), t(c["binned"])
+    binned = t(c["binned"])
+    pool_rs = t(c["pool_row_start"])
     monos = [
         ("tile", "tile_monopole_integrate",
          (*f, tile, t(c["row_start"]), side, DELTAT), {}),
-        ("slots int64", "gathered_monopole_integrate",
-         (*f, gath, slot, side, DELTAT), {}),
-        ("slots int32", "gathered_monopole_integrate",
-         (*f, gath, slot.int(), side, DELTAT), {}),
-        ("slots binned", "gathered_monopole_integrate",
-         (*f, gath, slot, side, DELTAT), {"binned": binned}),
         ("rows", "gathered_monopole_integrate",
-         (*f, gath, t(c["row_index"]), side, DELTAT),
-         {"row_start": t(c["row_start"]), "binned": binned}),
+         (*f, gath, t(c["row_index"]), side, DELTAT,
+          ((25, f[0].shape[1]),)), {"binned": binned}),
         ("pool rows", "gathered_monopole_integrate",
-         (*f, gath, t(c["pool_row_index"]), side, DELTAT),
-         {"row_start": t(c["pool_row_start"]), "binned": binned}),
+         (*f, gath, t(c["pool_row_index"]), side, DELTAT,
+          tuple((n, w) for _, n, w in advance._segments(pool_rs))),
+         {"binned": binned}),
     ]
+    for rc in adv.row_monopole_cases():
+        f = [t(rc[k]) for k in names]
+        rows = (t(rc["row_start"]), t(rc["row_index"]))
+        monos.append((rc["name"], "gathered_monopole_integrate",
+                      (*f, tuple(t(a) for a in rc["gathered"]), rows[1],
+                       rc["side"], DELTAT, rc["runs"]),
+                      {"binned": t(rc["binned"])}))
+        if rc["tile"] is not None:
+            (nrows, K), = rc["runs"]
+            monos.append((f"{rc['name']}, row tables",
+                          "tile_monopole_integrate",
+                          (*(a.view(nrows, K) for a in f),
+                           tuple(t(a) for a in rc["tile"]), rows[0],
+                           rc["side"], DELTAT), {}))
+    for sc in adv.supercell_monopole_cases():
+        f = [t(sc[k]) for k in names]
+        kw = {}
+        if sc["mesh"] is not None:
+            m = sc["mesh"]
+            kw = {"layout": st.HaloLayout(
+                (m["R"],), sc["nc"], row0=(t(m["row0"]),),
+                rows_mine=(t(m["rows_mine"]),)),
+                  "lines": (t(m["top"]), t(m["bot"]), None, None)}
+        for dtype in (torch.int64, torch.int32):
+            monos.append((f"{sc['name']} ({str(dtype)[6:]} cells)",
+                          "supercell_monopole_integrate",
+                          (*f, tuple(t(a) for a in sc["sums"]),
+                           t(sc["cell"]).to(dtype), sc["side"], sc["nc"],
+                           DELTAT, sc["S"]), kw))
     return packs, compacts, monos
 
 
 def check_mesh_kernels(card):
     """(bf) The migration pack (``pack``, ``compact``) and the mesh
-    monopole + integrate kernel against their plain versions on the card,
-    bit for bit: on ``ops/cuda/adversarial``'s cases (``pack_cases``,
-    ``compact_cases``, ``mesh_monopole_case`` in every form and index
-    mode), on every migration call of the first step of the parity meshes
-    at D = 2, 4 and (2, 2) (golden s1; their own slabs and buffers,
+    monopole + integrate kernels (the resident and band meshes' rows, the
+    super-cell routes' pass from the cell sums in both forms) against
+    their plain versions on the card, bit for bit: on
+    ``ops/cuda/adversarial``'s cases (``pack_cases``, ``compact_cases``,
+    ``mesh_monopole_case`` in both forms and row modes,
+    ``row_monopole_cases``, ``supercell_monopole_cases`` with int64 and
+    int32 cells), on every migration call of the first step of the parity
+    meshes at D = 2, 4 and (2, 2) (golden s1; their own slabs and buffers,
     recorded from an eager run), and on the monopole + integrate call of
     the first step of the six tile engines at their paths' sizes (the
     flagship's mesh at D = 4 and on (2, 2), SMALL's mesh super-cells at D =
-    4, UNEVEN's column and cyclic bands at D = 4, single-device SMALL); the
-    engines' calls timed (ms, device ms) against their bounds. Returns
-    {"migrate_pack": record, "monopole_gathered": record} (the flagship
-    parity mesh at D = 2's pack, the flagship fast mesh's monopole)."""
+    4, UNEVEN's column and cyclic bands at D = 4, single-device SMALL) and
+    of the ``DistMesh`` NCCL D = 1 super-cell and band paths; the engines'
+    calls timed (ms, device ms) against their bounds, the super-cells'
+    beside the tables kernel on the same sums. Returns {"migrate_pack": record, "monopole_gathered": record,
+    "monopole_supercell": record} (the flagship parity mesh at D = 2's
+    pack, the flagship fast mesh's rows, SMALL's super-cell pass)."""
     from particlesimulation_tpu_torch.ops import graphed
     from particlesimulation_tpu_torch.ops.cuda import advance as adv
     from particlesimulation_tpu_torch.ops.cuda import migrate
@@ -6624,22 +6747,22 @@ def check_mesh_kernels(card):
         torch.cuda.empty_cache()
     for label, kind, args, cfg_kw, eng_kw in BF_MONOPOLE_PATHS:
         eng, state = _graph_engine(kind, args, cfg_kw, eng_kw)
-        names = ("tile_monopole_integrate", "gathered_monopole_integrate")
-        with _recording(adv, names[0], 1) as tiles, _recording(
-                adv, names[1], 1) as gathered:
+        with contextlib.ExitStack() as stack:
+            recorded = [(name, stack.enter_context(_recording(adv, name, 1)))
+                        for name in BF_MONOPOLE_WRAPPERS]
             eng.run_eager(state, 1)
         torch.cuda.synchronize()
-        calls = [(names[0], c) for c in tiles] + [(names[1], c)
-                                                   for c in gathered]
+        calls = [(name, c) for name, got in recorded for c in got]
         if len(calls) != 1:
             raise AssertionError(f"{label}: {len(calls)} monopole calls "
                                  f"recorded, not 1")
         fn, (a, kw) = calls[0]
-        r = check_mesh_monopole(f"{label} ({eng.impl})", fn, a, kw,
+        r = check_mesh_monopole(f"{label} ({_target(eng).impl})", fn, a, kw,
                                 timed=True)
-        recs.setdefault("monopole_gathered", r)
+        recs.setdefault("monopole_supercell" if fn.startswith("supercell")
+                        else "monopole_gathered", r)
         graphed.release(_target(eng)._run)
-        del eng, state, calls
+        del eng, state, calls, recorded
         torch.cuda.empty_cache()
     print(f"the mesh kernels (bf): {time.perf_counter() - t0:.1f} s on "
           f"{card}", flush=True)
@@ -6652,7 +6775,6 @@ def check_mesh_kernels(card):
 BG_PATHS = (
     ("parity s1", "engine", GOLDEN_S1[:4], {"precision": "parity"}, {}),
     ("MEDIUM f64", "engine", MEDIUM[:4], {"precision": "parity"}, {}),
-    ("SMALL supercell", "engine", SMALL[:4], {}, {}),
     ("dense flagship", "engine", GOLDEN_S1[:4], {}, {"impl": "dense"}),
     ("UNEVEN tiered", "engine", UNEVEN, {}, {"impl": "tiered"}),
     ("mesh parity D=2", "mesh", GOLDEN_S1[:4],
@@ -6664,13 +6786,14 @@ BG_PATHS = (
     ("mesh fast D=4", "mesh", GOLDEN_S1[:4], {"n_shards": 4}, {}),
     ("2D (2, 2)", "mesh2d", GOLDEN_S1[:4],
      {"n_shards": 4, "mesh_shape": (2, 2)}, {}),
-    ("mesh supercell D=4", "mesh", SMALL[:4], {"n_shards": 4}, {}),
     ("column bands D=4", "mesh", UNEVEN, {"n_shards": 4}, {}),
     ("cyclic D=4", "mesh", UNEVEN, {"n_shards": 4},
      {"impl": "banded-cyclic"}),
 )
-# The records of the kernels line: SMALL's true grid, the fast mesh's halo.
-BG_RECORDS = {"stencil_grid": "SMALL supercell",
+# The records of the kernels line: parity s1's grid (the CLI's default
+# route), the fast mesh's halo. (The super-cell routes build no tables: bf
+# times the tables kernel on their sums beside their pass.)
+BG_RECORDS = {"stencil_grid": "parity s1",
               "stencil_halo": "mesh fast D=4"}
 
 
@@ -7064,8 +7187,8 @@ def main():
         print(json.dumps({"kernels": [
             kernel_entry("migrate_pack", 0, recs["migrate_pack"],
                          MIGRATE_SOURCE),
-            kernel_entry("monopole_gathered", 0, recs["monopole_gathered"],
-                         ADVANCE_SOURCE)]}))
+            *(kernel_entry(k, 0, recs[k], ADVANCE_SOURCE)
+              for k in ("monopole_gathered", "monopole_supercell"))]}))
         return
     if sys.argv[1:2] == ["--stencil"]:
         # Phase bg alone.
@@ -7350,6 +7473,9 @@ def main():
             *route_launches.values(), *mesh2d_launches.values(),
             medium_launches, *dist_launches.values()),
             mesh_recs["monopole_gathered"], ADVANCE_SOURCE),
+        kernel_entry("monopole_supercell", on_paths(
+            "monopole_supercell", *sc_paths),
+            mesh_recs["monopole_supercell"], ADVANCE_SOURCE),
         *(kernel_entry(k, on_paths(
             k, dense_launches, tiered_launches, small_launches, small_cli,
             mesh_launches, *route_launches.values(),

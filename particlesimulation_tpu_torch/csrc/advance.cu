@@ -24,11 +24,14 @@
 //     its binned slots.
 //
 // The mesh engines and the super-cell engines take the monopole and the
-// integrator in one pass too, monopole_rows_kernel or monopole_slots_kernel
-// (step_mf's arithmetic): their tables come from a halo exchange (or the
-// true grid's cells), not from row sums with row = cell, so these read
-// each slot's 8 terms from the tables at a row's or a slot's index, and
-// leave the destinations to the engine.
+// integrator in one pass too (step_mf's arithmetic), and leave the
+// destinations to the engine. The resident and band meshes' tables come
+// from a halo exchange, a row's 8 terms at its row's index:
+// monopole_pool_kernel (a thread a slot); the super-cell engines' terms are
+// built from the cell sums in place, a slot's at its own cell:
+// monopole_supercell_kernel (a block a super-cell row, its neighbourhood
+// staged in shared memory), which replaced the tables kernel and a
+// per-slot table read on those routes.
 //
 // Between the delivery of step t and the sums of step t + 1 only the m of
 // the slots that died in pair pass t changes, so the masks the pair pass
@@ -86,6 +89,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "halo.cuh"
 
 namespace {
 
@@ -245,19 +250,25 @@ __device__ __forceinline__ bool load_slot(int64_t s, const Pool& f,
 // explicit step of ops/integrate.py (m == 0 slots frozen: their state comes
 // out as it went in). Every operation is one correctly rounded f32
 // operation in the plain version's order and association.
-template <bool kGathered>
-__device__ __forceinline__ Next step_mf(const Slot& in, float mf,
-                                        const Temps& t, const Grid& p) {
+//
+// step_terms takes the temp cells from term(l) (a Triple: cm, mx, my), one
+// direction at a time, so that a caller that builds them in place holds
+// none of them in registers beyond its own direction; step_mf takes them
+// from a Temps.
+template <bool kGathered, typename Term>
+__device__ __forceinline__ Next step_terms(const Slot& in, float mf,
+                                           Term term, const Grid& p) {
   const float gm = __fmul_rn(p.g, mf);
   float fx = 0.0f, fy = 0.0f;
 #pragma unroll
   for (int l = 0; l < 8; ++l) {
-    const float dxl = __fsub_rn(t.mx[l], in.x);
-    const float dyl = __fsub_rn(t.my[l], in.y);
+    const Triple<float> t = term(l);
+    const float dxl = __fsub_rn(t.x, in.x);
+    const float dyl = __fsub_rn(t.y, in.y);
     const float d2 = __fadd_rn(__fmul_rn(dxl, dxl), __fmul_rn(dyl, dyl));
-    const bool nz = d2 > 0.0f && (!kGathered || t.cm[l] != 0.0f);
+    const bool nz = d2 > 0.0f && (!kGathered || t.m != 0.0f);
     const float inv = nz ? rsqrtf(d2) : 0.0f;
-    const float sl = __fmul_rn(__fmul_rn(gm, t.cm[l]),
+    const float sl = __fmul_rn(__fmul_rn(gm, t.m),
                                __fmul_rn(__fmul_rn(inv, inv), inv));
     fx = __fadd_rn(fx, __fmul_rn(sl, dxl));
     fy = __fadd_rn(fy, __fmul_rn(sl, dyl));
@@ -282,6 +293,14 @@ __device__ __forceinline__ Next step_mf(const Slot& in, float mf,
   out.vx = frozen ? in.vx : __fadd_rn(in.vx, __fmul_rn(ax, dt));
   out.vy = frozen ? in.vy : __fadd_rn(in.vy, __fmul_rn(ay, dt));
   return out;
+}
+
+template <bool kGathered>
+__device__ __forceinline__ Next step_mf(const Slot& in, float mf,
+                                        const Temps& t, const Grid& p) {
+  return step_terms<kGathered>(
+      in, mf,
+      [&](int l) { return Triple<float>{t.cm[l], t.mx[l], t.my[l]}; }, p);
 }
 
 // The resident step's form: the monopole mass is m where the slot is
@@ -407,12 +426,20 @@ __device__ __forceinline__ void mesh_slot(int64_t s, const MeshPool& f,
   f.vy[s] = out.vy;
 }
 
-// A warp a pool row, where all of a row's slots read one table index: the
-// row itself (row_idx null: the resident meshes' row-aligned tables) or
-// row_idx[r] (the band meshes' cell of each pool row). Lanes 0-7 load the
-// row's 8 terms, lanes 8-15 the sentinel's where a slot may be unbinned
-// (binned given: such a slot takes the sentinel, as the plain version's
-// where does), shared by shuffles; then a lane a slot.
+// A thread a slot over the pool, where all of a row's slots read one table
+// index: the row itself (row_idx null: the resident meshes' row-aligned
+// tables) or row_idx[r] (the band meshes' cell of each pool row); a slot
+// where binned is given and 0 takes the sentinel's terms, as the plain
+// version's where does. The slot's row comes by arithmetic from a table of
+// runs of rows of one width passed by value (the resident meshes' tiles
+// are one run, a band pool a run a band): slot s of the launch's runs lies
+// in run j, row row0[j] + (s - slot0[j]) / K[j]. A live slot reads its
+// row's index and the 24 words of its terms, which its row's other slots
+// read too (through L1), then does step_mf's physics; a frozen slot reads
+// m alone. Every live slot of the pool is in flight at once, where a warp
+// a row (the first design) walked its row in serial rounds of 32 with one
+// round's loads in flight: latency-bound, the more so on wide and sparse
+// band rows.
 //
 // Replaces XLA code of the JAX package (no Pallas kernel): the mesh
 // engines' monopole_tile_forces or monopole_gathered over their halo
@@ -420,65 +447,270 @@ __device__ __forceinline__ void mesh_slot(int64_t s, const MeshPool& f,
 // sharded2d_resident.py:391-395, sharded_banded_cols.py:557-561,
 // sharded_banded.py:463-466). Bound: bytes, 48 a live slot (m, mf, the pair
 // force and x, y, vx, vy read, x, y, vx, vy written back), 4 a frozen one
-// (m), and the row's index and 24 table words.
+// (m), and each row's index and 24 table words.
+constexpr int kMaxRuns = 32;
+constexpr int kSlotThreads = 256;
+
+struct Runs {
+  int n;                        // runs of this launch
+  int64_t slot0[kMaxRuns + 1];  // each run's first slot, and the end
+  int64_t row0[kMaxRuns];       // each run's first row
+  int K[kMaxRuns];              // its rows' width (>= 1)
+};
+
 template <bool kGathered>
-__global__ void monopole_rows_kernel(MeshPool f, Tables tb,
-                                     const int64_t* __restrict__ row_start,
-                                     int nrows,
-                                     const int64_t* __restrict__ row_idx,
-                                     const uint8_t* __restrict__ binned,
-                                     Grid p) {
-  const int r = warp_row(nrows);
-  if (r < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t idx = table_index(row_idx == nullptr ? r : row_idx[r], tb);
-  float cm = 0.0f, tmx = 0.0f, tmy = 0.0f;
-  if (lane < 8)
-    load_term(tb, idx, lane, &cm, &tmx, &tmy);
-  else if (lane < 16 && binned != nullptr)
-    load_term(tb, tb.sentinel, lane - 8, &cm, &tmx, &tmy);
-  Temps t, ts;
+__global__ void __launch_bounds__(kSlotThreads)
+    monopole_pool_kernel(MeshPool f, Tables tb, const __grid_constant__ Runs rn,
+                         const int64_t* __restrict__ row_idx,
+                         const uint8_t* __restrict__ binned, Grid p) {
+  const int64_t s =
+      rn.slot0[0] + (int64_t)blockIdx.x * kSlotThreads + threadIdx.x;
+  if (s >= rn.slot0[rn.n] || f.m[s] == 0.0f) return;
+  int j = 0;
+  while (j + 1 < rn.n && s >= rn.slot0[j + 1]) ++j;
+  // A 32-bit division where the slot's offset in its run allows it (an
+  // int64 one is emulated in ~70 instructions).
+  const int64_t u = s - rn.slot0[j];
+  const int64_t r = rn.row0[j] + (u <= INT32_MAX ? (int64_t)((uint32_t)u /
+                                                            (uint32_t)rn.K[j])
+                                                 : u / rn.K[j]);
+  const int64_t idx =
+      binned != nullptr && binned[s] == 0
+          ? tb.sentinel
+          : table_index(row_idx == nullptr ? r : row_idx[r], tb);
+  Temps t;
 #pragma unroll
-  for (int l = 0; l < 8; ++l) {
-    t.cm[l] = __shfl_sync(kFull, cm, l);
-    t.mx[l] = __shfl_sync(kFull, tmx, l);
-    t.my[l] = __shfl_sync(kFull, tmy, l);
-    ts.cm[l] = __shfl_sync(kFull, cm, 8 + l);
-    ts.mx[l] = __shfl_sync(kFull, tmx, 8 + l);
-    ts.my[l] = __shfl_sync(kFull, tmy, 8 + l);
-  }
-  const int64_t s0 = row_start[r], s1 = row_start[r + 1];
-  for (int64_t s = s0 + lane; s < s1; s += 32) {
-    if (binned == nullptr || binned[s] != 0)
-      mesh_slot<kGathered>(s, f, t, p);
-    else
-      mesh_slot<kGathered>(s, f, ts, p);
-  }
+  for (int l = 0; l < 8; ++l)
+    load_term(tb, idx, l, &t.cm[l], &t.mx[l], &t.my[l]);
+  mesh_slot<kGathered>(s, f, t, p);
 }
 
-// A thread a slot, where each slot reads its own table index at[s]
-// (int32 or int64; negative, or binned given and false: the sentinel): the
-// super-cell engines' true cell of each slot.
+// ---------------------------------------------------------------------------
+// The super-cell engines' monopole + integrate from the cell sums, in place.
+//
+// A super-cell pool and the grid its cells lie on. One device (row0 null):
+// the whole (nc, nc) grid, rows and columns wrapping; pool row scy * nsc +
+// scx is the super-cell (scy, scx) of S x S cells (fewer at the far edges
+// where S does not divide nc). A mesh: L shards' (R, nc) blocks of local
+// cell rows, columns wrapping, rows taking the received top and bottom
+// lines (halo.cuh; the 1D form's y mirror); shard l's pool rows are l *
+// rows_t to (l + 1) * rows_t - 1, and of those row (1 + q) * nsc + scx is
+// its owned super-row q (rows[l] / S of them; the others are halo rows).
+// A slot's cell index is cy * nc + cx on one device, l * R * nc + r * nc +
+// c on the mesh; outside [0, ncells), the zero sentinel's terms.
+struct Super {
+  const float* M;
+  const float* SX;
+  const float* SY;
+  int64_t ncells;
+  int nc, S, nsc;
+  int L, R, rows_t;
+  const int64_t* row0;  // (L,) each block's first global cell row
+  const int64_t* rows;  // (L,) its owned cell rows
+  const float* top;     // (L, 1, 3, nc) received lines of sums
+  const float* bot;
+  float side, zero;
+};
+
+// Temp cell (dx, dy) of the cell (l, r, c): the neighbour's sums (wrapped,
+// or from the halo lines), their COM, the mirror offsets of the cell's
+// edges added; stencil_grid_kernel's and stencil_halo_kernel's table
+// entry, bit for bit.
+__device__ __forceinline__ Triple<float> super_term(const Super& g, int l,
+                                                    int r, int c, int dx,
+                                                    int dy) {
+  int nx = c + dx;
+  nx = nx < 0 ? g.nc - 1 : (nx >= g.nc ? 0 : nx);
+  Triple<float> v;
+  float offy;
+  if (g.row0 == nullptr) {
+    int ny = r + dy;
+    ny = ny < 0 ? g.nc - 1 : (ny >= g.nc ? 0 : ny);
+    const int64_t at = (int64_t)ny * g.nc + nx;
+    v = {g.M[at], g.SX[at], g.SY[at]};
+    offy = mirror_y(dy, r, g.nc, false, g.side, g.zero);
+  } else {
+    const int pr = r + 1 + dy;
+    switch (halo_row(pr, g.rows[l], g.R)) {
+      case kHaloBot:
+        v = raw<float>(g.bot, line_at(l, 1, 0, g.nc, nx), g.nc);
+        break;
+      case kHaloTop:
+        v = raw<float>(g.top, line_at(l, 1, 0, g.nc, nx), g.nc);
+        break;
+      case kHaloGrid: {
+        const int64_t at = ((int64_t)l * g.R + pr - 1) * g.nc + nx;
+        v = {g.M[at], g.SX[at], g.SY[at]};
+        break;
+      }
+      default:
+        v = {g.zero, g.zero, g.zero};
+    }
+    offy = mirror_y(dy, g.row0[l] + r, g.nc, true, g.side, g.zero);
+  }
+  const Triple<float> t = com<float, true>(v.m, v.x, v.y, g.zero);
+  const float offx = mirror(dx, c == g.nc - 1, c == 0, g.side, g.zero);
+  return {t.m, offx + t.x, offy + t.y};
+}
+
+// A pool row's box of cells: shard l's cell rows y0 to y0 + h - 1 and
+// columns x0 to x0 + w - 1; staged: whether its neighbourhood is in
+// shared memory.
+struct Box {
+  int l, y0, x0, h, w;
+  bool staged;
+};
+
+__device__ __forceinline__ Box super_box(const Super& g, int t, bool stage) {
+  Box b;
+  if (g.row0 == nullptr) {
+    const int scy = t / g.nsc, scx = t % g.nsc;
+    b.l = 0;
+    b.y0 = scy * g.S;
+    b.x0 = scx * g.S;
+    b.h = min(g.S, g.nc - b.y0);
+    b.w = min(g.S, g.nc - b.x0);
+    b.staged = stage && b.h > 0 && b.w > 0;
+  } else {
+    b.l = t / g.rows_t;
+    const int u = t % g.rows_t, q = u / g.nsc - 1, scx = u % g.nsc;
+    b.y0 = q * g.S;
+    b.x0 = scx * g.S;
+    b.h = g.S;
+    b.w = min(g.S, g.nc - b.x0);
+    b.staged = stage && q >= 0 && b.w > 0 &&
+               (int64_t)(q + 1) * g.S <= g.rows[b.l];
+  }
+  return b;
+}
+
+// Slot s's inputs where it is live (m != 0): false for a frozen slot,
+// which does nothing.
+template <typename I>
+__device__ __forceinline__ bool super_load(int64_t s, const MeshPool& f,
+                                           const I* __restrict__ cell,
+                                           Slot* in, float* mf, int64_t* i) {
+  in->m = f.m[s];
+  if (in->m == 0.0f) return false;
+  in->x = f.x[s];
+  in->y = f.y[s];
+  in->vx = f.vx[s];
+  in->vy = f.vy[s];
+  in->fx = f.fxd[s];
+  in->fy = f.fyd[s];
+  in->o = true;
+  *mf = f.mf[s];
+  *i = (int64_t)cell[s];
+  return true;
+}
+
+// A live slot's step: its 8 terms from the staged box where its cell lies
+// in it, else from the sums (super_term; a slot outside its row's box,
+// which an undelivered mover can be), or the sentinel's zeros, a direction
+// at a time (step_terms); then x, y, vx, vy written back.
+__device__ __forceinline__ void super_step(int64_t s, const Slot& in,
+                                           float mf, int64_t i,
+                                           const MeshPool& f, const Super& g,
+                                           const Box& b, const float* box,
+                                           const Grid& p) {
+  // The cell's (shard, row, column) in 32-bit arithmetic (the host keeps
+  // ncells below 2^31).
+  const bool ok = i >= 0 && i < g.ncells;
+  const int ncl = g.R * g.nc;
+  const int ii = ok ? (int)i : 0;
+  const int li = ii / ncl, rem = ii - li * ncl;
+  const int r = rem / g.nc, c = rem - r * g.nc;
+  const int bi = r - b.y0, bj = c - b.x0;
+  const bool inbox = ok && b.staged && li == b.l && bi >= 0 && bi < b.h &&
+                     bj >= 0 && bj < b.w;
+  Next out;
+  if (inbox) {
+    const int bw = b.w + 2, nbox = (b.h + 2) * bw;
+    const float* at = box + (bi + 1) * bw + bj + 1;
+    out = step_terms<true>(
+        in, mf,
+        [&](int l) -> Triple<float> {
+          const float* q = at + kStencil[l][1] * bw + kStencil[l][0];
+          return {q[0], q[nbox], q[2 * nbox]};
+        },
+        p);
+  } else if (ok) {
+    out = step_terms<true>(
+        in, mf,
+        [&](int l) {
+          return super_term(g, li, r, c, kStencil[l][0], kStencil[l][1]);
+        },
+        p);
+  } else {
+    out = step_terms<true>(
+        in, mf,
+        [&](int) { return Triple<float>{g.zero, g.zero, g.zero}; }, p);
+  }
+  f.x[s] = out.x;
+  f.y[s] = out.y;
+  f.vx[s] = out.vx;
+  f.vy[s] = out.vy;
+}
+
+// A block a pool row of kcap slots (a thread a slot, at most kSuperThreads
+// threads; the registers capped at 32, so that a full SM's worth of
+// threads is resident: SMALL's rows of 64 give 32 blocks an SM). The block
+// stages its row's (h + 2) x (w + 2) neighbourhood of temp cells in shared
+// memory (stage: the box fits kStageBytes, the 48 KB a block has without
+// opting in, which holds a full box for S <= 62): each
+// position's sums read once in runs of a cell row, its COM divided once
+// and its mirror offset added once, as the temp cell of the box's one
+// cell and direction that reads it (interior positions: their own cell,
+// offset zero). Each thread then loads its first slot (in flight across
+// the barrier), and every live slot reads its 8 terms in the box by its
+// cell's place there, a direction at a time (super_step's three paths
+// keep the box's lean: a slot outside the box and the sentinel take their
+// own). Blocks of several rows, a higher register cap and an unrolled
+// staging loop were each no faster on the card.
 //
 // Replaces XLA code of the JAX package: ops/supercell.py's
 // monopole_forces_general (:209) and integrate (:404-407), and the mesh
-// super-cells' (parallel/sharded_supercell.py:200-260, :428-431). Bound:
-// bytes, as above with the slot's index and 24 table words a live slot.
-__global__ void monopole_slots_kernel(MeshPool f, Tables tb, int64_t n,
-                                      const void* __restrict__ at, bool at64,
-                                      const uint8_t* __restrict__ binned,
-                                      Grid p) {
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n || f.m[s] == 0.0f) return;
-  int64_t i = at64 ? static_cast<const int64_t*>(at)[s]
-                   : static_cast<const int*>(at)[s];
-  if (binned != nullptr && binned[s] == 0) i = -1;
-  i = table_index(i, tb);
-  Temps t;
-#pragma unroll
-  for (int l = 0; l < 8; ++l) load_term(tb, i, l, &t.cm[l], &t.mx[l],
-                                        &t.my[l]);
-  mesh_slot<true>(s, f, t, p);
+// super-cells' (parallel/sharded_supercell.py:200-260, :428-431), with the
+// stencil tables they read (ops/stencil.py stencil_tables, the halo form
+// of parallel/sharded.py). Bound: bytes, 48 a live slot (m, mf, the pair
+// force and x, y, vx, vy read, x, y, vx, vy written), 4 a frozen one, the
+// live slot's cell index, and 12 a cell of the sums (and the halo lines):
+// no table is written or read.
+constexpr int kSuperThreads = 256;
+constexpr int64_t kStageBytes = 48 * 1024;
+
+template <typename I>
+__global__ void __launch_bounds__(kSuperThreads, 8)
+    monopole_supercell_kernel(MeshPool f, const I* __restrict__ cell,
+                              int kcap, Super g, bool stage, Grid p) {
+  extern __shared__ float box[];
+  const int t = blockIdx.x;
+  const Box b = super_box(g, t, stage);
+  if (b.staged) {
+    const int bw = b.w + 2, nbox = (b.h + 2) * bw;
+    for (int k = threadIdx.x; k < nbox; k += blockDim.x) {
+      const int bi = k / bw, bj = k - bi * bw;
+      const int dy = bi == 0 ? -1 : (bi == b.h + 1 ? 1 : 0);
+      const int dx = bj == 0 ? -1 : (bj == b.w + 1 ? 1 : 0);
+      const Triple<float> v = super_term(g, b.l, b.y0 + bi - 1 - dy,
+                                         b.x0 + bj - 1 - dx, dx, dy);
+      box[k] = v.m;
+      box[nbox + k] = v.x;
+      box[2 * nbox + k] = v.y;
+    }
+  }
+  const int64_t base = (int64_t)t * kcap;
+  Slot in;
+  float mf = 0.0f;
+  int64_t i = -1;
+  const bool live =
+      (int)threadIdx.x < kcap &&
+      super_load(base + threadIdx.x, f, cell, &in, &mf, &i);
+  __syncthreads();
+  if (live) super_step(base + threadIdx.x, in, mf, i, f, g, b, box, p);
+  for (int k = threadIdx.x + blockDim.x; k < kcap; k += blockDim.x)
+    if (super_load(base + k, f, cell, &in, &mf, &i))
+      super_step(base + k, in, mf, i, f, g, b, box, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -931,47 +1163,122 @@ extern "C" int psim_monopole_integrate(
   return (int)cudaGetLastError();
 }
 
-// In place: x, y, vx, vy of the live slots (m != 0) of nslots, under the
-// monopole mass mf, the pair force (fxd, fyd) and the 8 stencil terms of
-// each slot's table index in (ml, mxl, myl) (sidx, sdir, nidx, sentinel:
-// the Tables above); gathered: monopole_gathered's form (a term with
-// neighbour mass 0 dropped), else monopole_tile_forces'. With row_start
-// (nrows + 1 int64 slot offsets covering the pool), a warp a row and each
-// row's index row_idx[r] (int64), or r where row_idx is null; else a
-// thread a slot and each slot's index at[s] (int64 where at64, else int32;
-// a negative index: the sentinel), in the gathered form only. binned
-// (bytes, or null): a slot where it is 0 takes the sentinel.
-extern "C" int psim_monopole_gathered(
+// In place: x, y, vx, vy of the live slots (m != 0) of the pool's rows,
+// given as nruns runs of run_rows[j] rows of run_k[j] slots (host arrays,
+// covering the pool; a launch for each kMaxRuns runs), under the monopole
+// mass mf, the pair force (fxd, fyd) and the 8 stencil terms of each row's
+// table index in (ml, mxl, myl) (sidx, sdir, nidx, sentinel: the Tables
+// above): row_idx[r] (int64), or r where row_idx is null; gathered:
+// monopole_gathered's form (a term with neighbour mass 0 dropped), else
+// monopole_tile_forces'. binned (bytes, or null): a slot where it is 0
+// takes the sentinel. *launched: the launches made.
+extern "C" int psim_monopole_rows(
     float* x, float* y, float* vx, float* vy, const float* m, const float* mf,
     const float* fxd, const float* fyd, const float* ml, const float* mxl,
     const float* myl, int64_t sidx, int64_t sdir, int64_t nidx,
-    int64_t sentinel, const int64_t* row_start, int nrows,
-    const int64_t* row_idx, const void* at, int at64, int64_t nslots,
-    const uint8_t* binned, int gathered, float side, float dt, float g,
-    int warps, void* stream) {
-  if (!whole_warps(warps) || nidx < 1 || sentinel < 0 || sentinel >= nidx ||
-      (row_start == nullptr && at == nullptr) || nslots < 1)
+    int64_t sentinel, const int64_t* row_idx, const uint8_t* binned,
+    int nruns, const int64_t* run_rows, const int* run_k, int gathered,
+    float side, float dt, float g, int* launched, void* stream) {
+  *launched = 0;
+  if (nidx < 1 || sentinel < 0 || sentinel >= nidx || nruns < 1 ||
+      run_rows == nullptr || run_k == nullptr)
     return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < nruns; ++j)
+    if (run_rows[j] < 0 || run_k[j] < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MeshPool f{x, y, vx, vy, m, mf, fxd, fyd};
   const Tables tb{ml, mxl, myl, sidx, sdir, nidx, sentinel};
   const Grid p{0.0f, side, 2.0f * side, dt, g, 0};
-  if (row_start != nullptr) {
-    if (nrows < 1) return (int)cudaErrorInvalidValue;
+  int64_t slot = 0, row = 0;
+  for (int j0 = 0; j0 < nruns; j0 += kMaxRuns) {
+    Runs rn;
+    rn.n = 0;
+    for (int j = j0; j < nruns && j < j0 + kMaxRuns; ++j) {
+      rn.slot0[rn.n] = slot;
+      rn.row0[rn.n] = row;
+      rn.K[rn.n] = run_k[j];
+      slot += run_rows[j] * run_k[j];
+      row += run_rows[j];
+      ++rn.n;
+    }
+    rn.slot0[rn.n] = slot;
+    const int64_t n = slot - rn.slot0[0];
+    if (n < 1) continue;
+    const unsigned blocks = (unsigned)((n + kSlotThreads - 1) / kSlotThreads);
     if (gathered)
-      monopole_rows_kernel<true><<<row_blocks(nrows, warps), 32 * warps, 0,
-                                   s>>>(f, tb, row_start, nrows, row_idx,
-                                        binned, p);
+      monopole_pool_kernel<true><<<blocks, kSlotThreads, 0, s>>>(
+          f, tb, rn, row_idx, binned, p);
     else
-      monopole_rows_kernel<false><<<row_blocks(nrows, warps), 32 * warps, 0,
-                                    s>>>(f, tb, row_start, nrows, row_idx,
-                                         binned, p);
-  } else {
-    if (!gathered) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((nslots + 255) / 256);
-    monopole_slots_kernel<<<blocks, 256, 0, s>>>(f, tb, nslots, at, at64 != 0,
-                                                 binned, p);
+      monopole_pool_kernel<false><<<blocks, kSlotThreads, 0, s>>>(
+          f, tb, rn, row_idx, binned, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
   }
+  return (int)cudaSuccess;
+}
+
+// In place: x, y, vx, vy of the live slots (m != 0) of a super-cell pool
+// of nrows rows of kcap slots, under the monopole mass mf, the pair force
+// (fxd, fyd) and the 8 stencil terms of each slot's cell (cell: int64
+// where cell64, else int32; outside [0, ncells) the zero sentinel), built
+// from the cell sums (M, SX, SY: ncells floats each) as the Super above
+// says: row0 null for one device's (nc, nc) grid (nrows = nsc * nsc, nsc
+// = ceil(nc / S), ncells = nc * nc); else a mesh of L blocks of R cell
+// rows (ncells = L * R * nc), each shard's rows_t pool rows, its first
+// global row and owned rows (row0, rows: L int64 each), its received
+// lines (top, bot: (L, 1, 3, nc) floats). zero: a 0 the offsets add.
+// A block stages its box where it fits in kStageBytes (S <= 62); past
+// that every slot builds its terms from the sums.
+extern "C" int psim_monopole_supercell(
+    float* x, float* y, float* vx, float* vy, const float* m, const float* mf,
+    const float* fxd, const float* fyd, const void* cell, int cell64,
+    int nrows, int kcap, const float* M, const float* SX, const float* SY,
+    int64_t ncells, int nc, int S, int L, int R, int rows_t,
+    const int64_t* row0, const int64_t* rows, const float* top,
+    const float* bot, float side, float zero, float dt, float g,
+    void* stream) {
+  if (nrows < 1 || kcap < 1 || nc < 1 || S < 1 || ncells < 1 ||
+      ncells > INT32_MAX ||
+      (row0 != nullptr && (L < 1 || R < 1 || rows_t < 1 || rows == nullptr ||
+                           top == nullptr || bot == nullptr ||
+                           nrows != L * rows_t || ncells != (int64_t)L * R * nc)))
+    return (int)cudaErrorInvalidValue;
+  const int nsc = (nc + S - 1) / S;
+  if (row0 == nullptr && (nrows != nsc * nsc || ncells != (int64_t)nc * nc))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const MeshPool f{x, y, vx, vy, m, mf, fxd, fyd};
+  Super sg;
+  sg.M = M;
+  sg.SX = SX;
+  sg.SY = SY;
+  sg.ncells = ncells;
+  sg.nc = nc;
+  sg.S = S;
+  sg.nsc = nsc;
+  sg.L = row0 != nullptr ? L : 1;
+  sg.R = row0 != nullptr ? R : nc;
+  sg.rows_t = row0 != nullptr ? rows_t : nrows;
+  sg.row0 = row0;
+  sg.rows = rows;
+  sg.top = top;
+  sg.bot = bot;
+  sg.side = side;
+  sg.zero = zero;
+  const Grid p{0.0f, side, 2.0f * side, dt, g, 0};
+  // The box of a full super-cell.
+  const int64_t box = 3 * (int64_t)(S + 2) * (S + 2) * sizeof(float);
+  const bool stage = box <= kStageBytes;
+  const size_t smem = stage ? (size_t)box : 0;
+  const int threads =
+      kcap >= kSuperThreads ? kSuperThreads : (kcap + 31) / 32 * 32;
+  if (cell64)
+    monopole_supercell_kernel<int64_t><<<nrows, threads, smem, s>>>(
+        f, static_cast<const int64_t*>(cell), kcap, sg, stage, p);
+  else
+    monopole_supercell_kernel<int><<<nrows, threads, smem, s>>>(
+        f, static_cast<const int*>(cell), kcap, sg, stage, p);
   return (int)cudaGetLastError();
 }
 

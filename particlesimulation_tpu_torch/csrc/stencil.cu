@@ -41,7 +41,13 @@
 // mass row takes no add. Each halo form keeps its own y-mirror predicate
 // on rows past the grid (the 1D form gy + 1 >= nc and gy - 1 < 0, the 2D
 // form gy == nc - 1 and gy == 0), and ncside < 3, where neighbours alias,
-// gives the gather's tables.
+// gives the gather's tables. The COM, the mirrors and the padded rows'
+// addressing are halo.cuh's, which the super-cell monopole pass of
+// advance.cu shares.
+//
+// Since the super-cell routes build their terms from the sums in place
+// (advance.cu), stencil_grid serves the sweep, dense and tiered engines and
+// stencil_halo every mesh route but the super-cells.
 //
 // What bounds them on an H100: bytes. A cell reads its three values (the
 // neighbours' come from L1 and L2) and writes 24; the division of the sums
@@ -50,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "halo.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -57,26 +65,6 @@ constexpr int kMaxBands = 32;
 // (dx, dy) in the reference's loop order: dx outer, dy inner, no (0, 0).
 __constant__ int kDx[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
 __constant__ int kDy[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
-
-template <typename T>
-struct Triple {
-  T m, x, y;
-};
-
-// The COM of raw values: the sums' (M > 0 ? S / M : 0) or the COM itself.
-template <typename T, bool kFromSums>
-__device__ __forceinline__ Triple<T> com(T m, T x, T y, T zero) {
-  if (kFromSums) {
-    const bool has = m > T(0);
-    return {m, has ? x / m : zero, has ? y / m : zero};
-  }
-  return {m, x, y};
-}
-
-template <typename T>
-__device__ __forceinline__ T mirror(int d, bool hi, bool lo, T side, T zero) {
-  return d == 1 ? (hi ? side : zero) : (d == -1 ? (lo ? -side : zero) : zero);
-}
 
 template <typename T, bool kFromSums, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
@@ -143,13 +131,6 @@ struct Halo {
 };
 
 template <typename T>
-__device__ __forceinline__ Triple<T> raw(const void* base, int64_t at,
-                                         int64_t fstride) {
-  const T* p = static_cast<const T*>(base) + at;
-  return {p[0], p[fstride], p[2 * fstride]};
-}
-
-template <typename T>
 __device__ __forceinline__ Triple<T> grid_at(const Band& bd, int l, int r,
                                              int c) {
   const int64_t at = l * bd.sL + r * bd.sR + c;
@@ -159,25 +140,29 @@ __device__ __forceinline__ Triple<T> grid_at(const Band& bd, int l, int r,
 }
 
 // Row pr of the row-padded block at column x: the halo rows, the owned
-// rows, or 0.
+// rows, or 0 (halo.cuh's halo_row).
 template <typename T>
 __device__ __forceinline__ Triple<T> padded_row(const Halo& h, int j, int l,
                                                 int pr, int x, T zero) {
   const Band& bd = h.b[j];
   const int bi = h.band0 + j;
-  if (pr == (int)bd.rows[l] + 1) {
-    int bs = bi;
-    if (h.bot_shift != nullptr && h.bot_shift[l]) bs = (bi + 1) % h.nbands;
-    return raw<T>(h.bot, (((int64_t)l * h.nbands + bs) * 3) * h.C + x, h.C);
+  switch (halo_row(pr, bd.rows[l], bd.R)) {
+    case kHaloBot: {
+      int bs = bi;
+      if (h.bot_shift != nullptr && h.bot_shift[l]) bs = (bi + 1) % h.nbands;
+      return raw<T>(h.bot, line_at(l, h.nbands, bs, h.C, x), h.C);
+    }
+    case kHaloTop: {
+      int bs = bi;
+      if (h.top_shift != nullptr && h.top_shift[l])
+        bs = (bi + h.nbands - 1) % h.nbands;
+      return raw<T>(h.top, line_at(l, h.nbands, bs, h.C, x), h.C);
+    }
+    case kHaloGrid:
+      return grid_at<T>(bd, l, pr - 1, x);
+    default:
+      return {zero, zero, zero};
   }
-  if (pr == 0) {
-    int bs = bi;
-    if (h.top_shift != nullptr && h.top_shift[l])
-      bs = (bi + h.nbands - 1) % h.nbands;
-    return raw<T>(h.top, (((int64_t)l * h.nbands + bs) * 3) * h.C + x, h.C);
-  }
-  if (pr <= bd.R) return grid_at<T>(bd, l, pr - 1, x);
-  return {zero, zero, zero};
 }
 
 template <typename T>
@@ -246,8 +231,7 @@ __global__ void __launch_bounds__(kThreads)
     const Triple<T> n = neighbour<T>(h, j, l, r, c, dx, dy, zero);
     const Triple<T> v = com<T, kFromSums>(n.m, n.x, n.y, zero);
     const T offx = mirror(dx, gx == h.nc - 1, gx == 0, side, zero);
-    const T offy = h.y_ge ? mirror(dy, gy + 1 >= h.nc, gy - 1 < 0, side, zero)
-                          : mirror(dy, gy == h.nc - 1, gy == 0, side, zero);
+    const T offy = mirror_y(dy, gy, h.nc, h.y_ge, side, zero);
     const int64_t o = h.aligned ? at * 8 + k : k * h.ld + at;
     ml[o] = v.m;
     mxl[o] = offx + v.x;

@@ -21,10 +21,16 @@ version of the same function:
   destination row and moving flag;
 * ``tile_monopole_integrate`` / ``tile_monopole_integrate_ref`` and
   ``gathered_monopole_integrate`` / ``gathered_monopole_integrate_ref``:
-  the mesh and super-cell engines' monopole and integrator (x, y, vx, vy in
-  place) from stencil tables they build themselves (a halo exchange, the
-  true grid's cells), each slot's 8 terms at its row's or its own table
-  index; the engines find the destinations;
+  the resident and band meshes' monopole and integrator (x, y, vx, vy in
+  place) from the stencil tables of their halo exchange, each slot's 8
+  terms at its row's table index; the engines find the destinations (the
+  plain version also takes an index a slot, which no kernel does);
+* ``supercell_monopole_integrate`` / ``supercell_monopole_integrate_ref``:
+  the super-cell engines' (one device and the mesh), from the per-cell
+  sums themselves: the kernel builds each slot's 8 terms at its own cell
+  in place (each super-cell row's neighbourhood staged once), where the
+  plain version builds the tables (``ops/cuda/stencil``'s plain forms) and
+  gathers;
 * ``deliver`` / ``deliver_ref``: every mover to its destination row in one
   pass, in place (``ops/resident.rebin`` and the engines' advance phases
   call it);
@@ -75,6 +81,7 @@ from particlesimulation_tpu_torch.config import G
 from particlesimulation_tpu_torch.ops import dense, integrate, stencil
 from particlesimulation_tpu_torch.ops.binning import cell_of, segment_positions
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
+from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "advance.cu")
@@ -89,7 +96,8 @@ SETTLE_WARPS = 2
 # Kernel launches per wrapper since the last reset_launches() (one a call:
 # the delivery's call runs its three passes).
 LAUNCHES = {"pair_masks": 0, "monopole_integrate": 0, "deliver": 0,
-            "settle_sums": 0, "monopole_gathered": 0}
+            "settle_sums": 0, "monopole_gathered": 0,
+            "monopole_supercell": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -113,12 +121,14 @@ def load(path):
     lib.psim_deliver.argtypes = (
         [vp] * 10 + [ci, ctypes.c_int64, vp, ci] + [vp] * 5 + [ci, vp])
     i64 = ctypes.c_int64
-    lib.psim_monopole_gathered.argtypes = (
-        [vp] * 11 + [i64] * 4 + [vp, ci, vp, vp, ci, i64, vp, ci, cf, cf, cf,
-                                 ci, vp])
+    lib.psim_monopole_rows.argtypes = (
+        [vp] * 11 + [i64] * 4 + [vp, vp, ci, vp, vp, ci, cf, cf, cf, vp, vp])
+    lib.psim_monopole_supercell.argtypes = (
+        [vp] * 9 + [ci] * 3 + [vp] * 3 + [i64] + [ci] * 5 + [vp] * 4
+        + [cf] * 4 + [vp])
     for fn in (lib.psim_pair_masks, lib.psim_settle_sums,
                lib.psim_monopole_integrate, lib.psim_deliver,
-               lib.psim_monopole_gathered):
+               lib.psim_monopole_rows, lib.psim_monopole_supercell):
         fn.restype = ci
     return lib
 
@@ -214,13 +224,34 @@ def _segments(row_start):
     return out
 
 
-def _row_of(row_start, nslots=None):
-    """Each slot's row (int64); ``nslots``, where given, the pool's slots
-    (no host read of the row starts)."""
+def _row_of(row_start):
+    """Each slot's row (int64)."""
     rs = row_start
     nrows = rs.numel() - 1
     return torch.repeat_interleave(torch.arange(nrows, device=rs.device),
-                                   rs[1:] - rs[:-1], output_size=nslots)
+                                   rs[1:] - rs[:-1])
+
+
+def row_starts(runs, device=None):
+    """The (nrows + 1,) int64 row starts of a pool laid out as ``runs``
+    ((rows, K) pairs of host ints, in order: ``rows`` rows of K slots
+    each), on ``device``."""
+    parts, s0 = [], 0
+    for rows, k in runs:
+        rows, k = int(rows), int(k)
+        parts.append(s0 + k * torch.arange(rows, device=device))
+        s0 += rows * k
+    return torch.cat(parts + [torch.full((1,), s0, device=device)])
+
+
+def _rows_of_runs(runs, device):
+    """Each slot's row (int64) of a pool laid out as ``runs``."""
+    parts, r0 = [], 0
+    for rows, k in runs:
+        rows, k = int(rows), int(k)
+        parts.append(r0 + torch.arange(rows * k, device=device) // k)
+        r0 += rows
+    return torch.cat(parts)
 
 
 def cell_sums_rows_ref(x, y, m, occ, row_start, side: float, ncside: int):
@@ -331,21 +362,33 @@ def _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd):
         ("fxd", fxd), ("fyd", fyd))]
 
 
-def _launch_mesh(flat, tables, sidx, sdir, nidx, sentinel, row_start,
-                 row_idx, at, binned, gathered, side, deltat):
+def _launch_mesh(flat, tables, sidx, sdir, nidx, sentinel, runs, row_idx,
+                 binned, gathered, side, deltat):
+    """The rows' kernel, a thread a slot (``runs``: the pool's runs of rows
+    of one width, (rows, K) host ints, which it reads by value)."""
     x = flat[0]
-    if row_start is not None:
-        rows = (row_start.data_ptr(), row_start.numel() - 1, _ptr(row_idx))
-    else:
-        rows = (None, 0, None)
+    nruns = len(runs)
+    run_rows = (ctypes.c_int64 * nruns)(*(r for r, _ in runs))
+    run_k = (ctypes.c_int * nruns)(*(k for _, k in runs))
+    made = ctypes.c_int(0)
     cell_pairs._launch(
-        "monopole_gathered", _library().psim_monopole_gathered, x,
+        "monopole_gathered", _library().psim_monopole_rows, x,
         *(f.data_ptr() for f in flat), *(t.data_ptr() for t in tables),
-        sidx, sdir, nidx, sentinel, *rows, _ptr(at),
-        int(at is not None and at.dtype == torch.int64), x.numel(),
-        _ptr(binned), int(gathered), float(np.float32(side)),
-        float(np.float32(deltat)), float(np.float32(G)), ROW_WARPS,
-        launches=LAUNCHES)
+        sidx, sdir, nidx, sentinel, _ptr(row_idx), _ptr(binned), nruns,
+        run_rows, run_k, int(gathered), float(np.float32(side)),
+        float(np.float32(deltat)), float(np.float32(G)), ctypes.byref(made),
+        launches=LAUNCHES, made=made)
+
+
+def _check_runs(runs, nslots):
+    """``runs`` ((rows, K) pairs of host ints) as a tuple, and their rows,
+    if they cover ``nslots`` slots; raises otherwise."""
+    runs = tuple((int(r), int(k)) for r, k in runs)
+    if (not runs or any(r < 0 or k < 1 for r, k in runs)
+            or sum(r * k for r, k in runs) != nslots):
+        raise ValueError(f"row runs {runs} do not cover the pool's {nslots} "
+                         f"slots")
+    return runs, sum(r for r, _ in runs)
 
 
 def tile_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables,
@@ -373,7 +416,8 @@ def tile_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables,
         return tile_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd,
                                            tables, row_start, side, deltat)
     _launch_mesh(flat, tables, tables[0].stride(0), tables[0].stride(1),
-                 nrows, 0, row_start, None, None, None, False, side, deltat)
+                 nrows, 0, ((nrows, x.shape[1]),), None, None, False, side,
+                 deltat)
     return x, y, vx, vy
 
 
@@ -391,24 +435,25 @@ def tile_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, tables,
 
 
 def gathered_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables, at,
-                                side: float, deltat: float, row_start=None,
+                                side: float, deltat: float, runs,
                                 binned=None):
-    """The band meshes' and the super-cell engines' monopole and
-    integration, in place.
+    """The band meshes' monopole and integration over a pool of rows, in
+    place.
 
+    The pool is laid out as ``runs`` ((rows, K) pairs of host ints, in
+    order: ``rows`` rows of K slots each; ``row_starts(runs)`` are its row
+    starts), the only description of its rows either version reads: a
+    thread a slot of the kernel finds its row from them by value. ``at``
+    gives each row's table index ((nrows,) int64), shared by its slots;
     ``tables`` ((ml, mxl, myl), (8, ncells + 1) float32 each, the last
-    column the zero sentinel: ``ops/stencil.stencil_tables`` or a mesh's
-    halo tables); each slot takes the 8 terms of its table index in
-    ``dense.monopole_gathered``'s form under its monopole mass ``mf``, plus
-    the pair force ``fxd``, ``fyd``; then the explicit step with the
-    periodic wrap, ``m == 0`` slots frozen. x, y, vx, vy (float32, any
-    shape, like every field) are updated in place and returned.
-
-    The index: without ``row_start``, ``at`` gives each slot's (int32 or
-    int64, the shape of x); with it (the pool's (nrows + 1,) int64 row
-    starts), ``at`` gives each row's ((nrows,) int64), shared by its slots.
-    An index off the tables (a negative one), or a slot where ``binned``
-    (bool, the shape of x, optional) is false, takes the sentinel.
+    column the zero sentinel: a mesh's halo tables). Each slot takes the 8
+    terms of its row's index in ``dense.monopole_gathered``'s form under
+    its monopole mass ``mf``, plus the pair force ``fxd``, ``fyd``; then
+    the explicit step with the periodic wrap, ``m == 0`` slots frozen. An
+    index off the tables (a negative one), or a slot where ``binned``
+    (bool, the shape of x, optional) is false, takes the sentinel. x, y,
+    vx, vy (float32, any shape, like every field) are updated in place and
+    returned.
     """
     dev = x.device
     flat = _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd)
@@ -416,36 +461,36 @@ def gathered_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, tables, at,
         raise ValueError("tables must be three (8, ncells + 1) tensors")
     nidx = tables[0].shape[1]
     _check_tables(tables, (8, nidx), dev)
-    if row_start is None:
-        if at.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"at must be int32 or int64; got {at.dtype}")
-        _flat("at", at, at.dtype, x.numel(), dev)
-    else:
-        nrows = _check_rows(row_start, dev)
-        _flat("at", at, torch.int64, nrows, dev)
+    runs, nrows = _check_runs(runs, x.numel())
+    if at.dtype != torch.int64:
+        raise TypeError(f"at must be int64; got {at.dtype}")
+    if at.dim() != 1 or at.numel() != nrows:
+        raise ValueError(f"at must be each row's index, ({nrows},) for the "
+                         f"runs' rows; got {tuple(at.shape)}")
+    _flat("at", at, torch.int64, nrows, dev)
     if binned is not None:
         _flat("binned", binned, torch.bool, x.numel(), dev)
     if not cell_pairs._on_card(x, "monopole and integrate pass"):
         return gathered_monopole_integrate_ref(
-            x, y, vx, vy, m, mf, fxd, fyd, tables, at, side, deltat,
-            row_start, binned)
+            x, y, vx, vy, m, mf, fxd, fyd, tables, at, side, deltat, runs,
+            binned)
     _launch_mesh(flat, tables, tables[0].stride(1), tables[0].stride(0),
-                 nidx, nidx - 1, row_start, at if row_start is not None
-                 else None, at if row_start is None else None, binned, True,
-                 side, deltat)
+                 nidx, nidx - 1, runs, at, binned, True, side, deltat)
     return x, y, vx, vy
 
 
 def gathered_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, tables,
                                     at, side: float, deltat: float,
-                                    row_start=None, binned=None):
+                                    runs=None, binned=None):
     """Plain torch version of ``gathered_monopole_integrate``: each slot's
-    index (a row's by ``repeat_interleave``), the sentinel by ``where``,
+    index (with ``runs``, its row's by the runs' slot-to-row map; without,
+    ``at`` gives each slot's, int32 or int64 the shape of x: the super-cell
+    routes' plain chain), the sentinel by ``where``,
     ``dense.monopole_gathered`` -> ``fxd + fxm`` -> ``integrate.integrate``,
     copied into x, y, vx, vy."""
     sentinel = tables[0].shape[1] - 1
-    if row_start is not None:
-        at = at[_row_of(row_start, x.numel())].view(x.shape)
+    if runs is not None:
+        at = at[_rows_of_runs(runs, x.device)].view(x.shape)
     idx = torch.where((at >= 0) & (at < sentinel + 1), at, sentinel)
     if binned is not None:
         idx = torch.where(binned, idx, sentinel)
@@ -455,6 +500,121 @@ def gathered_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, tables,
     for t, v in zip((x, y, vx, vy), new):
         t.copy_(v)
     return x, y, vx, vy
+
+
+def _check_super(x, sums, cell, ncside, S, layout, lines):
+    """The super-cell pass's inputs (``supercell_monopole_integrate``);
+    returns the kernel's geometry (ncells, L, R, rows a shard, row0, rows,
+    top, bot), raising on what it does not take."""
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"tiles must be (rows, kcap); got {tuple(x.shape)}")
+    if ncside < 1 or S < 1:
+        raise ValueError(f"ncside {ncside}, S {S}: both must be >= 1")
+    nrows = x.shape[0]
+    if cell.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"cell must be int32 or int64; got {cell.dtype}")
+    _flat("cell", cell, cell.dtype, x.numel(), dev)
+    if layout is None:
+        nsc = -(-ncside // S)
+        if nrows != nsc * nsc:
+            raise ValueError(f"{nrows} rows for {nsc} x {nsc} super-cells")
+        ncells, geom = ncside * ncside, (1, ncside, nrows, None, None, None,
+                                         None)
+    else:
+        if (len(layout.rows) != 1 or not layout.rows_halo
+                or layout.cols_halo or not layout.y_ge
+                or layout.aligned is not None or layout.C != ncside
+                or layout.top_shift is not None
+                or layout.bot_shift is not None):
+            raise ValueError("the mesh's super-cells take one band of row "
+                             "halos, columns wrapping, the 1D y mirror")
+        row0, rows = layout.row0[0], layout.rows_mine[0]
+        L, R = row0.shape[0], layout.rows[0]
+        if ncside % S or nrows % L or (nrows // L) % (ncside // S):
+            raise ValueError(f"{nrows} rows of {L} shards are not rows of "
+                             f"{ncside // S} super-cells (S {S} | "
+                             f"{ncside})")
+        for t in (row0, rows):
+            if t.device != dev:
+                raise ValueError(f"the layout on {t.device}, x on {dev}")
+        top, bot = lines[0], lines[1]
+        for t in (top, bot):
+            stencil_ops._check_lines(t, (L, 1, 3, ncside), x)
+        ncells = L * R * ncside
+        geom = (L, R, nrows // L, row0, rows, top, bot)
+    if ncells >= 2 ** 31:
+        raise ValueError(f"{ncells} cells: the pass indexes them in 32 bits")
+    for name, t in zip(("M", "SX", "SY"), sums):
+        _flat(name, t, torch.float32, ncells, dev)
+    return (ncells, *geom)
+
+
+def supercell_monopole_integrate(x, y, vx, vy, m, mf, fxd, fyd, sums, cell,
+                                 side: float, ncside: int, deltat: float,
+                                 S: int, layout=None, lines=None):
+    """The super-cell engines' monopole and integration from the per-cell
+    sums, in place.
+
+    The (rows, kcap) float32 tiles x, y, vx, vy, m, mf, fxd, fyd; ``sums``
+    (M, Σm·x, Σm·y), each (ncells,) float32
+    (``cell_pairs.supercell_cell_sums``); ``cell`` each slot's cell (int32
+    or int64, the tiles' shape; negative or past the sums: the zero
+    sentinel). Each slot takes the 8 stencil terms of its cell (the
+    neighbours' COM from the sums, M > 0 ? S / M : 0, and the mirror
+    offsets) in ``dense.monopole_gathered``'s form under its monopole mass
+    ``mf``, plus the pair force ``fxd``, ``fyd``; then the explicit step
+    with the periodic wrap, ``m == 0`` slots frozen. x, y, vx, vy are
+    updated in place and returned.
+
+    One device (``layout`` None): the (ncside, ncside) grid, cell cy ·
+    ncside + cx, row scy · nsc + scx the super-cell of S x S cells (nsc =
+    ceil(ncside / S)). The mesh: ``layout`` (``ops/cuda/stencil.HaloLayout``
+    of one band of R cell rows a shard, row halos, columns wrapping) and
+    ``lines`` (``stencil.exchange``'s received (top, bot, None, None)); the
+    sums the shards' (L, R, ncside) grids, cell l·R·ncside + r·ncside + c;
+    each shard's rows of the pool in turn, its halo super-row, its owned
+    ones, a halo super-row and spares (``parallel/sharded_supercell``).
+    The bits of the plain chain: the tables (``stencil.grid_tables_ref`` or
+    ``halo_tables_ref``), then ``gathered_monopole_integrate_ref``.
+    """
+    flat = _mesh_fields(x, y, vx, vy, m, mf, fxd, fyd)
+    geom = _check_super(x, sums, cell, ncside, S, layout, lines)
+    if not cell_pairs._on_card(x, "monopole and integrate pass"):
+        return supercell_monopole_integrate_ref(
+            x, y, vx, vy, m, mf, fxd, fyd, sums, cell, side, ncside, deltat,
+            S, layout, lines)
+    ncells, L, R, rows_t, row0, rows, top, bot = geom
+    cell_pairs._launch(
+        "monopole_supercell", _library().psim_monopole_supercell, x,
+        *(f.data_ptr() for f in flat), cell.data_ptr(),
+        int(cell.dtype == torch.int64), x.shape[0], x.shape[1],
+        *(t.data_ptr() for t in sums), ncells, ncside, S, L, R, rows_t,
+        _ptr(row0), _ptr(rows), _ptr(top), _ptr(bot),
+        float(np.float32(side)), 0.0, float(np.float32(deltat)),
+        float(np.float32(G)), launches=LAUNCHES)
+    return x, y, vx, vy
+
+
+def supercell_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd, sums,
+                                     cell, side: float, ncside: int,
+                                     deltat: float, S: int, layout=None,
+                                     lines=None):
+    """Plain torch version of ``supercell_monopole_integrate``: the stencil
+    tables from the sums (``ops/cuda/stencil.grid_tables_ref`` on one
+    device; on the mesh ``halo_tables_ref`` of the shards' grids and the
+    received lines), then ``gathered_monopole_integrate_ref`` at each
+    slot's cell."""
+    if layout is None:
+        tables = stencil_ops.grid_tables_ref(*sums, side, ncside,
+                                             from_sums=True)
+    else:
+        L, R = layout.row0[0].shape[0], layout.rows[0]
+        grids = [tuple(a.view(L, R, ncside) for a in sums)]
+        tables = stencil_ops.halo_tables_ref(grids, layout, lines, side,
+                                             ncside, from_sums=True)
+    return gathered_monopole_integrate_ref(x, y, vx, vy, m, mf, fxd, fyd,
+                                           tables, cell, side, deltat)
 
 
 def deliver(ts, moving, dest, row_start, at=None):

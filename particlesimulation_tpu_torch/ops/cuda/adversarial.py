@@ -889,6 +889,251 @@ def mesh_monopole_case(kcap: int = 40, seed: int = 0):
             "pool_row_index": pool_row_index, "side": float(side)}
 
 
+def _slot_fields(rng, shape, side):
+    """Random float32 slot fields of ``shape``: positions in the box,
+    velocities, masses in [0.5, 1] on about 70% of the slots (m 0 on the
+    others, -0.0 on some), small pair forces; mf = m (the caller zeroes the
+    unbinned slots')."""
+    f32 = np.float32
+    f = {"x": rng.uniform(0.0, side, shape).astype(f32),
+         "y": rng.uniform(0.0, side, shape).astype(f32),
+         "vx": rng.normal(size=shape).astype(f32),
+         "vy": rng.normal(size=shape).astype(f32),
+         "m": np.where(rng.random(shape) < 0.7,
+                       rng.uniform(0.5, 1.0, shape), 0.0).astype(f32),
+         "fxd": (rng.normal(size=shape) * 1e-3).astype(f32),
+         "fyd": (rng.normal(size=shape) * 1e-3).astype(f32)}
+    f["m"][(f["m"] == 0) & (rng.random(shape) < 0.3)] = f32(-0.0)
+    f["mf"] = f["m"].copy()
+    return f
+
+
+def _super_box(nc, S, nsc, t, mesh):
+    """Pool row t's cells: (shard, first cell row, first column, rows,
+    columns), rows 0 for a row that owns none (a mesh's halo or spare
+    super-rows)."""
+    if mesh is None:
+        scy, scx = divmod(t, nsc)
+        y0, x0 = scy * S, scx * S
+        return 0, y0, x0, min(S, nc - y0), min(S, nc - x0)
+    l, u = divmod(t, mesh["rows_t"])
+    q, scx = divmod(u, nsc)
+    q -= 1
+    if q < 0 or (q + 1) * S > mesh["rows_mine"][l]:
+        return l, 0, 0, 0, 0
+    return l, q * S, scx * S, S, S
+
+
+def _super_case(rng, name, nc, S, kcap, mesh=None, fill=0.5, full=(),
+                empty=(), limbo=0, strays=0, past=0):
+    """One case of ``supercell_monopole_cases``: slots in each row's
+    cells at about ``fill`` (rows ``full`` every slot, rows ``empty``
+    none), ``limbo`` live unbinned slots (cell -1) in row 0's tail,
+    ``strays`` live slots whose cell lies outside their row's box (an
+    undelivered mover; on a mesh also in a tail row or another shard's
+    block), ``past`` slots whose cell is past the sums; the live slots of
+    a mesh's halo and spare rows unbinned."""
+    side = float(np.float32(1.5 * nc))
+    nsc = -(-nc // S) if mesh is None else nc // S
+    if mesh is None:
+        rows, ncells = nsc * nsc, nc * nc
+    else:
+        mesh["rows_t"] = (mesh["R"] // S + 2) * nsc
+        rows, ncells = mesh["L"] * mesh["rows_t"], mesh["L"] * mesh["R"] * nc
+    f = _slot_fields(rng, (rows, kcap), side)
+    cell = np.full((rows, kcap), -1, np.int64)
+    w = np.float32(side / nc)
+    for t in range(rows):
+        l, y0, x0, h, wd = _super_box(nc, S, nsc, t, mesh)
+        live = f["m"][t] != 0
+        if t in full:
+            f["m"][t] = f["mf"][t] = rng.uniform(0.5, 1.0, kcap)
+            live[:] = True
+        elif t in empty:
+            f["m"][t] = 0.0
+            live[:] = False
+        else:
+            live &= rng.random(kcap) < fill / 0.7
+            f["m"][t][~live] = 0.0
+        if h == 0:
+            continue
+        r = y0 + rng.integers(0, h, kcap)
+        c = x0 + rng.integers(0, wd, kcap)
+        gy = r if mesh is None else mesh["row0"][l] + r
+        f["x"][t] = ((c + rng.random(kcap)) * w).astype(np.float32)
+        f["y"][t] = ((gy + rng.random(kcap)) * w).astype(np.float32)
+        R = nc if mesh is None else mesh["R"]
+        cell[t] = np.where(live, (l * R + r) * nc + c, -1)
+    live = f["m"] != 0
+    for k in range(limbo):
+        f["m"][0, kcap - 1 - k] = np.float32(0.75)
+        cell[0, kcap - 1 - k] = -1
+    flat_live = np.flatnonzero(live & (cell >= 0))
+    for i in rng.choice(flat_live, min(strays, len(flat_live)),
+                        replace=False):
+        cell.flat[i] = rng.integers(0, ncells)
+    if mesh is not None and strays:
+        # A cell in a tail row of a short shard, which reads the bottom
+        # line over that row.
+        short = [l for l in range(mesh["L"])
+                 if mesh["rows_mine"][l] < mesh["R"]]
+        if short:
+            l = short[0]
+            r = mesh["rows_mine"][l] + rng.integers(
+                0, mesh["R"] - mesh["rows_mine"][l])
+            cell.flat[flat_live[0]] = (l * mesh["R"] + r) * nc + 3 % nc
+    for i in rng.choice(flat_live, min(past, len(flat_live)), replace=False):
+        cell.flat[i] = ncells + rng.integers(0, 5)
+    f["mf"] = np.where(cell >= 0, f["m"], np.float32(0.0)).astype(np.float32)
+    sums = tuple(np.ascontiguousarray(v, np.float32)
+                 for v in _stencil_values(rng, (ncells,)))
+    if mesh is not None:
+        mesh["top"], mesh["bot"] = (
+            np.ascontiguousarray(np.moveaxis(_stencil_values(
+                rng, (mesh["L"], 1, nc)), 0, 2).astype(np.float32))
+            for _ in range(2))
+        mesh["row0"] = np.asarray(mesh["row0"], np.int64)
+        mesh["rows_mine"] = np.asarray(mesh["rows_mine"], np.int64)
+    return {"name": name, "nc": nc, "S": S, "side": side, "kcap": kcap,
+            **f, "cell": cell, "sums": sums, "mesh": mesh}
+
+
+def supercell_monopole_cases(seed: int = 0):
+    """Inputs of the super-cell engines' monopole + integrate from the cell
+    sums (``ops/cuda/advance.supercell_monopole_integrate``), as NumPy: a
+    list of dicts, each with ``name``, ``nc``, ``S``, ``side``, ``kcap``,
+    the (rows, kcap) float32 slot fields ``x, y, vx, vy, m, mf, fxd, fyd``,
+    ``cell`` (int64: each slot's cell, -1 unbinned), ``sums`` (three
+    (ncells,) float32: M, Σm·x, Σm·y, with ``_stencil_values``' empty, -0.0
+    and subnormal entries) and ``mesh``: None on one device, else the
+    shards' geometry (``L``; ``R`` cell rows a block; ``rows_t`` pool rows
+    a shard; ``row0``, ``rows_mine`` (L,) int64 cell rows; ``top``, ``bot``
+    (L, 1, 3, nc) float32 received lines of sums).
+
+    One device: ``mesh_monopole_case``'s slots as S = 1 rows of its 5 x 5
+    grid; nc = 1, 2 and 3 (neighbours alias), S not dividing nc (short
+    edge super-cells), limbo slots in row 0's tail, an empty row, a full
+    row, strays outside their row's box, cells past the sums, S = 63 (a
+    box past the shared memory the pass stages in) and S = 65 at the
+    super-cell cap of 4096 slots a row, a row of 4096 slots.
+    The mesh: four shards of 2, 2, 1 and 1 super-rows (the short ones'
+    tail rows, their halo and spare rows' live unbinned slots), and one
+    shard (a rank of a distributed mesh).
+    """
+    rng = np.random.default_rng(seed)
+    base = mesh_monopole_case(seed=seed)
+    five = {"name": "5 x 5, S 1 (mesh_monopole_case's slots)", "nc": 5,
+            "S": 1, "side": base["side"], "kcap": base["x"].shape[1],
+            **{k: base[k] for k in ("x", "y", "vx", "vy", "m", "mf", "fxd",
+                                    "fyd")},
+            "cell": base["slot_index"].copy(),
+            "sums": tuple(np.ascontiguousarray(v, np.float32)
+                          for v in _stencil_values(rng, (25,))),
+            "mesh": None}
+    five["mf"] = np.where(five["cell"] >= 0, five["mf"],
+                          np.float32(0.0)).astype(np.float32)
+    return [
+        five,
+        _super_case(rng, "nc 1", 1, 1, 8, fill=0.9),
+        _super_case(rng, "nc 2, S 1", 2, 1, 8, strays=2),
+        _super_case(rng, "nc 2, S 2", 2, 2, 16),
+        _super_case(rng, "nc 3, S 2 (short edges)", 3, 2, 12, strays=2,
+                    limbo=2),
+        _super_case(rng, "nc 7, S 3: limbo, empty and full rows, strays",
+                    7, 3, 24, full=(4,), empty=(1, 8), limbo=3, strays=6,
+                    past=3),
+        _super_case(rng, "nc 16, S 4", 16, 4, 64, fill=0.3, strays=4,
+                    limbo=2),
+        _super_case(rng, "nc 126, S 63 (past the stage)", 126, 63, 96,
+                    fill=0.4, strays=3),
+        _super_case(rng, "nc 130, S 65, rows of 4096 (past the stage)", 130,
+                    65, 4096, fill=0.3, full=(3,), limbo=2, strays=8),
+        _super_case(rng, "nc 8, S 4, a full row of 4096", 8, 4, 4096,
+                    full=(2,), fill=0.02, strays=5),
+        _super_case(rng, "mesh of 4 shards: tail rows, halo rows", 12, 2,
+                    32, mesh={"L": 4, "R": 4, "row0": [0, 4, 8, 10],
+                              "rows_mine": [4, 4, 2, 2]},
+                    fill=0.5, strays=6, limbo=2, past=2),
+        _super_case(rng, "mesh of 1 shard (a rank)", 8, 2, 16,
+                    mesh={"L": 1, "R": 4, "row0": [2], "rows_mine": [4]},
+                    strays=3),
+    ]
+
+
+def row_monopole_cases(seed: int = 0):
+    """Inputs of the resident and band meshes' monopole + integrate
+    (``ops/cuda/advance.tile_monopole_integrate`` and
+    ``gathered_monopole_integrate`` with the rows' runs), as NumPy: a list of
+    dicts, each with ``name``, ``side``, the flat float32 slot fields ``x,
+    y, vx, vy, m, mf, fxd, fyd``, ``binned`` (bool), ``row_start`` (int64),
+    ``runs`` ((rows, K) pairs), ``row_index`` (int64 a row: a cell, -1 or
+    past the tables on some rows), ``gathered`` ((8, ncells + 1) tables
+    with a zero sentinel) and ``tile`` ((nrows, 8) row tables, on a pool of
+    one width).
+
+    Bands of K 32, 96 and 896 (a row of one live slot in 896 at its far
+    end, an empty row, a full row, rows about a quarter full from their
+    start); uniform tiles of K 160; 40 runs of widths 1 to 7 (past the 32
+    runs a launch takes); rows of 1 slot.
+    """
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def case(name, runs, fill=0.25, packed=True, one=None, empty=(),
+             full=()):
+        nrows = sum(r for r, _ in runs)
+        widths = np.concatenate([np.full(r, k) for r, k in runs])
+        row_start = np.concatenate([[0], np.cumsum(widths)]).astype(np.int64)
+        n = int(row_start[-1])
+        side = 50.0
+        f = _slot_fields(rng, (n,), side)
+        live = np.zeros(n, bool)
+        for r in range(nrows):
+            a, b = row_start[r], row_start[r + 1]
+            k = b - a
+            if r in full:
+                live[a:b] = True
+            elif r in empty:
+                continue
+            elif r == one:
+                live[b - 1] = True
+            elif packed:
+                live[a:a + int(round(fill * k))] = True
+            else:
+                live[a:b] = rng.random(k) < fill
+        f["m"] = np.where(live, rng.uniform(0.5, 1.0, n), 0.0).astype(f32)
+        f["m"][~live & (rng.random(n) < 0.3)] = f32(-0.0)
+        binned = live & (rng.random(n) < 0.9)
+        f["mf"] = np.where(binned, f["m"], f32(0.0)).astype(f32)
+        ncells = nrows + 3
+        row_index = rng.permutation(nrows).astype(np.int64)
+        if nrows > 4:
+            row_index[1], row_index[3] = -1, ncells + 7
+        tabs = _stencil_values(rng, (3, 8, ncells + 1)).astype(f32)[0]
+        tabs[:, :, -1] = 0.0
+        tile = None
+        if len({k for _, k in runs}) == 1:
+            tile = tuple(np.ascontiguousarray(t[:, :nrows].T) for t in tabs)
+        return {"name": name, "side": side, **f, "binned": binned,
+                "row_start": row_start, "runs": tuple(runs),
+                "row_index": row_index,
+                "gathered": tuple(np.ascontiguousarray(t) for t in tabs),
+                "tile": tile}
+
+    return [
+        case("bands of K 32, 96, 896", ((7, 32), (5, 96), (4, 896)),
+             one=13, empty=(2, 9), full=(8,)),
+        case("tiles of K 160", ((12, 160),), fill=0.58, empty=(5,),
+             full=(0,)),
+        case("tiles of K 160, scattered", ((9, 160),), fill=0.58,
+             packed=False),
+        case("40 runs of widths 1 to 7", tuple((2, 1 + j % 7)
+                                               for j in range(40)),
+             fill=0.6, packed=False),
+        case("rows of 1 slot", ((30, 1),), fill=0.5, packed=False),
+    ]
+
+
 def _stencil_values(rng, shape):
     """(3, *shape) float64 per-cell values, read as the COM (M, MX, MY) or
     as the sums (M, Σm·x, Σm·y): empty cells (all 0), a mass of 0 beside

@@ -36,6 +36,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -91,10 +92,17 @@ def build(source: str = SOURCE, flags=()) -> str:
     directory, the hash taken over the source and the options.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``<name>.log``.
+    is kept beside the library as ``<name>.log``. The hash also covers the
+    headers the source includes by ``#include "..."`` from its directory
+    (``halo.cuh``).
     """
     with open(source, "rb") as f:
-        h = hashlib.sha256(f.read())
+        text = f.read()
+    h = hashlib.sha256(text)
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(os.path.dirname(source), name.decode()),
+                  "rb") as f:
+            h.update(f.read())
     if flags:
         h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]

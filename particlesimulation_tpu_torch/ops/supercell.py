@@ -13,11 +13,12 @@ track the particles, not the grid:
   within its super-cell: pairs interact and collide only within one cell,
   the reference's same-cell rule (serial/parsim.cpp:356-366,393-411);
 * monopole: the per-cell mass and moment sums straight onto the true
-  (ncside, ncside) grid (``cell_pairs.supercell_cell_sums``), the stencil
-  tables there from the sums (``ops/cuda/stencil.grid_tables``, one kernel;
-  periodic mirrors at cell granularity),
-  then each slot's 8 terms at its own cell and the integration in one
-  kernel (``ops/cuda/advance.gathered_monopole_integrate``);
+  (ncside, ncside) grid (``cell_pairs.supercell_cell_sums``), then each
+  slot's 8 terms at its own cell from those sums (periodic mirrors at cell
+  granularity) and the integration in one kernel
+  (``ops/cuda/advance.supercell_monopole_integrate``: each super-cell
+  row's neighbourhood staged once; no stencil table is built on the card,
+  the plain version builds it);
 * rebin: ``ops/resident.rebin`` over the super-cell grid; only super-cell
   crossers move.
 
@@ -39,7 +40,6 @@ from particlesimulation_tpu_torch.ops import binning, dense
 from particlesimulation_tpu_torch.ops import resident as res
 from particlesimulation_tpu_torch.ops.cuda import advance as advance_ops
 from particlesimulation_tpu_torch.ops.cuda import cell_pairs
-from particlesimulation_tpu_torch.ops.cuda import stencil as stencil_ops
 
 
 def choose_supercell_factor(config: SimConfig, target_occ: float = 24.0,
@@ -132,13 +132,11 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
             collisions=state.collisions, panics=state.panics,
             overflow=torch.maximum(state.overflow, ovf))
 
-    def mono_tables(ts, mf, cell):
-        """The stencil tables of the true grid: per-cell sums there (a
-        binned slot's ``cell``, -1 for the others), the tables (a zero
-        sentinel cell last)."""
-        sums = cell_pairs.supercell_cell_sums(mf, mf * ts.x, mf * ts.y, cell,
+    def mono_sums(ts, mf, cell):
+        """The true grid's per-cell sums (a binned slot's ``cell``, -1 for
+        the others), from which the monopole pass builds its terms."""
+        return cell_pairs.supercell_cell_sums(mf, mf * ts.x, mf * ts.y, cell,
                                               ncells)
-        return stencil_ops.grid_tables(*sums, side, nc, from_sums=True)
 
     def dest_fn(ts):
         rowk, _, _, valid = geometry(ts.x, ts.y)
@@ -161,13 +159,13 @@ def make_supercell_run(config: SimConfig, kcap: int, S: int,
 
     def advance(ts, fxd, fyd):
         """Phases 1-3 of a step: monopole and integrate (one kernel, in
-        place, each binned slot's terms at its own cell, the others' at the
-        sentinel), rebin."""
+        place, each binned slot's terms at its own cell from the cell sums,
+        the others' the sentinel's), rebin."""
         mf, binned, limbo_count, _, cell = physics(ts)
         cell = torch.where(binned, cell, -1)
-        advance_ops.gathered_monopole_integrate(
+        advance_ops.supercell_monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd,
-            mono_tables(ts, mf, cell), cell, side, DELTAT)
+            mono_sums(ts, mf, cell), cell, side, nc, DELTAT, S)
         ts, undelivered = res.rebin(ts, side, nsc, kcap, dest_fn=dest_fn)
         return ts, undelivered, limbo_count
 

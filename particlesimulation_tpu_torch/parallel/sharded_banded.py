@@ -135,10 +135,11 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
     offs = np.cumsum([0] + sizes).tolist()
     rbase = np.cumsum([0] + nrows_b).tolist()
     nslots = offs[-1]
-    row_start = torch.cat(
-        [o + k * torch.arange(n, device=dev)
-         for o, n, k in zip(offs, nrows_b, ks)]
-        + [torch.full((1,), nslots, device=dev)])
+    # The pool's rows as runs of one width, a band each: the row starts
+    # and the monopole pass (whose kernel finds a slot's row from the runs)
+    # read this one layout.
+    runs = tuple(zip(nrows_b, ks))
+    row_start = advance_ops.row_starts(runs, dev)
     # Per pool row: local shard, band, chunk row.
     lsh_r, band_r, lr_r = (torch.cat(t) for t in zip(*(
         (torch.arange(L, device=dev).repeat_interleave(n * nc),
@@ -313,7 +314,7 @@ def make_sharded_banded_run(config: SimConfig, mesh, plan, cap: int,
         torch.mul(mf, ts.y, out=sums[2])
         advance_ops.gathered_monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd, mono_tables(sums),
-            cell_of_row, side, DELTAT, row_start=row_start, binned=binned)
+            cell_of_row, side, DELTAT, runs, binned=binned)
         ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 

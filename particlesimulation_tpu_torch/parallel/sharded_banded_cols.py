@@ -106,10 +106,11 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
     offs = np.cumsum([0] + sizes).tolist()
     rbase = np.cumsum([0] + nrows_b).tolist()
     nslots = offs[-1]
-    row_start = torch.cat(
-        [o + k * torch.arange(n, device=dev)
-         for o, n, (_, _, k) in zip(offs, nrows_b, bands)]
-        + [torch.full((1,), nslots, device=dev)])
+    # The pool's rows as runs of one width, a band each: the row starts
+    # and the monopole pass (whose kernel finds a slot's row from the runs)
+    # read this one layout.
+    runs = tuple((n, k) for n, (_, _, k) in zip(nrows_b, bands))
+    row_start = advance_ops.row_starts(runs, dev)
     # Per pool row: shard, global row, local column; per global row: the
     # pool row of (shard 0, that row, column 0), and the stride a shard.
     shard_r, gy_r, lc_r = (torch.cat(t) for t in zip(*(
@@ -222,7 +223,7 @@ def make_sharded_banded_cols_run(config: SimConfig, mesh, plan, cap: int,
         torch.mul(mf, ts.y, out=sums[2])
         advance_ops.gathered_monopole_integrate(
             ts.x, ts.y, ts.vx, ts.vy, ts.m, mf, fxd, fyd, mono_tables(sums),
-            cell_of_row, side, DELTAT, row_start=row_start, binned=binned)
+            cell_of_row, side, DELTAT, runs, binned=binned)
         ts, undelivered = migrate(ts, ship_rounds)
         return ts, undelivered, limbo
 

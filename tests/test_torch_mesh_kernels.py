@@ -338,9 +338,10 @@ def test_mesh_monopole_is_the_plain_chain(mode):
     frozen slots' bits unchanged), give the bits of the engines' plain
     monopole + integrate on ``adversarial.mesh_monopole_case``: the row
     tables' form on the resident meshes' tiles; the gathered form by each
-    slot's index (int64, int32; negative or past the table: the sentinel;
-    with a binned mask) and by each row's (uniform rows, a band pool's
-    rows of 1 to 3K slots) with the binned mask."""
+    row's index (uniform rows, a band pool's rows of 1 to 3K slots, given
+    as their runs) with the binned mask; and the gathered plain version by
+    each slot's index (int64, int32; negative or past the table: the
+    sentinel; with a binned mask), the super-cell routes' plain chain."""
     case = adversarial.mesh_monopole_case()
     side = case["side"]
     f = _monopole_inputs(case)
@@ -355,7 +356,9 @@ def test_mesh_monopole_is_the_plain_chain(mode):
     else:
         tables = tuple(_t(t) for t in case["gathered"])
         slot = _t(case["slot_index"])
+        fn = advance.gathered_monopole_integrate
         if mode.startswith("slots"):
+            fn = advance.gathered_monopole_integrate_ref
             at = slot.int() if mode == "slots int32" else slot
             idx = torch.where((slot >= 0) & (slot < nrows), slot, sentinel)
             kw = {}
@@ -373,10 +376,10 @@ def test_mesh_monopole_is_the_plain_chain(mode):
             cell = at[row_of]
             idx = torch.where(binned & (cell >= 0) & (cell < nrows), cell,
                               sentinel)
-            kw = {"row_start": rs, "binned": binned}
+            runs = tuple((n, w) for _, n, w in advance._segments(rs))
+            kw = {"runs": runs, "binned": binned}
         want = _old_chain(f, "gathered", tables, idx, side)
-        call = (advance.gathered_monopole_integrate,
-                (tables, at, side, DELTAT), kw)
+        call = (fn, (tables, at, side, DELTAT), kw)
     fn, rest, kw = call
     before = {k: v.clone() for k, v in f.items()}
     got = fn(f["x"], f["y"], f["vx"], f["vy"], f["m"], f["mf"], f["fxd"],
@@ -428,21 +431,25 @@ def test_mesh_monopole_wrappers_check_their_inputs():
         advance.tile_monopole_integrate(*args, gathered, rs, 10.0, DELTAT)
     with pytest.raises(ValueError):  # row starts of other rows
         advance.tile_monopole_integrate(*args, tile, rs[:-1], 10.0, DELTAT)
+    runs = ((rs.numel() - 1, args[0].shape[1]),)
+    ri = _t(case["row_index"])
     with pytest.raises(TypeError):
         advance.gathered_monopole_integrate(
-            *args, gathered, _t(case["slot_index"]).float(), 10.0, DELTAT)
+            *args, gathered, ri.float(), 10.0, DELTAT, runs)
     with pytest.raises(TypeError):  # a row index of int32
         advance.gathered_monopole_integrate(
-            *args, gathered, _t(case["row_index"]).int(), 10.0, DELTAT,
-            row_start=rs)
+            *args, gathered, ri.int(), 10.0, DELTAT, runs)
+    with pytest.raises(ValueError):  # an index a slot: the plain version's
+        advance.gathered_monopole_integrate(
+            *args, gathered, _t(case["slot_index"]), 10.0, DELTAT, runs)
     with pytest.raises(ValueError):  # tables of two layouts
         advance.gathered_monopole_integrate(
             *args, (gathered[0], gathered[1].T.contiguous().T, gathered[2]),
-            _t(case["slot_index"]), 10.0, DELTAT)
+            ri, 10.0, DELTAT, runs)
     with pytest.raises(TypeError):
         advance.gathered_monopole_integrate(
-            *args[:5], args[5].double(), *args[6:], gathered,
-            _t(case["slot_index"]), 10.0, DELTAT)
+            *args[:5], args[5].double(), *args[6:], gathered, ri, 10.0,
+            DELTAT, runs)
     assert advance.LAUNCHES == before
 
 
